@@ -1,0 +1,478 @@
+"""The fused radiance-MLP kernels (forward B1, backward B2) and their wrappers.
+
+Port of ``nerf_and_dietnerf_tpu/ops/raymarch_pallas.py`` (``_forward_pallas``,
+``_backward_pallas``, the custom VJP ``_fused_mlp`` / ``apply_mlp_fused``).
+The kernels are CUDA C++ for ``sm_90a`` in ``csrc/``, built with ``nvcc`` at
+first use into ``build/kernels/`` (one shared library per kernel, compiled in
+parallel) and called through ``ctypes``.
+
+Beside each kernel is its plain PyTorch version (:func:`mlp_fwd_plain`,
+:func:`mlp_bwd_plain`), which repeats the kernel's arithmetic: operands
+rounded to the compute type, f32 products and sums, activations rounded after
+each leaky, and the backward's roundings of ``_backward_tile``. A wrapper
+takes the plain version only for tensors on the CPU; for a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from nerf_and_dietnerf_tpu_torch.models.mlp import (
+    N_TRUNK_LAYERS,
+    SKIP_AFTER,
+    MLPConfig,
+    Params,
+    round_to,
+)
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNEL_SOURCES = {"mlp_fwd": "mlp_fwd.cu", "mlp_bwd": "mlp_bwd.cu"}
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+# Limits of the kernels' shared-memory tiles (csrc/mlp_common.cuh).
+MAX_WIDTH, MAX_XYZ, MAX_DIR = 256, 64, 32
+
+# Kernel launches since the last reset_launch_counts(): one per wrapper call
+# that launched its kernel, never for the plain version.
+LAUNCHES: Dict[str, int] = {"mlp_fwd": 0, "mlp_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# --------------------------------------------------------------------------- #
+# Flat parameter layout shared with csrc/mlp_common.cuh                        #
+# --------------------------------------------------------------------------- #
+
+def _trunk_w(layer: int) -> int:
+    return layer if layer < SKIP_AFTER else layer + 1
+
+
+def weight_shapes(config: MLPConfig) -> Tuple[List[Tuple[int, int]], List[int]]:
+    """``(K, N)`` of each weight matrix and the width of each bias, in the
+    kernels' order (the JAX package's ``_flatten_params`` order)."""
+    x, d, h, last = config.xyz_dim, config.dir_dim, config.hidden_dim, config.last_hidden_dim
+    ws = [(x, h)] + [(h, h)] * 3 + [(x, h), (h, h)] + [(h, h)] * 3
+    bs = [h] * N_TRUNK_LAYERS
+    if config.uses_view_dirs:
+        ws += [(h, last), (d, last), (last, 3), (h, 1), (d, 1)]
+        bs += [last, 3, 1]
+    else:
+        ws += [(h, h), (h, last), (last, 3), (h, 1)]
+        bs += [h, last, 3, 1]
+    return ws, bs
+
+
+def _head_names(config: MLPConfig):
+    if config.uses_view_dirs:
+        return ("rgb_hidden", "rgb_out", "sigma_out")
+    return ("rgb_hidden0", "rgb_hidden", "rgb_out", "sigma_out")
+
+
+def flatten_params(params: Params, config: MLPConfig, dtype):
+    """``(ws, bs)``: weight matrices cast to ``dtype`` (the skip layer's and the
+    view heads' split in two), biases in f32."""
+    xyz, hid = config.xyz_dim, config.hidden_dim
+    ws, bs = [], []
+    for layer in range(N_TRUNK_LAYERS):
+        p = params["trunk"][layer]
+        w = p["kernel"]
+        ws += [w[:xyz], w[xyz:]] if layer == SKIP_AFTER else [w]
+        bs.append(p["bias"])
+    if config.uses_view_dirs:
+        wrh = params["rgb_hidden"]["kernel"]
+        wsig = params["sigma_out"]["kernel"]
+        ws += [wrh[:hid], wrh[hid:], params["rgb_out"]["kernel"], wsig[:hid], wsig[hid:]]
+    else:
+        ws += [params[k]["kernel"] for k in _head_names(config)]
+    bs += [params[k]["bias"] for k in _head_names(config)]
+    return ([w.to(dtype).contiguous() for w in ws],
+            [b.to(torch.float32).contiguous() for b in bs])
+
+
+def unflatten_grads(dws, dbs, config: MLPConfig) -> Params:
+    """Parameter-tree gradients from the flat kernel/bias gradients."""
+    out: Params = {"trunk": []}
+    for layer in range(N_TRUNK_LAYERS):
+        if layer == SKIP_AFTER:
+            kernel = torch.cat([dws[SKIP_AFTER], dws[SKIP_AFTER + 1]], dim=0)
+        else:
+            kernel = dws[_trunk_w(layer)]
+        out["trunk"].append({"kernel": kernel, "bias": dbs[layer]})
+    i, b = N_TRUNK_LAYERS + 1, N_TRUNK_LAYERS
+    if config.uses_view_dirs:
+        out["rgb_hidden"] = {"kernel": torch.cat([dws[i], dws[i + 1]], 0), "bias": dbs[b]}
+        out["rgb_out"] = {"kernel": dws[i + 2], "bias": dbs[b + 1]}
+        out["sigma_out"] = {"kernel": torch.cat([dws[i + 3], dws[i + 4]], 0), "bias": dbs[b + 2]}
+    else:
+        for j, name in enumerate(_head_names(config)):
+            out[name] = {"kernel": dws[i + j], "bias": dbs[b + j]}
+    return out
+
+
+def mlp_leaves(params: Params, config: MLPConfig) -> List[torch.Tensor]:
+    """Kernel and bias of each dense layer, in creation order."""
+    layers = list(params["trunk"]) + [params[k] for k in _head_names(config)]
+    return [t for p in layers for t in (p["kernel"], p["bias"])]
+
+
+def _tree_from_leaves(leaves, config: MLPConfig) -> Params:
+    pairs = [{"kernel": leaves[2 * i], "bias": leaves[2 * i + 1]}
+             for i in range(len(leaves) // 2)]
+    out: Params = {"trunk": pairs[:N_TRUNK_LAYERS]}
+    for name, p in zip(_head_names(config), pairs[N_TRUNK_LAYERS:]):
+        out[name] = p
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Plain versions                                                               #
+# --------------------------------------------------------------------------- #
+
+def _leaky(x, alpha):
+    return torch.where(x >= 0, x, alpha * x)
+
+
+def _leaky_bwd(post, g, alpha):
+    """The sign of the post-activation picks the branch (ties >= 0)."""
+    return torch.where(post >= 0, g, alpha * g)
+
+
+def _forward_plain(ws, bs, config: MLPConfig, x, d, cd):
+    alpha = config.leaky_relu_alpha
+    W = [w.float() for w in ws]
+    x = x.float()
+    d = d.float() if d is not None else None
+    acts = []
+    h = x
+    for layer in range(N_TRUNK_LAYERS):
+        if layer == SKIP_AFTER:
+            pre = x @ W[SKIP_AFTER] + h @ W[SKIP_AFTER + 1] + bs[layer]
+        else:
+            pre = h @ W[_trunk_w(layer)] + bs[layer]
+        h = round_to(_leaky(pre, alpha), cd)
+        acts.append(h)
+    b = N_TRUNK_LAYERS
+    if config.uses_view_dirs:
+        rgb_h = round_to(_leaky(h @ W[9] + d @ W[10] + bs[b], alpha), cd)
+        rgb = rgb_h @ W[11] + bs[b + 1]
+        sigma = h @ W[12] + d @ W[13] + bs[b + 2]
+        acts.append(rgb_h)
+    else:
+        r0 = round_to(_leaky(h @ W[9] + bs[b], alpha), cd)
+        rgb_h = round_to(_leaky(r0 @ W[10] + bs[b + 1], alpha), cd)
+        rgb = rgb_h @ W[11] + bs[b + 2]
+        sigma = h @ W[12] + bs[b + 3]
+        acts += [r0, rgb_h]
+    return torch.cat([rgb, sigma], dim=-1), acts
+
+
+def mlp_fwd_plain(ws, bs, config: MLPConfig, x, d, compute_dtype) -> torch.Tensor:
+    """Plain version of B1: ``(n, 4)`` f32 raw output."""
+    return _forward_plain(ws, bs, config, x, d, compute_dtype)[0]
+
+
+def mlp_bwd_plain(ws, bs, config: MLPConfig, x, d, g, compute_dtype):
+    """Plain version of B2: ``(dws, dbs, dx, dd)`` for the cotangent ``g``
+    (n, 4), with the roundings of the JAX package's ``_backward_tile``."""
+    cd = compute_dtype
+    alpha = config.leaky_relu_alpha
+    W = [w.float() for w in ws]
+    xf = x.float()
+    df = d.float() if d is not None else None
+    _, acts = _forward_plain(ws, bs, config, x, d, cd)
+    g = g.float()
+    grgb, gsig = g[:, 0:3], g[:, 3:4]
+    gsig_cd = round_to(gsig, cd)
+    alpha_cd = float(round_to(torch.tensor(alpha, dtype=torch.float32), cd))
+
+    def head_grad(post, gg):  # cotangent rounded to cd; slope and product in cd
+        t = round_to(gg, cd)
+        return torch.where(post >= 0, t, round_to(alpha_cd * t, cd))
+
+    dW: List[Optional[torch.Tensor]] = [None] * len(ws)
+    dB: List[Optional[torch.Tensor]] = [None] * len(bs)
+    h8 = acts[N_TRUNK_LAYERS - 1]
+    b = N_TRUNK_LAYERS
+    dd = None
+    if config.uses_view_dirs:
+        rgb_h = acts[-1]
+        dW[11], dB[b + 1] = rgb_h.T @ grgb, grgb.sum(0)
+        g_rgb_h = head_grad(rgb_h, grgb @ W[11].T)
+        dW[9], dW[10], dB[b] = h8.T @ g_rgb_h, df.T @ g_rgb_h, g_rgb_h.sum(0)
+        dW[12], dW[13], dB[b + 2] = h8.T @ gsig, df.T @ gsig, gsig.sum(0)
+        g_h = g_rgb_h @ W[9].T + gsig_cd @ W[12].T
+        dd = g_rgb_h @ W[10].T + gsig_cd @ W[13].T
+    else:
+        r0, rgb_h = acts[-2], acts[-1]
+        dW[11], dB[b + 2] = rgb_h.T @ grgb, grgb.sum(0)
+        g_rgb_h = head_grad(rgb_h, grgb @ W[11].T)
+        dW[10], dB[b + 1] = r0.T @ g_rgb_h, g_rgb_h.sum(0)
+        g_r0 = head_grad(r0, g_rgb_h @ W[10].T)
+        dW[9], dB[b] = h8.T @ g_r0, g_r0.sum(0)
+        dW[12], dB[b + 3] = h8.T @ gsig, gsig.sum(0)
+        g_h = g_r0 @ W[9].T + gsig_cd @ W[12].T
+
+    g_x = torch.zeros_like(xf)
+    for layer in reversed(range(N_TRUNK_LAYERS)):
+        g_pre = round_to(_leaky_bwd(acts[layer], g_h, alpha), cd)
+        prev = acts[layer - 1] if layer > 0 else xf
+        dB[layer] = g_pre.sum(0)
+        if layer == SKIP_AFTER:
+            dW[SKIP_AFTER] = xf.T @ g_pre
+            dW[SKIP_AFTER + 1] = prev.T @ g_pre
+            g_x = g_x + g_pre @ W[SKIP_AFTER].T
+            g_h = g_pre @ W[SKIP_AFTER + 1].T
+        else:
+            wi = _trunk_w(layer)
+            dW[wi] = prev.T @ g_pre
+            g_h = g_pre @ W[wi].T
+    return dW, dB, g_x + g_h, dd
+
+
+# --------------------------------------------------------------------------- #
+# Build and load                                                               #
+# --------------------------------------------------------------------------- #
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in ("mlp_common.cuh", KERNEL_SOURCES[name]):
+        h.update((CSRC_DIR / f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(nvcc).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+    return nvcc
+
+
+def build_kernels() -> Dict[str, object]:
+    """Compile every kernel library not yet built, one ``nvcc`` per source, all
+    started together. Returns ``{"seconds": wall time, "log": compiler output}``
+    (the log holds ``-Xptxas -v``'s registers, shared memory and spills)."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in KERNEL_SOURCES.items():
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(".tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    log = []
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        log.append(f"--- {name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            tmp.replace(out)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+    return {"seconds": time.perf_counter() - t0, "log": "\n".join(log)}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _LIBS:
+        path = _lib_path(name)
+        if not path.exists():
+            build_kernels()
+        lib = ctypes.CDLL(str(path))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "mlp_fwd":
+            lib.nerf_mlp_fwd.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, f, p]
+            lib.nerf_mlp_fwd.restype = i
+        else:
+            lib.nerf_mlp_bwd.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p,
+                                         i, i, i, i, i, i, f, p]
+            lib.nerf_mlp_bwd.restype = i
+            lib.nerf_mlp_param_count.argtypes = [i, i, i, i, i]
+            lib.nerf_mlp_param_count.restype = ctypes.c_longlong
+            lib.nerf_mlp_bwd_rows_per_tile.restype = i
+            lib.nerf_mlp_bwd_act_slots.restype = i
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+# --------------------------------------------------------------------------- #
+# Wrappers                                                                     #
+# --------------------------------------------------------------------------- #
+
+def _uses_kernel(x: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors; any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"the MLP kernels run on CUDA tensors; got device {x.device}")
+    return True
+
+
+def _check(config: MLPConfig, ws, bs, x, d, cd, n: int) -> None:
+    if cd not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got {cd}")
+    if (config.hidden_dim > MAX_WIDTH or config.last_hidden_dim > MAX_WIDTH
+            or config.xyz_dim > MAX_XYZ or config.dir_dim > MAX_DIR):
+        raise ValueError(f"MLP widths exceed the kernels' limits: {config}")
+    w_shapes, b_shapes = weight_shapes(config)
+    dev = x.device
+    tensors = [(x, (n, config.xyz_dim), cd)]
+    if config.uses_view_dirs:
+        tensors.append((d, (n, config.dir_dim), cd))
+    tensors += [(w, s, cd) for w, s in zip(ws, w_shapes)]
+    tensors += [(b, (s,), torch.float32) for b, s in zip(bs, b_shapes)]
+    if len(ws) != len(w_shapes) or len(bs) != len(b_shapes):
+        raise ValueError("parameter list does not match the MLP config")
+    for t, shape, dtype in tensors:
+        if t is None or t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            got = None if t is None else (tuple(t.shape), t.dtype, t.device)
+            raise ValueError(f"expected {shape} {dtype} on {dev}, got {got}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+def _flat(ts) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in ts])
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def mlp_fwd(ws, bs, config: MLPConfig, x, d, compute_dtype) -> torch.Tensor:
+    """B1: ``(n, 4)`` f32 raw radiance. ``x`` (n, xyz) and ``d`` (n, dir) in
+    the compute dtype, ``ws`` / ``bs`` from :func:`flatten_params`."""
+    if not _uses_kernel(x):
+        return mlp_fwd_plain(ws, bs, config, x, d, compute_dtype)
+    n = x.shape[0]
+    _check(config, ws, bs, x, d, compute_dtype, n)
+    out = torch.empty((n, 4), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    w, b = _flat(ws), _flat(bs)
+    has_dir = int(config.uses_view_dirs)
+    rc = _lib("mlp_fwd").nerf_mlp_fwd(
+        int(compute_dtype == torch.bfloat16), has_dir, x.data_ptr(),
+        d.data_ptr() if has_dir else None, w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        n, config.xyz_dim, config.dir_dim if has_dir else 0, config.hidden_dim,
+        config.last_hidden_dim, config.leaky_relu_alpha, _stream(x.device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"mlp_fwd launch failed: CUDA error {rc}")
+    LAUNCHES["mlp_fwd"] += 1
+    return out
+
+
+def mlp_bwd(ws, bs, config: MLPConfig, x, d, g, compute_dtype):
+    """B2: ``(dws, dbs, dx, dd)`` for the (n, 4) f32 cotangent ``g``. Weight
+    and bias gradients are f32 sums over all rows, bitwise reproducible."""
+    if not _uses_kernel(x):
+        return mlp_bwd_plain(ws, bs, config, x, d, g, compute_dtype)
+    n = x.shape[0]
+    _check(config, ws, bs, x, d, compute_dtype, n)
+    if g.device != x.device or g.dtype != torch.float32 or tuple(g.shape) != (n, 4) \
+            or not g.is_contiguous():
+        raise ValueError(f"cotangent must be contiguous ({n}, 4) float32 on {x.device}")
+    lib = _lib("mlp_bwd")
+    dev = x.device
+    has_dir = int(config.uses_view_dirs)
+    dir_dim = config.dir_dim if has_dir else 0
+    w_shapes, b_shapes = weight_shapes(config)
+    p_total = lib.nerf_mlp_param_count(has_dir, config.xyz_dim, dir_dim, config.hidden_dim,
+                                       config.last_hidden_dim)
+    if p_total != sum(k * m for k, m in w_shapes) + sum(b_shapes):
+        raise RuntimeError("kernel and wrapper disagree on the parameter layout")
+    dx = torch.empty((n, config.xyz_dim), dtype=torch.float32, device=dev)
+    dd = torch.empty((n, dir_dim), dtype=torch.float32, device=dev) if has_dir else None
+    dparams = torch.empty((p_total,), dtype=torch.float32, device=dev)
+    if n == 0:
+        dparams.zero_()
+    else:
+        tiles = -(-n // lib.nerf_mlp_bwd_rows_per_tile())
+        n_blocks = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+        partial = torch.empty((n_blocks * p_total,), dtype=torch.float32, device=dev)
+        acts = torch.empty((n_blocks * lib.nerf_mlp_bwd_act_slots(),), dtype=compute_dtype,
+                           device=dev)
+        w, b = _flat(ws), _flat(bs)
+        wt = _flat([t.t() for t in ws])
+        rc = lib.nerf_mlp_bwd(
+            int(compute_dtype == torch.bfloat16), has_dir, x.data_ptr(),
+            d.data_ptr() if has_dir else None, w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), dd.data_ptr() if has_dir else None,
+            partial.data_ptr(), acts.data_ptr(), dparams.data_ptr(), n_blocks,
+            n, config.xyz_dim, dir_dim, config.hidden_dim, config.last_hidden_dim,
+            config.leaky_relu_alpha, _stream(dev),
+        )
+        if rc != 0:
+            raise RuntimeError(f"mlp_bwd launch failed: CUDA error {rc}")
+        LAUNCHES["mlp_bwd"] += 1
+    sizes = [k * m for k, m in w_shapes] + list(b_shapes)
+    parts = torch.split(dparams, sizes)
+    dws = [p.view(s) for p, s in zip(parts[: len(w_shapes)], w_shapes)]
+    dbs = list(parts[len(w_shapes):])
+    return dws, dbs, dx, dd
+
+
+# --------------------------------------------------------------------------- #
+# autograd.Function: drop-in for models.mlp.apply_mlp                          #
+# --------------------------------------------------------------------------- #
+
+def _input_dtype(cd):
+    return torch.bfloat16 if cd == torch.bfloat16 else torch.float32
+
+
+class FusedMLP(torch.autograd.Function):
+    """B1 forward, B2 backward. Inputs after the encodings are the parameter
+    leaves of :func:`mlp_leaves`."""
+
+    @staticmethod
+    def forward(ctx, config, cd, enc_xyz, enc_dir, *leaves):
+        ws, bs = flatten_params(_tree_from_leaves(leaves, config), config, cd)
+        x = enc_xyz.to(_input_dtype(cd)).contiguous()
+        d = enc_dir.to(_input_dtype(cd)).contiguous() if enc_dir is not None else None
+        ctx.config, ctx.cd = config, cd
+        ctx.save_for_backward(x, d, *leaves)
+        return mlp_fwd(ws, bs, config, x, d, cd)
+
+    @staticmethod
+    def backward(ctx, g):
+        config, cd = ctx.config, ctx.cd
+        x, d, *leaves = ctx.saved_tensors
+        ws, bs = flatten_params(_tree_from_leaves(leaves, config), config, cd)
+        dws, dbs, dx, dd = mlp_bwd(ws, bs, config, x, d, g.float().contiguous(), cd)
+        dleaves = mlp_leaves(unflatten_grads(dws, dbs, config), config)
+        dleaves = [dl.to(leaf.dtype) for dl, leaf in zip(dleaves, leaves)]
+        return (None, None, dx, dd, *dleaves)
+
+
+def apply_mlp_fused(params: Params, config: MLPConfig, enc_xyz: torch.Tensor,
+                    enc_dir: torch.Tensor | None = None,
+                    compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel drop-in for :func:`models.mlp.apply_mlp` (pre-encoded inputs in,
+    ``(n, 4)`` f32 raw radiance out)."""
+    if config.uses_view_dirs and enc_dir is None:
+        raise ValueError("this MLP config requires encoded view directions")
+    if not config.uses_view_dirs:
+        enc_dir = None
+    return FusedMLP.apply(config, compute_dtype, enc_xyz, enc_dir, *mlp_leaves(params, config))

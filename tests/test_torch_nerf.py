@@ -1,0 +1,130 @@
+"""Port vs JAX package: the NeRF model (losses, gradients, renders) at width 32."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerf_and_dietnerf_tpu.core import sampling as jsam
+from nerf_and_dietnerf_tpu.models import mlp as jm
+from nerf_and_dietnerf_tpu.models import nerf as jn
+from nerf_and_dietnerf_tpu_torch.models import mlp as tm
+from nerf_and_dietnerf_tpu_torch.models import nerf as tn
+from nerf_and_dietnerf_tpu_torch.train.train_step import loss_and_grads
+from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
+
+MLP = dict(hidden_dim=32, last_hidden_dim=16, n_freq_xyz=3, n_freq_dir=2, n_angles=2)
+N_RAYS, N_C, N_F = 24, 8, 12
+# f32 throughout; the losses differ by summation order only. Gradients are
+# scaled by each leaf's max |value|.
+LOSS_RTOL, GRAD_TOL = 1e-5, 1e-4
+
+
+def _configs(backend, **kw):
+    common = dict(n_samples_coarse=N_C, n_samples_fine=N_F, near=2.0, far=6.0,
+                  backend=backend, **kw)
+    return (jn.NeRFConfig(mlp=jm.MLPConfig(**MLP), compute_dtype=jnp.float32, **common),
+            tn.NeRFConfig(mlp=tm.MLPConfig(**MLP), compute_dtype=torch.float32, **common))
+
+
+def _rays(seed=0):
+    rng = np.random.default_rng(seed)
+    orig = np.concatenate([rng.normal(size=(N_RAYS, 3)) * 0.2, np.ones((N_RAYS, 1))], -1)
+    dirs = np.concatenate([rng.normal(size=(N_RAYS, 3)) * 0.3 + [0, 0, 1],
+                           np.zeros((N_RAYS, 1))], -1)
+    rgb = rng.uniform(size=(N_RAYS, 3))
+    return [a.astype(np.float32) for a in (orig, dirs, rgb)]
+
+
+def _params(jcfg):
+    p = jn.init_params(jax.random.PRNGKey(0), jcfg)
+    return p, tm.params_from_jax(p)
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _assert_grads(tg, jg):
+    jl, tl = jax.tree.leaves(jg), tree_leaves(tg)
+    assert len(jl) == len(tl) == 44
+    for a, b in zip(tl, jl):
+        b = np.asarray(b)
+        scale = max(1e-8, float(np.abs(b).max()))
+        np.testing.assert_allclose(a.numpy() / scale, b / scale, atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_fixed_z_loss_and_all_grads_match_jax(backend):
+    jcfg, tcfg = _configs(backend)
+    jp, tp = _params(jcfg)
+    orig, dirs, rgb = _rays()
+    rng = np.random.default_rng(1)
+    z_c = np.sort(rng.uniform(2, 6, (N_RAYS, N_C)), -1).astype(np.float32)
+    z_f = np.sort(rng.uniform(2, 6, (N_RAYS, N_F)), -1).astype(np.float32)
+    jloss, jg = jax.value_and_grad(
+        lambda p: jn.training_losses_fixed_z(p, jcfg, orig, dirs, rgb, z_c, z_f))(jp)
+    tloss, _, tg = loss_and_grads(
+        tp, lambda p: (tn.training_losses_fixed_z(p, tcfg, _t(orig), _t(dirs), _t(rgb),
+                                                  _t(z_c), _t(z_f)), None))
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=LOSS_RTOL)
+    _assert_grads(tg, jg)
+
+
+def test_training_losses_with_injected_draws_match_jax():
+    jcfg, tcfg = _configs("pallas", sigma_noise_std=0.5)
+    jp, tp = _params(jcfg)
+    orig, dirs, rgb = _rays(2)
+    key = jax.random.PRNGKey(3)
+    k_strat, k_res, k_nc, k_nf = jax.random.split(key, 4)
+    draws = {
+        "strat_u": jax.random.uniform(k_strat, (N_RAYS, N_C)),
+        "fine_u": jsam.sorted_uniforms(k_res, (N_RAYS,), N_F),
+        "noise_coarse": jax.random.normal(k_nc, (N_RAYS, N_C)),
+        "noise_fine": jax.random.normal(k_nf, (N_RAYS, N_F)),
+    }
+    (jloss, jm_), jg = jax.value_and_grad(
+        lambda p: jn.training_losses(p, jcfg, key, orig, dirs, rgb), has_aux=True)(jp)
+    tloss, tmet, tg = loss_and_grads(
+        tp, lambda p: tn.training_losses(p, tcfg, None, _t(orig), _t(dirs), _t(rgb),
+                                         draws={k: _t(v) for k, v in draws.items()}))
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=LOSS_RTOL)
+    for k in ("loss", "psnr_coarse", "psnr_fine"):
+        np.testing.assert_allclose(float(tmet[k]), float(jm_[k]), rtol=1e-5)
+    _assert_grads(tg, jg)
+
+
+@pytest.mark.parametrize("diagnostics", [True, False])
+def test_render_deterministic_matches_jax(diagnostics):
+    jcfg, tcfg = _configs("pallas")
+    jp, tp = _params(jcfg)
+    orig, dirs, _ = _rays(4)
+    jr, jz = jn.render(jp, jcfg, None, orig, dirs, diagnostics=diagnostics)
+    tr, tz = tn.render(tp, tcfg, None, _t(orig), _t(dirs), diagnostics=diagnostics)
+    assert tz.shape == (N_RAYS, N_C + N_F)
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), atol=1e-5)
+    for a, b in zip(tr, jr):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+def test_render_image_matches_jax_and_pads_chunks():
+    jcfg, tcfg = _configs("xla")
+    jp, tp = _params(jcfg)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 4.0
+    jr, jz = jn.render_image(jp, jcfg, None, c2w, 0.7, 5, 7, chunk_size=16, diagnostics=False)
+    tr, tz = tn.render_image(tp, tcfg, None, c2w, 0.7, 5, 7, chunk_size=16, diagnostics=False,
+                             device="cpu")
+    assert tr.rgb.shape == (5, 7, 3) and tr.cumprod is None
+    np.testing.assert_allclose(tr.rgb.numpy(), np.asarray(jr.rgb), atol=1e-5)
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), atol=1e-5)
+
+
+def test_unported_research_paths_raise():
+    for kw, item in ((dict(backend="pallas_rm"), "B6"), (dict(fuse_compositing=True), "B4"),
+                     (dict(fuse_fine_loss=True), "B5")):
+        with pytest.raises(NotImplementedError, match=item):
+            tn.NeRFConfig(**kw)
