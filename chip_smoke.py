@@ -3,21 +3,30 @@
 
     python3 chip_smoke.py
 
-Builds the radiance-MLP kernels (B1 ``mlp_fwd``, B2 ``mlp_bwd``) from
-``nerf_and_dietnerf_tpu_torch/csrc`` with ``nvcc`` into ``build/kernels/``,
-holds each against its plain PyTorch version at the flagship widths in bf16
-and f32, checks that B2's gradients are bitwise reproducible, then trains the
-flagship-width NeRF (4096 rays, 64 + 128 samples, 256/128 wide, bf16 step,
-f32 eval renders) for two epochs on a synthetic scene made from a seed,
-saves and restores its state, and prints timings beside the card's name and
+Builds every kernel of the port from ``nerf_and_dietnerf_tpu_torch/csrc``
+with ``nvcc`` into ``build/kernels/`` (one process per source, in parallel):
+the radiance-MLP kernels B1 ``mlp_fwd`` and B2 ``mlp_bwd``, and the fused
+ray-march kernels B6 ``raymarch_fwd`` / ``raymarch_bwd`` and B7
+``raymarch_comp_fwd`` / ``raymarch_comp_bwd``. Holds each against its plain
+PyTorch version at the flagship widths in bf16 and f32 (both MLP variants;
+the ray-march kernels at 64 samples per ray, in bf16 also at the fine pass's
+128, in f32 also at a ragged 100, and their forwards at the eval render's
+192), checks that the backwards' parameter gradients are bitwise reproducible,
+then drives the three training paths at flagship width (4096 rays, 64 + 128
+samples, 256/128 wide, bf16 step, f32 eval renders) on a synthetic scene
+made from a seed, each for two epochs with the launch counts set to 0 just
+before it: backend "pallas" through the ``Trainer`` (B1, B2; with a state
+save and restore), backend "pallas_rm" through the ``Trainer`` (B6, eval
+renders included), and "pallas_rm" with ``fuse_compositing`` through
+``train_step.make_epoch_fn`` (B7). Prints timings beside the card's name and
 power limit. Any failed phase raises and the script exits non-zero; without
 a GPU, or without the package beside it, it exits non-zero before printing
 a result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it holds the card's name and power limit, and the one before
-that the per-kernel JSON record.
+the line before it holds the per-kernel JSON record, and the one before that
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -51,6 +60,22 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # relative, carried through the rest of the chain).
 TOL_BWD = {"float32": 1e-3, "bfloat16": 2e-2}
 TOL_ROWS = {"float32": 5e-3, "bfloat16": 2e-2}
+# Ray-march kernels (B6, B7) against their plain versions. The forwards add
+# the encodings, built in the kernel with the same f32 operations and the
+# same library sin as the plain version; a 1-ulp difference of a sin can flip
+# a bf16 rounding of a feature, so the forward tolerances are TOL's. B7's
+# pixels and weights pass the raw values through exp and a running product
+# of up to 192 factors, which moves a raw value's rounding by a factor of
+# order one: held to TOL as well, scaled by max |plain|. Backwards: dparams
+# as B2's (TOL_BWD, positive cotangents); dz sums the dx of a row times
+# cos(theta) f_k (f_k up to 16 pi at L = 5), so a leaky-branch flip in one
+# row moves that row's dz whole: held normwise to TOL_ROWS, like dx / dd.
+# Sample counts the ray-march kernels are held at: the coarse pass (64), the
+# fine pass (128, bf16, all four kernels), the eval render's merged count (192,
+# f32 forwards) and a count that is not a multiple of the 64-row chunk B7 walks
+# a ray in (100, f32, all four kernels: one full chunk and one part-filled).
+RAYS, SAMPLES, SAMPLES_EVAL, SAMPLES_RAGGED = 4096, 64, 192, 100
+DEVICE = "cuda"  # every tensor of the run; main() refuses to start without a GPU
 # H100 SXM peaks: dense bf16 tensor-core and non-tensor f32 rates, HBM rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -85,13 +110,13 @@ def _mlp_flops(cfg, n):
 def _inputs(torch, cfg, cd, n, gen):
     from nerf_and_dietnerf_tpu_torch.core import encoding
 
-    pts = torch.rand((n, 3), generator=gen, device="cuda") * 2 - 1
+    pts = torch.rand((n, 3), generator=gen, device=DEVICE) * 2 - 1
     x = encoding.encode_xyz(pts, cfg.n_freq_xyz).to(cd).contiguous()
     d = None
     if cfg.uses_view_dirs:
-        dirs = torch.randn((n, cfg.n_angles + 1), generator=gen, device="cuda")
+        dirs = torch.randn((n, cfg.n_angles + 1), generator=gen, device=DEVICE)
         d = encoding.encode_view_dirs(dirs, cfg.n_freq_dir).to(cd).contiguous()
-    g = (0.5 + torch.rand((n, 4), generator=gen, device="cuda")).contiguous()
+    g = (0.5 + torch.rand((n, 4), generator=gen, device=DEVICE)).contiguous()
     return x, d, g
 
 
@@ -149,12 +174,13 @@ def _library_mlp(torch, ws, bs, cfg, x, d):
 
 def kernel_phases(torch, timings: dict) -> None:
     from nerf_and_dietnerf_tpu_torch.models import mlp
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
     from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
         cfg = mlp.MLPConfig(n_angles=n_angles)
-        params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device="cuda")
+        params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
         for cd in (torch.bfloat16, torch.float32):
             name = str(cd).split(".")[-1]
             tol = TOL[name]
@@ -224,9 +250,9 @@ def kernel_phases(torch, timings: dict) -> None:
                  in_bytes + N_ROWS * 16 + N_ROWS * (cfg.xyz_dim + cfg.dir_dim) * 4
                  + n_par * 4),
             ):
-                before = dict(rc.LAUNCHES)
+                before = dict(kl.LAUNCHES)
                 ms = _time_ms(torch, fn)
-                rc.LAUNCHES.update(before)  # timing launches are not the main path's
+                kl.LAUNCHES.update(before)  # timing launches are not the main path's
                 rec[kname] = {
                     "rows": N_ROWS, "dtype": name,
                     "ms": ms,
@@ -240,12 +266,12 @@ def kernel_phases(torch, timings: dict) -> None:
             if cd == torch.bfloat16:
                 # The fine pass of a train step runs both kernels on twice the rows.
                 x2, d2, g2 = (torch.cat([t, t]) for t in (x, d, g))
-                before = dict(rc.LAUNCHES)
+                before = dict(kl.LAUNCHES)
                 rec["mlp_fwd"]["ms_fine_pass"] = _time_ms(
                     torch, lambda: rc.mlp_fwd(ws, bs, cfg, x2, d2, cd), reps=3)
                 rec["mlp_bwd"]["ms_fine_pass"] = _time_ms(
                     torch, lambda: rc.mlp_bwd(ws, bs, cfg, x2, d2, g2, cd), reps=3)
-                rc.LAUNCHES.update(before)
+                kl.LAUNCHES.update(before)
                 log(f"time fine pass ({2 * N_ROWS} rows, bf16): mlp_fwd "
                     f"{rec['mlp_fwd']['ms_fine_pass']:.3f} ms, mlp_bwd "
                     f"{rec['mlp_bwd']['ms_fine_pass']:.3f} ms")
@@ -254,6 +280,260 @@ def kernel_phases(torch, timings: dict) -> None:
                 log(f"time {kname} {name} rows={N_ROWS}: kernel {r['ms']:.3f} ms, plain "
                     f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound "
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+# --------------------------------------------------------------------------- #
+# Ray-march kernel phases (B6, B7)                                             #
+# --------------------------------------------------------------------------- #
+
+RM_SOURCES = {
+    "raymarch_fwd": ("nerf_and_dietnerf_tpu_torch/csrc/raymarch_fwd.cu",
+                     "nerf_and_dietnerf_tpu/ops/research_kernels.py:373"),
+    "raymarch_bwd": ("nerf_and_dietnerf_tpu_torch/csrc/raymarch_bwd.cu",
+                     "nerf_and_dietnerf_tpu/ops/research_kernels.py:410"),
+    "raymarch_comp_fwd": ("nerf_and_dietnerf_tpu_torch/csrc/raymarch_comp_fwd.cu",
+                          "nerf_and_dietnerf_tpu/ops/research_kernels.py:932"),
+    "raymarch_comp_bwd": ("nerf_and_dietnerf_tpu_torch/csrc/raymarch_comp_bwd.cu",
+                          "nerf_and_dietnerf_tpu/ops/research_kernels.py:975"),
+}
+
+
+def _ray_batch(torch, cfg, n_rays, n_samples, gen):
+    """Origins on a radius-4 sphere, unnormalised directions towards its
+    centre, z sorted in [2, 6]: points reach |x| ~ 10, theta ~ 500 rad."""
+    from nerf_and_dietnerf_tpu_torch.core import cameras
+    from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
+
+    o = torch.randn((n_rays, 3), generator=gen, device=DEVICE)
+    o = 4 * o / o.norm(dim=1, keepdim=True)
+    d = -o / 4 + 0.3 * torch.randn((n_rays, 3), generator=gen, device=DEVICE)
+    vc = cameras.view_direction_components(d, cfg.n_angles) if cfg.uses_view_dirs else None
+    z = torch.sort(2 + 4 * torch.rand((n_rays, n_samples), generator=gen, device=DEVICE),
+                   dim=1).values.contiguous()
+    return rk.pack_rays(cfg, o, d, vc), z
+
+
+def _library_raymarch(torch, ws, bs, cfg, rd, z, composite):
+    """The yardstick: a composition of the port's torch encodings, the
+    ``torch.addmm`` chain of :func:`_library_mlp` and (for B7)
+    ``core.rendering.composite``. No single PyTorch call computes B6 or B7;
+    the port never calls this."""
+    from nerf_and_dietnerf_tpu_torch.core import encoding, rendering
+
+    n_rays, n_samples = z.shape
+    cd = ws[0].dtype
+    pts = (rd[:, None, 0:3] + z[..., None] * rd[:, None, 3:6]).reshape(-1, 3)
+    x = encoding.encode_xyz(pts, cfg.n_freq_xyz).to(cd)
+    d = None
+    if cfg.uses_view_dirs:
+        e = encoding.encode_view_dirs(rd[:, 6:], cfg.n_freq_dir).to(cd)
+        d = e[:, None, :].expand(n_rays, n_samples, e.shape[-1]).reshape(-1, e.shape[-1])
+    raw = _library_mlp(torch, ws, bs, cfg, x, d).float().reshape(n_rays, n_samples, 4)
+    if not composite:
+        return (raw,)
+    res = rendering.composite(raw, z)
+    return res.rgb, res.weights
+
+
+def _rm_bytes(cfg, ws, bs, rd, z, kname):
+    """Bytes a ray-march kernel must move: per-ray inputs and outputs, the
+    weights once, the f32 parameter gradients once."""
+    n_rays, n_samples = z.shape
+    rows = n_rays * n_samples
+    params = sum(w.numel() * w.element_size() for w in ws) + sum(b.numel() * 4 for b in bs)
+    n_par = sum(w.numel() for w in ws) + sum(b.numel() for b in bs)
+    base = rd.numel() * 4 + z.numel() * 4 + params
+    return base + {
+        "raymarch_fwd": rows * 16,
+        "raymarch_bwd": rows * 16 + rows * 4 + n_par * 4,
+        "raymarch_comp_fwd": n_rays * 12 + rows * 4,
+        "raymarch_comp_bwd": n_rays * 12 + rows * 4 + rows * 4 + n_par * 4,
+    }[kname]
+
+
+def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=True):
+    """Each B6/B7 kernel against its plain version on (rd, z), the backwards
+    too if ``backward``; returns the max |kernel - plain| of each kernel and
+    the cotangents the timings reuse (None without the backwards)."""
+    tol, tol_b, tol_r = TOL[name], TOL_BWD[name], TOL_ROWS[name]
+    n_rays, n_samples = z.shape
+    errs = {}
+
+    raw_k = rk.raymarch_fwd(ws, bs, cfg, rd, z, cd)
+    torch.cuda.synchronize()
+    raw_p = rk.raymarch_fwd_plain(ws, bs, cfg, rd, z, cd)
+    e = _scaled_err(raw_k, raw_p)
+    errs["raymarch_fwd"] = float((raw_k - raw_p).abs().max())
+    if not (torch.isfinite(raw_k).all() and e <= tol):
+        raise AssertionError(f"raymarch_fwd {label}: scaled err {e} > {tol}")
+    del raw_k, raw_p
+
+    rgb_k, w_k = rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd)
+    torch.cuda.synchronize()
+    rgb_p, w_p = rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd)
+    e_c = max(_scaled_err(rgb_k, rgb_p), _scaled_err(w_k, w_p))
+    errs["raymarch_comp_fwd"] = max(float((rgb_k - rgb_p).abs().max()),
+                                    float((w_k - w_p).abs().max()))
+    if not (torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all() and e_c <= tol):
+        raise AssertionError(f"raymarch_comp_fwd {label}: scaled err {e_c} > {tol}")
+    log(f"kernel check {label}: B6 fwd scaled err {e:.3e}, B7 fwd {e_c:.3e} (tol {tol})")
+    if not backward:
+        return errs, None
+
+    g = (0.5 + torch.rand((n_rays, n_samples, 4), generator=gen, device=DEVICE)).contiguous()
+    g_rgb = (0.5 + torch.rand((n_rays, 3), generator=gen, device=DEVICE)).contiguous()
+    g_w = (0.5 + torch.rand((n_rays, n_samples), generator=gen, device=DEVICE)).contiguous()
+    for kname, kern, plain in (
+            ("raymarch_bwd", lambda: rk.raymarch_bwd(ws, bs, cfg, rd, z, g, cd),
+             lambda: rk.raymarch_bwd_plain(ws, bs, cfg, rd, z, g, cd)),
+            ("raymarch_comp_bwd", lambda: rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd),
+             lambda: rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, cd))):
+        dws, dbs, dz = kern()
+        torch.cuda.synchronize()
+        pws, pbs, pdz = plain()
+        e_par = max(_scaled_err(a, b) for a, b in zip(dws + dbs, pws + pbs))
+        dz_stats = _row_errs(dz, pdz, tol_r)
+        errs[kname] = max(float((a - b).abs().max()) for a, b in
+                          list(zip(dws + dbs, pws + pbs)) + [(dz, pdz)])
+        if not torch.isfinite(dz).all() or e_par > tol_b or dz_stats[1] > tol_r:
+            raise AssertionError(f"{kname} {label}: dparams scaled err {e_par} (tol {tol_b}); "
+                                 f"dz (scaled max, normwise, share over tol) {dz_stats} "
+                                 f"(tol {tol_r})")
+        dws2, dbs2, _ = kern()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2)):
+            raise AssertionError(f"{kname} {label}: dparams differ between runs")
+        log(f"kernel check {label}: {kname} dparams scaled err {e_par:.3e} (tol {tol_b}), dz "
+            f"(scaled max, normwise, share of rows over tol) {dz_stats} (tol {tol_r}), dparams "
+            f"bitwise equal across two runs")
+    return errs, (g, g_rgb, g_w)
+
+
+def raymarch_kernel_phases(torch, timings: dict) -> None:
+    from nerf_and_dietnerf_tpu_torch.models import mlp
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+    from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
+        cfg = mlp.MLPConfig(n_angles=n_angles)
+        params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
+        for cd in (torch.bfloat16, torch.float32):
+            name = str(cd).split(".")[-1]
+            ws, bs = rc.flatten_params(params, cfg, cd)
+            rd, z = _ray_batch(torch, cfg, RAYS, SAMPLES, gen)
+            errs, cots = _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen,
+                                    f"{variant} {name} R={RAYS} S={SAMPLES}")
+            # The other sample counts: (rd, z, errors, cotangents) by count.
+            other = {}
+            for n_s, backward in (((2 * SAMPLES, True),) if cd == torch.bfloat16
+                                  else ((SAMPLES_EVAL, False), (SAMPLES_RAGGED, True))):
+                rd_s, z_s = _ray_batch(torch, cfg, RAYS, n_s, gen)
+                other[n_s] = (rd_s, z_s, *_rm_checks(
+                    torch, rk, cfg, ws, bs, rd_s, z_s, cd, name, gen,
+                    f"{variant} {name} R={RAYS} S={n_s}", backward))
+            if variant != "view_dirs":
+                continue
+            g, g_rgb, g_w = cots
+            flops = _mlp_flops(cfg, RAYS * SAMPLES)
+            leaves = [w.detach().clone().requires_grad_(True) for w in ws]
+            zr = z.clone().requires_grad_(True)
+
+            def lib_bwd(comp):
+                outs = _library_raymarch(torch, leaves, bs, cfg, rd, zr, comp)
+                cot = (g_rgb, g_w) if comp else (g,)
+                torch.autograd.grad(outs, leaves + [zr], cot)
+
+            cases = (
+                ("raymarch_fwd", lambda: rk.raymarch_fwd(ws, bs, cfg, rd, z, cd),
+                 lambda: rk.raymarch_fwd_plain(ws, bs, cfg, rd, z, cd),
+                 lambda: _library_raymarch(torch, ws, bs, cfg, rd, z, False), flops),
+                ("raymarch_bwd", lambda: rk.raymarch_bwd(ws, bs, cfg, rd, z, g, cd),
+                 lambda: rk.raymarch_bwd_plain(ws, bs, cfg, rd, z, g, cd),
+                 lambda: lib_bwd(False), 3 * flops),
+                ("raymarch_comp_fwd", lambda: rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd),
+                 lambda: rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd),
+                 lambda: _library_raymarch(torch, ws, bs, cfg, rd, z, True), flops),
+                ("raymarch_comp_bwd",
+                 lambda: rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd),
+                 lambda: rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, cd),
+                 lambda: lib_bwd(True), 3 * flops),
+            )
+            rec = {}
+            before = dict(kl.LAUNCHES)
+            for kname, fn, plain, lib, fl in cases:
+                nbytes = _rm_bytes(cfg, ws, bs, rd, z, kname)
+                t_ops, t_bytes = fl / PEAK_FLOPS[name], nbytes / PEAK_BYTES
+                rec[kname] = {
+                    "rays": RAYS, "samples": SAMPLES, "dtype": name,
+                    "ms": _time_ms(torch, fn),
+                    "plain_ms": _time_ms(torch, plain, reps=2),
+                    "library_ms": _time_ms(torch, lib),
+                    "library": "composition: torch encode + addmm chain"
+                               + (" + composite" if "comp" in kname else ""),
+                    "bound_ms": 1e3 * max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "max_abs_err": errs[kname],
+                }
+            if cd == torch.bfloat16:  # the fine pass of a train step, S = 128
+                rd3, z3, errs128, (g3, g_rgb3, g_w3) = other[2 * SAMPLES]
+                for kname, fn in (
+                        ("raymarch_fwd", lambda: rk.raymarch_fwd(ws, bs, cfg, rd3, z3, cd)),
+                        ("raymarch_bwd", lambda: rk.raymarch_bwd(ws, bs, cfg, rd3, z3, g3, cd)),
+                        ("raymarch_comp_fwd",
+                         lambda: rk.raymarch_comp_fwd(ws, bs, cfg, rd3, z3, cd)),
+                        ("raymarch_comp_bwd",
+                         lambda: rk.raymarch_comp_bwd(ws, bs, cfg, rd3, z3, g_rgb3, g_w3, cd))):
+                    rec[kname]["ms_fine_pass"] = _time_ms(torch, fn, reps=3)
+                    rec[kname]["max_abs_err_s128"] = errs128[kname]
+            if cd == torch.float32:  # the eval render's forwards, S = 192
+                rd2, z2, errs192, _ = other[SAMPLES_EVAL]
+                for kname in RM_SOURCES:
+                    rec[kname]["max_abs_err_s100"] = other[SAMPLES_RAGGED][2][kname]
+                for kname, fn in (
+                        ("raymarch_fwd", lambda: rk.raymarch_fwd(ws, bs, cfg, rd2, z2, cd)),
+                        ("raymarch_comp_fwd",
+                         lambda: rk.raymarch_comp_fwd(ws, bs, cfg, rd2, z2, cd))):
+                    rec[kname]["ms_s192"] = _time_ms(torch, fn, reps=3)
+                    rec[kname]["max_abs_err_s192"] = errs192[kname]
+            kl.LAUNCHES.update(before)  # timing launches are not the main path's
+            timings["rm_" + name] = rec
+            for kname, r in rec.items():
+                log(f"time {kname} {name} R={RAYS} S={SAMPLES}: kernel {r['ms']:.3f} ms, plain "
+                    f"{r['plain_ms']:.3f} ms, library (composition) {r['library_ms']:.3f} ms, "
+                    f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                    + (f"; S={SAMPLES_EVAL}: {r['ms_s192']:.3f} ms" if "ms_s192" in r else "")
+                    + (f"; S={2 * SAMPLES}: {r['ms_fine_pass']:.3f} ms"
+                       if "ms_fine_pass" in r else ""))
+
+    # Opaque rays: transmittance underflows to exactly 0, the B7 backward
+    # stays finite (it is division-free) and agrees with its plain version.
+    cfg = mlp.MLPConfig(n_angles=0)
+    params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
+    params["sigma_out"]["bias"] = params["sigma_out"]["bias"] + 1e6
+    ws, bs = rc.flatten_params(params, cfg, torch.float32)
+    rd, z = _ray_batch(torch, cfg, 256, SAMPLES, gen)
+    g_rgb, g_w = torch.ones((256, 3), device=DEVICE), torch.ones((256, SAMPLES), device=DEVICE)
+    dws, dbs, dz = rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, torch.float32)
+    pws, pbs, pdz = rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, torch.float32)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t).all()) for t in dws + dbs + [dz]):
+        raise AssertionError("raymarch_comp_bwd: non-finite gradients on opaque rays")
+    e_par = max(_scaled_err(a, b) for a, b in zip(dws + dbs, pws + pbs))
+    dz_stats = _row_errs(dz, pdz, TOL_ROWS["float32"])
+    if e_par > TOL_BWD["float32"] or dz_stats[1] > TOL_ROWS["float32"]:
+        raise AssertionError(f"raymarch_comp_bwd opaque rays: dparams scaled err {e_par}; dz "
+                             f"(scaled max, normwise, share over tol) {dz_stats}")
+    try:
+        rk.raymarch_comp_fwd(ws, bs, cfg, *_ray_batch(torch, cfg, 8, rk.MAX_SAMPLES_COMPOSITED + 1,
+                                                       gen), torch.float32)
+    except ValueError as exc:
+        log(f"kernel check opaque rays: B7 bwd finite, dparams scaled err {e_par:.3e}, dz "
+            f"(scaled max, normwise, share of rows over tol) {dz_stats} (tol "
+            f"{TOL_ROWS['float32']}); S above the maximum raises: {exc}")
+    else:
+        raise AssertionError("raymarch_comp_fwd took more samples than its maximum")
 
 
 # --------------------------------------------------------------------------- #
@@ -299,52 +579,72 @@ def synthetic_scene(n_views=9, size=128, seed=SEED):
     )
 
 
-def train_phase(torch, timings: dict) -> dict:
-    import numpy as np
+# The kernels each training path must launch.
+MAIN_PATHS = {
+    "pallas": ("mlp_fwd", "mlp_bwd"),
+    "pallas_rm": ("raymarch_fwd", "raymarch_bwd"),
+    "pallas_rm_fused": ("raymarch_comp_fwd", "raymarch_comp_bwd"),
+}
 
-    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
-    from nerf_and_dietnerf_tpu_torch.train.trainer import Trainer
+
+def _flagship_run(backend: str):
     from nerf_and_dietnerf_tpu_torch.utils.config import RunConfig
 
-    run = RunConfig(
+    return RunConfig(
         hidden_layer_dim=256, last_hidden_layer_dim=128, n_pos_enc_dim_xyz=5,
         n_pos_enc_view_dir=4, n_angles_for_model=2, n_rays_in_batch_train=4096,
         n_render_samples_coarse=64, n_render_samples_fine=128, n_epochs=2,
         test_img_idx=0, idx_train_img_to_plot=1, compute_dtype="bfloat16",
-        backend="pallas", init_seed=SEED,
+        backend=backend, init_seed=SEED,
     )
+
+
+def _check_path(path: str, losses, launches: dict) -> None:
+    log(f"{path}: main-path launches {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{path}: non-finite training loss {losses}")
+    if not losses[1] < losses[0]:
+        raise AssertionError(f"{path}: loss did not fall: {losses[0]} -> {losses[1]}")
+    missing = [k for k in MAIN_PATHS[path] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels not launched on the main path: {missing}")
+
+
+def train_phase(torch, timings: dict, backend: str):
+    """Two epochs of the ``Trainer`` (steps and eval renders) with the launch
+    counts set to 0 just before; returns ``(launches, trainer)``."""
+    import numpy as np
+
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+    from nerf_and_dietnerf_tpu_torch.train.trainer import Trainer
+
     ds = synthetic_scene()
-    save_dir = ROOT / "build" / "chip_smoke_run"
-    trainer = Trainer(run, ds, save_dir, device="cuda")
+    trainer = Trainer(_flagship_run(backend), ds, ROOT / "build" / f"chip_smoke_{backend}",
+                      device=DEVICE)
     steps = trainer.data.batches_per_epoch
-    log(f"train: {len(trainer.train_indices)} views of {ds.height}x{ds.width}, "
+    log(f"train {backend}: {len(trainer.train_indices)} views of {ds.height}x{ds.width}, "
         f"{trainer.data.n_rays} rays, {steps} steps per epoch")
 
     torch.cuda.synchronize()
-    rc.reset_launch_counts()
+    kl.reset_launch_counts()
     stats = [trainer.train_epoch(epoch) for epoch in (1, 2)]
     torch.cuda.synchronize()
-    launches = dict(rc.LAUNCHES)
+    launches = dict(kl.LAUNCHES)
     for s in stats:
-        log(f"epoch {s.epoch}: loss={s.loss:.6f} psnr_train={s.psnr_train:.3f} "
+        log(f"{backend} epoch {s.epoch}: loss={s.loss:.6f} psnr_train={s.psnr_train:.3f} "
             f"psnr_test={s.psnr_test:.3f} {s.rays_per_sec:.0f} rays/s ({s.seconds:.3f} s)")
-    log(f"main-path launches: {launches}")
-    if not all(math.isfinite(s.loss) for s in stats):
-        raise AssertionError("non-finite training loss")
-    if not stats[1].loss < stats[0].loss:
-        raise AssertionError(f"loss did not fall: {stats[0].loss} -> {stats[1].loss}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
+    _check_path(backend, [s.loss for s in stats], launches)
 
-    trainer.ckpt.save(2, trainer.state)
-    restored = trainer.ckpt.restore()
-    from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
+    if backend == "pallas":
+        trainer.ckpt.save(2, trainer.state)
+        restored = trainer.ckpt.restore()
+        from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
 
-    a, b = tree_leaves(trainer.state.params), tree_leaves(restored.params)
-    if trainer.ckpt.latest_step() != 2 or len(a) != len(b) or not all(
-            torch.equal(x, y) for x, y in zip(a, b)) or restored.step != trainer.state.step:
-        raise AssertionError("checkpoint restore does not match the saved state")
-    log(f"checkpoint: saved and restored step {restored.step} ({len(a)} tensors equal)")
+        a, b = tree_leaves(trainer.state.params), tree_leaves(restored.params)
+        if trainer.ckpt.latest_step() != 2 or len(a) != len(b) or not all(
+                torch.equal(x, y) for x, y in zip(a, b)) or restored.step != trainer.state.step:
+            raise AssertionError("checkpoint restore does not match the saved state")
+        log(f"checkpoint: saved and restored step {restored.step} ({len(a)} tensors equal)")
 
     # Step and eval-frame times (the epoch's seconds include its first step).
     t0 = time.perf_counter()
@@ -355,12 +655,49 @@ def train_phase(torch, timings: dict) -> dict:
     for name, (_, rgb) in renders.items():
         if rgb.shape != (ds.height, ds.width, 3) or not np.isfinite(rgb).all():
             raise AssertionError(f"bad eval render {name}: {rgb.shape}")
-    timings["train"] = {
+    timings["train_" + backend] = {
         "ms_per_step": 1e3 * stats[1].seconds / steps,
         "rays_per_sec": stats[1].rays_per_sec,
         "ms_per_eval_frame": 1e3 * frame_s,
         "loss": [s.loss for s in stats],
         "psnr_test": [s.psnr_test for s in stats],
+    }
+    return launches, trainer
+
+
+def fused_phase(torch, timings: dict, trainer) -> dict:
+    """Two epochs of ``train_step.make_epoch_fn`` under "pallas_rm" with
+    ``fuse_compositing`` (no YAML key sets it), from a fresh state on the
+    trainer's ray table, with the launch counts set to 0 just before."""
+    import dataclasses
+
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+    from nerf_and_dietnerf_tpu_torch.train import train_step as ts
+
+    config = dataclasses.replace(trainer.config, fuse_compositing=True)
+    state = ts.init_train_state(torch.Generator().manual_seed(SEED), config, trainer.optimizer,
+                                device=DEVICE)
+    steps, batch = trainer.data.batches_per_epoch, trainer.run.n_rays_in_batch_train
+    epoch_fn = ts.make_epoch_fn(config, trainer.optimizer, steps, batch)
+    tables = tuple(torch.as_tensor(a, device=DEVICE) for a in (
+        trainer.data.origins, trainer.data.directions, trainer.data.rgb))
+    torch.cuda.synchronize()
+    kl.reset_launch_counts()
+    losses, seconds = [], []
+    for epoch in (1, 2):
+        gen = torch.Generator(device=DEVICE).manual_seed(epoch)
+        t0 = time.perf_counter()
+        state, metrics = epoch_fn(state, gen, *tables)
+        losses.append(float(metrics["loss"]))
+        seconds.append(time.perf_counter() - t0)
+        log(f"pallas_rm_fused epoch {epoch}: loss={losses[-1]:.6f} ({seconds[-1]:.3f} s)")
+    torch.cuda.synchronize()
+    launches = dict(kl.LAUNCHES)
+    _check_path("pallas_rm_fused", losses, launches)
+    timings["train_pallas_rm_fused"] = {
+        "ms_per_step": 1e3 * seconds[1] / steps,
+        "rays_per_sec": steps * batch / seconds[1],
+        "loss": losses,
     }
     return launches
 
@@ -378,12 +715,12 @@ def main() -> int:
         print("nerf_and_dietnerf_tpu_torch/ not found beside chip_smoke.py", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
 
     card = gpu_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    build = rc.build_kernels()
+    build = kl.build_kernels()
     log(f"build: {build['seconds']:.1f} s")
     for line in build["log"].splitlines():
         if "registers" in line or "spill" in line or line.startswith("---"):
@@ -393,33 +730,44 @@ def main() -> int:
 
     timings: dict = {}
     kernel_phases(torch, timings)
-    launches = train_phase(torch, timings)
+    raymarch_kernel_phases(torch, timings)
+    launches: dict = {}
+    for backend in ("pallas", "pallas_rm"):
+        got, trainer = train_phase(torch, timings, backend)
+        launches.update({k: got[k] for k in MAIN_PATHS[backend]})
+    got = fused_phase(torch, timings, trainer)
+    launches.update({k: got[k] for k in MAIN_PATHS["pallas_rm_fused"]})
 
-    t = timings["train"]
-    log(f"[{card}] train step {t['ms_per_step']:.3f} ms ({t['rays_per_sec']:.0f} rays/s), "
-        f"eval frame {t['ms_per_eval_frame']:.3f} ms")
-    for dt in ("bfloat16", "float32"):
-        for kname, r in timings[dt].items():
-            log(f"[{card}] {kname} {dt} rows={r['rows']}: {r['ms']:.3f} ms, plain "
-                f"{r['plain_ms']:.3f} ms, library_ms {r['library_ms']:.3f}, bound "
-                f"{r['bound_ms']:.4f} ms")
+    for path in MAIN_PATHS:
+        t = timings["train_" + path]
+        log(f"[{card}] {path} train step {t['ms_per_step']:.3f} ms ({t['rays_per_sec']:.0f} "
+            f"rays/s)" + (f", eval frame {t['ms_per_eval_frame']:.3f} ms"
+                          if "ms_per_eval_frame" in t else ""))
+    for key in ("bfloat16", "float32", "rm_bfloat16", "rm_float32"):
+        for kname, r in timings[key].items():
+            log(f"[{card}] {kname} {r['dtype']}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                f"library_ms {r['library_ms']:.3f}, bound {r['bound_ms']:.4f} ms")
     sources = {"mlp_fwd": ("nerf_and_dietnerf_tpu_torch/csrc/mlp_fwd.cu",
                            "nerf_and_dietnerf_tpu/ops/raymarch_pallas.py:236"),
                "mlp_bwd": ("nerf_and_dietnerf_tpu_torch/csrc/mlp_bwd.cu",
-                           "nerf_and_dietnerf_tpu/ops/raymarch_pallas.py:412")}
+                           "nerf_and_dietnerf_tpu/ops/raymarch_pallas.py:412"),
+               **RM_SOURCES}
     kernels = []
     for kname, (src, replaces) in sources.items():
-        r = timings["bfloat16"][kname]
+        prefix = "rm_" if kname in RM_SOURCES else ""
+        r = timings[prefix + "bfloat16"][kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "rows": r["rows"], "dtype": "bfloat16",
-            "ms_fine_pass": r["ms_fine_pass"],
-            "f32": timings["float32"][kname],
+            "library_ms": r["library_ms"], "dtype": "bfloat16",
+            **{k: v for k, v in r.items() if k in ("rows", "rays", "samples", "ms_fine_pass",
+                                                    "max_abs_err_s128", "library")},
+            "f32": timings[prefix + "float32"][kname],
         })
-    print(json.dumps({"kernels": kernels, "train": timings["train"]}), flush=True)
+    train = {path: timings["train_" + path] for path in MAIN_PATHS}
     print(card, flush=True)
+    print(json.dumps({"kernels": kernels, "train": train}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

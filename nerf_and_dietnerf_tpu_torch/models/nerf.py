@@ -30,16 +30,20 @@ from nerf_and_dietnerf_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
 
-KERNEL_BACKENDS = ("pallas", "pallas_mlp")  # the hand-written CUDA MLP kernels
-PLAIN_BACKENDS = ("xla",)                   # plain torch ops
+MLP_BACKENDS = ("pallas", "pallas_mlp")  # the CUDA MLP kernels B1/B2 on torch encodings
+RAYMARCH_BACKENDS = ("pallas_rm",)        # the fused ray-march kernels B6 (B7 with fuse_compositing)
+PLAIN_BACKENDS = ("xla",)                 # plain torch ops
 
 
 @dataclasses.dataclass(frozen=True)
 class NeRFConfig:
     """Model + render hyperparameters. ``backend`` takes the JAX package's
-    names: "pallas" / "pallas_mlp" select the CUDA kernels, "xla" plain torch
-    ops. The research paths ("pallas_rm", ``fuse_compositing``,
-    ``fuse_fine_loss``) are not ported yet and raise."""
+    names: "pallas" / "pallas_mlp" select the CUDA MLP kernels on torch-made
+    encodings, "pallas_rm" the fused ray-march kernels (points and encodings
+    built in the kernel from per-ray data), "xla" plain torch ops.
+    ``fuse_compositing`` moves compositing into the kernel on the
+    "pallas_rm" train path, as in the JAX package (ignored by "xla"); on
+    "pallas" it and ``fuse_fine_loss`` are not ported yet and raise."""
 
     mlp: MLPConfig = MLPConfig()
     n_samples_coarse: int = 64
@@ -54,20 +58,17 @@ class NeRFConfig:
     fuse_fine_loss: bool = False
 
     def __post_init__(self):
-        if self.backend == "pallas_rm":
+        if self.backend not in MLP_BACKENDS + RAYMARCH_BACKENDS + PLAIN_BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.fuse_compositing and self.backend in MLP_BACKENDS:
             raise NotImplementedError(
-                "backend 'pallas_rm' (fused ray-march kernels) is not ported yet: ROADMAP B6/B7"
-            )
-        if self.fuse_compositing:
-            raise NotImplementedError(
-                "fuse_compositing (MLP + compositing kernel) is not ported yet: ROADMAP B4"
+                "fuse_compositing on the 'pallas' backend (MLP + compositing kernel) is not "
+                "ported yet: ROADMAP B4"
             )
         if self.fuse_fine_loss:
             raise NotImplementedError(
                 "fuse_fine_loss (fused fine-pass loss kernel) is not ported yet: ROADMAP B5"
             )
-        if self.backend not in KERNEL_BACKENDS + PLAIN_BACKENDS:
-            raise ValueError(f"unknown backend {self.backend!r}")
 
     @property
     def has_fine(self) -> bool:
@@ -84,11 +85,17 @@ def init_params(generator: torch.Generator, config: NeRFConfig, device="cpu") ->
 
 
 def _mlp_apply(config: NeRFConfig):
-    if config.backend in KERNEL_BACKENDS:
+    if config.backend in MLP_BACKENDS:
         from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda
 
         return raymarch_cuda.apply_mlp_fused
     return mlp_lib.apply_mlp
+
+
+def _view_comps(config: NeRFConfig, rays_dirs):
+    if not config.mlp.uses_view_dirs:
+        return None
+    return cameras.view_direction_components(rays_dirs, config.mlp.n_angles)
 
 
 def render_rays(mlp_params: Params, config: NeRFConfig, rays_orig, rays_dirs, z_values,
@@ -96,6 +103,17 @@ def render_rays(mlp_params: Params, config: NeRFConfig, rays_orig, rays_dirs, z_
     """Evaluate one network along ``z_values`` (rays, samples) and composite.
     The per-ray view-dir encoding is broadcast to every sample."""
     n_rays, n_samples = z_values.shape
+    if config.backend in RAYMARCH_BACKENDS:
+        # Points and encodings are built in the kernel from per-ray data. Its
+        # backward gives the rays structural-zero cotangents (dparams and dz
+        # are real): right for training and rendering, where rays are data.
+        from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda
+
+        raw = research_kernels_cuda.apply_raymarch_fused(
+            mlp_params, config.mlp, rays_orig, rays_dirs, _view_comps(config, rays_dirs),
+            z_values, config.compute_dtype,
+        )
+        return rendering.composite(raw, z_values, sigma_noise=sigma_noise)
     points = cameras.sample_points_along_rays(rays_orig, rays_dirs, z_values)[..., :3]
     enc_xyz = encoding.encode_xyz(points.reshape(-1, 3), config.mlp.n_freq_xyz)
     enc_dir = None
@@ -115,12 +133,27 @@ def render_rays_train(mlp_params: Params, config: NeRFConfig, rays_orig, rays_di
                       noise_key=None, noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train-path evaluation of one network: ``(rgb, weights)``. With
     ``sigma_noise_std > 0`` the density noise is drawn from ``noise_key`` or
-    taken from ``noise`` (standard normals, one per sample)."""
+    taken from ``noise`` (standard normals, one per sample). Under "pallas_rm"
+    with ``fuse_compositing`` this is one kernel (B7), which composites in
+    the kernel and takes no noise."""
     sigma_noise = None
     if config.sigma_noise_std > 0.0 and (noise_key is not None or noise is not None):
+        if config.fuse_compositing or config.fuse_fine_loss:
+            raise ValueError(
+                "sigma_noise_std requires the torch compositing path; disable "
+                "fuse_compositing / fuse_fine_loss (the fused kernels composite "
+                "without a noise input)"
+            )
         if noise is None:
             noise = torch.randn(z_values.shape, generator=noise_key, device=z_values.device)
         sigma_noise = config.sigma_noise_std * noise
+    if config.backend in RAYMARCH_BACKENDS and config.fuse_compositing:
+        from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda
+
+        return research_kernels_cuda.apply_raymarch_composited(
+            mlp_params, config.mlp, rays_orig, rays_dirs, _view_comps(config, rays_dirs),
+            z_values, config.compute_dtype,
+        )
     result = render_rays(mlp_params, config, rays_orig, rays_dirs, z_values,
                          sigma_noise=sigma_noise)
     return result.rgb, result.weights
@@ -136,20 +169,27 @@ def render(params: Params, config: NeRFConfig, key, rays_orig, rays_dirs,
     :param draws: optional injected ``strat_u`` (rays, n_c) uniforms and
         ``fine_u`` (rays, n_f) sorted uniforms.
     :return: ``(result, z_values)``; without ``diagnostics`` only ``rgb`` and
-        ``weights`` of the result are set.
+        ``weights`` of the result are set, computed by the train path's
+        :func:`render_rays_train` (one fused kernel under "pallas_rm" with
+        ``fuse_compositing``).
     """
     draws = draws or {}
     n_c = n_samples_coarse or config.n_samples_coarse
     n_f = n_samples_fine or config.n_samples_fine
     z = sampling.stratified_z_values(key, config.near, config.far, (rays_orig.shape[0],), n_c,
                                      device=rays_orig.device, uniform=draws.get("strat_u"))
-    result = render_rays(params["coarse"], config, rays_orig, rays_dirs, z)
-    if params.get("fine") is not None and n_f > 0:
-        z = sampling.merged_fine_z_values(key, result.weights, z, n_f, u=draws.get("fine_u"))
-        result = render_rays(params["fine"], config, rays_orig, rays_dirs, z)
-    if not diagnostics:
-        result = RenderResult(result.rgb, result.weights, None, None, None)
-    return result, z
+    has_fine = params.get("fine") is not None and n_f > 0
+    if diagnostics:
+        result = render_rays(params["coarse"], config, rays_orig, rays_dirs, z)
+        if has_fine:
+            z = sampling.merged_fine_z_values(key, result.weights, z, n_f, u=draws.get("fine_u"))
+            result = render_rays(params["fine"], config, rays_orig, rays_dirs, z)
+        return result, z
+    rgb, weights = render_rays_train(params["coarse"], config, rays_orig, rays_dirs, z)
+    if has_fine:
+        z = sampling.merged_fine_z_values(key, weights, z, n_f, u=draws.get("fine_u"))
+        rgb, weights = render_rays_train(params["fine"], config, rays_orig, rays_dirs, z)
+    return RenderResult(rgb, weights, None, None, None), z
 
 
 def _fine_mse(params_fine, config, rays_orig, rays_dirs, z_fine, target_rgb, noise_key=None,

@@ -1,0 +1,204 @@
+"""Build, load and launch bookkeeping of the port's CUDA kernels.
+
+Every kernel is CUDA C++ for ``sm_90a`` in ``csrc/``, built with ``nvcc`` at
+first use into ``build/kernels/`` (one shared library per kernel, all compiled
+in parallel) and called through ``ctypes``. A library's name carries a hash of
+the flags, its source and every header that source includes, so a stale build
+is never loaded. The wrapper modules (``ops/raymarch_cuda.py`` for B1/B2,
+``ops/research_kernels_cuda.py`` for B6/B7) load their own libraries from
+here, and count each launch in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import re
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNEL_SOURCES = {
+    "mlp_fwd": "mlp_fwd.cu",                      # B1
+    "mlp_bwd": "mlp_bwd.cu",                      # B2
+    "raymarch_fwd": "raymarch_fwd.cu",            # B6 forward
+    "raymarch_bwd": "raymarch_bwd.cu",            # B6 backward
+    "raymarch_comp_fwd": "raymarch_comp_fwd.cu",  # B7 forward
+    "raymarch_comp_bwd": "raymarch_comp_bwd.cu",  # B7 backward
+}
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# Kernel launches since the last reset_launch_counts(): one per wrapper call
+# that launched its kernel, never for the plain version.
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launched(name: str, rc: int) -> None:
+    """Raise on a kernel's CUDA error code, else count its launch."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+# --------------------------------------------------------------------------- #
+# Build and load                                                               #
+# --------------------------------------------------------------------------- #
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_closure(src: Path) -> List[Path]:
+    """``src`` and every file it includes with ``#include "..."``, transitively
+    (the headers beside it in ``csrc/``), sorted."""
+    seen: List[Path] = []
+    todo = [src]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += [f.parent / name for name in _INCLUDE.findall(f.read_text())
+                 if (f.parent / name).exists()]
+    return sorted(seen)
+
+
+def lib_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
+    """The library's path, named by a hash of the flags, its source and every
+    header that source includes: an edit to any of them builds a new one."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in source_closure(csrc_dir / KERNEL_SOURCES[name]):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(nvcc).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+    return nvcc
+
+
+def build_kernels() -> Dict[str, object]:
+    """Compile every kernel library not yet built, one ``nvcc`` per source, all
+    started together. Returns ``{"seconds": wall time, "log": compiler output}``
+    (the log holds ``-Xptxas -v``'s registers, shared memory and spills)."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in KERNEL_SOURCES.items():
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(".tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    log = []
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        log.append(f"--- {name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            tmp.replace(out)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+    return {"seconds": time.perf_counter() - t0, "log": "\n".join(log)}
+
+
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# R, S, L, Ld, D, xyz, dir, hid, last, alpha, stream of the ray-march kernels.
+_RAY_TAIL = [_i] * 9 + [_f, _p]
+# The scratch sizes every backward library exports (csrc/mlp_bwd_tile.cuh).
+_BWD_SCRATCH = {
+    "nerf_mlp_param_count": ([_i] * 5, ctypes.c_longlong),
+    "nerf_mlp_bwd_rows_per_tile": ([], _i),
+    "nerf_mlp_bwd_act_slots": ([], _i),
+}
+# Each library's C functions: (argtypes, restype).
+_SIGNATURES = {
+    "mlp_fwd": {"nerf_mlp_fwd": ([_i, _i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i)},
+    "mlp_bwd": {"nerf_mlp_bwd": ([_i, _i] + [_p] * 11 + [_i] * 6 + [_f, _p], _i),
+                **_BWD_SCRATCH},
+    "raymarch_fwd": {"nerf_rm_fwd": ([_i, _i] + [_p] * 5 + _RAY_TAIL, _i)},
+    "raymarch_bwd": {"nerf_rm_bwd": ([_i, _i] + [_p] * 10 + [_i] + _RAY_TAIL, _i),
+                     **_BWD_SCRATCH},
+    "raymarch_comp_fwd": {"nerf_rm_comp_fwd": ([_i, _i] + [_p] * 6 + _RAY_TAIL, _i)},
+    "raymarch_comp_bwd": {"nerf_rm_comp_bwd": ([_i, _i] + [_p] * 11 + [_i] + _RAY_TAIL, _i),
+                          "nerf_rm_comp_groups": ([_i, _i], _i), **_BWD_SCRATCH},
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name`` (a key of :data:`KERNEL_SOURCES`), built
+    first if it is not there."""
+    if name not in _LIBS:
+        path = lib_path(name)
+        if not path.exists():
+            build_kernels()
+        lib = ctypes.CDLL(str(path))
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+# --------------------------------------------------------------------------- #
+# What every wrapper checks and passes                                         #
+# --------------------------------------------------------------------------- #
+
+def uses_kernel(x: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors; any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernels run on CUDA tensors; got device {x.device}")
+    return True
+
+
+def check_tensors(tensors, dev) -> None:
+    """Each ``(tensor, shape, dtype)`` must match, lie on ``dev`` and be
+    contiguous."""
+    for t, shape, dtype in tensors:
+        if t is None or t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            got = None if t is None else (tuple(t.shape), t.dtype, t.device)
+            raise ValueError(f"expected {tuple(shape)} {dtype} on {dev}, got {got}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+def flat(ts) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in ts])
+
+
+def stream_of(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def bwd_scratch(lib: ctypes.CDLL, n_params: int, cd, dev, tiles: int):
+    """``(partial, acts, n_blocks)``: the per-block weight-gradient slabs and
+    activation slots of the backward kernel in ``lib``, whose blocks walk
+    ``tiles`` units of work, one block per SM at most."""
+    n_blocks = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    partial = torch.empty((n_blocks * n_params,), dtype=torch.float32, device=dev)
+    acts = torch.empty((n_blocks * lib.nerf_mlp_bwd_act_slots(),), dtype=cd, device=dev)
+    return partial, acts, n_blocks

@@ -3,8 +3,9 @@
 Port of ``nerf_and_dietnerf_tpu/ops/raymarch_pallas.py`` (``_forward_pallas``,
 ``_backward_pallas``, the custom VJP ``_fused_mlp`` / ``apply_mlp_fused``).
 The kernels are CUDA C++ for ``sm_90a`` in ``csrc/``, built with ``nvcc`` at
-first use into ``build/kernels/`` (one shared library per kernel, compiled in
-parallel) and called through ``ctypes``.
+first use and loaded by ``ops/kernel_lib.py``. This module also holds the
+flat parameter layout and the plain MLP versions that the fused ray-march
+kernels of ``ops/research_kernels_cuda.py`` reuse.
 
 Beside each kernel is its plain PyTorch version (:func:`mlp_fwd_plain`,
 :func:`mlp_bwd_plain`), which repeats the kernel's arithmetic: operands
@@ -17,12 +18,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -33,26 +29,18 @@ from nerf_and_dietnerf_tpu_torch.models.mlp import (
     Params,
     round_to,
 )
+from nerf_and_dietnerf_tpu_torch.ops.kernel_lib import (
+    bwd_scratch,
+    check_tensors,
+    flat,
+    launched,
+    load,
+    stream_of,
+    uses_kernel,
+)
 
-CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = {"mlp_fwd": "mlp_fwd.cu", "mlp_bwd": "mlp_bwd.cu"}
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
 # Limits of the kernels' shared-memory tiles (csrc/mlp_common.cuh).
 MAX_WIDTH, MAX_XYZ, MAX_DIR = 256, 64, 32
-
-# Kernel launches since the last reset_launch_counts(): one per wrapper call
-# that launched its kernel, never for the plain version.
-LAUNCHES: Dict[str, int] = {"mlp_fwd": 0, "mlp_bwd": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 # --------------------------------------------------------------------------- #
 # Flat parameter layout shared with csrc/mlp_common.cuh                        #
@@ -130,7 +118,7 @@ def mlp_leaves(params: Params, config: MLPConfig) -> List[torch.Tensor]:
     return [t for p in layers for t in (p["kernel"], p["bias"])]
 
 
-def _tree_from_leaves(leaves, config: MLPConfig) -> Params:
+def tree_from_leaves(leaves, config: MLPConfig) -> Params:
     pairs = [{"kernel": leaves[2 * i], "bias": leaves[2 * i + 1]}
              for i in range(len(leaves) // 2)]
     out: Params = {"trunk": pairs[:N_TRUNK_LAYERS]}
@@ -245,193 +233,109 @@ def mlp_bwd_plain(ws, bs, config: MLPConfig, x, d, g, compute_dtype):
 
 
 # --------------------------------------------------------------------------- #
-# Build and load                                                               #
-# --------------------------------------------------------------------------- #
-
-_LIBS: Dict[str, ctypes.CDLL] = {}
-
-
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for f in ("mlp_common.cuh", KERNEL_SOURCES[name]):
-        h.update((CSRC_DIR / f).read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not Path(nvcc).exists():
-        raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
-    return nvcc
-
-
-def build_kernels() -> Dict[str, object]:
-    """Compile every kernel library not yet built, one ``nvcc`` per source, all
-    started together. Returns ``{"seconds": wall time, "log": compiler output}``
-    (the log holds ``-Xptxas -v``'s registers, shared memory and spills)."""
-    t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, src in KERNEL_SOURCES.items():
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(".tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out)
-    log = []
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        text, _ = proc.communicate()
-        log.append(f"--- {name}\n{text}")
-        if proc.returncode != 0:
-            failed.append(name)
-        else:
-            tmp.replace(out)
-    if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
-    return {"seconds": time.perf_counter() - t0, "log": "\n".join(log)}
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    if name not in _LIBS:
-        path = _lib_path(name)
-        if not path.exists():
-            build_kernels()
-        lib = ctypes.CDLL(str(path))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "mlp_fwd":
-            lib.nerf_mlp_fwd.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, f, p]
-            lib.nerf_mlp_fwd.restype = i
-        else:
-            lib.nerf_mlp_bwd.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p,
-                                         i, i, i, i, i, i, f, p]
-            lib.nerf_mlp_bwd.restype = i
-            lib.nerf_mlp_param_count.argtypes = [i, i, i, i, i]
-            lib.nerf_mlp_param_count.restype = ctypes.c_longlong
-            lib.nerf_mlp_bwd_rows_per_tile.restype = i
-            lib.nerf_mlp_bwd_act_slots.restype = i
-        _LIBS[name] = lib
-    return _LIBS[name]
-
-
-# --------------------------------------------------------------------------- #
 # Wrappers                                                                     #
 # --------------------------------------------------------------------------- #
 
-def _uses_kernel(x: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; any other device raises."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"the MLP kernels run on CUDA tensors; got device {x.device}")
-    return True
-
-
-def _check(config: MLPConfig, ws, bs, x, d, cd, n: int) -> None:
+def check_params(config: MLPConfig, ws, bs, cd, dev) -> None:
+    """The compute type, the widths and the flat parameters a kernel takes."""
     if cd not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype must be float32 or bfloat16, got {cd}")
     if (config.hidden_dim > MAX_WIDTH or config.last_hidden_dim > MAX_WIDTH
             or config.xyz_dim > MAX_XYZ or config.dir_dim > MAX_DIR):
         raise ValueError(f"MLP widths exceed the kernels' limits: {config}")
     w_shapes, b_shapes = weight_shapes(config)
-    dev = x.device
+    if len(ws) != len(w_shapes) or len(bs) != len(b_shapes):
+        raise ValueError("parameter list does not match the MLP config")
+    check_tensors([(w, s, cd) for w, s in zip(ws, w_shapes)]
+                  + [(b, (s,), torch.float32) for b, s in zip(bs, b_shapes)], dev)
+
+
+def _check(config: MLPConfig, ws, bs, x, d, cd, n: int) -> None:
     tensors = [(x, (n, config.xyz_dim), cd)]
     if config.uses_view_dirs:
         tensors.append((d, (n, config.dir_dim), cd))
-    tensors += [(w, s, cd) for w, s in zip(ws, w_shapes)]
-    tensors += [(b, (s,), torch.float32) for b, s in zip(bs, b_shapes)]
-    if len(ws) != len(w_shapes) or len(bs) != len(b_shapes):
-        raise ValueError("parameter list does not match the MLP config")
-    for t, shape, dtype in tensors:
-        if t is None or t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            got = None if t is None else (tuple(t.shape), t.dtype, t.device)
-            raise ValueError(f"expected {shape} {dtype} on {dev}, got {got}")
-        if not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")
-
-
-def _flat(ts) -> torch.Tensor:
-    return torch.cat([t.reshape(-1) for t in ts])
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    check_tensors(tensors, x.device)
+    check_params(config, ws, bs, cd, x.device)
 
 
 def mlp_fwd(ws, bs, config: MLPConfig, x, d, compute_dtype) -> torch.Tensor:
     """B1: ``(n, 4)`` f32 raw radiance. ``x`` (n, xyz) and ``d`` (n, dir) in
     the compute dtype, ``ws`` / ``bs`` from :func:`flatten_params`."""
-    if not _uses_kernel(x):
+    if not uses_kernel(x):
         return mlp_fwd_plain(ws, bs, config, x, d, compute_dtype)
     n = x.shape[0]
     _check(config, ws, bs, x, d, compute_dtype, n)
     out = torch.empty((n, 4), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    w, b = _flat(ws), _flat(bs)
+    w, b = flat(ws), flat(bs)
     has_dir = int(config.uses_view_dirs)
-    rc = _lib("mlp_fwd").nerf_mlp_fwd(
+    rc = load("mlp_fwd").nerf_mlp_fwd(
         int(compute_dtype == torch.bfloat16), has_dir, x.data_ptr(),
         d.data_ptr() if has_dir else None, w.data_ptr(), b.data_ptr(), out.data_ptr(),
         n, config.xyz_dim, config.dir_dim if has_dir else 0, config.hidden_dim,
-        config.last_hidden_dim, config.leaky_relu_alpha, _stream(x.device),
+        config.last_hidden_dim, config.leaky_relu_alpha, stream_of(x.device),
     )
-    if rc != 0:
-        raise RuntimeError(f"mlp_fwd launch failed: CUDA error {rc}")
-    LAUNCHES["mlp_fwd"] += 1
+    launched("mlp_fwd", rc)
     return out
 
 
 def mlp_bwd(ws, bs, config: MLPConfig, x, d, g, compute_dtype):
     """B2: ``(dws, dbs, dx, dd)`` for the (n, 4) f32 cotangent ``g``. Weight
     and bias gradients are f32 sums over all rows, bitwise reproducible."""
-    if not _uses_kernel(x):
+    if not uses_kernel(x):
         return mlp_bwd_plain(ws, bs, config, x, d, g, compute_dtype)
     n = x.shape[0]
     _check(config, ws, bs, x, d, compute_dtype, n)
     if g.device != x.device or g.dtype != torch.float32 or tuple(g.shape) != (n, 4) \
             or not g.is_contiguous():
         raise ValueError(f"cotangent must be contiguous ({n}, 4) float32 on {x.device}")
-    lib = _lib("mlp_bwd")
+    lib = load("mlp_bwd")
     dev = x.device
     has_dir = int(config.uses_view_dirs)
     dir_dim = config.dir_dim if has_dir else 0
-    w_shapes, b_shapes = weight_shapes(config)
-    p_total = lib.nerf_mlp_param_count(has_dir, config.xyz_dim, dir_dim, config.hidden_dim,
-                                       config.last_hidden_dim)
-    if p_total != sum(k * m for k, m in w_shapes) + sum(b_shapes):
-        raise RuntimeError("kernel and wrapper disagree on the parameter layout")
     dx = torch.empty((n, config.xyz_dim), dtype=torch.float32, device=dev)
     dd = torch.empty((n, dir_dim), dtype=torch.float32, device=dev) if has_dir else None
-    dparams = torch.empty((p_total,), dtype=torch.float32, device=dev)
+    dparams = torch.empty((param_count(config, lib),), dtype=torch.float32, device=dev)
     if n == 0:
         dparams.zero_()
     else:
         tiles = -(-n // lib.nerf_mlp_bwd_rows_per_tile())
-        n_blocks = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
-        partial = torch.empty((n_blocks * p_total,), dtype=torch.float32, device=dev)
-        acts = torch.empty((n_blocks * lib.nerf_mlp_bwd_act_slots(),), dtype=compute_dtype,
-                           device=dev)
-        w, b = _flat(ws), _flat(bs)
-        wt = _flat([t.t() for t in ws])
+        partial, acts, n_blocks = bwd_scratch(lib, dparams.numel(), compute_dtype, dev, tiles)
+        w, b = flat(ws), flat(bs)
+        wt = flat([t.t() for t in ws])
         rc = lib.nerf_mlp_bwd(
             int(compute_dtype == torch.bfloat16), has_dir, x.data_ptr(),
             d.data_ptr() if has_dir else None, w.data_ptr(), wt.data_ptr(), b.data_ptr(),
             g.data_ptr(), dx.data_ptr(), dd.data_ptr() if has_dir else None,
             partial.data_ptr(), acts.data_ptr(), dparams.data_ptr(), n_blocks,
             n, config.xyz_dim, dir_dim, config.hidden_dim, config.last_hidden_dim,
-            config.leaky_relu_alpha, _stream(dev),
+            config.leaky_relu_alpha, stream_of(dev),
         )
-        if rc != 0:
-            raise RuntimeError(f"mlp_bwd launch failed: CUDA error {rc}")
-        LAUNCHES["mlp_bwd"] += 1
-    sizes = [k * m for k, m in w_shapes] + list(b_shapes)
-    parts = torch.split(dparams, sizes)
-    dws = [p.view(s) for p, s in zip(parts[: len(w_shapes)], w_shapes)]
-    dbs = list(parts[len(w_shapes):])
+        launched("mlp_bwd", rc)
+    dws, dbs = split_dparams(dparams, config)
     return dws, dbs, dx, dd
+
+
+def param_count(config: MLPConfig, lib: ctypes.CDLL) -> int:
+    """Entries of the flat f32 gradient a backward kernel writes (weights,
+    then biases), checked against the layout of the backward library ``lib``."""
+    w_shapes, b_shapes = weight_shapes(config)
+    total = sum(k * m for k, m in w_shapes) + sum(b_shapes)
+    has_dir = int(config.uses_view_dirs)
+    if total != lib.nerf_mlp_param_count(
+            has_dir, config.xyz_dim, config.dir_dim if has_dir else 0, config.hidden_dim,
+            config.last_hidden_dim):
+        raise RuntimeError("kernel and wrapper disagree on the parameter layout")
+    return total
+
+
+def split_dparams(dparams: torch.Tensor, config: MLPConfig):
+    """The flat gradient as ``(dws, dbs)`` views in :func:`weight_shapes` order."""
+    w_shapes, b_shapes = weight_shapes(config)
+    parts = torch.split(dparams, [k * m for k, m in w_shapes] + list(b_shapes))
+    return ([p.view(s) for p, s in zip(parts[: len(w_shapes)], w_shapes)],
+            list(parts[len(w_shapes):]))
 
 
 # --------------------------------------------------------------------------- #
@@ -448,7 +352,7 @@ class FusedMLP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, config, cd, enc_xyz, enc_dir, *leaves):
-        ws, bs = flatten_params(_tree_from_leaves(leaves, config), config, cd)
+        ws, bs = flatten_params(tree_from_leaves(leaves, config), config, cd)
         x = enc_xyz.to(_input_dtype(cd)).contiguous()
         d = enc_dir.to(_input_dtype(cd)).contiguous() if enc_dir is not None else None
         ctx.config, ctx.cd = config, cd
@@ -459,7 +363,7 @@ class FusedMLP(torch.autograd.Function):
     def backward(ctx, g):
         config, cd = ctx.config, ctx.cd
         x, d, *leaves = ctx.saved_tensors
-        ws, bs = flatten_params(_tree_from_leaves(leaves, config), config, cd)
+        ws, bs = flatten_params(tree_from_leaves(leaves, config), config, cd)
         dws, dbs, dx, dd = mlp_bwd(ws, bs, config, x, d, g.float().contiguous(), cd)
         dleaves = mlp_leaves(unflatten_grads(dws, dbs, config), config)
         dleaves = [dl.to(leaf.dtype) for dl, leaf in zip(dleaves, leaves)]

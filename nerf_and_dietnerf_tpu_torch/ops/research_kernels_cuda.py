@@ -1,0 +1,374 @@
+"""The fused ray-march kernels (B6, B7) and their wrappers.
+
+Port of the ``backend="pallas_rm"`` family of
+``nerf_and_dietnerf_tpu/ops/research_kernels.py``:
+
+- B6 (``_forward_rays_pallas`` / ``_backward_rays_pallas``, the custom VJP
+  ``_fused_raymarch`` / ``apply_raymarch_fused``): points ``o + z d``, the xyz
+  and view-dir encodings and the radiance MLP from per-ray data, raw
+  ``(R, S, 4)`` out; the backward gives the parameter gradients and dz.
+- B7 (``_forward_rays_comp_pallas`` / ``_backward_rays_comp_pallas``,
+  ``apply_raymarch_composited``): B6 followed by alpha compositing, ``(rgb
+  (R, 3), weights (R, S))`` out; its backward takes cotangents on both.
+
+Both backwards give the rays, directions and view components structural-zero
+cotangents, as the JAX package does: training differentiates the parameters
+and z (the fine-resampling path) only.
+
+The encodings are what the TPU kernel computes (``_encode_tile``): a direct
+``sin(f_k x)`` with ``f_k = float32(pi 2^k)``, and cos as ``sin(f_k x + pi/2)``,
+not the double-angle recurrence of ``core/encoding.py``, in the reference's
+coordinate-major column order, so the MLP kernels' ``flatten_params`` layout
+is reused unchanged.
+
+The kernels are CUDA C++ in ``csrc/raymarch_*.cu``, built and loaded by
+``ops/kernel_lib.py`` (which also keeps their launch counts). Beside each is
+its plain PyTorch version, which the wrappers take only for tensors on the
+CPU; for a CUDA tensor they launch the kernel or raise. The plain B7 backward
+takes the compositing VJP from autograd through ``core.rendering.composite``,
+independent of the kernel's hand-written recurrence.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from nerf_and_dietnerf_tpu_torch.core import rendering
+from nerf_and_dietnerf_tpu_torch.models.mlp import MLPConfig, Params
+from nerf_and_dietnerf_tpu_torch.ops.kernel_lib import (
+    bwd_scratch,
+    check_tensors,
+    flat,
+    launched,
+    load,
+    stream_of,
+    uses_kernel,
+)
+from nerf_and_dietnerf_tpu_torch.ops.raymarch_cuda import (
+    check_params,
+    flatten_params,
+    mlp_bwd_plain,
+    mlp_fwd_plain,
+    mlp_leaves,
+    param_count,
+    split_dparams,
+    tree_from_leaves,
+    unflatten_grads,
+)
+
+# Samples per ray the compositing kernels (B7) take: a block keeps a whole
+# ray's raw values and cotangents in shared memory (MAX_S_COMP in
+# csrc/raymarch_common.cuh; the kernels return an error above it).
+MAX_SAMPLES_COMPOSITED = 512
+
+
+# --------------------------------------------------------------------------- #
+# Plain versions                                                               #
+# --------------------------------------------------------------------------- #
+
+def pack_rays(config: MLPConfig, rays_orig, rays_dirs, viewcomps) -> torch.Tensor:
+    """``(R, 6 + D)`` f32: origin xyz | direction xyz | view components (the
+    TPU kernel's per-ray input)."""
+    parts = [rays_orig[:, :3], rays_dirs[:, :3]]
+    if config.uses_view_dirs:
+        parts.append(viewcomps)
+    return torch.cat([p.float() for p in parts], dim=1).contiguous()
+
+
+def _freqs(n: int, device) -> torch.Tensor:
+    return torch.tensor([math.pi * 2.0 ** k for k in range(n)], dtype=torch.float32,
+                        device=device)
+
+
+def _thetas(v: torch.Tensor, n: int) -> torch.Tensor:
+    """``(..., C) -> (..., C, n, 2)``: ``f_k v`` and ``f_k v + pi/2``."""
+    pf = v[..., None] * _freqs(n, v.device)
+    return torch.stack([pf, pf + math.pi / 2], dim=-1)
+
+
+def encode_rays_plain(config: MLPConfig, rd, z):
+    """``(pts (R S, 3), x (R S, xyz), d (R S, dir) | None)`` in f32, rows
+    ray-major, columns in the reference's order."""
+    n_rays, n_samples = z.shape
+    n = n_rays * n_samples
+    pts = (rd[:, None, 0:3] + z[..., None] * rd[:, None, 3:6]).reshape(n, 3)
+    sc = torch.sin(_thetas(pts, config.n_freq_xyz)).reshape(n, 3, -1)
+    x = torch.cat([pts[..., None], sc], dim=-1).reshape(n, config.xyz_dim)
+    d = None
+    if config.uses_view_dirs:
+        e = torch.sin(_thetas(rd[:, 6:], config.n_freq_dir)).reshape(n_rays, config.dir_dim)
+        d = e[:, None, :].expand(n_rays, n_samples, config.dir_dim).reshape(n, config.dir_dim)
+    return pts, x, d
+
+
+def _mlp_inputs(config: MLPConfig, rd, z, cd):
+    pts, x, d = encode_rays_plain(config, rd, z)
+    return pts, x.to(cd), d.to(cd) if d is not None else None
+
+
+def _dz_from_dx(config: MLPConfig, rd, pts, dx, n_samples: int) -> torch.Tensor:
+    """The encoding VJP down to dz: ``dtheta = dx * cos(theta)``, ``dpts_c =
+    sum f_k dtheta + dx[identity c]``, ``dz = dpts . d`` (per row)."""
+    n = pts.shape[0]
+    L = config.n_freq_xyz
+    gx = dx.reshape(n, 3, 1 + 2 * L)
+    dtheta = gx[..., 1:].reshape(n, 3, L, 2) * torch.cos(_thetas(pts, L))
+    dpts = (dtheta * _freqs(L, pts.device)[:, None]).sum((-2, -1)) + gx[..., 0]
+    return (dpts * rd[:, 3:6].repeat_interleave(n_samples, dim=0)).sum(-1)
+
+
+def raymarch_fwd_plain(ws, bs, config: MLPConfig, rd, z, compute_dtype) -> torch.Tensor:
+    """Plain version of B6's forward: raw ``(R, S, 4)`` f32."""
+    _, x, d = _mlp_inputs(config, rd, z, compute_dtype)
+    return mlp_fwd_plain(ws, bs, config, x, d, compute_dtype).reshape(*z.shape, 4)
+
+
+def raymarch_bwd_plain(ws, bs, config: MLPConfig, rd, z, g, compute_dtype):
+    """Plain version of B6's backward: ``(dws, dbs, dz (R, S))`` for the raw
+    cotangent ``g`` (R, S, 4)."""
+    pts, x, d = _mlp_inputs(config, rd, z, compute_dtype)
+    dws, dbs, dx, _ = mlp_bwd_plain(ws, bs, config, x, d, g.reshape(-1, 4), compute_dtype)
+    return dws, dbs, _dz_from_dx(config, rd, pts, dx, z.shape[1]).reshape(z.shape)
+
+
+def composite_vjp(raw, z, g_rgb, g_w):
+    """VJP of :func:`core.rendering.composite`'s ``(rgb, weights)`` w.r.t. the
+    raw radiance and z, by autograd: ``(g_raw (R, S, 4), dz (R, S))``."""
+    with torch.enable_grad():
+        raw, z = raw.detach().requires_grad_(True), z.detach().requires_grad_(True)
+        res = rendering.composite(raw, z)
+        return torch.autograd.grad((res.rgb, res.weights), (raw, z), (g_rgb, g_w))
+
+
+def raymarch_comp_fwd_plain(ws, bs, config: MLPConfig, rd, z, compute_dtype):
+    """Plain version of B7's forward: ``(rgb (R, 3), weights (R, S))``."""
+    res = rendering.composite(raymarch_fwd_plain(ws, bs, config, rd, z, compute_dtype), z)
+    return res.rgb, res.weights
+
+
+def raymarch_comp_bwd_plain(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtype):
+    """Plain version of B7's backward: ``(dws, dbs, dz)``, dz the
+    compositing's share plus the points'."""
+    raw = raymarch_fwd_plain(ws, bs, config, rd, z, compute_dtype)
+    g_raw, dz_comp = composite_vjp(raw, z, g_rgb, g_w)
+    dws, dbs, dz_pts = raymarch_bwd_plain(ws, bs, config, rd, z, g_raw, compute_dtype)
+    return dws, dbs, dz_comp + dz_pts
+
+
+# --------------------------------------------------------------------------- #
+# Wrappers                                                                     #
+# --------------------------------------------------------------------------- #
+
+def _check_samples(z) -> None:
+    """B7's limit, on every device, so a config that would fail on the card
+    fails on the CPU too."""
+    if z.shape[1] > MAX_SAMPLES_COMPOSITED:
+        raise ValueError(f"{z.shape[1]} samples per ray exceed the compositing kernels' "
+                         f"maximum of {MAX_SAMPLES_COMPOSITED}")
+
+
+def _check_rays(config: MLPConfig, ws, bs, rd, z, cd):
+    check_params(config, ws, bs, cd, rd.device)
+    n_rays, n_samples = z.shape
+    width = 6 + (config.n_angles + 1 if config.uses_view_dirs else 0)
+    check_tensors([(rd, (n_rays, width), torch.float32), (z, (n_rays, n_samples), torch.float32)],
+                  rd.device)
+    if n_rays * n_samples >= 2 ** 31:
+        raise ValueError(f"{n_rays} x {n_samples} rows exceed the kernels' 32-bit row index")
+
+
+def _ray_args(config: MLPConfig, rd, z):
+    """The kernels' trailing arguments: R, S, L, Ld, D, xyz, dir, hid, last,
+    alpha, stream."""
+    has_dir = config.uses_view_dirs
+    return (*z.shape, config.n_freq_xyz, config.n_freq_dir if has_dir else 0,
+            config.n_angles + 1 if has_dir else 0, config.xyz_dim,
+            config.dir_dim if has_dir else 0, config.hidden_dim, config.last_hidden_dim,
+            config.leaky_relu_alpha, stream_of(rd.device))
+
+
+def _is_bf16(cd) -> int:
+    return int(cd == torch.bfloat16)
+
+
+def raymarch_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype) -> torch.Tensor:
+    """B6 forward: raw ``(R, S, 4)`` f32 from rays ``rd`` (:func:`pack_rays`)
+    and z ``(R, S)`` f32; ``ws`` / ``bs`` from ``flatten_params``."""
+    if not uses_kernel(rd):
+        return raymarch_fwd_plain(ws, bs, config, rd, z, compute_dtype)
+    _check_rays(config, ws, bs, rd, z, compute_dtype)
+    out = torch.empty((*z.shape, 4), dtype=torch.float32, device=rd.device)
+    if out.numel() == 0:
+        return out
+    w, b = flat(ws), flat(bs)  # held until the launch is queued
+    rc = load("raymarch_fwd").nerf_rm_fwd(
+        _is_bf16(compute_dtype), int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(),
+        w.data_ptr(), b.data_ptr(), out.data_ptr(), *_ray_args(config, rd, z))
+    launched("raymarch_fwd", rc)
+    return out
+
+
+def raymarch_bwd(ws, bs, config: MLPConfig, rd, z, g, compute_dtype):
+    """B6 backward: ``(dws, dbs, dz (R, S))`` for the raw cotangent ``g``
+    (R, S, 4) f32; parameter gradients are bitwise reproducible."""
+    if not uses_kernel(rd):
+        return raymarch_bwd_plain(ws, bs, config, rd, z, g, compute_dtype)
+    _check_rays(config, ws, bs, rd, z, compute_dtype)
+    check_tensors([(g, (*z.shape, 4), torch.float32)], rd.device)
+    dev = rd.device
+    lib = load("raymarch_bwd")
+    dz = torch.empty(z.shape, dtype=torch.float32, device=dev)
+    dparams = torch.empty((param_count(config, lib),), dtype=torch.float32, device=dev)
+    if dz.numel() == 0:
+        dparams.zero_()
+    else:
+        tiles = -(-dz.numel() // lib.nerf_mlp_bwd_rows_per_tile())
+        partial, acts, n_blocks = bwd_scratch(lib, dparams.numel(), compute_dtype, dev, tiles)
+        w, wt, b = flat(ws), flat([t.t() for t in ws]), flat(bs)
+        rc = lib.nerf_rm_bwd(
+            _is_bf16(compute_dtype), int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(),
+            w.data_ptr(), wt.data_ptr(), b.data_ptr(), g.data_ptr(), dz.data_ptr(), partial.data_ptr(), acts.data_ptr(),
+            dparams.data_ptr(), n_blocks, *_ray_args(config, rd, z))
+        launched("raymarch_bwd", rc)
+    return (*split_dparams(dparams, config), dz)
+
+
+def raymarch_comp_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype):
+    """B7 forward: ``(rgb (R, 3), weights (R, S))`` f32; at most
+    :data:`MAX_SAMPLES_COMPOSITED` samples per ray."""
+    _check_samples(z)
+    if not uses_kernel(rd):
+        return raymarch_comp_fwd_plain(ws, bs, config, rd, z, compute_dtype)
+    _check_rays(config, ws, bs, rd, z, compute_dtype)
+    dev = rd.device
+    rgb = torch.empty((z.shape[0], 3), dtype=torch.float32, device=dev)
+    weights = torch.empty(z.shape, dtype=torch.float32, device=dev)
+    if weights.numel() == 0:
+        return rgb.zero_(), weights
+    w, b = flat(ws), flat(bs)
+    rc = load("raymarch_comp_fwd").nerf_rm_comp_fwd(
+        _is_bf16(compute_dtype), int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(),
+        w.data_ptr(), b.data_ptr(), rgb.data_ptr(), weights.data_ptr(),
+        *_ray_args(config, rd, z))
+    launched("raymarch_comp_fwd", rc)
+    return rgb, weights
+
+
+def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtype):
+    """B7 backward: ``(dws, dbs, dz (R, S))`` for the cotangents ``g_rgb``
+    (R, 3) and ``g_w`` (R, S) f32; parameter gradients bitwise reproducible."""
+    _check_samples(z)
+    if not uses_kernel(rd):
+        return raymarch_comp_bwd_plain(ws, bs, config, rd, z, g_rgb, g_w, compute_dtype)
+    _check_rays(config, ws, bs, rd, z, compute_dtype)
+    check_tensors([(g_rgb, (z.shape[0], 3), torch.float32), (g_w, z.shape, torch.float32)],
+                  rd.device)
+    dev = rd.device
+    lib = load("raymarch_comp_bwd")
+    dz = torch.empty(z.shape, dtype=torch.float32, device=dev)
+    dparams = torch.empty((param_count(config, lib),), dtype=torch.float32, device=dev)
+    if dz.numel() == 0:
+        dparams.zero_()
+    else:
+        partial, acts, n_blocks = bwd_scratch(lib, dparams.numel(), compute_dtype, dev,
+                                              lib.nerf_rm_comp_groups(*z.shape))
+        w, wt, b = flat(ws), flat([t.t() for t in ws]), flat(bs)
+        rc = lib.nerf_rm_comp_bwd(
+            _is_bf16(compute_dtype), int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(),
+            w.data_ptr(), wt.data_ptr(), b.data_ptr(), g_rgb.data_ptr(), g_w.data_ptr(), dz.data_ptr(), partial.data_ptr(),
+            acts.data_ptr(), dparams.data_ptr(), n_blocks, *_ray_args(config, rd, z))
+        launched("raymarch_comp_bwd", rc)
+    return (*split_dparams(dparams, config), dz)
+
+
+# --------------------------------------------------------------------------- #
+# autograd.Functions and the JAX package's entry points                        #
+# --------------------------------------------------------------------------- #
+
+def _param_grads(dws, dbs, leaves, config: MLPConfig):
+    dleaves = mlp_leaves(unflatten_grads(dws, dbs, config), config)
+    return [dl.to(leaf.dtype) for dl, leaf in zip(dleaves, leaves)]
+
+
+def _ray_grad(ctx, rd):
+    """The structural-zero cotangent of the packed rays."""
+    return torch.zeros_like(rd) if ctx.needs_input_grad[2] else None
+
+
+class FusedRaymarch(torch.autograd.Function):
+    """B6 forward and backward. Inputs after the packed rays and z are the
+    parameter leaves of ``mlp_leaves``."""
+
+    @staticmethod
+    def forward(ctx, config, cd, rd, z, *leaves):
+        ws, bs = flatten_params(tree_from_leaves(leaves, config), config, cd)
+        ctx.config, ctx.cd = config, cd
+        ctx.save_for_backward(rd, z, *leaves)
+        return raymarch_fwd(ws, bs, config, rd, z, cd)
+
+    @staticmethod
+    def backward(ctx, g):
+        config, cd = ctx.config, ctx.cd
+        rd, z, *leaves = ctx.saved_tensors
+        ws, bs = flatten_params(tree_from_leaves(leaves, config), config, cd)
+        dws, dbs, dz = raymarch_bwd(ws, bs, config, rd, z, g.float().contiguous(), cd)
+        return (None, None, _ray_grad(ctx, rd), dz, *_param_grads(dws, dbs, leaves, config))
+
+
+class FusedRaymarchComposited(torch.autograd.Function):
+    """B7 forward and backward: outputs ``(rgb, weights)``, cotangents on both."""
+
+    @staticmethod
+    def forward(ctx, config, cd, rd, z, *leaves):
+        ws, bs = flatten_params(tree_from_leaves(leaves, config), config, cd)
+        ctx.config, ctx.cd = config, cd
+        ctx.save_for_backward(rd, z, *leaves)
+        return raymarch_comp_fwd(ws, bs, config, rd, z, cd)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_w):
+        config, cd = ctx.config, ctx.cd
+        rd, z, *leaves = ctx.saved_tensors
+        ws, bs = flatten_params(tree_from_leaves(leaves, config), config, cd)
+        dws, dbs, dz = raymarch_comp_bwd(ws, bs, config, rd, z, g_rgb.float().contiguous(),
+                                         g_w.float().contiguous(), cd)
+        return (None, None, _ray_grad(ctx, rd), dz, *_param_grads(dws, dbs, leaves, config))
+
+
+def _ray_inputs(config: MLPConfig, rays_orig, rays_dirs, viewcomps, z_values):
+    if config.uses_view_dirs and viewcomps is None:
+        raise ValueError("this MLP config requires view-direction components")
+    return pack_rays(config, rays_orig, rays_dirs, viewcomps), z_values.float().contiguous()
+
+
+def apply_raymarch_fused(params: Params, config: MLPConfig, rays_orig: torch.Tensor,
+                         rays_dirs: torch.Tensor, viewcomps: Optional[torch.Tensor],
+                         z_values: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Fully fused ray-march MLP evaluation (B6).
+
+    :param rays_orig: ``(n_rays, >=3)`` ray origins (homogeneous ok).
+    :param rays_dirs: ``(n_rays, >=3)`` unnormalized ray directions.
+    :param viewcomps: ``(n_rays, n_angles + 1)`` view-direction components
+        (``core/cameras.view_direction_components``), or None for xyz-only.
+    :param z_values: ``(n_rays, S)``.
+    :return: raw radiance ``(n_rays, S, 4)`` float32. Differentiable w.r.t.
+        ``params`` and ``z_values``; the ray cotangents are structural zeros.
+    """
+    rd, z = _ray_inputs(config, rays_orig, rays_dirs, viewcomps, z_values)
+    return FusedRaymarch.apply(config, compute_dtype, rd, z, *mlp_leaves(params, config))
+
+
+def apply_raymarch_composited(params: Params, config: MLPConfig, rays_orig: torch.Tensor,
+                              rays_dirs: torch.Tensor, viewcomps: Optional[torch.Tensor],
+                              z_values: torch.Tensor, compute_dtype=torch.bfloat16):
+    """Fully fused ray-march + alpha compositing (B7): same inputs as
+    :func:`apply_raymarch_fused`, ``(rgb (n_rays, 3), weights (n_rays, S))``
+    float32 out. Differentiable w.r.t. ``params`` and ``z_values`` (through
+    the points and the sample spacings); the ray cotangents are structural
+    zeros, so do not use it where the rays themselves are optimized."""
+    rd, z = _ray_inputs(config, rays_orig, rays_dirs, viewcomps, z_values)
+    return FusedRaymarchComposited.apply(config, compute_dtype, rd, z,
+                                         *mlp_leaves(params, config))

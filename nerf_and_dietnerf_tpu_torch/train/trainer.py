@@ -56,8 +56,11 @@ class Trainer:
         self.config: NeRFConfig = dataclasses.replace(
             run.nerf_config(), near=dataset.near, far=dataset.far
         )
-        # Eval renders always run in f32, through the same backend.
-        self.eval_config = dataclasses.replace(self.config, compute_dtype=torch.float32)
+        # Eval renders always run in f32, through the same backend, with the
+        # train-path fusions off (as in the JAX package).
+        self.eval_config = dataclasses.replace(
+            self.config, compute_dtype=torch.float32, fuse_compositing=False,
+            fuse_fine_loss=False)
         self.train_indices = loaders.train_test_split_indices(
             len(dataset), run.test_img_idx, run.pics_indices_to_use_in_dataset
         )

@@ -72,8 +72,26 @@ def test_fixed_z_loss_and_all_grads_match_jax(backend):
     _assert_grads(tg, jg)
 
 
+# The fused ray-march backend, with and without in-kernel compositing (the
+# fused path takes no density noise).
+RAYMARCH = [dict(backend="pallas_rm", sigma_noise_std=0.5),
+            dict(backend="pallas_rm", fuse_compositing=True)]
+RAYMARCH_IDS = ["pallas_rm", "pallas_rm_fused"]
+
+
 def test_training_losses_with_injected_draws_match_jax():
-    jcfg, tcfg = _configs("pallas", sigma_noise_std=0.5)
+    _check_training_losses(backend="pallas", sigma_noise_std=0.5)
+
+
+@pytest.mark.parametrize("kw", RAYMARCH, ids=RAYMARCH_IDS)
+def test_training_losses_raymarch_backends_match_jax(kw):
+    """The whole objective through B6 / B7, resampling and its z gradient
+    included, against the JAX package's Pallas kernels."""
+    _check_training_losses(**kw)
+
+
+def _check_training_losses(backend, **kw):
+    jcfg, tcfg = _configs(backend, **kw)
     jp, tp = _params(jcfg)
     orig, dirs, rgb = _rays(2)
     key = jax.random.PRNGKey(3)
@@ -97,13 +115,30 @@ def test_training_losses_with_injected_draws_match_jax():
 
 @pytest.mark.parametrize("diagnostics", [True, False])
 def test_render_deterministic_matches_jax(diagnostics):
-    jcfg, tcfg = _configs("pallas")
+    _check_render(diagnostics, backend="pallas")
+
+
+@pytest.mark.parametrize("kw,diagnostics", [(RAYMARCH[0], True), (RAYMARCH[0], False),
+                                            (RAYMARCH[1], False)],
+                         ids=["pallas_rm", "pallas_rm_no_diagnostics", "pallas_rm_fused"])
+def test_render_raymarch_backends_match_jax(kw, diagnostics):
+    """Renders route as in the JAX package: without diagnostics through the
+    train path, so "pallas_rm" + fuse_compositing renders through B7. The
+    merged z are the inverse CDF of the coarse weights, which amplifies a
+    weight's rounding by the bin width over its CDF step: the TPU kernel sums
+    the encoding features in its own column order, the coarse weights agree
+    to 4e-7 and the z to 2e-5 here, so z is also held relatively (1e-5)."""
+    _check_render(diagnostics, z_rtol=1e-5, **kw)
+
+
+def _check_render(diagnostics, backend, z_rtol=1e-7, **kw):
+    jcfg, tcfg = _configs(backend, **kw)
     jp, tp = _params(jcfg)
     orig, dirs, _ = _rays(4)
     jr, jz = jn.render(jp, jcfg, None, orig, dirs, diagnostics=diagnostics)
     tr, tz = tn.render(tp, tcfg, None, _t(orig), _t(dirs), diagnostics=diagnostics)
     assert tz.shape == (N_RAYS, N_C + N_F)
-    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), atol=1e-5)
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), atol=1e-5, rtol=z_rtol)
     for a, b in zip(tr, jr):
         assert (a is None) == (b is None)
         if a is not None:
@@ -124,7 +159,32 @@ def test_render_image_matches_jax_and_pads_chunks():
 
 
 def test_unported_research_paths_raise():
-    for kw, item in ((dict(backend="pallas_rm"), "B6"), (dict(fuse_compositing=True), "B4"),
-                     (dict(fuse_fine_loss=True), "B5")):
+    for kw, item in ((dict(backend="pallas", fuse_compositing=True), "B4"),
+                     (dict(backend="pallas_mlp", fuse_compositing=True), "B4"),
+                     (dict(fuse_fine_loss=True), "B5"),
+                     (dict(backend="pallas_rm", fuse_fine_loss=True), "B5")):
         with pytest.raises(NotImplementedError, match=item):
             tn.NeRFConfig(**kw)
+    for kw in RAYMARCH:
+        assert tn.NeRFConfig(**kw).backend == "pallas_rm"
+
+
+def test_density_noise_with_fused_compositing_raises_like_jax():
+    """The fused kernels composite without a noise input, so noise with
+    fuse_compositing raises; plain "pallas_rm" adds it after the kernel."""
+    orig, dirs, _ = _rays()
+    z = np.sort(np.random.default_rng(1).uniform(2, 6, (N_RAYS, N_C)), -1).astype(np.float32)
+    noise = np.random.default_rng(2).normal(size=(N_RAYS, N_C)).astype(np.float32)
+    jcfg, tcfg = _configs("pallas_rm", fuse_compositing=True, sigma_noise_std=0.5)
+    jp, tp = _params(jcfg)
+    with pytest.raises(ValueError, match="sigma_noise_std"):
+        jn.render_rays_train(jp["coarse"], jcfg, orig, dirs, z, noise_key=jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="sigma_noise_std"):
+        tn.render_rays_train(tp["coarse"], tcfg, _t(orig), _t(dirs), _t(z), noise=_t(noise))
+
+    _, tcfg = _configs("pallas_rm", sigma_noise_std=0.5)
+    args = (tp["coarse"], tcfg, _t(orig), _t(dirs), _t(z))
+    rgb, weights = tn.render_rays_train(*args, noise=_t(noise))
+    ref = tn.render_rays(*args, sigma_noise=0.5 * _t(noise))
+    torch.testing.assert_close(rgb, ref.rgb, rtol=0, atol=0)
+    assert not torch.equal(weights, tn.render_rays_train(*args)[1])

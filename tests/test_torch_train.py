@@ -112,6 +112,34 @@ def test_trainer_one_epoch_on_cpu_writes_artifacts(tmp_path):
     assert trainer.ckpt.latest_step() == 1
 
 
+@pytest.mark.parametrize("n_angles", [2, 0], ids=["view_dirs", "xyz_only"])
+def test_trainer_pallas_rm_one_epoch_on_cpu(tmp_path, n_angles):
+    """The fused ray-march backend through the trainer (its plain versions on
+    the CPU): a finite loss and eval renders of the frame's shape."""
+    run = tiny_run(backend="pallas_rm", n_angles_for_model=n_angles)
+    trainer = Trainer(run, synthetic_dataset(), tmp_path, device="cpu")
+    assert trainer.config.backend == trainer.eval_config.backend == "pallas_rm"
+    stats = trainer.train_epoch(1)
+    assert np.isfinite(stats.loss) and np.isfinite(stats.psnr_test)
+    for idx, rgb in trainer.render_eval_images(1).values():
+        assert rgb.shape == (10, 10, 3) and np.isfinite(rgb).all()
+
+
+def test_eval_config_turns_train_fusions_off(tmp_path, monkeypatch):
+    """As in the JAX package, eval renders run in f32 without the train-path
+    fusions, whatever the train config (no YAML key sets fuse_compositing)."""
+    nerf_config = tconfig.RunConfig.nerf_config
+    monkeypatch.setattr(tconfig.RunConfig, "nerf_config", lambda self: dataclasses.replace(
+        nerf_config(self), fuse_compositing=True))
+    trainer = Trainer(tiny_run(backend="pallas_rm", compute_dtype="bfloat16"),
+                      synthetic_dataset(), tmp_path, device="cpu")
+    assert trainer.config.fuse_compositing and trainer.config.compute_dtype == torch.bfloat16
+    ev = trainer.eval_config
+    assert not ev.fuse_compositing and not ev.fuse_fine_loss
+    assert ev.compute_dtype == torch.float32 and ev.backend == "pallas_rm"
+    assert np.isfinite(trainer.train_epoch(1).loss)  # the train steps go through B7
+
+
 def test_h5_resume_fast_forwards_the_optimizer_count(tmp_path):
     first = Trainer(tiny_run(), synthetic_dataset(), tmp_path, device="cpu")
     first.fit(log=None)
@@ -153,9 +181,9 @@ def test_stock_yamls_load_like_jax(path):
     got, ref = tconfig.load_config(path), jconfig.load_config(path)
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     assert got.VALID_BACKENDS == ref.VALID_BACKENDS
-    if got.backend != "pallas_rm":
-        ncfg = got.nerf_config()
-        assert ncfg.mlp == tm.MLPConfig(**dataclasses.asdict(ref.nerf_config().mlp))
+    ncfg = got.nerf_config()
+    assert ncfg.mlp == tm.MLPConfig(**dataclasses.asdict(ref.nerf_config().mlp))
+    assert ncfg.backend == ref.nerf_config().backend
 
 
 def test_config_rejects_unknown_keys(tmp_path):
