@@ -5,21 +5,25 @@
 
 Builds every kernel of the port from ``nerf_and_dietnerf_tpu_torch/csrc``
 with ``nvcc`` into ``build/kernels/`` (one process per source, in parallel):
-the radiance-MLP kernels B1 ``mlp_fwd`` and B2 ``mlp_bwd``, and the fused
+the radiance-MLP kernels B1 ``mlp_fwd`` and B2 ``mlp_bwd``, the fused
 ray-march kernels B6 ``raymarch_fwd`` / ``raymarch_bwd`` and B7
-``raymarch_comp_fwd`` / ``raymarch_comp_bwd``. Holds each against its plain
-PyTorch version at the flagship widths in bf16 and f32 (both MLP variants;
-the ray-march kernels at 64 samples per ray, in bf16 also at the fine pass's
-128, in f32 also at a ragged 100, and their forwards at the eval render's
-192), checks that the backwards' parameter gradients are bitwise reproducible,
-then drives the three training paths at flagship width (4096 rays, 64 + 128
-samples, 256/128 wide, bf16 step, f32 eval renders) on a synthetic scene
-made from a seed, each for two epochs with the launch counts set to 0 just
-before it: backend "pallas" through the ``Trainer`` (B1, B2; with a state
-save and restore), backend "pallas_rm" through the ``Trainer`` (B6, eval
-renders included), and "pallas_rm" with ``fuse_compositing`` through
-``train_step.make_epoch_fn`` (B7). Prints timings beside the card's name and
-power limit. Any failed phase raises and the script exits non-zero; without
+``raymarch_comp_fwd`` / ``raymarch_comp_bwd``, and the MLP + compositing
+kernels B4 ``mlp_comp_fwd`` / ``mlp_comp_bwd`` and B5 ``mlp_loss_comp``. Holds
+each against its plain PyTorch version at the flagship widths in bf16 and f32
+(both MLP variants; the ray kernels at 64 samples per ray, in bf16 also at the
+fine pass's 128, in f32 also at a ragged 100, the ray-march forwards at the
+eval render's 192; B5 at 128 and at the ragged 100), checks that the
+backwards' parameter gradients (and B4's per-ray view-dir gradient and B5's
+loss) are bitwise reproducible, then drives the five training paths at
+flagship width (4096 rays, 64 + 128 samples, 256/128 wide, bf16 step, f32
+eval renders) on a synthetic scene made from a seed, each for two epochs with
+the launch counts set to 0 just before it: backend "pallas" through the
+``Trainer`` (B1, B2; with a state save and restore), backend "pallas_rm"
+through the ``Trainer`` (B6, eval renders included), and through
+``train_step.make_epoch_fn`` "pallas_rm" with ``fuse_compositing`` (B7),
+"pallas" with ``fuse_compositing`` (B4 on both passes) and "pallas" with
+``fuse_compositing`` and ``fuse_fine_loss`` (B4 on the coarse pass, B5 on the
+fine pass). Prints timings beside the card's name and power limit. Any failed phase raises and the script exits non-zero; without
 a GPU, or without the package beside it, it exits non-zero before printing
 a result.
 
@@ -75,6 +79,13 @@ TOL_ROWS = {"float32": 5e-3, "bfloat16": 2e-2}
 # f32 forwards) and a count that is not a multiple of the 64-row chunk B7 walks
 # a ray in (100, f32, all four kernels: one full chunk and one part-filled).
 RAYS, SAMPLES, SAMPLES_EVAL, SAMPLES_RAGGED = 4096, 64, 192, 100
+# MLP + compositing kernels (B4, B5) against their plain versions, on torch-made
+# encodings of the same ray batches: pixels, weights and B5's loss to TOL (the
+# loss relative to itself); dparams to TOL_BWD; the per-row gradients denc and
+# dz and the per-ray dencd (a sum of S rows' dd) normwise to TOL_ROWS, for the
+# reasons above. B5 makes its cotangent itself, 2 (pixel - target) / (3 R): the
+# targets are drawn below every pixel, -U(0.5, 1.5), so that cotangent is
+# positive like the others' and the weight gradients do not cancel.
 DEVICE = "cuda"  # every tensor of the run; main() refuses to start without a GPU
 # H100 SXM peaks: dense bf16 tensor-core and non-tensor f32 rates, HBM rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -537,6 +548,244 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
 
 
 # --------------------------------------------------------------------------- #
+# MLP + compositing kernel phases (B4, B5)                                     #
+# --------------------------------------------------------------------------- #
+
+COMP_SOURCES = {
+    "mlp_comp_fwd": ("nerf_and_dietnerf_tpu_torch/csrc/mlp_comp_fwd.cu",
+                     "nerf_and_dietnerf_tpu/ops/research_kernels.py:1407"),
+    "mlp_comp_bwd": ("nerf_and_dietnerf_tpu_torch/csrc/mlp_comp_bwd.cu",
+                     "nerf_and_dietnerf_tpu/ops/research_kernels.py:1452"),
+    "mlp_loss_comp": ("nerf_and_dietnerf_tpu_torch/csrc/mlp_loss_comp.cu",
+                      "nerf_and_dietnerf_tpu/ops/research_kernels.py:1856"),
+}
+
+
+def _enc_batch(torch, cfg, cd, n_rays, n_samples, gen):
+    """A ray batch of :func:`_ray_batch`, encoded by torch ops as the "pallas"
+    backend does: ``(enc (R S, xyz) in the compute type, ray-major rows; encd
+    (R, dir) f32 per ray or None; z (R, S); dvec (R, 3); target (R, 3))``,
+    the targets below every pixel (see the tolerances above)."""
+    from nerf_and_dietnerf_tpu_torch.core import encoding
+
+    rd, z = _ray_batch(torch, cfg, n_rays, n_samples, gen)
+    pts = (rd[:, None, 0:3] + z[..., None] * rd[:, None, 3:6]).reshape(-1, 3)
+    enc = encoding.encode_xyz(pts, cfg.n_freq_xyz).to(cd).contiguous()
+    encd = (encoding.encode_view_dirs(rd[:, 6:], cfg.n_freq_dir).contiguous()
+            if cfg.uses_view_dirs else None)
+    target = -(0.5 + torch.rand((n_rays, 3), generator=gen, device=DEVICE))
+    return enc, encd, z, rd[:, 3:6].contiguous(), target
+
+
+def _library_comp(torch, ws, bs, cfg, enc, encd, z, target=None):
+    """The yardstick of B4 (and, with ``target``, B5): a composition of the
+    ``torch.addmm`` chain of :func:`_library_mlp` on the same encodings,
+    ``core.rendering.composite`` and the MSE. No single PyTorch call computes
+    them; the port never calls this."""
+    from nerf_and_dietnerf_tpu_torch.core import rendering
+
+    n_rays, n_samples = z.shape
+    d = None
+    if encd is not None:
+        d = encd.to(enc.dtype)[:, None, :].expand(n_rays, n_samples, encd.shape[-1]).reshape(
+            n_rays * n_samples, -1)
+    raw = _library_mlp(torch, ws, bs, cfg, enc, d).float().reshape(n_rays, n_samples, 4)
+    res = rendering.composite(raw, z)
+    if target is None:
+        return res.rgb, res.weights
+    return (torch.mean(torch.square(res.rgb - target)),)
+
+
+def _comp_bytes(cfg, ws, bs, enc, encd, z, kname):
+    """Bytes an MLP + compositing kernel must move: encodings, z, cotangents
+    and targets in, its outputs and the f32 parameter gradients out, the
+    weights once."""
+    n_rays, n_samples = z.shape
+    rows = n_rays * n_samples
+    params = sum(w.numel() * w.element_size() for w in ws) + sum(b.numel() * 4 for b in bs)
+    n_par = sum(w.numel() for w in ws) + sum(b.numel() for b in bs)
+    dir_bytes = encd.numel() * 4 if encd is not None else 0
+    base = enc.numel() * enc.element_size() + dir_bytes + z.numel() * 4 + params
+    return base + {
+        "mlp_comp_fwd": n_rays * 12 + rows * 4,
+        "mlp_comp_bwd": n_rays * 12 + rows * 4 + enc.numel() * 4 + dir_bytes + rows * 4
+                        + n_par * 4,
+        "mlp_loss_comp": n_rays * 24 + rows * 4 + n_par * 4 + 4,
+    }[kname]
+
+
+def _comp_checks(torch, rk, cfg, ws, bs, batch, cd, name, gen, label, b4=True, b5=True):
+    """B4's forward and backward and B5 against their plain versions on
+    ``batch`` (:func:`_enc_batch`); returns the max |kernel - plain| of each
+    kernel and B4's cotangents for the timings."""
+    tol, tol_b, tol_r = TOL[name], TOL_BWD[name], TOL_ROWS[name]
+    enc, encd, z, dvec, target = batch
+    n_rays, n_samples = z.shape
+    errs, cots = {}, None
+
+    def abs_err(pairs):
+        return max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+
+    def hold_bwd(kname, got, want, rows, reproducible, again):
+        """dparams to tol_b, the per-row / per-ray gradients ``rows`` normwise
+        to tol_r, ``reproducible`` bitwise equal to a second run's ``again``."""
+        (dws, dbs), (pws, pbs) = got, want
+        e_par = max(_scaled_err(a, b) for a, b in zip(dws + dbs, pws + pbs))
+        stats = {k: _row_errs(a, b, tol_r) for k, a, b in rows}
+        errs[kname] = abs_err(list(zip(dws + dbs, pws + pbs)) + [(a, b) for _, a, b in rows])
+        finite = all(bool(torch.isfinite(a).all()) for _, a, _ in rows)
+        if not finite or e_par > tol_b or any(st[1] > tol_r for st in stats.values()):
+            raise AssertionError(f"{kname} {label}: dparams scaled err {e_par} (tol {tol_b}); "
+                                 f"(scaled max, normwise, share over tol) {stats} (tol {tol_r})")
+        if not all(torch.equal(a, b) for a, b in zip(reproducible, again)):
+            raise AssertionError(f"{kname} {label}: results differ between two runs")
+        log(f"kernel check {label}: {kname} dparams scaled err {e_par:.3e} (tol {tol_b}), "
+            f"(scaled max, normwise, share of rows over tol) {stats} (tol {tol_r}), "
+            f"bitwise equal across two runs")
+
+    if b4:
+        rgb_k, w_k = rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, z, cd)
+        torch.cuda.synchronize()
+        rgb_p, w_p = rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd)
+        e = max(_scaled_err(rgb_k, rgb_p), _scaled_err(w_k, w_p))
+        errs["mlp_comp_fwd"] = abs_err([(rgb_k, rgb_p), (w_k, w_p)])
+        if not (torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all() and e <= tol):
+            raise AssertionError(f"mlp_comp_fwd {label}: scaled err {e} > {tol}")
+        log(f"kernel check {label}: B4 fwd scaled err {e:.3e} (tol {tol})")
+        g_rgb = (0.5 + torch.rand((n_rays, 3), generator=gen, device=DEVICE)).contiguous()
+        g_w = (0.5 + torch.rand((n_rays, n_samples), generator=gen, device=DEVICE)).contiguous()
+        cots = (g_rgb, g_w)
+        run = lambda: rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, z, g_rgb, g_w, cd)  # noqa: E731
+        dws, dbs, denc, dencd, dz = run()
+        torch.cuda.synchronize()
+        pws, pbs, pdenc, pdencd, pdz = rk.mlp_comp_bwd_plain(ws, bs, cfg, enc, encd, z, g_rgb,
+                                                             g_w, cd)
+        dws2, dbs2, _, dencd2, _ = run()
+        torch.cuda.synchronize()
+        per_ray = [("dencd", dencd, pdencd)] if encd is not None else []
+        hold_bwd("mlp_comp_bwd", (dws, dbs), (pws, pbs),
+                 [("denc", denc, pdenc), ("dz", dz, pdz)] + per_ray,
+                 dws + dbs + [t for _, t, _ in per_ray],
+                 dws2 + dbs2 + ([dencd2] if per_ray else []))
+    if b5:
+        run = lambda: rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, dvec, target, cd)  # noqa: E731
+        mse, dz, dws, dbs = run()
+        torch.cuda.synchronize()
+        pmse, pdz, pws, pbs = rk.mlp_loss_comp_plain(ws, bs, cfg, enc, encd, z, dvec, target, cd)
+        mse2, _, dws2, dbs2 = run()
+        torch.cuda.synchronize()
+        e_mse = abs(float(mse) - float(pmse)) / abs(float(pmse))
+        if not (math.isfinite(float(mse)) and e_mse <= tol):
+            raise AssertionError(f"mlp_loss_comp {label}: loss {float(mse)} against "
+                                 f"{float(pmse)}, relative err {e_mse} > {tol}")
+        log(f"kernel check {label}: B5 loss {float(mse):.6f}, relative err {e_mse:.3e} "
+            f"(tol {tol})")
+        hold_bwd("mlp_loss_comp", (dws, dbs), (pws, pbs), [("dz", dz, pdz)],
+                 dws + dbs + [mse], dws2 + dbs2 + [mse2])
+        errs["mlp_loss_comp"] = max(errs["mlp_loss_comp"], abs(float(mse) - float(pmse)))
+    return errs, cots
+
+
+def comp_kernel_phases(torch, timings: dict) -> None:
+    from nerf_and_dietnerf_tpu_torch.models import mlp
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+    from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
+        cfg = mlp.MLPConfig(n_angles=n_angles)
+        params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
+        for cd in (torch.bfloat16, torch.float32):
+            name = str(cd).split(".")[-1]
+            ws, bs = rc.flatten_params(params, cfg, cd)
+            # Sample counts: B4 at the coarse pass's 64, B4 and B5 at the fine
+            # pass's 128; in f32 also at the ragged 100.
+            batches, errs, cots = {}, {}, {}
+            for n_s, b4, b5 in ((SAMPLES, True, False),
+                                (2 * SAMPLES, cd == torch.bfloat16, True)) + (
+                    ((SAMPLES_RAGGED, True, True),) if cd == torch.float32 else ()):
+                batches[n_s] = _enc_batch(torch, cfg, cd, RAYS, n_s, gen)
+                errs[n_s], cots[n_s] = _comp_checks(
+                    torch, rk, cfg, ws, bs, batches[n_s], cd, name, gen,
+                    f"{variant} {name} R={RAYS} S={n_s}", b4, b5)
+            if variant != "view_dirs":
+                continue
+            leaves = [w.detach().clone().requires_grad_(True) for w in ws]
+
+            def lib_bwd(n_s, wrt, loss):
+                outs = _library_comp(torch, leaves, bs, cfg, *wrt,
+                                     batches[n_s][4] if loss else None)
+                torch.autograd.grad(outs, leaves + wrt, None if loss else cots[n_s])
+
+            def case(kname, n_s):
+                enc, encd, z, dvec, target = batches[n_s]
+                wrt = [t.detach().clone().requires_grad_(True) for t in (enc, encd, z)]
+                if kname == "mlp_comp_fwd":
+                    return (lambda: rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, z, cd),
+                            lambda: rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd),
+                            lambda: _library_comp(torch, ws, bs, cfg, enc, encd, z))
+                if kname == "mlp_comp_bwd":
+                    g_rgb, g_w = cots[n_s]
+                    return (lambda: rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, z, g_rgb, g_w, cd),
+                            lambda: rk.mlp_comp_bwd_plain(ws, bs, cfg, enc, encd, z, g_rgb, g_w,
+                                                          cd),
+                            lambda: lib_bwd(n_s, wrt, False))
+                return (lambda: rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, dvec, target, cd),
+                        lambda: rk.mlp_loss_comp_plain(ws, bs, cfg, enc, encd, z, dvec, target,
+                                                       cd),
+                        lambda: lib_bwd(n_s, wrt, True))
+
+            rec = {}
+            before = dict(kl.LAUNCHES)
+            # Times at the step's shapes: B4 at the coarse pass's S = 64 (and, in
+            # bf16, the fine pass's 128), B5 at the fine pass's 128.
+            for kname, n_s, mult in (("mlp_comp_fwd", SAMPLES, 1), ("mlp_comp_bwd", SAMPLES, 3),
+                                     ("mlp_loss_comp", 2 * SAMPLES, 3)):
+                fn, plain, lib = case(kname, n_s)
+                enc, encd, z = batches[n_s][:3]
+                t_ops = mult * _mlp_flops(cfg, RAYS * n_s) / PEAK_FLOPS[name]
+                t_bytes = _comp_bytes(cfg, ws, bs, enc, encd, z, kname) / PEAK_BYTES
+                rec[kname] = {
+                    "rays": RAYS, "samples": n_s, "dtype": name,
+                    "ms": _time_ms(torch, fn),
+                    "plain_ms": _time_ms(torch, plain, reps=2),
+                    "library_ms": _time_ms(torch, lib),
+                    "library": "composition: addmm chain on the same encodings + composite"
+                               + (" + MSE" if kname == "mlp_loss_comp" else ""),
+                    "bound_ms": 1e3 * max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "max_abs_err": errs[n_s][kname],
+                }
+            if cd == torch.bfloat16:
+                for kname in ("mlp_comp_fwd", "mlp_comp_bwd"):
+                    rec[kname]["ms_fine_pass"] = _time_ms(torch, case(kname, 2 * SAMPLES)[0],
+                                                          reps=3)
+                    rec[kname]["max_abs_err_s128"] = errs[2 * SAMPLES][kname]
+            else:
+                for kname in COMP_SOURCES:
+                    rec[kname]["max_abs_err_s100"] = errs[SAMPLES_RAGGED][kname]
+            kl.LAUNCHES.update(before)  # timing launches are not the main path's
+            timings["comp_" + name] = rec
+            for kname, r in rec.items():
+                log(f"time {kname} {name} R={RAYS} S={r['samples']}: kernel {r['ms']:.3f} ms, "
+                    f"plain {r['plain_ms']:.3f} ms, library (composition) "
+                    f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                    + (f"; S={2 * SAMPLES}: {r['ms_fine_pass']:.3f} ms"
+                       if "ms_fine_pass" in r else ""))
+
+    # Opaque rays: transmittance underflows to exactly 0; B4's backward and B5
+    # stay finite (their compositing VJP is division-free) and agree with
+    # their plain versions.
+    cfg = mlp.MLPConfig(n_angles=0)
+    params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
+    params["sigma_out"]["bias"] = params["sigma_out"]["bias"] + 1e6
+    ws, bs = rc.flatten_params(params, cfg, torch.float32)
+    _comp_checks(torch, rk, cfg, ws, bs, _enc_batch(torch, cfg, torch.float32, 256, SAMPLES, gen),
+                 torch.float32, "float32", gen, f"opaque rays float32 R=256 S={SAMPLES}")
+
+
+# --------------------------------------------------------------------------- #
 # Training phase                                                               #
 # --------------------------------------------------------------------------- #
 
@@ -584,6 +833,15 @@ MAIN_PATHS = {
     "pallas": ("mlp_fwd", "mlp_bwd"),
     "pallas_rm": ("raymarch_fwd", "raymarch_bwd"),
     "pallas_rm_fused": ("raymarch_comp_fwd", "raymarch_comp_bwd"),
+    "pallas_fused": ("mlp_comp_fwd", "mlp_comp_bwd"),
+    "pallas_fused_loss": ("mlp_comp_fwd", "mlp_comp_bwd", "mlp_loss_comp"),
+}
+# The model-config changes of the paths driven through train_step.make_epoch_fn
+# (no YAML key sets the two flags).
+FUSED_PATHS = {
+    "pallas_rm_fused": dict(backend="pallas_rm", fuse_compositing=True),
+    "pallas_fused": dict(backend="pallas", fuse_compositing=True),
+    "pallas_fused_loss": dict(backend="pallas", fuse_compositing=True, fuse_fine_loss=True),
 }
 
 
@@ -665,16 +923,16 @@ def train_phase(torch, timings: dict, backend: str):
     return launches, trainer
 
 
-def fused_phase(torch, timings: dict, trainer) -> dict:
-    """Two epochs of ``train_step.make_epoch_fn`` under "pallas_rm" with
-    ``fuse_compositing`` (no YAML key sets it), from a fresh state on the
-    trainer's ray table, with the launch counts set to 0 just before."""
+def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
+    """Two epochs of ``train_step.make_epoch_fn`` under the model config of
+    ``FUSED_PATHS[path]``, from a fresh state on the trainer's ray table, with
+    the launch counts set to 0 just before."""
     import dataclasses
 
     from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
     from nerf_and_dietnerf_tpu_torch.train import train_step as ts
 
-    config = dataclasses.replace(trainer.config, fuse_compositing=True)
+    config = dataclasses.replace(trainer.config, **FUSED_PATHS[path])
     state = ts.init_train_state(torch.Generator().manual_seed(SEED), config, trainer.optimizer,
                                 device=DEVICE)
     steps, batch = trainer.data.batches_per_epoch, trainer.run.n_rays_in_batch_train
@@ -690,11 +948,11 @@ def fused_phase(torch, timings: dict, trainer) -> dict:
         state, metrics = epoch_fn(state, gen, *tables)
         losses.append(float(metrics["loss"]))
         seconds.append(time.perf_counter() - t0)
-        log(f"pallas_rm_fused epoch {epoch}: loss={losses[-1]:.6f} ({seconds[-1]:.3f} s)")
+        log(f"{path} epoch {epoch}: loss={losses[-1]:.6f} ({seconds[-1]:.3f} s)")
     torch.cuda.synchronize()
     launches = dict(kl.LAUNCHES)
-    _check_path("pallas_rm_fused", losses, launches)
-    timings["train_pallas_rm_fused"] = {
+    _check_path(path, losses, launches)
+    timings["train_" + path] = {
         "ms_per_step": 1e3 * seconds[1] / steps,
         "rays_per_sec": steps * batch / seconds[1],
         "loss": losses,
@@ -717,6 +975,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
 
+    t_start = time.perf_counter()
     card = gpu_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -731,19 +990,26 @@ def main() -> int:
     timings: dict = {}
     kernel_phases(torch, timings)
     raymarch_kernel_phases(torch, timings)
+    comp_kernel_phases(torch, timings)
+    log(f"kernel phases done at {time.perf_counter() - t_start:.0f} s")
+    # Each kernel's launch count is that of the first path that must launch it.
     launches: dict = {}
     for backend in ("pallas", "pallas_rm"):
         got, trainer = train_phase(torch, timings, backend)
         launches.update({k: got[k] for k in MAIN_PATHS[backend]})
-    got = fused_phase(torch, timings, trainer)
-    launches.update({k: got[k] for k in MAIN_PATHS["pallas_rm_fused"]})
+    for path in FUSED_PATHS:
+        got = fused_phase(torch, timings, trainer, path)
+        for k in MAIN_PATHS[path]:
+            launches.setdefault(k, got[k])
+    log(f"training paths done at {time.perf_counter() - t_start:.0f} s")
 
     for path in MAIN_PATHS:
         t = timings["train_" + path]
         log(f"[{card}] {path} train step {t['ms_per_step']:.3f} ms ({t['rays_per_sec']:.0f} "
             f"rays/s)" + (f", eval frame {t['ms_per_eval_frame']:.3f} ms"
                           if "ms_per_eval_frame" in t else ""))
-    for key in ("bfloat16", "float32", "rm_bfloat16", "rm_float32"):
+    for key in ("bfloat16", "float32", "rm_bfloat16", "rm_float32", "comp_bfloat16",
+                "comp_float32"):
         for kname, r in timings[key].items():
             log(f"[{card}] {kname} {r['dtype']}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
                 f"library_ms {r['library_ms']:.3f}, bound {r['bound_ms']:.4f} ms")
@@ -751,10 +1017,10 @@ def main() -> int:
                            "nerf_and_dietnerf_tpu/ops/raymarch_pallas.py:236"),
                "mlp_bwd": ("nerf_and_dietnerf_tpu_torch/csrc/mlp_bwd.cu",
                            "nerf_and_dietnerf_tpu/ops/raymarch_pallas.py:412"),
-               **RM_SOURCES}
+               **RM_SOURCES, **COMP_SOURCES}
     kernels = []
     for kname, (src, replaces) in sources.items():
-        prefix = "rm_" if kname in RM_SOURCES else ""
+        prefix = "rm_" if kname in RM_SOURCES else "comp_" if kname in COMP_SOURCES else ""
         r = timings[prefix + "bfloat16"][kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,

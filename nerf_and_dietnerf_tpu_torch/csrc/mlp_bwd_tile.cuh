@@ -1,7 +1,10 @@
-// Shared device code of the radiance-MLP backward (mlp_bwd.cu, and the fused
-// ray-march backwards raymarch_bwd.cu and raymarch_comp_bwd.cu): one 64-row
-// tile's recomputed forward, then the chain back, with the weight and bias
-// gradients summed into the block's own slab of a scratch buffer.
+// Shared device code of the radiance-MLP backward (mlp_bwd.cu, the fused
+// ray-march backwards raymarch_bwd.cu and raymarch_comp_bwd.cu, and the
+// MLP + compositing backwards mlp_comp_bwd.cu and mlp_loss_comp.cu): one
+// 64-row tile's forward with its activations kept (`backward_tile` recomputes
+// it; the compositing kernels ran it already and call `backward_walk`), then
+// the chain back, with the weight and bias gradients summed into the block's
+// own slab of a scratch buffer.
 //
 // As the JAX package's `_backward_tile`: the leaky gradient takes the sign of
 // the post-activation (ties >= 0 take the identity branch), gradients are
@@ -154,9 +157,10 @@ struct BwdTiles {
   float* G;   // gradient tile / forward pong buffer (TM x HMAX)
   float* Ws;  // streamed weight chunk (KC x HMAX)
   float* X;   // encoded xyz (TM x XMAX)
-  float* D;   // encoded view dirs (TM x DMAX)
+  float* D;   // encoded view dirs (TM x DMAX); with dd_in_D, the tile's dd rows afterwards
   float* GX;  // skip layer's share of dx, then (with dx == nullptr) all of dx (TM x XMAX)
   float* GI;  // output cotangent (TM x 8), see load_cotangent
+  bool dd_in_D;  // leave the view-dir gradient rows on chip, in D (see backward_walk)
 };
 
 __device__ inline BwdTiles bwd_tiles(float* smem) {
@@ -168,20 +172,23 @@ __device__ inline BwdTiles bwd_tiles(float* smem) {
   t.D = t.X + TM * XMAX;
   t.GX = t.D + TM * DMAX;
   t.GI = t.GX + TM * XMAX;
+  t.dd_in_D = false;
   return t;
 }
 
-// The backward of one tile whose X, D and GI tiles are loaded (and a barrier
-// passed). Weight and bias gradients go to `part` (the block's slab: weights,
-// then biases), written on the block's first tile and added to after. `acts`
-// is the block's scratch slab of NACT activation slots. dx / dd rows go to
-// global memory where given; a null dd skips the view-dir gradient, and a
-// null dx leaves the tile's whole dx in t.GX (after a barrier).
+// The chain back over one tile whose X, D and GI tiles are loaded (and a
+// barrier passed) and whose forward left its post-activations in `acts` (NACT
+// slots, as forward_tile keeps them). Weight and bias gradients go to `part`
+// (the block's slab: weights, then biases), written on the block's first tile
+// and added to after. dx / dd rows go to global memory where given. A null dx
+// leaves the tile's whole dx in t.GX (after a barrier). A null dd skips the
+// view-dir gradient, unless t.dd_in_D: then its rows replace t.D, whose last
+// readers are the head's weight-gradient products (rows past dm.n hold 0).
 template <typename T>
-__device__ void backward_tile(const Dims& dm, const Layout& L, const T* __restrict__ W,
+__device__ void backward_walk(const Dims& dm, const Layout& L, const T* __restrict__ W,
                               const T* __restrict__ WT, const float* __restrict__ B,
-                              const BwdTiles& t, T* acts, float* part, bool first, int row0,
-                              float* dx, float* dd) {
+                              const BwdTiles& t, const T* acts, float* part, bool first,
+                              int row0, float* dx, float* dd) {
   float* pb = part + L.total_w;
   auto slot = [&](int s) { return acts + (size_t)s * TM * HMAX; };
   const float alpha = dm.alpha;
@@ -192,10 +199,8 @@ __device__ void backward_tile(const Dims& dm, const Layout& L, const T* __restri
   const float* D = t.D;
   float* GX = t.GX;
   const float* GI = t.GI;
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
   float acc[8][8];
-
-  forward_tile<T>(dm, L, W, B, X, D, P, G, Ws, acts, nullptr, row0);
-  __syncthreads();
 
   if (dm.has_dir) {
     // rgb_out: (last, 3)
@@ -216,12 +221,23 @@ __device__ void backward_tile(const Dims& dm, const Layout& L, const T* __restri
     wgrad(part + L.w[12], P, HMAX, GI + 3, 8, dm.hid, 1, first);
     wgrad(part + L.w[13], D, DMAX, GI + 3, 8, dm.dir, 1, first);
     bgrad(pb + L.b[10], GI + 3, 8, 1, first);
-    if (dd) {
+    if (dd || t.dd_in_D) {
       // dd = g_rgb_h @ Wrh_d^T + gsig @ Wsig_d^T
       zero_acc(acc);
       gemm_acc<T>(acc, G, HMAX, dm.last, WT + L.w[10], dm.dir, Ws);
       gemm_acc<T>(acc, GI + 4, 8, 1, WT + L.w[13], dm.dir, Ws);
-      store_rows(acc, nullptr, 0, dm.dir, dd, row0, dm.n);
+      if (dd) {
+        store_rows(acc, nullptr, 0, dm.dir, dd, row0, dm.n);
+      } else {
+        // The barrier that ends gemm_acc lies behind every read of D above.
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = acc_col(tx, j);
+            if (c < dm.dir) t.D[(ty * 8 + i) * DMAX + c] = acc[i][j];
+          }
+      }
     }
     // g_h8 = g_rgb_h @ Wrh_h^T + gsig @ Wsig_h^T
     zero_acc(acc);
@@ -260,7 +276,6 @@ __device__ void backward_tile(const Dims& dm, const Layout& L, const T* __restri
   }
 
   // Trunk, reversed; acc holds the gradient of layer l's output.
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
   for (int l = N_TRUNK - 1; l >= 0; --l) {
     trunk_grad<T>(acc, slot(l), dm.hid, alpha, G);
     if (l > 0) load_act<T>(P, slot(l - 1), dm.hid);
@@ -304,6 +319,19 @@ __device__ void backward_tile(const Dims& dm, const Layout& L, const T* __restri
       }
     }
   }
+}
+
+// The backward of one tile whose X, D and GI tiles are loaded (and a barrier
+// passed): the forward recomputed into `acts` (the block's scratch slab of
+// NACT activation slots), then backward_walk.
+template <typename T>
+__device__ void backward_tile(const Dims& dm, const Layout& L, const T* __restrict__ W,
+                              const T* __restrict__ WT, const float* __restrict__ B,
+                              const BwdTiles& t, T* acts, float* part, bool first, int row0,
+                              float* dx, float* dd) {
+  forward_tile<T>(dm, L, W, B, t.X, t.D, t.P, t.G, t.Ws, acts, nullptr, row0);
+  __syncthreads();
+  backward_walk<T>(dm, L, W, WT, B, t, acts, part, first, row0, dx, dd);
 }
 
 // out[i] = sum over blocks b = 0, 1, ... of partial[b][i], in that order.

@@ -1,4 +1,5 @@
-// Shared device code of the radiance-MLP kernels (mlp_fwd.cu, mlp_bwd.cu).
+// Shared device code of the radiance-MLP kernels (mlp_fwd.cu, mlp_bwd.cu) and
+// of every kernel that runs the MLP inside it.
 //
 // One thread block owns a tile of TM = 64 rows (ray samples). The tile's
 // activations live in shared memory as float (values already rounded to the
@@ -263,11 +264,11 @@ __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restric
   }
 }
 
-inline size_t fwd_smem_bytes() {
+constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * (2 * TM * HMAX + KC * HMAX + TM * XMAX + TM * DMAX);
 }
 
-inline size_t bwd_smem_bytes() {
+constexpr size_t bwd_smem_bytes() {
   return sizeof(float) * (2 * TM * HMAX + KC * HMAX + 2 * TM * XMAX + TM * DMAX + TM * 8);
 }
 

@@ -1,0 +1,185 @@
+// B5: the fine-pass objective in one kernel: forward, compositing, the mean
+// squared error against the target pixels, and the whole backward.
+//
+// Replaces nerf_and_dietnerf_tpu/ops/research_kernels.py
+// `_loss_mlp_comp_pallas` (body `_make_loss_mlp_comp`, encoding VJP constants
+// `_enc_vjp_consts`): per ray, the MLP forward with its activations kept, the
+// composited pixel, err = pixel - target, the loss share sum(err^2) * inv_n
+// (inv_n = 1 / (3 R)), the pixel cotangent 2 inv_n err (weights cotangent
+// zero), the compositing VJP, the MLP backward over the kept activations, and
+// the xyz-encoding VJP from the encoding's own neighbouring columns, down to
+// z. Out: the scalar loss, the TOTAL dz (R, S) = the compositing's share (the
+// sample spacings) + the points' share, and the summed weight and bias
+// gradients. The encodings, directions and targets get no gradient.
+//
+// The encoding VJP needs no trigonometry: per coordinate the columns are
+// [c, sin f0 c, cos f0 c, sin f1 c, ...] (core/encoding.py), f_k = pi 2^k, so
+// d(column j)/dc is 1 for the identity column, f_k times the column to its
+// right for a sin column and -f_k times the column to its left for a cos
+// column, whatever computed the values. The columns are read as the kernel
+// got them (in bf16: rounded, widened to f32), as on the TPU. Then
+// dz = sum_c (sum_j g_j d_j) dvec_c, with dvec the ray's unnormalised
+// direction.
+//
+// What bounds it on an H100: operations, about 3 x 1.024 MFLOP per row,
+// against 66 bytes of bf16 encoding and 4 of z in and 4 of dz out per row.
+//
+// What the design does about that: ONE forward per row and no recompute, the
+// kernel's defining property: the structure of the B4 backward (whole rays
+// per block, each chunk's ten activations kept in the block's scratch slab,
+// raw values and cotangents in shared memory, backward_walk per chunk), with
+// the cotangent made in the kernel. On the TPU the loss is summed across
+// sequential grid steps; blocks here run in no order, so a block's loss share
+// is the last entry of its gradient slab, and the second launch adds the
+// slabs in block order: the loss and the gradients are bitwise reproducible.
+#include "mlp_bwd_tile.cuh"
+#include "mlp_comp_common.cuh"
+
+using namespace nerf_mlp;
+using namespace nerf_comp;
+
+constexpr float PI_F = 3.14159265358979f;
+
+// B2's tiles, 9 floats per row of the group (raw values, their cotangents, the
+// compositing's dz) and a squared error per ray.
+constexpr size_t loss_comp_smem_bytes(int S) {
+  return bwd_smem_bytes() + sizeof(float) * (size_t)rays_per_group(S) * (9 * (size_t)S + 1);
+}
+static_assert(loss_comp_smem_bytes(MAX_S_COMP) <= 232448, "shared memory of a block");
+
+// The points' share of one row's dz: its xyz-encoding cotangent gx and its
+// encoding x (rows of the GX and X tiles) through the encoding VJP, then the
+// ray's direction.
+__device__ inline float dz_points(const float* gx, const float* x, int n_freq,
+                                  const float* dvec) {
+  const int per = 1 + 2 * n_freq;
+  float dz = 0.f;
+  for (int c = 0; c < 3; ++c) {
+    const float* g = gx + c * per;
+    const float* e = x + c * per;
+    float s = g[0];
+    for (int k = 0; k < n_freq; ++k) {
+      const float f = ldexpf(PI_F, k);
+      s += g[1 + 2 * k] * (f * e[2 + 2 * k]);
+      s += g[2 + 2 * k] * (-f * e[1 + 2 * k]);
+    }
+    dz += s * dvec[c];
+  }
+  return dz;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 1)
+    mlp_loss_comp_kernel(Dims dm, Layout L, EncRays<T> in, const float* __restrict__ dvec,
+                         const float* __restrict__ target, float inv_n,
+                         const T* __restrict__ W, const T* __restrict__ WT,
+                         const float* __restrict__ B, float* __restrict__ dz,
+                         float* __restrict__ partial, T* __restrict__ acts_all, int groups) {
+  extern __shared__ float4 smem4[];
+  const BwdTiles t = bwd_tiles(reinterpret_cast<float*>(smem4));
+  const int S = in.S, rpg = rays_per_group(S);
+  float* RAW = t.GI + TM * 8;        // (rpg * S, 4) raw radiance
+  float* GRAW = RAW + 4 * rpg * S;    // (rpg * S, 4) its cotangent
+  float* DZC = GRAW + 4 * rpg * S;    // (rpg * S) weights, then the compositing's dz
+  float* ERR = DZC + rpg * S;         // (rpg) squared error of each ray
+  // The block's slab: weight gradients, bias gradients, its share of the loss.
+  const size_t p_total = (size_t)L.total_w + L.total_b + 1;
+  const size_t slots = (size_t)NACT * TM * HMAX;
+  float* part = partial + blockIdx.x * p_total;
+  T* acts = acts_all + (size_t)blockIdx.x * chunks_per_group(S) * slots;
+  const int tid = threadIdx.x;
+  const int n_freq = (dm.xyz - 3) / 6;
+
+  bool first = true;
+  float sq_err = 0.f;  // thread 0: the block's sum of squared errors, in ray order
+  for (int group = blockIdx.x; group < groups; group += gridDim.x) {
+    const Group g = group_of(group, in.R, S);
+    const size_t grow0 = (size_t)g.ray0 * S;
+    Dims dl = dm;
+    dl.n = g.rows;
+    // 1. the forward, once: raw radiance to RAW, activations to the slab
+    for (int c0 = 0; c0 < g.rows; c0 += TM) {
+      __syncthreads();
+      load_chunk<T>(in, dm, g, c0, t.X, t.D);
+      __syncthreads();
+      forward_tile<T>(dl, L, W, B, t.X, t.D, t.P, t.G, t.Ws, acts + (c0 / TM) * slots, RAW, c0);
+    }
+    __syncthreads();
+    // 2. pixel, error, its cotangent and the compositing VJP, one thread per ray
+    if (tid < g.n_rays) {
+      const size_t ray = (size_t)g.ray0 + tid;
+      const float* raw = RAW + (size_t)tid * S * 4;
+      float pixel[3], g_pix[3], e2 = 0.f;
+      composite_ray(raw, in.z + ray * S, S, pixel, DZC + (size_t)tid * S);
+      for (int ch = 0; ch < 3; ++ch) {
+        const float err = pixel[ch] - target[ray * 3 + ch];
+        e2 += err * err;
+        g_pix[ch] = (2.f * inv_n) * err;
+      }
+      ERR[tid] = e2;
+      composite_ray_bwd(raw, in.z + ray * S, S, g_pix, nullptr, GRAW + (size_t)tid * S * 4,
+                        DZC + (size_t)tid * S);
+    }
+    __syncthreads();
+    if (tid == 0)
+      for (int r = 0; r < g.n_rays; ++r) sq_err += ERR[r];
+    // 3. the chain back over the kept activations, chunk by chunk, then dz
+    for (int c0 = 0; c0 < g.rows; c0 += TM, first = false) {
+      __syncthreads();
+      load_chunk<T>(in, dm, g, c0, t.X, t.D);
+      cotangent_tile<T>(t.GI, GRAW, c0, g.rows);
+      __syncthreads();
+      backward_walk<T>(dl, L, W, WT, B, t, acts + (c0 / TM) * slots, part, first, c0, nullptr,
+                       nullptr);
+      if (tid < TM && c0 + tid < g.rows) {
+        const int row = c0 + tid;
+        dz[grow0 + row] = DZC[row] + dz_points(t.GX + tid * XMAX, t.X + tid * XMAX, n_freq,
+                                               dvec + (size_t)(g.ray0 + row / S) * 3);
+      }
+    }
+  }
+  if (tid == 0) part[p_total - 1] = sq_err * inv_n;
+}
+
+template <typename T>
+static int launch(const Dims& dm, const void* enc, const float* encd, const float* z,
+                  const float* dvec, const float* target, float inv_n, int R, int S,
+                  const void* w, const void* wt, const float* b, float* dz, float* partial,
+                  void* acts, float* out, int n_blocks, cudaStream_t stream) {
+  const int groups = n_groups(R, S);
+  if (groups == 0 || n_blocks <= 0 || n_blocks > groups || dm.xyz < 3 || (dm.xyz - 3) % 6 != 0)
+    return (int)cudaErrorInvalidValue;
+  const Layout L = make_layout(dm);
+  const EncRays<T> in{static_cast<const T*>(enc), encd, z, R, S};
+  const size_t smem = loss_comp_smem_bytes(S);
+  cudaFuncSetAttribute(mlp_loss_comp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  mlp_loss_comp_kernel<T><<<n_blocks, NT, smem, stream>>>(
+      dm, L, in, dvec, target, inv_n, static_cast<const T*>(w), static_cast<const T*>(wt), b, dz,
+      partial, static_cast<T*>(acts), groups);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_reduce(partial, n_blocks, (size_t)L.total_w + L.total_b + 1, out, stream);
+}
+
+// enc, encd, z as nerf_mlp_comp_fwd's; dvec (R, 3) unnormalised ray directions
+// and target (R, 3) pixels, f32; inv_n = 1 / (3 R). Out: dz (R, S) f32 and
+// `out` (nerf_mlp_param_count + 1) f32: the weight gradients, the bias
+// gradients, then the loss. Scratch the caller allocates: partial (n_blocks *
+// (nerf_mlp_param_count + 1)) f32 and acts (n_blocks *
+// nerf_mlp_comp_act_slots(S)) elements of the compute type, with
+// 1 <= n_blocks <= nerf_mlp_comp_groups(R, S).
+// Returns cudaGetLastError() (0 on success).
+extern "C" int nerf_mlp_loss_comp(int is_bf16, int has_dir, const void* enc, const float* encd,
+                                  const float* z, const float* dvec, const float* target,
+                                  const void* w, const void* wt, const float* b, float* dz,
+                                  float* partial, void* acts, float* out, int n_blocks, int R,
+                                  int S, int xyz, int dir, int hid, int last, float alpha,
+                                  float inv_n, void* stream) {
+  const Dims dm{R * S, xyz, dir, hid, last, has_dir, alpha};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch<__nv_bfloat16>(dm, enc, encd, z, dvec, target, inv_n, R, S, w, wt, b,
+                                         dz, partial, acts, out, n_blocks, s)
+                 : launch<float>(dm, enc, encd, z, dvec, target, inv_n, R, S, w, wt, b, dz,
+                                 partial, acts, out, n_blocks, s);
+}

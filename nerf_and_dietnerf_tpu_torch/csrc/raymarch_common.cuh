@@ -11,17 +11,18 @@
 // products and sums are rounded one by one (no contraction into an FMA), as
 // the plain PyTorch version computes them, and sinf / cosf are the full-range
 // library functions: theta reaches hundreds of radians for far points.
+// B7's per-ray compositing and its VJP are in composite_common.cuh, which the
+// MLP + compositing kernels (B4, B5) share.
 #pragma once
 
-#include "mlp_common.cuh"
+#include "composite_common.cuh"
 
 namespace nerf_rm {
 
 using namespace nerf_mlp;
+using namespace nerf_comp;
 
 constexpr float PI_F = 3.14159265358979f;
-constexpr float TERMINAL_DELTA = 1e9f;
-constexpr int MAX_S_COMP = 512;  // samples per ray the compositing kernels take
 
 struct Rays {
   const float* rd;  // (R, 6 + D): origin xyz | direction xyz | view components
@@ -96,71 +97,5 @@ __device__ inline float dz_of_row(const Rays& ry, const float* gx, int row) {
   }
   return dz;
 }
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float delta_of(const float* z, int s, int S) {
-  return s < S - 1 ? z[s + 1] - z[s] : TERMINAL_DELTA;
-}
-
-// Alpha compositing of one ray (core/rendering.composite): raw (S, 4) with
-// stride 4, z (S); writes rgb (3) and weights (S). Serial over samples, so
-// the transmittance is the same running product as a serial cumprod.
-__device__ inline void composite_ray(const float* raw, const float* z, int S, float* rgb,
-                                     float* weights) {
-  float T = 1.f, acc[3] = {0.f, 0.f, 0.f};
-  for (int s = 0; s < S; ++s) {
-    const float sigma = fmaxf(raw[4 * s + 3], 0.f);
-    const float alpha = 1.f - expf(-sigma * delta_of(z, s, S));
-    const float w = alpha * T;
-    weights[s] = w;
-    for (int ch = 0; ch < 3; ++ch) acc[ch] += w * sigmoid(raw[4 * s + ch]);
-    T *= 1.f - alpha;
-  }
-  for (int ch = 0; ch < 3; ++ch) rgb[ch] = acc[ch];
-}
-
-// VJP of composite_ray for the cotangents g_rgb (3) and g_w (S): the raw
-// cotangent g_raw (S, 4, stride 4) and compositing's share of dz (S). The
-// transmittance chain runs as the reverse affine recurrence
-//   C_s = gW_s * a_s + (1 - a_s) * C_{s+1},  da_s = (gW_s - C_{s+1}) * T_s,
-// with no division, so rays whose transmittance underflows to 0 stay finite.
-// g_raw's sigma column and dz hold alpha and T between the two sweeps.
-__device__ inline void composite_ray_bwd(const float* raw, const float* z, int S,
-                                         const float* g_rgb, const float* g_w, float* g_raw,
-                                         float* dz) {
-  float T = 1.f;
-  for (int s = 0; s < S; ++s) {
-    const float sigma = fmaxf(raw[4 * s + 3], 0.f);
-    const float alpha = 1.f - expf(-sigma * delta_of(z, s, S));
-    g_raw[4 * s + 3] = alpha;
-    dz[s] = T;
-    T *= 1.f - alpha;
-  }
-  float c_next = 0.f;
-  for (int s = S - 1; s >= 0; --s) {
-    const float alpha = g_raw[4 * s + 3], Ts = dz[s];
-    const float pre = raw[4 * s + 3], sigma = fmaxf(pre, 0.f);
-    const float delta = delta_of(z, s, S);
-    const float w = alpha * Ts;
-    float c[3], gw = 0.f;
-    for (int ch = 0; ch < 3; ++ch) {
-      c[ch] = sigmoid(raw[4 * s + ch]);
-      gw += c[ch] * g_rgb[ch];
-    }
-    gw = g_w[s] + gw;
-    const float om = 1.f - alpha;
-    const float da = (gw - c_next) * Ts;
-    c_next = gw * alpha + om * c_next;
-    for (int ch = 0; ch < 3; ++ch) g_raw[4 * s + ch] = ((w * g_rgb[ch]) * c[ch]) * (1.f - c[ch]);
-    g_raw[4 * s + 3] = pre > 0.f ? da * delta * om : 0.f;
-    const float dd = s < S - 1 ? da * sigma * om : 0.f;
-    dz[s] = -dd;              // delta_s = z_{s+1} - z_s
-    if (s < S - 1) dz[s + 1] += dd;
-  }
-}
-
-// Rays per group of the compositing kernels: whole rays, about TM rows.
-__host__ __device__ inline int rays_per_group(int S) { return S >= TM ? 1 : TM / S; }
 
 }  // namespace nerf_rm

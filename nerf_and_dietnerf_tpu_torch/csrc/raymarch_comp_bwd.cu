@@ -73,12 +73,7 @@ __global__ void __launch_bounds__(NT, 1)
     for (int c0 = 0; c0 < rows; c0 += TM, first = false) {
       __syncthreads();
       build_inputs<T>(ry, dm.xyz, dm.dir, grow0 + c0, grow0 + rows, t.X, t.D);
-      for (int idx = tid; idx < TM * 4; idx += NT) {
-        const int r = idx >> 2, c = idx & 3;
-        const float v = c0 + r < rows ? GRAW[(c0 + r) * 4 + c] : 0.f;
-        t.GI[r * 8 + c] = v;
-        if (c == 3) t.GI[r * 8 + 4] = round_t<T>(v);
-      }
+      cotangent_tile<T>(t.GI, GRAW, c0, rows);
       __syncthreads();
       backward_tile<T>(dl, L, W, WT, B, t, acts, part, first, c0, nullptr, nullptr);
       if (tid < TM && c0 + tid < rows) {

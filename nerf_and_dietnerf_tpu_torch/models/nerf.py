@@ -30,7 +30,9 @@ from nerf_and_dietnerf_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
 
-MLP_BACKENDS = ("pallas", "pallas_mlp")  # the CUDA MLP kernels B1/B2 on torch encodings
+# The CUDA MLP kernels on torch encodings: B1/B2, B4 with fuse_compositing, B5
+# on the fine pass with fuse_fine_loss.
+MLP_BACKENDS = ("pallas", "pallas_mlp")
 RAYMARCH_BACKENDS = ("pallas_rm",)        # the fused ray-march kernels B6 (B7 with fuse_compositing)
 PLAIN_BACKENDS = ("xla",)                 # plain torch ops
 
@@ -41,9 +43,12 @@ class NeRFConfig:
     names: "pallas" / "pallas_mlp" select the CUDA MLP kernels on torch-made
     encodings, "pallas_rm" the fused ray-march kernels (points and encodings
     built in the kernel from per-ray data), "xla" plain torch ops.
-    ``fuse_compositing`` moves compositing into the kernel on the
-    "pallas_rm" train path, as in the JAX package (ignored by "xla"); on
-    "pallas" it and ``fuse_fine_loss`` are not ported yet and raise."""
+    ``fuse_compositing`` moves compositing into the kernel on the train path
+    ("pallas": the MLP + compositing kernel B4; "pallas_rm": B7; ignored by
+    "xla"). ``fuse_fine_loss`` runs the fine pass's whole objective, forward
+    and backward, as one kernel (B5) under "pallas" / "pallas_mlp"; the other
+    backends accept it and ignore it, as in the JAX package. Neither takes
+    density noise."""
 
     mlp: MLPConfig = MLPConfig()
     n_samples_coarse: int = 64
@@ -60,15 +65,6 @@ class NeRFConfig:
     def __post_init__(self):
         if self.backend not in MLP_BACKENDS + RAYMARCH_BACKENDS + PLAIN_BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}")
-        if self.fuse_compositing and self.backend in MLP_BACKENDS:
-            raise NotImplementedError(
-                "fuse_compositing on the 'pallas' backend (MLP + compositing kernel) is not "
-                "ported yet: ROADMAP B4"
-            )
-        if self.fuse_fine_loss:
-            raise NotImplementedError(
-                "fuse_fine_loss (fused fine-pass loss kernel) is not ported yet: ROADMAP B5"
-            )
 
     @property
     def has_fine(self) -> bool:
@@ -98,6 +94,18 @@ def _view_comps(config: NeRFConfig, rays_dirs):
     return cameras.view_direction_components(rays_dirs, config.mlp.n_angles)
 
 
+def _encodings_per_ray(config: NeRFConfig, rays_orig, rays_dirs, z_values):
+    """What the MLP + compositing kernels (B4, B5) take: the xyz encodings
+    ``(rays * samples, xyz_dim)`` in ray-major rows and the view-dir encodings
+    ``(rays, dir_dim)`` per ray, never broadcast to the samples."""
+    points = cameras.sample_points_along_rays(rays_orig, rays_dirs, z_values)[..., :3]
+    enc_xyz = encoding.encode_xyz(points.reshape(-1, 3), config.mlp.n_freq_xyz)
+    enc_dir = None
+    if config.mlp.uses_view_dirs:
+        enc_dir = encoding.encode_view_dirs(_view_comps(config, rays_dirs), config.mlp.n_freq_dir)
+    return enc_xyz, enc_dir
+
+
 def render_rays(mlp_params: Params, config: NeRFConfig, rays_orig, rays_dirs, z_values,
                 sigma_noise=None) -> RenderResult:
     """Evaluate one network along ``z_values`` (rays, samples) and composite.
@@ -114,13 +122,9 @@ def render_rays(mlp_params: Params, config: NeRFConfig, rays_orig, rays_dirs, z_
             z_values, config.compute_dtype,
         )
         return rendering.composite(raw, z_values, sigma_noise=sigma_noise)
-    points = cameras.sample_points_along_rays(rays_orig, rays_dirs, z_values)[..., :3]
-    enc_xyz = encoding.encode_xyz(points.reshape(-1, 3), config.mlp.n_freq_xyz)
-    enc_dir = None
-    if config.mlp.uses_view_dirs:
-        comps = cameras.view_direction_components(rays_dirs, config.mlp.n_angles)
-        enc_d = encoding.encode_view_dirs(comps, config.mlp.n_freq_dir)
-        enc_dir = enc_d[:, None, :].expand(n_rays, n_samples, enc_d.shape[-1]).reshape(
+    enc_xyz, enc_dir = _encodings_per_ray(config, rays_orig, rays_dirs, z_values)
+    if enc_dir is not None:
+        enc_dir = enc_dir[:, None, :].expand(n_rays, n_samples, enc_dir.shape[-1]).reshape(
             n_rays * n_samples, -1)
     raw = _mlp_apply(config)(
         mlp_params, config.mlp, enc_xyz, enc_dir, compute_dtype=config.compute_dtype
@@ -133,9 +137,10 @@ def render_rays_train(mlp_params: Params, config: NeRFConfig, rays_orig, rays_di
                       noise_key=None, noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train-path evaluation of one network: ``(rgb, weights)``. With
     ``sigma_noise_std > 0`` the density noise is drawn from ``noise_key`` or
-    taken from ``noise`` (standard normals, one per sample). Under "pallas_rm"
-    with ``fuse_compositing`` this is one kernel (B7), which composites in
-    the kernel and takes no noise."""
+    taken from ``noise`` (standard normals, one per sample). With
+    ``fuse_compositing`` this is one kernel, which composites in the kernel
+    and takes no noise: B7 under "pallas_rm", B4 on torch-made encodings
+    under "pallas" / "pallas_mlp"."""
     sigma_noise = None
     if config.sigma_noise_std > 0.0 and (noise_key is not None or noise is not None):
         if config.fuse_compositing or config.fuse_fine_loss:
@@ -154,6 +159,12 @@ def render_rays_train(mlp_params: Params, config: NeRFConfig, rays_orig, rays_di
             mlp_params, config.mlp, rays_orig, rays_dirs, _view_comps(config, rays_dirs),
             z_values, config.compute_dtype,
         )
+    if config.backend in MLP_BACKENDS and config.fuse_compositing:
+        from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda
+
+        enc_xyz, enc_dir = _encodings_per_ray(config, rays_orig, rays_dirs, z_values)
+        return research_kernels_cuda.apply_mlp_composited(
+            mlp_params, config.mlp, enc_xyz, enc_dir, z_values, config.compute_dtype)
     result = render_rays(mlp_params, config, rays_orig, rays_dirs, z_values,
                          sigma_noise=sigma_noise)
     return result.rgb, result.weights
@@ -194,6 +205,18 @@ def render(params: Params, config: NeRFConfig, key, rays_orig, rays_dirs,
 
 def _fine_mse(params_fine, config, rays_orig, rays_dirs, z_fine, target_rgb, noise_key=None,
               noise=None):
+    """Fine-pass MSE over the given z. With ``fuse_fine_loss`` under "pallas" /
+    "pallas_mlp" it is one kernel (B5), which returns the total dz itself and
+    gives the encodings structural-zero cotangents: they are built outside
+    the graph."""
+    if config.backend in MLP_BACKENDS and config.fuse_fine_loss:
+        from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda
+
+        with torch.no_grad():
+            enc_xyz, enc_dir = _encodings_per_ray(config, rays_orig, rays_dirs, z_fine)
+        return research_kernels_cuda.apply_mlp_loss_composited(
+            params_fine, config.mlp, enc_xyz, enc_dir, z_fine, rays_dirs, target_rgb,
+            config.compute_dtype)
     rgb_fine, _ = render_rays_train(params_fine, config, rays_orig, rays_dirs, z_fine,
                                     noise_key=noise_key, noise=noise)
     return torch.mean(torch.square(target_rgb - rgb_fine))

@@ -5,7 +5,7 @@ first use into ``build/kernels/`` (one shared library per kernel, all compiled
 in parallel) and called through ``ctypes``. A library's name carries a hash of
 the flags, its source and every header that source includes, so a stale build
 is never loaded. The wrapper modules (``ops/raymarch_cuda.py`` for B1/B2,
-``ops/research_kernels_cuda.py`` for B6/B7) load their own libraries from
+``ops/research_kernels_cuda.py`` for B4-B7) load their own libraries from
 here, and count each launch in :data:`LAUNCHES`.
 """
 
@@ -31,6 +31,9 @@ KERNEL_SOURCES = {
     "raymarch_bwd": "raymarch_bwd.cu",            # B6 backward
     "raymarch_comp_fwd": "raymarch_comp_fwd.cu",  # B7 forward
     "raymarch_comp_bwd": "raymarch_comp_bwd.cu",  # B7 backward
+    "mlp_comp_fwd": "mlp_comp_fwd.cu",            # B4 forward
+    "mlp_comp_bwd": "mlp_comp_bwd.cu",            # B4 backward
+    "mlp_loss_comp": "mlp_loss_comp.cu",          # B5
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -131,6 +134,13 @@ _BWD_SCRATCH = {
     "nerf_mlp_bwd_rows_per_tile": ([], _i),
     "nerf_mlp_bwd_act_slots": ([], _i),
 }
+# The sizes every MLP + compositing library exports (csrc/mlp_comp_common.cuh).
+_COMP_SIZES = {
+    "nerf_mlp_comp_groups": ([_i, _i], _i),
+    "nerf_mlp_comp_act_slots": ([_i], ctypes.c_longlong),
+}
+# R, S, xyz, dir, hid, last, alpha of the MLP + compositing kernels.
+_COMP_TAIL = [_i] * 6 + [_f]
 # Each library's C functions: (argtypes, restype).
 _SIGNATURES = {
     "mlp_fwd": {"nerf_mlp_fwd": ([_i, _i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i)},
@@ -142,6 +152,13 @@ _SIGNATURES = {
     "raymarch_comp_fwd": {"nerf_rm_comp_fwd": ([_i, _i] + [_p] * 6 + _RAY_TAIL, _i)},
     "raymarch_comp_bwd": {"nerf_rm_comp_bwd": ([_i, _i] + [_p] * 11 + [_i] + _RAY_TAIL, _i),
                           "nerf_rm_comp_groups": ([_i, _i], _i), **_BWD_SCRATCH},
+    "mlp_comp_fwd": {"nerf_mlp_comp_fwd": ([_i, _i] + [_p] * 7 + _COMP_TAIL + [_p], _i),
+                     **_COMP_SIZES},
+    "mlp_comp_bwd": {"nerf_mlp_comp_bwd": ([_i, _i] + [_p] * 14 + [_i] + _COMP_TAIL + [_p], _i),
+                     **_COMP_SIZES, **_BWD_SCRATCH},
+    "mlp_loss_comp": {"nerf_mlp_loss_comp": ([_i, _i] + [_p] * 12 + [_i] + _COMP_TAIL + [_f, _p],
+                                             _i),
+                      **_COMP_SIZES, **_BWD_SCRATCH},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -194,11 +211,14 @@ def stream_of(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def bwd_scratch(lib: ctypes.CDLL, n_params: int, cd, dev, tiles: int):
-    """``(partial, acts, n_blocks)``: the per-block weight-gradient slabs and
-    activation slots of the backward kernel in ``lib``, whose blocks walk
-    ``tiles`` units of work, one block per SM at most."""
+def bwd_scratch(lib: ctypes.CDLL, n_params: int, cd, dev, tiles: int, act_slots=None):
+    """``(partial, acts, n_blocks)``: the per-block gradient slabs (``n_params``
+    entries each) and activation slots (``act_slots`` elements each; one tile's
+    by default) of the backward kernel in ``lib``, whose blocks walk ``tiles``
+    units of work, one block per SM at most."""
     n_blocks = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if act_slots is None:
+        act_slots = lib.nerf_mlp_bwd_act_slots()
     partial = torch.empty((n_blocks * n_params,), dtype=torch.float32, device=dev)
-    acts = torch.empty((n_blocks * lib.nerf_mlp_bwd_act_slots(),), dtype=cd, device=dev)
+    acts = torch.empty((n_blocks * act_slots,), dtype=cd, device=dev)
     return partial, acts, n_blocks

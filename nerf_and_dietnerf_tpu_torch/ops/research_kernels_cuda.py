@@ -1,7 +1,7 @@
-"""The fused ray-march kernels (B6, B7) and their wrappers.
+"""The research kernels (B4, B5, B6, B7) and their wrappers.
 
-Port of the ``backend="pallas_rm"`` family of
-``nerf_and_dietnerf_tpu/ops/research_kernels.py``:
+Port of ``nerf_and_dietnerf_tpu/ops/research_kernels.py``. The
+``backend="pallas_rm"`` family builds points and encodings in the kernel:
 
 - B6 (``_forward_rays_pallas`` / ``_backward_rays_pallas``, the custom VJP
   ``_fused_raymarch`` / ``apply_raymarch_fused``): points ``o + z d``, the xyz
@@ -15,18 +15,37 @@ Both backwards give the rays, directions and view components structural-zero
 cotangents, as the JAX package does: training differentiates the parameters
 and z (the fine-resampling path) only.
 
+The ``backend="pallas"`` family takes encodings made by torch ops, the xyz
+encodings per row in **ray-major** order (row = ray * S + sample, the free
+reshape of ``(rays, S, features)``) and the view-dir encodings **per ray**:
+
+- B4 (``_forward_mlp_comp_pallas`` / ``_backward_mlp_comp_pallas``,
+  ``apply_mlp_composited``, flag ``fuse_compositing``): the MLP and alpha
+  compositing, ``(rgb (R, 3), weights (R, S))`` out. Its backward gives the
+  gradients of the parameters, of both encodings and of z; that dz is the
+  compositing's share only (the sample spacings), the share through the points
+  reaches z through the xyz encodings' gradient and torch's encoding backward.
+- B5 (``_loss_mlp_comp_pallas``, ``apply_mlp_loss_composited``, flag
+  ``fuse_fine_loss``): the fine-pass objective in one kernel, forward,
+  compositing, MSE against the target pixels and the whole backward with no
+  recompute. It returns the loss and has made the parameter gradients and the
+  TOTAL dz (its encoding VJP reads the encoding's own neighbouring columns) by
+  then; the encodings, directions and targets get structural-zero cotangents.
+
 The encodings are what the TPU kernel computes (``_encode_tile``): a direct
 ``sin(f_k x)`` with ``f_k = float32(pi 2^k)``, and cos as ``sin(f_k x + pi/2)``,
 not the double-angle recurrence of ``core/encoding.py``, in the reference's
 coordinate-major column order, so the MLP kernels' ``flatten_params`` layout
 is reused unchanged.
 
-The kernels are CUDA C++ in ``csrc/raymarch_*.cu``, built and loaded by
+The kernels are CUDA C++ in ``csrc/raymarch_*.cu`` and ``csrc/mlp_comp_*.cu`` /
+``csrc/mlp_loss_comp.cu``, built and loaded by
 ``ops/kernel_lib.py`` (which also keeps their launch counts). Beside each is
 its plain PyTorch version, which the wrappers take only for tensors on the
-CPU; for a CUDA tensor they launch the kernel or raise. The plain B7 backward
-takes the compositing VJP from autograd through ``core.rendering.composite``,
-independent of the kernel's hand-written recurrence.
+CPU; for a CUDA tensor they launch the kernel or raise. The plain B4, B5 and
+B7 backwards take the compositing VJP from autograd through
+``core.rendering.composite``, independent of the kernels' hand-written
+recurrence.
 """
 
 from __future__ import annotations
@@ -48,6 +67,7 @@ from nerf_and_dietnerf_tpu_torch.ops.kernel_lib import (
     uses_kernel,
 )
 from nerf_and_dietnerf_tpu_torch.ops.raymarch_cuda import (
+    _input_dtype,
     check_params,
     flatten_params,
     mlp_bwd_plain,
@@ -59,9 +79,9 @@ from nerf_and_dietnerf_tpu_torch.ops.raymarch_cuda import (
     unflatten_grads,
 )
 
-# Samples per ray the compositing kernels (B7) take: a block keeps a whole
-# ray's raw values and cotangents in shared memory (MAX_S_COMP in
-# csrc/raymarch_common.cuh; the kernels return an error above it).
+# Samples per ray the compositing kernels (B4, B5, B7) take: a block keeps a
+# whole ray's raw values and cotangents in shared memory (MAX_S_COMP in
+# csrc/composite_common.cuh; the kernels return an error above it).
 MAX_SAMPLES_COMPOSITED = 512
 
 
@@ -158,13 +178,78 @@ def raymarch_comp_bwd_plain(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, comput
     return dws, dbs, dz_comp + dz_pts
 
 
+def _dir_rows(config: MLPConfig, encd, n_samples: int, cd):
+    """The per-ray view-dir encodings ``(R, dir)``, rounded to the compute
+    type, as one row per sample ``(R S, dir)``; None for the xyz-only variant."""
+    if not config.uses_view_dirs:
+        return None
+    d = encd.float().to(cd)
+    return d[:, None, :].expand(d.shape[0], n_samples, d.shape[1]).reshape(-1, d.shape[1])
+
+
+def _raw_on_encodings(ws, bs, config: MLPConfig, enc, encd, z, cd):
+    d = _dir_rows(config, encd, z.shape[1], cd)
+    return mlp_fwd_plain(ws, bs, config, enc, d, cd).reshape(*z.shape, 4), d
+
+
+def _dz_from_encoding(config: MLPConfig, enc, denc, dvec, n_samples: int) -> torch.Tensor:
+    """The points' share of dz per row, from the xyz-encoding gradient
+    ``denc`` and the encoding's own neighbouring columns: per coordinate the
+    columns are ``[c, sin f0 c, cos f0 c, ...]``, so d(column)/dc is 1, ``f_k``
+    times the cos column to the right of a sin column, and ``-f_k`` times the
+    sin column to the left of a cos column; then ``dz = dpts . dvec``."""
+    n, L = enc.shape[0], config.n_freq_xyz
+    e = enc.float().reshape(n, 3, 1 + 2 * L)
+    g = denc.reshape(n, 3, 1 + 2 * L)
+    f = _freqs(L, enc.device)
+    dpts = (g[..., 0] + (g[..., 1::2] * (f * e[..., 2::2])).sum(-1)
+            + (g[..., 2::2] * (-f * e[..., 1::2])).sum(-1))
+    return (dpts * dvec.repeat_interleave(n_samples, dim=0)).sum(-1)
+
+
+def mlp_comp_fwd_plain(ws, bs, config: MLPConfig, enc, encd, z, compute_dtype):
+    """Plain version of B4's forward: ``(rgb (R, 3), weights (R, S))`` from
+    ``enc`` (R S, xyz) in the compute type, ``encd`` (R, dir) f32, z (R, S)."""
+    raw, _ = _raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)
+    res = rendering.composite(raw, z)
+    return res.rgb, res.weights
+
+
+def mlp_comp_bwd_plain(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dtype):
+    """Plain version of B4's backward: ``(dws, dbs, denc (R S, xyz), dencd
+    (R, dir) | None, dz (R, S))``; dz is the compositing's share only."""
+    raw, d = _raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)
+    g_raw, dz = composite_vjp(raw, z, g_rgb, g_w)
+    dws, dbs, denc, dd = mlp_bwd_plain(ws, bs, config, enc, d, g_raw.reshape(-1, 4),
+                                       compute_dtype)
+    dencd = dd.reshape(*z.shape, -1).sum(1) if dd is not None else None
+    return dws, dbs, denc, dencd, dz
+
+
+def mlp_loss_comp_plain(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute_dtype):
+    """Plain version of B5: ``(mse (), dz (R, S), dws, dbs)``: the mean squared
+    error of the composited pixels against ``target`` (R, 3), the total dz (the
+    compositing's share plus the points', ``dvec`` (R, 3) being the rays'
+    unnormalised directions) and the parameter gradients of that loss."""
+    raw, d = _raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)
+    inv_n = 1.0 / (3 * z.shape[0])
+    err = rendering.composite(raw, z).rgb - target
+    mse = torch.sum(err * err) * inv_n
+    g_raw, dz_comp = composite_vjp(raw, z, (2.0 * inv_n) * err, torch.zeros_like(z))
+    dws, dbs, denc, _ = mlp_bwd_plain(ws, bs, config, enc, d, g_raw.reshape(-1, 4),
+                                      compute_dtype)
+    dz_pts = _dz_from_encoding(config, enc, denc, dvec, z.shape[1]).reshape(z.shape)
+    return mse, dz_comp + dz_pts, dws, dbs
+
+
 # --------------------------------------------------------------------------- #
 # Wrappers                                                                     #
 # --------------------------------------------------------------------------- #
 
 def _check_samples(z) -> None:
-    """B7's limit, on every device, so a config that would fail on the card
-    fails on the CPU too."""
+    """The compositing kernels' limit (B4, B5, B7), on every device, so a
+    config that would fail on the card fails on the CPU too. Within it a
+    block's shared memory always fits (the sources assert it at the maximum)."""
     if z.shape[1] > MAX_SAMPLES_COMPOSITED:
         raise ValueError(f"{z.shape[1]} samples per ray exceed the compositing kernels' "
                          f"maximum of {MAX_SAMPLES_COMPOSITED}")
@@ -284,6 +369,119 @@ def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtyp
     return (*split_dparams(dparams, config), dz)
 
 
+def _check_encodings(config: MLPConfig, ws, bs, enc, encd, z, cd):
+    check_params(config, ws, bs, cd, enc.device)
+    n_rays, n_samples = z.shape
+    if n_rays * n_samples >= 2 ** 31:
+        raise ValueError(f"{n_rays} x {n_samples} rows exceed the kernels' 32-bit row index")
+    tensors = [(enc, (n_rays * n_samples, config.xyz_dim), cd),
+               (z, (n_rays, n_samples), torch.float32)]
+    if config.uses_view_dirs:
+        tensors.append((encd, (n_rays, config.dir_dim), torch.float32))
+    check_tensors(tensors, enc.device)
+
+
+def _comp_args(config: MLPConfig, z):
+    """The B4/B5 kernels' trailing arguments: R, S, xyz, dir, hid, last, alpha."""
+    return (*z.shape, config.xyz_dim, config.dir_dim if config.uses_view_dirs else 0,
+            config.hidden_dim, config.last_hidden_dim, config.leaky_relu_alpha)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def mlp_comp_fwd(ws, bs, config: MLPConfig, enc, encd, z, compute_dtype):
+    """B4 forward: ``(rgb (R, 3), weights (R, S))`` f32 from ``enc`` (R S, xyz)
+    in the compute type (ray-major rows), ``encd`` (R, dir) f32 per ray (None
+    without view dirs) and z (R, S) f32; at most
+    :data:`MAX_SAMPLES_COMPOSITED` samples per ray."""
+    _check_samples(z)
+    if not uses_kernel(enc):
+        return mlp_comp_fwd_plain(ws, bs, config, enc, encd, z, compute_dtype)
+    _check_encodings(config, ws, bs, enc, encd, z, compute_dtype)
+    dev = enc.device
+    rgb = torch.empty((z.shape[0], 3), dtype=torch.float32, device=dev)
+    weights = torch.empty(z.shape, dtype=torch.float32, device=dev)
+    if weights.numel() == 0:
+        return rgb.zero_(), weights
+    w, b = flat(ws), flat(bs)  # held until the launch is queued
+    rc = load("mlp_comp_fwd").nerf_mlp_comp_fwd(
+        _is_bf16(compute_dtype), int(config.uses_view_dirs), enc.data_ptr(), _ptr(encd),
+        z.data_ptr(), w.data_ptr(), b.data_ptr(), rgb.data_ptr(), weights.data_ptr(),
+        *_comp_args(config, z), stream_of(dev))
+    launched("mlp_comp_fwd", rc)
+    return rgb, weights
+
+
+def mlp_comp_bwd(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dtype):
+    """B4 backward: ``(dws, dbs, denc (R S, xyz), dencd (R, dir) | None, dz
+    (R, S))`` f32 for the cotangents ``g_rgb`` (R, 3) and ``g_w`` (R, S) f32.
+    dz is the compositing's share only. The parameter gradients and dencd are
+    bitwise reproducible."""
+    _check_samples(z)
+    if not uses_kernel(enc):
+        return mlp_comp_bwd_plain(ws, bs, config, enc, encd, z, g_rgb, g_w, compute_dtype)
+    _check_encodings(config, ws, bs, enc, encd, z, compute_dtype)
+    dev = enc.device
+    check_tensors([(g_rgb, (z.shape[0], 3), torch.float32), (g_w, z.shape, torch.float32)], dev)
+    lib = load("mlp_comp_bwd")
+    has_dir = config.uses_view_dirs
+    denc = torch.empty(enc.shape, dtype=torch.float32, device=dev)
+    dencd = torch.empty(encd.shape, dtype=torch.float32, device=dev) if has_dir else None
+    dz = torch.empty(z.shape, dtype=torch.float32, device=dev)
+    dparams = torch.empty((param_count(config, lib),), dtype=torch.float32, device=dev)
+    if dz.numel() == 0:
+        dparams.zero_()
+        if has_dir:
+            dencd.zero_()
+    else:
+        partial, acts, n_blocks = bwd_scratch(
+            lib, dparams.numel(), compute_dtype, dev, lib.nerf_mlp_comp_groups(*z.shape),
+            lib.nerf_mlp_comp_act_slots(z.shape[1]))
+        w, wt, b = flat(ws), flat([t.t() for t in ws]), flat(bs)
+        rc = lib.nerf_mlp_comp_bwd(
+            _is_bf16(compute_dtype), int(has_dir), enc.data_ptr(), _ptr(encd), z.data_ptr(),
+            w.data_ptr(), wt.data_ptr(), b.data_ptr(), g_rgb.data_ptr(), g_w.data_ptr(),
+            denc.data_ptr(), _ptr(dencd), dz.data_ptr(), partial.data_ptr(), acts.data_ptr(),
+            dparams.data_ptr(), n_blocks, *_comp_args(config, z), stream_of(dev))
+        launched("mlp_comp_bwd", rc)
+    return (*split_dparams(dparams, config), denc, dencd, dz)
+
+
+def mlp_loss_comp(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute_dtype):
+    """B5: ``(mse (), dz (R, S), dws, dbs)`` f32 in one launch: the mean
+    squared error of the composited pixels against ``target`` (R, 3) f32, and
+    that loss's total dz and parameter gradients; ``dvec`` (R, 3) f32 are the
+    rays' unnormalised directions. All three are bitwise reproducible."""
+    _check_samples(z)
+    if not uses_kernel(enc):
+        return mlp_loss_comp_plain(ws, bs, config, enc, encd, z, dvec, target, compute_dtype)
+    _check_encodings(config, ws, bs, enc, encd, z, compute_dtype)
+    dev = enc.device
+    n_rays = z.shape[0]
+    check_tensors([(dvec, (n_rays, 3), torch.float32), (target, (n_rays, 3), torch.float32)], dev)
+    inv_n = 1.0 / (3 * n_rays)
+    lib = load("mlp_loss_comp")
+    n_params = param_count(config, lib)
+    dz = torch.empty(z.shape, dtype=torch.float32, device=dev)
+    out = torch.empty((n_params + 1,), dtype=torch.float32, device=dev)  # dparams, then the loss
+    if dz.numel() == 0:
+        out.zero_()
+    else:
+        partial, acts, n_blocks = bwd_scratch(
+            lib, n_params + 1, compute_dtype, dev, lib.nerf_mlp_comp_groups(*z.shape),
+            lib.nerf_mlp_comp_act_slots(z.shape[1]))
+        w, wt, b = flat(ws), flat([t.t() for t in ws]), flat(bs)
+        rc = lib.nerf_mlp_loss_comp(
+            _is_bf16(compute_dtype), int(config.uses_view_dirs), enc.data_ptr(), _ptr(encd),
+            z.data_ptr(), dvec.data_ptr(), target.data_ptr(), w.data_ptr(), wt.data_ptr(),
+            b.data_ptr(), dz.data_ptr(), partial.data_ptr(), acts.data_ptr(), out.data_ptr(),
+            n_blocks, *_comp_args(config, z), inv_n, stream_of(dev))
+        launched("mlp_loss_comp", rc)
+    return (out[n_params], dz, *split_dparams(out[:n_params], config))
+
+
 # --------------------------------------------------------------------------- #
 # autograd.Functions and the JAX package's entry points                        #
 # --------------------------------------------------------------------------- #
@@ -372,3 +570,124 @@ def apply_raymarch_composited(params: Params, config: MLPConfig, rays_orig: torc
     rd, z = _ray_inputs(config, rays_orig, rays_dirs, viewcomps, z_values)
     return FusedRaymarchComposited.apply(config, compute_dtype, rd, z,
                                          *mlp_leaves(params, config))
+
+
+def _zeros_if_needed(needed: bool, spec):
+    """A structural-zero cotangent for an input of ``spec = (shape, dtype,
+    device)``, or None where none is asked for (or there is no such input)."""
+    if not needed or spec is None:
+        return None
+    shape, dtype, device = spec
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _spec(t):
+    return None if t is None else (t.shape, t.dtype, t.device)
+
+
+class FusedMLPComposited(torch.autograd.Function):
+    """B4 forward and backward: outputs ``(rgb, weights)``, cotangents on both;
+    gradients for the parameters, both encodings and z."""
+
+    @staticmethod
+    def forward(ctx, config, cd, enc, encd, z, *leaves):
+        ws, bs = flatten_params(tree_from_leaves(leaves, config), config, cd)
+        x = enc.to(_input_dtype(cd)).contiguous()
+        d = encd.float().contiguous() if encd is not None else None
+        ctx.config, ctx.cd, ctx.enc_dtype = config, cd, enc.dtype
+        ctx.encd_dtype = encd.dtype if encd is not None else None
+        ctx.save_for_backward(x, d, z, *leaves)
+        return mlp_comp_fwd(ws, bs, config, x, d, z, cd)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_w):
+        config, cd = ctx.config, ctx.cd
+        x, d, z, *leaves = ctx.saved_tensors
+        ws, bs = flatten_params(tree_from_leaves(leaves, config), config, cd)
+        dws, dbs, denc, dencd, dz = mlp_comp_bwd(
+            ws, bs, config, x, d, z, g_rgb.float().contiguous(), g_w.float().contiguous(), cd)
+        if dencd is not None:
+            dencd = dencd.to(ctx.encd_dtype)
+        return (None, None, denc.to(ctx.enc_dtype), dencd, dz,
+                *_param_grads(dws, dbs, leaves, config))
+
+
+class FusedMLPLossComposited(torch.autograd.Function):
+    """B5: the loss, with its gradients made by the same launch. ``forward``
+    keeps the total dz and the parameter gradients (not the activations, which
+    live only in the wrapper's scratch); ``backward`` scales them by the
+    incoming cotangent. The encodings, directions and targets get zeros."""
+
+    @staticmethod
+    def forward(ctx, config, cd, enc, encd, z, dvec, target, *leaves):
+        ws, bs = flatten_params(tree_from_leaves(leaves, config), config, cd)
+        x = enc.to(_input_dtype(cd)).contiguous()
+        d = encd.float().contiguous() if encd is not None else None
+        mse, dz, dws, dbs = mlp_loss_comp(ws, bs, config, x, d, z, dvec.float().contiguous(),
+                                          target.float().contiguous(), cd)
+        ctx.zero_specs = [_spec(t) for t in (enc, encd, dvec, target)]
+        ctx.save_for_backward(dz, *_param_grads(dws, dbs, leaves, config))
+        return mse
+
+    @staticmethod
+    def backward(ctx, g):
+        dz, *dleaves = ctx.saved_tensors
+        g = g.float()
+        need = ctx.needs_input_grad
+        z_enc, z_encd, z_dvec, z_target = (
+            _zeros_if_needed(n, sp) for n, sp in zip((need[2], need[3], need[5], need[6]),
+                                                     ctx.zero_specs))
+        return (None, None, z_enc, z_encd, dz * g if need[4] else None, z_dvec, z_target,
+                *[(dl.float() * g).to(dl.dtype) for dl in dleaves])
+
+
+def _encoding_inputs(config: MLPConfig, enc_dir_ray, z_values):
+    if config.uses_view_dirs and enc_dir_ray is None:
+        raise ValueError("this MLP config requires per-ray view-dir encodings")
+    return enc_dir_ray if config.uses_view_dirs else None, z_values.float().contiguous()
+
+
+def apply_mlp_composited(params: Params, config: MLPConfig, enc_xyz: torch.Tensor,
+                         enc_dir_ray: Optional[torch.Tensor], z_values: torch.Tensor,
+                         compute_dtype=torch.bfloat16):
+    """Fused MLP + alpha compositing over torch-made encodings (B4).
+
+    :param enc_xyz: ``(n_rays * S, xyz_dim)`` positional encodings in
+        **ray-major** row order (the reshape of ``(rays, S, feat)``), columns
+        as ``core/encoding.py`` lays them out.
+    :param enc_dir_ray: ``(n_rays, dir_dim)`` per-ray view-dir encodings (NOT
+        broadcast over samples), or None for xyz-only nets.
+    :param z_values: ``(n_rays, S)``.
+    :return: ``(rgb (n_rays, 3), weights (n_rays, S))`` float32. Differentiable
+        w.r.t. ``params``, ``enc_xyz``, ``enc_dir_ray`` and ``z_values`` (the z
+        gradient covers the compositing's sample spacings; the points' share
+        flows through ``enc_xyz``'s gradient into the encoding's backward).
+    """
+    encd, z = _encoding_inputs(config, enc_dir_ray, z_values)
+    return FusedMLPComposited.apply(config, compute_dtype, enc_xyz, encd, z,
+                                    *mlp_leaves(params, config))
+
+
+def apply_mlp_loss_composited(params: Params, config: MLPConfig, enc_xyz: torch.Tensor,
+                              enc_dir_ray: Optional[torch.Tensor], z_values: torch.Tensor,
+                              ray_dirs3: torch.Tensor, target_rgb: torch.Tensor,
+                              compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Fused fine-pass objective ``MSE(composite(MLP(enc)), target)`` (B5): one
+    kernel runs the forward, the compositing, the MSE cotangent and the whole
+    backward with the activations kept (no recompute).
+
+    :param enc_xyz: ``(n_rays * S, xyz_dim)`` ray-major xyz encodings.
+    :param enc_dir_ray: ``(n_rays, dir_dim)`` per-ray view-dir encodings.
+    :param z_values: ``(n_rays, S)``.
+    :param ray_dirs3: ``(n_rays, >=3)`` unnormalised ray directions (d pts / d z).
+    :param target_rgb: ``(n_rays, 3)``.
+    :return: scalar float32 MSE. Differentiable w.r.t. ``params`` and
+        ``z_values`` (the total dz: compositing plus points). ``enc_xyz``,
+        ``enc_dir_ray``, ``ray_dirs3`` and ``target_rgb`` get structural-zero
+        cotangents: the encodings' path is folded into dz, so do not
+        differentiate w.r.t. rays or targets through this function.
+    """
+    encd, z = _encoding_inputs(config, enc_dir_ray, z_values)
+    return FusedMLPLossComposited.apply(config, compute_dtype, enc_xyz, encd, z,
+                                        ray_dirs3[:, :3], target_rgb,
+                                        *mlp_leaves(params, config))

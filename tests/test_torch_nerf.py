@@ -158,15 +158,85 @@ def test_render_image_matches_jax_and_pads_chunks():
     np.testing.assert_allclose(tz.numpy(), np.asarray(jz), atol=1e-5)
 
 
-def test_unported_research_paths_raise():
-    for kw, item in ((dict(backend="pallas", fuse_compositing=True), "B4"),
-                     (dict(backend="pallas_mlp", fuse_compositing=True), "B4"),
-                     (dict(fuse_fine_loss=True), "B5"),
-                     (dict(backend="pallas_rm", fuse_fine_loss=True), "B5")):
-        with pytest.raises(NotImplementedError, match=item):
-            tn.NeRFConfig(**kw)
-    for kw in RAYMARCH:
-        assert tn.NeRFConfig(**kw).backend == "pallas_rm"
+# The fused paths of the MLP backends: B4 (MLP + compositing) and B5 (the
+# fine-pass objective in one kernel).
+FUSED_MLP = [dict(fuse_compositing=True), dict(fuse_fine_loss=True),
+             dict(fuse_compositing=True, fuse_fine_loss=True)]
+FUSED_MLP_IDS = ["fuse_compositing", "fuse_fine_loss", "both"]
+
+
+@pytest.mark.parametrize("flags", FUSED_MLP, ids=FUSED_MLP_IDS)
+@pytest.mark.parametrize("backend", ["pallas", "pallas_mlp"])
+def test_fused_flags_route_to_their_kernels(backend, flags, monkeypatch):
+    """With ``fuse_compositing`` B4 carries the coarse and the fine pass; with
+    ``fuse_fine_loss`` B5 carries the fine pass (and B1/B2 or B4 the coarse
+    one). Counted on the CPU at the plain versions the wrappers take there."""
+    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+    from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
+
+    calls = {}
+
+    def counted(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+
+        monkeypatch.setattr(module, name, wrapper)
+
+    for name in ("mlp_comp_fwd_plain", "mlp_comp_bwd_plain", "mlp_loss_comp_plain"):
+        counted(rk, name)
+    for name in ("mlp_fwd", "mlp_bwd"):  # B1 / B2's wrappers
+        counted(rc, name)
+    _, tcfg = _configs(backend, **flags)
+    _, tp = _params(_configs(backend)[0])
+    orig, dirs, rgb = _rays(2)
+    loss, _, grads = loss_and_grads(
+        tp, lambda p: tn.training_losses(p, tcfg, None, _t(orig), _t(dirs), _t(rgb)))
+    assert np.isfinite(float(loss)) and len(tree_leaves(grads)) == 44
+    comp, fine_loss = bool(flags.get("fuse_compositing")), bool(flags.get("fuse_fine_loss"))
+    b4 = (2 - fine_loss) if comp else 0      # passes B4 carries
+    b12 = 0 if comp else (2 - fine_loss)     # passes B1/B2 carry
+    want = {"mlp_comp_fwd_plain": b4, "mlp_comp_bwd_plain": b4,
+            "mlp_loss_comp_plain": int(fine_loss), "mlp_fwd": b12, "mlp_bwd": b12}
+    assert {k: calls.get(k, 0) for k in want} == want
+
+
+@pytest.mark.parametrize("backend", ["pallas_rm", "xla"])
+def test_fuse_fine_loss_is_accepted_and_inert_off_the_mlp_backends(backend):
+    """As in the JAX package, the flag has an effect only under "pallas" /
+    "pallas_mlp": elsewhere the loss and gradients are those without it, and
+    those of the JAX package with it."""
+    _check_training_losses(backend, fuse_fine_loss=True)
+    orig, dirs, rgb = _rays(2)
+    outs = []
+    for kw in (dict(), dict(fuse_fine_loss=True)):
+        jcfg, tcfg = _configs(backend, **kw)
+        _, tp = _params(jcfg)
+        outs.append(loss_and_grads(
+            tp, lambda p: tn.training_losses(p, tcfg, None, _t(orig), _t(dirs), _t(rgb))))
+    assert torch.equal(outs[0][0], outs[1][0])
+    for a, b in zip(tree_leaves(outs[0][2]), tree_leaves(outs[1][2])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("flags", FUSED_MLP, ids=FUSED_MLP_IDS)
+def test_density_noise_with_fused_mlp_flags_raises_like_jax(flags):
+    """B4 and B5 composite in the kernel without a noise input: asking for
+    density noise with either flag raises, in both packages."""
+    orig, dirs, rgb = _rays()
+    jcfg, tcfg = _configs("pallas", sigma_noise_std=0.5, **flags)
+    jp, tp = _params(jcfg)
+    with pytest.raises(ValueError, match="sigma_noise_std"):
+        jn.training_losses(jp, jcfg, jax.random.PRNGKey(0), orig, dirs, rgb)
+    noise = np.random.default_rng(2).normal(size=(N_RAYS, N_C)).astype(np.float32)
+    with pytest.raises(ValueError, match="sigma_noise_std"):
+        tn.training_losses(tp, tcfg, None, _t(orig), _t(dirs), _t(rgb),
+                           draws={"noise_coarse": _t(noise)})
+    with pytest.raises(ValueError, match="sigma_noise_std"):
+        tn.training_losses(tp, tcfg, torch.Generator().manual_seed(0), _t(orig), _t(dirs),
+                           _t(rgb))
 
 
 def test_density_noise_with_fused_compositing_raises_like_jax():
