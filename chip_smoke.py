@@ -23,9 +23,17 @@ through the ``Trainer`` (B6, eval renders included), and through
 ``train_step.make_epoch_fn`` "pallas_rm" with ``fuse_compositing`` (B7),
 "pallas" with ``fuse_compositing`` (B4 on both passes) and "pallas" with
 ``fuse_compositing`` and ``fuse_fine_loss`` (B4 on the coarse pass, B5 on the
-fine pass). Prints timings beside the card's name and power limit. Any failed phase raises and the script exits non-zero; without
-a GPU, or without the package beside it, it exits non-zero before printing
-a result.
+fine pass). Then the seven probe kernels (P1 ``probe_mma``, P2
+``probe_mlp_epilogue``, P3 ``probe_mlp_chains``, P4-P6 ``probe_expand_a/b/c``,
+P7 ``probe_enccost``) are held against their plain versions at the probe
+tools' own shapes, the five tools of ``nerf_and_dietnerf_tpu_torch/tools`` run
+through their ``main([])`` (launch counts set to 0 before each), and four
+"pallas" steps run under ``utils.profiling.trace``: the device's idle share,
+the ten device operations with the most time, and the torch operations of the
+step that have no deterministic implementation. Prints timings beside the
+card's name and power limit. Any failed phase raises and the script exits
+non-zero; without a GPU, or without the package beside it, it exits non-zero
+before printing a result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -107,17 +115,6 @@ def log(*a):
 # Kernel phases                                                                #
 # --------------------------------------------------------------------------- #
 
-def _mlp_flops(cfg, n):
-    xyz, hid, last = cfg.xyz_dim, cfg.hidden_dim, cfg.last_hidden_dim
-    macs = xyz * hid + 6 * hid * hid + (xyz + hid) * hid
-    if cfg.uses_view_dirs:
-        feat = hid + cfg.dir_dim
-        macs += feat * last + last * 3 + feat
-    else:
-        macs += hid * hid + hid * last + last * 3 + hid
-    return 2 * macs * n
-
-
 def _inputs(torch, cfg, cd, n, gen):
     from nerf_and_dietnerf_tpu_torch.core import encoding
 
@@ -187,6 +184,7 @@ def kernel_phases(torch, timings: dict) -> None:
     from nerf_and_dietnerf_tpu_torch.models import mlp
     from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
     from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+    from nerf_and_dietnerf_tpu_torch.tools import mlp_flops
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
@@ -235,7 +233,7 @@ def kernel_phases(torch, timings: dict) -> None:
             # Times at the main path's shapes: bf16 is the train step's coarse
             # pass, f32 the eval render's.
             del pws, pbs, pdx, pdd, dws2, dbs2
-            flops = _mlp_flops(cfg, N_ROWS)
+            flops = mlp_flops(cfg, N_ROWS)
             es = x.element_size()
             n_par = sum(w.numel() for w in ws) + sum(b.numel() for b in bs)
             in_bytes = N_ROWS * (cfg.xyz_dim + cfg.dir_dim) * es + sum(
@@ -425,6 +423,7 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
     from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
     from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
     from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
+    from nerf_and_dietnerf_tpu_torch.tools import mlp_flops
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
@@ -447,7 +446,7 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
             if variant != "view_dirs":
                 continue
             g, g_rgb, g_w = cots
-            flops = _mlp_flops(cfg, RAYS * SAMPLES)
+            flops = mlp_flops(cfg, RAYS * SAMPLES)
             leaves = [w.detach().clone().requires_grad_(True) for w in ws]
             zr = z.clone().requires_grad_(True)
 
@@ -691,6 +690,7 @@ def comp_kernel_phases(torch, timings: dict) -> None:
     from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
     from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
     from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
+    from nerf_and_dietnerf_tpu_torch.tools import mlp_flops
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
@@ -744,7 +744,7 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                                      ("mlp_loss_comp", 2 * SAMPLES, 3)):
                 fn, plain, lib = case(kname, n_s)
                 enc, encd, z = batches[n_s][:3]
-                t_ops = mult * _mlp_flops(cfg, RAYS * n_s) / PEAK_FLOPS[name]
+                t_ops = mult * mlp_flops(cfg, RAYS * n_s) / PEAK_FLOPS[name]
                 t_bytes = _comp_bytes(cfg, ws, bs, enc, encd, z, kname) / PEAK_BYTES
                 rec[kname] = {
                     "rays": RAYS, "samples": n_s, "dtype": name,
@@ -783,6 +783,444 @@ def comp_kernel_phases(torch, timings: dict) -> None:
     ws, bs = rc.flatten_params(params, cfg, torch.float32)
     _comp_checks(torch, rk, cfg, ws, bs, _enc_batch(torch, cfg, torch.float32, 256, SAMPLES, gen),
                  torch.float32, "float32", gen, f"opaque rays float32 R=256 S={SAMPLES}")
+
+
+# --------------------------------------------------------------------------- #
+# Probe kernel phases (P1-P7)                                                  #
+# --------------------------------------------------------------------------- #
+
+_CSRC = "nerf_and_dietnerf_tpu_torch/csrc/"
+PROBE_SOURCES = {
+    "probe_mma": (_CSRC + "probe_mma.cu", "tools/exp_mxu.py:43"),
+    "probe_mlp_epilogue": (_CSRC + "probe_mlp_epilogue.cu", "tools/exp_vpu.py:86"),
+    "probe_mlp_chains": (_CSRC + "probe_mlp_chains.cu", "tools/exp_interleave.py:76"),
+    "probe_expand_a": (_CSRC + "probe_expand.cu", "tools/exp_expand.py:54"),
+    "probe_expand_b": (_CSRC + "probe_expand.cu", "tools/exp_expand.py:70"),
+    "probe_expand_c": (_CSRC + "probe_expand.cu", "tools/exp_expand.py:106"),
+    "probe_enccost": (_CSRC + "probe_enccost.cu", "tools/exp_enccost.py:93"),
+}
+# The probes against their plain versions, at the tools' own shapes.
+# P1: a layer's f32 sums are taken in another order on the tensor cores, which
+# can flip the bf16 rounding of single entries of h by one ulp. Up to depth 8
+# the scaled max error is held within one bf16 ulp of the largest entry. The
+# chain applies the same random W again and again, so later layers carry a
+# flip on into every entry (all rows of h are equal, so the column sums do not
+# average it out): at the tools' depth of 32 the tolerance is TOL["bfloat16"],
+# as for every other bf16 kernel whose roundings compound through layers.
+TOL_MMA = 2.0 ** -8
+MMA_TIGHT_DEPTH = 8
+# P2: TOL["bfloat16"], as B1. P3: against B1's kernel output, bitwise in f32
+# (the sums run in B1's order) or else to TOL["float32"]; bf16 to
+# TOL["bfloat16"]. P4, P5: exact. P6: 1e-4 scaled (two f32 products whose sums
+# run in another order, and a sine between them).
+TOL_EXPAND_C = 1e-4
+# P7: `dma`, `repeat`, `pts` to f32 rounding (1e-6 scaled; the same f32
+# operations, expected bitwise); `theta` 1e-4 scaled; `sin`: both sides call the
+# full-range f32 sine (2 ulp each) on angles that may differ by an f32 ulp of
+# the angle, so |diff| <= max|theta| 2^-23 + 4 * 2^-24, with max|theta| read
+# from this run's `theta` stage; `enc` adds one bf16 ulp of each of the two
+# rounded features it sums (2^-8 max|plain|).
+TOL_ENC = {"dma": 1e-6, "repeat": 1e-6, "pts": 1e-6, "theta": 1e-4}
+N_PROBE_ROWS = 786432  # the epilogue and chains tools' row count
+MXU_CASES = ((2048, 32, 1), (2048, 32, 4), (8192, 32, 1), (512, 32, 4), (2048, 8, 1))
+
+
+# A full-range f32 `sinf` in FLOPs of the f32 peak: about 20 instructions on its
+# usual path (|theta| < 105,615: the quotient by pi/2 and its rounding, three
+# FMAs of Cody-Waite reduction, the range test, the choice of polynomial, its
+# square and five FMAs, the sign), each in an issue slot that an FMA (2 FLOP at
+# the peak) would fill. A count of the library's code, not a measurement.
+SINF_FLOPS = 40
+
+
+def _bound(flops, peak, nbytes):
+    """``(bound_ms, bound_by)``: operations over their peak rate against bytes
+    over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _probe_record(torch, fn, plain, lib, err, bound, **extra):
+    ms = _time_ms(torch, fn)
+    return {"ms": ms, "plain_ms": _time_ms(torch, plain, reps=2),
+            "library_ms": _time_ms(torch, lib) if lib is not None else None,
+            "bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": err, **extra}
+
+
+def probe_kernel_phases(torch, timings: dict) -> None:
+    from nerf_and_dietnerf_tpu_torch.models import mlp
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+    from nerf_and_dietnerf_tpu_torch.ops import probe_kernels_cuda as pk
+    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+    from nerf_and_dietnerf_tpu_torch.tools import mlp_flops
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    rec = {}
+    before = dict(kl.LAUNCHES)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    # P1 ------------------------------------------------------------------- #
+    w = randn(256, 256).to(torch.bfloat16)
+    errs = {}
+    for m, depth, chains in dict.fromkeys(
+            ((MXU_CASES[0][0], 1, 1),) + MXU_CASES + tuple((m, 8, c) for m, _, c in MXU_CASES)):
+        tol = TOL_MMA if depth <= MMA_TIGHT_DEPTH else TOL["bfloat16"]
+        out_k = pk.mxu_chain(w, m, depth, chains)
+        torch.cuda.synchronize()
+        out_p = pk.mxu_chain_plain(w, m, depth, chains)
+        e = _scaled_err(out_k, out_p)
+        again = pk.mxu_chain(w, m, depth, chains)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(out_k).all() and e <= tol and float(out_p.abs().max()) > 0):
+            raise AssertionError(f"probe_mma M={m} depth={depth} chains={chains}: scaled err {e} "
+                                 f"> {tol} (max |plain| {float(out_p.abs().max())})")
+        if not torch.equal(out_k, again):
+            raise AssertionError(f"probe_mma M={m} depth={depth} chains={chains}: two runs differ")
+        errs[(m, depth, chains)] = float((out_k - out_p).abs().max())
+        log(f"kernel check probe_mma M={m} depth={depth} chains={chains}: scaled err {e:.3e} "
+            f"(tol {tol:.3e}), max |plain| {float(out_p.abs().max()):.3e}, bitwise equal "
+            f"across two runs")
+    m, depth, chains = MXU_CASES[0]
+    steps = 8
+
+    def lib_chain():  # the same chain as cuBLAS bf16 products and torch elementwise ops
+        h = (torch.arange(256, device=DEVICE) * 0.001).to(torch.bfloat16).expand(m, 256)
+        for _ in range(depth):
+            h = (h @ w) * 0.01
+        return h.float().sum(0)
+
+    rec["probe_mma"] = _probe_record(
+        torch, lambda: pk.mxu_chain(w, m, depth, chains, steps),
+        lambda: pk.mxu_chain_plain(w, m, depth, chains, steps),
+        lambda: [lib_chain() for _ in range(steps)], errs[MXU_CASES[0]],
+        _bound(2 * m * 256 * 256 * depth * steps, PEAK_FLOPS["bfloat16"],
+               w.numel() * 2 + steps * 8 * 256 * 4),
+        m=m, depth=depth, chains=chains, steps=steps,
+        library="torch.matmul chain in bf16 (cuBLAS), one per step",
+        ms_cases={f"{a}:{b}:{c}": _time_ms(torch, lambda: pk.mxu_chain(w, a, b, c, steps))
+                  for a, b, c in MXU_CASES})
+
+    # P2, P3 --------------------------------------------------------------- #
+    cfg = mlp.MLPConfig()
+    params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
+    ws, bs = rc.flatten_params(params, cfg, torch.bfloat16)
+    n = N_PROBE_ROWS
+    x, d = randn(n, cfg.xyz_dim), randn(n, cfg.dir_dim)
+    xb, db = x.to(torch.bfloat16), d.to(torch.bfloat16)
+    flops = mlp_flops(cfg, n)
+    par_bytes = sum(t.numel() * 2 for t in ws) + sum(t.numel() * 4 for t in bs)
+    variants = {}
+    for variant in ("v1", "v5", "v3"):
+        out_k = pk.mlp_fwd_variant(ws, bs, cfg, x, d, variant)
+        torch.cuda.synchronize()
+        out_p = pk.mlp_fwd_variant_plain(ws, bs, cfg, x, d, variant)
+        e = _scaled_err(out_k, out_p)
+        if not (torch.isfinite(out_k).all() and e <= TOL["bfloat16"]):
+            raise AssertionError(f"probe_mlp_epilogue {variant}: scaled err {e} > "
+                                 f"{TOL['bfloat16']}")
+        variants[variant] = float((out_k - out_p).abs().max())
+        log(f"kernel check probe_mlp_epilogue {variant} bfloat16 rows={n}: scaled err {e:.3e} "
+            f"(tol {TOL['bfloat16']})")
+        del out_k, out_p
+    b1_ms = _time_ms(torch, lambda: rc.mlp_fwd(ws, bs, cfg, xb, db, torch.bfloat16))
+    # The epilogue probe reads f32 encodings (and rounds them itself), B1 bf16.
+    rec["probe_mlp_epilogue"] = _probe_record(
+        torch, lambda: pk.mlp_fwd_variant(ws, bs, cfg, x, d, "v1"),
+        lambda: pk.mlp_fwd_variant_plain(ws, bs, cfg, x, d, "v1"),
+        lambda: _library_mlp(torch, ws, bs, cfg, xb, db), max(variants.values()),
+        _bound(flops, PEAK_FLOPS["bfloat16"],
+               n * (cfg.xyz_dim + cfg.dir_dim) * 4 + par_bytes + n * 16),
+        rows=n, variant="v1", library="torch.addmm chain in bf16 (v3's function)",
+        max_abs_err_by_variant=variants,
+        ms_v5=_time_ms(torch, lambda: pk.mlp_fwd_variant(ws, bs, cfg, x, d, "v5")),
+        ms_v3=_time_ms(torch, lambda: pk.mlp_fwd_variant(ws, bs, cfg, x, d, "v3")),
+        ms_v0_b1=b1_ms)
+
+    ref = rc.mlp_fwd(ws, bs, cfg, xb, db, torch.bfloat16)
+    plain = rc.mlp_fwd_plain(ws, bs, cfg, xb, db, torch.bfloat16)
+    ws32, bs32 = rc.flatten_params(params, cfg, torch.float32)
+    x32, d32 = x[:N_ROWS].contiguous(), d[:N_ROWS].contiguous()
+    ref32 = rc.mlp_fwd(ws32, bs32, cfg, x32, d32, torch.float32)
+    chain_errs = {}
+    for chains in (1, 2):
+        out_k = pk.mlp_fwd_chains(ws, bs, cfg, xb, db, chains)
+        out32 = pk.mlp_fwd_chains(ws32, bs32, cfg, x32, d32, chains)
+        torch.cuda.synchronize()
+        e16, e32 = _scaled_err(out_k, ref), _scaled_err(out32, ref32)
+        bit16, bit32 = torch.equal(out_k, ref), torch.equal(out32, ref32)
+        e_plain = _scaled_err(out_k, plain)
+        if not (torch.isfinite(out_k).all() and e16 <= TOL["bfloat16"]
+                and (bit32 or e32 <= TOL["float32"]) and e_plain <= TOL["bfloat16"]):
+            raise AssertionError(f"probe_mlp_chains chains={chains}: against B1 bf16 {e16}, f32 "
+                                 f"{e32}; against the plain version {e_plain}")
+        chain_errs[chains] = float((out_k - plain).abs().max())
+        log(f"kernel check probe_mlp_chains chains={chains}: against B1's kernel bf16 rows={n} "
+            f"scaled err {e16:.3e} (bitwise {bit16}), f32 rows={N_ROWS} {e32:.3e} (bitwise "
+            f"{bit32}); against the plain version {e_plain:.3e} (tol {TOL['bfloat16']})")
+        del out_k, out32
+    try:
+        pk.mlp_fwd_chains(ws, bs, cfg, xb, db, 4)
+    except ValueError as exc:
+        log(f"kernel check probe_mlp_chains chains=4 raises: {exc}")
+    else:
+        raise AssertionError("probe_mlp_chains took 4 chains of f32 activations")
+    del ref, plain, ref32
+    rec["probe_mlp_chains"] = _probe_record(
+        torch, lambda: pk.mlp_fwd_chains(ws, bs, cfg, xb, db, 2),
+        lambda: rc.mlp_fwd_plain(ws, bs, cfg, xb, db, torch.bfloat16),
+        lambda: _library_mlp(torch, ws, bs, cfg, xb, db), max(chain_errs.values()),
+        _bound(flops, PEAK_FLOPS["bfloat16"],
+               n * (cfg.xyz_dim + cfg.dir_dim) * 2 + par_bytes + n * 16),
+        rows=n, chains=2, library="torch.addmm chain in bf16",
+        ms_chains_1=_time_ms(torch, lambda: pk.mlp_fwd_chains(ws, bs, cfg, xb, db, 1)),
+        ms_v0_b1=b1_ms)
+    del x, d, xb, db, x32, d32
+
+    # P4, P5, P6 ----------------------------------------------------------- #
+    r_t, n_s, n_tiles, n_theta, n_enc = 64, 64, 16, 114, 33
+    zt, rd8 = randn(n_s, r_t), randn(r_t, 8)
+    px, py, pz = (randn(n_tiles * n_s, r_t) for _ in range(3))
+    vc, sc, gx = randn(n_tiles * r_t, 3), randn(6, n_theta), randn(n_theta, n_enc)
+    for kname, fn, plain_fn, tol in (
+            ("probe_expand_a", lambda: pk.expand_a(zt), lambda: pk.expand_a_plain(zt), 0.0),
+            ("probe_expand_b", lambda: pk.expand_b(rd8, n_s), lambda: pk.expand_b_plain(rd8, n_s),
+             0.0),
+            ("probe_expand_c", lambda: pk.expand_c(px, py, pz, vc, sc, gx),
+             lambda: pk.expand_c_plain(px, py, pz, vc, sc, gx), TOL_EXPAND_C)):
+        out_k = fn()
+        torch.cuda.synchronize()
+        out_p = plain_fn()
+        e = _scaled_err(out_k, out_p)
+        if out_k.shape != out_p.shape or not torch.isfinite(out_k).all() or e > tol:
+            raise AssertionError(f"{kname}: scaled err {e} > {tol}")
+        log(f"kernel check {kname} {tuple(out_k.shape)}: scaled err {e:.3e} (tol {tol})")
+        rows = out_k.shape[0]
+        if kname == "probe_expand_c":
+            fl = rows * (2 * (6 * n_theta + n_theta * n_enc) + SINF_FLOPS * n_theta)
+            nbytes = 4 * (3 * px.numel() + vc.numel() + sc.numel() + gx.numel() + out_k.numel())
+            lib = plain_fn  # two torch.matmul and torch.sin: the library's form
+        else:
+            fl = out_k.numel()
+            nbytes = 4 * ((zt if kname == "probe_expand_a" else rd8).numel() + out_k.numel())
+            lib = plain_fn  # one broadcast add / repeat-and-scale in torch
+        rec[kname] = _probe_record(torch, fn, plain_fn, lib, float((out_k - out_p).abs().max()),
+                                   _bound(fl, PEAK_FLOPS["float32"], nbytes), rows=rows,
+                                   library="the plain version's torch calls")
+
+    # P7 ------------------------------------------------------------------- #
+    n_rays = 64 * r_t
+    rd = randn(n_rays, 9)
+    z = (2.0 + 4.0 * torch.rand((n_rays, n_s), generator=gen, device=DEVICE)).contiguous()
+    stage_ms, stage_err, max_theta = {}, {}, None
+    for stage in pk.ENC_STAGES:
+        out_k = pk.enc_cost(rd, z, stage)
+        torch.cuda.synchronize()
+        out_p = pk.enc_cost_plain(rd, z, stage)
+        diff = float((out_k - out_p).abs().max())
+        if stage == "theta":
+            max_theta = float(out_p.abs().max())
+        if stage in TOL_ENC:
+            e, tol = _scaled_err(out_k, out_p), TOL_ENC[stage]
+        else:
+            e = diff
+            tol = max_theta * 2.0 ** -23 + 4 * 2.0 ** -24
+            if stage == "enc":
+                tol += 2.0 ** -8 * float(out_p.abs().max())
+        if out_k.shape != out_p.shape or not torch.isfinite(out_k).all() or e > tol:
+            raise AssertionError(f"probe_enccost {stage}: err {e} > {tol}")
+        stage_err[stage] = diff
+        stage_ms[stage] = _time_ms(torch, lambda: pk.enc_cost(rd, z, stage))
+        log(f"kernel check probe_enccost {stage}: "
+            f"{'scaled' if stage in TOL_ENC else 'max abs'} err {e:.3e} (tol {tol:.3e}"
+            + (f", from max |theta| {max_theta:.1f}" if stage not in TOL_ENC else "")
+            + f"), bitwise {torch.equal(out_k, out_p)}; {stage_ms[stage]:.4f} ms")
+    rows = n_rays * n_s
+    # A row of the `enc` stage: the point under each of its 33 xyz columns (a
+    # product and a sum, not contracted), an angle for each of the 54 other
+    # columns (a product, and for the cos half a sum) and their 54 sines.
+    n_sin = cfg.xyz_dim - 3 + cfg.dir_dim
+    enc_flops = 2 * cfg.xyz_dim + n_sin + n_sin // 2 + SINF_FLOPS * n_sin
+    rec["probe_enccost"] = _probe_record(
+        torch, lambda: pk.enc_cost(rd, z, "enc"), lambda: pk.enc_cost_plain(rd, z, "enc"), None,
+        max(stage_err.values()),
+        _bound(rows * enc_flops, PEAK_FLOPS["float32"], 4 * (rd.numel() + z.numel() + rows * 4)),
+        rays=n_rays, samples=n_s, stage="enc", ms_stages=stage_ms, max_abs_err_by_stage=stage_err)
+
+    kl.LAUNCHES.update(before)  # check and timing launches are not the main path's
+    timings["probes"] = rec
+    for kname, r in rec.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"time {kname}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib}, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+
+# The kernels each tool's main() must launch.
+TOOL_KERNELS = {
+    "exp_mxu": ("probe_mma",),
+    "exp_vpu": ("mlp_fwd", "probe_mlp_epilogue"),
+    "exp_interleave": ("mlp_fwd", "probe_mlp_chains"),
+    "exp_expand": ("probe_expand_a", "probe_expand_b", "probe_expand_c"),
+    "exp_enccost": ("probe_enccost",),
+}
+
+
+# exp_interleave with no arguments: chains 1 and 2 each launch once for the
+# comparison with B1, once to warm up and 10 times under the clock; 4 chains
+# are refused before any launch.
+INTERLEAVE_LAUNCHES = 2 * (10 + 2)
+
+
+def tools_phase(torch) -> dict:
+    """Each probe tool's ``main([])`` on the card, as a user runs it, with the
+    launch counts set to 0 just before; returns the probes' launch counts."""
+    import importlib
+
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+
+    launches = {}
+    for name, kernels in TOOL_KERNELS.items():
+        tool = importlib.import_module(f"nerf_and_dietnerf_tpu_torch.tools.{name}")
+        torch.cuda.synchronize()
+        kl.reset_launch_counts()
+        log(f"--- python -m nerf_and_dietnerf_tpu_torch.tools.{name}")
+        rc = tool.main([])
+        torch.cuda.synchronize()
+        got = dict(kl.LAUNCHES)
+        missing = [k for k in kernels if got[k] <= 0]
+        if rc != 0 or missing:
+            raise AssertionError(f"{name}: exit code {rc}, kernels not launched: {missing}")
+        if name == "exp_interleave" and got["probe_mlp_chains"] != INTERLEAVE_LAUNCHES:
+            raise AssertionError(f"exp_interleave: {got['probe_mlp_chains']} launches of "
+                                 f"probe_mlp_chains, expected {INTERLEAVE_LAUNCHES}")
+        log(f"{name}: main-path launches { {k: got[k] for k in kernels} }")
+        launches.update({k: got[k] for k in kernels if k.startswith("probe_")})
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# Profiler phase                                                               #
+# --------------------------------------------------------------------------- #
+
+PROFILE_STEPS = 4
+
+
+def profile_phase(torch, timings: dict, trainer) -> None:
+    """``PROFILE_STEPS`` train steps of backend "pallas" under
+    ``utils.profiling.trace``: the device's idle share of the traced window
+    and the ten device operations with the most time; then one step under
+    ``torch.use_deterministic_algorithms(warn_only=True)`` to name the torch
+    operations on the path that have no deterministic implementation."""
+    import dataclasses
+    import warnings
+
+    from nerf_and_dietnerf_tpu_torch.train import train_step as ts
+    from nerf_and_dietnerf_tpu_torch.utils import profiling
+
+    config = dataclasses.replace(trainer.config, backend="pallas", fuse_compositing=False,
+                                 fuse_fine_loss=False)
+    state = ts.init_train_state(torch.Generator().manual_seed(SEED), config, trainer.optimizer,
+                                device=DEVICE)
+    batch = trainer.run.n_rays_in_batch_train
+    tables = tuple(torch.as_tensor(a, device=DEVICE) for a in (
+        trainer.data.origins, trainer.data.directions, trainer.data.rgb))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    state, _ = ts.make_epoch_fn(config, trainer.optimizer, 1, batch)(state, gen, *tables)
+    torch.cuda.synchronize()
+
+    log_dir = ROOT / "build" / "chip_smoke_trace"
+    epoch_fn = ts.make_epoch_fn(config, trainer.optimizer, PROFILE_STEPS, batch)
+    t0 = time.perf_counter()
+    with profiling.trace(str(log_dir)) as prof:
+        state, metrics = epoch_fn(state, gen, *tables)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not math.isfinite(float(metrics["loss"])):
+        raise AssertionError("profiled steps: non-finite loss")
+    if not (log_dir / profiling.TRACE_FILE).is_file():
+        raise AssertionError("profiling.trace wrote no trace file")
+
+    def device_us(evt):
+        return float(getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0.0)))
+
+    def on_device(evt):
+        return str(evt.device_type).endswith("CUDA")
+
+    # Device-side entries only (kernels and memory operations): the host-side
+    # operations carry their kernels' time a second time.
+    averages = sorted((a for a in prof.key_averages() if on_device(a)), key=device_us,
+                      reverse=True)
+    (log_dir / "ops.txt").write_text("\n".join(
+        f"{device_us(a):14.1f} us  {a.count:6d} calls  {a.key}" for a in averages))
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if on_device(e))
+    total_us = sum(device_us(a) for a in averages)
+    rec = {"steps": PROFILE_STEPS, "host_seconds": wall, "device_ops": len(spans)}
+    if not spans or total_us <= 0:
+        raise AssertionError(f"the profiler recorded no device time ({len(spans)} device events, "
+                             f"{total_us} us): the idle share cannot be read")
+    # The events' clock unit differs between PyTorch versions: scale it so
+    # the intervals add up to the averages' device time, in microseconds.
+    unit = total_us / sum(end - start for start, end in spans)
+    busy, (cur_start, cur_end) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy = (busy + cur_end - cur_start) * unit
+    window = (spans[-1][1] - spans[0][0]) * unit
+    rec.update(window_ms=window / 1e3, busy_ms=busy / 1e3, idle_share=1.0 - busy / window,
+               top=[{"name": a.key[:120], "ms": device_us(a) / 1e3, "calls": a.count}
+                    for a in averages[:10]])
+    log(f"profile: {PROFILE_STEPS} pallas steps, traced window {window / 1e3:.3f} ms "
+        f"(first to last device operation; host clock {wall * 1e3:.1f} ms with the "
+        f"profiler's start and stop), device busy {busy / 1e3:.3f} ms, idle share "
+        f"{rec['idle_share']:.4f}, {len(spans)} device operations")
+    for a in averages[:10]:
+        log(f"profile top: {device_us(a) / 1e3:10.3f} ms {100 * device_us(a) / total_us:5.1f}% "
+            f"{a.count:5d} calls  {a.key[:120]}")
+
+    # One step twice from the same state and seed: is a step bitwise
+    # reproducible within a process? Then once more with PyTorch asked to warn
+    # about operations that have no deterministic implementation.
+    from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
+
+    step_fn = ts.make_epoch_fn(config, trainer.optimizer, 1, batch)
+
+    def one_step():
+        out, m = step_fn(state, torch.Generator(device=DEVICE).manual_seed(SEED + 7), *tables)
+        torch.cuda.synchronize()
+        return float(m["loss"]), tree_leaves(out.params)
+
+    def same(a, b):
+        return a[0] == b[0] and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+    first, second = one_step(), one_step()
+    rec["step_bitwise_reproducible"] = same(first, second)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            det_first, det_second = one_step(), one_step()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rec["step_bitwise_reproducible_deterministic_mode"] = same(det_first, det_second)
+    names = sorted({str(w.message).split(" does not have")[0][:160] for w in caught
+                    if "deterministic" in str(w.message).lower()})
+    rec["nondeterministic_ops"] = names
+    # Kernels of the traced steps that add with atomics: their sums depend on
+    # the order the hardware happens to take.
+    rec["atomic_add_kernels"] = [a.key[:160] for a in averages if "ReduceAdd" in a.key]
+    log(f"profile: one pallas step twice from the same state and seed: losses {first[0]!r} and "
+        f"{second[0]!r}, loss and new parameters bitwise equal: "
+        f"{rec['step_bitwise_reproducible']}; with torch.use_deterministic_algorithms: "
+        f"{rec['step_bitwise_reproducible_deterministic_mode']}, operations it reports as "
+        f"having no deterministic implementation: {names if names else 'none'}; kernels of "
+        f"the traced steps that add with atomics: {rec['atomic_add_kernels']}")
+    timings["profile"] = rec
 
 
 # --------------------------------------------------------------------------- #
@@ -991,6 +1429,7 @@ def main() -> int:
     kernel_phases(torch, timings)
     raymarch_kernel_phases(torch, timings)
     comp_kernel_phases(torch, timings)
+    probe_kernel_phases(torch, timings)
     log(f"kernel phases done at {time.perf_counter() - t_start:.0f} s")
     # Each kernel's launch count is that of the first path that must launch it.
     launches: dict = {}
@@ -1002,6 +1441,9 @@ def main() -> int:
         for k in MAIN_PATHS[path]:
             launches.setdefault(k, got[k])
     log(f"training paths done at {time.perf_counter() - t_start:.0f} s")
+    launches.update(tools_phase(torch))
+    profile_phase(torch, timings, trainer)
+    log(f"tools and profile done at {time.perf_counter() - t_start:.0f} s")
 
     for path in MAIN_PATHS:
         t = timings["train_" + path]
@@ -1031,9 +1473,16 @@ def main() -> int:
                                                     "max_abs_err_s128", "library")},
             "f32": timings[prefix + "float32"][kname],
         })
+    for kname, (src, replaces) in PROBE_SOURCES.items():
+        kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": launches[kname], **timings["probes"][kname]})
+        r = timings["probes"][kname]
+        log(f"[{card}] {kname}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library_ms "
+            f"{r['library_ms']}, bound {r['bound_ms']:.5f} ms")
     train = {path: timings["train_" + path] for path in MAIN_PATHS}
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels, "train": train}), flush=True)
+    print(json.dumps({"kernels": kernels, "train": train, "profile": timings["profile"]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

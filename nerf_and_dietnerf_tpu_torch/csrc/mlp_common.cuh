@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <type_traits>
+
 namespace nerf_mlp {
 
 constexpr int TM = 64;        // rows per tile
@@ -148,9 +150,22 @@ __device__ void gemm_acc(float (&acc)[8][8], const float* A, int lda, int K,
   __syncthreads();
 }
 
-// out = round_T(leaky(acc + bias)) for the N valid columns; optionally also
-// kept in the compute type in `keep` (row stride HMAX) for the backward.
-template <typename T>
+// The epilogue of a dense layer, as a policy: the value a pre-activation sum
+// `acc` leaves in the activation tile, already rounded to the compute type.
+// This one is the network's: round_T(leaky(acc + bias)). The epilogue probe
+// (probe_mlp_epilogue.cu) supplies others.
+struct LeakyEpilogue {
+  template <typename T>
+  static __device__ __forceinline__ float apply(float acc, float bias, float alpha) {
+    float v = acc + bias;
+    v = v >= 0.f ? v : alpha * v;
+    return round_t<T>(v);
+  }
+};
+
+// out = Epi(acc, bias) for the N valid columns; optionally also kept in the
+// compute type in `keep` (row stride HMAX) for the backward.
+template <typename T, typename Epi = LeakyEpilogue>
 __device__ void store_act(const float (&acc)[8][8], const float* __restrict__ bias, int N,
                           float alpha, float* out, T* keep) {
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
@@ -161,32 +176,37 @@ __device__ void store_act(const float (&acc)[8][8], const float* __restrict__ bi
     for (int j = 0; j < 8; ++j) {
       const int n = acc_col(tx, j);
       if (n < N) {
-        float v = acc[i][j] + bias[n];
-        v = v >= 0.f ? v : alpha * v;
-        const T t = from_f<T>(v);
-        out[r * HMAX + n] = to_f<T>(t);
-        if (keep) keep[r * HMAX + n] = t;
+        const float v = Epi::template apply<T>(acc[i][j], bias[n], alpha);
+        out[r * HMAX + n] = v;
+        if (keep) keep[r * HMAX + n] = from_f<T>(v);
       }
     }
   }
 }
 
 // Rows [row0, row0 + TM) of a (n, width) global array into a float tile with
-// row stride ld; rows past n are zero.
-template <typename T>
-__device__ void load_rows(float* dst, int ld, const T* __restrict__ src, int width, int row0,
+// row stride ld; rows past n are zero. The array is of the compute type T, or
+// of another type Src and is then rounded to T here.
+template <typename T, typename Src = T>
+__device__ void load_rows(float* dst, int ld, const Src* __restrict__ src, int width, int row0,
                           int n) {
   for (int idx = threadIdx.x; idx < TM * width; idx += NT) {
     const int r = idx / width, c = idx % width;
-    dst[r * ld + c] = row0 + r < n ? to_f<T>(src[(size_t)(row0 + r) * width + c]) : 0.f;
+    float v = 0.f;
+    if (row0 + r < n) {
+      v = to_f<Src>(src[(size_t)(row0 + r) * width + c]);
+      if constexpr (!std::is_same<T, Src>::value) v = round_t<T>(v);
+    }
+    dst[r * ld + c] = v;
   }
 }
 
 // The whole network on one row tile. h8 and the heads' activations are left
 // in bufB / bufA. With `keep` the post-activations go to its slots (trunk
 // layers 0..7, then the rgb branch's hidden layers), for the backward. With
-// `out` the (n, 4) raw output rows of the tile are written.
-template <typename T>
+// `out` the (n, 4) raw output rows of the tile are written. `Epi` is the
+// epilogue of every hidden layer (the two output heads add their bias only).
+template <typename T, typename Epi = LeakyEpilogue>
 __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restrict__ W,
                              const float* __restrict__ B, const float* X, const float* D,
                              float* bufA, float* bufB, float* Ws, T* keep, float* out,
@@ -204,7 +224,7 @@ __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restric
       gemm_acc<T>(acc, h, ldh, K, W + L.w[trunk_w(l)], dm.hid, Ws);
     }
     float* o = (l & 1) ? bufB : bufA;
-    store_act<T>(acc, B + L.b[l], dm.hid, dm.alpha, o, keep ? keep + l * TM * HMAX : nullptr);
+    store_act<T, Epi>(acc, B + L.b[l], dm.hid, dm.alpha, o, keep ? keep + l * TM * HMAX : nullptr);
     h = o; ldh = HMAX; K = dm.hid;
   }
   __syncthreads();
@@ -214,7 +234,7 @@ __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restric
     zero_acc(acc);
     gemm_acc<T>(acc, h8, HMAX, dm.hid, W + L.w[9], dm.last, Ws);
     gemm_acc<T>(acc, D, DMAX, dm.dir, W + L.w[10], dm.last, Ws);
-    store_act<T>(acc, B + L.b[8], dm.last, dm.alpha, bufA,
+    store_act<T, Epi>(acc, B + L.b[8], dm.last, dm.alpha, bufA,
                  keep ? keep + 8 * TM * HMAX : nullptr);
     __syncthreads();
     if (out && row0 + r < dm.n) {
@@ -244,11 +264,11 @@ __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restric
     }
     zero_acc(acc);
     gemm_acc<T>(acc, h8, HMAX, dm.hid, W + L.w[9], dm.hid, Ws);
-    store_act<T>(acc, B + L.b[8], dm.hid, dm.alpha, bufA,
+    store_act<T, Epi>(acc, B + L.b[8], dm.hid, dm.alpha, bufA,
                  keep ? keep + 8 * TM * HMAX : nullptr);
     zero_acc(acc);
     gemm_acc<T>(acc, bufA, HMAX, dm.hid, W + L.w[10], dm.last, Ws);
-    store_act<T>(acc, B + L.b[9], dm.last, dm.alpha, bufB,
+    store_act<T, Epi>(acc, B + L.b[9], dm.last, dm.alpha, bufB,
                  keep ? keep + 9 * TM * HMAX : nullptr);
     __syncthreads();
     if (out && row0 + r < dm.n) {

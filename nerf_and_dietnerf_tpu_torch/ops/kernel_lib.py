@@ -5,8 +5,9 @@ first use into ``build/kernels/`` (one shared library per kernel, all compiled
 in parallel) and called through ``ctypes``. A library's name carries a hash of
 the flags, its source and every header that source includes, so a stale build
 is never loaded. The wrapper modules (``ops/raymarch_cuda.py`` for B1/B2,
-``ops/research_kernels_cuda.py`` for B4-B7) load their own libraries from
-here, and count each launch in :data:`LAUNCHES`.
+``ops/research_kernels_cuda.py`` for B4-B7, ``ops/probe_kernels_cuda.py`` for
+the probes P1-P7) load their own libraries from here, and count each launch
+in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -34,7 +35,15 @@ KERNEL_SOURCES = {
     "mlp_comp_fwd": "mlp_comp_fwd.cu",            # B4 forward
     "mlp_comp_bwd": "mlp_comp_bwd.cu",            # B4 backward
     "mlp_loss_comp": "mlp_loss_comp.cu",          # B5
+    "probe_mma": "probe_mma.cu",                  # P1
+    "probe_mlp_epilogue": "probe_mlp_epilogue.cu",  # P2
+    "probe_mlp_chains": "probe_mlp_chains.cu",    # P3
+    "probe_expand": "probe_expand.cu",            # P4, P5, P6
+    "probe_enccost": "probe_enccost.cu",          # P7
 }
+# Launch counters: one per kernel. A library with several kernels has several.
+KERNEL_NAMES = tuple(n for n in KERNEL_SOURCES if n != "probe_expand") + (
+    "probe_expand_a", "probe_expand_b", "probe_expand_c")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,7 +51,7 @@ NVCC_FLAGS = [
 
 # Kernel launches since the last reset_launch_counts(): one per wrapper call
 # that launched its kernel, never for the plain version.
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 
 def reset_launch_counts() -> None:
@@ -159,6 +168,17 @@ _SIGNATURES = {
     "mlp_loss_comp": {"nerf_mlp_loss_comp": ([_i, _i] + [_p] * 12 + [_i] + _COMP_TAIL + [_f, _p],
                                              _i),
                       **_COMP_SIZES, **_BWD_SCRATCH},
+    "probe_mma": {"nerf_probe_mma": ([_p] * 3 + [_i] * 5 + [_p], _i),
+                  "nerf_probe_mma_unit_rows": ([], _i)},
+    # variant, x, d, w, b, out, n, xyz, dir, hid, last, alpha, stream
+    "probe_mlp_epilogue": {"nerf_probe_mlp_epilogue": ([_i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i)},
+    "probe_mlp_chains": {"nerf_probe_mlp_chains": ([_i, _i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i),
+                         "nerf_probe_chains_smem": ([_i], ctypes.c_longlong)},
+    "probe_expand": {"nerf_probe_expand_a": ([_p, _p, _i, _p], _i),
+                     "nerf_probe_expand_b": ([_p, _p] + [_i] * 3 + [_p], _i),
+                     "nerf_probe_expand_c": ([_p] * 7 + [_i] * 5 + [_p], _i)},
+    # stage, rd, z, out, R, S, L, Ld, D, r_t, stream
+    "probe_enccost": {"nerf_probe_enccost": ([_i] + [_p] * 3 + [_i] * 6 + [_p], _i)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -205,12 +205,17 @@ def test_port_imports_no_jax():
         "       or m.startswith('nerf_and_dietnerf_tpu.') or m == 'nerf_and_dietnerf_tpu'\n"
         "       or m in ('optax', 'orbax', 'yaml', 'h5py', 'imageio', 'matplotlib')]\n"
         "assert not bad, bad\n"
+        "new = ['ops.probe_kernels_cuda', 'utils.profiling', 'tools', 'tools.exp_mxu',\n"
+        "       'tools.exp_vpu', 'tools.exp_interleave', 'tools.exp_expand', 'tools.exp_enccost']\n"
+        "missing = [m for m in new if 'nerf_and_dietnerf_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
+        "assert 'tools' not in sys.modules, 'the root tools/ directory was imported'\n"
         "print(len([m for m in sys.modules if m.startswith('nerf_and_dietnerf_tpu_torch')]))\n"
     ) % str(ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 23
 
 
 def test_entry_points_need_cuda_unless_told_cpu(tmp_path):
