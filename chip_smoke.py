@@ -14,7 +14,10 @@ each against its plain PyTorch version at the flagship widths in bf16 and f32
 fine pass's 128, in f32 also at a ragged 100, the ray-march forwards at the
 eval render's 192; B5 at 128 and at the ragged 100), checks that the
 backwards' parameter gradients (and B4's per-ray view-dir gradient and B5's
-loss) are bitwise reproducible, then drives the five training paths at
+loss) are bitwise reproducible (B1/B2 in bf16, which run on the tensor cores,
+also at a ragged row count; their ``-Xptxas -v`` lines and, where
+``cuobjdump`` is installed, the tensor-core instructions of their SASS are
+printed, and the run fails if there are none), then drives the five training paths at
 flagship width (4096 rays, 64 + 128 samples, 256/128 wide, bf16 step, f32
 eval renders) on a synthetic scene made from a seed, each for two epochs with
 the launch counts set to 0 just before it: backend "pallas" through the
@@ -30,7 +33,9 @@ tools' own shapes, the five tools of ``nerf_and_dietnerf_tpu_torch/tools`` run
 through their ``main([])`` (launch counts set to 0 before each), and four
 "pallas" steps run under ``utils.profiling.trace``: the device's idle share,
 the ten device operations with the most time, and the torch operations of the
-step that have no deterministic implementation. Prints timings beside the
+step that have no deterministic implementation; one step run twice from the
+same state must give bitwise-equal parameters, with no kernel that adds with
+atomics. Prints timings beside the
 card's name and power limit. Any failed phase raises and the script exits
 non-zero; without a GPU, or without the package beside it, it exits non-zero
 before printing a result.
@@ -53,6 +58,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 N_ROWS = 4096 * 64  # the coarse pass of one train step
+N_ROWS_RAGGED = N_ROWS - 37  # a part-filled last tile
+# The product loops of B1 and B2 by compute type (csrc/mlp_mma_tile.cuh,
+# csrc/mlp_common.cuh).
+MLP_DESIGN = {"bfloat16": "tensor cores, mma.sync bf16, 128-row tiles",
+              "float32": "f32 FMA tiles, 64 rows"}
 # Scaled max error |kernel - plain| / max|plain|. Forward, f32: both sum
 # exact f32 products, only the summation order differs. Forward, bf16: the
 # plain version rounds at the same places, but a 1-ulp difference in a sum
@@ -180,6 +190,75 @@ def _library_mlp(torch, ws, bs, cfg, x, d):
     return torch.cat([rgb, sig], -1)
 
 
+def _vs_f64_chain(torch, rc, ws, bs, cfg, x, d, g, cd, rows, tol_r) -> dict:
+    """Where B2's per-row gradients part from the plain version's: both against
+    the plain chain with the same roundings but f64 products and sums. Each of
+    ``rows`` (name, kernel, plain) gets (scaled max, normwise, share of rows
+    over ``tol_r``) for kernel and plain against that chain. The leaky-branch
+    flips of the plain f32 forward against the f64 one: the share of rows
+    with one or more, and that share among the rows where the plain version's
+    gradient is over ``tol_r`` against the f64 chain."""
+    exact = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g, cd, work=torch.float64)[2:]
+    out = {k: {"kernel": _row_errs(a, e, tol_r), "plain": _row_errs(p, e, tol_r)}
+           for (k, a, p), e in zip(rows, exact)}
+    dx_p, dx_e = rows[0][2], exact[0]
+    over = (dx_p.double() - dx_e).abs().max(dim=1).values / dx_e.abs().max() > tol_r
+    del exact, dx_e
+    _, a32 = rc._forward_plain(ws, bs, cfg, x, d, cd)
+    _, a64 = rc._forward_plain(ws, bs, cfg, x, d, cd, torch.float64)
+    flip = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for p32, p64 in zip(a32, a64):
+        flip |= ((p32 >= 0) != (p64 >= 0)).any(dim=1)
+    del a32, a64
+    out["rows_with_a_branch_flip"] = float(flip.float().mean())
+    out["dx_rows_over_tol_with_a_branch_flip"] = (
+        float((flip & over).float().sum() / over.float().sum()) if bool(over.any()) else None)
+    return out
+
+
+def _mlp_checks(torch, rc, ws, bs, cfg, x, d, g, cd, name, label):
+    """B1 and B2 against their plain versions on (x, d, g), B2's dparams
+    bitwise across two runs; returns the max |kernel - plain| of each and, in
+    bf16, both against the f64 chain (:func:`_vs_f64_chain`)."""
+    tol, tol_b, tol_r = TOL[name], TOL_BWD[name], TOL_ROWS[name]
+    out_k = rc.mlp_fwd(ws, bs, cfg, x, d, cd)
+    torch.cuda.synchronize()
+    out_p = rc.mlp_fwd_plain(ws, bs, cfg, x, d, cd)
+    e_fwd = _scaled_err(out_k, out_p)
+    abs_fwd = float((out_k - out_p).abs().max())
+    if not (torch.isfinite(out_k).all() and e_fwd <= tol):
+        raise AssertionError(f"mlp_fwd {label}: scaled err {e_fwd} > {tol}")
+    del out_k, out_p
+
+    dws, dbs, dx, dd = rc.mlp_bwd(ws, bs, cfg, x, d, g, cd)
+    torch.cuda.synchronize()
+    pws, pbs, pdx, pdd = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g, cd)
+    e_par = max(_scaled_err(a, b) for a, b in zip(dws + dbs, pws + pbs))
+    rows = [("dx", dx, pdx)] + ([("dd", dd, pdd)] if d is not None else [])
+    row_stats = {k: _row_errs(a, b, tol_r) for k, a, b in rows}
+    pairs = list(zip(dws + dbs, pws + pbs)) + [(a, b) for _, a, b in rows]
+    abs_bwd = max(float((a - b).abs().max()) for a, b in pairs)
+    finite = all(bool(torch.isfinite(t).all()) for t in dws + dbs + [a for _, a, _ in rows])
+    if not finite or e_par > tol_b or any(norm > tol_r for _, norm, _ in row_stats.values()):
+        raise AssertionError(f"mlp_bwd {label}: dparams scaled err {e_par} (tol {tol_b}); "
+                             f"per-row {row_stats} (tol {tol_r})")
+    del pws, pbs, pdx, pdd, pairs
+    exact = None
+    if cd == torch.bfloat16:
+        exact = _vs_f64_chain(torch, rc, ws, bs, cfg, x, d, g, cd, rows, tol_r)
+        log(f"kernel check {label}: dx/dd against the f64 chain (scaled max, normwise, share "
+            f"of rows over tol), kernel and plain; leaky-branch flips plain f32 vs f64: {exact}")
+    del rows
+    dws2, dbs2, _, _ = rc.mlp_bwd(ws, bs, cfg, x, d, g, cd)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2)):
+        raise AssertionError(f"mlp_bwd {label}: dparams differ between runs")
+    log(f"kernel check {label}: fwd scaled err {e_fwd:.3e} (tol {tol}), bwd dparams scaled "
+        f"err {e_par:.3e} (tol {tol_b}); dx/dd (scaled max, normwise, share of rows over "
+        f"tol): {row_stats} (tol {tol_r}); dparams bitwise equal across two runs")
+    return abs_fwd, abs_bwd, exact
+
+
 def kernel_phases(torch, timings: dict) -> None:
     from nerf_and_dietnerf_tpu_torch.models import mlp
     from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
@@ -192,47 +271,24 @@ def kernel_phases(torch, timings: dict) -> None:
         params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
         for cd in (torch.bfloat16, torch.float32):
             name = str(cd).split(".")[-1]
-            tol = TOL[name]
             ws, bs = rc.flatten_params(params, cfg, cd)
+            # bf16 (the tensor-core tiles) also at a ragged row count: a part-
+            # filled last 128-row tile, whose rows past n add to no sum.
+            ragged = None
+            if cd == torch.bfloat16:
+                xr, dr, gr = _inputs(torch, cfg, cd, N_ROWS_RAGGED, gen)
+                ragged = _mlp_checks(torch, rc, ws, bs, cfg, xr, dr, gr, cd, name,
+                                     f"{variant} {name} rows={N_ROWS_RAGGED}")
+                del xr, dr, gr
             x, d, g = _inputs(torch, cfg, cd, N_ROWS, gen)
-
-            out_k = rc.mlp_fwd(ws, bs, cfg, x, d, cd)
-            torch.cuda.synchronize()
-            out_p = rc.mlp_fwd_plain(ws, bs, cfg, x, d, cd)
-            e_fwd = _scaled_err(out_k, out_p)
-            if not (torch.isfinite(out_k).all() and e_fwd <= tol):
-                raise AssertionError(f"mlp_fwd {variant} {name}: scaled err {e_fwd} > {tol}")
-
-            dws, dbs, dx, dd = rc.mlp_bwd(ws, bs, cfg, x, d, g, cd)
-            torch.cuda.synchronize()
-            pws, pbs, pdx, pdd = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g, cd)
-            tol_b, tol_r = TOL_BWD[name], TOL_ROWS[name]
-            e_par = max(_scaled_err(a, b) for a, b in zip(dws + dbs, pws + pbs))
-            rows = [("dx", dx, pdx)] + ([("dd", dd, pdd)] if d is not None else [])
-            row_stats = {k: _row_errs(a, b, tol_r) for k, a, b in rows}
-            pairs = list(zip(dws + dbs, pws + pbs)) + [(a, b) for _, a, b in rows]
-            abs_bwd = max(float((a - b).abs().max()) for a, b in pairs)
-            abs_fwd = float((out_k - out_p).abs().max())
-            bad = [k for k, (_, norm, _) in row_stats.items()
-                   if norm > tol_r]
-            if e_par > tol_b or bad:
-                raise AssertionError(f"mlp_bwd {variant} {name}: dparams scaled err {e_par} "
-                                     f"(tol {tol_b}); per-row {row_stats} (tol {tol_r})")
-
-            dws2, dbs2, _, _ = rc.mlp_bwd(ws, bs, cfg, x, d, g, cd)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2)):
-                raise AssertionError(f"mlp_bwd {variant} {name}: dparams differ between runs")
-            log(f"kernel check {variant} {name} rows={N_ROWS}: fwd scaled err {e_fwd:.3e}, "
-                f"bwd dparams scaled err {e_par:.3e} (tol {tol_b}); dx/dd (scaled max, "
-                f"normwise, share of rows over tol): {row_stats} (tol {tol_r}); dparams bitwise equal "
-                f"across two runs")
-
+            abs_fwd, abs_bwd, exact = _mlp_checks(torch, rc, ws, bs, cfg, x, d, g, cd, name,
+                                                  f"{variant} {name} rows={N_ROWS}")
+            if exact is not None:
+                timings.setdefault("b2_vs_f64_chain", {})[variant] = exact
             if variant != "view_dirs":
                 continue
             # Times at the main path's shapes: bf16 is the train step's coarse
             # pass, f32 the eval render's.
-            del pws, pbs, pdx, pdd, dws2, dbs2
             flops = mlp_flops(cfg, N_ROWS)
             es = x.element_size()
             n_par = sum(w.numel() for w in ws) + sum(b.numel() for b in bs)
@@ -262,32 +318,42 @@ def kernel_phases(torch, timings: dict) -> None:
                 before = dict(kl.LAUNCHES)
                 ms = _time_ms(torch, fn)
                 kl.LAUNCHES.update(before)  # timing launches are not the main path's
+                bound = _bound(fl, PEAK_FLOPS[name], nbytes)
                 rec[kname] = {
                     "rows": N_ROWS, "dtype": name,
+                    "design": MLP_DESIGN[name],
                     "ms": ms,
+                    "tflops": fl / ms / 1e9,
+                    "share_of_bound": bound[0] / ms,
                     "plain_ms": _time_ms(torch, plain, reps=2),
                     "library_ms": _time_ms(torch, lib),
-                    "bound_ms": 1e3 * max(fl / PEAK_FLOPS[name], nbytes / PEAK_BYTES),
-                    "bound_by": "operations" if fl / PEAK_FLOPS[name] >= nbytes / PEAK_BYTES
-                    else "bytes",
+                    "library": "torch.addmm chain in the compute type"
+                               + (" (autograd forward + backward)" if kname == "mlp_bwd" else ""),
+                    "bound_ms": bound[0],
+                    "bound_by": bound[1],
                     "max_abs_err": abs_fwd if kname == "mlp_fwd" else abs_bwd,
                 }
+                if ragged is not None:
+                    rec[kname]["max_abs_err_ragged"] = ragged[0 if kname == "mlp_fwd" else 1]
             if cd == torch.bfloat16:
                 # The fine pass of a train step runs both kernels on twice the rows.
                 x2, d2, g2 = (torch.cat([t, t]) for t in (x, d, g))
                 before = dict(kl.LAUNCHES)
-                rec["mlp_fwd"]["ms_fine_pass"] = _time_ms(
-                    torch, lambda: rc.mlp_fwd(ws, bs, cfg, x2, d2, cd), reps=3)
-                rec["mlp_bwd"]["ms_fine_pass"] = _time_ms(
-                    torch, lambda: rc.mlp_bwd(ws, bs, cfg, x2, d2, g2, cd), reps=3)
+                for kname, fn, fl in (
+                        ("mlp_fwd", lambda: rc.mlp_fwd(ws, bs, cfg, x2, d2, cd), 2 * flops),
+                        ("mlp_bwd", lambda: rc.mlp_bwd(ws, bs, cfg, x2, d2, g2, cd), 6 * flops)):
+                    ms = _time_ms(torch, fn, reps=3)
+                    rec[kname].update(ms_fine_pass=ms, tflops_fine_pass=fl / ms / 1e9)
                 kl.LAUNCHES.update(before)
+                del x2, d2, g2
                 log(f"time fine pass ({2 * N_ROWS} rows, bf16): mlp_fwd "
                     f"{rec['mlp_fwd']['ms_fine_pass']:.3f} ms, mlp_bwd "
                     f"{rec['mlp_bwd']['ms_fine_pass']:.3f} ms")
             timings[name] = rec
             for kname, r in rec.items():
-                log(f"time {kname} {name} rows={N_ROWS}: kernel {r['ms']:.3f} ms, plain "
-                    f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound "
+                log(f"time {kname} {name} rows={N_ROWS} ({r['design']}): kernel {r['ms']:.3f} ms "
+                    f"({r['tflops']:.1f} TFLOP/s, {100 * r['share_of_bound']:.2f} % of the bound), "
+                    f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound "
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
@@ -936,13 +1002,25 @@ def probe_kernel_phases(torch, timings: dict) -> None:
         max_abs_err_by_variant=variants,
         ms_v5=_time_ms(torch, lambda: pk.mlp_fwd_variant(ws, bs, cfg, x, d, "v5")),
         ms_v3=_time_ms(torch, lambda: pk.mlp_fwd_variant(ws, bs, cfg, x, d, "v3")),
-        ms_v0_b1=b1_ms)
+        ms_v0_b1=b1_ms, ms_v0_b1_design=MLP_DESIGN["bfloat16"])
 
     ref = rc.mlp_fwd(ws, bs, cfg, xb, db, torch.bfloat16)
     plain = rc.mlp_fwd_plain(ws, bs, cfg, xb, db, torch.bfloat16)
     ws32, bs32 = rc.flatten_params(params, cfg, torch.float32)
     x32, d32 = x[:N_ROWS].contiguous(), d[:N_ROWS].contiguous()
     ref32 = rc.mlp_fwd(ws32, bs32, cfg, x32, d32, torch.float32)
+    # B1 on the tensor cores, its former FMA design (one chain) and the plain
+    # f32 version against the forward with the same roundings but f64 sums,
+    # on the first N_ROWS rows: which of the three sums least exactly.
+    exact = rc._forward_plain(ws, bs, cfg, xb[:N_ROWS], db[:N_ROWS], torch.bfloat16,
+                              torch.float64)[0]
+    fma = pk.mlp_fwd_chains(ws, bs, cfg, xb, db, 1)
+    torch.cuda.synchronize()
+    fwd_vs_exact = {k: _row_errs(o[:N_ROWS], exact, TOL["bfloat16"])
+                    for k, o in (("b1_mma", ref), ("fma_design", fma), ("plain_f32", plain))}
+    del exact, fma
+    log(f"kernel check B1 bf16 rows={N_ROWS} against the f64 forward chain (scaled max, "
+        f"normwise, share of rows over {TOL['bfloat16']}): {fwd_vs_exact}")
     chain_errs = {}
     for chains in (1, 2):
         out_k = pk.mlp_fwd_chains(ws, bs, cfg, xb, db, chains)
@@ -975,7 +1053,9 @@ def probe_kernel_phases(torch, timings: dict) -> None:
                n * (cfg.xyz_dim + cfg.dir_dim) * 2 + par_bytes + n * 16),
         rows=n, chains=2, library="torch.addmm chain in bf16",
         ms_chains_1=_time_ms(torch, lambda: pk.mlp_fwd_chains(ws, bs, cfg, xb, db, 1)),
-        ms_v0_b1=b1_ms)
+        ms_chains_1_design="B1's former bf16 design: f32 FMA tile, one 64-row chain",
+        ms_v0_b1=b1_ms, ms_v0_b1_design=MLP_DESIGN["bfloat16"],
+        fwd_vs_f64_chain=fwd_vs_exact)
     del x, d, xb, db, x32, d32
 
     # P4, P5, P6 ----------------------------------------------------------- #
@@ -1183,9 +1263,11 @@ def profile_phase(torch, timings: dict, trainer) -> None:
         log(f"profile top: {device_us(a) / 1e3:10.3f} ms {100 * device_us(a) / total_us:5.1f}% "
             f"{a.count:5d} calls  {a.key[:120]}")
 
-    # One step twice from the same state and seed: is a step bitwise
-    # reproducible within a process? Then once more with PyTorch asked to warn
-    # about operations that have no deterministic implementation.
+    # One step twice from the same state and seed, without
+    # torch.use_deterministic_algorithms: the new parameters must be bitwise
+    # equal (no kernel of the step adds with atomics). Then once more with
+    # PyTorch asked to warn about operations that have no deterministic
+    # implementation.
     from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
 
     step_fn = ts.make_epoch_fn(config, trainer.optimizer, 1, batch)
@@ -1220,6 +1302,9 @@ def profile_phase(torch, timings: dict, trainer) -> None:
         f"{rec['step_bitwise_reproducible_deterministic_mode']}, operations it reports as "
         f"having no deterministic implementation: {names if names else 'none'}; kernels of "
         f"the traced steps that add with atomics: {rec['atomic_add_kernels']}")
+    if not rec["step_bitwise_reproducible"] or rec["atomic_add_kernels"]:
+        raise AssertionError("a pallas step is not bitwise reproducible, or kernels of the step "
+                             f"add with atomics: {rec['atomic_add_kernels']}")
     timings["profile"] = rec
 
 
@@ -1398,6 +1483,47 @@ def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
     return launches
 
 
+# The bf16 kernels of B1/B2 whose products must run on the tensor cores.
+MMA_KERNELS = {"mlp_fwd": "mlp_fwd_mma_kernel", "mlp_bwd": "mlp_bwd_mma_kernel"}
+
+
+def tensor_core_report(kl, build_log: str) -> dict:
+    """What the compiler made of B1 and B2: their whole ``-Xptxas -v`` output
+    (registers, shared memory, spills of each kernel), then, where the
+    toolkit has ``cuobjdump``, the tensor-core (HMMA / HGMMA) and f32 FMA
+    instructions of every kernel in their SASS. Fails if a bf16 kernel of
+    ``MMA_KERNELS`` has no tensor-core instruction."""
+    import re
+    import shutil
+
+    block = None
+    for line in build_log.splitlines():
+        if line.startswith("--- "):
+            block = line[4:].strip()
+        elif block in MMA_KERNELS and "ptxas" in line:
+            log(f"  ptxas {block}: {line.strip()}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("SASS: cuobjdump not available, tensor-core instructions not counted")
+        return {"cuobjdump": "not available"}
+    report = {}
+    for lib, kernel in MMA_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(kl.lib_path(lib))], check=True,
+                              capture_output=True, text=True).stdout
+        counts = {}
+        for part in re.split(r"\n\s*Function : ", sass)[1:]:
+            fname = part.split("\n", 1)[0].strip()
+            counts[fname] = {op: len(re.findall(rf"\b{op}\b", part))
+                             for op in ("HMMA", "HGMMA", "FFMA")}
+        report[lib] = counts
+        mma = {f: c for f, c in counts.items() if kernel in f}
+        for f, c in counts.items():
+            log(f"SASS {lib} {f[:90]}: {c}")
+        if not mma or not all(c["HMMA"] + c["HGMMA"] > 0 for c in mma.values()):
+            raise AssertionError(f"{lib}: no tensor-core instruction in {kernel}: {mma}")
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -1422,10 +1548,10 @@ def main() -> int:
     for line in build["log"].splitlines():
         if "registers" in line or "spill" in line or line.startswith("---"):
             log("  " + line.strip())
+    timings: dict = {"sass": tensor_core_report(kl, build["log"])}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    timings: dict = {}
     kernel_phases(torch, timings)
     raymarch_kernel_phases(torch, timings)
     comp_kernel_phases(torch, timings)
@@ -1469,8 +1595,9 @@ def main() -> int:
             "launches": launches[kname], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "dtype": "bfloat16",
-            **{k: v for k, v in r.items() if k in ("rows", "rays", "samples", "ms_fine_pass",
-                                                    "max_abs_err_s128", "library")},
+            **{k: v for k, v in r.items() if k in (
+                "rows", "rays", "samples", "ms_fine_pass", "max_abs_err_s128", "library", "design",
+                "tflops", "share_of_bound", "tflops_fine_pass", "max_abs_err_ragged")},
             "f32": timings[prefix + "float32"][kname],
         })
     for kname, (src, replaces) in PROBE_SOURCES.items():
@@ -1481,7 +1608,8 @@ def main() -> int:
             f"{r['library_ms']}, bound {r['bound_ms']:.5f} ms")
     train = {path: timings["train_" + path] for path in MAIN_PATHS}
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels, "train": train, "profile": timings["profile"]}),
+    print(json.dumps({"kernels": kernels, "train": train, "profile": timings["profile"],
+                      "sass": timings["sass"], "b2_vs_f64_chain": timings["b2_vs_f64_chain"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,12 @@ mode of the JAX package (mid-bin offsets, evenly spaced quantiles). Each
 sampler also takes its random numbers injected (``uniform=``,
 ``u=``), so a test can feed both packages the same draws.
 
-The TPU package expressed gathers and the sorted merge as one-hot matmuls;
-here they are ``searchsorted``, ``gather`` and a stable ``sort``, which give
-the same values and the same gradients (the gather's backward adds into the
-same entries the one-hot product's transpose does).
+The TPU package expressed gathers and the sorted merge as one-hot matmuls.
+Here the bin search is ``searchsorted`` and the merge a stable ``sort``; the
+row-wise picks of the resampling are gathers whose backward is the
+reference's one-hot product (:class:`_Pick`), because the backward of
+``torch.gather`` is a ``scatter_add_`` that adds with atomics on the GPU, so a
+training step would not be bitwise reproducible.
 """
 
 from __future__ import annotations
@@ -52,6 +54,36 @@ def sorted_uniforms(key, batch_shape, n: int, *, device=None) -> torch.Tensor:
     return torch.cumsum(e[..., :-1], dim=-1) / torch.sum(e, dim=-1, keepdim=True)
 
 
+class _Pick(torch.autograd.Function):
+    """``values[..., idx]`` along the last axis. The forward is a gather; the
+    backward is the reference's one-hot product transposed (a batched matrix
+    product of the 0/1 matrix ``idx == column`` with the cotangent), not the
+    gather's ``scatter_add_``, which adds with atomics on the GPU. The
+    product runs in full f32 even where the caller allowed TF32, which would
+    round the cotangents to 10-bit mantissas."""
+
+    @staticmethod
+    def forward(ctx, idx, values):
+        ctx.save_for_backward(idx)
+        ctx.width = values.shape[-1]
+        return torch.gather(values, -1, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        hit = idx.unsqueeze(-2) == torch.arange(ctx.width, device=idx.device).unsqueeze(-1)
+        flags = torch.backends.cuda.matmul
+        allow_tf32 = flags.allow_tf32
+        flags.allow_tf32 = False
+        try:
+            return None, torch.matmul(hit.to(g.dtype), g.unsqueeze(-1)).squeeze(-1)
+        finally:
+            flags.allow_tf32 = allow_tf32
+
+
+_pick = _Pick.apply
+
+
 def resample_z_from_weights(key, weights, z_values, n_new: int, *,
                             u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Draw ``n_new`` sorted z from the coarse weight PDF (inverse CDF with
@@ -71,12 +103,12 @@ def resample_z_from_weights(key, weights, z_values, n_new: int, *,
     idx = torch.searchsorted(cdf.detach().contiguous(), u, side="left")
     lo = torch.clamp_min(idx - 1, 0)
     hi = torch.clamp_max(idx, n_coarse - 1)
-    cdf_lo = torch.gather(cdf, -1, lo)
-    cdf_hi = torch.gather(cdf, -1, hi)
+    cdf_lo = _pick(lo, cdf)
+    cdf_hi = _pick(hi, cdf)
 
     z_mid = 0.5 * (z_values[..., 1:] + z_values[..., :-1])
-    z_lo = torch.gather(z_mid, -1, torch.clamp(lo, 0, n_coarse - 2))
-    z_hi = torch.gather(z_mid, -1, torch.clamp(hi, 0, n_coarse - 2))
+    z_lo = _pick(torch.clamp(lo, 0, n_coarse - 2), z_mid)
+    z_hi = _pick(torch.clamp(hi, 0, n_coarse - 2), z_mid)
 
     denom = cdf_hi - cdf_lo
     denom = torch.where(denom < DENOM_CLAMP, torch.full_like(denom, DENOM_CLAMP), denom)

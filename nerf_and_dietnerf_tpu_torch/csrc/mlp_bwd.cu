@@ -12,17 +12,24 @@
 // recomputed forward, the input-gradient chain and the weight-gradient
 // products), against 16 + 48 + 16 bytes in and 228 bytes out per row.
 //
-// What the design does about that: the tile's recomputed activations are kept
-// in the compute type in a per-block scratch slab (the backward needs all ten
-// of them, more than shared memory holds next to the gradient tiles), the
-// gradient tiles stay in shared memory, and the weights stream through the
-// same 32 x 256 chunk as the forward (transposed copies for g @ W^T). The
-// Pallas kernel summed weight gradients over a sequential grid; blocks here
-// run in no order, so each block walks a fixed, strided set of tiles and sums
-// into its own slab of the `partial` buffer (one thread owns each entry, no
-// atomics), and a second launch adds the slabs in block order. Two runs on
+// What the design does about that: the gradient tiles stay in shared memory,
+// the tile's recomputed activations are kept in the compute type in a
+// per-block scratch slab (the backward needs all ten of them, more than
+// shared memory holds next to the gradient tiles), and the weights stream
+// through shared memory (transposed copies for g @ W^T).
+// - bf16 (the train step): 128-row tiles on the tensor cores
+//   (`mma.sync.m16n8k16`: the recomputed forward, g @ W^T and the weight
+//   gradients A^T G; mlp_mma_tile.cuh). `w` / `wt` are then the F and B packs
+//   of that header.
+// - f32: 64-row tiles of f32 FMAs (mlp_bwd_tile.cuh), `w` / `wt` the flat
+//   weights and their transposes.
+// The Pallas kernel summed weight gradients over a sequential grid; blocks
+// here run in no order, so each block walks a fixed, strided set of tiles and
+// sums into its own slab of the `partial` buffer (one thread owns each entry,
+// no atomics), and a second launch adds the slabs in block order. Two runs on
 // the same inputs therefore give bitwise-equal gradients.
 #include "mlp_bwd_tile.cuh"
+#include "mlp_mma_tile.cuh"
 
 using namespace nerf_mlp;
 
@@ -51,26 +58,74 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
+// bf16: strided 128-row tiles per block on the tensor cores.
+__global__ void __launch_bounds__(nerf_mma::NT, 1)
+    mlp_bwd_mma_kernel(Dims dm, Layout L, nerf_mma::MmaLayout M, const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ d, const __nv_bfloat16* __restrict__ F,
+                       const __nv_bfloat16* __restrict__ Bp, const float* __restrict__ B,
+                       const float* __restrict__ g, float* __restrict__ dx,
+                       float* __restrict__ dd, float* __restrict__ partial,
+                       __nv_bfloat16* __restrict__ acts_all, int n_tiles) {
+  using namespace nerf_mma;
+  extern __shared__ uint4 smem16[];
+  const Tiles t = make_tiles(smem16, true);
+  const size_t p_total = (size_t)L.total_w + L.total_b;
+  float* part = partial + blockIdx.x * p_total;
+  bf16* acts = acts_all + (size_t)blockIdx.x * nerf_mma::NACT * SLOT;
+  const Mat f0 = fmat(F, M, 0);
+  Ring ring{t.ring, 0};
+  ring_start(ring, f0);
+  bool first = true;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, first = false) {
+    const int row0 = tile * BM;
+    load_tile(t.X, LDX, x, dm.xyz, row0, dm.n);
+    if (dm.has_dir) load_tile(t.D, LDD, d, dm.dir, row0, dm.n);
+    nerf_mma::load_cotangent(t.GI, g, row0, dm.n);
+    __syncthreads();
+    const bool more = tile + (int)gridDim.x < n_tiles;
+    nerf_mma::backward_tile(dm, L, M, F, Bp, B, t, ring, acts, part, first, row0, dx,
+                            dm.has_dir ? dd : nullptr, more ? &f0 : nullptr);
+  }
+}
+
 template <typename T>
 static int launch(const Dims& dm, const void* x, const void* d, const void* w, const void* wt,
                   const float* b, const float* g, float* dx, float* dd, float* partial,
                   void* acts, float* dparams, int n_blocks, cudaStream_t stream) {
   const Layout L = make_layout(dm);
-  const int tiles = (dm.n + TM - 1) / TM;
+  constexpr bool mma = std::is_same<T, __nv_bfloat16>::value;
+  const int rows = mma ? nerf_mma::BM : TM;
+  const int tiles = (dm.n + rows - 1) / rows;
   if (tiles == 0 || n_blocks <= 0 || n_blocks > tiles) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes();
-  cudaFuncSetAttribute(mlp_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  mlp_bwd_kernel<T><<<n_blocks, NT, smem, stream>>>(
-      dm, L, static_cast<const T*>(x), static_cast<const T*>(d), static_cast<const T*>(w),
-      static_cast<const T*>(wt), b, g, dx, dd, partial, static_cast<T*>(acts), tiles);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if constexpr (mma) {
+    const size_t smem = nerf_mma::bwd_smem_bytes();
+    err = cudaFuncSetAttribute(mlp_bwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mlp_bwd_mma_kernel<<<n_blocks, nerf_mma::NT, smem, stream>>>(
+        dm, L, nerf_mma::make_mma_layout(L), static_cast<const T*>(x), static_cast<const T*>(d),
+        static_cast<const T*>(w), static_cast<const T*>(wt), b, g, dx, dd, partial,
+        static_cast<T*>(acts), tiles);
+  } else {
+    const size_t smem = bwd_smem_bytes();
+    err = cudaFuncSetAttribute(mlp_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mlp_bwd_kernel<T><<<n_blocks, NT, smem, stream>>>(
+        dm, L, static_cast<const T*>(x), static_cast<const T*>(d), static_cast<const T*>(w),
+        static_cast<const T*>(wt), b, g, dx, dd, partial, static_cast<T*>(acts), tiles);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_reduce(partial, n_blocks, (size_t)L.total_w + L.total_b, dparams, stream);
 }
 
 // Scratch the caller allocates: partial (n_blocks * (total_w + total_b)) f32
-// and acts (n_blocks * NACT * TM * HMAX) elements of the compute type, with
-// 1 <= n_blocks <= ceil(n / TM). Returns cudaGetLastError() (0 on success).
+// and acts (n_blocks * nerf_mlp_bwd_tile_act_elems(is_bf16)) elements of the
+// compute type, with 1 <= n_blocks <= ceil(n / nerf_mlp_bwd_tile_rows(is_bf16)).
+// w, wt: for bf16 the F and B packs (mlp_mma_tile.cuh), for f32 the flat
+// weights and their transposes. Returns cudaGetLastError() (0 on success).
 extern "C" int nerf_mlp_bwd(int is_bf16, int has_dir, const void* x, const void* d,
                             const void* w, const void* wt, const float* b, const float* g,
                             float* dx, float* dd, float* partial, void* acts, float* dparams,
@@ -82,4 +137,12 @@ extern "C" int nerf_mlp_bwd(int is_bf16, int has_dir, const void* x, const void*
                                          n_blocks, s)
                  : launch<float>(dm, x, d, w, wt, b, g, dx, dd, partial, acts, dparams,
                                  n_blocks, s);
+}
+
+// Rows of a tile and activation-slot elements of a block, by compute type
+// (the exports of mlp_bwd_tile.cuh are the f32 tile's, which the other
+// backward libraries share).
+extern "C" int nerf_mlp_bwd_tile_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : TM; }
+extern "C" long long nerf_mlp_bwd_tile_act_elems(int is_bf16) {
+  return is_bf16 ? (long long)nerf_mma::NACT * nerf_mma::SLOT : (long long)NACT * TM * HMAX;
 }

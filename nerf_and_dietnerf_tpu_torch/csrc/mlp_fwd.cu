@@ -13,15 +13,19 @@
 // operations-per-byte line in either type.
 //
 // What the design does about that: no activation leaves the chip. A block
-// keeps its 64-row tile's activations in shared memory for the whole network
-// and streams each layer's weights through a 32 x 256 shared chunk (the whole
-// net is about 1 MB in bf16, 2 MB in f32, more than a block's 227 KB; the
-// weights stay hot in L2 across blocks). Each thread keeps an 8 x 8 register
-// tile of the layer output, so every shared-memory read feeds 8 FMAs. The
-// products are plain f32 FMAs (true f32 on the eval path, exact products of
-// bf16 values on the train path): simple and right first; tensor-core
-// (wgmma) tiles are the step that makes it fast.
+// keeps its row tile's activations in shared memory for the whole network
+// and streams each layer's weights through shared memory (the whole net is
+// about 1 MB in bf16, 2 MB in f32, more than a block's 227 KB; the weights
+// stay hot in L2 across blocks).
+// - bf16 (the train step): the products run on the tensor cores
+//   (`mma.sync.m16n8k16`, 128-row tiles, weights pre-packed by the wrapper
+//   and streamed with `cp.async`; see mlp_mma_tile.cuh). `w` is then the
+//   F pack of that header, not the flat weights.
+// - f32 (the eval renders, true f32 with no TF32): 64-row tiles, each thread
+//   keeps an 8 x 8 register tile of the layer output and the products are
+//   plain f32 FMAs over a 32 x 256 chunk (mlp_common.cuh).
 #include "mlp_common.cuh"
+#include "mlp_mma_tile.cuh"
 
 using namespace nerf_mlp;
 
@@ -42,21 +46,53 @@ __global__ void __launch_bounds__(NT, 1)
   forward_tile<T>(dm, L, W, B, X, D, bufA, bufB, Ws, nullptr, out, row0);
 }
 
+// bf16: one 128-row tile per block on the tensor cores.
+__global__ void __launch_bounds__(nerf_mma::NT, 1)
+    mlp_fwd_mma_kernel(Dims dm, Layout L, nerf_mma::MmaLayout M, const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ d, const __nv_bfloat16* __restrict__ F,
+                       const float* __restrict__ B, float* __restrict__ out) {
+  extern __shared__ uint4 smem16[];
+  const nerf_mma::Tiles t = nerf_mma::make_tiles(smem16, false);
+  nerf_mma::Ring ring{t.ring, 0};
+  nerf_mma::ring_start(ring, nerf_mma::fmat(F, M, 0));
+  const int row0 = blockIdx.x * nerf_mma::BM;
+  nerf_mma::load_tile(t.X, nerf_mma::LDX, x, dm.xyz, row0, dm.n);
+  if (dm.has_dir) nerf_mma::load_tile(t.D, nerf_mma::LDD, d, dm.dir, row0, dm.n);
+  __syncthreads();
+  nerf_mma::forward_tile(dm, L, M, F, B, t, ring, nullptr, out, row0, nullptr);
+}
+
 template <typename T>
 static int launch(const Dims& dm, const void* x, const void* d, const void* w, const float* b,
                   float* out, cudaStream_t stream) {
   const Layout L = make_layout(dm);
-  const int tiles = (dm.n + TM - 1) / TM;
-  if (tiles == 0) return 0;
-  const size_t smem = fwd_smem_bytes();
-  cudaFuncSetAttribute(mlp_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  mlp_fwd_kernel<T><<<tiles, NT, smem, stream>>>(dm, L, static_cast<const T*>(x),
-                                                 static_cast<const T*>(d),
-                                                 static_cast<const T*>(w), b, out);
+  if (dm.n == 0) return 0;
+  cudaError_t err;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const size_t smem = nerf_mma::fwd_smem_bytes();
+    err = cudaFuncSetAttribute(mlp_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (dm.n + nerf_mma::BM - 1) / nerf_mma::BM;
+    mlp_fwd_mma_kernel<<<tiles, nerf_mma::NT, smem, stream>>>(
+        dm, L, nerf_mma::make_mma_layout(L), static_cast<const T*>(x), static_cast<const T*>(d),
+        static_cast<const T*>(w), b, out);
+  } else {
+    const size_t smem = fwd_smem_bytes();
+    err = cudaFuncSetAttribute(mlp_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (dm.n + TM - 1) / TM;
+    mlp_fwd_kernel<T><<<tiles, NT, smem, stream>>>(dm, L, static_cast<const T*>(x),
+                                                   static_cast<const T*>(d),
+                                                   static_cast<const T*>(w), b, out);
+  }
   return (int)cudaGetLastError();
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// w: for bf16 the F pack (mlp_mma_tile.cuh, nerf_mlp_mma_pack_elems
+// elements), for f32 the flat weights (mlp_common.cuh). Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int nerf_mlp_fwd(int is_bf16, int has_dir, const void* x, const void* d,
                             const void* w, const float* b, float* out, int n, int xyz, int dir,
                             int hid, int last, float alpha, void* stream) {

@@ -151,10 +151,14 @@ _COMP_SIZES = {
 # R, S, xyz, dir, hid, last, alpha of the MLP + compositing kernels.
 _COMP_TAIL = [_i] * 6 + [_f]
 # Each library's C functions: (argtypes, restype).
+# The weight-pack size of the bf16 tensor-core tiles (csrc/mlp_mma_tile.cuh).
+_MMA_PACK = {"nerf_mlp_mma_pack_elems": ([_i] * 5, ctypes.c_longlong)}
 _SIGNATURES = {
-    "mlp_fwd": {"nerf_mlp_fwd": ([_i, _i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i)},
+    "mlp_fwd": {"nerf_mlp_fwd": ([_i, _i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i), **_MMA_PACK},
     "mlp_bwd": {"nerf_mlp_bwd": ([_i, _i] + [_p] * 11 + [_i] * 6 + [_f, _p], _i),
-                **_BWD_SCRATCH},
+                "nerf_mlp_bwd_tile_rows": ([_i], _i),
+                "nerf_mlp_bwd_tile_act_elems": ([_i], ctypes.c_longlong),
+                **_MMA_PACK, **_BWD_SCRATCH},
     "raymarch_fwd": {"nerf_rm_fwd": ([_i, _i] + [_p] * 5 + _RAY_TAIL, _i)},
     "raymarch_bwd": {"nerf_rm_bwd": ([_i, _i] + [_p] * 10 + [_i] + _RAY_TAIL, _i),
                      **_BWD_SCRATCH},

@@ -7,6 +7,11 @@ first use and loaded by ``ops/kernel_lib.py``. This module also holds the
 flat parameter layout and the plain MLP versions that the fused ray-march
 kernels of ``ops/research_kernels_cuda.py`` reuse.
 
+In bf16 both kernels run their products on the tensor cores and read the
+weights from two packs that :func:`pack_mma_weights` builds once per call
+(``csrc/mlp_mma_tile.cuh``); in f32 they read the flat weights (and B2 their
+transposes) of :func:`flatten_params`.
+
 Beside each kernel is its plain PyTorch version (:func:`mlp_fwd_plain`,
 :func:`mlp_bwd_plain`), which repeats the kernel's arithmetic: operands
 rounded to the compute type, f32 products and sums, activations rounded after
@@ -18,6 +23,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -27,7 +33,6 @@ from nerf_and_dietnerf_tpu_torch.models.mlp import (
     SKIP_AFTER,
     MLPConfig,
     Params,
-    round_to,
 )
 from nerf_and_dietnerf_tpu_torch.ops.kernel_lib import (
     bwd_scratch,
@@ -39,7 +44,8 @@ from nerf_and_dietnerf_tpu_torch.ops.kernel_lib import (
     uses_kernel,
 )
 
-# Limits of the kernels' shared-memory tiles (csrc/mlp_common.cuh).
+# Limits of the kernels' shared-memory tiles (csrc/mlp_common.cuh,
+# csrc/mlp_mma_tile.cuh).
 MAX_WIDTH, MAX_XYZ, MAX_DIR = 256, 64, 32
 
 # --------------------------------------------------------------------------- #
@@ -128,6 +134,84 @@ def tree_from_leaves(leaves, config: MLPConfig) -> Params:
 
 
 # --------------------------------------------------------------------------- #
+# Weight packs of the bf16 tensor-core kernels (csrc/mlp_mma_tile.cuh)         #
+# --------------------------------------------------------------------------- #
+
+def _pad16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _layout_of(shapes) -> Tuple[List[Tuple[int, int, int]], int]:
+    layout, off = [], 0
+    for k, n in shapes:
+        layout.append((off, _pad16(k), _pad16(n)))
+        off += _pad16(k) * _pad16(n)
+    return layout, off
+
+
+def mma_layout(config: MLPConfig) -> Tuple[List[Tuple[int, int, int]], int]:
+    """``(offset, pad16(K), pad16(N))`` of each weight matrix in either pack,
+    in :func:`weight_shapes` order, and the elements of a pack."""
+    return _layout_of(weight_shapes(config)[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(shapes, kinds, device):
+    """For the packs ``kinds`` one after the other, the index of each entry in
+    ``flat(ws)`` followed by one zero (every pad points at that zero), and
+    that zero, both on ``device``."""
+    layout, total = _layout_of(shapes)
+    pad = sum(k * n for k, n in shapes)
+    parts = []
+    for kind in kinds:
+        idx = torch.full((total,), pad, dtype=torch.long)
+        src = 0
+        for (k, n), (off, kp, np_) in zip(shapes, layout):
+            w = torch.arange(src, src + k * n).view(k, n)
+            if kind == "f":
+                idx[off:off + kp * np_].view(np_, kp)[:n, :k] = w.t()
+            else:
+                idx[off:off + kp * np_].view(kp, np_)[:k, :n] = w
+            src += k * n
+        parts.append(idx)
+    return torch.cat(parts).to(device), torch.zeros(1, dtype=torch.bfloat16, device=device)
+
+
+def _packs(ws, config: MLPConfig, kinds) -> List[torch.Tensor]:
+    """The bf16 packs ``kinds`` of ``ws``: one concatenation and one gather
+    through a cached index, whatever the number of matrices."""
+    for kind in kinds:
+        if kind not in ("f", "b"):
+            raise ValueError(f"pack kind must be 'f' or 'b', got {kind!r}")
+    shapes = tuple(weight_shapes(config)[0])
+    idx, zero = _pack_index(shapes, tuple(kinds), ws[0].device)
+    return list(flat(list(ws) + [zero])[idx].split(_layout_of(shapes)[1]))
+
+
+def pack_mma_weights(ws, config: MLPConfig, kind: str) -> torch.Tensor:
+    """One flat bf16 pack of the weights, every matrix zero-padded to
+    multiples of 16 (so every row is 32-byte aligned): ``kind="f"`` holds
+    each W^T as ``(pad16(N), pad16(K))`` (the forward's operand, x @ W),
+    ``kind="b"`` each W as ``(pad16(K), pad16(N))`` (the chain back's, g @ W^T)."""
+    return _packs(ws, config, (kind,))[0]
+
+
+def _weights_for(lib: ctypes.CDLL, ws, config: MLPConfig, cd, kinds):
+    """The weight buffers a B1/B2 library reads: the packs ``kinds`` in bf16
+    (their size checked against the library's), the flat weights (and their
+    transposes) in f32."""
+    if cd != torch.bfloat16:
+        return [flat(ws) if k == "f" else flat([w.t() for w in ws]) for k in kinds]
+    packs = _packs(ws, config, kinds)
+    has_dir = int(config.uses_view_dirs)
+    if packs[0].numel() != lib.nerf_mlp_mma_pack_elems(
+            has_dir, config.xyz_dim, config.dir_dim if has_dir else 0, config.hidden_dim,
+            config.last_hidden_dim):
+        raise RuntimeError("kernel and wrapper disagree on the weight-pack layout")
+    return packs
+
+
+# --------------------------------------------------------------------------- #
 # Plain versions                                                               #
 # --------------------------------------------------------------------------- #
 
@@ -140,11 +224,16 @@ def _leaky_bwd(post, g, alpha):
     return torch.where(post >= 0, g, alpha * g)
 
 
-def _forward_plain(ws, bs, config: MLPConfig, x, d, cd):
+def _round(v, cd):
+    """``v`` rounded to the compute type ``cd``, held in ``v``'s own type."""
+    return v if cd == torch.float32 else v.to(cd).to(v.dtype)
+
+
+def _forward_plain(ws, bs, config: MLPConfig, x, d, cd, work=torch.float32):
     alpha = config.leaky_relu_alpha
-    W = [w.float() for w in ws]
-    x = x.float()
-    d = d.float() if d is not None else None
+    W = [w.to(work) for w in ws]
+    x = x.to(work)
+    d = d.to(work) if d is not None else None
     acts = []
     h = x
     for layer in range(N_TRUNK_LAYERS):
@@ -152,17 +241,17 @@ def _forward_plain(ws, bs, config: MLPConfig, x, d, cd):
             pre = x @ W[SKIP_AFTER] + h @ W[SKIP_AFTER + 1] + bs[layer]
         else:
             pre = h @ W[_trunk_w(layer)] + bs[layer]
-        h = round_to(_leaky(pre, alpha), cd)
+        h = _round(_leaky(pre, alpha), cd)
         acts.append(h)
     b = N_TRUNK_LAYERS
     if config.uses_view_dirs:
-        rgb_h = round_to(_leaky(h @ W[9] + d @ W[10] + bs[b], alpha), cd)
+        rgb_h = _round(_leaky(h @ W[9] + d @ W[10] + bs[b], alpha), cd)
         rgb = rgb_h @ W[11] + bs[b + 1]
         sigma = h @ W[12] + d @ W[13] + bs[b + 2]
         acts.append(rgb_h)
     else:
-        r0 = round_to(_leaky(h @ W[9] + bs[b], alpha), cd)
-        rgb_h = round_to(_leaky(r0 @ W[10] + bs[b + 1], alpha), cd)
+        r0 = _round(_leaky(h @ W[9] + bs[b], alpha), cd)
+        rgb_h = _round(_leaky(r0 @ W[10] + bs[b + 1], alpha), cd)
         rgb = rgb_h @ W[11] + bs[b + 2]
         sigma = h @ W[12] + bs[b + 3]
         acts += [r0, rgb_h]
@@ -174,23 +263,25 @@ def mlp_fwd_plain(ws, bs, config: MLPConfig, x, d, compute_dtype) -> torch.Tenso
     return _forward_plain(ws, bs, config, x, d, compute_dtype)[0]
 
 
-def mlp_bwd_plain(ws, bs, config: MLPConfig, x, d, g, compute_dtype):
+def mlp_bwd_plain(ws, bs, config: MLPConfig, x, d, g, compute_dtype, work=torch.float32):
     """Plain version of B2: ``(dws, dbs, dx, dd)`` for the cotangent ``g``
-    (n, 4), with the roundings of the JAX package's ``_backward_tile``."""
+    (n, 4), with the roundings of the JAX package's ``_backward_tile``.
+    ``work`` is the type of the products and sums (float64 gives the chain
+    with the same roundings but nearly exact sums)."""
     cd = compute_dtype
     alpha = config.leaky_relu_alpha
-    W = [w.float() for w in ws]
-    xf = x.float()
-    df = d.float() if d is not None else None
-    _, acts = _forward_plain(ws, bs, config, x, d, cd)
-    g = g.float()
+    W = [w.to(work) for w in ws]
+    xf = x.to(work)
+    df = d.to(work) if d is not None else None
+    _, acts = _forward_plain(ws, bs, config, x, d, cd, work)
+    g = g.to(work)
     grgb, gsig = g[:, 0:3], g[:, 3:4]
-    gsig_cd = round_to(gsig, cd)
-    alpha_cd = float(round_to(torch.tensor(alpha, dtype=torch.float32), cd))
+    gsig_cd = _round(gsig, cd)
+    alpha_cd = float(_round(torch.tensor(alpha, dtype=torch.float32), cd))
 
     def head_grad(post, gg):  # cotangent rounded to cd; slope and product in cd
-        t = round_to(gg, cd)
-        return torch.where(post >= 0, t, round_to(alpha_cd * t, cd))
+        t = _round(gg, cd)
+        return torch.where(post >= 0, t, _round(alpha_cd * t, cd))
 
     dW: List[Optional[torch.Tensor]] = [None] * len(ws)
     dB: List[Optional[torch.Tensor]] = [None] * len(bs)
@@ -217,7 +308,7 @@ def mlp_bwd_plain(ws, bs, config: MLPConfig, x, d, g, compute_dtype):
 
     g_x = torch.zeros_like(xf)
     for layer in reversed(range(N_TRUNK_LAYERS)):
-        g_pre = round_to(_leaky_bwd(acts[layer], g_h, alpha), cd)
+        g_pre = _round(_leaky_bwd(acts[layer], g_h, alpha), cd)
         prev = acts[layer - 1] if layer > 0 else xf
         dB[layer] = g_pre.sum(0)
         if layer == SKIP_AFTER:
@@ -268,9 +359,11 @@ def mlp_fwd(ws, bs, config: MLPConfig, x, d, compute_dtype) -> torch.Tensor:
     out = torch.empty((n, 4), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    w, b = flat(ws), flat(bs)
+    lib = load("mlp_fwd")
+    (w,) = _weights_for(lib, ws, config, compute_dtype, ("f",))
+    b = flat(bs)
     has_dir = int(config.uses_view_dirs)
-    rc = load("mlp_fwd").nerf_mlp_fwd(
+    rc = lib.nerf_mlp_fwd(
         int(compute_dtype == torch.bfloat16), has_dir, x.data_ptr(),
         d.data_ptr() if has_dir else None, w.data_ptr(), b.data_ptr(), out.data_ptr(),
         n, config.xyz_dim, config.dir_dim if has_dir else 0, config.hidden_dim,
@@ -300,12 +393,15 @@ def mlp_bwd(ws, bs, config: MLPConfig, x, d, g, compute_dtype):
     if n == 0:
         dparams.zero_()
     else:
-        tiles = -(-n // lib.nerf_mlp_bwd_rows_per_tile())
-        partial, acts, n_blocks = bwd_scratch(lib, dparams.numel(), compute_dtype, dev, tiles)
-        w, b = flat(ws), flat(bs)
-        wt = flat([t.t() for t in ws])
+        is_bf16 = int(compute_dtype == torch.bfloat16)
+        rows = lib.nerf_mlp_bwd_tile_rows(is_bf16)
+        partial, acts, n_blocks = bwd_scratch(lib, dparams.numel(), compute_dtype, dev,
+                                              -(-n // rows),
+                                              lib.nerf_mlp_bwd_tile_act_elems(is_bf16))
+        w, wt = _weights_for(lib, ws, config, compute_dtype, ("f", "b"))
+        b = flat(bs)
         rc = lib.nerf_mlp_bwd(
-            int(compute_dtype == torch.bfloat16), has_dir, x.data_ptr(),
+            is_bf16, has_dir, x.data_ptr(),
             d.data_ptr() if has_dir else None, w.data_ptr(), wt.data_ptr(), b.data_ptr(),
             g.data_ptr(), dx.data_ptr(), dd.data_ptr() if has_dir else None,
             partial.data_ptr(), acts.data_ptr(), dparams.data_ptr(), n_blocks,

@@ -157,6 +157,50 @@ def test_resample_values_and_grads_match_jax():
     np.testing.assert_allclose(tz.grad.numpy(), np.asarray(jg[1]), atol=5e-3, rtol=1e-5)
 
 
+def test_resample_backward_has_no_scatter():
+    """The picks of the resampling differentiate as one-hot products, so the
+    backward adds with no scatter (``torch.gather``'s backward adds with
+    atomics on the GPU, which made a training step differ from run to run)."""
+    w, z = _weights_and_z(8)
+    tw, tz = t(w).requires_grad_(True), t(z).requires_grad_(True)
+    got = tsam.resample_z_from_weights(torch.Generator().manual_seed(0), tw, tz, 20)
+    names, todo, seen = set(), [got.grad_fn], set()
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.add(type(fn).__name__)
+        todo += [nxt for nxt, _ in fn.next_functions]
+    assert "_PickBackward" in names
+    assert not [n for n in names if "Gather" in n or "Scatter" in n or "Index" in n], names
+    grads = [torch.autograd.grad(torch.sum(got * got), (tw, tz), retain_graph=True)
+             for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def test_resample_backward_product_runs_without_tf32(monkeypatch):
+    """The one-hot product of the picks' backward runs with TF32 off even
+    where the caller allowed it (TF32 would round the cotangents), and the
+    caller's setting comes back afterwards."""
+    w, z = _weights_and_z(4)
+    tw, tz = t(w).requires_grad_(True), t(z).requires_grad_(True)
+    got = tsam.resample_z_from_weights(torch.Generator().manual_seed(0), tw, tz, 12)
+    want = torch.autograd.grad(got.sum(), (tw, tz), retain_graph=True)
+    seen, matmul = [], torch.matmul
+
+    def spy(*args):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return matmul(*args)
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch, "matmul", spy)
+    grads = torch.autograd.grad(got.sum(), (tw, tz))
+    assert seen and not any(seen)
+    assert torch.backends.cuda.matmul.allow_tf32
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+
 def test_merge_matches_jax_rank_rule():
     rng = np.random.default_rng(11)
     a = np.sort(rng.integers(0, 6, (9, 7)), -1).astype(np.float32)  # ties on purpose
