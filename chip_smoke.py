@@ -14,15 +14,22 @@ each against its plain PyTorch version at the flagship widths in bf16 and f32
 fine pass's 128, in f32 also at a ragged 100, the ray-march forwards at the
 eval render's 192; B5 at 128 and at the ragged 100), checks that the
 backwards' parameter gradients (and B4's per-ray view-dir gradient and B5's
-loss) are bitwise reproducible (B1/B2 in bf16, which run on the tensor cores,
-also at a ragged row count; their ``-Xptxas -v`` lines and, where
-``cuobjdump`` is installed, the tensor-core instructions of their SASS are
-printed, and the run fails if there are none), then drives the five training paths at
+loss) are bitwise reproducible (B1/B2, whose products run on the tensor
+cores, also at a ragged row count in both types; their ``-Xptxas -v`` lines
+and, where ``cuobjdump`` is installed, the tensor-core instructions of their
+SASS are printed, and the run fails if bf16 B1/B2 have no HMMA or f32 B1 no
+HGMMA), holds B1 in both types, its former FMA design (P3 at one chain) and
+the plain version against the forward chain evaluated in f64 (f32 B1 fails
+if it is more than ``F64_FACTOR`` times as far as the plain version) and
+times f32 B1 beside that FMA design, then drives the five training paths at
 flagship width (4096 rays, 64 + 128 samples, 256/128 wide, bf16 step, f32
 eval renders) on a synthetic scene made from a seed, each for two epochs with
 the launch counts set to 0 just before it: backend "pallas" through the
-``Trainer`` (B1, B2; with a state save and restore), backend "pallas_rm"
-through the ``Trainer`` (B6, eval renders included), and through
+``Trainer`` (B1, B2; with a state save and restore; its f32 eval renders
+must launch B1, and a 32x32 patch of the held-out view rendered in f32 on
+the card and on the CPU from the trained weights must agree to 1e-4),
+backend "pallas_rm" through the ``Trainer`` (B6, eval renders included), and
+through
 ``train_step.make_epoch_fn`` "pallas_rm" with ``fuse_compositing`` (B7),
 "pallas" with ``fuse_compositing`` (B4 on both passes) and "pallas" with
 ``fuse_compositing`` and ``fuse_fine_loss`` (B4 on the coarse pass, B5 on the
@@ -59,10 +66,16 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 N_ROWS = 4096 * 64  # the coarse pass of one train step
 N_ROWS_RAGGED = N_ROWS - 37  # a part-filled last tile
-# The product loops of B1 and B2 by compute type (csrc/mlp_mma_tile.cuh,
-# csrc/mlp_common.cuh).
+N_ROWS_NARROW = 4096 - 5  # f32 B1 at narrow widths
+# The product loops of B1 (and bf16 B2) by compute type
+# (csrc/mlp_mma_tile.cuh, csrc/mlp_tf32_tile.cuh).
 MLP_DESIGN = {"bfloat16": "tensor cores, mma.sync bf16, 128-row tiles",
-              "float32": "f32 FMA tiles, 64 rows"}
+              "float32": "tensor cores, 3xTF32 wgmma, 128-row tiles in persistent blocks, "
+                         "a producer warp streaming hi / lo weight packs by bulk copies"}
+# f32 B2 keeps PR 1's FMA tile.
+F32_BWD_DESIGN = "f32 FMA tiles, 64 rows"
+# B1's former f32 design, timed beside it: P3 with one chain is that FMA tile.
+FMA_DESIGN = "f32 FMA tile, one 64-row chain (P3, chains=1)"
 # Scaled max error |kernel - plain| / max|plain|. Forward, f32: both sum
 # exact f32 products, only the summation order differs. Forward, bf16: the
 # plain version rounds at the same places, but a 1-ulp difference in a sum
@@ -106,7 +119,14 @@ RAYS, SAMPLES, SAMPLES_EVAL, SAMPLES_RAGGED = 4096, 64, 192, 100
 # positive like the others' and the weight gradients do not cancel.
 DEVICE = "cuda"  # every tensor of the run; main() refuses to start without a GPU
 # H100 SXM peaks: dense bf16 tensor-core and non-tensor f32 rates, HBM rate.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# "float32_mma": an f32 matrix product at true f32 accuracy on the tensor
+# cores, three TF32 products (3xTF32) at the 495 TFLOP/s TF32 rate; the bound
+# of every MLP kernel's f32 row (B1, B2, B4-B7), which such products can
+# compute. Non-matrix f32 work (P6, P7) keeps the 67 TFLOP/s FMA rate.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float32_mma": 495e12 / 3}
+# f32 B1 against the f64 forward chain: normwise at most this many times the
+# plain f32 version's distance.
+F64_FACTOR = 4.0
 PEAK_BYTES = 3.35e12
 
 
@@ -124,6 +144,11 @@ def log(*a):
 # --------------------------------------------------------------------------- #
 # Kernel phases                                                                #
 # --------------------------------------------------------------------------- #
+
+def _mlp_peak(name: str) -> float:
+    """The peak that bounds an MLP kernel's matrix products in ``name``."""
+    return PEAK_FLOPS["float32_mma" if name == "float32" else name]
+
 
 def _inputs(torch, cfg, cd, n, gen):
     from nerf_and_dietnerf_tpu_torch.core import encoding
@@ -262,6 +287,7 @@ def _mlp_checks(torch, rc, ws, bs, cfg, x, d, g, cd, name, label):
 def kernel_phases(torch, timings: dict) -> None:
     from nerf_and_dietnerf_tpu_torch.models import mlp
     from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+    from nerf_and_dietnerf_tpu_torch.ops import probe_kernels_cuda as pk
     from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
     from nerf_and_dietnerf_tpu_torch.tools import mlp_flops
 
@@ -272,14 +298,12 @@ def kernel_phases(torch, timings: dict) -> None:
         for cd in (torch.bfloat16, torch.float32):
             name = str(cd).split(".")[-1]
             ws, bs = rc.flatten_params(params, cfg, cd)
-            # bf16 (the tensor-core tiles) also at a ragged row count: a part-
-            # filled last 128-row tile, whose rows past n add to no sum.
-            ragged = None
-            if cd == torch.bfloat16:
-                xr, dr, gr = _inputs(torch, cfg, cd, N_ROWS_RAGGED, gen)
-                ragged = _mlp_checks(torch, rc, ws, bs, cfg, xr, dr, gr, cd, name,
-                                     f"{variant} {name} rows={N_ROWS_RAGGED}")
-                del xr, dr, gr
+            # Both types (the tensor-core tiles) also at a ragged row count: a
+            # part-filled last 128-row tile, whose rows past n add to no sum.
+            xr, dr, gr = _inputs(torch, cfg, cd, N_ROWS_RAGGED, gen)
+            ragged = _mlp_checks(torch, rc, ws, bs, cfg, xr, dr, gr, cd, name,
+                                 f"{variant} {name} rows={N_ROWS_RAGGED}")
+            del xr, dr, gr
             x, d, g = _inputs(torch, cfg, cd, N_ROWS, gen)
             abs_fwd, abs_bwd, exact = _mlp_checks(torch, rc, ws, bs, cfg, x, d, g, cd, name,
                                                   f"{variant} {name} rows={N_ROWS}")
@@ -318,10 +342,11 @@ def kernel_phases(torch, timings: dict) -> None:
                 before = dict(kl.LAUNCHES)
                 ms = _time_ms(torch, fn)
                 kl.LAUNCHES.update(before)  # timing launches are not the main path's
-                bound = _bound(fl, PEAK_FLOPS[name], nbytes)
+                bound = _bound(fl, _mlp_peak(name), nbytes)
                 rec[kname] = {
                     "rows": N_ROWS, "dtype": name,
-                    "design": MLP_DESIGN[name],
+                    "design": (F32_BWD_DESIGN if (kname, name) == ("mlp_bwd", "float32")
+                               else MLP_DESIGN[name]),
                     "ms": ms,
                     "tflops": fl / ms / 1e9,
                     "share_of_bound": bound[0] / ms,
@@ -333,8 +358,16 @@ def kernel_phases(torch, timings: dict) -> None:
                     "bound_by": bound[1],
                     "max_abs_err": abs_fwd if kname == "mlp_fwd" else abs_bwd,
                 }
-                if ragged is not None:
-                    rec[kname]["max_abs_err_ragged"] = ragged[0 if kname == "mlp_fwd" else 1]
+                rec[kname]["max_abs_err_ragged"] = ragged[0 if kname == "mlp_fwd" else 1]
+            if cd == torch.float32:
+                # B1's former f32 design (the FMA tile) on the same inputs.
+                before = dict(kl.LAUNCHES)
+                rec["mlp_fwd"].update(
+                    fma_design_ms=_time_ms(torch, lambda: pk.mlp_fwd_chains(ws, bs, cfg, x, d, 1)),
+                    fma_design=FMA_DESIGN)
+                kl.LAUNCHES.update(before)
+                log(f"time mlp_fwd float32 rows={N_ROWS}: FMA design "
+                    f"{rec['mlp_fwd']['fma_design_ms']:.3f} ms ({FMA_DESIGN})")
             if cd == torch.bfloat16:
                 # The fine pass of a train step runs both kernels on twice the rows.
                 x2, d2, g2 = (torch.cat([t, t]) for t in (x, d, g))
@@ -355,6 +388,24 @@ def kernel_phases(torch, timings: dict) -> None:
                     f"({r['tflops']:.1f} TFLOP/s, {100 * r['share_of_bound']:.2f} % of the bound), "
                     f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound "
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    # f32 B1 at narrow widths (a 40-wide trunk, a 24-wide rgb layer): the
+    # 64-column products and the 8-column last chunks of its tile, which the
+    # flagship widths do not reach, on a ragged row count.
+    before = dict(kl.LAUNCHES)
+    for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
+        cfg = mlp.MLPConfig(hidden_dim=40, last_hidden_dim=24, n_angles=n_angles)
+        params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
+        ws, bs = rc.flatten_params(params, cfg, torch.float32)
+        x, d, _ = _inputs(torch, cfg, torch.float32, N_ROWS_NARROW, gen)
+        out_k = rc.mlp_fwd(ws, bs, cfg, x, d, torch.float32)
+        torch.cuda.synchronize()
+        e = _scaled_err(out_k, rc.mlp_fwd_plain(ws, bs, cfg, x, d, torch.float32))
+        if not (torch.isfinite(out_k).all() and e <= TOL["float32"]):
+            raise AssertionError(f"mlp_fwd float32 narrow {variant}: scaled err {e}")
+        log(f"kernel check mlp_fwd {variant} float32 hidden 40 / last 24 rows={N_ROWS_NARROW}: "
+            f"scaled err {e:.3e} (tol {TOL['float32']})")
+    kl.LAUNCHES.update(before)
 
 
 # --------------------------------------------------------------------------- #
@@ -540,7 +591,7 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
             before = dict(kl.LAUNCHES)
             for kname, fn, plain, lib, fl in cases:
                 nbytes = _rm_bytes(cfg, ws, bs, rd, z, kname)
-                t_ops, t_bytes = fl / PEAK_FLOPS[name], nbytes / PEAK_BYTES
+                t_ops, t_bytes = fl / _mlp_peak(name), nbytes / PEAK_BYTES
                 rec[kname] = {
                     "rays": RAYS, "samples": SAMPLES, "dtype": name,
                     "ms": _time_ms(torch, fn),
@@ -810,7 +861,7 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                                      ("mlp_loss_comp", 2 * SAMPLES, 3)):
                 fn, plain, lib = case(kname, n_s)
                 enc, encd, z = batches[n_s][:3]
-                t_ops = mult * mlp_flops(cfg, RAYS * n_s) / PEAK_FLOPS[name]
+                t_ops = mult * mlp_flops(cfg, RAYS * n_s) / _mlp_peak(name)
                 t_bytes = _comp_bytes(cfg, ws, bs, enc, encd, z, kname) / PEAK_BYTES
                 rec[kname] = {
                     "rays": RAYS, "samples": n_s, "dtype": name,
@@ -1021,6 +1072,23 @@ def probe_kernel_phases(torch, timings: dict) -> None:
     del exact, fma
     log(f"kernel check B1 bf16 rows={N_ROWS} against the f64 forward chain (scaled max, "
         f"normwise, share of rows over {TOL['bfloat16']}): {fwd_vs_exact}")
+    # f32: B1 on the tensor cores (3xTF32), its former FMA design and the plain
+    # f32 version against the f32 chain evaluated in f64.
+    exact32 = rc._forward_plain(ws32, bs32, cfg, x32, d32, torch.float32, torch.float64)[0]
+    fma32 = pk.mlp_fwd_chains(ws32, bs32, cfg, x32, d32, 1)
+    plain32 = rc.mlp_fwd_plain(ws32, bs32, cfg, x32, d32, torch.float32)
+    torch.cuda.synchronize()
+    f32_vs_exact = {k: _row_errs(o, exact32, TOL["float32"])
+                    for k, o in (("b1_tf32", ref32), ("fma_design", fma32), ("plain_f32", plain32))}
+    del exact32, fma32, plain32
+    ratio = f32_vs_exact["b1_tf32"][1] / max(f32_vs_exact["plain_f32"][1], 1e-30)
+    f32_vs_exact["normwise_ratio_b1_tf32_to_plain"] = ratio
+    timings["b1_f32_vs_f64_chain"] = f32_vs_exact
+    log(f"kernel check B1 f32 rows={N_ROWS} against the f64 forward chain (scaled max, "
+        f"normwise, share of rows over {TOL['float32']}): {f32_vs_exact}")
+    if not ratio <= F64_FACTOR:
+        raise AssertionError(f"B1 f32 is {ratio:.2f}x as far from the f64 chain as the plain f32 "
+                             f"version (limit {F64_FACTOR})")
     chain_errs = {}
     for chains in (1, 2):
         out_k = pk.mlp_fwd_chains(ws, bs, cfg, xb, db, chains)
@@ -1428,22 +1496,90 @@ def train_phase(torch, timings: dict, backend: str):
         log(f"checkpoint: saved and restored step {restored.step} ({len(a)} tensors equal)")
 
     # Step and eval-frame times (the epoch's seconds include its first step).
+    # The f32 eval renders' own launches of the path's forward kernel count
+    # too: under "pallas" they are f32 B1's.
+    fwd_kernel = MAIN_PATHS[backend][0]
+    before = kl.LAUNCHES[fwd_kernel]
     t0 = time.perf_counter()
     trainer._eval_render_cache = None
     renders = trainer.render_eval_images(3)
     torch.cuda.synchronize()
     frame_s = (time.perf_counter() - t0) / len(renders)
+    eval_launches = kl.LAUNCHES[fwd_kernel] - before
+    kl.LAUNCHES[fwd_kernel] = before
     for name, (_, rgb) in renders.items():
         if rgb.shape != (ds.height, ds.width, 3) or not np.isfinite(rgb).all():
             raise AssertionError(f"bad eval render {name}: {rgb.shape}")
+    log(f"{backend}: two f32 eval frames of {ds.height}x{ds.width}, {1e3 * frame_s:.3f} ms a "
+        f"frame, {eval_launches} launches of {fwd_kernel}")
+    if eval_launches <= 0:
+        raise AssertionError(f"{backend}: the f32 eval renders launched no {fwd_kernel}")
     timings["train_" + backend] = {
         "ms_per_step": 1e3 * stats[1].seconds / steps,
         "rays_per_sec": stats[1].rays_per_sec,
         "ms_per_eval_frame": 1e3 * frame_s,
+        "eval_frame_launches": eval_launches,
         "loss": [s.loss for s in stats],
         "psnr_test": [s.psnr_test for s in stats],
     }
     return launches, trainer
+
+
+# The held-out patch rendered through models/nerf.render in f32 on the card
+# and on the CPU: rays on a side, and the largest pixel difference allowed
+# (both sides compute the same f32 chain; f32 B1 holds 1e-4 of the largest
+# raw output against its plain version, and compositing does not enlarge it).
+EVAL_PATCH = 32
+TOL_PATCH = 1e-4
+
+
+def eval_patch_phase(torch, timings: dict, trainer) -> None:
+    """A 32x32-ray patch from the middle of the held-out view, rendered as the
+    eval renders render (``nerf.render`` with the trainer's f32 eval config,
+    coarse + fine), on the card (f32 B1) and on the CPU (the plain path),
+    from the same trained weights and the same injected ``strat_u`` /
+    ``fine_u`` draws. Fails if a pixel differs by more than ``TOL_PATCH``;
+    records both PSNRs against the view's pixels."""
+    import numpy as np
+
+    from nerf_and_dietnerf_tpu_torch.core import cameras, rendering
+    from nerf_and_dietnerf_tpu_torch.models import nerf
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+    from nerf_and_dietnerf_tpu_torch.utils.tree import tree_map
+
+    ds, cfg, idx = trainer.dataset, trainer.eval_config, trainer.run.test_img_idx
+    h0, w0 = (ds.height - EVAL_PATCH) // 2, (ds.width - EVAL_PATCH) // 2
+    orig, dirs = cameras.rays_for_image(ds.height, ds.width, ds.field_of_view,
+                                        torch.as_tensor(ds.camera_poses[idx], device=DEVICE))
+    patch = (slice(h0, h0 + EVAL_PATCH), slice(w0, w0 + EVAL_PATCH))
+    orig, dirs = (t.reshape(ds.height, ds.width, -1)[patch].reshape(EVAL_PATCH ** 2, -1)
+                  .contiguous() for t in (orig, dirs))
+    target = torch.as_tensor(ds.images[idx][patch]).reshape(-1, 3)
+    rng = np.random.default_rng(SEED)
+    n = EVAL_PATCH ** 2
+    draws = {"strat_u": rng.uniform(size=(n, cfg.n_samples_coarse)).astype(np.float32),
+             "fine_u": np.sort(rng.uniform(size=(n, cfg.n_samples_fine)), -1).astype(np.float32)}
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        params = tree_map(lambda t, d=dev: t.detach().to(d), trainer.state.params)
+        before = kl.LAUNCHES["mlp_fwd"]
+        result, _ = nerf.render(params, cfg, None, orig.to(dev), dirs.to(dev), diagnostics=False,
+                                draws={k: torch.as_tensor(v, device=dev) for k, v in draws.items()})
+        out[dev] = result.rgb.detach().float().cpu()
+        launched = kl.LAUNCHES["mlp_fwd"] - before
+        kl.LAUNCHES["mlp_fwd"] = before
+        if (dev == DEVICE) != (launched > 0):
+            raise AssertionError(f"eval patch on {dev}: {launched} launches of mlp_fwd")
+    diff = float((out[DEVICE] - out["cpu"]).abs().max())
+    psnr = {dev: float(rendering.psnr(target, rgb)) for dev, rgb in out.items()}
+    rec = {"rays": n, "max_abs_pixel_diff": diff, "tol": TOL_PATCH, "psnr_card": psnr[DEVICE],
+           "psnr_cpu": psnr["cpu"]}
+    timings["eval_patch"] = rec
+    log(f"eval patch {EVAL_PATCH}x{EVAL_PATCH} of view {idx} (f32, pallas): card vs CPU max "
+        f"|pixel diff| {diff:.3e} (tol {TOL_PATCH}), PSNR card {psnr[DEVICE]:.4f} dB, CPU "
+        f"{psnr['cpu']:.4f} dB")
+    if not (math.isfinite(diff) and diff <= TOL_PATCH):
+        raise AssertionError(f"eval patch: card and CPU renders differ by {diff} > {TOL_PATCH}")
 
 
 def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
@@ -1483,16 +1619,20 @@ def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
     return launches
 
 
-# The bf16 kernels of B1/B2 whose products must run on the tensor cores.
-MMA_KERNELS = {"mlp_fwd": "mlp_fwd_mma_kernel", "mlp_bwd": "mlp_bwd_mma_kernel"}
+# The kernels of B1/B2 whose products must run on the tensor cores, and the
+# SASS instruction they must hold: bf16 B1/B2 on `mma.sync` (HMMA), f32 B1 on
+# `wgmma` (HGMMA).
+MMA_KERNELS = {"mlp_fwd": {"mlp_fwd_mma_kernel": "HMMA", "mlp_fwd_tf32_kernel": "HGMMA"},
+               "mlp_bwd": {"mlp_bwd_mma_kernel": "HMMA"}}
 
 
 def tensor_core_report(kl, build_log: str) -> dict:
     """What the compiler made of B1 and B2: their whole ``-Xptxas -v`` output
-    (registers, shared memory, spills of each kernel), then, where the
-    toolkit has ``cuobjdump``, the tensor-core (HMMA / HGMMA) and f32 FMA
-    instructions of every kernel in their SASS. Fails if a bf16 kernel of
-    ``MMA_KERNELS`` has no tensor-core instruction."""
+    (registers, shared memory, spills of each kernel, and any note that
+    `wgmma` products were serialized), then, where the toolkit has
+    ``cuobjdump``, the tensor-core (HMMA / HGMMA) and f32 FMA instructions of
+    every kernel in their SASS. Fails if a kernel of ``MMA_KERNELS`` lacks
+    its tensor-core instruction."""
     import re
     import shutil
 
@@ -1507,7 +1647,7 @@ def tensor_core_report(kl, build_log: str) -> dict:
         log("SASS: cuobjdump not available, tensor-core instructions not counted")
         return {"cuobjdump": "not available"}
     report = {}
-    for lib, kernel in MMA_KERNELS.items():
+    for lib, kernels in MMA_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(kl.lib_path(lib))], check=True,
                               capture_output=True, text=True).stdout
         counts = {}
@@ -1516,11 +1656,12 @@ def tensor_core_report(kl, build_log: str) -> dict:
             counts[fname] = {op: len(re.findall(rf"\b{op}\b", part))
                              for op in ("HMMA", "HGMMA", "FFMA")}
         report[lib] = counts
-        mma = {f: c for f, c in counts.items() if kernel in f}
         for f, c in counts.items():
             log(f"SASS {lib} {f[:90]}: {c}")
-        if not mma or not all(c["HMMA"] + c["HGMMA"] > 0 for c in mma.values()):
-            raise AssertionError(f"{lib}: no tensor-core instruction in {kernel}: {mma}")
+        for kernel, op in kernels.items():
+            mma = {f: c for f, c in counts.items() if kernel in f}
+            if not mma or not all(c[op] > 0 for c in mma.values()):
+                raise AssertionError(f"{lib}: no {op} instruction in {kernel}: {mma}")
     return report
 
 
@@ -1562,6 +1703,8 @@ def main() -> int:
     for backend in ("pallas", "pallas_rm"):
         got, trainer = train_phase(torch, timings, backend)
         launches.update({k: got[k] for k in MAIN_PATHS[backend]})
+        if backend == "pallas":
+            eval_patch_phase(torch, timings, trainer)
     for path in FUSED_PATHS:
         got = fused_phase(torch, timings, trainer, path)
         for k in MAIN_PATHS[path]:
@@ -1576,6 +1719,13 @@ def main() -> int:
         log(f"[{card}] {path} train step {t['ms_per_step']:.3f} ms ({t['rays_per_sec']:.0f} "
             f"rays/s)" + (f", eval frame {t['ms_per_eval_frame']:.3f} ms"
                           if "ms_per_eval_frame" in t else ""))
+    r = timings["float32"]["mlp_fwd"]
+    log(f"[{card}] mlp_fwd float32 ({r['design']}): {r['ms']:.3f} ms, {FMA_DESIGN} "
+        f"{r['fma_design_ms']:.3f} ms, library_ms {r['library_ms']:.3f}, plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({100 * r['share_of_bound']:.1f} %); against the f64 chain "
+        f"{timings['b1_f32_vs_f64_chain']['normwise_ratio_b1_tf32_to_plain']:.3f}x the plain "
+        f"f32 version's normwise distance")
     for key in ("bfloat16", "float32", "rm_bfloat16", "rm_float32", "comp_bfloat16",
                 "comp_float32"):
         for kname, r in timings[key].items():
@@ -1609,7 +1759,9 @@ def main() -> int:
     train = {path: timings["train_" + path] for path in MAIN_PATHS}
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "train": train, "profile": timings["profile"],
-                      "sass": timings["sass"], "b2_vs_f64_chain": timings["b2_vs_f64_chain"]}),
+                      "sass": timings["sass"], "b2_vs_f64_chain": timings["b2_vs_f64_chain"],
+                      "b1_f32_vs_f64_chain": timings["b1_f32_vs_f64_chain"],
+                      "eval_patch": timings["eval_patch"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,34 +16,28 @@
 // keeps its row tile's activations in shared memory for the whole network
 // and streams each layer's weights through shared memory (the whole net is
 // about 1 MB in bf16, 2 MB in f32, more than a block's 227 KB; the weights
-// stay hot in L2 across blocks).
-// - bf16 (the train step): the products run on the tensor cores
-//   (`mma.sync.m16n8k16`, 128-row tiles, weights pre-packed by the wrapper
-//   and streamed with `cp.async`; see mlp_mma_tile.cuh). `w` is then the
-//   F pack of that header, not the flat weights.
-// - f32 (the eval renders, true f32 with no TF32): 64-row tiles, each thread
-//   keeps an 8 x 8 register tile of the layer output and the products are
-//   plain f32 FMAs over a 32 x 256 chunk (mlp_common.cuh).
+// stay hot in L2 across blocks). Both types run their products on the
+// tensor cores:
+// - bf16 (the train step): `mma.sync.m16n8k16`, 128-row tiles, weights
+//   pre-packed by the wrapper and streamed with `cp.async` (see
+//   mlp_mma_tile.cuh). `w` is then the F pack of that header.
+// - f32 (the eval renders and video frames, true f32): 3xTF32 `wgmma`,
+//   128-row tiles in persistent blocks, a producer warp streaming hi / lo
+//   weight packs with bulk copies (see mlp_tf32_tile.cuh). `w` is then the
+//   weight buffer of that header.
 #include "mlp_common.cuh"
 #include "mlp_mma_tile.cuh"
+#include "mlp_tf32_tile.cuh"
 
 using namespace nerf_mlp;
 
-template <typename T>
-__global__ void __launch_bounds__(NT, 1)
-    mlp_fwd_kernel(Dims dm, Layout L, const T* __restrict__ x, const T* __restrict__ d,
-                   const T* __restrict__ W, const float* __restrict__ B, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* bufA = reinterpret_cast<float*>(smem4);
-  float* bufB = bufA + TM * HMAX;
-  float* Ws = bufB + TM * HMAX;
-  float* X = Ws + KC * HMAX;
-  float* D = X + TM * XMAX;
-  const int row0 = blockIdx.x * TM;
-  load_rows<T>(X, XMAX, x, dm.xyz, row0, dm.n);
-  if (dm.has_dir) load_rows<T>(D, DMAX, d, dm.dir, row0, dm.n);
-  __syncthreads();
-  forward_tile<T>(dm, L, W, B, X, D, bufA, bufB, Ws, nullptr, out, row0);
+// f32: persistent blocks of three warpgroups, 128-row tiles.
+__global__ void __launch_bounds__(nerf_tf32::NT, 1)
+    mlp_fwd_tf32_kernel(Dims dm, Layout L, nerf_tf32::Tf32Layout T, const float* __restrict__ x,
+                        const float* __restrict__ d, const float* __restrict__ W,
+                        const float* __restrict__ B, float* __restrict__ out) {
+  extern __shared__ uint4 smem_tf32[];
+  nerf_tf32::forward(dm, L, T, x, d, W, B, out, smem_tf32);
 }
 
 // bf16: one 128-row tile per block on the tensor cores.
@@ -78,20 +72,25 @@ static int launch(const Dims& dm, const void* x, const void* d, const void* w, c
         dm, L, nerf_mma::make_mma_layout(L), static_cast<const T*>(x), static_cast<const T*>(d),
         static_cast<const T*>(w), b, out);
   } else {
-    const size_t smem = fwd_smem_bytes();
-    err = cudaFuncSetAttribute(mlp_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const size_t smem = nerf_tf32::smem_bytes();
+    err = cudaFuncSetAttribute(mlp_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int tiles = (dm.n + TM - 1) / TM;
-    mlp_fwd_kernel<T><<<tiles, NT, smem, stream>>>(dm, L, static_cast<const T*>(x),
-                                                   static_cast<const T*>(d),
-                                                   static_cast<const T*>(w), b, out);
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (dm.n + nerf_tf32::BM - 1) / nerf_tf32::BM;
+    mlp_fwd_tf32_kernel<<<tiles < sms ? tiles : sms, nerf_tf32::NT, smem, stream>>>(
+        dm, L, nerf_tf32::make_tf32_layout(L), static_cast<const float*>(x),
+        static_cast<const float*>(d), static_cast<const float*>(w), b, out);
   }
   return (int)cudaGetLastError();
 }
 
 // w: for bf16 the F pack (mlp_mma_tile.cuh, nerf_mlp_mma_pack_elems
-// elements), for f32 the flat weights (mlp_common.cuh). Returns
+// elements), for f32 the weight buffer of mlp_tf32_tile.cuh (two packs of
+// nerf_mlp_tf32_pack_elems floats, then the head weights). Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int nerf_mlp_fwd(int is_bf16, int has_dir, const void* x, const void* d,
                             const void* w, const float* b, float* out, int n, int xyz, int dir,

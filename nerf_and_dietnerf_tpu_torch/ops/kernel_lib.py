@@ -154,7 +154,8 @@ _COMP_TAIL = [_i] * 6 + [_f]
 # The weight-pack size of the bf16 tensor-core tiles (csrc/mlp_mma_tile.cuh).
 _MMA_PACK = {"nerf_mlp_mma_pack_elems": ([_i] * 5, ctypes.c_longlong)}
 _SIGNATURES = {
-    "mlp_fwd": {"nerf_mlp_fwd": ([_i, _i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i), **_MMA_PACK},
+    "mlp_fwd": {"nerf_mlp_fwd": ([_i, _i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i), **_MMA_PACK,
+                "nerf_mlp_tf32_pack_elems": ([_i] * 5, ctypes.c_longlong)},
     "mlp_bwd": {"nerf_mlp_bwd": ([_i, _i] + [_p] * 11 + [_i] * 6 + [_f, _p], _i),
                 "nerf_mlp_bwd_tile_rows": ([_i], _i),
                 "nerf_mlp_bwd_tile_act_elems": ([_i], ctypes.c_longlong),

@@ -9,8 +9,10 @@ kernels of ``ops/research_kernels_cuda.py`` reuse.
 
 In bf16 both kernels run their products on the tensor cores and read the
 weights from two packs that :func:`pack_mma_weights` builds once per call
-(``csrc/mlp_mma_tile.cuh``); in f32 they read the flat weights (and B2 their
-transposes) of :func:`flatten_params`.
+(``csrc/mlp_mma_tile.cuh``). In f32, B1 runs 3xTF32 products on the tensor
+cores and reads the hi / lo weight packs of :func:`tf32_weights`
+(``csrc/mlp_tf32_tile.cuh``); f32 B2 reads the flat weights and their
+transposes of :func:`flatten_params`.
 
 Beside each kernel is its plain PyTorch version (:func:`mlp_fwd_plain`,
 :func:`mlp_bwd_plain`), which repeats the kernel's arithmetic: operands
@@ -196,17 +198,104 @@ def pack_mma_weights(ws, config: MLPConfig, kind: str) -> torch.Tensor:
     return _packs(ws, config, (kind,))[0]
 
 
+# --------------------------------------------------------------------------- #
+# Weight buffer of the f32 tensor-core forward (csrc/mlp_tf32_tile.cuh)        #
+# --------------------------------------------------------------------------- #
+
+TF32_CHUNK = 16      # contraction columns of a full ring stage (KS)
+N_TF32_PRODUCTS = 11  # matrices 0..10 run on the tensor cores; 11.. are the heads
+
+
+def _pad8(v: int) -> int:
+    return -(-v // 8) * 8
+
+
+def _npad(n: int) -> int:
+    """N of the ``wgmma`` that computes a layer of width ``n``."""
+    return 64 if n <= 64 else 128 if n <= 128 else 256
+
+
+def _tf32_layout_of(shapes) -> Tuple[List[Tuple[int, int, int]], int]:
+    layout, off = [], 0
+    for k, n in shapes[:N_TF32_PRODUCTS]:
+        layout.append((off, _pad8(k), _npad(n)))
+        off += _pad8(k) * _npad(n)
+    return layout, off
+
+
+def tf32_layout(config: MLPConfig) -> Tuple[List[Tuple[int, int, int]], int]:
+    """``(offset, pad8(K), npad(N))`` of each of the 11 product matrices in
+    either TF32 pack, and the floats of a pack."""
+    return _tf32_layout_of(weight_shapes(config)[0])
+
+
+def tf32_stage_offset(n, k, np_: int, kp: int):
+    """Float offset of entry ``(n, k)`` of W^T within its matrix's block (as
+    ``stage_offset`` in ``csrc/mlp_tf32_tile.cuh``; ``n``, ``k`` integer
+    tensors): chunk ``k // 16`` (``kc`` = 16, or 8 for a last chunk of 8) holds
+    ``np_ x kc`` floats as core matrices of 8 rows x 4 columns, those of an
+    8-row group side by side."""
+    k0 = TF32_CHUNK * (k // TF32_CHUNK)
+    kc = torch.clamp(kp - k0, max=TF32_CHUNK)
+    kk = k - k0
+    return np_ * k0 + ((n // 8) * (kc // 4) + kk // 4) * 32 + (n % 8) * 4 + kk % 4
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32_index(shapes, device):
+    """Index of each entry of a TF32 pack in ``flat(ws[:11])`` followed by one
+    zero (every pad points at that zero), and that zero, both on ``device``."""
+    layout, total = _tf32_layout_of(shapes)
+    pad = sum(k * n for k, n in shapes[:N_TF32_PRODUCTS])
+    idx = torch.full((total,), pad, dtype=torch.long)
+    src = 0
+    for (k, n), (off, kp, np_) in zip(shapes, layout):
+        nn, kk = torch.meshgrid(torch.arange(n), torch.arange(k), indexing="ij")
+        idx[off + tf32_stage_offset(nn, kk, np_, kp)] = src + kk * n + nn
+        src += k * n
+    return idx.to(device), torch.zeros(1, dtype=torch.float32, device=device)
+
+
+def round_tf32(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``v`` rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``; the low 13 bits are zero."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)``: hi = round_tf32(v), lo = round_tf32(v - hi) (v - hi is
+    exact in f32), so hi + lo is v to about 2^-22 relative."""
+    hi = round_tf32(v)
+    return hi, round_tf32(v - hi)
+
+
+def tf32_weights(ws, config: MLPConfig) -> torch.Tensor:
+    """The f32 forward's weight buffer: the hi pack and the lo pack of the 11
+    product matrices (W^T in ring-stage layout, zero pads; one gather through
+    a cached index, then the split), then the head matrices 11.. flat, f32."""
+    shapes = tuple(weight_shapes(config)[0])
+    idx, zero = _tf32_index(shapes, ws[0].device)
+    hi, lo = split_tf32(flat(list(ws[:N_TF32_PRODUCTS]) + [zero])[idx])
+    return torch.cat([hi, lo, flat(ws[N_TF32_PRODUCTS:])])
+
+
 def _weights_for(lib: ctypes.CDLL, ws, config: MLPConfig, cd, kinds):
     """The weight buffers a B1/B2 library reads: the packs ``kinds`` in bf16
     (their size checked against the library's), the flat weights (and their
-    transposes) in f32."""
+    transposes) in f32, or for ``kinds == ("t",)`` (f32 B1) the TF32 buffer
+    of :func:`tf32_weights` (its pack size checked against the library's)."""
+    has_dir = int(config.uses_view_dirs)
+    dims = (has_dir, config.xyz_dim, config.dir_dim if has_dir else 0, config.hidden_dim,
+            config.last_hidden_dim)
+    if kinds == ("t",):
+        if tf32_layout(config)[1] != lib.nerf_mlp_tf32_pack_elems(*dims):
+            raise RuntimeError("kernel and wrapper disagree on the TF32 weight-pack layout")
+        return [tf32_weights(ws, config)]
     if cd != torch.bfloat16:
         return [flat(ws) if k == "f" else flat([w.t() for w in ws]) for k in kinds]
     packs = _packs(ws, config, kinds)
-    has_dir = int(config.uses_view_dirs)
-    if packs[0].numel() != lib.nerf_mlp_mma_pack_elems(
-            has_dir, config.xyz_dim, config.dir_dim if has_dir else 0, config.hidden_dim,
-            config.last_hidden_dim):
+    if packs[0].numel() != lib.nerf_mlp_mma_pack_elems(*dims):
         raise RuntimeError("kernel and wrapper disagree on the weight-pack layout")
     return packs
 
@@ -360,7 +449,8 @@ def mlp_fwd(ws, bs, config: MLPConfig, x, d, compute_dtype) -> torch.Tensor:
     if n == 0:
         return out
     lib = load("mlp_fwd")
-    (w,) = _weights_for(lib, ws, config, compute_dtype, ("f",))
+    kind = "f" if compute_dtype == torch.bfloat16 else "t"
+    (w,) = _weights_for(lib, ws, config, compute_dtype, (kind,))
     b = flat(bs)
     has_dir = int(config.uses_view_dirs)
     rc = lib.nerf_mlp_fwd(
