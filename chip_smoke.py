@@ -12,16 +12,19 @@ kernels B4 ``mlp_comp_fwd`` / ``mlp_comp_bwd`` and B5 ``mlp_loss_comp``. Holds
 each against its plain PyTorch version at the flagship widths in bf16 and f32
 (both MLP variants; the ray kernels at 64 samples per ray, in bf16 also at the
 fine pass's 128, in f32 also at a ragged 100, the ray-march forwards at the
-eval render's 192; B5 at 128 and at the ragged 100), checks that the
-backwards' parameter gradients (and B4's per-ray view-dir gradient and B5's
-loss) are bitwise reproducible (B1/B2, whose products run on the tensor
-cores, also at a ragged row count in both types; their ``-Xptxas -v`` lines
-and, where ``cuobjdump`` is installed, the tensor-core instructions of their
-SASS are printed, and the run fails if bf16 B1/B2 have no HMMA or f32 B1 no
-HGMMA), holds B1 in both types, its former FMA design (P3 at one chain) and
-the plain version against the forward chain evaluated in f64 (f32 B1 fails
-if it is more than ``F64_FACTOR`` times as far as the plain version) and
-times f32 B1 beside that FMA design, then drives the five training paths at
+eval render's 192, B6 also at 4093 rays, a part-filled last 128-row tile, its
+f32 forward also at widths beyond its tensor-core design's; B5 at 128 and at
+the ragged 100), checks that the backwards' parameter gradients
+(and B4's per-ray view-dir gradient and B5's loss) are bitwise reproducible
+(B1/B2, whose products run on the tensor cores, also at a ragged row count in
+both types; the ``-Xptxas -v`` lines of B1, B2 and B6 and, where ``cuobjdump``
+is installed, the tensor-core instructions of their SASS are printed, and the
+run fails if bf16 B1/B2/B6 have no HMMA or f32 B1/B6 forward no HGMMA), holds
+B1 in both types, its former FMA design (P3 at one chain) and the plain
+version against the forward chain evaluated in f64 (f32 B1 fails if it is more
+than ``F64_FACTOR`` times as far as the plain version), B6 and its plain
+version likewise (raw output, bf16 dz and dparams; JSON ``b6_vs_f64_chain``),
+and times f32 B1 beside that FMA design, then drives the five training paths at
 flagship width (4096 rays, 64 + 128 samples, 256/128 wide, bf16 step, f32
 eval renders) on a synthetic scene made from a seed, each for two epochs with
 the launch counts set to 0 just before it: backend "pallas" through the
@@ -38,7 +41,8 @@ fine pass). Then the seven probe kernels (P1 ``probe_mma``, P2
 P7 ``probe_enccost``) are held against their plain versions at the probe
 tools' own shapes, the five tools of ``nerf_and_dietnerf_tpu_torch/tools`` run
 through their ``main([])`` (launch counts set to 0 before each), and four
-"pallas" steps run under ``utils.profiling.trace``: the device's idle share,
+"pallas_rm" steps, then four "pallas" steps run under
+``utils.profiling.trace``: the device's idle share,
 the ten device operations with the most time, and the torch operations of the
 step that have no deterministic implementation; one step run twice from the
 same state must give bitwise-equal parameters, with no kernel that adds with
@@ -74,6 +78,17 @@ MLP_DESIGN = {"bfloat16": "tensor cores, mma.sync bf16, 128-row tiles",
                          "a producer warp streaming hi / lo weight packs by bulk copies"}
 # f32 B2 keeps PR 1's FMA tile.
 F32_BWD_DESIGN = "f32 FMA tiles, 64 rows"
+# B6 runs B1/B2's tensor-core tiles on the encodings it builds; its f32
+# backward (parity runs only) keeps the FMA tile; B7 keeps the FMA tiles.
+RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings built into "
+                                                                    "the bf16 operand tiles",
+             ("raymarch_fwd", "float32"): MLP_DESIGN["float32"] + " (two stages), encodings "
+                                                                  "built into 64 input columns "
+                                                                  "of the tile's rows",
+             ("raymarch_bwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings built into "
+                                                                    "the bf16 operand tiles, dx "
+                                                                    "through a per-block slab",
+             ("raymarch_bwd", "float32"): F32_BWD_DESIGN}
 # B1's former f32 design, timed beside it: P3 with one chain is that FMA tile.
 FMA_DESIGN = "f32 FMA tile, one 64-row chain (P3, chains=1)"
 # Scaled max error |kernel - plain| / max|plain|. Forward, f32: both sum
@@ -110,6 +125,10 @@ TOL_ROWS = {"float32": 5e-3, "bfloat16": 2e-2}
 # f32 forwards) and a count that is not a multiple of the 64-row chunk B7 walks
 # a ray in (100, f32, all four kernels: one full chunk and one part-filled).
 RAYS, SAMPLES, SAMPLES_EVAL, SAMPLES_RAGGED = 4096, 64, 192, 100
+# B6 is also held at a ray count whose R S rows leave a part-filled last
+# 128-row tile of its tensor-core kernels (4093 x 64 = 2046.5 tiles), in both
+# types, the backward in bf16.
+RAYS_RAGGED = RAYS - 3
 # MLP + compositing kernels (B4, B5) against their plain versions, on torch-made
 # encodings of the same ray batches: pixels, weights and B5's loss to TOL (the
 # loss relative to itself); dparams to TOL_BWD; the per-row gradients denc and
@@ -477,10 +496,45 @@ def _rm_bytes(cfg, ws, bs, rd, z, kname):
     }[kname]
 
 
-def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=True):
-    """Each B6/B7 kernel against its plain version on (rd, z), the backwards
-    too if ``backward``; returns the max |kernel - plain| of each kernel and
-    the cotangents the timings reuse (None without the backwards)."""
+def _normwise(a, exact) -> float:
+    """|a - exact|_2 / |exact|_2, in f64."""
+    return float((a.double() - exact).norm() / exact.norm().clamp_min(1e-300))
+
+
+def _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd, z, g, cd) -> dict:
+    """B6 and its plain version against the plain chain with the same
+    roundings but f64 products and sums (``work=torch.float64``), on the
+    plain encode's encodings (:func:`_vs_f64_chain`'s approach): the normwise
+    distance of the raw output and, given a cotangent ``g``, of dz (the f64
+    dx through the encoding VJP, its angles and cosines as the plain version
+    computes them) and of the flat dparams."""
+    pts, x, d = rk._mlp_inputs(cfg, rd, z, cd)
+    exact = rc._forward_plain(ws, bs, cfg, x, d, cd, torch.float64)[0]
+    out = {"raw": {
+        "kernel": _normwise(rk.raymarch_fwd(ws, bs, cfg, rd, z, cd).reshape(-1, 4), exact),
+        "plain": _normwise(rk.raymarch_fwd_plain(ws, bs, cfg, rd, z, cd).reshape(-1, 4), exact)}}
+    del exact
+    if g is not None:
+        dws, dbs, dx, _ = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g.reshape(-1, 4), cd,
+                                           work=torch.float64)
+        dz_exact = rk._dz_from_dx(cfg, rd, pts, dx, z.shape[1])
+        par_exact = torch.cat([t.reshape(-1) for t in dws + dbs])
+        del dws, dbs, dx
+        for who, fn in (("kernel", rk.raymarch_bwd), ("plain", rk.raymarch_bwd_plain)):
+            kws, kbs, kdz = fn(ws, bs, cfg, rd, z, g, cd)
+            out.setdefault("dz", {})[who] = _normwise(kdz.reshape(-1), dz_exact)
+            out.setdefault("dparams", {})[who] = _normwise(
+                torch.cat([t.reshape(-1) for t in kws + kbs]), par_exact)
+    for r in out.values():
+        r["ratio_kernel_to_plain"] = r["kernel"] / max(r["plain"], 1e-300)
+    return out
+
+
+def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=True, b7=True):
+    """Each B6/B7 kernel (B6 alone without ``b7``) against its plain version on
+    (rd, z), the backwards too if ``backward``; returns the max |kernel -
+    plain| of each kernel and the cotangents the timings reuse (None without
+    the backwards)."""
     tol, tol_b, tol_r = TOL[name], TOL_BWD[name], TOL_ROWS[name]
     n_rays, n_samples = z.shape
     errs = {}
@@ -494,15 +548,17 @@ def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=Tru
         raise AssertionError(f"raymarch_fwd {label}: scaled err {e} > {tol}")
     del raw_k, raw_p
 
-    rgb_k, w_k = rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd)
-    torch.cuda.synchronize()
-    rgb_p, w_p = rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd)
-    e_c = max(_scaled_err(rgb_k, rgb_p), _scaled_err(w_k, w_p))
-    errs["raymarch_comp_fwd"] = max(float((rgb_k - rgb_p).abs().max()),
-                                    float((w_k - w_p).abs().max()))
-    if not (torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all() and e_c <= tol):
-        raise AssertionError(f"raymarch_comp_fwd {label}: scaled err {e_c} > {tol}")
-    log(f"kernel check {label}: B6 fwd scaled err {e:.3e}, B7 fwd {e_c:.3e} (tol {tol})")
+    if b7:
+        rgb_k, w_k = rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd)
+        torch.cuda.synchronize()
+        rgb_p, w_p = rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd)
+        e_c = max(_scaled_err(rgb_k, rgb_p), _scaled_err(w_k, w_p))
+        errs["raymarch_comp_fwd"] = max(float((rgb_k - rgb_p).abs().max()),
+                                        float((w_k - w_p).abs().max()))
+        if not (torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all() and e_c <= tol):
+            raise AssertionError(f"raymarch_comp_fwd {label}: scaled err {e_c} > {tol}")
+    log(f"kernel check {label}: B6 fwd scaled err {e:.3e}"
+        + (f", B7 fwd {e_c:.3e}" if b7 else "") + f" (tol {tol})")
     if not backward:
         return errs, None
 
@@ -513,7 +569,7 @@ def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=Tru
             ("raymarch_bwd", lambda: rk.raymarch_bwd(ws, bs, cfg, rd, z, g, cd),
              lambda: rk.raymarch_bwd_plain(ws, bs, cfg, rd, z, g, cd)),
             ("raymarch_comp_bwd", lambda: rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd),
-             lambda: rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, cd))):
+             lambda: rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, cd)))[:2 if b7 else 1]:
         dws, dbs, dz = kern()
         torch.cuda.synchronize()
         pws, pbs, pdz = plain()
@@ -543,15 +599,33 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
     from nerf_and_dietnerf_tpu_torch.tools import mlp_flops
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    # The ragged-row checks draw from a generator of their own, so that every
+    # other check here draws the inputs it drew before they were added.
+    gen_ragged = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
         cfg = mlp.MLPConfig(n_angles=n_angles)
         params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
         for cd in (torch.bfloat16, torch.float32):
             name = str(cd).split(".")[-1]
             ws, bs = rc.flatten_params(params, cfg, cd)
+            # B6 alone at a ragged row count (its backward in bf16: f32 B6
+            # backward keeps 64-row tiles, which 4093 x 64 rows fill).
+            rd_r, z_r = _ray_batch(torch, cfg, RAYS_RAGGED, SAMPLES, gen_ragged)
+            ragged = _rm_checks(torch, rk, cfg, ws, bs, rd_r, z_r, cd, name, gen_ragged,
+                                f"{variant} {name} R={RAYS_RAGGED} S={SAMPLES}",
+                                backward=cd == torch.bfloat16, b7=False)[0]
+            del rd_r, z_r
             rd, z = _ray_batch(torch, cfg, RAYS, SAMPLES, gen)
             errs, cots = _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen,
                                     f"{variant} {name} R={RAYS} S={SAMPLES}")
+            # B6 and its plain version against the f64 chain: the forward in
+            # both types, the bf16 backward's dz and dparams (the f32 backward
+            # keeps its FMA design).
+            chain = _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd, z,
+                                     cots[0] if cd == torch.bfloat16 else None, cd)
+            timings.setdefault("b6_vs_f64_chain", {}).setdefault(variant, {})[name] = chain
+            log(f"kernel check B6 {variant} {name} R={RAYS} S={SAMPLES} against the f64 chain "
+                f"(normwise, kernel and plain): {chain}")
             # The other sample counts: (rd, z, errors, cotangents) by count.
             other = {}
             for n_s, backward in (((2 * SAMPLES, True),) if cd == torch.bfloat16
@@ -592,9 +666,13 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
             for kname, fn, plain, lib, fl in cases:
                 nbytes = _rm_bytes(cfg, ws, bs, rd, z, kname)
                 t_ops, t_bytes = fl / _mlp_peak(name), nbytes / PEAK_BYTES
+                ms = _time_ms(torch, fn)
                 rec[kname] = {
                     "rays": RAYS, "samples": SAMPLES, "dtype": name,
-                    "ms": _time_ms(torch, fn),
+                    "design": RM_DESIGN.get((kname, name), "FMA tiles, 64 rows, whole rays a block"),
+                    "ms": ms,
+                    "tflops": fl / ms / 1e9,
+                    "share_of_bound": 1e3 * max(t_ops, t_bytes) / ms,
                     "plain_ms": _time_ms(torch, plain, reps=2),
                     "library_ms": _time_ms(torch, lib),
                     "library": "composition: torch encode + addmm chain"
@@ -603,6 +681,8 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                     "max_abs_err": errs[kname],
                 }
+                if kname in ragged:
+                    rec[kname]["max_abs_err_ragged"] = ragged[kname]
             if cd == torch.bfloat16:  # the fine pass of a train step, S = 128
                 rd3, z3, errs128, (g3, g_rgb3, g_w3) = other[2 * SAMPLES]
                 for kname, fn in (
@@ -627,12 +707,23 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
             kl.LAUNCHES.update(before)  # timing launches are not the main path's
             timings["rm_" + name] = rec
             for kname, r in rec.items():
-                log(f"time {kname} {name} R={RAYS} S={SAMPLES}: kernel {r['ms']:.3f} ms, plain "
+                log(f"time {kname} {name} R={RAYS} S={SAMPLES} ({r['design']}): kernel "
+                    f"{r['ms']:.3f} ms ({r['tflops']:.1f} TFLOP/s, "
+                    f"{100 * r['share_of_bound']:.2f} % of the bound), plain "
                     f"{r['plain_ms']:.3f} ms, library (composition) {r['library_ms']:.3f} ms, "
                     f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                     + (f"; S={SAMPLES_EVAL}: {r['ms_s192']:.3f} ms" if "ms_s192" in r else "")
                     + (f"; S={2 * SAMPLES}: {r['ms_fine_pass']:.3f} ms"
                        if "ms_fine_pass" in r else ""))
+
+    # f32 B6 forward at widths beyond its 64 input columns (xyz L = 10: 63 +
+    # 24 view-dir columns): its FMA design, on a ragged row count.
+    cfg = mlp.MLPConfig(n_freq_xyz=10)
+    params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
+    ws, bs = rc.flatten_params(params, cfg, torch.float32)
+    rd, z = _ray_batch(torch, cfg, 509, SAMPLES, gen_ragged)
+    _rm_checks(torch, rk, cfg, ws, bs, rd, z, torch.float32, "float32", gen_ragged,
+               f"xyz L=10 float32 R=509 S={SAMPLES}", backward=False, b7=False)
 
     # Opaque rays: transmittance underflows to exactly 0, the B7 backward
     # stays finite (it is division-free) and agrees with its plain version.
@@ -1254,19 +1345,18 @@ def tools_phase(torch) -> dict:
 PROFILE_STEPS = 4
 
 
-def profile_phase(torch, timings: dict, trainer) -> None:
-    """``PROFILE_STEPS`` train steps of backend "pallas" under
-    ``utils.profiling.trace``: the device's idle share of the traced window
-    and the ten device operations with the most time; then one step under
-    ``torch.use_deterministic_algorithms(warn_only=True)`` to name the torch
-    operations on the path that have no deterministic implementation."""
+def _traced_steps(torch, trainer, backend: str):
+    """``PROFILE_STEPS`` train steps of ``backend`` (no fusion flags) under
+    ``utils.profiling.trace``, after one untraced step: the device's idle
+    share of the traced window and the ten device operations with the most
+    time. Returns ``(record, config, state, batch, ray tables, device
+    operations by time)``."""
     import dataclasses
-    import warnings
 
     from nerf_and_dietnerf_tpu_torch.train import train_step as ts
     from nerf_and_dietnerf_tpu_torch.utils import profiling
 
-    config = dataclasses.replace(trainer.config, backend="pallas", fuse_compositing=False,
+    config = dataclasses.replace(trainer.config, backend=backend, fuse_compositing=False,
                                  fuse_fine_loss=False)
     state = ts.init_train_state(torch.Generator().manual_seed(SEED), config, trainer.optimizer,
                                 device=DEVICE)
@@ -1277,7 +1367,8 @@ def profile_phase(torch, timings: dict, trainer) -> None:
     state, _ = ts.make_epoch_fn(config, trainer.optimizer, 1, batch)(state, gen, *tables)
     torch.cuda.synchronize()
 
-    log_dir = ROOT / "build" / "chip_smoke_trace"
+    log_dir = ROOT / "build" / ("chip_smoke_trace" if backend == "pallas"
+                                else f"chip_smoke_trace_{backend}")
     epoch_fn = ts.make_epoch_fn(config, trainer.optimizer, PROFILE_STEPS, batch)
     t0 = time.perf_counter()
     with profiling.trace(str(log_dir)) as prof:
@@ -1285,7 +1376,7 @@ def profile_phase(torch, timings: dict, trainer) -> None:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not math.isfinite(float(metrics["loss"])):
-        raise AssertionError("profiled steps: non-finite loss")
+        raise AssertionError(f"profiled {backend} steps: non-finite loss")
     if not (log_dir / profiling.TRACE_FILE).is_file():
         raise AssertionError("profiling.trace wrote no trace file")
 
@@ -1304,7 +1395,8 @@ def profile_phase(torch, timings: dict, trainer) -> None:
         f"{device_us(a):14.1f} us  {a.count:6d} calls  {a.key}" for a in averages))
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if on_device(e))
     total_us = sum(device_us(a) for a in averages)
-    rec = {"steps": PROFILE_STEPS, "host_seconds": wall, "device_ops": len(spans)}
+    rec = {"backend": backend, "steps": PROFILE_STEPS, "host_seconds": wall,
+           "device_ops": len(spans)}
     if not spans or total_us <= 0:
         raise AssertionError(f"the profiler recorded no device time ({len(spans)} device events, "
                              f"{total_us} us): the idle share cannot be read")
@@ -1323,13 +1415,29 @@ def profile_phase(torch, timings: dict, trainer) -> None:
     rec.update(window_ms=window / 1e3, busy_ms=busy / 1e3, idle_share=1.0 - busy / window,
                top=[{"name": a.key[:120], "ms": device_us(a) / 1e3, "calls": a.count}
                     for a in averages[:10]])
-    log(f"profile: {PROFILE_STEPS} pallas steps, traced window {window / 1e3:.3f} ms "
+    log(f"profile: {PROFILE_STEPS} {backend} steps, traced window {window / 1e3:.3f} ms "
         f"(first to last device operation; host clock {wall * 1e3:.1f} ms with the "
         f"profiler's start and stop), device busy {busy / 1e3:.3f} ms, idle share "
         f"{rec['idle_share']:.4f}, {len(spans)} device operations")
     for a in averages[:10]:
         log(f"profile top: {device_us(a) / 1e3:10.3f} ms {100 * device_us(a) / total_us:5.1f}% "
             f"{a.count:5d} calls  {a.key[:120]}")
+    return rec, config, state, batch, tables, averages
+
+
+def profile_phase(torch, timings: dict, trainer) -> None:
+    """Traced steps (:func:`_traced_steps`) of backend "pallas_rm", then of
+    "pallas"; then one "pallas" step twice from one state, which must give
+    bitwise-equal parameters with no kernel that adds with atomics, and once
+    more under ``torch.use_deterministic_algorithms(warn_only=True)`` to name
+    the torch operations on the path that have no deterministic
+    implementation."""
+    import warnings
+
+    from nerf_and_dietnerf_tpu_torch.train import train_step as ts
+
+    timings["profile_pallas_rm"] = _traced_steps(torch, trainer, "pallas_rm")[0]
+    rec, config, state, batch, tables, averages = _traced_steps(torch, trainer, "pallas")
 
     # One step twice from the same state and seed, without
     # torch.use_deterministic_algorithms: the new parameters must be bitwise
@@ -1619,15 +1727,17 @@ def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
     return launches
 
 
-# The kernels of B1/B2 whose products must run on the tensor cores, and the
-# SASS instruction they must hold: bf16 B1/B2 on `mma.sync` (HMMA), f32 B1 on
-# `wgmma` (HGMMA).
+# The kernels whose products must run on the tensor cores, and the SASS
+# instruction they must hold: bf16 B1/B2/B6 on `mma.sync` (HMMA), f32 B1/B6
+# forward on `wgmma` (HGMMA).
 MMA_KERNELS = {"mlp_fwd": {"mlp_fwd_mma_kernel": "HMMA", "mlp_fwd_tf32_kernel": "HGMMA"},
-               "mlp_bwd": {"mlp_bwd_mma_kernel": "HMMA"}}
+               "mlp_bwd": {"mlp_bwd_mma_kernel": "HMMA"},
+               "raymarch_fwd": {"rm_fwd_mma_kernel": "HMMA", "rm_fwd_tf32_kernel": "HGMMA"},
+               "raymarch_bwd": {"rm_bwd_mma_kernel": "HMMA"}}
 
 
 def tensor_core_report(kl, build_log: str) -> dict:
-    """What the compiler made of B1 and B2: their whole ``-Xptxas -v`` output
+    """What the compiler made of B1, B2 and B6: their whole ``-Xptxas -v`` output
     (registers, shared memory, spills of each kernel, and any note that
     `wgmma` products were serialized), then, where the toolkit has
     ``cuobjdump``, the tensor-core (HMMA / HGMMA) and f32 FMA instructions of
@@ -1759,8 +1869,10 @@ def main() -> int:
     train = {path: timings["train_" + path] for path in MAIN_PATHS}
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "train": train, "profile": timings["profile"],
+                      "profile_pallas_rm": timings["profile_pallas_rm"],
                       "sass": timings["sass"], "b2_vs_f64_chain": timings["b2_vs_f64_chain"],
                       "b1_f32_vs_f64_chain": timings["b1_f32_vs_f64_chain"],
+                      "b6_vs_f64_chain": timings["b6_vs_f64_chain"],
                       "eval_patch": timings["eval_patch"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,8 @@ __global__ void __launch_bounds__(nerf_tf32::NT, 1)
                         const float* __restrict__ d, const float* __restrict__ W,
                         const float* __restrict__ B, float* __restrict__ out) {
   extern __shared__ uint4 smem_tf32[];
-  nerf_tf32::forward(dm, L, T, x, d, W, B, out, smem_tf32);
+  nerf_tf32::forward(dm, L, T, nerf_tf32::GlobalInputs{x, d, dm.xyz, dm.dir}, W, B, out,
+                     smem_tf32);
 }
 
 // bf16: one 128-row tile per block on the tensor cores.
@@ -72,7 +73,7 @@ static int launch(const Dims& dm, const void* x, const void* d, const void* w, c
         dm, L, nerf_mma::make_mma_layout(L), static_cast<const T*>(x), static_cast<const T*>(d),
         static_cast<const T*>(w), b, out);
   } else {
-    const size_t smem = nerf_tf32::smem_bytes();
+    const size_t smem = nerf_tf32::smem_bytes<nerf_tf32::GlobalInputs>();
     err = cudaFuncSetAttribute(mlp_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;

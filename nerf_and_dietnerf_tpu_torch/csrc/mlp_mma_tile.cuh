@@ -1,8 +1,10 @@
 // bf16 tensor-core device code of the radiance-MLP kernels B1 (mlp_fwd.cu)
-// and B2 (mlp_bwd.cu): the forward tile (B1, and B2's recompute), the
-// input-gradient chain G W^T and the weight-gradient products A^T G. The f32
-// instantiations of B1/B2 and every other kernel keep the FMA tiles of
-// mlp_common.cuh / mlp_bwd_tile.cuh.
+// and B2 (mlp_bwd.cu), which the ray-march kernels B6 (raymarch_fwd.cu,
+// raymarch_bwd.cu) run on the inputs they build: the forward tile (B1, and
+// B2's recompute), the input-gradient chain G W^T and the weight-gradient
+// products A^T G. f32 B1 and B6 forward run mlp_tf32_tile.cuh; f32 B2 and B6
+// backward and every other kernel keep the FMA tiles of mlp_common.cuh /
+// mlp_bwd_tile.cuh.
 //
 // Products: `mma.sync.m16n8k16` bf16 x bf16 -> f32, as the P1 probe measured
 // on the H100 (probe_mma.cu), with operands fed by `ldmatrix`. Chosen over

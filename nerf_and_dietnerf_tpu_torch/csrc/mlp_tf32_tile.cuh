@@ -5,8 +5,10 @@
 // Replaces the f32 instance of nerf_and_dietnerf_tpu/ops/raymarch_pallas.py
 // `_forward_pallas` (body `_forward_tile`), which the eval renders and video
 // frames run (they stay in f32: bf16 costs about 3 dB of PSNR on a frame).
-// bf16 B1/B2 keep the `mma.sync` tiles of mlp_mma_tile.cuh; f32 B2 and every
-// other kernel keep the FMA tiles of mlp_common.cuh / mlp_bwd_tile.cuh.
+// The f32 ray-march forward B6 (raymarch_fwd.cu) runs the same tile on inputs
+// it builds itself (an `In` policy, see GlobalInputs and raymarch_tile.cuh).
+// bf16 B1/B2/B6 keep the `mma.sync` tiles of mlp_mma_tile.cuh; f32 B2 and
+// every other kernel keep the FMA tiles of mlp_common.cuh / mlp_bwd_tile.cuh.
 //
 // What bounds it on an H100: operations. The forward is 1.024 MFLOP a row at
 // the flagship widths (33 -> 8 x 256 -> 280 -> 128 -> 3); true f32 on the
@@ -48,8 +50,8 @@
 //   are persistent (one per SM) and walk row tiles; the producer runs ahead
 //   into the next tile's first stages.
 // - A operand: the activations stay f32 in shared memory, 128 x 256 with a
-//   260-float row stride (so the eight rows of an `ldmatrix` phase fall in
-//   eight 16-byte bank groups). `ldmatrix.x4` (16-bit units) loads a TF32 A
+//   260-float row stride (B1; B6 adds 64 input columns: 324), so the eight
+//   rows of an `ldmatrix` phase fall in eight 16-byte bank groups. `ldmatrix.x4` (16-bit units) loads a TF32 A
 //   fragment as it is: lane l gets row l / 4, word l % 4 of each 8 x 4 block.
 //   Warp w of a warpgroup reads and writes only rows 16 w .. 16 w + 15, the
 //   rows of its A fragment and of its accumulator, so a layer's output is
@@ -60,6 +62,14 @@
 //   wrote: the tile is read with `ldmatrix`, and the weight stages are
 //   written by the bulk copies (the async proxy), so no `fence.proxy.async`
 //   is needed.
+// - Inputs: the tile reads its encoded inputs through a policy `In` (the
+//   ring's depth In::NSTAGE, In::IN_COLS input columns at the end of every
+//   activation-tile row, begin_tile / load / d_at). B1's GlobalInputs reads
+//   x and d from global memory as above, with three ring stages and no input
+//   columns; B6 builds its features into 64 input columns and runs two
+//   stages. The consumers hold nothing of the policy in registers: a kernel
+//   passes it as a `__grid_constant__` parameter, read where it is used, and
+//   an input fragment is addressed from the warp's activation rows.
 // - B operand, weights: the wrapper packs every product matrix W (K, N) as
 //   W^T, K-major ("rows = outputs, columns = contraction", as the bf16 F
 //   pack), K padded to a multiple of 8 and N to 64 / 128 / 256, twice: hi and
@@ -72,7 +82,7 @@
 //   apart (stride byte offset). A core matrix is 128 contiguous bytes, so the
 //   tensor core reads it from all 32 banks once with no swizzle. One
 //   `cp.async.bulk` per pack moves a chunk into its stage; the stage's full
-//   `mbarrier` counts the bytes. NSTAGE = 3 stages of (hi, lo) at N = 256.
+//   `mbarrier` counts the bytes. B1's ring: 3 stages of (hi, lo) at N = 256.
 // - Per chunk a consumer loads and splits its A fragments (before waiting on
 //   the stage, so the loads overlap the wait); per 128-column part it issues
 //   3 `wgmma` per k8 step, commits, waits for its group and adds the
@@ -88,9 +98,9 @@
 //   (515,072 floats each, view dirs), read once per 128-row tile: 8.44 GB
 //   per 262,144 rows (a 64-row tile per block would read 16.9 GB).
 //
-// Shared memory (bytes): ring 3 x 2 x 256 x 16 x 4 = 98,304 + activations
+// Shared memory (bytes), B1: ring 3 x 2 x 256 x 16 x 4 = 98,304 + activations
 // 128 x 260 x 4 = 133,120 + 6 mbarriers 48 = 231,472 of the 232,448 a block
-// may use.
+// may use (B6: see raymarch_tile.cuh).
 //
 // The f32 backward B2 recomputes the forward on the FMA tile, so its
 // linearisation point differs from this kernel's output in the last bits;
@@ -113,9 +123,8 @@ using nerf_mlp::trunk_w;
 constexpr int BM = 128;                  // rows per tile: two consumer warpgroups of 64
 constexpr int NT = 384;                  // producer warpgroup + two consumer warpgroups
 constexpr int HPAD = 256;                // widest padded layer; rows of a ring stage
-constexpr int LDA = HPAD + 4;            // row stride (floats) of the activation tile
+constexpr int ACT_COLS = HPAD + 4;       // activation columns of a tile row (and pad)
 constexpr int KS = 16;                   // contraction columns of a full chunk
-constexpr int NSTAGE = 3;                // ring stages, each a (hi, lo) pair
 constexpr int N_PROD = 11;               // matrices 0..10 run on the tensor cores
 constexpr int STAGE_FLOATS = HPAD * KS;  // one pack's half of a stage
 constexpr uint32_t LBO_BYTES = 128;      // next core matrix along K
@@ -164,11 +173,6 @@ __host__ __device__ inline int stage_offset(int n, int k, int np, int kp) {
   const int kc = kp - k0 < KS ? kp - k0 : KS, kk = k - k0;
   return np * k0 + ((n >> 3) * (kc >> 2) + (kk >> 2)) * 32 + (n & 7) * 4 + (kk & 3);
 }
-
-constexpr size_t smem_bytes() {
-  return 4 * ((size_t)NSTAGE * 2 * STAGE_FLOATS + (size_t)BM * LDA) + 8 * 2 * NSTAGE;
-}
-static_assert(smem_bytes() <= 232448, "the f32 forward's tiles must fit a block's shared memory");
 
 // --------------------------------------------------------------------------
 // PTX wrappers
@@ -319,22 +323,39 @@ __device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&
 // --------------------------------------------------------------------------
 // The pipeline
 
-// Position in the ring: the stage a role uses next and the parity of its phase.
+// Position in a ring of NS stages: the stage a role uses next and the parity
+// of its phase.
+template <int NS>
 struct Pipe {
   int stage;
   uint32_t phase;
   __device__ void advance() {
-    if (++stage == NSTAGE) {
+    if (++stage == NS) {
       stage = 0;
       phase ^= 1;
     }
   }
 };
 
-// Shared memory (byte offsets): the ring, the activation tile (BM x LDA),
-// the barriers.
-constexpr uint32_t ACT_OFF = 4 * NSTAGE * 2 * STAGE_FLOATS;
-constexpr uint32_t BAR_OFF = ACT_OFF + 4 * BM * LDA;
+// Shared memory (byte offsets) of a kernel whose inputs `In` read: the ring
+// (In::NSTAGE stages), the activation tile (BM rows of LDA floats: the
+// activations, then In::IN_COLS input columns), the barriers. A row stride of
+// 16 bytes more than a multiple of 128 puts the eight rows an `ldmatrix`
+// phase reads in eight 16-byte bank groups.
+template <class In>
+struct Smem {
+  static constexpr int LDA = ACT_COLS + In::IN_COLS;
+  static constexpr uint32_t ACT = 4u * In::NSTAGE * 2 * STAGE_FLOATS;
+  static constexpr uint32_t BAR = ACT + 4u * BM * LDA;
+  static constexpr size_t BYTES = BAR + 8 * 2 * In::NSTAGE;
+  static_assert(BYTES <= 232448, "the f32 forward's tiles must fit a block's shared memory");
+  static_assert((4 * LDA) % 128 == 16, "rows of an ldmatrix phase must not share bank groups");
+};
+
+template <class In>
+constexpr size_t smem_bytes() {
+  return Smem<In>::BYTES;
+}
 
 // Shared addresses of the ring's stages and barriers.
 struct Ring {
@@ -346,15 +367,17 @@ struct Ring {
   __device__ uint32_t empty_bar(int i) const { return empty + 8 * i; }
 };
 
+template <class In>
 __device__ __forceinline__ Ring make_ring(uint32_t smem) {
-  return Ring{smem, smem + BAR_OFF, smem + BAR_OFF + 8 * NSTAGE};
+  return Ring{smem, smem + Smem<In>::BAR, smem + Smem<In>::BAR + 8 * In::NSTAGE};
 }
 
 // The producer thread: every chunk of matrices 0..10 of every tile the block
 // walks, in the order the consumers multiply them.
+template <int NS>
 __device__ inline void produce(const Tf32Layout& T, const float* __restrict__ W, const Ring& r,
                                int tiles) {
-  Pipe p{0, 0};
+  Pipe<NS> p{0, 0};
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     for (int m = 0; m < N_PROD; ++m) {
       for (int k0 = 0; k0 < T.kp[m]; k0 += KS) {
@@ -380,28 +403,59 @@ struct Rows {
   int lane, g, t;
 };
 
-// A global (n, width) f32 array read straight into A fragments; src null:
-// the activation tile.
-struct Src {
-  const float* src;
-  int width;
-};
+// The A operand of a product: the activation tile, or the encoded inputs x
+// or d (read through the kernel's `In` policy).
+enum Src { SRC_ACT, SRC_X, SRC_D };
 
-__device__ __forceinline__ float ld_or_zero(const Src& s, const Rows& rw, unsigned r, int c) {
-  return r < rw.n && c < s.width ? __ldg(s.src + (size_t)r * s.width + c) : 0.f;
+__device__ __forceinline__ float ld_or_zero(const float* src, int width, const Rows& rw,
+                                            unsigned r, int c) {
+  return r < rw.n && c < width ? __ldg(src + (size_t)r * width + c) : 0.f;
 }
 
-// The A fragment (rows 16 w .. +16, columns k .. k + 8) as f32 bit patterns:
-// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const Src& s, const Rows& rw, int k) {
-  if (s.src == nullptr) {
-    const int row = (rw.lane & 7) + 8 * ((rw.lane >> 3) & 1);
-    ldsm_x4(a, rw.tile + 4 * (row * LDA + k + 4 * (rw.lane >> 4)));
+// B1's inputs: global (n, xyz) and (n, dir) f32 arrays read straight into A
+// fragments (rows past n and columns past the width read 0), so they need no
+// shared memory; three ring stages.
+struct GlobalInputs {
+  static constexpr int NSTAGE = 3;
+  static constexpr int IN_COLS = 0;
+  const float* x;
+  const float* d;
+  int xyz, dir;
+  __device__ void begin_tile(const Rows&) const {}
+  // The A fragment (rows 16 w .. +16, columns k .. k + 8) of x or d as f32
+  // bit patterns: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
+  __device__ __forceinline__ void load(uint32_t (&a)[4], bool dir_cols, const Rows& rw,
+                                       int k) const {
+    const float* src = dir_cols ? d : x;
+    const int width = dir_cols ? dir : xyz;
+    a[0] = __float_as_uint(ld_or_zero(src, width, rw, rw.grow, k + rw.t));
+    a[1] = __float_as_uint(ld_or_zero(src, width, rw, rw.grow + 8, k + rw.t));
+    a[2] = __float_as_uint(ld_or_zero(src, width, rw, rw.grow, k + rw.t + 4));
+    a[3] = __float_as_uint(ld_or_zero(src, width, rw, rw.grow + 8, k + rw.t + 4));
+  }
+  // d of the warp's row g + 8 h, column k.
+  __device__ __forceinline__ float d_at(const Rows& rw, int h, int k) const {
+    return ld_or_zero(d, dir, rw, rw.grow + 8 * h, k);
+  }
+};
+
+// The A fragment of tile columns k .. k + 8 (the warp's rows 16 w .. +16)
+// with `ldmatrix`: lane l addresses row (l & 7) + 8 ((l >> 3) & 1), columns
+// k + 4 (l >> 4) .. + 4; rows LDA floats apart.
+template <int LDA>
+__device__ __forceinline__ void load_tile_a(uint32_t (&a)[4], const Rows& rw, int k) {
+  const int row = (rw.lane & 7) + 8 * ((rw.lane >> 3) & 1);
+  ldsm_x4(a, rw.tile + 4 * (row * LDA + k + 4 * (rw.lane >> 4)));
+}
+
+// The A fragment of source s (rows 16 w .. +16, columns k .. k + 8).
+template <class In>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], Src s, const In& in, const Rows& rw,
+                                       int k) {
+  if (s == SRC_ACT) {
+    load_tile_a<Smem<In>::LDA>(a, rw, k);
   } else {
-    a[0] = __float_as_uint(ld_or_zero(s, rw, rw.grow, k + rw.t));
-    a[1] = __float_as_uint(ld_or_zero(s, rw, rw.grow + 8, k + rw.t));
-    a[2] = __float_as_uint(ld_or_zero(s, rw, rw.grow, k + rw.t + 4));
-    a[3] = __float_as_uint(ld_or_zero(s, rw, rw.grow + 8, k + rw.t + 4));
+    in.load(a, s == SRC_D, rw, k);
   }
 }
 
@@ -410,9 +464,10 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const Src& s, const Row
 // 128)): three products per k8 step into a fresh partial accumulator (the
 // first with scale-d 0), then wait, and the partial is added to acc with one
 // f32 add each (round to nearest); then the stage is released.
-template <int NP>
-__device__ __forceinline__ void product(float (&acc)[128], const Tf32Layout& T, int m,
-                                        const Src& s, const Rows& rw, const Ring& r, Pipe& p) {
+template <int NP, class In>
+__device__ __forceinline__ void product(float (&acc)[128], const Tf32Layout& T, int m, Src s,
+                                        const In& in, const Rows& rw, const Ring& r,
+                                        Pipe<In::NSTAGE>& p) {
   constexpr int SN = NP < PART ? NP : PART;
   float part[SN / 2];
 #pragma unroll
@@ -424,7 +479,7 @@ __device__ __forceinline__ void product(float (&acc)[128], const Tf32Layout& T, 
     for (int j = 0; j < 2; ++j) {
       if (8 * j < kc) {
         uint32_t a[4];
-        load_a(a, s, rw, k0 + 8 * j);
+        load_a(a, s, in, rw, k0 + 8 * j);
         split(a, hi[j], lo[j]);
       }
     }
@@ -463,7 +518,7 @@ __device__ __forceinline__ float leaky(float v, float alpha) { return v >= 0.f ?
 // The warp's rows of the tile = leaky(acc + bias) over the NP columns (pad
 // columns: bias 0, value 0). With wsig, also sh[h] += that row's sum of
 // value x wsig over the thread's columns (< N).
-template <int NP>
+template <int NP, int LDA>
 __device__ __forceinline__ void store_leaky(const float (&acc)[128], const float* __restrict__ bias,
                                             int N, float alpha, const Rows& rw,
                                             const float* __restrict__ wsig, float (&sh)[2]) {
@@ -520,30 +575,31 @@ __device__ __forceinline__ void zero(float (&acc)[128]) {
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 }
 
-// Runs `call` with NP the constexpr `wgmma` width np (256, 128 or 64).
-#define NERF_TF32_WIDTH(np, call) \
+// Runs the call `...` with NP the constexpr `wgmma` width np (256, 128 or 64).
+#define NERF_TF32_WIDTH(np, ...) \
   do {                            \
     if ((np) == 256) {            \
       constexpr int NP = 256;     \
-      call;                       \
+      __VA_ARGS__;                \
     } else if ((np) == 128) {     \
       constexpr int NP = 128;     \
-      call;                       \
+      __VA_ARGS__;                \
     } else {                      \
       constexpr int NP = 64;      \
-      call;                       \
+      __VA_ARGS__;                \
     }                             \
   } while (0)
 
 // acc = the products of one layer: matrix m[0] on s[0], then (if m[1] >= 0)
 // matrix m[1] on s[1], into the one accumulator.
-template <int NP>
+template <int NP, class In>
 __device__ __forceinline__ void layer_products(float (&acc)[128], const Tf32Layout& T,
                                                const int (&m)[2], const Src (&s)[2],
-                                               const Rows& rw, const Ring& r, Pipe& p) {
+                                               const In& in, const Rows& rw, const Ring& r,
+                                               Pipe<In::NSTAGE>& p) {
   zero(acc);
-  product<NP>(acc, T, m[0], s[0], rw, r, p);
-  if (m[1] >= 0) product<NP>(acc, T, m[1], s[1], rw, r, p);
+  product<NP>(acc, T, m[0], s[0], in, rw, r, p);
+  if (m[1] >= 0) product<NP>(acc, T, m[1], s[1], in, rw, r, p);
 }
 
 // Head matrix i (11..13) in the weight buffer.
@@ -556,41 +612,43 @@ __device__ __forceinline__ const float* head(const float* W, const Tf32Layout& T
 // whole network on its rows of every tile the block walks; (n, 4) rows out.
 // Layers: trunk 0..7, then view dirs: (h8 | d) -> last, the rgb head;
 // xyz-only: h8 -> hid, then -> last, the rgb head. Layer l's bias is L.b[l].
-__device__ inline void consume(const Dims& dm, const Layout& L, const Tf32Layout& T,
-                               const float* __restrict__ x, const float* __restrict__ d,
+// The warp reads its rows' inputs through `in`, after in.begin_tile.
+template <class In>
+__device__ inline void consume(const Dims& dm, const Layout& L, const Tf32Layout& T, const In& in,
                                const float* __restrict__ W, const float* __restrict__ B,
                                float* __restrict__ out, const Ring& r, int wg, int tiles) {
   const float alpha = dm.alpha;
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  Rows rw{r.buf + ACT_OFF + 4 * (64 * wg + 16 * warp) * LDA, 0, (unsigned)dm.n, lane, lane >> 2,
-          lane & 3};
-  const Src xs{x, dm.xyz}, ds{d, dm.dir}, tile_src{nullptr, 0};
+  constexpr int LDA = Smem<In>::LDA;
+  Rows rw{r.buf + Smem<In>::ACT + 4 * (64 * wg + 16 * warp) * LDA, 0, (unsigned)dm.n, lane,
+          lane >> 2, lane & 3};
   // The head weights (Wro (last, 3), Wsig_h / Wsig (hid), Wsig_d (dir)) are
   // addressed where they are read, from the kernel's parameters.
   const int n_layers = N_TRUNK + (dm.has_dir ? 1 : 2);
-  Pipe p{0, 0};
+  Pipe<In::NSTAGE> p{0, 0};
   float acc[128];
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     rw.grow = tile * BM + 64 * wg + 16 * warp + rw.g;
+    in.begin_tile(rw);
     float sh[2] = {0.f, 0.f};
     for (int l = 0; l < n_layers; ++l) {
       int m[2] = {l < N_TRUNK ? trunk_w(l) : 9, -1};
-      Src s[2] = {l == 0 ? xs : tile_src, tile_src};
+      Src s[2] = {l == 0 ? SRC_X : SRC_ACT, SRC_ACT};
       if (l == SKIP) {
         m[0] = SKIP;
         m[1] = SKIP + 1;
-        s[0] = xs;
+        s[0] = SRC_X;
       } else if (l == N_TRUNK + 1) {
         m[0] = 10;
       } else if (l == N_TRUNK && dm.has_dir) {
         m[1] = 10;
-        s[1] = ds;
+        s[1] = SRC_D;
       }
-      NERF_TF32_WIDTH(T.np[m[0]], layer_products<NP>(acc, T, m, s, rw, r, p));
+      NERF_TF32_WIDTH(T.np[m[0]], layer_products<NP>(acc, T, m, s, in, rw, r, p));
       if (l == n_layers - 1) break;
       // Every hidden layer but the last is hid wide; h8 (l = 7) also feeds
       // sigma, before the rgb branch overwrites it.
-      NERF_TF32_WIDTH(T.np[m[0]], store_leaky<NP>(acc, B + L.b[l], dm.hid, alpha, rw,
+      NERF_TF32_WIDTH(T.np[m[0]], store_leaky<NP, LDA>(acc, B + L.b[l], dm.hid, alpha, rw,
                                                   l == N_TRUNK - 1 ? head(W, T, L, 12) : nullptr,
                                                   sh));
       __syncwarp();
@@ -600,7 +658,7 @@ __device__ inline void consume(const Dims& dm, const Layout& L, const Tf32Layout
         for (int h = 0; h < 2; ++h) {
           float sd = 0.f;
           for (int k = rw.t; k < dm.dir; k += 4)
-            sd = fmaf(ld_or_zero(ds, rw, rw.grow + 8 * h, k), __ldg(head(W, T, L, 13) + k), sd);
+            sd = fmaf(in.d_at(rw, h, k), __ldg(head(W, T, L, 13) + k), sd);
           const float hid_part = quad_sum(sh[h]);
           const float sigma =
               (dm.has_dir ? hid_part + quad_sum(sd) : hid_part) + __ldg(B + L.b[b_sig]);
@@ -631,13 +689,13 @@ __device__ inline void consume(const Dims& dm, const Layout& L, const Tf32Layout
 }
 
 // The kernel's body: barriers, then the producer / consumer split.
-__device__ inline void forward(const Dims& dm, const Layout& L, const Tf32Layout& T,
-                               const float* __restrict__ x, const float* __restrict__ d,
+template <class In>
+__device__ inline void forward(const Dims& dm, const Layout& L, const Tf32Layout& T, const In& in,
                                const float* __restrict__ W, const float* __restrict__ B,
                                float* __restrict__ out, void* smem) {
   if (threadIdx.x == 0) {
-    const Ring r = make_ring(saddr(smem));
-    for (int i = 0; i < NSTAGE; ++i) {
+    const Ring r = make_ring<In>(saddr(smem));
+    for (int i = 0; i < In::NSTAGE; ++i) {
       mbar_init(r.full_bar(i), 1);
       mbar_init(r.empty_bar(i), 8);
     }
@@ -652,11 +710,11 @@ __device__ inline void forward(const Dims& dm, const Layout& L, const Tf32Layout
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     asm volatile("" : "+r"(base));
-    if (threadIdx.x == 0) produce(T, W, make_ring(base), tiles);
+    if (threadIdx.x == 0) produce<In::NSTAGE>(T, W, make_ring<In>(base), tiles);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     asm volatile("" : "+r"(base));
-    consume(dm, L, T, x, d, W, B, out, make_ring(base), (threadIdx.x >> 7) - 1, tiles);
+    consume(dm, L, T, in, W, B, out, make_ring<In>(base), (threadIdx.x >> 7) - 1, tiles);
   }
 }
 

@@ -11,75 +11,136 @@
 // What bounds it on an H100: operations, as B2 (about 3 x 1.024 MFLOP per
 // row), against 16 bytes of cotangent and 4 of z in and 4 of dz out per row.
 //
-// What the design does about that: B2's tile (mlp_bwd_tile.cuh) on inputs
-// built on chip; the tile's dx stays in shared memory and one thread per row
-// turns it into dz (dtheta = dx * cos(theta), dpts = sum f_k dtheta + dx_id,
-// dz = dpts . d). Weight gradients are summed as in B2: each block walks a
-// fixed, strided set of tiles into its own slab, and a second launch adds the
-// slabs in block order, so two runs give bitwise-equal gradients.
+// What the design does about that: B2's tile on inputs built on chip, then
+// one thread per row turns the row's dx into dz (dtheta = dx * cos(theta),
+// dpts = sum f_k dtheta + dx_id, dz = dpts . d; dz_of_row).
+// - bf16 (every `pallas_rm` train step): B2's tensor-core tile
+//   (mlp_mma_tile.cuh `backward_tile`, unchanged), X and D built straight into
+//   its bf16 operand tiles (raymarch_tile.cuh); `w` / `wt` are the F and B
+//   packs. backward_tile writes dx rows to global memory (the skip layer
+//   writes, layer 0 adds), so each block gives it a slab of its own, BM x xyz
+//   f32 (`dxs`, 2.2 MB for 132 blocks at xyz = 33, held in L2), and runs it on
+//   the tile as on a call of its own (row0 0, n the tile's rows); after a
+//   barrier each thread reads its row back from the slab. That keeps
+//   backward_tile and its shared memory (209,408 bytes) exactly B2's.
+// - f32 (parity runs only): the FMA tile of mlp_bwd_tile.cuh, the tile's dx
+//   kept in shared memory (t.GX); `w` / `wt` the flat weights and their
+//   transposes.
+// Weight gradients are summed as in B2: each block walks a fixed, strided set
+// of tiles into its own slab, and a second launch adds the slabs in block
+// order, so two runs give bitwise-equal gradients.
 #include "mlp_bwd_tile.cuh"
-#include "raymarch_common.cuh"
+#include "raymarch_tile.cuh"
 
 using namespace nerf_mlp;
 using namespace nerf_rm;
 
-template <typename T>
+// f32: strided 64-row tiles per block on the FMA tile.
 __global__ void __launch_bounds__(NT, 1)
-    rm_bwd_kernel(Dims dm, Layout L, Rays ry, const T* __restrict__ W, const T* __restrict__ WT,
-                  const float* __restrict__ B, const float* __restrict__ g,
-                  float* __restrict__ dz, float* __restrict__ partial, T* __restrict__ acts_all,
-                  int n_tiles) {
+    rm_bwd_kernel(Dims dm, Layout L, Rays ry, const float* __restrict__ W,
+                  const float* __restrict__ WT, const float* __restrict__ B,
+                  const float* __restrict__ g, float* __restrict__ dz, float* __restrict__ partial,
+                  float* __restrict__ acts_all, int n_tiles) {
   extern __shared__ float4 smem4[];
   const BwdTiles t = bwd_tiles(reinterpret_cast<float*>(smem4));
   const size_t p_total = (size_t)L.total_w + L.total_b;
   float* part = partial + blockIdx.x * p_total;
-  T* acts = acts_all + (size_t)blockIdx.x * NACT * TM * HMAX;
+  float* acts = acts_all + (size_t)blockIdx.x * NACT * TM * HMAX;
 
   bool first = true;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, first = false) {
     const int row0 = tile * TM;
     __syncthreads();
-    build_inputs<T>(ry, dm.xyz, dm.dir, row0, dm.n, t.X, t.D);
-    load_cotangent<T>(t.GI, g, row0, dm.n);
+    build_inputs<float>(ry, dm.xyz, dm.dir, row0, dm.n, t.X, t.D);
+    load_cotangent<float>(t.GI, g, row0, dm.n);
     __syncthreads();
-    backward_tile<T>(dm, L, W, WT, B, t, acts, part, first, row0, nullptr, nullptr);
+    backward_tile<float>(dm, L, W, WT, B, t, acts, part, first, row0, nullptr, nullptr);
     const int r = threadIdx.x;
     if (r < TM && row0 + r < dm.n) dz[row0 + r] = dz_of_row(ry, t.GX + r * XMAX, row0 + r);
   }
 }
 
-template <typename T>
-static int launch(const Dims& dm, const Rays& ry, const void* w, const void* wt, const float* b,
-                  const float* g, float* dz, float* partial, void* acts, float* dparams,
-                  int n_blocks, cudaStream_t stream) {
+// bf16: strided 128-row tiles per block on the tensor cores.
+__global__ void __launch_bounds__(nerf_mma::NT, 1)
+    rm_bwd_mma_kernel(Dims dm, Layout L, nerf_mma::MmaLayout M, Rays ry,
+                      const nerf_mma::bf16* __restrict__ F, const nerf_mma::bf16* __restrict__ Bp,
+                      const float* __restrict__ B, const float* __restrict__ g,
+                      float* __restrict__ dz, float* __restrict__ partial,
+                      nerf_mma::bf16* __restrict__ acts_all, float* __restrict__ dx_all,
+                      int n_tiles) {
+  using nerf_mma::BM;
+  extern __shared__ uint4 smem16[];
+  const nerf_mma::Tiles t = nerf_mma::make_tiles(smem16, true);
+  const size_t p_total = (size_t)L.total_w + L.total_b;
+  float* part = partial + blockIdx.x * p_total;
+  nerf_mma::bf16* acts = acts_all + (size_t)blockIdx.x * nerf_mma::NACT * nerf_mma::SLOT;
+  float* dxs = dx_all + (size_t)blockIdx.x * BM * dm.xyz;
+  const nerf_mma::Mat f0 = nerf_mma::fmat(F, M, 0);
+  nerf_mma::Ring ring{t.ring, 0};
+  nerf_mma::ring_start(ring, f0);
+  bool first = true;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, first = false) {
+    const int row0 = tile * BM;
+    build_mma_inputs(ry, dm.xyz, dm.dir, row0, dm.n, t.X, t.D);
+    nerf_mma::load_cotangent(t.GI, g, row0, dm.n);
+    __syncthreads();
+    Dims tile_dm = dm;  // the tile as a call of its own: its dx rows go to dxs
+    tile_dm.n = min(BM, dm.n - row0);
+    const bool more = tile + (int)gridDim.x < n_tiles;
+    nerf_mma::backward_tile(tile_dm, L, M, F, Bp, B, t, ring, acts, part, first, 0, dxs, nullptr,
+                            more ? &f0 : nullptr);
+    __syncthreads();
+    const int r = threadIdx.x;
+    if (r < tile_dm.n) dz[row0 + r] = dz_of_row(ry, dxs + r * dm.xyz, row0 + r);
+  }
+}
+
+static int launch(bool bf16, const Dims& dm, const Rays& ry, const void* w, const void* wt,
+                  const float* b, const float* g, float* dz, float* partial, void* acts,
+                  float* dxs, float* dparams, int n_blocks, cudaStream_t stream) {
   const Layout L = make_layout(dm);
-  const int tiles = (dm.n + TM - 1) / TM;
-  if (tiles == 0 || n_blocks <= 0 || n_blocks > tiles) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes();
-  cudaFuncSetAttribute(rm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  rm_bwd_kernel<T><<<n_blocks, NT, smem, stream>>>(
-      dm, L, ry, static_cast<const T*>(w), static_cast<const T*>(wt), b, g, dz, partial,
-      static_cast<T*>(acts), tiles);
-  cudaError_t err = cudaGetLastError();
+  const int rows = bf16 ? nerf_mma::BM : TM;
+  const int tiles = (dm.n + rows - 1) / rows;
+  if (tiles == 0 || n_blocks <= 0 || n_blocks > tiles || (bf16 && dxs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (bf16) {
+    err = launch_kernel(rm_bwd_mma_kernel, n_blocks, nerf_mma::NT, nerf_mma::bwd_smem_bytes(),
+                        stream, dm, L, nerf_mma::make_mma_layout(L), ry,
+                        static_cast<const nerf_mma::bf16*>(w),
+                        static_cast<const nerf_mma::bf16*>(wt), b, g, dz, partial,
+                        static_cast<nerf_mma::bf16*>(acts), dxs, tiles);
+  } else {
+    err = launch_kernel(rm_bwd_kernel, n_blocks, NT, bwd_smem_bytes(), stream, dm, L, ry,
+                        static_cast<const float*>(w), static_cast<const float*>(wt), b, g, dz,
+                        partial, static_cast<float*>(acts), tiles);
+  }
   if (err != cudaSuccess) return (int)err;
   return launch_reduce(partial, n_blocks, (size_t)L.total_w + L.total_b, dparams, stream);
 }
 
-// g: (R, S, 4) f32 cotangent of the raw output; dz: (R, S) f32. Scratch as
-// nerf_mlp_bwd's: partial (n_blocks * params) f32 and acts
-// (n_blocks * NACT * TM * HMAX) of the compute type, 1 <= n_blocks <= tiles.
+// g: (R, S, 4) f32 cotangent of the raw output; dz: (R, S) f32. Scratch the
+// caller allocates: partial (n_blocks * params) f32, acts (n_blocks *
+// nerf_mlp_bwd_tile_act_elems(is_bf16)) of the compute type and, for bf16,
+// dxs (n_blocks * nerf_mlp_bwd_tile_rows(1) * xyz) f32, with 1 <= n_blocks <=
+// ceil(R S / nerf_mlp_bwd_tile_rows(is_bf16)). w, wt: for bf16 the F and B
+// packs (mlp_mma_tile.cuh), for f32 the flat weights and their transposes.
 // Returns cudaGetLastError() (0 on success).
 extern "C" int nerf_rm_bwd(int is_bf16, int has_dir, const float* rd, const float* z,
                            const void* w, const void* wt, const float* b, const float* g,
-                           float* dz, float* partial, void* acts, float* dparams, int n_blocks,
-                           int R, int S, int L, int Ld, int D, int xyz, int dir, int hid, int last,
-                           float alpha, void* stream) {
+                           float* dz, float* partial, void* acts, float* dxs, float* dparams,
+                           int n_blocks, int R, int S, int L, int Ld, int D, int xyz, int dir,
+                           int hid, int last, float alpha, void* stream) {
   if (xyz != 3 + 6 * L || (has_dir ? (D <= 0 || dir != 2 * Ld * D) : D != 0))
     return (int)cudaErrorInvalidValue;
   const Dims dm{R * S, xyz, dir, hid, last, has_dir, alpha};
   const Rays ry{rd, z, R, S, L, Ld, D};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(dm, ry, w, wt, b, g, dz, partial, acts, dparams,
-                                         n_blocks, s)
-                 : launch<float>(dm, ry, w, wt, b, g, dz, partial, acts, dparams, n_blocks, s);
+  return launch(is_bf16 != 0, dm, ry, w, wt, b, g, dz, partial, acts, dxs, dparams, n_blocks,
+                static_cast<cudaStream_t>(stream));
+}
+
+// Rows of a tile and activation-slot elements of a block, by compute type.
+extern "C" int nerf_mlp_bwd_tile_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : TM; }
+extern "C" long long nerf_mlp_bwd_tile_act_elems(int is_bf16) {
+  return is_bf16 ? (long long)nerf_mma::NACT * nerf_mma::SLOT : (long long)NACT * TM * HMAX;
 }

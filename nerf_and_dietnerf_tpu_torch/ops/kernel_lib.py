@@ -151,18 +151,22 @@ _COMP_SIZES = {
 # R, S, xyz, dir, hid, last, alpha of the MLP + compositing kernels.
 _COMP_TAIL = [_i] * 6 + [_f]
 # Each library's C functions: (argtypes, restype).
-# The weight-pack size of the bf16 tensor-core tiles (csrc/mlp_mma_tile.cuh).
+# The weight-pack sizes of the bf16 and f32 tensor-core tiles
+# (csrc/mlp_mma_tile.cuh, csrc/mlp_tf32_tile.cuh).
 _MMA_PACK = {"nerf_mlp_mma_pack_elems": ([_i] * 5, ctypes.c_longlong)}
+_TF32_PACK = {"nerf_mlp_tf32_pack_elems": ([_i] * 5, ctypes.c_longlong)}
+# The tile rows and activation slots of a backward, by compute type (B2, B6).
+_BWD_TILE = {"nerf_mlp_bwd_tile_rows": ([_i], _i),
+             "nerf_mlp_bwd_tile_act_elems": ([_i], ctypes.c_longlong)}
 _SIGNATURES = {
     "mlp_fwd": {"nerf_mlp_fwd": ([_i, _i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i), **_MMA_PACK,
-                "nerf_mlp_tf32_pack_elems": ([_i] * 5, ctypes.c_longlong)},
+                **_TF32_PACK},
     "mlp_bwd": {"nerf_mlp_bwd": ([_i, _i] + [_p] * 11 + [_i] * 6 + [_f, _p], _i),
-                "nerf_mlp_bwd_tile_rows": ([_i], _i),
-                "nerf_mlp_bwd_tile_act_elems": ([_i], ctypes.c_longlong),
-                **_MMA_PACK, **_BWD_SCRATCH},
-    "raymarch_fwd": {"nerf_rm_fwd": ([_i, _i] + [_p] * 5 + _RAY_TAIL, _i)},
-    "raymarch_bwd": {"nerf_rm_bwd": ([_i, _i] + [_p] * 10 + [_i] + _RAY_TAIL, _i),
-                     **_BWD_SCRATCH},
+                **_BWD_TILE, **_MMA_PACK, **_BWD_SCRATCH},
+    "raymarch_fwd": {"nerf_rm_fwd": ([_i, _i] + [_p] * 5 + _RAY_TAIL, _i),
+                     "nerf_rm_fwd_tf32_tile": ([_i, _i], _i), **_MMA_PACK, **_TF32_PACK},
+    "raymarch_bwd": {"nerf_rm_bwd": ([_i, _i] + [_p] * 11 + [_i] + _RAY_TAIL, _i),
+                     **_BWD_TILE, **_MMA_PACK, **_BWD_SCRATCH},
     "raymarch_comp_fwd": {"nerf_rm_comp_fwd": ([_i, _i] + [_p] * 6 + _RAY_TAIL, _i)},
     "raymarch_comp_bwd": {"nerf_rm_comp_bwd": ([_i, _i] + [_p] * 11 + [_i] + _RAY_TAIL, _i),
                           "nerf_rm_comp_groups": ([_i, _i], _i), **_BWD_SCRATCH},

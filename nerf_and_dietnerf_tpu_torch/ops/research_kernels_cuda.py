@@ -6,7 +6,11 @@ Port of ``nerf_and_dietnerf_tpu/ops/research_kernels.py``. The
 - B6 (``_forward_rays_pallas`` / ``_backward_rays_pallas``, the custom VJP
   ``_fused_raymarch`` / ``apply_raymarch_fused``): points ``o + z d``, the xyz
   and view-dir encodings and the radiance MLP from per-ray data, raw
-  ``(R, S, 4)`` out; the backward gives the parameter gradients and dz.
+  ``(R, S, 4)`` out; the backward gives the parameter gradients and dz. It
+  runs B1/B2's tensor-core tiles on the encodings it builds (bf16 forward and
+  backward on ``mma.sync``, f32 forward on 3xTF32 ``wgmma``), reading the
+  weight packs of ``ops/raymarch_cuda`` (:func:`_rm_weights`); the f32
+  backward keeps the FMA tile.
 - B7 (``_forward_rays_comp_pallas`` / ``_backward_rays_comp_pallas``,
   ``apply_raymarch_composited``): B6 followed by alpha compositing, ``(rgb
   (R, 3), weights (R, S))`` out; its backward takes cotangents on both.
@@ -68,6 +72,7 @@ from nerf_and_dietnerf_tpu_torch.ops.kernel_lib import (
 )
 from nerf_and_dietnerf_tpu_torch.ops.raymarch_cuda import (
     _input_dtype,
+    _weights_for,
     check_params,
     flatten_params,
     mlp_bwd_plain,
@@ -279,6 +284,23 @@ def _is_bf16(cd) -> int:
     return int(cd == torch.bfloat16)
 
 
+def _rm_weights(lib, ws, config: MLPConfig, cd, backward: bool):
+    """The weight buffers the B6 library ``lib`` reads, from
+    ``raymarch_cuda._weights_for`` (which checks a pack's size against the
+    library's): in bf16 the F pack (forward) or the F and B packs (backward);
+    the f32 forward's TF32 hi / lo buffer where the library runs it on the
+    tensor cores (``nerf_rm_fwd_tf32_tile``), else the flat weights; the f32
+    backward's flat weights and their transposes."""
+    if backward:
+        kinds = ("f", "b")
+    elif cd == torch.bfloat16:
+        kinds = ("f",)
+    else:
+        dir_dim = config.dir_dim if config.uses_view_dirs else 0
+        kinds = ("t",) if lib.nerf_rm_fwd_tf32_tile(config.xyz_dim, dir_dim) else ("f",)
+    return _weights_for(lib, ws, config, cd, kinds)
+
+
 def raymarch_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype) -> torch.Tensor:
     """B6 forward: raw ``(R, S, 4)`` f32 from rays ``rd`` (:func:`pack_rays`)
     and z ``(R, S)`` f32; ``ws`` / ``bs`` from ``flatten_params``."""
@@ -288,8 +310,9 @@ def raymarch_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype) -> torch.Tenso
     out = torch.empty((*z.shape, 4), dtype=torch.float32, device=rd.device)
     if out.numel() == 0:
         return out
-    w, b = flat(ws), flat(bs)  # held until the launch is queued
-    rc = load("raymarch_fwd").nerf_rm_fwd(
+    lib = load("raymarch_fwd")
+    (w,), b = _rm_weights(lib, ws, config, compute_dtype, False), flat(bs)
+    rc = lib.nerf_rm_fwd(
         _is_bf16(compute_dtype), int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(),
         w.data_ptr(), b.data_ptr(), out.data_ptr(), *_ray_args(config, rd, z))
     launched("raymarch_fwd", rc)
@@ -310,13 +333,19 @@ def raymarch_bwd(ws, bs, config: MLPConfig, rd, z, g, compute_dtype):
     if dz.numel() == 0:
         dparams.zero_()
     else:
-        tiles = -(-dz.numel() // lib.nerf_mlp_bwd_rows_per_tile())
-        partial, acts, n_blocks = bwd_scratch(lib, dparams.numel(), compute_dtype, dev, tiles)
-        w, wt, b = flat(ws), flat([t.t() for t in ws]), flat(bs)
+        is_bf16 = _is_bf16(compute_dtype)
+        rows = lib.nerf_mlp_bwd_tile_rows(is_bf16)
+        partial, acts, n_blocks = bwd_scratch(lib, dparams.numel(), compute_dtype, dev,
+                                              -(-dz.numel() // rows),
+                                              lib.nerf_mlp_bwd_tile_act_elems(is_bf16))
+        # bf16: each block's dx slab (csrc/raymarch_bwd.cu).
+        dxs = (torch.empty((n_blocks * rows * config.xyz_dim,), dtype=torch.float32, device=dev)
+               if is_bf16 else None)
+        (w, wt), b = _rm_weights(lib, ws, config, compute_dtype, True), flat(bs)
         rc = lib.nerf_rm_bwd(
-            _is_bf16(compute_dtype), int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(),
-            w.data_ptr(), wt.data_ptr(), b.data_ptr(), g.data_ptr(), dz.data_ptr(), partial.data_ptr(), acts.data_ptr(),
-            dparams.data_ptr(), n_blocks, *_ray_args(config, rd, z))
+            is_bf16, int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(), w.data_ptr(),
+            wt.data_ptr(), b.data_ptr(), g.data_ptr(), dz.data_ptr(), partial.data_ptr(),
+            acts.data_ptr(), _ptr(dxs), dparams.data_ptr(), n_blocks, *_ray_args(config, rd, z))
         launched("raymarch_bwd", rc)
     return (*split_dparams(dparams, config), dz)
 
