@@ -23,7 +23,13 @@ run fails if bf16 B1/B2/B6 have no HMMA or f32 B1/B6 forward no HGMMA), holds
 B1 in both types, its former FMA design (P3 at one chain) and the plain
 version against the forward chain evaluated in f64 (f32 B1 fails if it is more
 than ``F64_FACTOR`` times as far as the plain version), B6 and its plain
-version likewise (raw output, bf16 dz and dparams; JSON ``b6_vs_f64_chain``),
+version likewise (raw output, dz and dparams; JSON ``b6_vs_f64_chain``), B7
+(pixels, dz, dparams; ``b7_vs_f64_chain``) and B5 (loss, dz, dparams;
+``b5_vs_f64_chain``) at S = 64 and 128, holds the bf16 B7 backward and B5 (on
+the tensor cores) also at S = 100, at 4093 rays and on opaque rays, each
+against its plain version with f64 sums on the kernel's side of the
+compositing's kink (``KINK_SHARE``), prints the registers, spills and HMMA
+counts of the four bf16 backwards (B2, B6, B7, B5),
 and times f32 B1 beside that FMA design, then drives the five training paths at
 flagship width (4096 rays, 64 + 128 samples, 256/128 wide, bf16 step, f32
 eval renders) on a synthetic scene made from a seed, each for two epochs with
@@ -78,8 +84,12 @@ MLP_DESIGN = {"bfloat16": "tensor cores, mma.sync bf16, 128-row tiles",
                          "a producer warp streaming hi / lo weight packs by bulk copies"}
 # f32 B2 keeps PR 1's FMA tile.
 F32_BWD_DESIGN = "f32 FMA tiles, 64 rows"
+# bf16 B7 backward and B5: the ray-group loop of csrc/comp_mma_tile.cuh on
+# the tensor-core tiles, one forward per row.
+COMP_MMA_DESIGN = (MLP_DESIGN["bfloat16"] + ", whole rays in a tile, one forward per row, "
+                   "compositing VJP in the block, dx through a per-block slab")
 # B6 runs B1/B2's tensor-core tiles on the encodings it builds; its f32
-# backward (parity runs only) keeps the FMA tile; B7 keeps the FMA tiles.
+# backward (parity runs only) keeps the FMA tile.
 RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings built into "
                                                                     "the bf16 operand tiles",
              ("raymarch_fwd", "float32"): MLP_DESIGN["float32"] + " (two stages), encodings "
@@ -88,7 +98,12 @@ RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings
              ("raymarch_bwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings built into "
                                                                     "the bf16 operand tiles, dx "
                                                                     "through a per-block slab",
-             ("raymarch_bwd", "float32"): F32_BWD_DESIGN}
+             ("raymarch_bwd", "float32"): F32_BWD_DESIGN,
+             ("raymarch_comp_bwd", "bfloat16"): COMP_MMA_DESIGN,
+             ("mlp_loss_comp", "bfloat16"): COMP_MMA_DESIGN}
+# Every other kernel (B4, B7's forward, f32 B7 backward and f32 B5) keeps the
+# FMA tiles.
+FMA_COMP_DESIGN = "FMA tiles, 64 rows, whole rays a block"
 # B1's former f32 design, timed beside it: P3 with one chain is that FMA tile.
 FMA_DESIGN = "f32 FMA tile, one 64-row chain (P3, chains=1)"
 # Scaled max error |kernel - plain| / max|plain|. Forward, f32: both sum
@@ -146,6 +161,25 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float32_mma": 495e12 / 3}
 # f32 B1 against the f64 forward chain: normwise at most this many times the
 # plain f32 version's distance.
 F64_FACTOR = 4.0
+# The compositing backwards on the bf16 tensor cores (B7's backward, B5) sum
+# in an order of their own; the plain version's f32 sums are one more such
+# order. Two things then part them from it that do not part the kernels from
+# the function: a sample whose raw sigma lies within the forward's rounding
+# noise of 0 falls on the other side of the compositing's kink (max(sigma,
+# 0); the sigma cotangent is 0 below it) and moves its row's dz and share of
+# every weight gradient whole; and where few rows carry the gradients
+# (opaque rays: 256 first samples) the f32 version's own sums sit up to 2e-2
+# normwise from the exact ones in dz and dparams. Each check of these two
+# kernels therefore holds the kernel against its plain version with the
+# MLP's products and sums in f64 (the same roundings to bf16, nearly exact
+# sums) and each sample on the kernel's side of the kink (the raw values the
+# kernel composited, ``raw=``; ``research_kernels_cuda.kink_of``): dparams
+# to TOL_BWD (the worst leaf), dz normwise to TOL_ROWS, B5's loss to TOL, the
+# raw values to TOL against the plain forward's, and at most KINK_SHARE of
+# the samples on the other side of the kink from the f64 evaluation's.
+# ``tools/comp_kink.py`` computes the records; the distances to the plain f32
+# version are printed beside.
+KINK_SHARE = 1e-3
 PEAK_BYTES = 3.35e12
 
 
@@ -501,6 +535,12 @@ def _normwise(a, exact) -> float:
     return float((a.double() - exact).norm() / exact.norm().clamp_min(1e-300))
 
 
+def _chain_ratios(out: dict) -> dict:
+    for r in out.values():
+        r["ratio_kernel_to_plain"] = r["kernel"] / max(r["plain"], 1e-300)
+    return out
+
+
 def _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd, z, g, cd) -> dict:
     """B6 and its plain version against the plain chain with the same
     roundings but f64 products and sums (``work=torch.float64``), on the
@@ -525,16 +565,93 @@ def _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd, z, g, cd) -> dict:
             out.setdefault("dz", {})[who] = _normwise(kdz.reshape(-1), dz_exact)
             out.setdefault("dparams", {})[who] = _normwise(
                 torch.cat([t.reshape(-1) for t in kws + kbs]), par_exact)
-    for r in out.values():
-        r["ratio_kernel_to_plain"] = r["kernel"] / max(r["plain"], 1e-300)
+    return _chain_ratios(out)
+
+
+def _hold_comp_bwd(torch, kernel, label, name, ws, bs, cfg, cd, args, run) -> dict:
+    """B7's backward (``kernel`` "B7") or B5 ("B5") on ``args`` (as
+    ``tools/comp_kink.plain_of`` takes them); ``run(raw)`` gives its ``(dws,
+    dbs, dz, loss | None)``, in bf16 writing the raw values it composited to
+    ``raw``. Finite, dparams (and B5's loss) bitwise equal across two runs,
+    and held to the tolerances: in bf16 as KINK_SHARE sets out, in f32 (the
+    FMA kernels, which sum in the plain version's order) against the plain
+    f32 version. Returns ``tools/comp_kink.compare``'s record, ``held_to``
+    naming the reference held to."""
+    from nerf_and_dietnerf_tpu_torch.tools import comp_kink
+
+    kname = "raymarch_comp_bwd" if kernel == "B7" else "mlp_loss_comp"
+    z = args[1] if kernel == "B7" else args[2]
+    raw = (torch.empty((*z.shape, 4), dtype=torch.float32, device=DEVICE)
+           if cd == torch.bfloat16 else None)
+    got, again = run(raw), run(None)
+    torch.cuda.synchronize()
+    rep = lambda r: list(r[0]) + list(r[1]) + ([r[3]] if r[3] is not None else [])  # noqa: E731
+    rec = comp_kink.compare(*comp_kink.plain_of(kernel, ws, bs, cfg, cd, args), got, raw)
+    rec["held_to"] = "plain" if raw is None else "f64_kink"
+    ref = rec[rec["held_to"]]
+    bad = [what for what, fails in (
+        ("non-finite", not all(bool(torch.isfinite(t).all())
+                               for t in rep(got) + [got[2]] + ([] if raw is None else [raw]))),
+        ("dparams differ between two runs", not all(torch.equal(a, b)
+                                                    for a, b in zip(rep(got), rep(again)))),
+        (f"dparams over {TOL_BWD[name]}", ref["dparams_worst_leaf"] > TOL_BWD[name]),
+        (f"dz over {TOL_ROWS[name]}", ref["dz_normwise"] > TOL_ROWS[name]),
+        (f"loss over {TOL[name]}", ref.get("loss_rel", 0.0) > TOL[name]),
+        (f"raw values over {TOL[name]}", rec.get("raw_scaled_err_vs_plain", 0.0) > TOL[name]),
+        (f"kink samples over {KINK_SHARE}",
+         rec.get("kink_vs_f64", {"share": 0.0})["share"] > KINK_SHARE)) if fails]
+    keys = ("dparams_worst_leaf", "dparams_normwise", "dz_normwise", "dz_scaled_max",
+            "loss_rel")
+    summary = (f"against {rec['held_to']}: "
+               + ", ".join(f"{k} {ref[k]:.3e}" for k in keys if k in ref)
+               + (f"; raw scaled err {rec['raw_scaled_err_vs_plain']:.3e}, samples on the other "
+                  f"side of the kink: {rec['kink_vs_f64']['count']} of the f64 evaluation's, "
+                  f"{rec['kink_vs_plain']['count']} of the f32's; against the plain f32 version: "
+                  + ", ".join(f"{k} {rec['plain'][k]:.3e}" for k in keys if k in rec["plain"])
+                  if raw is not None else ""))
+    if bad:
+        raise AssertionError(f"{kname} {label}: {bad}; {summary}")
+    log(f"kernel check {label}: {kname} {summary}; bitwise equal across two runs")
+    return rec
+
+
+def _chain_record(rec: dict, pixels=None) -> dict:
+    """A ``b7_vs_f64_chain`` / ``b5_vs_f64_chain`` entry from a record of
+    :func:`_hold_comp_bwd`: the kernel's and the plain f32 version's normwise
+    distance to the f64 evaluation (its own kink) for dz, dparams and B5's loss
+    (relative), ``pixels`` (B7's forward) if given and, where the kernel gave
+    its raw values, its distance to the f64 evaluation on its side of the kink
+    and the samples on the other side (their count, and the rows of their
+    128-row tiles of the first ``comp_kink.MAX_LISTED``)."""
+    out = {k: {"kernel": rec["f64"][f"{k}_normwise"], "plain": rec["plain_vs_f64"][f"{k}_normwise"]}
+           for k in ("dz", "dparams")}
+    if "loss_rel" in rec["f64"]:
+        out["loss"] = {"kernel": rec["f64"]["loss_rel"], "plain": rec["plain_vs_f64"]["loss_rel"]}
+    if pixels is not None:
+        out["pixels"] = pixels
+    _chain_ratios(out)
+    if "f64_kink" in rec:
+        for k in ("dz", "dparams"):
+            out[k]["kernel_kink"] = rec["f64_kink"][f"{k}_normwise"]
+        out["kink_samples"] = rec["kink_vs_f64"]["count"]
+        out["kink_tile_rows"] = [k["tile_row"] for k in rec["kink_vs_f64"]["samples"]]
     return out
+
+
+def _b7_pixels_vs_f64(torch, rk, ws, bs, cfg, rd, z, cd) -> dict:
+    """B7's forward and its plain f32 version against the plain version with
+    the MLP's sums in f64: normwise distance of the pixels."""
+    exact = rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd, work=torch.float64)[0].double()
+    return {"kernel": _normwise(rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd)[0], exact),
+            "plain": _normwise(rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd)[0], exact)}
 
 
 def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=True, b7=True):
     """Each B6/B7 kernel (B6 alone without ``b7``) against its plain version on
     (rd, z), the backwards too if ``backward``; returns the max |kernel -
-    plain| of each kernel and the cotangents the timings reuse (None without
-    the backwards)."""
+    plain| of each kernel (B7's backward: against the reference it is held
+    to), the cotangents the timings reuse and B7's backward's record of
+    :func:`_hold_comp_bwd` (None without the backwards)."""
     tol, tol_b, tol_r = TOL[name], TOL_BWD[name], TOL_ROWS[name]
     n_rays, n_samples = z.shape
     errs = {}
@@ -560,35 +677,36 @@ def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=Tru
     log(f"kernel check {label}: B6 fwd scaled err {e:.3e}"
         + (f", B7 fwd {e_c:.3e}" if b7 else "") + f" (tol {tol})")
     if not backward:
-        return errs, None
+        return errs, None, None
 
     g = (0.5 + torch.rand((n_rays, n_samples, 4), generator=gen, device=DEVICE)).contiguous()
     g_rgb = (0.5 + torch.rand((n_rays, 3), generator=gen, device=DEVICE)).contiguous()
     g_w = (0.5 + torch.rand((n_rays, n_samples), generator=gen, device=DEVICE)).contiguous()
-    for kname, kern, plain in (
-            ("raymarch_bwd", lambda: rk.raymarch_bwd(ws, bs, cfg, rd, z, g, cd),
-             lambda: rk.raymarch_bwd_plain(ws, bs, cfg, rd, z, g, cd)),
-            ("raymarch_comp_bwd", lambda: rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd),
-             lambda: rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, cd)))[:2 if b7 else 1]:
-        dws, dbs, dz = kern()
-        torch.cuda.synchronize()
-        pws, pbs, pdz = plain()
-        e_par = max(_scaled_err(a, b) for a, b in zip(dws + dbs, pws + pbs))
-        dz_stats = _row_errs(dz, pdz, tol_r)
-        errs[kname] = max(float((a - b).abs().max()) for a, b in
-                          list(zip(dws + dbs, pws + pbs)) + [(dz, pdz)])
-        if not torch.isfinite(dz).all() or e_par > tol_b or dz_stats[1] > tol_r:
-            raise AssertionError(f"{kname} {label}: dparams scaled err {e_par} (tol {tol_b}); "
-                                 f"dz (scaled max, normwise, share over tol) {dz_stats} "
-                                 f"(tol {tol_r})")
-        dws2, dbs2, _ = kern()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2)):
-            raise AssertionError(f"{kname} {label}: dparams differ between runs")
-        log(f"kernel check {label}: {kname} dparams scaled err {e_par:.3e} (tol {tol_b}), dz "
-            f"(scaled max, normwise, share of rows over tol) {dz_stats} (tol {tol_r}), dparams "
-            f"bitwise equal across two runs")
-    return errs, (g, g_rgb, g_w)
+    dws, dbs, dz = rk.raymarch_bwd(ws, bs, cfg, rd, z, g, cd)
+    torch.cuda.synchronize()
+    pws, pbs, pdz = rk.raymarch_bwd_plain(ws, bs, cfg, rd, z, g, cd)
+    e_par = max(_scaled_err(a, b) for a, b in zip(dws + dbs, pws + pbs))
+    dz_stats = _row_errs(dz, pdz, tol_r)
+    errs["raymarch_bwd"] = max(float((a - b).abs().max()) for a, b in
+                               list(zip(dws + dbs, pws + pbs)) + [(dz, pdz)])
+    if not torch.isfinite(dz).all() or e_par > tol_b or dz_stats[1] > tol_r:
+        raise AssertionError(f"raymarch_bwd {label}: dparams scaled err {e_par} (tol {tol_b}); "
+                             f"dz (scaled max, normwise, share over tol) {dz_stats} "
+                             f"(tol {tol_r})")
+    dws2, dbs2, _ = rk.raymarch_bwd(ws, bs, cfg, rd, z, g, cd)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2)):
+        raise AssertionError(f"raymarch_bwd {label}: dparams differ between runs")
+    log(f"kernel check {label}: raymarch_bwd dparams scaled err {e_par:.3e} (tol {tol_b}), dz "
+        f"(scaled max, normwise, share of rows over tol) {dz_stats} (tol {tol_r}), dparams "
+        f"bitwise equal across two runs")
+    rec = None
+    if b7:
+        rec = _hold_comp_bwd(
+            torch, "B7", label, name, ws, bs, cfg, cd, (rd, z, g_rgb, g_w),
+            lambda raw: (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw), None))
+        errs["raymarch_comp_bwd"] = rec[rec["held_to"]]["max_abs"]
+    return errs, (g, g_rgb, g_w), rec
 
 
 def raymarch_kernel_phases(torch, timings: dict) -> None:
@@ -602,38 +720,57 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
     # The ragged-row checks draw from a generator of their own, so that every
     # other check here draws the inputs it drew before they were added.
     gen_ragged = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    # The checks added with B7's tensor-core backward (S = 100 in bf16, opaque
+    # rays in bf16) draw from one more, for the same reason.
+    gen_b7 = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
         cfg = mlp.MLPConfig(n_angles=n_angles)
         params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
         for cd in (torch.bfloat16, torch.float32):
             name = str(cd).split(".")[-1]
             ws, bs = rc.flatten_params(params, cfg, cd)
-            # B6 alone at a ragged row count (its backward in bf16: f32 B6
-            # backward keeps 64-row tiles, which 4093 x 64 rows fill).
+            # A ragged ray count (its backwards in bf16: f32 B6 backward keeps
+            # 64-row tiles, which 4093 x 64 rows fill): B6's part-filled last
+            # 128-row tile, and in bf16 B7 with a last group of one ray.
             rd_r, z_r = _ray_batch(torch, cfg, RAYS_RAGGED, SAMPLES, gen_ragged)
             ragged = _rm_checks(torch, rk, cfg, ws, bs, rd_r, z_r, cd, name, gen_ragged,
                                 f"{variant} {name} R={RAYS_RAGGED} S={SAMPLES}",
-                                backward=cd == torch.bfloat16, b7=False)[0]
+                                backward=cd == torch.bfloat16, b7=cd == torch.bfloat16)[0]
             del rd_r, z_r
             rd, z = _ray_batch(torch, cfg, RAYS, SAMPLES, gen)
-            errs, cots = _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen,
-                                    f"{variant} {name} R={RAYS} S={SAMPLES}")
-            # B6 and its plain version against the f64 chain: the forward in
-            # both types, the bf16 backward's dz and dparams (the f32 backward
-            # keeps its FMA design).
-            chain = _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd, z,
-                                     cots[0] if cd == torch.bfloat16 else None, cd)
+            errs, cots, rec7 = _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen,
+                                          f"{variant} {name} R={RAYS} S={SAMPLES}")
+            # B6 and its plain version against the f64 chain: the forward and
+            # the backward's dz and dparams in both types (f32: B6's FMA
+            # backward tile, which f32 B7 shares; ROADMAP C3).
+            chain = _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd, z, cots[0], cd)
             timings.setdefault("b6_vs_f64_chain", {}).setdefault(variant, {})[name] = chain
             log(f"kernel check B6 {variant} {name} R={RAYS} S={SAMPLES} against the f64 chain "
                 f"(normwise, kernel and plain): {chain}")
-            # The other sample counts: (rd, z, errors, cotangents) by count.
+            # The other sample counts: (rd, z, errors, cotangents, B7's backward's
+            # record) by count; in bf16 S = 100 too (one part-filled tile a ray in
+            # B7's backward).
             other = {}
-            for n_s, backward in (((2 * SAMPLES, True),) if cd == torch.bfloat16
-                                  else ((SAMPLES_EVAL, False), (SAMPLES_RAGGED, True))):
-                rd_s, z_s = _ray_batch(torch, cfg, RAYS, n_s, gen)
+            for n_s, backward, g_s in (
+                    ((2 * SAMPLES, True, gen), (SAMPLES_RAGGED, True, gen_b7))
+                    if cd == torch.bfloat16
+                    else ((SAMPLES_EVAL, False, gen), (SAMPLES_RAGGED, True, gen))):
+                rd_s, z_s = _ray_batch(torch, cfg, RAYS, n_s, g_s)
                 other[n_s] = (rd_s, z_s, *_rm_checks(
-                    torch, rk, cfg, ws, bs, rd_s, z_s, cd, name, gen,
+                    torch, rk, cfg, ws, bs, rd_s, z_s, cd, name, g_s,
                     f"{variant} {name} R={RAYS} S={n_s}", backward))
+            # B7 and its plain version against the f64 evaluation: pixels, dz
+            # and dparams at S = 64 and, in bf16, at 128 (the f32 backward keeps
+            # its FMA design; its dparams margin is ROADMAP C3).
+            for n_s, (rd_c, z_c, rec_c) in [(SAMPLES, (rd, z, rec7))] + (
+                    [(2 * SAMPLES, (other[2 * SAMPLES][0], other[2 * SAMPLES][1],
+                                    other[2 * SAMPLES][4]))] if cd == torch.bfloat16 else []):
+                chain7 = _chain_record(rec_c, _b7_pixels_vs_f64(torch, rk, ws, bs, cfg, rd_c, z_c,
+                                                                cd))
+                timings.setdefault("b7_vs_f64_chain", {}).setdefault(variant, {}).setdefault(
+                    name, {})[f"S={n_s}"] = chain7
+                log(f"kernel check B7 {variant} {name} R={RAYS} S={n_s} against the f64 "
+                    f"evaluation (normwise, kernel and plain): {chain7}")
             if variant != "view_dirs":
                 continue
             g, g_rgb, g_w = cots
@@ -669,7 +806,7 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                 ms = _time_ms(torch, fn)
                 rec[kname] = {
                     "rays": RAYS, "samples": SAMPLES, "dtype": name,
-                    "design": RM_DESIGN.get((kname, name), "FMA tiles, 64 rows, whole rays a block"),
+                    "design": RM_DESIGN.get((kname, name), FMA_COMP_DESIGN),
                     "ms": ms,
                     "tflops": fl / ms / 1e9,
                     "share_of_bound": 1e3 * max(t_ops, t_bytes) / ms,
@@ -684,7 +821,7 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                 if kname in ragged:
                     rec[kname]["max_abs_err_ragged"] = ragged[kname]
             if cd == torch.bfloat16:  # the fine pass of a train step, S = 128
-                rd3, z3, errs128, (g3, g_rgb3, g_w3) = other[2 * SAMPLES]
+                rd3, z3, errs128, (g3, g_rgb3, g_w3), _ = other[2 * SAMPLES]
                 for kname, fn in (
                         ("raymarch_fwd", lambda: rk.raymarch_fwd(ws, bs, cfg, rd3, z3, cd)),
                         ("raymarch_bwd", lambda: rk.raymarch_bwd(ws, bs, cfg, rd3, z3, g3, cd)),
@@ -694,10 +831,10 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                          lambda: rk.raymarch_comp_bwd(ws, bs, cfg, rd3, z3, g_rgb3, g_w3, cd))):
                     rec[kname]["ms_fine_pass"] = _time_ms(torch, fn, reps=3)
                     rec[kname]["max_abs_err_s128"] = errs128[kname]
+            for kname in RM_SOURCES:
+                rec[kname]["max_abs_err_s100"] = other[SAMPLES_RAGGED][2][kname]
             if cd == torch.float32:  # the eval render's forwards, S = 192
-                rd2, z2, errs192, _ = other[SAMPLES_EVAL]
-                for kname in RM_SOURCES:
-                    rec[kname]["max_abs_err_s100"] = other[SAMPLES_RAGGED][2][kname]
+                rd2, z2, errs192, _, _ = other[SAMPLES_EVAL]
                 for kname, fn in (
                         ("raymarch_fwd", lambda: rk.raymarch_fwd(ws, bs, cfg, rd2, z2, cd)),
                         ("raymarch_comp_fwd",
@@ -726,30 +863,27 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                f"xyz L=10 float32 R=509 S={SAMPLES}", backward=False, b7=False)
 
     # Opaque rays: transmittance underflows to exactly 0, the B7 backward
-    # stays finite (it is division-free) and agrees with its plain version.
+    # stays finite (it is division-free) and agrees with its plain version; in
+    # f32 (the FMA kernel) and in bf16 (the tensor-core kernel).
     cfg = mlp.MLPConfig(n_angles=0)
     params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
     params["sigma_out"]["bias"] = params["sigma_out"]["bias"] + 1e6
+    for cd, g_o in ((torch.float32, gen), (torch.bfloat16, gen_b7)):
+        name = str(cd).split(".")[-1]
+        ws, bs = rc.flatten_params(params, cfg, cd)
+        rd, z = _ray_batch(torch, cfg, 256, SAMPLES, g_o)
+        g_rgb = torch.ones((256, 3), device=DEVICE)
+        g_w = torch.ones((256, SAMPLES), device=DEVICE)
+        _hold_comp_bwd(
+            torch, "B7", f"opaque rays {name} R=256 S={SAMPLES}", name, ws, bs, cfg, cd,
+            (rd, z, g_rgb, g_w),
+            lambda raw: (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw), None))
     ws, bs = rc.flatten_params(params, cfg, torch.float32)
-    rd, z = _ray_batch(torch, cfg, 256, SAMPLES, gen)
-    g_rgb, g_w = torch.ones((256, 3), device=DEVICE), torch.ones((256, SAMPLES), device=DEVICE)
-    dws, dbs, dz = rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, torch.float32)
-    pws, pbs, pdz = rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, torch.float32)
-    torch.cuda.synchronize()
-    if not all(bool(torch.isfinite(t).all()) for t in dws + dbs + [dz]):
-        raise AssertionError("raymarch_comp_bwd: non-finite gradients on opaque rays")
-    e_par = max(_scaled_err(a, b) for a, b in zip(dws + dbs, pws + pbs))
-    dz_stats = _row_errs(dz, pdz, TOL_ROWS["float32"])
-    if e_par > TOL_BWD["float32"] or dz_stats[1] > TOL_ROWS["float32"]:
-        raise AssertionError(f"raymarch_comp_bwd opaque rays: dparams scaled err {e_par}; dz "
-                             f"(scaled max, normwise, share over tol) {dz_stats}")
     try:
         rk.raymarch_comp_fwd(ws, bs, cfg, *_ray_batch(torch, cfg, 8, rk.MAX_SAMPLES_COMPOSITED + 1,
                                                        gen), torch.float32)
     except ValueError as exc:
-        log(f"kernel check opaque rays: B7 bwd finite, dparams scaled err {e_par:.3e}, dz "
-            f"(scaled max, normwise, share of rows over tol) {dz_stats} (tol "
-            f"{TOL_ROWS['float32']}); S above the maximum raises: {exc}")
+        log(f"kernel check: B7 above the maximum of samples raises: {exc}")
     else:
         raise AssertionError("raymarch_comp_fwd took more samples than its maximum")
 
@@ -824,7 +958,8 @@ def _comp_bytes(cfg, ws, bs, enc, encd, z, kname):
 def _comp_checks(torch, rk, cfg, ws, bs, batch, cd, name, gen, label, b4=True, b5=True):
     """B4's forward and backward and B5 against their plain versions on
     ``batch`` (:func:`_enc_batch`); returns the max |kernel - plain| of each
-    kernel and B4's cotangents for the timings."""
+    kernel (B5: against the reference it is held to), B4's cotangents for the
+    timings and B5's record of :func:`_hold_comp_bwd`."""
     tol, tol_b, tol_r = TOL[name], TOL_BWD[name], TOL_ROWS[name]
     enc, encd, z, dvec, target = batch
     n_rays, n_samples = z.shape
@@ -874,23 +1009,16 @@ def _comp_checks(torch, rk, cfg, ws, bs, batch, cd, name, gen, label, b4=True, b
                  [("denc", denc, pdenc), ("dz", dz, pdz)] + per_ray,
                  dws + dbs + [t for _, t, _ in per_ray],
                  dws2 + dbs2 + ([dencd2] if per_ray else []))
+    rec = None
     if b5:
-        run = lambda: rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, dvec, target, cd)  # noqa: E731
-        mse, dz, dws, dbs = run()
-        torch.cuda.synchronize()
-        pmse, pdz, pws, pbs = rk.mlp_loss_comp_plain(ws, bs, cfg, enc, encd, z, dvec, target, cd)
-        mse2, _, dws2, dbs2 = run()
-        torch.cuda.synchronize()
-        e_mse = abs(float(mse) - float(pmse)) / abs(float(pmse))
-        if not (math.isfinite(float(mse)) and e_mse <= tol):
-            raise AssertionError(f"mlp_loss_comp {label}: loss {float(mse)} against "
-                                 f"{float(pmse)}, relative err {e_mse} > {tol}")
-        log(f"kernel check {label}: B5 loss {float(mse):.6f}, relative err {e_mse:.3e} "
-            f"(tol {tol})")
-        hold_bwd("mlp_loss_comp", (dws, dbs), (pws, pbs), [("dz", dz, pdz)],
-                 dws + dbs + [mse], dws2 + dbs2 + [mse2])
-        errs["mlp_loss_comp"] = max(errs["mlp_loss_comp"], abs(float(mse) - float(pmse)))
-    return errs, cots
+        def run(raw):
+            mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, dvec, target, cd,
+                                                 raw=raw)
+            return dws, dbs, dz, mse
+
+        rec = _hold_comp_bwd(torch, "B5", label, name, ws, bs, cfg, cd, batch, run)
+        errs["mlp_loss_comp"] = rec[rec["held_to"]]["max_abs"]
+    return errs, cots, rec
 
 
 def comp_kernel_phases(torch, timings: dict) -> None:
@@ -901,6 +1029,10 @@ def comp_kernel_phases(torch, timings: dict) -> None:
     from nerf_and_dietnerf_tpu_torch.tools import mlp_flops
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    # The checks added with B5's tensor-core kernel (bf16 at S = 100, at 4093
+    # rays, on opaque rays) draw from a generator of their own, so that every
+    # other check here draws the inputs it drew before.
+    gen_b5 = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
         cfg = mlp.MLPConfig(n_angles=n_angles)
         params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
@@ -908,15 +1040,32 @@ def comp_kernel_phases(torch, timings: dict) -> None:
             name = str(cd).split(".")[-1]
             ws, bs = rc.flatten_params(params, cfg, cd)
             # Sample counts: B4 at the coarse pass's 64, B4 and B5 at the fine
-            # pass's 128; in f32 also at the ragged 100.
-            batches, errs, cots = {}, {}, {}
-            for n_s, b4, b5 in ((SAMPLES, True, False),
+            # pass's 128; in f32 also at the ragged 100; bf16 B5 at 64 too (it
+            # draws nothing: every other check keeps its inputs).
+            batches, errs, cots, recs = {}, {}, {}, {}
+            for n_s, b4, b5 in ((SAMPLES, True, cd == torch.bfloat16),
                                 (2 * SAMPLES, cd == torch.bfloat16, True)) + (
                     ((SAMPLES_RAGGED, True, True),) if cd == torch.float32 else ()):
                 batches[n_s] = _enc_batch(torch, cfg, cd, RAYS, n_s, gen)
-                errs[n_s], cots[n_s] = _comp_checks(
+                errs[n_s], cots[n_s], recs[n_s] = _comp_checks(
                     torch, rk, cfg, ws, bs, batches[n_s], cd, name, gen,
                     f"{variant} {name} R={RAYS} S={n_s}", b4, b5)
+            if cd == torch.bfloat16:
+                # bf16 B5 also at S = 100 (one part-filled tile a ray) and at
+                # 4093 rays of 64 samples (a last group of one ray); then B5 and
+                # its plain version against the f64 evaluation at S = 64 and 128.
+                for n_r, n_s in ((RAYS, SAMPLES_RAGGED), (RAYS_RAGGED, SAMPLES)):
+                    label = f"{variant} {name} R={n_r} S={n_s}"
+                    errs[label] = _comp_checks(
+                        torch, rk, cfg, ws, bs, _enc_batch(torch, cfg, cd, n_r, n_s, gen_b5), cd,
+                        name, gen_b5, label, b4=False)[0]
+                for n_s in (SAMPLES, 2 * SAMPLES):
+                    chain5 = _chain_record(recs[n_s])
+                    timings.setdefault("b5_vs_f64_chain", {}).setdefault(variant, {})[
+                        f"S={n_s}"] = chain5
+                    log(f"kernel check B5 {variant} {name} R={RAYS} S={n_s} against the f64 "
+                        f"evaluation (loss relative, dz and dparams normwise; kernel and "
+                        f"plain): {chain5}")
             if variant != "view_dirs":
                 continue
             leaves = [w.detach().clone().requires_grad_(True) for w in ws]
@@ -954,9 +1103,13 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                 enc, encd, z = batches[n_s][:3]
                 t_ops = mult * mlp_flops(cfg, RAYS * n_s) / _mlp_peak(name)
                 t_bytes = _comp_bytes(cfg, ws, bs, enc, encd, z, kname) / PEAK_BYTES
+                ms = _time_ms(torch, fn)
                 rec[kname] = {
                     "rays": RAYS, "samples": n_s, "dtype": name,
-                    "ms": _time_ms(torch, fn),
+                    "design": RM_DESIGN.get((kname, name), FMA_COMP_DESIGN),
+                    "ms": ms,
+                    "tflops": mult * mlp_flops(cfg, RAYS * n_s) / ms / 1e9,
+                    "share_of_bound": 1e3 * max(t_ops, t_bytes) / ms,
                     "plain_ms": _time_ms(torch, plain, reps=2),
                     "library_ms": _time_ms(torch, lib),
                     "library": "composition: addmm chain on the same encodings + composite"
@@ -970,27 +1123,40 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                     rec[kname]["ms_fine_pass"] = _time_ms(torch, case(kname, 2 * SAMPLES)[0],
                                                           reps=3)
                     rec[kname]["max_abs_err_s128"] = errs[2 * SAMPLES][kname]
+                # B5 at the coarse pass's count too (on the S = 64 batch).
+                rec["mlp_loss_comp"]["ms_s64"] = _time_ms(torch, case("mlp_loss_comp", SAMPLES)[0])
+                rec["mlp_loss_comp"]["max_abs_err_s100"] = errs[
+                    f"{variant} {name} R={RAYS} S={SAMPLES_RAGGED}"]["mlp_loss_comp"]
+                rec["mlp_loss_comp"]["max_abs_err_ragged"] = errs[
+                    f"{variant} {name} R={RAYS_RAGGED} S={SAMPLES}"]["mlp_loss_comp"]
             else:
                 for kname in COMP_SOURCES:
                     rec[kname]["max_abs_err_s100"] = errs[SAMPLES_RAGGED][kname]
             kl.LAUNCHES.update(before)  # timing launches are not the main path's
             timings["comp_" + name] = rec
             for kname, r in rec.items():
-                log(f"time {kname} {name} R={RAYS} S={r['samples']}: kernel {r['ms']:.3f} ms, "
-                    f"plain {r['plain_ms']:.3f} ms, library (composition) "
-                    f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                log(f"time {kname} {name} R={RAYS} S={r['samples']} ({r['design']}): kernel "
+                    f"{r['ms']:.3f} ms ({r['tflops']:.1f} TFLOP/s, "
+                    f"{100 * r['share_of_bound']:.2f} % of the bound), plain "
+                    f"{r['plain_ms']:.3f} ms, library (composition) {r['library_ms']:.3f} ms, "
+                    f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                     + (f"; S={2 * SAMPLES}: {r['ms_fine_pass']:.3f} ms"
-                       if "ms_fine_pass" in r else ""))
+                       if "ms_fine_pass" in r else "")
+                    + (f"; S={SAMPLES}: {r['ms_s64']:.3f} ms" if "ms_s64" in r else ""))
 
     # Opaque rays: transmittance underflows to exactly 0; B4's backward and B5
     # stay finite (their compositing VJP is division-free) and agree with
-    # their plain versions.
+    # their plain versions; bf16 B5 (the tensor-core kernel) too.
     cfg = mlp.MLPConfig(n_angles=0)
     params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
     params["sigma_out"]["bias"] = params["sigma_out"]["bias"] + 1e6
     ws, bs = rc.flatten_params(params, cfg, torch.float32)
     _comp_checks(torch, rk, cfg, ws, bs, _enc_batch(torch, cfg, torch.float32, 256, SAMPLES, gen),
                  torch.float32, "float32", gen, f"opaque rays float32 R=256 S={SAMPLES}")
+    ws, bs = rc.flatten_params(params, cfg, torch.bfloat16)
+    _comp_checks(torch, rk, cfg, ws, bs,
+                 _enc_batch(torch, cfg, torch.bfloat16, 256, SAMPLES, gen_b5), torch.bfloat16,
+                 "bfloat16", gen_b5, f"opaque rays bfloat16 R=256 S={SAMPLES}", b4=False)
 
 
 # --------------------------------------------------------------------------- #
@@ -1733,7 +1899,14 @@ def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
 MMA_KERNELS = {"mlp_fwd": {"mlp_fwd_mma_kernel": "HMMA", "mlp_fwd_tf32_kernel": "HGMMA"},
                "mlp_bwd": {"mlp_bwd_mma_kernel": "HMMA"},
                "raymarch_fwd": {"rm_fwd_mma_kernel": "HMMA", "rm_fwd_tf32_kernel": "HGMMA"},
-               "raymarch_bwd": {"rm_bwd_mma_kernel": "HMMA"}}
+               "raymarch_bwd": {"rm_bwd_mma_kernel": "HMMA"},
+               "raymarch_comp_bwd": {"rm_comp_bwd_mma_kernel": "HMMA"},
+               "mlp_loss_comp": {"mlp_loss_comp_mma_kernel": "HMMA"}}
+# The backwards on the tensor-core tiles whose registers, spills and SASS
+# counts the run prints side by side (B2, B6, B7, B5).
+BWD_MMA_KERNELS = {"mlp_bwd": "mlp_bwd_mma_kernel", "raymarch_bwd": "rm_bwd_mma_kernel",
+                   "raymarch_comp_bwd": "rm_comp_bwd_mma_kernel",
+                   "mlp_loss_comp": "mlp_loss_comp_mma_kernel"}
 
 
 def tensor_core_report(kl, build_log: str) -> dict:
@@ -1746,12 +1919,21 @@ def tensor_core_report(kl, build_log: str) -> dict:
     import re
     import shutil
 
-    block = None
+    block, entry, ptxas = None, None, {}
     for line in build_log.splitlines():
         if line.startswith("--- "):
             block = line[4:].strip()
         elif block in MMA_KERNELS and "ptxas" in line:
             log(f"  ptxas {block}: {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif block in BWD_MMA_KERNELS and BWD_MMA_KERNELS[block] in (entry or ""):
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                ptxas[block] = {"spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))}
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                ptxas.setdefault(block, {})["registers"] = int(m.group(1))
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         log("SASS: cuobjdump not available, tensor-core instructions not counted")
@@ -1772,6 +1954,12 @@ def tensor_core_report(kl, build_log: str) -> dict:
             mma = {f: c for f, c in counts.items() if kernel in f}
             if not mma or not all(c[op] > 0 for c in mma.values()):
                 raise AssertionError(f"{lib}: no {op} instruction in {kernel}: {mma}")
+    report["backwards"] = {}
+    for lib, kernel in BWD_MMA_KERNELS.items():
+        sass = next(c for f, c in report[lib].items() if kernel in f)
+        report["backwards"][kernel] = {**ptxas.get(lib, {}), "HMMA": sass["HMMA"]}
+    log(f"backwards on the tensor-core tiles (registers, spill bytes, SASS HMMA): "
+        f"{report['backwards']}")
     return report
 
 
@@ -1857,7 +2045,8 @@ def main() -> int:
             "library_ms": r["library_ms"], "dtype": "bfloat16",
             **{k: v for k, v in r.items() if k in (
                 "rows", "rays", "samples", "ms_fine_pass", "max_abs_err_s128", "library", "design",
-                "tflops", "share_of_bound", "tflops_fine_pass", "max_abs_err_ragged")},
+                "tflops", "share_of_bound", "tflops_fine_pass", "max_abs_err_ragged", "ms_s64",
+                "max_abs_err_s100")},
             "f32": timings[prefix + "float32"][kname],
         })
     for kname, (src, replaces) in PROBE_SOURCES.items():
@@ -1873,6 +2062,8 @@ def main() -> int:
                       "sass": timings["sass"], "b2_vs_f64_chain": timings["b2_vs_f64_chain"],
                       "b1_f32_vs_f64_chain": timings["b1_f32_vs_f64_chain"],
                       "b6_vs_f64_chain": timings["b6_vs_f64_chain"],
+                      "b7_vs_f64_chain": timings["b7_vs_f64_chain"],
+                      "b5_vs_f64_chain": timings["b5_vs_f64_chain"],
                       "eval_patch": timings["eval_patch"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

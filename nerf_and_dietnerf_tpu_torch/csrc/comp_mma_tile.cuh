@@ -1,0 +1,195 @@
+// The ray-group loop of the compositing backwards on the bf16 tensor-core
+// tiles of mlp_mma_tile.cuh: B7's backward (raymarch_comp_bwd.cu) and B5
+// (mlp_loss_comp.cu). Their f32 instances keep the FMA tiles of
+// mlp_common.cuh / mlp_bwd_tile.cuh.
+//
+// A block owns whole rays, as the compositing needs: a group is the rays
+// that fit in one 128-row tile, rays_per_group(S) = S >= BM ? 1 : BM / S (two
+// rays at S = 64, one at S = 128, one in a part-filled tile at S = 100); at
+// S > 128 a ray spans ceil(S / 128) tiles. Per group:
+//   1. forward, once per row: for each tile the caller's policy builds X and
+//      D, then forward_tile keeps the ten post-activations in that tile's
+//      NACT slots and writes the raw values to RAW;
+//   2. compositing, one thread per ray (the policy: composite_ray_bwd, for B5
+//      first composite_ray, the error and its cotangent);
+//   3. the walk: for each tile the GI tile (grgb | gsig | bf16(gsig), as
+//      load_cotangent makes it) from GRAW, then backward_walk over the kept
+//      slots; dx goes to the block's BM x xyz f32 slab (the tile as a call of
+//      its own, as B6's backward does), and after a barrier one thread per row
+//      writes dz = DZC + the policy's share of the points.
+// No row is forwarded twice. At S <= 128 (every training call of both
+// kernels) a group is one tile: X, D and P still hold what the walk reads.
+// At S > 128 the block keeps every tile's slots (tiles_per_group(S) x NACT x
+// 128 x 256 bf16: 655,360 bytes a tile, 2.6 MB a block at S = 512, in its
+// scratch) and rebuilds X, D and P from them before each tile's walk;
+// recomputing the forward instead would cost a third more products.
+//
+// Shared memory (bytes): the backward tiles, 209,408, then 9 floats per row
+// of the group (RAW 4 | GRAW 4 | DZC 1) and one per ray (ERR, B5's squared
+// errors): at S <= 128 at most 128 rows and 128 rays, 214,528 in all; at
+// S = MAX_S_COMP = 512, 227,844 of the 232,448 a block may use. Chosen over
+// an L2 slab such as B6's dx slab: the tiles alone (209,408) already hold a
+// block alone on its SM, so the rows cost no occupancy, and the serial
+// compositing pass, which reads RAW three times and writes GRAW and DZC,
+// runs on shared memory's latency. (No L2 variant was built or timed.)
+//
+// Weight gradients as B2: each block walks a fixed, strided set of groups
+// into its own slab, and a second launch adds the slabs in block order, so
+// they are bitwise reproducible (B5's loss share with them).
+#pragma once
+
+#include <stdint.h>
+
+#include "composite_common.cuh"
+#include "mlp_mma_tile.cuh"
+
+namespace nerf_cmma {
+
+// Every product sums each 16-deep step into a fresh accumulator (mma_step):
+// with the tensor core's truncating running sum (B2's tile) these kernels sat
+// farther from the exact sums than the plain version. A row whose raw sigma
+// lies within rounding noise of 0 still crosses the compositing's kink
+// (max(sigma, 0); the sigma cotangent is 0 below it) in any other order of
+// summation; `raw` lets the checks take the kernel's side of it
+// (chip_smoke.py KINK_SHARE, tools/comp_kink.py).
+constexpr bool FRESH = true;
+
+using nerf_mlp::Dims;
+using nerf_mlp::Layout;
+using nerf_mma::BM;
+using nerf_mma::bf16;
+using nerf_mma::MmaLayout;
+
+__host__ __device__ constexpr int rays_per_group(int S) { return S >= BM ? 1 : BM / S; }
+// 128-row tiles of one group.
+__host__ __device__ constexpr int tiles_per_group(int S) {
+  return (rays_per_group(S) * S + BM - 1) / BM;
+}
+// Groups of (R, S), or 0 where S is not a count the kernels take.
+inline int n_groups(int R, int S) {
+  if (S <= 0 || S > nerf_comp::MAX_S_COMP) return 0;
+  const int rpg = rays_per_group(S);
+  return (R + rpg - 1) / rpg;
+}
+// Activation-slot elements (bf16) a block keeps for one group.
+__host__ __device__ constexpr long long act_elems(int S) {
+  return (long long)tiles_per_group(S) * nerf_mma::NACT * nerf_mma::SLOT;
+}
+
+constexpr size_t smem_bytes(int S) {
+  return nerf_mma::bwd_smem_bytes() +
+         sizeof(float) * (size_t)rays_per_group(S) * (9 * (size_t)S + 1);
+}
+constexpr size_t max_smem_bytes() {
+  size_t m = 0;
+  for (int S = 1; S <= nerf_comp::MAX_S_COMP; ++S) m = smem_bytes(S) > m ? smem_bytes(S) : m;
+  return m;
+}
+static_assert(max_smem_bytes() == smem_bytes(nerf_comp::MAX_S_COMP) &&
+                  max_smem_bytes() <= 232448,
+              "the group's rows must fit beside the backward tiles");
+
+// The rays a block owns in one step: [ray0, ray0 + n_rays), rows n_rays * S.
+struct Group {
+  int ray0, n_rays, rows;
+};
+
+__device__ inline Group group_at(int group, int R, int S) {
+  Group g;
+  g.ray0 = group * rays_per_group(S);
+  g.n_rays = min(rays_per_group(S), R - g.ray0);
+  g.rows = g.n_rays * S;
+  return g;
+}
+
+// The backward of the groups group = blockIdx.x, + gridDim.x, ... < n_groups
+// of (R, S) rays. `Policy` (the kernel's own) provides
+//   void inputs(const Group&, int r0, bf16* X, bf16* D): the X and D tiles of
+//       the group's rows [r0, r0 + BM), rows at or past g.rows and pad columns
+//       zero;
+//   float composite(const Group&, int i, const float* raw, float* graw,
+//       float* dzc): ray i's raw cotangent and compositing dz; returns a value
+//       the loop sums over the block's rays in ray order (B5: the ray's
+//       squared error);
+//   float dz(const Group&, int row, const float* gx, const bf16* x): the
+//       points' share of row `row`'s dz from its dx (gx, xyz floats) and its X
+//       row.
+// `part` is the block's gradient slab, `acts` its act_elems(S) slots, `dxs`
+// its BM x xyz f32 slab. `raw`, where not null, receives the raw values the
+// compositing read, (R S, 4) f32: the checks take each sample's side of the
+// compositing's kink (max(sigma, 0)) from it. Returns (in thread 0) the sum of
+// composite's values.
+template <class Policy>
+__device__ inline float backward_groups(const Policy& pol, void* smem, const Dims& dm,
+                                        const Layout& L, const MmaLayout& M,
+                                        const bf16* __restrict__ F, const bf16* __restrict__ Bp,
+                                        const float* __restrict__ B, float* part, bf16* acts,
+                                        float* dxs, float* __restrict__ dz,
+                                        float* __restrict__ raw, int R, int S, int n_groups) {
+  namespace mm = nerf_mma;
+  const mm::Tiles t = mm::make_tiles(smem, true);
+  const int rpg = rays_per_group(S);
+  float* RAW = t.GI + BM * 8;       // (rpg S, 4) raw radiance
+  float* GRAW = RAW + 4 * rpg * S;  // (rpg S, 4) its cotangent
+  float* DZC = GRAW + 4 * rpg * S;  // (rpg S) the compositing's dz
+  float* ERR = DZC + rpg * S;       // (rpg) composite's values
+  const mm::Mat f0 = mm::fmat(F, M, 0), b10 = mm::bmat(Bp, M, 10);
+  const int last_slot = dm.has_dir ? 8 : 9;  // the rgb branch's last post-activation
+  const size_t tile_slots = (size_t)mm::NACT * mm::SLOT;
+  const int tid = threadIdx.x;
+  mm::Ring ring{t.ring, 0};
+  mm::ring_start(ring, f0);
+  bool first = true;
+  float sum = 0.f;
+  for (int group = blockIdx.x; group < n_groups; group += gridDim.x) {
+    const Group g = group_at(group, R, S);
+    const int n_tiles = (g.rows + BM - 1) / BM;
+    // 1. the forward, once per row
+    for (int j = 0; j < n_tiles; ++j) {
+      __syncthreads();
+      pol.inputs(g, j * BM, t.X, t.D);
+      __syncthreads();
+      Dims tdm = dm;
+      tdm.n = min(BM, g.rows - j * BM);
+      mm::forward_tile<FRESH>(tdm, L, M, F, B, t, ring, acts + j * tile_slots, RAW + 4 * j * BM, 0,
+                       j + 1 < n_tiles ? &f0 : &b10);
+    }
+    __syncthreads();
+    if (raw != nullptr)
+      for (int i = tid; i < 4 * g.rows; i += blockDim.x) raw[(size_t)g.ray0 * S * 4 + i] = RAW[i];
+    // 2. the compositing, one thread per ray
+    if (tid < g.n_rays)
+      ERR[tid] = pol.composite(g, tid, RAW + (size_t)tid * S * 4, GRAW + (size_t)tid * S * 4,
+                               DZC + (size_t)tid * S);
+    __syncthreads();
+    if (tid == 0)
+      for (int i = 0; i < g.n_rays; ++i) sum += ERR[i];
+    // 3. the walk over the kept slots, then dz
+    for (int j = 0; j < n_tiles; ++j) {
+      const bf16* slots = acts + j * tile_slots;
+      if (n_tiles > 1) {
+        __syncthreads();
+        pol.inputs(g, j * BM, t.X, t.D);
+        mm::load_slot(t.P, slots + last_slot * mm::SLOT, mm::pad16(dm.last));
+      }
+      mm::load_cotangent(t.GI, GRAW, j * BM, g.rows);
+      __syncthreads();
+      Dims tdm = dm;  // the tile as a call of its own: its dx rows go to dxs
+      tdm.n = min(BM, g.rows - j * BM);
+      const mm::Mat* after =
+          j + 1 < n_tiles ? &b10 : group + (int)gridDim.x < n_groups ? &f0 : nullptr;
+      mm::backward_walk<FRESH>(tdm, L, M, Bp, t, ring, slots, part, first, 0, dxs, nullptr, after,
+                                b10);
+      first = false;
+      __syncthreads();
+      if (tid < tdm.n) {
+        const int row = j * BM + tid;
+        dz[(size_t)g.ray0 * S + row] =
+            DZC[row] + pol.dz(g, row, dxs + tid * dm.xyz, t.X + tid * mm::LDX);
+      }
+    }
+  }
+  return sum;
+}
+
+}  // namespace nerf_cmma

@@ -25,13 +25,24 @@
 // against 66 bytes of bf16 encoding and 4 of z in and 4 of dz out per row.
 //
 // What the design does about that: ONE forward per row and no recompute, the
-// kernel's defining property: the structure of the B4 backward (whole rays
-// per block, each chunk's ten activations kept in the block's scratch slab,
-// raw values and cotangents in shared memory, backward_walk per chunk), with
-// the cotangent made in the kernel. On the TPU the loss is summed across
-// sequential grid steps; blocks here run in no order, so a block's loss share
-// is the last entry of its gradient slab, and the second launch adds the
-// slabs in block order: the loss and the gradients are bitwise reproducible.
+// kernel's defining property: whole rays per block, every tile's ten
+// activations kept in the block's scratch slab, raw values and cotangents in
+// shared memory, the chain back over the kept activations, with the
+// cotangent made in the kernel.
+// - bf16 (every `fuse_fine_loss` train step): the ray-group loop of
+//   comp_mma_tile.cuh on the tensor-core tiles of mlp_mma_tile.cuh (128-row
+//   tiles, `mma.sync`): X copied from the bf16 encodings, D each ray's f32
+//   view-dir encoding rounded to bf16 into every row (load_comp_mma_inputs),
+//   dx through a per-block BM x xyz slab into dz_points, which reads the X
+//   tile's bf16 values widened to f32; `w` / `wt` are the F and B packs.
+// - f32 (parity runs only): the FMA tiles (the structure of the B4 backward,
+//   64-row chunks, backward_walk per chunk); `w` / `wt` the flat weights and
+//   their transposes.
+// On the TPU the loss is summed across sequential grid steps; blocks here run
+// in no order, so a block's loss share is the last entry of its gradient
+// slab, and the second launch adds the slabs in block order: the loss and the
+// gradients are bitwise reproducible.
+#include "comp_mma_tile.cuh"
 #include "mlp_bwd_tile.cuh"
 #include "mlp_comp_common.cuh"
 
@@ -48,20 +59,20 @@ constexpr size_t loss_comp_smem_bytes(int S) {
 static_assert(loss_comp_smem_bytes(MAX_S_COMP) <= 232448, "shared memory of a block");
 
 // The points' share of one row's dz: its xyz-encoding cotangent gx and its
-// encoding x (rows of the GX and X tiles) through the encoding VJP, then the
-// ray's direction.
-__device__ inline float dz_points(const float* gx, const float* x, int n_freq,
-                                  const float* dvec) {
+// encoding x (rows of the dx and X tiles; X f32 or bf16, read widened) through
+// the encoding VJP, then the ray's direction.
+template <typename X>
+__device__ inline float dz_points(const float* gx, const X* x, int n_freq, const float* dvec) {
   const int per = 1 + 2 * n_freq;
   float dz = 0.f;
   for (int c = 0; c < 3; ++c) {
     const float* g = gx + c * per;
-    const float* e = x + c * per;
+    const X* e = x + c * per;
     float s = g[0];
     for (int k = 0; k < n_freq; ++k) {
       const float f = ldexpf(PI_F, k);
-      s += g[1 + 2 * k] * (f * e[2 + 2 * k]);
-      s += g[2 + 2 * k] * (-f * e[1 + 2 * k]);
+      s += g[1 + 2 * k] * (f * to_f<X>(e[2 + 2 * k]));
+      s += g[2 + 2 * k] * (-f * to_f<X>(e[1 + 2 * k]));
     }
     dz += s * dvec[c];
   }
@@ -141,23 +152,124 @@ __global__ void __launch_bounds__(NT, 1)
   if (tid == 0) part[p_total - 1] = sq_err * inv_n;
 }
 
-template <typename T>
-static int launch(const Dims& dm, const void* enc, const float* encd, const float* z,
+// The X (BM x LDX) and D (BM x LDD) bf16 tiles of the group's rows [r0, r0 +
+// BM): the xyz encodings' bf16 rows copied, each ray's f32 view-dir encoding
+// rounded to bf16 into every row of the ray (as load_chunk); rows at or past
+// g.rows and the pad columns zero.
+__device__ inline void load_comp_mma_inputs(const EncRays<nerf_mma::bf16>& in, const Dims& dm,
+                                            const nerf_cmma::Group& g, int r0, nerf_mma::bf16* X,
+                                            nerf_mma::bf16* D) {
+  nerf_mma::load_tile(X, nerf_mma::LDX, in.enc + (size_t)g.ray0 * in.S * dm.xyz, dm.xyz, r0,
+                      g.rows);
+  if (!dm.has_dir) return;
+  const int dp = nerf_mma::pad16(dm.dir);
+  for (int i = threadIdx.x; i < nerf_mma::BM * dp; i += nerf_mma::NT) {
+    const int r = i / dp, c = i - r * dp, row = r0 + r;
+    D[r * nerf_mma::LDD + c] = __float2bfloat16_rn(
+        row < g.rows && c < dm.dir ? in.encd[(size_t)(g.ray0 + row / in.S) * dm.dir + c] : 0.f);
+  }
+}
+
+// The bf16 kernel's per-ray work for the ray-group loop.
+struct LossComp {
+  EncRays<nerf_mma::bf16> in;
+  Dims dm;
+  const float* dvec;    // (R, 3)
+  const float* target;  // (R, 3)
+  float inv_n;
+
+  __device__ void inputs(const nerf_cmma::Group& g, int r0, nerf_mma::bf16* X,
+                         nerf_mma::bf16* D) const {
+    load_comp_mma_inputs(in, dm, g, r0, X, D);
+  }
+  // Pixel, error, its cotangent 2 inv_n err and the compositing VJP; returns
+  // the ray's squared error.
+  __device__ float composite(const nerf_cmma::Group& g, int i, const float* raw, float* graw,
+                             float* dzc) const {
+    const size_t ray = (size_t)g.ray0 + i;
+    const float* z = in.z + ray * in.S;
+    float pixel[3], g_pix[3], e2 = 0.f;
+    composite_ray(raw, z, in.S, pixel, dzc);
+    for (int ch = 0; ch < 3; ++ch) {
+      const float err = pixel[ch] - target[ray * 3 + ch];
+      e2 += err * err;
+      g_pix[ch] = (2.f * inv_n) * err;
+    }
+    composite_ray_bwd(raw, z, in.S, g_pix, nullptr, graw, dzc);
+    return e2;
+  }
+  __device__ float dz(const nerf_cmma::Group& g, int row, const float* gx,
+                      const nerf_mma::bf16* x) const {
+    return dz_points(gx, x, (dm.xyz - 3) / 6, dvec + (size_t)(g.ray0 + row / in.S) * 3);
+  }
+};
+
+// bf16: the ray groups of comp_mma_tile.cuh on the tensor cores.
+__global__ void __launch_bounds__(nerf_mma::NT, 1)
+    mlp_loss_comp_mma_kernel(Dims dm, Layout L, nerf_mma::MmaLayout M,
+                             EncRays<nerf_mma::bf16> in, const float* __restrict__ dvec,
+                             const float* __restrict__ target, float inv_n,
+                             const nerf_mma::bf16* __restrict__ F,
+                             const nerf_mma::bf16* __restrict__ Bp, const float* __restrict__ B,
+                             float* __restrict__ dz, float* __restrict__ raw,
+                             float* __restrict__ partial, nerf_mma::bf16* __restrict__ acts_all,
+                             float* __restrict__ dx_all, int groups) {
+  extern __shared__ uint4 smem16[];
+  // The block's slab: weight gradients, bias gradients, its share of the loss.
+  const size_t p_total = (size_t)L.total_w + L.total_b + 1;
+  float* part = partial + blockIdx.x * p_total;
+  const LossComp pol{in, dm, dvec, target, inv_n};
+  const float sq_err = nerf_cmma::backward_groups(
+      pol, smem16, dm, L, M, F, Bp, B, part, acts_all + blockIdx.x * nerf_cmma::act_elems(in.S),
+      dx_all + (size_t)blockIdx.x * nerf_mma::BM * dm.xyz, dz, raw, in.R, in.S, groups);
+  if (threadIdx.x == 0) part[p_total - 1] = sq_err * inv_n;
+}
+
+// Ray groups the kernel of the compute type walks (bf16: whole rays in one
+// 128-row tile; f32: about 64 rows), 0 where S is not a count it takes.
+extern "C" int nerf_comp_groups(int is_bf16, int R, int S) {
+  return is_bf16 ? nerf_cmma::n_groups(R, S) : n_groups(R, S);
+}
+// Activation-slot elements of the compute type a block keeps for a group.
+extern "C" long long nerf_comp_act_elems(int is_bf16, int S) {
+  return is_bf16 ? nerf_cmma::act_elems(S) : nerf_mlp_comp_act_slots(S);
+}
+// Rows of a block's f32 dx slab (times xyz floats); none for f32.
+extern "C" int nerf_comp_dx_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : 0; }
+
+static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd, const float* z,
                   const float* dvec, const float* target, float inv_n, int R, int S,
-                  const void* w, const void* wt, const float* b, float* dz, float* partial,
-                  void* acts, float* out, int n_blocks, cudaStream_t stream) {
-  const int groups = n_groups(R, S);
-  if (groups == 0 || n_blocks <= 0 || n_blocks > groups || dm.xyz < 3 || (dm.xyz - 3) % 6 != 0)
+                  const void* w, const void* wt, const float* b, float* dz, float* raw,
+                  float* partial, void* acts, float* dxs, float* out, int n_blocks,
+                  cudaStream_t stream) {
+  const int groups = nerf_comp_groups(bf16, R, S);
+  if (groups == 0 || n_blocks <= 0 || n_blocks > groups || dm.xyz < 3 || (dm.xyz - 3) % 6 != 0 ||
+      (bf16 && dxs == nullptr) || (!bf16 && raw != nullptr))
     return (int)cudaErrorInvalidValue;
   const Layout L = make_layout(dm);
-  const EncRays<T> in{static_cast<const T*>(enc), encd, z, R, S};
-  const size_t smem = loss_comp_smem_bytes(S);
-  cudaFuncSetAttribute(mlp_loss_comp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  mlp_loss_comp_kernel<T><<<n_blocks, NT, smem, stream>>>(
-      dm, L, in, dvec, target, inv_n, static_cast<const T*>(w), static_cast<const T*>(wt), b, dz,
-      partial, static_cast<T*>(acts), groups);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (bf16) {
+    using nerf_mma::bf16;
+    const EncRays<bf16> in{static_cast<const bf16*>(enc), encd, z, R, S};
+    const size_t smem = nerf_cmma::smem_bytes(S);
+    err = cudaFuncSetAttribute(mlp_loss_comp_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mlp_loss_comp_mma_kernel<<<n_blocks, nerf_mma::NT, smem, stream>>>(
+        dm, L, nerf_mma::make_mma_layout(L), in, dvec, target, inv_n,
+        static_cast<const bf16*>(w), static_cast<const bf16*>(wt), b, dz, raw, partial,
+        static_cast<bf16*>(acts), dxs, groups);
+  } else {
+    const EncRays<float> in{static_cast<const float*>(enc), encd, z, R, S};
+    const size_t smem = loss_comp_smem_bytes(S);
+    err = cudaFuncSetAttribute(mlp_loss_comp_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mlp_loss_comp_kernel<float><<<n_blocks, NT, smem, stream>>>(
+        dm, L, in, dvec, target, inv_n, static_cast<const float*>(w),
+        static_cast<const float*>(wt), b, dz, partial, static_cast<float*>(acts), groups);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_reduce(partial, n_blocks, (size_t)L.total_w + L.total_b + 1, out, stream);
 }
@@ -166,20 +278,20 @@ static int launch(const Dims& dm, const void* enc, const float* encd, const floa
 // and target (R, 3) pixels, f32; inv_n = 1 / (3 R). Out: dz (R, S) f32 and
 // `out` (nerf_mlp_param_count + 1) f32: the weight gradients, the bias
 // gradients, then the loss. Scratch the caller allocates: partial (n_blocks *
-// (nerf_mlp_param_count + 1)) f32 and acts (n_blocks *
-// nerf_mlp_comp_act_slots(S)) elements of the compute type, with
-// 1 <= n_blocks <= nerf_mlp_comp_groups(R, S).
+// (nerf_mlp_param_count + 1)) f32, acts (n_blocks *
+// nerf_comp_act_elems(is_bf16, S)) elements of the compute type and, for
+// bf16, dxs (n_blocks * nerf_comp_dx_rows(1) * xyz) f32, with 1 <= n_blocks
+// <= nerf_comp_groups(is_bf16, R, S). w, wt: for bf16 the F and B packs
+// (mlp_mma_tile.cuh), for f32 the flat weights and their transposes. raw:
+// null, or for bf16 (R, S, 4) f32 that receives the raw values composited.
 // Returns cudaGetLastError() (0 on success).
 extern "C" int nerf_mlp_loss_comp(int is_bf16, int has_dir, const void* enc, const float* encd,
                                   const float* z, const float* dvec, const float* target,
                                   const void* w, const void* wt, const float* b, float* dz,
-                                  float* partial, void* acts, float* out, int n_blocks, int R,
-                                  int S, int xyz, int dir, int hid, int last, float alpha,
-                                  float inv_n, void* stream) {
+                                  float* raw, float* partial, void* acts, float* dxs, float* out,
+                                  int n_blocks, int R, int S, int xyz, int dir, int hid, int last,
+                                  float alpha, float inv_n, void* stream) {
   const Dims dm{R * S, xyz, dir, hid, last, has_dir, alpha};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(dm, enc, encd, z, dvec, target, inv_n, R, S, w, wt, b,
-                                         dz, partial, acts, out, n_blocks, s)
-                 : launch<float>(dm, enc, encd, z, dvec, target, inv_n, R, S, w, wt, b, dz,
-                                 partial, acts, out, n_blocks, s);
+  return launch(is_bf16 != 0, dm, enc, encd, z, dvec, target, inv_n, R, S, w, wt, b, dz, raw,
+                partial, acts, dxs, out, n_blocks, static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,11 @@
 // bf16 tensor-core device code of the radiance-MLP kernels B1 (mlp_fwd.cu)
 // and B2 (mlp_bwd.cu), which the ray-march kernels B6 (raymarch_fwd.cu,
-// raymarch_bwd.cu) run on the inputs they build: the forward tile (B1, and
-// B2's recompute), the input-gradient chain G W^T and the weight-gradient
-// products A^T G. f32 B1 and B6 forward run mlp_tf32_tile.cuh; f32 B2 and B6
-// backward and every other kernel keep the FMA tiles of mlp_common.cuh /
+// raymarch_bwd.cu) run on the inputs they build and the compositing
+// backwards B7 (raymarch_comp_bwd.cu) and B5 (mlp_loss_comp.cu) run through
+// the ray-group loop of comp_mma_tile.cuh: the forward tile (B1, and B2's
+// recompute), the input-gradient chain G W^T and the weight-gradient
+// products A^T G. f32 B1 and B6 forward run mlp_tf32_tile.cuh; the other f32
+// instances and every other kernel keep the FMA tiles of mlp_common.cuh /
 // mlp_bwd_tile.cuh.
 //
 // Products: `mma.sync.m16n8k16` bf16 x bf16 -> f32, as the P1 probe measured
@@ -50,7 +52,9 @@
 //
 // Backward (B2): the tile's forward is recomputed with its ten post-
 // activations copied to the block's scratch slab (10 x 128 x 256 bf16 =
-// 640 KB; they do not fit beside G), then read back one at a time. Weight
+// 640 KB; they do not fit beside G), then read back one at a time
+// (`backward_tile` = `forward_tile` + `backward_walk`; the compositing
+// backwards of comp_mma_tile.cuh run the two apart, one forward per row). Weight
 // gradients: each 128-row tile's A^T G (`ldmatrix.trans` of the row-major
 // tiles, 64 x 32 warp tiles) is added to the block's f32 slab by the one
 // thread that owns each entry; a second launch adds the slabs in block order
@@ -154,6 +158,23 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a b, one m16n8k16 step. FRESH: the tensor core sums the step's 16
+// products into a fresh zero accumulator, which round-to-nearest f32 adds
+// then add to c (the per-chunk partials of mlp_tf32_tile.cuh, for mma.sync):
+// the tensor core's own running sum, which truncates, never carries c.
+template <bool FRESH>
+__device__ __forceinline__ void mma_step(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (FRESH) {
+    float p[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_bf16(p, a, b0, b1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += p[e];
+  } else {
+    mma_bf16(c, a, b0, b1);
+  }
+}
+
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float round_bf(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -230,6 +251,7 @@ __device__ __forceinline__ void ring_start(Ring& ring, const Mat& m) {
 // Expects m's first chunk issued into ring.stage; issues `next`'s first chunk
 // (if any) while it computes its last. Ends with a barrier, so the caller may
 // overwrite A afterwards.
+template <bool FRESH = false>
 __device__ __forceinline__ void mma_rows(Acc& acc, const bf16* A, int lda, const Mat& m,
                                          const Mat* next, Ring& ring) {
   const int lane = threadIdx.x & 31;
@@ -259,8 +281,8 @@ __device__ __forceinline__ void mma_rows(Acc& acc, const bf16* A, int lda, const
           ldsm_x4(b, cur + 16 * f.pair(q) * LDW + b_off + kk);
 #pragma unroll
           for (int mt = 0; mt < 4; ++mt) {
-            mma_bf16(acc[mt][q][0], a[mt], b[0], b[1]);
-            mma_bf16(acc[mt][q][1], a[mt], b[2], b[3]);
+            mma_step<FRESH>(acc[mt][q][0], a[mt], b[0], b[1]);
+            mma_step<FRESH>(acc[mt][q][1], a[mt], b[2], b[3]);
           }
         }
       }
@@ -275,6 +297,7 @@ __device__ __forceinline__ void mma_rows(Acc& acc, const bf16* A, int lda, const
 // (Kp x Np) result is cut into 64 x 32 warp tiles dealt out to the warps;
 // each entry of dst is written by one thread. The slab's old values are
 // loaded before the products, so their latency hides behind the mma.
+template <bool FRESH = false>
 __device__ inline void mma_wgrad(float* __restrict__ dst, const bf16* A, int lda, int K, const bf16* G,
                                  int ldg, int N, bool first) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -310,8 +333,8 @@ __device__ inline void mma_wgrad(float* __restrict__ dst, const bf16* A, int lda
 #pragma unroll
           for (int mt = 0; mt < 4; ++mt) {
             if (m0 + 16 * mt < Kp) {
-              mma_bf16(c[mt][2 * p], a[mt], b[0], b[1]);
-              mma_bf16(c[mt][2 * p + 1], a[mt], b[2], b[3]);
+              mma_step<FRESH>(c[mt][2 * p], a[mt], b[0], b[1]);
+              mma_step<FRESH>(c[mt][2 * p + 1], a[mt], b[2], b[3]);
             }
           }
         }
@@ -564,6 +587,7 @@ __device__ __forceinline__ void store_rows(const Acc& acc, float* __restrict__ d
 // With `keep`, post-activations go to its NACT slots (trunk 0..7, then the
 // rgb branch's hidden layers). With `out`, the (n, 4) raw rows are written.
 // `after`: the product whose first chunk to issue during the last one.
+template <bool FRESH = false>
 __device__ inline void forward_tile(const Dims& dm, const Layout& L, const MmaLayout& M,
                                     const bf16* __restrict__ F, const float* __restrict__ B,
                                     const Tiles& t, Ring& ring, bf16* keep, float* out, int row0,
@@ -575,10 +599,10 @@ __device__ inline void forward_tile(const Dims& dm, const Layout& L, const MmaLa
     zero_acc(acc);
     if (l == SKIP) {
       const Mat nx = fmat(F, M, SKIP + 1);
-      mma_rows(acc, t.X, LDX, fmat(F, M, SKIP), &nx, ring);
+      mma_rows<FRESH>(acc, t.X, LDX, fmat(F, M, SKIP), &nx, ring);
     }
     const Mat nx = fmat(F, M, i + 1);
-    mma_rows(acc, l == 0 ? t.X : t.P, l == 0 ? LDX : LDH, fmat(F, M, i), &nx, ring);
+    mma_rows<FRESH>(acc, l == 0 ? t.X : t.P, l == 0 ? LDX : LDH, fmat(F, M, i), &nx, ring);
     store_leaky(acc, B + L.b[l], dm.hid, M.np[i], alpha, t.P);
     __syncthreads();
     if (keep) store_slot(keep + l * SLOT, t.P, M.np[i]);
@@ -601,19 +625,19 @@ __device__ inline void forward_tile(const Dims& dm, const Layout& L, const MmaLa
   zero_acc(acc);
   if (dm.has_dir) {
     const Mat nx = fmat(F, M, 10);
-    mma_rows(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
-    mma_rows(acc, t.D, LDD, fmat(F, M, 10), after, ring);
+    mma_rows<FRESH>(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
+    mma_rows<FRESH>(acc, t.D, LDD, fmat(F, M, 10), after, ring);
     store_leaky(acc, B + L.b[8], dm.last, M.np[9], alpha, t.P);
     __syncthreads();
     if (keep) store_slot(keep + 8 * SLOT, t.P, M.np[9]);
   } else {
     const Mat nx = fmat(F, M, 10);
-    mma_rows(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
+    mma_rows<FRESH>(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
     store_leaky(acc, B + L.b[8], dm.hid, M.np[9], alpha, t.P);
     __syncthreads();
     if (keep) store_slot(keep + 8 * SLOT, t.P, M.np[9]);
     zero_acc(acc);
-    mma_rows(acc, t.P, LDH, fmat(F, M, 10), after, ring);
+    mma_rows<FRESH>(acc, t.P, LDH, fmat(F, M, 10), after, ring);
     store_leaky(acc, B + L.b[9], dm.last, M.np[10], alpha, t.P);
     __syncthreads();
     if (keep) store_slot(keep + 9 * SLOT, t.P, M.np[10]);
@@ -644,22 +668,23 @@ __device__ inline void forward_tile(const Dims& dm, const Layout& L, const MmaLa
 // --------------------------------------------------------------------------
 // Backward tile
 
-// The backward of one tile whose X, D and GI are loaded (and a barrier
-// passed) and whose first forward chunk is issued: the forward recomputed
-// into `acts` (the block's NACT slots), then the chain back. Weight and bias
-// gradients go to the block's slab `part` (weights, then biases), written on
-// its first tile and added to after; dx and dd rows to global memory.
-__device__ inline void backward_tile(const Dims& dm, const Layout& L, const MmaLayout& M,
-                                     const bf16* __restrict__ F, const bf16* __restrict__ Bp,
-                                     const float* __restrict__ B, const Tiles& t, Ring& ring,
-                                     bf16* acts, float* part, bool first, int row0, float* dx,
-                                     float* dd, const Mat* after) {
+// The chain back over one tile whose forward kept its post-activations in
+// `acts` (the NACT slots, as forward_tile keeps them), with X, D and GI
+// loaded, P holding the rgb branch's last post-activation (the forward's
+// last; slot 8 with view dirs, 9 without), a barrier passed and the B pack's
+// matrix 10 (`b10`) issued into the ring. Weight and bias gradients go to the
+// block's slab `part` (weights, then biases), written on its first tile
+// (`first`) and added to after; dx and dd rows to global memory (dd where
+// given). `after`: the product whose first chunk to issue during the last.
+template <bool FRESH = false>
+__device__ inline void backward_walk(const Dims& dm, const Layout& L, const MmaLayout& M,
+                                     const bf16* __restrict__ Bp, const Tiles& t, Ring& ring,
+                                     const bf16* acts, float* part, bool first, int row0,
+                                     float* dx, float* dd, const Mat* after, const Mat& b10) {
   const float alpha = dm.alpha;
   const float alpha_t = round_bf(alpha);
   const int HP = pad16(dm.hid), LP = pad16(dm.last);
   float* pb = part + L.total_w;
-  const Mat b10 = bmat(Bp, M, 10);
-  forward_tile(dm, L, M, F, B, t, ring, acts, nullptr, row0, &b10);
 
   // rgb_out (last, 3): its weight and bias gradients, then g_rgb_h =
   // head_grad(grgb @ Wro^T) with K = 3 in f32 (Wro in the B pack, row stride 16).
@@ -685,8 +710,8 @@ __device__ inline void backward_tile(const Dims& dm, const Layout& L, const MmaL
   Acc acc;
   if (dm.has_dir) {
     load_slot(t.P, acts + 7 * SLOT, HP);  // h8
-    mma_wgrad(part + L.w[9], t.P, LDH, dm.hid, t.G, LDH, dm.last, first);
-    mma_wgrad(part + L.w[10], t.D, LDD, dm.dir, t.G, LDH, dm.last, first);
+    mma_wgrad<FRESH>(part + L.w[9], t.P, LDH, dm.hid, t.G, LDH, dm.last, first);
+    mma_wgrad<FRESH>(part + L.w[10], t.D, LDD, dm.dir, t.G, LDH, dm.last, first);
     bgrad(pb + L.b[8], t.G, LDH, dm.last, first);
     narrow_wgrad(part + L.w[12], t.P, LDH, dm.hid, t.GI + 3, 1, first);
     narrow_wgrad(part + L.w[13], t.D, LDD, dm.dir, t.GI + 3, 1, first);
@@ -694,30 +719,30 @@ __device__ inline void backward_tile(const Dims& dm, const Layout& L, const MmaL
     // dd = g_rgb_h @ Wrh_d^T + gsig @ Wsig_d^T
     const Mat b9 = bmat(Bp, M, 9), b8 = bmat(Bp, M, 8);
     zero_acc(acc);
-    mma_rows(acc, t.G, LDH, b10, &b9, ring);
+    mma_rows<FRESH>(acc, t.G, LDH, b10, &b9, ring);
     add_rank1(acc, t.GI, Bp + M.off[13], dm.dir);
     if (dd) store_rows(acc, dd, dm.dir, row0, dm.n, false);
     // g_h8 = g_rgb_h @ Wrh_h^T + gsig @ Wsig_h^T
     zero_acc(acc);
-    mma_rows(acc, t.G, LDH, b9, &b8, ring);
+    mma_rows<FRESH>(acc, t.G, LDH, b9, &b8, ring);
     add_rank1(acc, t.GI, Bp + M.off[12], dm.hid);
   } else {
     load_slot(t.P, acts + 8 * SLOT, HP);  // r0
-    mma_wgrad(part + L.w[10], t.P, LDH, dm.hid, t.G, LDH, dm.last, first);
+    mma_wgrad<FRESH>(part + L.w[10], t.P, LDH, dm.hid, t.G, LDH, dm.last, first);
     bgrad(pb + L.b[9], t.G, LDH, dm.last, first);
     const Mat b9 = bmat(Bp, M, 9), b8 = bmat(Bp, M, 8);
     zero_acc(acc);
-    mma_rows(acc, t.G, LDH, b10, &b9, ring);
+    mma_rows<FRESH>(acc, t.G, LDH, b10, &b9, ring);
     grad_tile(acc, t.P, dm.hid, HP, alpha_t, true, t.G);  // g_r0
     __syncthreads();
     load_slot(t.P, acts + 7 * SLOT, HP);  // h8
-    mma_wgrad(part + L.w[9], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
+    mma_wgrad<FRESH>(part + L.w[9], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
     bgrad(pb + L.b[8], t.G, LDH, dm.hid, first);
     narrow_wgrad(part + L.w[12], t.P, LDH, dm.hid, t.GI + 3, 1, first);
     narrow_bgrad(pb + L.b[11], t.GI + 3, 1, first);
     // g_h8 = g_r0 @ Wrh0^T + gsig @ Wsig^T
     zero_acc(acc);
-    mma_rows(acc, t.G, LDH, b9, &b8, ring);
+    mma_rows<FRESH>(acc, t.G, LDH, b9, &b8, ring);
     add_rank1(acc, t.GI, Bp + M.off[12], dm.hid);
   }
 
@@ -730,27 +755,40 @@ __device__ inline void backward_tile(const Dims& dm, const Layout& L, const MmaL
     bgrad(pb + L.b[l], t.G, LDH, dm.hid, first);
     const int i = trunk_w(l);
     if (l == SKIP) {
-      mma_wgrad(part + L.w[SKIP], t.X, LDX, dm.xyz, t.G, LDH, dm.hid, first);
-      mma_wgrad(part + L.w[SKIP + 1], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
+      mma_wgrad<FRESH>(part + L.w[SKIP], t.X, LDX, dm.xyz, t.G, LDH, dm.hid, first);
+      mma_wgrad<FRESH>(part + L.w[SKIP + 1], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
       // The skip layer's share of dx goes to dx now; layer 0 adds its own.
       const Mat b5 = bmat(Bp, M, SKIP + 1), b3 = bmat(Bp, M, SKIP - 1);
       zero_acc(acc);
-      mma_rows(acc, t.G, LDH, bmat(Bp, M, SKIP), &b5, ring);
+      mma_rows<FRESH>(acc, t.G, LDH, bmat(Bp, M, SKIP), &b5, ring);
       store_rows(acc, dx, dm.xyz, row0, dm.n, false);
       zero_acc(acc);
-      mma_rows(acc, t.G, LDH, b5, &b3, ring);
+      mma_rows<FRESH>(acc, t.G, LDH, b5, &b3, ring);
     } else if (l > 0) {
-      mma_wgrad(part + L.w[i], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
+      mma_wgrad<FRESH>(part + L.w[i], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
       const Mat nx = bmat(Bp, M, bwd_next(i));
       zero_acc(acc);
-      mma_rows(acc, t.G, LDH, bmat(Bp, M, i), &nx, ring);
+      mma_rows<FRESH>(acc, t.G, LDH, bmat(Bp, M, i), &nx, ring);
     } else {
-      mma_wgrad(part + L.w[0], t.X, LDX, dm.xyz, t.G, LDH, dm.hid, first);
+      mma_wgrad<FRESH>(part + L.w[0], t.X, LDX, dm.xyz, t.G, LDH, dm.hid, first);
       zero_acc(acc);
-      mma_rows(acc, t.G, LDH, bmat(Bp, M, 0), after, ring);
+      mma_rows<FRESH>(acc, t.G, LDH, bmat(Bp, M, 0), after, ring);
       store_rows(acc, dx, dm.xyz, row0, dm.n, true);
     }
   }
+}
+
+// The backward of one tile whose X, D and GI are loaded (and a barrier
+// passed) and whose first forward chunk is issued: the forward recomputed
+// into `acts` (the block's NACT slots), then backward_walk.
+__device__ inline void backward_tile(const Dims& dm, const Layout& L, const MmaLayout& M,
+                                     const bf16* __restrict__ F, const bf16* __restrict__ Bp,
+                                     const float* __restrict__ B, const Tiles& t, Ring& ring,
+                                     bf16* acts, float* part, bool first, int row0, float* dx,
+                                     float* dd, const Mat* after) {
+  const Mat b10 = bmat(Bp, M, 10);
+  forward_tile(dm, L, M, F, B, t, ring, acts, nullptr, row0, &b10);
+  backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);
 }
 
 }  // namespace nerf_mma

@@ -8,20 +8,28 @@
 // encoding VJP; dz = the compositing's dz (through the sample spacings) + the
 // points' dz. The rays and view components get structural-zero cotangents.
 //
-// What bounds it on an H100: operations: about 4 x 1.024 MFLOP per row (the
-// forward for the raw values, then B2's recompute, input-gradient chain and
-// weight-gradient products), against 4 + 4 bytes of z and g_w in and 4 of dz
-// out per row.
+// What bounds it on an H100: operations: about 3 x 1.024 MFLOP per row (the
+// forward, the input-gradient chain and the weight-gradient products),
+// against 4 + 4 bytes of z and g_w in and 4 of dz out per row.
 //
 // What the design does about that: a block owns whole rays, as the B7
 // forward, and keeps their raw values, raw cotangents and compositing dz in
-// shared memory (9 floats per row, MAX_S_COMP rows at most). Simple first:
-// the raw values are recomputed by a forward pass over the chunks, and B2's
-// tile recomputes the forward once more per chunk, instead of keeping every
-// chunk's ten activations. Weight gradients are summed as in B2 (per-block
-// slabs, fixed-order second launch), so they are bitwise reproducible.
+// shared memory (9 floats per row, MAX_S_COMP rows at most).
+// - bf16 (every `pallas_rm` + `fuse_compositing` train step): the ray-group
+//   loop of comp_mma_tile.cuh on the tensor-core tiles of mlp_mma_tile.cuh,
+//   ONE forward per row (forward_tile keeping the slots and writing RAW, the
+//   compositing VJP, backward_walk), X and D built into the bf16 operand
+//   tiles by raymarch_tile.cuh as in B6, dx through a per-block BM x xyz
+//   slab into dz_of_row; `w` / `wt` are the F and B packs.
+// - f32 (parity runs only): the FMA tiles, 64-row chunks; the raw values come
+//   from a forward pass over the chunks and B2's tile recomputes the forward
+//   once more per chunk; `w` / `wt` the flat weights and their transposes.
+// Weight gradients are summed as in B2 (per-block slabs, fixed-order second
+// launch), so they are bitwise reproducible.
+#include "comp_mma_tile.cuh"
 #include "mlp_bwd_tile.cuh"
 #include "raymarch_common.cuh"
+#include "raymarch_tile.cuh"
 
 using namespace nerf_mlp;
 using namespace nerf_rm;
@@ -84,49 +92,109 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-template <typename T>
-static int launch(const Dims& dm, const Rays& ry, const void* w, const void* wt, const float* b,
-                  const float* g_rgb, const float* g_w, float* dz, float* partial, void* acts,
-                  float* dparams, int n_blocks, cudaStream_t stream) {
-  if (ry.S <= 0 || ry.S > MAX_S_COMP) return (int)cudaErrorInvalidValue;
+// The bf16 backward's per-ray work for the ray-group loop.
+struct RayComp {
+  Rays ry;
+  int xyz, dir;
+  const float* g_rgb;  // (R, 3)
+  const float* g_w;    // (R, S)
+
+  __device__ void inputs(const nerf_cmma::Group& g, int r0, nerf_mma::bf16* X,
+                         nerf_mma::bf16* D) const {
+    const int grow0 = g.ray0 * ry.S;
+    build_mma_inputs(ry, xyz, dir, grow0 + r0, grow0 + g.rows, X, D);
+  }
+  __device__ float composite(const nerf_cmma::Group& g, int i, const float* raw, float* graw,
+                             float* dzc) const {
+    const size_t ray = (size_t)g.ray0 + i;
+    composite_ray_bwd(raw, ry.z + ray * ry.S, ry.S, g_rgb + ray * 3, g_w + ray * ry.S, graw, dzc);
+    return 0.f;
+  }
+  __device__ float dz(const nerf_cmma::Group& g, int row, const float* gx,
+                      const nerf_mma::bf16*) const {
+    return dz_of_row(ry, gx, g.ray0 * ry.S + row);
+  }
+};
+
+// bf16: the ray groups of comp_mma_tile.cuh on the tensor cores.
+__global__ void __launch_bounds__(nerf_mma::NT, 1)
+    rm_comp_bwd_mma_kernel(Dims dm, Layout L, nerf_mma::MmaLayout M, Rays ry,
+                           const nerf_mma::bf16* __restrict__ F,
+                           const nerf_mma::bf16* __restrict__ Bp, const float* __restrict__ B,
+                           const float* __restrict__ g_rgb, const float* __restrict__ g_w,
+                           float* __restrict__ dz, float* __restrict__ raw,
+                           float* __restrict__ partial, nerf_mma::bf16* __restrict__ acts_all,
+                           float* __restrict__ dx_all, int n_groups) {
+  extern __shared__ uint4 smem16[];
+  const size_t p_total = (size_t)L.total_w + L.total_b;
+  const RayComp pol{ry, dm.xyz, dm.dir, g_rgb, g_w};
+  nerf_cmma::backward_groups(pol, smem16, dm, L, M, F, Bp, B, partial + blockIdx.x * p_total,
+                             acts_all + blockIdx.x * nerf_cmma::act_elems(ry.S),
+                             dx_all + (size_t)blockIdx.x * nerf_mma::BM * dm.xyz, dz, raw, ry.R,
+                             ry.S, n_groups);
+}
+
+// Ray groups the backward of the compute type walks (bf16: whole rays in one
+// 128-row tile; f32: about 64 rows), 0 where S is not a count it takes.
+extern "C" int nerf_comp_groups(int is_bf16, int R, int S) {
+  if (S <= 0 || S > MAX_S_COMP) return 0;
+  if (is_bf16) return nerf_cmma::n_groups(R, S);
+  const int rpg = rays_per_group(S);
+  return (R + rpg - 1) / rpg;
+}
+// Activation-slot elements of the compute type a block keeps: bf16 every
+// tile of a group, f32 one 64-row chunk (its tile recomputes the forward).
+extern "C" long long nerf_comp_act_elems(int is_bf16, int S) {
+  return is_bf16 ? nerf_cmma::act_elems(S) : (long long)NACT * TM * HMAX;
+}
+// Rows of a block's f32 dx slab (times xyz floats); none for f32.
+extern "C" int nerf_comp_dx_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : 0; }
+
+static int launch(bool bf16, const Dims& dm, const Rays& ry, const void* w, const void* wt,
+                  const float* b, const float* g_rgb, const float* g_w, float* dz, float* raw,
+                  float* partial, void* acts, float* dxs, float* dparams, int n_blocks,
+                  cudaStream_t stream) {
   const Layout L = make_layout(dm);
-  const int rpg = rays_per_group(ry.S);
-  const int groups = (ry.R + rpg - 1) / rpg;
-  if (groups == 0 || n_blocks <= 0 || n_blocks > groups) return (int)cudaErrorInvalidValue;
-  const size_t smem = comp_bwd_smem_bytes(ry.S);
-  cudaFuncSetAttribute(rm_comp_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  rm_comp_bwd_kernel<T><<<n_blocks, NT, smem, stream>>>(
-      dm, L, ry, static_cast<const T*>(w), static_cast<const T*>(wt), b, g_rgb, g_w, dz, partial,
-      static_cast<T*>(acts), groups);
-  cudaError_t err = cudaGetLastError();
+  const int groups = nerf_comp_groups(bf16, ry.R, ry.S);
+  if (groups == 0 || n_blocks <= 0 || n_blocks > groups || (bf16 && dxs == nullptr) ||
+      (!bf16 && raw != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (bf16) {
+    err = launch_kernel(rm_comp_bwd_mma_kernel, n_blocks, nerf_mma::NT,
+                        nerf_cmma::smem_bytes(ry.S), stream, dm, L, nerf_mma::make_mma_layout(L),
+                        ry, static_cast<const nerf_mma::bf16*>(w),
+                        static_cast<const nerf_mma::bf16*>(wt), b, g_rgb, g_w, dz, raw, partial,
+                        static_cast<nerf_mma::bf16*>(acts), dxs, groups);
+  } else {
+    err = launch_kernel(rm_comp_bwd_kernel<float>, n_blocks, NT, comp_bwd_smem_bytes(ry.S),
+                        stream, dm, L, ry, static_cast<const float*>(w),
+                        static_cast<const float*>(wt), b, g_rgb, g_w, dz, partial,
+                        static_cast<float*>(acts), groups);
+  }
   if (err != cudaSuccess) return (int)err;
   return launch_reduce(partial, n_blocks, (size_t)L.total_w + L.total_b, dparams, stream);
 }
 
-// g_rgb (R, 3), g_w (R, S) f32 cotangents; dz (R, S) f32 out. Scratch as
-// nerf_mlp_bwd's, with 1 <= n_blocks <= nerf_rm_comp_groups(R, S).
+// g_rgb (R, 3), g_w (R, S) f32 cotangents; dz (R, S) f32 out. Scratch the
+// caller allocates: partial (n_blocks * params) f32, acts (n_blocks *
+// nerf_comp_act_elems(is_bf16, S)) of the compute type and, for bf16, dxs
+// (n_blocks * nerf_comp_dx_rows(1) * xyz) f32, with 1 <= n_blocks <=
+// nerf_comp_groups(is_bf16, R, S). w, wt: for bf16 the F and B packs
+// (mlp_mma_tile.cuh), for f32 the flat weights and their transposes. raw:
+// null, or for bf16 (R, S, 4) f32 that receives the raw values composited.
 // Returns cudaGetLastError() (0 on success).
 extern "C" int nerf_rm_comp_bwd(int is_bf16, int has_dir, const float* rd, const float* z,
                                 const void* w, const void* wt, const float* b,
-                                const float* g_rgb, const float* g_w, float* dz, float* partial,
-                                void* acts, float* dparams, int n_blocks, int R, int S, int L,
-                                int Ld, int D, int xyz, int dir, int hid, int last, float alpha,
-                                void* stream) {
+                                const float* g_rgb, const float* g_w, float* dz, float* raw,
+                                float* partial,
+                                void* acts, float* dxs, float* dparams, int n_blocks, int R, int S,
+                                int L, int Ld, int D, int xyz, int dir, int hid, int last,
+                                float alpha, void* stream) {
   if (xyz != 3 + 6 * L || (has_dir ? (D <= 0 || dir != 2 * Ld * D) : D != 0))
     return (int)cudaErrorInvalidValue;
   const Dims dm{R * S, xyz, dir, hid, last, has_dir, alpha};
   const Rays ry{rd, z, R, S, L, Ld, D};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(dm, ry, w, wt, b, g_rgb, g_w, dz, partial, acts,
-                                         dparams, n_blocks, s)
-                 : launch<float>(dm, ry, w, wt, b, g_rgb, g_w, dz, partial, acts, dparams,
-                                 n_blocks, s);
-}
-
-// Blocks of rays the compositing kernels walk (whole rays, about 64 rows each).
-extern "C" int nerf_rm_comp_groups(int R, int S) {
-  if (S <= 0) return 0;
-  const int rpg = rays_per_group(S);
-  return (R + rpg - 1) / rpg;
+  return launch(is_bf16 != 0, dm, ry, w, wt, b, g_rgb, g_w, dz, raw, partial, acts, dxs, dparams,
+                n_blocks, static_cast<cudaStream_t>(stream));
 }

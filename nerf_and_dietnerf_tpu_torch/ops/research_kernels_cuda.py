@@ -13,7 +13,10 @@ Port of ``nerf_and_dietnerf_tpu/ops/research_kernels.py``. The
   backward keeps the FMA tile.
 - B7 (``_forward_rays_comp_pallas`` / ``_backward_rays_comp_pallas``,
   ``apply_raymarch_composited``): B6 followed by alpha compositing, ``(rgb
-  (R, 3), weights (R, S))`` out; its backward takes cotangents on both.
+  (R, 3), weights (R, S))`` out; its backward takes cotangents on both. The
+  bf16 backward runs the ray-group loop of ``csrc/comp_mma_tile.cuh`` on the
+  tensor-core tiles (one forward per row), reading the F and B packs; the
+  forward and the f32 backward keep the FMA tiles.
 
 Both backwards give the rays, directions and view components structural-zero
 cotangents, as the JAX package does: training differentiates the parameters
@@ -35,6 +38,8 @@ reshape of ``(rays, S, features)``) and the view-dir encodings **per ray**:
   recompute. It returns the loss and has made the parameter gradients and the
   TOTAL dz (its encoding VJP reads the encoding's own neighbouring columns) by
   then; the encodings, directions and targets get structural-zero cotangents.
+  In bf16 it runs the same ray-group loop as B7's backward on the
+  tensor-core tiles, reading the F and B packs; in f32 the FMA tiles.
 
 The encodings are what the TPU kernel computes (``_encode_tile``): a direct
 ``sin(f_k x)`` with ``f_k = float32(pi 2^k)``, and cos as ``sin(f_k x + pi/2)``,
@@ -71,6 +76,7 @@ from nerf_and_dietnerf_tpu_torch.ops.kernel_lib import (
     uses_kernel,
 )
 from nerf_and_dietnerf_tpu_torch.ops.raymarch_cuda import (
+    _forward_plain,
     _input_dtype,
     _weights_for,
     check_params,
@@ -168,19 +174,51 @@ def composite_vjp(raw, z, g_rgb, g_w):
         return torch.autograd.grad((res.rgb, res.weights), (raw, z), (g_rgb, g_w))
 
 
-def raymarch_comp_fwd_plain(ws, bs, config: MLPConfig, rd, z, compute_dtype):
-    """Plain version of B7's forward: ``(rgb (R, 3), weights (R, S))``."""
-    res = rendering.composite(raymarch_fwd_plain(ws, bs, config, rd, z, compute_dtype), z)
+def kink_of(raw, raw_sigma):
+    """``raw`` (R, S, 4) with each sample's sigma on the side of the
+    compositing's kink (``max(sigma, 0)``; the sigma cotangent is 0 below
+    it) on which ``raw_sigma`` (R, S) lies: sigma negated where the two signs
+    differ. A kernel's checks pass its own raw sigma, so that a sample whose
+    sigma lies within the rounding noise of 0 takes the kernel's side in the
+    plain version too; None keeps ``raw``."""
+    if raw_sigma is None:
+        return raw
+    s = raw[..., 3]
+    s = torch.where((s > 0) == (raw_sigma > 0), s, -s)
+    return torch.cat([raw[..., :3], s[..., None]], dim=-1)
+
+
+def _raw_plain(ws, bs, config: MLPConfig, x, d, z, cd, work, raw_sigma=None):
+    """The raw radiance (R, S, 4) f32 the plain compositing reads, its MLP's
+    products and sums in ``work`` (float64: the same roundings to the
+    compute type with nearly exact sums; the compositing stays f32, as in the
+    kernels), each sample on ``raw_sigma``'s side of the kink
+    (:func:`kink_of`)."""
+    raw = _forward_plain(ws, bs, config, x, d, cd, work)[0].float()
+    return kink_of(raw.reshape(*z.shape, 4), raw_sigma)
+
+
+def raymarch_comp_fwd_plain(ws, bs, config: MLPConfig, rd, z, compute_dtype,
+                            work=torch.float32):
+    """Plain version of B7's forward: ``(rgb (R, 3), weights (R, S))``; the
+    MLP's products and sums in ``work`` (:func:`_raw_plain`)."""
+    _, x, d = _mlp_inputs(config, rd, z, compute_dtype)
+    res = rendering.composite(_raw_plain(ws, bs, config, x, d, z, compute_dtype, work), z)
     return res.rgb, res.weights
 
 
-def raymarch_comp_bwd_plain(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtype):
+def raymarch_comp_bwd_plain(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtype,
+                            work=torch.float32, raw_sigma=None):
     """Plain version of B7's backward: ``(dws, dbs, dz)``, dz the
-    compositing's share plus the points'."""
-    raw = raymarch_fwd_plain(ws, bs, config, rd, z, compute_dtype)
+    compositing's share plus the points'; the MLP's products and sums in
+    ``work``, the compositing's kink on ``raw_sigma``'s side
+    (:func:`_raw_plain`)."""
+    pts, x, d = _mlp_inputs(config, rd, z, compute_dtype)
+    raw = _raw_plain(ws, bs, config, x, d, z, compute_dtype, work, raw_sigma)
     g_raw, dz_comp = composite_vjp(raw, z, g_rgb, g_w)
-    dws, dbs, dz_pts = raymarch_bwd_plain(ws, bs, config, rd, z, g_raw, compute_dtype)
-    return dws, dbs, dz_comp + dz_pts
+    dws, dbs, dx, _ = mlp_bwd_plain(ws, bs, config, x, d, g_raw.reshape(-1, 4), compute_dtype,
+                                    work)
+    return dws, dbs, dz_comp + _dz_from_dx(config, rd, pts, dx, z.shape[1]).reshape(z.shape)
 
 
 def _dir_rows(config: MLPConfig, encd, n_samples: int, cd):
@@ -231,18 +269,22 @@ def mlp_comp_bwd_plain(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, comp
     return dws, dbs, denc, dencd, dz
 
 
-def mlp_loss_comp_plain(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute_dtype):
+def mlp_loss_comp_plain(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute_dtype,
+                        work=torch.float32, raw_sigma=None):
     """Plain version of B5: ``(mse (), dz (R, S), dws, dbs)``: the mean squared
     error of the composited pixels against ``target`` (R, 3), the total dz (the
     compositing's share plus the points', ``dvec`` (R, 3) being the rays'
-    unnormalised directions) and the parameter gradients of that loss."""
-    raw, d = _raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)
+    unnormalised directions) and the parameter gradients of that loss; the
+    MLP's products and sums in ``work``, the compositing's kink on
+    ``raw_sigma``'s side (:func:`_raw_plain`)."""
+    d = _dir_rows(config, encd, z.shape[1], compute_dtype)
+    raw = _raw_plain(ws, bs, config, enc, d, z, compute_dtype, work, raw_sigma)
     inv_n = 1.0 / (3 * z.shape[0])
     err = rendering.composite(raw, z).rgb - target
     mse = torch.sum(err * err) * inv_n
     g_raw, dz_comp = composite_vjp(raw, z, (2.0 * inv_n) * err, torch.zeros_like(z))
     dws, dbs, denc, _ = mlp_bwd_plain(ws, bs, config, enc, d, g_raw.reshape(-1, 4),
-                                      compute_dtype)
+                                      compute_dtype, work)
     dz_pts = _dz_from_encoding(config, enc, denc, dvec, z.shape[1]).reshape(z.shape)
     return mse, dz_comp + dz_pts, dws, dbs
 
@@ -285,7 +327,7 @@ def _is_bf16(cd) -> int:
 
 
 def _rm_weights(lib, ws, config: MLPConfig, cd, backward: bool):
-    """The weight buffers the B6 library ``lib`` reads, from
+    """The weight buffers the B6 or B7 library ``lib`` reads, from
     ``raymarch_cuda._weights_for`` (which checks a pack's size against the
     library's): in bf16 the F pack (forward) or the F and B packs (backward);
     the f32 forward's TF32 hi / lo buffer where the library runs it on the
@@ -371,11 +413,44 @@ def raymarch_comp_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype):
     return rgb, weights
 
 
-def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtype):
+def _comp_bwd_scratch(lib, n_params: int, config: MLPConfig, cd, z, dev):
+    """``(partial, acts, dxs, n_blocks)`` of a compositing backward (B7's or
+    B5's library ``lib``), sized from the library's exports for the compute
+    type: in bf16 (``csrc/comp_mma_tile.cuh``) ray groups of one 128-row tile,
+    every tile's activation slots and each block's dx slab; in f32 the FMA
+    kernels' groups and slots, and no dx slab (``dxs`` None)."""
+    is_bf16 = _is_bf16(cd)
+    n_rays, n_samples = z.shape
+    partial, acts, n_blocks = bwd_scratch(lib, n_params, cd, dev,
+                                          lib.nerf_comp_groups(is_bf16, n_rays, n_samples),
+                                          lib.nerf_comp_act_elems(is_bf16, n_samples))
+    dx_rows = lib.nerf_comp_dx_rows(is_bf16)
+    dxs = (torch.empty((n_blocks * dx_rows * config.xyz_dim,), dtype=torch.float32, device=dev)
+           if dx_rows else None)
+    return partial, acts, dxs, n_blocks
+
+
+def _raw_out(raw, z, cd, dev):
+    """Check the optional raw output of a compositing backward: (R, S, 4) f32
+    on the inputs' device, bf16 kernels only."""
+    if raw is None:
+        return
+    if cd != torch.bfloat16:
+        raise ValueError("the raw output is the bf16 kernels' only")
+    check_tensors([(raw, (*z.shape, 4), torch.float32)], dev)
+
+
+def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtype, raw=None):
     """B7 backward: ``(dws, dbs, dz (R, S))`` for the cotangents ``g_rgb``
-    (R, 3) and ``g_w`` (R, S) f32; parameter gradients bitwise reproducible."""
+    (R, 3) and ``g_w`` (R, S) f32; parameter gradients bitwise reproducible.
+    ``raw``: None, or in bf16 an (R, S, 4) f32 tensor that receives the raw
+    values the kernel composited (the checks read it; on the CPU the plain
+    forward's)."""
     _check_samples(z)
+    _raw_out(raw, z, compute_dtype, rd.device)
     if not uses_kernel(rd):
+        if raw is not None:
+            raw.copy_(raymarch_fwd_plain(ws, bs, config, rd, z, compute_dtype))
         return raymarch_comp_bwd_plain(ws, bs, config, rd, z, g_rgb, g_w, compute_dtype)
     _check_rays(config, ws, bs, rd, z, compute_dtype)
     check_tensors([(g_rgb, (z.shape[0], 3), torch.float32), (g_w, z.shape, torch.float32)],
@@ -387,13 +462,15 @@ def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtyp
     if dz.numel() == 0:
         dparams.zero_()
     else:
-        partial, acts, n_blocks = bwd_scratch(lib, dparams.numel(), compute_dtype, dev,
-                                              lib.nerf_rm_comp_groups(*z.shape))
-        w, wt, b = flat(ws), flat([t.t() for t in ws]), flat(bs)
+        is_bf16 = _is_bf16(compute_dtype)
+        partial, acts, dxs, n_blocks = _comp_bwd_scratch(lib, dparams.numel(), config,
+                                                         compute_dtype, z, dev)
+        (w, wt), b = _rm_weights(lib, ws, config, compute_dtype, True), flat(bs)
         rc = lib.nerf_rm_comp_bwd(
-            _is_bf16(compute_dtype), int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(),
-            w.data_ptr(), wt.data_ptr(), b.data_ptr(), g_rgb.data_ptr(), g_w.data_ptr(), dz.data_ptr(), partial.data_ptr(),
-            acts.data_ptr(), dparams.data_ptr(), n_blocks, *_ray_args(config, rd, z))
+            is_bf16, int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(), w.data_ptr(),
+            wt.data_ptr(), b.data_ptr(), g_rgb.data_ptr(), g_w.data_ptr(), dz.data_ptr(),
+            _ptr(raw), partial.data_ptr(), acts.data_ptr(), _ptr(dxs), dparams.data_ptr(),
+            n_blocks, *_ray_args(config, rd, z))
         launched("raymarch_comp_bwd", rc)
     return (*split_dparams(dparams, config), dz)
 
@@ -478,13 +555,18 @@ def mlp_comp_bwd(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dt
     return (*split_dparams(dparams, config), denc, dencd, dz)
 
 
-def mlp_loss_comp(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute_dtype):
+def mlp_loss_comp(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute_dtype,
+                  raw=None):
     """B5: ``(mse (), dz (R, S), dws, dbs)`` f32 in one launch: the mean
     squared error of the composited pixels against ``target`` (R, 3) f32, and
     that loss's total dz and parameter gradients; ``dvec`` (R, 3) f32 are the
-    rays' unnormalised directions. All three are bitwise reproducible."""
+    rays' unnormalised directions. All three are bitwise reproducible.
+    ``raw`` as :func:`raymarch_comp_bwd`'s."""
     _check_samples(z)
+    _raw_out(raw, z, compute_dtype, enc.device)
     if not uses_kernel(enc):
+        if raw is not None:
+            raw.copy_(_raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)[0])
         return mlp_loss_comp_plain(ws, bs, config, enc, encd, z, dvec, target, compute_dtype)
     _check_encodings(config, ws, bs, enc, encd, z, compute_dtype)
     dev = enc.device
@@ -498,15 +580,15 @@ def mlp_loss_comp(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute
     if dz.numel() == 0:
         out.zero_()
     else:
-        partial, acts, n_blocks = bwd_scratch(
-            lib, n_params + 1, compute_dtype, dev, lib.nerf_mlp_comp_groups(*z.shape),
-            lib.nerf_mlp_comp_act_slots(z.shape[1]))
-        w, wt, b = flat(ws), flat([t.t() for t in ws]), flat(bs)
+        partial, acts, dxs, n_blocks = _comp_bwd_scratch(lib, n_params + 1, config,
+                                                         compute_dtype, z, dev)
+        w, wt = _weights_for(lib, ws, config, compute_dtype, ("f", "b"))
+        b = flat(bs)
         rc = lib.nerf_mlp_loss_comp(
             _is_bf16(compute_dtype), int(config.uses_view_dirs), enc.data_ptr(), _ptr(encd),
             z.data_ptr(), dvec.data_ptr(), target.data_ptr(), w.data_ptr(), wt.data_ptr(),
-            b.data_ptr(), dz.data_ptr(), partial.data_ptr(), acts.data_ptr(), out.data_ptr(),
-            n_blocks, *_comp_args(config, z), inv_n, stream_of(dev))
+            b.data_ptr(), dz.data_ptr(), _ptr(raw), partial.data_ptr(), acts.data_ptr(),
+            _ptr(dxs), out.data_ptr(), n_blocks, *_comp_args(config, z), inv_n, stream_of(dev))
         launched("mlp_loss_comp", rc)
     return (out[n_params], dz, *split_dparams(out[:n_params], config))
 

@@ -1,0 +1,70 @@
+#!/bin/bash
+# Shows that chip_smoke.py's checks of the compositing backwards on the bf16
+# tensor cores (_hold_comp_bwd: B7's backward and B5, R = 4096, S = 64, both
+# variants) catch broken kernels. Each case copies the package and
+# chip_smoke.py to a temporary directory, breaks one line there, rebuilds and
+# runs the checks; the repository is not touched:
+#   none     unbroken (every check passes);
+#   ray2     composites only the first ray of each group (two rays a tile);
+#   sigbias  sums the blue cotangent into the xyz-only sigma head's bias
+#            gradient, a leaf of one value (the view-dir variant is unbroken).
+# Run from the repository root on the card, after a build (build/kernels is
+# copied, so only the broken libraries are rebuilt):
+#   bash nerf_and_dietnerf_tpu_torch/tools/comp_mutants.sh
+set -u
+root=$(pwd)
+tmp=$(mktemp -d)
+trap 'rm -rf "$tmp"' EXIT
+for m in none ray2 sigbias; do
+  d=$tmp/$m
+  mkdir -p "$d/build" && cp -r nerf_and_dietnerf_tpu_torch chip_smoke.py "$d/"
+  cp -r build/kernels "$d/build/" 2>/dev/null
+  csrc=$d/nerf_and_dietnerf_tpu_torch/csrc
+  case $m in
+    ray2) sed -i 's/    if (tid < g.n_rays)$/    if (tid < 1)/' "$csrc/comp_mma_tile.cuh"
+          grep -q "if (tid < 1)" "$csrc/comp_mma_tile.cuh" || exit 1 ;;
+    sigbias) sed -i 's|narrow_bgrad(pb + L.b\[11\], t.GI + 3, 1, first);|narrow_bgrad(pb + L.b[11], t.GI + 2, 1, first);|' "$csrc/mlp_mma_tile.cuh"
+             grep -q "L.b\[11\], t.GI + 2" "$csrc/mlp_mma_tile.cuh" || exit 1 ;;
+  esac
+  (cd "$d" && python3 - "$m" <<'PY'
+import sys
+
+import torch
+
+sys.path.insert(0, ".")
+import chip_smoke as cs  # noqa: E402
+from nerf_and_dietnerf_tpu_torch.models import mlp  # noqa: E402
+from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl  # noqa: E402
+from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc  # noqa: E402
+from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk  # noqa: E402
+
+kl.build_kernels()
+torch.backends.cuda.matmul.allow_tf32 = False
+cd, R, S = torch.bfloat16, 4096, 64
+for n_angles in (0, 2):
+    cfg = mlp.MLPConfig(n_angles=n_angles)
+    ws, bs = rc.flatten_params(mlp.init_params(torch.Generator().manual_seed(0), cfg,
+                                               device="cuda"), cfg, cd)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rd, z = cs._ray_batch(torch, cfg, R, S, gen)
+    g_rgb = 0.5 + torch.rand((R, 3), generator=gen, device="cuda")
+    g_w = 0.5 + torch.rand((R, S), generator=gen, device="cuda")
+    batch = cs._enc_batch(torch, cfg, cd, R, S, gen)
+
+    def b7(raw):
+        return (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw), None)
+
+    def b5(raw):
+        mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, *batch, cd, raw=raw)
+        return dws, dbs, dz, mse
+
+    for kernel, args, run in (("B7", (rd, z, g_rgb, g_w), b7), ("B5", batch, b5)):
+        label = f"{sys.argv[1]} n_angles={n_angles} {kernel}"
+        try:
+            cs._hold_comp_bwd(torch, kernel, label, "bfloat16", ws, bs, cfg, cd, args, run)
+            print(f"RESULT {label}: passed", flush=True)
+        except AssertionError as exc:
+            print(f"RESULT {label}: caught: {str(exc)[:600]}", flush=True)
+PY
+  ) 2>&1 | grep "RESULT"
+done

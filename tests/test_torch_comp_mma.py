@@ -1,0 +1,878 @@
+"""The Python around the compositing backwards on the tensor-core tiles: B7's
+backward (``csrc/raymarch_comp_bwd.cu``) and B5 (``csrc/mlp_loss_comp.cu``) in
+bf16 run the ray-group loop of ``csrc/comp_mma_tile.cuh`` on the tiles of
+``csrc/mlp_mma_tile.cuh``. The kernels run only on the card, where
+``chip_smoke.py`` holds them against their plain versions. Here, at small
+widths (hidden 32, L = 2-5):
+
+- (a) the group and tile partition at S in {48, 64, 100, 128, 192} and ragged
+  ray counts, against the constants and formulas of the CUDA sources;
+- (b) B5's bf16 input tiles (the xyz encodings' rows copied, each ray's
+  view-dir encoding rounded into every row, zero pad rows and columns)
+  against what JAX's ``_loss_mlp_comp_pallas`` reads, in Pallas interpret mode;
+- (c) an emulation of the groups in the kernels' order (a forward from the F
+  pack on the tiles, the serial ``composite_ray_bwd``, the chain back from the
+  B pack, dz as ``DZC + dz_of_row`` (B7) or ``DZC + dz_points`` on the
+  bf16-widened X (B5)) against ``_backward_rays_comp_pallas`` and
+  ``_loss_mlp_comp_pallas`` in interpret mode;
+- (d) the wrappers' weight packs and scratch against a fake library's
+  per-compute-type exports, both types; the f32 sizes stay the FMA kernels'.
+"""
+
+import ctypes
+import json
+import math
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from nerf_and_dietnerf_tpu.core import cameras as jcam
+from nerf_and_dietnerf_tpu.core import encoding as jenc
+from nerf_and_dietnerf_tpu.models import mlp as jm
+from nerf_and_dietnerf_tpu.ops import research_kernels as jrk
+from nerf_and_dietnerf_tpu_torch.models import mlp as tm
+from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
+
+CSRC = Path(rc.__file__).resolve().parent.parent / "csrc"
+COMP_SRC = (CSRC / "comp_mma_tile.cuh").read_text()
+MMA_SRC = (CSRC / "mlp_mma_tile.cuh").read_text()
+B7_SRC = (CSRC / "raymarch_comp_bwd.cu").read_text()
+B5_SRC = (CSRC / "mlp_loss_comp.cu").read_text()
+
+
+def _c_int(src: str, name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+BM = _c_int(MMA_SRC, "BM")
+HPAD = _c_int(MMA_SRC, "HPAD")
+NACT = _c_int(MMA_SRC, "NACT")
+LDX, LDD = 64 + 8, 32 + 8  # bf16 X and D row strides (checked below)
+MLP_SRC = (CSRC / "mlp_common.cuh").read_text()
+TM, HMAX = _c_int(MLP_SRC, "TM"), _c_int(MLP_SRC, "HMAX")  # the FMA tiles
+MAX_S = _c_int((CSRC / "composite_common.cuh").read_text(), "MAX_S_COMP")
+SMEM_LIMIT = 232448
+SAMPLES = [48, 64, 100, 128, 192]
+
+CASES = [
+    dict(hidden_dim=32, last_hidden_dim=16, n_freq_xyz=5, n_freq_dir=2, n_angles=2),
+    dict(hidden_dim=32, last_hidden_dim=16, n_freq_xyz=2, n_angles=0),
+]
+IDS = ["view_dirs", "xyz_only"]
+N_RAYS = 13
+# (c) Against the JAX kernels. f32: the emulation and the TPU kernels sum in
+# other orders (the TPU kernel composites with log-step scans and gathers the
+# per-ray values as bf16 hi + lo pairs), the tolerances of
+# tests/test_torch_research_kernels.py: 5e-4 of each leaf's max |value| for
+# the gradients and dz, 1e-5 relative for B5's loss. bf16: the card's
+# tolerances for these kernels against their plain versions (chip_smoke.py
+# TOL_BWD / TOL_ROWS), normwise per leaf and for dz, 2^-8 relative for the
+# loss (one bf16 ulp, as tests/test_torch_fused_mlp_kernels.py): both sides
+# round activations and gradients to bf16 at the same places, but a 1-ulp
+# difference of a sum (or of the two CPU sines under B7's encodings) flips a
+# bf16 rounding, and the JAX kernel sums its bias gradients in bf16 per tile.
+GRAD_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
+LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+
+
+# --------------------------------------------------------------------------- #
+# The partition, as the sources compute it                                     #
+# --------------------------------------------------------------------------- #
+
+def rays_per_group(S: int) -> int:
+    return 1 if S >= BM else BM // S
+
+
+def tiles_per_group(S: int) -> int:
+    return -(-rays_per_group(S) * S // BM)
+
+
+def n_groups(R: int, S: int) -> int:
+    return 0 if S <= 0 or S > MAX_S else -(-R // rays_per_group(S))
+
+
+def group_at(group: int, R: int, S: int):
+    """``(ray0, n_rays, rows)`` of group ``group``, as ``group_at``."""
+    ray0 = group * rays_per_group(S)
+    n_rays = min(rays_per_group(S), R - ray0)
+    return ray0, n_rays, n_rays * S
+
+
+def act_elems(S: int) -> int:
+    return tiles_per_group(S) * NACT * BM * HPAD
+
+
+def bwd_smem_bytes() -> int:
+    """``nerf_mma::bwd_smem_bytes()``: P, X, D, the ring, G, sigma, GI."""
+    ldh, ldw = HPAD + 8, _c_int(MMA_SRC, "KC") + 8
+    fwd = 2 * (BM * ldh + BM * LDX + BM * LDD + _c_int(MMA_SRC, "NSTAGE") * HPAD * ldw) + 4 * BM
+    return fwd + 2 * BM * ldh + 4 * BM * 8
+
+
+def smem_bytes(S: int) -> int:
+    return bwd_smem_bytes() + 4 * rays_per_group(S) * (9 * S + 1)
+
+
+def test_tile_constants_match_the_cuda_sources():
+    assert (BM, HPAD, NACT) == (128, 256, 10)
+    assert "constexpr int LDX = 64 + 8;" in MMA_SRC and "constexpr int LDD = 32 + 8;" in MMA_SRC
+    assert "return S >= BM ? 1 : BM / S;" in COMP_SRC
+    assert "return (rays_per_group(S) * S + BM - 1) / BM;" in COMP_SRC
+    assert "return (long long)tiles_per_group(S) * nerf_mma::NACT * nerf_mma::SLOT;" in COMP_SRC
+    assert "sizeof(float) * (size_t)rays_per_group(S) * (9 * (size_t)S + 1);" in COMP_SRC
+    assert "constexpr int SLOT = BM * HPAD;" in MMA_SRC
+    # The two kernels sum every 16-deep step into a fresh accumulator; B1, B2
+    # and B6 keep the tensor core's running sum (the template's default).
+    assert "constexpr bool FRESH = true;" in COMP_SRC
+    assert "mm::forward_tile<FRESH>(" in COMP_SRC and "mm::backward_walk<FRESH>(" in COMP_SRC
+    assert "template <bool FRESH = false>\n__device__ inline void forward_tile(" in MMA_SRC
+    assert "  forward_tile(dm, L, M, F, B, t, ring, acts, nullptr, row0, &b10);" in MMA_SRC
+    assert "  backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);" \
+        in MMA_SRC
+    # The bytes the header states: the backward tiles, then 9 floats a row and
+    # one a ray; the largest block at MAX_S_COMP, within a block's limit.
+    assert bwd_smem_bytes() == 209408
+    assert max(smem_bytes(s) for s in range(1, BM + 1)) == 214528
+    assert smem_bytes(MAX_S) == max(smem_bytes(s) for s in range(1, MAX_S + 1)) == 227844
+    assert smem_bytes(MAX_S) <= SMEM_LIMIT
+    for text in ("214,528", "227,844", "655,360"):
+        assert text in COMP_SRC
+    assert act_elems(MAX_S) * 2 == 4 * 655360
+
+
+@pytest.mark.parametrize("n_samples", SAMPLES)
+def test_groups_cover_every_row_once_in_whole_rays(n_samples):
+    S = n_samples
+    rpg, tiles = rays_per_group(S), tiles_per_group(S)
+    # Two rays a group at 64, one at 100 and 128 (100: a part-filled tile),
+    # one ray over two tiles at 192.
+    assert (rpg, tiles) == {48: (2, 1), 64: (2, 1), 100: (1, 1), 128: (1, 1), 192: (1, 2)}[S]
+    for R in (1, 13, 4093):  # ragged ray counts: a last group with fewer rays
+        seen = np.zeros(R * S, dtype=np.int64)
+        for group in range(n_groups(R, S)):
+            ray0, n_rays, rows = group_at(group, R, S)
+            assert 1 <= n_rays <= rpg and rows <= tiles * BM
+            for j in range(-(-rows // BM)):
+                n = min(BM, rows - j * BM)  # the tile's rows; the rest are pad rows
+                assert 0 < n <= BM
+                r = ray0 * S + j * BM + np.arange(n)
+                assert ((r // S >= ray0) & (r // S < ray0 + n_rays)).all()  # whole rays
+                seen[r] += 1
+        assert (seen == 1).all()
+    assert n_groups(4096, S) == 4096 // rpg
+    assert n_groups(4096, MAX_S + 1) == 0
+
+
+# --------------------------------------------------------------------------- #
+# (b) B5's bf16 input tiles                                                     #
+# --------------------------------------------------------------------------- #
+
+def _pad(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _enc_setup(case, n_samples, seed=1):
+    """JAX params, numpy rays, z, the JAX package's encodings and targets."""
+    jcfg, tcfg = jm.MLPConfig(**case), tm.MLPConfig(**case)
+    params = jm.init_params(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(seed)
+    orig = rng.normal(size=(N_RAYS, 4)).astype(np.float32)
+    dirs = rng.normal(size=(N_RAYS, 4)).astype(np.float32)
+    z = np.sort(rng.uniform(1.0, 5.0, (N_RAYS, n_samples)), -1).astype(np.float32)
+    pts = jcam.sample_points_along_rays(orig, dirs, z)[..., :3].reshape(-1, 3)
+    enc = np.asarray(jenc.encode_xyz(pts, jcfg.n_freq_xyz))
+    encd = None
+    if jcfg.uses_view_dirs:
+        comps = jcam.view_direction_components(dirs, jcfg.n_angles)
+        encd = np.asarray(jenc.encode_view_dirs(comps, jcfg.n_freq_dir))
+    target = rng.uniform(size=(N_RAYS, 3)).astype(np.float32)
+    return jcfg, tcfg, params, dict(orig=orig, dirs=dirs, z=z, enc=enc, encd=encd,
+                                    target=target)
+
+
+def _b5_tiles(cfg, enc, encd, S):
+    """The X (BM x LDX) and D (BM x LDD) tiles load_comp_mma_inputs leaves for
+    every tile of every group, in f32: X the bf16 encodings copied, D each
+    ray's f32 view-dir encoding rounded to bf16; pad columns below pad16 and
+    rows past the group's zero, columns from pad16 on NaN (never read)."""
+    R = enc.shape[0] // S
+    enc_b = torch.tensor(enc).bfloat16().float()
+    out = []
+    for group in range(n_groups(R, S)):
+        ray0, _, rows = group_at(group, R, S)
+        for r0 in range(0, rows, BM):
+            X = torch.full((BM, LDX), float("nan"))
+            X[:, :_pad(cfg.xyz_dim, 16)] = 0.0
+            n = min(BM, rows - r0)
+            X[:n, :cfg.xyz_dim] = enc_b[ray0 * S + r0:ray0 * S + r0 + n]
+            D = None
+            if cfg.uses_view_dirs:
+                D = torch.full((BM, LDD), float("nan"))
+                D[:, :_pad(cfg.dir_dim, 16)] = 0.0
+                ray = ray0 + (r0 + torch.arange(n)) // S
+                D[:n, :cfg.dir_dim] = torch.tensor(encd)[ray].bfloat16().float()
+            out.append((ray0 * S + r0, n, X, D))
+    return out
+
+
+def _jax_b5_inputs(enc, encd, S):
+    """x and d as ``_make_loss_mlp_comp`` reads them (``x_ref[:].astype(cd)``,
+    ``_ray_expand_rm(m1, d).astype(cd)``), in Pallas interpret mode, bf16 as f32."""
+    R = enc.shape[0] // S
+    m1 = jnp.asarray(jrk._m1b_np(R, S), jnp.bfloat16)
+    has_dir = encd is not None
+
+    def kernel(x_ref, m_ref, *refs):
+        refs[-2 if has_dir else -1][:] = x_ref[:].astype(jnp.bfloat16).astype(jnp.float32)
+        if has_dir:
+            refs[-1][:] = jrk._ray_expand_rm(m_ref[:], refs[0][:]).astype(
+                jnp.bfloat16).astype(jnp.float32)
+
+    shapes = [jax.ShapeDtypeStruct(enc.shape, jnp.float32)]
+    args = [jnp.asarray(enc), m1]
+    if has_dir:
+        shapes.append(jax.ShapeDtypeStruct((R * S, encd.shape[1]), jnp.float32))
+        args.append(jnp.asarray(encd))
+    outs = pl.pallas_call(kernel, out_shape=shapes, interpret=True)(*args)
+    return np.asarray(outs[0]), (np.asarray(outs[1]) if has_dir else None)
+
+
+@pytest.mark.parametrize("n_samples", [48, 100, 192])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_b5_bf16_tiles_match_what_jax_reads(case, n_samples):
+    _, tcfg, _, x = _enc_setup(case, n_samples)
+    jx, jd = _jax_b5_inputs(x["enc"], x["encd"], n_samples)
+    tiles = _b5_tiles(tcfg, x["enc"], x["encd"], n_samples)
+    covered = 0
+    for row0, n, X, D in tiles:
+        wx = _pad(tcfg.xyz_dim, 16)
+        assert not X[n:, :wx].any() and not X[:n, tcfg.xyz_dim:wx].any()
+        np.testing.assert_array_equal(X[:n, :tcfg.xyz_dim].numpy(), jx[row0:row0 + n])
+        if jd is None:
+            assert D is None
+        else:
+            wd = _pad(tcfg.dir_dim, 16)
+            assert not D[n:, :wd].any() and not D[:n, tcfg.dir_dim:wd].any()
+            # JAX gathers the per-ray rows as a bf16 hi + lo pair (2^-17
+            # relative) and rounds that: the same bf16 value.
+            np.testing.assert_array_equal(D[:n, :tcfg.dir_dim].numpy(), jd[row0:row0 + n])
+        covered += n
+    assert covered == N_RAYS * n_samples
+
+
+# --------------------------------------------------------------------------- #
+# (c) the groups in the kernels' order                                         #
+# --------------------------------------------------------------------------- #
+
+def _unpack(pack, cfg, kind):
+    """The (K, N) matrices of an F (W^T, (pad16 N, pad16 K)) or B (W,
+    (pad16 K, pad16 N)) pack, in f32."""
+    layout, _ = rc.mma_layout(cfg)
+    out = []
+    for (k, n), (off, kp, np_) in zip(rc.weight_shapes(cfg)[0], layout):
+        block = pack[off:off + kp * np_].float()
+        out.append(block.view(np_, kp)[:n, :k].t() if kind == "f" else block.view(kp, np_)[:k, :n])
+    return out
+
+
+def _forward(cfg, x, d, wf, bs, cd):
+    """The network as forward_tile runs it on a tile's X / D: products of bf16
+    values summed in f32, bias and leaky in f32, activations rounded to cd,
+    the narrow heads in f32."""
+    a = cfg.leaky_relu_alpha
+
+    def act(v):
+        v = torch.where(v >= 0, v, a * v)
+        return v.bfloat16().float() if cd == torch.bfloat16 else v
+
+    h = x
+    for layer in range(8):
+        pre = x @ wf[4] + h @ wf[5] if layer == 4 else h @ wf[layer if layer < 4 else layer + 1]
+        h = act(pre + bs[layer])
+    if cfg.uses_view_dirs:
+        sigma = h @ wf[12] + d @ wf[13] + bs[10]
+        r = act(h @ wf[9] + d @ wf[10] + bs[8])
+        rgb = r @ wf[11] + bs[9]
+    else:
+        sigma = h @ wf[12] + bs[11]
+        r = act(act(h @ wf[9] + bs[8]) @ wf[10] + bs[9])
+        rgb = r @ wf[11] + bs[10]
+    return torch.cat([rgb, sigma], -1)
+
+
+def _composite_ray(raw, z):
+    """composite_ray for a group's rays at once, sample by sample in f32:
+    ``(pixel (n, 3), weights (n, S))``."""
+    n, S = z.shape
+    T, acc = torch.ones(n), torch.zeros(n, 3)
+    w_all = torch.zeros(n, S)
+    for s in range(S):
+        delta = z[:, s + 1] - z[:, s] if s < S - 1 else torch.full((n,), 1e9)
+        alpha = 1.0 - torch.exp(-torch.clamp_min(raw[:, s, 3], 0.0) * delta)
+        w = alpha * T
+        w_all[:, s] = w
+        acc = acc + w[:, None] * (1.0 / (1.0 + torch.exp(-raw[:, s, :3])))
+        T = T * (1.0 - alpha)
+    return acc, w_all
+
+
+def _composite_ray_bwd(raw, z, g_rgb, g_w):
+    """composite_ray_bwd for a group's rays at once, in its order: the
+    forward sweep keeping e_s and T_s, then the reverse affine recurrence
+    ``C_s = gW_s a_s + (1 - a_s) C_{s+1}``, ``da_s = (gW_s - C_{s+1}) T_s``;
+    ``(g_raw (n, S, 4), dz (n, S))``."""
+    n, S = z.shape
+    delta = [z[:, s + 1] - z[:, s] if s < S - 1 else torch.full((n,), 1e9) for s in range(S)]
+    T, e_all, T_all = torch.ones(n), [], []
+    for s in range(S):
+        e = torch.exp(-torch.clamp_min(raw[:, s, 3], 0.0) * delta[s])
+        e_all.append(e)
+        T_all.append(T)
+        T = T * (1.0 - (1.0 - e))
+    g_raw, dz = torch.zeros(n, S, 4), torch.zeros(n, S)
+    c_next = torch.zeros(n)
+    for s in reversed(range(S)):
+        e = e_all[s]
+        alpha = 1.0 - e
+        pre = raw[:, s, 3]
+        sigma = torch.clamp_min(pre, 0.0)
+        w = alpha * T_all[s]
+        c = 1.0 / (1.0 + torch.exp(-raw[:, s, :3]))
+        gw = torch.zeros(n)
+        for ch in range(3):
+            gw = gw + c[:, ch] * g_rgb[:, ch]
+        gw = (g_w[:, s] if g_w is not None else 0.0) + gw
+        da = (gw - c_next) * T_all[s]
+        c_next = gw * alpha + (1.0 - alpha) * c_next
+        g_raw[:, s, :3] = ((w[:, None] * g_rgb) * c) * (1.0 - c)
+        g_raw[:, s, 3] = torch.where(pre > 0, da * delta[s] * e, torch.zeros(n))
+        dd = da * sigma * e if s < S - 1 else torch.zeros(n)
+        dz[:, s] = -dd
+        if s < S - 1:
+            dz[:, s + 1] = dz[:, s + 1] + dd
+    return g_raw, dz
+
+
+def _dz_of_row(cfg, rd, z, gx, rows):
+    """dz_of_row (csrc/raymarch_common.cuh) for the global rows ``rows``, in its
+    order: per coordinate s += (g_sin cos(theta_sin)) f_k, then the cos
+    column's term, k = 0, 1, ...; dz += (s + g_id) d_c."""
+    S, L, per = z.shape[1], cfg.n_freq_xyz, 1 + 2 * cfg.n_freq_xyz
+    ray = rows // S
+    o, dv, zr = rd[ray, 0:3], rd[ray, 3:6], z.reshape(-1)[rows]
+    half_pi = torch.tensor(math.pi / 2, dtype=torch.float32)
+    dz = torch.zeros(len(rows))
+    for c in range(3):
+        p = o[:, c] + zr * dv[:, c]
+        g = gx[:, c * per:(c + 1) * per]
+        s = torch.zeros(len(rows))
+        for k in range(L):
+            f = torch.tensor(math.pi * 2.0 ** k, dtype=torch.float32)
+            s = s + (g[:, 1 + 2 * k] * torch.cos(p * f)) * f
+            s = s + (g[:, 2 + 2 * k] * torch.cos(p * f + half_pi)) * f
+        dz = dz + (s + g[:, 0]) * dv[:, c]
+    return dz
+
+
+def _dz_points(cfg, gx, x, dvec):
+    """dz_points (csrc/mlp_loss_comp.cu) on the X tile's rows (bf16 values
+    widened to f32), in its order: s = g_id, then per octave g_sin (f e_cos)
+    and g_cos (-f e_sin); dz += s d_c."""
+    L, per = cfg.n_freq_xyz, 1 + 2 * cfg.n_freq_xyz
+    dz = torch.zeros(gx.shape[0])
+    for c in range(3):
+        g, e = gx[:, c * per:(c + 1) * per], x[:, c * per:(c + 1) * per]
+        s = g[:, 0]
+        for k in range(L):
+            f = torch.tensor(math.pi * 2.0 ** k, dtype=torch.float32)
+            s = s + g[:, 1 + 2 * k] * (f * e[:, 2 + 2 * k])
+            s = s + g[:, 2 + 2 * k] * (-f * e[:, 1 + 2 * k])
+        dz = dz + s * dvec[:, c]
+    return dz
+
+
+def _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows):
+    """The kernel's order over every group: the forward of each tile
+    (``tiles_of(ray0, rows)`` gives its (X, D) rows), the group's compositing
+    (``per_ray(ray0, n_rays, raw)`` -> (g_raw, dzc, value)), the chain back on
+    the group's rows from the B pack, then dz (``dz_rows(ray0, rows, dx,
+    x)``). Returns (dws, dbs, dz (R S), sum of the per-ray values)."""
+    wf = _unpack(rc.pack_mma_weights(ws, tcfg, "f"), tcfg, "f")
+    wb = [w.to(ws[0].dtype) for w in _unpack(rc.pack_mma_weights(ws, tcfg, "b"), tcfg, "b")]
+    R = N_RAYS
+    dws = [torch.zeros_like(w, dtype=torch.float32) for w in ws]
+    dbs = [torch.zeros_like(b) for b in bs]
+    dz = torch.zeros(R * S)
+    total = 0.0
+    for group in range(n_groups(R, S)):
+        ray0, n_rays, rows = group_at(group, R, S)
+        x, d = tiles_of(ray0, rows)
+        raw = _forward(tcfg, x, d, wf, bs, cd).reshape(n_rays, S, 4)
+        g_raw, dzc, value = per_ray(ray0, n_rays, raw)
+        total += value
+        gw, gb, dx, _ = rc.mlp_bwd_plain(wb, bs, tcfg, x.to(ws[0].dtype),
+                                         d.to(ws[0].dtype) if d is not None else None,
+                                         g_raw.reshape(-1, 4), cd)
+        dws = [a + b for a, b in zip(dws, gw)]
+        dbs = [a + b for a, b in zip(dbs, gb)]
+        dz[ray0 * S:ray0 * S + rows] = dzc.reshape(-1) + dz_rows(ray0, rows, dx, x)
+    return dws, dbs, dz.reshape(R, S), total
+
+
+def _hold(got, ref, tol, normwise):
+    for a, b in zip(got, ref):
+        a, b = a.detach().double().numpy(), np.asarray(b, dtype=np.float64)
+        if normwise:
+            assert np.linalg.norm(a - b) <= tol * max(np.linalg.norm(b), 1e-12)
+        else:
+            scale = max(1e-6, float(np.abs(b).max()))
+            np.testing.assert_allclose(a / scale, b / scale, atol=tol)
+
+
+def _flat_grads(jgp, tcfg):
+    return rc.flatten_params(tm.params_from_jax(jgp), tcfg, torch.float32)
+
+
+DTYPES = [("float32", torch.float32, jnp.float32), ("bfloat16", torch.bfloat16, jnp.bfloat16)]
+
+
+@pytest.mark.parametrize("name,cd,jcd", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("n_samples", [48, 192])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_b7_backward_in_the_kernels_order_matches_jax(case, n_samples, name, cd, jcd):
+    S = n_samples
+    jcfg, tcfg, params, x = _enc_setup(case, S, seed=3)
+    orig, dirs, z = x["orig"], x["dirs"], x["z"]
+    vc = jcam.view_direction_components(dirs, jcfg.n_angles) if jcfg.uses_view_dirs else None
+    rng = np.random.default_rng(7)
+    g_rgb = rng.normal(size=(N_RAYS, 3)).astype(np.float32)
+    g_w = rng.normal(size=(N_RAYS, S)).astype(np.float32)
+    _, vjp = jax.vjp(lambda p, zz: jrk.apply_raymarch_composited(p, jcfg, orig, dirs, vc, zz,
+                                                                 jcd), params, z)
+    jgp, jgz = vjp((jnp.asarray(g_rgb), jnp.asarray(g_w)))
+
+    ws, bs = rc.flatten_params(tm.params_from_jax(params), tcfg, cd)
+    rd = rk.pack_rays(tcfg, torch.tensor(orig), torch.tensor(dirs),
+                      torch.tensor(np.asarray(vc)) if vc is not None else None)
+    tz = torch.tensor(z)
+    _, xe, de = rk.encode_rays_plain(tcfg, rd, tz)  # the f32 features the tiles round
+    rnd = (lambda t: t.bfloat16().float()) if cd == torch.bfloat16 else (lambda t: t)
+
+    def tiles_of(ray0, rows):
+        sl = slice(ray0 * S, ray0 * S + rows)
+        return rnd(xe[sl]), (rnd(de[sl]) if de is not None else None)
+
+    def per_ray(ray0, n_rays, raw):
+        rays = slice(ray0, ray0 + n_rays)
+        g_raw, dzc = _composite_ray_bwd(raw, tz[rays], torch.tensor(g_rgb)[rays],
+                                        torch.tensor(g_w)[rays])
+        return g_raw, dzc, 0.0
+
+    def dz_rows(ray0, rows, dx, _x):
+        return _dz_of_row(tcfg, rd, tz, dx, ray0 * S + torch.arange(rows))
+
+    dws, dbs, dz, _ = _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows)
+    rws, rbs = _flat_grads(jgp, tcfg)
+    normwise = cd == torch.bfloat16
+    _hold(dws + dbs, rws + rbs, GRAD_TOL[name], normwise)
+    _hold([dz], [jgz], GRAD_TOL[name], normwise)
+
+
+@pytest.mark.parametrize("name,cd,jcd", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("n_samples", [48, 192])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_b5_in_the_kernels_order_matches_jax(case, n_samples, name, cd, jcd):
+    S = n_samples
+    jcfg, tcfg, params, x = _enc_setup(case, S, seed=4)
+    args = (params, x["enc"], x["encd"], x["z"], x["dirs"], x["target"])
+    val, (jgp, jgz) = jax.value_and_grad(
+        lambda p, e, d, zz, dv, tg: jrk.apply_mlp_loss_composited(p, jcfg, e, d, zz, dv, tg, jcd),
+        argnums=(0, 3))(*args)
+
+    ws, bs = rc.flatten_params(tm.params_from_jax(params), tcfg, cd)
+    tz, target = torch.tensor(x["z"]), torch.tensor(x["target"])
+    dvec = torch.tensor(x["dirs"][:, :3])
+    inv_n = 1.0 / (3 * N_RAYS)
+    if cd == torch.bfloat16:
+        tiles = {row0: (X, D) for row0, _, X, D in _b5_tiles(tcfg, x["enc"], x["encd"], S)}
+    else:
+        enc, encd = torch.tensor(x["enc"]), x["encd"]
+
+    def tiles_of(ray0, rows):
+        if cd == torch.bfloat16:  # the group's tiles, their pad rows dropped
+            parts = [tiles[ray0 * S + r0] for r0 in range(0, rows, BM)]
+            n = [min(BM, rows - r0) for r0 in range(0, rows, BM)]
+            X = torch.cat([p[0][:k, :tcfg.xyz_dim] for p, k in zip(parts, n)])
+            D = (torch.cat([p[1][:k, :tcfg.dir_dim] for p, k in zip(parts, n)])
+                 if tcfg.uses_view_dirs else None)
+            return X, D
+        sl = slice(ray0 * S, ray0 * S + rows)
+        ray = torch.arange(ray0 * S, ray0 * S + rows) // S
+        return enc[sl], (torch.tensor(encd)[ray] if encd is not None else None)
+
+    def per_ray(ray0, n_rays, raw):
+        rays = slice(ray0, ray0 + n_rays)
+        pixel, _ = _composite_ray(raw, tz[rays])
+        err = pixel - target[rays]
+        e2 = (err[:, 0] * err[:, 0] + err[:, 1] * err[:, 1]) + err[:, 2] * err[:, 2]
+        g_raw, dzc = _composite_ray_bwd(raw, tz[rays], (2.0 * inv_n) * err, None)
+        return g_raw, dzc, float(e2.sum())
+
+    def dz_rows(ray0, rows, dx, xt):
+        ray = torch.arange(ray0 * S, ray0 * S + rows) // S
+        return _dz_points(tcfg, dx, xt, dvec[ray])
+
+    dws, dbs, dz, sq = _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows)
+    assert abs(sq * inv_n - float(val)) <= LOSS_RTOL[name] * abs(float(val))
+    rws, rbs = _flat_grads(jgp, tcfg)
+    normwise = cd == torch.bfloat16
+    _hold(dws + dbs, rws + rbs, GRAD_TOL[name], normwise)
+    _hold([dz], [jgz], GRAD_TOL[name], normwise)
+
+
+# --------------------------------------------------------------------------- #
+# (d) the wrappers' packs and scratch                                          #
+# --------------------------------------------------------------------------- #
+
+class _FakeLib:
+    """A compositing-backward library's exports, as its sources compute them
+    (``kernel`` "B7" or "B5"), and launches that record what they were given."""
+
+    def __init__(self, kernel, cfg):
+        self.kernel, self.cfg, self.calls = kernel, cfg, []
+
+    def nerf_mlp_param_count(self, *dims):
+        w, b = rc.weight_shapes(self.cfg)
+        return sum(k * n for k, n in w) + sum(b)
+
+    def nerf_mlp_mma_pack_elems(self, *dims):
+        return rc.mma_layout(self.cfg)[1]
+
+    def nerf_comp_groups(self, is_bf16, R, S):
+        if is_bf16:
+            return n_groups(R, S)
+        return 0 if S <= 0 or S > MAX_S else -(-R // (1 if S >= TM else TM // S))
+
+    def nerf_comp_act_elems(self, is_bf16, S):
+        if is_bf16:
+            return act_elems(S)
+        chunks = 1 if self.kernel == "B7" else -(-(1 if S >= TM else TM // S) * S // TM)
+        return chunks * NACT * TM * HMAX
+
+    def nerf_comp_dx_rows(self, is_bf16):
+        return BM if is_bf16 else 0
+
+    def _record(self, is_bf16, w, wt, dxs, raw, n_blocks):
+        n = self.nerf_mlp_mma_pack_elems() if is_bf16 else self.nerf_mlp_param_count() - sum(
+            rc.weight_shapes(self.cfg)[1])
+        ctype = ctypes.c_uint16 if is_bf16 else ctypes.c_float
+        read = [np.ctypeslib.as_array((ctype * n).from_address(p)).copy() for p in (w, wt)]
+        self.calls.append(dict(is_bf16=is_bf16, w=read[0], wt=read[1], dxs=dxs, raw=raw,
+                               n_blocks=n_blocks))
+        return 0
+
+    def nerf_rm_comp_bwd(self, is_bf16, has_dir, rd, z, w, wt, b, g_rgb, g_w, dz, raw, partial,
+                         acts, dxs, dparams, n_blocks, *tail):
+        return self._record(is_bf16, w, wt, dxs, raw, n_blocks)
+
+    def nerf_mlp_loss_comp(self, is_bf16, has_dir, enc, encd, z, dvec, target, w, wt, b, dz,
+                           raw, partial, acts, dxs, out, n_blocks, *tail):
+        return self._record(is_bf16, w, wt, dxs, raw, n_blocks)
+
+
+SMS = 132
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrappers on CPU tensors as on the card: a fake library, a fake SM
+    count and stream; the tensors stay on the CPU."""
+    libs = {}
+    monkeypatch.setattr(rk, "uses_kernel", lambda t: True)
+    monkeypatch.setattr(rk, "load", lambda name: libs[name])
+    monkeypatch.setattr(rk, "stream_of", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=SMS))
+    counts = dict(kl.LAUNCHES)
+    yield libs
+    kl.LAUNCHES.update(counts)
+
+
+SCRATCH_CASES = [("bfloat16", 4096, 64), ("bfloat16", 4096, 128), ("bfloat16", 7, 192),
+                 ("bfloat16", 4093, 100), ("float32", 4096, 64), ("float32", 13, 100)]
+
+
+@pytest.mark.parametrize("kernel", ["B7", "B5"])
+@pytest.mark.parametrize("name,R,S", SCRATCH_CASES, ids=[f"{c[0]}-R{c[1]}-S{c[2]}"
+                                                          for c in SCRATCH_CASES])
+def test_scratch_is_sized_from_the_library_per_compute_type(fake_card, kernel, name, R, S):
+    cfg = tm.MLPConfig(**CASES[0])
+    cd = getattr(torch, name)
+    lib = _FakeLib(kernel, cfg)
+    n_params = lib.nerf_mlp_param_count() + (kernel == "B5")
+    z = torch.zeros((R, S))
+    partial, acts, dxs, n_blocks = rk._comp_bwd_scratch(lib, n_params, cfg, cd, z,
+                                                        torch.device("cpu"))
+    groups = lib.nerf_comp_groups(cd == torch.bfloat16, R, S)
+    assert n_blocks == min(groups, SMS)
+    assert partial.numel() == n_blocks * n_params and partial.dtype == torch.float32
+    assert acts.dtype == cd
+    if cd == torch.bfloat16:
+        assert groups == -(-R // rays_per_group(S))
+        assert acts.numel() == n_blocks * tiles_per_group(S) * NACT * BM * HPAD
+        assert dxs.numel() == n_blocks * BM * cfg.xyz_dim and dxs.dtype == torch.float32
+    else:
+        # The FMA kernels' sizes, as the old exports give them: groups of about
+        # 64 rows; B7 one chunk's slots (its tile recomputes), B5 every chunk's.
+        rpg = 1 if S >= TM else TM // S
+        assert groups == -(-R // rpg)
+        chunks = 1 if kernel == "B7" else -(-rpg * S // TM)
+        assert acts.numel() == n_blocks * chunks * NACT * TM * HMAX
+        assert dxs is None
+
+
+def test_exports_in_the_sources_match_the_fake_library():
+    for src in (B7_SRC, B5_SRC):
+        assert 'extern "C" int nerf_comp_dx_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : 0; }' in src
+    assert "return is_bf16 ? nerf_cmma::act_elems(S) : (long long)NACT * TM * HMAX;" in B7_SRC
+    assert "if (is_bf16) return nerf_cmma::n_groups(R, S);" in B7_SRC
+    assert "return is_bf16 ? nerf_cmma::act_elems(S) : nerf_mlp_comp_act_slots(S);" in B5_SRC
+    assert "return is_bf16 ? nerf_cmma::n_groups(R, S) : n_groups(R, S);" in B5_SRC
+    # B5's library keeps the old exports of the family, which B4's wrappers read.
+    common = (CSRC / "mlp_comp_common.cuh").read_text()
+    assert "nerf_comp::chunks_per_group(S) * nerf_mlp::NACT * nerf_mlp::TM * nerf_mlp::HMAX" in common
+    # Each new kernel launches only on the bf16 branch.
+    assert "if (bf16) {\n    err = launch_kernel(rm_comp_bwd_mma_kernel," in B7_SRC
+    assert "mlp_loss_comp_mma_kernel<<<n_blocks, nerf_mma::NT, smem, stream>>>(" in B5_SRC
+
+
+@pytest.mark.parametrize("name", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kernel", ["B7", "B5"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, name):
+    """bf16: the F and B packs of ``pack_mma_weights`` (their size checked
+    against the library's), a dx slab; f32: the flat weights and their
+    transposes, no dx slab."""
+    cfg = tm.MLPConfig(**case)
+    cd = getattr(torch, name)
+    lib = _FakeLib(kernel, cfg)
+    R, S = 5, 48
+    ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(0), cfg), cfg, cd)
+    gen = torch.Generator().manual_seed(1)
+    z = torch.sort(2 + 4 * torch.rand((R, S), generator=gen), dim=1).values
+    if kernel == "B7":
+        fake_card["raymarch_comp_bwd"] = lib
+        rd = torch.rand((R, 6 + (cfg.n_angles + 1 if cfg.uses_view_dirs else 0)), generator=gen)
+        rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, torch.rand((R, 3)), torch.rand((R, S)), cd)
+    else:
+        fake_card["mlp_loss_comp"] = lib
+        enc = torch.rand((R * S, cfg.xyz_dim), generator=gen).to(cd)
+        encd = torch.rand((R, cfg.dir_dim), generator=gen) if cfg.uses_view_dirs else None
+        rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, torch.rand((R, 3)), torch.rand((R, 3)), cd)
+    (call,) = lib.calls
+    assert call["n_blocks"] == lib.nerf_comp_groups(cd == torch.bfloat16, R, S)
+    if cd == torch.bfloat16:
+        for got, kind in ((call["w"], "f"), (call["wt"], "b")):
+            want = rc.pack_mma_weights(ws, cfg, kind).view(torch.int16).numpy().view(np.uint16)
+            np.testing.assert_array_equal(got, want)
+        assert call["dxs"] is not None
+    else:
+        np.testing.assert_array_equal(call["w"], torch.cat([w.reshape(-1) for w in ws]).numpy())
+        np.testing.assert_array_equal(call["wt"],
+                                      torch.cat([w.t().reshape(-1) for w in ws]).numpy())
+        assert call["dxs"] is None
+    bad = _FakeLib(kernel, cfg)
+    bad.nerf_mlp_mma_pack_elems = lambda *dims: rc.mma_layout(cfg)[1] + 16
+    fake_card["raymarch_comp_bwd" if kernel == "B7" else "mlp_loss_comp"] = bad
+    if cd == torch.bfloat16:
+        with pytest.raises(RuntimeError, match="weight-pack layout"):
+            if kernel == "B7":
+                rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, torch.rand((R, 3)), torch.rand((R, S)),
+                                     cd)
+            else:
+                rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, torch.rand((R, 3)),
+                                 torch.rand((R, 3)), cd)
+
+
+# --------------------------------------------------------------------------- #
+# (e) the raw output and the plain versions the card's checks hold it to       #
+# --------------------------------------------------------------------------- #
+
+def test_kink_of_negates_sigma_only_where_the_signs_differ():
+    raw = torch.tensor([[[0.1, 0.2, 0.3, 2.0], [0.4, 0.5, 0.6, -1e-3], [0.7, 0.8, 0.9, 3e-4],
+                         [1.0, 1.1, 1.2, -5.0]]])
+    side = torch.tensor([[1.0, 2e-4, -1e-6, -0.5]])
+    out = rk.kink_of(raw, side)
+    assert torch.equal(out[..., :3], raw[..., :3])
+    assert out[0, :, 3].tolist() == pytest.approx([2.0, 1e-3, -3e-4, -5.0])
+    assert rk.kink_of(raw, None) is raw
+
+
+def _b7_small(case, seed=3, R=6, S=48):
+    cfg = tm.MLPConfig(**case)
+    ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(seed), cfg), cfg,
+                               torch.bfloat16)
+    gen = torch.Generator().manual_seed(seed + 1)
+    o = torch.randn((R, 3), generator=gen)
+    o = 4 * o / o.norm(dim=1, keepdim=True)
+    d = -o / 4 + 0.3 * torch.randn((R, 3), generator=gen)
+    vc = _view_components(d, cfg)
+    rd = rk.pack_rays(cfg, o, d, vc)
+    z = torch.sort(2 + 4 * torch.rand((R, S), generator=gen), dim=1).values
+    return cfg, ws, bs, rd, z, 0.5 + torch.rand((R, 3), generator=gen), 0.5 + torch.rand(
+        (R, S), generator=gen)
+
+
+def _view_components(d, cfg):
+    from nerf_and_dietnerf_tpu_torch.core import cameras
+
+    return cameras.view_direction_components(d, cfg.n_angles) if cfg.uses_view_dirs else None
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_b7_backward_takes_the_given_side_of_the_kink(case):
+    """With its own raw sigma as the side, the plain B7 backward is bitwise
+    itself; a sample moved to the dead side (raw sigma <= 0) gets no sigma
+    cotangent, one moved to the live side gets one; f64 sums stay within the
+    bf16 tolerance of the f32 ones and come back in f64."""
+    cfg, ws, bs, rd, z, g_rgb, g_w = _b7_small(case)
+    cd = torch.bfloat16
+    base = rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, cd)
+    raw = rk.raymarch_fwd_plain(ws, bs, cfg, rd, z, cd)
+    same = rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw_sigma=raw[..., 3])
+    assert all(torch.equal(a, b) for a, b in zip(base[0] + base[1] + [base[2]],
+                                                 same[0] + same[1] + [same[2]]))
+    side = -raw[..., 3]
+    g_raw, _ = rk.composite_vjp(rk.kink_of(raw, side), z, g_rgb, g_w)
+    live = raw[..., 3] > 0
+    assert bool((g_raw[..., 3][live] == 0).all()) and bool((g_raw[..., 3][~live] != 0).any())
+    moved = rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw_sigma=side)
+    assert not torch.equal(moved[2], base[2])
+    exact = rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, cd, work=torch.float64)
+    assert exact[2].dtype == torch.float64 and exact[0][0].dtype == torch.float64
+    for got, want in zip(exact[0] + exact[1], base[0] + base[1]):
+        assert _scaled_np(got, want) <= GRAD_TOL["bfloat16"]
+    assert float((exact[2] - base[2]).norm() / base[2].norm()) <= GRAD_TOL["bfloat16"]
+
+
+def _scaled_np(a, b) -> float:
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_b5_takes_the_given_side_of_the_kink_and_sums_in_f64(case):
+    cfg = tm.MLPConfig(**case)
+    cd = torch.bfloat16
+    ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(5), cfg), cfg, cd)
+    tcfg, enc, encd, z, dvec, target = _b5_inputs(cfg, 5, 48)
+    mse, dz, dws, dbs = rk.mlp_loss_comp_plain(ws, bs, cfg, enc, encd, z, dvec, target, cd)
+    raw, _ = rk._raw_on_encodings(ws, bs, cfg, enc, encd, z, cd)
+    same = rk.mlp_loss_comp_plain(ws, bs, cfg, enc, encd, z, dvec, target, cd,
+                                  raw_sigma=raw[..., 3])
+    assert torch.equal(same[0], mse) and torch.equal(same[1], dz)
+    assert all(torch.equal(a, b) for a, b in zip(same[2] + same[3], dws + dbs))
+    emse, edz, edws, edbs = rk.mlp_loss_comp_plain(ws, bs, cfg, enc, encd, z, dvec, target, cd,
+                                                   work=torch.float64)
+    assert edz.dtype == torch.float64 and edws[0].dtype == torch.float64
+    assert abs(float(emse) - float(mse)) <= LOSS_RTOL["bfloat16"] * abs(float(mse))
+    for got, want in zip(edws + edbs, dws + dbs):
+        assert _scaled_np(got, want) <= GRAD_TOL["bfloat16"]
+    assert float((edz - dz).norm() / dz.norm()) <= GRAD_TOL["bfloat16"]
+
+
+def _b5_inputs(cfg, R, S, seed=7):
+    from nerf_and_dietnerf_tpu_torch.core import encoding
+
+    gen = torch.Generator().manual_seed(seed)
+    pts = torch.rand((R * S, 3), generator=gen) * 2 - 1
+    enc = encoding.encode_xyz(pts, cfg.n_freq_xyz).to(torch.bfloat16)
+    encd = (encoding.encode_view_dirs(torch.randn((R, cfg.n_angles + 1), generator=gen),
+                                      cfg.n_freq_dir) if cfg.uses_view_dirs else None)
+    z = torch.sort(2 + 4 * torch.rand((R, S), generator=gen), dim=1).values
+    return cfg, enc, encd, z, torch.randn((R, 3), generator=gen), -(0.5 + torch.rand(
+        (R, 3), generator=gen))
+
+
+@pytest.mark.parametrize("kernel", ["B7", "B5"])
+def test_raw_output_on_the_cpu_is_the_plain_forward(kernel):
+    cfg = tm.MLPConfig(**CASES[0])
+    cd = torch.bfloat16
+    if kernel == "B7":
+        cfg, ws, bs, rd, z, g_rgb, g_w = _b7_small(CASES[0], R=3, S=40)
+        raw = torch.full((*z.shape, 4), float("nan"))
+        got = rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw)
+        want = rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, cd)
+        assert torch.equal(raw, rk.raymarch_fwd_plain(ws, bs, cfg, rd, z, cd))
+        assert torch.equal(got[2], want[2])
+        with pytest.raises(ValueError, match="bf16"):
+            rk.raymarch_comp_bwd(*rc.flatten_params(tm.init_params(torch.Generator(), cfg), cfg,
+                                                    torch.float32), cfg, rd, z, g_rgb, g_w,
+                                 torch.float32, raw=raw)
+    else:
+        ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(5), cfg), cfg, cd)
+        _, enc, encd, z, dvec, target = _b5_inputs(cfg, 3, 40)
+        raw = torch.full((*z.shape, 4), float("nan"))
+        got = rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, dvec, target, cd, raw=raw)
+        assert torch.equal(raw, rk._raw_on_encodings(ws, bs, cfg, enc, encd, z, cd)[0])
+        assert torch.equal(got[1], rk.mlp_loss_comp_plain(ws, bs, cfg, enc, encd, z, dvec,
+                                                          target, cd)[1])
+        with pytest.raises(ValueError, match="expected"):
+            rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, dvec, target, cd, raw=raw[:, :-1])
+
+
+@pytest.mark.parametrize("name", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kernel", ["B7", "B5"])
+def test_wrappers_pass_the_raw_output_to_the_bf16_kernels(fake_card, kernel, name):
+    cfg = tm.MLPConfig(**CASES[1])
+    cd = getattr(torch, name)
+    lib = _FakeLib(kernel, cfg)
+    R, S = 4, 48
+    ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(0), cfg), cfg, cd)
+    gen = torch.Generator().manual_seed(1)
+    z = torch.sort(2 + 4 * torch.rand((R, S), generator=gen), dim=1).values
+    raw = torch.empty((R, S, 4))
+    rd = torch.rand((R, 6), generator=gen)
+    enc = torch.rand((R * S, cfg.xyz_dim), generator=gen).to(cd)
+
+    def call(**kw):
+        if kernel == "B7":
+            fake_card["raymarch_comp_bwd"] = lib
+            rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, torch.rand((R, 3)), torch.rand((R, S)), cd,
+                                 **kw)
+        else:
+            fake_card["mlp_loss_comp"] = lib
+            rk.mlp_loss_comp(ws, bs, cfg, enc, None, z, torch.rand((R, 3)), torch.rand((R, 3)),
+                             cd, **kw)
+
+    call()
+    assert lib.calls[-1]["raw"] is None
+    if cd == torch.bfloat16:
+        call(raw=raw)
+        assert lib.calls[-1]["raw"] == raw.data_ptr()
+    else:
+        with pytest.raises(ValueError, match="bf16"):
+            call(raw=raw)
+        assert len(lib.calls) == 1
+
+
+def test_kink_report_runs_on_the_cpu(capsys):
+    from nerf_and_dietnerf_tpu_torch.tools import comp_kink
+
+    assert comp_kink.main(["--device", "cpu", "--rays", "8", "--hidden", "32", "--seeds", "0"]) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    # Both kernels at the four shapes of both variants, and on opaque rays.
+    assert len(lines) == 2 * (2 * len(comp_kink.SHAPES) + 1)
+    for rec in lines:
+        # On the CPU the wrappers run the plain version: no distance, no kink.
+        assert rec["plain"]["dz_normwise"] == 0 and rec["kink_vs_plain"]["count"] == 0
+        assert set(rec) >= {"plain_kink", "f64", "f64_kink", "plain_vs_f64", "kink_vs_f64"}
+        assert rec["f64"]["dz_normwise"] == rec["plain_vs_f64"]["dz_normwise"]

@@ -457,5 +457,8 @@ def test_build_hash_of_the_new_kernels_covers_their_headers():
     shared = {"mlp_common.cuh", "composite_common.cuh", "mlp_comp_common.cuh"}
     assert deps["mlp_comp_fwd"] == shared | {"mlp_comp_fwd.cu"}
     assert deps["mlp_comp_bwd"] == shared | {"mlp_bwd_tile.cuh", "mlp_comp_bwd.cu"}
-    assert deps["mlp_loss_comp"] == shared | {"mlp_bwd_tile.cuh", "mlp_loss_comp.cu"}
-    assert "composite_common.cuh" in deps["raymarch_comp_bwd"]
+    # B5 and B7's backward: their bf16 kernels run the ray-group loop on
+    # the tensor-core tiles.
+    tiles = {"comp_mma_tile.cuh", "mlp_mma_tile.cuh"}
+    assert deps["mlp_loss_comp"] == shared | tiles | {"mlp_bwd_tile.cuh", "mlp_loss_comp.cu"}
+    assert {"composite_common.cuh"} | tiles <= deps["raymarch_comp_bwd"]
