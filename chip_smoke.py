@@ -24,12 +24,16 @@ B1 in both types, its former FMA design (P3 at one chain) and the plain
 version against the forward chain evaluated in f64 (f32 B1 fails if it is more
 than ``F64_FACTOR`` times as far as the plain version), B6 and its plain
 version likewise (raw output, dz and dparams; JSON ``b6_vs_f64_chain``), B7
-(pixels, dz, dparams; ``b7_vs_f64_chain``) and B5 (loss, dz, dparams;
-``b5_vs_f64_chain``) at S = 64 and 128, holds the bf16 B7 backward and B5 (on
-the tensor cores) also at S = 100, at 4093 rays and on opaque rays, each
-against its plain version with f64 sums on the kernel's side of the
-compositing's kink (``KINK_SHARE``), prints the registers, spills and HMMA
-counts of the four bf16 backwards (B2, B6, B7, B5),
+(pixels, dz, dparams; ``b7_vs_f64_chain``; in f32 also step by step,
+``b7_f32_steps``, ``tools/comp_f32_steps.py``), B5 (loss, dz, dparams;
+``b5_vs_f64_chain``) and B4 (pixels, weights, denc, dencd, dz, dparams;
+``b4_vs_f64_chain``) at S = 64 and 128 (f32: 64), holds the bf16 B7
+backward, B5 and B4 (forward and backward, on the tensor cores) also at S =
+100, at 4093 rays and on opaque rays, each against its plain version with
+f64 sums on the kernel's side of the compositing's kink (``KINK_SHARE``),
+checks that bf16 B4's backward composites bitwise the raw values its forward
+composited, prints the registers, spills and HMMA counts of the five bf16
+backwards (B2, B6, B7, B5, B4) and of B4's forward,
 and times f32 B1 beside that FMA design, then drives the five training paths at
 flagship width (4096 rays, 64 + 128 samples, 256/128 wide, bf16 step, f32
 eval renders) on a synthetic scene made from a seed, each for two epochs with
@@ -100,9 +104,16 @@ RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings
                                                                     "through a per-block slab",
              ("raymarch_bwd", "float32"): F32_BWD_DESIGN,
              ("raymarch_comp_bwd", "bfloat16"): COMP_MMA_DESIGN,
-             ("mlp_loss_comp", "bfloat16"): COMP_MMA_DESIGN}
-# Every other kernel (B4, B7's forward, f32 B7 backward and f32 B5) keeps the
-# FMA tiles.
+             ("mlp_loss_comp", "bfloat16"): COMP_MMA_DESIGN,
+             ("mlp_comp_bwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", whole rays in a tile, one "
+                                                                  "forward per row, compositing "
+                                                                  "VJP in the block, dx rows to "
+                                                                  "denc, dd rows through a "
+                                                                  "per-block slab",
+             ("mlp_comp_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", whole rays in a tile, "
+                                                                  "compositing in the block"}
+# Every other kernel (B7's forward, f32 B7 backward, f32 B4 and f32 B5) keeps
+# the FMA tiles.
 FMA_COMP_DESIGN = "FMA tiles, 64 rows, whole rays a block"
 # B1's former f32 design, timed beside it: P3 with one chain is that FMA tile.
 FMA_DESIGN = "f32 FMA tile, one 64-row chain (P3, chains=1)"
@@ -161,22 +172,23 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float32_mma": 495e12 / 3}
 # f32 B1 against the f64 forward chain: normwise at most this many times the
 # plain f32 version's distance.
 F64_FACTOR = 4.0
-# The compositing backwards on the bf16 tensor cores (B7's backward, B5) sum
-# in an order of their own; the plain version's f32 sums are one more such
-# order. Two things then part them from it that do not part the kernels from
-# the function: a sample whose raw sigma lies within the forward's rounding
-# noise of 0 falls on the other side of the compositing's kink (max(sigma,
-# 0); the sigma cotangent is 0 below it) and moves its row's dz and share of
-# every weight gradient whole; and where few rows carry the gradients
-# (opaque rays: 256 first samples) the f32 version's own sums sit up to 2e-2
-# normwise from the exact ones in dz and dparams. Each check of these two
+# The compositing kernels on the bf16 tensor cores (B7's backward, B5, B4's
+# forward and backward) sum in an order of their own; the plain version's f32
+# sums are one more such order. Two things then part them from it that do not
+# part the kernels from the function: a sample whose raw sigma lies within the
+# forward's rounding noise of 0 falls on the other side of the compositing's
+# kink (max(sigma, 0); the sigma cotangent is 0 below it) and moves its row's
+# dz and share of every weight gradient whole; and where few rows carry the
+# gradients (opaque rays: 256 first samples) the f32 version's own sums sit
+# up to 3e-2 from the exact ones in dparams' worst leaf. Each check of these
 # kernels therefore holds the kernel against its plain version with the
 # MLP's products and sums in f64 (the same roundings to bf16, nearly exact
 # sums) and each sample on the kernel's side of the kink (the raw values the
 # kernel composited, ``raw=``; ``research_kernels_cuda.kink_of``): dparams
-# to TOL_BWD (the worst leaf), dz normwise to TOL_ROWS, B5's loss to TOL, the
-# raw values to TOL against the plain forward's, and at most KINK_SHARE of
-# the samples on the other side of the kink from the f64 evaluation's.
+# to TOL_BWD (the worst leaf), dz and B4's denc and dencd normwise to
+# TOL_ROWS, B5's loss, B4's pixels and weights to TOL, the raw values to TOL
+# against the plain forward's, and at most KINK_SHARE of the samples on the
+# other side of the kink from the f64 evaluation's.
 # ``tools/comp_kink.py`` computes the records; the distances to the plain f32
 # version are printed beside.
 KINK_SHARE = 1e-3
@@ -568,40 +580,52 @@ def _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd, z, g, cd) -> dict:
     return _chain_ratios(out)
 
 
+COMP_BWD_NAMES = {"B7": "raymarch_comp_bwd", "B5": "mlp_loss_comp", "B4": "mlp_comp_bwd"}
+
+
 def _hold_comp_bwd(torch, kernel, label, name, ws, bs, cfg, cd, args, run) -> dict:
-    """B7's backward (``kernel`` "B7") or B5 ("B5") on ``args`` (as
-    ``tools/comp_kink.plain_of`` takes them); ``run(raw)`` gives its ``(dws,
-    dbs, dz, loss | None)``, in bf16 writing the raw values it composited to
-    ``raw``. Finite, dparams (and B5's loss) bitwise equal across two runs,
-    and held to the tolerances: in bf16 as KINK_SHARE sets out, in f32 (the
-    FMA kernels, which sum in the plain version's order) against the plain
-    f32 version. Returns ``tools/comp_kink.compare``'s record, ``held_to``
-    naming the reference held to."""
+    """B7's backward (``kernel`` "B7"), B5 ("B5") or B4's backward ("B4") on
+    ``args`` (as ``tools/comp_kink.plain_of`` takes them); ``run(raw)`` gives
+    its result as ``comp_kink.distance`` takes it (``(dws, dbs, dz, loss |
+    None[, rows])``), in bf16 writing the raw values it composited to
+    ``raw``. Finite, dparams (and B5's loss, B4's dencd) bitwise equal across
+    two runs, and held to the tolerances: in bf16 as KINK_SHARE sets out, in
+    f32 (the FMA kernels, which sum in the plain version's order) against the
+    plain f32 version. Returns ``tools/comp_kink.compare``'s record,
+    ``held_to`` naming the reference held to."""
     from nerf_and_dietnerf_tpu_torch.tools import comp_kink
 
-    kname = "raymarch_comp_bwd" if kernel == "B7" else "mlp_loss_comp"
+    kname = COMP_BWD_NAMES[kernel]
     z = args[1] if kernel == "B7" else args[2]
     raw = (torch.empty((*z.shape, 4), dtype=torch.float32, device=DEVICE)
            if cd == torch.bfloat16 else None)
     got, again = run(raw), run(None)
     torch.cuda.synchronize()
-    rep = lambda r: list(r[0]) + list(r[1]) + ([r[3]] if r[3] is not None else [])  # noqa: E731
+
+    def rep(r):  # what must be bitwise reproducible
+        rows = r[4] if len(r) > 4 else {}
+        return (list(r[0]) + list(r[1]) + ([r[3]] if r[3] is not None else [])
+                + ([rows["dencd"]] if "dencd" in rows else []))
+
+    rows = got[4] if len(got) > 4 else {}
     rec = comp_kink.compare(*comp_kink.plain_of(kernel, ws, bs, cfg, cd, args), got, raw)
     rec["held_to"] = "plain" if raw is None else "f64_kink"
     ref = rec[rec["held_to"]]
     bad = [what for what, fails in (
         ("non-finite", not all(bool(torch.isfinite(t).all())
-                               for t in rep(got) + [got[2]] + ([] if raw is None else [raw]))),
+                               for t in rep(got) + [got[2]] + list(rows.values())
+                               + ([] if raw is None else [raw]))),
         ("dparams differ between two runs", not all(torch.equal(a, b)
                                                     for a, b in zip(rep(got), rep(again)))),
         (f"dparams over {TOL_BWD[name]}", ref["dparams_worst_leaf"] > TOL_BWD[name]),
         (f"dz over {TOL_ROWS[name]}", ref["dz_normwise"] > TOL_ROWS[name]),
+        *((f"{k} over {TOL_ROWS[name]}", ref[f"{k}_normwise"] > TOL_ROWS[name]) for k in rows),
         (f"loss over {TOL[name]}", ref.get("loss_rel", 0.0) > TOL[name]),
         (f"raw values over {TOL[name]}", rec.get("raw_scaled_err_vs_plain", 0.0) > TOL[name]),
         (f"kink samples over {KINK_SHARE}",
          rec.get("kink_vs_f64", {"share": 0.0})["share"] > KINK_SHARE)) if fails]
     keys = ("dparams_worst_leaf", "dparams_normwise", "dz_normwise", "dz_scaled_max",
-            "loss_rel")
+            "loss_rel", "denc_normwise", "dencd_normwise")
     summary = (f"against {rec['held_to']}: "
                + ", ".join(f"{k} {ref[k]:.3e}" for k in keys if k in ref)
                + (f"; raw scaled err {rec['raw_scaled_err_vs_plain']:.3e}, samples on the other "
@@ -615,23 +639,25 @@ def _hold_comp_bwd(torch, kernel, label, name, ws, bs, cfg, cd, args, run) -> di
     return rec
 
 
-def _chain_record(rec: dict, pixels=None) -> dict:
-    """A ``b7_vs_f64_chain`` / ``b5_vs_f64_chain`` entry from a record of
-    :func:`_hold_comp_bwd`: the kernel's and the plain f32 version's normwise
-    distance to the f64 evaluation (its own kink) for dz, dparams and B5's loss
-    (relative), ``pixels`` (B7's forward) if given and, where the kernel gave
-    its raw values, its distance to the f64 evaluation on its side of the kink
-    and the samples on the other side (their count, and the rows of their
-    128-row tiles of the first ``comp_kink.MAX_LISTED``)."""
+def _chain_record(rec: dict, forward=None) -> dict:
+    """A ``b7_vs_f64_chain`` / ``b5_vs_f64_chain`` / ``b4_vs_f64_chain`` entry
+    from a record of :func:`_hold_comp_bwd`: the kernel's and the plain f32
+    version's normwise distance to the f64 evaluation (its own kink) for dz,
+    dparams, B4's denc and dencd and B5's loss (relative), the forward's
+    entries ``forward`` (B7's pixels, B4's pixels and weights) if given and,
+    where the kernel gave its raw values, its distance to the f64 evaluation
+    on its side of the kink and the samples on the other side (their count,
+    and the rows of their 128-row tiles of the first
+    ``comp_kink.MAX_LISTED``)."""
+    rows = [k for k in ("dz", "dparams", "denc", "dencd") if f"{k}_normwise" in rec["f64"]]
     out = {k: {"kernel": rec["f64"][f"{k}_normwise"], "plain": rec["plain_vs_f64"][f"{k}_normwise"]}
-           for k in ("dz", "dparams")}
+           for k in rows}
     if "loss_rel" in rec["f64"]:
         out["loss"] = {"kernel": rec["f64"]["loss_rel"], "plain": rec["plain_vs_f64"]["loss_rel"]}
-    if pixels is not None:
-        out["pixels"] = pixels
+    out.update(forward or {})
     _chain_ratios(out)
     if "f64_kink" in rec:
-        for k in ("dz", "dparams"):
+        for k in rows:
             out[k]["kernel_kink"] = rec["f64_kink"][f"{k}_normwise"]
         out["kink_samples"] = rec["kink_vs_f64"]["count"]
         out["kink_tile_rows"] = [k["tile_row"] for k in rec["kink_vs_f64"]["samples"]]
@@ -761,16 +787,23 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                     f"{variant} {name} R={RAYS} S={n_s}", backward))
             # B7 and its plain version against the f64 evaluation: pixels, dz
             # and dparams at S = 64 and, in bf16, at 128 (the f32 backward keeps
-            # its FMA design; its dparams margin is ROADMAP C3).
+            # its FMA design; in f32, ROADMAP C3's steps on the same draw).
             for n_s, (rd_c, z_c, rec_c) in [(SAMPLES, (rd, z, rec7))] + (
                     [(2 * SAMPLES, (other[2 * SAMPLES][0], other[2 * SAMPLES][1],
                                     other[2 * SAMPLES][4]))] if cd == torch.bfloat16 else []):
-                chain7 = _chain_record(rec_c, _b7_pixels_vs_f64(torch, rk, ws, bs, cfg, rd_c, z_c,
-                                                                cd))
+                chain7 = _chain_record(rec_c, {"pixels": _b7_pixels_vs_f64(torch, rk, ws, bs, cfg,
+                                                                           rd_c, z_c, cd)})
                 timings.setdefault("b7_vs_f64_chain", {}).setdefault(variant, {}).setdefault(
                     name, {})[f"S={n_s}"] = chain7
                 log(f"kernel check B7 {variant} {name} R={RAYS} S={n_s} against the f64 "
                     f"evaluation (normwise, kernel and plain): {chain7}")
+            if cd == torch.float32:
+                from nerf_and_dietnerf_tpu_torch.tools import comp_f32_steps
+
+                steps = comp_f32_steps.b7_steps(ws, bs, cfg, rd, z, *cots[1:])
+                timings.setdefault("b7_f32_steps", {})[variant] = steps
+                log(f"kernel check B7 {variant} float32 R={RAYS} S={SAMPLES}, step by step "
+                    f"against the f64 chain (tools/comp_f32_steps.py): {steps}")
             if variant != "view_dirs":
                 continue
             g, g_rgb, g_w = cots
@@ -958,67 +991,80 @@ def _comp_bytes(cfg, ws, bs, enc, encd, z, kname):
 def _comp_checks(torch, rk, cfg, ws, bs, batch, cd, name, gen, label, b4=True, b5=True):
     """B4's forward and backward and B5 against their plain versions on
     ``batch`` (:func:`_enc_batch`); returns the max |kernel - plain| of each
-    kernel (B5: against the reference it is held to), B4's cotangents for the
-    timings and B5's record of :func:`_hold_comp_bwd`."""
-    tol, tol_b, tol_r = TOL[name], TOL_BWD[name], TOL_ROWS[name]
+    kernel (against the reference it is held to), B4's cotangents for the
+    timings and the records: B5's and B4's backward's of :func:`_hold_comp_bwd`
+    ("B5", "B4") and B4's forward's distances to the f64 evaluation ("B4_fwd":
+    pixels and weights, kernel and plain f32 version)."""
+    from nerf_and_dietnerf_tpu_torch.tools import comp_kink
+
+    tol = TOL[name]
     enc, encd, z, dvec, target = batch
     n_rays, n_samples = z.shape
-    errs, cots = {}, None
-
-    def abs_err(pairs):
-        return max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
-
-    def hold_bwd(kname, got, want, rows, reproducible, again):
-        """dparams to tol_b, the per-row / per-ray gradients ``rows`` normwise
-        to tol_r, ``reproducible`` bitwise equal to a second run's ``again``."""
-        (dws, dbs), (pws, pbs) = got, want
-        e_par = max(_scaled_err(a, b) for a, b in zip(dws + dbs, pws + pbs))
-        stats = {k: _row_errs(a, b, tol_r) for k, a, b in rows}
-        errs[kname] = abs_err(list(zip(dws + dbs, pws + pbs)) + [(a, b) for _, a, b in rows])
-        finite = all(bool(torch.isfinite(a).all()) for _, a, _ in rows)
-        if not finite or e_par > tol_b or any(st[1] > tol_r for st in stats.values()):
-            raise AssertionError(f"{kname} {label}: dparams scaled err {e_par} (tol {tol_b}); "
-                                 f"(scaled max, normwise, share over tol) {stats} (tol {tol_r})")
-        if not all(torch.equal(a, b) for a, b in zip(reproducible, again)):
-            raise AssertionError(f"{kname} {label}: results differ between two runs")
-        log(f"kernel check {label}: {kname} dparams scaled err {e_par:.3e} (tol {tol_b}), "
-            f"(scaled max, normwise, share of rows over tol) {stats} (tol {tol_r}), "
-            f"bitwise equal across two runs")
+    errs, cots, recs = {}, None, {}
 
     if b4:
-        rgb_k, w_k = rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, z, cd)
+        # The forward: in bf16 held as the backwards are (KINK_SHARE), against
+        # its plain version with f64 sums on the kernel's side of the kink; in
+        # f32 against the plain f32 version.
+        bf = cd == torch.bfloat16
+        raw_f = torch.empty((*z.shape, 4), dtype=torch.float32, device=DEVICE) if bf else None
+        rgb_k, w_k = rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, z, cd, raw=raw_f)
         torch.cuda.synchronize()
-        rgb_p, w_p = rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd)
-        e = max(_scaled_err(rgb_k, rgb_p), _scaled_err(w_k, w_p))
-        errs["mlp_comp_fwd"] = abs_err([(rgb_k, rgb_p), (w_k, w_p)])
-        if not (torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all() and e <= tol):
-            raise AssertionError(f"mlp_comp_fwd {label}: scaled err {e} > {tol}")
-        log(f"kernel check {label}: B4 fwd scaled err {e:.3e} (tol {tol})")
+        plain = rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd)
+        exact = rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd, work=torch.float64)
+        recs["B4_fwd"] = {k: {"kernel": _normwise(a, e.double()), "plain": _normwise(p, e.double())}
+                          for k, a, p, e in (("pixels", rgb_k, plain[0], exact[0]),
+                                             ("weights", w_k, plain[1], exact[1]))}
+        bad, extra = [], ""
+        if bf:
+            want = rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd, work=torch.float64,
+                                         raw_sigma=raw_f[..., 3])
+            d = rk._dir_rows(cfg, encd, n_samples, cd)
+            e_raw = _scaled_err(raw_f, rk._raw_plain(ws, bs, cfg, enc, d, z, cd, torch.float32))
+            kink = comp_kink.kink_samples(raw_f, rk._raw_plain(ws, bs, cfg, enc, d, z, cd,
+                                                                torch.float64))
+            bad += [what for what, fails in (
+                (f"raw values over {tol}", e_raw > tol),
+                (f"kink samples over {KINK_SHARE}", kink["share"] > KINK_SHARE)) if fails]
+            extra = f", raw scaled err {e_raw:.3e}, {kink['count']} kink samples"
+        else:
+            want = plain
+        e = max(_scaled_err(rgb_k, want[0]), _scaled_err(w_k, want[1]))
+        errs["mlp_comp_fwd"] = max(float((a - b).abs().max()) for a, b in zip((rgb_k, w_k), want))
+        if not (torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all()) or e > tol or bad:
+            raise AssertionError(f"mlp_comp_fwd {label}: scaled err {e} (tol {tol}); {bad}{extra}")
+        log(f"kernel check {label}: B4 fwd scaled err {e:.3e} (tol {tol}) against "
+            f"{'f64_kink' if bf else 'plain'}{extra}")
         g_rgb = (0.5 + torch.rand((n_rays, 3), generator=gen, device=DEVICE)).contiguous()
         g_w = (0.5 + torch.rand((n_rays, n_samples), generator=gen, device=DEVICE)).contiguous()
         cots = (g_rgb, g_w)
-        run = lambda: rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, z, g_rgb, g_w, cd)  # noqa: E731
-        dws, dbs, denc, dencd, dz = run()
-        torch.cuda.synchronize()
-        pws, pbs, pdenc, pdencd, pdz = rk.mlp_comp_bwd_plain(ws, bs, cfg, enc, encd, z, g_rgb,
-                                                             g_w, cd)
-        dws2, dbs2, _, dencd2, _ = run()
-        torch.cuda.synchronize()
-        per_ray = [("dencd", dencd, pdencd)] if encd is not None else []
-        hold_bwd("mlp_comp_bwd", (dws, dbs), (pws, pbs),
-                 [("denc", denc, pdenc), ("dz", dz, pdz)] + per_ray,
-                 dws + dbs + [t for _, t, _ in per_ray],
-                 dws2 + dbs2 + ([dencd2] if per_ray else []))
-    rec = None
+        raws = {}
+
+        def run4(raw):
+            if raw is not None:
+                raws["bwd"] = raw
+            return comp_kink.b4_result(*rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, z, g_rgb, g_w, cd,
+                                                        raw=raw))
+
+        recs["B4"] = _hold_comp_bwd(torch, "B4", label, name, ws, bs, cfg, cd,
+                                    (enc, encd, z, g_rgb, g_w), run4)
+        errs["mlp_comp_bwd"] = recs["B4"][recs["B4"]["held_to"]]["max_abs"]
+        # One tile code, one order of sums: the backward composites what the
+        # forward composited.
+        if bf and not torch.equal(raws["bwd"], raw_f):
+            raise AssertionError(f"mlp_comp_bwd {label}: its raw values differ from the forward's")
+        if bf:
+            log(f"kernel check {label}: B4's backward composited the forward's raw values, "
+                f"bitwise")
     if b5:
         def run(raw):
             mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, dvec, target, cd,
                                                  raw=raw)
             return dws, dbs, dz, mse
 
-        rec = _hold_comp_bwd(torch, "B5", label, name, ws, bs, cfg, cd, batch, run)
-        errs["mlp_loss_comp"] = rec[rec["held_to"]]["max_abs"]
-    return errs, cots, rec
+        recs["B5"] = _hold_comp_bwd(torch, "B5", label, name, ws, bs, cfg, cd, batch, run)
+        errs["mlp_loss_comp"] = recs["B5"][recs["B5"]["held_to"]]["max_abs"]
+    return errs, cots, recs
 
 
 def comp_kernel_phases(torch, timings: dict) -> None:
@@ -1031,8 +1077,10 @@ def comp_kernel_phases(torch, timings: dict) -> None:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     # The checks added with B5's tensor-core kernel (bf16 at S = 100, at 4093
     # rays, on opaque rays) draw from a generator of their own, so that every
-    # other check here draws the inputs it drew before.
+    # other check here draws the inputs it drew before; those added with B4's
+    # (the same cases) from one more.
     gen_b5 = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    gen_b4 = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
         cfg = mlp.MLPConfig(n_angles=n_angles)
         params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
@@ -1059,13 +1107,26 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                     errs[label] = _comp_checks(
                         torch, rk, cfg, ws, bs, _enc_batch(torch, cfg, cd, n_r, n_s, gen_b5), cd,
                         name, gen_b5, label, b4=False)[0]
+                    # B4 on the tensor cores at the same shapes.
+                    errs[label].update(_comp_checks(
+                        torch, rk, cfg, ws, bs, _enc_batch(torch, cfg, cd, n_r, n_s, gen_b4), cd,
+                        name, gen_b4, label, b5=False)[0])
                 for n_s in (SAMPLES, 2 * SAMPLES):
-                    chain5 = _chain_record(recs[n_s])
+                    chain5 = _chain_record(recs[n_s]["B5"])
                     timings.setdefault("b5_vs_f64_chain", {}).setdefault(variant, {})[
                         f"S={n_s}"] = chain5
                     log(f"kernel check B5 {variant} {name} R={RAYS} S={n_s} against the f64 "
                         f"evaluation (loss relative, dz and dparams normwise; kernel and "
                         f"plain): {chain5}")
+            # B4 and its plain version against the f64 evaluation: in bf16 at
+            # S = 64 and 128, in f32 (the FMA kernels, beside f32 B7's reading
+            # in b7_vs_f64_chain: ROADMAP C3) at S = 64.
+            for n_s in (SAMPLES, 2 * SAMPLES) if cd == torch.bfloat16 else (SAMPLES,):
+                chain4 = _chain_record(recs[n_s]["B4"], recs[n_s]["B4_fwd"])
+                timings.setdefault("b4_vs_f64_chain", {}).setdefault(variant, {}).setdefault(
+                    name, {})[f"S={n_s}"] = chain4
+                log(f"kernel check B4 {variant} {name} R={RAYS} S={n_s} against the f64 "
+                    f"evaluation (normwise; kernel and plain): {chain4}")
             if variant != "view_dirs":
                 continue
             leaves = [w.detach().clone().requires_grad_(True) for w in ws]
@@ -1129,6 +1190,11 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                     f"{variant} {name} R={RAYS} S={SAMPLES_RAGGED}"]["mlp_loss_comp"]
                 rec["mlp_loss_comp"]["max_abs_err_ragged"] = errs[
                     f"{variant} {name} R={RAYS_RAGGED} S={SAMPLES}"]["mlp_loss_comp"]
+                for kname in ("mlp_comp_fwd", "mlp_comp_bwd"):
+                    rec[kname]["max_abs_err_s100"] = errs[
+                        f"{variant} {name} R={RAYS} S={SAMPLES_RAGGED}"][kname]
+                    rec[kname]["max_abs_err_ragged"] = errs[
+                        f"{variant} {name} R={RAYS_RAGGED} S={SAMPLES}"][kname]
             else:
                 for kname in COMP_SOURCES:
                     rec[kname]["max_abs_err_s100"] = errs[SAMPLES_RAGGED][kname]
@@ -1146,7 +1212,7 @@ def comp_kernel_phases(torch, timings: dict) -> None:
 
     # Opaque rays: transmittance underflows to exactly 0; B4's backward and B5
     # stay finite (their compositing VJP is division-free) and agree with
-    # their plain versions; bf16 B5 (the tensor-core kernel) too.
+    # their plain versions; in bf16 (the tensor-core kernels) too.
     cfg = mlp.MLPConfig(n_angles=0)
     params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
     params["sigma_out"]["bias"] = params["sigma_out"]["bias"] + 1e6
@@ -1157,6 +1223,9 @@ def comp_kernel_phases(torch, timings: dict) -> None:
     _comp_checks(torch, rk, cfg, ws, bs,
                  _enc_batch(torch, cfg, torch.bfloat16, 256, SAMPLES, gen_b5), torch.bfloat16,
                  "bfloat16", gen_b5, f"opaque rays bfloat16 R=256 S={SAMPLES}", b4=False)
+    _comp_checks(torch, rk, cfg, ws, bs,
+                 _enc_batch(torch, cfg, torch.bfloat16, 256, SAMPLES, gen_b4), torch.bfloat16,
+                 "bfloat16", gen_b4, f"opaque rays bfloat16 R=256 S={SAMPLES}", b5=False)
 
 
 # --------------------------------------------------------------------------- #
@@ -1901,12 +1970,17 @@ MMA_KERNELS = {"mlp_fwd": {"mlp_fwd_mma_kernel": "HMMA", "mlp_fwd_tf32_kernel": 
                "raymarch_fwd": {"rm_fwd_mma_kernel": "HMMA", "rm_fwd_tf32_kernel": "HGMMA"},
                "raymarch_bwd": {"rm_bwd_mma_kernel": "HMMA"},
                "raymarch_comp_bwd": {"rm_comp_bwd_mma_kernel": "HMMA"},
-               "mlp_loss_comp": {"mlp_loss_comp_mma_kernel": "HMMA"}}
-# The backwards on the tensor-core tiles whose registers, spills and SASS
-# counts the run prints side by side (B2, B6, B7, B5).
+               "mlp_loss_comp": {"mlp_loss_comp_mma_kernel": "HMMA"},
+               "mlp_comp_fwd": {"mlp_comp_fwd_mma_kernel": "HMMA"},
+               "mlp_comp_bwd": {"mlp_comp_bwd_mma_kernel": "HMMA"}}
+# The kernels on the tensor-core tiles whose registers, spills and SASS
+# counts the run prints side by side: the backwards (B2, B6, B7, B5, B4) and
+# B4's forward.
 BWD_MMA_KERNELS = {"mlp_bwd": "mlp_bwd_mma_kernel", "raymarch_bwd": "rm_bwd_mma_kernel",
                    "raymarch_comp_bwd": "rm_comp_bwd_mma_kernel",
-                   "mlp_loss_comp": "mlp_loss_comp_mma_kernel"}
+                   "mlp_loss_comp": "mlp_loss_comp_mma_kernel",
+                   "mlp_comp_bwd": "mlp_comp_bwd_mma_kernel"}
+FWD_MMA_KERNELS = {"mlp_comp_fwd": "mlp_comp_fwd_mma_kernel"}
 
 
 def tensor_core_report(kl, build_log: str) -> dict:
@@ -1920,6 +1994,7 @@ def tensor_core_report(kl, build_log: str) -> dict:
     import shutil
 
     block, entry, ptxas = None, None, {}
+    counted = {**BWD_MMA_KERNELS, **FWD_MMA_KERNELS}
     for line in build_log.splitlines():
         if line.startswith("--- "):
             block = line[4:].strip()
@@ -1927,7 +2002,7 @@ def tensor_core_report(kl, build_log: str) -> dict:
             log(f"  ptxas {block}: {line.strip()}")
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif block in BWD_MMA_KERNELS and BWD_MMA_KERNELS[block] in (entry or ""):
+        elif block in counted and counted[block] in (entry or ""):
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
                 ptxas[block] = {"spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))}
@@ -1954,12 +2029,13 @@ def tensor_core_report(kl, build_log: str) -> dict:
             mma = {f: c for f, c in counts.items() if kernel in f}
             if not mma or not all(c[op] > 0 for c in mma.values()):
                 raise AssertionError(f"{lib}: no {op} instruction in {kernel}: {mma}")
-    report["backwards"] = {}
-    for lib, kernel in BWD_MMA_KERNELS.items():
-        sass = next(c for f, c in report[lib].items() if kernel in f)
-        report["backwards"][kernel] = {**ptxas.get(lib, {}), "HMMA": sass["HMMA"]}
-    log(f"backwards on the tensor-core tiles (registers, spill bytes, SASS HMMA): "
-        f"{report['backwards']}")
+    for key, kernels in (("backwards", BWD_MMA_KERNELS), ("forwards", FWD_MMA_KERNELS)):
+        report[key] = {}
+        for lib, kernel in kernels.items():
+            sass = next(c for f, c in report[lib].items() if kernel in f)
+            report[key][kernel] = {**ptxas.get(lib, {}), "HMMA": sass["HMMA"]}
+        log(f"{key} on the tensor-core tiles (registers, spill bytes, SASS HMMA): "
+            f"{report[key]}")
     return report
 
 
@@ -2064,6 +2140,8 @@ def main() -> int:
                       "b6_vs_f64_chain": timings["b6_vs_f64_chain"],
                       "b7_vs_f64_chain": timings["b7_vs_f64_chain"],
                       "b5_vs_f64_chain": timings["b5_vs_f64_chain"],
+                      "b4_vs_f64_chain": timings["b4_vs_f64_chain"],
+                      "b7_f32_steps": timings["b7_f32_steps"],
                       "eval_patch": timings["eval_patch"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

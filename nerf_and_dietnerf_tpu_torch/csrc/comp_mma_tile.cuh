@@ -1,12 +1,13 @@
-// The ray-group loop of the compositing backwards on the bf16 tensor-core
-// tiles of mlp_mma_tile.cuh: B7's backward (raymarch_comp_bwd.cu) and B5
-// (mlp_loss_comp.cu). Their f32 instances keep the FMA tiles of
-// mlp_common.cuh / mlp_bwd_tile.cuh.
+// The ray-group loops of the MLP + compositing kernels on the bf16
+// tensor-core tiles of mlp_mma_tile.cuh: the backward (backward_groups) of
+// B7 (raymarch_comp_bwd.cu), B5 (mlp_loss_comp.cu) and B4 (mlp_comp_bwd.cu),
+// and the forward (forward_groups) of B4 (mlp_comp_fwd.cu). Their f32
+// instances keep the FMA tiles of mlp_common.cuh / mlp_bwd_tile.cuh.
 //
 // A block owns whole rays, as the compositing needs: a group is the rays
 // that fit in one 128-row tile, rays_per_group(S) = S >= BM ? 1 : BM / S (two
 // rays at S = 64, one at S = 128, one in a part-filled tile at S = 100); at
-// S > 128 a ray spans ceil(S / 128) tiles. Per group:
+// S > 128 a ray spans ceil(S / 128) tiles. Per group, the backward:
 //   1. forward, once per row: for each tile the caller's policy builds X and
 //      D, then forward_tile keeps the ten post-activations in that tile's
 //      NACT slots and writes the raw values to RAW;
@@ -14,28 +15,41 @@
 //      first composite_ray, the error and its cotangent);
 //   3. the walk: for each tile the GI tile (grgb | gsig | bf16(gsig), as
 //      load_cotangent makes it) from GRAW, then backward_walk over the kept
-//      slots; dx goes to the block's BM x xyz f32 slab (the tile as a call of
-//      its own, as B6's backward does), and after a barrier one thread per row
-//      writes dz = DZC + the policy's share of the points.
-// No row is forwarded twice. At S <= 128 (every training call of both
+//      slots. B7 and B5: dx goes to the block's BM x xyz f32 slab (the tile
+//      as a call of its own, as B6's backward does), and after a barrier one
+//      thread per row writes dz = DZC + the policy's share of the points.
+//      B4 (a policy with INPUT_GRADS): dx rows go straight to the policy's
+//      output (denc), dd rows to the block's BM x dir f32 slab, which the
+//      policy sums per ray in row order, tile after tile (dencd), and dz is
+//      DZC alone.
+// No row is forwarded twice. At S <= 128 (every training call of these
 // kernels) a group is one tile: X, D and P still hold what the walk reads.
 // At S > 128 the block keeps every tile's slots (tiles_per_group(S) x NACT x
 // 128 x 256 bf16: 655,360 bytes a tile, 2.6 MB a block at S = 512, in its
 // scratch) and rebuilds X, D and P from them before each tile's walk;
 // recomputing the forward instead would cost a third more products.
+// The forward runs step 1 without the slots, then composite_ray one thread
+// per ray. Both run forward_tile<FRESH> on the same tiles, so B4's backward
+// composites bitwise the raw values its forward composited.
 //
-// Shared memory (bytes): the backward tiles, 209,408, then 9 floats per row
-// of the group (RAW 4 | GRAW 4 | DZC 1) and one per ray (ERR, B5's squared
-// errors): at S <= 128 at most 128 rows and 128 rays, 214,528 in all; at
-// S = MAX_S_COMP = 512, 227,844 of the 232,448 a block may use. Chosen over
-// an L2 slab such as B6's dx slab: the tiles alone (209,408) already hold a
-// block alone on its SM, so the rows cost no occupancy, and the serial
-// compositing pass, which reads RAW three times and writes GRAW and DZC,
-// runs on shared memory's latency. (No L2 variant was built or timed.)
+// Shared memory (bytes), backward: the backward tiles, 209,408, then 9
+// floats per row of the group (RAW 4 | GRAW 4 | DZC 1) and one per ray (ERR,
+// B5's squared errors): at S <= 128 at most 128 rows and 128 rays, 214,528 in
+// all; at S = MAX_S_COMP = 512, 227,844 of the 232,448 a block may use. The
+// dx and dd slabs are global (L2), 16,896 and 12,288 bytes a block at the
+// flagship widths: 16,384 more bytes of shared memory would not fit beside
+// the rows at S = 512. Forward: the forward tiles, 137,728, then RAW, 4
+// floats per row: 139,776 at S <= 128, 145,920 at S = 512. The rows in shared
+// memory are chosen over an L2 slab such as the dx slab: the tiles alone
+// already hold a block alone on its SM, so the rows cost no occupancy, and
+// the serial compositing pass, which reads RAW three times and writes GRAW
+// and DZC, runs on shared memory's latency. (No L2 variant was built or
+// timed.)
 //
 // Weight gradients as B2: each block walks a fixed, strided set of groups
 // into its own slab, and a second launch adds the slabs in block order, so
-// they are bitwise reproducible (B5's loss share with them).
+// they are bitwise reproducible (B5's loss share with them). B4's dencd sums
+// are each owned by one thread, in row order: reproducible too.
 #pragma once
 
 #include <stdint.h>
@@ -80,6 +94,9 @@ constexpr size_t smem_bytes(int S) {
   return nerf_mma::bwd_smem_bytes() +
          sizeof(float) * (size_t)rays_per_group(S) * (9 * (size_t)S + 1);
 }
+constexpr size_t fwd_smem_bytes(int S) {
+  return nerf_mma::fwd_smem_bytes() + sizeof(float) * 4 * (size_t)rays_per_group(S) * S;
+}
 constexpr size_t max_smem_bytes() {
   size_t m = 0;
   for (int S = 1; S <= nerf_comp::MAX_S_COMP; ++S) m = smem_bytes(S) > m ? smem_bytes(S) : m;
@@ -88,6 +105,8 @@ constexpr size_t max_smem_bytes() {
 static_assert(max_smem_bytes() == smem_bytes(nerf_comp::MAX_S_COMP) &&
                   max_smem_bytes() <= 232448,
               "the group's rows must fit beside the backward tiles");
+static_assert(fwd_smem_bytes(nerf_comp::MAX_S_COMP) == 145920 && fwd_smem_bytes(128) == 139776,
+              "the group's raw values beside the forward tiles");
 
 // The rays a block owns in one step: [ray0, ray0 + n_rays), rows n_rays * S.
 struct Group {
@@ -111,20 +130,29 @@ __device__ inline Group group_at(int group, int R, int S) {
 //       float* dzc): ray i's raw cotangent and compositing dz; returns a value
 //       the loop sums over the block's rays in ray order (B5: the ray's
 //       squared error);
+//   static constexpr bool INPUT_GRADS: whether the input gradients are
+//       outputs of the kernel (B4). Without them:
 //   float dz(const Group&, int row, const float* gx, const bf16* x): the
 //       points' share of row `row`'s dz from its dx (gx, xyz floats) and its X
-//       row.
-// `part` is the block's gradient slab, `acts` its act_elems(S) slots, `dxs`
-// its BM x xyz f32 slab. `raw`, where not null, receives the raw values the
-// compositing read, (R S, 4) f32: the checks take each sample's side of the
-// compositing's kink (max(sigma, 0)) from it. Returns (in thread 0) the sum of
-// composite's values.
+//       row. With them:
+//   float* dx_rows(const Group&, int r0): where the dx rows [r0, r0 + BM) of
+//       the group go, (rows, xyz) f32;
+//   void dd_sum(const Group&, int r0, int n, const float* dd, float& carry):
+//       adds the tile's n dd rows (dir floats each, row r0 of the group first)
+//       to each ray's sum; `carry` is a register of the calling thread that
+//       lives from tile to tile of the group.
+// `part` is the block's gradient slab, `acts` its act_elems(S) slots, `slab`
+// its BM-row f32 slab: dx rows, xyz floats each (without INPUT_GRADS), or dd
+// rows, dir floats each (with; null without view dirs). `raw`, where not
+// null, receives the raw values the compositing read, (R S, 4) f32: the
+// checks take each sample's side of the compositing's kink (max(sigma, 0))
+// from it. Returns (in thread 0) the sum of composite's values.
 template <class Policy>
 __device__ inline float backward_groups(const Policy& pol, void* smem, const Dims& dm,
                                         const Layout& L, const MmaLayout& M,
                                         const bf16* __restrict__ F, const bf16* __restrict__ Bp,
                                         const float* __restrict__ B, float* part, bf16* acts,
-                                        float* dxs, float* __restrict__ dz,
+                                        float* slab, float* __restrict__ dz,
                                         float* __restrict__ raw, int R, int S, int n_groups) {
   namespace mm = nerf_mma;
   const mm::Tiles t = mm::make_tiles(smem, true);
@@ -140,7 +168,7 @@ __device__ inline float backward_groups(const Policy& pol, void* smem, const Dim
   mm::Ring ring{t.ring, 0};
   mm::ring_start(ring, f0);
   bool first = true;
-  float sum = 0.f;
+  float sum = 0.f, carry = 0.f;
   for (int group = blockIdx.x; group < n_groups; group += gridDim.x) {
     const Group g = group_at(group, R, S);
     const int n_tiles = (g.rows + BM - 1) / BM;
@@ -174,22 +202,67 @@ __device__ inline float backward_groups(const Policy& pol, void* smem, const Dim
       }
       mm::load_cotangent(t.GI, GRAW, j * BM, g.rows);
       __syncthreads();
-      Dims tdm = dm;  // the tile as a call of its own: its dx rows go to dxs
+      Dims tdm = dm;  // the tile as a call of its own: its rows from row 0
       tdm.n = min(BM, g.rows - j * BM);
       const mm::Mat* after =
           j + 1 < n_tiles ? &b10 : group + (int)gridDim.x < n_groups ? &f0 : nullptr;
-      mm::backward_walk<FRESH>(tdm, L, M, Bp, t, ring, slots, part, first, 0, dxs, nullptr, after,
-                                b10);
-      first = false;
-      __syncthreads();
-      if (tid < tdm.n) {
-        const int row = j * BM + tid;
-        dz[(size_t)g.ray0 * S + row] =
-            DZC[row] + pol.dz(g, row, dxs + tid * dm.xyz, t.X + tid * mm::LDX);
+      if constexpr (Policy::INPUT_GRADS) {
+        mm::backward_walk<FRESH>(tdm, L, M, Bp, t, ring, slots, part, first, 0,
+                                  pol.dx_rows(g, j * BM), dm.has_dir ? slab : nullptr, after, b10);
+        first = false;
+        __syncthreads();
+        if (dm.has_dir) pol.dd_sum(g, j * BM, tdm.n, slab, carry);
+        if (tid < tdm.n) dz[(size_t)g.ray0 * S + j * BM + tid] = DZC[j * BM + tid];
+      } else {
+        mm::backward_walk<FRESH>(tdm, L, M, Bp, t, ring, slots, part, first, 0, slab, nullptr,
+                                  after, b10);
+        first = false;
+        __syncthreads();
+        if (tid < tdm.n) {
+          const int row = j * BM + tid;
+          dz[(size_t)g.ray0 * S + row] =
+              DZC[row] + pol.dz(g, row, slab + tid * dm.xyz, t.X + tid * mm::LDX);
+        }
       }
     }
   }
   return sum;
+}
+
+// The forward of the groups group = blockIdx.x, + gridDim.x, ... < n_groups
+// of (R, S) rays: step 1 of backward_groups without the slots, then
+// `pol.composite(g, i, raw)` one thread per ray. `Policy::inputs` as
+// backward_groups takes it. `raw` as there.
+template <class Policy>
+__device__ inline void forward_groups(const Policy& pol, void* smem, const Dims& dm,
+                                      const Layout& L, const MmaLayout& M,
+                                      const bf16* __restrict__ F, const float* __restrict__ B,
+                                      float* __restrict__ raw, int R, int S, int n_groups) {
+  namespace mm = nerf_mma;
+  const mm::Tiles t = mm::make_tiles(smem, false);
+  float* RAW = t.sig + BM;  // (rpg S, 4) raw radiance
+  const mm::Mat f0 = mm::fmat(F, M, 0);
+  const int tid = threadIdx.x;
+  mm::Ring ring{t.ring, 0};
+  mm::ring_start(ring, f0);
+  for (int group = blockIdx.x; group < n_groups; group += gridDim.x) {
+    const Group g = group_at(group, R, S);
+    const int n_tiles = (g.rows + BM - 1) / BM;
+    for (int j = 0; j < n_tiles; ++j) {
+      __syncthreads();
+      pol.inputs(g, j * BM, t.X, t.D);
+      __syncthreads();
+      Dims tdm = dm;
+      tdm.n = min(BM, g.rows - j * BM);
+      const bool more = j + 1 < n_tiles || group + (int)gridDim.x < n_groups;
+      mm::forward_tile<FRESH>(tdm, L, M, F, B, t, ring, nullptr, RAW + 4 * j * BM, 0,
+                              more ? &f0 : nullptr);
+    }
+    __syncthreads();
+    if (raw != nullptr)
+      for (int i = tid; i < 4 * g.rows; i += blockDim.x) raw[(size_t)g.ray0 * S * 4 + i] = RAW[i];
+    if (tid < g.n_rays) pol.composite(g, tid, RAW + (size_t)tid * S * 4);
+  }
 }
 
 }  // namespace nerf_cmma

@@ -92,7 +92,18 @@ __device__ void cotangent_tile(float* GI, const float* g_raw, int c0, int rows) 
   }
 }
 
-// Rays per group of the compositing kernels: whole rays, about TM rows.
+// Rays per group of the compositing kernels' FMA tiles: whole rays, about
+// TM rows.
 __host__ __device__ constexpr int rays_per_group(int S) { return S >= TM ? 1 : TM / S; }
+
+// Number of ray groups of (R, S), or 0 where S is not a count the kernels take.
+inline int n_groups(int R, int S) {
+  if (S <= 0 || S > MAX_S_COMP) return 0;
+  const int rpg = rays_per_group(S);
+  return (R + rpg - 1) / rpg;
+}
+
+// TM-row chunks of one group.
+__host__ __device__ inline int chunks_per_group(int S) { return (rays_per_group(S) * S + TM - 1) / TM; }
 
 }  // namespace nerf_comp

@@ -6,10 +6,12 @@
 // xyz encodings arrive per row in the compute type; the view-dir encodings
 // arrive per ray in f32 and are copied into every row of the ray's tile here,
 // rounded to the compute type, so their per-sample broadcast never exists in
-// global memory. A block owns whole rays (rays_per_group) and walks their rows
-// in TM-row chunks.
+// global memory. The f32 kernels (FMA tiles) walk a block's whole rays in
+// TM-row chunks (load_chunk); the bf16 kernels run the ray-group loop of
+// comp_mma_tile.cuh on 128-row tensor-core tiles (load_comp_mma_inputs).
 #pragma once
 
+#include "comp_mma_tile.cuh"
 #include "composite_common.cuh"
 #include "mlp_common.cuh"
 
@@ -56,23 +58,22 @@ __device__ void load_chunk(const EncRays<T>& in, const Dims& dm, const Group& g,
   }
 }
 
-// Number of ray groups of (R, S), or 0 where S is not a count the kernels take.
-inline int n_groups(int R, int S) {
-  if (S <= 0 || S > MAX_S_COMP) return 0;
-  const int rpg = rays_per_group(S);
-  return (R + rpg - 1) / rpg;
+// The X (BM x LDX) and D (BM x LDD) bf16 tiles of the group's rows [r0, r0 +
+// BM) for the ray-group loop: the xyz encodings' bf16 rows copied, each
+// ray's f32 view-dir encoding rounded to bf16 into every row of the ray (as
+// load_chunk); rows at or past g.rows and the pad columns zero.
+__device__ inline void load_comp_mma_inputs(const EncRays<nerf_mma::bf16>& in, const Dims& dm,
+                                            const nerf_cmma::Group& g, int r0, nerf_mma::bf16* X,
+                                            nerf_mma::bf16* D) {
+  nerf_mma::load_tile(X, nerf_mma::LDX, in.enc + (size_t)g.ray0 * in.S * dm.xyz, dm.xyz, r0,
+                      g.rows);
+  if (!dm.has_dir) return;
+  const int dp = nerf_mma::pad16(dm.dir);
+  for (int i = threadIdx.x; i < nerf_mma::BM * dp; i += nerf_mma::NT) {
+    const int r = i / dp, c = i - r * dp, row = r0 + r;
+    D[r * nerf_mma::LDD + c] = __float2bfloat16_rn(
+        row < g.rows && c < dm.dir ? in.encd[(size_t)(g.ray0 + row / in.S) * dm.dir + c] : 0.f);
+  }
 }
-
-// TM-row chunks of one group.
-__host__ __device__ inline int chunks_per_group(int S) { return (rays_per_group(S) * S + TM - 1) / TM; }
 
 }  // namespace nerf_comp
-
-// Sizes a wrapper needs: the ray groups the blocks walk, and the activation
-// slots (elements of the compute type) a backward block keeps for one group.
-// Every library of the family exports them, so a wrapper sizes its scratch
-// from the library it launches.
-extern "C" int nerf_mlp_comp_groups(int R, int S) { return nerf_comp::n_groups(R, S); }
-extern "C" long long nerf_mlp_comp_act_slots(int S) {
-  return (long long)nerf_comp::chunks_per_group(S) * nerf_mlp::NACT * nerf_mlp::TM * nerf_mlp::HMAX;
-}

@@ -12,11 +12,19 @@
 // row. One forward per row.
 //
 // What the design does about that: compositing needs every sample of a ray,
-// so a block owns whole rays (one ray when S >= 64, else 64 / S of them), as
-// B7's forward, walks their rows in 64-row chunks through B1's tile, keeps
-// their raw values in shared memory, then one thread per ray composites
-// serially over its samples. The TPU kernel's one-hot expansion matmuls and
-// hi/lo bf16 splits exist for Mosaic only: here a row's ray is row / S.
+// so a block owns whole rays, keeps their raw values in shared memory, then
+// one thread per ray composites serially over its samples. The TPU kernel's
+// one-hot expansion matmuls and hi/lo bf16 splits exist for Mosaic only: here
+// a row's ray is row / S.
+// - bf16 (every `fuse_compositing` train step of the `pallas` backend): the
+//   forward loop of comp_mma_tile.cuh (forward_groups) on B1's tensor-core
+//   tile (128-row tiles, `mma.sync`, the F pack), its inputs as B5's
+//   (load_comp_mma_inputs); one group per block, as B1 launches one tile per
+//   block. Its backward runs the same tiles with the same sums, so it
+//   composites bitwise the raw values this kernel composited. Shared memory:
+//   comp_mma_tile.cuh's fwd_smem_bytes(S), 139,776 bytes at S <= 128.
+// - f32 (parity runs only): B1's FMA tile (64-row chunks, one ray a block
+//   when S >= 64, else 64 / S of them); `w` the flat weights.
 #include "mlp_comp_common.cuh"
 
 using namespace nerf_mlp;
@@ -27,9 +35,9 @@ constexpr size_t comp_fwd_smem_bytes(int S) {
 }
 static_assert(comp_fwd_smem_bytes(MAX_S_COMP) <= 232448, "shared memory of a block");
 
-template <typename T>
+// f32: the FMA tile.
 __global__ void __launch_bounds__(NT, 1)
-    mlp_comp_fwd_kernel(Dims dm, Layout L, EncRays<T> in, const T* __restrict__ W,
+    mlp_comp_fwd_kernel(Dims dm, Layout L, EncRays<float> in, const float* __restrict__ W,
                         const float* __restrict__ B, float* __restrict__ rgb,
                         float* __restrict__ weights) {
   extern __shared__ float4 smem4[];
@@ -45,9 +53,9 @@ __global__ void __launch_bounds__(NT, 1)
   dl.n = g.rows;  // forward_tile writes RAW rows [0, rows)
   for (int c0 = 0; c0 < g.rows; c0 += TM) {
     __syncthreads();
-    load_chunk<T>(in, dm, g, c0, X, D);
+    load_chunk<float>(in, dm, g, c0, X, D);
     __syncthreads();
-    forward_tile<T>(dl, L, W, B, X, D, bufA, bufB, Ws, nullptr, RAW, c0);
+    forward_tile<float>(dl, L, W, B, X, D, bufA, bufB, Ws, nullptr, RAW, c0);
   }
   __syncthreads();
   const int r = threadIdx.x;
@@ -57,31 +65,74 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-template <typename T>
-static int launch(const Dims& dm, const void* enc, const float* encd, const float* z, int R, int S,
-                  const void* w, const float* b, float* rgb, float* weights,
-                  cudaStream_t stream) {
-  const int groups = n_groups(R, S);
-  if (groups == 0) return R == 0 ? 0 : (int)cudaErrorInvalidValue;
+// The bf16 kernel's per-ray work for the forward loop.
+struct MlpCompFwd {
+  EncRays<nerf_mma::bf16> in;
+  Dims dm;
+  float* rgb;      // (R, 3)
+  float* weights;  // (R, S)
+
+  __device__ void inputs(const nerf_cmma::Group& g, int r0, nerf_mma::bf16* X,
+                         nerf_mma::bf16* D) const {
+    load_comp_mma_inputs(in, dm, g, r0, X, D);
+  }
+  __device__ void composite(const nerf_cmma::Group& g, int i, const float* raw) const {
+    const size_t ray = (size_t)g.ray0 + i;
+    composite_ray(raw, in.z + ray * in.S, in.S, rgb + ray * 3, weights + ray * in.S);
+  }
+};
+
+// bf16: the ray groups of comp_mma_tile.cuh on the tensor cores.
+__global__ void __launch_bounds__(nerf_mma::NT, 1)
+    mlp_comp_fwd_mma_kernel(Dims dm, Layout L, nerf_mma::MmaLayout M,
+                            EncRays<nerf_mma::bf16> in, const nerf_mma::bf16* __restrict__ F,
+                            const float* __restrict__ B, float* __restrict__ rgb,
+                            float* __restrict__ weights, float* __restrict__ raw, int groups) {
+  extern __shared__ uint4 smem16[];
+  const MlpCompFwd pol{in, dm, rgb, weights};
+  nerf_cmma::forward_groups(pol, smem16, dm, L, M, F, B, raw, in.R, in.S, groups);
+}
+
+static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd, const float* z,
+                  int R, int S, const void* w, const float* b, float* rgb, float* weights,
+                  float* raw, cudaStream_t stream) {
+  const int groups = bf16 ? nerf_cmma::n_groups(R, S) : n_groups(R, S);
+  if (groups == 0 || (!bf16 && raw != nullptr)) return (int)cudaErrorInvalidValue;
   const Layout L = make_layout(dm);
-  const EncRays<T> in{static_cast<const T*>(enc), encd, z, R, S};
-  const size_t smem = comp_fwd_smem_bytes(S);
-  cudaFuncSetAttribute(mlp_comp_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  mlp_comp_fwd_kernel<T><<<groups, NT, smem, stream>>>(dm, L, in, static_cast<const T*>(w), b,
-                                                       rgb, weights);
+  cudaError_t err;
+  if (bf16) {
+    using nerf_mma::bf16;
+    const EncRays<bf16> in{static_cast<const bf16*>(enc), encd, z, R, S};
+    const size_t smem = nerf_cmma::fwd_smem_bytes(S);
+    err = cudaFuncSetAttribute(mlp_comp_fwd_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mlp_comp_fwd_mma_kernel<<<groups, nerf_mma::NT, smem, stream>>>(
+        dm, L, nerf_mma::make_mma_layout(L), in, static_cast<const bf16*>(w), b, rgb, weights, raw,
+        groups);
+  } else {
+    const EncRays<float> in{static_cast<const float*>(enc), encd, z, R, S};
+    const size_t smem = comp_fwd_smem_bytes(S);
+    err = cudaFuncSetAttribute(mlp_comp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mlp_comp_fwd_kernel<<<groups, NT, smem, stream>>>(dm, L, in, static_cast<const float*>(w), b,
+                                                      rgb, weights);
+  }
   return (int)cudaGetLastError();
 }
 
 // enc (R * S, xyz) in the compute type, encd (R, dir) f32 (null without view
-// dirs), z (R, S) f32; rgb (R, 3) and weights (R, S) f32 out; S <= MAX_S_COMP.
-// Returns cudaGetLastError() after the launch (0 on success).
+// dirs), z (R, S) f32; rgb (R, 3) and weights (R, S) f32 out; 1 <= S <=
+// MAX_S_COMP, R >= 1. w: for bf16 the F pack (mlp_mma_tile.cuh), for f32 the
+// flat weights. raw: null, or for bf16 (R, S, 4) f32 that receives the raw
+// values composited. Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int nerf_mlp_comp_fwd(int is_bf16, int has_dir, const void* enc, const float* encd,
                                  const float* z, const void* w, const float* b, float* rgb,
-                                 float* weights, int R, int S, int xyz, int dir, int hid, int last,
-                                 float alpha, void* stream) {
+                                 float* weights, float* raw, int R, int S, int xyz, int dir,
+                                 int hid, int last, float alpha, void* stream) {
   const Dims dm{R * S, xyz, dir, hid, last, has_dir, alpha};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(dm, enc, encd, z, R, S, w, b, rgb, weights, s)
-                 : launch<float>(dm, enc, encd, z, R, S, w, b, rgb, weights, s);
+  return launch(is_bf16 != 0, dm, enc, encd, z, R, S, w, b, rgb, weights, raw,
+                static_cast<cudaStream_t>(stream));
 }

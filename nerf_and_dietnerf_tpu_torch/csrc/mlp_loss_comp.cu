@@ -42,7 +42,7 @@
 // in no order, so a block's loss share is the last entry of its gradient
 // slab, and the second launch adds the slabs in block order: the loss and the
 // gradients are bitwise reproducible.
-#include "comp_mma_tile.cuh"
+#include "comp_exports.cuh"
 #include "mlp_bwd_tile.cuh"
 #include "mlp_comp_common.cuh"
 
@@ -152,26 +152,9 @@ __global__ void __launch_bounds__(NT, 1)
   if (tid == 0) part[p_total - 1] = sq_err * inv_n;
 }
 
-// The X (BM x LDX) and D (BM x LDD) bf16 tiles of the group's rows [r0, r0 +
-// BM): the xyz encodings' bf16 rows copied, each ray's f32 view-dir encoding
-// rounded to bf16 into every row of the ray (as load_chunk); rows at or past
-// g.rows and the pad columns zero.
-__device__ inline void load_comp_mma_inputs(const EncRays<nerf_mma::bf16>& in, const Dims& dm,
-                                            const nerf_cmma::Group& g, int r0, nerf_mma::bf16* X,
-                                            nerf_mma::bf16* D) {
-  nerf_mma::load_tile(X, nerf_mma::LDX, in.enc + (size_t)g.ray0 * in.S * dm.xyz, dm.xyz, r0,
-                      g.rows);
-  if (!dm.has_dir) return;
-  const int dp = nerf_mma::pad16(dm.dir);
-  for (int i = threadIdx.x; i < nerf_mma::BM * dp; i += nerf_mma::NT) {
-    const int r = i / dp, c = i - r * dp, row = r0 + r;
-    D[r * nerf_mma::LDD + c] = __float2bfloat16_rn(
-        row < g.rows && c < dm.dir ? in.encd[(size_t)(g.ray0 + row / in.S) * dm.dir + c] : 0.f);
-  }
-}
-
 // The bf16 kernel's per-ray work for the ray-group loop.
 struct LossComp {
+  static constexpr bool INPUT_GRADS = false;  // dz takes the points' share
   EncRays<nerf_mma::bf16> in;
   Dims dm;
   const float* dvec;    // (R, 3)
@@ -225,17 +208,8 @@ __global__ void __launch_bounds__(nerf_mma::NT, 1)
   if (threadIdx.x == 0) part[p_total - 1] = sq_err * inv_n;
 }
 
-// Ray groups the kernel of the compute type walks (bf16: whole rays in one
-// 128-row tile; f32: about 64 rows), 0 where S is not a count it takes.
-extern "C" int nerf_comp_groups(int is_bf16, int R, int S) {
-  return is_bf16 ? nerf_cmma::n_groups(R, S) : n_groups(R, S);
-}
-// Activation-slot elements of the compute type a block keeps for a group.
-extern "C" long long nerf_comp_act_elems(int is_bf16, int S) {
-  return is_bf16 ? nerf_cmma::act_elems(S) : nerf_mlp_comp_act_slots(S);
-}
-// Rows of a block's f32 dx slab (times xyz floats); none for f32.
-extern "C" int nerf_comp_dx_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : 0; }
+// The f32 kernel keeps every 64-row chunk of a group (one forward per row).
+int nerf_comp::f32_chunks_kept(int S) { return chunks_per_group(S); }
 
 static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd, const float* z,
                   const float* dvec, const float* target, float inv_n, int R, int S,

@@ -24,9 +24,11 @@
 // - f32 (parity runs only): the FMA tiles, 64-row chunks; the raw values come
 //   from a forward pass over the chunks and B2's tile recomputes the forward
 //   once more per chunk; `w` / `wt` the flat weights and their transposes.
+// Both write the raw values they composited to `raw` where it is given (the
+// checks and tools/comp_f32_steps.py read them).
 // Weight gradients are summed as in B2 (per-block slabs, fixed-order second
 // launch), so they are bitwise reproducible.
-#include "comp_mma_tile.cuh"
+#include "comp_exports.cuh"
 #include "mlp_bwd_tile.cuh"
 #include "raymarch_common.cuh"
 #include "raymarch_tile.cuh"
@@ -43,7 +45,7 @@ __global__ void __launch_bounds__(NT, 1)
     rm_comp_bwd_kernel(Dims dm, Layout L, Rays ry, const T* __restrict__ W,
                        const T* __restrict__ WT, const float* __restrict__ B,
                        const float* __restrict__ g_rgb, const float* __restrict__ g_w,
-                       float* __restrict__ dz, float* __restrict__ partial,
+                       float* __restrict__ dz, float* __restrict__ raw, float* __restrict__ partial,
                        T* __restrict__ acts_all, int n_groups) {
   extern __shared__ float4 smem4[];
   const BwdTiles t = bwd_tiles(reinterpret_cast<float*>(smem4));
@@ -71,6 +73,8 @@ __global__ void __launch_bounds__(NT, 1)
       forward_tile<T>(dl, L, W, B, t.X, t.D, t.P, t.G, t.Ws, nullptr, RAW, c0);
     }
     __syncthreads();
+    if (raw != nullptr)
+      for (int i = tid; i < 4 * rows; i += NT) raw[(size_t)grow0 * 4 + i] = RAW[i];
     // 2. the compositing VJP, one thread per ray
     if (tid < n_rays) {
       const size_t ray = (size_t)ray0 + tid;
@@ -94,6 +98,7 @@ __global__ void __launch_bounds__(NT, 1)
 
 // The bf16 backward's per-ray work for the ray-group loop.
 struct RayComp {
+  static constexpr bool INPUT_GRADS = false;  // dz takes the points' share
   Rays ry;
   int xyz, dir;
   const float* g_rgb;  // (R, 3)
@@ -134,21 +139,9 @@ __global__ void __launch_bounds__(nerf_mma::NT, 1)
                              ry.S, n_groups);
 }
 
-// Ray groups the backward of the compute type walks (bf16: whole rays in one
-// 128-row tile; f32: about 64 rows), 0 where S is not a count it takes.
-extern "C" int nerf_comp_groups(int is_bf16, int R, int S) {
-  if (S <= 0 || S > MAX_S_COMP) return 0;
-  if (is_bf16) return nerf_cmma::n_groups(R, S);
-  const int rpg = rays_per_group(S);
-  return (R + rpg - 1) / rpg;
-}
-// Activation-slot elements of the compute type a block keeps: bf16 every
-// tile of a group, f32 one 64-row chunk (its tile recomputes the forward).
-extern "C" long long nerf_comp_act_elems(int is_bf16, int S) {
-  return is_bf16 ? nerf_cmma::act_elems(S) : (long long)NACT * TM * HMAX;
-}
-// Rows of a block's f32 dx slab (times xyz floats); none for f32.
-extern "C" int nerf_comp_dx_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : 0; }
+// The f32 kernel keeps one 64-row chunk's slots: its tile recomputes the
+// forward.
+int nerf_comp::f32_chunks_kept(int) { return 1; }
 
 static int launch(bool bf16, const Dims& dm, const Rays& ry, const void* w, const void* wt,
                   const float* b, const float* g_rgb, const float* g_w, float* dz, float* raw,
@@ -156,8 +149,7 @@ static int launch(bool bf16, const Dims& dm, const Rays& ry, const void* w, cons
                   cudaStream_t stream) {
   const Layout L = make_layout(dm);
   const int groups = nerf_comp_groups(bf16, ry.R, ry.S);
-  if (groups == 0 || n_blocks <= 0 || n_blocks > groups || (bf16 && dxs == nullptr) ||
-      (!bf16 && raw != nullptr))
+  if (groups == 0 || n_blocks <= 0 || n_blocks > groups || (bf16 && dxs == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (bf16) {
@@ -169,7 +161,7 @@ static int launch(bool bf16, const Dims& dm, const Rays& ry, const void* w, cons
   } else {
     err = launch_kernel(rm_comp_bwd_kernel<float>, n_blocks, NT, comp_bwd_smem_bytes(ry.S),
                         stream, dm, L, ry, static_cast<const float*>(w),
-                        static_cast<const float*>(wt), b, g_rgb, g_w, dz, partial,
+                        static_cast<const float*>(wt), b, g_rgb, g_w, dz, raw, partial,
                         static_cast<float*>(acts), groups);
   }
   if (err != cudaSuccess) return (int)err;
@@ -182,7 +174,7 @@ static int launch(bool bf16, const Dims& dm, const Rays& ry, const void* w, cons
 // (n_blocks * nerf_comp_dx_rows(1) * xyz) f32, with 1 <= n_blocks <=
 // nerf_comp_groups(is_bf16, R, S). w, wt: for bf16 the F and B packs
 // (mlp_mma_tile.cuh), for f32 the flat weights and their transposes. raw:
-// null, or for bf16 (R, S, 4) f32 that receives the raw values composited.
+// null, or (R, S, 4) f32 that receives the raw values composited.
 // Returns cudaGetLastError() (0 on success).
 extern "C" int nerf_rm_comp_bwd(int is_bf16, int has_dir, const float* rd, const float* z,
                                 const void* w, const void* wt, const float* b,

@@ -143,11 +143,6 @@ _BWD_SCRATCH = {
     "nerf_mlp_bwd_rows_per_tile": ([], _i),
     "nerf_mlp_bwd_act_slots": ([], _i),
 }
-# The sizes every MLP + compositing library exports (csrc/mlp_comp_common.cuh).
-_COMP_SIZES = {
-    "nerf_mlp_comp_groups": ([_i, _i], _i),
-    "nerf_mlp_comp_act_slots": ([_i], ctypes.c_longlong),
-}
 # R, S, xyz, dir, hid, last, alpha of the MLP + compositing kernels.
 _COMP_TAIL = [_i] * 6 + [_f]
 # Each library's C functions: (argtypes, restype).
@@ -158,8 +153,8 @@ _TF32_PACK = {"nerf_mlp_tf32_pack_elems": ([_i] * 5, ctypes.c_longlong)}
 # The tile rows and activation slots of a backward, by compute type (B2, B6).
 _BWD_TILE = {"nerf_mlp_bwd_tile_rows": ([_i], _i),
              "nerf_mlp_bwd_tile_act_elems": ([_i], ctypes.c_longlong)}
-# The ray groups, activation slots and dx-slab rows of a compositing backward,
-# by compute type (B7, B5; csrc/comp_mma_tile.cuh for bf16).
+# The ray groups, activation slots and slab rows of a compositing backward,
+# by compute type (B7, B5, B4; csrc/comp_exports.cuh).
 _COMP_BWD = {"nerf_comp_groups": ([_i, _i, _i], _i),
              "nerf_comp_act_elems": ([_i, _i], ctypes.c_longlong),
              "nerf_comp_dx_rows": ([_i], _i)}
@@ -175,13 +170,13 @@ _SIGNATURES = {
     "raymarch_comp_fwd": {"nerf_rm_comp_fwd": ([_i, _i] + [_p] * 6 + _RAY_TAIL, _i)},
     "raymarch_comp_bwd": {"nerf_rm_comp_bwd": ([_i, _i] + [_p] * 13 + [_i] + _RAY_TAIL, _i),
                           **_COMP_BWD, **_MMA_PACK, **_BWD_SCRATCH},
-    "mlp_comp_fwd": {"nerf_mlp_comp_fwd": ([_i, _i] + [_p] * 7 + _COMP_TAIL + [_p], _i),
-                     **_COMP_SIZES},
-    "mlp_comp_bwd": {"nerf_mlp_comp_bwd": ([_i, _i] + [_p] * 14 + [_i] + _COMP_TAIL + [_p], _i),
-                     **_COMP_SIZES, **_BWD_SCRATCH},
+    "mlp_comp_fwd": {"nerf_mlp_comp_fwd": ([_i, _i] + [_p] * 8 + _COMP_TAIL + [_p], _i),
+                     **_MMA_PACK},
+    "mlp_comp_bwd": {"nerf_mlp_comp_bwd": ([_i, _i] + [_p] * 16 + [_i] + _COMP_TAIL + [_p], _i),
+                     **_COMP_BWD, **_MMA_PACK, **_BWD_SCRATCH},
     "mlp_loss_comp": {"nerf_mlp_loss_comp": ([_i, _i] + [_p] * 14 + [_i] + _COMP_TAIL + [_f, _p],
                                              _i),
-                      **_COMP_SIZES, **_COMP_BWD, **_MMA_PACK, **_BWD_SCRATCH},
+                      **_COMP_BWD, **_MMA_PACK, **_BWD_SCRATCH},
     "probe_mma": {"nerf_probe_mma": ([_p] * 3 + [_i] * 5 + [_p], _i),
                   "nerf_probe_mma_unit_rows": ([], _i)},
     # variant, x, d, w, b, out, n, xyz, dir, hid, last, alpha, stream

@@ -16,7 +16,8 @@ Port of ``nerf_and_dietnerf_tpu/ops/research_kernels.py``. The
   (R, 3), weights (R, S))`` out; its backward takes cotangents on both. The
   bf16 backward runs the ray-group loop of ``csrc/comp_mma_tile.cuh`` on the
   tensor-core tiles (one forward per row), reading the F and B packs; the
-  forward and the f32 backward keep the FMA tiles.
+  forward and the f32 backward keep the FMA tiles. Its backward can return
+  the raw values it composited (``raw=``, both types).
 
 Both backwards give the rays, directions and view components structural-zero
 cotangents, as the JAX package does: training differentiates the parameters
@@ -32,6 +33,9 @@ reshape of ``(rays, S, features)``) and the view-dir encodings **per ray**:
   gradients of the parameters, of both encodings and of z; that dz is the
   compositing's share only (the sample spacings), the share through the points
   reaches z through the xyz encodings' gradient and torch's encoding backward.
+  In bf16 both run the ray-group loops of ``csrc/comp_mma_tile.cuh`` on the
+  tensor-core tiles (the forward reading the F pack, the backward the F and
+  B packs, each row forwarded once); in f32 the FMA tiles.
 - B5 (``_loss_mlp_comp_pallas``, ``apply_mlp_loss_composited``, flag
   ``fuse_fine_loss``): the fine-pass objective in one kernel, forward,
   compositing, MSE against the target pixels and the whole backward with no
@@ -250,21 +254,29 @@ def _dz_from_encoding(config: MLPConfig, enc, denc, dvec, n_samples: int) -> tor
     return (dpts * dvec.repeat_interleave(n_samples, dim=0)).sum(-1)
 
 
-def mlp_comp_fwd_plain(ws, bs, config: MLPConfig, enc, encd, z, compute_dtype):
+def mlp_comp_fwd_plain(ws, bs, config: MLPConfig, enc, encd, z, compute_dtype,
+                       work=torch.float32, raw_sigma=None):
     """Plain version of B4's forward: ``(rgb (R, 3), weights (R, S))`` from
-    ``enc`` (R S, xyz) in the compute type, ``encd`` (R, dir) f32, z (R, S)."""
-    raw, _ = _raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)
-    res = rendering.composite(raw, z)
+    ``enc`` (R S, xyz) in the compute type, ``encd`` (R, dir) f32, z (R, S);
+    the MLP's products and sums in ``work``, the compositing's kink on
+    ``raw_sigma``'s side (:func:`_raw_plain`)."""
+    d = _dir_rows(config, encd, z.shape[1], compute_dtype)
+    res = rendering.composite(_raw_plain(ws, bs, config, enc, d, z, compute_dtype, work,
+                                         raw_sigma), z)
     return res.rgb, res.weights
 
 
-def mlp_comp_bwd_plain(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dtype):
+def mlp_comp_bwd_plain(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dtype,
+                       work=torch.float32, raw_sigma=None):
     """Plain version of B4's backward: ``(dws, dbs, denc (R S, xyz), dencd
-    (R, dir) | None, dz (R, S))``; dz is the compositing's share only."""
-    raw, d = _raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)
+    (R, dir) | None, dz (R, S))``; dz is the compositing's share only; the
+    MLP's products and sums in ``work``, the compositing's kink on
+    ``raw_sigma``'s side (:func:`_raw_plain`)."""
+    d = _dir_rows(config, encd, z.shape[1], compute_dtype)
+    raw = _raw_plain(ws, bs, config, enc, d, z, compute_dtype, work, raw_sigma)
     g_raw, dz = composite_vjp(raw, z, g_rgb, g_w)
     dws, dbs, denc, dd = mlp_bwd_plain(ws, bs, config, enc, d, g_raw.reshape(-1, 4),
-                                       compute_dtype)
+                                       compute_dtype, work)
     dencd = dd.reshape(*z.shape, -1).sum(1) if dd is not None else None
     return dws, dbs, denc, dencd, dz
 
@@ -413,29 +425,31 @@ def raymarch_comp_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype):
     return rgb, weights
 
 
-def _comp_bwd_scratch(lib, n_params: int, config: MLPConfig, cd, z, dev):
-    """``(partial, acts, dxs, n_blocks)`` of a compositing backward (B7's or
-    B5's library ``lib``), sized from the library's exports for the compute
-    type: in bf16 (``csrc/comp_mma_tile.cuh``) ray groups of one 128-row tile,
-    every tile's activation slots and each block's dx slab; in f32 the FMA
-    kernels' groups and slots, and no dx slab (``dxs`` None)."""
+def _comp_bwd_scratch(lib, n_params: int, config: MLPConfig, cd, z, dev, width=None):
+    """``(partial, acts, slab, n_blocks)`` of a compositing backward (the
+    library ``lib`` of B7's backward, B5 or B4's backward), sized from the
+    library's exports for the compute type: in bf16
+    (``csrc/comp_exports.cuh``) ray groups of one 128-row tile, every tile's
+    activation slots and each block's f32 slab of ``width`` columns (dx rows:
+    xyz, the default; B4's dd rows: dir; 0 for none); in f32 the FMA kernels'
+    groups and slots, and no slab (None)."""
     is_bf16 = _is_bf16(cd)
     n_rays, n_samples = z.shape
     partial, acts, n_blocks = bwd_scratch(lib, n_params, cd, dev,
                                           lib.nerf_comp_groups(is_bf16, n_rays, n_samples),
                                           lib.nerf_comp_act_elems(is_bf16, n_samples))
-    dx_rows = lib.nerf_comp_dx_rows(is_bf16)
-    dxs = (torch.empty((n_blocks * dx_rows * config.xyz_dim,), dtype=torch.float32, device=dev)
-           if dx_rows else None)
-    return partial, acts, dxs, n_blocks
+    rows = lib.nerf_comp_dx_rows(is_bf16) * (config.xyz_dim if width is None else width)
+    slab = torch.empty((n_blocks * rows,), dtype=torch.float32, device=dev) if rows else None
+    return partial, acts, slab, n_blocks
 
 
-def _raw_out(raw, z, cd, dev):
-    """Check the optional raw output of a compositing backward: (R, S, 4) f32
-    on the inputs' device, bf16 kernels only."""
+def _raw_out(raw, z, cd, dev, f32=False):
+    """Check the optional raw output of a compositing kernel: (R, S, 4) f32
+    on the inputs' device; the bf16 kernels' only, unless ``f32`` (f32 B7's
+    backward gives it too)."""
     if raw is None:
         return
-    if cd != torch.bfloat16:
+    if cd != torch.bfloat16 and not f32:
         raise ValueError("the raw output is the bf16 kernels' only")
     check_tensors([(raw, (*z.shape, 4), torch.float32)], dev)
 
@@ -443,11 +457,11 @@ def _raw_out(raw, z, cd, dev):
 def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtype, raw=None):
     """B7 backward: ``(dws, dbs, dz (R, S))`` for the cotangents ``g_rgb``
     (R, 3) and ``g_w`` (R, S) f32; parameter gradients bitwise reproducible.
-    ``raw``: None, or in bf16 an (R, S, 4) f32 tensor that receives the raw
-    values the kernel composited (the checks read it; on the CPU the plain
+    ``raw``: None, or an (R, S, 4) f32 tensor that receives the raw values
+    the kernel composited (the checks read it; on the CPU the plain
     forward's)."""
     _check_samples(z)
-    _raw_out(raw, z, compute_dtype, rd.device)
+    _raw_out(raw, z, compute_dtype, rd.device, f32=True)
     if not uses_kernel(rd):
         if raw is not None:
             raw.copy_(raymarch_fwd_plain(ws, bs, config, rd, z, compute_dtype))
@@ -497,13 +511,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def mlp_comp_fwd(ws, bs, config: MLPConfig, enc, encd, z, compute_dtype):
+def mlp_comp_fwd(ws, bs, config: MLPConfig, enc, encd, z, compute_dtype, raw=None):
     """B4 forward: ``(rgb (R, 3), weights (R, S))`` f32 from ``enc`` (R S, xyz)
     in the compute type (ray-major rows), ``encd`` (R, dir) f32 per ray (None
     without view dirs) and z (R, S) f32; at most
-    :data:`MAX_SAMPLES_COMPOSITED` samples per ray."""
+    :data:`MAX_SAMPLES_COMPOSITED` samples per ray. ``raw`` as
+    :func:`mlp_comp_bwd`'s."""
     _check_samples(z)
+    _raw_out(raw, z, compute_dtype, enc.device)
     if not uses_kernel(enc):
+        if raw is not None:
+            raw.copy_(_raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)[0])
         return mlp_comp_fwd_plain(ws, bs, config, enc, encd, z, compute_dtype)
     _check_encodings(config, ws, bs, enc, encd, z, compute_dtype)
     dev = enc.device
@@ -511,22 +529,26 @@ def mlp_comp_fwd(ws, bs, config: MLPConfig, enc, encd, z, compute_dtype):
     weights = torch.empty(z.shape, dtype=torch.float32, device=dev)
     if weights.numel() == 0:
         return rgb.zero_(), weights
-    w, b = flat(ws), flat(bs)  # held until the launch is queued
-    rc = load("mlp_comp_fwd").nerf_mlp_comp_fwd(
+    lib = load("mlp_comp_fwd")
+    (w,), b = _weights_for(lib, ws, config, compute_dtype, ("f",)), flat(bs)
+    rc = lib.nerf_mlp_comp_fwd(
         _is_bf16(compute_dtype), int(config.uses_view_dirs), enc.data_ptr(), _ptr(encd),
-        z.data_ptr(), w.data_ptr(), b.data_ptr(), rgb.data_ptr(), weights.data_ptr(),
+        z.data_ptr(), w.data_ptr(), b.data_ptr(), rgb.data_ptr(), weights.data_ptr(), _ptr(raw),
         *_comp_args(config, z), stream_of(dev))
     launched("mlp_comp_fwd", rc)
     return rgb, weights
 
 
-def mlp_comp_bwd(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dtype):
+def mlp_comp_bwd(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dtype, raw=None):
     """B4 backward: ``(dws, dbs, denc (R S, xyz), dencd (R, dir) | None, dz
     (R, S))`` f32 for the cotangents ``g_rgb`` (R, 3) and ``g_w`` (R, S) f32.
     dz is the compositing's share only. The parameter gradients and dencd are
-    bitwise reproducible."""
+    bitwise reproducible. ``raw`` as :func:`raymarch_comp_bwd`'s, bf16 only."""
     _check_samples(z)
+    _raw_out(raw, z, compute_dtype, enc.device)
     if not uses_kernel(enc):
+        if raw is not None:
+            raw.copy_(_raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)[0])
         return mlp_comp_bwd_plain(ws, bs, config, enc, encd, z, g_rgb, g_w, compute_dtype)
     _check_encodings(config, ws, bs, enc, encd, z, compute_dtype)
     dev = enc.device
@@ -542,15 +564,18 @@ def mlp_comp_bwd(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dt
         if has_dir:
             dencd.zero_()
     else:
-        partial, acts, n_blocks = bwd_scratch(
-            lib, dparams.numel(), compute_dtype, dev, lib.nerf_mlp_comp_groups(*z.shape),
-            lib.nerf_mlp_comp_act_slots(z.shape[1]))
-        w, wt, b = flat(ws), flat([t.t() for t in ws]), flat(bs)
+        # bf16: each block's slab of dd rows (csrc/mlp_comp_bwd.cu), none
+        # without view dirs.
+        partial, acts, dds, n_blocks = _comp_bwd_scratch(
+            lib, dparams.numel(), config, compute_dtype, z, dev,
+            config.dir_dim if has_dir else 0)
+        (w, wt), b = _weights_for(lib, ws, config, compute_dtype, ("f", "b")), flat(bs)
         rc = lib.nerf_mlp_comp_bwd(
             _is_bf16(compute_dtype), int(has_dir), enc.data_ptr(), _ptr(encd), z.data_ptr(),
             w.data_ptr(), wt.data_ptr(), b.data_ptr(), g_rgb.data_ptr(), g_w.data_ptr(),
-            denc.data_ptr(), _ptr(dencd), dz.data_ptr(), partial.data_ptr(), acts.data_ptr(),
-            dparams.data_ptr(), n_blocks, *_comp_args(config, z), stream_of(dev))
+            denc.data_ptr(), _ptr(dencd), dz.data_ptr(), _ptr(raw), partial.data_ptr(),
+            acts.data_ptr(), _ptr(dds), dparams.data_ptr(), n_blocks, *_comp_args(config, z),
+            stream_of(dev))
         launched("mlp_comp_bwd", rc)
     return (*split_dparams(dparams, config), denc, dencd, dz)
 

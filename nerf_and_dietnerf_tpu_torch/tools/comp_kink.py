@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Accuracy report of the compositing backwards on the bf16 tensor cores:
-B7's backward (``raymarch_comp_bwd``) and B5 (``mlp_loss_comp``), each held
-against its plain version evaluated four ways.
+B7's backward (``raymarch_comp_bwd``), B5 (``mlp_loss_comp``) and B4's
+backward (``mlp_comp_bwd``), each held against its plain version evaluated
+four ways.
 
 The compositing takes ``sigma = max(raw sigma, 0)``, and the sigma cotangent
 is 0 below the kink. A sample whose raw sigma lies within the forward's
@@ -20,13 +21,15 @@ take each sample's side of the kink from the kernel
 
 Per case it prints one JSON line: the kernel against each reference and the
 plain version against ``f64`` (dz normwise and scaled max, the worst leaf's
-scaled dparams error and which leaf, dparams normwise, B5's loss), and the
+scaled dparams error and which leaf, dparams normwise, B5's loss, B4's denc
+and dencd normwise), and the
 samples whose raw sigma has another sign in the kernel than in ``plain`` and
 in ``f64``: their count, where they lie (ray, sample, row in its 128-row
 tile) and their largest |raw sigma| beside the largest |kernel - f64| raw
 sigma of the case.
 
     python -m nerf_and_dietnerf_tpu_torch.tools.comp_kink [--seeds 0 1] [--out PATH]
+    python -m nerf_and_dietnerf_tpu_torch.tools.comp_kink --opaque-only --seeds 0 1 2 3
     python -m nerf_and_dietnerf_tpu_torch.tools.comp_kink --device cpu --rays 8 --hidden 32
 """
 
@@ -90,7 +93,8 @@ def _scaled(a, b) -> float:
 
 
 def distance(got, ref) -> dict:
-    """``got`` against ``ref``, each ``(dws, dbs, dz, loss | None)``."""
+    """``got`` against ``ref``, each ``(dws, dbs, dz, loss | None[, rows])``;
+    ``rows`` (B4) maps names to per-row / per-ray gradients, held normwise."""
     gl, rl = list(got[0]) + list(got[1]), list(ref[0]) + list(ref[1])
     leaf = [_scaled(a, b) for a, b in zip(gl, rl)]
     flat = lambda ts: torch.cat([t.reshape(-1).double() for t in ts])  # noqa: E731
@@ -104,6 +108,10 @@ def distance(got, ref) -> dict:
     if got[3] is not None:
         out["loss_rel"] = abs(float(got[3]) - float(ref[3])) / abs(float(ref[3]))
         out["max_abs"] = max(out["max_abs"], abs(float(got[3]) - float(ref[3])))
+    for name, a in (got[4] if len(got) > 4 else {}).items():
+        a, b = a.double(), ref[4][name].double()
+        out[f"{name}_normwise"] = float((a - b).norm() / b.norm().clamp_min(TINY))
+        out["max_abs"] = max(out["max_abs"], float((a - b).abs().max()))
     return out
 
 
@@ -122,18 +130,31 @@ def kink_samples(raw_k, raw_ref) -> dict:
                         for r, s in where[:MAX_LISTED]]}
 
 
+def b4_result(dws, dbs, denc, dencd, dz) -> tuple:
+    """B4's backward as :func:`distance` takes it."""
+    rows = {"denc": denc} if dencd is None else {"denc": denc, "dencd": dencd}
+    return dws, dbs, dz, None, rows
+
+
 def plain_of(kernel: str, ws, bs, cfg, cd, args):
     """``(plain, raw_plain)`` of kernel ``kernel`` ("B7" on ``args = (rd, z,
-    g_rgb, g_w)``, "B5" on ``args = (enc, encd, z, dvec, target)``):
-    ``plain(**kw)`` its plain version as ``(dws, dbs, dz, loss | None)``
-    (keywords ``work``, ``raw_sigma``), ``raw_plain(work)`` the raw values
-    (R, S, 4) that version composites."""
+    g_rgb, g_w)``, "B5" on ``args = (enc, encd, z, dvec, target)``, "B4" on
+    ``args = (enc, encd, z, g_rgb, g_w)``): ``plain(**kw)`` its plain version
+    as ``(dws, dbs, dz, loss | None[, rows])`` (keywords ``work``,
+    ``raw_sigma``), ``raw_plain(work)`` the raw values (R, S, 4) that version
+    composites."""
     if kernel == "B7":
         rd, z = args[:2]
         _, x, d = rk._mlp_inputs(cfg, rd, z, cd)
 
         def plain(**kw):
             return (*rk.raymarch_comp_bwd_plain(ws, bs, cfg, *args, cd, **kw), None)
+    elif kernel == "B4":
+        z = args[2]
+        x, d = args[0], rk._dir_rows(cfg, args[1], z.shape[1], cd)
+
+        def plain(**kw):
+            return b4_result(*rk.mlp_comp_bwd_plain(ws, bs, cfg, *args, cd, **kw))
     else:
         z = args[2]
         x, d = args[0], rk._dir_rows(cfg, args[1], z.shape[1], cd)
@@ -146,8 +167,8 @@ def plain_of(kernel: str, ws, bs, cfg, cd, args):
 
 
 def compare(plain, raw_plain, got, raw=None) -> dict:
-    """The record of one case: the kernel's results ``got`` (``(dws, dbs, dz,
-    loss | None)``) against the references and, where the kernel gave the raw
+    """The record of one case: the kernel's results ``got`` (as
+    :func:`distance` takes them) against the references and, where the kernel gave the raw
     values it composited (``raw``), its kink samples and raw error."""
     refs = {"plain": plain(), "f64": plain(work=F64)}
     rec = {}
@@ -172,23 +193,27 @@ def held(kernel: str, ws, bs, cfg, cd, args) -> dict:
     raw = torch.empty((*z.shape, 4), dtype=torch.float32, device=z.device)
     if kernel == "B7":
         got = (*rk.raymarch_comp_bwd(ws, bs, cfg, *args, cd, raw=raw), None)
+    elif kernel == "B4":
+        got = b4_result(*rk.mlp_comp_bwd(ws, bs, cfg, *args, cd, raw=raw))
     else:
         mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, *args, cd, raw=raw)
         got = (dws, dbs, dz, mse)
     return compare(*plain_of(kernel, ws, bs, cfg, cd, args), got, raw)
 
 
-def cases(device, seeds, rays, hidden):
-    """``(label, kernel, ws, bs, cfg, args)`` of every case: both kernels,
+def cases(device, seeds, rays, hidden, opaque_only=False):
+    """``(label, kernel, ws, bs, cfg, args)`` of every case: the three kernels,
     both variants, the shapes of :data:`SHAPES` (``rays`` scales the ray
-    counts) and the opaque rays, for each seed."""
+    counts) and the opaque rays, for each seed; with ``opaque_only`` the
+    opaque rays alone."""
     cd = torch.bfloat16
     widths = {} if hidden is None else {"hidden_dim": hidden, "last_hidden_dim": hidden // 2}
     for seed in seeds:
         for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
             cfg = mlp.MLPConfig(n_angles=n_angles, **widths)
             params = mlp.init_params(torch.Generator().manual_seed(seed), cfg, device=device)
-            shapes = [(max(1, n_r * rays // 4096), n_s, False) for n_r, n_s in SHAPES]
+            shapes = [] if opaque_only else [(max(1, n_r * rays // 4096), n_s, False)
+                                             for n_r, n_s in SHAPES]
             if variant == "xyz_only":
                 shapes.append((max(1, OPAQUE[0] * rays // 4096), OPAQUE[1], True))
             for n_r, n_s, opaque in shapes:
@@ -203,7 +228,9 @@ def cases(device, seeds, rays, hidden):
                 g_rgb = (0.5 + torch.rand((n_r, 3), generator=gen, device=device)).contiguous()
                 g_w = (0.5 + torch.rand((n_r, n_s), generator=gen, device=device)).contiguous()
                 yield label, "B7", ws, bs, cfg, (rd, z, g_rgb, g_w)
-                yield label, "B5", ws, bs, cfg, enc_batch(cfg, cd, rd, z, gen)
+                batch = enc_batch(cfg, cd, rd, z, gen)
+                yield label, "B5", ws, bs, cfg, batch
+                yield label, "B4", ws, bs, cfg, (*batch[:3], g_rgb, g_w)
 
 
 def main(argv=None) -> int:
@@ -213,10 +240,12 @@ def main(argv=None) -> int:
     p.add_argument("--rays", type=int, default=4096, help="ray count of the 4096-ray cases")
     p.add_argument("--hidden", type=int, default=None, help="trunk width (default the model's)")
     p.add_argument("--out", type=Path, default=None, help="also write the lines to this file")
+    p.add_argument("--opaque-only", action="store_true", help="the opaque rays' cases alone")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     lines = []
-    for label, kernel, ws, bs, cfg, inputs in cases(device, args.seeds, args.rays, args.hidden):
+    for label, kernel, ws, bs, cfg, inputs in cases(device, args.seeds, args.rays, args.hidden,
+                                                    args.opaque_only):
         rec = {"case": label, "kernel": kernel, **held(kernel, ws, bs, cfg, torch.bfloat16, inputs)}
         assert all(math.isfinite(v) for k, v in rec.items() if isinstance(v, float))
         lines.append(json.dumps(rec))

@@ -1,13 +1,18 @@
 #!/bin/bash
-# Shows that chip_smoke.py's checks of the compositing backwards on the bf16
-# tensor cores (_hold_comp_bwd: B7's backward and B5, R = 4096, S = 64, both
+# Shows that chip_smoke.py's checks of the compositing kernels on the bf16
+# tensor cores (_hold_comp_bwd: B7's backward, B5 and B4's backward, and
+# _comp_checks for B4's forward and backward; R = 4096, S = 64, both
 # variants) catch broken kernels. Each case copies the package and
 # chip_smoke.py to a temporary directory, breaks one line there, rebuilds and
 # runs the checks; the repository is not touched:
 #   none     unbroken (every check passes);
-#   ray2     composites only the first ray of each group (two rays a tile);
+#   ray2     composites only the first ray of each group (two rays a tile) in
+#            the backwards;
 #   sigbias  sums the blue cotangent into the xyz-only sigma head's bias
-#            gradient, a leaf of one value (the view-dir variant is unbroken).
+#            gradient, a leaf of one value (the view-dir variant is unbroken);
+#   dd2      drops the second ray's dd rows from B4's dencd (two rays a tile;
+#            the xyz-only variant, which has no dencd, is unbroken);
+#   denc1    writes every group's denc rows but the first one row off (up).
 # Run from the repository root on the card, after a build (build/kernels is
 # copied, so only the broken libraries are rebuilt):
 #   bash nerf_and_dietnerf_tpu_torch/tools/comp_mutants.sh
@@ -15,7 +20,7 @@ set -u
 root=$(pwd)
 tmp=$(mktemp -d)
 trap 'rm -rf "$tmp"' EXIT
-for m in none ray2 sigbias; do
+for m in none ray2 sigbias dd2 denc1; do
   d=$tmp/$m
   mkdir -p "$d/build" && cp -r nerf_and_dietnerf_tpu_torch chip_smoke.py "$d/"
   cp -r build/kernels "$d/build/" 2>/dev/null
@@ -25,6 +30,10 @@ for m in none ray2 sigbias; do
           grep -q "if (tid < 1)" "$csrc/comp_mma_tile.cuh" || exit 1 ;;
     sigbias) sed -i 's|narrow_bgrad(pb + L.b\[11\], t.GI + 3, 1, first);|narrow_bgrad(pb + L.b[11], t.GI + 2, 1, first);|' "$csrc/mlp_mma_tile.cuh"
              grep -q "L.b\[11\], t.GI + 2" "$csrc/mlp_mma_tile.cuh" || exit 1 ;;
+    dd2) sed -i 's|^      for (int r = lo; r < hi; ++r) s += dd\[|      if (lr != 1) for (int r = lo; r < hi; ++r) s += dd[|' "$csrc/mlp_comp_bwd.cu"
+         grep -q "if (lr != 1) for" "$csrc/mlp_comp_bwd.cu" || exit 1 ;;
+    denc1) sed -i 's|return denc + ((size_t)g.ray0 \* in.S + r0) \* dm.xyz;|return denc + ((size_t)g.ray0 * in.S + r0 - (g.ray0 > 0)) * dm.xyz;|' "$csrc/mlp_comp_bwd.cu"
+           grep -q "r0 - (g.ray0 > 0)" "$csrc/mlp_comp_bwd.cu" || exit 1 ;;
   esac
   (cd "$d" && python3 - "$m" <<'PY'
 import sys
@@ -58,10 +67,15 @@ for n_angles in (0, 2):
         mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, *batch, cd, raw=raw)
         return dws, dbs, dz, mse
 
-    for kernel, args, run in (("B7", (rd, z, g_rgb, g_w), b7), ("B5", batch, b5)):
+    for kernel, args, run in (("B7", (rd, z, g_rgb, g_w), b7), ("B5", batch, b5), ("B4", None,
+                                                                                   None)):
         label = f"{sys.argv[1]} n_angles={n_angles} {kernel}"
         try:
-            cs._hold_comp_bwd(torch, kernel, label, "bfloat16", ws, bs, cfg, cd, args, run)
+            if kernel == "B4":  # its forward and backward, as chip_smoke.py holds them
+                cs._comp_checks(torch, rk, cfg, ws, bs, batch, cd, "bfloat16", gen, label,
+                                b5=False)
+            else:
+                cs._hold_comp_bwd(torch, kernel, label, "bfloat16", ws, bs, cfg, cd, args, run)
             print(f"RESULT {label}: passed", flush=True)
         except AssertionError as exc:
             print(f"RESULT {label}: caught: {str(exc)[:600]}", flush=True)

@@ -1,20 +1,24 @@
-"""The Python around the compositing backwards on the tensor-core tiles: B7's
-backward (``csrc/raymarch_comp_bwd.cu``) and B5 (``csrc/mlp_loss_comp.cu``) in
-bf16 run the ray-group loop of ``csrc/comp_mma_tile.cuh`` on the tiles of
-``csrc/mlp_mma_tile.cuh``. The kernels run only on the card, where
-``chip_smoke.py`` holds them against their plain versions. Here, at small
-widths (hidden 32, L = 2-5):
+"""The Python around the MLP + compositing kernels on the tensor-core tiles:
+B7's backward (``csrc/raymarch_comp_bwd.cu``), B5 (``csrc/mlp_loss_comp.cu``)
+and B4's backward (``csrc/mlp_comp_bwd.cu``) in bf16 run the ray-group loop of
+``csrc/comp_mma_tile.cuh`` on the tiles of ``csrc/mlp_mma_tile.cuh``, B4's
+forward (``csrc/mlp_comp_fwd.cu``) its forward loop. The kernels run only on
+the card, where ``chip_smoke.py`` holds them against their plain versions.
+Here, at small widths (hidden 32, L = 2-5):
 
 - (a) the group and tile partition at S in {48, 64, 100, 128, 192} and ragged
   ray counts, against the constants and formulas of the CUDA sources;
-- (b) B5's bf16 input tiles (the xyz encodings' rows copied, each ray's
-  view-dir encoding rounded into every row, zero pad rows and columns)
-  against what JAX's ``_loss_mlp_comp_pallas`` reads, in Pallas interpret mode;
+- (b) B5's and B4's bf16 input tiles (the xyz encodings' rows copied, each
+  ray's view-dir encoding rounded into every row, zero pad rows and columns)
+  against what JAX's ``_loss_mlp_comp_pallas`` and ``_forward_mlp_comp_pallas``
+  / ``_backward_mlp_comp_pallas`` read, in Pallas interpret mode;
 - (c) an emulation of the groups in the kernels' order (a forward from the F
-  pack on the tiles, the serial ``composite_ray_bwd``, the chain back from the
-  B pack, dz as ``DZC + dz_of_row`` (B7) or ``DZC + dz_points`` on the
-  bf16-widened X (B5)) against ``_backward_rays_comp_pallas`` and
-  ``_loss_mlp_comp_pallas`` in interpret mode;
+  pack on the tiles, the serial ``composite_ray`` / ``composite_ray_bwd``, the
+  chain back from the B pack, dz as ``DZC + dz_of_row`` (B7), ``DZC +
+  dz_points`` on the bf16-widened X (B5) or ``DZC`` (B4, its dx rows to denc,
+  its dd rows summed per ray in row order)) against
+  ``_backward_rays_comp_pallas``, ``_loss_mlp_comp_pallas`` and B4's two
+  kernels in interpret mode;
 - (d) the wrappers' weight packs and scratch against a fake library's
   per-compute-type exports, both types; the f32 sizes stay the FMA kernels'.
 """
@@ -47,6 +51,9 @@ COMP_SRC = (CSRC / "comp_mma_tile.cuh").read_text()
 MMA_SRC = (CSRC / "mlp_mma_tile.cuh").read_text()
 B7_SRC = (CSRC / "raymarch_comp_bwd.cu").read_text()
 B5_SRC = (CSRC / "mlp_loss_comp.cu").read_text()
+B4F_SRC = (CSRC / "mlp_comp_fwd.cu").read_text()
+B4_SRC = (CSRC / "mlp_comp_bwd.cu").read_text()
+EXPORTS_SRC = (CSRC / "comp_exports.cuh").read_text()
 
 
 def _c_int(src: str, name: str) -> int:
@@ -122,6 +129,11 @@ def smem_bytes(S: int) -> int:
     return bwd_smem_bytes() + 4 * rays_per_group(S) * (9 * S + 1)
 
 
+def fwd_smem_bytes(S: int) -> int:
+    """``nerf_cmma::fwd_smem_bytes``: the forward tiles, then RAW."""
+    return bwd_smem_bytes() - 2 * BM * (HPAD + 8) - 4 * BM * 8 + 16 * rays_per_group(S) * S
+
+
 def test_tile_constants_match_the_cuda_sources():
     assert (BM, HPAD, NACT) == (128, 256, 10)
     assert "constexpr int LDX = 64 + 8;" in MMA_SRC and "constexpr int LDD = 32 + 8;" in MMA_SRC
@@ -147,6 +159,15 @@ def test_tile_constants_match_the_cuda_sources():
     for text in ("214,528", "227,844", "655,360"):
         assert text in COMP_SRC
     assert act_elems(MAX_S) * 2 == 4 * 655360
+    # B4's forward: the forward tiles, then 4 floats a row of the group.
+    assert fwd_smem_bytes(128) == 139776 and fwd_smem_bytes(MAX_S) == 145920
+    assert max(fwd_smem_bytes(s) for s in range(1, MAX_S + 1)) == fwd_smem_bytes(MAX_S)
+    for text in ("137,728", "139,776", "145,920"):
+        assert text in COMP_SRC
+    assert "fwd_smem_bytes(nerf_comp::MAX_S_COMP) == 145920 && fwd_smem_bytes(128) == 139776" \
+        in COMP_SRC
+    assert "mm::forward_tile<FRESH>(tdm, L, M, F, B, t, ring, nullptr, RAW + 4 * j * BM, 0," \
+        in COMP_SRC
 
 
 @pytest.mark.parametrize("n_samples", SAMPLES)
@@ -246,9 +267,27 @@ def _jax_b5_inputs(enc, encd, S):
     return np.asarray(outs[0]), (np.asarray(outs[1]) if has_dir else None)
 
 
+# What each JAX kernel body reads: its xyz rows cast to the compute type, its
+# per-ray view-dir encodings expanded to rows and cast (the expression
+# _jax_b5_inputs runs).
+JAX_READS = ("x = x_ref[:].astype(cd)", "_ray_expand_rm(m1_ref[:], d_ref[:]).astype(cd)")
+JAX_BODIES = {"B5": [jrk._make_loss_mlp_comp],
+              "B4": [jrk._make_forward_mlp_comp, jrk._make_backward_mlp_comp]}
+
+
+@pytest.mark.parametrize("kernel", ["B5", "B4"])
 @pytest.mark.parametrize("n_samples", [48, 100, 192])
 @pytest.mark.parametrize("case", CASES, ids=IDS)
-def test_b5_bf16_tiles_match_what_jax_reads(case, n_samples):
+def test_b5_bf16_tiles_match_what_jax_reads(case, n_samples, kernel):
+    import inspect
+
+    # B5 and both B4 kernels read their inputs alike, and the CUDA kernels
+    # build their tiles with one function.
+    for body in JAX_BODIES[kernel]:
+        src = inspect.getsource(body)
+        assert all(read in src for read in JAX_READS)
+    for src in ((B5_SRC,) if kernel == "B5" else (B4F_SRC, B4_SRC)):
+        assert "    load_comp_mma_inputs(in, dm, g, r0, X, D);" in src
     _, tcfg, _, x = _enc_setup(case, n_samples)
     jx, jd = _jax_b5_inputs(x["enc"], x["encd"], n_samples)
     tiles = _b5_tiles(tcfg, x["enc"], x["encd"], n_samples)
@@ -400,12 +439,13 @@ def _dz_points(cfg, gx, x, dvec):
     return dz
 
 
-def _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows):
+def _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows, rows_out=None):
     """The kernel's order over every group: the forward of each tile
     (``tiles_of(ray0, rows)`` gives its (X, D) rows), the group's compositing
     (``per_ray(ray0, n_rays, raw)`` -> (g_raw, dzc, value)), the chain back on
     the group's rows from the B pack, then dz (``dz_rows(ray0, rows, dx,
-    x)``). Returns (dws, dbs, dz (R S), sum of the per-ray values)."""
+    x)``) and, if given, ``rows_out(ray0, n_rays, dx, dd)``. Returns (dws,
+    dbs, dz (R S), sum of the per-ray values)."""
     wf = _unpack(rc.pack_mma_weights(ws, tcfg, "f"), tcfg, "f")
     wb = [w.to(ws[0].dtype) for w in _unpack(rc.pack_mma_weights(ws, tcfg, "b"), tcfg, "b")]
     R = N_RAYS
@@ -419,12 +459,14 @@ def _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows):
         raw = _forward(tcfg, x, d, wf, bs, cd).reshape(n_rays, S, 4)
         g_raw, dzc, value = per_ray(ray0, n_rays, raw)
         total += value
-        gw, gb, dx, _ = rc.mlp_bwd_plain(wb, bs, tcfg, x.to(ws[0].dtype),
-                                         d.to(ws[0].dtype) if d is not None else None,
-                                         g_raw.reshape(-1, 4), cd)
+        gw, gb, dx, dd = rc.mlp_bwd_plain(wb, bs, tcfg, x.to(ws[0].dtype),
+                                          d.to(ws[0].dtype) if d is not None else None,
+                                          g_raw.reshape(-1, 4), cd)
         dws = [a + b for a, b in zip(dws, gw)]
         dbs = [a + b for a, b in zip(dbs, gb)]
         dz[ray0 * S:ray0 * S + rows] = dzc.reshape(-1) + dz_rows(ray0, rows, dx, x)
+        if rows_out is not None:
+            rows_out(ray0, n_rays, dx, dd)
     return dws, dbs, dz.reshape(R, S), total
 
 
@@ -487,6 +529,28 @@ def test_b7_backward_in_the_kernels_order_matches_jax(case, n_samples, name, cd,
     _hold([dz], [jgz], GRAD_TOL[name], normwise)
 
 
+def _enc_tiles_of(tcfg, x, S, cd):
+    """B5's and B4's group X / D rows as the kernels read them: in bf16 the
+    tiles of load_comp_mma_inputs (pad rows dropped), in f32 the rows
+    (load_chunk)."""
+    if cd == torch.bfloat16:
+        tiles = {row0: (X, D) for row0, _, X, D in _b5_tiles(tcfg, x["enc"], x["encd"], S)}
+    enc = torch.tensor(x["enc"])
+
+    def tiles_of(ray0, rows):
+        if cd == torch.bfloat16:
+            parts = [tiles[ray0 * S + r0] for r0 in range(0, rows, BM)]
+            n = [min(BM, rows - r0) for r0 in range(0, rows, BM)]
+            X = torch.cat([p[0][:k, :tcfg.xyz_dim] for p, k in zip(parts, n)])
+            D = (torch.cat([p[1][:k, :tcfg.dir_dim] for p, k in zip(parts, n)])
+                 if tcfg.uses_view_dirs else None)
+            return X, D
+        ray = torch.arange(ray0 * S, ray0 * S + rows) // S
+        return (enc[ray0 * S:ray0 * S + rows],
+                torch.tensor(x["encd"])[ray] if x["encd"] is not None else None)
+    return tiles_of
+
+
 @pytest.mark.parametrize("name,cd,jcd", DTYPES, ids=[d[0] for d in DTYPES])
 @pytest.mark.parametrize("n_samples", [48, 192])
 @pytest.mark.parametrize("case", CASES, ids=IDS)
@@ -502,22 +566,6 @@ def test_b5_in_the_kernels_order_matches_jax(case, n_samples, name, cd, jcd):
     tz, target = torch.tensor(x["z"]), torch.tensor(x["target"])
     dvec = torch.tensor(x["dirs"][:, :3])
     inv_n = 1.0 / (3 * N_RAYS)
-    if cd == torch.bfloat16:
-        tiles = {row0: (X, D) for row0, _, X, D in _b5_tiles(tcfg, x["enc"], x["encd"], S)}
-    else:
-        enc, encd = torch.tensor(x["enc"]), x["encd"]
-
-    def tiles_of(ray0, rows):
-        if cd == torch.bfloat16:  # the group's tiles, their pad rows dropped
-            parts = [tiles[ray0 * S + r0] for r0 in range(0, rows, BM)]
-            n = [min(BM, rows - r0) for r0 in range(0, rows, BM)]
-            X = torch.cat([p[0][:k, :tcfg.xyz_dim] for p, k in zip(parts, n)])
-            D = (torch.cat([p[1][:k, :tcfg.dir_dim] for p, k in zip(parts, n)])
-                 if tcfg.uses_view_dirs else None)
-            return X, D
-        sl = slice(ray0 * S, ray0 * S + rows)
-        ray = torch.arange(ray0 * S, ray0 * S + rows) // S
-        return enc[sl], (torch.tensor(encd)[ray] if encd is not None else None)
 
     def per_ray(ray0, n_rays, raw):
         rays = slice(ray0, ray0 + n_rays)
@@ -531,7 +579,8 @@ def test_b5_in_the_kernels_order_matches_jax(case, n_samples, name, cd, jcd):
         ray = torch.arange(ray0 * S, ray0 * S + rows) // S
         return _dz_points(tcfg, dx, xt, dvec[ray])
 
-    dws, dbs, dz, sq = _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows)
+    dws, dbs, dz, sq = _emulate_groups(tcfg, ws, bs, cd, S, _enc_tiles_of(tcfg, x, S, cd),
+                                       per_ray, dz_rows)
     assert abs(sq * inv_n - float(val)) <= LOSS_RTOL[name] * abs(float(val))
     rws, rbs = _flat_grads(jgp, tcfg)
     normwise = cd == torch.bfloat16
@@ -539,13 +588,99 @@ def test_b5_in_the_kernels_order_matches_jax(case, n_samples, name, cd, jcd):
     _hold([dz], [jgz], GRAD_TOL[name], normwise)
 
 
+def _b4_jax(jcfg, params, x, jcd, seed):
+    """JAX's B4 (``apply_mlp_composited``, its two kernels in interpret mode)
+    on the setup ``x``: ``((rgb, weights), (dparams, denc, dencd, dz),
+    (g_rgb, g_w))`` for normal cotangents drawn from ``seed``."""
+    S = x["z"].shape[1]
+    rng = np.random.default_rng(seed)
+    g_rgb = rng.normal(size=(N_RAYS, 3)).astype(np.float32)
+    g_w = rng.normal(size=(N_RAYS, S)).astype(np.float32)
+    out, vjp = jax.vjp(lambda p, e, d, zz: jrk.apply_mlp_composited(p, jcfg, e, d, zz, jcd),
+                       params, x["enc"], x["encd"], x["z"])
+    return out, vjp((jnp.asarray(g_rgb), jnp.asarray(g_w))), (g_rgb, g_w)
+
+
+@pytest.mark.parametrize("name,cd,jcd", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("n_samples", [48, 192])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_b4_forward_in_the_kernels_order_matches_jax(case, n_samples, name, cd, jcd):
+    """forward_groups: each tile's forward from the F pack, then composite_ray
+    one ray at a time, sample by sample; rgb and weights against JAX's B4
+    forward, scaled by the largest |value|: 1e-4 in f32 (other orders of
+    sums, the TPU kernel's log-step scans), 2e-2 in bf16 (chip_smoke.py TOL:
+    a 1-ulp difference of a sum flips a bf16 rounding of an activation)."""
+    S = n_samples
+    jcfg, tcfg, params, x = _enc_setup(case, S, seed=5)
+    (jrgb, jw), _, _ = _b4_jax(jcfg, params, x, jcd, 9)
+    ws, bs = rc.flatten_params(tm.params_from_jax(params), tcfg, cd)
+    wf = _unpack(rc.pack_mma_weights(ws, tcfg, "f"), tcfg, "f")
+    tz = torch.tensor(x["z"])
+    tiles_of = _enc_tiles_of(tcfg, x, S, cd)
+    rgb, weights = torch.zeros(N_RAYS, 3), torch.zeros(N_RAYS, S)
+    for group in range(n_groups(N_RAYS, S)):
+        ray0, n_rays, rows = group_at(group, N_RAYS, S)
+        X, D = tiles_of(ray0, rows)
+        raw = _forward(tcfg, X, D, wf, bs, cd).reshape(n_rays, S, 4)
+        rays = slice(ray0, ray0 + n_rays)
+        rgb[rays], weights[rays] = _composite_ray(raw, tz[rays])
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[name]
+    _hold([rgb, weights], [jrgb, jw], tol, normwise=False)
+
+
+@pytest.mark.parametrize("name,cd,jcd", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("n_samples", [48, 192])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_b4_backward_in_the_kernels_order_matches_jax(case, n_samples, name, cd, jcd):
+    """backward_groups with B4's policy: dx rows to denc, each ray's dd rows
+    summed in row order (one running sum carried from tile to tile at S =
+    192), dz the compositing's share alone; dparams, denc, dencd and dz
+    against JAX's B4 backward at GRAD_TOL (scaled per leaf in f32, normwise in
+    bf16, as B7's and B5's emulations)."""
+    S = n_samples
+    jcfg, tcfg, params, x = _enc_setup(case, S, seed=6)
+    _, (jgp, jgenc, jgencd, jgz), (g_rgb, g_w) = _b4_jax(jcfg, params, x, jcd, 8)
+    ws, bs = rc.flatten_params(tm.params_from_jax(params), tcfg, cd)
+    tz = torch.tensor(x["z"])
+    denc = torch.full((N_RAYS * S, tcfg.xyz_dim), float("nan"))
+    dencd = torch.full((N_RAYS, tcfg.dir_dim), float("nan"))
+
+    def per_ray(ray0, n_rays, raw):
+        rays = slice(ray0, ray0 + n_rays)
+        g_raw, dzc = _composite_ray_bwd(raw, tz[rays], torch.tensor(g_rgb)[rays],
+                                        torch.tensor(g_w)[rays])
+        return g_raw, dzc, 0.0
+
+    def rows_out(ray0, n_rays, dx, dd):
+        denc[ray0 * S:(ray0 + n_rays) * S] = dx.float()
+        if dd is None:
+            return
+        dd = dd.float().reshape(n_rays, S, -1)
+        acc = torch.zeros(n_rays, dd.shape[-1])
+        for s in range(S):  # row order, the tiles in turn
+            acc = acc + dd[:, s]
+        dencd[ray0:ray0 + n_rays] = acc
+
+    dws, dbs, dz, _ = _emulate_groups(tcfg, ws, bs, cd, S, _enc_tiles_of(tcfg, x, S, cd), per_ray,
+                                      lambda ray0, rows, dx, xt: torch.zeros(rows), rows_out)
+    rws, rbs = _flat_grads(jgp, tcfg)
+    normwise = cd == torch.bfloat16
+    _hold(dws + dbs, rws + rbs, GRAD_TOL[name], normwise)
+    _hold([dz, denc], [jgz, jgenc], GRAD_TOL[name], normwise)
+    if tcfg.uses_view_dirs:
+        _hold([dencd], [jgencd], GRAD_TOL[name], normwise)
+    else:
+        assert jgencd is None
+
+
 # --------------------------------------------------------------------------- #
 # (d) the wrappers' packs and scratch                                          #
 # --------------------------------------------------------------------------- #
 
 class _FakeLib:
-    """A compositing-backward library's exports, as its sources compute them
-    (``kernel`` "B7" or "B5"), and launches that record what they were given."""
+    """A compositing library's exports, as its sources compute them
+    (``kernel`` "B7", "B5" or "B4"), and launches that record what they were
+    given."""
 
     def __init__(self, kernel, cfg):
         self.kernel, self.cfg, self.calls = kernel, cfg, []
@@ -575,7 +710,8 @@ class _FakeLib:
         n = self.nerf_mlp_mma_pack_elems() if is_bf16 else self.nerf_mlp_param_count() - sum(
             rc.weight_shapes(self.cfg)[1])
         ctype = ctypes.c_uint16 if is_bf16 else ctypes.c_float
-        read = [np.ctypeslib.as_array((ctype * n).from_address(p)).copy() for p in (w, wt)]
+        read = [None if p is None else np.ctypeslib.as_array((ctype * n).from_address(p)).copy()
+                for p in (w, wt)]
         self.calls.append(dict(is_bf16=is_bf16, w=read[0], wt=read[1], dxs=dxs, raw=raw,
                                n_blocks=n_blocks))
         return 0
@@ -587,6 +723,13 @@ class _FakeLib:
     def nerf_mlp_loss_comp(self, is_bf16, has_dir, enc, encd, z, dvec, target, w, wt, b, dz,
                            raw, partial, acts, dxs, out, n_blocks, *tail):
         return self._record(is_bf16, w, wt, dxs, raw, n_blocks)
+
+    def nerf_mlp_comp_bwd(self, is_bf16, has_dir, enc, encd, z, w, wt, b, g_rgb, g_w, denc,
+                          dencd, dz, raw, partial, acts, dds, dparams, n_blocks, *tail):
+        return self._record(is_bf16, w, wt, dds, raw, n_blocks)
+
+    def nerf_mlp_comp_fwd(self, is_bf16, has_dir, enc, encd, z, w, b, rgb, weights, raw, *tail):
+        return self._record(is_bf16, w, None, None, raw, None)
 
 
 SMS = 132
@@ -611,7 +754,7 @@ SCRATCH_CASES = [("bfloat16", 4096, 64), ("bfloat16", 4096, 128), ("bfloat16", 7
                  ("bfloat16", 4093, 100), ("float32", 4096, 64), ("float32", 13, 100)]
 
 
-@pytest.mark.parametrize("kernel", ["B7", "B5"])
+@pytest.mark.parametrize("kernel", ["B7", "B5", "B4"])
 @pytest.mark.parametrize("name,R,S", SCRATCH_CASES, ids=[f"{c[0]}-R{c[1]}-S{c[2]}"
                                                           for c in SCRATCH_CASES])
 def test_scratch_is_sized_from_the_library_per_compute_type(fake_card, kernel, name, R, S):
@@ -620,8 +763,10 @@ def test_scratch_is_sized_from_the_library_per_compute_type(fake_card, kernel, n
     lib = _FakeLib(kernel, cfg)
     n_params = lib.nerf_mlp_param_count() + (kernel == "B5")
     z = torch.zeros((R, S))
-    partial, acts, dxs, n_blocks = rk._comp_bwd_scratch(lib, n_params, cfg, cd, z,
-                                                        torch.device("cpu"))
+    # B4's slab holds dd rows (dir wide), the others' dx rows (xyz wide).
+    width = cfg.dir_dim if kernel == "B4" else cfg.xyz_dim
+    partial, acts, dxs, n_blocks = rk._comp_bwd_scratch(
+        lib, n_params, cfg, cd, z, torch.device("cpu"), width if kernel == "B4" else None)
     groups = lib.nerf_comp_groups(cd == torch.bfloat16, R, S)
     assert n_blocks == min(groups, SMS)
     assert partial.numel() == n_blocks * n_params and partial.dtype == torch.float32
@@ -629,10 +774,10 @@ def test_scratch_is_sized_from_the_library_per_compute_type(fake_card, kernel, n
     if cd == torch.bfloat16:
         assert groups == -(-R // rays_per_group(S))
         assert acts.numel() == n_blocks * tiles_per_group(S) * NACT * BM * HPAD
-        assert dxs.numel() == n_blocks * BM * cfg.xyz_dim and dxs.dtype == torch.float32
+        assert dxs.numel() == n_blocks * BM * width and dxs.dtype == torch.float32
     else:
-        # The FMA kernels' sizes, as the old exports give them: groups of about
-        # 64 rows; B7 one chunk's slots (its tile recomputes), B5 every chunk's.
+        # The FMA kernels' sizes: groups of about 64 rows; B7 one chunk's
+        # slots (its tile recomputes), B5 and B4 every chunk's.
         rpg = 1 if S >= TM else TM // S
         assert groups == -(-R // rpg)
         chunks = 1 if kernel == "B7" else -(-rpg * S // TM)
@@ -640,51 +785,90 @@ def test_scratch_is_sized_from_the_library_per_compute_type(fake_card, kernel, n
         assert dxs is None
 
 
-def test_exports_in_the_sources_match_the_fake_library():
-    for src in (B7_SRC, B5_SRC):
-        assert 'extern "C" int nerf_comp_dx_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : 0; }' in src
-    assert "return is_bf16 ? nerf_cmma::act_elems(S) : (long long)NACT * TM * HMAX;" in B7_SRC
-    assert "if (is_bf16) return nerf_cmma::n_groups(R, S);" in B7_SRC
-    assert "return is_bf16 ? nerf_cmma::act_elems(S) : nerf_mlp_comp_act_slots(S);" in B5_SRC
-    assert "return is_bf16 ? nerf_cmma::n_groups(R, S) : n_groups(R, S);" in B5_SRC
-    # B5's library keeps the old exports of the family, which B4's wrappers read.
-    common = (CSRC / "mlp_comp_common.cuh").read_text()
-    assert "nerf_comp::chunks_per_group(S) * nerf_mlp::NACT * nerf_mlp::TM * nerf_mlp::HMAX" in common
+KERNEL_SRC = {"B7": B7_SRC, "B5": B5_SRC, "B4": B4_SRC}
+
+
+@pytest.mark.parametrize("kernel", ["B7", "B5", "B4"])
+def test_exports_in_the_sources_match_the_fake_library(kernel):
+    # One definition of the exports, in the header each library includes;
+    # each library says how many 64-row chunks its f32 kernel keeps.
+    src = KERNEL_SRC[kernel]
+    assert '#include "comp_exports.cuh"' in src and 'extern "C" int nerf_comp_' not in src
+    assert 'extern "C" int nerf_comp_dx_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : 0; }' \
+        in EXPORTS_SRC
+    assert "return is_bf16 ? nerf_cmma::n_groups(R, S) : nerf_comp::n_groups(R, S);" in EXPORTS_SRC
+    assert "return is_bf16 ? nerf_cmma::act_elems(S)\n                 : (long long)" \
+           "nerf_comp::f32_chunks_kept(S) * nerf_mlp::NACT * nerf_mlp::TM *" in EXPORTS_SRC
+    kept = ("int nerf_comp::f32_chunks_kept(int) { return 1; }" if kernel == "B7" else
+            "int nerf_comp::f32_chunks_kept(int S) { return chunks_per_group(S); }")
+    assert kept in src
+    # The FMA-only exports of the family are gone.
+    for other in (CSRC / "mlp_comp_common.cuh", CSRC / "mlp_comp_fwd.cu"):
+        assert "nerf_mlp_comp_act_slots" not in other.read_text()
     # Each new kernel launches only on the bf16 branch.
-    assert "if (bf16) {\n    err = launch_kernel(rm_comp_bwd_mma_kernel," in B7_SRC
-    assert "mlp_loss_comp_mma_kernel<<<n_blocks, nerf_mma::NT, smem, stream>>>(" in B5_SRC
+    launch = {"B7": "if (bf16) {\n    err = launch_kernel(rm_comp_bwd_mma_kernel,",
+              "B5": "mlp_loss_comp_mma_kernel<<<n_blocks, nerf_mma::NT, smem, stream>>>(",
+              "B4": "mlp_comp_bwd_mma_kernel<<<n_blocks, nerf_mma::NT, smem, stream>>>("}[kernel]
+    assert launch in src
+    if kernel == "B4":
+        for text in (B4_SRC, B4F_SRC):
+            bf, f32 = text.index("  if (bf16) {"), text.index("  } else {")
+            mma = text.index("_mma_kernel<<<")
+            assert bf < mma < f32 and "mlp_comp_fwd_kernel<float>" not in text
+        assert "mlp_comp_fwd_mma_kernel<<<groups, nerf_mma::NT, smem, stream>>>(" in B4F_SRC
+
+
+def _call_wrappers(fake_card, lib, kernel, cfg, ws, bs, cd, R, S, gen, **kw):
+    """The wrapper(s) of ``kernel`` on small CPU inputs, through the fake
+    library ``lib`` (B4: its forward, then its backward)."""
+    z = torch.sort(2 + 4 * torch.rand((R, S), generator=gen), dim=1).values
+    if kernel == "B7":
+        fake_card["raymarch_comp_bwd"] = lib
+        rd = torch.rand((R, 6 + (cfg.n_angles + 1 if cfg.uses_view_dirs else 0)), generator=gen)
+        rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, torch.rand((R, 3)), torch.rand((R, S)), cd, **kw)
+        return
+    enc = torch.rand((R * S, cfg.xyz_dim), generator=gen).to(cd)
+    encd = torch.rand((R, cfg.dir_dim), generator=gen) if cfg.uses_view_dirs else None
+    if kernel == "B5":
+        fake_card["mlp_loss_comp"] = lib
+        rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, torch.rand((R, 3)), torch.rand((R, 3)), cd,
+                         **kw)
+        return
+    fake_card["mlp_comp_fwd"] = fake_card["mlp_comp_bwd"] = lib
+    rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, z, cd, **kw)
+    rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, z, torch.rand((R, 3)), torch.rand((R, S)), cd, **kw)
 
 
 @pytest.mark.parametrize("name", ["bfloat16", "float32"])
-@pytest.mark.parametrize("kernel", ["B7", "B5"])
+@pytest.mark.parametrize("kernel", ["B7", "B5", "B4"])
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, name):
     """bf16: the F and B packs of ``pack_mma_weights`` (their size checked
-    against the library's), a dx slab; f32: the flat weights and their
-    transposes, no dx slab."""
+    against the library's; B4's forward the F pack alone), a slab (B4's of dd
+    rows, with view dirs only); f32: the flat weights and their transposes,
+    no slab."""
     cfg = tm.MLPConfig(**case)
     cd = getattr(torch, name)
     lib = _FakeLib(kernel, cfg)
     R, S = 5, 48
     ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(0), cfg), cfg, cd)
-    gen = torch.Generator().manual_seed(1)
-    z = torch.sort(2 + 4 * torch.rand((R, S), generator=gen), dim=1).values
-    if kernel == "B7":
-        fake_card["raymarch_comp_bwd"] = lib
-        rd = torch.rand((R, 6 + (cfg.n_angles + 1 if cfg.uses_view_dirs else 0)), generator=gen)
-        rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, torch.rand((R, 3)), torch.rand((R, S)), cd)
-    else:
-        fake_card["mlp_loss_comp"] = lib
-        enc = torch.rand((R * S, cfg.xyz_dim), generator=gen).to(cd)
-        encd = torch.rand((R, cfg.dir_dim), generator=gen) if cfg.uses_view_dirs else None
-        rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, torch.rand((R, 3)), torch.rand((R, 3)), cd)
-    (call,) = lib.calls
+    _call_wrappers(fake_card, lib, kernel, cfg, ws, bs, cd, R, S, torch.Generator().manual_seed(1))
+    calls = lib.calls
+    assert len(calls) == (2 if kernel == "B4" else 1)
+    if kernel == "B4":  # the forward: one pack, no scratch
+        fwd, = [c for c in calls if c["n_blocks"] is None]
+        assert fwd["wt"] is None
+        calls = [c for c in calls if c is not fwd]
+        want = (rc.pack_mma_weights(ws, cfg, "f").view(torch.int16).numpy().view(np.uint16)
+                if cd == torch.bfloat16 else torch.cat([w.reshape(-1) for w in ws]).numpy())
+        np.testing.assert_array_equal(fwd["w"], want)
+    (call,) = calls
     assert call["n_blocks"] == lib.nerf_comp_groups(cd == torch.bfloat16, R, S)
     if cd == torch.bfloat16:
         for got, kind in ((call["w"], "f"), (call["wt"], "b")):
             want = rc.pack_mma_weights(ws, cfg, kind).view(torch.int16).numpy().view(np.uint16)
             np.testing.assert_array_equal(got, want)
-        assert call["dxs"] is not None
+        assert (call["dxs"] is not None) == (kernel != "B4" or cfg.uses_view_dirs)
     else:
         np.testing.assert_array_equal(call["w"], torch.cat([w.reshape(-1) for w in ws]).numpy())
         np.testing.assert_array_equal(call["wt"],
@@ -692,15 +876,11 @@ def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, na
         assert call["dxs"] is None
     bad = _FakeLib(kernel, cfg)
     bad.nerf_mlp_mma_pack_elems = lambda *dims: rc.mma_layout(cfg)[1] + 16
-    fake_card["raymarch_comp_bwd" if kernel == "B7" else "mlp_loss_comp"] = bad
     if cd == torch.bfloat16:
         with pytest.raises(RuntimeError, match="weight-pack layout"):
-            if kernel == "B7":
-                rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, torch.rand((R, 3)), torch.rand((R, S)),
-                                     cd)
-            else:
-                rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, torch.rand((R, 3)),
-                                 torch.rand((R, 3)), cd)
+            _call_wrappers(fake_card, bad, kernel, cfg, ws, bs, cd, R, S,
+                           torch.Generator().manual_seed(1))
+        assert not bad.calls
 
 
 # --------------------------------------------------------------------------- #
@@ -802,7 +982,7 @@ def _b5_inputs(cfg, R, S, seed=7):
         (R, 3), generator=gen))
 
 
-@pytest.mark.parametrize("kernel", ["B7", "B5"])
+@pytest.mark.parametrize("kernel", ["B7", "B5", "B4"])
 def test_raw_output_on_the_cpu_is_the_plain_forward(kernel):
     cfg = tm.MLPConfig(**CASES[0])
     cd = torch.bfloat16
@@ -813,11 +993,17 @@ def test_raw_output_on_the_cpu_is_the_plain_forward(kernel):
         want = rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, cd)
         assert torch.equal(raw, rk.raymarch_fwd_plain(ws, bs, cfg, rd, z, cd))
         assert torch.equal(got[2], want[2])
-        with pytest.raises(ValueError, match="bf16"):
-            rk.raymarch_comp_bwd(*rc.flatten_params(tm.init_params(torch.Generator(), cfg), cfg,
-                                                    torch.float32), cfg, rd, z, g_rgb, g_w,
-                                 torch.float32, raw=raw)
-    else:
+        # f32 B7's backward gives its raw values too (the C3 step report reads
+        # them); a raw tensor of another shape raises.
+        ws32, bs32 = rc.flatten_params(tm.init_params(torch.Generator(), cfg), cfg,
+                                       torch.float32)
+        raw32 = torch.full((*z.shape, 4), float("nan"))
+        rk.raymarch_comp_bwd(ws32, bs32, cfg, rd, z, g_rgb, g_w, torch.float32, raw=raw32)
+        assert torch.equal(raw32, rk.raymarch_fwd_plain(ws32, bs32, cfg, rd, z, torch.float32))
+        with pytest.raises(ValueError, match="expected"):
+            rk.raymarch_comp_bwd(ws32, bs32, cfg, rd, z, g_rgb, g_w, torch.float32,
+                                 raw=raw32[:, :-1])
+    elif kernel == "B5":
         ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(5), cfg), cfg, cd)
         _, enc, encd, z, dvec, target = _b5_inputs(cfg, 3, 40)
         raw = torch.full((*z.shape, 4), float("nan"))
@@ -827,41 +1013,123 @@ def test_raw_output_on_the_cpu_is_the_plain_forward(kernel):
                                                           target, cd)[1])
         with pytest.raises(ValueError, match="expected"):
             rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, dvec, target, cd, raw=raw[:, :-1])
+    else:
+        ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(5), cfg), cfg, cd)
+        _, enc, encd, z, _, _ = _b5_inputs(cfg, 3, 40)
+        g_rgb, g_w = torch.rand((3, 3)), torch.rand((3, 40))
+        want_raw = rk._raw_on_encodings(ws, bs, cfg, enc, encd, z, cd)[0]
+        raw_f, raw_b = (torch.full((*z.shape, 4), float("nan")) for _ in range(2))
+        got_f = rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, z, cd, raw=raw_f)
+        got_b = rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, z, g_rgb, g_w, cd, raw=raw_b)
+        assert torch.equal(raw_f, want_raw) and torch.equal(raw_b, want_raw)
+        for got, want in ((got_f, rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd)),
+                          (got_b, rk.mlp_comp_bwd_plain(ws, bs, cfg, enc, encd, z, g_rgb, g_w,
+                                                        cd))):
+            assert all(torch.equal(a, b) for a, b in zip(got[-2:], want[-2:]))
+        with pytest.raises(ValueError, match="expected"):
+            rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, z, g_rgb, g_w, cd, raw=raw_b[:, :-1])
 
 
 @pytest.mark.parametrize("name", ["bfloat16", "float32"])
-@pytest.mark.parametrize("kernel", ["B7", "B5"])
+@pytest.mark.parametrize("kernel", ["B7", "B5", "B4"])
 def test_wrappers_pass_the_raw_output_to_the_bf16_kernels(fake_card, kernel, name):
+    """Every bf16 kernel takes the raw output; in f32 B7's backward does (its
+    FMA kernel writes it for the C3 step report) and B5 and B4 raise."""
     cfg = tm.MLPConfig(**CASES[1])
     cd = getattr(torch, name)
     lib = _FakeLib(kernel, cfg)
     R, S = 4, 48
     ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(0), cfg), cfg, cd)
-    gen = torch.Generator().manual_seed(1)
-    z = torch.sort(2 + 4 * torch.rand((R, S), generator=gen), dim=1).values
     raw = torch.empty((R, S, 4))
-    rd = torch.rand((R, 6), generator=gen)
-    enc = torch.rand((R * S, cfg.xyz_dim), generator=gen).to(cd)
 
     def call(**kw):
-        if kernel == "B7":
-            fake_card["raymarch_comp_bwd"] = lib
-            rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, torch.rand((R, 3)), torch.rand((R, S)), cd,
-                                 **kw)
-        else:
-            fake_card["mlp_loss_comp"] = lib
-            rk.mlp_loss_comp(ws, bs, cfg, enc, None, z, torch.rand((R, 3)), torch.rand((R, 3)),
-                             cd, **kw)
+        _call_wrappers(fake_card, lib, kernel, cfg, ws, bs, cd, R, S,
+                       torch.Generator().manual_seed(1), **kw)
 
     call()
-    assert lib.calls[-1]["raw"] is None
-    if cd == torch.bfloat16:
+    assert all(c["raw"] is None for c in lib.calls)
+    n = len(lib.calls)
+    if cd == torch.bfloat16 or kernel == "B7":
         call(raw=raw)
-        assert lib.calls[-1]["raw"] == raw.data_ptr()
+        assert len(lib.calls) == 2 * n and all(c["raw"] == raw.data_ptr() for c in lib.calls[n:])
     else:
         with pytest.raises(ValueError, match="bf16"):
             call(raw=raw)
-        assert len(lib.calls) == 1
+        assert len(lib.calls) == n
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_b4_takes_the_given_side_of_the_kink_and_sums_in_f64(case):
+    """As B5's: with its own raw sigma as the side B4's plain backward and
+    forward are bitwise themselves, the other side moves dz; f64 sums come
+    back in f64 within the bf16 tolerance of the f32 ones."""
+    cfg = tm.MLPConfig(**case)
+    cd = torch.bfloat16
+    ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(5), cfg), cfg, cd)
+    _, enc, encd, z, _, _ = _b5_inputs(cfg, 5, 48)
+    gen = torch.Generator().manual_seed(11)
+    g_rgb, g_w = 0.5 + torch.rand((5, 3), generator=gen), 0.5 + torch.rand((5, 48), generator=gen)
+    args = (ws, bs, cfg, enc, encd, z, g_rgb, g_w, cd)
+    base = rk.mlp_comp_bwd_plain(*args)
+    raw, _ = rk._raw_on_encodings(ws, bs, cfg, enc, encd, z, cd)
+    flat = lambda r: [t for t in r[0] + r[1] + list(r[2:]) if t is not None]  # noqa: E731
+    same = rk.mlp_comp_bwd_plain(*args, raw_sigma=raw[..., 3])
+    assert all(torch.equal(a, b) for a, b in zip(flat(same), flat(base)))
+    fwd = rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd)
+    assert all(torch.equal(a, b) for a, b in zip(
+        rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd, raw_sigma=raw[..., 3]), fwd))
+    moved = rk.mlp_comp_bwd_plain(*args, raw_sigma=-raw[..., 3])
+    assert not torch.equal(moved[-1], base[-1])
+    exact = rk.mlp_comp_bwd_plain(*args, work=torch.float64)
+    assert exact[-3].dtype == torch.float64 and exact[0][0].dtype == torch.float64
+    for got, want in zip(exact[0] + exact[1], base[0] + base[1]):
+        assert _scaled_np(got, want) <= GRAD_TOL["bfloat16"]
+    for got, want in zip(exact[2:], base[2:]):
+        if want is not None:
+            assert float((got - want).norm() / want.norm()) <= GRAD_TOL["bfloat16"]
+    efwd = rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd, work=torch.float64)
+    for got, want in zip(efwd, fwd):
+        assert _scaled_np(got, want) <= GRAD_TOL["bfloat16"]
+
+
+def test_f32_step_report_runs_on_the_cpu(capsys):
+    from nerf_and_dietnerf_tpu_torch.tools import comp_f32_steps
+
+    assert comp_f32_steps.main(["--device", "cpu", "--rays", "8", "--hidden", "32",
+                                "--seeds", "0"]) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["case"] for r in lines] == [f"seed=0 {v} R=8 S=64" for v in ("view_dirs",
+                                                                           "xyz_only")]
+    for rec in lines:
+        d = rec["b7"]["dparams"]
+        # On the CPU the wrappers run the plain versions: the "kernel" is the
+        # plain version, and f32 B6's backward on the same cotangent is B7's
+        # MLP walk up to the cotangent's rounding.
+        assert d["kernel_vs_chain"] == d["plain_vs_chain"] and d["ratio_kernel_to_plain"] == 1.0
+        assert rec["b7"]["raw"]["kernel"] == rec["b7"]["raw"]["plain"]
+        assert rec["b7"]["g_raw"]["chain"]["vs_chain"] == 0.0
+        assert d["b6_on_kernel_cotangent_vs_b7"] < 1e-5
+        assert rec["b4"]["ratio_kernel_to_plain"] == 1.0
+        assert len(d["worst_leaves"]) == comp_f32_steps.TOP_LEAVES
+
+
+def test_serial_vjp_is_the_compositing_derivative():
+    """The step report's emulation of composite_ray_bwd against autograd of
+    core.rendering.composite, in f64 (the same derivative), on rays with
+    samples on both sides of the kink."""
+    from nerf_and_dietnerf_tpu_torch.tools import comp_f32_steps
+
+    gen = torch.Generator().manual_seed(3)
+    raw = torch.randn((6, 20, 4), generator=gen, dtype=torch.float64)
+    z = torch.sort(2 + 4 * torch.rand((6, 20), generator=gen, dtype=torch.float64), 1).values
+    g_rgb, g_w = torch.rand((6, 3), generator=gen), torch.rand((6, 20), generator=gen)
+    g_ser, dz_ser = comp_f32_steps.vjp_serial(raw, z, g_rgb, g_w)
+    assert g_ser.dtype == torch.float64
+    g_ag, dz_ag = rk.composite_vjp(raw.float(), z.float(), g_rgb, g_w)
+    # autograd runs in f32 (composite casts): within f32 rounding of the f64
+    # recurrence.
+    np.testing.assert_allclose(g_ser.numpy(), g_ag.double().numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(dz_ser.numpy(), dz_ag.double().numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_kink_report_runs_on_the_cpu(capsys):
@@ -869,10 +1137,36 @@ def test_kink_report_runs_on_the_cpu(capsys):
 
     assert comp_kink.main(["--device", "cpu", "--rays", "8", "--hidden", "32", "--seeds", "0"]) == 0
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    # Both kernels at the four shapes of both variants, and on opaque rays.
-    assert len(lines) == 2 * (2 * len(comp_kink.SHAPES) + 1)
+    # The three kernels at the four shapes of both variants, and on opaque rays.
+    assert len(lines) == 3 * (2 * len(comp_kink.SHAPES) + 1)
     for rec in lines:
         # On the CPU the wrappers run the plain version: no distance, no kink.
         assert rec["plain"]["dz_normwise"] == 0 and rec["kink_vs_plain"]["count"] == 0
         assert set(rec) >= {"plain_kink", "f64", "f64_kink", "plain_vs_f64", "kink_vs_f64"}
         assert rec["f64"]["dz_normwise"] == rec["plain_vs_f64"]["dz_normwise"]
+        if rec["kernel"] == "B4":
+            assert "denc_normwise" in rec["f64"]
+    # The opaque rays alone, one case a kernel for each seed.
+    assert comp_kink.main(["--device", "cpu", "--rays", "8", "--hidden", "32", "--seeds", "0",
+                           "--opaque-only"]) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["kernel"] for r in lines] == ["B7", "B5", "B4"]
+    assert all(r["case"].endswith("opaque") for r in lines)
+
+
+def test_outputs_compare_bitwise_with_a_saved_run(tmp_path, capsys):
+    from nerf_and_dietnerf_tpu_torch.tools import comp_outputs
+
+    path = tmp_path / "out.pt"
+    args = ["--device", "cpu", "--rays", "2"]
+    assert comp_outputs.main(args + ["--save", str(path)]) == 0
+    assert comp_outputs.main(args + ["--compare", str(path)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2 * 2 * 2 * len(comp_outputs.SAMPLES)
+    assert all(line.endswith(" equal") for line in lines)
+    saved = torch.load(path)
+    key = sorted(saved)[0]
+    saved[key][0] = saved[key][0] + 1  # one changed output
+    torch.save(saved, path)
+    assert comp_outputs.main(args + ["--compare", str(path)]) == 1
+    assert sum(line.endswith(" differ") for line in capsys.readouterr().out.splitlines()) == 1

@@ -455,10 +455,11 @@ def test_build_hash_of_the_new_kernels_covers_their_headers():
     deps = {n: {p.name for p in kl.source_closure(kl.CSRC_DIR / kl.KERNEL_SOURCES[n])}
             for n in ("mlp_comp_fwd", "mlp_comp_bwd", "mlp_loss_comp", "raymarch_comp_bwd")}
     shared = {"mlp_common.cuh", "composite_common.cuh", "mlp_comp_common.cuh"}
-    assert deps["mlp_comp_fwd"] == shared | {"mlp_comp_fwd.cu"}
-    assert deps["mlp_comp_bwd"] == shared | {"mlp_bwd_tile.cuh", "mlp_comp_bwd.cu"}
-    # B5 and B7's backward: their bf16 kernels run the ray-group loop on
-    # the tensor-core tiles.
+    # Every bf16 kernel of the family runs a ray-group loop on the
+    # tensor-core tiles; the backwards share one header of scratch exports.
     tiles = {"comp_mma_tile.cuh", "mlp_mma_tile.cuh"}
-    assert deps["mlp_loss_comp"] == shared | tiles | {"mlp_bwd_tile.cuh", "mlp_loss_comp.cu"}
-    assert {"composite_common.cuh"} | tiles <= deps["raymarch_comp_bwd"]
+    bwd = tiles | {"comp_exports.cuh", "mlp_bwd_tile.cuh"}
+    assert deps["mlp_comp_fwd"] == shared | tiles | {"mlp_comp_fwd.cu"}
+    assert deps["mlp_comp_bwd"] == shared | bwd | {"mlp_comp_bwd.cu"}
+    assert deps["mlp_loss_comp"] == shared | bwd | {"mlp_loss_comp.cu"}
+    assert {"composite_common.cuh"} | bwd <= deps["raymarch_comp_bwd"]
