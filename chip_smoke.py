@@ -27,13 +27,15 @@ version likewise (raw output, dz and dparams; JSON ``b6_vs_f64_chain``), B7
 (pixels, dz, dparams; ``b7_vs_f64_chain``; in f32 also step by step,
 ``b7_f32_steps``, ``tools/comp_f32_steps.py``), B5 (loss, dz, dparams;
 ``b5_vs_f64_chain``) and B4 (pixels, weights, denc, dencd, dz, dparams;
-``b4_vs_f64_chain``) at S = 64 and 128 (f32: 64), holds the bf16 B7
-backward, B5 and B4 (forward and backward, on the tensor cores) also at S =
-100, at 4093 rays and on opaque rays, each against its plain version with
-f64 sums on the kernel's side of the compositing's kink (``KINK_SHARE``),
-checks that bf16 B4's backward composites bitwise the raw values its forward
-composited, prints the registers, spills and HMMA counts of the five bf16
-backwards (B2, B6, B7, B5, B4) and of B4's forward,
+``b4_vs_f64_chain``) at S = 64 and 128 (f32 B4 and B5: 64), holds the
+bf16 B7 forward and backward, B5 and B4 (forward and backward, on the
+tensor cores) also at S = 100, at 4093 rays and on opaque rays, and f32 B7's
+backward (3xTF32 on the tensor cores) at S = 64, 100 and 128 and on opaque
+rays, each against its plain version with f64 sums on the kernel's side of
+the compositing's kink (``KINK_SHARE``), checks that bf16 B4's and B7's
+backwards composite bitwise the raw values their forwards composited, prints
+the registers, spills and HMMA counts of the five bf16 backwards (B2, B6,
+B7, B5, B4), of B4's and B7's forwards and of f32 B7's backward,
 and times f32 B1 beside that FMA design, then drives the five training paths at
 flagship width (4096 rays, 64 + 128 samples, 256/128 wide, bf16 step, f32
 eval renders) on a synthetic scene made from a seed, each for two epochs with
@@ -89,11 +91,16 @@ MLP_DESIGN = {"bfloat16": "tensor cores, mma.sync bf16, 128-row tiles",
 # f32 B2 keeps PR 1's FMA tile.
 F32_BWD_DESIGN = "f32 FMA tiles, 64 rows"
 # bf16 B7 backward and B5: the ray-group loop of csrc/comp_mma_tile.cuh on
-# the tensor-core tiles, one forward per row.
+# the tensor-core tiles, one forward per row; f32 B7 backward the same loop on
+# the 3xTF32 mma.sync tiles of csrc/mlp_tf32_mma_tile.cuh.
 COMP_MMA_DESIGN = (MLP_DESIGN["bfloat16"] + ", whole rays in a tile, one forward per row, "
                    "compositing VJP in the block, dx through a per-block slab")
+T32_COMP_DESIGN = ("tensor cores, 3xTF32 mma.sync m16n8k8, 64-row tiles, whole rays in a group, "
+                   "one forward per row, compositing VJP in the block, dx through a per-block "
+                   "slab")
 # B6 runs B1/B2's tensor-core tiles on the encodings it builds; its f32
-# backward (parity runs only) keeps the FMA tile.
+# backward (parity runs only) keeps the FMA tile. B7's bf16 forward runs the
+# forward loop of comp_mma_tile.cuh on the encodings it builds.
 RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings built into "
                                                                     "the bf16 operand tiles",
              ("raymarch_fwd", "float32"): MLP_DESIGN["float32"] + " (two stages), encodings "
@@ -104,6 +111,12 @@ RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings
                                                                     "through a per-block slab",
              ("raymarch_bwd", "float32"): F32_BWD_DESIGN,
              ("raymarch_comp_bwd", "bfloat16"): COMP_MMA_DESIGN,
+             ("raymarch_comp_bwd", "float32"): T32_COMP_DESIGN,
+             ("raymarch_comp_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", whole rays in a "
+                                                                       "tile, encodings built "
+                                                                       "into the bf16 operand "
+                                                                       "tiles, compositing in "
+                                                                       "the block",
              ("mlp_loss_comp", "bfloat16"): COMP_MMA_DESIGN,
              ("mlp_comp_bwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", whole rays in a tile, one "
                                                                   "forward per row, compositing "
@@ -112,8 +125,8 @@ RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings
                                                                   "per-block slab",
              ("mlp_comp_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", whole rays in a tile, "
                                                                   "compositing in the block"}
-# Every other kernel (B7's forward, f32 B7 backward, f32 B4 and f32 B5) keeps
-# the FMA tiles.
+# Every other kernel (f32 B7's forward, f32 B4 and f32 B5) keeps the FMA
+# tiles.
 FMA_COMP_DESIGN = "FMA tiles, 64 rows, whole rays a block"
 # B1's former f32 design, timed beside it: P3 with one chain is that FMA tile.
 FMA_DESIGN = "f32 FMA tile, one 64-row chain (P3, chains=1)"
@@ -587,18 +600,20 @@ def _hold_comp_bwd(torch, kernel, label, name, ws, bs, cfg, cd, args, run) -> di
     """B7's backward (``kernel`` "B7"), B5 ("B5") or B4's backward ("B4") on
     ``args`` (as ``tools/comp_kink.plain_of`` takes them); ``run(raw)`` gives
     its result as ``comp_kink.distance`` takes it (``(dws, dbs, dz, loss |
-    None[, rows])``), in bf16 writing the raw values it composited to
-    ``raw``. Finite, dparams (and B5's loss, B4's dencd) bitwise equal across
-    two runs, and held to the tolerances: in bf16 as KINK_SHARE sets out, in
-    f32 (the FMA kernels, which sum in the plain version's order) against the
-    plain f32 version. Returns ``tools/comp_kink.compare``'s record,
-    ``held_to`` naming the reference held to."""
+    None[, rows])``), on the tensor cores writing the raw values it
+    composited to ``raw``. Finite, dparams (and B5's loss, B4's dencd)
+    bitwise equal across two runs, and held to the tolerances: on the tensor
+    cores (every bf16 kernel, and f32 B7, whose 3xTF32 tiles sum in an order
+    of their own) as KINK_SHARE sets out, in the compute type's tolerances;
+    f32 B5 and B4 (the FMA kernels, which sum in the plain version's order)
+    against the plain f32 version. Returns ``tools/comp_kink.compare``'s
+    record, ``held_to`` naming the reference held to."""
     from nerf_and_dietnerf_tpu_torch.tools import comp_kink
 
     kname = COMP_BWD_NAMES[kernel]
     z = args[1] if kernel == "B7" else args[2]
     raw = (torch.empty((*z.shape, 4), dtype=torch.float32, device=DEVICE)
-           if cd == torch.bfloat16 else None)
+           if cd == torch.bfloat16 or kernel == "B7" else None)
     got, again = run(raw), run(None)
     torch.cuda.synchronize()
 
@@ -675,9 +690,11 @@ def _b7_pixels_vs_f64(torch, rk, ws, bs, cfg, rd, z, cd) -> dict:
 def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=True, b7=True):
     """Each B6/B7 kernel (B6 alone without ``b7``) against its plain version on
     (rd, z), the backwards too if ``backward``; returns the max |kernel -
-    plain| of each kernel (B7's backward: against the reference it is held
-    to), the cotangents the timings reuse and B7's backward's record of
+    plain| of each kernel (B7's: against the reference it is held to), the
+    cotangents the timings reuse and B7's backward's record of
     :func:`_hold_comp_bwd` (None without the backwards)."""
+    from nerf_and_dietnerf_tpu_torch.tools import comp_kink
+
     tol, tol_b, tol_r = TOL[name], TOL_BWD[name], TOL_ROWS[name]
     n_rays, n_samples = z.shape
     errs = {}
@@ -691,17 +708,37 @@ def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=Tru
         raise AssertionError(f"raymarch_fwd {label}: scaled err {e} > {tol}")
     del raw_k, raw_p
 
+    raw_f = None
     if b7:
-        rgb_k, w_k = rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd)
+        # In bf16 (the tensor-core forward) held as B4's forward: against the
+        # plain version with f64 sums on the kernel's side of the kink
+        # (KINK_SHARE); in f32 (the FMA kernel) against the plain f32 version.
+        bf = cd == torch.bfloat16
+        raw_f = torch.empty((n_rays, n_samples, 4), device=DEVICE) if bf else None
+        rgb_k, w_k = rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd, raw=raw_f)
         torch.cuda.synchronize()
-        rgb_p, w_p = rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd)
-        e_c = max(_scaled_err(rgb_k, rgb_p), _scaled_err(w_k, w_p))
-        errs["raymarch_comp_fwd"] = max(float((rgb_k - rgb_p).abs().max()),
-                                        float((w_k - w_p).abs().max()))
+        extra = ""
+        if bf:
+            want = rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd, work=torch.float64,
+                                              raw_sigma=raw_f[..., 3])
+            e_raw = _scaled_err(raw_f, rk.raymarch_fwd_plain(ws, bs, cfg, rd, z, cd))
+            kink = comp_kink.kink_samples(raw_f, comp_kink.plain_of(
+                "B7", ws, bs, cfg, cd, (rd, z))[1](torch.float64))
+            extra = f", raw scaled err {e_raw:.3e}, {kink['count']} kink samples"
+            if e_raw > tol or kink["share"] > KINK_SHARE:
+                raise AssertionError(f"raymarch_comp_fwd {label}: raw scaled err {e_raw} (tol "
+                                     f"{tol}), kink share {kink['share']} (at most {KINK_SHARE})")
+        else:
+            want = rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd)
+        e_c = max(_scaled_err(rgb_k, want[0]), _scaled_err(w_k, want[1]))
+        errs["raymarch_comp_fwd"] = max(float((a - b).abs().max()) for a, b in zip((rgb_k, w_k),
+                                                                                   want))
         if not (torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all() and e_c <= tol):
-            raise AssertionError(f"raymarch_comp_fwd {label}: scaled err {e_c} > {tol}")
+            raise AssertionError(f"raymarch_comp_fwd {label}: scaled err {e_c} > {tol}{extra}")
+        del want
     log(f"kernel check {label}: B6 fwd scaled err {e:.3e}"
-        + (f", B7 fwd {e_c:.3e}" if b7 else "") + f" (tol {tol})")
+        + (f", B7 fwd {e_c:.3e} against {'f64_kink' if raw_f is not None else 'plain'}{extra}"
+           if b7 else "") + f" (tol {tol})")
     if not backward:
         return errs, None, None
 
@@ -728,10 +765,23 @@ def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=Tru
         f"bitwise equal across two runs")
     rec = None
     if b7:
-        rec = _hold_comp_bwd(
-            torch, "B7", label, name, ws, bs, cfg, cd, (rd, z, g_rgb, g_w),
-            lambda raw: (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw), None))
+        raws = {}
+
+        def run7(raw):
+            if raw is not None:
+                raws["bwd"] = raw
+            return (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw), None)
+
+        rec = _hold_comp_bwd(torch, "B7", label, name, ws, bs, cfg, cd, (rd, z, g_rgb, g_w), run7)
         errs["raymarch_comp_bwd"] = rec[rec["held_to"]]["max_abs"]
+        # bf16: one tile code, one order of sums: the backward composites what
+        # the forward composited.
+        if raw_f is not None:
+            if not torch.equal(raws["bwd"], raw_f):
+                raise AssertionError(f"raymarch_comp_bwd {label}: its raw values differ from the "
+                                     f"forward's")
+            log(f"kernel check {label}: B7's backward composited the forward's raw values, "
+                f"bitwise")
     return errs, (g, g_rgb, g_w), rec
 
 
@@ -749,6 +799,9 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
     # The checks added with B7's tensor-core backward (S = 100 in bf16, opaque
     # rays in bf16) draw from one more, for the same reason.
     gen_b7 = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    # f32 B7's backward at the fine pass's S = 128, added with its
+    # tensor-core kernel, from one more.
+    gen_t32 = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
         cfg = mlp.MLPConfig(n_angles=n_angles)
         params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
@@ -768,7 +821,8 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                                           f"{variant} {name} R={RAYS} S={SAMPLES}")
             # B6 and its plain version against the f64 chain: the forward and
             # the backward's dz and dparams in both types (f32: B6's FMA
-            # backward tile, which f32 B7 shares; ROADMAP C3).
+            # backward tile, which f32 B7's backward ran before its tensor-core
+            # tiles; ROADMAP C3).
             chain = _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd, z, cots[0], cd)
             timings.setdefault("b6_vs_f64_chain", {}).setdefault(variant, {})[name] = chain
             log(f"kernel check B6 {variant} {name} R={RAYS} S={SAMPLES} against the f64 chain "
@@ -780,17 +834,18 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
             for n_s, backward, g_s in (
                     ((2 * SAMPLES, True, gen), (SAMPLES_RAGGED, True, gen_b7))
                     if cd == torch.bfloat16
-                    else ((SAMPLES_EVAL, False, gen), (SAMPLES_RAGGED, True, gen))):
+                    else ((SAMPLES_EVAL, False, gen), (SAMPLES_RAGGED, True, gen),
+                          (2 * SAMPLES, True, gen_t32))):
                 rd_s, z_s = _ray_batch(torch, cfg, RAYS, n_s, g_s)
                 other[n_s] = (rd_s, z_s, *_rm_checks(
                     torch, rk, cfg, ws, bs, rd_s, z_s, cd, name, g_s,
                     f"{variant} {name} R={RAYS} S={n_s}", backward))
             # B7 and its plain version against the f64 evaluation: pixels, dz
-            # and dparams at S = 64 and, in bf16, at 128 (the f32 backward keeps
-            # its FMA design; in f32, ROADMAP C3's steps on the same draw).
-            for n_s, (rd_c, z_c, rec_c) in [(SAMPLES, (rd, z, rec7))] + (
-                    [(2 * SAMPLES, (other[2 * SAMPLES][0], other[2 * SAMPLES][1],
-                                    other[2 * SAMPLES][4]))] if cd == torch.bfloat16 else []):
+            # and dparams at S = 64 and 128 (in f32 also ROADMAP C3's steps on
+            # the S = 64 draw).
+            for n_s, (rd_c, z_c, rec_c) in [(SAMPLES, (rd, z, rec7))] + [
+                    (2 * SAMPLES, (other[2 * SAMPLES][0], other[2 * SAMPLES][1],
+                                   other[2 * SAMPLES][4]))]:
                 chain7 = _chain_record(rec_c, {"pixels": _b7_pixels_vs_f64(torch, rk, ws, bs, cfg,
                                                                            rd_c, z_c, cd)})
                 timings.setdefault("b7_vs_f64_chain", {}).setdefault(variant, {}).setdefault(
@@ -863,9 +918,15 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                         ("raymarch_comp_bwd",
                          lambda: rk.raymarch_comp_bwd(ws, bs, cfg, rd3, z3, g_rgb3, g_w3, cd))):
                     rec[kname]["ms_fine_pass"] = _time_ms(torch, fn, reps=3)
+                    rec[kname]["tflops_fine_pass"] = (
+                        (3 if "bwd" in kname else 1) * mlp_flops(cfg, RAYS * 2 * SAMPLES)
+                        / rec[kname]["ms_fine_pass"] / 1e9)
                     rec[kname]["max_abs_err_s128"] = errs128[kname]
             for kname in RM_SOURCES:
                 rec[kname]["max_abs_err_s100"] = other[SAMPLES_RAGGED][2][kname]
+            if cd == torch.float32:  # f32 B7's backward at the fine pass's S = 128
+                rec["raymarch_comp_bwd"]["max_abs_err_s128"] = other[2 * SAMPLES][2][
+                    "raymarch_comp_bwd"]
             if cd == torch.float32:  # the eval render's forwards, S = 192
                 rd2, z2, errs192, _, _ = other[SAMPLES_EVAL]
                 for kname, fn in (
@@ -875,6 +936,14 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                     rec[kname]["ms_s192"] = _time_ms(torch, fn, reps=3)
                     rec[kname]["max_abs_err_s192"] = errs192[kname]
             kl.LAUNCHES.update(before)  # timing launches are not the main path's
+            # B7's bf16 forward and f32 backward on the tensor cores: their
+            # registers and spills beside their times.
+            sass = timings.get("sass", {})
+            for kname, key, kernel in (("raymarch_comp_fwd", "forwards", "rm_comp_fwd_mma_kernel"),
+                                       ("raymarch_comp_bwd", "f32_backwards",
+                                        "rm_comp_bwd_t32_kernel")):
+                if (kname == "raymarch_comp_fwd") == (cd == torch.bfloat16):
+                    rec[kname]["ptxas"] = sass.get(key, {}).get(kernel)
             timings["rm_" + name] = rec
             for kname, r in rec.items():
                 log(f"time {kname} {name} R={RAYS} S={SAMPLES} ({r['design']}): kernel "
@@ -883,8 +952,10 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                     f"{r['plain_ms']:.3f} ms, library (composition) {r['library_ms']:.3f} ms, "
                     f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                     + (f"; S={SAMPLES_EVAL}: {r['ms_s192']:.3f} ms" if "ms_s192" in r else "")
-                    + (f"; S={2 * SAMPLES}: {r['ms_fine_pass']:.3f} ms"
-                       if "ms_fine_pass" in r else ""))
+                    + (f"; S={2 * SAMPLES}: {r['ms_fine_pass']:.3f} ms "
+                       f"({r['tflops_fine_pass']:.1f} TFLOP/s)" if "ms_fine_pass" in r else "")
+                    + (f"; registers, spill bytes, SASS HMMA {r['ptxas']}" if "ptxas" in r
+                       else ""))
 
     # f32 B6 forward at widths beyond its 64 input columns (xyz L = 10: 63 +
     # 24 view-dir columns): its FMA design, on a ragged row count.
@@ -897,7 +968,7 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
 
     # Opaque rays: transmittance underflows to exactly 0, the B7 backward
     # stays finite (it is division-free) and agrees with its plain version; in
-    # f32 (the FMA kernel) and in bf16 (the tensor-core kernel).
+    # f32 (3xTF32) and in bf16, both on the tensor cores.
     cfg = mlp.MLPConfig(n_angles=0)
     params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
     params["sigma_out"]["bias"] = params["sigma_out"]["bias"] + 1e6
@@ -1963,24 +2034,30 @@ def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
 
 
 # The kernels whose products must run on the tensor cores, and the SASS
-# instruction they must hold: bf16 B1/B2/B6 on `mma.sync` (HMMA), f32 B1/B6
-# forward on `wgmma` (HGMMA).
+# instruction they must hold: bf16 B1/B2/B4-B7 and f32 B7's backward on
+# `mma.sync` (HMMA; tf32 for f32 B7), f32 B1/B6 forward on `wgmma` (HGMMA).
 MMA_KERNELS = {"mlp_fwd": {"mlp_fwd_mma_kernel": "HMMA", "mlp_fwd_tf32_kernel": "HGMMA"},
                "mlp_bwd": {"mlp_bwd_mma_kernel": "HMMA"},
                "raymarch_fwd": {"rm_fwd_mma_kernel": "HMMA", "rm_fwd_tf32_kernel": "HGMMA"},
                "raymarch_bwd": {"rm_bwd_mma_kernel": "HMMA"},
-               "raymarch_comp_bwd": {"rm_comp_bwd_mma_kernel": "HMMA"},
+               "raymarch_comp_fwd": {"rm_comp_fwd_mma_kernel": "HMMA"},
+               "raymarch_comp_bwd": {"rm_comp_bwd_mma_kernel": "HMMA",
+                                     "rm_comp_bwd_t32_kernel": "HMMA"},
                "mlp_loss_comp": {"mlp_loss_comp_mma_kernel": "HMMA"},
                "mlp_comp_fwd": {"mlp_comp_fwd_mma_kernel": "HMMA"},
                "mlp_comp_bwd": {"mlp_comp_bwd_mma_kernel": "HMMA"}}
 # The kernels on the tensor-core tiles whose registers, spills and SASS
-# counts the run prints side by side: the backwards (B2, B6, B7, B5, B4) and
-# B4's forward.
+# counts the run prints side by side: the bf16 backwards (B2, B6, B7, B5, B4),
+# the forwards of the ray-group loop (B4, B7) and f32 B7's backward.
 BWD_MMA_KERNELS = {"mlp_bwd": "mlp_bwd_mma_kernel", "raymarch_bwd": "rm_bwd_mma_kernel",
                    "raymarch_comp_bwd": "rm_comp_bwd_mma_kernel",
                    "mlp_loss_comp": "mlp_loss_comp_mma_kernel",
                    "mlp_comp_bwd": "mlp_comp_bwd_mma_kernel"}
-FWD_MMA_KERNELS = {"mlp_comp_fwd": "mlp_comp_fwd_mma_kernel"}
+FWD_MMA_KERNELS = {"mlp_comp_fwd": "mlp_comp_fwd_mma_kernel",
+                   "raymarch_comp_fwd": "rm_comp_fwd_mma_kernel"}
+T32_MMA_KERNELS = {"raymarch_comp_bwd": "rm_comp_bwd_t32_kernel"}
+REPORTED = (("backwards", BWD_MMA_KERNELS), ("forwards", FWD_MMA_KERNELS),
+            ("f32_backwards", T32_MMA_KERNELS))
 
 
 def tensor_core_report(kl, build_log: str) -> dict:
@@ -1994,7 +2071,7 @@ def tensor_core_report(kl, build_log: str) -> dict:
     import shutil
 
     block, entry, ptxas = None, None, {}
-    counted = {**BWD_MMA_KERNELS, **FWD_MMA_KERNELS}
+    counted = {(lib, k) for _, kernels in REPORTED for lib, k in kernels.items()}
     for line in build_log.splitlines():
         if line.startswith("--- "):
             block = line[4:].strip()
@@ -2002,13 +2079,15 @@ def tensor_core_report(kl, build_log: str) -> dict:
             log(f"  ptxas {block}: {line.strip()}")
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif block in counted and counted[block] in (entry or ""):
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m:
-                ptxas[block] = {"spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))}
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                ptxas.setdefault(block, {})["registers"] = int(m.group(1))
+            continue
+        for lib, k in counted:
+            if block == lib and k in (entry or ""):
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    ptxas[k] = {"spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))}
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    ptxas.setdefault(k, {})["registers"] = int(m.group(1))
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         log("SASS: cuobjdump not available, tensor-core instructions not counted")
@@ -2029,11 +2108,11 @@ def tensor_core_report(kl, build_log: str) -> dict:
             mma = {f: c for f, c in counts.items() if kernel in f}
             if not mma or not all(c[op] > 0 for c in mma.values()):
                 raise AssertionError(f"{lib}: no {op} instruction in {kernel}: {mma}")
-    for key, kernels in (("backwards", BWD_MMA_KERNELS), ("forwards", FWD_MMA_KERNELS)):
+    for key, kernels in REPORTED:
         report[key] = {}
         for lib, kernel in kernels.items():
             sass = next(c for f, c in report[lib].items() if kernel in f)
-            report[key][kernel] = {**ptxas.get(lib, {}), "HMMA": sass["HMMA"]}
+            report[key][kernel] = {**ptxas.get(kernel, {}), "HMMA": sass["HMMA"]}
         log(f"{key} on the tensor-core tiles (registers, spill bytes, SASS HMMA): "
             f"{report[key]}")
     return report
@@ -2122,7 +2201,7 @@ def main() -> int:
             **{k: v for k, v in r.items() if k in (
                 "rows", "rays", "samples", "ms_fine_pass", "max_abs_err_s128", "library", "design",
                 "tflops", "share_of_bound", "tflops_fine_pass", "max_abs_err_ragged", "ms_s64",
-                "max_abs_err_s100")},
+                "max_abs_err_s100", "ptxas")},
             "f32": timings[prefix + "float32"][kname],
         })
     for kname, (src, replaces) in PROBE_SOURCES.items():

@@ -3,15 +3,18 @@
 // libraries includes this header, so a wrapper sizes the scratch from the
 // library it launches and the two cannot disagree. bf16: the ray-group loop
 // of comp_mma_tile.cuh (whole rays in one 128-row tile, every tile's slots,
-// a BM-row f32 slab a block). f32: the FMA kernels (groups of about 64 rows,
-// no slab); the library defines how many 64-row chunks' slots its f32 kernel
-// keeps for a group (f32_chunks_kept).
+// a BM-row f32 slab a block). f32: groups of about 64 rows (the FMA kernels'
+// chunks, and the 64-row tiles of f32 B7's tensor-core loop); the library
+// defines how many 64-row chunks' slots its f32 kernel keeps for a group
+// (f32_chunks_kept) and the rows of its f32 slab (f32_slab_rows: B7's dx
+// rows, none for the FMA kernels of B5 and B4).
 #pragma once
 
 #include "comp_mma_tile.cuh"
 
 namespace nerf_comp {
 int f32_chunks_kept(int S);  // each library's own
+int f32_slab_rows();         // each library's own
 }  // namespace nerf_comp
 
 // Ray groups the kernel of the compute type walks, 0 where S is not a count
@@ -25,5 +28,7 @@ extern "C" long long nerf_comp_act_elems(int is_bf16, int S) {
                  : (long long)nerf_comp::f32_chunks_kept(S) * nerf_mlp::NACT * nerf_mlp::TM *
                        nerf_mlp::HMAX;
 }
-// Rows of a block's f32 slab (dx or dd rows); none for f32.
-extern "C" int nerf_comp_dx_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : 0; }
+// Rows of a block's f32 slab (dx or dd rows) for the compute type.
+extern "C" int nerf_comp_dx_rows(int is_bf16) {
+  return is_bf16 ? nerf_mma::BM : nerf_comp::f32_slab_rows();
+}

@@ -184,6 +184,7 @@ __global__ void __launch_bounds__(nerf_mma::NT, 1)
 
 // The f32 kernel keeps every 64-row chunk of a group (one forward per row).
 int nerf_comp::f32_chunks_kept(int S) { return chunks_per_group(S); }
+int nerf_comp::f32_slab_rows() { return 0; }
 
 static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd, const float* z,
                   int R, int S, const void* w, const void* wt, const float* b,

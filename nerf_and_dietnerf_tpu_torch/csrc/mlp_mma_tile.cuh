@@ -1,12 +1,13 @@
 // bf16 tensor-core device code of the radiance-MLP kernels B1 (mlp_fwd.cu)
 // and B2 (mlp_bwd.cu), which the ray-march kernels B6 (raymarch_fwd.cu,
-// raymarch_bwd.cu) run on the inputs they build and the compositing
-// backwards B7 (raymarch_comp_bwd.cu) and B5 (mlp_loss_comp.cu) run through
-// the ray-group loop of comp_mma_tile.cuh: the forward tile (B1, and B2's
-// recompute), the input-gradient chain G W^T and the weight-gradient
-// products A^T G. f32 B1 and B6 forward run mlp_tf32_tile.cuh; the other f32
-// instances and every other kernel keep the FMA tiles of mlp_common.cuh /
-// mlp_bwd_tile.cuh.
+// raymarch_bwd.cu) run on the inputs they build and the compositing kernels
+// B7 (raymarch_comp_fwd.cu, raymarch_comp_bwd.cu), B5 (mlp_loss_comp.cu) and
+// B4 (mlp_comp_fwd.cu, mlp_comp_bwd.cu) run through the ray-group loops of
+// comp_mma_tile.cuh: the forward tile (B1, and B2's recompute), the
+// input-gradient chain G W^T and the weight-gradient products A^T G. f32 B1
+// and B6 forward run mlp_tf32_tile.cuh (`wgmma`), f32 B7's backward the
+// 3xTF32 `mma.sync` tiles of mlp_tf32_mma_tile.cuh; the other f32 instances
+// keep the FMA tiles of mlp_common.cuh / mlp_bwd_tile.cuh.
 //
 // Products: `mma.sync.m16n8k16` bf16 x bf16 -> f32, as the P1 probe measured
 // on the H100 (probe_mma.cu), with operands fed by `ldmatrix`. Chosen over

@@ -1,0 +1,771 @@
+// f32 tensor-core device code of the MLP + compositing backwards: the forward
+// tile and the chain back of mlp_mma_tile.cuh at true-f32 accuracy, with
+// 3xTF32 `mma.sync.m16n8k8` products. f32 B7's backward (raymarch_comp_bwd.cu)
+// runs them through the ray-group loop of comp_mma_tile.cuh (Kit below). The
+// other f32 backwards (B2, B4, B5, B6) keep the FMA tiles of mlp_common.cuh /
+// mlp_bwd_tile.cuh; f32 B1 and B6's forward run mlp_tf32_tile.cuh (`wgmma`).
+//
+// What bounds it on an H100: operations. A row's backward is about 3 x 1.024
+// MFLOP at the flagship widths; true f32 on the tensor cores takes three TF32
+// products for each, at the 495 TFLOP/s TF32 peak: 4.88 ms per 262,144 rows.
+// Beside that, each 64-row tile reads and writes its block's weight-gradient
+// slab once (514,332 f32 entries at the flagship widths: about 4.1 MB a
+// tile): about 17 GB over the 4,096 tiles of 262,144 rows, 5 ms at the HBM
+// rate, a floor of its own that 128-row tiles would halve but cannot fit
+// (below).
+//
+// What the design does about that.
+// - Split: v = hi + lo with hi = rna_tf32(v), lo = rna_tf32(v - hi)
+//   (nerf_tf32::tf32_rna), for the activations, gradient tiles and inputs in
+//   registers, for the weights by the wrapper into hi / lo packs. Each
+//   product is lo.hi + hi.lo + hi.hi, small terms first. No raw f32 bits
+//   reach the tensor core (it would drop their 13 low bits).
+// - Accumulation: each 8-deep k-step's three products go into a fresh zero
+//   accumulator, which round-to-nearest f32 adds then add to the layer's sum
+//   (the FRESH rule of mlp_mma_tile.cuh's mma_step): the tensor core's own
+//   running sum, which truncates, never carries the sum. The narrow products
+//   (N <= 3 or K <= 3: the rgb / sigma heads, the output cotangent in their
+//   weight gradients, g W^T with K = 3 or 1) stay f32 FMAs, as in bf16.
+// - Tile: BM = 64 rows a block, 8 warps. A product's output (64 x Np) is cut
+//   into 2 row halves x 4 column groups: warp (wm, wn) owns rows 32 wm .. +32
+//   and the 8-column n-tiles wn, wn + 4, ..., wn + 28; its accumulators are 2
+//   m-tiles x 8 n-tiles x 4 = 64 floats.
+// - The weight-gradient products A^T G contract over the tile's rows, so both
+//   operands are read M-major; `ldmatrix.trans` has no 32-bit form. The
+//   fragments of `mma.sync` are per-thread registers, so A^T's and G's are
+//   read by 32-bit shared loads with the indices swapped: lane (g, t) reads
+//   A[row t][column g] for A^T as G[row t][column g] for G, with no transposed
+//   copy. The activation tiles (P, G, X, D) are f32 with row strides of 8
+//   (mod 32) floats, so those four rows x eight columns fall in 32 different
+//   banks; and column c of row r is stored at c ^ (r & 4) (sw), so the
+//   forward orientation's eight rows x four columns (g, t) fall in 32 banks
+//   too. A swizzle moves a column within its aligned group of 8, so the first
+//   8k columns of a row are the first 8k stored, whatever k.
+// - Weights: the wrapper packs every matrix W (K, N) of the 11 products
+//   (matrices 0..10) as the bf16 packs, pad8 instead of pad16: F holds W^T as
+//   (pad8(N), pad8(K)), B holds W as (pad8(K), pad8(N)), both "rows =
+//   outputs, columns = contraction", with the columns of every aligned group
+//   of 8 in the order 0 4 1 5 2 6 3 7: the two B-fragment registers of lane
+//   (g, t) (columns t and t + 4) are then one 8-byte load. Each pack comes
+//   twice, hi and lo; the flat f32 head matrices 11.. follow them
+//   (raymarch_cuda.t32_packs). A product streams its matrix in chunks of KC =
+//   8 contraction columns (hi and lo) through a two-stage ring with
+//   `cp.async`, the copy of the next chunk overlapping the products of this
+//   one.
+// - Shared memory (bytes): forward P 67,584 + X 18,432 + D 10,240 + ring
+//   32,768 + sigma 256 = 129,280; backward adds G 67,584 and the cotangent
+//   2,048: 198,912 of the 232,448 a block may use, which leaves room for the
+//   group's rows at S = MAX_S_COMP (comp_mma_tile.cuh: 217,348). 128-row f32
+//   tiles would need P and G at 135,168 bytes each: 270 KB, over the limit.
+// - Kept activations: NACT x 64 x 256 f32 (655,360 bytes) a tile, the same
+//   bytes as bf16's 128-row slots.
+#pragma once
+
+#include <stdint.h>
+
+#include "mlp_common.cuh"
+#include "mlp_mma_tile.cuh"
+#include "mlp_tf32_tile.cuh"
+
+namespace nerf_tmma {
+
+using nerf_mlp::Dims;
+using nerf_mlp::Layout;
+using nerf_mlp::N_TRUNK;
+using nerf_mlp::SKIP;
+using nerf_mlp::trunk_w;
+using nerf_mma::bwd_next;
+using nerf_mma::cp_async16;
+using nerf_mma::cp_async_commit;
+using nerf_mma::cp_async_wait_all;
+
+constexpr int BM = 64;           // rows per tile
+constexpr int NT = 256;          // threads per block
+constexpr int HPAD = 256;        // widest padded layer; rows of a ring stage
+constexpr int LDH = HPAD + 8;    // row stride of P and G (floats, = 8 mod 32)
+constexpr int LDX = 64 + 8;      // row stride of X (xyz <= 64)
+constexpr int LDD = 32 + 8;      // row stride of D (dir <= 32)
+constexpr int KC = 8;            // contraction columns of a streamed chunk
+constexpr int LDW = KC;          // row stride of a ring stage
+constexpr int STAGE = HPAD * LDW;  // floats of one pack's half of a stage
+constexpr int NSTAGE = 2;
+constexpr int NACT = 10;         // activation slots of the backward
+constexpr int SLOT = BM * HPAD;  // elements of one activation slot
+constexpr int N_PROD = 11;       // matrices 0..10 run on the tensor cores
+
+static_assert(LDH % 32 == 8 && LDX % 32 == 8 && LDD % 32 == 8,
+              "the transposed fragments' rows must fall in different banks");
+
+__host__ __device__ constexpr int pad8(int v) { return (v + 7) & ~7; }
+
+// Where column c of tile row r is stored.
+__device__ __forceinline__ int sw(int r, int c) { return c ^ (r & 4); }
+
+struct T32Layout {
+  int off[N_PROD];  // float offset of matrix i in either pack (hi or lo)
+  int kp[N_PROD];   // pad8(K)
+  int np[N_PROD];   // pad8(N)
+  int total;        // floats of one pack
+  int heads;        // float offset of the flat head matrices: after hi and lo
+};
+
+inline T32Layout make_t32_layout(const Layout& L) {
+  T32Layout T{};
+  for (int i = 0; i < N_PROD; ++i) {
+    T.kp[i] = pad8(L.wk[i]);
+    T.np[i] = pad8(L.wn[i]);
+    T.off[i] = T.total;
+    T.total += T.kp[i] * T.np[i];
+  }
+  T.heads = 2 * T.total;
+  return T;
+}
+
+// Head matrix i (11..) of a weight buffer, flat f32 (K, N) row-major.
+__device__ __forceinline__ const float* head(const float* W, const T32Layout& M, const Layout& L,
+                                             int i) {
+  return W + M.heads + (L.w[i] - L.w[11]);
+}
+
+// --------------------------------------------------------------------------
+// Products
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b at true f32 accuracy, one 8-deep k-step: lo.hi + hi.lo + hi.hi into
+// a fresh zero accumulator, then added to c with round-to-nearest adds.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], uint32_t bhi0, uint32_t bhi1,
+                                     uint32_t blo0, uint32_t blo1) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(p, alo, bhi0, bhi1);
+  mma_tf32(p, ahi, blo0, blo1);
+  mma_tf32(p, ahi, bhi0, bhi1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += p[e];
+}
+
+// v as hi + lo, both TF32.
+__device__ __forceinline__ void split1(float v, uint32_t& hi, uint32_t& lo) {
+  hi = nerf_tf32::tf32_rna(v);
+  lo = nerf_tf32::tf32_rna(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split1(v[i], hi[i], lo[i]);
+}
+
+// --------------------------------------------------------------------------
+// Accumulators. acc[mt][q][e] holds row 32 wm + 16 mt + g + 8 (e >> 1) and
+// column 8 (wn + 4 q) + 2 t + (e & 1), with warp = 2 wn + wm, g = lane / 4,
+// t = lane % 4 (the C fragment of mma.m16n8k8).
+typedef float Acc[2][8][4];
+
+__device__ __forceinline__ void zero_acc(Acc& acc) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][q][e] = 0.f;
+}
+
+struct Frag {
+  int wm, wn, g, t;
+  __device__ Frag() {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    wm = warp & 1; wn = warp >> 1; g = lane >> 2; t = lane & 3;
+  }
+  __device__ int row(int mt, int half) const { return 32 * wm + 16 * mt + g + 8 * half; }
+  __device__ int ntile(int q) const { return wn + 4 * q; }
+  __device__ int col(int q) const { return 8 * ntile(q) + 2 * t; }
+};
+
+// A packed matrix as a product reads it: `rows` outputs (<= HPAD) by `cols`
+// contraction columns (a multiple of 8), row-major, hi and lo.
+struct Mat {
+  const float* hi;
+  const float* lo;
+  int rows, cols;
+};
+
+__device__ __forceinline__ Mat fmat(const float* F, const T32Layout& M, int i) {
+  return Mat{F + M.off[i], F + M.total + M.off[i], M.np[i], M.kp[i]};
+}
+__device__ __forceinline__ Mat bmat(const float* Bp, const T32Layout& M, int i) {
+  return Mat{Bp + M.off[i], Bp + M.total + M.off[i], M.kp[i], M.np[i]};
+}
+
+// The weight ring: NSTAGE stages, each the hi and then the lo half of a chunk
+// (HPAD rows x KC columns). `stage` holds the chunk the next product
+// consumes first (issued, maybe not yet landed).
+struct Ring {
+  float* buf;
+  int stage;
+};
+
+__device__ __forceinline__ void issue_chunk(float* dst, const Mat& m, int k0) {
+  for (int i = threadIdx.x; i < m.rows * 4; i += NT) {
+    const int r = i >> 2, h = (i >> 1) & 1, v = i & 1;  // row, hi / lo, 16-byte half
+    const float* src = (h ? m.lo : m.hi) + (size_t)r * m.cols + k0 + 4 * v;
+    cp_async16(dst + h * STAGE + r * LDW + 4 * v, src);
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ void ring_start(Ring& ring, const Mat& m) {
+  issue_chunk(ring.buf + ring.stage * 2 * STAGE, m, 0);
+}
+
+// acc += A (64 x m.cols, row stride lda, swizzled) @ m^T, m streamed through
+// the ring. Expects m's first chunk issued into ring.stage; issues `next`'s
+// first chunk (if any) while it computes its last. Ends with a barrier, so
+// the caller may overwrite A afterwards.
+__device__ inline void mma_rows(Acc& acc, const float* A, int lda, const Mat& m, const Mat* next,
+                                Ring& ring) {
+  const Frag f;
+  const int n_tiles = m.rows / 8;
+  for (int k0 = 0; k0 < m.cols; k0 += KC) {
+    cp_async_wait_all();
+    __syncthreads();
+    const float* cur = ring.buf + ring.stage * 2 * STAGE;
+    float* nxt = ring.buf + (ring.stage ^ 1) * 2 * STAGE;
+    if (k0 + KC < m.cols) {
+      issue_chunk(nxt, m, k0 + KC);
+    } else if (next) {
+      issue_chunk(nxt, *next, 0);
+    }
+    uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int r = f.row(mt, 0);  // rows r and r + 8 share r & 4
+      const float* a0 = A + r * lda, *a1 = a0 + 8 * lda;
+      const float v[4] = {a0[sw(r, k0 + f.t)], a1[sw(r, k0 + f.t)], a0[sw(r, k0 + f.t + 4)],
+                          a1[sw(r, k0 + f.t + 4)]};
+      split4(v, ahi[mt], alo[mt]);
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (f.ntile(q) < n_tiles) {
+        const int b = (8 * f.ntile(q) + f.g) * LDW + 2 * f.t;
+        const float2 bh = *reinterpret_cast<const float2*>(cur + b);
+        const float2 bl = *reinterpret_cast<const float2*>(cur + STAGE + b);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma3(acc[mt][q], ahi[mt], alo[mt], __float_as_uint(bh.x), __float_as_uint(bh.y),
+               __float_as_uint(bl.x), __float_as_uint(bl.y));
+      }
+    }
+    ring.stage ^= 1;
+  }
+  __syncthreads();
+}
+
+// dst (K, N) row-major f32 (+)= A^T G over the tile's BM rows: A (BM x Kp,
+// stride lda), G (BM x Np, stride ldg), both swizzled f32 in shared memory.
+// The (Kp x Np) result is cut into 32 x 32 warp tiles dealt out to the
+// warps; each entry of dst is written by one thread. The fragments are read
+// transposed: a0 = A[r0 + t][k + g], b0 = G[r0 + t][n + g] (and their + 4 row
+// / + 8 column partners). The slab's old values are loaded before the
+// products, so their latency hides behind the mma.
+__device__ inline void mma_wgrad(float* __restrict__ dst, const float* A, int lda, int K,
+                                 const float* G, int ldg, int N, bool first) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int Kp = pad8(K), Np = pad8(N);
+  const int tiles_n = (Np + 31) / 32, tiles = ((Kp + 31) / 32) * tiles_n;
+  for (int wt = warp; wt < tiles; wt += NT / 32) {
+    const int m0 = (wt / tiles_n) * 32, n0 = (wt % tiles_n) * 32;
+    float c[2][4][4], old[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = m0 + 16 * mt + g + 8 * (e >> 1), n = n0 + 8 * nt + 2 * t + (e & 1);
+          c[mt][nt][e] = 0.f;
+          old[mt][nt][e] = !first && k < K && n < N ? dst[(size_t)k * N + n] : 0.f;
+        }
+    for (int r0 = 0; r0 < BM; r0 += 8) {
+      const int ra = r0 + t, rb = ra + 4;  // ra & 4 == 0, rb & 4 == 4
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (m0 + 16 * mt < Kp) {
+          const int k = m0 + 16 * mt + g;
+          const float v[4] = {A[ra * lda + sw(ra, k)], A[ra * lda + sw(ra, k + 8)],
+                              A[rb * lda + sw(rb, k)], A[rb * lda + sw(rb, k + 8)]};
+          split4(v, ahi[mt], alo[mt]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (n0 + 8 * nt < Np) {
+          const int n = n0 + 8 * nt + g;
+          uint32_t bhi0, blo0, bhi1, blo1;
+          split1(G[ra * ldg + sw(ra, n)], bhi0, blo0);
+          split1(G[rb * ldg + sw(rb, n)], bhi1, blo1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            if (m0 + 16 * mt < Kp) mma3(c[mt][nt], ahi[mt], alo[mt], bhi0, bhi1, blo0, blo1);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = m0 + 16 * mt + g + 8 * (e >> 1), n = n0 + 8 * nt + 2 * t + (e & 1);
+          if (k < K && n < N) dst[(size_t)k * N + n] = old[mt][nt][e] + c[mt][nt][e];
+        }
+  }
+}
+
+// dst (K, N) (+)= A^T C for a narrow f32 cotangent C (BM x N, row stride 8,
+// N <= 3): one entry per thread; four partial sums (rows r % 4 = 0..3) added
+// in a fixed order.
+__device__ inline void narrow_wgrad(float* __restrict__ dst, const float* A, int lda, int K,
+                                    const float* C, int N, bool first) {
+  for (int e = threadIdx.x; e < K * N; e += NT) {
+    const int k = e / N, j = e - k * N;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < BM; r += 4)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s[i] = fmaf(A[(r + i) * lda + sw(r + i, k)], C[(r + i) * 8 + j], s[i]);
+    const float v = (s[0] + s[1]) + (s[2] + s[3]);
+    dst[e] = first ? v : dst[e] + v;
+  }
+}
+
+// dst (N) (+)= column sums of a gradient tile / an f32 cotangent.
+__device__ inline void bgrad(float* __restrict__ dst, const float* G, int ldg, int N, bool first) {
+  for (int n = threadIdx.x; n < N; n += NT) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < BM; r += 4)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i] += G[(r + i) * ldg + sw(r + i, n)];
+    const float v = (s[0] + s[1]) + (s[2] + s[3]);
+    dst[n] = first ? v : dst[n] + v;
+  }
+}
+__device__ inline void narrow_bgrad(float* __restrict__ dst, const float* C, int N, bool first) {
+  for (int n = threadIdx.x; n < N; n += NT) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < BM; r += 4)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i] += C[(r + i) * 8 + n];
+    const float v = (s[0] + s[1]) + (s[2] + s[3]);
+    dst[n] = first ? v : dst[n] + v;
+  }
+}
+
+// --------------------------------------------------------------------------
+// Tiles
+
+struct Tiles {
+  float* P;     // activations (BM x LDH)
+  float* G;     // gradients (BM x LDH), backward only
+  float* X;     // encoded xyz (BM x LDX)
+  float* D;     // encoded view dirs (BM x LDD)
+  float* ring;  // NSTAGE x 2 x STAGE
+  float* sig;   // sigma of each row (BM), forward output
+  float* GI;    // output cotangent (BM x 8): grgb | gsig | gsig, backward only
+};
+
+constexpr size_t fwd_smem_bytes() {
+  return 4 * ((size_t)BM * LDH + BM * LDX + BM * LDD + NSTAGE * 2 * STAGE + BM);
+}
+constexpr size_t bwd_smem_bytes() { return fwd_smem_bytes() + 4 * ((size_t)BM * LDH + BM * 8); }
+static_assert(fwd_smem_bytes() == 129280 && bwd_smem_bytes() == 198912,
+              "the shared-memory budget of the header comment");
+
+__device__ inline Tiles make_tiles(void* smem, bool backward) {
+  Tiles t;
+  t.P = static_cast<float*>(smem);
+  t.X = t.P + BM * LDH;
+  t.D = t.X + BM * LDX;
+  t.ring = t.D + BM * LDD;
+  t.G = t.ring + NSTAGE * 2 * STAGE;
+  t.sig = backward ? t.G + BM * LDH : t.G;
+  t.GI = t.sig + BM;
+  if (!backward) t.G = nullptr;
+  return t;
+}
+
+// GI from the (n, 4) f32 cotangent; rows past n are zero.
+__device__ inline void load_cotangent(float* GI, const float* __restrict__ g, int row0, int n) {
+  for (int i = threadIdx.x; i < BM * 4; i += NT) {
+    const int r = i >> 2, c = i & 3;
+    const float v = row0 + r < n ? g[(size_t)(row0 + r) * 4 + c] : 0.f;
+    GI[r * 8 + c] = v;
+    if (c == 3) GI[r * 8 + 4] = v;
+  }
+}
+
+// The first `width` (a multiple of 8) columns of P to / from an activation
+// slot (BM x HPAD) in global memory, 16 bytes a copy, as stored (swizzled).
+__device__ inline void store_slot(float* __restrict__ slot, const float* P, int width) {
+  const int vecs = width / 4;
+  for (int i = threadIdx.x; i < BM * vecs; i += NT) {
+    const int r = i / vecs, v = i - r * vecs;
+    *reinterpret_cast<float4*>(slot + r * HPAD + v * 4) =
+        *reinterpret_cast<const float4*>(P + r * LDH + v * 4);
+  }
+}
+// Ends with every copy landed and a barrier.
+__device__ inline void load_slot(float* P, const float* __restrict__ slot, int width) {
+  const int vecs = width / 4;
+  for (int i = threadIdx.x; i < BM * vecs; i += NT) {
+    const int r = i / vecs, v = i - r * vecs;
+    cp_async16(P + r * LDH + v * 4, slot + r * HPAD + v * 4);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// P = leaky(acc + bias) in f32 over the product's np (padded) columns; the
+// pad columns get bias 0 and hold 0.
+__device__ __forceinline__ void store_leaky(const Acc& acc, const float* __restrict__ bias, int N,
+                                            int np, float alpha, float* P) {
+  const Frag f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int n = f.col(q);
+    if (n >= np) continue;
+    const float b0 = n < N ? bias[n] : 0.f, b1 = n + 1 < N ? bias[n + 1] : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = f.row(mt, half);
+        float v0 = acc[mt][q][2 * half] + b0, v1 = acc[mt][q][2 * half + 1] + b1;
+        v0 = v0 >= 0.f ? v0 : alpha * v0;
+        v1 = v1 >= 0.f ? v1 : alpha * v1;
+        *reinterpret_cast<float2*>(P + r * LDH + sw(r, n)) = make_float2(v0, v1);
+      }
+  }
+}
+
+// G = leaky'(post) * acc for the np columns (0 past N), in f32 (the head's
+// chain and the trunk's are the same without roundings).
+__device__ __forceinline__ void grad_tile(const Acc& acc, const float* post, int N, int np,
+                                          float alpha, float* G) {
+  const Frag f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int n = f.col(q);
+    if (n >= np) continue;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = f.row(mt, half);
+        const float2 p = *reinterpret_cast<const float2*>(post + r * LDH + sw(r, n));
+        float v0 = acc[mt][q][2 * half], v1 = acc[mt][q][2 * half + 1];
+        v0 = p.x >= 0.f ? v0 : alpha * v0;
+        v1 = p.y >= 0.f ? v1 : alpha * v1;
+        if (n >= N) v0 = 0.f;
+        if (n + 1 >= N) v1 = 0.f;
+        *reinterpret_cast<float2*>(G + r * LDH + sw(r, n)) = make_float2(v0, v1);
+      }
+  }
+}
+
+// acc += c[r] w[n] for n < N: a K = 1 product (c = GI column 4, w a flat f32
+// head column).
+__device__ __forceinline__ void add_rank1(Acc& acc, const float* GI, const float* __restrict__ w,
+                                          int N) {
+  const Frag f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = f.col(q) + e;
+      if (n >= N) continue;
+      const float wn = w[n];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          acc[mt][q][2 * half + e] =
+              fmaf(GI[f.row(mt, half) * 8 + 4], wn, acc[mt][q][2 * half + e]);
+    }
+}
+
+// Global (n, N) f32 rows [row0, row0 + BM) = acc (+ their old value, if add);
+// rows past n and columns past N are not written.
+__device__ __forceinline__ void store_rows(const Acc& acc, float* __restrict__ dst, int N,
+                                          int row0, int n_rows, bool add) {
+  const Frag f;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row0 + f.row(mt, half);
+      if (r >= n_rows) continue;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = f.col(q) + e;
+          if (c < N) {
+            float* p = dst + (size_t)r * N + c;
+            const float v = acc[mt][q][2 * half + e];
+            *p = add ? v + *p : v;
+          }
+        }
+    }
+}
+
+// --------------------------------------------------------------------------
+// Forward tile
+
+// The whole network on one row tile whose X and D are built (and a barrier
+// passed) and whose first chunk (F pack, matrix 0) is issued into the ring,
+// as nerf_mma::forward_tile: with `keep`, post-activations go to its NACT
+// slots; with `out`, the (n, 4) raw rows are written. The narrow heads are f32
+// FMAs, four threads a row, each over every fourth column.
+__device__ inline void forward_tile(const Dims& dm, const Layout& L, const T32Layout& M,
+                                    const float* __restrict__ F, const float* __restrict__ B,
+                                    const Tiles& t, Ring& ring, float* keep, float* out, int row0,
+                                    const Mat* after) {
+  const float alpha = dm.alpha;
+  Acc acc;
+  for (int l = 0; l < N_TRUNK; ++l) {
+    const int i = trunk_w(l);
+    zero_acc(acc);
+    if (l == SKIP) {
+      const Mat nx = fmat(F, M, SKIP + 1);
+      mma_rows(acc, t.X, LDX, fmat(F, M, SKIP), &nx, ring);
+    }
+    const Mat nx = fmat(F, M, i + 1);
+    mma_rows(acc, l == 0 ? t.X : t.P, l == 0 ? LDX : LDH, fmat(F, M, i), &nx, ring);
+    store_leaky(acc, B + L.b[l], dm.hid, M.np[i], alpha, t.P);
+    __syncthreads();
+    if (keep) store_slot(keep + l * SLOT, t.P, M.np[i]);
+  }
+  const int tid = threadIdx.x, r = tid >> 2, qd = tid & 3;
+  if (out) {  // sigma from h8, before the rgb branch overwrites it
+    const float* wh = head(F, M, L, 12);
+    float sh = 0.f, sd = 0.f;
+    for (int k = qd; k < dm.hid; k += 4) sh = fmaf(t.P[r * LDH + sw(r, k)], wh[k], sh);
+    if (dm.has_dir) {
+      const float* wd = head(F, M, L, 13);
+      for (int k = qd; k < dm.dir; k += 4) sd = fmaf(t.D[r * LDD + sw(r, k)], wd[k], sd);
+    }
+    sh += __shfl_xor_sync(0xffffffffu, sh, 1);
+    sh += __shfl_xor_sync(0xffffffffu, sh, 2);
+    sd += __shfl_xor_sync(0xffffffffu, sd, 1);
+    sd += __shfl_xor_sync(0xffffffffu, sd, 2);
+    if (qd == 0) t.sig[r] = dm.has_dir ? (sh + sd) + B[L.b[10]] : sh + B[L.b[11]];
+  }
+  zero_acc(acc);
+  if (dm.has_dir) {
+    const Mat nx = fmat(F, M, 10);
+    mma_rows(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
+    mma_rows(acc, t.D, LDD, fmat(F, M, 10), after, ring);
+    store_leaky(acc, B + L.b[8], dm.last, M.np[9], alpha, t.P);
+    __syncthreads();
+    if (keep) store_slot(keep + 8 * SLOT, t.P, M.np[9]);
+  } else {
+    const Mat nx = fmat(F, M, 10);
+    mma_rows(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
+    store_leaky(acc, B + L.b[8], dm.hid, M.np[9], alpha, t.P);
+    __syncthreads();
+    if (keep) store_slot(keep + 8 * SLOT, t.P, M.np[9]);
+    zero_acc(acc);
+    mma_rows(acc, t.P, LDH, fmat(F, M, 10), after, ring);
+    store_leaky(acc, B + L.b[9], dm.last, M.np[10], alpha, t.P);
+    __syncthreads();
+    if (keep) store_slot(keep + 9 * SLOT, t.P, M.np[10]);
+  }
+  if (out) {  // rgb = rgb_h @ Wro + bro
+    const float* wo = head(F, M, L, 11);
+    float s[3] = {0.f, 0.f, 0.f};
+    for (int k = qd; k < dm.last; k += 4) {
+      const float a = t.P[r * LDH + sw(r, k)];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) s[j] = fmaf(a, wo[k * 3 + j], s[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      s[j] += __shfl_xor_sync(0xffffffffu, s[j], 1);
+      s[j] += __shfl_xor_sync(0xffffffffu, s[j], 2);
+    }
+    if (qd == 0 && row0 + r < dm.n) {
+      const float* bo = B + L.b[dm.has_dir ? 9 : 10];
+      float* o = out + (size_t)(row0 + r) * 4;
+      o[0] = s[0] + bo[0];
+      o[1] = s[1] + bo[1];
+      o[2] = s[2] + bo[2];
+      o[3] = t.sig[r];
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// Backward tile
+
+// The chain back over one tile, as nerf_mma::backward_walk (the same order of
+// products and of the ring's matrices), in f32: with X, D and GI loaded, P
+// holding the rgb branch's last post-activation, a barrier passed and the B
+// pack's matrix 10 (`b10`) issued into the ring. Weight and bias gradients go
+// to the block's slab `part`; dx and dd rows to global memory (dd where
+// given).
+__device__ inline void backward_walk(const Dims& dm, const Layout& L, const T32Layout& M,
+                                     const float* __restrict__ Bp, const Tiles& t, Ring& ring,
+                                     const float* acts, float* part, bool first, int row0,
+                                     float* dx, float* dd, const Mat* after, const Mat& b10) {
+  const float alpha = dm.alpha;
+  const int HP = pad8(dm.hid), LP = pad8(dm.last);
+  float* pb = part + L.total_w;
+
+  // rgb_out (last, 3): its weight and bias gradients, then g_rgb_h =
+  // leaky'(rgb_h) (grgb @ Wro^T) with K = 3 in f32.
+  narrow_wgrad(part + L.w[11], t.P, LDH, dm.last, t.GI, 3, first);
+  narrow_bgrad(pb + L.b[dm.has_dir ? 9 : 10], t.GI, 3, first);
+  {
+    const float* wo = head(Bp, M, L, 11);
+    for (int i = threadIdx.x; i < BM * LP; i += NT) {
+      const int r = i / LP, n = i - r * LP;
+      float v = 0.f;
+      if (n < dm.last) {
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) s = fmaf(t.GI[r * 8 + j], wo[n * 3 + j], s);
+        v = t.P[r * LDH + sw(r, n)] >= 0.f ? s : alpha * s;
+      }
+      t.G[r * LDH + sw(r, n)] = v;
+    }
+  }
+  __syncthreads();
+
+  Acc acc;
+  if (dm.has_dir) {
+    load_slot(t.P, acts + 7 * SLOT, HP);  // h8
+    mma_wgrad(part + L.w[9], t.P, LDH, dm.hid, t.G, LDH, dm.last, first);
+    mma_wgrad(part + L.w[10], t.D, LDD, dm.dir, t.G, LDH, dm.last, first);
+    bgrad(pb + L.b[8], t.G, LDH, dm.last, first);
+    narrow_wgrad(part + L.w[12], t.P, LDH, dm.hid, t.GI + 3, 1, first);
+    narrow_wgrad(part + L.w[13], t.D, LDD, dm.dir, t.GI + 3, 1, first);
+    narrow_bgrad(pb + L.b[10], t.GI + 3, 1, first);
+    // dd = g_rgb_h @ Wrh_d^T + gsig @ Wsig_d^T
+    const Mat b9 = bmat(Bp, M, 9), b8 = bmat(Bp, M, 8);
+    zero_acc(acc);
+    mma_rows(acc, t.G, LDH, b10, &b9, ring);
+    add_rank1(acc, t.GI, head(Bp, M, L, 13), dm.dir);
+    if (dd) store_rows(acc, dd, dm.dir, row0, dm.n, false);
+    // g_h8 = g_rgb_h @ Wrh_h^T + gsig @ Wsig_h^T
+    zero_acc(acc);
+    mma_rows(acc, t.G, LDH, b9, &b8, ring);
+    add_rank1(acc, t.GI, head(Bp, M, L, 12), dm.hid);
+  } else {
+    load_slot(t.P, acts + 8 * SLOT, HP);  // r0
+    mma_wgrad(part + L.w[10], t.P, LDH, dm.hid, t.G, LDH, dm.last, first);
+    bgrad(pb + L.b[9], t.G, LDH, dm.last, first);
+    const Mat b9 = bmat(Bp, M, 9), b8 = bmat(Bp, M, 8);
+    zero_acc(acc);
+    mma_rows(acc, t.G, LDH, b10, &b9, ring);
+    grad_tile(acc, t.P, dm.hid, HP, alpha, t.G);  // g_r0
+    __syncthreads();
+    load_slot(t.P, acts + 7 * SLOT, HP);  // h8
+    mma_wgrad(part + L.w[9], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
+    bgrad(pb + L.b[8], t.G, LDH, dm.hid, first);
+    narrow_wgrad(part + L.w[12], t.P, LDH, dm.hid, t.GI + 3, 1, first);
+    narrow_bgrad(pb + L.b[11], t.GI + 3, 1, first);
+    // g_h8 = g_r0 @ Wrh0^T + gsig @ Wsig^T
+    zero_acc(acc);
+    mma_rows(acc, t.G, LDH, b9, &b8, ring);
+    add_rank1(acc, t.GI, head(Bp, M, L, 12), dm.hid);
+  }
+
+  // Trunk, reversed; acc holds the gradient of layer l's output and P its
+  // post-activation.
+  for (int l = N_TRUNK - 1; l >= 0; --l) {
+    grad_tile(acc, t.P, dm.hid, HP, alpha, t.G);
+    __syncthreads();
+    if (l > 0) load_slot(t.P, acts + (l - 1) * SLOT, HP);
+    bgrad(pb + L.b[l], t.G, LDH, dm.hid, first);
+    const int i = trunk_w(l);
+    if (l == SKIP) {
+      mma_wgrad(part + L.w[SKIP], t.X, LDX, dm.xyz, t.G, LDH, dm.hid, first);
+      mma_wgrad(part + L.w[SKIP + 1], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
+      // The skip layer's share of dx goes to dx now; layer 0 adds its own.
+      const Mat b5 = bmat(Bp, M, SKIP + 1), b3 = bmat(Bp, M, SKIP - 1);
+      zero_acc(acc);
+      mma_rows(acc, t.G, LDH, bmat(Bp, M, SKIP), &b5, ring);
+      store_rows(acc, dx, dm.xyz, row0, dm.n, false);
+      zero_acc(acc);
+      mma_rows(acc, t.G, LDH, b5, &b3, ring);
+    } else if (l > 0) {
+      mma_wgrad(part + L.w[i], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
+      const Mat nx = bmat(Bp, M, bwd_next(i));
+      zero_acc(acc);
+      mma_rows(acc, t.G, LDH, bmat(Bp, M, i), &nx, ring);
+    } else {
+      mma_wgrad(part + L.w[0], t.X, LDX, dm.xyz, t.G, LDH, dm.hid, first);
+      zero_acc(acc);
+      mma_rows(acc, t.G, LDH, bmat(Bp, M, 0), after, ring);
+      store_rows(acc, dx, dm.xyz, row0, dm.n, true);
+    }
+  }
+}
+
+// The tile code of the ray-group loops (comp_mma_tile.cuh) on these tiles.
+struct Kit {
+  using E = float;  // element of the tiles and of the kept slots
+  using Pack = T32Layout;
+  using Tiles = nerf_tmma::Tiles;
+  using Ring = nerf_tmma::Ring;
+  using Mat = nerf_tmma::Mat;
+  static constexpr int BM = nerf_tmma::BM;
+  static constexpr int LDX = nerf_tmma::LDX;
+  static constexpr long long TILE_SLOTS = (long long)NACT * SLOT;
+  static constexpr size_t fwd_smem_bytes() { return nerf_tmma::fwd_smem_bytes(); }
+  static constexpr size_t bwd_smem_bytes() { return nerf_tmma::bwd_smem_bytes(); }
+  static __host__ __device__ constexpr int pad(int v) { return pad8(v); }
+  static __device__ Tiles tiles(void* smem, bool backward) { return make_tiles(smem, backward); }
+  static __device__ Mat fmat(const E* F, const Pack& M, int i) { return nerf_tmma::fmat(F, M, i); }
+  static __device__ Mat bmat(const E* Bp, const Pack& M, int i) {
+    return nerf_tmma::bmat(Bp, M, i);
+  }
+  static __device__ void ring_start(Ring& r, const Mat& m) { nerf_tmma::ring_start(r, m); }
+  static __device__ void load_slot(E* P, const E* slot, int width) {
+    nerf_tmma::load_slot(P, slot, width);
+  }
+  static __device__ void load_cotangent(float* GI, const float* g, int row0, int n) {
+    nerf_tmma::load_cotangent(GI, g, row0, n);
+  }
+  static __device__ void forward_tile(const Dims& dm, const Layout& L, const Pack& M, const E* F,
+                                      const float* B, const Tiles& t, Ring& ring, E* keep,
+                                      float* out, int row0, const Mat* after) {
+    nerf_tmma::forward_tile(dm, L, M, F, B, t, ring, keep, out, row0, after);
+  }
+  static __device__ void backward_walk(const Dims& dm, const Layout& L, const Pack& M,
+                                       const E* Bp, const Tiles& t, Ring& ring, const E* acts,
+                                       float* part, bool first, int row0, float* dx, float* dd,
+                                       const Mat* after, const Mat& b10) {
+    nerf_tmma::backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);
+  }
+};
+
+}  // namespace nerf_tmma
+
+// Floats of each pack (hi, lo) of the f32 tensor-core backward (the wrapper
+// checks its packs against it).
+extern "C" long long nerf_mlp_t32_pack_elems(int has_dir, int xyz, int dir, int hid, int last) {
+  const nerf_mlp::Dims dm{0, xyz, dir, hid, last, has_dir, 0.f};
+  return nerf_tmma::make_t32_layout(nerf_mlp::make_layout(dm)).total;
+}

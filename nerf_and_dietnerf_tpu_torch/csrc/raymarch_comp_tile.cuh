@@ -1,0 +1,57 @@
+// The inputs of B7's ray-group loops (raymarch_comp_fwd.cu, raymarch_comp_bwd.cu
+// on comp_mma_tile.cuh): each row's features built straight into the operand
+// tiles of the kit the loop runs, as B6 builds them (raymarch_tile.cuh), so
+// the (R S, xyz) and (R S, dir) encodings never reach device memory. The
+// forward and the backward share them, so the two build the same tiles.
+#pragma once
+
+#include "comp_mma_tile.cuh"
+#include "mlp_tf32_mma_tile.cuh"
+#include "raymarch_tile.cuh"
+
+static_assert(nerf_cmma::max_smem_bytes<nerf_tmma::Kit>() ==
+                      nerf_cmma::smem_bytes<nerf_tmma::Kit>(nerf_comp::MAX_S_COMP) &&
+                  nerf_cmma::smem_bytes<nerf_tmma::Kit>(nerf_comp::MAX_S_COMP) == 217348 &&
+                  nerf_cmma::smem_bytes<nerf_tmma::Kit>(64) == 201220,
+              "the group's rows beside the f32 backward tiles (comp_mma_tile.cuh)");
+
+namespace nerf_rm {
+
+// The f32 tiles X (BM x LDX) and D (BM x LDD) of mlp_tf32_mma_tile.cuh for
+// rows [row0, row0 + BM), one thread per (row, column), stored swizzled (sw):
+// columns [width, pad16(width)) and rows at or past n are zero (the
+// weight-gradient products read up to pad16 columns).
+__device__ inline void build_t32_inputs(const Rays& ry, int xyz, int dir, int row0, int n,
+                                        float* X, float* D) {
+  namespace tm = nerf_tmma;
+  const int xp = nerf_mma::pad16(xyz);
+  for (int i = threadIdx.x; i < tm::BM * xp; i += tm::NT) {
+    const int r = i / xp, c = i - r * xp, row = row0 + r;
+    X[r * tm::LDX + tm::sw(r, c)] = row < n && c < xyz ? xyz_feature(ry, row, c) : 0.f;
+  }
+  if (ry.D == 0) return;
+  const int dp = nerf_mma::pad16(dir);
+  for (int i = threadIdx.x; i < tm::BM * dp; i += tm::NT) {
+    const int r = i / dp, c = i - r * dp, row = row0 + r;
+    D[r * tm::LDD + tm::sw(r, c)] = row < n && c < dir ? dir_feature(ry, row, c) : 0.f;
+  }
+}
+
+// The `inputs` of B7's policies: the group's rows [r0, r0 + BM) of the rays,
+// in the tiles of either kit (bf16: build_mma_inputs; f32: build_t32_inputs).
+struct RayGroupInputs {
+  Rays ry;
+  int xyz, dir;
+
+  __device__ void inputs(const nerf_cmma::Group& g, int r0, nerf_mma::bf16* X,
+                         nerf_mma::bf16* D) const {
+    const int grow0 = g.ray0 * ry.S;
+    build_mma_inputs(ry, xyz, dir, grow0 + r0, grow0 + g.rows, X, D);
+  }
+  __device__ void inputs(const nerf_cmma::Group& g, int r0, float* X, float* D) const {
+    const int grow0 = g.ray0 * ry.S;
+    build_t32_inputs(ry, xyz, dir, grow0 + r0, grow0 + g.rows, X, D);
+  }
+};
+
+}  // namespace nerf_rm

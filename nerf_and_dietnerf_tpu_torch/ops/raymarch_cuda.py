@@ -12,7 +12,9 @@ weights from two packs that :func:`pack_mma_weights` builds once per call
 (``csrc/mlp_mma_tile.cuh``). In f32, B1 runs 3xTF32 products on the tensor
 cores and reads the hi / lo weight packs of :func:`tf32_weights`
 (``csrc/mlp_tf32_tile.cuh``); f32 B2 reads the flat weights and their
-transposes of :func:`flatten_params`.
+transposes of :func:`flatten_params`. The f32 backward of B7
+(``ops/research_kernels_cuda``) runs 3xTF32 on ``mma.sync`` and reads the
+hi / lo F and B buffers of :func:`t32_packs` (``csrc/mlp_tf32_mma_tile.cuh``).
 
 Beside each kernel is its plain PyTorch version (:func:`mlp_fwd_plain`,
 :func:`mlp_bwd_plain`), which repeats the kernel's arithmetic: operands
@@ -215,11 +217,13 @@ def _npad(n: int) -> int:
     return 64 if n <= 64 else 128 if n <= 128 else 256
 
 
-def _tf32_layout_of(shapes) -> Tuple[List[Tuple[int, int, int]], int]:
+def _tf32_layout_of(shapes, pad_n=_npad) -> Tuple[List[Tuple[int, int, int]], int]:
+    """``(offset, pad8(K), pad_n(N))`` of the 11 product matrices, and the
+    floats of a pack."""
     layout, off = [], 0
     for k, n in shapes[:N_TF32_PRODUCTS]:
-        layout.append((off, _pad8(k), _npad(n)))
-        off += _pad8(k) * _npad(n)
+        layout.append((off, _pad8(k), pad_n(n)))
+        off += _pad8(k) * pad_n(n)
     return layout, off
 
 
@@ -280,11 +284,68 @@ def tf32_weights(ws, config: MLPConfig) -> torch.Tensor:
     return torch.cat([hi, lo, flat(ws[N_TF32_PRODUCTS:])])
 
 
+# --------------------------------------------------------------------------- #
+# Weight buffers of the f32 tensor-core backward (csrc/mlp_tf32_mma_tile.cuh)  #
+# --------------------------------------------------------------------------- #
+
+def t32_layout(config: MLPConfig) -> Tuple[List[Tuple[int, int, int]], int]:
+    """``(offset, pad8(K), pad8(N))`` of each of the 11 product matrices in
+    each pack of the f32 tensor-core backward, and the floats of a pack."""
+    return _tf32_layout_of(weight_shapes(config)[0], _pad8)
+
+
+def t32_column_position(c: torch.Tensor) -> torch.Tensor:
+    """Where a pack row of the f32 tensor-core backward stores its column
+    ``c``: every aligned group of 8 in the order 0 4 1 5 2 6 3 7, so the
+    columns t and t + 4 that one lane of ``mma.m16n8k8`` reads lie side by
+    side."""
+    return (c // 8) * 8 + 2 * (c % 4) + (c % 8) // 4
+
+
+@functools.lru_cache(maxsize=None)
+def _t32_index(shapes, device):
+    """For the F pack, then the B pack, of the f32 tensor-core backward, the
+    index of each entry in ``flat(ws[:11])`` followed by one zero (every pad
+    points at that zero), and that zero, both on ``device``."""
+    layout, total = _tf32_layout_of(shapes, _pad8)
+    pad = sum(k * n for k, n in shapes[:N_TF32_PRODUCTS])
+    parts = []
+    for kind in ("f", "b"):
+        idx = torch.full((total,), pad, dtype=torch.long)
+        src = 0
+        for (k, n), (off, kp, np_) in zip(shapes, layout):
+            w = torch.arange(src, src + k * n).view(k, n)
+            block = idx[off:off + kp * np_]
+            if kind == "f":
+                block.view(np_, kp)[:n][:, t32_column_position(torch.arange(k))] = w.t()
+            else:
+                block.view(kp, np_)[:k][:, t32_column_position(torch.arange(n))] = w
+            src += k * n
+        parts.append(idx)
+    return torch.cat(parts).to(device), torch.zeros(1, dtype=torch.float32, device=device)
+
+
+def t32_packs(ws, config: MLPConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 tensor-core backward's two weight buffers, F and B (W^T as
+    ``(pad8(N), pad8(K))`` and W as ``(pad8(K), pad8(N))`` for each of the 11
+    product matrices, zero pads, columns in :func:`t32_column_position`'s
+    order; one gather through a cached index), each as its hi pack, its lo
+    pack (:func:`split_tf32`), then the head matrices 11.. flat, f32."""
+    shapes = tuple(weight_shapes(config)[0])
+    idx, zero = _t32_index(shapes, ws[0].device)
+    heads = flat(ws[N_TF32_PRODUCTS:])
+    total = _tf32_layout_of(shapes, _pad8)[1]
+    f, b = flat(list(ws[:N_TF32_PRODUCTS]) + [zero])[idx].split(total)
+    return tuple(torch.cat([*split_tf32(p), heads]) for p in (f, b))
+
+
 def _weights_for(lib: ctypes.CDLL, ws, config: MLPConfig, cd, kinds):
     """The weight buffers a B1/B2 library reads: the packs ``kinds`` in bf16
     (their size checked against the library's), the flat weights (and their
-    transposes) in f32, or for ``kinds == ("t",)`` (f32 B1) the TF32 buffer
-    of :func:`tf32_weights` (its pack size checked against the library's)."""
+    transposes) in f32, for ``kinds == ("t",)`` (f32 B1) the TF32 buffer of
+    :func:`tf32_weights`, or for ``kinds == ("tf", "tb")`` (f32 B7 backward)
+    the F and B buffers of :func:`t32_packs` (their pack sizes checked
+    against the library's)."""
     has_dir = int(config.uses_view_dirs)
     dims = (has_dir, config.xyz_dim, config.dir_dim if has_dir else 0, config.hidden_dim,
             config.last_hidden_dim)
@@ -292,6 +353,10 @@ def _weights_for(lib: ctypes.CDLL, ws, config: MLPConfig, cd, kinds):
         if tf32_layout(config)[1] != lib.nerf_mlp_tf32_pack_elems(*dims):
             raise RuntimeError("kernel and wrapper disagree on the TF32 weight-pack layout")
         return [tf32_weights(ws, config)]
+    if kinds == ("tf", "tb"):
+        if t32_layout(config)[1] != lib.nerf_mlp_t32_pack_elems(*dims):
+            raise RuntimeError("kernel and wrapper disagree on the f32 backward's pack layout")
+        return list(t32_packs(ws, config))
     if cd != torch.bfloat16:
         return [flat(ws) if k == "f" else flat([w.t() for w in ws]) for k in kinds]
     packs = _packs(ws, config, kinds)

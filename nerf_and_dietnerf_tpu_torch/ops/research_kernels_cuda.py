@@ -14,10 +14,14 @@ Port of ``nerf_and_dietnerf_tpu/ops/research_kernels.py``. The
 - B7 (``_forward_rays_comp_pallas`` / ``_backward_rays_comp_pallas``,
   ``apply_raymarch_composited``): B6 followed by alpha compositing, ``(rgb
   (R, 3), weights (R, S))`` out; its backward takes cotangents on both. The
-  bf16 backward runs the ray-group loop of ``csrc/comp_mma_tile.cuh`` on the
-  tensor-core tiles (one forward per row), reading the F and B packs; the
-  forward and the f32 backward keep the FMA tiles. Its backward can return
-  the raw values it composited (``raw=``, both types).
+  bf16 forward and backward run the ray-group loops of
+  ``csrc/comp_mma_tile.cuh`` on the bf16 tensor-core tiles (one forward per
+  row), reading the F pack (forward) or the F and B packs (backward); the
+  f32 backward runs the same loop on the 3xTF32 ``mma.sync`` tiles of
+  ``csrc/mlp_tf32_mma_tile.cuh``, reading the hi / lo buffers of
+  ``raymarch_cuda.t32_packs``; the f32 forward keeps the FMA tile. Both bf16
+  kernels and the f32 backward can return the raw values they composited
+  (``raw=``).
 
 Both backwards give the rays, directions and view components structural-zero
 cotangents, as the JAX package does: training differentiates the parameters
@@ -203,11 +207,13 @@ def _raw_plain(ws, bs, config: MLPConfig, x, d, z, cd, work, raw_sigma=None):
 
 
 def raymarch_comp_fwd_plain(ws, bs, config: MLPConfig, rd, z, compute_dtype,
-                            work=torch.float32):
+                            work=torch.float32, raw_sigma=None):
     """Plain version of B7's forward: ``(rgb (R, 3), weights (R, S))``; the
-    MLP's products and sums in ``work`` (:func:`_raw_plain`)."""
+    MLP's products and sums in ``work``, the compositing's kink on
+    ``raw_sigma``'s side (:func:`_raw_plain`)."""
     _, x, d = _mlp_inputs(config, rd, z, compute_dtype)
-    res = rendering.composite(_raw_plain(ws, bs, config, x, d, z, compute_dtype, work), z)
+    res = rendering.composite(_raw_plain(ws, bs, config, x, d, z, compute_dtype, work,
+                                         raw_sigma), z)
     return res.rgb, res.weights
 
 
@@ -338,15 +344,16 @@ def _is_bf16(cd) -> int:
     return int(cd == torch.bfloat16)
 
 
-def _rm_weights(lib, ws, config: MLPConfig, cd, backward: bool):
+def _rm_weights(lib, ws, config: MLPConfig, cd, backward: bool, t32: bool = False):
     """The weight buffers the B6 or B7 library ``lib`` reads, from
     ``raymarch_cuda._weights_for`` (which checks a pack's size against the
     library's): in bf16 the F pack (forward) or the F and B packs (backward);
     the f32 forward's TF32 hi / lo buffer where the library runs it on the
     tensor cores (``nerf_rm_fwd_tf32_tile``), else the flat weights; the f32
-    backward's flat weights and their transposes."""
+    backward's hi / lo F and B buffers where it runs on the tensor cores
+    (``t32``: B7), else the flat weights and their transposes (B6)."""
     if backward:
-        kinds = ("f", "b")
+        kinds = ("tf", "tb") if t32 and cd == torch.float32 else ("f", "b")
     elif cd == torch.bfloat16:
         kinds = ("f",)
     else:
@@ -404,11 +411,16 @@ def raymarch_bwd(ws, bs, config: MLPConfig, rd, z, g, compute_dtype):
     return (*split_dparams(dparams, config), dz)
 
 
-def raymarch_comp_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype):
+def raymarch_comp_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype, raw=None):
     """B7 forward: ``(rgb (R, 3), weights (R, S))`` f32; at most
-    :data:`MAX_SAMPLES_COMPOSITED` samples per ray."""
+    :data:`MAX_SAMPLES_COMPOSITED` samples per ray. ``raw`` (bf16 only): None,
+    or an (R, S, 4) f32 tensor that receives the raw values the kernel
+    composited (on the CPU the plain forward's)."""
     _check_samples(z)
+    _raw_out(raw, z, compute_dtype, rd.device)
     if not uses_kernel(rd):
+        if raw is not None:
+            raw.copy_(raymarch_fwd_plain(ws, bs, config, rd, z, compute_dtype))
         return raymarch_comp_fwd_plain(ws, bs, config, rd, z, compute_dtype)
     _check_rays(config, ws, bs, rd, z, compute_dtype)
     dev = rd.device
@@ -416,10 +428,11 @@ def raymarch_comp_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype):
     weights = torch.empty(z.shape, dtype=torch.float32, device=dev)
     if weights.numel() == 0:
         return rgb.zero_(), weights
-    w, b = flat(ws), flat(bs)
-    rc = load("raymarch_comp_fwd").nerf_rm_comp_fwd(
+    lib = load("raymarch_comp_fwd")
+    (w,), b = _weights_for(lib, ws, config, compute_dtype, ("f",)), flat(bs)
+    rc = lib.nerf_rm_comp_fwd(
         _is_bf16(compute_dtype), int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(),
-        w.data_ptr(), b.data_ptr(), rgb.data_ptr(), weights.data_ptr(),
+        w.data_ptr(), b.data_ptr(), rgb.data_ptr(), weights.data_ptr(), _ptr(raw),
         *_ray_args(config, rd, z))
     launched("raymarch_comp_fwd", rc)
     return rgb, weights
@@ -428,11 +441,12 @@ def raymarch_comp_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype):
 def _comp_bwd_scratch(lib, n_params: int, config: MLPConfig, cd, z, dev, width=None):
     """``(partial, acts, slab, n_blocks)`` of a compositing backward (the
     library ``lib`` of B7's backward, B5 or B4's backward), sized from the
-    library's exports for the compute type: in bf16
-    (``csrc/comp_exports.cuh``) ray groups of one 128-row tile, every tile's
-    activation slots and each block's f32 slab of ``width`` columns (dx rows:
-    xyz, the default; B4's dd rows: dir; 0 for none); in f32 the FMA kernels'
-    groups and slots, and no slab (None)."""
+    library's exports for the compute type (``csrc/comp_exports.cuh``): in
+    bf16 ray groups of one 128-row tile, every tile's activation slots and
+    each block's f32 slab of ``width`` columns (dx rows: xyz, the default;
+    B4's dd rows: dir; 0 for none); in f32 groups of about 64 rows, the
+    library's slots per group, and a slab of the library's rows (B7's 64 dx
+    rows; none, None, for the FMA kernels of B5 and B4)."""
     is_bf16 = _is_bf16(cd)
     n_rays, n_samples = z.shape
     partial, acts, n_blocks = bwd_scratch(lib, n_params, cd, dev,
@@ -446,7 +460,7 @@ def _comp_bwd_scratch(lib, n_params: int, config: MLPConfig, cd, z, dev, width=N
 def _raw_out(raw, z, cd, dev, f32=False):
     """Check the optional raw output of a compositing kernel: (R, S, 4) f32
     on the inputs' device; the bf16 kernels' only, unless ``f32`` (f32 B7's
-    backward gives it too)."""
+    backward, on the tensor cores, gives it too)."""
     if raw is None:
         return
     if cd != torch.bfloat16 and not f32:
@@ -479,7 +493,7 @@ def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtyp
         is_bf16 = _is_bf16(compute_dtype)
         partial, acts, dxs, n_blocks = _comp_bwd_scratch(lib, dparams.numel(), config,
                                                          compute_dtype, z, dev)
-        (w, wt), b = _rm_weights(lib, ws, config, compute_dtype, True), flat(bs)
+        (w, wt), b = _rm_weights(lib, ws, config, compute_dtype, True, t32=True), flat(bs)
         rc = lib.nerf_rm_comp_bwd(
             is_bf16, int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(), w.data_ptr(),
             wt.data_ptr(), b.data_ptr(), g_rgb.data_ptr(), g_w.data_ptr(), dz.data_ptr(),

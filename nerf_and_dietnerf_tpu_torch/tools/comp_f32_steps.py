@@ -1,17 +1,20 @@
 #!/usr/bin/env python
-"""Where f32 B7's backward (``raymarch_comp_bwd``, the FMA tiles) parts from
-the f64 chain, step by step; f32 B4's backward (``mlp_comp_bwd``) beside it.
+"""Where f32 B7's backward (``raymarch_comp_bwd``, the 3xTF32 tensor-core
+tiles of ``csrc/mlp_tf32_mma_tile.cuh``; the FMA tiles before) parts from
+the f64 chain, step by step; f32 B4's backward (``mlp_comp_bwd``, the FMA
+tiles) beside it.
 
 ``chip_smoke.py``'s ``b7_vs_f64_chain`` holds a kernel's dparams against the
 plain version with the MLP's products and sums in f64 and the compositing in
 f32 (autograd of ``core.rendering.composite`` on the f64 raw values rounded to
-f32): the "chain". f32 B7's backward reads several times the plain f32
-version's distance to it with view dirs. The kernel's result is
+f32): the "chain". On the FMA tiles f32 B7's backward read several times the
+plain f32 version's distance to it with view dirs (ROADMAP C3). The kernel's
+result is
 
-    dparams = MLP_fma(g_k),   g_k = VJP_serial(raw_k),
+    dparams = MLP_k(g_k),   g_k = VJP_serial(raw_k),
 
 its own raw values through ``composite_ray_bwd`` (``csrc/composite_common.cuh``)
-then the FMA tiles' backward walk, where the plain version's is
+then the tiles' backward walk, where the plain version's is
 ``MLP_f32(VJP_autograd(raw_f32))``. Per case this prints one JSON line:
 
 - ``raw``: the kernel's raw values (its ``raw=`` output) and the plain f32
@@ -25,7 +28,7 @@ then the FMA tiles' backward walk, where the plain version's is
   chain and to the exact end (f64 MLP on the exact cotangent), the share the
   cotangent alone gives (f64 MLP on each cotangent) and the MLP's own (the
   kernel against the f64 MLP on its emulated cotangent; f32 B6's backward,
-  the same FMA walk, on that cotangent against B7's dparams), and the leaves
+  the FMA walk, on that cotangent against B7's dparams), and the leaves
   where the kernel's distance is largest;
 - for B4 the kernel's and the plain version's dparams against B4's chain.
 

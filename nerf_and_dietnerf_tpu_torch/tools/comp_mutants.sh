@@ -1,8 +1,8 @@
 #!/bin/bash
-# Shows that chip_smoke.py's checks of the compositing kernels on the bf16
-# tensor cores (_hold_comp_bwd: B7's backward, B5 and B4's backward, and
-# _comp_checks for B4's forward and backward; R = 4096, S = 64, both
-# variants) catch broken kernels. Each case copies the package and
+# Shows that chip_smoke.py's checks of the compositing kernels on the tensor
+# cores (_hold_comp_bwd: B7's backward in bf16 and f32, B5 and B4's backward;
+# _comp_checks for B4's forward and backward; _rm_checks for B7's bf16
+# forward; R = 4096, S = 64, both variants) catch broken kernels. Each case copies the package and
 # chip_smoke.py to a temporary directory, breaks one line there, rebuilds and
 # runs the checks; the repository is not touched:
 #   none     unbroken (every check passes);
@@ -12,7 +12,11 @@
 #            gradient, a leaf of one value (the view-dir variant is unbroken);
 #   dd2      drops the second ray's dd rows from B4's dencd (two rays a tile;
 #            the xyz-only variant, which has no dencd, is unbroken);
-#   denc1    writes every group's denc rows but the first one row off (up).
+#   denc1    writes every group's denc rows but the first one row off (up);
+#   t32row   reads the first register of the transposed A^T fragment of f32
+#            B7's weight-gradient products one row off;
+#   fwdray   B7's bf16 forward composites each ray of a two-ray group with
+#            the other ray's depths and into the other ray's outputs.
 # Run from the repository root on the card, after a build (build/kernels is
 # copied, so only the broken libraries are rebuilt):
 #   bash nerf_and_dietnerf_tpu_torch/tools/comp_mutants.sh
@@ -20,7 +24,7 @@ set -u
 root=$(pwd)
 tmp=$(mktemp -d)
 trap 'rm -rf "$tmp"' EXIT
-for m in none ray2 sigbias dd2 denc1; do
+for m in none ray2 sigbias dd2 denc1 t32row fwdray; do
   d=$tmp/$m
   mkdir -p "$d/build" && cp -r nerf_and_dietnerf_tpu_torch chip_smoke.py "$d/"
   cp -r build/kernels "$d/build/" 2>/dev/null
@@ -34,6 +38,10 @@ for m in none ray2 sigbias dd2 denc1; do
          grep -q "if (lr != 1) for" "$csrc/mlp_comp_bwd.cu" || exit 1 ;;
     denc1) sed -i 's|return denc + ((size_t)g.ray0 \* in.S + r0) \* dm.xyz;|return denc + ((size_t)g.ray0 * in.S + r0 - (g.ray0 > 0)) * dm.xyz;|' "$csrc/mlp_comp_bwd.cu"
            grep -q "r0 - (g.ray0 > 0)" "$csrc/mlp_comp_bwd.cu" || exit 1 ;;
+    t32row) sed -i 's|const float v\[4\] = {A\[ra \* lda + sw(ra, k)\],|const float v[4] = {A[(ra + 1) * lda + sw(ra + 1, k)],|' "$csrc/mlp_tf32_mma_tile.cuh"
+            grep -q "A\[(ra + 1) \* lda" "$csrc/mlp_tf32_mma_tile.cuh" || exit 1 ;;
+    fwdray) sed -i 's|    const size_t ray = (size_t)g.ray0 + i;|    const size_t ray = (size_t)g.ray0 + (g.n_rays - 1 - i);|' "$csrc/raymarch_comp_fwd.cu"
+            grep -q "g.n_rays - 1 - i" "$csrc/raymarch_comp_fwd.cu" || exit 1 ;;
   esac
   (cd "$d" && python3 - "$m" <<'PY'
 import sys
@@ -67,13 +75,27 @@ for n_angles in (0, 2):
         mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, *batch, cd, raw=raw)
         return dws, dbs, dz, mse
 
+    ws32, bs32 = rc.flatten_params(mlp.init_params(torch.Generator().manual_seed(0), cfg,
+                                                   device="cuda"), cfg, torch.float32)
+
+    def b7_f32(raw):
+        return (*rk.raymarch_comp_bwd(ws32, bs32, cfg, rd, z, g_rgb, g_w, torch.float32,
+                                      raw=raw), None)
+
     for kernel, args, run in (("B7", (rd, z, g_rgb, g_w), b7), ("B5", batch, b5), ("B4", None,
-                                                                                   None)):
+                                                                                   None),
+                              ("B7_f32", (rd, z, g_rgb, g_w), b7_f32), ("B7_fwd", None, None)):
         label = f"{sys.argv[1]} n_angles={n_angles} {kernel}"
         try:
             if kernel == "B4":  # its forward and backward, as chip_smoke.py holds them
                 cs._comp_checks(torch, rk, cfg, ws, bs, batch, cd, "bfloat16", gen, label,
                                 b5=False)
+            elif kernel == "B7_fwd":  # B6 and B7's forward, as chip_smoke.py holds them
+                cs._rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, "bfloat16", gen, label,
+                              backward=False)
+            elif kernel == "B7_f32":
+                cs._hold_comp_bwd(torch, "B7", label, "float32", ws32, bs32, cfg, torch.float32,
+                                  args, run)
             else:
                 cs._hold_comp_bwd(torch, kernel, label, "bfloat16", ws, bs, cfg, cd, args, run)
             print(f"RESULT {label}: passed", flush=True)

@@ -1,8 +1,10 @@
 #!/usr/bin/env python
-"""Whether a change leaves the compositing backwards' results bitwise as
-they were: B7's backward (``raymarch_comp_bwd``) and B5 (``mlp_loss_comp``),
-both compute types and MLP variants, at S = 64 (two rays a 128-row tile) and
-S = 192 (a ray over two tiles), on inputs made from fixed seeds.
+"""Whether a change leaves the MLP kernels' results bitwise as they were: B1
+(``mlp_fwd``), B2 (``mlp_bwd``), B6 (``raymarch_fwd`` / ``raymarch_bwd``),
+B7 (``raymarch_comp_fwd`` / ``raymarch_comp_bwd``), B4 (``mlp_comp_fwd`` /
+``mlp_comp_bwd``) and B5 (``mlp_loss_comp``), both compute types and MLP
+variants, the ray kernels at S = 64 (two rays a 128-row tile) and S = 192 (a
+ray over two tiles), on inputs made from fixed seeds.
 
 Save the outputs in a checkout of the parent commit (copy this file into it
 if the parent predates it), then compare them in the change's checkout (each
@@ -45,11 +47,29 @@ def outputs(device, rays: int) -> dict:
                 g_rgb = 0.5 + torch.rand((rays, 3), generator=gen, device=device)
                 g_w = 0.5 + torch.rand((rays, n_s), generator=gen, device=device)
                 batch = enc_batch(cfg, cd, rd, z, gen)
+                g_raw = 0.5 + torch.rand((rays, n_s, 4), generator=gen, device=device)
                 key = (variant, str(cd).split(".")[-1], n_s)
                 dws, dbs, dz = rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd)
                 out[("B7",) + key] = [*dws, *dbs, dz]
                 mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, *batch, cd)
                 out[("B5",) + key] = [mse, dz, *dws, *dbs]
+                # The other MLP kernels, on the same draws (drawn after the
+                # cases above, so those keep their inputs).
+                out[("B7_fwd",) + key] = list(rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd))
+                enc, encd, zb = batch[:3]
+                out[("B4_fwd",) + key] = list(rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, zb, cd))
+                dws, dbs, denc, dencd, dz = rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, zb, g_rgb,
+                                                            g_w, cd)
+                out[("B4",) + key] = [*dws, *dbs, denc, dz] + ([dencd] if dencd is not None
+                                                              else [])
+                out[("B6_fwd",) + key] = [rk.raymarch_fwd(ws, bs, cfg, rd, z, cd)]
+                dws, dbs, dz = rk.raymarch_bwd(ws, bs, cfg, rd, z, g_raw, cd)
+                out[("B6",) + key] = [*dws, *dbs, dz]
+                _, x, d = rk._mlp_inputs(cfg, rd, z, cd)
+                x, d = x.contiguous(), d.contiguous() if d is not None else None
+                out[("B1",) + key] = [rc.mlp_fwd(ws, bs, cfg, x, d, cd)]
+                dws, dbs, dx, dd = rc.mlp_bwd(ws, bs, cfg, x, d, g_raw.reshape(-1, 4), cd)
+                out[("B2",) + key] = [*dws, *dbs, dx] + ([dd] if dd is not None else [])
     return {k: [t.detach().cpu() for t in v] for k, v in out.items()}
 
 

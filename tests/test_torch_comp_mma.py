@@ -1,10 +1,13 @@
 """The Python around the MLP + compositing kernels on the tensor-core tiles:
 B7's backward (``csrc/raymarch_comp_bwd.cu``), B5 (``csrc/mlp_loss_comp.cu``)
 and B4's backward (``csrc/mlp_comp_bwd.cu``) in bf16 run the ray-group loop of
-``csrc/comp_mma_tile.cuh`` on the tiles of ``csrc/mlp_mma_tile.cuh``, B4's
-forward (``csrc/mlp_comp_fwd.cu``) its forward loop. The kernels run only on
-the card, where ``chip_smoke.py`` holds them against their plain versions.
-Here, at small widths (hidden 32, L = 2-5):
+``csrc/comp_mma_tile.cuh`` on the tiles of ``csrc/mlp_mma_tile.cuh``, B4's and
+B7's forwards (``csrc/mlp_comp_fwd.cu``, ``csrc/raymarch_comp_fwd.cu``) its
+forward loop; f32 B7's backward runs the same loop on the 64-row 3xTF32 tiles
+of ``csrc/mlp_tf32_mma_tile.cuh`` (their arithmetic is modelled in
+``tests/test_torch_tf32_split.py``). The kernels run only on the card, where
+``chip_smoke.py`` holds them against their plain versions. Here, at small
+widths (hidden 32, L = 2-5):
 
 - (a) the group and tile partition at S in {48, 64, 100, 128, 192} and ragged
   ray counts, against the constants and formulas of the CUDA sources;
@@ -20,7 +23,9 @@ Here, at small widths (hidden 32, L = 2-5):
   ``_backward_rays_comp_pallas``, ``_loss_mlp_comp_pallas`` and B4's two
   kernels in interpret mode;
 - (d) the wrappers' weight packs and scratch against a fake library's
-  per-compute-type exports, both types; the f32 sizes stay the FMA kernels'.
+  per-compute-type exports, both types (f32 B7's backward: 64-row groups, its
+  slots and dx slab, the hi / lo buffers of ``raymarch_cuda.t32_packs``; f32
+  B5 and B4: the FMA kernels' sizes and flat weights).
 """
 
 import ctypes
@@ -67,6 +72,9 @@ LDX, LDD = 64 + 8, 32 + 8  # bf16 X and D row strides (checked below)
 MLP_SRC = (CSRC / "mlp_common.cuh").read_text()
 TM, HMAX = _c_int(MLP_SRC, "TM"), _c_int(MLP_SRC, "HMAX")  # the FMA tiles
 MAX_S = _c_int((CSRC / "composite_common.cuh").read_text(), "MAX_S_COMP")
+T32_BM = _c_int((CSRC / "mlp_tf32_mma_tile.cuh").read_text(), "BM")  # f32 B7's tiles
+B7F_SRC = (CSRC / "raymarch_comp_fwd.cu").read_text()
+B7_TILE_SRC = (CSRC / "raymarch_comp_tile.cuh").read_text()
 SMEM_LIMIT = 232448
 SAMPLES = [48, 64, 100, 128, 192]
 
@@ -95,27 +103,28 @@ LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
 # The partition, as the sources compute it                                     #
 # --------------------------------------------------------------------------- #
 
-def rays_per_group(S: int) -> int:
-    return 1 if S >= BM else BM // S
+def rays_per_group(S: int, bm: int = BM) -> int:
+    return 1 if S >= bm else bm // S
 
 
-def tiles_per_group(S: int) -> int:
-    return -(-rays_per_group(S) * S // BM)
+def tiles_per_group(S: int, bm: int = BM) -> int:
+    return -(-rays_per_group(S, bm) * S // bm)
 
 
-def n_groups(R: int, S: int) -> int:
-    return 0 if S <= 0 or S > MAX_S else -(-R // rays_per_group(S))
+def n_groups(R: int, S: int, bm: int = BM) -> int:
+    return 0 if S <= 0 or S > MAX_S else -(-R // rays_per_group(S, bm))
 
 
-def group_at(group: int, R: int, S: int):
+def group_at(group: int, R: int, S: int, bm: int = BM):
     """``(ray0, n_rays, rows)`` of group ``group``, as ``group_at``."""
-    ray0 = group * rays_per_group(S)
-    n_rays = min(rays_per_group(S), R - ray0)
+    ray0 = group * rays_per_group(S, bm)
+    n_rays = min(rays_per_group(S, bm), R - ray0)
     return ray0, n_rays, n_rays * S
 
 
-def act_elems(S: int) -> int:
-    return tiles_per_group(S) * NACT * BM * HPAD
+def act_elems(S: int, bm: int = BM) -> int:
+    """Slot elements a block keeps for a group: NACT x bm x 256 a tile."""
+    return tiles_per_group(S, bm) * NACT * bm * HPAD
 
 
 def bwd_smem_bytes() -> int:
@@ -137,15 +146,26 @@ def fwd_smem_bytes(S: int) -> int:
 def test_tile_constants_match_the_cuda_sources():
     assert (BM, HPAD, NACT) == (128, 256, 10)
     assert "constexpr int LDX = 64 + 8;" in MMA_SRC and "constexpr int LDD = 32 + 8;" in MMA_SRC
-    assert "return S >= BM ? 1 : BM / S;" in COMP_SRC
-    assert "return (rays_per_group(S) * S + BM - 1) / BM;" in COMP_SRC
-    assert "return (long long)tiles_per_group(S) * nerf_mma::NACT * nerf_mma::SLOT;" in COMP_SRC
-    assert "sizeof(float) * (size_t)rays_per_group(S) * (9 * (size_t)S + 1);" in COMP_SRC
+    # The partition takes the kit's rows: bf16 128, f32 B7's backward 64.
+    assert "__host__ __device__ constexpr int rays_per_group(int S, int bm = BM) {\n" \
+           "  return S >= bm ? 1 : bm / S;" in COMP_SRC
+    assert "return (rays_per_group(S, bm) * S + bm - 1) / bm;" in COMP_SRC
+    assert "return (long long)tiles_per_group(S, K::BM) * K::TILE_SLOTS;" in COMP_SRC
+    assert "TILE_SLOTS = (long long)nerf_mma::NACT * nerf_mma::SLOT;" in COMP_SRC
+    assert "sizeof(float) * (size_t)rays_per_group(S, K::BM) * (9 * (size_t)S + 1);" in COMP_SRC
     assert "constexpr int SLOT = BM * HPAD;" in MMA_SRC
-    # The two kernels sum every 16-deep step into a fresh accumulator; B1, B2
-    # and B6 keep the tensor core's running sum (the template's default).
+    assert T32_BM == 64 and "static constexpr int BM = nerf_tmma::BM;" in (
+        CSRC / "mlp_tf32_mma_tile.cuh").read_text()
+    # The bf16 kernels sum every 16-deep step into a fresh accumulator; B1, B2
+    # and B6 keep the tensor core's running sum (the template's default). The
+    # loops run the kit's tile code.
     assert "constexpr bool FRESH = true;" in COMP_SRC
-    assert "mm::forward_tile<FRESH>(" in COMP_SRC and "mm::backward_walk<FRESH>(" in COMP_SRC
+    assert "nerf_mma::forward_tile<FRESH>(dm, L, M, F, B, t, ring, keep, out, row0, after);" \
+        in COMP_SRC
+    assert ("nerf_mma::backward_walk<FRESH>(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, "
+            "dd,") in COMP_SRC
+    assert "K::forward_tile(tdm, L, M, F, B, t, ring, acts + j * tile_slots," in COMP_SRC
+    assert "K::backward_walk(tdm, L, M, Bp, t, ring, slots, part, first, 0," in COMP_SRC
     assert "template <bool FRESH = false>\n__device__ inline void forward_tile(" in MMA_SRC
     assert "  forward_tile(dm, L, M, F, B, t, ring, acts, nullptr, row0, &b10);" in MMA_SRC
     assert "  backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);" \
@@ -166,8 +186,7 @@ def test_tile_constants_match_the_cuda_sources():
         assert text in COMP_SRC
     assert "fwd_smem_bytes(nerf_comp::MAX_S_COMP) == 145920 && fwd_smem_bytes(128) == 139776" \
         in COMP_SRC
-    assert "mm::forward_tile<FRESH>(tdm, L, M, F, B, t, ring, nullptr, RAW + 4 * j * BM, 0," \
-        in COMP_SRC
+    assert "K::forward_tile(tdm, L, M, F, B, t, ring, nullptr, RAW + 4 * j * BM, 0," in COMP_SRC
 
 
 @pytest.mark.parametrize("n_samples", SAMPLES)
@@ -191,6 +210,16 @@ def test_groups_cover_every_row_once_in_whole_rays(n_samples):
         assert (seen == 1).all()
     assert n_groups(4096, S) == 4096 // rpg
     assert n_groups(4096, MAX_S + 1) == 0
+    # f32 B7's 64-row tiles: one ray a tile at 64, a ray over two at 100 and
+    # 128, 64 / S rays a tile below 64 (the FMA kernels' groups of 64 rows).
+    t32 = (rays_per_group(S, T32_BM), tiles_per_group(S, T32_BM))
+    assert t32 == {48: (1, 1), 64: (1, 1), 100: (1, 2), 128: (1, 2), 192: (1, 3)}[S]
+    for R in (1, 13):
+        seen = np.zeros(R * S, dtype=np.int64)
+        for group in range(n_groups(R, S, T32_BM)):
+            ray0, n_rays, rows = group_at(group, R, S, T32_BM)
+            seen[ray0 * S:ray0 * S + rows] += 1
+        assert (seen == 1).all()
 
 
 # --------------------------------------------------------------------------- #
@@ -439,8 +468,8 @@ def _dz_points(cfg, gx, x, dvec):
     return dz
 
 
-def _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows, rows_out=None):
-    """The kernel's order over every group: the forward of each tile
+def _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows, rows_out=None, bm=BM):
+    """The kernel's order over every group (of ``bm``-row tiles): the forward of each tile
     (``tiles_of(ray0, rows)`` gives its (X, D) rows), the group's compositing
     (``per_ray(ray0, n_rays, raw)`` -> (g_raw, dzc, value)), the chain back on
     the group's rows from the B pack, then dz (``dz_rows(ray0, rows, dx,
@@ -453,8 +482,8 @@ def _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows, rows_out=No
     dbs = [torch.zeros_like(b) for b in bs]
     dz = torch.zeros(R * S)
     total = 0.0
-    for group in range(n_groups(R, S)):
-        ray0, n_rays, rows = group_at(group, R, S)
+    for group in range(n_groups(R, S, bm)):
+        ray0, n_rays, rows = group_at(group, R, S, bm)
         x, d = tiles_of(ray0, rows)
         raw = _forward(tcfg, x, d, wf, bs, cd).reshape(n_rays, S, 4)
         g_raw, dzc, value = per_ray(ray0, n_rays, raw)
@@ -522,11 +551,57 @@ def test_b7_backward_in_the_kernels_order_matches_jax(case, n_samples, name, cd,
     def dz_rows(ray0, rows, dx, _x):
         return _dz_of_row(tcfg, rd, tz, dx, ray0 * S + torch.arange(rows))
 
-    dws, dbs, dz, _ = _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows)
+    # f32: the groups of the 64-row 3xTF32 tiles (their products' arithmetic
+    # against JAX in tests/test_torch_tf32_split.py), here summed in f32.
+    dws, dbs, dz, _ = _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows,
+                                      bm=BM if cd == torch.bfloat16 else T32_BM)
     rws, rbs = _flat_grads(jgp, tcfg)
     normwise = cd == torch.bfloat16
     _hold(dws + dbs, rws + rbs, GRAD_TOL[name], normwise)
     _hold([dz], [jgz], GRAD_TOL[name], normwise)
+
+
+@pytest.mark.parametrize("name,cd,jcd", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("n_samples", [48, 192])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_b7_forward_in_the_kernels_order_matches_jax(case, n_samples, name, cd, jcd):
+    """forward_groups with B7's policy: each tile's features as the tiles
+    hold them (bf16: build_mma_inputs' rounding), the forward from the F pack,
+    then composite_ray one ray at a time, sample by sample, in the groups of
+    the kernel's tiles (bf16: 128 rows; the f32 FMA kernel: 64); rgb and
+    weights against JAX's B7 forward (``_forward_rays_comp_pallas`` in
+    interpret mode), scaled by the largest |value|: 1e-4 in f32 (other
+    orders of sums, the TPU kernel's log-step scans), 2e-2 in bf16
+    (chip_smoke.py TOL: a 1-ulp difference of a sum or of the two CPU sines
+    flips a bf16 rounding)."""
+    S = n_samples
+    jcfg, tcfg, params, x = _enc_setup(case, S, seed=5)
+    orig, dirs, z = x["orig"], x["dirs"], x["z"]
+    vc = jcam.view_direction_components(dirs, jcfg.n_angles) if jcfg.uses_view_dirs else None
+    jrgb, jw = jrk.apply_raymarch_composited(params, jcfg, orig, dirs, vc, z, jcd)
+    ws, bs = rc.flatten_params(tm.params_from_jax(params), tcfg, cd)
+    rd = rk.pack_rays(tcfg, torch.tensor(orig), torch.tensor(dirs),
+                      torch.tensor(np.asarray(vc)) if vc is not None else None)
+    tz = torch.tensor(z)
+    _, xe, de = rk.encode_rays_plain(tcfg, rd, tz)  # the f32 features the tiles round
+    rnd = (lambda t: t.bfloat16().float()) if cd == torch.bfloat16 else (lambda t: t)
+    wf = _unpack(rc.pack_mma_weights(ws, tcfg, "f"), tcfg, "f")
+    bm = BM if cd == torch.bfloat16 else TM
+    rgb, weights = torch.zeros(N_RAYS, 3), torch.zeros(N_RAYS, S)
+    for group in range(n_groups(N_RAYS, S, bm)):
+        ray0, n_rays, rows = group_at(group, N_RAYS, S, bm)
+        sl = slice(ray0 * S, ray0 * S + rows)
+        raw = _forward(tcfg, rnd(xe[sl]), rnd(de[sl]) if de is not None else None, wf, bs,
+                       cd).reshape(n_rays, S, 4)
+        rays = slice(ray0, ray0 + n_rays)
+        rgb[rays], weights[rays] = _composite_ray(raw, tz[rays])
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[name]
+    _hold([rgb, weights], [jrgb, jw], tol, normwise=False)
+    # The bf16 kernel: forward_groups with the inputs its backward builds.
+    assert "nerf_cmma::forward_groups(pol, smem16, dm, L, M, F, B, raw, ry.R, ry.S, groups);" \
+        in B7F_SRC and "struct RayCompFwd : RayGroupInputs {" in B7F_SRC
+    assert "struct RayComp : RayGroupInputs {" in B7_SRC
+    assert "    build_mma_inputs(ry, xyz, dir, grow0 + r0, grow0 + g.rows, X, D);" in B7_TILE_SRC
 
 
 def _enc_tiles_of(tcfg, x, S, cd):
@@ -692,6 +767,9 @@ class _FakeLib:
     def nerf_mlp_mma_pack_elems(self, *dims):
         return rc.mma_layout(self.cfg)[1]
 
+    def nerf_mlp_t32_pack_elems(self, *dims):
+        return rc.t32_layout(self.cfg)[1]
+
     def nerf_comp_groups(self, is_bf16, R, S):
         if is_bf16:
             return n_groups(R, S)
@@ -700,15 +778,19 @@ class _FakeLib:
     def nerf_comp_act_elems(self, is_bf16, S):
         if is_bf16:
             return act_elems(S)
-        chunks = 1 if self.kernel == "B7" else -(-(1 if S >= TM else TM // S) * S // TM)
+        # Every 64-row chunk's slots: the FMA kernels', and f32 B7's tiles.
+        chunks = -(-(1 if S >= TM else TM // S) * S // TM)
         return chunks * NACT * TM * HMAX
 
     def nerf_comp_dx_rows(self, is_bf16):
-        return BM if is_bf16 else 0
+        return BM if is_bf16 else T32_BM if self.kernel == "B7" else 0
 
-    def _record(self, is_bf16, w, wt, dxs, raw, n_blocks):
+    def _record(self, is_bf16, w, wt, dxs, raw, n_blocks, t32=False):
         n = self.nerf_mlp_mma_pack_elems() if is_bf16 else self.nerf_mlp_param_count() - sum(
             rc.weight_shapes(self.cfg)[1])
+        if t32:  # hi pack, lo pack, flat heads
+            n = 2 * self.nerf_mlp_t32_pack_elems() + sum(
+                k * m for k, m in rc.weight_shapes(self.cfg)[0][rc.N_TF32_PRODUCTS:])
         ctype = ctypes.c_uint16 if is_bf16 else ctypes.c_float
         read = [None if p is None else np.ctypeslib.as_array((ctype * n).from_address(p)).copy()
                 for p in (w, wt)]
@@ -718,7 +800,10 @@ class _FakeLib:
 
     def nerf_rm_comp_bwd(self, is_bf16, has_dir, rd, z, w, wt, b, g_rgb, g_w, dz, raw, partial,
                          acts, dxs, dparams, n_blocks, *tail):
-        return self._record(is_bf16, w, wt, dxs, raw, n_blocks)
+        return self._record(is_bf16, w, wt, dxs, raw, n_blocks, t32=not is_bf16)
+
+    def nerf_rm_comp_fwd(self, is_bf16, has_dir, rd, z, w, b, rgb, weights, raw, *tail):
+        return self._record(is_bf16, w, None, None, raw, None)
 
     def nerf_mlp_loss_comp(self, is_bf16, has_dir, enc, encd, z, dvec, target, w, wt, b, dz,
                            raw, partial, acts, dxs, out, n_blocks, *tail):
@@ -776,13 +861,17 @@ def test_scratch_is_sized_from_the_library_per_compute_type(fake_card, kernel, n
         assert acts.numel() == n_blocks * tiles_per_group(S) * NACT * BM * HPAD
         assert dxs.numel() == n_blocks * BM * width and dxs.dtype == torch.float32
     else:
-        # The FMA kernels' sizes: groups of about 64 rows; B7 one chunk's
-        # slots (its tile recomputes), B5 and B4 every chunk's.
+        # Groups of about 64 rows and every 64-row chunk's slots: the FMA
+        # kernels of B5 and B4 (no slab), and f32 B7's 64-row 3xTF32 tiles
+        # (one group's tiles kept, a 64-row dx slab).
         rpg = 1 if S >= TM else TM // S
-        assert groups == -(-R // rpg)
-        chunks = 1 if kernel == "B7" else -(-rpg * S // TM)
-        assert acts.numel() == n_blocks * chunks * NACT * TM * HMAX
-        assert dxs is None
+        assert groups == -(-R // rpg) == n_groups(R, S, T32_BM)
+        assert acts.numel() == n_blocks * -(-rpg * S // TM) * NACT * TM * HMAX
+        if kernel == "B7":
+            assert acts.numel() == n_blocks * act_elems(S, T32_BM)
+            assert dxs.numel() == n_blocks * T32_BM * width and dxs.dtype == torch.float32
+        else:
+            assert dxs is None
 
 
 KERNEL_SRC = {"B7": B7_SRC, "B5": B5_SRC, "B4": B4_SRC}
@@ -794,14 +883,14 @@ def test_exports_in_the_sources_match_the_fake_library(kernel):
     # each library says how many 64-row chunks its f32 kernel keeps.
     src = KERNEL_SRC[kernel]
     assert '#include "comp_exports.cuh"' in src and 'extern "C" int nerf_comp_' not in src
-    assert 'extern "C" int nerf_comp_dx_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : 0; }' \
-        in EXPORTS_SRC
+    assert ('extern "C" int nerf_comp_dx_rows(int is_bf16) {\n'
+            '  return is_bf16 ? nerf_mma::BM : nerf_comp::f32_slab_rows();') in EXPORTS_SRC
     assert "return is_bf16 ? nerf_cmma::n_groups(R, S) : nerf_comp::n_groups(R, S);" in EXPORTS_SRC
     assert "return is_bf16 ? nerf_cmma::act_elems(S)\n                 : (long long)" \
            "nerf_comp::f32_chunks_kept(S) * nerf_mlp::NACT * nerf_mlp::TM *" in EXPORTS_SRC
-    kept = ("int nerf_comp::f32_chunks_kept(int) { return 1; }" if kernel == "B7" else
-            "int nerf_comp::f32_chunks_kept(int S) { return chunks_per_group(S); }")
-    assert kept in src
+    assert "int nerf_comp::f32_chunks_kept(int S) { return chunks_per_group(S); }" in src
+    slab = "nerf_tmma::BM" if kernel == "B7" else "0"
+    assert f"int nerf_comp::f32_slab_rows() {{ return {slab}; }}" in src
     # The FMA-only exports of the family are gone.
     for other in (CSRC / "mlp_comp_common.cuh", CSRC / "mlp_comp_fwd.cu"):
         assert "nerf_mlp_comp_act_slots" not in other.read_text()
@@ -810,6 +899,9 @@ def test_exports_in_the_sources_match_the_fake_library(kernel):
               "B5": "mlp_loss_comp_mma_kernel<<<n_blocks, nerf_mma::NT, smem, stream>>>(",
               "B4": "mlp_comp_bwd_mma_kernel<<<n_blocks, nerf_mma::NT, smem, stream>>>("}[kernel]
     assert launch in src
+    if kernel == "B7":  # and the f32 instance on the 3xTF32 tiles
+        assert "err = launch_kernel(rm_comp_bwd_t32_kernel, n_blocks, nerf_tmma::NT," in src
+        assert "rm_comp_bwd_kernel<float>" not in src
     if kernel == "B4":
         for text in (B4_SRC, B4F_SRC):
             bf, f32 = text.index("  if (bf16) {"), text.index("  } else {")
@@ -818,13 +910,16 @@ def test_exports_in_the_sources_match_the_fake_library(kernel):
         assert "mlp_comp_fwd_mma_kernel<<<groups, nerf_mma::NT, smem, stream>>>(" in B4F_SRC
 
 
-def _call_wrappers(fake_card, lib, kernel, cfg, ws, bs, cd, R, S, gen, **kw):
+def _call_wrappers(fake_card, lib, kernel, cfg, ws, bs, cd, R, S, gen, fwd=True, **kw):
     """The wrapper(s) of ``kernel`` on small CPU inputs, through the fake
-    library ``lib`` (B4: its forward, then its backward)."""
+    library ``lib`` (B4 and B7: the forward, unless not ``fwd``, then the
+    backward)."""
     z = torch.sort(2 + 4 * torch.rand((R, S), generator=gen), dim=1).values
     if kernel == "B7":
-        fake_card["raymarch_comp_bwd"] = lib
+        fake_card["raymarch_comp_fwd"] = fake_card["raymarch_comp_bwd"] = lib
         rd = torch.rand((R, 6 + (cfg.n_angles + 1 if cfg.uses_view_dirs else 0)), generator=gen)
+        if fwd:
+            rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd, **kw)
         rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, torch.rand((R, 3)), torch.rand((R, S)), cd, **kw)
         return
     enc = torch.rand((R * S, cfg.xyz_dim), generator=gen).to(cd)
@@ -844,9 +939,10 @@ def _call_wrappers(fake_card, lib, kernel, cfg, ws, bs, cd, R, S, gen, **kw):
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, name):
     """bf16: the F and B packs of ``pack_mma_weights`` (their size checked
-    against the library's; B4's forward the F pack alone), a slab (B4's of dd
-    rows, with view dirs only); f32: the flat weights and their transposes,
-    no slab."""
+    against the library's; B4's and B7's forwards the F pack alone), a slab
+    (B4's of dd rows, with view dirs only); f32: B7's backward the hi / lo F
+    and B buffers of ``t32_packs`` (their size checked) and its dx slab, the
+    others the flat weights (and their transposes), no slab."""
     cfg = tm.MLPConfig(**case)
     cd = getattr(torch, name)
     lib = _FakeLib(kernel, cfg)
@@ -854,8 +950,8 @@ def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, na
     ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(0), cfg), cfg, cd)
     _call_wrappers(fake_card, lib, kernel, cfg, ws, bs, cd, R, S, torch.Generator().manual_seed(1))
     calls = lib.calls
-    assert len(calls) == (2 if kernel == "B4" else 1)
-    if kernel == "B4":  # the forward: one pack, no scratch
+    assert len(calls) == (1 if kernel == "B5" else 2)
+    if kernel != "B5":  # the forward: one pack, no scratch
         fwd, = [c for c in calls if c["n_blocks"] is None]
         assert fwd["wt"] is None
         calls = [c for c in calls if c is not fwd]
@@ -869,6 +965,10 @@ def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, na
             want = rc.pack_mma_weights(ws, cfg, kind).view(torch.int16).numpy().view(np.uint16)
             np.testing.assert_array_equal(got, want)
         assert (call["dxs"] is not None) == (kernel != "B4" or cfg.uses_view_dirs)
+    elif kernel == "B7":
+        for got, want in zip((call["w"], call["wt"]), rc.t32_packs(ws, cfg)):
+            np.testing.assert_array_equal(got, want.numpy())
+        assert call["dxs"] is not None
     else:
         np.testing.assert_array_equal(call["w"], torch.cat([w.reshape(-1) for w in ws]).numpy())
         np.testing.assert_array_equal(call["wt"],
@@ -876,10 +976,12 @@ def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, na
         assert call["dxs"] is None
     bad = _FakeLib(kernel, cfg)
     bad.nerf_mlp_mma_pack_elems = lambda *dims: rc.mma_layout(cfg)[1] + 16
-    if cd == torch.bfloat16:
-        with pytest.raises(RuntimeError, match="weight-pack layout"):
+    bad.nerf_mlp_t32_pack_elems = lambda *dims: rc.t32_layout(cfg)[1] + 8
+    if cd == torch.bfloat16 or kernel == "B7":
+        match = "weight-pack layout" if cd == torch.bfloat16 else "f32 backward's pack layout"
+        with pytest.raises(RuntimeError, match=match):
             _call_wrappers(fake_card, bad, kernel, cfg, ws, bs, cd, R, S,
-                           torch.Generator().manual_seed(1))
+                           torch.Generator().manual_seed(1), fwd=cd == torch.bfloat16)
         assert not bad.calls
 
 
@@ -993,6 +1095,13 @@ def test_raw_output_on_the_cpu_is_the_plain_forward(kernel):
         want = rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd, z, g_rgb, g_w, cd)
         assert torch.equal(raw, rk.raymarch_fwd_plain(ws, bs, cfg, rd, z, cd))
         assert torch.equal(got[2], want[2])
+        # The bf16 forward gives its raw values too, and the plain forward's
+        # pixels and weights.
+        raw_f = torch.full((*z.shape, 4), float("nan"))
+        got_f = rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd, raw=raw_f)
+        assert torch.equal(raw_f, raw)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got_f, rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd)))
         # f32 B7's backward gives its raw values too (the C3 step report reads
         # them); a raw tensor of another shape raises.
         ws32, bs32 = rc.flatten_params(tm.init_params(torch.Generator(), cfg), cfg,
@@ -1033,8 +1142,10 @@ def test_raw_output_on_the_cpu_is_the_plain_forward(kernel):
 @pytest.mark.parametrize("name", ["bfloat16", "float32"])
 @pytest.mark.parametrize("kernel", ["B7", "B5", "B4"])
 def test_wrappers_pass_the_raw_output_to_the_bf16_kernels(fake_card, kernel, name):
-    """Every bf16 kernel takes the raw output; in f32 B7's backward does (its
-    FMA kernel writes it for the C3 step report) and B5 and B4 raise."""
+    """Every bf16 kernel takes the raw output (B7's and B4's forwards and
+    backwards, B5); in f32 B7's backward does (its tensor-core kernel writes
+    it for the kink-aware checks and the C3 step report) and B7's forward, B5
+    and B4 raise."""
     cfg = tm.MLPConfig(**CASES[1])
     cd = getattr(torch, name)
     lib = _FakeLib(kernel, cfg)
@@ -1049,9 +1160,16 @@ def test_wrappers_pass_the_raw_output_to_the_bf16_kernels(fake_card, kernel, nam
     call()
     assert all(c["raw"] is None for c in lib.calls)
     n = len(lib.calls)
-    if cd == torch.bfloat16 or kernel == "B7":
+    if cd == torch.bfloat16:
         call(raw=raw)
         assert len(lib.calls) == 2 * n and all(c["raw"] == raw.data_ptr() for c in lib.calls[n:])
+    elif kernel == "B7":
+        with pytest.raises(ValueError, match="bf16"):
+            call(raw=raw)
+        assert len(lib.calls) == n
+        call(raw=raw, fwd=False)  # the backward alone
+        assert len(lib.calls) == n + 1 and lib.calls[-1]["raw"] == raw.data_ptr()
+        assert lib.calls[-1]["n_blocks"] is not None
     else:
         with pytest.raises(ValueError, match="bf16"):
             call(raw=raw)
@@ -1162,7 +1280,11 @@ def test_outputs_compare_bitwise_with_a_saved_run(tmp_path, capsys):
     assert comp_outputs.main(args + ["--save", str(path)]) == 0
     assert comp_outputs.main(args + ["--compare", str(path)]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 2 * 2 * 2 * len(comp_outputs.SAMPLES)
+    # Nine kernels (B1, B2, B4 fwd / bwd, B5, B6 fwd / bwd, B7 fwd / bwd), two
+    # variants, two compute types, two sample counts.
+    kernels = {line.split()[0] for line in lines}
+    assert kernels == {"B1", "B2", "B4_fwd", "B4", "B5", "B6_fwd", "B6", "B7_fwd", "B7"}
+    assert len(lines) == 9 * 2 * 2 * len(comp_outputs.SAMPLES)
     assert all(line.endswith(" equal") for line in lines)
     saved = torch.load(path)
     key = sorted(saved)[0]

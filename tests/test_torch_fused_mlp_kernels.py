@@ -463,3 +463,10 @@ def test_build_hash_of_the_new_kernels_covers_their_headers():
     assert deps["mlp_comp_bwd"] == shared | bwd | {"mlp_comp_bwd.cu"}
     assert deps["mlp_loss_comp"] == shared | bwd | {"mlp_loss_comp.cu"}
     assert {"composite_common.cuh"} | bwd <= deps["raymarch_comp_bwd"]
+    # B7's forward and backward build their tiles with one header, which
+    # brings both kits (bf16 and the f32 backward's 3xTF32 tiles).
+    b7 = {"raymarch_comp_tile.cuh", "comp_mma_tile.cuh", "mlp_mma_tile.cuh",
+          "mlp_tf32_mma_tile.cuh", "raymarch_tile.cuh"}
+    assert b7 <= deps["raymarch_comp_bwd"]
+    assert b7 | {"raymarch_comp_fwd.cu"} <= {
+        p.name for p in kl.source_closure(kl.CSRC_DIR / kl.KERNEL_SOURCES["raymarch_comp_fwd"])}

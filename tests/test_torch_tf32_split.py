@@ -247,3 +247,332 @@ def test_stage_layout_is_the_descriptors_and_fills_each_stage_once(np_, kp):
         for sn in (64, 128):  # part h of SN columns starts SN h / 8 groups down
             for h in range(np_ // sn if np_ >= sn else 0):
                 assert int(4 * sl[sn * h, 0]) == (sn // 8) * h * 32 * kc
+
+
+# --------------------------------------------------------------------------- #
+# The f32 tensor-core backward (csrc/mlp_tf32_mma_tile.cuh, f32 B7's)          #
+# --------------------------------------------------------------------------- #
+
+CSRC = Path(rc.__file__).resolve().parent.parent / "csrc"
+T32_SRC = (CSRC / "mlp_tf32_mma_tile.cuh").read_text()
+COMP_SRC = (CSRC / "comp_mma_tile.cuh").read_text() + (CSRC / "raymarch_comp_tile.cuh").read_text()
+SMEM_LIMIT = 232448
+MAX_S = 512
+
+
+def _t32_int(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+)", T32_SRC).group(1))
+
+
+def _sw(r, c):
+    """Where the tile stores column c of row r (``sw``)."""
+    return c ^ (r & 4)
+
+
+def test_t32_tile_constants_and_budget_match_the_cuda_source():
+    bm, nt, hpad, kc, nstage, nact = (_t32_int(k) for k in
+                                      ("BM", "NT", "HPAD", "KC", "NSTAGE", "NACT"))
+    assert (bm, nt, hpad, kc, nstage, nact) == (64, 256, 256, 8, 2, 10)
+    for line in ("constexpr int LDH = HPAD + 8;", "constexpr int LDX = 64 + 8;",
+                 "constexpr int LDD = 32 + 8;", "constexpr int LDW = KC;",
+                 "constexpr int STAGE = HPAD * LDW;", "constexpr int SLOT = BM * HPAD;",
+                 "__device__ __forceinline__ int sw(int r, int c) { return c ^ (r & 4); }",
+                 "T.kp[i] = pad8(L.wk[i]);", "T.np[i] = pad8(L.wn[i]);", "T.heads = 2 * T.total;"):
+        assert line in T32_SRC
+    ldh, ldx, ldd, stage = hpad + 8, 64 + 8, 32 + 8, hpad * kc
+    fwd = 4 * (bm * ldh + bm * ldx + bm * ldd + nstage * 2 * stage + bm)
+    bwd = fwd + 4 * (bm * ldh + bm * 8)
+    assert (fwd, bwd) == (129280, 198912)
+
+    # The ray-group loop's rows beside the tiles (comp_mma_tile.cuh): 9
+    # floats a row of the group and one a ray, groups of 64-row tiles.
+    def smem(S):
+        return bwd + 4 * (1 if S >= bm else bm // S) * (9 * S + 1)
+
+    assert max(smem(s) for s in range(1, MAX_S + 1)) == smem(MAX_S) == 217348 <= SMEM_LIMIT
+    assert smem(64) == 201220
+    for text in ("129,280", "198,912", "67,584", "32,768", "655,360"):
+        assert text in T32_SRC
+    for text in ("201,220", "217,348",
+                 "smem_bytes<nerf_tmma::Kit>(nerf_comp::MAX_S_COMP) == 217348",
+                 "smem_bytes<nerf_tmma::Kit>(64) == 201220"):
+        assert text in COMP_SRC
+    # A kept tile is NACT x 64 x 256 f32, the bytes of bf16's 128-row slots.
+    assert nact * bm * hpad * 4 == 655360
+    # 3xTF32: small terms first into a fresh accumulator, added to the sum.
+    assert ("  float p[4] = {0.f, 0.f, 0.f, 0.f};\n  mma_tf32(p, alo, bhi0, bhi1);\n"
+            "  mma_tf32(p, ahi, blo0, blo1);\n  mma_tf32(p, ahi, bhi0, bhi1);\n") in T32_SRC
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in T32_SRC
+
+
+def _banks(addrs):
+    return {a % 32 for a in addrs}
+
+
+@pytest.mark.parametrize("ld", [256 + 8, 64 + 8, 32 + 8])
+def test_t32_fragment_reads_fall_in_32_banks(ld):
+    """Lane (g, t) of a warp reads, in the products' orientation, row g (and
+    g + 8) at column k0 + t (and + 4), and, transposed for A^T G, row t (and
+    t + 4) at column m0 + g (and + 8): with the row stride 8 (mod 32) and the
+    swizzle, each of those loads touches 32 different banks."""
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    for r0 in (0, 16, 32, 48):
+        for k0 in range(0, 32, 8):
+            for dr, dc in ((0, 0), (8, 0), (0, 4), (8, 4)):
+                got = [(r0 + g + dr) * ld + _sw(r0 + g + dr, k0 + t + dc) for g, t in lanes]
+                assert len(_banks(got)) == 32
+    for r0 in range(0, 64, 8):
+        for m0 in (0, 16):
+            for dr, dc in ((0, 0), (4, 0), (0, 8), (4, 8)):
+                got = [(r0 + t + dr) * ld + _sw(r0 + t + dr, m0 + g + dc) for g, t in lanes]
+                assert len(_banks(got)) == 32
+
+
+def test_t32_column_order_puts_a_lanes_b_fragment_side_by_side():
+    pos = rc.t32_column_position(torch.arange(24))
+    assert torch.equal(pos.sort().values, torch.arange(24))
+    inv = torch.empty_like(pos)
+    inv[pos] = torch.arange(24)
+    for t in range(4):  # the 8-byte load at 2 t of a group holds columns t, t + 4
+        for g8 in (0, 8, 16):
+            assert inv[g8 + 2 * t].item() == g8 + t and inv[g8 + 2 * t + 1].item() == g8 + t + 4
+    # A warp's 8-byte B loads (row 8 j + g, float 2 t of a ring row of 8):
+    # each half-warp covers 32 different banks.
+    for half in range(2):
+        words = [((lane >> 2) * 8 + 2 * (lane & 3)) + w for lane in range(16 * half, 16 * half + 16)
+                 for w in range(2)]
+        assert len(_banks(words)) == 32
+    assert "const int b = (8 * f.ntile(q) + f.g) * LDW + 2 * f.t;" in T32_SRC
+
+
+def _t32_unpack(buf, cfg, kind):
+    """(hi, lo) of each product matrix as (K, N), and the head matrices, of a
+    buffer of :func:`rc.t32_packs` (``kind`` "f" or "b")."""
+    layout, total = rc.t32_layout(cfg)
+    shapes = rc.weight_shapes(cfg)[0]
+    halves = []
+    for half in (buf[:total], buf[total:2 * total]):
+        mats = []
+        for (k, n), (off, kp, np_) in zip(shapes, layout):
+            if kind == "f":
+                block = half[off:off + kp * np_].view(np_, kp)
+                mats.append(block[:n, rc.t32_column_position(torch.arange(k))].t())
+            else:
+                block = half[off:off + kp * np_].view(kp, np_)
+                mats.append(block[:k, rc.t32_column_position(torch.arange(n))])
+        halves.append(mats)
+    heads, off = [], 2 * total
+    for k, n in shapes[rc.N_TF32_PRODUCTS:]:
+        heads.append(buf[off:off + k * n].view(k, n))
+        off += k * n
+    assert off == buf.numel()
+    return halves[0], halves[1], heads
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_t32_packs_give_back_the_weights_and_pads_are_zero(case):
+    cfg, ws, _ = _weights(case)
+    layout, total = rc.t32_layout(cfg)
+    packs = rc.t32_packs(ws, cfg)
+    for kind, buf in zip("fb", packs):
+        assert buf.dtype == torch.float32 and buf.is_contiguous()
+        hi, lo, heads = _t32_unpack(buf, cfg, kind)
+        for w, h, l_ in zip(ws, hi, lo):
+            assert torch.equal(h, rc.round_tf32(w)) and torch.equal(l_, rc.round_tf32(w - h))
+        for a, b in zip(heads, ws[rc.N_TF32_PRODUCTS:]):
+            assert torch.equal(a, b)
+        live = torch.zeros(total, dtype=torch.bool)
+        for (k, n), (off, kp, np_) in zip(rc.weight_shapes(cfg)[0], layout):
+            assert kp == (k + 7) // 8 * 8 and np_ == (n + 7) // 8 * 8
+            rows, cols = (n, k) if kind == "f" else (k, n)
+            blk = live[off:off + kp * np_].view(*((np_, kp) if kind == "f" else (kp, np_)))
+            blk[:rows, rc.t32_column_position(torch.arange(cols))] = True
+        for half in (buf[:total], buf[total:2 * total]):
+            assert not half[~live].any()
+    # Flagship widths: 515,072 floats a pack with view dirs (every width a
+    # multiple of 8 but xyz 33 -> 40).
+    assert rc.t32_layout(tm.MLPConfig())[1] == 2 * 40 * 256 + 7 * 256 * 256 + 256 * 128 + 24 * 128
+
+
+class _FakeT32Lib:
+    def __init__(self, elems):
+        self.elems = elems
+
+    def nerf_mlp_t32_pack_elems(self, has_dir, xyz, dir_, hid, last):
+        return self.elems
+
+
+@pytest.mark.parametrize("case", CASES[:2], ids=IDS[:2])
+def test_wrapper_checks_the_t32_pack_size_against_the_library(case):
+    cfg, ws, _ = _weights(case)
+    total = rc.t32_layout(cfg)[1]
+    got = rc._weights_for(_FakeT32Lib(total), ws, cfg, torch.float32, ("tf", "tb"))
+    assert all(torch.equal(a, b) for a, b in zip(got, rc.t32_packs(ws, cfg)))
+    with pytest.raises(RuntimeError, match="f32 backward's pack layout"):
+        rc._weights_for(_FakeT32Lib(total + 64), ws, cfg, torch.float32, ("tf", "tb"))
+    assert "return nerf_tmma::make_t32_layout(nerf_mlp::make_layout(dm)).total;" in T32_SRC
+
+
+# The model of the tile's arithmetic below against the JAX package's f32
+# backward (interpret mode), scaled per leaf and normwise for dx / dd: the
+# card's tolerances for f32 B7's backward (chip_smoke.py TOL_BWD / TOL_ROWS
+# in f32), since both sum in other orders. Against the backward evaluated in
+# f64 it must be as close as the plain f32 version, within BWD_F64_FACTOR.
+BWD_TOL, ROWS_TOL = 1e-3, 5e-3
+BWD_F64_FACTOR = 1.0
+T32_BM, T32_K = 64, 8
+
+
+def _split(v):
+    hi = rc.round_tf32(v.contiguous())
+    return hi, rc.round_tf32(v - hi)
+
+
+def _t32_dot(pairs, acc=None):
+    """sum of a_i @ b_i over ``pairs`` as the tile's products run them into
+    one accumulator: per 8-deep k-step the three TF32 products lo.hi + hi.lo
+    + hi.hi of the split operands (each exact in f32) summed into a fresh
+    partial (modelled as their f64 sum rounded once), which one f32 add then
+    adds to the sum. A transposed operand (A^T G) is the same with the tile's
+    rows as the contraction."""
+    for a, b in pairs:
+        ah, al = _split(a)
+        bh, bl = _split(b)
+        if acc is None:
+            acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+        for k0 in range(0, a.shape[1], T32_K):
+            s = slice(k0, k0 + T32_K)
+            part = (al[:, s].double() @ bh[s].double() + ah[:, s].double() @ bl[s].double()
+                    + ah[:, s].double() @ bh[s].double())
+            acc = acc + part.float()
+    return acc
+
+
+def _t32_mlp_bwd(ws, bs, cfg, x, d, g):
+    """The backward of f32 B7's tile on (x, d, g), tile by tile of 64 rows:
+    the forward (wide products by :func:`_t32_dot`, the skip layer's two and
+    the view layer's two into one accumulator, heads in f32), then the chain
+    back in backward_walk's order, weight gradients per tile by
+    :func:`_t32_dot` with the rows as contraction, added to the slab tile
+    after tile. Returns (dws, dbs, dx, dd)."""
+    a = cfg.leaky_relu_alpha
+
+    def leaky(v):
+        return torch.where(v >= 0, v, a * v)
+
+    def dleaky(post, gg):
+        return torch.where(post >= 0, gg, a * gg)
+
+    dws = [None] * len(ws)
+    dbs = [None] * len(bs)
+    dxs, dds = [], []
+
+    def add(lst, i, v):
+        lst[i] = v if lst[i] is None else lst[i] + v
+
+    def colsum(v):
+        return v.sum(0)
+
+    for r0 in range(0, x.shape[0], T32_BM):
+        xt = x[r0:r0 + T32_BM]
+        dt = d[r0:r0 + T32_BM] if d is not None else None
+        gt = g[r0:r0 + T32_BM]
+        hs, h = [], xt
+        for layer in range(8):
+            pairs = [(xt, ws[4]), (h, ws[5])] if layer == 4 else [
+                (h, ws[layer if layer < 4 else layer + 1])]
+            h = leaky(_t32_dot(pairs) + bs[layer])
+            hs.append(h)
+        h8 = hs[7]
+        grgb, gsig = gt[:, :3], gt[:, 3:4]
+        if cfg.uses_view_dirs:
+            r = leaky(_t32_dot([(h8, ws[9]), (dt, ws[10])]) + bs[8])
+            add(dws, 11, r.t() @ grgb)
+            add(dbs, 9, colsum(grgb))
+            gr = dleaky(r, grgb @ ws[11].t())
+            add(dws, 9, _t32_dot([(h8.t(), gr)]))
+            add(dws, 10, _t32_dot([(dt.t(), gr)]))
+            add(dbs, 8, colsum(gr))
+            add(dws, 12, h8.t() @ gsig)
+            add(dws, 13, dt.t() @ gsig)
+            add(dbs, 10, colsum(gsig))
+            dds.append(_t32_dot([(gr, ws[10].t())]) + gsig * ws[13].t())
+            gh = _t32_dot([(gr, ws[9].t())]) + gsig * ws[12].t()
+        else:
+            r0_ = leaky(_t32_dot([(h8, ws[9])]) + bs[8])
+            r = leaky(_t32_dot([(r0_, ws[10])]) + bs[9])
+            add(dws, 11, r.t() @ grgb)
+            add(dbs, 10, colsum(grgb))
+            gr = dleaky(r, grgb @ ws[11].t())
+            add(dws, 10, _t32_dot([(r0_.t(), gr)]))
+            add(dbs, 9, colsum(gr))
+            gr0 = dleaky(r0_, _t32_dot([(gr, ws[10].t())]))
+            add(dws, 9, _t32_dot([(h8.t(), gr0)]))
+            add(dbs, 8, colsum(gr0))
+            add(dws, 12, h8.t() @ gsig)
+            add(dbs, 11, colsum(gsig))
+            gh = _t32_dot([(gr0, ws[9].t())]) + gsig * ws[12].t()
+        for layer in range(7, -1, -1):
+            G = dleaky(hs[layer], gh)
+            add(dbs, layer, colsum(G))
+            prev = hs[layer - 1] if layer > 0 else None
+            if layer == 4:
+                add(dws, 4, _t32_dot([(xt.t(), G)]))
+                add(dws, 5, _t32_dot([(prev.t(), G)]))
+                dx_skip = _t32_dot([(G, ws[4].t())])
+                gh = _t32_dot([(G, ws[5].t())])
+            elif layer > 0:
+                i = layer if layer < 4 else layer + 1
+                add(dws, i, _t32_dot([(prev.t(), G)]))
+                gh = _t32_dot([(G, ws[i].t())])
+            else:
+                add(dws, 0, _t32_dot([(xt.t(), G)]))
+                dxs.append(_t32_dot([(G, ws[0].t())]) + dx_skip)
+    return dws, dbs, torch.cat(dxs), (torch.cat(dds) if dds else None)
+
+
+@pytest.mark.parametrize("case", CASES[:2], ids=IDS[:2])
+def test_t32_backward_model_matches_jax_f32_and_the_f64_chain(case):
+    """The 3xTF32 arithmetic of f32 B7's backward tile, modelled in torch: at
+    narrow widths against the JAX package's f32 MLP backward (its Pallas
+    kernel in interpret mode) and no farther from the f64 chain than the
+    plain f32 version."""
+    jcfg = jm.MLPConfig(**case)
+    jparams = jm.init_params(jax.random.PRNGKey(0), jcfg)
+    cfg = tm.MLPConfig(**case)
+    ws, bs = rc.flatten_params(tm.params_from_jax(jparams), cfg, torch.float32)
+    rng = np.random.default_rng(11)
+    n = 150  # two full 64-row tiles and a part-filled one
+    ex = rng.uniform(-1, 1, size=(n, cfg.xyz_dim)).astype(np.float32)
+    ed = (rng.uniform(-1, 1, size=(n, cfg.dir_dim)).astype(np.float32)
+          if cfg.uses_view_dirs else None)
+    eg = rng.uniform(0.5, 1.5, size=(n, 4)).astype(np.float32)
+    x, g = torch.tensor(ex), torch.tensor(eg)
+    d = torch.tensor(ed) if ed is not None else None
+    dws, dbs, dx, dd = _t32_mlp_bwd(ws, bs, cfg, x, d, g)
+
+    args = (jnp.asarray(ex),) + ((jnp.asarray(ed),) if ed is not None else ())
+    _, vjp = jax.vjp(lambda p, *e: jrp.apply_mlp_fused(p, jcfg, e[0], e[1] if len(e) > 1 else None,
+                                                       compute_dtype=jnp.float32),
+                     jparams, *args)
+    jgrads = vjp(jnp.asarray(eg))
+    rws, rbs = rc.flatten_params(tm.params_from_jax(jgrads[0]), cfg, torch.float32)
+    for got, want in zip(dws + dbs, rws + rbs):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= BWD_TOL * scale
+    rows = [(dx, jgrads[1])] + ([(dd, jgrads[2])] if ed is not None else [])
+    for got, want in rows:
+        want = torch.tensor(np.asarray(want))
+        assert float((got - want).norm() / want.norm()) <= ROWS_TOL
+
+    exact = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g, torch.float32, work=torch.float64)
+    plain = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g, torch.float32)
+
+    def dist(res):
+        flat = torch.cat([t.reshape(-1).double() for t in res[0] + res[1]])
+        ref = torch.cat([t.reshape(-1) for t in exact[0] + exact[1]])
+        return (float((flat - ref).norm() / ref.norm()),
+                float((res[2].double() - exact[2]).norm() / exact[2].norm()))
+
+    for got, base in zip(dist((dws, dbs, dx)), dist(plain)):
+        assert got <= BWD_F64_FACTOR * base + 2.0 ** -24
