@@ -17,7 +17,8 @@ f32 forward also at widths beyond its tensor-core design's; B5 at 128 and at
 the ragged 100), checks that the backwards' parameter gradients
 (and B4's per-ray view-dir gradient and B5's loss) are bitwise reproducible
 (B1/B2, whose products run on the tensor cores, also at a ragged row count in
-both types; the ``-Xptxas -v`` lines of B1, B2 and B6 and, where ``cuobjdump``
+both types, f32 B2 right after NaN was left in every SM's shared memory, and
+at narrow widths; the ``-Xptxas -v`` lines of B1, B2 and B6 and, where ``cuobjdump``
 is installed, the tensor-core instructions of their SASS are printed, and the
 run fails if bf16 B1/B2/B6 have no HMMA or f32 B1/B6 forward no HGMMA), holds
 B1 in both types, its former FMA design (P3 at one chain) and the plain
@@ -27,19 +28,22 @@ version likewise (raw output, dz and dparams; JSON ``b6_vs_f64_chain``), B7
 (pixels, dz, dparams; ``b7_vs_f64_chain``; in f32 also step by step,
 ``b7_f32_steps``, ``tools/comp_f32_steps.py``), B5 (loss, dz, dparams;
 ``b5_vs_f64_chain``) and B4 (pixels, weights, denc, dencd, dz, dparams;
-``b4_vs_f64_chain``) at S = 64 and 128 (f32 B4 and B5: 64), holds the
+``b4_vs_f64_chain``) at S = 64 and 128 (f32 B4: 64), and B2 in both types
+(dx / dd; ``b2_vs_f64_chain``), holds the
 bf16 B7 forward and backward, B5 and B4 (forward and backward, on the
 tensor cores) also at S = 100, at 4093 rays and on opaque rays, and f32 B7's
-backward (3xTF32 on the tensor cores) at S = 64, 100 and 128 and on opaque
-rays, each against its plain version with f64 sums on the kernel's side of
-the compositing's kink (``KINK_SHARE``), checks that bf16 B4's and B7's
-backwards composite bitwise the raw values their forwards composited, prints
-the registers, spills and HMMA counts of the five bf16 backwards (B2, B6,
-B7, B5, B4), of B4's and B7's forwards and of f32 B7's backward,
-and times f32 B1 beside that FMA design, then drives the five training paths at
-flagship width (4096 rays, 64 + 128 samples, 256/128 wide, bf16 step, f32
-eval renders) on a synthetic scene made from a seed, each for two epochs with
-the launch counts set to 0 just before it: backend "pallas" through the
+backward and f32 B5 (3xTF32 on the tensor cores) at S = 64, 100 and 128 and
+on opaque rays, each against its plain version with f64 sums on the kernel's
+side of the compositing's kink (``KINK_SHARE``), checks that bf16 B4's and
+B7's backwards composite bitwise the raw values their forwards composited,
+prints the registers, spills and HMMA counts of the five bf16 backwards (B2,
+B6, B7, B5, B4), of B4's and B7's forwards and of the f32 backwards on the
+3xTF32 tile (B2, B7, B5), times f32 B1 beside that FMA design and f32 B2 and
+B5 at both passes' shapes beside their plain versions and library calls,
+then drives six training paths at flagship width (4096 rays, 64 + 128
+samples, 256/128 wide, bf16 step unless said, f32 eval renders) on a
+synthetic scene made from a seed, each for two epochs with the launch counts
+set to 0 just before it: backend "pallas" through the
 ``Trainer`` (B1, B2; with a state save and restore; its f32 eval renders
 must launch B1, and a 32x32 patch of the held-out view rendered in f32 on
 the card and on the CPU from the trained weights must agree to 1e-4),
@@ -48,7 +52,8 @@ through
 ``train_step.make_epoch_fn`` "pallas_rm" with ``fuse_compositing`` (B7),
 "pallas" with ``fuse_compositing`` (B4 on both passes) and "pallas" with
 ``fuse_compositing`` and ``fuse_fine_loss`` (B4 on the coarse pass, B5 on the
-fine pass). Then the seven probe kernels (P1 ``probe_mma``, P2
+fine pass), and "pallas" with compute_dtype float32 through the ``Trainer``
+(f32 B1 and B2 in the step). Then the seven probe kernels (P1 ``probe_mma``, P2
 ``probe_mlp_epilogue``, P3 ``probe_mlp_chains``, P4-P6 ``probe_expand_a/b/c``,
 P7 ``probe_enccost``) are held against their plain versions at the probe
 tools' own shapes, the five tools of ``nerf_and_dietnerf_tpu_torch/tools`` run
@@ -88,19 +93,24 @@ N_ROWS_NARROW = 4096 - 5  # f32 B1 at narrow widths
 MLP_DESIGN = {"bfloat16": "tensor cores, mma.sync bf16, 128-row tiles",
               "float32": "tensor cores, 3xTF32 wgmma, 128-row tiles in persistent blocks, "
                          "a producer warp streaming hi / lo weight packs by bulk copies"}
-# f32 B2 keeps PR 1's FMA tile.
-F32_BWD_DESIGN = "f32 FMA tiles, 64 rows"
+# f32 B2 runs the 3xTF32 mma.sync tile of csrc/mlp_tf32_mma_tile.cuh as f32
+# B7's backward and f32 B5 do: the forward keeping the slots, then the walk.
+F32_BWD_DESIGN = ("tensor cores, 3xTF32 mma.sync m16n8k8, 64-row tiles in persistent blocks, "
+                  "forward keeping the slots then the walk")
+# f32 B6's backward keeps the FMA tile.
+FMA_BWD_DESIGN = "f32 FMA tiles, 64 rows"
 # bf16 B7 backward and B5: the ray-group loop of csrc/comp_mma_tile.cuh on
-# the tensor-core tiles, one forward per row; f32 B7 backward the same loop on
-# the 3xTF32 mma.sync tiles of csrc/mlp_tf32_mma_tile.cuh.
+# the tensor-core tiles, one forward per row; f32 B7 backward and f32 B5 the
+# same loop on the 3xTF32 mma.sync tiles of csrc/mlp_tf32_mma_tile.cuh.
 COMP_MMA_DESIGN = (MLP_DESIGN["bfloat16"] + ", whole rays in a tile, one forward per row, "
                    "compositing VJP in the block, dx through a per-block slab")
 T32_COMP_DESIGN = ("tensor cores, 3xTF32 mma.sync m16n8k8, 64-row tiles, whole rays in a group, "
                    "one forward per row, compositing VJP in the block, dx through a per-block "
                    "slab")
 # B6 runs B1/B2's tensor-core tiles on the encodings it builds; its f32
-# backward (parity runs only) keeps the FMA tile. B7's bf16 forward runs the
-# forward loop of comp_mma_tile.cuh on the encodings it builds.
+# backward (parity runs and compute_dtype float32 configs) keeps the FMA
+# tile. B7's bf16 forward runs the forward loop of comp_mma_tile.cuh on the
+# encodings it builds.
 RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings built into "
                                                                     "the bf16 operand tiles",
              ("raymarch_fwd", "float32"): MLP_DESIGN["float32"] + " (two stages), encodings "
@@ -109,7 +119,7 @@ RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings
              ("raymarch_bwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings built into "
                                                                     "the bf16 operand tiles, dx "
                                                                     "through a per-block slab",
-             ("raymarch_bwd", "float32"): F32_BWD_DESIGN,
+             ("raymarch_bwd", "float32"): FMA_BWD_DESIGN,
              ("raymarch_comp_bwd", "bfloat16"): COMP_MMA_DESIGN,
              ("raymarch_comp_bwd", "float32"): T32_COMP_DESIGN,
              ("raymarch_comp_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", whole rays in a "
@@ -118,6 +128,7 @@ RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings
                                                                        "tiles, compositing in "
                                                                        "the block",
              ("mlp_loss_comp", "bfloat16"): COMP_MMA_DESIGN,
+             ("mlp_loss_comp", "float32"): T32_COMP_DESIGN,
              ("mlp_comp_bwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", whole rays in a tile, one "
                                                                   "forward per row, compositing "
                                                                   "VJP in the block, dx rows to "
@@ -125,8 +136,7 @@ RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings
                                                                   "per-block slab",
              ("mlp_comp_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", whole rays in a tile, "
                                                                   "compositing in the block"}
-# Every other kernel (f32 B7's forward, f32 B4 and f32 B5) keeps the FMA
-# tiles.
+# Every other kernel (f32 B7's forward and f32 B4) keeps the FMA tiles.
 FMA_COMP_DESIGN = "FMA tiles, 64 rows, whole rays a block"
 # B1's former f32 design, timed beside it: P3 with one chain is that FMA tile.
 FMA_DESIGN = "f32 FMA tile, one 64-row chain (P3, chains=1)"
@@ -319,10 +329,38 @@ def _vs_f64_chain(torch, rc, ws, bs, cfg, x, d, g, cd, rows, tol_r) -> dict:
     return out
 
 
+def _poison_shared_memory(torch, rc, cfg, n_sms):
+    """A call that leaves NaN in every SM's shared memory where f32 B2's X
+    and D tiles lie: f32 B1 with NaN weights, one 128-row tile a block on
+    every SM, whose weight ring (its first 98,304 bytes) covers those bytes;
+    made the last operation before f32 B2's kernel (``mlp_bwd``'s
+    ``before_launch``), and both take the largest shared-memory carve-out.
+    f32 B2 zeroes its X and D pads (columns up to pad16, ``load_rows``) so
+    that whatever they held reaches no sum; after this a pad left as it was
+    turns its outputs NaN."""
+    from nerf_and_dietnerf_tpu_torch.models import mlp
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+
+    params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
+    ws, bs = rc.flatten_params(params, cfg, torch.float32)
+    ws = [torch.full_like(w, float("nan")) for w in ws]
+    n = 128 * n_sms
+    x = torch.zeros((n, cfg.xyz_dim), device=DEVICE)
+    d = torch.zeros((n, cfg.dir_dim), device=DEVICE) if cfg.uses_view_dirs else None
+
+    def poison():
+        before = dict(kl.LAUNCHES)
+        rc.mlp_fwd(ws, bs, cfg, x, d, torch.float32)
+        kl.LAUNCHES.update(before)
+    return poison
+
+
 def _mlp_checks(torch, rc, ws, bs, cfg, x, d, g, cd, name, label):
     """B1 and B2 against their plain versions on (x, d, g), B2's dparams
-    bitwise across two runs; returns the max |kernel - plain| of each and, in
-    bf16, both against the f64 chain (:func:`_vs_f64_chain`)."""
+    bitwise across two runs, f32 B2 right after NaN was left in every SM's
+    shared memory (:func:`_poison_shared_memory`); returns the max |kernel -
+    plain| of each and both types against the f64 chain
+    (:func:`_vs_f64_chain`)."""
     tol, tol_b, tol_r = TOL[name], TOL_BWD[name], TOL_ROWS[name]
     out_k = rc.mlp_fwd(ws, bs, cfg, x, d, cd)
     torch.cuda.synchronize()
@@ -333,7 +371,10 @@ def _mlp_checks(torch, rc, ws, bs, cfg, x, d, g, cd, name, label):
         raise AssertionError(f"mlp_fwd {label}: scaled err {e_fwd} > {tol}")
     del out_k, out_p
 
-    dws, dbs, dx, dd = rc.mlp_bwd(ws, bs, cfg, x, d, g, cd)
+    poison = (_poison_shared_memory(
+        torch, rc, cfg, torch.cuda.get_device_properties(x.device).multi_processor_count)
+        if cd == torch.float32 else None)
+    dws, dbs, dx, dd = rc.mlp_bwd(ws, bs, cfg, x, d, g, cd, before_launch=poison)
     torch.cuda.synchronize()
     pws, pbs, pdx, pdd = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g, cd)
     e_par = max(_scaled_err(a, b) for a, b in zip(dws + dbs, pws + pbs))
@@ -346,11 +387,9 @@ def _mlp_checks(torch, rc, ws, bs, cfg, x, d, g, cd, name, label):
         raise AssertionError(f"mlp_bwd {label}: dparams scaled err {e_par} (tol {tol_b}); "
                              f"per-row {row_stats} (tol {tol_r})")
     del pws, pbs, pdx, pdd, pairs
-    exact = None
-    if cd == torch.bfloat16:
-        exact = _vs_f64_chain(torch, rc, ws, bs, cfg, x, d, g, cd, rows, tol_r)
-        log(f"kernel check {label}: dx/dd against the f64 chain (scaled max, normwise, share "
-            f"of rows over tol), kernel and plain; leaky-branch flips plain f32 vs f64: {exact}")
+    exact = _vs_f64_chain(torch, rc, ws, bs, cfg, x, d, g, cd, rows, tol_r)
+    log(f"kernel check {label}: dx/dd against the f64 chain (scaled max, normwise, share "
+        f"of rows over tol), kernel and plain; leaky-branch flips plain f32 vs f64: {exact}")
     del rows
     dws2, dbs2, _, _ = rc.mlp_bwd(ws, bs, cfg, x, d, g, cd)
     torch.cuda.synchronize()
@@ -385,8 +424,8 @@ def kernel_phases(torch, timings: dict) -> None:
             x, d, g = _inputs(torch, cfg, cd, N_ROWS, gen)
             abs_fwd, abs_bwd, exact = _mlp_checks(torch, rc, ws, bs, cfg, x, d, g, cd, name,
                                                   f"{variant} {name} rows={N_ROWS}")
-            if exact is not None:
-                timings.setdefault("b2_vs_f64_chain", {})[variant] = exact
+            timings.setdefault("b2_vs_f64_chain", {})[
+                variant if cd == torch.bfloat16 else f"{variant} {name}"] = exact
             if variant != "view_dirs":
                 continue
             # Times at the main path's shapes: bf16 is the train step's coarse
@@ -434,6 +473,7 @@ def kernel_phases(torch, timings: dict) -> None:
                                + (" (autograd forward + backward)" if kname == "mlp_bwd" else ""),
                     "bound_ms": bound[0],
                     "bound_by": bound[1],
+                    "bound_bytes": nbytes,
                     "max_abs_err": abs_fwd if kname == "mlp_fwd" else abs_bwd,
                 }
                 rec[kname]["max_abs_err_ragged"] = ragged[0 if kname == "mlp_fwd" else 1]
@@ -446,20 +486,38 @@ def kernel_phases(torch, timings: dict) -> None:
                 kl.LAUNCHES.update(before)
                 log(f"time mlp_fwd float32 rows={N_ROWS}: FMA design "
                     f"{rec['mlp_fwd']['fma_design_ms']:.3f} ms ({FMA_DESIGN})")
-            if cd == torch.bfloat16:
-                # The fine pass of a train step runs both kernels on twice the rows.
-                x2, d2, g2 = (torch.cat([t, t]) for t in (x, d, g))
-                before = dict(kl.LAUNCHES)
-                for kname, fn, fl in (
-                        ("mlp_fwd", lambda: rc.mlp_fwd(ws, bs, cfg, x2, d2, cd), 2 * flops),
-                        ("mlp_bwd", lambda: rc.mlp_bwd(ws, bs, cfg, x2, d2, g2, cd), 6 * flops)):
-                    ms = _time_ms(torch, fn, reps=3)
-                    rec[kname].update(ms_fine_pass=ms, tflops_fine_pass=fl / ms / 1e9)
-                kl.LAUNCHES.update(before)
-                del x2, d2, g2
-                log(f"time fine pass ({2 * N_ROWS} rows, bf16): mlp_fwd "
-                    f"{rec['mlp_fwd']['ms_fine_pass']:.3f} ms, mlp_bwd "
-                    f"{rec['mlp_bwd']['ms_fine_pass']:.3f} ms")
+            # The fine pass of a train step runs both kernels on twice the
+            # rows; f32 B2 (a float32 config's step) also beside its plain
+            # version and its library call there.
+            x2, d2, g2 = (torch.cat([t, t]) for t in (x, d, g))
+            before = dict(kl.LAUNCHES)
+            for kname, fn, fl in (
+                    ("mlp_fwd", lambda: rc.mlp_fwd(ws, bs, cfg, x2, d2, cd), 2 * flops),
+                    ("mlp_bwd", lambda: rc.mlp_bwd(ws, bs, cfg, x2, d2, g2, cd), 6 * flops)):
+                ms = _time_ms(torch, fn, reps=3)
+                rec[kname].update(ms_fine_pass=ms, tflops_fine_pass=fl / ms / 1e9)
+            if cd == torch.float32:
+                bound2 = _bound(6 * flops, _mlp_peak(name), rec["mlp_bwd"]["bound_bytes"]
+                                + N_ROWS * (16 + (cfg.xyz_dim + cfg.dir_dim) * (es + 4)))
+
+                def lib_bwd2():
+                    out = _library_mlp(torch, leaves, bs, cfg, x2, d2)
+                    torch.autograd.grad(out, leaves, g2.to(out.dtype))
+                rec["mlp_bwd"].update(
+                    share_of_bound_fine_pass=bound2[0] / rec["mlp_bwd"]["ms_fine_pass"],
+                    plain_ms_fine_pass=_time_ms(
+                        torch, lambda: rc.mlp_bwd_plain(ws, bs, cfg, x2, d2, g2, cd), reps=2),
+                    library_ms_fine_pass=_time_ms(torch, lib_bwd2, reps=3))
+            kl.LAUNCHES.update(before)
+            del x2, d2, g2
+            log(f"time fine pass ({2 * N_ROWS} rows, {name}): mlp_fwd "
+                f"{rec['mlp_fwd']['ms_fine_pass']:.3f} ms, mlp_bwd "
+                f"{rec['mlp_bwd']['ms_fine_pass']:.3f} ms ("
+                f"{rec['mlp_bwd']['tflops_fine_pass']:.1f} TFLOP/s)"
+                + (f", {100 * rec['mlp_bwd']['share_of_bound_fine_pass']:.2f} % of the bound, "
+                   f"plain {rec['mlp_bwd']['plain_ms_fine_pass']:.3f} ms, library "
+                   f"{rec['mlp_bwd']['library_ms_fine_pass']:.3f} ms"
+                   if cd == torch.float32 else ""))
             timings[name] = rec
             for kname, r in rec.items():
                 log(f"time {kname} {name} rows={N_ROWS} ({r['design']}): kernel {r['ms']:.3f} ms "
@@ -467,22 +525,48 @@ def kernel_phases(torch, timings: dict) -> None:
                     f"plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound "
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
-    # f32 B1 at narrow widths (a 40-wide trunk, a 24-wide rgb layer): the
-    # 64-column products and the 8-column last chunks of its tile, which the
-    # flagship widths do not reach, on a ragged row count.
+    # f32 B1 and B2 at narrow widths (a 40-wide trunk, a 24-wide rgb layer):
+    # B1's 64-column products and 8-column last chunks, B2's products with 5
+    # or 3 n-tiles (one or two a warp) and part-filled weight-gradient tiles,
+    # which the flagship widths do not reach, on a ragged row count.
     before = dict(kl.LAUNCHES)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
         cfg = mlp.MLPConfig(hidden_dim=40, last_hidden_dim=24, n_angles=n_angles)
         params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
         ws, bs = rc.flatten_params(params, cfg, torch.float32)
-        x, d, _ = _inputs(torch, cfg, torch.float32, N_ROWS_NARROW, gen)
+        x, d, g = _inputs(torch, cfg, torch.float32, N_ROWS_NARROW, gen)
         out_k = rc.mlp_fwd(ws, bs, cfg, x, d, torch.float32)
         torch.cuda.synchronize()
         e = _scaled_err(out_k, rc.mlp_fwd_plain(ws, bs, cfg, x, d, torch.float32))
         if not (torch.isfinite(out_k).all() and e <= TOL["float32"]):
             raise AssertionError(f"mlp_fwd float32 narrow {variant}: scaled err {e}")
-        log(f"kernel check mlp_fwd {variant} float32 hidden 40 / last 24 rows={N_ROWS_NARROW}: "
-            f"scaled err {e:.3e} (tol {TOL['float32']})")
+        # B2 against the chain with f64 sums: at these widths one row's
+        # leaky-branch flip in the plain f32 version's own sums moves a leaf
+        # by over TOL_BWD (on this draw, xyz only: 1.5e-3 against the f64
+        # chain, one row of 4091 over TOL_ROWS); the plain version's
+        # distance is printed beside.
+        dws, dbs, dx, dd = rc.mlp_bwd(ws, bs, cfg, x, d, g, torch.float32)
+        torch.cuda.synchronize()
+        exact = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g, torch.float32, work=torch.float64)
+        plain = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g, torch.float32)
+        dist = {}
+        for who, (a_ws, a_bs, a_dx, a_dd) in (("kernel", (dws, dbs, dx, dd)), ("plain", plain)):
+            dist[who] = {
+                "dparams": max(_scaled_err(a, b) for a, b in zip(a_ws + a_bs,
+                                                                 exact[0] + exact[1])),
+                **{k: _row_errs(a, b, TOL_ROWS["float32"]) for k, a, b in
+                   [("dx", a_dx, exact[2])] + ([("dd", a_dd, exact[3])] if d is not None
+                                               else [])}}
+        k_ = dist["kernel"]
+        if (not all(bool(torch.isfinite(t).all()) for t in dws + dbs + [dx])
+                or k_["dparams"] > TOL_BWD["float32"]
+                or any(k_[r][1] > TOL_ROWS["float32"] for r in ("dx", "dd") if r in k_)):
+            raise AssertionError(f"mlp_bwd float32 narrow {variant} against the f64 chain: {dist}")
+        log(f"kernel check mlp_fwd / mlp_bwd {variant} float32 hidden 40 / last 24 "
+            f"rows={N_ROWS_NARROW}: fwd scaled err {e:.3e} (tol {TOL['float32']}); bwd against "
+            f"the f64 chain, kernel and plain (dparams scaled, dx/dd (scaled max, normwise, "
+            f"share of rows over tol)): {dist} (tol {TOL_BWD['float32']} / "
+            f"{TOL_ROWS['float32']})")
     kl.LAUNCHES.update(before)
 
 
@@ -603,17 +687,17 @@ def _hold_comp_bwd(torch, kernel, label, name, ws, bs, cfg, cd, args, run) -> di
     None[, rows])``), on the tensor cores writing the raw values it
     composited to ``raw``. Finite, dparams (and B5's loss, B4's dencd)
     bitwise equal across two runs, and held to the tolerances: on the tensor
-    cores (every bf16 kernel, and f32 B7, whose 3xTF32 tiles sum in an order
-    of their own) as KINK_SHARE sets out, in the compute type's tolerances;
-    f32 B5 and B4 (the FMA kernels, which sum in the plain version's order)
-    against the plain f32 version. Returns ``tools/comp_kink.compare``'s
+    cores (every bf16 kernel, and f32 B7 and B5, whose 3xTF32 tiles sum in an
+    order of their own) as KINK_SHARE sets out, in the compute type's
+    tolerances; f32 B4 (the FMA kernel, which sums in the plain version's
+    order) against the plain f32 version. Returns ``tools/comp_kink.compare``'s
     record, ``held_to`` naming the reference held to."""
     from nerf_and_dietnerf_tpu_torch.tools import comp_kink
 
     kname = COMP_BWD_NAMES[kernel]
     z = args[1] if kernel == "B7" else args[2]
     raw = (torch.empty((*z.shape, 4), dtype=torch.float32, device=DEVICE)
-           if cd == torch.bfloat16 or kernel == "B7" else None)
+           if cd == torch.bfloat16 or kernel in ("B7", "B5") else None)
     got, again = run(raw), run(None)
     torch.cuda.synchronize()
 
@@ -1159,10 +1243,10 @@ def comp_kernel_phases(torch, timings: dict) -> None:
             name = str(cd).split(".")[-1]
             ws, bs = rc.flatten_params(params, cfg, cd)
             # Sample counts: B4 at the coarse pass's 64, B4 and B5 at the fine
-            # pass's 128; in f32 also at the ragged 100; bf16 B5 at 64 too (it
-            # draws nothing: every other check keeps its inputs).
+            # pass's 128; in f32 also at the ragged 100; B5 at 64 too (it draws
+            # nothing: every other check keeps its inputs).
             batches, errs, cots, recs = {}, {}, {}, {}
-            for n_s, b4, b5 in ((SAMPLES, True, cd == torch.bfloat16),
+            for n_s, b4, b5 in ((SAMPLES, True, True),
                                 (2 * SAMPLES, cd == torch.bfloat16, True)) + (
                     ((SAMPLES_RAGGED, True, True),) if cd == torch.float32 else ()):
                 batches[n_s] = _enc_batch(torch, cfg, cd, RAYS, n_s, gen)
@@ -1182,13 +1266,15 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                     errs[label].update(_comp_checks(
                         torch, rk, cfg, ws, bs, _enc_batch(torch, cfg, cd, n_r, n_s, gen_b4), cd,
                         name, gen_b4, label, b5=False)[0])
-                for n_s in (SAMPLES, 2 * SAMPLES):
-                    chain5 = _chain_record(recs[n_s]["B5"])
-                    timings.setdefault("b5_vs_f64_chain", {}).setdefault(variant, {})[
-                        f"S={n_s}"] = chain5
-                    log(f"kernel check B5 {variant} {name} R={RAYS} S={n_s} against the f64 "
-                        f"evaluation (loss relative, dz and dparams normwise; kernel and "
-                        f"plain): {chain5}")
+            # B5 and its plain version against the f64 evaluation at S = 64 and
+            # 128 (bf16 under "S=..", f32 under "float32 S=..").
+            for n_s in (SAMPLES, 2 * SAMPLES):
+                chain5 = _chain_record(recs[n_s]["B5"])
+                timings.setdefault("b5_vs_f64_chain", {}).setdefault(variant, {})[
+                    ("" if cd == torch.bfloat16 else f"{name} ") + f"S={n_s}"] = chain5
+                log(f"kernel check B5 {variant} {name} R={RAYS} S={n_s} against the f64 "
+                    f"evaluation (loss relative, dz and dparams normwise; kernel and "
+                    f"plain): {chain5}")
             # B4 and its plain version against the f64 evaluation: in bf16 at
             # S = 64 and 128, in f32 (the FMA kernels, beside f32 B7's reading
             # in b7_vs_f64_chain: ROADMAP C3) at S = 64.
@@ -1255,8 +1341,6 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                     rec[kname]["ms_fine_pass"] = _time_ms(torch, case(kname, 2 * SAMPLES)[0],
                                                           reps=3)
                     rec[kname]["max_abs_err_s128"] = errs[2 * SAMPLES][kname]
-                # B5 at the coarse pass's count too (on the S = 64 batch).
-                rec["mlp_loss_comp"]["ms_s64"] = _time_ms(torch, case("mlp_loss_comp", SAMPLES)[0])
                 rec["mlp_loss_comp"]["max_abs_err_s100"] = errs[
                     f"{variant} {name} R={RAYS} S={SAMPLES_RAGGED}"]["mlp_loss_comp"]
                 rec["mlp_loss_comp"]["max_abs_err_ragged"] = errs[
@@ -1269,6 +1353,16 @@ def comp_kernel_phases(torch, timings: dict) -> None:
             else:
                 for kname in COMP_SOURCES:
                     rec[kname]["max_abs_err_s100"] = errs[SAMPLES_RAGGED][kname]
+            # B5 at the coarse pass's count too (on the S = 64 batch); in f32
+            # beside its plain version and its library composition there.
+            fn, plain, lib = case("mlp_loss_comp", SAMPLES)
+            r5 = rec["mlp_loss_comp"]
+            r5["ms_s64"] = _time_ms(torch, fn)
+            r5["tflops_s64"] = 3 * mlp_flops(cfg, RAYS * SAMPLES) / r5["ms_s64"] / 1e9
+            if cd == torch.float32:
+                r5["share_of_bound_s64"] = r5["bound_ms"] / 2 / r5["ms_s64"]
+                r5["plain_ms_s64"] = _time_ms(torch, plain, reps=2)
+                r5["library_ms_s64"] = _time_ms(torch, lib)
             kl.LAUNCHES.update(before)  # timing launches are not the main path's
             timings["comp_" + name] = rec
             for kname, r in rec.items():
@@ -1279,7 +1373,10 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                     f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                     + (f"; S={2 * SAMPLES}: {r['ms_fine_pass']:.3f} ms"
                        if "ms_fine_pass" in r else "")
-                    + (f"; S={SAMPLES}: {r['ms_s64']:.3f} ms" if "ms_s64" in r else ""))
+                    + (f"; S={SAMPLES}: {r['ms_s64']:.3f} ms ({r['tflops_s64']:.1f} TFLOP/s"
+                       + (f", {100 * r['share_of_bound_s64']:.2f} % of the bound, plain "
+                          f"{r['plain_ms_s64']:.3f} ms, library {r['library_ms_s64']:.3f} ms"
+                          if "plain_ms_s64" in r else "") + ")" if "ms_s64" in r else ""))
 
     # Opaque rays: transmittance underflows to exactly 0; B4's backward and B5
     # stay finite (their compositing VJP is division-free) and agree with
@@ -1840,7 +1937,12 @@ MAIN_PATHS = {
     "pallas_rm_fused": ("raymarch_comp_fwd", "raymarch_comp_bwd"),
     "pallas_fused": ("mlp_comp_fwd", "mlp_comp_bwd"),
     "pallas_fused_loss": ("mlp_comp_fwd", "mlp_comp_bwd", "mlp_loss_comp"),
+    "pallas_f32": ("mlp_fwd", "mlp_bwd"),
 }
+# The paths driven through the Trainer: backend and compute type. "pallas_f32"
+# is the step of a config with compute_dtype float32 (f32 B1 and B2).
+TRAINER_PATHS = {"pallas": ("pallas", "bfloat16"), "pallas_rm": ("pallas_rm", "bfloat16"),
+                 "pallas_f32": ("pallas", "float32")}
 # The model-config changes of the paths driven through train_step.make_epoch_fn
 # (no YAML key sets the two flags).
 FUSED_PATHS = {
@@ -1850,14 +1952,14 @@ FUSED_PATHS = {
 }
 
 
-def _flagship_run(backend: str):
+def _flagship_run(backend: str, compute_dtype: str = "bfloat16"):
     from nerf_and_dietnerf_tpu_torch.utils.config import RunConfig
 
     return RunConfig(
         hidden_layer_dim=256, last_hidden_layer_dim=128, n_pos_enc_dim_xyz=5,
         n_pos_enc_view_dir=4, n_angles_for_model=2, n_rays_in_batch_train=4096,
         n_render_samples_coarse=64, n_render_samples_fine=128, n_epochs=2,
-        test_img_idx=0, idx_train_img_to_plot=1, compute_dtype="bfloat16",
+        test_img_idx=0, idx_train_img_to_plot=1, compute_dtype=compute_dtype,
         backend=backend, init_seed=SEED,
     )
 
@@ -1873,20 +1975,22 @@ def _check_path(path: str, losses, launches: dict) -> None:
         raise AssertionError(f"{path}: kernels not launched on the main path: {missing}")
 
 
-def train_phase(torch, timings: dict, backend: str):
-    """Two epochs of the ``Trainer`` (steps and eval renders) with the launch
-    counts set to 0 just before; returns ``(launches, trainer)``."""
+def train_phase(torch, timings: dict, path: str):
+    """Two epochs of the ``Trainer`` on the path ``path`` (a key of
+    ``TRAINER_PATHS``: steps and eval renders) with the launch counts set to
+    0 just before; returns ``(launches, trainer)``."""
     import numpy as np
 
     from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
     from nerf_and_dietnerf_tpu_torch.train.trainer import Trainer
 
+    backend, compute_dtype = TRAINER_PATHS[path]
     ds = synthetic_scene()
-    trainer = Trainer(_flagship_run(backend), ds, ROOT / "build" / f"chip_smoke_{backend}",
-                      device=DEVICE)
+    trainer = Trainer(_flagship_run(backend, compute_dtype), ds,
+                      ROOT / "build" / f"chip_smoke_{path}", device=DEVICE)
     steps = trainer.data.batches_per_epoch
-    log(f"train {backend}: {len(trainer.train_indices)} views of {ds.height}x{ds.width}, "
-        f"{trainer.data.n_rays} rays, {steps} steps per epoch")
+    log(f"train {path} ({backend}, {compute_dtype} step): {len(trainer.train_indices)} views "
+        f"of {ds.height}x{ds.width}, {trainer.data.n_rays} rays, {steps} steps per epoch")
 
     torch.cuda.synchronize()
     kl.reset_launch_counts()
@@ -1894,11 +1998,11 @@ def train_phase(torch, timings: dict, backend: str):
     torch.cuda.synchronize()
     launches = dict(kl.LAUNCHES)
     for s in stats:
-        log(f"{backend} epoch {s.epoch}: loss={s.loss:.6f} psnr_train={s.psnr_train:.3f} "
+        log(f"{path} epoch {s.epoch}: loss={s.loss:.6f} psnr_train={s.psnr_train:.3f} "
             f"psnr_test={s.psnr_test:.3f} {s.rays_per_sec:.0f} rays/s ({s.seconds:.3f} s)")
-    _check_path(backend, [s.loss for s in stats], launches)
+    _check_path(path, [s.loss for s in stats], launches)
 
-    if backend == "pallas":
+    if path == "pallas":
         trainer.ckpt.save(2, trainer.state)
         restored = trainer.ckpt.restore()
         from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
@@ -1912,7 +2016,7 @@ def train_phase(torch, timings: dict, backend: str):
     # Step and eval-frame times (the epoch's seconds include its first step).
     # The f32 eval renders' own launches of the path's forward kernel count
     # too: under "pallas" they are f32 B1's.
-    fwd_kernel = MAIN_PATHS[backend][0]
+    fwd_kernel = MAIN_PATHS[path][0]
     before = kl.LAUNCHES[fwd_kernel]
     t0 = time.perf_counter()
     trainer._eval_render_cache = None
@@ -1924,11 +2028,11 @@ def train_phase(torch, timings: dict, backend: str):
     for name, (_, rgb) in renders.items():
         if rgb.shape != (ds.height, ds.width, 3) or not np.isfinite(rgb).all():
             raise AssertionError(f"bad eval render {name}: {rgb.shape}")
-    log(f"{backend}: two f32 eval frames of {ds.height}x{ds.width}, {1e3 * frame_s:.3f} ms a "
+    log(f"{path}: two f32 eval frames of {ds.height}x{ds.width}, {1e3 * frame_s:.3f} ms a "
         f"frame, {eval_launches} launches of {fwd_kernel}")
     if eval_launches <= 0:
-        raise AssertionError(f"{backend}: the f32 eval renders launched no {fwd_kernel}")
-    timings["train_" + backend] = {
+        raise AssertionError(f"{path}: the f32 eval renders launched no {fwd_kernel}")
+    timings["train_" + path] = {
         "ms_per_step": 1e3 * stats[1].seconds / steps,
         "rays_per_sec": stats[1].rays_per_sec,
         "ms_per_eval_frame": 1e3 * frame_s,
@@ -2034,30 +2138,67 @@ def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
 
 
 # The kernels whose products must run on the tensor cores, and the SASS
-# instruction they must hold: bf16 B1/B2/B4-B7 and f32 B7's backward on
-# `mma.sync` (HMMA; tf32 for f32 B7), f32 B1/B6 forward on `wgmma` (HGMMA).
+# instruction they must hold: bf16 B1/B2/B4-B7 and f32 B2, B5 and B7's
+# backward on `mma.sync` (HMMA; tf32 for the f32 ones), f32 B1/B6 forward on
+# `wgmma` (HGMMA).
 MMA_KERNELS = {"mlp_fwd": {"mlp_fwd_mma_kernel": "HMMA", "mlp_fwd_tf32_kernel": "HGMMA"},
-               "mlp_bwd": {"mlp_bwd_mma_kernel": "HMMA"},
+               "mlp_bwd": {"mlp_bwd_mma_kernel": "HMMA", "mlp_bwd_t32_kernel": "HMMA"},
                "raymarch_fwd": {"rm_fwd_mma_kernel": "HMMA", "rm_fwd_tf32_kernel": "HGMMA"},
                "raymarch_bwd": {"rm_bwd_mma_kernel": "HMMA"},
                "raymarch_comp_fwd": {"rm_comp_fwd_mma_kernel": "HMMA"},
                "raymarch_comp_bwd": {"rm_comp_bwd_mma_kernel": "HMMA",
                                      "rm_comp_bwd_t32_kernel": "HMMA"},
-               "mlp_loss_comp": {"mlp_loss_comp_mma_kernel": "HMMA"},
+               "mlp_loss_comp": {"mlp_loss_comp_mma_kernel": "HMMA",
+                                 "mlp_loss_comp_t32_kernel": "HMMA"},
                "mlp_comp_fwd": {"mlp_comp_fwd_mma_kernel": "HMMA"},
                "mlp_comp_bwd": {"mlp_comp_bwd_mma_kernel": "HMMA"}}
 # The kernels on the tensor-core tiles whose registers, spills and SASS
 # counts the run prints side by side: the bf16 backwards (B2, B6, B7, B5, B4),
-# the forwards of the ray-group loop (B4, B7) and f32 B7's backward.
+# the forwards of the ray-group loop (B4, B7) and the f32 backwards on the
+# 3xTF32 tile (B2, B7, B5).
 BWD_MMA_KERNELS = {"mlp_bwd": "mlp_bwd_mma_kernel", "raymarch_bwd": "rm_bwd_mma_kernel",
                    "raymarch_comp_bwd": "rm_comp_bwd_mma_kernel",
                    "mlp_loss_comp": "mlp_loss_comp_mma_kernel",
                    "mlp_comp_bwd": "mlp_comp_bwd_mma_kernel"}
 FWD_MMA_KERNELS = {"mlp_comp_fwd": "mlp_comp_fwd_mma_kernel",
                    "raymarch_comp_fwd": "rm_comp_fwd_mma_kernel"}
-T32_MMA_KERNELS = {"raymarch_comp_bwd": "rm_comp_bwd_t32_kernel"}
+T32_MMA_KERNELS = {"mlp_bwd": "mlp_bwd_t32_kernel", "raymarch_comp_bwd": "rm_comp_bwd_t32_kernel",
+                   "mlp_loss_comp": "mlp_loss_comp_t32_kernel"}
 REPORTED = (("backwards", BWD_MMA_KERNELS), ("forwards", FWD_MMA_KERNELS),
             ("f32_backwards", T32_MMA_KERNELS))
+
+
+def _ptxas_counts(build_log: str) -> dict:
+    """The registers and spill bytes ``-Xptxas -v`` gives each kernel of
+    ``REPORTED`` (its own lines, not those of a device function the compiler
+    kept out of line); prints the ptxas lines of ``MMA_KERNELS``'s libraries."""
+    import re
+
+    block, entry, props, ptxas = None, None, None, {}
+    counted = {(lib, k) for _, kernels in REPORTED for lib, k in kernels.items()}
+    for line in build_log.splitlines():
+        if line.startswith("--- "):
+            block = line[4:].strip()
+        elif block in MMA_KERNELS and "ptxas" in line:
+            log(f"  ptxas {block}: {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            continue
+        if "Function properties for " in line:
+            # the lines after it are this function's (a device function the
+            # compiler kept out of line has lines of its own)
+            props = line.split("Function properties for ")[1].strip()
+            continue
+        for lib, k in counted:
+            if block == lib and k in (entry or "") and props == entry:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    ptxas.setdefault(k, {}).update(spill_stores=int(m.group(1)),
+                                                   spill_loads=int(m.group(2)))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    ptxas.setdefault(k, {})["registers"] = int(m.group(1))
+    return ptxas
 
 
 def tensor_core_report(kl, build_log: str) -> dict:
@@ -2070,24 +2211,7 @@ def tensor_core_report(kl, build_log: str) -> dict:
     import re
     import shutil
 
-    block, entry, ptxas = None, None, {}
-    counted = {(lib, k) for _, kernels in REPORTED for lib, k in kernels.items()}
-    for line in build_log.splitlines():
-        if line.startswith("--- "):
-            block = line[4:].strip()
-        elif block in MMA_KERNELS and "ptxas" in line:
-            log(f"  ptxas {block}: {line.strip()}")
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-            continue
-        for lib, k in counted:
-            if block == lib and k in (entry or ""):
-                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                if m:
-                    ptxas[k] = {"spill_stores": int(m.group(1)), "spill_loads": int(m.group(2))}
-                m = re.search(r"Used (\d+) registers", line)
-                if m:
-                    ptxas.setdefault(k, {})["registers"] = int(m.group(1))
+    ptxas = _ptxas_counts(build_log)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         log("SASS: cuobjdump not available, tensor-core instructions not counted")
@@ -2162,6 +2286,8 @@ def main() -> int:
         got = fused_phase(torch, timings, trainer, path)
         for k in MAIN_PATHS[path]:
             launches.setdefault(k, got[k])
+    # The step of a compute_dtype float32 config: f32 B1 and B2.
+    train_phase(torch, timings, "pallas_f32")
     log(f"training paths done at {time.perf_counter() - t_start:.0f} s")
     launches.update(tools_phase(torch))
     profile_phase(torch, timings, trainer)

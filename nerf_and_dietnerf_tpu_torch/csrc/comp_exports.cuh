@@ -4,10 +4,10 @@
 // library it launches and the two cannot disagree. bf16: the ray-group loop
 // of comp_mma_tile.cuh (whole rays in one 128-row tile, every tile's slots,
 // a BM-row f32 slab a block). f32: groups of about 64 rows (the FMA kernels'
-// chunks, and the 64-row tiles of f32 B7's tensor-core loop); the library
+// chunks, and the 64-row tiles of f32 B7's and B5's tensor-core loop); the library
 // defines how many 64-row chunks' slots its f32 kernel keeps for a group
-// (f32_chunks_kept) and the rows of its f32 slab (f32_slab_rows: B7's dx
-// rows, none for the FMA kernels of B5 and B4).
+// (f32_chunks_kept) and the rows of its f32 slab (f32_slab_rows: B7's and
+// B5's dx rows, none for B4's FMA kernel).
 #pragma once
 
 #include "comp_mma_tile.cuh"

@@ -5,8 +5,8 @@
 // loops take the tile code as a kit: Bf16Kit below (the bf16 `mma.sync` tiles
 // of mlp_mma_tile.cuh, 128 rows; every bf16 instance) or nerf_tmma::Kit (the
 // 3xTF32 `mma.sync` tiles of mlp_tf32_mma_tile.cuh, 64 rows; f32 B7's
-// backward). The other f32 instances (B4, B5, B7's forward) keep the FMA
-// tiles of mlp_common.cuh / mlp_bwd_tile.cuh.
+// backward and f32 B5). The other f32 instances (B4, B7's forward) keep the
+// FMA tiles of mlp_common.cuh / mlp_bwd_tile.cuh.
 //
 // A block owns whole rays, as the compositing needs: a group is the rays
 // that fit in one tile of the kit's BM rows, rays_per_group(S, BM) = S >= BM
@@ -22,7 +22,9 @@
 //      load_cotangent makes it) from GRAW, then backward_walk over the kept
 //      slots. B7 and B5: dx goes to the block's BM x xyz f32 slab (the tile
 //      as a call of its own, as B6's backward does), and after a barrier one
-//      thread per row writes dz = DZC + the policy's share of the points.
+//      thread per row writes dz = DZC + the policy's share of the points
+//      (from the row's dx and its X row, which the f32 kit stores swizzled:
+//      the policy reads it through nerf_tmma::sw).
 //      B4 (a policy with INPUT_GRADS): dx rows go straight to the policy's
 //      output (denc), dd rows to the block's BM x dir f32 slab, which the
 //      policy sums per ray in row order, tile after tile (dencd), and dz is
@@ -65,6 +67,7 @@
 
 #include "composite_common.cuh"
 #include "mlp_mma_tile.cuh"
+#include "t32_phases.cuh"
 
 namespace nerf_cmma {
 
@@ -232,6 +235,7 @@ __device__ inline float backward_groups(const Policy& pol, void* smem, const Dim
     const int n_tiles = (g.rows + BM - 1) / BM;
     // 1. the forward, once per row
     for (int j = 0; j < n_tiles; ++j) {
+      T32_PHASE(nerf_t32ph::INPUTS);
       __syncthreads();
       pol.inputs(g, j * BM, t.X, t.D);
       __syncthreads();
@@ -240,6 +244,7 @@ __device__ inline float backward_groups(const Policy& pol, void* smem, const Dim
       K::forward_tile(tdm, L, M, F, B, t, ring, acts + j * tile_slots, RAW + 4 * j * BM, 0,
                       j + 1 < n_tiles ? &f0 : &b10);
     }
+    T32_PHASE(nerf_t32ph::COMPOSITE);
     __syncthreads();
     if (raw != nullptr)
       for (int i = tid; i < 4 * g.rows; i += blockDim.x) raw[(size_t)g.ray0 * S * 4 + i] = RAW[i];
@@ -252,6 +257,7 @@ __device__ inline float backward_groups(const Policy& pol, void* smem, const Dim
       for (int i = 0; i < g.n_rays; ++i) sum += ERR[i];
     // 3. the walk over the kept slots, then dz
     for (int j = 0; j < n_tiles; ++j) {
+      T32_PHASE(nerf_t32ph::INPUTS);
       const typename K::E* slots = acts + j * tile_slots;
       if (n_tiles > 1) {
         __syncthreads();
@@ -275,6 +281,7 @@ __device__ inline float backward_groups(const Policy& pol, void* smem, const Dim
         K::backward_walk(tdm, L, M, Bp, t, ring, slots, part, first, 0, slab, nullptr, after,
                          b10);
         first = false;
+        T32_PHASE(nerf_t32ph::DZ);
         __syncthreads();
         if (tid < tdm.n) {
           const int row = j * BM + tid;

@@ -1,10 +1,9 @@
-// Shared device code of the radiance-MLP backward (mlp_bwd.cu, the fused
-// ray-march backwards raymarch_bwd.cu and raymarch_comp_bwd.cu, and the
-// MLP + compositing backwards mlp_comp_bwd.cu and mlp_loss_comp.cu): one
-// 64-row tile's forward with its activations kept (`backward_tile` recomputes
-// it; the compositing kernels ran it already and call `backward_walk`), then
-// the chain back, with the weight and bias gradients summed into the block's
-// own slab of a scratch buffer.
+// Shared device code of the f32 FMA backwards (f32 B6, raymarch_bwd.cu, and
+// f32 B4, mlp_comp_bwd.cu) and the slab sum and scratch exports every
+// backward library uses: one 64-row tile's forward with its activations kept
+// (`backward_tile` recomputes it; the compositing kernel ran it already and
+// calls `backward_walk`), then the chain back, with the weight and bias
+// gradients summed into the block's own slab of a scratch buffer.
 //
 // As the JAX package's `_backward_tile`: the leaky gradient takes the sign of
 // the post-activation (ties >= 0 take the identity branch), gradients are

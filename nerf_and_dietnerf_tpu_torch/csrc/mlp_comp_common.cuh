@@ -5,10 +5,12 @@
 // (rays, S, features) encoding array, so z (R, S) is indexed by the row. The
 // xyz encodings arrive per row in the compute type; the view-dir encodings
 // arrive per ray in f32 and are copied into every row of the ray's tile here,
-// rounded to the compute type, so their per-sample broadcast never exists in
-// global memory. The f32 kernels (FMA tiles) walk a block's whole rays in
-// TM-row chunks (load_chunk); the bf16 kernels run the ray-group loop of
-// comp_mma_tile.cuh on 128-row tensor-core tiles (load_comp_mma_inputs).
+// rounded to the compute type (f32 B5 copies them exactly,
+// mlp_loss_comp.cu), so their per-sample broadcast never exists in global
+// memory. f32 B4 (FMA tiles) walks a block's whole rays in TM-row chunks
+// (load_chunk); the bf16 kernels run the ray-group loop of comp_mma_tile.cuh
+// on 128-row tensor-core tiles (load_comp_mma_inputs), f32 B5 on the f32
+// kit's 64-row tiles.
 #pragma once
 
 #include "comp_mma_tile.cuh"

@@ -35,9 +35,13 @@
 //   view-dir encoding rounded to bf16 into every row (load_comp_mma_inputs),
 //   dx through a per-block BM x xyz slab into dz_points, which reads the X
 //   tile's bf16 values widened to f32; `w` / `wt` are the F and B packs.
-// - f32 (parity runs only): the FMA tiles (the structure of the B4 backward,
-//   64-row chunks, backward_walk per chunk); `w` / `wt` the flat weights and
-//   their transposes.
+// - f32 (parity runs, configs with compute_dtype float32): the same loop on
+//   the 3xTF32 tensor-core tiles of mlp_tf32_mma_tile.cuh (64-row tiles; at S
+//   = 128 a group is one ray over two tiles, both tiles' slots kept): X the
+//   f32 encodings, D each ray's f32 view-dir encoding copied exactly, both
+//   stored swizzled (load_comp_t32_inputs), so dz_points reads the X row
+//   through nerf_tmma::sw; `w` / `wt` are the F and B buffers of
+//   raymarch_cuda.t32_packs.
 // On the TPU the loss is summed across sequential grid steps; blocks here run
 // in no order, so a block's loss share is the last entry of its gradient
 // slab, and the second launch adds the slabs in block order: the loss and the
@@ -45,117 +49,69 @@
 #include "comp_exports.cuh"
 #include "mlp_bwd_tile.cuh"
 #include "mlp_comp_common.cuh"
+#include "mlp_tf32_mma_tile.cuh"
 
 using namespace nerf_mlp;
 using namespace nerf_comp;
 
 constexpr float PI_F = 3.14159265358979f;
 
-// B2's tiles, 9 floats per row of the group (raw values, their cotangents, the
-// compositing's dz) and a squared error per ray.
-constexpr size_t loss_comp_smem_bytes(int S) {
-  return bwd_smem_bytes() + sizeof(float) * (size_t)rays_per_group(S) * (9 * (size_t)S + 1);
-}
-static_assert(loss_comp_smem_bytes(MAX_S_COMP) <= 232448, "shared memory of a block");
+// Where column c of a tile row is stored: bf16 tiles plainly, the f32 tiles
+// of mlp_tf32_mma_tile.cuh swizzled (nerf_tmma::sw of the row in its tile).
+struct PlainCols {
+  __device__ int operator()(int c) const { return c; }
+};
+struct SwizzledCols {
+  int r;  // the row in its tile
+  __device__ int operator()(int c) const { return nerf_tmma::sw(r, c); }
+};
 
 // The points' share of one row's dz: its xyz-encoding cotangent gx and its
-// encoding x (rows of the dx and X tiles; X f32 or bf16, read widened) through
-// the encoding VJP, then the ray's direction.
-template <typename X>
-__device__ inline float dz_points(const float* gx, const X* x, int n_freq, const float* dvec) {
+// encoding row x (of the dx slab and the X tile; X f32 or bf16, read widened,
+// column c at x[col(c)]) through the encoding VJP, then the ray's direction.
+template <typename X, typename Col>
+__device__ inline float dz_points(const float* gx, const X* x, int n_freq, const float* dvec,
+                                  Col col) {
   const int per = 1 + 2 * n_freq;
   float dz = 0.f;
   for (int c = 0; c < 3; ++c) {
     const float* g = gx + c * per;
-    const X* e = x + c * per;
+    const int e = c * per;
     float s = g[0];
     for (int k = 0; k < n_freq; ++k) {
       const float f = ldexpf(PI_F, k);
-      s += g[1 + 2 * k] * (f * to_f<X>(e[2 + 2 * k]));
-      s += g[2 + 2 * k] * (-f * to_f<X>(e[1 + 2 * k]));
+      s += g[1 + 2 * k] * (f * to_f<X>(x[col(e + 2 + 2 * k)]));
+      s += g[2 + 2 * k] * (-f * to_f<X>(x[col(e + 1 + 2 * k)]));
     }
     dz += s * dvec[c];
   }
   return dz;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT, 1)
-    mlp_loss_comp_kernel(Dims dm, Layout L, EncRays<T> in, const float* __restrict__ dvec,
-                         const float* __restrict__ target, float inv_n,
-                         const T* __restrict__ W, const T* __restrict__ WT,
-                         const float* __restrict__ B, float* __restrict__ dz,
-                         float* __restrict__ partial, T* __restrict__ acts_all, int groups) {
-  extern __shared__ float4 smem4[];
-  const BwdTiles t = bwd_tiles(reinterpret_cast<float*>(smem4));
-  const int S = in.S, rpg = rays_per_group(S);
-  float* RAW = t.GI + TM * 8;        // (rpg * S, 4) raw radiance
-  float* GRAW = RAW + 4 * rpg * S;    // (rpg * S, 4) its cotangent
-  float* DZC = GRAW + 4 * rpg * S;    // (rpg * S) weights, then the compositing's dz
-  float* ERR = DZC + rpg * S;         // (rpg) squared error of each ray
-  // The block's slab: weight gradients, bias gradients, its share of the loss.
-  const size_t p_total = (size_t)L.total_w + L.total_b + 1;
-  const size_t slots = (size_t)NACT * TM * HMAX;
-  float* part = partial + blockIdx.x * p_total;
-  T* acts = acts_all + (size_t)blockIdx.x * chunks_per_group(S) * slots;
-  const int tid = threadIdx.x;
-  const int n_freq = (dm.xyz - 3) / 6;
-
-  bool first = true;
-  float sq_err = 0.f;  // thread 0: the block's sum of squared errors, in ray order
-  for (int group = blockIdx.x; group < groups; group += gridDim.x) {
-    const Group g = group_of(group, in.R, S);
-    const size_t grow0 = (size_t)g.ray0 * S;
-    Dims dl = dm;
-    dl.n = g.rows;
-    // 1. the forward, once: raw radiance to RAW, activations to the slab
-    for (int c0 = 0; c0 < g.rows; c0 += TM) {
-      __syncthreads();
-      load_chunk<T>(in, dm, g, c0, t.X, t.D);
-      __syncthreads();
-      forward_tile<T>(dl, L, W, B, t.X, t.D, t.P, t.G, t.Ws, acts + (c0 / TM) * slots, RAW, c0);
-    }
-    __syncthreads();
-    // 2. pixel, error, its cotangent and the compositing VJP, one thread per ray
-    if (tid < g.n_rays) {
-      const size_t ray = (size_t)g.ray0 + tid;
-      const float* raw = RAW + (size_t)tid * S * 4;
-      float pixel[3], g_pix[3], e2 = 0.f;
-      composite_ray(raw, in.z + ray * S, S, pixel, DZC + (size_t)tid * S);
-      for (int ch = 0; ch < 3; ++ch) {
-        const float err = pixel[ch] - target[ray * 3 + ch];
-        e2 += err * err;
-        g_pix[ch] = (2.f * inv_n) * err;
-      }
-      ERR[tid] = e2;
-      composite_ray_bwd(raw, in.z + ray * S, S, g_pix, nullptr, GRAW + (size_t)tid * S * 4,
-                        DZC + (size_t)tid * S);
-    }
-    __syncthreads();
-    if (tid == 0)
-      for (int r = 0; r < g.n_rays; ++r) sq_err += ERR[r];
-    // 3. the chain back over the kept activations, chunk by chunk, then dz
-    for (int c0 = 0; c0 < g.rows; c0 += TM, first = false) {
-      __syncthreads();
-      load_chunk<T>(in, dm, g, c0, t.X, t.D);
-      cotangent_tile<T>(t.GI, GRAW, c0, g.rows);
-      __syncthreads();
-      backward_walk<T>(dl, L, W, WT, B, t, acts + (c0 / TM) * slots, part, first, c0, nullptr,
-                       nullptr);
-      if (tid < TM && c0 + tid < g.rows) {
-        const int row = c0 + tid;
-        dz[grow0 + row] = DZC[row] + dz_points(t.GX + tid * XMAX, t.X + tid * XMAX, n_freq,
-                                               dvec + (size_t)(g.ray0 + row / S) * 3);
-      }
-    }
+// The f32 X (BM x LDX) and D (BM x LDD) tiles of mlp_tf32_mma_tile.cuh for
+// the group's rows [r0, r0 + BM): the xyz encodings' f32 rows and each ray's
+// f32 view-dir encoding copied exactly into every row of the ray, stored
+// swizzled; rows at or past g.rows and the pad columns (to pad16) zero.
+__device__ inline void load_comp_t32_inputs(const EncRays<float>& in, const Dims& dm,
+                                            const nerf_cmma::Group& g, int r0, float* X,
+                                            float* D) {
+  namespace tm = nerf_tmma;
+  tm::load_rows(X, tm::LDX, in.enc + (size_t)g.ray0 * in.S * dm.xyz, dm.xyz, r0, g.rows);
+  if (!dm.has_dir) return;
+  const int dp = nerf_mma::pad16(dm.dir);
+  for (int i = threadIdx.x; i < tm::BM * dp; i += tm::NT) {
+    const int r = i / dp, c = i - r * dp, row = r0 + r;
+    D[r * tm::LDD + tm::sw(r, c)] =
+        row < g.rows && c < dm.dir ? in.encd[(size_t)(g.ray0 + row / in.S) * dm.dir + c] : 0.f;
   }
-  if (tid == 0) part[p_total - 1] = sq_err * inv_n;
 }
 
-// The bf16 kernel's per-ray work for the ray-group loop.
+// The per-ray work of B5 for the ray-group loop, on the encodings of the
+// compute type T (bf16 tiles, or the f32 kit's).
+template <typename T>
 struct LossComp {
   static constexpr bool INPUT_GRADS = false;  // dz takes the points' share
-  EncRays<nerf_mma::bf16> in;
+  EncRays<T> in;
   Dims dm;
   const float* dvec;    // (R, 3)
   const float* target;  // (R, 3)
@@ -164,6 +120,9 @@ struct LossComp {
   __device__ void inputs(const nerf_cmma::Group& g, int r0, nerf_mma::bf16* X,
                          nerf_mma::bf16* D) const {
     load_comp_mma_inputs(in, dm, g, r0, X, D);
+  }
+  __device__ void inputs(const nerf_cmma::Group& g, int r0, float* X, float* D) const {
+    load_comp_t32_inputs(in, dm, g, r0, X, D);
   }
   // Pixel, error, its cotangent 2 inv_n err and the compositing VJP; returns
   // the ray's squared error.
@@ -181,9 +140,16 @@ struct LossComp {
     composite_ray_bwd(raw, z, in.S, g_pix, nullptr, graw, dzc);
     return e2;
   }
+  // x: the row of the X tile, bf16 plain or f32 swizzled (row `row` of the
+  // group is row row % BM of its tile).
   __device__ float dz(const nerf_cmma::Group& g, int row, const float* gx,
                       const nerf_mma::bf16* x) const {
-    return dz_points(gx, x, (dm.xyz - 3) / 6, dvec + (size_t)(g.ray0 + row / in.S) * 3);
+    return dz_points(gx, x, (dm.xyz - 3) / 6, dvec + (size_t)(g.ray0 + row / in.S) * 3,
+                     PlainCols{});
+  }
+  __device__ float dz(const nerf_cmma::Group& g, int row, const float* gx, const float* x) const {
+    return dz_points(gx, x, (dm.xyz - 3) / 6, dvec + (size_t)(g.ray0 + row / in.S) * 3,
+                     SwizzledCols{row % nerf_tmma::BM});
   }
 };
 
@@ -201,16 +167,42 @@ __global__ void __launch_bounds__(nerf_mma::NT, 1)
   // The block's slab: weight gradients, bias gradients, its share of the loss.
   const size_t p_total = (size_t)L.total_w + L.total_b + 1;
   float* part = partial + blockIdx.x * p_total;
-  const LossComp pol{in, dm, dvec, target, inv_n};
+  const LossComp<nerf_mma::bf16> pol{in, dm, dvec, target, inv_n};
   const float sq_err = nerf_cmma::backward_groups(
       pol, smem16, dm, L, M, F, Bp, B, part, acts_all + blockIdx.x * nerf_cmma::act_elems(in.S),
       dx_all + (size_t)blockIdx.x * nerf_mma::BM * dm.xyz, dz, raw, in.R, in.S, groups);
   if (threadIdx.x == 0) part[p_total - 1] = sq_err * inv_n;
 }
 
-// The f32 kernel keeps every 64-row chunk of a group (one forward per row).
+// f32: the same loop on the 3xTF32 tensor-core tiles.
+__global__ void __launch_bounds__(nerf_tmma::NT, 1)
+    mlp_loss_comp_t32_kernel(Dims dm, Layout L, nerf_tmma::T32Layout M, EncRays<float> in,
+                             const float* __restrict__ dvec, const float* __restrict__ target,
+                             float inv_n, const float* __restrict__ F,
+                             const float* __restrict__ Bp, const float* __restrict__ B,
+                             float* __restrict__ dz, float* __restrict__ raw,
+                             float* __restrict__ partial, float* __restrict__ acts_all,
+                             float* __restrict__ dx_all, int groups) {
+  using K = nerf_tmma::Kit;
+  extern __shared__ uint4 smem16[];
+  T32_BEGIN();
+  const size_t p_total = (size_t)L.total_w + L.total_b + 1;
+  float* part = partial + blockIdx.x * p_total;
+  const LossComp<float> pol{in, dm, dvec, target, inv_n};
+  const float sq_err = nerf_cmma::backward_groups<LossComp<float>, K>(
+      pol, smem16, dm, L, M, F, Bp, B, part, acts_all + blockIdx.x * nerf_cmma::act_elems<K>(in.S),
+      dx_all + (size_t)blockIdx.x * K::BM * dm.xyz, dz, raw, in.R, in.S, groups);
+  if (threadIdx.x == 0) part[p_total - 1] = sq_err * inv_n;
+  T32_END();
+}
+
+// The f32 kit's groups, slots and slab are those the exports give for f32:
+// 64-row tiles, as the FMA kernels' chunks; its rows fit beside its tiles.
+static_assert(nerf_tmma::BM == TM && nerf_tmma::SLOT == TM * HMAX &&
+                  nerf_cmma::max_smem_bytes<nerf_tmma::Kit>() <= 232448,
+              "f32 groups, slots and shared memory as comp_exports.cuh sizes them");
 int nerf_comp::f32_chunks_kept(int S) { return chunks_per_group(S); }
-int nerf_comp::f32_slab_rows() { return 0; }
+int nerf_comp::f32_slab_rows() { return nerf_tmma::BM; }
 
 static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd, const float* z,
                   const float* dvec, const float* target, float inv_n, int R, int S,
@@ -219,7 +211,7 @@ static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd,
                   cudaStream_t stream) {
   const int groups = nerf_comp_groups(bf16, R, S);
   if (groups == 0 || n_blocks <= 0 || n_blocks > groups || dm.xyz < 3 || (dm.xyz - 3) % 6 != 0 ||
-      (bf16 && dxs == nullptr) || (!bf16 && raw != nullptr))
+      dxs == nullptr)
     return (int)cudaErrorInvalidValue;
   const Layout L = make_layout(dm);
   cudaError_t err;
@@ -236,13 +228,14 @@ static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd,
         static_cast<bf16*>(acts), dxs, groups);
   } else {
     const EncRays<float> in{static_cast<const float*>(enc), encd, z, R, S};
-    const size_t smem = loss_comp_smem_bytes(S);
-    err = cudaFuncSetAttribute(mlp_loss_comp_kernel<float>,
+    const size_t smem = nerf_cmma::smem_bytes<nerf_tmma::Kit>(S);
+    err = cudaFuncSetAttribute(mlp_loss_comp_t32_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    mlp_loss_comp_kernel<float><<<n_blocks, NT, smem, stream>>>(
-        dm, L, in, dvec, target, inv_n, static_cast<const float*>(w),
-        static_cast<const float*>(wt), b, dz, partial, static_cast<float*>(acts), groups);
+    mlp_loss_comp_t32_kernel<<<n_blocks, nerf_tmma::NT, smem, stream>>>(
+        dm, L, nerf_tmma::make_t32_layout(L), in, dvec, target, inv_n,
+        static_cast<const float*>(w), static_cast<const float*>(wt), b, dz, raw, partial,
+        static_cast<float*>(acts), dxs, groups);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -254,11 +247,12 @@ static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd,
 // `out` (nerf_mlp_param_count + 1) f32: the weight gradients, the bias
 // gradients, then the loss. Scratch the caller allocates: partial (n_blocks *
 // (nerf_mlp_param_count + 1)) f32, acts (n_blocks *
-// nerf_comp_act_elems(is_bf16, S)) elements of the compute type and, for
-// bf16, dxs (n_blocks * nerf_comp_dx_rows(1) * xyz) f32, with 1 <= n_blocks
-// <= nerf_comp_groups(is_bf16, R, S). w, wt: for bf16 the F and B packs
-// (mlp_mma_tile.cuh), for f32 the flat weights and their transposes. raw:
-// null, or for bf16 (R, S, 4) f32 that receives the raw values composited.
+// nerf_comp_act_elems(is_bf16, S)) elements of the compute type and dxs
+// (n_blocks * nerf_comp_dx_rows(is_bf16) * xyz) f32, with 1 <= n_blocks <=
+// nerf_comp_groups(is_bf16, R, S). w, wt: for bf16 the F and B packs
+// (mlp_mma_tile.cuh), for f32 the F and B buffers of mlp_tf32_mma_tile.cuh
+// (raymarch_cuda.t32_packs). raw: null, or (R, S, 4) f32 that receives the
+// raw values composited.
 // Returns cudaGetLastError() (0 on success).
 extern "C" int nerf_mlp_loss_comp(int is_bf16, int has_dir, const void* enc, const float* encd,
                                   const float* z, const float* dvec, const float* target,

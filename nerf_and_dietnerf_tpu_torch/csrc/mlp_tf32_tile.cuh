@@ -104,10 +104,10 @@
 // 128 x 260 x 4 = 133,120 + 6 mbarriers 48 = 231,472 of the 232,448 a block
 // may use (B6: see raymarch_tile.cuh).
 //
-// The f32 backward B2 recomputes the forward on the FMA tile, so its
-// linearisation point differs from this kernel's output in the last bits;
-// the gradient it gives is that of the FMA forward, which is as close to the
-// f32 chain.
+// The f32 backward B2 recomputes the forward on its own tile (3xTF32
+// `mma.sync`, mlp_tf32_mma_tile.cuh), so its linearisation point differs
+// from this kernel's output in the last bits; the gradient it gives is that
+// of its own forward, which is as close to the f32 chain.
 #pragma once
 
 #include <stdint.h>

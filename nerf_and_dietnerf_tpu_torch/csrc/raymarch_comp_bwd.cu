@@ -84,12 +84,14 @@ __global__ void __launch_bounds__(nerf_tmma::NT, 1)
                            int n_groups) {
   using K = nerf_tmma::Kit;
   extern __shared__ uint4 smem16[];
+  T32_BEGIN();
   const size_t p_total = (size_t)L.total_w + L.total_b;
   const RayComp pol{{ry, dm.xyz, dm.dir}, g_rgb, g_w};
   nerf_cmma::backward_groups<RayComp, K>(
       pol, smem16, dm, L, M, F, Bp, B, partial + blockIdx.x * p_total,
       acts_all + blockIdx.x * nerf_cmma::act_elems<K>(ry.S),
       dx_all + (size_t)blockIdx.x * K::BM * dm.xyz, dz, raw, ry.R, ry.S, n_groups);
+  T32_END();
 }
 
 // The f32 kit's groups, slots and slab are those the exports give for f32:

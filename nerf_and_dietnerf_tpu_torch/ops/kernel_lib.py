@@ -164,7 +164,7 @@ _SIGNATURES = {
     "mlp_fwd": {"nerf_mlp_fwd": ([_i, _i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i), **_MMA_PACK,
                 **_TF32_PACK},
     "mlp_bwd": {"nerf_mlp_bwd": ([_i, _i] + [_p] * 11 + [_i] * 6 + [_f, _p], _i),
-                **_BWD_TILE, **_MMA_PACK, **_BWD_SCRATCH},
+                **_BWD_TILE, **_MMA_PACK, **_T32_PACK, **_BWD_SCRATCH},
     "raymarch_fwd": {"nerf_rm_fwd": ([_i, _i] + [_p] * 5 + _RAY_TAIL, _i),
                      "nerf_rm_fwd_tf32_tile": ([_i, _i], _i), **_MMA_PACK, **_TF32_PACK},
     "raymarch_bwd": {"nerf_rm_bwd": ([_i, _i] + [_p] * 11 + [_i] + _RAY_TAIL, _i),
@@ -179,7 +179,7 @@ _SIGNATURES = {
                      **_COMP_BWD, **_MMA_PACK, **_BWD_SCRATCH},
     "mlp_loss_comp": {"nerf_mlp_loss_comp": ([_i, _i] + [_p] * 14 + [_i] + _COMP_TAIL + [_f, _p],
                                              _i),
-                      **_COMP_BWD, **_MMA_PACK, **_BWD_SCRATCH},
+                      **_COMP_BWD, **_MMA_PACK, **_T32_PACK, **_BWD_SCRATCH},
     "probe_mma": {"nerf_probe_mma": ([_p] * 3 + [_i] * 5 + [_p], _i),
                   "nerf_probe_mma_unit_rows": ([], _i)},
     # variant, x, d, w, b, out, n, xyz, dir, hid, last, alpha, stream
@@ -214,6 +214,48 @@ def load(name: str) -> ctypes.CDLL:
 # --------------------------------------------------------------------------- #
 # What every wrapper checks and passes                                         #
 # --------------------------------------------------------------------------- #
+
+def build_variants(name: str, variants: Dict[str, List[str]], out_dir: Path,
+                   extra: Dict[str, tuple] = None) -> Dict[str, object]:
+    """Measurement builds of the library ``name``: one per entry of
+    ``variants`` (label -> extra ``nvcc`` flags such as ``-DNAME``), all
+    compiled together into ``out_dir``, never into :data:`BUILD_DIR`, so the
+    libraries the port loads are not these. Returns ``{"libs": {label:
+    CDLL with the library's signatures and ``extra``'s}, "log": {label:
+    compiler output}, "seconds": wall time}``."""
+    t0 = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for label, flags in variants.items():
+        out = out_dir / f"lib{name}-{label}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(out), str(CSRC_DIR / KERNEL_SOURCES[name])]
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                         text=True), out)
+    libs, logs, failed = {}, {}, []
+    for label, (proc, out) in procs.items():
+        logs[label], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(label)
+            continue
+        lib = ctypes.CDLL(str(out))
+        for fn, (argtypes, restype) in {**_SIGNATURES[name], **(extra or {})}.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        libs[label] = lib
+    if failed:
+        raise RuntimeError(f"nvcc failed for {name} {failed}:\n" +
+                           "\n".join(logs[k] for k in failed))
+    return {"libs": libs, "log": logs, "seconds": time.perf_counter() - t0}
+
+
+def use_library(name: str, lib) -> None:
+    """Make the wrappers of ``name`` launch ``lib`` (a :func:`build_variants`
+    build) from now on in this process; ``None`` restores the port's own."""
+    if lib is None:
+        _LIBS.pop(name, None)
+    else:
+        _LIBS[name] = lib
+
 
 def uses_kernel(x: torch.Tensor) -> bool:
     """True for CUDA tensors, False for CPU tensors; any other device raises."""

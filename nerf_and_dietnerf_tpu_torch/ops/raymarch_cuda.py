@@ -11,10 +11,9 @@ In bf16 both kernels run their products on the tensor cores and read the
 weights from two packs that :func:`pack_mma_weights` builds once per call
 (``csrc/mlp_mma_tile.cuh``). In f32, B1 runs 3xTF32 products on the tensor
 cores and reads the hi / lo weight packs of :func:`tf32_weights`
-(``csrc/mlp_tf32_tile.cuh``); f32 B2 reads the flat weights and their
-transposes of :func:`flatten_params`. The f32 backward of B7
-(``ops/research_kernels_cuda``) runs 3xTF32 on ``mma.sync`` and reads the
-hi / lo F and B buffers of :func:`t32_packs` (``csrc/mlp_tf32_mma_tile.cuh``).
+(``csrc/mlp_tf32_tile.cuh``); f32 B2, like the f32 backwards of B7 and
+B5 (``ops/research_kernels_cuda``), runs 3xTF32 on ``mma.sync`` and reads
+the F and B buffers of :func:`t32_packs` (``csrc/mlp_tf32_mma_tile.cuh``).
 
 Beside each kernel is its plain PyTorch version (:func:`mlp_fwd_plain`,
 :func:`mlp_bwd_plain`), which repeats the kernel's arithmetic: operands
@@ -288,18 +287,33 @@ def tf32_weights(ws, config: MLPConfig) -> torch.Tensor:
 # Weight buffers of the f32 tensor-core backward (csrc/mlp_tf32_mma_tile.cuh)  #
 # --------------------------------------------------------------------------- #
 
+T32_CHUNK = 16  # contraction columns of a ring chunk of the f32 tensor-core backward
+
+
+def _pad16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
 def t32_layout(config: MLPConfig) -> Tuple[List[Tuple[int, int, int]], int]:
-    """``(offset, pad8(K), pad8(N))`` of each of the 11 product matrices in
+    """``(offset, pad16(K), pad16(N))`` of each of the 11 product matrices in
     each pack of the f32 tensor-core backward, and the floats of a pack."""
-    return _tf32_layout_of(weight_shapes(config)[0], _pad8)
+    layout, off = [], 0
+    for k, n in weight_shapes(config)[0][:N_TF32_PRODUCTS]:
+        layout.append((off, _pad16(k), _pad16(n)))
+        off += _pad16(k) * _pad16(n)
+    return layout, off
 
 
-def t32_column_position(c: torch.Tensor) -> torch.Tensor:
-    """Where a pack row of the f32 tensor-core backward stores its column
-    ``c``: every aligned group of 8 in the order 0 4 1 5 2 6 3 7, so the
-    columns t and t + 4 that one lane of ``mma.m16n8k8`` reads lie side by
-    side."""
-    return (c // 8) * 8 + 2 * (c % 4) + (c % 8) // 4
+def t32_offset(r: torch.Tensor, c: torch.Tensor, rows: int) -> torch.Tensor:
+    """Where a pack matrix of ``rows`` (padded) outputs stores output ``r``,
+    contraction column ``c`` (``t32_col`` of ``csrc/mlp_tf32_mma_tile.cuh``):
+    chunk ``c // 16`` is ``rows x 16`` floats in one piece; in its row ``r``
+    the two 8-column halves swap on rows with ``r & 2``, and each half holds
+    its columns in the order 0 4 1 5 2 6 3 7, so the columns t and t + 4 that
+    one lane of ``mma.m16n8k8`` reads lie side by side."""
+    j = c % T32_CHUNK
+    col = (((j // 8) ^ (r // 2)) % 2) * 8 + 2 * (j % 4) + (j % 8) // 4
+    return (c // T32_CHUNK) * rows * T32_CHUNK + r * T32_CHUNK + col
 
 
 @functools.lru_cache(maxsize=None)
@@ -307,44 +321,45 @@ def _t32_index(shapes, device):
     """For the F pack, then the B pack, of the f32 tensor-core backward, the
     index of each entry in ``flat(ws[:11])`` followed by one zero (every pad
     points at that zero), and that zero, both on ``device``."""
-    layout, total = _tf32_layout_of(shapes, _pad8)
+    layout, off = [], 0
+    for k, n in shapes[:N_TF32_PRODUCTS]:
+        layout.append((off, _pad16(k), _pad16(n)))
+        off += _pad16(k) * _pad16(n)
     pad = sum(k * n for k, n in shapes[:N_TF32_PRODUCTS])
     parts = []
     for kind in ("f", "b"):
-        idx = torch.full((total,), pad, dtype=torch.long)
+        idx = torch.full((off,), pad, dtype=torch.long)
         src = 0
-        for (k, n), (off, kp, np_) in zip(shapes, layout):
-            w = torch.arange(src, src + k * n).view(k, n)
-            block = idx[off:off + kp * np_]
-            if kind == "f":
-                block.view(np_, kp)[:n][:, t32_column_position(torch.arange(k))] = w.t()
-            else:
-                block.view(kp, np_)[:k][:, t32_column_position(torch.arange(n))] = w
+        for (k, n), (o, kp, np_) in zip(shapes, layout):
+            kk, nn = torch.meshgrid(torch.arange(k), torch.arange(n), indexing="ij")
+            # F: W^T, rows the N outputs over the K contraction; B: W, rows K over N.
+            at = t32_offset(nn, kk, np_) if kind == "f" else t32_offset(kk, nn, kp)
+            idx[o + at] = src + kk * n + nn
             src += k * n
         parts.append(idx)
     return torch.cat(parts).to(device), torch.zeros(1, dtype=torch.float32, device=device)
 
 
 def t32_packs(ws, config: MLPConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The f32 tensor-core backward's two weight buffers, F and B (W^T as
-    ``(pad8(N), pad8(K))`` and W as ``(pad8(K), pad8(N))`` for each of the 11
-    product matrices, zero pads, columns in :func:`t32_column_position`'s
-    order; one gather through a cached index), each as its hi pack, its lo
-    pack (:func:`split_tf32`), then the head matrices 11.. flat, f32."""
+    """The f32 tensor-core backward's two weight buffers, F and B: W^T as
+    ``(pad16(N), pad16(K))`` and W as ``(pad16(K), pad16(N))`` for each of the
+    11 product matrices, f32, zero pads, laid out by :func:`t32_offset` (one
+    gather through a cached index), then the head matrices 11.. flat. The
+    kernels split the weights into TF32 hi and lo in registers, as
+    :func:`split_tf32` would."""
     shapes = tuple(weight_shapes(config)[0])
     idx, zero = _t32_index(shapes, ws[0].device)
     heads = flat(ws[N_TF32_PRODUCTS:])
-    total = _tf32_layout_of(shapes, _pad8)[1]
-    f, b = flat(list(ws[:N_TF32_PRODUCTS]) + [zero])[idx].split(total)
-    return tuple(torch.cat([*split_tf32(p), heads]) for p in (f, b))
+    f, b = flat(list(ws[:N_TF32_PRODUCTS]) + [zero])[idx].split(t32_layout(config)[1])
+    return tuple(torch.cat([p, heads]) for p in (f, b))
 
 
 def _weights_for(lib: ctypes.CDLL, ws, config: MLPConfig, cd, kinds):
     """The weight buffers a B1/B2 library reads: the packs ``kinds`` in bf16
     (their size checked against the library's), the flat weights (and their
     transposes) in f32, for ``kinds == ("t",)`` (f32 B1) the TF32 buffer of
-    :func:`tf32_weights`, or for ``kinds == ("tf", "tb")`` (f32 B7 backward)
-    the F and B buffers of :func:`t32_packs` (their pack sizes checked
+    :func:`tf32_weights`, or for ``kinds == ("tf", "tb")`` (the f32
+    tensor-core backwards: B2, B5, B7) the F and B buffers of :func:`t32_packs` (their pack sizes checked
     against the library's)."""
     has_dir = int(config.uses_view_dirs)
     dims = (has_dir, config.xyz_dim, config.dir_dim if has_dir else 0, config.hidden_dim,
@@ -528,9 +543,12 @@ def mlp_fwd(ws, bs, config: MLPConfig, x, d, compute_dtype) -> torch.Tensor:
     return out
 
 
-def mlp_bwd(ws, bs, config: MLPConfig, x, d, g, compute_dtype):
+def mlp_bwd(ws, bs, config: MLPConfig, x, d, g, compute_dtype, before_launch=None):
     """B2: ``(dws, dbs, dx, dd)`` for the (n, 4) f32 cotangent ``g``. Weight
-    and bias gradients are f32 sums over all rows, bitwise reproducible."""
+    and bias gradients are f32 sums over all rows, bitwise reproducible.
+    ``before_launch``, if given, is called just before the kernel's launch,
+    after every other operation of the call (``chip_smoke.py`` launches a
+    kernel there that leaves NaN in shared memory)."""
     if not uses_kernel(x):
         return mlp_bwd_plain(ws, bs, config, x, d, g, compute_dtype)
     n = x.shape[0]
@@ -553,8 +571,11 @@ def mlp_bwd(ws, bs, config: MLPConfig, x, d, g, compute_dtype):
         partial, acts, n_blocks = bwd_scratch(lib, dparams.numel(), compute_dtype, dev,
                                               -(-n // rows),
                                               lib.nerf_mlp_bwd_tile_act_elems(is_bf16))
-        w, wt = _weights_for(lib, ws, config, compute_dtype, ("f", "b"))
+        kinds = ("f", "b") if is_bf16 else ("tf", "tb")
+        w, wt = _weights_for(lib, ws, config, compute_dtype, kinds)
         b = flat(bs)
+        if before_launch is not None:
+            before_launch()
         rc = lib.nerf_mlp_bwd(
             is_bf16, has_dir, x.data_ptr(),
             d.data_ptr() if has_dir else None, w.data_ptr(), wt.data_ptr(), b.data_ptr(),

@@ -46,8 +46,10 @@ reshape of ``(rays, S, features)``) and the view-dir encodings **per ray**:
   recompute. It returns the loss and has made the parameter gradients and the
   TOTAL dz (its encoding VJP reads the encoding's own neighbouring columns) by
   then; the encodings, directions and targets get structural-zero cotangents.
-  In bf16 it runs the same ray-group loop as B7's backward on the
-  tensor-core tiles, reading the F and B packs; in f32 the FMA tiles.
+  It runs the same ray-group loop as B7's backward on the tensor-core tiles:
+  in bf16 reading the F and B packs, in f32 on the 3xTF32 ``mma.sync``
+  tiles reading the hi / lo buffers of ``raymarch_cuda.t32_packs``; both can
+  return the raw values they composited (``raw=``).
 
 The encodings are what the TPU kernel computes (``_encode_tile``): a direct
 ``sin(f_k x)`` with ``f_k = float32(pi 2^k)``, and cos as ``sin(f_k x + pi/2)``,
@@ -445,8 +447,8 @@ def _comp_bwd_scratch(lib, n_params: int, config: MLPConfig, cd, z, dev, width=N
     bf16 ray groups of one 128-row tile, every tile's activation slots and
     each block's f32 slab of ``width`` columns (dx rows: xyz, the default;
     B4's dd rows: dir; 0 for none); in f32 groups of about 64 rows, the
-    library's slots per group, and a slab of the library's rows (B7's 64 dx
-    rows; none, None, for the FMA kernels of B5 and B4)."""
+    library's slots per group, and a slab of the library's rows (B7's and
+    B5's 64 dx rows; none, None, for B4's FMA kernel)."""
     is_bf16 = _is_bf16(cd)
     n_rays, n_samples = z.shape
     partial, acts, n_blocks = bwd_scratch(lib, n_params, cd, dev,
@@ -460,7 +462,7 @@ def _comp_bwd_scratch(lib, n_params: int, config: MLPConfig, cd, z, dev, width=N
 def _raw_out(raw, z, cd, dev, f32=False):
     """Check the optional raw output of a compositing kernel: (R, S, 4) f32
     on the inputs' device; the bf16 kernels' only, unless ``f32`` (f32 B7's
-    backward, on the tensor cores, gives it too)."""
+    backward and f32 B5, on the tensor cores, give it too)."""
     if raw is None:
         return
     if cd != torch.bfloat16 and not f32:
@@ -602,7 +604,7 @@ def mlp_loss_comp(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute
     rays' unnormalised directions. All three are bitwise reproducible.
     ``raw`` as :func:`raymarch_comp_bwd`'s."""
     _check_samples(z)
-    _raw_out(raw, z, compute_dtype, enc.device)
+    _raw_out(raw, z, compute_dtype, enc.device, f32=True)
     if not uses_kernel(enc):
         if raw is not None:
             raw.copy_(_raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)[0])
@@ -621,7 +623,8 @@ def mlp_loss_comp(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute
     else:
         partial, acts, dxs, n_blocks = _comp_bwd_scratch(lib, n_params + 1, config,
                                                          compute_dtype, z, dev)
-        w, wt = _weights_for(lib, ws, config, compute_dtype, ("f", "b"))
+        kinds = ("f", "b") if compute_dtype == torch.bfloat16 else ("tf", "tb")
+        w, wt = _weights_for(lib, ws, config, compute_dtype, kinds)
         b = flat(bs)
         rc = lib.nerf_mlp_loss_comp(
             _is_bf16(compute_dtype), int(config.uses_view_dirs), enc.data_ptr(), _ptr(encd),

@@ -1,8 +1,10 @@
 #!/bin/bash
 # Shows that chip_smoke.py's checks of the compositing kernels on the tensor
-# cores (_hold_comp_bwd: B7's backward in bf16 and f32, B5 and B4's backward;
+# cores (_hold_comp_bwd: B7's backward and B5 in bf16 and f32, B4's backward;
 # _comp_checks for B4's forward and backward; _rm_checks for B7's bf16
-# forward; R = 4096, S = 64, both variants) catch broken kernels. Each case copies the package and
+# forward; R = 4096, S = 64, both variants) and of f32 B2 (_mlp_checks at a
+# ragged row count, after NaN was left in every SM's shared memory) catch
+# broken kernels. Each case copies the package and
 # chip_smoke.py to a temporary directory, breaks one line there, rebuilds and
 # runs the checks; the repository is not touched:
 #   none     unbroken (every check passes);
@@ -16,15 +18,21 @@
 #   t32row   reads the first register of the transposed A^T fragment of f32
 #            B7's weight-gradient products one row off;
 #   fwdray   B7's bf16 forward composites each ray of a two-ray group with
-#            the other ray's depths and into the other ray's outputs.
+#            the other ray's depths and into the other ray's outputs;
+#   b5sw     f32 B5's dz_points reads the f32 kit's swizzled X row plainly
+#            (column c where sw(r, c) holds it);
+#   b2pad    f32 B2's X and D loads (load_rows) leave the pad columns past
+#            the encoding's width as they were.
 # Run from the repository root on the card, after a build (build/kernels is
-# copied, so only the broken libraries are rebuilt):
-#   bash nerf_and_dietnerf_tpu_torch/tools/comp_mutants.sh
+# copied, so only the broken libraries are rebuilt); name cases to run only
+# those:
+#   bash nerf_and_dietnerf_tpu_torch/tools/comp_mutants.sh [none b5sw b2pad ...]
 set -u
 root=$(pwd)
 tmp=$(mktemp -d)
 trap 'rm -rf "$tmp"' EXIT
-for m in none ray2 sigbias dd2 denc1 t32row fwdray; do
+cases=${*:-none ray2 sigbias dd2 denc1 t32row fwdray b5sw b2pad}
+for m in $cases; do
   d=$tmp/$m
   mkdir -p "$d/build" && cp -r nerf_and_dietnerf_tpu_torch chip_smoke.py "$d/"
   cp -r build/kernels "$d/build/" 2>/dev/null
@@ -42,6 +50,10 @@ for m in none ray2 sigbias dd2 denc1 t32row fwdray; do
             grep -q "A\[(ra + 1) \* lda" "$csrc/mlp_tf32_mma_tile.cuh" || exit 1 ;;
     fwdray) sed -i 's|    const size_t ray = (size_t)g.ray0 + i;|    const size_t ray = (size_t)g.ray0 + (g.n_rays - 1 - i);|' "$csrc/raymarch_comp_fwd.cu"
             grep -q "g.n_rays - 1 - i" "$csrc/raymarch_comp_fwd.cu" || exit 1 ;;
+    b5sw) sed -i 's|SwizzledCols{row % nerf_tmma::BM});|PlainCols{});|' "$csrc/mlp_loss_comp.cu"
+          grep -q "row / in.S) \* 3,$" "$csrc/mlp_loss_comp.cu" && ! grep -q "SwizzledCols{row" "$csrc/mlp_loss_comp.cu" || exit 1 ;;
+    b2pad) sed -i 's|  const int wp = nerf_mma::pad16(width);|  const int wp = width;|' "$csrc/mlp_tf32_mma_tile.cuh"
+           grep -q "  const int wp = width;" "$csrc/mlp_tf32_mma_tile.cuh" || exit 1 ;;
   esac
   (cd "$d" && python3 - "$m" <<'PY'
 import sys
@@ -82,9 +94,16 @@ for n_angles in (0, 2):
         return (*rk.raymarch_comp_bwd(ws32, bs32, cfg, rd, z, g_rgb, g_w, torch.float32,
                                       raw=raw), None)
 
+    batch32 = []
+
+    def b5_f32(raw):
+        mse, dz, dws, dbs = rk.mlp_loss_comp(ws32, bs32, cfg, *batch32, torch.float32, raw=raw)
+        return dws, dbs, dz, mse
+
     for kernel, args, run in (("B7", (rd, z, g_rgb, g_w), b7), ("B5", batch, b5), ("B4", None,
                                                                                    None),
-                              ("B7_f32", (rd, z, g_rgb, g_w), b7_f32), ("B7_fwd", None, None)):
+                              ("B7_f32", (rd, z, g_rgb, g_w), b7_f32), ("B7_fwd", None, None),
+                              ("B5_f32", batch32, b5_f32), ("B2_f32", None, None)):
         label = f"{sys.argv[1]} n_angles={n_angles} {kernel}"
         try:
             if kernel == "B4":  # its forward and backward, as chip_smoke.py holds them
@@ -96,6 +115,14 @@ for n_angles in (0, 2):
             elif kernel == "B7_f32":
                 cs._hold_comp_bwd(torch, "B7", label, "float32", ws32, bs32, cfg, torch.float32,
                                   args, run)
+            elif kernel == "B5_f32":  # its inputs drawn after every other case's
+                batch32 += cs._enc_batch(torch, cfg, torch.float32, R, S, gen)
+                cs._hold_comp_bwd(torch, "B5", label, "float32", ws32, bs32, cfg, torch.float32,
+                                  tuple(batch32), run)
+            elif kernel == "B2_f32":  # as chip_smoke.py holds it at a ragged row count
+                x, d, g = cs._inputs(torch, cfg, torch.float32, cs.N_ROWS_RAGGED, gen)
+                cs._mlp_checks(torch, rc, ws32, bs32, cfg, x, d, g, torch.float32, "float32",
+                               label)
             else:
                 cs._hold_comp_bwd(torch, kernel, label, "bfloat16", ws, bs, cfg, cd, args, run)
             print(f"RESULT {label}: passed", flush=True)

@@ -1,4 +1,4 @@
-"""Epoch-loop trainer (single device).
+"""Epoch-loop trainer (single device, NeRF).
 
 Port of ``nerf_and_dietnerf_tpu/train/trainer.py``: an epoch loop over the
 ray table kept on the device, per-epoch full-frame f32 eval renders with
@@ -47,6 +47,17 @@ class Trainer:
     """
 
     def __init__(self, run: RunConfig, dataset: Dataset, save_dir, device=None):
+        # The JAX runner sends these configs elsewhere (DietTrainer, a device
+        # mesh); training them here as plain single-device NeRF would give
+        # another result without saying so.
+        if run.is_dietnerf:
+            raise NotImplementedError(
+                "type_of_model DietNeRF: DietNeRF training (ROADMAP A9) is not ported to "
+                "PyTorch yet; this Trainer trains NeRF only")
+        if run.mesh_data_devices is not None and run.mesh_data_devices > 1:
+            raise NotImplementedError(
+                f"data_devices {run.mesh_data_devices}: multi-GPU training (ROADMAP A10) is "
+                "not ported to PyTorch yet; this Trainer trains on one device")
         self.run = run
         self.dataset = dataset
         self.save_dir = Path(save_dir)

@@ -23,9 +23,13 @@ widths (hidden 32, L = 2-5):
   ``_backward_rays_comp_pallas``, ``_loss_mlp_comp_pallas`` and B4's two
   kernels in interpret mode;
 - (d) the wrappers' weight packs and scratch against a fake library's
-  per-compute-type exports, both types (f32 B7's backward: 64-row groups, its
-  slots and dx slab, the hi / lo buffers of ``raymarch_cuda.t32_packs``; f32
-  B5 and B4: the FMA kernels' sizes and flat weights).
+  per-compute-type exports, both types (f32 B7's backward and f32 B5: 64-row
+  groups, their slots and dx slab, the F and B buffers of
+  ``raymarch_cuda.t32_packs``; f32 B4: the FMA kernel's sizes and flat
+  weights);
+- f32 B5 in the f32 kit's group order (64-row tiles, dz_points reading the
+  swizzled X rows through sw) against JAX's f32 ``_loss_mlp_comp_pallas``,
+  and the reckoning of ``tools/t32_phases.py``.
 """
 
 import ctypes
@@ -663,6 +667,113 @@ def test_b5_in_the_kernels_order_matches_jax(case, n_samples, name, cd, jcd):
     _hold([dz], [jgz], GRAD_TOL[name], normwise)
 
 
+def _t32_x_tile(xt):
+    """The f32 kit's X tile (64 x LDX) of up to 64 rows ``xt`` as
+    load_comp_t32_inputs stores it: column c of row r at sw(r, c) = c ^ (r &
+    4), zero elsewhere."""
+    rows, width = xt.shape
+    tile = torch.zeros((T32_BM, 64 + 8))
+    r, c = torch.arange(rows)[:, None], torch.arange(width)[None, :]
+    tile[r.expand(-1, width), c ^ (r & 4)] = xt
+    return tile
+
+
+def _dz_points_t32(cfg, gx, tile, dvec):
+    """dz_points on the f32 kit's X tile, in its order, with the row of the
+    tile read through sw (``SwizzledCols``): column c of tile row r at c ^ (r
+    & 4)."""
+    L, per = cfg.n_freq_xyz, 1 + 2 * cfg.n_freq_xyz
+    r = torch.arange(gx.shape[0])
+
+    def col(c):
+        return tile[r, c ^ (r & 4)]
+
+    dz = torch.zeros(gx.shape[0])
+    for c in range(3):
+        g, e = gx[:, c * per:(c + 1) * per], c * per
+        s = g[:, 0]
+        for k in range(L):
+            f = torch.tensor(math.pi * 2.0 ** k, dtype=torch.float32)
+            s = s + g[:, 1 + 2 * k] * (f * col(e + 2 + 2 * k))
+            s = s + g[:, 2 + 2 * k] * (-f * col(e + 1 + 2 * k))
+        dz = dz + s * dvec[:, c]
+    return dz
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_t32_dz_points_reads_the_swizzled_x_row_through_sw(case):
+    """f32 B5's dz_points reads its X row from the f32 kit's swizzled tile
+    through sw: that gives it the plain encoding's columns, bitwise what
+    dz_points computes on the plain row; read plainly (the broken copy of
+    tools/comp_mutants.sh), every row with r & 4 gets the wrong sin / cos
+    neighbours."""
+    cfg = tm.MLPConfig(**case)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand((T32_BM, cfg.xyz_dim), generator=gen) * 2 - 1
+    gx = torch.rand((T32_BM, cfg.xyz_dim), generator=gen) * 2 - 1
+    dvec = torch.rand((T32_BM, 3), generator=gen) * 2 - 1
+    tile = _t32_x_tile(x)
+    want = _dz_points(cfg, gx, x, dvec)
+    assert torch.equal(_dz_points_t32(cfg, gx, tile, dvec), want)
+    plain = _dz_points(cfg, gx, tile[:, :cfg.xyz_dim], dvec)
+    odd = (torch.arange(T32_BM) & 4) != 0
+    assert torch.equal(plain[~odd], want[~odd]) and bool((plain[odd] != want[odd]).all())
+    # The policy passes the row of its tile; dz_points reads column c at col(c).
+    for line in ("  int r;  // the row in its tile\n"
+                 "  __device__ int operator()(int c) const { return nerf_tmma::sw(r, c); }",
+                 "                     SwizzledCols{row % nerf_tmma::BM});",
+                 "      s += g[1 + 2 * k] * (f * to_f<X>(x[col(e + 2 + 2 * k)]));",
+                 "      s += g[2 + 2 * k] * (-f * to_f<X>(x[col(e + 1 + 2 * k)]));"):
+        assert line in B5_SRC
+    assert "nerf_cmma::backward_groups<LossComp<float>, K>(" in B5_SRC
+
+
+@pytest.mark.parametrize("n_samples", [48, 100, 128])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_b5_f32_in_the_t32_kits_group_order_matches_jax(case, n_samples):
+    """f32 B5 as backward_groups<LossComp<float>, nerf_tmma::Kit> walks it:
+    64-row tiles, one ray a group (S = 48: one part-filled tile; 100: a full
+    and a part-filled tile; 128: two full tiles, both tiles' slots kept),
+    the f32 encodings and each ray's exact f32 view-dir encoding as the
+    tiles' rows, dz_points reading the swizzled X rows through sw; loss,
+    dparams and dz against JAX's f32 ``_loss_mlp_comp_pallas`` (interpret
+    mode) at LOSS_RTOL / GRAD_TOL["float32"] (scaled per leaf)."""
+    S = n_samples
+    jcfg, tcfg, params, x = _enc_setup(case, S, seed=12)
+    args = (params, x["enc"], x["encd"], x["z"], x["dirs"], x["target"])
+    val, (jgp, jgz) = jax.value_and_grad(
+        lambda p, e, d, zz, dv, tg: jrk.apply_mlp_loss_composited(p, jcfg, e, d, zz, dv, tg,
+                                                                  jnp.float32),
+        argnums=(0, 3))(*args)
+    cd = torch.float32
+    ws, bs = rc.flatten_params(tm.params_from_jax(params), tcfg, cd)
+    tz, target = torch.tensor(x["z"]), torch.tensor(x["target"])
+    dvec = torch.tensor(x["dirs"][:, :3])
+    inv_n = 1.0 / (3 * N_RAYS)
+    assert rays_per_group(S, T32_BM) == 1 and tiles_per_group(S, T32_BM) == -(-S // T32_BM)
+
+    def per_ray(ray0, n_rays, raw):
+        rays = slice(ray0, ray0 + n_rays)
+        pixel, _ = _composite_ray(raw, tz[rays])
+        err = pixel - target[rays]
+        e2 = (err[:, 0] * err[:, 0] + err[:, 1] * err[:, 1]) + err[:, 2] * err[:, 2]
+        g_raw, dzc = _composite_ray_bwd(raw, tz[rays], (2.0 * inv_n) * err, None)
+        return g_raw, dzc, float(e2.sum())
+
+    def dz_rows(ray0, rows, dx, xt):
+        ray = torch.arange(ray0 * S, ray0 * S + rows) // S
+        return torch.cat([_dz_points_t32(tcfg, dx[t0:t0 + T32_BM],
+                                         _t32_x_tile(xt[t0:t0 + T32_BM]), dvec[ray[t0:t0 + T32_BM]])
+                          for t0 in range(0, rows, T32_BM)])
+
+    dws, dbs, dz, sq = _emulate_groups(tcfg, ws, bs, cd, S, _enc_tiles_of(tcfg, x, S, cd),
+                                       per_ray, dz_rows, bm=T32_BM)
+    assert abs(sq * inv_n - float(val)) <= LOSS_RTOL["float32"] * abs(float(val))
+    rws, rbs = _flat_grads(jgp, tcfg)
+    _hold(dws + dbs, rws + rbs, GRAD_TOL["float32"], normwise=False)
+    _hold([dz], [jgz], GRAD_TOL["float32"], normwise=False)
+
+
 def _b4_jax(jcfg, params, x, jcd, seed):
     """JAX's B4 (``apply_mlp_composited``, its two kernels in interpret mode)
     on the setup ``x``: ``((rgb, weights), (dparams, denc, dencd, dz),
@@ -783,13 +894,13 @@ class _FakeLib:
         return chunks * NACT * TM * HMAX
 
     def nerf_comp_dx_rows(self, is_bf16):
-        return BM if is_bf16 else T32_BM if self.kernel == "B7" else 0
+        return BM if is_bf16 else T32_BM if self.kernel in ("B7", "B5") else 0
 
     def _record(self, is_bf16, w, wt, dxs, raw, n_blocks, t32=False):
         n = self.nerf_mlp_mma_pack_elems() if is_bf16 else self.nerf_mlp_param_count() - sum(
             rc.weight_shapes(self.cfg)[1])
-        if t32:  # hi pack, lo pack, flat heads
-            n = 2 * self.nerf_mlp_t32_pack_elems() + sum(
+        if t32:  # the f32 pack, then the flat heads
+            n = self.nerf_mlp_t32_pack_elems() + sum(
                 k * m for k, m in rc.weight_shapes(self.cfg)[0][rc.N_TF32_PRODUCTS:])
         ctype = ctypes.c_uint16 if is_bf16 else ctypes.c_float
         read = [None if p is None else np.ctypeslib.as_array((ctype * n).from_address(p)).copy()
@@ -807,7 +918,7 @@ class _FakeLib:
 
     def nerf_mlp_loss_comp(self, is_bf16, has_dir, enc, encd, z, dvec, target, w, wt, b, dz,
                            raw, partial, acts, dxs, out, n_blocks, *tail):
-        return self._record(is_bf16, w, wt, dxs, raw, n_blocks)
+        return self._record(is_bf16, w, wt, dxs, raw, n_blocks, t32=not is_bf16)
 
     def nerf_mlp_comp_bwd(self, is_bf16, has_dir, enc, encd, z, w, wt, b, g_rgb, g_w, denc,
                           dencd, dz, raw, partial, acts, dds, dparams, n_blocks, *tail):
@@ -862,12 +973,12 @@ def test_scratch_is_sized_from_the_library_per_compute_type(fake_card, kernel, n
         assert dxs.numel() == n_blocks * BM * width and dxs.dtype == torch.float32
     else:
         # Groups of about 64 rows and every 64-row chunk's slots: the FMA
-        # kernels of B5 and B4 (no slab), and f32 B7's 64-row 3xTF32 tiles
+        # kernel of B4 (no slab), and f32 B7's and B5's 64-row 3xTF32 tiles
         # (one group's tiles kept, a 64-row dx slab).
         rpg = 1 if S >= TM else TM // S
         assert groups == -(-R // rpg) == n_groups(R, S, T32_BM)
         assert acts.numel() == n_blocks * -(-rpg * S // TM) * NACT * TM * HMAX
-        if kernel == "B7":
+        if kernel in ("B7", "B5"):
             assert acts.numel() == n_blocks * act_elems(S, T32_BM)
             assert dxs.numel() == n_blocks * T32_BM * width and dxs.dtype == torch.float32
         else:
@@ -889,7 +1000,7 @@ def test_exports_in_the_sources_match_the_fake_library(kernel):
     assert "return is_bf16 ? nerf_cmma::act_elems(S)\n                 : (long long)" \
            "nerf_comp::f32_chunks_kept(S) * nerf_mlp::NACT * nerf_mlp::TM *" in EXPORTS_SRC
     assert "int nerf_comp::f32_chunks_kept(int S) { return chunks_per_group(S); }" in src
-    slab = "nerf_tmma::BM" if kernel == "B7" else "0"
+    slab = "nerf_tmma::BM" if kernel in ("B7", "B5") else "0"
     assert f"int nerf_comp::f32_slab_rows() {{ return {slab}; }}" in src
     # The FMA-only exports of the family are gone.
     for other in (CSRC / "mlp_comp_common.cuh", CSRC / "mlp_comp_fwd.cu"):
@@ -902,6 +1013,10 @@ def test_exports_in_the_sources_match_the_fake_library(kernel):
     if kernel == "B7":  # and the f32 instance on the 3xTF32 tiles
         assert "err = launch_kernel(rm_comp_bwd_t32_kernel, n_blocks, nerf_tmma::NT," in src
         assert "rm_comp_bwd_kernel<float>" not in src
+    if kernel == "B5":  # likewise, through the same loop with the f32 kit
+        assert "mlp_loss_comp_t32_kernel<<<n_blocks, nerf_tmma::NT, smem, stream>>>(" in src
+        assert "backward_groups<LossComp<float>, K>(" in src
+        assert "mlp_loss_comp_kernel<float>" not in src
     if kernel == "B4":
         for text in (B4_SRC, B4F_SRC):
             bf, f32 = text.index("  if (bf16) {"), text.index("  } else {")
@@ -940,9 +1055,9 @@ def _call_wrappers(fake_card, lib, kernel, cfg, ws, bs, cd, R, S, gen, fwd=True,
 def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, name):
     """bf16: the F and B packs of ``pack_mma_weights`` (their size checked
     against the library's; B4's and B7's forwards the F pack alone), a slab
-    (B4's of dd rows, with view dirs only); f32: B7's backward the hi / lo F
-    and B buffers of ``t32_packs`` (their size checked) and its dx slab, the
-    others the flat weights (and their transposes), no slab."""
+    (B4's of dd rows, with view dirs only); f32: B7's backward and B5 the hi /
+    lo F and B buffers of ``t32_packs`` (their size checked) and a dx slab,
+    the others the flat weights (and their transposes), no slab."""
     cfg = tm.MLPConfig(**case)
     cd = getattr(torch, name)
     lib = _FakeLib(kernel, cfg)
@@ -965,7 +1080,7 @@ def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, na
             want = rc.pack_mma_weights(ws, cfg, kind).view(torch.int16).numpy().view(np.uint16)
             np.testing.assert_array_equal(got, want)
         assert (call["dxs"] is not None) == (kernel != "B4" or cfg.uses_view_dirs)
-    elif kernel == "B7":
+    elif kernel in ("B7", "B5"):
         for got, want in zip((call["w"], call["wt"]), rc.t32_packs(ws, cfg)):
             np.testing.assert_array_equal(got, want.numpy())
         assert call["dxs"] is not None
@@ -977,7 +1092,7 @@ def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, na
     bad = _FakeLib(kernel, cfg)
     bad.nerf_mlp_mma_pack_elems = lambda *dims: rc.mma_layout(cfg)[1] + 16
     bad.nerf_mlp_t32_pack_elems = lambda *dims: rc.t32_layout(cfg)[1] + 8
-    if cd == torch.bfloat16 or kernel == "B7":
+    if cd == torch.bfloat16 or kernel in ("B7", "B5"):
         match = "weight-pack layout" if cd == torch.bfloat16 else "f32 backward's pack layout"
         with pytest.raises(RuntimeError, match=match):
             _call_wrappers(fake_card, bad, kernel, cfg, ws, bs, cd, R, S,
@@ -1143,9 +1258,9 @@ def test_raw_output_on_the_cpu_is_the_plain_forward(kernel):
 @pytest.mark.parametrize("kernel", ["B7", "B5", "B4"])
 def test_wrappers_pass_the_raw_output_to_the_bf16_kernels(fake_card, kernel, name):
     """Every bf16 kernel takes the raw output (B7's and B4's forwards and
-    backwards, B5); in f32 B7's backward does (its tensor-core kernel writes
-    it for the kink-aware checks and the C3 step report) and B7's forward, B5
-    and B4 raise."""
+    backwards, B5); in f32 B7's backward and B5 do (their tensor-core kernels
+    write it for the kink-aware checks and the C3 step report) and B7's
+    forward and B4 raise."""
     cfg = tm.MLPConfig(**CASES[1])
     cd = getattr(torch, name)
     lib = _FakeLib(kernel, cfg)
@@ -1170,6 +1285,9 @@ def test_wrappers_pass_the_raw_output_to_the_bf16_kernels(fake_card, kernel, nam
         call(raw=raw, fwd=False)  # the backward alone
         assert len(lib.calls) == n + 1 and lib.calls[-1]["raw"] == raw.data_ptr()
         assert lib.calls[-1]["n_blocks"] is not None
+    elif kernel == "B5":
+        call(raw=raw)
+        assert len(lib.calls) == n + 1 and lib.calls[-1]["raw"] == raw.data_ptr()
     else:
         with pytest.raises(ValueError, match="bf16"):
             call(raw=raw)
@@ -1229,6 +1347,37 @@ def test_f32_step_report_runs_on_the_cpu(capsys):
         assert d["b6_on_kernel_cotangent_vs_b7"] < 1e-5
         assert rec["b4"]["ratio_kernel_to_plain"] == 1.0
         assert len(d["worst_leaves"]) == comp_f32_steps.TOP_LEAVES
+
+
+@pytest.mark.parametrize("hidden", [32, None], ids=["narrow", "flagship"])
+def test_t32_phase_reckoning_runs_on_the_cpu(capsys, tmp_path, hidden):
+    """tools/t32_phases.py on the CPU: the reckoning per 64-row tile from the
+    shapes (no phase is stamped without a card); its phase names are the
+    CUDA header's enum, in order."""
+    from nerf_and_dietnerf_tpu_torch.tools import t32_phases
+
+    argv = ["--device", "cpu", "--out", str(tmp_path / "p.jsonl")] + (
+        ["--hidden", str(hidden)] if hidden else [])
+    assert t32_phases.main(argv) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert (tmp_path / "p.jsonl").read_text().splitlines() == [json.dumps(r) for r in lines]
+    rec = lines[0]["reckoning_per_tile"]
+    assert lines[1]["measured"].startswith("not measured")
+    cfg = tm.MLPConfig(**({} if hidden is None else {"hidden_dim": hidden,
+                                                      "last_hidden_dim": hidden // 2}))
+    layout, total = rc.t32_layout(cfg)
+    # Every product of the 11 matrices: 4 m-tiles of 16 rows, 8-wide n-tiles,
+    # 8-deep k-steps, three TF32 products each; forward and chain back alike.
+    assert rec["products"]["fwd"] == rec["products"]["bwd"] == 3 * 4 * total // 64
+    assert rec["bytes"]["ring"] == 2 * 4 * total  # the F and the B pack, f32
+    w, b = rc.weight_shapes(cfg)
+    assert rec["bytes"]["slab"] == 8 * (sum(k * n for k, n in w) + sum(b))
+    if hidden is None:  # the flagship tile: 97,536 products each way, 4.1 MB of slab
+        assert rec["products"]["fwd"] == 97536 and rec["bytes"]["slab"] == 4114656
+    enum = (CSRC / "t32_phases.cuh").read_text()
+    body = enum[enum.index("enum Phase {"):enum.index("N_PHASES")]
+    names = re.findall(r"^\s+([A-Z_]+),", body, re.MULTILINE)
+    assert tuple(n.lower() for n in names) == t32_phases.PHASES
 
 
 def test_serial_vjp_is_the_compositing_derivative():

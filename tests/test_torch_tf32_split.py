@@ -272,15 +272,15 @@ def _sw(r, c):
 def test_t32_tile_constants_and_budget_match_the_cuda_source():
     bm, nt, hpad, kc, nstage, nact = (_t32_int(k) for k in
                                       ("BM", "NT", "HPAD", "KC", "NSTAGE", "NACT"))
-    assert (bm, nt, hpad, kc, nstage, nact) == (64, 256, 256, 8, 2, 10)
+    assert (bm, nt, hpad, kc, nstage, nact) == (64, 256, 256, 16, 2, 10)
     for line in ("constexpr int LDH = HPAD + 8;", "constexpr int LDX = 64 + 8;",
                  "constexpr int LDD = 32 + 8;", "constexpr int LDW = KC;",
                  "constexpr int STAGE = HPAD * LDW;", "constexpr int SLOT = BM * HPAD;",
                  "__device__ __forceinline__ int sw(int r, int c) { return c ^ (r & 4); }",
-                 "T.kp[i] = pad8(L.wk[i]);", "T.np[i] = pad8(L.wn[i]);", "T.heads = 2 * T.total;"):
+                 "T.kp[i] = pad16(L.wk[i]);", "T.np[i] = pad16(L.wn[i]);", "T.heads = T.total;"):
         assert line in T32_SRC
     ldh, ldx, ldd, stage = hpad + 8, 64 + 8, 32 + 8, hpad * kc
-    fwd = 4 * (bm * ldh + bm * ldx + bm * ldd + nstage * 2 * stage + bm)
+    fwd = 4 * (bm * ldh + bm * ldx + bm * ldd + nstage * stage + bm)
     bwd = fwd + 4 * (bm * ldh + bm * 8)
     assert (fwd, bwd) == (129280, 198912)
 
@@ -299,9 +299,22 @@ def test_t32_tile_constants_and_budget_match_the_cuda_source():
         assert text in COMP_SRC
     # A kept tile is NACT x 64 x 256 f32, the bytes of bf16's 128-row slots.
     assert nact * bm * hpad * 4 == 655360
-    # 3xTF32: small terms first into a fresh accumulator, added to the sum.
-    assert ("  float p[4] = {0.f, 0.f, 0.f, 0.f};\n  mma_tf32(p, alo, bhi0, bhi1);\n"
-            "  mma_tf32(p, ahi, blo0, blo1);\n  mma_tf32(p, ahi, bhi0, bhi1);\n") in T32_SRC
+    # 3xTF32: small terms first into fresh zero partials, each term issued
+    # across every partial of the group before the next term (no product
+    # waits on the one before it), then each partial added to its sum; in the
+    # chain's products (mma_ntiles) and the weight gradients' (mma_wgrad).
+    for p, a, b, acc in (("p[q][mt]", "[mt]", "[q]", "acc[mt][Q0 + q][e]"),
+                         ("p[mt][nt]", "[mt]", "[nt]", "c[mt][nt][e]")):
+        terms = [f"mma_tf32({p}, alo{a}, bh{b}[0], bh{b}[1]);",
+                 f"mma_tf32({p}, ahi{a}, bl{b}[0], bl{b}[1]);",
+                 f"mma_tf32({p}, ahi{a}, bh{b}[0], bh{b}[1]);"]
+        if p == "p[mt][nt]":
+            terms = [t.replace("bh[nt]", "bhi[nt]").replace("bl[nt]", "blo[nt]") for t in terms]
+        at = [T32_SRC.index(t) for t in terms]
+        assert at == sorted(at) and all(T32_SRC.count(t) == 1 for t in terms)
+        assert T32_SRC.index(f"{acc} += {p}[e];") > at[-1]
+        zero = T32_SRC.rindex(f"{p}[e] = 0.f;", 0, at[0])
+        assert T32_SRC.rindex("#pragma unroll", 0, at[0]) > zero
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in T32_SRC
 
 
@@ -329,44 +342,53 @@ def test_t32_fragment_reads_fall_in_32_banks(ld):
 
 
 def test_t32_column_order_puts_a_lanes_b_fragment_side_by_side():
-    pos = rc.t32_column_position(torch.arange(24))
-    assert torch.equal(pos.sort().values, torch.arange(24))
-    inv = torch.empty_like(pos)
-    inv[pos] = torch.arange(24)
-    for t in range(4):  # the 8-byte load at 2 t of a group holds columns t, t + 4
-        for g8 in (0, 8, 16):
-            assert inv[g8 + 2 * t].item() == g8 + t and inv[g8 + 2 * t + 1].item() == g8 + t + 4
-    # A warp's 8-byte B loads (row 8 j + g, float 2 t of a ring row of 8):
-    # each half-warp covers 32 different banks.
+    """t32_offset (``t32_col`` in the CUDA source): every chunk of 16
+    contraction columns is ``rows x 16`` floats in one piece (a bulk copy a
+    chunk); the 8-byte load of lane (g, t) at float 2 t of a half holds its
+    columns t and t + 4, and a half-warp's loads of a k-step (rows 8 j + g,
+    64-byte rows) cover 32 different banks in either half of the chunk."""
+    rows = 24
+    r, c = torch.meshgrid(torch.arange(rows), torch.arange(48), indexing="ij")
+    off = rc.t32_offset(r, c, rows)
+    assert torch.equal(off.flatten().sort().values, torch.arange(rows * 48))
+    for chunk in range(3):  # a chunk is its rows x 16 floats, row r at 16 r
+        blk = off[:, 16 * chunk:16 * chunk + 16]
+        assert int(blk.min()) == 16 * rows * chunk and int(blk.max()) == 16 * rows * (chunk + 1) - 1
+        assert torch.equal(blk // 16 - rows * chunk, r[:, :16])
+    for row in range(8):
+        for half in range(2):
+            base = 16 * row + 8 * (half ^ ((row >> 1) & 1))
+            for t in range(4):
+                assert int(off[row, 8 * half + t]) == base + 2 * t
+                assert int(off[row, 8 * half + t + 4]) == base + 2 * t + 1
     for half in range(2):
-        words = [((lane >> 2) * 8 + 2 * (lane & 3)) + w for lane in range(16 * half, 16 * half + 16)
-                 for w in range(2)]
-        assert len(_banks(words)) == 32
-    assert "const int b = (8 * f.ntile(q) + f.g) * LDW + 2 * f.t;" in T32_SRC
+        for hw in range(2):  # the two half-warps: g = 4 hw .. 4 hw + 3
+            words = [int(off[8 + g, 8 * half]) + 2 * t + w
+                     for g in range(4 * hw, 4 * hw + 4) for t in range(4) for w in range(2)]
+            assert len(_banks(words)) == 32
+    # The CUDA source's formula, and the load that uses it.
+    assert ("  return ((((c >> 3) ^ (r >> 1)) & 1) << 3) + 2 * (c & 3) + ((c >> 2) & 1);"
+            in T32_SRC)
+    assert ("    const float2 w = lds2(cur + 4u * (row * LDW + t32_col(row, 8 * half) + "
+            "2 * f.t));") in T32_SRC
 
 
 def _t32_unpack(buf, cfg, kind):
-    """(hi, lo) of each product matrix as (K, N), and the head matrices, of a
-    buffer of :func:`rc.t32_packs` (``kind`` "f" or "b")."""
+    """Each product matrix as (K, N), and the head matrices, of a buffer of
+    :func:`rc.t32_packs` (``kind`` "f" or "b")."""
     layout, total = rc.t32_layout(cfg)
     shapes = rc.weight_shapes(cfg)[0]
-    halves = []
-    for half in (buf[:total], buf[total:2 * total]):
-        mats = []
-        for (k, n), (off, kp, np_) in zip(shapes, layout):
-            if kind == "f":
-                block = half[off:off + kp * np_].view(np_, kp)
-                mats.append(block[:n, rc.t32_column_position(torch.arange(k))].t())
-            else:
-                block = half[off:off + kp * np_].view(kp, np_)
-                mats.append(block[:k, rc.t32_column_position(torch.arange(n))])
-        halves.append(mats)
-    heads, off = [], 2 * total
+    mats = []
+    for (k, n), (off, kp, np_) in zip(shapes, layout):
+        kk, nn = torch.meshgrid(torch.arange(k), torch.arange(n), indexing="ij")
+        at = rc.t32_offset(nn, kk, np_) if kind == "f" else rc.t32_offset(kk, nn, kp)
+        mats.append(buf[off + at])
+    heads, off = [], total
     for k, n in shapes[rc.N_TF32_PRODUCTS:]:
         heads.append(buf[off:off + k * n].view(k, n))
         off += k * n
     assert off == buf.numel()
-    return halves[0], halves[1], heads
+    return mats, heads
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
@@ -376,22 +398,21 @@ def test_t32_packs_give_back_the_weights_and_pads_are_zero(case):
     packs = rc.t32_packs(ws, cfg)
     for kind, buf in zip("fb", packs):
         assert buf.dtype == torch.float32 and buf.is_contiguous()
-        hi, lo, heads = _t32_unpack(buf, cfg, kind)
-        for w, h, l_ in zip(ws, hi, lo):
-            assert torch.equal(h, rc.round_tf32(w)) and torch.equal(l_, rc.round_tf32(w - h))
+        mats, heads = _t32_unpack(buf, cfg, kind)
+        for w, m in zip(ws, mats):
+            assert torch.equal(m, w)  # f32 as given; the kernel splits in registers
         for a, b in zip(heads, ws[rc.N_TF32_PRODUCTS:]):
             assert torch.equal(a, b)
         live = torch.zeros(total, dtype=torch.bool)
         for (k, n), (off, kp, np_) in zip(rc.weight_shapes(cfg)[0], layout):
-            assert kp == (k + 7) // 8 * 8 and np_ == (n + 7) // 8 * 8
-            rows, cols = (n, k) if kind == "f" else (k, n)
-            blk = live[off:off + kp * np_].view(*((np_, kp) if kind == "f" else (kp, np_)))
-            blk[:rows, rc.t32_column_position(torch.arange(cols))] = True
-        for half in (buf[:total], buf[total:2 * total]):
-            assert not half[~live].any()
-    # Flagship widths: 515,072 floats a pack with view dirs (every width a
-    # multiple of 8 but xyz 33 -> 40).
-    assert rc.t32_layout(tm.MLPConfig())[1] == 2 * 40 * 256 + 7 * 256 * 256 + 256 * 128 + 24 * 128
+            assert kp == (k + 15) // 16 * 16 and np_ == (n + 15) // 16 * 16
+            kk, nn = torch.meshgrid(torch.arange(k), torch.arange(n), indexing="ij")
+            live[off + (rc.t32_offset(nn, kk, np_) if kind == "f"
+                        else rc.t32_offset(kk, nn, kp))] = True
+        assert not buf[:total][~live].any()
+    # Flagship widths: 520,192 floats a pack with view dirs (every width a
+    # multiple of 16 but xyz 33 -> 48 and dir 24 -> 32).
+    assert rc.t32_layout(tm.MLPConfig())[1] == 2 * 48 * 256 + 7 * 256 * 256 + 256 * 128 + 32 * 128
 
 
 class _FakeT32Lib:
@@ -448,13 +469,38 @@ def _t32_dot(pairs, acc=None):
     return acc
 
 
+def _load_rows(src, width, row0, ld):
+    """``load_rows`` (csrc/mlp_tf32_mma_tile.cuh) of rows [row0, row0 + 64) of
+    ``src`` (n, width) into a tile of row stride ``ld`` that held NaN before:
+    column c of row r at sw(r, c), the pad columns [width, pad16(width)) and
+    the rows past n zero; the columns past pad16 keep what they held."""
+    n, wp = src.shape[0], -(-width // 16) * 16
+    tile = torch.full((T32_BM, ld), float("nan"))
+    r = torch.arange(T32_BM)[:, None]
+    c = torch.arange(wp)[None, :]
+    vals = torch.zeros((T32_BM, wp))
+    k = min(T32_BM, max(0, n - row0))
+    vals[:k, :width] = src[row0:row0 + k]
+    tile[r.expand(-1, wp), c ^ (r & 4)] = vals
+    return tile
+
+
+def _read_cols(tile, width):
+    """Columns [0, width) of each row of a swizzled tile, read through sw."""
+    r = torch.arange(tile.shape[0])[:, None]
+    c = torch.arange(width)[None, :]
+    return tile[r.expand(-1, width), c ^ (r & 4)]
+
+
 def _t32_mlp_bwd(ws, bs, cfg, x, d, g):
-    """The backward of f32 B7's tile on (x, d, g), tile by tile of 64 rows:
-    the forward (wide products by :func:`_t32_dot`, the skip layer's two and
-    the view layer's two into one accumulator, heads in f32), then the chain
-    back in backward_walk's order, weight gradients per tile by
-    :func:`_t32_dot` with the rows as contraction, added to the slab tile
-    after tile. Returns (dws, dbs, dx, dd)."""
+    """The backward of f32 B2's tile (and f32 B7's) on (x, d, g), tile by tile
+    of 64 rows as B2's kernel walks them: X and D loaded by ``load_rows``
+    (:func:`_load_rows`, rows past n zero, as the cotangent's), the forward
+    (wide products by :func:`_t32_dot`, the skip layer's two and the view
+    layer's two into one accumulator, heads in f32), then the chain back in
+    backward_walk's order, weight gradients per tile by :func:`_t32_dot` with
+    the rows as contraction, added to the slab tile after tile, dx and dd
+    rows past n not written. Returns (dws, dbs, dx, dd)."""
     a = cfg.leaky_relu_alpha
 
     def leaky(v):
@@ -473,10 +519,20 @@ def _t32_mlp_bwd(ws, bs, cfg, x, d, g):
     def colsum(v):
         return v.sum(0)
 
-    for r0 in range(0, x.shape[0], T32_BM):
-        xt = x[r0:r0 + T32_BM]
-        dt = d[r0:r0 + T32_BM] if d is not None else None
-        gt = g[r0:r0 + T32_BM]
+    n = x.shape[0]
+    for r0 in range(0, n, T32_BM):
+        tiles = [(_load_rows(x, cfg.xyz_dim, r0, 64 + 8), cfg.xyz_dim)] + (
+            [(_load_rows(d, cfg.dir_dim, r0, 32 + 8), cfg.dir_dim)] if d is not None else [])
+        for tile, width in tiles:  # pads and rows past n zero, the rest the rows
+            wp = -(-width // 16) * 16
+            got = _read_cols(tile, wp)
+            assert not bool(got[:, width:].any()) and not bool(got[n - r0:].any())
+            assert torch.equal(got[:n - r0, :width], (x if width == cfg.xyz_dim
+                                                      else d)[r0:r0 + T32_BM])
+        xt = _read_cols(tiles[0][0], cfg.xyz_dim)
+        dt = _read_cols(tiles[1][0], cfg.dir_dim) if d is not None else None
+        gt = torch.zeros((T32_BM, 4))
+        gt[:min(T32_BM, n - r0)] = g[r0:r0 + T32_BM]
         hs, h = [], xt
         for layer in range(8):
             pairs = [(xt, ws[4]), (h, ws[5])] if layer == 4 else [
@@ -528,15 +584,21 @@ def _t32_mlp_bwd(ws, bs, cfg, x, d, g):
             else:
                 add(dws, 0, _t32_dot([(xt.t(), G)]))
                 dxs.append(_t32_dot([(G, ws[0].t())]) + dx_skip)
+        dxs[-1] = dxs[-1][:n - r0]
+        if dds:
+            dds[-1] = dds[-1][:n - r0]
     return dws, dbs, torch.cat(dxs), (torch.cat(dds) if dds else None)
 
 
 @pytest.mark.parametrize("case", CASES[:2], ids=IDS[:2])
 def test_t32_backward_model_matches_jax_f32_and_the_f64_chain(case):
-    """The 3xTF32 arithmetic of f32 B7's backward tile, modelled in torch: at
-    narrow widths against the JAX package's f32 MLP backward (its Pallas
-    kernel in interpret mode) and no farther from the f64 chain than the
-    plain f32 version."""
+    """The 3xTF32 arithmetic of f32 B2's (and f32 B7's) backward tile in B2's
+    tile order, modelled in torch: each 64-row tile loaded as ``load_rows``
+    loads it (the last part-filled: n = 150), forwarded, then walked back; at
+    narrow widths against the JAX package's f32 MLP backward
+    (``_backward_pallas`` in interpret mode) at the card's f32 tolerances
+    (``BWD_TOL`` per leaf, ``ROWS_TOL`` normwise), and no farther from the f64
+    chain than the plain f32 version."""
     jcfg = jm.MLPConfig(**case)
     jparams = jm.init_params(jax.random.PRNGKey(0), jcfg)
     cfg = tm.MLPConfig(**case)
@@ -576,3 +638,105 @@ def test_t32_backward_model_matches_jax_f32_and_the_f64_chain(case):
 
     for got, base in zip(dist((dws, dbs, dx)), dist(plain)):
         assert got <= BWD_F64_FACTOR * base + 2.0 ** -24
+
+
+class _FakeB2Lib:
+    """B2's library as the wrapper sees it: its exports, and a launch that
+    records the weight buffers it was handed."""
+
+    def __init__(self, cfg, t32_elems=None):
+        self.cfg, self.calls = cfg, []
+        self.t32_elems = rc.t32_layout(cfg)[1] if t32_elems is None else t32_elems
+
+    def nerf_mlp_param_count(self, *dims):
+        w, b = rc.weight_shapes(self.cfg)
+        return sum(k * n for k, n in w) + sum(b)
+
+    def nerf_mlp_t32_pack_elems(self, *dims):
+        return self.t32_elems
+
+    def nerf_mlp_mma_pack_elems(self, *dims):
+        return rc.mma_layout(self.cfg)[1]
+
+    def nerf_mlp_bwd_tile_rows(self, is_bf16):
+        return 128 if is_bf16 else T32_BM
+
+    def nerf_mlp_bwd_tile_act_elems(self, is_bf16):
+        return 10 * (128 if is_bf16 else T32_BM) * 256
+
+    def nerf_mlp_bwd(self, is_bf16, has_dir, x, d, w, wt, b, g, dx, dd, partial, acts, dparams,
+                     n_blocks, n, *tail):
+        self.calls.append(dict(is_bf16=is_bf16, w=w, wt=wt, acts=acts, n_blocks=n_blocks, n=n))
+        return 0
+
+
+@pytest.mark.parametrize("case", CASES[:2], ids=IDS[:2])
+def test_b2_f32_wrapper_passes_the_t32_packs_and_sizes_its_scratch(case, monkeypatch):
+    """f32 B2 on the card: the F and B buffers of ``t32_packs`` (their pack
+    size checked against the library's), 64-row tiles, one block an SM at
+    most, each block's NACT x 64 x 256 f32 slots."""
+    from types import SimpleNamespace
+
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+
+    cfg, ws, bs = _weights(case)
+    n = 2 * T32_BM * 3 + 5
+    x = torch.rand((n, cfg.xyz_dim))
+    d = torch.rand((n, cfg.dir_dim)) if cfg.uses_view_dirs else None
+    g = torch.rand((n, 4))
+    seen = {}
+    real_weights_for = rc._weights_for
+
+    def weights_for(lib, ws_, cfg_, cd, kinds):
+        out = real_weights_for(lib, ws_, cfg_, cd, kinds)
+        seen["kinds"], seen["bufs"] = kinds, out
+        return out
+
+    lib = _FakeB2Lib(cfg)
+    monkeypatch.setattr(rc, "uses_kernel", lambda t: True)
+    monkeypatch.setattr(rc, "load", lambda name: lib)
+    monkeypatch.setattr(rc, "stream_of", lambda dev: 0)
+    monkeypatch.setattr(rc, "_weights_for", weights_for)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=4))
+    counts = dict(kl.LAUNCHES)
+    try:
+        rc.mlp_bwd(ws, bs, cfg, x, d, g, torch.float32)
+        (call,) = lib.calls
+        assert seen["kinds"] == ("tf", "tb")
+        assert all(torch.equal(a, b) for a, b in zip(seen["bufs"], rc.t32_packs(ws, cfg)))
+        assert (call["w"], call["wt"]) == tuple(b.data_ptr() for b in seen["bufs"])
+        assert call["n"] == n and call["n_blocks"] == 4 and call["is_bf16"] == 0
+        with pytest.raises(RuntimeError, match="f32 backward's pack layout"):
+            monkeypatch.setattr(rc, "load", lambda name: _FakeB2Lib(cfg, t32_elems=8))
+            rc.mlp_bwd(ws, bs, cfg, x, d, g, torch.float32)
+    finally:
+        kl.LAUNCHES.update(counts)
+
+
+def test_b2_f32_kernel_runs_the_t32_tile_on_swizzled_zero_padded_inputs():
+    """mlp_bwd.cu's f32 branch launches the 3xTF32 kernel (the FMA kernel is
+    gone), which loads X and D with ``load_rows`` (modelled by
+    :func:`_load_rows`) and runs ``backward_tile``: forward_tile keeping the
+    slots, then backward_walk from the B pack's matrix 10."""
+    b2 = (CSRC / "mlp_bwd.cu").read_text()
+    assert "mlp_bwd_kernel<" not in b2 and "mlp_bwd_kernel(" not in b2
+    f32 = b2.index("  } else {\n    const size_t smem = nerf_tmma::bwd_smem_bytes();")
+    assert b2.index("mlp_bwd_t32_kernel<<<n_blocks, nerf_tmma::NT, smem, stream>>>(") > f32
+    for line in ("    tm::load_rows(t.X, tm::LDX, x, dm.xyz, row0, dm.n);",
+                 "    if (dm.has_dir) tm::load_rows(t.D, tm::LDD, d, dm.dir, row0, dm.n);",
+                 "    tm::load_cotangent(t.GI, g, row0, dm.n);",
+                 "    tm::backward_tile(dm, L, M, F, Bp, B, t, ring, acts, part, first, row0, dx,"):
+        assert line in b2
+    for line in ("  const int wp = nerf_mma::pad16(width);",
+                 "    T[r * ld + sw(r, c)] = row < n && c < width ? src[(size_t)row * width + c]"
+                 " : 0.f;",
+                 "  const Mat b10 = bmat(Bp, M, 10);\n"
+                 "  forward_tile(dm, L, M, F, B, t, ring, acts, nullptr, row0, &b10);\n"
+                 "  backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after,"
+                 " b10);"):
+        assert line in T32_SRC
+    # The same tile rows and slots as the exports give.
+    assert "return is_bf16 ? nerf_mma::BM : TM; }" in b2
+    assert ("static_assert(nerf_tmma::BM == TM && (long long)nerf_tmma::NACT * nerf_tmma::SLOT =="
+            in b2)

@@ -125,6 +125,18 @@ def test_trainer_pallas_rm_one_epoch_on_cpu(tmp_path, n_angles):
         assert rgb.shape == (10, 10, 3) and np.isfinite(rgb).all()
 
 
+@pytest.mark.parametrize("kw,what", [({"type_of_model": "DietNeRF"}, "DietNeRF"),
+                                     ({"mesh_data_devices": 2}, "multi-GPU")],
+                         ids=["dietnerf", "data_devices_2"])
+def test_trainer_refuses_configs_it_cannot_train(tmp_path, kw, what):
+    """A DietNeRF config, or one on two data devices, goes to DietTrainer or a
+    device mesh in the JAX runner; the port's Trainer refuses both rather
+    than train plain single-device NeRF."""
+    with pytest.raises(NotImplementedError, match=what):
+        Trainer(tiny_run(**kw), synthetic_dataset(), tmp_path, device="cpu")
+    Trainer(tiny_run(mesh_data_devices=1), synthetic_dataset(), tmp_path, device="cpu")
+
+
 def test_eval_config_turns_train_fusions_off(tmp_path, monkeypatch):
     """As in the JAX package, eval renders run in f32 without the train-path
     fusions, whatever the train config (no YAML key sets fuse_compositing)."""
