@@ -28,19 +28,21 @@ version likewise (raw output, dz and dparams; JSON ``b6_vs_f64_chain``), B7
 (pixels, dz, dparams; ``b7_vs_f64_chain``; in f32 also step by step,
 ``b7_f32_steps``, ``tools/comp_f32_steps.py``), B5 (loss, dz, dparams;
 ``b5_vs_f64_chain``) and B4 (pixels, weights, denc, dencd, dz, dparams;
-``b4_vs_f64_chain``) at S = 64 and 128 (f32 B4: 64), and B2 in both types
+``b4_vs_f64_chain``) at S = 64 and 128, and B2 in both types
 (dx / dd; ``b2_vs_f64_chain``), holds the
 bf16 B7 forward and backward, B5 and B4 (forward and backward, on the
-tensor cores) also at S = 100, at 4093 rays and on opaque rays, and f32 B7's
-backward and f32 B5 (3xTF32 on the tensor cores) at S = 64, 100 and 128 and
-on opaque rays, each against its plain version with f64 sums on the kernel's
+tensor cores) also at S = 100, at 4093 rays and on opaque rays, and the f32
+backwards of B7 and B4 and f32 B5 (3xTF32 on the tensor cores) at S = 64, 100
+and 128 and on opaque rays, each against its plain version with f64 sums on the kernel's
 side of the compositing's kink (``KINK_SHARE``), checks that bf16 B4's and
 B7's backwards composite bitwise the raw values their forwards composited,
 prints the registers, spills and HMMA counts of the five bf16 backwards (B2,
 B6, B7, B5, B4), of B4's and B7's forwards and of the f32 backwards on the
-3xTF32 tile (B2, B7, B5), times f32 B1 beside that FMA design and f32 B2 and
-B5 at both passes' shapes beside their plain versions and library calls,
-then drives six training paths at flagship width (4096 rays, 64 + 128
+3xTF32 tile (B2, B7, B5, B6, B4), times f32 B1 beside that FMA design and f32
+B2, B5 and the backwards of B6 and B4 at both passes' shapes beside their
+plain versions and library calls (f32 B6's backward is also held at 4093 rays
+of 100 samples, a part-filled last 64-row tile), then drives seven training
+paths at flagship width (4096 rays, 64 + 128
 samples, 256/128 wide, bf16 step unless said, f32 eval renders) on a
 synthetic scene made from a seed, each for two epochs with the launch counts
 set to 0 just before it: backend "pallas" through the
@@ -52,8 +54,9 @@ through
 ``train_step.make_epoch_fn`` "pallas_rm" with ``fuse_compositing`` (B7),
 "pallas" with ``fuse_compositing`` (B4 on both passes) and "pallas" with
 ``fuse_compositing`` and ``fuse_fine_loss`` (B4 on the coarse pass, B5 on the
-fine pass), and "pallas" with compute_dtype float32 through the ``Trainer``
-(f32 B1 and B2 in the step). Then the seven probe kernels (P1 ``probe_mma``, P2
+fine pass), and "pallas" and "pallas_rm" with compute_dtype float32 through
+the ``Trainer`` (f32 B1 and B2; f32 B6 in the step).
+Then the seven probe kernels (P1 ``probe_mma``, P2
 ``probe_mlp_epilogue``, P3 ``probe_mlp_chains``, P4-P6 ``probe_expand_a/b/c``,
 P7 ``probe_enccost``) are held against their plain versions at the probe
 tools' own shapes, the five tools of ``nerf_and_dietnerf_tpu_torch/tools`` run
@@ -93,23 +96,22 @@ N_ROWS_NARROW = 4096 - 5  # f32 B1 at narrow widths
 MLP_DESIGN = {"bfloat16": "tensor cores, mma.sync bf16, 128-row tiles",
               "float32": "tensor cores, 3xTF32 wgmma, 128-row tiles in persistent blocks, "
                          "a producer warp streaming hi / lo weight packs by bulk copies"}
-# f32 B2 runs the 3xTF32 mma.sync tile of csrc/mlp_tf32_mma_tile.cuh as f32
-# B7's backward and f32 B5 do: the forward keeping the slots, then the walk.
+# f32 B2 and f32 B6's backward run the 3xTF32 mma.sync tile of
+# csrc/mlp_tf32_mma_tile.cuh as the f32 compositing backwards do: the forward
+# keeping the slots, then the walk.
 F32_BWD_DESIGN = ("tensor cores, 3xTF32 mma.sync m16n8k8, 64-row tiles in persistent blocks, "
                   "forward keeping the slots then the walk")
-# f32 B6's backward keeps the FMA tile.
-FMA_BWD_DESIGN = "f32 FMA tiles, 64 rows"
-# bf16 B7 backward and B5: the ray-group loop of csrc/comp_mma_tile.cuh on
-# the tensor-core tiles, one forward per row; f32 B7 backward and f32 B5 the
-# same loop on the 3xTF32 mma.sync tiles of csrc/mlp_tf32_mma_tile.cuh.
+# bf16 B7 backward, B5 and B4 backward: the ray-group loop of
+# csrc/comp_mma_tile.cuh on the tensor-core tiles, one forward per row; their
+# f32 instances the same loop on the 3xTF32 mma.sync tiles of
+# csrc/mlp_tf32_mma_tile.cuh.
 COMP_MMA_DESIGN = (MLP_DESIGN["bfloat16"] + ", whole rays in a tile, one forward per row, "
                    "compositing VJP in the block, dx through a per-block slab")
 T32_COMP_DESIGN = ("tensor cores, 3xTF32 mma.sync m16n8k8, 64-row tiles, whole rays in a group, "
                    "one forward per row, compositing VJP in the block, dx through a per-block "
                    "slab")
-# B6 runs B1/B2's tensor-core tiles on the encodings it builds; its f32
-# backward (parity runs and compute_dtype float32 configs) keeps the FMA
-# tile. B7's bf16 forward runs the forward loop of comp_mma_tile.cuh on the
+# B6 runs B1/B2's tensor-core tiles on the encodings it builds, in both
+# types. B7's bf16 forward runs the forward loop of comp_mma_tile.cuh on the
 # encodings it builds.
 RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings built into "
                                                                     "the bf16 operand tiles",
@@ -119,7 +121,9 @@ RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings
              ("raymarch_bwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings built into "
                                                                     "the bf16 operand tiles, dx "
                                                                     "through a per-block slab",
-             ("raymarch_bwd", "float32"): FMA_BWD_DESIGN,
+             ("raymarch_bwd", "float32"): F32_BWD_DESIGN + ", encodings built into the f32 "
+                                                          "operand tiles, dx through a per-block "
+                                                          "slab",
              ("raymarch_comp_bwd", "bfloat16"): COMP_MMA_DESIGN,
              ("raymarch_comp_bwd", "float32"): T32_COMP_DESIGN,
              ("raymarch_comp_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", whole rays in a "
@@ -134,9 +138,12 @@ RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings
                                                                   "VJP in the block, dx rows to "
                                                                   "denc, dd rows through a "
                                                                   "per-block slab",
+             ("mlp_comp_bwd", "float32"): T32_COMP_DESIGN.replace(
+                 "dx through a per-block slab", "dx rows to denc, dd rows through a per-block "
+                                                "slab"),
              ("mlp_comp_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", whole rays in a tile, "
                                                                   "compositing in the block"}
-# Every other kernel (f32 B7's forward and f32 B4) keeps the FMA tiles.
+# Every other kernel (the f32 forwards of B7 and B4) keeps the FMA tiles.
 FMA_COMP_DESIGN = "FMA tiles, 64 rows, whole rays a block"
 # B1's former f32 design, timed beside it: P3 with one chain is that FMA tile.
 FMA_DESIGN = "f32 FMA tile, one 64-row chain (P3, chains=1)"
@@ -176,7 +183,8 @@ TOL_ROWS = {"float32": 5e-3, "bfloat16": 2e-2}
 RAYS, SAMPLES, SAMPLES_EVAL, SAMPLES_RAGGED = 4096, 64, 192, 100
 # B6 is also held at a ray count whose R S rows leave a part-filled last
 # 128-row tile of its tensor-core kernels (4093 x 64 = 2046.5 tiles), in both
-# types, the backward in bf16.
+# types, the backward in bf16; its f32 backward (64-row tiles, which 4093 x
+# 64 rows fill) at 4093 x 100 = 6395.3 tiles.
 RAYS_RAGGED = RAYS - 3
 # MLP + compositing kernels (B4, B5) against their plain versions, on torch-made
 # encodings of the same ray batches: pixels, weights and B5's loss to TOL (the
@@ -639,6 +647,25 @@ def _rm_bytes(cfg, ws, bs, rd, z, kname):
     }[kname]
 
 
+def _fine_pass_extras(torch, rec, fn, plain, lib, flops, name, nbytes) -> None:
+    """An f32 backward's timing record ``rec`` (f32 B6's and B4's) at the
+    fine pass's S = 128: the kernel's ms, TFLOP/s and share of its bound
+    (``flops`` over the peak for ``name``, ``nbytes`` over the HBM rate),
+    its plain version's and its library composition's ms."""
+    ms = _time_ms(torch, fn, reps=3)
+    bound = _bound(flops, _mlp_peak(name), nbytes)
+    rec.update(ms_fine_pass=ms, tflops_fine_pass=flops / ms / 1e9,
+               share_of_bound_fine_pass=bound[0] / ms,
+               plain_ms_fine_pass=_time_ms(torch, plain, reps=2),
+               library_ms_fine_pass=_time_ms(torch, lib, reps=3))
+
+
+def _fine_pass_text(r: dict) -> str:
+    return (f" ({100 * r['share_of_bound_fine_pass']:.2f} % of the bound, plain "
+            f"{r['plain_ms_fine_pass']:.3f} ms, library {r['library_ms_fine_pass']:.3f} ms)"
+            if "share_of_bound_fine_pass" in r else "")
+
+
 def _normwise(a, exact) -> float:
     """|a - exact|_2 / |exact|_2, in f64."""
     return float((a.double() - exact).norm() / exact.norm().clamp_min(1e-300))
@@ -686,18 +713,16 @@ def _hold_comp_bwd(torch, kernel, label, name, ws, bs, cfg, cd, args, run) -> di
     its result as ``comp_kink.distance`` takes it (``(dws, dbs, dz, loss |
     None[, rows])``), on the tensor cores writing the raw values it
     composited to ``raw``. Finite, dparams (and B5's loss, B4's dencd)
-    bitwise equal across two runs, and held to the tolerances: on the tensor
-    cores (every bf16 kernel, and f32 B7 and B5, whose 3xTF32 tiles sum in an
-    order of their own) as KINK_SHARE sets out, in the compute type's
-    tolerances; f32 B4 (the FMA kernel, which sums in the plain version's
-    order) against the plain f32 version. Returns ``tools/comp_kink.compare``'s
-    record, ``held_to`` naming the reference held to."""
+    bitwise equal across two runs, and held to the tolerances as KINK_SHARE
+    sets out (every instance runs on the tensor cores, the f32 ones on 3xTF32
+    tiles, each summing in an order of their own), in the compute type's
+    tolerances. Returns ``tools/comp_kink.compare``'s record, ``held_to``
+    naming the reference held to."""
     from nerf_and_dietnerf_tpu_torch.tools import comp_kink
 
     kname = COMP_BWD_NAMES[kernel]
     z = args[1] if kernel == "B7" else args[2]
-    raw = (torch.empty((*z.shape, 4), dtype=torch.float32, device=DEVICE)
-           if cd == torch.bfloat16 or kernel in ("B7", "B5") else None)
+    raw = torch.empty((*z.shape, 4), dtype=torch.float32, device=DEVICE)
     got, again = run(raw), run(None)
     torch.cuda.synchronize()
 
@@ -708,12 +733,11 @@ def _hold_comp_bwd(torch, kernel, label, name, ws, bs, cfg, cd, args, run) -> di
 
     rows = got[4] if len(got) > 4 else {}
     rec = comp_kink.compare(*comp_kink.plain_of(kernel, ws, bs, cfg, cd, args), got, raw)
-    rec["held_to"] = "plain" if raw is None else "f64_kink"
+    rec["held_to"] = "f64_kink"
     ref = rec[rec["held_to"]]
     bad = [what for what, fails in (
         ("non-finite", not all(bool(torch.isfinite(t).all())
-                               for t in rep(got) + [got[2]] + list(rows.values())
-                               + ([] if raw is None else [raw]))),
+                               for t in rep(got) + [got[2]] + list(rows.values()) + [raw])),
         ("dparams differ between two runs", not all(torch.equal(a, b)
                                                     for a, b in zip(rep(got), rep(again)))),
         (f"dparams over {TOL_BWD[name]}", ref["dparams_worst_leaf"] > TOL_BWD[name]),
@@ -727,11 +751,10 @@ def _hold_comp_bwd(torch, kernel, label, name, ws, bs, cfg, cd, args, run) -> di
             "loss_rel", "denc_normwise", "dencd_normwise")
     summary = (f"against {rec['held_to']}: "
                + ", ".join(f"{k} {ref[k]:.3e}" for k in keys if k in ref)
-               + (f"; raw scaled err {rec['raw_scaled_err_vs_plain']:.3e}, samples on the other "
-                  f"side of the kink: {rec['kink_vs_f64']['count']} of the f64 evaluation's, "
-                  f"{rec['kink_vs_plain']['count']} of the f32's; against the plain f32 version: "
-                  + ", ".join(f"{k} {rec['plain'][k]:.3e}" for k in keys if k in rec["plain"])
-                  if raw is not None else ""))
+               + f"; raw scaled err {rec['raw_scaled_err_vs_plain']:.3e}, samples on the other "
+                 f"side of the kink: {rec['kink_vs_f64']['count']} of the f64 evaluation's, "
+                 f"{rec['kink_vs_plain']['count']} of the f32's; against the plain f32 version: "
+               + ", ".join(f"{k} {rec['plain'][k]:.3e}" for k in keys if k in rec["plain"]))
     if bad:
         raise AssertionError(f"{kname} {label}: {bad}; {summary}")
     log(f"kernel check {label}: {kname} {summary}; bitwise equal across two runs")
@@ -884,17 +907,20 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
     # rays in bf16) draw from one more, for the same reason.
     gen_b7 = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
     # f32 B7's backward at the fine pass's S = 128, added with its
-    # tensor-core kernel, from one more.
+    # tensor-core kernel, from one more; f32 B6's backward at a part-filled
+    # last 64-row tile, added with its tensor-core kernel, from one more.
     gen_t32 = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    gen_b6 = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
         cfg = mlp.MLPConfig(n_angles=n_angles)
         params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
         for cd in (torch.bfloat16, torch.float32):
             name = str(cd).split(".")[-1]
             ws, bs = rc.flatten_params(params, cfg, cd)
-            # A ragged ray count (its backwards in bf16: f32 B6 backward keeps
-            # 64-row tiles, which 4093 x 64 rows fill): B6's part-filled last
-            # 128-row tile, and in bf16 B7 with a last group of one ray.
+            # A ragged ray count (its backwards in bf16: f32 B6's backward
+            # runs 64-row tiles, which 4093 x 64 rows fill; it is held at
+            # 4093 x 100 below): B6's part-filled last 128-row tile, and in
+            # bf16 B7 with a last group of one ray.
             rd_r, z_r = _ray_batch(torch, cfg, RAYS_RAGGED, SAMPLES, gen_ragged)
             ragged = _rm_checks(torch, rk, cfg, ws, bs, rd_r, z_r, cd, name, gen_ragged,
                                 f"{variant} {name} R={RAYS_RAGGED} S={SAMPLES}",
@@ -904,9 +930,8 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
             errs, cots, rec7 = _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen,
                                           f"{variant} {name} R={RAYS} S={SAMPLES}")
             # B6 and its plain version against the f64 chain: the forward and
-            # the backward's dz and dparams in both types (f32: B6's FMA
-            # backward tile, which f32 B7's backward ran before its tensor-core
-            # tiles; ROADMAP C3).
+            # the backward's dz and dparams in both types (f32: the 3xTF32
+            # tile, as f32 B2's).
             chain = _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd, z, cots[0], cd)
             timings.setdefault("b6_vs_f64_chain", {}).setdefault(variant, {})[name] = chain
             log(f"kernel check B6 {variant} {name} R={RAYS} S={SAMPLES} against the f64 chain "
@@ -924,6 +949,13 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                 other[n_s] = (rd_s, z_s, *_rm_checks(
                     torch, rk, cfg, ws, bs, rd_s, z_s, cd, name, g_s,
                     f"{variant} {name} R={RAYS} S={n_s}", backward))
+            if cd == torch.float32:
+                # f32 B6's backward with a part-filled last 64-row tile.
+                rd_r, z_r = _ray_batch(torch, cfg, RAYS_RAGGED, SAMPLES_RAGGED, gen_b6)
+                ragged_b6 = _rm_checks(torch, rk, cfg, ws, bs, rd_r, z_r, cd, name, gen_b6,
+                                       f"{variant} {name} R={RAYS_RAGGED} S={SAMPLES_RAGGED}",
+                                       b7=False)[0]
+                del rd_r, z_r
             # B7 and its plain version against the f64 evaluation: pixels, dz
             # and dparams at S = 64 and 128 (in f32 also ROADMAP C3's steps on
             # the S = 64 draw).
@@ -950,10 +982,9 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
             leaves = [w.detach().clone().requires_grad_(True) for w in ws]
             zr = z.clone().requires_grad_(True)
 
-            def lib_bwd(comp):
-                outs = _library_raymarch(torch, leaves, bs, cfg, rd, zr, comp)
-                cot = (g_rgb, g_w) if comp else (g,)
-                torch.autograd.grad(outs, leaves + [zr], cot)
+            def lib_bwd(comp, rd_=rd, z_=zr, cot=(g_rgb, g_w, g)):
+                outs = _library_raymarch(torch, leaves, bs, cfg, rd_, z_, comp)
+                torch.autograd.grad(outs, leaves + [z_], cot[:2] if comp else cot[2:])
 
             cases = (
                 ("raymarch_fwd", lambda: rk.raymarch_fwd(ws, bs, cfg, rd, z, cd),
@@ -1008,9 +1039,19 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                     rec[kname]["max_abs_err_s128"] = errs128[kname]
             for kname in RM_SOURCES:
                 rec[kname]["max_abs_err_s100"] = other[SAMPLES_RAGGED][2][kname]
-            if cd == torch.float32:  # f32 B7's backward at the fine pass's S = 128
-                rec["raymarch_comp_bwd"]["max_abs_err_s128"] = other[2 * SAMPLES][2][
-                    "raymarch_comp_bwd"]
+            if cd == torch.float32:  # the f32 backwards at the fine pass's S = 128
+                rd3, z3, errs128, (g3, _, _), _ = other[2 * SAMPLES]
+                for kname in ("raymarch_bwd", "raymarch_comp_bwd"):
+                    rec[kname]["max_abs_err_s128"] = errs128[kname]
+                rec["raymarch_bwd"]["max_abs_err_ragged_s100"] = ragged_b6["raymarch_bwd"]
+                z3r = z3.clone().requires_grad_(True)
+                _fine_pass_extras(
+                    torch, rec["raymarch_bwd"],
+                    lambda: rk.raymarch_bwd(ws, bs, cfg, rd3, z3, g3, cd),
+                    lambda: rk.raymarch_bwd_plain(ws, bs, cfg, rd3, z3, g3, cd),
+                    lambda: lib_bwd(False, rd3, z3r, (None, None, g3)),
+                    3 * mlp_flops(cfg, RAYS * 2 * SAMPLES), name,
+                    _rm_bytes(cfg, ws, bs, rd3, z3, "raymarch_bwd"))
             if cd == torch.float32:  # the eval render's forwards, S = 192
                 rd2, z2, errs192, _, _ = other[SAMPLES_EVAL]
                 for kname, fn in (
@@ -1025,7 +1066,8 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
             sass = timings.get("sass", {})
             for kname, key, kernel in (("raymarch_comp_fwd", "forwards", "rm_comp_fwd_mma_kernel"),
                                        ("raymarch_comp_bwd", "f32_backwards",
-                                        "rm_comp_bwd_t32_kernel")):
+                                        "rm_comp_bwd_t32_kernel"),
+                                       ("raymarch_bwd", "f32_backwards", "rm_bwd_t32_kernel")):
                 if (kname == "raymarch_comp_fwd") == (cd == torch.bfloat16):
                     rec[kname]["ptxas"] = sass.get(key, {}).get(kernel)
             timings["rm_" + name] = rec
@@ -1038,6 +1080,7 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                     + (f"; S={SAMPLES_EVAL}: {r['ms_s192']:.3f} ms" if "ms_s192" in r else "")
                     + (f"; S={2 * SAMPLES}: {r['ms_fine_pass']:.3f} ms "
                        f"({r['tflops_fine_pass']:.1f} TFLOP/s)" if "ms_fine_pass" in r else "")
+                    + _fine_pass_text(r)
                     + (f"; registers, spill bytes, SASS HMMA {r['ptxas']}" if "ptxas" in r
                        else ""))
 
@@ -1236,6 +1279,9 @@ def comp_kernel_phases(torch, timings: dict) -> None:
     # (the same cases) from one more.
     gen_b5 = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
     gen_b4 = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    # f32 B4's backward at the fine pass's S = 128 (a ray over two 64-row
+    # tiles), added with its tensor-core kernel, from one more.
+    gen_b4_t32 = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
         cfg = mlp.MLPConfig(n_angles=n_angles)
         params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
@@ -1253,6 +1299,15 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                 errs[n_s], cots[n_s], recs[n_s] = _comp_checks(
                     torch, rk, cfg, ws, bs, batches[n_s], cd, name, gen,
                     f"{variant} {name} R={RAYS} S={n_s}", b4, b5)
+            if cd == torch.float32:
+                # f32 B4 at S = 128 (on a batch of its own: B5's S = 128
+                # checks keep theirs).
+                batch4 = _enc_batch(torch, cfg, cd, RAYS, 2 * SAMPLES, gen_b4_t32)
+                e4, cots4, r4 = _comp_checks(torch, rk, cfg, ws, bs, batch4, cd, name,
+                                             gen_b4_t32, f"{variant} {name} R={RAYS} "
+                                             f"S={2 * SAMPLES}", b5=False)
+                errs[2 * SAMPLES].update(e4)
+                recs[2 * SAMPLES].update(r4)
             if cd == torch.bfloat16:
                 # bf16 B5 also at S = 100 (one part-filled tile a ray) and at
                 # 4093 rays of 64 samples (a last group of one ray); then B5 and
@@ -1275,10 +1330,9 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                 log(f"kernel check B5 {variant} {name} R={RAYS} S={n_s} against the f64 "
                     f"evaluation (loss relative, dz and dparams normwise; kernel and "
                     f"plain): {chain5}")
-            # B4 and its plain version against the f64 evaluation: in bf16 at
-            # S = 64 and 128, in f32 (the FMA kernels, beside f32 B7's reading
-            # in b7_vs_f64_chain: ROADMAP C3) at S = 64.
-            for n_s in (SAMPLES, 2 * SAMPLES) if cd == torch.bfloat16 else (SAMPLES,):
+            # B4 and its plain version against the f64 evaluation at S = 64
+            # and 128.
+            for n_s in (SAMPLES, 2 * SAMPLES):
                 chain4 = _chain_record(recs[n_s]["B4"], recs[n_s]["B4_fwd"])
                 timings.setdefault("b4_vs_f64_chain", {}).setdefault(variant, {}).setdefault(
                     name, {})[f"S={n_s}"] = chain4
@@ -1353,6 +1407,24 @@ def comp_kernel_phases(torch, timings: dict) -> None:
             else:
                 for kname in COMP_SOURCES:
                     rec[kname]["max_abs_err_s100"] = errs[SAMPLES_RAGGED][kname]
+                # f32 B4's backward at the fine pass's S = 128, on its own batch.
+                r4 = rec["mlp_comp_bwd"]
+                r4["max_abs_err_s128"] = errs[2 * SAMPLES]["mlp_comp_bwd"]
+                r4["ptxas"] = timings.get("sass", {}).get("f32_backwards", {}).get(
+                    "mlp_comp_bwd_t32_kernel")
+                enc4, encd4, z4 = batch4[:3]
+                wrt4 = [t.detach().clone().requires_grad_(True) for t in (enc4, encd4, z4)]
+
+                def lib4():
+                    outs = _library_comp(torch, leaves, bs, cfg, *wrt4)
+                    torch.autograd.grad(outs, leaves + wrt4, cots4)
+
+                _fine_pass_extras(
+                    torch, r4,
+                    lambda: rk.mlp_comp_bwd(ws, bs, cfg, enc4, encd4, z4, *cots4, cd),
+                    lambda: rk.mlp_comp_bwd_plain(ws, bs, cfg, enc4, encd4, z4, *cots4, cd),
+                    lib4, 3 * mlp_flops(cfg, RAYS * 2 * SAMPLES), name,
+                    _comp_bytes(cfg, ws, bs, enc4, encd4, z4, "mlp_comp_bwd"))
             # B5 at the coarse pass's count too (on the S = 64 batch); in f32
             # beside its plain version and its library composition there.
             fn, plain, lib = case("mlp_loss_comp", SAMPLES)
@@ -1373,10 +1445,15 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                     f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                     + (f"; S={2 * SAMPLES}: {r['ms_fine_pass']:.3f} ms"
                        if "ms_fine_pass" in r else "")
+                    + (f" ({r['tflops_fine_pass']:.1f} TFLOP/s)" if "tflops_fine_pass" in r
+                       else "")
+                    + _fine_pass_text(r)
                     + (f"; S={SAMPLES}: {r['ms_s64']:.3f} ms ({r['tflops_s64']:.1f} TFLOP/s"
                        + (f", {100 * r['share_of_bound_s64']:.2f} % of the bound, plain "
                           f"{r['plain_ms_s64']:.3f} ms, library {r['library_ms_s64']:.3f} ms"
-                          if "plain_ms_s64" in r else "") + ")" if "ms_s64" in r else ""))
+                          if "plain_ms_s64" in r else "") + ")" if "ms_s64" in r else "")
+                    + (f"; registers, spill bytes, SASS HMMA {r['ptxas']}" if "ptxas" in r
+                       else ""))
 
     # Opaque rays: transmittance underflows to exactly 0; B4's backward and B5
     # stay finite (their compositing VJP is division-free) and agree with
@@ -1938,11 +2015,13 @@ MAIN_PATHS = {
     "pallas_fused": ("mlp_comp_fwd", "mlp_comp_bwd"),
     "pallas_fused_loss": ("mlp_comp_fwd", "mlp_comp_bwd", "mlp_loss_comp"),
     "pallas_f32": ("mlp_fwd", "mlp_bwd"),
+    "pallas_rm_f32": ("raymarch_fwd", "raymarch_bwd"),
 }
 # The paths driven through the Trainer: backend and compute type. "pallas_f32"
-# is the step of a config with compute_dtype float32 (f32 B1 and B2).
+# and "pallas_rm_f32" are the steps of configs with compute_dtype float32
+# (f32 B1 and B2; f32 B6 forward and backward).
 TRAINER_PATHS = {"pallas": ("pallas", "bfloat16"), "pallas_rm": ("pallas_rm", "bfloat16"),
-                 "pallas_f32": ("pallas", "float32")}
+                 "pallas_f32": ("pallas", "float32"), "pallas_rm_f32": ("pallas_rm", "float32")}
 # The model-config changes of the paths driven through train_step.make_epoch_fn
 # (no YAML key sets the two flags).
 FUSED_PATHS = {
@@ -2138,24 +2217,25 @@ def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
 
 
 # The kernels whose products must run on the tensor cores, and the SASS
-# instruction they must hold: bf16 B1/B2/B4-B7 and f32 B2, B5 and B7's
-# backward on `mma.sync` (HMMA; tf32 for the f32 ones), f32 B1/B6 forward on
+# instruction they must hold: bf16 B1/B2/B4-B7 and the f32 backwards of B2
+# and B4-B7 on `mma.sync` (HMMA; tf32 for the f32 ones), f32 B1/B6 forward on
 # `wgmma` (HGMMA).
 MMA_KERNELS = {"mlp_fwd": {"mlp_fwd_mma_kernel": "HMMA", "mlp_fwd_tf32_kernel": "HGMMA"},
                "mlp_bwd": {"mlp_bwd_mma_kernel": "HMMA", "mlp_bwd_t32_kernel": "HMMA"},
                "raymarch_fwd": {"rm_fwd_mma_kernel": "HMMA", "rm_fwd_tf32_kernel": "HGMMA"},
-               "raymarch_bwd": {"rm_bwd_mma_kernel": "HMMA"},
+               "raymarch_bwd": {"rm_bwd_mma_kernel": "HMMA", "rm_bwd_t32_kernel": "HMMA"},
                "raymarch_comp_fwd": {"rm_comp_fwd_mma_kernel": "HMMA"},
                "raymarch_comp_bwd": {"rm_comp_bwd_mma_kernel": "HMMA",
                                      "rm_comp_bwd_t32_kernel": "HMMA"},
                "mlp_loss_comp": {"mlp_loss_comp_mma_kernel": "HMMA",
                                  "mlp_loss_comp_t32_kernel": "HMMA"},
                "mlp_comp_fwd": {"mlp_comp_fwd_mma_kernel": "HMMA"},
-               "mlp_comp_bwd": {"mlp_comp_bwd_mma_kernel": "HMMA"}}
+               "mlp_comp_bwd": {"mlp_comp_bwd_mma_kernel": "HMMA",
+                                "mlp_comp_bwd_t32_kernel": "HMMA"}}
 # The kernels on the tensor-core tiles whose registers, spills and SASS
 # counts the run prints side by side: the bf16 backwards (B2, B6, B7, B5, B4),
 # the forwards of the ray-group loop (B4, B7) and the f32 backwards on the
-# 3xTF32 tile (B2, B7, B5).
+# 3xTF32 tile (B2, B7, B5, B6, B4).
 BWD_MMA_KERNELS = {"mlp_bwd": "mlp_bwd_mma_kernel", "raymarch_bwd": "rm_bwd_mma_kernel",
                    "raymarch_comp_bwd": "rm_comp_bwd_mma_kernel",
                    "mlp_loss_comp": "mlp_loss_comp_mma_kernel",
@@ -2163,7 +2243,8 @@ BWD_MMA_KERNELS = {"mlp_bwd": "mlp_bwd_mma_kernel", "raymarch_bwd": "rm_bwd_mma_
 FWD_MMA_KERNELS = {"mlp_comp_fwd": "mlp_comp_fwd_mma_kernel",
                    "raymarch_comp_fwd": "rm_comp_fwd_mma_kernel"}
 T32_MMA_KERNELS = {"mlp_bwd": "mlp_bwd_t32_kernel", "raymarch_comp_bwd": "rm_comp_bwd_t32_kernel",
-                   "mlp_loss_comp": "mlp_loss_comp_t32_kernel"}
+                   "mlp_loss_comp": "mlp_loss_comp_t32_kernel",
+                   "raymarch_bwd": "rm_bwd_t32_kernel", "mlp_comp_bwd": "mlp_comp_bwd_t32_kernel"}
 REPORTED = (("backwards", BWD_MMA_KERNELS), ("forwards", FWD_MMA_KERNELS),
             ("f32_backwards", T32_MMA_KERNELS))
 
@@ -2286,8 +2367,9 @@ def main() -> int:
         got = fused_phase(torch, timings, trainer, path)
         for k in MAIN_PATHS[path]:
             launches.setdefault(k, got[k])
-    # The step of a compute_dtype float32 config: f32 B1 and B2.
+    # The steps of compute_dtype float32 configs: f32 B1 and B2; f32 B6.
     train_phase(torch, timings, "pallas_f32")
+    train_phase(torch, timings, "pallas_rm_f32")
     log(f"training paths done at {time.perf_counter() - t_start:.0f} s")
     launches.update(tools_phase(torch))
     profile_phase(torch, timings, trainer)

@@ -4,9 +4,9 @@
 // (forward_groups) of B4 (mlp_comp_fwd.cu) and B7 (raymarch_comp_fwd.cu). The
 // loops take the tile code as a kit: Bf16Kit below (the bf16 `mma.sync` tiles
 // of mlp_mma_tile.cuh, 128 rows; every bf16 instance) or nerf_tmma::Kit (the
-// 3xTF32 `mma.sync` tiles of mlp_tf32_mma_tile.cuh, 64 rows; f32 B7's
-// backward and f32 B5). The other f32 instances (B4, B7's forward) keep the
-// FMA tiles of mlp_common.cuh / mlp_bwd_tile.cuh.
+// 3xTF32 `mma.sync` tiles of mlp_tf32_mma_tile.cuh, 64 rows; the f32
+// backwards of B7, B5 and B4). The f32 forwards of B4 and B7 keep the FMA
+// tile of mlp_common.cuh.
 //
 // A block owns whole rays, as the compositing needs: a group is the rays
 // that fit in one tile of the kit's BM rows, rays_per_group(S, BM) = S >= BM
@@ -274,6 +274,7 @@ __device__ inline float backward_groups(const Policy& pol, void* smem, const Dim
         K::backward_walk(tdm, L, M, Bp, t, ring, slots, part, first, 0, pol.dx_rows(g, j * BM),
                          dm.has_dir ? slab : nullptr, after, b10);
         first = false;
+        T32_PHASE(nerf_t32ph::DZ);
         __syncthreads();
         if (dm.has_dir) pol.dd_sum(g, j * BM, tdm.n, slab, carry);
         if (tid < tdm.n) dz[(size_t)g.ray0 * S + j * BM + tid] = DZC[j * BM + tid];

@@ -79,21 +79,8 @@ __device__ inline void composite_ray_bwd(const float* raw, const float* z, int S
   }
 }
 
-// The GI tile (TM x 8: grgb f32 | gsig f32 | gsig rounded to T, as
-// load_cotangent makes it) of rows [c0, c0 + TM) of a group's raw cotangents
-// g_raw (rows, 4) in shared memory; rows at or past `rows` are zero.
-template <typename T>
-__device__ void cotangent_tile(float* GI, const float* g_raw, int c0, int rows) {
-  for (int idx = threadIdx.x; idx < TM * 4; idx += NT) {
-    const int r = idx >> 2, c = idx & 3;
-    const float v = c0 + r < rows ? g_raw[(c0 + r) * 4 + c] : 0.f;
-    GI[r * 8 + c] = v;
-    if (c == 3) GI[r * 8 + 4] = round_t<T>(v);
-  }
-}
-
-// Rays per group of the compositing kernels' FMA tiles: whole rays, about
-// TM rows.
+// Rays per group of the f32 FMA forwards of the compositing kernels (B4,
+// B7): whole rays, about TM rows.
 __host__ __device__ constexpr int rays_per_group(int S) { return S >= TM ? 1 : TM / S; }
 
 // Number of ray groups of (R, S), or 0 where S is not a count the kernels take.
@@ -102,8 +89,5 @@ inline int n_groups(int R, int S) {
   const int rpg = rays_per_group(S);
   return (R + rpg - 1) / rpg;
 }
-
-// TM-row chunks of one group.
-__host__ __device__ inline int chunks_per_group(int S) { return (rays_per_group(S) * S + TM - 1) / TM; }
 
 }  // namespace nerf_comp

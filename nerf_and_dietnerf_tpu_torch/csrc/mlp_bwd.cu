@@ -33,7 +33,7 @@
 // sums into its own slab of the `partial` buffer (one thread owns each entry,
 // no atomics), and a second launch adds the slabs in block order. Two runs on
 // the same inputs therefore give bitwise-equal gradients.
-#include "mlp_bwd_tile.cuh"
+#include "grad_slabs.cuh"
 #include "mlp_mma_tile.cuh"
 #include "mlp_tf32_mma_tile.cuh"
 
@@ -160,8 +160,7 @@ extern "C" int nerf_mlp_bwd(int is_bf16, int has_dir, const void* x, const void*
 }
 
 // Rows of a tile and activation-slot elements of a block, by compute type
-// (the exports of mlp_bwd_tile.cuh are the f32 FMA tile's, which the other
-// backward libraries share; B2's f32 tile has the same rows and slots).
+// (f32: the 64-row tiles of mlp_tf32_mma_tile.cuh, as asserted above).
 extern "C" int nerf_mlp_bwd_tile_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : TM; }
 extern "C" long long nerf_mlp_bwd_tile_act_elems(int is_bf16) {
   return is_bf16 ? (long long)nerf_mma::NACT * nerf_mma::SLOT : (long long)NACT * TM * HMAX;

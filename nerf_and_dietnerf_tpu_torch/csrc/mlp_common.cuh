@@ -163,11 +163,10 @@ struct LeakyEpilogue {
   }
 };
 
-// out = Epi(acc, bias) for the N valid columns; optionally also kept in the
-// compute type in `keep` (row stride HMAX) for the backward.
+// out = Epi(acc, bias) for the N valid columns.
 template <typename T, typename Epi = LeakyEpilogue>
 __device__ void store_act(const float (&acc)[8][8], const float* __restrict__ bias, int N,
-                          float alpha, float* out, T* keep) {
+                          float alpha, float* out) {
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -176,9 +175,7 @@ __device__ void store_act(const float (&acc)[8][8], const float* __restrict__ bi
     for (int j = 0; j < 8; ++j) {
       const int n = acc_col(tx, j);
       if (n < N) {
-        const float v = Epi::template apply<T>(acc[i][j], bias[n], alpha);
-        out[r * HMAX + n] = v;
-        if (keep) keep[r * HMAX + n] = from_f<T>(v);
+        out[r * HMAX + n] = Epi::template apply<T>(acc[i][j], bias[n], alpha);
       }
     }
   }
@@ -202,15 +199,13 @@ __device__ void load_rows(float* dst, int ld, const Src* __restrict__ src, int w
 }
 
 // The whole network on one row tile. h8 and the heads' activations are left
-// in bufB / bufA. With `keep` the post-activations go to its slots (trunk
-// layers 0..7, then the rgb branch's hidden layers), for the backward. With
-// `out` the (n, 4) raw output rows of the tile are written. `Epi` is the
-// epilogue of every hidden layer (the two output heads add their bias only).
+// in bufB / bufA. With `out` the (n, 4) raw output rows of the tile are
+// written. `Epi` is the epilogue of every hidden layer (the two output heads
+// add their bias only).
 template <typename T, typename Epi = LeakyEpilogue>
 __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restrict__ W,
                              const float* __restrict__ B, const float* X, const float* D,
-                             float* bufA, float* bufB, float* Ws, T* keep, float* out,
-                             int row0) {
+                             float* bufA, float* bufB, float* Ws, float* out, int row0) {
   const int tid = threadIdx.x;
   float acc[8][8];
   const float* h = X;
@@ -224,7 +219,7 @@ __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restric
       gemm_acc<T>(acc, h, ldh, K, W + L.w[trunk_w(l)], dm.hid, Ws);
     }
     float* o = (l & 1) ? bufB : bufA;
-    store_act<T, Epi>(acc, B + L.b[l], dm.hid, dm.alpha, o, keep ? keep + l * TM * HMAX : nullptr);
+    store_act<T, Epi>(acc, B + L.b[l], dm.hid, dm.alpha, o);
     h = o; ldh = HMAX; K = dm.hid;
   }
   __syncthreads();
@@ -234,8 +229,7 @@ __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restric
     zero_acc(acc);
     gemm_acc<T>(acc, h8, HMAX, dm.hid, W + L.w[9], dm.last, Ws);
     gemm_acc<T>(acc, D, DMAX, dm.dir, W + L.w[10], dm.last, Ws);
-    store_act<T, Epi>(acc, B + L.b[8], dm.last, dm.alpha, bufA,
-                 keep ? keep + 8 * TM * HMAX : nullptr);
+    store_act<T, Epi>(acc, B + L.b[8], dm.last, dm.alpha, bufA);
     __syncthreads();
     if (out && row0 + r < dm.n) {
       float v;
@@ -264,12 +258,10 @@ __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restric
     }
     zero_acc(acc);
     gemm_acc<T>(acc, h8, HMAX, dm.hid, W + L.w[9], dm.hid, Ws);
-    store_act<T, Epi>(acc, B + L.b[8], dm.hid, dm.alpha, bufA,
-                 keep ? keep + 8 * TM * HMAX : nullptr);
+    store_act<T, Epi>(acc, B + L.b[8], dm.hid, dm.alpha, bufA);
     zero_acc(acc);
     gemm_acc<T>(acc, bufA, HMAX, dm.hid, W + L.w[10], dm.last, Ws);
-    store_act<T, Epi>(acc, B + L.b[9], dm.last, dm.alpha, bufB,
-                 keep ? keep + 9 * TM * HMAX : nullptr);
+    store_act<T, Epi>(acc, B + L.b[9], dm.last, dm.alpha, bufB);
     __syncthreads();
     if (out && row0 + r < dm.n) {
       float v = sigma;
@@ -286,10 +278,6 @@ __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restric
 
 constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * (2 * TM * HMAX + KC * HMAX + TM * XMAX + TM * DMAX);
-}
-
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (2 * TM * HMAX + KC * HMAX + 2 * TM * XMAX + TM * DMAX + TM * 8);
 }
 
 }  // namespace nerf_mlp

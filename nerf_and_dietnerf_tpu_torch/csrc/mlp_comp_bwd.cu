@@ -24,106 +24,36 @@
 // row order, tile after tile, by the one thread that owns each (ray, column),
 // so dencd, like the weight gradients (per-block slabs, fixed-order second
 // launch), is bitwise reproducible without atomics.
+// Both types run the ray-group loop of comp_mma_tile.cuh with the policy
+// MlpComp below: its inputs as B5's, its compositing VJP as B7's; the walk
+// writes the dx rows straight to denc and the dd rows to a per-block BM x dir
+// f32 slab (`dds`, plain rows), from which the policy sums dencd.
 // - bf16 (every `fuse_compositing` train step of the `pallas` backend): the
-//   ray-group loop of comp_mma_tile.cuh on the tensor-core tiles of
-//   mlp_mma_tile.cuh (128-row tiles, `mma.sync`), its inputs as B5's
-//   (load_comp_mma_inputs), its compositing VJP as B7's; the walk writes the
-//   dx rows straight to denc and the dd rows to a per-block BM x dir f32
-//   slab (`dds`), from which the policy sums dencd; `w` / `wt` are the F and B
-//   packs. Shared memory: comp_mma_tile.cuh's smem_bytes(S), 214,528 bytes
-//   at S <= 128.
-// - f32 (parity runs only): the FMA tiles (64-row chunks, the dd rows left in
-//   the D tile and summed per ray into DACC); `w` / `wt` the flat weights and
-//   their transposes.
+//   tensor-core tiles of mlp_mma_tile.cuh (128-row tiles, `mma.sync`), inputs
+//   from load_comp_mma_inputs; `w` / `wt` are the F and B packs. Shared
+//   memory: comp_mma_tile.cuh's smem_bytes(S), 214,528 bytes at S <= 128.
+// - f32 (configs with compute_dtype float32, parity runs): the 3xTF32 tiles
+//   of mlp_tf32_mma_tile.cuh (nerf_tmma::Kit, 64-row tiles: at S = 100 and
+//   128 a ray spans two, and its dencd sums carry from one to the next),
+//   inputs from load_comp_t32_inputs (f32 rows and the exact view-dir
+//   encodings, swizzled); `w` / `wt` are the F and B buffers of
+//   raymarch_cuda.t32_packs. Shared memory: smem_bytes<nerf_tmma::Kit>(S),
+//   201,220 bytes at S = 64.
+// Both write the raw values they composited to `raw` where it is given (the
+// checks read them).
 #include "comp_exports.cuh"
-#include "mlp_bwd_tile.cuh"
+#include "grad_slabs.cuh"
 #include "mlp_comp_common.cuh"
 
 using namespace nerf_mlp;
 using namespace nerf_comp;
 
-// B2's tiles, 9 floats per row of the group (raw values, their cotangents, the
-// compositing's dz) and the per-ray dencd sums.
-constexpr size_t comp_bwd_smem_bytes(int S) {
-  return bwd_smem_bytes() +
-         sizeof(float) * (size_t)rays_per_group(S) * (9 * (size_t)S + DMAX);
-}
-static_assert(comp_bwd_smem_bytes(MAX_S_COMP) <= 232448, "shared memory of a block");
-
-// f32: the FMA tiles.
-__global__ void __launch_bounds__(NT, 1)
-    mlp_comp_bwd_kernel(Dims dm, Layout L, EncRays<float> in, const float* __restrict__ W,
-                        const float* __restrict__ WT, const float* __restrict__ B,
-                        const float* __restrict__ g_rgb, const float* __restrict__ g_w,
-                        float* __restrict__ denc, float* __restrict__ dencd,
-                        float* __restrict__ dz, float* __restrict__ partial,
-                        float* __restrict__ acts_all, int groups) {
-  extern __shared__ float4 smem4[];
-  BwdTiles t = bwd_tiles(reinterpret_cast<float*>(smem4));
-  t.dd_in_D = dm.has_dir;
-  const int S = in.S, rpg = rays_per_group(S);
-  float* RAW = t.GI + TM * 8;        // (rpg * S, 4) raw radiance
-  float* GRAW = RAW + 4 * rpg * S;    // (rpg * S, 4) its cotangent
-  float* DZC = GRAW + 4 * rpg * S;    // (rpg * S) compositing's dz
-  float* DACC = DZC + rpg * S;        // (rpg, DMAX) per-ray sums of the dd rows
-  const size_t p_total = (size_t)L.total_w + L.total_b;
-  const size_t slots = (size_t)NACT * TM * HMAX;
-  float* part = partial + blockIdx.x * p_total;
-  float* acts = acts_all + (size_t)blockIdx.x * chunks_per_group(S) * slots;
-  const int tid = threadIdx.x;
-
-  bool first = true;
-  for (int group = blockIdx.x; group < groups; group += gridDim.x) {
-    const Group g = group_of(group, in.R, S);
-    const size_t grow0 = (size_t)g.ray0 * S;
-    Dims dl = dm;
-    dl.n = g.rows;
-    // 1. the forward, once: raw radiance to RAW, activations to the slab
-    for (int c0 = 0; c0 < g.rows; c0 += TM) {
-      __syncthreads();
-      load_chunk<float>(in, dm, g, c0, t.X, t.D);
-      __syncthreads();
-      forward_tile<float>(dl, L, W, B, t.X, t.D, t.P, t.G, t.Ws, acts + (c0 / TM) * slots, RAW,
-                          c0);
-    }
-    __syncthreads();
-    // 2. the compositing VJP, one thread per ray
-    if (tid < g.n_rays) {
-      const size_t ray = (size_t)g.ray0 + tid;
-      composite_ray_bwd(RAW + (size_t)tid * S * 4, in.z + ray * S, S, g_rgb + ray * 3,
-                        g_w + ray * S, GRAW + (size_t)tid * S * 4, DZC + (size_t)tid * S);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < g.rows; idx += NT) dz[grow0 + idx] = DZC[idx];
-    // 3. the chain back, chunk by chunk
-    for (int c0 = 0; c0 < g.rows; c0 += TM, first = false) {
-      __syncthreads();
-      load_chunk<float>(in, dm, g, c0, t.X, t.D);
-      cotangent_tile<float>(t.GI, GRAW, c0, g.rows);
-      __syncthreads();
-      backward_walk<float>(dl, L, W, WT, B, t, acts + (c0 / TM) * slots, part, first, c0,
-                           denc + grow0 * dm.xyz, nullptr);
-      if (!dm.has_dir) continue;
-      // dencd: each (ray, column) sum is owned by one thread, which adds the
-      // chunk's rows of that ray in row order.
-      const int c_end = min(c0 + TM, g.rows);
-      for (int idx = tid; idx < g.n_rays * dm.dir; idx += NT) {
-        const int lr = idx / dm.dir, c = idx % dm.dir;
-        const int r_lo = max(lr * S, c0), r_hi = min((lr + 1) * S, c_end);
-        if (r_lo >= r_hi) continue;
-        float s = r_lo == lr * S ? 0.f : DACC[lr * DMAX + c];
-        for (int r = r_lo; r < r_hi; ++r) s += t.D[(r - c0) * DMAX + c];
-        DACC[lr * DMAX + c] = s;
-        if (r_hi == (lr + 1) * S) dencd[(size_t)(g.ray0 + lr) * dm.dir + c] = s;
-      }
-    }
-  }
-}
-
-// The bf16 kernel's per-ray work for the ray-group loop.
+// The per-ray work of B4's backward for the ray-group loop, on the encodings
+// of the compute type T (bf16 tiles, or the f32 kit's).
+template <typename T>
 struct MlpComp {
   static constexpr bool INPUT_GRADS = true;  // denc and dencd; dz is DZC alone
-  EncRays<nerf_mma::bf16> in;
+  EncRays<T> in;
   Dims dm;
   const float* g_rgb;  // (R, 3)
   const float* g_w;    // (R, S)
@@ -133,6 +63,9 @@ struct MlpComp {
   __device__ void inputs(const nerf_cmma::Group& g, int r0, nerf_mma::bf16* X,
                          nerf_mma::bf16* D) const {
     load_comp_mma_inputs(in, dm, g, r0, X, D);
+  }
+  __device__ void inputs(const nerf_cmma::Group& g, int r0, float* X, float* D) const {
+    load_comp_t32_inputs(in, dm, g, r0, X, D);
   }
   __device__ float composite(const nerf_cmma::Group& g, int i, const float* raw, float* graw,
                              float* dzc) const {
@@ -144,13 +77,13 @@ struct MlpComp {
     return denc + ((size_t)g.ray0 * in.S + r0) * dm.xyz;
   }
   // Each (ray, column) sum is owned by one thread, which adds the tile's rows
-  // of that ray in row order. A ray begun in an earlier tile (S > 128: one
-  // ray a group, so thread c owns column c throughout) continues from the
-  // thread's carry.
+  // of that ray in row order. A ray begun in an earlier tile (S > the kit's
+  // BM rows: one ray a group, so thread c owns column c throughout) continues
+  // from the thread's carry.
   __device__ void dd_sum(const nerf_cmma::Group& g, int r0, int n, const float* dd,
                          float& carry) const {
     const int S = in.S;
-    for (int idx = threadIdx.x; idx < g.n_rays * dm.dir; idx += nerf_mma::NT) {
+    for (int idx = threadIdx.x; idx < g.n_rays * dm.dir; idx += blockDim.x) {
       const int lr = idx / dm.dir, c = idx - lr * dm.dir;
       const int lo = max(lr * S, r0), hi = min((lr + 1) * S, r0 + n);
       if (lo >= hi) continue;
@@ -174,7 +107,7 @@ __global__ void __launch_bounds__(nerf_mma::NT, 1)
                             float* __restrict__ dd_all, int groups) {
   extern __shared__ uint4 smem16[];
   const size_t p_total = (size_t)L.total_w + L.total_b;
-  const MlpComp pol{in, dm, g_rgb, g_w, denc, dencd};
+  const MlpComp<nerf_mma::bf16> pol{in, dm, g_rgb, g_w, denc, dencd};
   nerf_cmma::backward_groups(pol, smem16, dm, L, M, F, Bp, B, partial + blockIdx.x * p_total,
                              acts_all + blockIdx.x * nerf_cmma::act_elems(in.S),
                              dm.has_dir ? dd_all + (size_t)blockIdx.x * nerf_mma::BM * dm.dir
@@ -182,9 +115,27 @@ __global__ void __launch_bounds__(nerf_mma::NT, 1)
                              dz, raw, in.R, in.S, groups);
 }
 
-// The f32 kernel keeps every 64-row chunk of a group (one forward per row).
-int nerf_comp::f32_chunks_kept(int S) { return chunks_per_group(S); }
-int nerf_comp::f32_slab_rows() { return 0; }
+// f32: the same loop on the 3xTF32 tensor-core tiles.
+__global__ void __launch_bounds__(nerf_tmma::NT, 1)
+    mlp_comp_bwd_t32_kernel(Dims dm, Layout L, nerf_tmma::T32Layout M, EncRays<float> in,
+                            const float* __restrict__ F, const float* __restrict__ Bp,
+                            const float* __restrict__ B, const float* __restrict__ g_rgb,
+                            const float* __restrict__ g_w, float* __restrict__ denc,
+                            float* __restrict__ dencd, float* __restrict__ dz,
+                            float* __restrict__ raw, float* __restrict__ partial,
+                            float* __restrict__ acts_all, float* __restrict__ dd_all, int groups) {
+  using K = nerf_tmma::Kit;
+  extern __shared__ uint4 smem16[];
+  T32_BEGIN();
+  const size_t p_total = (size_t)L.total_w + L.total_b;
+  const MlpComp<float> pol{in, dm, g_rgb, g_w, denc, dencd};
+  nerf_cmma::backward_groups<MlpComp<float>, K>(
+      pol, smem16, dm, L, M, F, Bp, B, partial + blockIdx.x * p_total,
+      acts_all + blockIdx.x * nerf_cmma::act_elems<K>(in.S),
+      dm.has_dir ? dd_all + (size_t)blockIdx.x * K::BM * dm.dir : nullptr, dz, raw, in.R, in.S,
+      groups);
+  T32_END();
+}
 
 static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd, const float* z,
                   int R, int S, const void* w, const void* wt, const float* b,
@@ -192,8 +143,7 @@ static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd,
                   float* raw, float* partial, void* acts, float* dds, float* dparams,
                   int n_blocks, cudaStream_t stream) {
   const int groups = nerf_comp_groups(bf16, R, S);
-  if (groups == 0 || n_blocks <= 0 || n_blocks > groups ||
-      (bf16 && dm.has_dir && dds == nullptr) || (!bf16 && raw != nullptr))
+  if (groups == 0 || n_blocks <= 0 || n_blocks > groups || (dm.has_dir && dds == nullptr))
     return (int)cudaErrorInvalidValue;
   const Layout L = make_layout(dm);
   cudaError_t err;
@@ -210,13 +160,14 @@ static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd,
         static_cast<bf16*>(acts), dds, groups);
   } else {
     const EncRays<float> in{static_cast<const float*>(enc), encd, z, R, S};
-    const size_t smem = comp_bwd_smem_bytes(S);
-    err = cudaFuncSetAttribute(mlp_comp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    const size_t smem = nerf_cmma::smem_bytes<nerf_tmma::Kit>(S);
+    err = cudaFuncSetAttribute(mlp_comp_bwd_t32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    mlp_comp_bwd_kernel<<<n_blocks, NT, smem, stream>>>(
-        dm, L, in, static_cast<const float*>(w), static_cast<const float*>(wt), b, g_rgb, g_w,
-        denc, dencd, dz, partial, static_cast<float*>(acts), groups);
+    mlp_comp_bwd_t32_kernel<<<n_blocks, nerf_tmma::NT, smem, stream>>>(
+        dm, L, nerf_tmma::make_t32_layout(L), in, static_cast<const float*>(w),
+        static_cast<const float*>(wt), b, g_rgb, g_w, denc, dencd, dz, raw, partial,
+        static_cast<float*>(acts), dds, groups);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -227,11 +178,12 @@ static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd,
 // (R, S) f32; denc (R * S, xyz), dencd (R, dir; null without view dirs), dz
 // (R, S) and dparams f32 out. Scratch the caller allocates: partial (n_blocks *
 // nerf_mlp_param_count) f32, acts (n_blocks * nerf_comp_act_elems(is_bf16,
-// S)) elements of the compute type and, for bf16 with view dirs, dds
-// (n_blocks * nerf_comp_dx_rows(1) * dir) f32, with 1 <= n_blocks <=
+// S)) elements of the compute type and, with view dirs, dds (n_blocks *
+// nerf_comp_dx_rows(is_bf16) * dir) f32, with 1 <= n_blocks <=
 // nerf_comp_groups(is_bf16, R, S). w, wt: for bf16 the F and B packs
-// (mlp_mma_tile.cuh), for f32 the flat weights and their transposes. raw:
-// null, or for bf16 (R, S, 4) f32 that receives the raw values composited.
+// (mlp_mma_tile.cuh), for f32 the F and B buffers of mlp_tf32_mma_tile.cuh
+// (raymarch_cuda.t32_packs). raw: null, or (R, S, 4) f32 that receives the
+// raw values composited.
 // Returns cudaGetLastError() (0 on success).
 extern "C" int nerf_mlp_comp_bwd(int is_bf16, int has_dir, const void* enc, const float* encd,
                                  const float* z, const void* w, const void* wt, const float* b,

@@ -5,17 +5,18 @@
 // (rays, S, features) encoding array, so z (R, S) is indexed by the row. The
 // xyz encodings arrive per row in the compute type; the view-dir encodings
 // arrive per ray in f32 and are copied into every row of the ray's tile here,
-// rounded to the compute type (f32 B5 copies them exactly,
-// mlp_loss_comp.cu), so their per-sample broadcast never exists in global
-// memory. f32 B4 (FMA tiles) walks a block's whole rays in TM-row chunks
-// (load_chunk); the bf16 kernels run the ray-group loop of comp_mma_tile.cuh
-// on 128-row tensor-core tiles (load_comp_mma_inputs), f32 B5 on the f32
-// kit's 64-row tiles.
+// rounded to the compute type (the f32 tiles copy them exactly), so their
+// per-sample broadcast never exists in global memory. f32 B4's forward (the
+// FMA tile) walks a block's whole rays in TM-row chunks (load_chunk); the
+// bf16 kernels run the ray-group loop of comp_mma_tile.cuh on 128-row
+// tensor-core tiles (load_comp_mma_inputs), f32 B5 and B4's backward on the
+// f32 kit's 64-row tiles (load_comp_t32_inputs).
 #pragma once
 
 #include "comp_mma_tile.cuh"
 #include "composite_common.cuh"
 #include "mlp_common.cuh"
+#include "mlp_tf32_mma_tile.cuh"
 
 namespace nerf_comp {
 
@@ -75,6 +76,24 @@ __device__ inline void load_comp_mma_inputs(const EncRays<nerf_mma::bf16>& in, c
     const int r = i / dp, c = i - r * dp, row = r0 + r;
     D[r * nerf_mma::LDD + c] = __float2bfloat16_rn(
         row < g.rows && c < dm.dir ? in.encd[(size_t)(g.ray0 + row / in.S) * dm.dir + c] : 0.f);
+  }
+}
+
+// The f32 X (BM x LDX) and D (BM x LDD) tiles of mlp_tf32_mma_tile.cuh for
+// the group's rows [r0, r0 + BM): the xyz encodings' f32 rows and each ray's
+// f32 view-dir encoding copied exactly into every row of the ray, stored
+// swizzled; rows at or past g.rows and the pad columns (to pad16) zero.
+__device__ inline void load_comp_t32_inputs(const EncRays<float>& in, const Dims& dm,
+                                            const nerf_cmma::Group& g, int r0, float* X,
+                                            float* D) {
+  namespace tm = nerf_tmma;
+  tm::load_rows(X, tm::LDX, in.enc + (size_t)g.ray0 * in.S * dm.xyz, dm.xyz, r0, g.rows);
+  if (!dm.has_dir) return;
+  const int dp = nerf_mma::pad16(dm.dir);
+  for (int i = threadIdx.x; i < tm::BM * dp; i += tm::NT) {
+    const int r = i / dp, c = i - r * dp, row = r0 + r;
+    D[r * tm::LDD + tm::sw(r, c)] =
+        row < g.rows && c < dm.dir ? in.encd[(size_t)(g.ray0 + row / in.S) * dm.dir + c] : 0.f;
   }
 }
 

@@ -55,7 +55,7 @@ __global__ void __launch_bounds__(NT, 1)
     __syncthreads();
     load_chunk<float>(in, dm, g, c0, X, D);
     __syncthreads();
-    forward_tile<float>(dl, L, W, B, X, D, bufA, bufB, Ws, nullptr, RAW, c0);
+    forward_tile<float>(dl, L, W, B, X, D, bufA, bufB, Ws, RAW, c0);
   }
   __syncthreads();
   const int r = threadIdx.x;

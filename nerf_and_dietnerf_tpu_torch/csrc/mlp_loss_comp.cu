@@ -47,9 +47,8 @@
 // slab, and the second launch adds the slabs in block order: the loss and the
 // gradients are bitwise reproducible.
 #include "comp_exports.cuh"
-#include "mlp_bwd_tile.cuh"
+#include "grad_slabs.cuh"
 #include "mlp_comp_common.cuh"
-#include "mlp_tf32_mma_tile.cuh"
 
 using namespace nerf_mlp;
 using namespace nerf_comp;
@@ -86,24 +85,6 @@ __device__ inline float dz_points(const float* gx, const X* x, int n_freq, const
     dz += s * dvec[c];
   }
   return dz;
-}
-
-// The f32 X (BM x LDX) and D (BM x LDD) tiles of mlp_tf32_mma_tile.cuh for
-// the group's rows [r0, r0 + BM): the xyz encodings' f32 rows and each ray's
-// f32 view-dir encoding copied exactly into every row of the ray, stored
-// swizzled; rows at or past g.rows and the pad columns (to pad16) zero.
-__device__ inline void load_comp_t32_inputs(const EncRays<float>& in, const Dims& dm,
-                                            const nerf_cmma::Group& g, int r0, float* X,
-                                            float* D) {
-  namespace tm = nerf_tmma;
-  tm::load_rows(X, tm::LDX, in.enc + (size_t)g.ray0 * in.S * dm.xyz, dm.xyz, r0, g.rows);
-  if (!dm.has_dir) return;
-  const int dp = nerf_mma::pad16(dm.dir);
-  for (int i = threadIdx.x; i < tm::BM * dp; i += tm::NT) {
-    const int r = i / dp, c = i - r * dp, row = r0 + r;
-    D[r * tm::LDD + tm::sw(r, c)] =
-        row < g.rows && c < dm.dir ? in.encd[(size_t)(g.ray0 + row / in.S) * dm.dir + c] : 0.f;
-  }
 }
 
 // The per-ray work of B5 for the ray-group loop, on the encodings of the
@@ -195,14 +176,6 @@ __global__ void __launch_bounds__(nerf_tmma::NT, 1)
   if (threadIdx.x == 0) part[p_total - 1] = sq_err * inv_n;
   T32_END();
 }
-
-// The f32 kit's groups, slots and slab are those the exports give for f32:
-// 64-row tiles, as the FMA kernels' chunks; its rows fit beside its tiles.
-static_assert(nerf_tmma::BM == TM && nerf_tmma::SLOT == TM * HMAX &&
-                  nerf_cmma::max_smem_bytes<nerf_tmma::Kit>() <= 232448,
-              "f32 groups, slots and shared memory as comp_exports.cuh sizes them");
-int nerf_comp::f32_chunks_kept(int S) { return chunks_per_group(S); }
-int nerf_comp::f32_slab_rows() { return nerf_tmma::BM; }
 
 static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd, const float* z,
                   const float* dvec, const float* target, float inv_n, int R, int S,

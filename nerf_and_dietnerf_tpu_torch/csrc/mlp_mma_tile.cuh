@@ -5,9 +5,9 @@
 // B4 (mlp_comp_fwd.cu, mlp_comp_bwd.cu) run through the ray-group loops of
 // comp_mma_tile.cuh: the forward tile (B1, and B2's recompute), the
 // input-gradient chain G W^T and the weight-gradient products A^T G. f32 B1
-// and B6 forward run mlp_tf32_tile.cuh (`wgmma`), f32 B7's backward the
-// 3xTF32 `mma.sync` tiles of mlp_tf32_mma_tile.cuh; the other f32 instances
-// keep the FMA tiles of mlp_common.cuh / mlp_bwd_tile.cuh.
+// and B6 forward run mlp_tf32_tile.cuh (`wgmma`), every f32 backward (B2, B4,
+// B5, B6, B7) the 3xTF32 `mma.sync` tiles of mlp_tf32_mma_tile.cuh; f32 B4's
+// and B7's forwards keep the FMA tile of mlp_common.cuh.
 //
 // Products: `mma.sync.m16n8k16` bf16 x bf16 -> f32, as the P1 probe measured
 // on the H100 (probe_mma.cu), with operands fed by `ldmatrix`. Chosen over
@@ -59,7 +59,7 @@
 // gradients: each 128-row tile's A^T G (`ldmatrix.trans` of the row-major
 // tiles, 64 x 32 warp tiles) is added to the block's f32 slab by the one
 // thread that owns each entry; a second launch adds the slabs in block order
-// (mlp_bwd_tile.cuh reduce_partials), so the result is bitwise reproducible
+// (grad_slabs.cuh reduce_partials), so the result is bitwise reproducible
 // with no atomics.
 // Narrow products (N <= 3 or K <= 3: the rgb/sigma heads, the f32 output
 // cotangent in their weight gradients, g @ W^T with K = 3 or 1) stay f32 FMAs.

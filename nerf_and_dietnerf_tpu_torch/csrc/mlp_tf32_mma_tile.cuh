@@ -1,10 +1,12 @@
 // f32 tensor-core device code of the MLP backwards: the forward tile and the
 // chain back of mlp_mma_tile.cuh at true-f32 accuracy, with 3xTF32
-// `mma.sync.m16n8k8` products. f32 B2 (mlp_bwd.cu) runs them as backward_tile
-// on strided 64-row tiles; f32 B7's backward (raymarch_comp_bwd.cu) and f32 B5
-// (mlp_loss_comp.cu) through the ray-group loop of comp_mma_tile.cuh (Kit
-// below). f32 B4 and B6's backward keep the FMA tiles of mlp_common.cuh /
-// mlp_bwd_tile.cuh; f32 B1 and B6's forward run mlp_tf32_tile.cuh (`wgmma`).
+// `mma.sync.m16n8k8` products. f32 B2 (mlp_bwd.cu) and f32 B6's backward
+// (raymarch_bwd.cu, on the inputs it builds) run them as backward_tile on
+// strided 64-row tiles; f32 B7's backward (raymarch_comp_bwd.cu), f32 B5
+// (mlp_loss_comp.cu) and f32 B4's backward (mlp_comp_bwd.cu) through the
+// ray-group loop of comp_mma_tile.cuh (Kit below). f32 B1 and B6's forward
+// run mlp_tf32_tile.cuh (`wgmma`); f32 B4's and B7's forwards keep the FMA
+// tile of mlp_common.cuh.
 //
 // What bounds it on an H100: operations. A row's backward is about 3 x 1.024
 // MFLOP at the flagship widths; true f32 on the tensor cores takes three TF32

@@ -7,10 +7,10 @@
 // frames run (they stay in f32: bf16 costs about 3 dB of PSNR on a frame).
 // The f32 ray-march forward B6 (raymarch_fwd.cu) runs the same tile on inputs
 // it builds itself (an `In` policy, see GlobalInputs and raymarch_tile.cuh).
-// bf16 B1/B2/B4-B7 run the `mma.sync` tiles of mlp_mma_tile.cuh; f32 B7's
-// backward the 3xTF32 `mma.sync` tiles of mlp_tf32_mma_tile.cuh; f32 B2, B4,
-// B5, B6's backward and B7's forward keep the FMA tiles of mlp_common.cuh /
-// mlp_bwd_tile.cuh.
+// bf16 B1/B2/B4-B7 run the `mma.sync` tiles of mlp_mma_tile.cuh; every f32
+// backward (B2, B4, B5, B6, B7) the 3xTF32 `mma.sync` tiles of
+// mlp_tf32_mma_tile.cuh; f32 B4's and B7's forwards keep the FMA tile of
+// mlp_common.cuh.
 //
 // What bounds it on an H100: operations. The forward is 1.024 MFLOP a row at
 // the flagship widths (33 -> 8 x 256 -> 280 -> 128 -> 3); true f32 on the

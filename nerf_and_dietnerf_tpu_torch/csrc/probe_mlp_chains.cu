@@ -81,7 +81,7 @@ __device__ __forceinline__ void store_chains(const float (&acc)[C][8][8],
                                              float* H) {
 #pragma unroll
   for (int c = 0; c < C; ++c)
-    store_act<T>(acc[c], bias, n, alpha, H + c * CHAIN_FLOATS, static_cast<T*>(nullptr));
+    store_act<T>(acc[c], bias, n, alpha, H + c * CHAIN_FLOATS);
 }
 
 template <typename T, int C>

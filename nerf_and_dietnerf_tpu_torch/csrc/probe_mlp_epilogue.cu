@@ -66,7 +66,7 @@ __global__ void __launch_bounds__(NT, 1)
   load_rows<bf16, float>(X, XMAX, x, dm.xyz, row0, dm.n);
   load_rows<bf16, float>(D, DMAX, d, dm.dir, row0, dm.n);
   __syncthreads();
-  forward_tile<bf16, Epi>(dm, L, W, B, X, D, bufA, bufB, Ws, nullptr, out, row0);
+  forward_tile<bf16, Epi>(dm, L, W, B, X, D, bufA, bufB, Ws, out, row0);
 }
 
 template <typename Epi>

@@ -31,7 +31,7 @@
 // Weight gradients are summed as in B2 (per-block slabs, fixed-order second
 // launch), so they are bitwise reproducible.
 #include "comp_exports.cuh"
-#include "mlp_bwd_tile.cuh"
+#include "grad_slabs.cuh"
 #include "raymarch_comp_tile.cuh"
 
 using namespace nerf_mlp;
@@ -93,13 +93,6 @@ __global__ void __launch_bounds__(nerf_tmma::NT, 1)
       dx_all + (size_t)blockIdx.x * K::BM * dm.xyz, dz, raw, ry.R, ry.S, n_groups);
   T32_END();
 }
-
-// The f32 kit's groups, slots and slab are those the exports give for f32:
-// 64-row tiles, as the FMA kernels' chunks.
-static_assert(nerf_tmma::BM == TM && nerf_tmma::SLOT == TM * HMAX,
-              "f32 groups and slots as comp_exports.cuh sizes them");
-int nerf_comp::f32_chunks_kept(int S) { return chunks_per_group(S); }
-int nerf_comp::f32_slab_rows() { return nerf_tmma::BM; }
 
 static int launch(bool bf16, const Dims& dm, const Rays& ry, const void* w, const void* wt,
                   const float* b, const float* g_rgb, const float* g_w, float* dz, float* raw,

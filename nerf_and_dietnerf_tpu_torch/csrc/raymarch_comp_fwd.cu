@@ -55,7 +55,7 @@ __global__ void __launch_bounds__(NT, 1)
     __syncthreads();
     build_inputs<float>(ry, dm.xyz, dm.dir, grow0 + c0, grow0 + rows, X, D);
     __syncthreads();
-    forward_tile<float>(dl, L, W, B, X, D, bufA, bufB, Ws, nullptr, RAW, c0);
+    forward_tile<float>(dl, L, W, B, X, D, bufA, bufB, Ws, RAW, c0);
   }
   __syncthreads();
   const int r = threadIdx.x;

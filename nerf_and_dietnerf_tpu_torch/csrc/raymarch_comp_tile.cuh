@@ -6,7 +6,6 @@
 #pragma once
 
 #include "comp_mma_tile.cuh"
-#include "mlp_tf32_mma_tile.cuh"
 #include "raymarch_tile.cuh"
 
 static_assert(nerf_cmma::max_smem_bytes<nerf_tmma::Kit>() ==
@@ -17,28 +16,9 @@ static_assert(nerf_cmma::max_smem_bytes<nerf_tmma::Kit>() ==
 
 namespace nerf_rm {
 
-// The f32 tiles X (BM x LDX) and D (BM x LDD) of mlp_tf32_mma_tile.cuh for
-// rows [row0, row0 + BM), one thread per (row, column), stored swizzled (sw):
-// columns [width, pad16(width)) and rows at or past n are zero (the
-// weight-gradient products read up to pad16 columns).
-__device__ inline void build_t32_inputs(const Rays& ry, int xyz, int dir, int row0, int n,
-                                        float* X, float* D) {
-  namespace tm = nerf_tmma;
-  const int xp = nerf_mma::pad16(xyz);
-  for (int i = threadIdx.x; i < tm::BM * xp; i += tm::NT) {
-    const int r = i / xp, c = i - r * xp, row = row0 + r;
-    X[r * tm::LDX + tm::sw(r, c)] = row < n && c < xyz ? xyz_feature(ry, row, c) : 0.f;
-  }
-  if (ry.D == 0) return;
-  const int dp = nerf_mma::pad16(dir);
-  for (int i = threadIdx.x; i < tm::BM * dp; i += tm::NT) {
-    const int r = i / dp, c = i - r * dp, row = row0 + r;
-    D[r * tm::LDD + tm::sw(r, c)] = row < n && c < dir ? dir_feature(ry, row, c) : 0.f;
-  }
-}
-
 // The `inputs` of B7's policies: the group's rows [r0, r0 + BM) of the rays,
-// in the tiles of either kit (bf16: build_mma_inputs; f32: build_t32_inputs).
+// in the tiles of either kit (bf16: build_mma_inputs; f32: build_t32_inputs;
+// both in raymarch_tile.cuh).
 struct RayGroupInputs {
   Rays ry;
   int xyz, dir;

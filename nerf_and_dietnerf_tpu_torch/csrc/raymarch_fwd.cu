@@ -68,7 +68,7 @@ __global__ void __launch_bounds__(NT, 1)
   const int row0 = blockIdx.x * TM;
   build_inputs<float>(ry, dm.xyz, dm.dir, row0, dm.n, X, D);
   __syncthreads();
-  forward_tile<float>(dm, L, W, B, X, D, bufA, bufB, Ws, nullptr, out, row0);
+  forward_tile<float>(dm, L, W, B, X, D, bufA, bufB, Ws, out, row0);
 }
 
 static int launch(bool bf16, const Dims& dm, const Rays& ry, const void* w, const float* b,

@@ -1,7 +1,8 @@
 // Device code of the ray-march kernels B6 (raymarch_fwd.cu, raymarch_bwd.cu)
 // on the tensor-core tiles: each row's features built straight into the
-// operand tiles that mlp_mma_tile.cuh (bf16) and mlp_tf32_tile.cuh (f32)
-// read, so the (N, xyz) and (N, dir) encodings never reach device memory.
+// operand tiles that mlp_mma_tile.cuh (bf16), mlp_tf32_tile.cuh (the f32
+// forward) and mlp_tf32_mma_tile.cuh (the f32 backward) read, so the (N, xyz)
+// and (N, dir) encodings never reach device memory.
 //
 // A feature is what build_inputs (raymarch_common.cuh) computes whole
 // (ENC_FULL): the point o + z d from __fadd_rn / __fmul_rn, theta = f_k v
@@ -27,6 +28,7 @@
 #include <stdint.h>
 
 #include "mlp_mma_tile.cuh"
+#include "mlp_tf32_mma_tile.cuh"
 #include "mlp_tf32_tile.cuh"
 #include "raymarch_common.cuh"
 
@@ -65,6 +67,27 @@ __device__ inline void build_mma_inputs(const Rays& ry, int xyz, int dir, int ro
     const int r = i / dp, c = i - r * dp, row = row0 + r;
     D[r * nerf_mma::LDD + c] =
         __float2bfloat16_rn(row < n && c < dir ? dir_feature(ry, row, c) : 0.f);
+  }
+}
+
+// The f32 tiles X (BM x LDX) and D (BM x LDD) of mlp_tf32_mma_tile.cuh (the
+// f32 backwards: B6's, and B7's through raymarch_comp_tile.cuh) for
+// rows [row0, row0 + BM), one thread per (row, column), stored swizzled (sw):
+// columns [width, pad16(width)) and rows at or past n are zero (the
+// weight-gradient products read up to pad16 columns).
+__device__ inline void build_t32_inputs(const Rays& ry, int xyz, int dir, int row0, int n,
+                                        float* X, float* D) {
+  namespace tm = nerf_tmma;
+  const int xp = nerf_mma::pad16(xyz);
+  for (int i = threadIdx.x; i < tm::BM * xp; i += tm::NT) {
+    const int r = i / xp, c = i - r * xp, row = row0 + r;
+    X[r * tm::LDX + tm::sw(r, c)] = row < n && c < xyz ? xyz_feature(ry, row, c) : 0.f;
+  }
+  if (ry.D == 0) return;
+  const int dp = nerf_mma::pad16(dir);
+  for (int i = threadIdx.x; i < tm::BM * dp; i += tm::NT) {
+    const int r = i / dp, c = i - r * dp, row = row0 + r;
+    D[r * tm::LDD + tm::sw(r, c)] = row < n && c < dir ? dir_feature(ry, row, c) : 0.f;
   }
 }
 

@@ -137,12 +137,8 @@ def build_kernels() -> Dict[str, object]:
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # R, S, L, Ld, D, xyz, dir, hid, last, alpha, stream of the ray-march kernels.
 _RAY_TAIL = [_i] * 9 + [_f, _p]
-# The scratch sizes every backward library exports (csrc/mlp_bwd_tile.cuh).
-_BWD_SCRATCH = {
-    "nerf_mlp_param_count": ([_i] * 5, ctypes.c_longlong),
-    "nerf_mlp_bwd_rows_per_tile": ([], _i),
-    "nerf_mlp_bwd_act_slots": ([], _i),
-}
+# The slab size every backward library exports (csrc/grad_slabs.cuh).
+_BWD_SCRATCH = {"nerf_mlp_param_count": ([_i] * 5, ctypes.c_longlong)}
 # R, S, xyz, dir, hid, last, alpha of the MLP + compositing kernels.
 _COMP_TAIL = [_i] * 6 + [_f]
 # Each library's C functions: (argtypes, restype).
@@ -168,7 +164,7 @@ _SIGNATURES = {
     "raymarch_fwd": {"nerf_rm_fwd": ([_i, _i] + [_p] * 5 + _RAY_TAIL, _i),
                      "nerf_rm_fwd_tf32_tile": ([_i, _i], _i), **_MMA_PACK, **_TF32_PACK},
     "raymarch_bwd": {"nerf_rm_bwd": ([_i, _i] + [_p] * 11 + [_i] + _RAY_TAIL, _i),
-                     **_BWD_TILE, **_MMA_PACK, **_BWD_SCRATCH},
+                     **_BWD_TILE, **_MMA_PACK, **_T32_PACK, **_BWD_SCRATCH},
     "raymarch_comp_fwd": {"nerf_rm_comp_fwd": ([_i, _i] + [_p] * 7 + _RAY_TAIL, _i),
                           **_MMA_PACK},
     "raymarch_comp_bwd": {"nerf_rm_comp_bwd": ([_i, _i] + [_p] * 13 + [_i] + _RAY_TAIL, _i),
@@ -176,7 +172,7 @@ _SIGNATURES = {
     "mlp_comp_fwd": {"nerf_mlp_comp_fwd": ([_i, _i] + [_p] * 8 + _COMP_TAIL + [_p], _i),
                      **_MMA_PACK},
     "mlp_comp_bwd": {"nerf_mlp_comp_bwd": ([_i, _i] + [_p] * 16 + [_i] + _COMP_TAIL + [_p], _i),
-                     **_COMP_BWD, **_MMA_PACK, **_BWD_SCRATCH},
+                     **_COMP_BWD, **_MMA_PACK, **_T32_PACK, **_BWD_SCRATCH},
     "mlp_loss_comp": {"nerf_mlp_loss_comp": ([_i, _i] + [_p] * 14 + [_i] + _COMP_TAIL + [_f, _p],
                                              _i),
                       **_COMP_BWD, **_MMA_PACK, **_T32_PACK, **_BWD_SCRATCH},
@@ -285,14 +281,12 @@ def stream_of(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def bwd_scratch(lib: ctypes.CDLL, n_params: int, cd, dev, tiles: int, act_slots=None):
+def bwd_scratch(n_params: int, cd, dev, tiles: int, act_slots: int):
     """``(partial, acts, n_blocks)``: the per-block gradient slabs (``n_params``
-    entries each) and activation slots (``act_slots`` elements each; one tile's
-    by default) of the backward kernel in ``lib``, whose blocks walk ``tiles``
-    units of work, one block per SM at most."""
+    entries each) and activation slots (``act_slots`` elements each) of a
+    backward kernel whose blocks walk ``tiles`` units of work, one block per
+    SM at most."""
     n_blocks = min(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
-    if act_slots is None:
-        act_slots = lib.nerf_mlp_bwd_act_slots()
     partial = torch.empty((n_blocks * n_params,), dtype=torch.float32, device=dev)
     acts = torch.empty((n_blocks * act_slots,), dtype=cd, device=dev)
     return partial, acts, n_blocks

@@ -355,12 +355,13 @@ def t32_packs(ws, config: MLPConfig) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _weights_for(lib: ctypes.CDLL, ws, config: MLPConfig, cd, kinds):
-    """The weight buffers a B1/B2 library reads: the packs ``kinds`` in bf16
-    (their size checked against the library's), the flat weights (and their
-    transposes) in f32, for ``kinds == ("t",)`` (f32 B1) the TF32 buffer of
-    :func:`tf32_weights`, or for ``kinds == ("tf", "tb")`` (the f32
-    tensor-core backwards: B2, B5, B7) the F and B buffers of :func:`t32_packs` (their pack sizes checked
-    against the library's)."""
+    """The weight buffers an MLP kernel's library reads: the packs ``kinds``
+    in bf16 (their size checked against the library's); in f32, for ``kinds
+    == ("t",)`` (f32 B1 and B6's forward) the TF32 buffer of
+    :func:`tf32_weights`, for ``kinds == ("tf", "tb")`` (the f32 tensor-core
+    backwards: B2, B4-B7) the F and B buffers of :func:`t32_packs` (their
+    pack sizes checked against the library's), else (``("f",)``, the f32 FMA
+    forwards) the flat weights."""
     has_dir = int(config.uses_view_dirs)
     dims = (has_dir, config.xyz_dim, config.dir_dim if has_dir else 0, config.hidden_dim,
             config.last_hidden_dim)
@@ -372,8 +373,8 @@ def _weights_for(lib: ctypes.CDLL, ws, config: MLPConfig, cd, kinds):
         if t32_layout(config)[1] != lib.nerf_mlp_t32_pack_elems(*dims):
             raise RuntimeError("kernel and wrapper disagree on the f32 backward's pack layout")
         return list(t32_packs(ws, config))
-    if cd != torch.bfloat16:
-        return [flat(ws) if k == "f" else flat([w.t() for w in ws]) for k in kinds]
+    if cd != torch.bfloat16:  # the f32 FMA forwards (B4, B7; B6 at wide encodings)
+        return [flat(ws)]
     packs = _packs(ws, config, kinds)
     if packs[0].numel() != lib.nerf_mlp_mma_pack_elems(*dims):
         raise RuntimeError("kernel and wrapper disagree on the weight-pack layout")
@@ -568,7 +569,7 @@ def mlp_bwd(ws, bs, config: MLPConfig, x, d, g, compute_dtype, before_launch=Non
     else:
         is_bf16 = int(compute_dtype == torch.bfloat16)
         rows = lib.nerf_mlp_bwd_tile_rows(is_bf16)
-        partial, acts, n_blocks = bwd_scratch(lib, dparams.numel(), compute_dtype, dev,
+        partial, acts, n_blocks = bwd_scratch(dparams.numel(), compute_dtype, dev,
                                               -(-n // rows),
                                               lib.nerf_mlp_bwd_tile_act_elems(is_bf16))
         kinds = ("f", "b") if is_bf16 else ("tf", "tb")

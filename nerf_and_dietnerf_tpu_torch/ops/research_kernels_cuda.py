@@ -10,7 +10,8 @@ Port of ``nerf_and_dietnerf_tpu/ops/research_kernels.py``. The
   runs B1/B2's tensor-core tiles on the encodings it builds (bf16 forward and
   backward on ``mma.sync``, f32 forward on 3xTF32 ``wgmma``), reading the
   weight packs of ``ops/raymarch_cuda`` (:func:`_rm_weights`); the f32
-  backward keeps the FMA tile.
+  backward runs f32 B2's 3xTF32 ``mma.sync`` tile, reading the F and B
+  buffers of ``raymarch_cuda.t32_packs``.
 - B7 (``_forward_rays_comp_pallas`` / ``_backward_rays_comp_pallas``,
   ``apply_raymarch_composited``): B6 followed by alpha compositing, ``(rgb
   (R, 3), weights (R, S))`` out; its backward takes cotangents on both. The
@@ -39,7 +40,11 @@ reshape of ``(rays, S, features)``) and the view-dir encodings **per ray**:
   reaches z through the xyz encodings' gradient and torch's encoding backward.
   In bf16 both run the ray-group loops of ``csrc/comp_mma_tile.cuh`` on the
   tensor-core tiles (the forward reading the F pack, the backward the F and
-  B packs, each row forwarded once); in f32 the FMA tiles.
+  B packs, each row forwarded once); in f32 the backward runs the same loop
+  on the 3xTF32 ``mma.sync`` tiles (the buffers of
+  ``raymarch_cuda.t32_packs``), the forward the FMA tile. Both bf16 kernels
+  and the f32 backward can return the raw values they composited
+  (``raw=``).
 - B5 (``_loss_mlp_comp_pallas``, ``apply_mlp_loss_composited``, flag
   ``fuse_fine_loss``): the fine-pass objective in one kernel, forward,
   compositing, MSE against the target pixels and the whole backward with no
@@ -346,16 +351,15 @@ def _is_bf16(cd) -> int:
     return int(cd == torch.bfloat16)
 
 
-def _rm_weights(lib, ws, config: MLPConfig, cd, backward: bool, t32: bool = False):
+def _rm_weights(lib, ws, config: MLPConfig, cd, backward: bool):
     """The weight buffers the B6 or B7 library ``lib`` reads, from
     ``raymarch_cuda._weights_for`` (which checks a pack's size against the
     library's): in bf16 the F pack (forward) or the F and B packs (backward);
     the f32 forward's TF32 hi / lo buffer where the library runs it on the
     tensor cores (``nerf_rm_fwd_tf32_tile``), else the flat weights; the f32
-    backward's hi / lo F and B buffers where it runs on the tensor cores
-    (``t32``: B7), else the flat weights and their transposes (B6)."""
+    backward's F and B buffers of ``t32_packs``."""
     if backward:
-        kinds = ("tf", "tb") if t32 and cd == torch.float32 else ("f", "b")
+        kinds = ("tf", "tb") if cd == torch.float32 else ("f", "b")
     elif cd == torch.bfloat16:
         kinds = ("f",)
     else:
@@ -398,17 +402,17 @@ def raymarch_bwd(ws, bs, config: MLPConfig, rd, z, g, compute_dtype):
     else:
         is_bf16 = _is_bf16(compute_dtype)
         rows = lib.nerf_mlp_bwd_tile_rows(is_bf16)
-        partial, acts, n_blocks = bwd_scratch(lib, dparams.numel(), compute_dtype, dev,
+        partial, acts, n_blocks = bwd_scratch(dparams.numel(), compute_dtype, dev,
                                               -(-dz.numel() // rows),
                                               lib.nerf_mlp_bwd_tile_act_elems(is_bf16))
-        # bf16: each block's dx slab (csrc/raymarch_bwd.cu).
-        dxs = (torch.empty((n_blocks * rows * config.xyz_dim,), dtype=torch.float32, device=dev)
-               if is_bf16 else None)
+        # Each block's dx slab (csrc/raymarch_bwd.cu).
+        dxs = torch.empty((n_blocks * rows * config.xyz_dim,), dtype=torch.float32, device=dev)
         (w, wt), b = _rm_weights(lib, ws, config, compute_dtype, True), flat(bs)
         rc = lib.nerf_rm_bwd(
             is_bf16, int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(), w.data_ptr(),
             wt.data_ptr(), b.data_ptr(), g.data_ptr(), dz.data_ptr(), partial.data_ptr(),
-            acts.data_ptr(), _ptr(dxs), dparams.data_ptr(), n_blocks, *_ray_args(config, rd, z))
+            acts.data_ptr(), dxs.data_ptr(), dparams.data_ptr(), n_blocks,
+            *_ray_args(config, rd, z))
         launched("raymarch_bwd", rc)
     return (*split_dparams(dparams, config), dz)
 
@@ -443,15 +447,14 @@ def raymarch_comp_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype, raw=None)
 def _comp_bwd_scratch(lib, n_params: int, config: MLPConfig, cd, z, dev, width=None):
     """``(partial, acts, slab, n_blocks)`` of a compositing backward (the
     library ``lib`` of B7's backward, B5 or B4's backward), sized from the
-    library's exports for the compute type (``csrc/comp_exports.cuh``): in
-    bf16 ray groups of one 128-row tile, every tile's activation slots and
-    each block's f32 slab of ``width`` columns (dx rows: xyz, the default;
-    B4's dd rows: dir; 0 for none); in f32 groups of about 64 rows, the
-    library's slots per group, and a slab of the library's rows (B7's and
-    B5's 64 dx rows; none, None, for B4's FMA kernel)."""
+    library's exports for the compute type (``csrc/comp_exports.cuh``): ray
+    groups of one tile (bf16 128 rows, f32 64; a ray over several tiles
+    where S is larger), every tile's activation slots and each block's f32
+    slab of the tile's rows, ``width`` columns each (dx rows: xyz, the
+    default; B4's dd rows: dir; 0 for none, None)."""
     is_bf16 = _is_bf16(cd)
     n_rays, n_samples = z.shape
-    partial, acts, n_blocks = bwd_scratch(lib, n_params, cd, dev,
+    partial, acts, n_blocks = bwd_scratch(n_params, cd, dev,
                                           lib.nerf_comp_groups(is_bf16, n_rays, n_samples),
                                           lib.nerf_comp_act_elems(is_bf16, n_samples))
     rows = lib.nerf_comp_dx_rows(is_bf16) * (config.xyz_dim if width is None else width)
@@ -461,8 +464,8 @@ def _comp_bwd_scratch(lib, n_params: int, config: MLPConfig, cd, z, dev, width=N
 
 def _raw_out(raw, z, cd, dev, f32=False):
     """Check the optional raw output of a compositing kernel: (R, S, 4) f32
-    on the inputs' device; the bf16 kernels' only, unless ``f32`` (f32 B7's
-    backward and f32 B5, on the tensor cores, give it too)."""
+    on the inputs' device; the bf16 kernels' only, unless ``f32`` (the f32
+    backwards and f32 B5, on the tensor cores, give it too)."""
     if raw is None:
         return
     if cd != torch.bfloat16 and not f32:
@@ -495,7 +498,7 @@ def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtyp
         is_bf16 = _is_bf16(compute_dtype)
         partial, acts, dxs, n_blocks = _comp_bwd_scratch(lib, dparams.numel(), config,
                                                          compute_dtype, z, dev)
-        (w, wt), b = _rm_weights(lib, ws, config, compute_dtype, True, t32=True), flat(bs)
+        (w, wt), b = _rm_weights(lib, ws, config, compute_dtype, True), flat(bs)
         rc = lib.nerf_rm_comp_bwd(
             is_bf16, int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(), w.data_ptr(),
             wt.data_ptr(), b.data_ptr(), g_rgb.data_ptr(), g_w.data_ptr(), dz.data_ptr(),
@@ -559,9 +562,9 @@ def mlp_comp_bwd(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dt
     """B4 backward: ``(dws, dbs, denc (R S, xyz), dencd (R, dir) | None, dz
     (R, S))`` f32 for the cotangents ``g_rgb`` (R, 3) and ``g_w`` (R, S) f32.
     dz is the compositing's share only. The parameter gradients and dencd are
-    bitwise reproducible. ``raw`` as :func:`raymarch_comp_bwd`'s, bf16 only."""
+    bitwise reproducible. ``raw`` as :func:`raymarch_comp_bwd`'s."""
     _check_samples(z)
-    _raw_out(raw, z, compute_dtype, enc.device)
+    _raw_out(raw, z, compute_dtype, enc.device, f32=True)
     if not uses_kernel(enc):
         if raw is not None:
             raw.copy_(_raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)[0])
@@ -580,12 +583,13 @@ def mlp_comp_bwd(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dt
         if has_dir:
             dencd.zero_()
     else:
-        # bf16: each block's slab of dd rows (csrc/mlp_comp_bwd.cu), none
-        # without view dirs.
+        # Each block's slab of dd rows (csrc/mlp_comp_bwd.cu), none without
+        # view dirs.
         partial, acts, dds, n_blocks = _comp_bwd_scratch(
             lib, dparams.numel(), config, compute_dtype, z, dev,
             config.dir_dim if has_dir else 0)
-        (w, wt), b = _weights_for(lib, ws, config, compute_dtype, ("f", "b")), flat(bs)
+        kinds = ("f", "b") if compute_dtype == torch.bfloat16 else ("tf", "tb")
+        (w, wt), b = _weights_for(lib, ws, config, compute_dtype, kinds), flat(bs)
         rc = lib.nerf_mlp_comp_bwd(
             _is_bf16(compute_dtype), int(has_dir), enc.data_ptr(), _ptr(encd), z.data_ptr(),
             w.data_ptr(), wt.data_ptr(), b.data_ptr(), g_rgb.data_ptr(), g_w.data_ptr(),

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Where f32 B7's backward (``raymarch_comp_bwd``, the 3xTF32 tensor-core
 tiles of ``csrc/mlp_tf32_mma_tile.cuh``; the FMA tiles before) parts from
-the f64 chain, step by step; f32 B4's backward (``mlp_comp_bwd``, the FMA
-tiles) beside it.
+the f64 chain, step by step; f32 B4's backward (``mlp_comp_bwd``, the same
+tiles through the same ray-group loop) beside it.
 
 ``chip_smoke.py``'s ``b7_vs_f64_chain`` holds a kernel's dparams against the
 plain version with the MLP's products and sums in f64 and the compositing in
@@ -28,7 +28,8 @@ then the tiles' backward walk, where the plain version's is
   chain and to the exact end (f64 MLP on the exact cotangent), the share the
   cotangent alone gives (f64 MLP on each cotangent) and the MLP's own (the
   kernel against the f64 MLP on its emulated cotangent; f32 B6's backward,
-  the FMA walk, on that cotangent against B7's dparams), and the leaves
+  B2's 3xTF32 tile in strided 64-row tiles, on that cotangent against B7's
+  dparams), and the leaves
   where the kernel's distance is largest;
 - for B4 the kernel's and the plain version's dparams against B4's chain.
 

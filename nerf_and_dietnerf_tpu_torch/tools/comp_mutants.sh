@@ -1,10 +1,10 @@
 #!/bin/bash
 # Shows that chip_smoke.py's checks of the compositing kernels on the tensor
 # cores (_hold_comp_bwd: B7's backward and B5 in bf16 and f32, B4's backward;
-# _comp_checks for B4's forward and backward; _rm_checks for B7's bf16
-# forward; R = 4096, S = 64, both variants) and of f32 B2 (_mlp_checks at a
-# ragged row count, after NaN was left in every SM's shared memory) catch
-# broken kernels. Each case copies the package and
+# _comp_checks for B4's forward and backward, f32 B4's at S = 128 too;
+# _rm_checks for B7's bf16 forward and f32 B6's backward; R = 4096, S = 64,
+# both variants) and of f32 B2 (_mlp_checks at a ragged row count, after NaN
+# was left in every SM's shared memory) catch broken kernels. Each case copies the package and
 # chip_smoke.py to a temporary directory, breaks one line there, rebuilds and
 # runs the checks; the repository is not touched:
 #   none     unbroken (every check passes);
@@ -22,16 +22,21 @@
 #   b5sw     f32 B5's dz_points reads the f32 kit's swizzled X row plainly
 #            (column c where sw(r, c) holds it);
 #   b2pad    f32 B2's X and D loads (load_rows) leave the pad columns past
-#            the encoding's width as they were.
+#            the encoding's width as they were;
+#   b4carry  f32 B4's dencd sums drop the carry between a ray's two 64-row
+#            tiles (S = 128: each ray's dencd is its second tile's rows only;
+#            the xyz-only variant, which has no dencd, is unbroken);
+#   b6row    f32 B6's backward reads each row's dx from the slab row r ^ 4
+#            for its dz.
 # Run from the repository root on the card, after a build (build/kernels is
 # copied, so only the broken libraries are rebuilt); name cases to run only
 # those:
-#   bash nerf_and_dietnerf_tpu_torch/tools/comp_mutants.sh [none b5sw b2pad ...]
+#   bash nerf_and_dietnerf_tpu_torch/tools/comp_mutants.sh [none b4carry b6row ...]
 set -u
 root=$(pwd)
 tmp=$(mktemp -d)
 trap 'rm -rf "$tmp"' EXIT
-cases=${*:-none ray2 sigbias dd2 denc1 t32row fwdray b5sw b2pad}
+cases=${*:-none ray2 sigbias dd2 denc1 t32row fwdray b5sw b2pad b4carry b6row}
 for m in $cases; do
   d=$tmp/$m
   mkdir -p "$d/build" && cp -r nerf_and_dietnerf_tpu_torch chip_smoke.py "$d/"
@@ -54,6 +59,12 @@ for m in $cases; do
           grep -q "row / in.S) \* 3,$" "$csrc/mlp_loss_comp.cu" && ! grep -q "SwizzledCols{row" "$csrc/mlp_loss_comp.cu" || exit 1 ;;
     b2pad) sed -i 's|  const int wp = nerf_mma::pad16(width);|  const int wp = width;|' "$csrc/mlp_tf32_mma_tile.cuh"
            grep -q "  const int wp = width;" "$csrc/mlp_tf32_mma_tile.cuh" || exit 1 ;;
+    b4carry) sed -i 's|      float s = lo == lr \* S ? 0.f : carry;|      float s = 0.f;|' "$csrc/mlp_comp_bwd.cu"
+             grep -q "      float s = 0.f;" "$csrc/mlp_comp_bwd.cu" || exit 1 ;;
+    b6row) # the first of the two kernels' dz lines is the f32 kernel's
+           sed -i '0,/dz_of_row(ry, dxs + r \* dm.xyz, row0 + r)/s//dz_of_row(ry, dxs + (r ^ 4) * dm.xyz, row0 + r)/' "$csrc/raymarch_bwd.cu"
+           awk '/rm_bwd_t32_kernel\(/ {k = 1} /rm_bwd_mma_kernel\(/ {k = 0}
+                /dxs \+ \(r \^ 4\)/ {n += k} END {exit n != 1}' "$csrc/raymarch_bwd.cu" || exit 1 ;;
   esac
   (cd "$d" && python3 - "$m" <<'PY'
 import sys
@@ -103,7 +114,8 @@ for n_angles in (0, 2):
     for kernel, args, run in (("B7", (rd, z, g_rgb, g_w), b7), ("B5", batch, b5), ("B4", None,
                                                                                    None),
                               ("B7_f32", (rd, z, g_rgb, g_w), b7_f32), ("B7_fwd", None, None),
-                              ("B5_f32", batch32, b5_f32), ("B2_f32", None, None)):
+                              ("B5_f32", batch32, b5_f32), ("B2_f32", None, None),
+                              ("B4_f32", None, None), ("B6_f32", None, None)):
         label = f"{sys.argv[1]} n_angles={n_angles} {kernel}"
         try:
             if kernel == "B4":  # its forward and backward, as chip_smoke.py holds them
@@ -123,6 +135,13 @@ for n_angles in (0, 2):
                 x, d, g = cs._inputs(torch, cfg, torch.float32, cs.N_ROWS_RAGGED, gen)
                 cs._mlp_checks(torch, rc, ws32, bs32, cfg, x, d, g, torch.float32, "float32",
                                label)
+            elif kernel == "B4_f32":  # a ray over two tiles, as chip_smoke.py holds it
+                cs._comp_checks(torch, rk, cfg, ws32, bs32,
+                                cs._enc_batch(torch, cfg, torch.float32, R, 2 * S, gen),
+                                torch.float32, "float32", gen, label, b5=False)
+            elif kernel == "B6_f32":  # B6's forward and backward, as chip_smoke.py holds them
+                cs._rm_checks(torch, rk, cfg, ws32, bs32, rd, z, torch.float32, "float32", gen,
+                              label, b7=False)
             else:
                 cs._hold_comp_bwd(torch, kernel, label, "bfloat16", ws, bs, cfg, cd, args, run)
             print(f"RESULT {label}: passed", flush=True)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Where the f32 tensor-core backwards spend their time, phase by phase: f32
-B7's backward (``raymarch_comp_bwd``), f32 B2 (``mlp_bwd``) and f32 B5
-(``mlp_loss_comp``), all on the 3xTF32 ``mma.sync`` tile of
+B7's backward (``raymarch_comp_bwd``), f32 B2 (``mlp_bwd``), f32 B5
+(``mlp_loss_comp``), f32 B4's backward (``mlp_comp_bwd``) and f32 B6's
+backward (``raymarch_bwd``), all on the 3xTF32 ``mma.sync`` tile of
 ``csrc/mlp_tf32_mma_tile.cuh``.
 
 The tool builds its own copies of a kernel's library into
@@ -26,7 +27,7 @@ the mean block span, ms per phase (each block's cycles over its own clock,
 averaged over the blocks), their sum and its ratio to the event time; and
 the same for the port's unchanged library (event time only).
 
-    python -m nerf_and_dietnerf_tpu_torch.tools.t32_phases [--kernels b7 b2 b5] [--out PATH]
+    python -m nerf_and_dietnerf_tpu_torch.tools.t32_phases [--kernels b7 b2 b5 b4 b6] [--out PATH]
     python -m nerf_and_dietnerf_tpu_torch.tools.t32_phases --device cpu --hidden 32
 
 On the CPU only the reckoning runs (a CPU has no phases to stamp).
@@ -65,7 +66,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "t32_phases"
 PEAK_TF32, PEAK_BYTES, SMS = 495e12, 3.35e12, 132
 # (library, the flagship shapes the kernel runs at: rays, samples)
 KERNELS = {"b7": ("raymarch_comp_bwd", 4096, 64), "b2": ("mlp_bwd", 4096, 64),
-           "b5": ("mlp_loss_comp", 4096, 128)}
+           "b5": ("mlp_loss_comp", 4096, 128), "b4": ("mlp_comp_bwd", 4096, 64),
+           "b6": ("raymarch_bwd", 4096, 64)}
 _EXTRA = {"nerf_t32_phase_buffer": ([ctypes.c_void_p], ctypes.c_int),
           "nerf_t32_phase_count": ([], ctypes.c_int)}
 
@@ -115,13 +117,23 @@ def _case(kernel: str, device, rays: int, samples: int, hidden):
     ws, bs = rc.flatten_params(params, cfg, F32)
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     rd, z = ray_batch(cfg, rays, samples, gen, device)
+    if kernel == "b6":
+        g = (0.5 + torch.rand((rays, samples, 4), generator=gen, device=device)).contiguous()
+        return cfg, lambda: rk.raymarch_bwd(ws, bs, cfg, rd, z, g, F32)
+
+    def cotangents():  # of the pixels and the weights
+        return ((0.5 + torch.rand((rays, 3), generator=gen, device=device)).contiguous(),
+                (0.5 + torch.rand((rays, samples), generator=gen, device=device)).contiguous())
+
     if kernel == "b7":
-        g_rgb = (0.5 + torch.rand((rays, 3), generator=gen, device=device)).contiguous()
-        g_w = (0.5 + torch.rand((rays, samples), generator=gen, device=device)).contiguous()
+        g_rgb, g_w = cotangents()
         return cfg, lambda: rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, F32)
     enc, encd, z, dvec, target = enc_batch(cfg, F32, rd, z, gen)
     if kernel == "b5":
         return cfg, lambda: rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, dvec, target, F32)
+    if kernel == "b4":
+        g_rgb, g_w = cotangents()
+        return cfg, lambda: rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, z, g_rgb, g_w, F32)
     n = rays * samples
     d = encd.repeat_interleave(samples, 0).contiguous()
     g = (0.5 + torch.rand((n, 4), generator=gen, device=device)).contiguous()

@@ -23,13 +23,14 @@ widths (hidden 32, L = 2-5):
   ``_backward_rays_comp_pallas``, ``_loss_mlp_comp_pallas`` and B4's two
   kernels in interpret mode;
 - (d) the wrappers' weight packs and scratch against a fake library's
-  per-compute-type exports, both types (f32 B7's backward and f32 B5: 64-row
-  groups, their slots and dx slab, the F and B buffers of
-  ``raymarch_cuda.t32_packs``; f32 B4: the FMA kernel's sizes and flat
-  weights);
-- f32 B5 in the f32 kit's group order (64-row tiles, dz_points reading the
-  swizzled X rows through sw) against JAX's f32 ``_loss_mlp_comp_pallas``,
-  and the reckoning of ``tools/t32_phases.py``.
+  per-compute-type exports, both types (the f32 backwards of B7, B5 and B4:
+  64-row groups, their slots and slab, the F and B buffers of
+  ``raymarch_cuda.t32_packs``; f32 B4's and B7's forwards the flat weights);
+- f32 B5 and f32 B4's backward in the f32 kit's group order (64-row tiles,
+  dz_points reading the swizzled X rows through sw; B4's dd rows summed per
+  ray across a ray's two tiles) against JAX's f32 ``_loss_mlp_comp_pallas``
+  and ``_backward_mlp_comp_pallas``, and the reckoning of
+  ``tools/t32_phases.py``.
 """
 
 import ctypes
@@ -822,7 +823,38 @@ def test_b4_backward_in_the_kernels_order_matches_jax(case, n_samples, name, cd,
     summed in row order (one running sum carried from tile to tile at S =
     192), dz the compositing's share alone; dparams, denc, dencd and dz
     against JAX's B4 backward at GRAD_TOL (scaled per leaf in f32, normwise in
-    bf16, as B7's and B5's emulations)."""
+    bf16, as B7's and B5's emulations); f32 in the groups of the f32 kit's
+    64-row tiles."""
+    _check_b4_backward(case, n_samples, name, cd, jcd, BM if cd == torch.bfloat16 else T32_BM)
+
+
+@pytest.mark.parametrize("n_samples", [32, 48, 64, 100, 128])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_b4_f32_in_the_t32_kits_group_order_matches_jax(case, n_samples):
+    """f32 B4's backward as backward_groups<MlpComp<float>, nerf_tmma::Kit>
+    walks it: 64-row tiles (S = 32: two rays a group; 48: one ray in a
+    part-filled tile; 64: one full tile; 100: a full and a part-filled tile;
+    128: two full tiles, the ray's dencd sums carried from the first to the
+    second), the f32 encodings and each ray's exact f32 view-dir encoding as
+    the tiles' rows; dparams, denc, dencd and dz against JAX's f32
+    ``_backward_mlp_comp_pallas`` (interpret mode) at GRAD_TOL["float32"]
+    (scaled per leaf)."""
+    S = n_samples
+    assert tiles_per_group(S, T32_BM) == (1 if S <= 64 else 2)
+    assert rays_per_group(S, T32_BM) == (2 if S == 32 else 1)
+    _check_b4_backward(case, S, "float32", torch.float32, jnp.float32, T32_BM)
+    # The policy sums the dd rows it is given per ray, tile after tile, from
+    # the thread's carry; the f32 kernel runs it on the f32 kit.
+    for line in ("      float s = lo == lr * S ? 0.f : carry;",
+                 "      for (int r = lo; r < hi; ++r) s += dd[(r - r0) * dm.dir + c];",
+                 "      carry = s;",
+                 "    for (int idx = threadIdx.x; idx < g.n_rays * dm.dir; idx += blockDim.x) {",
+                 "  nerf_cmma::backward_groups<MlpComp<float>, K>(",
+                 "    load_comp_t32_inputs(in, dm, g, r0, X, D);"):
+        assert line in B4_SRC
+
+
+def _check_b4_backward(case, n_samples, name, cd, jcd, bm):
     S = n_samples
     jcfg, tcfg, params, x = _enc_setup(case, S, seed=6)
     _, (jgp, jgenc, jgencd, jgz), (g_rgb, g_w) = _b4_jax(jcfg, params, x, jcd, 8)
@@ -848,7 +880,8 @@ def test_b4_backward_in_the_kernels_order_matches_jax(case, n_samples, name, cd,
         dencd[ray0:ray0 + n_rays] = acc
 
     dws, dbs, dz, _ = _emulate_groups(tcfg, ws, bs, cd, S, _enc_tiles_of(tcfg, x, S, cd), per_ray,
-                                      lambda ray0, rows, dx, xt: torch.zeros(rows), rows_out)
+                                      lambda ray0, rows, dx, xt: torch.zeros(rows), rows_out,
+                                      bm=bm)
     rws, rbs = _flat_grads(jgp, tcfg)
     normwise = cd == torch.bfloat16
     _hold(dws + dbs, rws + rbs, GRAD_TOL[name], normwise)
@@ -882,19 +915,13 @@ class _FakeLib:
         return rc.t32_layout(self.cfg)[1]
 
     def nerf_comp_groups(self, is_bf16, R, S):
-        if is_bf16:
-            return n_groups(R, S)
-        return 0 if S <= 0 or S > MAX_S else -(-R // (1 if S >= TM else TM // S))
+        return n_groups(R, S, BM if is_bf16 else T32_BM)
 
     def nerf_comp_act_elems(self, is_bf16, S):
-        if is_bf16:
-            return act_elems(S)
-        # Every 64-row chunk's slots: the FMA kernels', and f32 B7's tiles.
-        chunks = -(-(1 if S >= TM else TM // S) * S // TM)
-        return chunks * NACT * TM * HMAX
+        return act_elems(S, BM if is_bf16 else T32_BM)
 
     def nerf_comp_dx_rows(self, is_bf16):
-        return BM if is_bf16 else T32_BM if self.kernel in ("B7", "B5") else 0
+        return BM if is_bf16 else T32_BM
 
     def _record(self, is_bf16, w, wt, dxs, raw, n_blocks, t32=False):
         n = self.nerf_mlp_mma_pack_elems() if is_bf16 else self.nerf_mlp_param_count() - sum(
@@ -922,7 +949,7 @@ class _FakeLib:
 
     def nerf_mlp_comp_bwd(self, is_bf16, has_dir, enc, encd, z, w, wt, b, g_rgb, g_w, denc,
                           dencd, dz, raw, partial, acts, dds, dparams, n_blocks, *tail):
-        return self._record(is_bf16, w, wt, dds, raw, n_blocks)
+        return self._record(is_bf16, w, wt, dds, raw, n_blocks, t32=not is_bf16)
 
     def nerf_mlp_comp_fwd(self, is_bf16, has_dir, enc, encd, z, w, b, rgb, weights, raw, *tail):
         return self._record(is_bf16, w, None, None, raw, None)
@@ -972,17 +999,13 @@ def test_scratch_is_sized_from_the_library_per_compute_type(fake_card, kernel, n
         assert acts.numel() == n_blocks * tiles_per_group(S) * NACT * BM * HPAD
         assert dxs.numel() == n_blocks * BM * width and dxs.dtype == torch.float32
     else:
-        # Groups of about 64 rows and every 64-row chunk's slots: the FMA
-        # kernel of B4 (no slab), and f32 B7's and B5's 64-row 3xTF32 tiles
-        # (one group's tiles kept, a 64-row dx slab).
-        rpg = 1 if S >= TM else TM // S
+        # The f32 kit's 64-row 3xTF32 tiles, for all three: groups of about
+        # 64 rows, one group's tiles kept, a 64-row slab (B4's of dd rows).
+        rpg = 1 if S >= T32_BM else T32_BM // S
         assert groups == -(-R // rpg) == n_groups(R, S, T32_BM)
-        assert acts.numel() == n_blocks * -(-rpg * S // TM) * NACT * TM * HMAX
-        if kernel in ("B7", "B5"):
-            assert acts.numel() == n_blocks * act_elems(S, T32_BM)
-            assert dxs.numel() == n_blocks * T32_BM * width and dxs.dtype == torch.float32
-        else:
-            assert dxs is None
+        assert acts.numel() == n_blocks * -(-rpg * S // T32_BM) * NACT * T32_BM * HPAD
+        assert acts.numel() == n_blocks * act_elems(S, T32_BM)
+        assert dxs.numel() == n_blocks * T32_BM * width and dxs.dtype == torch.float32
 
 
 KERNEL_SRC = {"B7": B7_SRC, "B5": B5_SRC, "B4": B4_SRC}
@@ -990,39 +1013,41 @@ KERNEL_SRC = {"B7": B7_SRC, "B5": B5_SRC, "B4": B4_SRC}
 
 @pytest.mark.parametrize("kernel", ["B7", "B5", "B4"])
 def test_exports_in_the_sources_match_the_fake_library(kernel):
-    # One definition of the exports, in the header each library includes;
-    # each library says how many 64-row chunks its f32 kernel keeps.
+    # One definition of the exports, in the header each library includes:
+    # both types from their kit's tile rows (bf16 128, f32 64).
     src = KERNEL_SRC[kernel]
     assert '#include "comp_exports.cuh"' in src and 'extern "C" int nerf_comp_' not in src
-    assert ('extern "C" int nerf_comp_dx_rows(int is_bf16) {\n'
-            '  return is_bf16 ? nerf_mma::BM : nerf_comp::f32_slab_rows();') in EXPORTS_SRC
-    assert "return is_bf16 ? nerf_cmma::n_groups(R, S) : nerf_comp::n_groups(R, S);" in EXPORTS_SRC
-    assert "return is_bf16 ? nerf_cmma::act_elems(S)\n                 : (long long)" \
-           "nerf_comp::f32_chunks_kept(S) * nerf_mlp::NACT * nerf_mlp::TM *" in EXPORTS_SRC
-    assert "int nerf_comp::f32_chunks_kept(int S) { return chunks_per_group(S); }" in src
-    slab = "nerf_tmma::BM" if kernel in ("B7", "B5") else "0"
-    assert f"int nerf_comp::f32_slab_rows() {{ return {slab}; }}" in src
-    # The FMA-only exports of the family are gone.
+    assert ('extern "C" int nerf_comp_dx_rows(int is_bf16) { return is_bf16 ? nerf_mma::BM : '
+            'nerf_tmma::BM; }') in EXPORTS_SRC
+    assert ("return is_bf16 ? nerf_cmma::n_groups(R, S) : nerf_cmma::n_groups(R, S, "
+            "nerf_tmma::BM);") in EXPORTS_SRC
+    assert ("return is_bf16 ? nerf_cmma::act_elems(S) : "
+            "nerf_cmma::act_elems<nerf_tmma::Kit>(S);") in EXPORTS_SRC
+    # No library keeps an f32 sizing of its own, and no FMA backward is left.
+    for text in (src, EXPORTS_SRC):
+        assert "f32_chunks_kept" not in text and "f32_slab_rows" not in text
     for other in (CSRC / "mlp_comp_common.cuh", CSRC / "mlp_comp_fwd.cu"):
         assert "nerf_mlp_comp_act_slots" not in other.read_text()
-    # Each new kernel launches only on the bf16 branch.
-    launch = {"B7": "if (bf16) {\n    err = launch_kernel(rm_comp_bwd_mma_kernel,",
-              "B5": "mlp_loss_comp_mma_kernel<<<n_blocks, nerf_mma::NT, smem, stream>>>(",
-              "B4": "mlp_comp_bwd_mma_kernel<<<n_blocks, nerf_mma::NT, smem, stream>>>("}[kernel]
-    assert launch in src
-    if kernel == "B7":  # and the f32 instance on the 3xTF32 tiles
-        assert "err = launch_kernel(rm_comp_bwd_t32_kernel, n_blocks, nerf_tmma::NT," in src
-        assert "rm_comp_bwd_kernel<float>" not in src
-    if kernel == "B5":  # likewise, through the same loop with the f32 kit
-        assert "mlp_loss_comp_t32_kernel<<<n_blocks, nerf_tmma::NT, smem, stream>>>(" in src
-        assert "backward_groups<LossComp<float>, K>(" in src
-        assert "mlp_loss_comp_kernel<float>" not in src
-    if kernel == "B4":
-        for text in (B4_SRC, B4F_SRC):
-            bf, f32 = text.index("  if (bf16) {"), text.index("  } else {")
-            mma = text.index("_mma_kernel<<<")
-            assert bf < mma < f32 and "mlp_comp_fwd_kernel<float>" not in text
-        assert "mlp_comp_fwd_mma_kernel<<<groups, nerf_mma::NT, smem, stream>>>(" in B4F_SRC
+    # Each kernel launches its bf16 instance on the bf16 branch and its f32
+    # instance, on the 3xTF32 tiles through the same loop, on the other.
+    launch = {"B7": ("if (bf16) {\n    err = launch_kernel(rm_comp_bwd_mma_kernel,",
+                     "err = launch_kernel(rm_comp_bwd_t32_kernel, n_blocks, nerf_tmma::NT,"),
+              "B5": ("mlp_loss_comp_mma_kernel<<<n_blocks, nerf_mma::NT, smem, stream>>>(",
+                     "mlp_loss_comp_t32_kernel<<<n_blocks, nerf_tmma::NT, smem, stream>>>("),
+              "B4": ("mlp_comp_bwd_mma_kernel<<<n_blocks, nerf_mma::NT, smem, stream>>>(",
+                     "mlp_comp_bwd_t32_kernel<<<n_blocks, nerf_tmma::NT, smem, stream>>>(")}
+    bf, f32 = src.index("  if (bf16) {"), src.index("  } else {")
+    assert bf < src.index(launch[kernel][0]) < f32 < src.index(launch[kernel][1])
+    loop = {"B7": "backward_groups<RayComp, K>(", "B5": "backward_groups<LossComp<float>, K>(",
+            "B4": "backward_groups<MlpComp<float>, K>("}[kernel]
+    assert loop in src and "using K = nerf_tmma::Kit;" in src
+    for fma in ("rm_comp_bwd_kernel", "mlp_loss_comp_kernel", "mlp_comp_bwd_kernel(",
+                "mlp_comp_bwd_kernel<", "backward_walk<float>", "cotangent_tile"):
+        assert fma not in src
+    # B4's forward keeps the FMA tile in f32.
+    bf, f32 = B4F_SRC.index("  if (bf16) {"), B4F_SRC.index("  } else {")
+    assert bf < B4F_SRC.index("_mma_kernel<<<") < f32
+    assert "mlp_comp_fwd_mma_kernel<<<groups, nerf_mma::NT, smem, stream>>>(" in B4F_SRC
 
 
 def _call_wrappers(fake_card, lib, kernel, cfg, ws, bs, cd, R, S, gen, fwd=True, **kw):
@@ -1045,7 +1070,8 @@ def _call_wrappers(fake_card, lib, kernel, cfg, ws, bs, cd, R, S, gen, fwd=True,
                          **kw)
         return
     fake_card["mlp_comp_fwd"] = fake_card["mlp_comp_bwd"] = lib
-    rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, z, cd, **kw)
+    if fwd:
+        rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, z, cd, **kw)
     rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, z, torch.rand((R, 3)), torch.rand((R, S)), cd, **kw)
 
 
@@ -1056,8 +1082,8 @@ def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, na
     """bf16: the F and B packs of ``pack_mma_weights`` (their size checked
     against the library's; B4's and B7's forwards the F pack alone), a slab
     (B4's of dd rows, with view dirs only); f32: B7's backward and B5 the hi /
-    lo F and B buffers of ``t32_packs`` (their size checked) and a dx slab,
-    the others the flat weights (and their transposes), no slab."""
+    lo F and B buffers of ``t32_packs`` (their size checked) and a slab (B4's
+    of dd rows, with view dirs only), the forwards the flat weights."""
     cfg = tm.MLPConfig(**case)
     cd = getattr(torch, name)
     lib = _FakeLib(kernel, cfg)
@@ -1080,24 +1106,18 @@ def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, na
             want = rc.pack_mma_weights(ws, cfg, kind).view(torch.int16).numpy().view(np.uint16)
             np.testing.assert_array_equal(got, want)
         assert (call["dxs"] is not None) == (kernel != "B4" or cfg.uses_view_dirs)
-    elif kernel in ("B7", "B5"):
+    else:
         for got, want in zip((call["w"], call["wt"]), rc.t32_packs(ws, cfg)):
             np.testing.assert_array_equal(got, want.numpy())
-        assert call["dxs"] is not None
-    else:
-        np.testing.assert_array_equal(call["w"], torch.cat([w.reshape(-1) for w in ws]).numpy())
-        np.testing.assert_array_equal(call["wt"],
-                                      torch.cat([w.t().reshape(-1) for w in ws]).numpy())
-        assert call["dxs"] is None
+        assert (call["dxs"] is not None) == (kernel != "B4" or cfg.uses_view_dirs)
     bad = _FakeLib(kernel, cfg)
     bad.nerf_mlp_mma_pack_elems = lambda *dims: rc.mma_layout(cfg)[1] + 16
     bad.nerf_mlp_t32_pack_elems = lambda *dims: rc.t32_layout(cfg)[1] + 8
-    if cd == torch.bfloat16 or kernel in ("B7", "B5"):
-        match = "weight-pack layout" if cd == torch.bfloat16 else "f32 backward's pack layout"
-        with pytest.raises(RuntimeError, match=match):
-            _call_wrappers(fake_card, bad, kernel, cfg, ws, bs, cd, R, S,
-                           torch.Generator().manual_seed(1), fwd=cd == torch.bfloat16)
-        assert not bad.calls
+    match = "weight-pack layout" if cd == torch.bfloat16 else "f32 backward's pack layout"
+    with pytest.raises(RuntimeError, match=match):
+        _call_wrappers(fake_card, bad, kernel, cfg, ws, bs, cd, R, S,
+                       torch.Generator().manual_seed(1), fwd=cd == torch.bfloat16)
+    assert not bad.calls
 
 
 # --------------------------------------------------------------------------- #
@@ -1252,15 +1272,29 @@ def test_raw_output_on_the_cpu_is_the_plain_forward(kernel):
             assert all(torch.equal(a, b) for a, b in zip(got[-2:], want[-2:]))
         with pytest.raises(ValueError, match="expected"):
             rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, z, g_rgb, g_w, cd, raw=raw_b[:, :-1])
+        # f32 B4's backward gives its raw values too; its forward (the FMA
+        # tile) raises.
+        ws32, bs32 = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(5), cfg), cfg,
+                                       torch.float32)
+        enc32 = enc.float()
+        raw32 = torch.full((*z.shape, 4), float("nan"))
+        got32 = rk.mlp_comp_bwd(ws32, bs32, cfg, enc32, encd, z, g_rgb, g_w, torch.float32,
+                                raw=raw32)
+        assert torch.equal(raw32, rk._raw_on_encodings(ws32, bs32, cfg, enc32, encd, z,
+                                                       torch.float32)[0])
+        assert all(torch.equal(a, b) for a, b in zip(got32[-2:], rk.mlp_comp_bwd_plain(
+            ws32, bs32, cfg, enc32, encd, z, g_rgb, g_w, torch.float32)[-2:]))
+        with pytest.raises(ValueError, match="bf16"):
+            rk.mlp_comp_fwd(ws32, bs32, cfg, enc32, encd, z, torch.float32, raw=raw32)
 
 
 @pytest.mark.parametrize("name", ["bfloat16", "float32"])
 @pytest.mark.parametrize("kernel", ["B7", "B5", "B4"])
 def test_wrappers_pass_the_raw_output_to_the_bf16_kernels(fake_card, kernel, name):
     """Every bf16 kernel takes the raw output (B7's and B4's forwards and
-    backwards, B5); in f32 B7's backward and B5 do (their tensor-core kernels
-    write it for the kink-aware checks and the C3 step report) and B7's
-    forward and B4 raise."""
+    backwards, B5); in f32 the backwards and B5 do (their tensor-core kernels
+    write it for the kink-aware checks and the C3 step report) and the
+    forwards of B7 and B4 (the FMA tile) raise."""
     cfg = tm.MLPConfig(**CASES[1])
     cd = getattr(torch, name)
     lib = _FakeLib(kernel, cfg)
@@ -1278,13 +1312,6 @@ def test_wrappers_pass_the_raw_output_to_the_bf16_kernels(fake_card, kernel, nam
     if cd == torch.bfloat16:
         call(raw=raw)
         assert len(lib.calls) == 2 * n and all(c["raw"] == raw.data_ptr() for c in lib.calls[n:])
-    elif kernel == "B7":
-        with pytest.raises(ValueError, match="bf16"):
-            call(raw=raw)
-        assert len(lib.calls) == n
-        call(raw=raw, fwd=False)  # the backward alone
-        assert len(lib.calls) == n + 1 and lib.calls[-1]["raw"] == raw.data_ptr()
-        assert lib.calls[-1]["n_blocks"] is not None
     elif kernel == "B5":
         call(raw=raw)
         assert len(lib.calls) == n + 1 and lib.calls[-1]["raw"] == raw.data_ptr()
@@ -1292,6 +1319,9 @@ def test_wrappers_pass_the_raw_output_to_the_bf16_kernels(fake_card, kernel, nam
         with pytest.raises(ValueError, match="bf16"):
             call(raw=raw)
         assert len(lib.calls) == n
+        call(raw=raw, fwd=False)  # the backward alone
+        assert len(lib.calls) == n + 1 and lib.calls[-1]["raw"] == raw.data_ptr()
+        assert lib.calls[-1]["n_blocks"] is not None
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)

@@ -458,13 +458,14 @@ def test_build_hash_of_the_new_kernels_covers_their_headers():
     # Every bf16 kernel of the family runs a ray-group loop on the
     # tensor-core tiles (whose loops carry the phase stamps of
     # tools/t32_phases.py, empty in these builds); the backwards share one
-    # header of scratch exports; f32 B5 runs the loop on the 3xTF32 tiles.
+    # header of scratch exports and the slabs' sum; the f32 backwards run the
+    # loop on the 3xTF32 tiles, whose input loads the shared header holds.
     tiles = {"comp_mma_tile.cuh", "mlp_mma_tile.cuh", "t32_phases.cuh"}
-    bwd = tiles | {"comp_exports.cuh", "mlp_bwd_tile.cuh"}
     t32 = {"mlp_tf32_mma_tile.cuh", "mlp_tf32_tile.cuh"}
-    assert deps["mlp_comp_fwd"] == shared | tiles | {"mlp_comp_fwd.cu"}
+    bwd = tiles | t32 | {"comp_exports.cuh", "grad_slabs.cuh"}
+    assert deps["mlp_comp_fwd"] == shared | tiles | t32 | {"mlp_comp_fwd.cu"}
     assert deps["mlp_comp_bwd"] == shared | bwd | {"mlp_comp_bwd.cu"}
-    assert deps["mlp_loss_comp"] == shared | bwd | t32 | {"mlp_loss_comp.cu"}
+    assert deps["mlp_loss_comp"] == shared | bwd | {"mlp_loss_comp.cu"}
     assert {"composite_common.cuh"} | bwd <= deps["raymarch_comp_bwd"]
     # B7's forward and backward build their tiles with one header, which
     # brings both kits (bf16 and the f32 backward's 3xTF32 tiles).

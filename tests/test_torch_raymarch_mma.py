@@ -68,6 +68,7 @@ def _c_int(src: str, name: str) -> int:
 MMA_SRC = (CSRC / "mlp_mma_tile.cuh").read_text()
 TF32_SRC = (CSRC / "mlp_tf32_tile.cuh").read_text()
 BM = _c_int(MMA_SRC, "BM")
+T32_BM = _c_int((CSRC / "mlp_tf32_mma_tile.cuh").read_text(), "BM")  # f32 backward tiles
 LDX, LDD = 64 + 8, 32 + 8  # row strides of the bf16 X and D tiles (checked below)
 IN_COLS = _c_int(TILE_SRC, "IN_COLS")  # f32 input columns of a tile row
 ACT_COLS = 256 + 4  # f32 activation columns before them (checked below)
@@ -469,8 +470,9 @@ def test_dz_from_dx_in_dz_of_rows_order_matches_jax(case):
 class _FakeLib:
     """The size exports of a B6 library (csrc/raymarch_{fwd,bwd}.cu)."""
 
-    def __init__(self, mma, tf32, tile=1):
-        self.mma, self.tf32, self.tile = mma, tf32, tile
+    def __init__(self, mma, tf32, tile=1, t32=None):
+        self.mma, self.tf32, self.tile, self.t32 = mma, tf32, tile, t32
+        self.calls = []
 
     def nerf_mlp_mma_pack_elems(self, has_dir, xyz, dir_, hid, last):
         return self.mma
@@ -481,12 +483,31 @@ class _FakeLib:
     def nerf_rm_fwd_tf32_tile(self, xyz, dir_):
         return self.tile
 
+    def nerf_mlp_t32_pack_elems(self, has_dir, xyz, dir_, hid, last):
+        return self.t32
+
+    # The backward library's scratch exports (csrc/raymarch_bwd.cu) and launch.
+    def nerf_mlp_param_count(self, has_dir, xyz, dir_, hid, last):
+        return self.n_params
+
+    def nerf_mlp_bwd_tile_rows(self, is_bf16):
+        return BM if is_bf16 else T32_BM
+
+    def nerf_mlp_bwd_tile_act_elems(self, is_bf16):
+        return 10 * (BM if is_bf16 else T32_BM) * 256
+
+    def nerf_rm_bwd(self, is_bf16, has_dir, rd, z, w, wt, b, g, dz, partial, acts, dxs, dparams,
+                    n_blocks, *tail):
+        self.calls.append(dict(is_bf16=is_bf16, w=w, wt=wt, acts=acts, dxs=dxs,
+                               n_blocks=n_blocks))
+        return 0
+
 
 WEIGHT_CASES = [  # (compute type, backward, what the wrapper passes)
     ("bfloat16", False, "F pack"),
     ("bfloat16", True, "F and B packs"),
     ("float32", False, "TF32 buffer"),
-    ("float32", True, "flat weights and transposes"),
+    ("float32", True, "t32 F and B buffers"),
 ]
 
 
@@ -497,8 +518,8 @@ def test_wrappers_pass_packs_whose_size_the_library_checks(case, cd, backward, w
     dtype = getattr(torch, cd)
     params = tm.init_params(torch.Generator().manual_seed(0), cfg)
     ws, _ = rc.flatten_params(params, cfg, dtype)
-    mma, tf32 = rc.mma_layout(cfg)[1], rc.tf32_layout(cfg)[1]
-    got = rk._rm_weights(_FakeLib(mma, tf32), ws, cfg, dtype, backward)
+    mma, tf32, t32 = rc.mma_layout(cfg)[1], rc.tf32_layout(cfg)[1], rc.t32_layout(cfg)[1]
+    got = rk._rm_weights(_FakeLib(mma, tf32, t32=t32), ws, cfg, dtype, backward)
     if what == "F pack":
         want = [rc.pack_mma_weights(ws, cfg, "f")]
     elif what == "F and B packs":
@@ -506,13 +527,12 @@ def test_wrappers_pass_packs_whose_size_the_library_checks(case, cd, backward, w
     elif what == "TF32 buffer":
         want = [rc.tf32_weights(ws, cfg)]
     else:
-        want = [torch.cat([w.reshape(-1) for w in ws]),
-                torch.cat([w.t().reshape(-1) for w in ws])]
+        want = list(rc.t32_packs(ws, cfg))
     assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
-    if what != "flat weights and transposes":
-        bad = (_FakeLib(mma + 16, tf32) if cd == "bfloat16" else _FakeLib(mma, tf32 + 512))
-        with pytest.raises(RuntimeError, match="weight-pack layout"):
-            rk._rm_weights(bad, ws, cfg, dtype, backward)
+    bad = (_FakeLib(mma + 16, tf32) if cd == "bfloat16" else
+           _FakeLib(mma, tf32 + 512, t32=rc.t32_layout(cfg)[1] + 8))
+    with pytest.raises(RuntimeError, match="pack layout"):
+        rk._rm_weights(bad, ws, cfg, dtype, backward)
 
 
 def test_f32_forward_beyond_the_input_tile_passes_the_flat_weights():
@@ -534,8 +554,62 @@ def test_backward_scratch_and_dx_slab_are_sized_per_compute_type():
     assert "return is_bf16 ? nerf_mma::BM : TM;" in bwd
     assert ("return is_bf16 ? (long long)nerf_mma::NACT * nerf_mma::SLOT : "
             "(long long)NACT * TM * HMAX;") in bwd
+    # Both kernels give each block a dx slab of its tile's rows; the f32
+    # kernel's tiles and slots are the exports' f32 sizes.
     assert "float* dxs = dx_all + (size_t)blockIdx.x * BM * dm.xyz;" in bwd
+    assert "float* dxs = dx_all + (size_t)blockIdx.x * tm::BM * dm.xyz;" in bwd
+    assert ("static_assert(nerf_tmma::BM == TM && (long long)nerf_tmma::NACT * nerf_tmma::SLOT =="
+            in bwd)
+    assert "n_blocks > tiles || dxs == nullptr)" in bwd
     src = Path(rk.__file__).read_text()
     assert "rows = lib.nerf_mlp_bwd_tile_rows(is_bf16)" in src
     assert "lib.nerf_mlp_bwd_tile_act_elems(is_bf16)" in src
     assert "torch.empty((n_blocks * rows * config.xyz_dim,)" in src
+
+
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32], ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_backward_wrapper_passes_the_packs_and_a_dx_slab_per_compute_type(case, cd, monkeypatch):
+    """B6's backward on the card, through a fake library: bf16 the F and B
+    packs, f32 the F and B buffers of ``t32_packs``; in both a dx slab of
+    each block's tile rows (128 bf16, 64 f32) x xyz f32, one block an SM at
+    most, each block's NACT x rows x 256 slots."""
+    from types import SimpleNamespace
+
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+
+    cfg = tm.MLPConfig(**case)
+    ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(0), cfg), cfg, cd)
+    lib = _FakeLib(rc.mma_layout(cfg)[1], rc.tf32_layout(cfg)[1], t32=rc.t32_layout(cfg)[1])
+    lib.n_params = sum(w.numel() for w in ws) + sum(b.numel() for b in bs)
+    R, S = 13, 48  # 624 rows: 5 tiles of 128 rows, 10 of 64, the last part-filled
+    rd = torch.rand((R, 6 + (cfg.n_angles + 1 if cfg.uses_view_dirs else 0)))
+    z = torch.sort(2 + 4 * torch.rand((R, S)), dim=1).values
+    g = torch.rand((R, S, 4))
+    seen = {}
+    real = rk._rm_weights
+
+    def rm_weights(*args):
+        seen["bufs"] = real(*args)
+        return seen["bufs"]
+
+    monkeypatch.setattr(rk, "uses_kernel", lambda t: True)
+    monkeypatch.setattr(rk, "load", lambda name: lib)
+    monkeypatch.setattr(rk, "stream_of", lambda dev: 0)
+    monkeypatch.setattr(rk, "_rm_weights", rm_weights)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=4))
+    counts = dict(kl.LAUNCHES)
+    try:
+        rk.raymarch_bwd(ws, bs, cfg, rd, z, g, cd)
+    finally:
+        kl.LAUNCHES.update(counts)
+    (call,) = lib.calls
+    rows = BM if cd == torch.bfloat16 else T32_BM
+    assert call["n_blocks"] == 4 and call["is_bf16"] == int(cd == torch.bfloat16)
+    want = ([rc.pack_mma_weights(ws, cfg, k) for k in ("f", "b")] if cd == torch.bfloat16
+            else list(rc.t32_packs(ws, cfg)))
+    assert all(torch.equal(a, b) for a, b in zip(seen["bufs"], want))
+    assert (call["w"], call["wt"]) == tuple(t.data_ptr() for t in seen["bufs"])
+    assert call["dxs"] is not None
+    assert lib.nerf_mlp_bwd_tile_rows(0) == T32_BM and -(-R * S // rows) > 4

@@ -216,7 +216,7 @@ def test_build_hash_covers_every_included_header(tmp_path):
     before = {n: kl.lib_path(n, csrc) for n in names}
     assert before == {n: kl.lib_path(n) for n in names}
     deps = {n: {p.name for p in kl.source_closure(csrc / kl.KERNEL_SOURCES[n])} for n in names}
-    assert {"mlp_common.cuh", "mlp_bwd_tile.cuh", "raymarch_common.cuh"} <= deps[
+    assert {"mlp_common.cuh", "grad_slabs.cuh", "raymarch_common.cuh"} <= deps[
         "raymarch_comp_bwd"]
 
     with open(csrc / "raymarch_common.cuh", "a") as f:

@@ -1,5 +1,7 @@
 """The Python around the f32 tensor-core forward B1: the TF32 split, the hi /
-lo weight packs and their ring-stage layout.
+lo weight packs and their ring-stage layout; and a model of the f32
+tensor-core backward tile (3xTF32 ``mma.sync``, ``csrc/mlp_tf32_mma_tile.cuh``)
+that f32 B2 and f32 B6's backward run, against the JAX package's f32 kernels.
 
 The kernel (``csrc/mlp_tf32_tile.cuh``) computes every wide product as
 lo.hi + hi.lo + hi.hi on the tensor cores, with activations split in
@@ -740,3 +742,88 @@ def test_b2_f32_kernel_runs_the_t32_tile_on_swizzled_zero_padded_inputs():
     assert "return is_bf16 ? nerf_mma::BM : TM; }" in b2
     assert ("static_assert(nerf_tmma::BM == TM && (long long)nerf_tmma::NACT * nerf_tmma::SLOT =="
             in b2)
+
+
+@pytest.mark.parametrize("case", CASES[:2], ids=IDS[:2])
+def test_t32_b6_backward_model_matches_jax_f32(case):
+    """f32 B6's backward as its kernel (``rm_bwd_t32_kernel``) runs it: each
+    64-row tile's X and D built by ``build_t32_inputs`` (the f32 features,
+    swizzled, the pad columns and the rows past n zero: the tiles
+    ``load_rows`` gives, :func:`_load_rows`), B2's 3xTF32 tile
+    (:func:`_t32_mlp_bwd`) writing the tile's dx rows to the block's slab,
+    then each row's dz from its slab row; on 13 rays of 48 samples (624 rows,
+    a part-filled last tile), dparams and dz against the JAX package's f32
+    ``_backward_rays_pallas`` (interpret mode) at ``BWD_TOL`` per leaf and
+    ``ROWS_TOL`` normwise."""
+    from nerf_and_dietnerf_tpu.core import cameras as jcam
+    from nerf_and_dietnerf_tpu.ops import research_kernels as jrk
+    from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
+
+    jcfg = jm.MLPConfig(**case)
+    jparams = jm.init_params(jax.random.PRNGKey(0), jcfg)
+    cfg = tm.MLPConfig(**case)
+    ws, bs = rc.flatten_params(tm.params_from_jax(jparams), cfg, torch.float32)
+    rng = np.random.default_rng(13)
+    n_rays, n_samples = 13, 48
+    orig = (3 * rng.normal(size=(n_rays, 3))).astype(np.float32)
+    dirs = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    z = np.sort(rng.uniform(2.0, 6.0, (n_rays, n_samples)), -1).astype(np.float32)
+    vc = (np.asarray(jcam.view_direction_components(dirs, jcfg.n_angles))
+          if jcfg.uses_view_dirs else None)
+    g = rng.uniform(0.5, 1.5, size=(n_rays, n_samples, 4)).astype(np.float32)
+    n = n_rays * n_samples
+    assert n % T32_BM != 0
+
+    rd = rk.pack_rays(cfg, torch.tensor(orig), torch.tensor(dirs),
+                      torch.tensor(vc) if vc is not None else None)
+    tz = torch.tensor(z)
+    pts, xe, de = rk.encode_rays_plain(cfg, rd, tz)  # the features the kernel builds
+    dws, dbs, dx, _ = _t32_mlp_bwd(ws, bs, cfg, xe, de, torch.tensor(g).reshape(n, 4))
+    dz = rk._dz_from_dx(cfg, rd, pts, dx, n_samples).reshape(n_rays, n_samples)
+
+    _, vjp = jax.vjp(lambda p, zz: jrk.apply_raymarch_fused(p, jcfg, orig, dirs, vc, zz,
+                                                           jnp.float32), jparams, z)
+    jgp, jgz = vjp(jnp.asarray(g))
+    rws, rbs = rc.flatten_params(tm.params_from_jax(jgp), cfg, torch.float32)
+    for got, want in zip(dws + dbs, rws + rbs):
+        assert float((got - want).abs().max()) <= BWD_TOL * float(want.abs().max())
+    want = torch.tensor(np.asarray(jgz))
+    assert float((dz - want).norm() / want.norm()) <= ROWS_TOL
+
+    # The kernel: the tiles built as load_rows loads them, B2's tile on them
+    # as a call of its own (its dx rows to the block's slab), dz from the slab.
+    b6 = (CSRC / "raymarch_bwd.cu").read_text()
+    tile = (CSRC / "raymarch_tile.cuh").read_text()
+    for line in ("    build_t32_inputs(ry, dm.xyz, dm.dir, row0, dm.n, t.X, t.D);",
+                 "    tm::load_cotangent(t.GI, g, row0, dm.n);",
+                 "    tm::backward_tile(tile_dm, L, M, F, Bp, B, t, ring, acts, part, first, 0, "
+                 "dxs, nullptr,",
+                 "    if (r < tile_dm.n) dz[row0 + r] = dz_of_row(ry, dxs + r * dm.xyz, "
+                 "row0 + r);"):
+        assert line in b6
+    for line in ("  const int xp = nerf_mma::pad16(xyz);",
+                 "    X[r * tm::LDX + tm::sw(r, c)] = row < n && c < xyz ? xyz_feature(ry, row, c)"
+                 " : 0.f;",
+                 "    D[r * tm::LDD + tm::sw(r, c)] = row < n && c < dir ? dir_feature(ry, row, c)"
+                 " : 0.f;"):
+        assert line in tile
+
+
+def test_no_kernel_runs_the_fma_backward_walk():
+    """Every backward runs on the tensor cores: no source calls the f32 FMA
+    backward walk (``backward_walk<float>`` / ``backward_tile<float>``, its
+    tiles and cotangent loads), and the header that held it keeps only the
+    slabs' sum and the parameter count."""
+    for path in sorted(CSRC.glob("*.cu*")):
+        text = path.read_text()
+        for fma in ("backward_walk<float>", "backward_tile<float>", "backward_walk<T>",
+                    "backward_tile<T>", "BwdTiles", "bwd_tiles(", "cotangent_tile",
+                    "mlp_bwd_tile.cuh", "comp_bwd_smem_bytes"):
+            assert fma not in text, (path.name, fma)
+    assert not (CSRC / "mlp_bwd_tile.cuh").exists()
+    slabs = (CSRC / "grad_slabs.cuh").read_text()
+    assert "reduce_partials" in slabs and "nerf_mlp_param_count" in slabs
+    assert "backward_walk" not in slabs and "wgrad" not in slabs
+    # The f32 kernels of B6's and B4's backwards are the tensor-core ones.
+    assert "rm_bwd_kernel(" not in (CSRC / "raymarch_bwd.cu").read_text()
+    assert "mlp_comp_bwd_kernel(" not in (CSRC / "mlp_comp_bwd.cu").read_text()
