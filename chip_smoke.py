@@ -111,8 +111,11 @@ T32_COMP_DESIGN = ("tensor cores, 3xTF32 mma.sync m16n8k8, 64-row tiles, whole r
                    "one forward per row, compositing VJP in the block, dx through a per-block "
                    "slab")
 # B6 runs B1/B2's tensor-core tiles on the encodings it builds, in both
-# types. B7's bf16 forward runs the forward loop of comp_mma_tile.cuh on the
-# encodings it builds.
+# types. B7's and B4's forwards run the forward loop of comp_mma_tile.cuh (B7
+# on the encodings it builds), bf16 on the bf16 tiles, f32 on the 3xTF32
+# mma.sync tiles of csrc/mlp_tf32_mma_tile.cuh, one block a ray group.
+T32_FWD_DESIGN = ("tensor cores, 3xTF32 mma.sync m16n8k8, 64-row tiles, whole rays in a group, "
+                  "one block a group, compositing in the block")
 RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings built into "
                                                                     "the bf16 operand tiles",
              ("raymarch_fwd", "float32"): MLP_DESIGN["float32"] + " (two stages), encodings "
@@ -142,9 +145,10 @@ RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings
                  "dx through a per-block slab", "dx rows to denc, dd rows through a per-block "
                                                 "slab"),
              ("mlp_comp_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", whole rays in a tile, "
-                                                                  "compositing in the block"}
-# Every other kernel (the f32 forwards of B7 and B4) keeps the FMA tiles.
-FMA_COMP_DESIGN = "FMA tiles, 64 rows, whole rays a block"
+                                                                  "compositing in the block",
+             ("raymarch_comp_fwd", "float32"): T32_FWD_DESIGN + ", encodings built into the f32 "
+                                                                "operand tiles",
+             ("mlp_comp_fwd", "float32"): T32_FWD_DESIGN}
 # B1's former f32 design, timed beside it: P3 with one chain is that FMA tile.
 FMA_DESIGN = "f32 FMA tile, one 64-row chain (P3, chains=1)"
 # Scaled max error |kernel - plain| / max|plain|. Forward, f32: both sum
@@ -177,9 +181,11 @@ TOL_ROWS = {"float32": 5e-3, "bfloat16": 2e-2}
 # cos(theta) f_k (f_k up to 16 pi at L = 5), so a leaky-branch flip in one
 # row moves that row's dz whole: held normwise to TOL_ROWS, like dx / dd.
 # Sample counts the ray-march kernels are held at: the coarse pass (64), the
-# fine pass (128, bf16, all four kernels), the eval render's merged count (192,
-# f32 forwards) and a count that is not a multiple of the 64-row chunk B7 walks
-# a ray in (100, f32, all four kernels: one full chunk and one part-filled).
+# fine pass (128, all four kernels), the eval render's merged count (192, f32:
+# a ray over three 64-row tiles of the f32 kit; the forwards, and B7's
+# backward with cotangents of their own) and a count that is not a multiple
+# of the f32 kit's 64-row tile (100, f32, all four kernels: one full tile a
+# ray and one part-filled).
 RAYS, SAMPLES, SAMPLES_EVAL, SAMPLES_RAGGED = 4096, 64, 192, 100
 # B6 is also held at a ray count whose R S rows leave a part-filled last
 # 128-row tile of its tensor-core kernels (4093 x 64 = 2046.5 tiles), in both
@@ -359,6 +365,32 @@ def _poison_shared_memory(torch, rc, cfg, n_sms):
     def poison():
         before = dict(kl.LAUNCHES)
         rc.mlp_fwd(ws, bs, cfg, x, d, torch.float32)
+        kl.LAUNCHES.update(before)
+    return poison
+
+
+def _poison_comp_fwd(torch, rk, rc, n_sms):
+    """A call that leaves NaN in every SM's shared memory where f32 B4's
+    forward keeps its D tile: that kernel itself, so its launch finds the
+    same layout and carve-out, on NaN view-dir encodings 30 wide (Ld = 5),
+    one ray group on every SM; made the last operation before f32 B4's
+    forward (``mlp_comp_fwd``'s ``before_launch``). The forward zeroes its D
+    tile's pad columns (to pad16 of the flagship's 24, load_comp_t32_inputs);
+    after this a pad left as it was turns its outputs NaN. (f32 B1's poison
+    of :func:`_poison_shared_memory` did not reach this kernel's D tile.)"""
+    from nerf_and_dietnerf_tpu_torch.models import mlp
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+
+    cfg = mlp.MLPConfig(n_freq_dir=5)
+    params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
+    ws, bs = rc.flatten_params(params, cfg, torch.float32)
+    enc = torch.zeros((n_sms * SAMPLES, cfg.xyz_dim), device=DEVICE)
+    encd = torch.full((n_sms, cfg.dir_dim), float("nan"), device=DEVICE)
+    z = torch.linspace(2.0, 6.0, SAMPLES, device=DEVICE).expand(n_sms, SAMPLES).contiguous()
+
+    def poison():
+        before = dict(kl.LAUNCHES)
+        rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, z, torch.float32)
         kl.LAUNCHES.update(before)
     return poison
 
@@ -647,23 +679,25 @@ def _rm_bytes(cfg, ws, bs, rd, z, kname):
     }[kname]
 
 
-def _fine_pass_extras(torch, rec, fn, plain, lib, flops, name, nbytes) -> None:
-    """An f32 backward's timing record ``rec`` (f32 B6's and B4's) at the
-    fine pass's S = 128: the kernel's ms, TFLOP/s and share of its bound
-    (``flops`` over the peak for ``name``, ``nbytes`` over the HBM rate),
-    its plain version's and its library composition's ms."""
+def _fine_pass_extras(torch, rec, fn, plain, lib, flops, name, nbytes,
+                      at="fine_pass") -> None:
+    """An f32 kernel's timing record ``rec`` at another sample count than its
+    own (the fine pass's S = 128, or ``at`` = "s192", the eval render's): the
+    kernel's ms, TFLOP/s and share of its bound (``flops`` over the peak for
+    ``name``, ``nbytes`` over the HBM rate), its plain version's and its
+    library composition's ms, each key ending in ``at``."""
     ms = _time_ms(torch, fn, reps=3)
     bound = _bound(flops, _mlp_peak(name), nbytes)
-    rec.update(ms_fine_pass=ms, tflops_fine_pass=flops / ms / 1e9,
-               share_of_bound_fine_pass=bound[0] / ms,
-               plain_ms_fine_pass=_time_ms(torch, plain, reps=2),
-               library_ms_fine_pass=_time_ms(torch, lib, reps=3))
+    rec.update({f"ms_{at}": ms, f"tflops_{at}": flops / ms / 1e9,
+                f"share_of_bound_{at}": bound[0] / ms,
+                f"plain_ms_{at}": _time_ms(torch, plain, reps=2),
+                f"library_ms_{at}": _time_ms(torch, lib, reps=3)})
 
 
-def _fine_pass_text(r: dict) -> str:
-    return (f" ({100 * r['share_of_bound_fine_pass']:.2f} % of the bound, plain "
-            f"{r['plain_ms_fine_pass']:.3f} ms, library {r['library_ms_fine_pass']:.3f} ms)"
-            if "share_of_bound_fine_pass" in r else "")
+def _fine_pass_text(r: dict, at="fine_pass") -> str:
+    return (f" ({r[f'tflops_{at}']:.1f} TFLOP/s, {100 * r[f'share_of_bound_{at}']:.2f} % of "
+            f"the bound, plain {r[f'plain_ms_{at}']:.3f} ms, library "
+            f"{r[f'library_ms_{at}']:.3f} ms)" if f"share_of_bound_{at}" in r else "")
 
 
 def _normwise(a, exact) -> float:
@@ -794,6 +828,59 @@ def _b7_pixels_vs_f64(torch, rk, ws, bs, cfg, rd, z, cd) -> dict:
             "plain": _normwise(rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd)[0], exact)}
 
 
+def _hold_comp_fwd(torch, kname, label, cd, z, run, plain, raw_plain, raw_f64):
+    """B7's or B4's forward (``kname``) on depths ``z``, both types on the
+    tensor cores: ``run(raw)`` its (rgb, weights), writing the raw values it composited to
+    ``raw``; ``plain(**kw)`` its plain version (keywords ``work``,
+    ``raw_sigma``); ``raw_plain()`` / ``raw_f64()`` the raw values the plain
+    version composites with the MLP's sums in f32 / f64. bf16: held as the
+    backwards are (KINK_SHARE), against the plain version with f64 sums on
+    the kernel's side of the kink. f32 (3xTF32 tiles): against the plain f32
+    version, since the forward has no kink to take sides on (max(sigma, 0) is
+    continuous). Both: finite, rgb and weights to TOL, the raw values to TOL
+    against the plain forward's, outputs and raw values bitwise equal across
+    two runs. Returns (scaled err, max |kernel - reference|, raw values,
+    (rgb, weights), the text the caller logs)."""
+    from nerf_and_dietnerf_tpu_torch.tools import comp_kink
+
+    name = str(cd).split(".")[-1]
+    tol = TOL[name]
+    raw_f, raw_again = (torch.empty((*z.shape, 4), device=DEVICE) for _ in range(2))
+    got, again = run(raw_f), run(raw_again)
+    torch.cuda.synchronize()
+    e_raw = _scaled_err(raw_f, raw_plain())
+    bad = [what for what, fails in (
+        ("non-finite", not all(bool(torch.isfinite(t).all()) for t in (*got, raw_f))),
+        ("differs between two runs", not all(torch.equal(a, b) for a, b in zip(
+            (*got, raw_f), (*again, raw_again)))),
+        (f"raw values over {tol}", e_raw > tol)) if fails]
+    extra = f", raw scaled err {e_raw:.3e}"
+    if cd == torch.bfloat16:
+        want = plain(work=torch.float64, raw_sigma=raw_f[..., 3])
+        kink = comp_kink.kink_samples(raw_f, raw_f64())
+        extra += f", {kink['count']} kink samples"
+        if kink["share"] > KINK_SHARE:
+            bad.append(f"kink share {kink['share']} over {KINK_SHARE}")
+    else:
+        want = plain()
+    e_c = max(_scaled_err(got[0], want[0]), _scaled_err(got[1], want[1]))
+    if e_c > tol:
+        bad.append(f"scaled err {e_c} over {tol}")
+    if bad:
+        raise AssertionError(f"{kname} {label}: {bad}{extra}")
+    return (e_c, max(float((a - b).abs().max()) for a, b in zip(got, want)), raw_f, got,
+            extra + ", bitwise equal across two runs")
+
+
+def _same_raw(torch, kernel, label, raw_fwd, raw_bwd) -> None:
+    """One tile code of one kit, one order of sums: ``kernel``'s backward
+    composites bitwise the raw values its forward composited (both types)."""
+    if not torch.equal(raw_bwd, raw_fwd):
+        raise AssertionError(f"{kernel} {label}: the backward's raw values differ from the "
+                             f"forward's")
+    log(f"kernel check {label}: {kernel}'s backward composited the forward's raw values, bitwise")
+
+
 def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=True, b7=True):
     """Each B6/B7 kernel (B6 alone without ``b7``) against its plain version on
     (rd, z), the backwards too if ``backward``; returns the max |kernel -
@@ -817,35 +904,15 @@ def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=Tru
 
     raw_f = None
     if b7:
-        # In bf16 (the tensor-core forward) held as B4's forward: against the
-        # plain version with f64 sums on the kernel's side of the kink
-        # (KINK_SHARE); in f32 (the FMA kernel) against the plain f32 version.
-        bf = cd == torch.bfloat16
-        raw_f = torch.empty((n_rays, n_samples, 4), device=DEVICE) if bf else None
-        rgb_k, w_k = rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd, raw=raw_f)
-        torch.cuda.synchronize()
-        extra = ""
-        if bf:
-            want = rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd, work=torch.float64,
-                                              raw_sigma=raw_f[..., 3])
-            e_raw = _scaled_err(raw_f, rk.raymarch_fwd_plain(ws, bs, cfg, rd, z, cd))
-            kink = comp_kink.kink_samples(raw_f, comp_kink.plain_of(
-                "B7", ws, bs, cfg, cd, (rd, z))[1](torch.float64))
-            extra = f", raw scaled err {e_raw:.3e}, {kink['count']} kink samples"
-            if e_raw > tol or kink["share"] > KINK_SHARE:
-                raise AssertionError(f"raymarch_comp_fwd {label}: raw scaled err {e_raw} (tol "
-                                     f"{tol}), kink share {kink['share']} (at most {KINK_SHARE})")
-        else:
-            want = rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd)
-        e_c = max(_scaled_err(rgb_k, want[0]), _scaled_err(w_k, want[1]))
-        errs["raymarch_comp_fwd"] = max(float((a - b).abs().max()) for a, b in zip((rgb_k, w_k),
-                                                                                   want))
-        if not (torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all() and e_c <= tol):
-            raise AssertionError(f"raymarch_comp_fwd {label}: scaled err {e_c} > {tol}{extra}")
-        del want
+        e_c, errs["raymarch_comp_fwd"], raw_f, _, extra = _hold_comp_fwd(
+            torch, "raymarch_comp_fwd", label, cd, z,
+            lambda raw: rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd, raw=raw),
+            lambda **kw: rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd, **kw),
+            lambda: rk.raymarch_fwd_plain(ws, bs, cfg, rd, z, cd),
+            lambda: comp_kink.plain_of("B7", ws, bs, cfg, cd, (rd, z))[1](torch.float64))
     log(f"kernel check {label}: B6 fwd scaled err {e:.3e}"
-        + (f", B7 fwd {e_c:.3e} against {'f64_kink' if raw_f is not None else 'plain'}{extra}"
-           if b7 else "") + f" (tol {tol})")
+        + (f", B7 fwd {e_c:.3e} against {'f64_kink' if cd == torch.bfloat16 else 'plain'}"
+           f"{extra}" if b7 else "") + f" (tol {tol})")
     if not backward:
         return errs, None, None
 
@@ -881,14 +948,7 @@ def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=Tru
 
         rec = _hold_comp_bwd(torch, "B7", label, name, ws, bs, cfg, cd, (rd, z, g_rgb, g_w), run7)
         errs["raymarch_comp_bwd"] = rec[rec["held_to"]]["max_abs"]
-        # bf16: one tile code, one order of sums: the backward composites what
-        # the forward composited.
-        if raw_f is not None:
-            if not torch.equal(raws["bwd"], raw_f):
-                raise AssertionError(f"raymarch_comp_bwd {label}: its raw values differ from the "
-                                     f"forward's")
-            log(f"kernel check {label}: B7's backward composited the forward's raw values, "
-                f"bitwise")
+        _same_raw(torch, "B7", label, raw_f, raws["bwd"])
     return errs, (g, g_rgb, g_w), rec
 
 
@@ -911,6 +971,10 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
     # last 64-row tile, added with its tensor-core kernel, from one more.
     gen_t32 = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
     gen_b6 = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    # The cotangents of f32 B7's backward at the eval render's S = 192 (its
+    # raw values held bitwise to the forward's there), added with f32 B7's
+    # tensor-core forward, from one more (the rays keep their draw).
+    gen_b7_fwd = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
         cfg = mlp.MLPConfig(n_angles=n_angles)
         params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
@@ -937,24 +1001,25 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
             log(f"kernel check B6 {variant} {name} R={RAYS} S={SAMPLES} against the f64 chain "
                 f"(normwise, kernel and plain): {chain}")
             # The other sample counts: (rd, z, errors, cotangents, B7's backward's
-            # record) by count; in bf16 S = 100 too (one part-filled tile a ray in
+            # record) by count, each from the generator of its rays and that of
+            # its cotangents; in bf16 S = 100 too (one part-filled tile a ray in
             # B7's backward).
             other = {}
-            for n_s, backward, g_s in (
-                    ((2 * SAMPLES, True, gen), (SAMPLES_RAGGED, True, gen_b7))
+            for n_s, g_s, g_c in (
+                    ((2 * SAMPLES, gen, gen), (SAMPLES_RAGGED, gen_b7, gen_b7))
                     if cd == torch.bfloat16
-                    else ((SAMPLES_EVAL, False, gen), (SAMPLES_RAGGED, True, gen),
-                          (2 * SAMPLES, True, gen_t32))):
+                    else ((SAMPLES_EVAL, gen, gen_b7_fwd), (SAMPLES_RAGGED, gen, gen),
+                          (2 * SAMPLES, gen_t32, gen_t32))):
                 rd_s, z_s = _ray_batch(torch, cfg, RAYS, n_s, g_s)
                 other[n_s] = (rd_s, z_s, *_rm_checks(
-                    torch, rk, cfg, ws, bs, rd_s, z_s, cd, name, g_s,
-                    f"{variant} {name} R={RAYS} S={n_s}", backward))
+                    torch, rk, cfg, ws, bs, rd_s, z_s, cd, name, g_c,
+                    f"{variant} {name} R={RAYS} S={n_s}"))
             if cd == torch.float32:
-                # f32 B6's backward with a part-filled last 64-row tile.
+                # f32 B6's backward with a part-filled last 64-row tile, and f32
+                # B7 (forward and backward) on the same rays.
                 rd_r, z_r = _ray_batch(torch, cfg, RAYS_RAGGED, SAMPLES_RAGGED, gen_b6)
                 ragged_b6 = _rm_checks(torch, rk, cfg, ws, bs, rd_r, z_r, cd, name, gen_b6,
-                                       f"{variant} {name} R={RAYS_RAGGED} S={SAMPLES_RAGGED}",
-                                       b7=False)[0]
+                                       f"{variant} {name} R={RAYS_RAGGED} S={SAMPLES_RAGGED}")[0]
                 del rd_r, z_r
             # B7 and its plain version against the f64 evaluation: pixels, dz
             # and dparams at S = 64 and 128 (in f32 also ROADMAP C3's steps on
@@ -1009,7 +1074,7 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                 ms = _time_ms(torch, fn)
                 rec[kname] = {
                     "rays": RAYS, "samples": SAMPLES, "dtype": name,
-                    "design": RM_DESIGN.get((kname, name), FMA_COMP_DESIGN),
+                    "design": RM_DESIGN[(kname, name)],
                     "ms": ms,
                     "tflops": fl / ms / 1e9,
                     "share_of_bound": 1e3 * max(t_ops, t_bytes) / ms,
@@ -1039,11 +1104,12 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                     rec[kname]["max_abs_err_s128"] = errs128[kname]
             for kname in RM_SOURCES:
                 rec[kname]["max_abs_err_s100"] = other[SAMPLES_RAGGED][2][kname]
-            if cd == torch.float32:  # the f32 backwards at the fine pass's S = 128
-                rd3, z3, errs128, (g3, _, _), _ = other[2 * SAMPLES]
-                for kname in ("raymarch_bwd", "raymarch_comp_bwd"):
+            if cd == torch.float32:  # f32 B6's backward and B7 at S = 128
+                rd3, z3, errs128, (g3, g_rgb3, g_w3), _ = other[2 * SAMPLES]
+                for kname in RM_SOURCES:
                     rec[kname]["max_abs_err_s128"] = errs128[kname]
-                rec["raymarch_bwd"]["max_abs_err_ragged_s100"] = ragged_b6["raymarch_bwd"]
+                for kname in ("raymarch_bwd", "raymarch_comp_fwd", "raymarch_comp_bwd"):
+                    rec[kname]["max_abs_err_ragged_s100"] = ragged_b6[kname]
                 z3r = z3.clone().requires_grad_(True)
                 _fine_pass_extras(
                     torch, rec["raymarch_bwd"],
@@ -1052,23 +1118,39 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                     lambda: lib_bwd(False, rd3, z3r, (None, None, g3)),
                     3 * mlp_flops(cfg, RAYS * 2 * SAMPLES), name,
                     _rm_bytes(cfg, ws, bs, rd3, z3, "raymarch_bwd"))
+                _fine_pass_extras(
+                    torch, rec["raymarch_comp_fwd"],
+                    lambda: rk.raymarch_comp_fwd(ws, bs, cfg, rd3, z3, cd),
+                    lambda: rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd3, z3, cd),
+                    lambda: _library_raymarch(torch, ws, bs, cfg, rd3, z3, True),
+                    mlp_flops(cfg, RAYS * 2 * SAMPLES), name,
+                    _rm_bytes(cfg, ws, bs, rd3, z3, "raymarch_comp_fwd"))
+                _fine_pass_extras(
+                    torch, rec["raymarch_comp_bwd"],
+                    lambda: rk.raymarch_comp_bwd(ws, bs, cfg, rd3, z3, g_rgb3, g_w3, cd),
+                    lambda: rk.raymarch_comp_bwd_plain(ws, bs, cfg, rd3, z3, g_rgb3, g_w3, cd),
+                    lambda: lib_bwd(True, rd3, z3r, (g_rgb3, g_w3, None)),
+                    3 * mlp_flops(cfg, RAYS * 2 * SAMPLES), name,
+                    _rm_bytes(cfg, ws, bs, rd3, z3, "raymarch_comp_bwd"))
             if cd == torch.float32:  # the eval render's forwards, S = 192
                 rd2, z2, errs192, _, _ = other[SAMPLES_EVAL]
-                for kname, fn in (
-                        ("raymarch_fwd", lambda: rk.raymarch_fwd(ws, bs, cfg, rd2, z2, cd)),
-                        ("raymarch_comp_fwd",
-                         lambda: rk.raymarch_comp_fwd(ws, bs, cfg, rd2, z2, cd))):
-                    rec[kname]["ms_s192"] = _time_ms(torch, fn, reps=3)
+                rec["raymarch_fwd"]["ms_s192"] = _time_ms(
+                    torch, lambda: rk.raymarch_fwd(ws, bs, cfg, rd2, z2, cd), reps=3)
+                _fine_pass_extras(
+                    torch, rec["raymarch_comp_fwd"],
+                    lambda: rk.raymarch_comp_fwd(ws, bs, cfg, rd2, z2, cd),
+                    lambda: rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd2, z2, cd),
+                    lambda: _library_raymarch(torch, ws, bs, cfg, rd2, z2, True),
+                    mlp_flops(cfg, RAYS * SAMPLES_EVAL), name,
+                    _rm_bytes(cfg, ws, bs, rd2, z2, "raymarch_comp_fwd"), at="s192")
+                for kname in RM_SOURCES:
                     rec[kname]["max_abs_err_s192"] = errs192[kname]
             kl.LAUNCHES.update(before)  # timing launches are not the main path's
-            # B7's bf16 forward and f32 backward on the tensor cores: their
-            # registers and spills beside their times.
+            # B7's forwards, f32 B7's and B6's backwards on the tensor cores:
+            # their registers and spills beside their times.
             sass = timings.get("sass", {})
-            for kname, key, kernel in (("raymarch_comp_fwd", "forwards", "rm_comp_fwd_mma_kernel"),
-                                       ("raymarch_comp_bwd", "f32_backwards",
-                                        "rm_comp_bwd_t32_kernel"),
-                                       ("raymarch_bwd", "f32_backwards", "rm_bwd_t32_kernel")):
-                if (kname == "raymarch_comp_fwd") == (cd == torch.bfloat16):
+            for (kname, dt), (key, kernel) in SASS_OF.items():
+                if dt == name and kname in rec:
                     rec[kname]["ptxas"] = sass.get(key, {}).get(kernel)
             timings["rm_" + name] = rec
             for kname, r in rec.items():
@@ -1078,8 +1160,11 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                     f"{r['plain_ms']:.3f} ms, library (composition) {r['library_ms']:.3f} ms, "
                     f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                     + (f"; S={SAMPLES_EVAL}: {r['ms_s192']:.3f} ms" if "ms_s192" in r else "")
-                    + (f"; S={2 * SAMPLES}: {r['ms_fine_pass']:.3f} ms "
-                       f"({r['tflops_fine_pass']:.1f} TFLOP/s)" if "ms_fine_pass" in r else "")
+                    + _fine_pass_text(r, "s192")
+                    + (f"; S={2 * SAMPLES}: {r['ms_fine_pass']:.3f} ms" if "ms_fine_pass" in r
+                       else "")
+                    + (f" ({r['tflops_fine_pass']:.1f} TFLOP/s)"
+                       if "tflops_fine_pass" in r and "share_of_bound_fine_pass" not in r else "")
                     + _fine_pass_text(r)
                     + (f"; registers, spill bytes, SASS HMMA {r['ptxas']}" if "ptxas" in r
                        else ""))
@@ -1095,20 +1180,38 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
 
     # Opaque rays: transmittance underflows to exactly 0, the B7 backward
     # stays finite (it is division-free) and agrees with its plain version; in
-    # f32 (3xTF32) and in bf16, both on the tensor cores.
+    # f32 (3xTF32) and in bf16, both on the tensor cores. f32 B7's forward too,
+    # its raw values bitwise the backward's.
+    from nerf_and_dietnerf_tpu_torch.tools import comp_kink
+
     cfg = mlp.MLPConfig(n_angles=0)
     params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
     params["sigma_out"]["bias"] = params["sigma_out"]["bias"] + 1e6
     for cd, g_o in ((torch.float32, gen), (torch.bfloat16, gen_b7)):
         name = str(cd).split(".")[-1]
+        label = f"opaque rays {name} R=256 S={SAMPLES}"
         ws, bs = rc.flatten_params(params, cfg, cd)
         rd, z = _ray_batch(torch, cfg, 256, SAMPLES, g_o)
         g_rgb = torch.ones((256, 3), device=DEVICE)
         g_w = torch.ones((256, SAMPLES), device=DEVICE)
-        _hold_comp_bwd(
-            torch, "B7", f"opaque rays {name} R=256 S={SAMPLES}", name, ws, bs, cfg, cd,
-            (rd, z, g_rgb, g_w),
-            lambda raw: (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw), None))
+        raws = {}
+        if cd == torch.float32:
+            e_o, _, raws["fwd"], _, extra = _hold_comp_fwd(
+                torch, "raymarch_comp_fwd", label, cd, z,
+                lambda raw: rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd, raw=raw),
+                lambda **kw: rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd, **kw),
+                lambda: rk.raymarch_fwd_plain(ws, bs, cfg, rd, z, cd),
+                lambda: comp_kink.plain_of("B7", ws, bs, cfg, cd, (rd, z))[1](torch.float64))
+            log(f"kernel check {label}: B7 fwd scaled err {e_o:.3e} against plain{extra}")
+
+        def run_o(raw):
+            if raw is not None:
+                raws["bwd"] = raw
+            return (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw), None)
+
+        _hold_comp_bwd(torch, "B7", label, name, ws, bs, cfg, cd, (rd, z, g_rgb, g_w), run_o)
+        if "fwd" in raws:
+            _same_raw(torch, "B7", label, raws["fwd"], raws["bwd"])
     ws, bs = rc.flatten_params(params, cfg, torch.float32)
     try:
         rk.raymarch_comp_fwd(ws, bs, cfg, *_ray_batch(torch, cfg, 8, rk.MAX_SAMPLES_COMPOSITED + 1,
@@ -1201,36 +1304,28 @@ def _comp_checks(torch, rk, cfg, ws, bs, batch, cd, name, gen, label, b4=True, b
     errs, cots, recs = {}, None, {}
 
     if b4:
-        # The forward: in bf16 held as the backwards are (KINK_SHARE), against
-        # its plain version with f64 sums on the kernel's side of the kink; in
-        # f32 against the plain f32 version.
+        # The forward (_hold_comp_fwd); in f32 right after NaN was left in
+        # every SM's shared memory where its D tile lies (_poison_comp_fwd): a
+        # pad column of the D tile left as it was turns the outputs NaN.
+        from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+
         bf = cd == torch.bfloat16
-        raw_f = torch.empty((*z.shape, 4), dtype=torch.float32, device=DEVICE) if bf else None
-        rgb_k, w_k = rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, z, cd, raw=raw_f)
-        torch.cuda.synchronize()
+        d = rk._dir_rows(cfg, encd, n_samples, cd)
+        poison = None if bf else _poison_comp_fwd(
+            torch, rk, rc, torch.cuda.get_device_properties(z.device).multi_processor_count)
+        e, errs["mlp_comp_fwd"], raw_f, (rgb_k, w_k), extra = _hold_comp_fwd(
+            torch, "mlp_comp_fwd", label, cd, z,
+            lambda raw: rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, z, cd, raw=raw,
+                                        before_launch=poison),
+            lambda **kw: rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd, **kw),
+            lambda: rk._raw_plain(ws, bs, cfg, enc, d, z, cd, torch.float32),
+            lambda: rk._raw_plain(ws, bs, cfg, enc, d, z, cd, torch.float64))
         plain = rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd)
         exact = rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd, work=torch.float64)
-        recs["B4_fwd"] = {k: {"kernel": _normwise(a, e.double()), "plain": _normwise(p, e.double())}
-                          for k, a, p, e in (("pixels", rgb_k, plain[0], exact[0]),
-                                             ("weights", w_k, plain[1], exact[1]))}
-        bad, extra = [], ""
-        if bf:
-            want = rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd, work=torch.float64,
-                                         raw_sigma=raw_f[..., 3])
-            d = rk._dir_rows(cfg, encd, n_samples, cd)
-            e_raw = _scaled_err(raw_f, rk._raw_plain(ws, bs, cfg, enc, d, z, cd, torch.float32))
-            kink = comp_kink.kink_samples(raw_f, rk._raw_plain(ws, bs, cfg, enc, d, z, cd,
-                                                                torch.float64))
-            bad += [what for what, fails in (
-                (f"raw values over {tol}", e_raw > tol),
-                (f"kink samples over {KINK_SHARE}", kink["share"] > KINK_SHARE)) if fails]
-            extra = f", raw scaled err {e_raw:.3e}, {kink['count']} kink samples"
-        else:
-            want = plain
-        e = max(_scaled_err(rgb_k, want[0]), _scaled_err(w_k, want[1]))
-        errs["mlp_comp_fwd"] = max(float((a - b).abs().max()) for a, b in zip((rgb_k, w_k), want))
-        if not (torch.isfinite(rgb_k).all() and torch.isfinite(w_k).all()) or e > tol or bad:
-            raise AssertionError(f"mlp_comp_fwd {label}: scaled err {e} (tol {tol}); {bad}{extra}")
+        recs["B4_fwd"] = {k: {"kernel": _normwise(a, e_.double()), "plain": _normwise(p, e_.double())}
+                          for k, a, p, e_ in (("pixels", rgb_k, plain[0], exact[0]),
+                                              ("weights", w_k, plain[1], exact[1]))}
+        del plain, exact, d
         log(f"kernel check {label}: B4 fwd scaled err {e:.3e} (tol {tol}) against "
             f"{'f64_kink' if bf else 'plain'}{extra}")
         g_rgb = (0.5 + torch.rand((n_rays, 3), generator=gen, device=DEVICE)).contiguous()
@@ -1247,13 +1342,7 @@ def _comp_checks(torch, rk, cfg, ws, bs, batch, cd, name, gen, label, b4=True, b
         recs["B4"] = _hold_comp_bwd(torch, "B4", label, name, ws, bs, cfg, cd,
                                     (enc, encd, z, g_rgb, g_w), run4)
         errs["mlp_comp_bwd"] = recs["B4"][recs["B4"]["held_to"]]["max_abs"]
-        # One tile code, one order of sums: the backward composites what the
-        # forward composited.
-        if bf and not torch.equal(raws["bwd"], raw_f):
-            raise AssertionError(f"mlp_comp_bwd {label}: its raw values differ from the forward's")
-        if bf:
-            log(f"kernel check {label}: B4's backward composited the forward's raw values, "
-                f"bitwise")
+        _same_raw(torch, "B4", label, raw_f, raws["bwd"])
     if b5:
         def run(raw):
             mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, dvec, target, cd,
@@ -1282,6 +1371,9 @@ def comp_kernel_phases(torch, timings: dict) -> None:
     # f32 B4's backward at the fine pass's S = 128 (a ray over two 64-row
     # tiles), added with its tensor-core kernel, from one more.
     gen_b4_t32 = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    # f32 B4 at 4093 rays of the eval render's 192 samples (a ray over three
+    # 64-row tiles), added with its tensor-core forward, from one more.
+    gen_b4_fwd = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
     for variant, n_angles in (("view_dirs", 2), ("xyz_only", 0)):
         cfg = mlp.MLPConfig(n_angles=n_angles)
         params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
@@ -1308,6 +1400,11 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                                              f"S={2 * SAMPLES}", b5=False)
                 errs[2 * SAMPLES].update(e4)
                 recs[2 * SAMPLES].update(r4)
+                label = f"{variant} {name} R={RAYS_RAGGED} S={SAMPLES_EVAL}"
+                errs[label] = _comp_checks(
+                    torch, rk, cfg, ws, bs,
+                    _enc_batch(torch, cfg, cd, RAYS_RAGGED, SAMPLES_EVAL, gen_b4_fwd), cd, name,
+                    gen_b4_fwd, label, b5=False)[0]
             if cd == torch.bfloat16:
                 # bf16 B5 also at S = 100 (one part-filled tile a ray) and at
                 # 4093 rays of 64 samples (a last group of one ray); then B5 and
@@ -1378,7 +1475,7 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                 ms = _time_ms(torch, fn)
                 rec[kname] = {
                     "rays": RAYS, "samples": n_s, "dtype": name,
-                    "design": RM_DESIGN.get((kname, name), FMA_COMP_DESIGN),
+                    "design": RM_DESIGN[(kname, name)],
                     "ms": ms,
                     "tflops": mult * mlp_flops(cfg, RAYS * n_s) / ms / 1e9,
                     "share_of_bound": 1e3 * max(t_ops, t_bytes) / ms,
@@ -1407,11 +1504,14 @@ def comp_kernel_phases(torch, timings: dict) -> None:
             else:
                 for kname in COMP_SOURCES:
                     rec[kname]["max_abs_err_s100"] = errs[SAMPLES_RAGGED][kname]
-                # f32 B4's backward at the fine pass's S = 128, on its own batch.
+                for kname in ("mlp_comp_fwd", "mlp_comp_bwd"):
+                    rec[kname]["max_abs_err_ragged_s192"] = errs[
+                        f"{variant} {name} R={RAYS_RAGGED} S={SAMPLES_EVAL}"][kname]
+                # f32 B4's forward and backward at the fine pass's S = 128, on
+                # their own batch.
                 r4 = rec["mlp_comp_bwd"]
-                r4["max_abs_err_s128"] = errs[2 * SAMPLES]["mlp_comp_bwd"]
-                r4["ptxas"] = timings.get("sass", {}).get("f32_backwards", {}).get(
-                    "mlp_comp_bwd_t32_kernel")
+                for kname in ("mlp_comp_fwd", "mlp_comp_bwd"):
+                    rec[kname]["max_abs_err_s128"] = errs[2 * SAMPLES][kname]
                 enc4, encd4, z4 = batch4[:3]
                 wrt4 = [t.detach().clone().requires_grad_(True) for t in (enc4, encd4, z4)]
 
@@ -1425,6 +1525,13 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                     lambda: rk.mlp_comp_bwd_plain(ws, bs, cfg, enc4, encd4, z4, *cots4, cd),
                     lib4, 3 * mlp_flops(cfg, RAYS * 2 * SAMPLES), name,
                     _comp_bytes(cfg, ws, bs, enc4, encd4, z4, "mlp_comp_bwd"))
+                _fine_pass_extras(
+                    torch, rec["mlp_comp_fwd"],
+                    lambda: rk.mlp_comp_fwd(ws, bs, cfg, enc4, encd4, z4, cd),
+                    lambda: rk.mlp_comp_fwd_plain(ws, bs, cfg, enc4, encd4, z4, cd),
+                    lambda: _library_comp(torch, ws, bs, cfg, enc4, encd4, z4),
+                    mlp_flops(cfg, RAYS * 2 * SAMPLES), name,
+                    _comp_bytes(cfg, ws, bs, enc4, encd4, z4, "mlp_comp_fwd"))
             # B5 at the coarse pass's count too (on the S = 64 batch); in f32
             # beside its plain version and its library composition there.
             fn, plain, lib = case("mlp_loss_comp", SAMPLES)
@@ -1436,6 +1543,10 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                 r5["plain_ms_s64"] = _time_ms(torch, plain, reps=2)
                 r5["library_ms_s64"] = _time_ms(torch, lib)
             kl.LAUNCHES.update(before)  # timing launches are not the main path's
+            sass = timings.get("sass", {})
+            for (kname, dt), (key, kernel) in SASS_OF.items():
+                if dt == name and kname in rec:
+                    rec[kname]["ptxas"] = sass.get(key, {}).get(kernel)
             timings["comp_" + name] = rec
             for kname, r in rec.items():
                 log(f"time {kname} {name} R={RAYS} S={r['samples']} ({r['design']}): kernel "
@@ -1445,8 +1556,8 @@ def comp_kernel_phases(torch, timings: dict) -> None:
                     f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                     + (f"; S={2 * SAMPLES}: {r['ms_fine_pass']:.3f} ms"
                        if "ms_fine_pass" in r else "")
-                    + (f" ({r['tflops_fine_pass']:.1f} TFLOP/s)" if "tflops_fine_pass" in r
-                       else "")
+                    + (f" ({r['tflops_fine_pass']:.1f} TFLOP/s)"
+                       if "tflops_fine_pass" in r and "share_of_bound_fine_pass" not in r else "")
                     + _fine_pass_text(r)
                     + (f"; S={SAMPLES}: {r['ms_s64']:.3f} ms ({r['tflops_s64']:.1f} TFLOP/s"
                        + (f", {100 * r['share_of_bound_s64']:.2f} % of the bound, plain "
@@ -2016,6 +2127,9 @@ MAIN_PATHS = {
     "pallas_fused_loss": ("mlp_comp_fwd", "mlp_comp_bwd", "mlp_loss_comp"),
     "pallas_f32": ("mlp_fwd", "mlp_bwd"),
     "pallas_rm_f32": ("raymarch_fwd", "raymarch_bwd"),
+    "pallas_rm_fused_f32": ("raymarch_comp_fwd", "raymarch_comp_bwd"),
+    "pallas_fused_f32": ("mlp_comp_fwd", "mlp_comp_bwd"),
+    "pallas_fused_loss_f32": ("mlp_comp_fwd", "mlp_comp_bwd", "mlp_loss_comp"),
 }
 # The paths driven through the Trainer: backend and compute type. "pallas_f32"
 # and "pallas_rm_f32" are the steps of configs with compute_dtype float32
@@ -2023,12 +2137,15 @@ MAIN_PATHS = {
 TRAINER_PATHS = {"pallas": ("pallas", "bfloat16"), "pallas_rm": ("pallas_rm", "bfloat16"),
                  "pallas_f32": ("pallas", "float32"), "pallas_rm_f32": ("pallas_rm", "float32")}
 # The model-config changes of the paths driven through train_step.make_epoch_fn
-# (no YAML key sets the two flags).
+# (no YAML key sets the two flags); each "_f32" path is its bf16 twin in a
+# compute_dtype float32 config (the f32 kernels of B7, B4 and B5).
 FUSED_PATHS = {
     "pallas_rm_fused": dict(backend="pallas_rm", fuse_compositing=True),
     "pallas_fused": dict(backend="pallas", fuse_compositing=True),
     "pallas_fused_loss": dict(backend="pallas", fuse_compositing=True, fuse_fine_loss=True),
 }
+FUSED_PATHS.update({f"{path}_f32": dict(kw, compute_dtype="float32")
+                    for path, kw in list(FUSED_PATHS.items())})
 
 
 def _flagship_run(backend: str, compute_dtype: str = "bfloat16"):
@@ -2182,13 +2299,17 @@ def eval_patch_phase(torch, timings: dict, trainer) -> None:
 def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
     """Two epochs of ``train_step.make_epoch_fn`` under the model config of
     ``FUSED_PATHS[path]``, from a fresh state on the trainer's ray table, with
-    the launch counts set to 0 just before."""
+    the launch counts set to 0 just before; prints ms a step and rays a
+    second."""
     import dataclasses
 
     from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
     from nerf_and_dietnerf_tpu_torch.train import train_step as ts
 
-    config = dataclasses.replace(trainer.config, **FUSED_PATHS[path])
+    change = dict(FUSED_PATHS[path])
+    if "compute_dtype" in change:
+        change["compute_dtype"] = getattr(torch, change["compute_dtype"])
+    config = dataclasses.replace(trainer.config, **change)
     state = ts.init_train_state(torch.Generator().manual_seed(SEED), config, trainer.optimizer,
                                 device=DEVICE)
     steps, batch = trainer.data.batches_per_epoch, trainer.run.n_rays_in_batch_train
@@ -2213,29 +2334,34 @@ def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
         "rays_per_sec": steps * batch / seconds[1],
         "loss": losses,
     }
+    log(f"{path} ({config.backend}, {config.compute_dtype} step): "
+        f"{timings['train_' + path]['ms_per_step']:.3f} ms a step, "
+        f"{timings['train_' + path]['rays_per_sec']:.0f} rays/s (epoch 2)")
     return launches
 
 
 # The kernels whose products must run on the tensor cores, and the SASS
-# instruction they must hold: bf16 B1/B2/B4-B7 and the f32 backwards of B2
-# and B4-B7 on `mma.sync` (HMMA; tf32 for the f32 ones), f32 B1/B6 forward on
-# `wgmma` (HGMMA).
+# instruction they must hold: bf16 B1/B2/B4-B7, the f32 backwards of B2 and
+# B4-B7 and the f32 forwards of B4 and B7 on `mma.sync` (HMMA; tf32 for the
+# f32 ones), f32 B1/B6 forward on `wgmma` (HGMMA).
 MMA_KERNELS = {"mlp_fwd": {"mlp_fwd_mma_kernel": "HMMA", "mlp_fwd_tf32_kernel": "HGMMA"},
                "mlp_bwd": {"mlp_bwd_mma_kernel": "HMMA", "mlp_bwd_t32_kernel": "HMMA"},
                "raymarch_fwd": {"rm_fwd_mma_kernel": "HMMA", "rm_fwd_tf32_kernel": "HGMMA"},
                "raymarch_bwd": {"rm_bwd_mma_kernel": "HMMA", "rm_bwd_t32_kernel": "HMMA"},
-               "raymarch_comp_fwd": {"rm_comp_fwd_mma_kernel": "HMMA"},
+               "raymarch_comp_fwd": {"rm_comp_fwd_mma_kernel": "HMMA",
+                                     "rm_comp_fwd_t32_kernel": "HMMA"},
                "raymarch_comp_bwd": {"rm_comp_bwd_mma_kernel": "HMMA",
                                      "rm_comp_bwd_t32_kernel": "HMMA"},
                "mlp_loss_comp": {"mlp_loss_comp_mma_kernel": "HMMA",
                                  "mlp_loss_comp_t32_kernel": "HMMA"},
-               "mlp_comp_fwd": {"mlp_comp_fwd_mma_kernel": "HMMA"},
+               "mlp_comp_fwd": {"mlp_comp_fwd_mma_kernel": "HMMA",
+                                "mlp_comp_fwd_t32_kernel": "HMMA"},
                "mlp_comp_bwd": {"mlp_comp_bwd_mma_kernel": "HMMA",
                                 "mlp_comp_bwd_t32_kernel": "HMMA"}}
 # The kernels on the tensor-core tiles whose registers, spills and SASS
 # counts the run prints side by side: the bf16 backwards (B2, B6, B7, B5, B4),
-# the forwards of the ray-group loop (B4, B7) and the f32 backwards on the
-# 3xTF32 tile (B2, B7, B5, B6, B4).
+# the forwards of the ray-group loop (B4, B7) and the f32 backwards (B2, B7,
+# B5, B6, B4) and forwards (B4, B7) on the 3xTF32 tile.
 BWD_MMA_KERNELS = {"mlp_bwd": "mlp_bwd_mma_kernel", "raymarch_bwd": "rm_bwd_mma_kernel",
                    "raymarch_comp_bwd": "rm_comp_bwd_mma_kernel",
                    "mlp_loss_comp": "mlp_loss_comp_mma_kernel",
@@ -2245,8 +2371,16 @@ FWD_MMA_KERNELS = {"mlp_comp_fwd": "mlp_comp_fwd_mma_kernel",
 T32_MMA_KERNELS = {"mlp_bwd": "mlp_bwd_t32_kernel", "raymarch_comp_bwd": "rm_comp_bwd_t32_kernel",
                    "mlp_loss_comp": "mlp_loss_comp_t32_kernel",
                    "raymarch_bwd": "rm_bwd_t32_kernel", "mlp_comp_bwd": "mlp_comp_bwd_t32_kernel"}
+T32_FWD_KERNELS = {"mlp_comp_fwd": "mlp_comp_fwd_t32_kernel",
+                   "raymarch_comp_fwd": "rm_comp_fwd_t32_kernel"}
 REPORTED = (("backwards", BWD_MMA_KERNELS), ("forwards", FWD_MMA_KERNELS),
-            ("f32_backwards", T32_MMA_KERNELS))
+            ("f32_backwards", T32_MMA_KERNELS), ("f32_forwards", T32_FWD_KERNELS))
+# The kernel instances whose timing records carry their registers, spills and
+# HMMA count: (library, compute type) -> (REPORTED key, kernel).
+SASS_OF = {("raymarch_comp_fwd", "bfloat16"): ("forwards", "rm_comp_fwd_mma_kernel"),
+           ("mlp_comp_fwd", "bfloat16"): ("forwards", "mlp_comp_fwd_mma_kernel"),
+           **{(lib, "float32"): ("f32_forwards", k) for lib, k in T32_FWD_KERNELS.items()},
+           **{(lib, "float32"): ("f32_backwards", k) for lib, k in T32_MMA_KERNELS.items()}}
 
 
 def _ptxas_counts(build_log: str) -> dict:

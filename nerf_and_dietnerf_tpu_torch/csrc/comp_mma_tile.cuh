@@ -4,9 +4,8 @@
 // (forward_groups) of B4 (mlp_comp_fwd.cu) and B7 (raymarch_comp_fwd.cu). The
 // loops take the tile code as a kit: Bf16Kit below (the bf16 `mma.sync` tiles
 // of mlp_mma_tile.cuh, 128 rows; every bf16 instance) or nerf_tmma::Kit (the
-// 3xTF32 `mma.sync` tiles of mlp_tf32_mma_tile.cuh, 64 rows; the f32
-// backwards of B7, B5 and B4). The f32 forwards of B4 and B7 keep the FMA
-// tile of mlp_common.cuh.
+// 3xTF32 `mma.sync` tiles of mlp_tf32_mma_tile.cuh, 64 rows; every f32
+// instance: the backwards of B7, B5 and B4 and the forwards of B7 and B4).
 //
 // A block owns whole rays, as the compositing needs: a group is the rays
 // that fit in one tile of the kit's BM rows, rays_per_group(S, BM) = S >= BM
@@ -37,9 +36,10 @@
 // rebuilds X, D and P from them before each tile's walk; recomputing the
 // forward instead would cost a third more products.
 // The forward runs step 1 without the slots, then composite_ray one thread
-// per ray. A kernel's forward and backward run the same forward_tile on the
-// same tiles, so bf16 B4's and B7's backwards composite bitwise the raw
-// values their forwards composited.
+// per ray. A kernel's forward and backward run the same forward_tile of the
+// same kit on the same tiles (the slots a backward keeps are copies, and
+// the ring's next matrix changes no sum), so in either type B4's and B7's
+// backwards composite bitwise the raw values their forwards composited.
 //
 // Shared memory (bytes), bf16 backward: the backward tiles, 209,408, then 9
 // floats per row of the group (RAW 4 | GRAW 4 | DZC 1) and one per ray (ERR,
@@ -54,8 +54,10 @@
 // the serial compositing pass, which reads RAW three times and writes GRAW
 // and DZC, runs on shared memory's latency. (No L2 variant was built or
 // timed.) f32 backward: the tiles of mlp_tf32_mma_tile.cuh, 198,912, then
-// the same rows: 201,220 at S = 64, 217,348 at S = 512 (asserted in
-// raymarch_comp_tile.cuh, which includes both kits).
+// the same rows: 201,220 at S = 64, 217,348 at S = 512. f32 forward: its
+// forward tiles, 129,280, then RAW: 130,304 at S <= 64, 131,328 at S = 128,
+// 137,472 at S = 512 (both asserted in raymarch_comp_tile.cuh, which
+// includes both kits).
 //
 // Weight gradients as B2: each block walks a fixed, strided set of groups
 // into its own slab, and a second launch adds the slabs in block order, so
@@ -298,7 +300,10 @@ __device__ inline float backward_groups(const Policy& pol, void* smem, const Dim
 // The forward of the groups group = blockIdx.x, + gridDim.x, ... < n_groups
 // of (R, S) rays: step 1 of backward_groups without the slots, then
 // `pol.composite(g, i, raw)` one thread per ray. `Policy::inputs` as
-// backward_groups takes it. `raw` as there.
+// backward_groups takes it. `raw` as there. Tile j of a group writes its raw
+// rows at RAW + 4 j BM, so a ray over several tiles (f32 at S > 64) lies
+// whole in RAW for its one compositing thread. Every kernel launches one
+// block a group: a block's last tile then issues no next chunk.
 template <class Policy, class K = Bf16Kit>
 __device__ inline void forward_groups(const Policy& pol, void* smem, const Dims& dm,
                                       const Layout& L, const typename K::Pack& M,
@@ -316,6 +321,7 @@ __device__ inline void forward_groups(const Policy& pol, void* smem, const Dims&
     const Group g = group_at(group, R, S, BM);
     const int n_tiles = (g.rows + BM - 1) / BM;
     for (int j = 0; j < n_tiles; ++j) {
+      T32_PHASE(nerf_t32ph::INPUTS);
       __syncthreads();
       pol.inputs(g, j * BM, t.X, t.D);
       __syncthreads();
@@ -325,6 +331,7 @@ __device__ inline void forward_groups(const Policy& pol, void* smem, const Dims&
       K::forward_tile(tdm, L, M, F, B, t, ring, nullptr, RAW + 4 * j * BM, 0,
                       more ? &f0 : nullptr);
     }
+    T32_PHASE(nerf_t32ph::COMPOSITE);
     __syncthreads();
     if (raw != nullptr)
       for (int i = tid; i < 4 * g.rows; i += blockDim.x) raw[(size_t)g.ray0 * S * 4 + i] = RAW[i];

@@ -1,7 +1,8 @@
 // Shared device code of the kernels that composite in the kernel (B7:
 // raymarch_comp_fwd.cu, raymarch_comp_bwd.cu; B4: mlp_comp_fwd.cu,
 // mlp_comp_bwd.cu; B5: mlp_loss_comp.cu): alpha compositing of one ray and its
-// VJP, serial over the ray's samples, and the whole-rays-per-block grouping.
+// VJP, serial over the ray's samples. The grouping of whole rays into a
+// block's tiles is comp_mma_tile.cuh's.
 #pragma once
 
 #include "mlp_common.cuh"
@@ -77,17 +78,6 @@ __device__ inline void composite_ray_bwd(const float* raw, const float* z, int S
     dz[s] = -dd;              // delta_s = z_{s+1} - z_s
     if (s < S - 1) dz[s + 1] += dd;
   }
-}
-
-// Rays per group of the f32 FMA forwards of the compositing kernels (B4,
-// B7): whole rays, about TM rows.
-__host__ __device__ constexpr int rays_per_group(int S) { return S >= TM ? 1 : TM / S; }
-
-// Number of ray groups of (R, S), or 0 where S is not a count the kernels take.
-inline int n_groups(int R, int S) {
-  if (S <= 0 || S > MAX_S_COMP) return 0;
-  const int rpg = rays_per_group(S);
-  return (R + rpg - 1) / rpg;
 }
 
 }  // namespace nerf_comp

@@ -8,7 +8,11 @@
 // through a KC x 256 shared-memory chunk, layer by layer. Products run as
 // plain f32 FMAs: a bf16 x bf16 product is exact in f32, so the bf16 path
 // has the tensor-core semantics (exact products, f32 sums), and the f32 path
-// is true f32 with no TF32 rounding.
+// is true f32 with no TF32 rounding. Every model kernel of a training path
+// runs the tensor-core tiles instead (mlp_mma_tile.cuh, mlp_tf32_tile.cuh,
+// mlp_tf32_mma_tile.cuh); this FMA tile is left to f32 B6's forward at widths
+// over 64 input columns (raymarch_fwd.cu) and to the probes P2 and P3
+// (probe_mlp_epilogue.cu, probe_mlp_chains.cu), which record it.
 //
 // Flat parameter layout (the Python wrapper builds the same one): the weight
 // matrices, each row-major (K, N), in the order

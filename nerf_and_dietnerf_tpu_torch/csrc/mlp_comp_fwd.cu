@@ -15,59 +15,33 @@
 // so a block owns whole rays, keeps their raw values in shared memory, then
 // one thread per ray composites serially over its samples. The TPU kernel's
 // one-hot expansion matmuls and hi/lo bf16 splits exist for Mosaic only: here
-// a row's ray is row / S.
-// - bf16 (every `fuse_compositing` train step of the `pallas` backend): the
-//   forward loop of comp_mma_tile.cuh (forward_groups) on B1's tensor-core
-//   tile (128-row tiles, `mma.sync`, the F pack), its inputs as B5's
-//   (load_comp_mma_inputs); one group per block, as B1 launches one tile per
-//   block. Its backward runs the same tiles with the same sums, so it
-//   composites bitwise the raw values this kernel composited. Shared memory:
-//   comp_mma_tile.cuh's fwd_smem_bytes(S), 139,776 bytes at S <= 128.
-// - f32 (parity runs only): B1's FMA tile (64-row chunks, one ray a block
-//   when S >= 64, else 64 / S of them); `w` the flat weights.
+// a row's ray is row / S. Both types run the forward loop of comp_mma_tile.cuh
+// (forward_groups) with the policy MlpCompFwd below, its inputs as B5's and
+// B4's backward's; the backward runs the same tiles with the same sums, so it
+// composites bitwise the raw values this kernel composited.
+// - bf16 (every `fuse_compositing` train step of the `pallas` backend): B1's
+//   tensor-core tile (128-row tiles, `mma.sync`, the F pack), inputs from
+//   load_comp_mma_inputs; one group per block, as B1 launches one tile per
+//   block. Shared memory: comp_mma_tile.cuh's fwd_smem_bytes(S), 139,776
+//   bytes at S <= 128.
+// - f32 (the same steps of a compute_dtype float32 config, parity runs): the
+//   3xTF32 tensor-core tiles of mlp_tf32_mma_tile.cuh (nerf_tmma::Kit, 64-row
+//   tiles: a ray spans two at S = 128), inputs from load_comp_t32_inputs (f32
+//   rows and the exact view-dir encodings, swizzled), reading the F buffer of
+//   raymarch_cuda.t32_packs; one group per block. Shared memory:
+//   fwd_smem_bytes<nerf_tmma::Kit>(S), 130,304 bytes at S <= 64.
+// Both write the raw values they composited to `raw` where it is given (the
+// checks read them).
 #include "mlp_comp_common.cuh"
 
 using namespace nerf_mlp;
 using namespace nerf_comp;
 
-constexpr size_t comp_fwd_smem_bytes(int S) {
-  return fwd_smem_bytes() + sizeof(float) * 4 * (size_t)rays_per_group(S) * S;
-}
-static_assert(comp_fwd_smem_bytes(MAX_S_COMP) <= 232448, "shared memory of a block");
-
-// f32: the FMA tile.
-__global__ void __launch_bounds__(NT, 1)
-    mlp_comp_fwd_kernel(Dims dm, Layout L, EncRays<float> in, const float* __restrict__ W,
-                        const float* __restrict__ B, float* __restrict__ rgb,
-                        float* __restrict__ weights) {
-  extern __shared__ float4 smem4[];
-  float* bufA = reinterpret_cast<float*>(smem4);
-  float* bufB = bufA + TM * HMAX;
-  float* Ws = bufB + TM * HMAX;
-  float* X = Ws + KC * HMAX;
-  float* D = X + TM * XMAX;
-  float* RAW = D + TM * DMAX;  // (rays of the group x S, 4)
-  const int S = in.S;
-  const Group g = group_of(blockIdx.x, in.R, S);
-  Dims dl = dm;
-  dl.n = g.rows;  // forward_tile writes RAW rows [0, rows)
-  for (int c0 = 0; c0 < g.rows; c0 += TM) {
-    __syncthreads();
-    load_chunk<float>(in, dm, g, c0, X, D);
-    __syncthreads();
-    forward_tile<float>(dl, L, W, B, X, D, bufA, bufB, Ws, RAW, c0);
-  }
-  __syncthreads();
-  const int r = threadIdx.x;
-  if (r < g.n_rays) {
-    const size_t ray = (size_t)g.ray0 + r;
-    composite_ray(RAW + (size_t)r * S * 4, in.z + ray * S, S, rgb + ray * 3, weights + ray * S);
-  }
-}
-
-// The bf16 kernel's per-ray work for the forward loop.
+// The per-ray work of the forward loop, on the encodings of the compute type
+// T (bf16 tiles, or the f32 kit's).
+template <typename T>
 struct MlpCompFwd {
-  EncRays<nerf_mma::bf16> in;
+  EncRays<T> in;
   Dims dm;
   float* rgb;      // (R, 3)
   float* weights;  // (R, S)
@@ -75,6 +49,9 @@ struct MlpCompFwd {
   __device__ void inputs(const nerf_cmma::Group& g, int r0, nerf_mma::bf16* X,
                          nerf_mma::bf16* D) const {
     load_comp_mma_inputs(in, dm, g, r0, X, D);
+  }
+  __device__ void inputs(const nerf_cmma::Group& g, int r0, float* X, float* D) const {
+    load_comp_t32_inputs(in, dm, g, r0, X, D);
   }
   __device__ void composite(const nerf_cmma::Group& g, int i, const float* raw) const {
     const size_t ray = (size_t)g.ray0 + i;
@@ -89,16 +66,30 @@ __global__ void __launch_bounds__(nerf_mma::NT, 1)
                             const float* __restrict__ B, float* __restrict__ rgb,
                             float* __restrict__ weights, float* __restrict__ raw, int groups) {
   extern __shared__ uint4 smem16[];
-  const MlpCompFwd pol{in, dm, rgb, weights};
+  const MlpCompFwd<nerf_mma::bf16> pol{in, dm, rgb, weights};
   nerf_cmma::forward_groups(pol, smem16, dm, L, M, F, B, raw, in.R, in.S, groups);
+}
+
+// f32: the same loop on the 3xTF32 tensor-core tiles.
+__global__ void __launch_bounds__(nerf_tmma::NT, 1)
+    mlp_comp_fwd_t32_kernel(Dims dm, Layout L, nerf_tmma::T32Layout M, EncRays<float> in,
+                            const float* __restrict__ F, const float* __restrict__ B,
+                            float* __restrict__ rgb, float* __restrict__ weights,
+                            float* __restrict__ raw, int groups) {
+  extern __shared__ uint4 smem16[];
+  T32_BEGIN();
+  const MlpCompFwd<float> pol{in, dm, rgb, weights};
+  nerf_cmma::forward_groups<MlpCompFwd<float>, nerf_tmma::Kit>(pol, smem16, dm, L, M, F, B, raw,
+                                                               in.R, in.S, groups);
+  T32_END();
 }
 
 static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd, const float* z,
                   int R, int S, const void* w, const float* b, float* rgb, float* weights,
                   float* raw, cudaStream_t stream) {
-  const int groups = bf16 ? nerf_cmma::n_groups(R, S) : n_groups(R, S);
-  if (groups == 0 || (!bf16 && raw != nullptr)) return (int)cudaErrorInvalidValue;
   const Layout L = make_layout(dm);
+  const int groups = bf16 ? nerf_cmma::n_groups(R, S) : nerf_cmma::n_groups(R, S, nerf_tmma::BM);
+  if (groups == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (bf16) {
     using nerf_mma::bf16;
@@ -112,12 +103,13 @@ static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd,
         groups);
   } else {
     const EncRays<float> in{static_cast<const float*>(enc), encd, z, R, S};
-    const size_t smem = comp_fwd_smem_bytes(S);
-    err = cudaFuncSetAttribute(mlp_comp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    const size_t smem = nerf_cmma::fwd_smem_bytes<nerf_tmma::Kit>(S);
+    err = cudaFuncSetAttribute(mlp_comp_fwd_t32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    mlp_comp_fwd_kernel<<<groups, NT, smem, stream>>>(dm, L, in, static_cast<const float*>(w), b,
-                                                      rgb, weights);
+    mlp_comp_fwd_t32_kernel<<<groups, nerf_tmma::NT, smem, stream>>>(
+        dm, L, nerf_tmma::make_t32_layout(L), in, static_cast<const float*>(w), b, rgb, weights,
+        raw, groups);
   }
   return (int)cudaGetLastError();
 }
@@ -125,9 +117,9 @@ static int launch(bool bf16, const Dims& dm, const void* enc, const float* encd,
 // enc (R * S, xyz) in the compute type, encd (R, dir) f32 (null without view
 // dirs), z (R, S) f32; rgb (R, 3) and weights (R, S) f32 out; 1 <= S <=
 // MAX_S_COMP, R >= 1. w: for bf16 the F pack (mlp_mma_tile.cuh), for f32 the
-// flat weights. raw: null, or for bf16 (R, S, 4) f32 that receives the raw
-// values composited. Returns cudaGetLastError() after the launch (0 on
-// success).
+// F buffer of mlp_tf32_mma_tile.cuh (raymarch_cuda.t32_packs). raw: null, or
+// (R, S, 4) f32 that receives the raw values composited. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int nerf_mlp_comp_fwd(int is_bf16, int has_dir, const void* enc, const float* encd,
                                  const float* z, const void* w, const float* b, float* rgb,
                                  float* weights, float* raw, int R, int S, int xyz, int dir,

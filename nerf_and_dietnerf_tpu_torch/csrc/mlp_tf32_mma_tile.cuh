@@ -1,12 +1,13 @@
-// f32 tensor-core device code of the MLP backwards: the forward tile and the
-// chain back of mlp_mma_tile.cuh at true-f32 accuracy, with 3xTF32
-// `mma.sync.m16n8k8` products. f32 B2 (mlp_bwd.cu) and f32 B6's backward
-// (raymarch_bwd.cu, on the inputs it builds) run them as backward_tile on
-// strided 64-row tiles; f32 B7's backward (raymarch_comp_bwd.cu), f32 B5
-// (mlp_loss_comp.cu) and f32 B4's backward (mlp_comp_bwd.cu) through the
-// ray-group loop of comp_mma_tile.cuh (Kit below). f32 B1 and B6's forward
-// run mlp_tf32_tile.cuh (`wgmma`); f32 B4's and B7's forwards keep the FMA
-// tile of mlp_common.cuh.
+// f32 tensor-core device code of the MLP backwards and of the compositing
+// forwards: the forward tile and the chain back of mlp_mma_tile.cuh at
+// true-f32 accuracy, with 3xTF32 `mma.sync.m16n8k8` products. f32 B2
+// (mlp_bwd.cu) and f32 B6's backward (raymarch_bwd.cu, on the inputs it
+// builds) run them as backward_tile on strided 64-row tiles; f32 B7's
+// backward (raymarch_comp_bwd.cu), f32 B5 (mlp_loss_comp.cu) and f32 B4's
+// backward (mlp_comp_bwd.cu) through the ray-group loop of comp_mma_tile.cuh
+// (Kit below), and f32 B7's and B4's forwards (raymarch_comp_fwd.cu,
+// mlp_comp_fwd.cu) through its forward loop: forward_tile alone, writing the
+// raw rows. f32 B1 and B6's forward run mlp_tf32_tile.cuh (`wgmma`).
 //
 // What bounds it on an H100: operations. A row's backward is about 3 x 1.024
 // MFLOP at the flagship widths; true f32 on the tensor cores takes three TF32

@@ -13,6 +13,11 @@ static_assert(nerf_cmma::max_smem_bytes<nerf_tmma::Kit>() ==
                   nerf_cmma::smem_bytes<nerf_tmma::Kit>(nerf_comp::MAX_S_COMP) == 217348 &&
                   nerf_cmma::smem_bytes<nerf_tmma::Kit>(64) == 201220,
               "the group's rows beside the f32 backward tiles (comp_mma_tile.cuh)");
+static_assert(nerf_cmma::fwd_smem_bytes<nerf_tmma::Kit>(64) == 130304 &&
+                  nerf_cmma::fwd_smem_bytes<nerf_tmma::Kit>(32) == 130304 &&
+                  nerf_cmma::fwd_smem_bytes<nerf_tmma::Kit>(128) == 131328 &&
+                  nerf_cmma::fwd_smem_bytes<nerf_tmma::Kit>(nerf_comp::MAX_S_COMP) == 137472,
+              "the group's raw values beside the f32 forward tiles (comp_mma_tile.cuh)");
 
 namespace nerf_rm {
 

@@ -146,7 +146,8 @@ _COMP_TAIL = [_i] * 6 + [_f]
 # (csrc/mlp_mma_tile.cuh, csrc/mlp_tf32_tile.cuh).
 _MMA_PACK = {"nerf_mlp_mma_pack_elems": ([_i] * 5, ctypes.c_longlong)}
 _TF32_PACK = {"nerf_mlp_tf32_pack_elems": ([_i] * 5, ctypes.c_longlong)}
-# ... and of the f32 tensor-core backward (csrc/mlp_tf32_mma_tile.cuh).
+# ... and of the f32 tensor-core backwards and compositing forwards
+# (csrc/mlp_tf32_mma_tile.cuh).
 _T32_PACK = {"nerf_mlp_t32_pack_elems": ([_i] * 5, ctypes.c_longlong)}
 # The tile rows and activation slots of a backward, by compute type (B2, B6).
 _BWD_TILE = {"nerf_mlp_bwd_tile_rows": ([_i], _i),
@@ -166,11 +167,11 @@ _SIGNATURES = {
     "raymarch_bwd": {"nerf_rm_bwd": ([_i, _i] + [_p] * 11 + [_i] + _RAY_TAIL, _i),
                      **_BWD_TILE, **_MMA_PACK, **_T32_PACK, **_BWD_SCRATCH},
     "raymarch_comp_fwd": {"nerf_rm_comp_fwd": ([_i, _i] + [_p] * 7 + _RAY_TAIL, _i),
-                          **_MMA_PACK},
+                          **_MMA_PACK, **_T32_PACK},
     "raymarch_comp_bwd": {"nerf_rm_comp_bwd": ([_i, _i] + [_p] * 13 + [_i] + _RAY_TAIL, _i),
                           **_COMP_BWD, **_MMA_PACK, **_T32_PACK, **_BWD_SCRATCH},
     "mlp_comp_fwd": {"nerf_mlp_comp_fwd": ([_i, _i] + [_p] * 8 + _COMP_TAIL + [_p], _i),
-                     **_MMA_PACK},
+                     **_MMA_PACK, **_T32_PACK},
     "mlp_comp_bwd": {"nerf_mlp_comp_bwd": ([_i, _i] + [_p] * 16 + [_i] + _COMP_TAIL + [_p], _i),
                      **_COMP_BWD, **_MMA_PACK, **_T32_PACK, **_BWD_SCRATCH},
     "mlp_loss_comp": {"nerf_mlp_loss_comp": ([_i, _i] + [_p] * 14 + [_i] + _COMP_TAIL + [_f, _p],

@@ -359,9 +359,10 @@ def _weights_for(lib: ctypes.CDLL, ws, config: MLPConfig, cd, kinds):
     in bf16 (their size checked against the library's); in f32, for ``kinds
     == ("t",)`` (f32 B1 and B6's forward) the TF32 buffer of
     :func:`tf32_weights`, for ``kinds == ("tf", "tb")`` (the f32 tensor-core
-    backwards: B2, B4-B7) the F and B buffers of :func:`t32_packs` (their
-    pack sizes checked against the library's), else (``("f",)``, the f32 FMA
-    forwards) the flat weights."""
+    backwards: B2, B4-B7) the F and B buffers of :func:`t32_packs`, for
+    ``("tf",)`` (the f32 compositing forwards: B4, B7) its F buffer (the pack
+    sizes checked against the library's), else (``("f",)``, the f32 FMA
+    forward of B6 at wide encodings) the flat weights."""
     has_dir = int(config.uses_view_dirs)
     dims = (has_dir, config.xyz_dim, config.dir_dim if has_dir else 0, config.hidden_dim,
             config.last_hidden_dim)
@@ -369,11 +370,11 @@ def _weights_for(lib: ctypes.CDLL, ws, config: MLPConfig, cd, kinds):
         if tf32_layout(config)[1] != lib.nerf_mlp_tf32_pack_elems(*dims):
             raise RuntimeError("kernel and wrapper disagree on the TF32 weight-pack layout")
         return [tf32_weights(ws, config)]
-    if kinds == ("tf", "tb"):
+    if kinds in (("tf", "tb"), ("tf",)):
         if t32_layout(config)[1] != lib.nerf_mlp_t32_pack_elems(*dims):
             raise RuntimeError("kernel and wrapper disagree on the f32 backward's pack layout")
-        return list(t32_packs(ws, config))
-    if cd != torch.bfloat16:  # the f32 FMA forwards (B4, B7; B6 at wide encodings)
+        return list(t32_packs(ws, config))[:len(kinds)]
+    if cd != torch.bfloat16:  # the f32 FMA forward (B6 at wide encodings)
         return [flat(ws)]
     packs = _packs(ws, config, kinds)
     if packs[0].numel() != lib.nerf_mlp_mma_pack_elems(*dims):

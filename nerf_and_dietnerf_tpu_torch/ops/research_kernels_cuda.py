@@ -18,11 +18,11 @@ Port of ``nerf_and_dietnerf_tpu/ops/research_kernels.py``. The
   bf16 forward and backward run the ray-group loops of
   ``csrc/comp_mma_tile.cuh`` on the bf16 tensor-core tiles (one forward per
   row), reading the F pack (forward) or the F and B packs (backward); the
-  f32 backward runs the same loop on the 3xTF32 ``mma.sync`` tiles of
-  ``csrc/mlp_tf32_mma_tile.cuh``, reading the hi / lo buffers of
-  ``raymarch_cuda.t32_packs``; the f32 forward keeps the FMA tile. Both bf16
-  kernels and the f32 backward can return the raw values they composited
-  (``raw=``).
+  f32 forward and backward run the same loops on the 3xTF32 ``mma.sync``
+  tiles of ``csrc/mlp_tf32_mma_tile.cuh``, reading the F (forward) or the F
+  and B buffers of ``raymarch_cuda.t32_packs``. Every instance can return the
+  raw values it composited (``raw=``); a forward composites bitwise the raw
+  values its backward composites.
 
 Both backwards give the rays, directions and view components structural-zero
 cotangents, as the JAX package does: training differentiates the parameters
@@ -38,13 +38,11 @@ reshape of ``(rays, S, features)``) and the view-dir encodings **per ray**:
   gradients of the parameters, of both encodings and of z; that dz is the
   compositing's share only (the sample spacings), the share through the points
   reaches z through the xyz encodings' gradient and torch's encoding backward.
-  In bf16 both run the ray-group loops of ``csrc/comp_mma_tile.cuh`` on the
+  Both run the ray-group loops of ``csrc/comp_mma_tile.cuh``, in bf16 on the
   tensor-core tiles (the forward reading the F pack, the backward the F and
-  B packs, each row forwarded once); in f32 the backward runs the same loop
-  on the 3xTF32 ``mma.sync`` tiles (the buffers of
-  ``raymarch_cuda.t32_packs``), the forward the FMA tile. Both bf16 kernels
-  and the f32 backward can return the raw values they composited
-  (``raw=``).
+  B packs, each row forwarded once), in f32 on the 3xTF32 ``mma.sync`` tiles
+  (the F, or F and B, buffers of ``raymarch_cuda.t32_packs``). Every
+  instance can return the raw values it composited (``raw=``).
 - B5 (``_loss_mlp_comp_pallas``, ``apply_mlp_loss_composited``, flag
   ``fuse_fine_loss``): the fine-pass objective in one kernel, forward,
   compositing, MSE against the target pixels and the whole backward with no
@@ -419,11 +417,11 @@ def raymarch_bwd(ws, bs, config: MLPConfig, rd, z, g, compute_dtype):
 
 def raymarch_comp_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype, raw=None):
     """B7 forward: ``(rgb (R, 3), weights (R, S))`` f32; at most
-    :data:`MAX_SAMPLES_COMPOSITED` samples per ray. ``raw`` (bf16 only): None,
-    or an (R, S, 4) f32 tensor that receives the raw values the kernel
-    composited (on the CPU the plain forward's)."""
+    :data:`MAX_SAMPLES_COMPOSITED` samples per ray. ``raw``: None, or an (R,
+    S, 4) f32 tensor that receives the raw values the kernel composited (on
+    the CPU the plain forward's)."""
     _check_samples(z)
-    _raw_out(raw, z, compute_dtype, rd.device)
+    _raw_out(raw, z, rd.device)
     if not uses_kernel(rd):
         if raw is not None:
             raw.copy_(raymarch_fwd_plain(ws, bs, config, rd, z, compute_dtype))
@@ -435,7 +433,7 @@ def raymarch_comp_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype, raw=None)
     if weights.numel() == 0:
         return rgb.zero_(), weights
     lib = load("raymarch_comp_fwd")
-    (w,), b = _weights_for(lib, ws, config, compute_dtype, ("f",)), flat(bs)
+    (w,), b = _weights_for(lib, ws, config, compute_dtype, _fwd_kinds(compute_dtype)), flat(bs)
     rc = lib.nerf_rm_comp_fwd(
         _is_bf16(compute_dtype), int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(),
         w.data_ptr(), b.data_ptr(), rgb.data_ptr(), weights.data_ptr(), _ptr(raw),
@@ -462,15 +460,17 @@ def _comp_bwd_scratch(lib, n_params: int, config: MLPConfig, cd, z, dev, width=N
     return partial, acts, slab, n_blocks
 
 
-def _raw_out(raw, z, cd, dev, f32=False):
+def _raw_out(raw, z, dev):
     """Check the optional raw output of a compositing kernel: (R, S, 4) f32
-    on the inputs' device; the bf16 kernels' only, unless ``f32`` (the f32
-    backwards and f32 B5, on the tensor cores, give it too)."""
-    if raw is None:
-        return
-    if cd != torch.bfloat16 and not f32:
-        raise ValueError("the raw output is the bf16 kernels' only")
-    check_tensors([(raw, (*z.shape, 4), torch.float32)], dev)
+    on the inputs' device."""
+    if raw is not None:
+        check_tensors([(raw, (*z.shape, 4), torch.float32)], dev)
+
+
+def _fwd_kinds(cd):
+    """The weight buffer a compositing forward (B4, B7) reads: the F pack in
+    bf16, the F buffer of ``raymarch_cuda.t32_packs`` in f32."""
+    return ("f",) if cd == torch.bfloat16 else ("tf",)
 
 
 def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtype, raw=None):
@@ -480,7 +480,7 @@ def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtyp
     the kernel composited (the checks read it; on the CPU the plain
     forward's)."""
     _check_samples(z)
-    _raw_out(raw, z, compute_dtype, rd.device, f32=True)
+    _raw_out(raw, z, rd.device)
     if not uses_kernel(rd):
         if raw is not None:
             raw.copy_(raymarch_fwd_plain(ws, bs, config, rd, z, compute_dtype))
@@ -530,14 +530,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def mlp_comp_fwd(ws, bs, config: MLPConfig, enc, encd, z, compute_dtype, raw=None):
+def mlp_comp_fwd(ws, bs, config: MLPConfig, enc, encd, z, compute_dtype, raw=None,
+                 before_launch=None):
     """B4 forward: ``(rgb (R, 3), weights (R, S))`` f32 from ``enc`` (R S, xyz)
     in the compute type (ray-major rows), ``encd`` (R, dir) f32 per ray (None
     without view dirs) and z (R, S) f32; at most
     :data:`MAX_SAMPLES_COMPOSITED` samples per ray. ``raw`` as
-    :func:`mlp_comp_bwd`'s."""
+    :func:`mlp_comp_bwd`'s. ``before_launch``, if given, runs right before
+    the kernel's launch (as ``raymarch_cuda.mlp_bwd``'s: the card's checks
+    leave NaN in shared memory there)."""
     _check_samples(z)
-    _raw_out(raw, z, compute_dtype, enc.device)
+    _raw_out(raw, z, enc.device)
     if not uses_kernel(enc):
         if raw is not None:
             raw.copy_(_raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)[0])
@@ -549,7 +552,9 @@ def mlp_comp_fwd(ws, bs, config: MLPConfig, enc, encd, z, compute_dtype, raw=Non
     if weights.numel() == 0:
         return rgb.zero_(), weights
     lib = load("mlp_comp_fwd")
-    (w,), b = _weights_for(lib, ws, config, compute_dtype, ("f",)), flat(bs)
+    (w,), b = _weights_for(lib, ws, config, compute_dtype, _fwd_kinds(compute_dtype)), flat(bs)
+    if before_launch is not None:
+        before_launch()
     rc = lib.nerf_mlp_comp_fwd(
         _is_bf16(compute_dtype), int(config.uses_view_dirs), enc.data_ptr(), _ptr(encd),
         z.data_ptr(), w.data_ptr(), b.data_ptr(), rgb.data_ptr(), weights.data_ptr(), _ptr(raw),
@@ -564,7 +569,7 @@ def mlp_comp_bwd(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dt
     dz is the compositing's share only. The parameter gradients and dencd are
     bitwise reproducible. ``raw`` as :func:`raymarch_comp_bwd`'s."""
     _check_samples(z)
-    _raw_out(raw, z, compute_dtype, enc.device, f32=True)
+    _raw_out(raw, z, enc.device)
     if not uses_kernel(enc):
         if raw is not None:
             raw.copy_(_raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)[0])
@@ -608,7 +613,7 @@ def mlp_loss_comp(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute
     rays' unnormalised directions. All three are bitwise reproducible.
     ``raw`` as :func:`raymarch_comp_bwd`'s."""
     _check_samples(z)
-    _raw_out(raw, z, compute_dtype, enc.device, f32=True)
+    _raw_out(raw, z, enc.device)
     if not uses_kernel(enc):
         if raw is not None:
             raw.copy_(_raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)[0])

@@ -2,8 +2,8 @@
 # Shows that chip_smoke.py's checks of the compositing kernels on the tensor
 # cores (_hold_comp_bwd: B7's backward and B5 in bf16 and f32, B4's backward;
 # _comp_checks for B4's forward and backward, f32 B4's at S = 128 too;
-# _rm_checks for B7's bf16 forward and f32 B6's backward; R = 4096, S = 64,
-# both variants) and of f32 B2 (_mlp_checks at a ragged row count, after NaN
+# _rm_checks for B7's bf16 forward, f32 B6's backward and f32 B7's forward
+# at S = 128 and 192; R = 4096, S = 64, both variants) and of f32 B2 (_mlp_checks at a ragged row count, after NaN
 # was left in every SM's shared memory) catch broken kernels. Each case copies the package and
 # chip_smoke.py to a temporary directory, breaks one line there, rebuilds and
 # runs the checks; the repository is not touched:
@@ -27,7 +27,15 @@
 #            tiles (S = 128: each ray's dencd is its second tile's rows only;
 #            the xyz-only variant, which has no dencd, is unbroken);
 #   b6row    f32 B6's backward reads each row's dx from the slab row r ^ 4
-#            for its dz.
+#            for its dz;
+#   fwdtile  the forward loop writes every tile's raw rows where the first
+#            tile's go (no 4 j BM offset): f32 B7's forward composites a ray
+#            over two or three 64-row tiles from the wrong rows (S = 128 and
+#            192; bf16 at S = 64 is one tile a group, unbroken);
+#   b4dpad   f32 B4's forward (the f32 D-tile loader it shares with f32 B4's
+#            backward and f32 B5) leaves the D tile's pad columns as they
+#            were: NaN after _poison_comp_fwd (the xyz-only variant, which
+#            has no D tile, is unbroken).
 # Run from the repository root on the card, after a build (build/kernels is
 # copied, so only the broken libraries are rebuilt); name cases to run only
 # those:
@@ -36,7 +44,7 @@ set -u
 root=$(pwd)
 tmp=$(mktemp -d)
 trap 'rm -rf "$tmp"' EXIT
-cases=${*:-none ray2 sigbias dd2 denc1 t32row fwdray b5sw b2pad b4carry b6row}
+cases=${*:-none ray2 sigbias dd2 denc1 t32row fwdray b5sw b2pad b4carry b6row fwdtile b4dpad}
 for m in $cases; do
   d=$tmp/$m
   mkdir -p "$d/build" && cp -r nerf_and_dietnerf_tpu_torch chip_smoke.py "$d/"
@@ -65,6 +73,11 @@ for m in $cases; do
            sed -i '0,/dz_of_row(ry, dxs + r \* dm.xyz, row0 + r)/s//dz_of_row(ry, dxs + (r ^ 4) * dm.xyz, row0 + r)/' "$csrc/raymarch_bwd.cu"
            awk '/rm_bwd_t32_kernel\(/ {k = 1} /rm_bwd_mma_kernel\(/ {k = 0}
                 /dxs \+ \(r \^ 4\)/ {n += k} END {exit n != 1}' "$csrc/raymarch_bwd.cu" || exit 1 ;;
+    fwdtile) sed -i 's|ring, nullptr, RAW + 4 \* j \* BM, 0,|ring, nullptr, RAW, 0,|' "$csrc/comp_mma_tile.cuh"
+             grep -q "ring, nullptr, RAW, 0," "$csrc/comp_mma_tile.cuh" || exit 1 ;;
+    b4dpad) # the f32 loader's pad width, not the bf16 one's
+            sed -i '/load_comp_t32_inputs(/,/^}/ s|  const int dp = nerf_mma::pad16(dm.dir);|  const int dp = dm.dir;|' "$csrc/mlp_comp_common.cuh"
+            awk '/load_comp_t32_inputs\(/ {k = 1} /const int dp = dm.dir;/ {n += k} END {exit n != 1}' "$csrc/mlp_comp_common.cuh" || exit 1 ;;
   esac
   (cd "$d" && python3 - "$m" <<'PY'
 import sys
@@ -115,7 +128,8 @@ for n_angles in (0, 2):
                                                                                    None),
                               ("B7_f32", (rd, z, g_rgb, g_w), b7_f32), ("B7_fwd", None, None),
                               ("B5_f32", batch32, b5_f32), ("B2_f32", None, None),
-                              ("B4_f32", None, None), ("B6_f32", None, None)):
+                              ("B4_f32", None, None), ("B6_f32", None, None),
+                              ("B7_fwd_f32", None, None)):
         label = f"{sys.argv[1]} n_angles={n_angles} {kernel}"
         try:
             if kernel == "B4":  # its forward and backward, as chip_smoke.py holds them
@@ -142,6 +156,11 @@ for n_angles in (0, 2):
             elif kernel == "B6_f32":  # B6's forward and backward, as chip_smoke.py holds them
                 cs._rm_checks(torch, rk, cfg, ws32, bs32, rd, z, torch.float32, "float32", gen,
                               label, b7=False)
+            elif kernel == "B7_fwd_f32":  # rays over two and three 64-row tiles
+                for n_s in (2 * S, 3 * S):
+                    rd_f, z_f = cs._ray_batch(torch, cfg, R, n_s, gen)
+                    cs._rm_checks(torch, rk, cfg, ws32, bs32, rd_f, z_f, torch.float32, "float32",
+                                  gen, f"{label} S={n_s}", backward=False)
             else:
                 cs._hold_comp_bwd(torch, kernel, label, "bfloat16", ws, bs, cfg, cd, args, run)
             print(f"RESULT {label}: passed", flush=True)

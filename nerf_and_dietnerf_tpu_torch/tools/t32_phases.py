@@ -1,9 +1,10 @@
 #!/usr/bin/env python
-"""Where the f32 tensor-core backwards spend their time, phase by phase: f32
+"""Where the f32 tensor-core kernels spend their time, phase by phase: f32
 B7's backward (``raymarch_comp_bwd``), f32 B2 (``mlp_bwd``), f32 B5
-(``mlp_loss_comp``), f32 B4's backward (``mlp_comp_bwd``) and f32 B6's
-backward (``raymarch_bwd``), all on the 3xTF32 ``mma.sync`` tile of
-``csrc/mlp_tf32_mma_tile.cuh``.
+(``mlp_loss_comp``), f32 B4's backward (``mlp_comp_bwd``), f32 B6's
+backward (``raymarch_bwd``) and f32 B7's and B4's forwards
+(``raymarch_comp_fwd``, ``mlp_comp_fwd``), all on the 3xTF32 ``mma.sync``
+tile of ``csrc/mlp_tf32_mma_tile.cuh``.
 
 The tool builds its own copies of a kernel's library into
 ``build/t32_phases/`` with ``-DNERF_T32_PHASES`` (``csrc/t32_phases.cuh``):
@@ -24,10 +25,12 @@ products at the TF32 peak, the bytes of the slab, the weight ring and the
 kept slots at a 132nd of the HBM rate), then per build one JSON line: the
 CUDA-event time of one call (the wrapper's: packs, kernel, the slabs' sum),
 the mean block span, ms per phase (each block's cycles over its own clock,
-averaged over the blocks), their sum and its ratio to the event time; and
+summed over the blocks and divided by the SMs they ran on: the mean block
+for the backwards' persistent grids, an SM's share of the forwards' one
+block a ray group), their sum and its ratio to the event time; and
 the same for the port's unchanged library (event time only).
 
-    python -m nerf_and_dietnerf_tpu_torch.tools.t32_phases [--kernels b7 b2 b5 b4 b6] [--out PATH]
+    python -m nerf_and_dietnerf_tpu_torch.tools.t32_phases [--kernels b7 b2 b5 b4 b6 b7f b4f] [--out PATH]
     python -m nerf_and_dietnerf_tpu_torch.tools.t32_phases --device cpu --hidden 32
 
 On the CPU only the reckoning runs (a CPU has no phases to stamp).
@@ -67,7 +70,8 @@ PEAK_TF32, PEAK_BYTES, SMS = 495e12, 3.35e12, 132
 # (library, the flagship shapes the kernel runs at: rays, samples)
 KERNELS = {"b7": ("raymarch_comp_bwd", 4096, 64), "b2": ("mlp_bwd", 4096, 64),
            "b5": ("mlp_loss_comp", 4096, 128), "b4": ("mlp_comp_bwd", 4096, 64),
-           "b6": ("raymarch_bwd", 4096, 64)}
+           "b6": ("raymarch_bwd", 4096, 64), "b7f": ("raymarch_comp_fwd", 4096, 64),
+           "b4f": ("mlp_comp_fwd", 4096, 64)}
 _EXTRA = {"nerf_t32_phase_buffer": ([ctypes.c_void_p], ctypes.c_int),
           "nerf_t32_phase_count": ([], ctypes.c_int)}
 
@@ -128,7 +132,11 @@ def _case(kernel: str, device, rays: int, samples: int, hidden):
     if kernel == "b7":
         g_rgb, g_w = cotangents()
         return cfg, lambda: rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, F32)
+    if kernel == "b7f":
+        return cfg, lambda: rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, F32)
     enc, encd, z, dvec, target = enc_batch(cfg, F32, rd, z, gen)
+    if kernel == "b4f":
+        return cfg, lambda: rk.mlp_comp_fwd(ws, bs, cfg, enc, encd, z, F32)
     if kernel == "b5":
         return cfg, lambda: rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, dvec, target, F32)
     if kernel == "b4":
@@ -140,11 +148,12 @@ def _case(kernel: str, device, rays: int, samples: int, hidden):
     return cfg, lambda: rc.mlp_bwd(ws, bs, cfg, enc, d, g, F32)
 
 
-def stamped(lib, call, device, reps: int) -> dict:
-    """The event time of ``call`` on ``lib``, then one call's phases."""
+def stamped(lib, call, device, reps: int, rays: int) -> dict:
+    """The event time of ``call`` on ``lib``, then one call's phases; the
+    call launches at most one block a ray or ``SMS`` blocks."""
     ms = seconds_per_call(call, device, reps) * 1e3
     n = lib.nerf_t32_phase_count()
-    buf = torch.zeros((SMS, n + 1), dtype=torch.int64, device=device)
+    buf = torch.zeros((max(rays, SMS), n + 1), dtype=torch.int64, device=device)
     if lib.nerf_t32_phase_buffer(buf.data_ptr()) != 0:
         raise RuntimeError("could not set the phase buffer")
     call()
@@ -154,7 +163,7 @@ def stamped(lib, call, device, reps: int) -> dict:
     st = st[st[:, n] > 0]  # the blocks that ran
     cycles, span_ns = st[:, :n], st[:, n]
     per_ms = cycles.sum(1) / (span_ns / 1e6)  # each block's clock, cycles per ms
-    phase_ms = (cycles / per_ms[:, None]).mean(0)
+    phase_ms = (cycles / per_ms[:, None]).sum(0) / min(len(st), SMS)
     total = float(phase_ms.sum())
     return {"event_ms": ms, "block_span_ms": float(span_ns.mean() / 1e6), "blocks": len(st),
             "clock_ghz": float(per_ms.mean() / 1e6),
@@ -263,7 +272,7 @@ def main(argv=None) -> int:
             for c, lib in builds["libs"].items():
                 kl.use_library(name, lib)
                 try:
-                    rec[c] = stamped(lib, call, device, args.reps)
+                    rec[c] = stamped(lib, call, device, args.reps, rays)
                 finally:
                     kl.use_library(name, None)
             emit(rec)

@@ -3,8 +3,8 @@ B7's backward (``csrc/raymarch_comp_bwd.cu``), B5 (``csrc/mlp_loss_comp.cu``)
 and B4's backward (``csrc/mlp_comp_bwd.cu``) in bf16 run the ray-group loop of
 ``csrc/comp_mma_tile.cuh`` on the tiles of ``csrc/mlp_mma_tile.cuh``, B4's and
 B7's forwards (``csrc/mlp_comp_fwd.cu``, ``csrc/raymarch_comp_fwd.cu``) its
-forward loop; f32 B7's backward runs the same loop on the 64-row 3xTF32 tiles
-of ``csrc/mlp_tf32_mma_tile.cuh`` (their arithmetic is modelled in
+forward loop; every f32 instance runs the same loops on the 64-row 3xTF32
+tiles of ``csrc/mlp_tf32_mma_tile.cuh`` (their arithmetic is modelled in
 ``tests/test_torch_tf32_split.py``). The kernels run only on the card, where
 ``chip_smoke.py`` holds them against their plain versions. Here, at small
 widths (hidden 32, L = 2-5):
@@ -25,15 +25,19 @@ widths (hidden 32, L = 2-5):
 - (d) the wrappers' weight packs and scratch against a fake library's
   per-compute-type exports, both types (the f32 backwards of B7, B5 and B4:
   64-row groups, their slots and slab, the F and B buffers of
-  ``raymarch_cuda.t32_packs``; f32 B4's and B7's forwards the flat weights);
+  ``raymarch_cuda.t32_packs``; f32 B4's and B7's forwards its F buffer);
 - f32 B5 and f32 B4's backward in the f32 kit's group order (64-row tiles,
   dz_points reading the swizzled X rows through sw; B4's dd rows summed per
   ray across a ray's two tiles) against JAX's f32 ``_loss_mlp_comp_pallas``
-  and ``_backward_mlp_comp_pallas``, and the reckoning of
-  ``tools/t32_phases.py``.
+  and ``_backward_mlp_comp_pallas``, f32 B4's and B7's forwards in that
+  order too (the 3xTF32 products of the f32 tile modelled as
+  ``tests/test_torch_tf32_split.py`` models them) against JAX's f32
+  forwards, their raw rows bitwise those the backwards' models composite,
+  and the reckoning of ``tools/t32_phases.py``.
 """
 
 import ctypes
+import itertools
 import json
 import math
 import re
@@ -215,8 +219,8 @@ def test_groups_cover_every_row_once_in_whole_rays(n_samples):
         assert (seen == 1).all()
     assert n_groups(4096, S) == 4096 // rpg
     assert n_groups(4096, MAX_S + 1) == 0
-    # f32 B7's 64-row tiles: one ray a tile at 64, a ray over two at 100 and
-    # 128, 64 / S rays a tile below 64 (the FMA kernels' groups of 64 rows).
+    # The f32 kit's 64-row tiles: one ray a tile at 64, a ray over two at 100
+    # and 128 and over three at 192, 64 / S rays a tile below 64.
     t32 = (rays_per_group(S, T32_BM), tiles_per_group(S, T32_BM))
     assert t32 == {48: (1, 1), 64: (1, 1), 100: (1, 2), 128: (1, 2), 192: (1, 3)}[S]
     for R in (1, 13):
@@ -382,6 +386,72 @@ def _forward(cfg, x, d, wf, bs, cd):
     return torch.cat([rgb, sigma], -1)
 
 
+T32_K = 8  # depth of an m16n8k8 k-step
+
+
+def _split_tf32(v):
+    hi = rc.round_tf32(v.contiguous())
+    return hi, rc.round_tf32(v - hi)
+
+
+def _t32_dot(pairs):
+    """The sum of a @ b over ``pairs`` as the f32 kit's mma_rows sums it into
+    one accumulator (modelled as tests/test_torch_tf32_split.py models it): per
+    8-deep k-step the three TF32 products lo.hi + hi.lo + hi.hi of the split
+    operands (each exact in f64) into a fresh partial, rounded once to f32,
+    which one f32 add then adds to the sum."""
+    acc = None
+    for a, b in pairs:
+        ah, al = _split_tf32(a)
+        bh, bl = _split_tf32(b)
+        if acc is None:
+            acc = torch.zeros((a.shape[0], b.shape[1]))
+        for k0 in range(0, a.shape[1], T32_K):
+            k = slice(k0, k0 + T32_K)
+            part = (al[:, k].double() @ bh[k].double() + ah[:, k].double() @ bl[k].double()
+                    + ah[:, k].double() @ bh[k].double())
+            acc = acc + part.float()
+    return acc
+
+
+def _forward_t32(cfg, x, d, ws, bs):
+    """nerf_tmma::forward_tile on one tile's X / D rows (f32, at most 64): the
+    eleven wide products by :func:`_t32_dot` (the skip layer's two and the
+    view layer's two into one accumulator), bias and leaky in f32, the narrow
+    heads as f32 sums."""
+    a = cfg.leaky_relu_alpha
+
+    def act(v):
+        return torch.where(v >= 0, v, a * v)
+
+    h = x
+    for layer in range(8):
+        pairs = [(x, ws[4]), (h, ws[5])] if layer == 4 else [
+            (h, ws[layer if layer < 4 else layer + 1])]
+        h = act(_t32_dot(pairs) + bs[layer])
+    if cfg.uses_view_dirs:
+        sigma = h @ ws[12] + d @ ws[13] + bs[10]
+        r = act(_t32_dot([(h, ws[9]), (d, ws[10])]) + bs[8])
+        rgb = r @ ws[11] + bs[9]
+    else:
+        sigma = h @ ws[12] + bs[11]
+        r = act(_t32_dot([(act(_t32_dot([(h, ws[9])]) + bs[8]), ws[10])]) + bs[9])
+        rgb = r @ ws[11] + bs[10]
+    return torch.cat([rgb, sigma], -1)
+
+
+def _group_raw(tcfg, ws, bs, cd, x, d, wf, bm):
+    """The raw rows (rows, 4) of one group from its X / D rows, as the kit's
+    forward_tile writes them: the f32 kit (``bm`` = 64) tile after tile of
+    :func:`_forward_t32`; else :func:`_forward` from the F pack's matrices
+    ``wf``."""
+    if bm != T32_BM:
+        return _forward(tcfg, x, d, wf, bs, cd)
+    return torch.cat([_forward_t32(tcfg, x[r0:r0 + T32_BM],
+                                   None if d is None else d[r0:r0 + T32_BM], ws, bs)
+                      for r0 in range(0, x.shape[0], T32_BM)])
+
+
 def _composite_ray(raw, z):
     """composite_ray for a group's rays at once, sample by sample in f32:
     ``(pixel (n, 3), weights (n, S))``."""
@@ -475,7 +545,8 @@ def _dz_points(cfg, gx, x, dvec):
 
 def _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows, rows_out=None, bm=BM):
     """The kernel's order over every group (of ``bm``-row tiles): the forward of each tile
-    (``tiles_of(ray0, rows)`` gives its (X, D) rows), the group's compositing
+    (``tiles_of(ray0, rows)`` gives its (X, D) rows; :func:`_group_raw`, in the
+    f32 kit's 3xTF32 products where ``bm`` is its 64 rows), the group's compositing
     (``per_ray(ray0, n_rays, raw)`` -> (g_raw, dzc, value)), the chain back on
     the group's rows from the B pack, then dz (``dz_rows(ray0, rows, dx,
     x)``) and, if given, ``rows_out(ray0, n_rays, dx, dd)``. Returns (dws,
@@ -490,7 +561,7 @@ def _emulate_groups(tcfg, ws, bs, cd, S, tiles_of, per_ray, dz_rows, rows_out=No
     for group in range(n_groups(R, S, bm)):
         ray0, n_rays, rows = group_at(group, R, S, bm)
         x, d = tiles_of(ray0, rows)
-        raw = _forward(tcfg, x, d, wf, bs, cd).reshape(n_rays, S, 4)
+        raw = _group_raw(tcfg, ws, bs, cd, x, d, wf, bm).reshape(n_rays, S, 4)
         g_raw, dzc, value = per_ray(ray0, n_rays, raw)
         total += value
         gw, gb, dx, dd = rc.mlp_bwd_plain(wb, bs, tcfg, x.to(ws[0].dtype),
@@ -566,53 +637,86 @@ def test_b7_backward_in_the_kernels_order_matches_jax(case, n_samples, name, cd,
     _hold([dz], [jgz], GRAD_TOL[name], normwise)
 
 
-@pytest.mark.parametrize("name,cd,jcd", DTYPES, ids=[d[0] for d in DTYPES])
-@pytest.mark.parametrize("n_samples", [48, 192])
-@pytest.mark.parametrize("case", CASES, ids=IDS)
-def test_b7_forward_in_the_kernels_order_matches_jax(case, n_samples, name, cd, jcd):
-    """forward_groups with B7's policy: each tile's features as the tiles
-    hold them (bf16: build_mma_inputs' rounding), the forward from the F pack,
-    then composite_ray one ray at a time, sample by sample, in the groups of
-    the kernel's tiles (bf16: 128 rows; the f32 FMA kernel: 64); rgb and
-    weights against JAX's B7 forward (``_forward_rays_comp_pallas`` in
-    interpret mode), scaled by the largest |value|: 1e-4 in f32 (other
-    orders of sums, the TPU kernel's log-step scans), 2e-2 in bf16
-    (chip_smoke.py TOL: a 1-ulp difference of a sum or of the two CPU sines
-    flips a bf16 rounding)."""
-    S = n_samples
-    jcfg, tcfg, params, x = _enc_setup(case, S, seed=5)
-    orig, dirs, z = x["orig"], x["dirs"], x["z"]
-    vc = jcam.view_direction_components(dirs, jcfg.n_angles) if jcfg.uses_view_dirs else None
-    jrgb, jw = jrk.apply_raymarch_composited(params, jcfg, orig, dirs, vc, z, jcd)
-    ws, bs = rc.flatten_params(tm.params_from_jax(params), tcfg, cd)
-    rd = rk.pack_rays(tcfg, torch.tensor(orig), torch.tensor(dirs),
-                      torch.tensor(np.asarray(vc)) if vc is not None else None)
-    tz = torch.tensor(z)
-    _, xe, de = rk.encode_rays_plain(tcfg, rd, tz)  # the f32 features the tiles round
-    rnd = (lambda t: t.bfloat16().float()) if cd == torch.bfloat16 else (lambda t: t)
+def _fwd_groups(tcfg, ws, bs, cd, S, tiles_of, tz):
+    """forward_groups in the kit of ``cd`` (bf16: 128-row groups; f32: the f32
+    kit's 64-row groups, a ray over several tiles above 64 samples): each
+    group's raw rows (:func:`_group_raw` on ``tiles_of(ray0, rows)``), then
+    composite_ray one ray at a time, sample by sample. Returns (rgb, weights,
+    raw (R, S, 4))."""
+    bm = BM if cd == torch.bfloat16 else T32_BM
     wf = _unpack(rc.pack_mma_weights(ws, tcfg, "f"), tcfg, "f")
-    bm = BM if cd == torch.bfloat16 else TM
     rgb, weights = torch.zeros(N_RAYS, 3), torch.zeros(N_RAYS, S)
+    raw_all = torch.zeros(N_RAYS, S, 4)
     for group in range(n_groups(N_RAYS, S, bm)):
         ray0, n_rays, rows = group_at(group, N_RAYS, S, bm)
-        sl = slice(ray0 * S, ray0 * S + rows)
-        raw = _forward(tcfg, rnd(xe[sl]), rnd(de[sl]) if de is not None else None, wf, bs,
-                       cd).reshape(n_rays, S, 4)
+        x, d = tiles_of(ray0, rows)
+        raw = _group_raw(tcfg, ws, bs, cd, x, d, wf, bm).reshape(n_rays, S, 4)
         rays = slice(ray0, ray0 + n_rays)
         rgb[rays], weights[rays] = _composite_ray(raw, tz[rays])
+        raw_all[rays] = raw
+    return rgb, weights, raw_all
+
+
+def _b7_setup(case, S, seed):
+    """JAX's params and rays, the port's weights, packed rays and z, and
+    ``tiles_of(ray0, rows)``: the features B7's tiles hold (bf16:
+    build_mma_inputs' rounding; f32: build_t32_inputs' f32 features)."""
+    jcfg, tcfg, params, x = _enc_setup(case, S, seed=seed)
+    vc = (jcam.view_direction_components(x["dirs"], jcfg.n_angles) if jcfg.uses_view_dirs
+          else None)
+    rd = rk.pack_rays(tcfg, torch.tensor(x["orig"]), torch.tensor(x["dirs"]),
+                      torch.tensor(np.asarray(vc)) if vc is not None else None)
+    tz = torch.tensor(x["z"])
+    _, xe, de = rk.encode_rays_plain(tcfg, rd, tz)  # the f32 features the tiles round
+
+    def tiles_of(cd):
+        rnd = (lambda t: t.bfloat16().float()) if cd == torch.bfloat16 else (lambda t: t)
+
+        def of(ray0, rows):
+            sl = slice(ray0 * S, ray0 * S + rows)
+            return rnd(xe[sl]), (rnd(de[sl]) if de is not None else None)
+        return of
+    return jcfg, tcfg, params, x, vc, rd, tz, tiles_of
+
+
+@pytest.mark.parametrize("name,cd,jcd", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("n_samples", SAMPLES)
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_b7_forward_in_the_kernels_order_matches_jax(case, n_samples, name, cd, jcd):
+    """forward_groups with B7's policy (:func:`_fwd_groups`): each tile's
+    features as the tiles hold them, the forward of the kit (bf16: the F
+    pack's products, 128-row groups; f32: the f32 kit's 3xTF32 products,
+    64-row groups, a ray over two tiles at S = 100 and 128 and three at 192),
+    then composite_ray one ray at a time, sample by sample; rgb and weights
+    against JAX's B7 forward (``_forward_rays_comp_pallas`` in interpret
+    mode), scaled by the largest |value|: 1e-4 in f32 (other orders of sums,
+    the TPU kernel's log-step scans), 2e-2 in bf16 (chip_smoke.py TOL: a
+    1-ulp difference of a sum or of the two CPU sines flips a bf16
+    rounding)."""
+    S = n_samples
+    jcfg, tcfg, params, x, vc, _, tz, tiles_of = _b7_setup(case, S, 5)
+    jrgb, jw = jrk.apply_raymarch_composited(params, jcfg, x["orig"], x["dirs"], vc, x["z"], jcd)
+    ws, bs = rc.flatten_params(tm.params_from_jax(params), tcfg, cd)
+    rgb, weights, _ = _fwd_groups(tcfg, ws, bs, cd, S, tiles_of(cd), tz)
     tol = {"float32": 1e-4, "bfloat16": 2e-2}[name]
     _hold([rgb, weights], [jrgb, jw], tol, normwise=False)
-    # The bf16 kernel: forward_groups with the inputs its backward builds.
-    assert "nerf_cmma::forward_groups(pol, smem16, dm, L, M, F, B, raw, ry.R, ry.S, groups);" \
-        in B7F_SRC and "struct RayCompFwd : RayGroupInputs {" in B7F_SRC
+    # Both kernels: forward_groups of their kit with the inputs their
+    # backwards build.
+    for line in ("  nerf_cmma::forward_groups(pol, smem16, dm, L, M, F, B, raw, ry.R, ry.S, groups);",
+                 "  nerf_cmma::forward_groups<RayCompFwd, nerf_tmma::Kit>(pol, smem16, dm, L, M, F, "
+                 "B, raw, ry.R,", "struct RayCompFwd : RayGroupInputs {"):
+        assert line in B7F_SRC
     assert "struct RayComp : RayGroupInputs {" in B7_SRC
-    assert "    build_mma_inputs(ry, xyz, dir, grow0 + r0, grow0 + g.rows, X, D);" in B7_TILE_SRC
+    for line in ("    build_mma_inputs(ry, xyz, dir, grow0 + r0, grow0 + g.rows, X, D);",
+                 "    build_t32_inputs(ry, xyz, dir, grow0 + r0, grow0 + g.rows, X, D);"):
+        assert line in B7_TILE_SRC
 
 
 def _enc_tiles_of(tcfg, x, S, cd):
     """B5's and B4's group X / D rows as the kernels read them: in bf16 the
     tiles of load_comp_mma_inputs (pad rows dropped), in f32 the rows
-    (load_chunk)."""
+    load_comp_t32_inputs copies (the f32 encodings, each ray's exact f32
+    view-dir encoding in every row of the ray)."""
     if cd == torch.bfloat16:
         tiles = {row0: (X, D) for row0, _, X, D in _b5_tiles(tcfg, x["enc"], x["encd"], S)}
     enc = torch.tensor(x["enc"])
@@ -789,11 +893,14 @@ def _b4_jax(jcfg, params, x, jcd, seed):
 
 
 @pytest.mark.parametrize("name,cd,jcd", DTYPES, ids=[d[0] for d in DTYPES])
-@pytest.mark.parametrize("n_samples", [48, 192])
+@pytest.mark.parametrize("n_samples", SAMPLES)
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_b4_forward_in_the_kernels_order_matches_jax(case, n_samples, name, cd, jcd):
-    """forward_groups: each tile's forward from the F pack, then composite_ray
-    one ray at a time, sample by sample; rgb and weights against JAX's B4
+    """forward_groups with B4's policy (:func:`_fwd_groups`): each tile's
+    forward in the kit of ``cd`` (bf16: the F pack's products, 128-row
+    groups; f32: the f32 kit's 3xTF32 products, 64-row groups, a ray over
+    two tiles at S = 100 and 128 and three at 192), then composite_ray one
+    ray at a time, sample by sample; rgb and weights against JAX's B4
     forward, scaled by the largest |value|: 1e-4 in f32 (other orders of
     sums, the TPU kernel's log-step scans), 2e-2 in bf16 (chip_smoke.py TOL:
     a 1-ulp difference of a sum flips a bf16 rounding of an activation)."""
@@ -801,18 +908,17 @@ def test_b4_forward_in_the_kernels_order_matches_jax(case, n_samples, name, cd, 
     jcfg, tcfg, params, x = _enc_setup(case, S, seed=5)
     (jrgb, jw), _, _ = _b4_jax(jcfg, params, x, jcd, 9)
     ws, bs = rc.flatten_params(tm.params_from_jax(params), tcfg, cd)
-    wf = _unpack(rc.pack_mma_weights(ws, tcfg, "f"), tcfg, "f")
-    tz = torch.tensor(x["z"])
-    tiles_of = _enc_tiles_of(tcfg, x, S, cd)
-    rgb, weights = torch.zeros(N_RAYS, 3), torch.zeros(N_RAYS, S)
-    for group in range(n_groups(N_RAYS, S)):
-        ray0, n_rays, rows = group_at(group, N_RAYS, S)
-        X, D = tiles_of(ray0, rows)
-        raw = _forward(tcfg, X, D, wf, bs, cd).reshape(n_rays, S, 4)
-        rays = slice(ray0, ray0 + n_rays)
-        rgb[rays], weights[rays] = _composite_ray(raw, tz[rays])
+    rgb, weights, _ = _fwd_groups(tcfg, ws, bs, cd, S, _enc_tiles_of(tcfg, x, S, cd),
+                                  torch.tensor(x["z"]))
     tol = {"float32": 1e-4, "bfloat16": 2e-2}[name]
     _hold([rgb, weights], [jrgb, jw], tol, normwise=False)
+    # Both kernels: forward_groups of their kit, the policy's inputs as its
+    # backward's.
+    for line in ("  nerf_cmma::forward_groups(pol, smem16, dm, L, M, F, B, raw, in.R, in.S, groups);",
+                 "  nerf_cmma::forward_groups<MlpCompFwd<float>, nerf_tmma::Kit>(pol, smem16, dm, L, "
+                 "M, F, B, raw,", "    load_comp_mma_inputs(in, dm, g, r0, X, D);",
+                 "    load_comp_t32_inputs(in, dm, g, r0, X, D);"):
+        assert line in B4F_SRC
 
 
 @pytest.mark.parametrize("name,cd,jcd", DTYPES, ids=[d[0] for d in DTYPES])
@@ -892,6 +998,99 @@ def _check_b4_backward(case, n_samples, name, cd, jcd, bm):
         assert jgencd is None
 
 
+def test_f32_forward_models_composite_the_raw_rows_of_the_backward_models():
+    """f32 B7's and B4's forwards run forward_groups on the f32 kit, their
+    backwards backward_groups, with one policy's inputs and one forward_tile
+    (kept slots are copies, the ring's next matrix changes no sum): the
+    source lines below. The kernels' raw values are held bitwise on the card
+    (chip_smoke.py ``_same_raw``); here the forward model
+    (:func:`_fwd_groups`) and the backward model (:func:`_emulate_groups` in
+    the f32 kit's 64-row groups, as ``test_b7_backward_in_the_kernels_order_matches_jax``
+    and ``test_b4_f32_in_the_t32_kits_group_order_matches_jax`` walk it) are
+    held to composite the same raw rows at three tiles a ray (S = 192). Both
+    models share :func:`_group_raw`, so this guards their group walks and
+    tile splits only, not a second derivation of the rows."""
+    S, cd = 192, torch.float32
+    for case, kernel in itertools.product(CASES, ("B7", "B4")):
+        if kernel == "B7":
+            _, tcfg, params, x, _, _, tz, tiles_of = _b7_setup(case, S, 5)
+            tiles = tiles_of(cd)
+        else:
+            _, tcfg, params, x = _enc_setup(case, S, seed=5)
+            tz, tiles = torch.tensor(x["z"]), _enc_tiles_of(tcfg, x, S, cd)
+        ws, bs = rc.flatten_params(tm.params_from_jax(params), tcfg, cd)
+        _, _, raw_fwd = _fwd_groups(tcfg, ws, bs, cd, S, tiles, tz)
+        raw_bwd = torch.full((N_RAYS, S, 4), float("nan"))
+        g_rgb, g_w = torch.ones((N_RAYS, 3)), torch.ones((N_RAYS, S))
+
+        def per_ray(ray0, n_rays, raw):  # the backward's compositing reads these raw rows
+            rays = slice(ray0, ray0 + n_rays)
+            raw_bwd[rays] = raw
+            g_raw, dzc = _composite_ray_bwd(raw, tz[rays], g_rgb[rays], g_w[rays])
+            return g_raw, dzc, 0.0
+
+        _emulate_groups(tcfg, ws, bs, cd, S, tiles, per_ray, lambda ray0, rows, dx, xt:
+                        torch.zeros(rows), bm=T32_BM)
+        assert torch.equal(raw_fwd, raw_bwd), (kernel, case)
+        src = {"B7": (B7F_SRC, B7_SRC), "B4": (B4F_SRC, B4_SRC)}[kernel]
+        assert all("nerf_tmma::T32Layout M" in text for text in src)
+    # The kernels: one forward_tile of the f32 kit in both loops, tile j's
+    # raw rows at RAW + 4 j BM, so a ray over several tiles lies whole in RAW.
+    assert COMP_SRC.count("K::forward_tile(tdm, L, M, F, B, t, ring, ") == 2
+    assert "RAW + 4 * j * BM, 0," in COMP_SRC
+
+
+def test_f32_forwards_shared_memory_and_grid_match_the_cuda_sources():
+    """The f32 forwards' shared memory: the f32 kit's forward tiles (P, X, D,
+    the ring, sigma: 129,280 bytes), then 4 floats a row of the group; one
+    block a ray group, as the bf16 forwards launch."""
+    ldh, ldx, ldd = 256 + 8, 64 + 8, 32 + 8
+    tiles = 4 * (T32_BM * ldh + T32_BM * ldx + T32_BM * ldd + 2 * 256 * 16 + T32_BM)
+    assert tiles == 129280
+
+    def fwd_bytes(S):
+        return tiles + 16 * rays_per_group(S, T32_BM) * S
+
+    assert max(fwd_bytes(s) for s in range(1, 65)) == fwd_bytes(64) == fwd_bytes(32) == 130304
+    assert fwd_bytes(128) == 131328 and fwd_bytes(MAX_S) == 137472
+    assert max(fwd_bytes(s) for s in range(1, MAX_S + 1)) == fwd_bytes(MAX_S) <= SMEM_LIMIT
+    for text in ("fwd_smem_bytes<nerf_tmma::Kit>(64) == 130304",
+                 "fwd_smem_bytes<nerf_tmma::Kit>(32) == 130304",
+                 "fwd_smem_bytes<nerf_tmma::Kit>(128) == 131328",
+                 "fwd_smem_bytes<nerf_tmma::Kit>(nerf_comp::MAX_S_COMP) == 137472"):
+        assert text in B7_TILE_SRC
+    for text in ("130,304", "131,328", "137,472"):
+        assert text in COMP_SRC
+    for src, kernel in ((B7F_SRC, "rm_comp_fwd_t32_kernel"), (B4F_SRC, "mlp_comp_fwd_t32_kernel")):
+        assert "nerf_cmma::n_groups(" in src and ", nerf_tmma::BM)" in src
+        assert "nerf_cmma::fwd_smem_bytes<nerf_tmma::Kit>(" in src
+        assert f"{kernel}<<<groups, nerf_tmma::NT, smem, stream>>>(" in src or (
+            f"launch_kernel({kernel}, groups, nerf_tmma::NT," in src)
+
+
+def test_no_model_kernel_runs_the_fma_compositing_forward():
+    """Every compositing forward runs forward_groups: the FMA kernels and the
+    helpers only they used are gone, and no source but B6's forward (its
+    branch for encodings wider than the f32 tile's 64 input columns) calls
+    the FMA tile's f32 forward_tile; the probes keep their own instances."""
+    calls = set()
+    for path in sorted(CSRC.glob("*.cu*")):
+        text = path.read_text()
+        for gone in ("mlp_comp_fwd_kernel", "rm_comp_fwd_kernel", "comp_fwd_smem_bytes",
+                     "group_of(", "load_chunk"):
+            assert gone not in text, (path.name, gone)
+        if "forward_tile<float>" in text:
+            calls.add(path.name)
+    assert calls == {"raymarch_fwd.cu"}
+    b6 = (CSRC / "raymarch_fwd.cu").read_text()
+    fma = b6.index("rm_fwd_fma_kernel(Dims dm")
+    assert b6.index("forward_tile<float>(") > fma
+    assert "  if (!tf32_inputs_fit(dm.xyz, dm.dir)) {" in b6
+    # The FMA-era grouping of composite_common.cuh is gone with them.
+    comp = (CSRC / "composite_common.cuh").read_text()
+    assert "rays_per_group" not in comp and "n_groups" not in comp
+
+
 # --------------------------------------------------------------------------- #
 # (d) the wrappers' packs and scratch                                          #
 # --------------------------------------------------------------------------- #
@@ -941,7 +1140,7 @@ class _FakeLib:
         return self._record(is_bf16, w, wt, dxs, raw, n_blocks, t32=not is_bf16)
 
     def nerf_rm_comp_fwd(self, is_bf16, has_dir, rd, z, w, b, rgb, weights, raw, *tail):
-        return self._record(is_bf16, w, None, None, raw, None)
+        return self._record(is_bf16, w, None, None, raw, None, t32=not is_bf16)
 
     def nerf_mlp_loss_comp(self, is_bf16, has_dir, enc, encd, z, dvec, target, w, wt, b, dz,
                            raw, partial, acts, dxs, out, n_blocks, *tail):
@@ -952,7 +1151,7 @@ class _FakeLib:
         return self._record(is_bf16, w, wt, dds, raw, n_blocks, t32=not is_bf16)
 
     def nerf_mlp_comp_fwd(self, is_bf16, has_dir, enc, encd, z, w, b, rgb, weights, raw, *tail):
-        return self._record(is_bf16, w, None, None, raw, None)
+        return self._record(is_bf16, w, None, None, raw, None, t32=not is_bf16)
 
 
 SMS = 132
@@ -1044,10 +1243,13 @@ def test_exports_in_the_sources_match_the_fake_library(kernel):
     for fma in ("rm_comp_bwd_kernel", "mlp_loss_comp_kernel", "mlp_comp_bwd_kernel(",
                 "mlp_comp_bwd_kernel<", "backward_walk<float>", "cotangent_tile"):
         assert fma not in src
-    # B4's forward keeps the FMA tile in f32.
+    # The forwards too: bf16 on the bf16 branch, f32 on the 3xTF32 tiles.
     bf, f32 = B4F_SRC.index("  if (bf16) {"), B4F_SRC.index("  } else {")
-    assert bf < B4F_SRC.index("_mma_kernel<<<") < f32
-    assert "mlp_comp_fwd_mma_kernel<<<groups, nerf_mma::NT, smem, stream>>>(" in B4F_SRC
+    assert bf < B4F_SRC.index("mlp_comp_fwd_mma_kernel<<<groups, nerf_mma::NT, smem, stream>>>(") < f32
+    assert f32 < B4F_SRC.index("mlp_comp_fwd_t32_kernel<<<groups, nerf_tmma::NT, smem, stream>>>(")
+    bf = B7F_SRC.index("  if (bf16) {")
+    assert bf < B7F_SRC.index("launch_kernel(rm_comp_fwd_mma_kernel, groups, nerf_mma::NT,") < (
+        B7F_SRC.index("launch_kernel(rm_comp_fwd_t32_kernel, groups, nerf_tmma::NT,"))
 
 
 def _call_wrappers(fake_card, lib, kernel, cfg, ws, bs, cd, R, S, gen, fwd=True, **kw):
@@ -1081,9 +1283,10 @@ def _call_wrappers(fake_card, lib, kernel, cfg, ws, bs, cd, R, S, gen, fwd=True,
 def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, name):
     """bf16: the F and B packs of ``pack_mma_weights`` (their size checked
     against the library's; B4's and B7's forwards the F pack alone), a slab
-    (B4's of dd rows, with view dirs only); f32: B7's backward and B5 the hi /
-    lo F and B buffers of ``t32_packs`` (their size checked) and a slab (B4's
-    of dd rows, with view dirs only), the forwards the flat weights."""
+    (B4's of dd rows, with view dirs only); f32: the backwards and B5 the F
+    and B buffers of ``t32_packs`` (their size checked) and a slab (B4's of
+    dd rows, with view dirs only), the forwards its F buffer alone (its size
+    checked too)."""
     cfg = tm.MLPConfig(**case)
     cd = getattr(torch, name)
     lib = _FakeLib(kernel, cfg)
@@ -1097,7 +1300,7 @@ def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, na
         assert fwd["wt"] is None
         calls = [c for c in calls if c is not fwd]
         want = (rc.pack_mma_weights(ws, cfg, "f").view(torch.int16).numpy().view(np.uint16)
-                if cd == torch.bfloat16 else torch.cat([w.reshape(-1) for w in ws]).numpy())
+                if cd == torch.bfloat16 else rc.t32_packs(ws, cfg)[0].numpy())
         np.testing.assert_array_equal(fwd["w"], want)
     (call,) = calls
     assert call["n_blocks"] == lib.nerf_comp_groups(cd == torch.bfloat16, R, S)
@@ -1116,8 +1319,13 @@ def test_wrappers_pass_the_packs_of_the_compute_type(fake_card, case, kernel, na
     match = "weight-pack layout" if cd == torch.bfloat16 else "f32 backward's pack layout"
     with pytest.raises(RuntimeError, match=match):
         _call_wrappers(fake_card, bad, kernel, cfg, ws, bs, cd, R, S,
-                       torch.Generator().manual_seed(1), fwd=cd == torch.bfloat16)
+                       torch.Generator().manual_seed(1))
     assert not bad.calls
+    if kernel != "B5":  # the backward alone refuses the bad pack too
+        with pytest.raises(RuntimeError, match=match):
+            _call_wrappers(fake_card, bad, kernel, cfg, ws, bs, cd, R, S,
+                           torch.Generator().manual_seed(1), fwd=False)
+        assert not bad.calls
 
 
 # --------------------------------------------------------------------------- #
@@ -1237,16 +1445,23 @@ def test_raw_output_on_the_cpu_is_the_plain_forward(kernel):
         assert torch.equal(raw_f, raw)
         assert all(torch.equal(a, b) for a, b in zip(
             got_f, rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd)))
-        # f32 B7's backward gives its raw values too (the C3 step report reads
-        # them); a raw tensor of another shape raises.
+        # f32 B7's backward and forward give their raw values too (the C3
+        # step report and the card's checks read them); a raw tensor of
+        # another shape raises.
         ws32, bs32 = rc.flatten_params(tm.init_params(torch.Generator(), cfg), cfg,
                                        torch.float32)
-        raw32 = torch.full((*z.shape, 4), float("nan"))
+        raw32, raw32_f = (torch.full((*z.shape, 4), float("nan")) for _ in range(2))
         rk.raymarch_comp_bwd(ws32, bs32, cfg, rd, z, g_rgb, g_w, torch.float32, raw=raw32)
+        got32_f = rk.raymarch_comp_fwd(ws32, bs32, cfg, rd, z, torch.float32, raw=raw32_f)
         assert torch.equal(raw32, rk.raymarch_fwd_plain(ws32, bs32, cfg, rd, z, torch.float32))
-        with pytest.raises(ValueError, match="expected"):
-            rk.raymarch_comp_bwd(ws32, bs32, cfg, rd, z, g_rgb, g_w, torch.float32,
-                                 raw=raw32[:, :-1])
+        assert torch.equal(raw32_f, raw32)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got32_f, rk.raymarch_comp_fwd_plain(ws32, bs32, cfg, rd, z, torch.float32)))
+        for fn in (lambda r: rk.raymarch_comp_bwd(ws32, bs32, cfg, rd, z, g_rgb, g_w,
+                                                  torch.float32, raw=r),
+                   lambda r: rk.raymarch_comp_fwd(ws32, bs32, cfg, rd, z, torch.float32, raw=r)):
+            with pytest.raises(ValueError, match="expected"):
+                fn(raw32[:, :-1])
     elif kernel == "B5":
         ws, bs = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(5), cfg), cfg, cd)
         _, enc, encd, z, dvec, target = _b5_inputs(cfg, 3, 40)
@@ -1272,29 +1487,32 @@ def test_raw_output_on_the_cpu_is_the_plain_forward(kernel):
             assert all(torch.equal(a, b) for a, b in zip(got[-2:], want[-2:]))
         with pytest.raises(ValueError, match="expected"):
             rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, z, g_rgb, g_w, cd, raw=raw_b[:, :-1])
-        # f32 B4's backward gives its raw values too; its forward (the FMA
-        # tile) raises.
+        # f32 B4's forward and backward give their raw values too (both on
+        # the 3xTF32 tiles); a raw tensor of another shape raises.
         ws32, bs32 = rc.flatten_params(tm.init_params(torch.Generator().manual_seed(5), cfg), cfg,
                                        torch.float32)
         enc32 = enc.float()
-        raw32 = torch.full((*z.shape, 4), float("nan"))
+        want32 = rk._raw_on_encodings(ws32, bs32, cfg, enc32, encd, z, torch.float32)[0]
+        raw32, raw32_f = (torch.full((*z.shape, 4), float("nan")) for _ in range(2))
         got32 = rk.mlp_comp_bwd(ws32, bs32, cfg, enc32, encd, z, g_rgb, g_w, torch.float32,
                                 raw=raw32)
-        assert torch.equal(raw32, rk._raw_on_encodings(ws32, bs32, cfg, enc32, encd, z,
-                                                       torch.float32)[0])
+        got32_f = rk.mlp_comp_fwd(ws32, bs32, cfg, enc32, encd, z, torch.float32, raw=raw32_f)
+        assert torch.equal(raw32, want32) and torch.equal(raw32_f, want32)
         assert all(torch.equal(a, b) for a, b in zip(got32[-2:], rk.mlp_comp_bwd_plain(
             ws32, bs32, cfg, enc32, encd, z, g_rgb, g_w, torch.float32)[-2:]))
-        with pytest.raises(ValueError, match="bf16"):
-            rk.mlp_comp_fwd(ws32, bs32, cfg, enc32, encd, z, torch.float32, raw=raw32)
+        assert all(torch.equal(a, b) for a, b in zip(got32_f, rk.mlp_comp_fwd_plain(
+            ws32, bs32, cfg, enc32, encd, z, torch.float32)))
+        with pytest.raises(ValueError, match="expected"):
+            rk.mlp_comp_fwd(ws32, bs32, cfg, enc32, encd, z, torch.float32, raw=raw32[:, :-1])
 
 
 @pytest.mark.parametrize("name", ["bfloat16", "float32"])
 @pytest.mark.parametrize("kernel", ["B7", "B5", "B4"])
 def test_wrappers_pass_the_raw_output_to_the_bf16_kernels(fake_card, kernel, name):
-    """Every bf16 kernel takes the raw output (B7's and B4's forwards and
-    backwards, B5); in f32 the backwards and B5 do (their tensor-core kernels
-    write it for the kink-aware checks and the C3 step report) and the
-    forwards of B7 and B4 (the FMA tile) raise."""
+    """Every kernel takes the raw output, in both types: B7's and B4's
+    forwards and backwards and B5 (all on the tensor cores; the card's checks
+    read it, and hold each f32 forward's raw values bitwise to its
+    backward's)."""
     cfg = tm.MLPConfig(**CASES[1])
     cd = getattr(torch, name)
     lib = _FakeLib(kernel, cfg)
@@ -1309,19 +1527,12 @@ def test_wrappers_pass_the_raw_output_to_the_bf16_kernels(fake_card, kernel, nam
     call()
     assert all(c["raw"] is None for c in lib.calls)
     n = len(lib.calls)
-    if cd == torch.bfloat16:
-        call(raw=raw)
-        assert len(lib.calls) == 2 * n and all(c["raw"] == raw.data_ptr() for c in lib.calls[n:])
-    elif kernel == "B5":
-        call(raw=raw)
-        assert len(lib.calls) == n + 1 and lib.calls[-1]["raw"] == raw.data_ptr()
-    else:
-        with pytest.raises(ValueError, match="bf16"):
-            call(raw=raw)
-        assert len(lib.calls) == n
+    call(raw=raw)
+    assert len(lib.calls) == 2 * n and all(c["raw"] == raw.data_ptr() for c in lib.calls[n:])
+    if kernel != "B5":  # the forward, then the backward
+        assert lib.calls[n]["n_blocks"] is None and lib.calls[-1]["n_blocks"] is not None
         call(raw=raw, fwd=False)  # the backward alone
-        assert len(lib.calls) == n + 1 and lib.calls[-1]["raw"] == raw.data_ptr()
-        assert lib.calls[-1]["n_blocks"] is not None
+        assert len(lib.calls) == 2 * n + 1 and lib.calls[-1]["raw"] == raw.data_ptr()
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
