@@ -56,6 +56,21 @@ through
 ``fuse_compositing`` and ``fuse_fine_loss`` (B4 on the coarse pass, B5 on the
 fine pass), and "pallas" and "pallas_rm" with compute_dtype float32 through
 the ``Trainer`` (f32 B1 and B2; f32 B6 in the step).
+Then the runner phase drives the normal entry point,
+``nerf_and_dietnerf_tpu_torch.main.main([cfg])``: a config of the "pallas"
+path's widths with every task on, 2 epochs and 4 video frames a second,
+through script-only stand-ins for what the card's machine cannot import
+(``runner_phase``, ``_runner_stand_ins``: the config and the scene built in
+Python, the video and plot writers recording their arrays, the ``.h5`` files
+held with ``torch.save`` under their real names; the package keeps its real
+writers). Each task runs with the launch counts set to 0 just before it and
+must launch exactly its kernels (the training bf16 B1 and B2 and f32 B1 in
+its eval renders, each rendered frame two f32 B1 launches); every frame is
+checked (shape, finite, in [0, 1], depth frames equalised), a 32x32 patch of
+the first left-to-right pose must agree card vs CPU to 1e-4 from the trained
+weights, and the resume drill (4 epochs straight through ``main`` against 2,
+then a second ``main`` resuming the directory to epoch 4) must give bitwise
+equal parameters and PSNR histories.
 Then the seven probe kernels (P1 ``probe_mma``, P2
 ``probe_mlp_epilogue``, P3 ``probe_mlp_chains``, P4-P6 ``probe_expand_a/b/c``,
 P7 ``probe_enccost``) are held against their plain versions at the probe
@@ -2247,13 +2262,13 @@ EVAL_PATCH = 32
 TOL_PATCH = 1e-4
 
 
-def eval_patch_phase(torch, timings: dict, trainer) -> None:
-    """A 32x32-ray patch from the middle of the held-out view, rendered as the
-    eval renders render (``nerf.render`` with the trainer's f32 eval config,
-    coarse + fine), on the card (f32 B1) and on the CPU (the plain path),
-    from the same trained weights and the same injected ``strat_u`` /
-    ``fine_u`` draws. Fails if a pixel differs by more than ``TOL_PATCH``;
-    records both PSNRs against the view's pixels."""
+def _patch_vs_cpu(torch, params, cfg, ds, c2w, label: str, target=None) -> dict:
+    """The 32x32-ray patch from the middle of the view ``c2w``, rendered as
+    the eval renders render (``nerf.render`` with the f32 config ``cfg``,
+    coarse + fine), on the card (f32 B1) and on the CPU (the plain path), from
+    the same weights and the same injected ``strat_u`` / ``fine_u`` draws.
+    Fails if a pixel differs by more than ``TOL_PATCH``; with ``target`` (the
+    view's pixels) records both PSNRs."""
     import numpy as np
 
     from nerf_and_dietnerf_tpu_torch.core import cameras, rendering
@@ -2261,39 +2276,51 @@ def eval_patch_phase(torch, timings: dict, trainer) -> None:
     from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
     from nerf_and_dietnerf_tpu_torch.utils.tree import tree_map
 
-    ds, cfg, idx = trainer.dataset, trainer.eval_config, trainer.run.test_img_idx
     h0, w0 = (ds.height - EVAL_PATCH) // 2, (ds.width - EVAL_PATCH) // 2
-    orig, dirs = cameras.rays_for_image(ds.height, ds.width, ds.field_of_view,
-                                        torch.as_tensor(ds.camera_poses[idx], device=DEVICE))
+    orig, dirs = cameras.rays_for_image(
+        ds.height, ds.width, ds.field_of_view,
+        torch.as_tensor(np.asarray(c2w, np.float32), device=DEVICE))
     patch = (slice(h0, h0 + EVAL_PATCH), slice(w0, w0 + EVAL_PATCH))
     orig, dirs = (t.reshape(ds.height, ds.width, -1)[patch].reshape(EVAL_PATCH ** 2, -1)
                   .contiguous() for t in (orig, dirs))
-    target = torch.as_tensor(ds.images[idx][patch]).reshape(-1, 3)
     rng = np.random.default_rng(SEED)
     n = EVAL_PATCH ** 2
     draws = {"strat_u": rng.uniform(size=(n, cfg.n_samples_coarse)).astype(np.float32),
              "fine_u": np.sort(rng.uniform(size=(n, cfg.n_samples_fine)), -1).astype(np.float32)}
     out = {}
     for dev in (DEVICE, "cpu"):
-        params = tree_map(lambda t, d=dev: t.detach().to(d), trainer.state.params)
+        params_dev = tree_map(lambda t, d=dev: t.detach().to(d), params)
         before = kl.LAUNCHES["mlp_fwd"]
-        result, _ = nerf.render(params, cfg, None, orig.to(dev), dirs.to(dev), diagnostics=False,
+        result, _ = nerf.render(params_dev, cfg, None, orig.to(dev), dirs.to(dev),
+                                diagnostics=False,
                                 draws={k: torch.as_tensor(v, device=dev) for k, v in draws.items()})
         out[dev] = result.rgb.detach().float().cpu()
         launched = kl.LAUNCHES["mlp_fwd"] - before
         kl.LAUNCHES["mlp_fwd"] = before
         if (dev == DEVICE) != (launched > 0):
-            raise AssertionError(f"eval patch on {dev}: {launched} launches of mlp_fwd")
+            raise AssertionError(f"{label} on {dev}: {launched} launches of mlp_fwd")
     diff = float((out[DEVICE] - out["cpu"]).abs().max())
-    psnr = {dev: float(rendering.psnr(target, rgb)) for dev, rgb in out.items()}
-    rec = {"rays": n, "max_abs_pixel_diff": diff, "tol": TOL_PATCH, "psnr_card": psnr[DEVICE],
-           "psnr_cpu": psnr["cpu"]}
-    timings["eval_patch"] = rec
-    log(f"eval patch {EVAL_PATCH}x{EVAL_PATCH} of view {idx} (f32, pallas): card vs CPU max "
-        f"|pixel diff| {diff:.3e} (tol {TOL_PATCH}), PSNR card {psnr[DEVICE]:.4f} dB, CPU "
-        f"{psnr['cpu']:.4f} dB")
+    rec = {"rays": n, "max_abs_pixel_diff": diff, "tol": TOL_PATCH}
+    text = ""
+    if target is not None:
+        target = torch.as_tensor(target[patch]).reshape(-1, 3)
+        psnr = {dev: float(rendering.psnr(target, rgb)) for dev, rgb in out.items()}
+        rec.update(psnr_card=psnr[DEVICE], psnr_cpu=psnr["cpu"])
+        text = f", PSNR card {psnr[DEVICE]:.4f} dB, CPU {psnr['cpu']:.4f} dB"
+    log(f"{label} {EVAL_PATCH}x{EVAL_PATCH} (f32, {cfg.backend}): card vs CPU max |pixel diff| "
+        f"{diff:.3e} (tol {TOL_PATCH}){text}")
     if not (math.isfinite(diff) and diff <= TOL_PATCH):
-        raise AssertionError(f"eval patch: card and CPU renders differ by {diff} > {TOL_PATCH}")
+        raise AssertionError(f"{label}: card and CPU renders differ by {diff} > {TOL_PATCH}")
+    return rec
+
+
+def eval_patch_phase(torch, timings: dict, trainer) -> None:
+    """The held-out view's patch (``_patch_vs_cpu``) from the trainer's
+    weights, with both PSNRs against the view's pixels."""
+    ds, idx = trainer.dataset, trainer.run.test_img_idx
+    timings["eval_patch"] = _patch_vs_cpu(
+        torch, trainer.state.params, trainer.eval_config, ds, ds.camera_poses[idx],
+        f"eval patch of view {idx}", target=ds.images[idx])
 
 
 def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
@@ -2338,6 +2365,346 @@ def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
         f"{timings['train_' + path]['ms_per_step']:.3f} ms a step, "
         f"{timings['train_' + path]['rays_per_sec']:.0f} rays/s (epoch 2)")
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# The runner phase: the CLI end to end                                         #
+# --------------------------------------------------------------------------- #
+
+# The runner phase's config: _flagship_run("pallas") with every task on, two
+# epochs, and 4 video frames a second in place of the flagship's 60 (its only
+# cut besides the scene): 20 left-to-right, 48 sphere and 24 waypoint frames,
+# 16 interpolation frames and one ray-value frame, all f32 at 128x128.
+RUNNER_FPS = 4
+RUNNER_WAYPOINTS = (1, 2, 3)
+RUNNER_DIR = ROOT / "build" / "chip_smoke_runner"
+# The Runner methods the phase times, each with the launch counts set to 0
+# just before it; render_video is named by the video it writes.
+RUNNER_TASKS = ("training", "render_video", "save_dataset_video", "save_plot_video",
+                "create_ray_value_plots", "create_interpolation_plot")
+RUNNER_ORDER = ("training", "l_to_r", "sphere", "path", "save_dataset_video",
+                "save_plot_video", "create_ray_value_plots", "create_interpolation_plot")
+
+
+def _runner_run(n_epochs: int, all_tasks: bool):
+    """``_flagship_run("pallas")`` as the runner phase's configs use it."""
+    import dataclasses
+
+    from nerf_and_dietnerf_tpu_torch.utils.config import TasksConfig, VideoConfig
+
+    run = _flagship_run("pallas")
+    run.n_epochs = n_epochs
+    run.tasks = TasksConfig(**{f.name: all_tasks or f.name == "start_training"
+                               for f in dataclasses.fields(TasksConfig)})
+    run.video = VideoConfig(fps_render_video=RUNNER_FPS,
+                            img_indices_for_path_video=list(RUNNER_WAYPOINTS))
+    return run
+
+
+def _runner_stand_ins(torch, configs: dict, ds, rec: dict):
+    """The script-only stand-ins of the runner phase, for what the card's
+    machine cannot import (PyYAML, h5py, cv2, matplotlib, imageio):
+    ``config_lib.load_config`` returns the Python-built config named by the
+    file's name; ``loaders.load_dataset`` returns ``synthetic_scene()``; the
+    video and plot writers record what they are given into ``rec`` (the plot
+    writers leave an empty file under the plot's real name, so the plot
+    video's numbered-file filter reads a real directory); the ``.h5`` writer
+    and reader keep the reference's file names and hold the parameters with
+    ``torch.save``. The package keeps its real writers."""
+    import copy
+
+    import numpy as np
+
+    from nerf_and_dietnerf_tpu_torch.data import loaders
+    from nerf_and_dietnerf_tpu_torch.train import checkpoint
+    from nerf_and_dietnerf_tpu_torch.utils import config as config_lib
+    from nerf_and_dietnerf_tpu_torch.viz import plots, video
+
+    def load_config(path):
+        run = copy.deepcopy(configs[Path(path).name])
+        run.config_name = Path(path).stem
+        return run
+
+    def touch(save_dir, name):
+        out = Path(save_dir) / plots.PLOT_ITERATION_DIRNAME
+        out.mkdir(parents=True, exist_ok=True)
+        (out / name).touch()
+
+    def save_frames_as_video(filename, frames, fps):
+        rec["videos"].append((Path(filename).name, [np.asarray(f) for f in frames]))
+
+    def save_plot_video(fps, plots_dir, out_path):
+        rec["plot_video"].append((Path(out_path).name, video._numbered_images_in(plots_dir)))
+
+    def save_test_image(save_dir, image):
+        touch(save_dir, plots.TEST_IMG_FILENAME)
+
+    def save_epoch_plot(save_dir, epoch, train_image, train_render, test_image, test_render,
+                        psnrs_train, psnrs_test):
+        touch(save_dir, plots.EPOCH_PLOT_FORMAT.format(epoch))
+        rec["epoch_plots"].append(epoch)
+
+    def save_ray_value_plots(save_dir, render_image, ray_coords, weights_b, cumprod_b, alpha_b,
+                             rgb_b, epoch):
+        rec["rays"].append(dict(render=render_image, weights=weights_b, cumprod=cumprod_b,
+                                alpha=alpha_b, rgb=rgb_b))
+
+    def save_interpolation_plot(save_dir, image1, image2, rendered):
+        rec["interp"].append(list(rendered))
+
+    def save_keras_h5(path, params, config):
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(params, path)
+
+    def load_keras_h5(path, config, has_fine=True, device="cpu"):
+        params = torch.load(path, map_location=device, weights_only=False)
+        return params if has_fine else {**params, "fine": None}
+
+    return [(config_lib, "load_config", load_config),
+            (loaders, "load_dataset", lambda *a, **k: ds),
+            (video, "save_frames_as_video", save_frames_as_video),
+            (video, "save_plot_video", save_plot_video),
+            (plots, "save_test_image", save_test_image),
+            (plots, "save_epoch_plot", save_epoch_plot),
+            (plots, "save_ray_value_plots", save_ray_value_plots),
+            (plots, "save_interpolation_plot", save_interpolation_plot),
+            (checkpoint, "save_keras_h5", save_keras_h5),
+            (checkpoint, "load_keras_h5", load_keras_h5)]
+
+
+def _runner_meters(torch, tasks: list, epochs: list):
+    """Wrappers of the ``Runner`` tasks (``RUNNER_TASKS``) that set the launch
+    counts to 0 just before each and record its seconds, frames and launches
+    into ``tasks``; of its epoch callback, recording each epoch into
+    ``epochs``; and of B1's wrapper, counting its launches by compute type."""
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda
+    from nerf_and_dietnerf_tpu_torch.tasks.runner import Runner
+    from nerf_and_dietnerf_tpu_torch.viz import video
+
+    labels = {video.FILENAME_RGB_L_TO_R: "l_to_r", video.FILENAME_RGB_SPHERE: "sphere",
+              video.FILENAME_RGB_PATH: "path"}
+    frames_of = {"create_ray_value_plots": 1, "create_interpolation_plot": 16}
+    by_dtype: dict = {}
+    swaps = []
+    for name in RUNNER_TASKS:
+        def timed(self, *args, _real=getattr(Runner, name), _name=name, **kwargs):
+            torch.cuda.synchronize()
+            kl.reset_launch_counts()
+            by_dtype.clear()
+            t0 = time.perf_counter()
+            out = _real(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            tasks.append({
+                "task": labels[args[1]] if _name == "render_video" else _name,
+                "seconds": time.perf_counter() - t0,
+                "frames": len(args[0]) if _name == "render_video" else frames_of.get(_name),
+                "launches": {k: v for k, v in kl.LAUNCHES.items() if v},
+                "mlp_fwd_by_dtype": dict(by_dtype), "runner": self})
+            return out
+        swaps.append((Runner, name, timed))
+
+    def epoch_callback(self, trainer, stats, _real=Runner._epoch_callback):
+        epochs.append({"epoch": stats.epoch, "loss": stats.loss, "psnr_test": stats.psnr_test,
+                       "step_loop_s": stats.seconds, "steps": trainer.data.batches_per_epoch,
+                       "at": time.perf_counter()})
+        return _real(self, trainer, stats)
+
+    def mlp_fwd(ws, bs, config, x, d, compute_dtype, _real=raymarch_cuda.mlp_fwd):
+        before = kl.LAUNCHES["mlp_fwd"]
+        out = _real(ws, bs, config, x, d, compute_dtype)
+        key = str(compute_dtype).replace("torch.", "")
+        by_dtype[key] = by_dtype.get(key, 0) + kl.LAUNCHES["mlp_fwd"] - before
+        return out
+
+    return swaps + [(Runner, "_epoch_callback", epoch_callback),
+                    (raymarch_cuda, "mlp_fwd", mlp_fwd)]
+
+
+def _runner_launch_check(task: dict, want: dict, want_by_dtype: dict) -> None:
+    """A task's launches must be exactly ``want`` (no other kernel), and B1's
+    split by compute type exactly ``want_by_dtype``."""
+    if task["launches"] != want or task["mlp_fwd_by_dtype"] != want_by_dtype:
+        raise AssertionError(
+            f"runner task {task['task']}: launches {task['launches']} by type "
+            f"{task['mlp_fwd_by_dtype']}, expected {want} by type {want_by_dtype}")
+
+
+def _check_runner_tasks(tasks: list, n_epochs: int, steps: int) -> None:
+    """Launches of each task: the training's bf16 steps (B1 and B2, two each)
+    and its f32 eval renders (B1, two a frame, two frames an epoch); two f32
+    B1 launches (coarse, fine: one chunk) a rendered frame; none elsewhere."""
+    for t in tasks:
+        if t["task"] == "training":
+            bf16, f32 = 2 * steps * n_epochs, 2 * 2 * n_epochs
+            _runner_launch_check(t, {"mlp_fwd": bf16 + f32, "mlp_bwd": bf16},
+                                 {"bfloat16": bf16, "float32": f32})
+        elif t["frames"] is None:
+            _runner_launch_check(t, {}, {})
+        else:
+            _runner_launch_check(t, {"mlp_fwd": 2 * t["frames"]}, {"float32": 2 * t["frames"]})
+
+
+def _check_frame(what: str, frame, ds) -> None:
+    import numpy as np
+
+    frame = np.asarray(frame)
+    if frame.shape != (ds.height, ds.width, 3) or not np.isfinite(frame).all() \
+            or frame.min() < 0 or frame.max() > 1:
+        raise AssertionError(f"{what}: frame of shape {frame.shape}, range "
+                             f"[{np.nanmin(frame)}, {np.nanmax(frame)}]")
+
+
+def _check_depth_frame(what: str, frame, ds) -> None:
+    """An equalised depth frame: (h, w), on the 256-level grid, from 0 to 1."""
+    import numpy as np
+
+    frame = np.asarray(frame)
+    levels = frame * 255.0
+    if frame.shape != (ds.height, ds.width) or not np.isfinite(frame).all() \
+            or frame.min() != 0.0 or not abs(frame.max() - 1.0) < 1e-12 \
+            or np.abs(levels - np.round(levels)).max() > 1e-9:
+        raise AssertionError(f"{what}: depth frame of shape {frame.shape} is not equalised")
+
+
+def runner_phase(torch, timings: dict) -> None:
+    """The normal entry point, ``main.main([cfg])``, on the runner config
+    (``_runner_run(2, all_tasks=True)``) through the script's stand-ins
+    (``_runner_stand_ins``): every task in the reference's order with the
+    launch counts set to 0 before each, its frames checked, a 32x32 patch of
+    the first left-to-right pose card vs CPU from the trained weights; then
+    the resume drill: ``main`` for 4 epochs of training, against ``main`` for
+    2 and a second ``main`` resuming that directory to epoch 4, parameters
+    and PSNR histories bitwise equal."""
+    import contextlib
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+
+    from nerf_and_dietnerf_tpu_torch import main as cli
+    from nerf_and_dietnerf_tpu_torch.train import checkpoint
+    from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
+    from nerf_and_dietnerf_tpu_torch.viz import plots, video
+
+    shutil.rmtree(RUNNER_DIR, ignore_errors=True)
+    RUNNER_DIR.mkdir(parents=True)
+    results = RUNNER_DIR / "Results"
+    ds = synthetic_scene()
+    resume = _runner_run(4, all_tasks=False)
+    resume.existing_save_dir_name, resume.starting_epoch_number = "drill_split_save_dir_0", 2
+    configs = {"runner.yaml": _runner_run(2, all_tasks=True),
+               "drill_straight.yaml": _runner_run(4, all_tasks=False),
+               "drill_split.yaml": _runner_run(2, all_tasks=False),
+               "drill_resume.yaml": resume}
+    for name in configs:
+        (RUNNER_DIR / name).write_text(f"# {name}: the config is built in chip_smoke.py\n")
+    rec = {k: [] for k in ("videos", "plot_video", "epoch_plots", "rays", "interp")}
+    tasks, epochs = [], []
+
+    def cli_run(name: str) -> float:
+        del tasks[:], epochs[:]
+        argv = [str(RUNNER_DIR / name), "--save-root", str(results)]
+        if DEVICE == "cpu":
+            argv += ["--platform", "cpu"]
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"main.main({argv}) returned {rc}")
+        return time.perf_counter() - t0
+
+    out: dict = {"fps_render_video": RUNNER_FPS}
+    drill: dict = {}
+    with contextlib.ExitStack() as stack:
+        for owner, name, value in (_runner_stand_ins(torch, configs, ds, rec)
+                                   + _runner_meters(torch, tasks, epochs)):
+            stack.enter_context(mock.patch.object(owner, name, value))
+        out["main_seconds"] = cli_run("runner.yaml")
+        order = [t["task"] for t in tasks]
+        if order != list(RUNNER_ORDER):
+            raise AssertionError(f"runner tasks ran as {order}, expected {RUNNER_ORDER}")
+        steps = epochs[0]["steps"]
+        _check_runner_tasks(tasks, 2, steps)
+        runner = tasks[0]["runner"]
+        paths = {"l_to_r": runner.l_to_r_path_matrices(), "sphere": runner.sphere_path_matrices(),
+                 "path": runner.waypoint_path_matrices()}
+        for t in tasks[1:4]:
+            if t["frames"] != len(paths[t["task"]]):
+                raise AssertionError(f"{t['task']}: {t['frames']} frames rendered")
+        want = [(name, len(paths[task])) for task, names in (
+            ("l_to_r", (video.FILENAME_RGB_L_TO_R, video.FILENAME_DEPTH_L_TO_R)),
+            ("sphere", (video.FILENAME_RGB_SPHERE, video.FILENAME_DEPTH_SPHERE)),
+            ("path", (video.FILENAME_RGB_PATH, video.FILENAME_DEPTH_PATH))) for name in names]
+        want.append((video.FILENAME_TRAIN_SET, len(ds) - 1))
+        got = [(name, len(frames)) for name, frames in rec["videos"]]
+        if got != want:
+            raise AssertionError(f"videos written {got}, expected {want}")
+        for name, frames in rec["videos"][:-1]:
+            check = _check_depth_frame if "depths" in name else _check_frame
+            for i, frame in enumerate(frames):
+                check(f"{name} frame {i}", frame, ds)
+        want_plots = [plots.EPOCH_PLOT_FORMAT.format(e) for e in (1, 2)]
+        if rec["plot_video"] != [(video.FILENAME_PLOTS, want_plots)] or \
+                rec["epoch_plots"] != [1, 2]:
+            raise AssertionError(f"plot video of {rec['plot_video']}, expected {want_plots}")
+        (rays,) = rec["rays"]
+        _check_frame("ray-value render", rays["render"], ds)
+        if rays["weights"].shape != (3, runner.run.n_render_samples_coarse) or not all(
+                np.isfinite(rays[k]).all() for k in ("weights", "cumprod", "alpha", "rgb")):
+            raise AssertionError("ray-value arrays: bad shape or non-finite values")
+        (interp,) = rec["interp"]
+        if len(interp) != 16:
+            raise AssertionError(f"{len(interp)} interpolation frames, expected 16")
+        for i, frame in enumerate(interp):
+            _check_frame(f"interpolation frame {i}", frame, ds)
+        missing = [e for e in (1, 2) if not checkpoint.nerf_h5_path(runner.save_dir, e).exists()]
+        if missing:
+            raise AssertionError(f"no .h5 of epochs {missing} in {runner.save_dir}")
+        if not all(math.isfinite(e["loss"]) for e in epochs):
+            raise AssertionError(f"non-finite training loss {[e['loss'] for e in epochs]}")
+        out["tasks"] = [{k: v for k, v in t.items() if k != "runner"} for t in tasks]
+        for t in out["tasks"]:
+            if t["frames"]:
+                t["ms_per_frame"] = 1e3 * t["seconds"] / t["frames"]
+        out["epochs"] = [{k: v for k, v in e.items() if k != "at"} for e in epochs]
+        out["s_per_epoch"] = epochs[1]["at"] - epochs[0]["at"]
+        out["patch"] = _patch_vs_cpu(torch, runner._params, runner.render_config, ds,
+                                     paths["l_to_r"][0], "runner patch of the first l_to_r pose")
+
+        # The resume drill (constant lr: the schedule's length does not enter).
+        for name, trained in (("drill_straight.yaml", 4), ("drill_split.yaml", 2),
+                              ("drill_resume.yaml", 2)):
+            seconds = cli_run(name)
+            if [t["task"] for t in tasks] != ["training"]:
+                raise AssertionError(f"{name}: tasks {[t['task'] for t in tasks]}")
+            _check_runner_tasks(tasks, trained, steps)
+            drill[name] = {"seconds": seconds, "epochs": [e["epoch"] for e in epochs]}
+        if drill["drill_resume.yaml"]["epochs"] != [3, 4]:
+            raise AssertionError(f"the resumed run trained {drill['drill_resume.yaml']}")
+
+    dirs = [results / "drill_straight_save_dir_0", results / "drill_split_save_dir_0"]
+    states = [checkpoint.CheckpointManager(d / "states").restore(4, map_location="cpu")
+              for d in dirs]
+    start = checkpoint.CheckpointManager(dirs[1] / "states").restore(2, map_location="cpu")
+    a, b = (tree_leaves(s.params) for s in states)
+    equal = len(a) == len(b) > 0 and all(torch.equal(x, y) for x, y in zip(a, b))
+    hist = [np.load(checkpoint.psnr_path(d, 4)) for d in dirs]
+    drill.update(params_bitwise_equal=equal, psnr_histories_equal=bool(
+        hist[0].shape == hist[1].shape == (2, 4) and np.array_equal(hist[0], hist[1])),
+        steps=[s.step for s in states], psnr_test=hist[0][0].tolist())
+    out["resume_drill"] = drill
+    log(f"resume drill: 4 epochs straight vs 2 + resume + 2: parameters bitwise equal {equal}, "
+        f"PSNR histories equal {drill['psnr_histories_equal']}, steps {drill['steps']}")
+    if not (equal and drill["psnr_histories_equal"] and states[0].step == 4 * steps
+            and not torch.equal(a[0], tree_leaves(start.params)[0])):
+        raise AssertionError(f"resume drill: {drill}")
+    timings["runner"] = out
+    for t in out["tasks"]:
+        log(f"runner {t['task']}: {t['seconds']:.3f} s" + (
+            f", {t['frames']} frames, {t['ms_per_frame']:.2f} ms a frame" if t["frames"] else "")
+            + f", launches {t['launches']}")
+    log(f"runner: main.main {out['main_seconds']:.3f} s, {out['s_per_epoch']:.3f} s an epoch "
+        f"(steps {out['epochs'][1]['step_loop_s']:.3f} s)")
 
 
 # The kernels whose products must run on the tensor cores, and the SASS
@@ -2505,6 +2872,8 @@ def main() -> int:
     train_phase(torch, timings, "pallas_f32")
     train_phase(torch, timings, "pallas_rm_f32")
     log(f"training paths done at {time.perf_counter() - t_start:.0f} s")
+    runner_phase(torch, timings)
+    log(f"runner phase done at {time.perf_counter() - t_start:.0f} s")
     launches.update(tools_phase(torch))
     profile_phase(torch, timings, trainer)
     log(f"tools and profile done at {time.perf_counter() - t_start:.0f} s")
@@ -2514,6 +2883,12 @@ def main() -> int:
         log(f"[{card}] {path} train step {t['ms_per_step']:.3f} ms ({t['rays_per_sec']:.0f} "
             f"rays/s)" + (f", eval frame {t['ms_per_eval_frame']:.3f} ms"
                           if "ms_per_eval_frame" in t else ""))
+    r = timings["runner"]
+    for t in r["tasks"]:
+        log(f"[{card}] runner {t['task']}: {t['seconds']:.3f} s" + (
+            f", {t['ms_per_frame']:.2f} ms a frame (128x128, f32)" if t["frames"] else ""))
+    log(f"[{card}] runner: {r['s_per_epoch']:.3f} s an epoch (its steps "
+        f"{r['epochs'][1]['step_loop_s']:.3f} s), main.main {r['main_seconds']:.3f} s")
     r = timings["float32"]["mlp_fwd"]
     log(f"[{card}] mlp_fwd float32 ({r['design']}): {r['ms']:.3f} ms, {FMA_DESIGN} "
         f"{r['fma_design_ms']:.3f} ms, library_ms {r['library_ms']:.3f}, plain "
@@ -2563,7 +2938,7 @@ def main() -> int:
                       "b5_vs_f64_chain": timings["b5_vs_f64_chain"],
                       "b4_vs_f64_chain": timings["b4_vs_f64_chain"],
                       "b7_f32_steps": timings["b7_f32_steps"],
-                      "eval_patch": timings["eval_patch"]}),
+                      "eval_patch": timings["eval_patch"], "runner": timings["runner"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -44,9 +44,13 @@ class Trainer:
     :param dataset: loaded scene.
     :param save_dir: run artifact directory (weights, PSNR history, states).
     :param device: where to train; the GPU unless ``device="cpu"`` is given.
+    :param epoch_callback: called with ``(trainer, EpochStats)`` after each
+        epoch's artifacts are saved (the runner hooks its epoch plot and cloud
+        backup here, as in ``src/ExecutionRun.py:193-201``).
     """
 
-    def __init__(self, run: RunConfig, dataset: Dataset, save_dir, device=None):
+    def __init__(self, run: RunConfig, dataset: Dataset, save_dir, device=None,
+                 epoch_callback: Optional[Callable] = None):
         # The JAX runner sends these configs elsewhere (DietTrainer, a device
         # mesh); training them here as plain single-device NeRF would give
         # another result without saying so.
@@ -62,6 +66,7 @@ class Trainer:
         self.dataset = dataset
         self.save_dir = Path(save_dir)
         self.device = resolve_device(device)
+        self.epoch_callback = epoch_callback
 
         # near/far come from the loader (spherification rescales them).
         self.config: NeRFConfig = dataclasses.replace(
@@ -195,6 +200,8 @@ class Trainer:
                 log(f"epoch {epoch}/{n_epochs}: loss={stats.loss:.5f} "
                     f"psnr_train={stats.psnr_train:.2f} psnr_test={stats.psnr_test:.2f} "
                     f"{stats.rays_per_sec:,.0f} rays/s ({stats.seconds:.1f}s)")
+            if self.epoch_callback is not None:
+                self.epoch_callback(self, stats)
             history.append(stats)
         return history
 

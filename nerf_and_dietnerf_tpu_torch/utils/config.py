@@ -4,12 +4,14 @@ Port of ``nerf_and_dietnerf_tpu/utils/config.py``: the same fields, sections,
 strict keys and backend names, so every stock ``config_files/*.yaml`` loads
 unchanged. ``nerf_config()`` builds the port's ``NeRFConfig`` (torch dtypes;
 "pallas" / "pallas_mlp" select the CUDA kernels). PyYAML is imported only
-inside :func:`load_config`.
+inside :func:`load_config`. :func:`make_save_dir` creates or reuses a run's
+artifact directory.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import shutil
 from pathlib import Path
 from typing import List, Optional
 
@@ -208,3 +210,30 @@ def load_config(path) -> RunConfig:
         else:
             set_flat(key, value, "top level")
     return cfg
+
+
+def make_save_dir(config: RunConfig, config_path=None) -> Path:
+    """Create (or reuse) the run's save directory.
+
+    The reference's convention ``{general}/{config}_save_dir_{n}``, with the
+    first free ``n`` for a fresh run and reuse through
+    ``existing_save_dir_name`` (``src/UtilsFiles.py:232-281``); the config
+    file is copied in (``src/ExecutionRun.py:87``). Single process only: the
+    multi-process branch of the JAX package belongs to multi-GPU runs.
+    """
+    base = Path(config.general_save_location)
+    base.mkdir(parents=True, exist_ok=True)
+    if config.existing_save_dir_name:
+        save_dir = base / config.existing_save_dir_name
+        if not save_dir.is_dir():
+            raise FileNotFoundError(f"existing_save_dir_name not found: {save_dir}")
+        return save_dir
+
+    n = 0
+    while (base / f"{config.config_name}_save_dir_{n}").exists():
+        n += 1
+    save_dir = base / f"{config.config_name}_save_dir_{n}"
+    save_dir.mkdir(parents=True)
+    if config_path is not None:
+        shutil.copy(config_path, save_dir / Path(config_path).name)
+    return save_dir

@@ -20,6 +20,7 @@ from nerf_and_dietnerf_tpu.utils import config as jconfig
 from nerf_and_dietnerf_tpu_torch.data.loaders import Dataset
 from nerf_and_dietnerf_tpu_torch.models import mlp as tm
 from nerf_and_dietnerf_tpu_torch.models import nerf as tn
+from nerf_and_dietnerf_tpu_torch.tasks.runner import Runner
 from nerf_and_dietnerf_tpu_torch.train import checkpoint as tckpt
 from nerf_and_dietnerf_tpu_torch.train import train_step as tts
 from nerf_and_dietnerf_tpu_torch.train.trainer import Trainer
@@ -215,10 +216,11 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('nerf_and_dietnerf_tpu.') or m == 'nerf_and_dietnerf_tpu'\n"
-        "       or m in ('optax', 'orbax', 'yaml', 'h5py', 'imageio', 'matplotlib')]\n"
+        "       or m in ('optax', 'orbax', 'yaml', 'h5py', 'imageio', 'matplotlib', 'cv2')]\n"
         "assert not bad, bad\n"
         "new = ['ops.probe_kernels_cuda', 'utils.profiling', 'tools', 'tools.exp_mxu',\n"
-        "       'tools.exp_vpu', 'tools.exp_interleave', 'tools.exp_expand', 'tools.exp_enccost']\n"
+        "       'tools.exp_vpu', 'tools.exp_interleave', 'tools.exp_expand', 'tools.exp_enccost',\n"
+        "       'viz', 'viz.image_ops', 'viz.plots', 'viz.video', 'tasks', 'tasks.runner', 'main']\n"
         "missing = [m for m in new if 'nerf_and_dietnerf_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "assert 'tools' not in sys.modules, 'the root tools/ directory was imported'\n"
@@ -227,19 +229,24 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 23
+    assert int(out.stdout.strip()) >= 30
 
 
 def test_entry_points_need_cuda_unless_told_cpu(tmp_path):
     c2w = np.eye(4, dtype=np.float32)
     cfg = tn.NeRFConfig(mlp=tm.MLPConfig(**MLP), n_samples_coarse=2, n_samples_fine=2)
     params = tn.init_params(torch.Generator().manual_seed(0), cfg)
+    config_path = tmp_path / "run.yaml"
+    config_path.write_text("dataset_type: colmap\ndataset_location: unused\n")
     if torch.cuda.is_available():
         trainer = Trainer(tiny_run(), synthetic_dataset(), tmp_path)
         assert trainer.device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(tiny_run(), synthetic_dataset(), tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Runner(config_path, save_root=str(tmp_path / "R"))
+    assert not (tmp_path / "R").exists()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tn.render_image(params, cfg, None, c2w, 0.7, 2, 2)
     result, _ = tn.render_image(params, cfg, None, c2w, 0.7, 2, 2, device="cpu")
