@@ -71,6 +71,23 @@ the first left-to-right pose must agree card vs CPU to 1e-4 from the trained
 weights, and the resume drill (4 epochs straight through ``main`` against 2,
 then a second ``main`` resuming the directory to epoch 4) must give bitwise
 equal parameters and PSNR histories.
+Then two DietNeRF phases (``diet_phase``) train two epochs each at the
+flagship DietNeRF config's widths (the "pallas" path's NeRF, the full
+ViT-B/32, the 150x150 consistency render at 55 + 55 samples in 2,500-ray
+chunks, K = 13, weight 0.1, 95 % of the steps) on the same scene, with the
+launch counts set to 0 just before: "pallas" through
+``main.main([cfg, "--vit-weights", npz])`` (the runner's stand-ins, the
+training task alone; ``npz`` a ViT-B/32 file of random weights with its
+geometry, written by the port's ``vit.save_npz``) and "pallas_rm" through
+``DietTrainer.fit`` with the random embedder. Each must launch exactly its
+kernels (``_check_diet_run``: 272 bf16 and 8 f32 forwards, 200 backwards),
+take its diet steps at counters 13, 26, 39 and 52 with consistency losses
+in [0, 0.1], and write each epoch's ``.h5``; its first diet step is held on
+the card (``_diet_held_step``: the consistency loss and gradient in f32
+through the kernels and their plain versions against the f64 chain, and the
+checkpointed render's gradient against the one without checkpoint), and the
+plain and diet steps, the ViT, the consistency render, the target
+embeddings and the diet step's peak memory are timed.
 Then the seven probe kernels (P1 ``probe_mma``, P2
 ``probe_mlp_epilogue``, P3 ``probe_mlp_chains``, P4-P6 ``probe_expand_a/b/c``,
 P7 ``probe_enccost``) are held against their plain versions at the probe
@@ -1951,6 +1968,44 @@ def tools_phase(torch) -> dict:
 PROFILE_STEPS = 4
 
 
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def _on_device(evt) -> bool:
+    return str(evt.device_type).endswith("CUDA")
+
+
+def _device_window(prof, what: str):
+    """A trace's device-side entries by time, most first (kernels and memory
+    operations: the host-side operations carry their kernels' time a second
+    time), and its window: the device operations' count, the time from the
+    first to the last (``window_ms``), the time some operation ran
+    (``busy_ms``) and the rest's share (``idle_share``)."""
+    averages = sorted((a for a in prof.key_averages() if _on_device(a)), key=_device_us,
+                      reverse=True)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if _on_device(e))
+    total_us = sum(_device_us(a) for a in averages)
+    if not spans or total_us <= 0:
+        raise AssertionError(f"{what}: the profiler recorded no device time ({len(spans)} device "
+                             f"events, {total_us} us): the idle share cannot be read")
+    # The events' clock unit differs between PyTorch versions: scale it so
+    # the intervals add up to the averages' device time, in microseconds.
+    unit = total_us / sum(end - start for start, end in spans)
+    busy, (cur_start, cur_end) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy = (busy + cur_end - cur_start) * unit
+    window = (spans[-1][1] - spans[0][0]) * unit
+    return averages, {"device_ops": len(spans), "window_ms": window / 1e3, "busy_ms": busy / 1e3,
+                      "idle_share": 1.0 - busy / window}
+
+
 def _traced_steps(torch, trainer, backend: str):
     """``PROFILE_STEPS`` train steps of ``backend`` (no fusion flags) under
     ``utils.profiling.trace``, after one untraced step: the device's idle
@@ -1986,47 +2041,19 @@ def _traced_steps(torch, trainer, backend: str):
     if not (log_dir / profiling.TRACE_FILE).is_file():
         raise AssertionError("profiling.trace wrote no trace file")
 
-    def device_us(evt):
-        return float(getattr(evt, "self_device_time_total",
-                             getattr(evt, "self_cuda_time_total", 0.0)))
-
-    def on_device(evt):
-        return str(evt.device_type).endswith("CUDA")
-
-    # Device-side entries only (kernels and memory operations): the host-side
-    # operations carry their kernels' time a second time.
-    averages = sorted((a for a in prof.key_averages() if on_device(a)), key=device_us,
-                      reverse=True)
+    averages, window = _device_window(prof, f"profiled {backend} steps")
     (log_dir / "ops.txt").write_text("\n".join(
-        f"{device_us(a):14.1f} us  {a.count:6d} calls  {a.key}" for a in averages))
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if on_device(e))
-    total_us = sum(device_us(a) for a in averages)
-    rec = {"backend": backend, "steps": PROFILE_STEPS, "host_seconds": wall,
-           "device_ops": len(spans)}
-    if not spans or total_us <= 0:
-        raise AssertionError(f"the profiler recorded no device time ({len(spans)} device events, "
-                             f"{total_us} us): the idle share cannot be read")
-    # The events' clock unit differs between PyTorch versions: scale it so
-    # the intervals add up to the averages' device time, in microseconds.
-    unit = total_us / sum(end - start for start, end in spans)
-    busy, (cur_start, cur_end) = 0.0, spans[0]
-    for start, end in spans[1:]:
-        if start > cur_end:
-            busy += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy = (busy + cur_end - cur_start) * unit
-    window = (spans[-1][1] - spans[0][0]) * unit
-    rec.update(window_ms=window / 1e3, busy_ms=busy / 1e3, idle_share=1.0 - busy / window,
-               top=[{"name": a.key[:120], "ms": device_us(a) / 1e3, "calls": a.count}
-                    for a in averages[:10]])
-    log(f"profile: {PROFILE_STEPS} {backend} steps, traced window {window / 1e3:.3f} ms "
+        f"{_device_us(a):14.1f} us  {a.count:6d} calls  {a.key}" for a in averages))
+    total_us = sum(_device_us(a) for a in averages)
+    rec = {"backend": backend, "steps": PROFILE_STEPS, "host_seconds": wall, **window,
+           "top": [{"name": a.key[:120], "ms": _device_us(a) / 1e3, "calls": a.count}
+                   for a in averages[:10]]}
+    log(f"profile: {PROFILE_STEPS} {backend} steps, traced window {rec['window_ms']:.3f} ms "
         f"(first to last device operation; host clock {wall * 1e3:.1f} ms with the "
-        f"profiler's start and stop), device busy {busy / 1e3:.3f} ms, idle share "
-        f"{rec['idle_share']:.4f}, {len(spans)} device operations")
+        f"profiler's start and stop), device busy {rec['busy_ms']:.3f} ms, idle share "
+        f"{rec['idle_share']:.4f}, {rec['device_ops']} device operations")
     for a in averages[:10]:
-        log(f"profile top: {device_us(a) / 1e3:10.3f} ms {100 * device_us(a) / total_us:5.1f}% "
+        log(f"profile top: {_device_us(a) / 1e3:10.3f} ms {100 * _device_us(a) / total_us:5.1f}% "
             f"{a.count:5d} calls  {a.key[:120]}")
     return rec, config, state, batch, tables, averages
 
@@ -2472,6 +2499,23 @@ def _runner_stand_ins(torch, configs: dict, ds, rec: dict):
             (checkpoint, "load_keras_h5", load_keras_h5)]
 
 
+def _fwd_by_dtype(torch, module, name: str, kernel: str, by_dtype: dict):
+    """A wrapper of the forward wrapper ``module.name`` (its last argument
+    the compute type) counting ``kernel``'s launches by compute type."""
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+
+    real = getattr(module, name)
+
+    def counted(*args):
+        before = kl.LAUNCHES[kernel]
+        out = real(*args)
+        key = str(args[-1]).replace("torch.", "")
+        by_dtype[key] = by_dtype.get(key, 0) + kl.LAUNCHES[kernel] - before
+        return out
+
+    return (module, name, counted)
+
+
 def _runner_meters(torch, tasks: list, epochs: list):
     """Wrappers of the ``Runner`` tasks (``RUNNER_TASKS``) that set the launch
     counts to 0 just before each and record its seconds, frames and launches
@@ -2510,15 +2554,8 @@ def _runner_meters(torch, tasks: list, epochs: list):
                        "at": time.perf_counter()})
         return _real(self, trainer, stats)
 
-    def mlp_fwd(ws, bs, config, x, d, compute_dtype, _real=raymarch_cuda.mlp_fwd):
-        before = kl.LAUNCHES["mlp_fwd"]
-        out = _real(ws, bs, config, x, d, compute_dtype)
-        key = str(compute_dtype).replace("torch.", "")
-        by_dtype[key] = by_dtype.get(key, 0) + kl.LAUNCHES["mlp_fwd"] - before
-        return out
-
     return swaps + [(Runner, "_epoch_callback", epoch_callback),
-                    (raymarch_cuda, "mlp_fwd", mlp_fwd)]
+                    _fwd_by_dtype(torch, raymarch_cuda, "mlp_fwd", "mlp_fwd", by_dtype)]
 
 
 def _runner_launch_check(task: dict, want: dict, want_by_dtype: dict) -> None:
@@ -2707,6 +2744,502 @@ def runner_phase(torch, timings: dict) -> None:
         f"(steps {out['epochs'][1]['step_loop_s']:.3f} s)")
 
 
+# --------------------------------------------------------------------------- #
+# The DietNeRF phases                                                          #
+# --------------------------------------------------------------------------- #
+
+# Two epochs of DietNeRF at the flagship DietNeRF config's widths
+# (config_files/256px_alexander_71pics_sphere_dietnerf_use10pics.yaml: the
+# "pallas" path's NeRF, the full ViT-B/32, the 150x150 consistency render at
+# 55 + 55 samples in 2,500-ray chunks, K = 13, weight 0.1, 95 % of the steps)
+# on the synthetic scene: 64 steps, budget int(64 * 0.95) = 60, diet steps at
+# these counters.
+DIET_DIR = ROOT / "build" / "chip_smoke_diet"
+DIET_COUNTERS = [13, 26, 39, 52]
+DIET_METRICS = {"loss", "loss_for_rays", "cosine_similarity_loss", "psnr_coarse", "psnr_fine"}
+# The forward and backward kernels of each diet phase's step.
+DIET_KERNELS = {"pallas": ("mlp_fwd", "mlp_bwd"), "pallas_rm": ("raymarch_fwd", "raymarch_bwd")}
+# The diet step held on the card: its consistency loss and gradient from the
+# trained weights, the NeRF in f32 and in the run's own bf16, through the
+# kernels and through their plain versions, each against the plain chain with
+# f64 products and sums in the MLP (the same roundings to bf16 in the bf16
+# NeRF; the other operations as they are). With the ViT in its bf16 (the
+# consistency loss as it trains), a difference in the last place of the
+# rendered image can flip a bf16 rounding in the ViT and move the gradient by
+# a share of a bf16 ulp (3e-3 normwise in a CPU rehearsal at small widths): the
+# loss to TOL_DIET_LOSS relative, each network's gradient to TOL_DIET_GRAD
+# normwise, which a fault of the step's wiring (O(1)) exceeds. With the ViT
+# in f32 no rounding in it flips, and the kernels' gradient must lie at most
+# F64_FACTOR times as far from the f64 chain as the plain version's (the bf16
+# kernels' own distance is 1.4-1.6x the plain version's).
+TOL_DIET_LOSS = 1e-3
+TOL_DIET_GRAD = 3e-2
+# The diet step's bf16 kernels (B1 and B2, or B6's forward and backward) are
+# also held one launch at a time at the consistency render's shapes, which no
+# other phase gives them: a chunk's coarse pass (2,500 rays x 55 samples,
+# 137,500 rows) and its fine pass (55 + 55 merged, 275,000 rows), on the
+# inputs the render builds at the run's first diet pose (the chunk of the
+# image's middle rows), with the kernel phases' checks and tolerances
+# (``_mlp_checks``, ``_rm_checks``: positive random cotangents, B6's drawn
+# from SEED + 16).
+DIET_CHECK_CHUNK = 4
+# The checkpointed render's gradient against the same chunks' without
+# checkpoint (same draws, same kernel launches): normwise.
+TOL_DIET_CKPT = 1e-6
+
+
+def _diet_run(backend: str):
+    """``_flagship_run(backend)`` as a DietNeRF config: the training task
+    alone, the random embedder allowed (the "pallas" phase passes weights)."""
+    import dataclasses
+
+    from nerf_and_dietnerf_tpu_torch.utils.config import TasksConfig
+
+    run = _flagship_run(backend)
+    run.type_of_model, run.allow_random_embedder = "DietNeRF", backend != "pallas"
+    run.tasks = TasksConfig(**{f.name: f.name == "start_training"
+                               for f in dataclasses.fields(TasksConfig)})
+    return run
+
+
+def _diet_recorders(torch, rec: dict):
+    """Wrappers recording what a diet run does: each diet step's counter,
+    pose, target, consistency loss and ms (host clock, synchronised before
+    and after); each epoch's mean metrics; the DietTrainer that ``fit`` ran;
+    the target embeddings' set-up time."""
+    from nerf_and_dietnerf_tpu_torch.models import dietnerf
+    from nerf_and_dietnerf_tpu_torch.train.diet_trainer import DietTrainer
+
+    step, make, fit = dietnerf.diet_train_step, dietnerf.make_diet_epoch_fn, DietTrainer.fit
+    embed = DietTrainer._embed_training_images
+
+    def diet_train_step(state, key, batch, c2w, target, vit_params, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, key, batch, c2w, target, vit_params, **kw)
+        torch.cuda.synchronize()
+        rec["steps"].append({"counter": state.step + 1, "c2w": c2w.clone(),
+                             "target": target.clone(), "ms": 1e3 * (time.perf_counter() - t0),
+                             "cs_loss": out[1]["cosine_similarity_loss"]})
+        return out
+
+    def make_diet_epoch_fn(*args):
+        epoch_fn = make(*args)
+
+        def recorded(*a):
+            state, metrics = epoch_fn(*a)
+            rec["epochs"].append(metrics)
+            return state, metrics
+        return recorded
+
+    def fit_(self, *args, **kwargs):
+        rec["trainer"] = self
+        return fit(self, *args, **kwargs)
+
+    def embed_(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = embed(self)
+        torch.cuda.synchronize()
+        rec["embed_s"] = time.perf_counter() - t0
+        return out
+
+    return [(dietnerf, "diet_train_step", diet_train_step),
+            (dietnerf, "make_diet_epoch_fn", make_diet_epoch_fn),
+            (DietTrainer, "fit", fit_), (DietTrainer, "_embed_training_images", embed_)]
+
+
+def _check_diet_run(label: str, rec: dict, launches: dict, by_dtype: dict, backend: str,
+                    n_epochs: int = 2) -> dict:
+    """A diet run's launches, exactly; its diet steps at ``DIET_COUNTERS``,
+    each consistency loss in [0, weight]; every epoch's metrics finite under
+    the JAX package's keys; the ``.h5`` of each epoch. The launches: 2 + 2 a
+    plain step; a diet step adds, per chunk of the consistency render, a
+    coarse and a fine forward, both again in the checkpoint's recompute, and
+    their two backwards (the coarse pass gets a gradient through the
+    resampled z); two f32 forwards an eval frame, two frames an epoch."""
+    from nerf_and_dietnerf_tpu_torch.train import checkpoint
+
+    trainer = rec["trainer"]
+    diet = trainer.diet
+    steps = trainer.data.batches_per_epoch * n_epochs
+    chunks = -(-diet.cs_image_size ** 2 // diet.cs_chunk_rays)
+    n_diet = len(DIET_COUNTERS)
+    fwd, bwd = DIET_KERNELS[backend]
+    bf16 = 2 * steps + n_diet * 4 * chunks
+    want = {fwd: bf16 + 2 * 2 * n_epochs, bwd: 2 * steps + n_diet * 2 * chunks}
+    want_by_dtype = {"bfloat16": bf16, "float32": 2 * 2 * n_epochs}
+    got = {k: v for k, v in launches.items() if v}
+    log(f"{label}: launches {got}, {fwd} by type {by_dtype} (expected {want}, {want_by_dtype})")
+    if got != want or by_dtype != want_by_dtype:
+        raise AssertionError(f"{label}: launches {got} by type {by_dtype}, expected {want} by "
+                             f"type {want_by_dtype}")
+    counters = [s["counter"] for s in rec["steps"]]
+    cs = [float(s["cs_loss"]) for s in rec["steps"]]
+    if counters != DIET_COUNTERS or trainer.consistency_budget != int(steps * diet.active_fraction):
+        raise AssertionError(f"{label}: diet steps at {counters}, budget "
+                             f"{trainer.consistency_budget}")
+    if not all(0.0 <= v <= diet.weight for v in cs):
+        raise AssertionError(f"{label}: consistency losses {cs} outside [0, {diet.weight}]")
+    epochs = [{k: float(v) for k, v in m.items()} for m in rec["epochs"]]
+    for m in epochs:
+        if set(m) != DIET_METRICS or not all(math.isfinite(v) for v in m.values()) \
+                or not 0.0 <= m["cosine_similarity_loss"] <= diet.weight:
+            raise AssertionError(f"{label}: epoch metrics {m}")
+    missing = [e for e in range(1, n_epochs + 1)
+               if not checkpoint.nerf_h5_path(trainer.save_dir, e).exists()]
+    if len(epochs) != n_epochs or missing:
+        raise AssertionError(f"{label}: {len(epochs)} epochs, no .h5 of epochs {missing}")
+    for e, m in enumerate(epochs, 1):
+        log(f"{label} epoch {e}: " + " ".join(f"{k}={v:.6f}" for k, v in sorted(m.items())))
+    step_ms = [s["ms"] for s in rec["steps"]]
+    log(f"{label}: consistency losses {cs} at counters {counters}, each diet step's ms "
+        f"{step_ms}")
+    return {"launches": got, "by_dtype": dict(by_dtype), "diet_counters": counters,
+            "cs_losses": cs, "diet_step_ms_in_run": step_ms, "epochs": epochs,
+            "embed_s": rec["embed_s"], "budget": trainer.consistency_budget}
+
+
+def _plain_twins(torch, work):
+    """Patches that make the B1/B2 and B6 wrappers take their plain versions
+    on the card, the MLP's products and sums in ``work`` (float64: the same
+    roundings with nearly exact sums), results in f32."""
+    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+    from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
+
+    forward, backward = rc._forward_plain, rc.mlp_bwd_plain
+
+    def fwd(ws, bs, cfg, x, d, cd):
+        return forward(ws, bs, cfg, x, d, cd, work)[0].float()
+
+    def bwd(ws, bs, cfg, x, d, g, cd):
+        dws, dbs, dx, dd = backward(ws, bs, cfg, x, d, g, cd, work=work)
+        return ([t.float() for t in dws], [t.float() for t in dbs], dx.float(),
+                None if dd is None else dd.float())
+
+    return [(m, name, value) for m in (rc, rk) for name, value in (
+        ("uses_kernel", lambda x: False), ("mlp_fwd_plain", fwd), ("mlp_bwd_plain", bwd))]
+
+
+def _diet_held_step(torch, trainer, c2w, target, label: str) -> dict:
+    """The diet step's consistency loss and gradient from the trained
+    weights at the run's first diet pose and target, the NeRF in f32 (TF32
+    off) and in the run's bf16, with the same draws (a generator seeded
+    alike) three ways on the card: the kernels, their plain versions, and
+    the plain chain with f64 sums (``_plain_twins``); each once with the ViT
+    in bf16 (``consistency_loss`` as it trains), once in f32 (the same call
+    with ``vit.extract_features`` given ``compute_dtype=float32``). Then the
+    bf16 render's gradient with and without ``torch.utils.checkpoint`` (same
+    chunks, draws and kernels)."""
+    import contextlib
+    import dataclasses
+    import functools
+    import types
+    from unittest import mock
+
+    from nerf_and_dietnerf_tpu_torch.models import dietnerf, vit
+    from nerf_and_dietnerf_tpu_torch.train import train_step as ts
+    from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
+
+    params, diet, fov = trainer.state.params, trainer.diet, trainer.dataset.field_of_view
+    vit_f32 = [(vit, "extract_features",
+                functools.partial(vit.extract_features, compute_dtype=torch.float32))]
+
+    def grads_of(loss_fn, patches=()):
+        with contextlib.ExitStack() as stack:
+            for owner, name, value in patches:
+                stack.enter_context(mock.patch.object(owner, name, value))
+            loss, _, grads = ts.loss_and_grads(params, lambda p: (loss_fn(p), None))
+        return float(loss), {w: torch.cat([g.reshape(-1).double() for g in tree_leaves(grads[w])])
+                             for w in ("coarse", "fine")}
+
+    out: dict = {}
+    for nerf_type, cfg in (("float32", dataclasses.replace(trainer.config,
+                                                           compute_dtype=torch.float32)),
+                           ("bfloat16", trainer.config)):
+
+        def consistency(p, cfg=cfg):
+            key = torch.Generator(device=DEVICE).manual_seed(SEED)
+            return dietnerf.consistency_loss(p, trainer.vit_params, cfg, diet, key, c2w, fov,
+                                             target)[0]
+
+        for vit_type, patches in (("bfloat16", []), ("float32", vit_f32)):
+            runs = {"kernel": grads_of(consistency, patches),
+                    "plain": grads_of(consistency, patches + _plain_twins(torch, torch.float32)),
+                    "f64": grads_of(consistency, patches + _plain_twins(torch, torch.float64))}
+            e_loss, e_g = runs["f64"]
+            rec: dict = {"loss_f64_chain": e_loss}
+            for name in ("kernel", "plain"):
+                loss, g = runs[name]
+                rec[name] = {"loss_rel": abs(loss - e_loss) / abs(e_loss),
+                             **{w: float((g[w] - e_g[w]).norm() / e_g[w].norm()) for w in g}}
+            rec["kernel_vs_plain"] = {w: float((runs["kernel"][1][w] - runs["plain"][1][w]).norm()
+                                               / runs["plain"][1][w].norm()) for w in e_g}
+            out[f"nerf_{nerf_type}_vit_{vit_type}"] = rec
+            log(f"{label} held diet step ({nerf_type} NeRF, {vit_type} ViT): consistency loss "
+                f"{e_loss:.6e} (f64 chain); against the f64 chain: kernels {rec['kernel']}, "
+                f"plain {rec['plain']}; kernels vs plain {rec['kernel_vs_plain']}")
+            if vit_type == "bfloat16":
+                ok = rec["kernel"]["loss_rel"] <= TOL_DIET_LOSS and all(
+                    rec[k][w] <= TOL_DIET_GRAD for k in ("kernel", "plain") for w in e_g)
+            else:
+                ok = all(rec["kernel"][w] <= F64_FACTOR * rec["plain"][w] for w in e_g)
+            if not ok:
+                raise AssertionError(f"{label}: the held diet step ({nerf_type} NeRF, {vit_type} "
+                                     f"ViT) is off: {rec}")
+
+    cot = torch.randn((trainer.diet.cs_image_size, trainer.diet.cs_image_size, 3),
+                      generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+
+    def render(p):
+        key = torch.Generator(device=DEVICE).manual_seed(SEED)
+        return (dietnerf.render_image_differentiable(p, trainer.config, trainer.diet, key, c2w,
+                                                     fov) * cot).sum()
+
+    no_ckpt = types.SimpleNamespace(checkpoint=lambda fn, *a, use_reentrant: fn(*a))
+    _, with_ckpt = grads_of(render)
+    _, without = grads_of(render, [(dietnerf, "checkpoint", no_ckpt)])
+    ckpt = {w: float((with_ckpt[w] - without[w]).norm() / without[w].norm()) for w in without}
+    ckpt["bitwise"] = all(torch.equal(with_ckpt[w], without[w]) for w in without)
+    out["checkpoint_vs_none"] = ckpt
+    log(f"{label}: the bf16 render's gradient with checkpoint vs without: {ckpt} "
+        f"(tol {TOL_DIET_CKPT})")
+    if not all(ckpt[w] <= TOL_DIET_CKPT for w in without):
+        raise AssertionError(f"{label}: checkpointed render's gradient is off: {ckpt}")
+    return out
+
+
+def _diet_kernel_checks(torch, trainer, c2w, label: str, backend: str) -> dict:
+    """The diet step's bf16 kernels held against their plain versions on
+    one chunk's coarse and fine launches of the consistency render
+    (``DIET_CHECK_CHUNK``), their arguments recorded from a render at the
+    run's first diet pose: B1 and B2 through ``_mlp_checks``, B6's forward
+    and backward through ``_rm_checks``; returns each pass's max |kernel -
+    plain|."""
+    from unittest import mock
+
+    from nerf_and_dietnerf_tpu_torch.models import dietnerf
+    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+    from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
+
+    owner = {"pallas": rc, "pallas_rm": rk}[backend]
+    fwd = DIET_KERNELS[backend][0]
+    real, calls = getattr(owner, fwd), []
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    diet = trainer.diet
+    with mock.patch.object(owner, fwd, record), torch.no_grad():
+        dietnerf.render_image_differentiable(
+            trainer.state.params, trainer.config, diet,
+            torch.Generator(device=DEVICE).manual_seed(SEED), c2w, trainer.dataset.field_of_view)
+    out = {}
+    for name, (ws, bs, cfg, a, b, cd) in zip(("coarse", "fine"),
+                                            calls[2 * DIET_CHECK_CHUNK:2 * DIET_CHECK_CHUNK + 2]):
+        samples = diet.cs_samples * (1 if name == "coarse" else 2)
+        rows = diet.cs_chunk_rays * samples
+        got = a.shape[0] if backend == "pallas" else tuple(b.shape)
+        if cd != torch.bfloat16 or got != (rows if backend == "pallas" else
+                                           (diet.cs_chunk_rays, samples)):
+            raise AssertionError(f"{label}: the render's {name} launch took {cd} and shape {got}")
+        what = f"{label} {name} pass ({diet.cs_chunk_rays} rays x {samples} samples)"
+        if backend == "pallas":
+            g = (0.5 + torch.rand((rows, 4), generator=torch.Generator(device=DEVICE).manual_seed(
+                SEED + 16), device=DEVICE)).contiguous()
+            abs_fwd, abs_bwd, _ = _mlp_checks(torch, rc, ws, bs, cfg, a, b, g, cd, "bfloat16",
+                                              f"{what} rows={rows}")
+            out[name] = {"mlp_fwd": abs_fwd, "mlp_bwd": abs_bwd}
+        else:
+            out[name] = _rm_checks(torch, rk, cfg, ws, bs, a, b, cd, "bfloat16",
+                                   torch.Generator(device=DEVICE).manual_seed(SEED + 16), what,
+                                   b7=False)[0]
+    log(f"{label}: the render's bf16 kernels against their plain versions at its shapes, max "
+        f"abs err: {out}")
+    return out
+
+
+def _diet_trace(torch, fn, backend: str, log_dir, what: str) -> dict:
+    """``fn`` once, then once more under ``utils.profiling.trace``: its
+    device window (:func:`_device_window`), the device ms of the path's
+    forward kernel, of its backward kernel, of the library's matrix products
+    (cuBLAS: the ViT's) and of the rest, and the eight device operations
+    with the most time."""
+    from nerf_and_dietnerf_tpu_torch.utils import profiling
+
+    fn()
+    torch.cuda.synchronize()
+    with profiling.trace(str(log_dir)) as prof:
+        fn()
+        torch.cuda.synchronize()
+    averages, rec = _device_window(prof, what)
+    fwd, bwd = (set(MMA_KERNELS[k]) for k in DIET_KERNELS[backend])
+    groups = {"fwd_kernel": 0.0, "bwd_kernel": 0.0, "library_matmul": 0.0, "other": 0.0}
+    for a in averages:
+        key = a.key.lower()
+        group = ("fwd_kernel" if any(k in a.key for k in fwd) else
+                 "bwd_kernel" if any(k in a.key for k in bwd) else
+                 "library_matmul" if any(t in key for t in ("gemm", "cutlass", "xmma")) else
+                 "other")
+        groups[group] += _device_us(a) / 1e3
+    rec.update(ms=groups, top=[{"name": a.key[:120], "ms": _device_us(a) / 1e3,
+                                "calls": a.count} for a in averages[:8]])
+    log(f"{what}: traced window {rec['window_ms']:.3f} ms, device busy {rec['busy_ms']:.3f} ms, "
+        f"idle share {rec['idle_share']:.4f}, {rec['device_ops']} device operations; device ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in groups.items()))
+    for t in rec["top"]:
+        log(f"{what} top: {t['ms']:10.3f} ms {t['calls']:5d} calls  {t['name']}")
+    return rec
+
+
+def _diet_timings(torch, trainer, c2w, target) -> dict:
+    """ms a plain step and a diet step (host clock, synchronised, from the
+    trained state, on batches of the ray table), the diet step's peak device
+    memory, and the ViT's (forward + backward to the image) and the
+    consistency render's (forward + backward) ms with CUDA events; then each
+    of the three traced (:func:`_diet_trace`)."""
+    from nerf_and_dietnerf_tpu_torch.models import dietnerf, vit
+    from nerf_and_dietnerf_tpu_torch.train import train_step as ts
+
+    state, diet, fov = trainer.state, trainer.diet, trainer.dataset.field_of_view
+    tables = tuple(torch.as_tensor(a, device=DEVICE) for a in (
+        trainer.data.origins, trainer.data.directions, trainer.data.rgb))
+    batch = tuple(t[:trainer.run.n_rays_in_batch_train] for t in tables)
+    key = torch.Generator(device=DEVICE).manual_seed(SEED)
+    kw = dict(config=trainer.config, optimizer=trainer.optimizer)
+
+    def per_step_ms(step, reps):
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    diet_step = lambda: dietnerf.diet_train_step(  # noqa: E731
+        state, key, batch, c2w, target, trainer.vit_params, diet=diet, field_of_view=fov, **kw)
+    out = {"plain_step_ms": per_step_ms(lambda: ts.train_step(state, key, batch, **kw), 10),
+           "diet_step_ms": per_step_ms(diet_step, 3)}
+    torch.cuda.reset_peak_memory_stats()
+    diet_step()
+    torch.cuda.synchronize()
+    out["diet_step_max_memory_bytes"] = torch.cuda.max_memory_allocated()
+
+    image = dietnerf.render_image_differentiable(state.params, trainer.config, diet, None, c2w,
+                                                 fov).detach().requires_grad_(True)
+
+    def vit_fwd_bwd():
+        emb = vit.extract_features(trainer.vit_params, vit.preprocess(image, diet.vit), diet.vit)
+        torch.autograd.grad((emb[0] * target).sum(), image)
+
+    cot = torch.ones((diet.cs_image_size, diet.cs_image_size, 3), device=DEVICE)
+
+    def render_fwd_bwd():
+        ts.loss_and_grads(state.params, lambda p: ((dietnerf.render_image_differentiable(
+            p, trainer.config, diet, key, c2w, fov) * cot).sum(), None))
+
+    out["vit_fwd_bwd_ms"] = _time_ms(torch, vit_fwd_bwd)
+    out["cs_render_fwd_bwd_ms"] = _time_ms(torch, render_fwd_bwd, reps=3)
+    backend = trainer.config.backend
+    parts = (("diet_step", diet_step), ("cs_render_fwd_bwd", render_fwd_bwd),
+             ("vit_fwd_bwd", vit_fwd_bwd))
+    out["trace"] = {name: _diet_trace(torch, fn, backend, DIET_DIR / backend / f"trace_{name}",
+                                      f"diet {backend} traced {name}") for name, fn in parts}
+    return out
+
+
+def _first_checkpoint_s() -> float:
+    """Seconds of a process's first non-reentrant ``torch.utils.checkpoint``
+    call, in a fresh interpreter on a CPU tensor: the imports that call
+    makes (``torch._dynamo`` and what it pulls in), which a diet run pays
+    once, in its first diet step."""
+    code = ("import time, torch\nfrom torch.utils.checkpoint import checkpoint\n"
+            "x = torch.ones(4, requires_grad=True)\nt = time.perf_counter()\n"
+            "checkpoint(torch.sin, x, use_reentrant=False).sum().backward()\n"
+            "print(time.perf_counter() - t)\n")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, check=True)
+    return float(run.stdout.split()[-1])
+
+
+def diet_phase(torch, timings: dict, backend: str) -> None:
+    """Two epochs of DietNeRF on the synthetic scene with the launch counts
+    set to 0 just before: "pallas" through the normal entry point,
+    ``main.main([cfg, "--vit-weights", npz])`` (the runner's stand-ins, the
+    training task alone; ``npz`` a ViT-B/32 file of random weights with its
+    geometry embedded, written by the port's ``save_npz``), "pallas_rm"
+    through ``DietTrainer.fit`` with the random embedder. Then
+    ``_check_diet_run``, the held diet step, the kernels at the render's
+    shapes, the timings and the traces, and the first checkpoint call's
+    seconds in a fresh interpreter (:func:`_first_checkpoint_s`)."""
+    import contextlib
+    import shutil
+    from unittest import mock
+
+    from nerf_and_dietnerf_tpu_torch import main as cli
+    from nerf_and_dietnerf_tpu_torch.models import vit
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+    from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
+    from nerf_and_dietnerf_tpu_torch.train.diet_trainer import DietTrainer
+
+    label = f"diet {backend}"
+    work = DIET_DIR / backend
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ds = synthetic_scene()
+    run = _diet_run(backend)
+    rec: dict = {"steps": [], "epochs": []}
+    stand_in_rec = {k: [] for k in ("videos", "plot_video", "epoch_plots", "rays", "interp")}
+    by_dtype: dict = {}
+    fwd_wrapper = {"pallas": (rc, "mlp_fwd"), "pallas_rm": (rk, "raymarch_fwd")}[backend]
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for owner, name, value in (
+                _runner_stand_ins(torch, {"diet.yaml": run}, ds, stand_in_rec)
+                + _diet_recorders(torch, rec)
+                + [_fwd_by_dtype(torch, *fwd_wrapper, DIET_KERNELS[backend][0], by_dtype)]):
+            stack.enter_context(mock.patch.object(owner, name, value))
+        if backend == "pallas":
+            npz = work / "vit_b32.npz"
+            vit.save_npz(npz, vit.init_params(torch.Generator().manual_seed(SEED + 3)),
+                         config=vit.ViTConfig())
+            (work / "diet.yaml").write_text("# the config is built in chip_smoke.py\n")
+            argv = [str(work / "diet.yaml"), "--save-root", str(work / "Results"),
+                    "--vit-weights", str(npz)] + (["--platform", "cpu"] if DEVICE == "cpu" else [])
+            torch.cuda.synchronize()
+            kl.reset_launch_counts()
+            code = cli.main(argv)
+            torch.cuda.synchronize()
+            if code != 0:
+                raise AssertionError(f"main.main({argv}) returned {code}")
+        else:
+            trainer = DietTrainer(run, ds, work / "save", device=DEVICE)
+            torch.cuda.synchronize()
+            kl.reset_launch_counts()
+            trainer.fit()
+            torch.cuda.synchronize()
+        launches = dict(kl.LAUNCHES)
+    seconds = time.perf_counter() - t0
+    out = _check_diet_run(label, rec, launches, by_dtype, backend)
+    trainer = rec["trainer"]
+    first = rec["steps"][0]
+    out["seconds"] = seconds
+    out["held_step"] = _diet_held_step(torch, trainer, first["c2w"], first["target"], label)
+    out["kernel_checks"] = _diet_kernel_checks(torch, trainer, first["c2w"], label, backend)
+    out.update(_diet_timings(torch, trainer, first["c2w"], first["target"]))
+    out["first_checkpoint_call_s"] = _first_checkpoint_s()
+    timings["diet_" + backend] = out
+    log(f"{label}: plain step {out['plain_step_ms']:.3f} ms, diet step {out['diet_step_ms']:.3f} "
+        f"ms (peak {out['diet_step_max_memory_bytes'] / 2**30:.3f} GiB), ViT fwd+bwd "
+        f"{out['vit_fwd_bwd_ms']:.3f} ms, consistency render fwd+bwd "
+        f"{out['cs_render_fwd_bwd_ms']:.3f} ms, target embeddings {out['embed_s']:.3f} s, "
+        f"the run {seconds:.3f} s; a process's first checkpoint call "
+        f"{out['first_checkpoint_call_s']:.3f} s (a fresh interpreter, a CPU tensor)")
+
+
 # The kernels whose products must run on the tensor cores, and the SASS
 # instruction they must hold: bf16 B1/B2/B4-B7, the f32 backwards of B2 and
 # B4-B7 and the f32 forwards of B4 and B7 on `mma.sync` (HMMA; tf32 for the
@@ -2874,6 +3407,9 @@ def main() -> int:
     log(f"training paths done at {time.perf_counter() - t_start:.0f} s")
     runner_phase(torch, timings)
     log(f"runner phase done at {time.perf_counter() - t_start:.0f} s")
+    for backend in DIET_KERNELS:
+        diet_phase(torch, timings, backend)
+    log(f"diet phases done at {time.perf_counter() - t_start:.0f} s")
     launches.update(tools_phase(torch))
     profile_phase(torch, timings, trainer)
     log(f"tools and profile done at {time.perf_counter() - t_start:.0f} s")
@@ -2889,6 +3425,16 @@ def main() -> int:
             f", {t['ms_per_frame']:.2f} ms a frame (128x128, f32)" if t["frames"] else ""))
     log(f"[{card}] runner: {r['s_per_epoch']:.3f} s an epoch (its steps "
         f"{r['epochs'][1]['step_loop_s']:.3f} s), main.main {r['main_seconds']:.3f} s")
+    for backend in DIET_KERNELS:
+        d = timings["diet_" + backend]
+        log(f"[{card}] diet {backend}: plain step {d['plain_step_ms']:.3f} ms, diet step "
+            f"{d['diet_step_ms']:.3f} ms (peak {d['diet_step_max_memory_bytes']} bytes), ViT "
+            f"fwd+bwd {d['vit_fwd_bwd_ms']:.3f} ms, consistency render fwd+bwd "
+            f"{d['cs_render_fwd_bwd_ms']:.3f} ms, target embeddings {d['embed_s']:.3f} s")
+        for name, t in d["trace"].items():
+            log(f"[{card}] diet {backend} traced {name}: device busy {t['busy_ms']:.3f} of "
+                f"{t['window_ms']:.3f} ms (idle share {t['idle_share']:.4f}), device ms "
+                + ", ".join(f"{k} {v:.3f}" for k, v in t["ms"].items()))
     r = timings["float32"]["mlp_fwd"]
     log(f"[{card}] mlp_fwd float32 ({r['design']}): {r['ms']:.3f} ms, {FMA_DESIGN} "
         f"{r['fma_design_ms']:.3f} ms, library_ms {r['library_ms']:.3f}, plain "
@@ -2938,7 +3484,8 @@ def main() -> int:
                       "b5_vs_f64_chain": timings["b5_vs_f64_chain"],
                       "b4_vs_f64_chain": timings["b4_vs_f64_chain"],
                       "b7_f32_steps": timings["b7_f32_steps"],
-                      "eval_patch": timings["eval_patch"], "runner": timings["runner"]}),
+                      "eval_patch": timings["eval_patch"], "runner": timings["runner"],
+                      "diet": {b: timings["diet_" + b] for b in DIET_KERNELS}}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

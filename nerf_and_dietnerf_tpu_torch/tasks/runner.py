@@ -4,10 +4,11 @@ Port of ``nerf_and_dietnerf_tpu/tasks/runner.py`` (the reference's
 ``ExecutionRun``, ``src/ExecutionRun.py:53-152``): loads config + dataset at
 construction, then ``start()`` executes the enabled tasks in the reference's
 fixed order with a cloud backup after each. The training task drives the
-port's :class:`Trainer`; the rendering tasks render each frame with
-``nerf.render_image`` on the runner's device. Randomness follows the JAX
-package's keys as generator seeds: video frame ``i`` uses seed ``i``,
-interpolation frame ``i`` seed ``100 + i``, the ray-value render seed 0.
+port's :class:`Trainer`, or its :class:`DietTrainer` for DietNeRF configs;
+the rendering tasks render each frame with ``nerf.render_image`` on the
+runner's device. Randomness follows the JAX package's keys as generator
+seeds: video frame ``i`` uses seed ``i``, interpolation frame ``i`` seed
+``100 + i``, the ray-value render seed 0.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from nerf_and_dietnerf_tpu_torch.core import pose_math
 from nerf_and_dietnerf_tpu_torch.data import loaders
 from nerf_and_dietnerf_tpu_torch.models import nerf
 from nerf_and_dietnerf_tpu_torch.train import checkpoint
+from nerf_and_dietnerf_tpu_torch.train.diet_trainer import DietTrainer, check_embedder
 from nerf_and_dietnerf_tpu_torch.train.trainer import Trainer
 from nerf_and_dietnerf_tpu_torch.utils import config as config_lib
 from nerf_and_dietnerf_tpu_torch.utils.device import resolve_device
@@ -37,7 +39,8 @@ class Runner:
     """One execution of one config file (reference ``ExecutionRun``).
 
     :param config_path: the run's YAML file.
-    :param vit_weights: ViT weights for DietNeRF configs (not ported yet).
+    :param vit_weights: ViT weights for DietNeRF configs (``models/vit.py``
+        ``load_pretrained`` formats).
     :param save_root: overrides ``general_save_location``.
     :param device: where to train and render; the GPU unless ``device="cpu"``
         is given.
@@ -49,12 +52,11 @@ class Runner:
         self.run = config_lib.load_config(self.config_path)
         if save_root is not None:
             self.run.general_save_location = save_root
-        # The JAX runner sends these configs to a DietTrainer or a device
-        # mesh; refuse them before any file is written, as the Trainer does.
+        # Refuse, before any file is written, a DietNeRF run without an
+        # embedder (the DietTrainer would) and a device mesh, which the JAX
+        # runner builds and the port does not have yet.
         if self.run.is_dietnerf:
-            raise NotImplementedError(
-                "type_of_model DietNeRF: DietNeRF training (ROADMAP A9) is not ported to "
-                "PyTorch yet; this runner runs NeRF only")
+            check_embedder(self.run, vit_weights)
         if self.run.mesh_data_devices is not None and self.run.mesh_data_devices > 1:
             raise NotImplementedError(
                 f"data_devices {self.run.mesh_data_devices}: multi-GPU runs (ROADMAP A10) are "
@@ -128,9 +130,16 @@ class Runner:
     # Training                                                            #
     # ------------------------------------------------------------------ #
 
+    def _make_trainer(self) -> Trainer:
+        if self.run.is_dietnerf:
+            return DietTrainer(self.run, self.dataset, self.save_dir, device=self.device,
+                               epoch_callback=self._epoch_callback,
+                               vit_weights=self.vit_weights)
+        return Trainer(self.run, self.dataset, self.save_dir, device=self.device,
+                       epoch_callback=self._epoch_callback)
+
     def training(self) -> None:
-        trainer = Trainer(self.run, self.dataset, self.save_dir, device=self.device,
-                          epoch_callback=self._epoch_callback)
+        trainer = self._make_trainer()
         # Snapshot the held-out test view at training start
         # (reference src/ExecutionRun.py:177).
         plots.save_test_image(self.save_dir, self.dataset.images[self.run.test_img_idx])

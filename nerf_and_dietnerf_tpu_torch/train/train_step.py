@@ -122,6 +122,21 @@ def train_step(state: TrainState, key, batch, *, config: NeRFConfig, optimizer: 
     return TrainState(apply_updates(state.params, updates), opt_state, state.step + 1), metrics
 
 
+def run_epoch(state: TrainState, key, tables, n_batches: int, batch_size: int, step):
+    """A permutation of the ray table ``tables`` (origins, dirs, rgb) drawn
+    from ``key`` on the device, then ``n_batches`` calls of
+    ``step(state, batch, i) -> (state, metrics)`` on gathered batches;
+    returns the state and the mean of each metric."""
+    perm = torch.randperm(tables[0].shape[0], generator=key, device=tables[0].device)
+    history = []
+    for i in range(n_batches):
+        idx = perm[i * batch_size:(i + 1) * batch_size]
+        state, metrics = step(state, tuple(t[idx] for t in tables), i)
+        history.append(metrics)
+    mean = {k: torch.stack([m[k] for m in history]).mean() for k in history[0]}
+    return state, mean
+
+
 def make_epoch_fn(config: NeRFConfig, optimizer: Adam, n_batches: int, batch_size: int):
     """One epoch over a ray table on the device: a permutation drawn on the
     device, then ``n_batches`` steps, each on a gathered batch.
@@ -132,15 +147,9 @@ def make_epoch_fn(config: NeRFConfig, optimizer: Adam, n_batches: int, batch_siz
     """
 
     def epoch_fn(state: TrainState, key, origins, dirs, rgb):
-        perm = torch.randperm(origins.shape[0], generator=key, device=origins.device)
-        history = []
-        for i in range(n_batches):
-            idx = perm[i * batch_size:(i + 1) * batch_size]
-            batch = (origins[idx], dirs[idx], rgb[idx])
-            state, metrics = train_step(state, key, batch, config=config, optimizer=optimizer)
-            history.append(metrics)
-        mean = {k: torch.stack([m[k] for m in history]).mean() for k in history[0]}
-        return state, mean
+        return run_epoch(
+            state, key, (origins, dirs, rgb), n_batches, batch_size,
+            lambda state, batch, i: train_step(state, key, batch, config=config,
+                                               optimizer=optimizer))
 
     return epoch_fn
-

@@ -1,4 +1,4 @@
-"""Epoch-loop trainer (single device, NeRF).
+"""Epoch-loop trainer (single device, NeRF; DietNeRF in ``diet_trainer``).
 
 Port of ``nerf_and_dietnerf_tpu/train/trainer.py``: an epoch loop over the
 ray table kept on the device, per-epoch full-frame f32 eval renders with
@@ -49,15 +49,17 @@ class Trainer:
         backup here, as in ``src/ExecutionRun.py:193-201``).
     """
 
+    trains_dietnerf = False  # DietTrainer adds the consistency loss
+
     def __init__(self, run: RunConfig, dataset: Dataset, save_dir, device=None,
                  epoch_callback: Optional[Callable] = None):
         # The JAX runner sends these configs elsewhere (DietTrainer, a device
         # mesh); training them here as plain single-device NeRF would give
         # another result without saying so.
-        if run.is_dietnerf:
+        if run.is_dietnerf and not self.trains_dietnerf:
             raise NotImplementedError(
-                "type_of_model DietNeRF: DietNeRF training (ROADMAP A9) is not ported to "
-                "PyTorch yet; this Trainer trains NeRF only")
+                "type_of_model DietNeRF: this Trainer trains NeRF only; train DietNeRF "
+                "configs with train.diet_trainer.DietTrainer (the runner picks it)")
         if run.mesh_data_devices is not None and run.mesh_data_devices > 1:
             raise NotImplementedError(
                 f"data_devices {run.mesh_data_devices}: multi-GPU training (ROADMAP A10) is "
@@ -96,8 +98,7 @@ class Trainer:
         self.start_epoch = 0
         self.ckpt = checkpoint.CheckpointManager(self.save_dir / "states")
         self._maybe_resume()
-        self._epoch_fn = ts.make_epoch_fn(
-            self.config, self.optimizer, self.data.batches_per_epoch, run.n_rays_in_batch_train)
+        self._epoch_fn = None  # built at the first epoch (_make_epoch_fn)
         self._tables = None
         self._eval_render_cache = None
         self.psnrs_test: List[float] = []
@@ -130,12 +131,20 @@ class Trainer:
             if restored is not None:
                 self.state = restored
 
+    def _make_epoch_fn(self):
+        """``epoch_fn(state, key, origins, dirs, rgb) -> (state, mean_metrics)``
+        over the device's ray table."""
+        return ts.make_epoch_fn(self.config, self.optimizer, self.data.batches_per_epoch,
+                                self.run.n_rays_in_batch_train)
+
     def train_epoch(self, epoch: int) -> EpochStats:
         """One pass over the permuted ray table, then the eval PSNRs."""
         self._eval_render_cache = None
         n_batches = self.data.batches_per_epoch
         if n_batches == 0:
             raise ValueError("batch size exceeds the number of training rays; nothing to train")
+        if self._epoch_fn is None:
+            self._epoch_fn = self._make_epoch_fn()
         if self._tables is None:
             self._tables = tuple(
                 torch.as_tensor(a, device=self.device)

@@ -97,7 +97,7 @@ class RunConfig:
     grad_clip_norm: 'Optional[float]' = None      # global-norm clip (None: off)
     optimizer_lr_final: 'Optional[float]' = None  # exponential lr decay target (None: constant)
     offline_render_chunk: 'Optional[int]' = None  # rays per eval-render chunk (None: auto)
-    allow_random_embedder: bool = False      # DietNeRF: not ported yet
+    allow_random_embedder: bool = False      # DietNeRF without ViT weights: a random embedder
     config_name: str = "run"                 # stem of the YAML file
 
     VALID_BACKENDS = ("xla", "pallas", "pallas_mlp", "pallas_rm")

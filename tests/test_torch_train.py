@@ -126,13 +126,14 @@ def test_trainer_pallas_rm_one_epoch_on_cpu(tmp_path, n_angles):
         assert rgb.shape == (10, 10, 3) and np.isfinite(rgb).all()
 
 
-@pytest.mark.parametrize("kw,what", [({"type_of_model": "DietNeRF"}, "DietNeRF"),
+@pytest.mark.parametrize("kw,what", [({"type_of_model": "DietNeRF"}, "DietTrainer"),
                                      ({"mesh_data_devices": 2}, "multi-GPU")],
                          ids=["dietnerf", "data_devices_2"])
 def test_trainer_refuses_configs_it_cannot_train(tmp_path, kw, what):
     """A DietNeRF config, or one on two data devices, goes to DietTrainer or a
-    device mesh in the JAX runner; the port's Trainer refuses both rather
-    than train plain single-device NeRF."""
+    device mesh in the JAX runner; the port's plain Trainer refuses both
+    rather than train plain single-device NeRF (naming DietTrainer, which
+    trains the first)."""
     with pytest.raises(NotImplementedError, match=what):
         Trainer(tiny_run(**kw), synthetic_dataset(), tmp_path, device="cpu")
     Trainer(tiny_run(mesh_data_devices=1), synthetic_dataset(), tmp_path, device="cpu")
@@ -216,11 +217,13 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('nerf_and_dietnerf_tpu.') or m == 'nerf_and_dietnerf_tpu'\n"
-        "       or m in ('optax', 'orbax', 'yaml', 'h5py', 'imageio', 'matplotlib', 'cv2')]\n"
+        "       or m in ('optax', 'orbax', 'yaml', 'h5py', 'imageio', 'matplotlib', 'cv2',\n"
+        "                'safetensors', 'transformers')]\n"
         "assert not bad, bad\n"
         "new = ['ops.probe_kernels_cuda', 'utils.profiling', 'tools', 'tools.exp_mxu',\n"
         "       'tools.exp_vpu', 'tools.exp_interleave', 'tools.exp_expand', 'tools.exp_enccost',\n"
-        "       'viz', 'viz.image_ops', 'viz.plots', 'viz.video', 'tasks', 'tasks.runner', 'main']\n"
+        "       'viz', 'viz.image_ops', 'viz.plots', 'viz.video', 'tasks', 'tasks.runner', 'main',\n"
+        "       'models.vit', 'models.dietnerf', 'train.diet_trainer']\n"
         "missing = [m for m in new if 'nerf_and_dietnerf_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "assert 'tools' not in sys.modules, 'the root tools/ directory was imported'\n"
