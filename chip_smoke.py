@@ -88,6 +88,22 @@ through the kernels and their plain versions against the f64 chain, and the
 checkpointed render's gradient against the one without checkpoint), and the
 plain and diet steps, the ViT, the consistency render, the target
 embeddings and the diet step's peak memory are timed.
+Then the distributed phase (``distributed_phase``, ``parallel/``): two ranks
+spawned in one gloo group, both on the one card, first run a gloo
+``all_reduce`` and ``broadcast`` of the card's tensors; then each trains one
+epoch of the "pallas" flagship config on its 2,048 rows of every 4,096-ray
+batch through the port's worker (``tools/multiprocess_worker.py``), with two
+f32 eval frames tile-sharded, and one epoch of DietNeRF (diet steps at
+counters 13 and 26); the ranks' parameters must be bitwise equal, their
+launches exactly 64 bf16 B1 and 64 B2 and 4 f32 B1 a rank, their eval frames
+bitwise this process's single-device frames of rank 0's parameters, their
+reduced f32 gradient within ``TOL_DIST_GRAD`` of the one-process gradient
+and their epoch loss within ``TOL_DIST_LOSS`` of a one-process epoch's; a
+process of its own then runs ``main.main([cfg, "--distributed"])`` at a world
+of one (NCCL), whose ``.h5`` must be bitwise the plain run's, and
+``mesh.all_reduce_mean_`` on that one-rank NCCL group. The ranks share one
+card: their times (ms a step a rank, the gloo all-reduce of the gradient)
+say nothing of scaling across cards.
 Then the seven probe kernels (P1 ``probe_mma``, P2
 ``probe_mlp_epilogue``, P3 ``probe_mlp_chains``, P4-P6 ``probe_expand_a/b/c``,
 P7 ``probe_enccost``) are held against their plain versions at the probe
@@ -111,6 +127,7 @@ the card's name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -2613,7 +2630,6 @@ def runner_phase(torch, timings: dict) -> None:
     the resume drill: ``main`` for 4 epochs of training, against ``main`` for
     2 and a second ``main`` resuming that directory to epoch 4, parameters
     and PSNR histories bitwise equal."""
-    import contextlib
     import shutil
     from unittest import mock
 
@@ -2823,8 +2839,8 @@ def _diet_recorders(torch, rec: dict):
                              "cs_loss": out[1]["cosine_similarity_loss"]})
         return out
 
-    def make_diet_epoch_fn(*args):
-        epoch_fn = make(*args)
+    def make_diet_epoch_fn(*args, **kwargs):
+        epoch_fn = make(*args, **kwargs)
 
         def recorded(*a):
             state, metrics = epoch_fn(*a)
@@ -2931,7 +2947,6 @@ def _diet_held_step(torch, trainer, c2w, target, label: str) -> dict:
     with ``vit.extract_features`` given ``compute_dtype=float32``). Then the
     bf16 render's gradient with and without ``torch.utils.checkpoint`` (same
     chunks, draws and kernels)."""
-    import contextlib
     import dataclasses
     import functools
     import types
@@ -3174,7 +3189,6 @@ def diet_phase(torch, timings: dict, backend: str) -> None:
     ``_check_diet_run``, the held diet step, the kernels at the render's
     shapes, the timings and the traces, and the first checkpoint call's
     seconds in a fresh interpreter (:func:`_first_checkpoint_s`)."""
-    import contextlib
     import shutil
     from unittest import mock
 
@@ -3238,6 +3252,572 @@ def diet_phase(torch, timings: dict, backend: str) -> None:
         f"{out['cs_render_fwd_bwd_ms']:.3f} ms, target embeddings {out['embed_s']:.3f} s, "
         f"the run {seconds:.3f} s; a process's first checkpoint call "
         f"{out['first_checkpoint_call_s']:.3f} s (a fresh interpreter, a CPU tensor)")
+
+
+# --------------------------------------------------------------------------- #
+# Data parallelism on one card (parallel/): two gloo ranks sharing it, NCCL   #
+# at a world of one                                                            #
+# --------------------------------------------------------------------------- #
+
+DIST_DIR = ROOT / "build" / "chip_smoke_dist"
+DIST_TIMEOUT = 600.0  # seconds the two ranks, or the NCCL process, may take
+# The flagship config's fields the drill's worker runs with (``_flagship_run``).
+DIST_RUN_FIELDS = ("hidden_layer_dim", "last_hidden_layer_dim", "n_pos_enc_dim_xyz",
+                   "n_pos_enc_view_dir", "n_angles_for_model", "n_rays_in_batch_train",
+                   "n_rays_in_batch_render", "n_render_samples_coarse", "n_render_samples_fine",
+                   "compute_dtype", "backend", "init_seed")
+# The two ranks' reduced f32 gradient (TF32 off) against the one-process
+# gradient of the same global batch, normwise: only the grouping of the sum
+# over rows differs (each rank's kernels sum its 2,048 rows, then the
+# all-reduce adds the two halves). The control, ranks drawing at their local
+# shape, must land above it.
+TOL_DIST_GRAD = 1e-5
+# The two-rank epoch's mean loss against the one-process epoch's, relative:
+# 32 bf16 steps whose reduced gradients differ from the one-process ones in
+# their last bits, which Adam's division by sqrt(nu) enlarges where a
+# gradient is near 0. Set between the sound runs' readings and the local-draw
+# control's (PERF.md, section 6, data parallelism), which must land above it.
+TOL_DIST_LOSS = 1e-3
+DIST_ALLREDUCE_REPS = 20
+DIST_WARM_EPOCHS = 3  # untraced warm epochs timed after the first (and before the traced one)
+
+
+def _local_draws(key, config, mesh, rows, has_fine, device):
+    """The fault the group step rules out, for the drill's controls: a rank
+    drawing the step's uniforms at its own rows' shape (in place of
+    ``train_step.group_draws``), which leaves the single-device stream."""
+    from nerf_and_dietnerf_tpu_torch.models import nerf
+
+    return nerf.draw_training_uniforms(key, config, rows, has_fine, device)
+
+
+@contextlib.contextmanager
+def _drawing_locally(local: bool):
+    """With ``local``, the group step draws as :func:`_local_draws` does."""
+    from unittest import mock
+
+    from nerf_and_dietnerf_tpu_torch.train import train_step as ts
+
+    with (mock.patch.object(ts, "group_draws", _local_draws) if local
+          else contextlib.nullcontext()):
+        yield
+
+
+def _dist_grads(torch, dev, mesh, local: bool = False):
+    """The gradient that ``train_step`` hands to Adam in the first step of an
+    epoch of the f32 flagship config (``pallas``, compute_dtype float32) at
+    the seed's parameters, through ``train_step.make_epoch_fn`` on the
+    synthetic scene's training rays with a fixed generator: with ``mesh``
+    this rank's reduced gradient, without it the single-device step's; with
+    ``local``, the ranks draw at their local shape (the control)."""
+    import dataclasses
+
+    from nerf_and_dietnerf_tpu_torch.data import loaders, pipeline
+    from nerf_and_dietnerf_tpu_torch.train import train_step as ts
+    from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
+
+    recorded = []
+
+    class Recording(ts.Adam):
+        def update(self, grads, opt_state):
+            recorded.append([g.detach().clone() for g in tree_leaves(grads)])
+            return super().update(grads, opt_state)
+
+    run = _flagship_run("pallas", "float32")
+    ds = synthetic_scene()
+    cfg = dataclasses.replace(run.nerf_config(), near=ds.near, far=ds.far)
+    optimizer = Recording(run.optimizer_lr)
+    state = ts.init_train_state(torch.Generator().manual_seed(SEED), cfg, optimizer, device=dev)
+    idx = loaders.train_test_split_indices(len(ds), run.test_img_idx, None)
+    data = pipeline.RayDataset(ds.images[idx], ds.camera_poses[idx], ds.field_of_view,
+                               run.n_rays_in_batch_train)
+    tables = [torch.as_tensor(a, device=dev) for a in (data.origins, data.directions, data.rgb)]
+    key = torch.Generator(device=dev).manual_seed(SEED + 21)
+    with _drawing_locally(local):
+        ts.make_epoch_fn(cfg, optimizer, 1, data.batch_size, mesh=mesh)(state, key, *tables)
+    return recorded[0]
+
+
+def _dist_worker_args(out: Path, device, diet: bool = False):
+    """The drill's worker arguments: one epoch of the flagship config
+    (``_flagship_run("pallas")``) on the synthetic scene's ``.npz``."""
+    from nerf_and_dietnerf_tpu_torch.tools import multiprocess_worker as worker
+
+    run = _flagship_run("pallas")
+    fields = {k: getattr(run, k) for k in DIST_RUN_FIELDS}
+    return worker.parse_args(["--out", str(out), "--epochs", "1", "--device", str(device),
+                              "--scene", str(DIST_DIR / "scene.npz"), "--run",
+                              json.dumps(fields)] + (["--diet", "full"] if diet else []))
+
+
+def _h5_stand_ins(torch):
+    """The runner phase's ``.h5`` stand-ins alone (the card's machine has no
+    h5py)."""
+    return [s for s in _runner_stand_ins(torch, {}, None, {})
+            if s[1] in ("save_keras_h5", "load_keras_h5")]
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _warm_epochs(torch, trainer) -> list:
+    """``DIST_WARM_EPOCHS`` more epochs of ``trainer``'s epoch function from
+    its state (warm: its kernels loaded, its packs' indices cached; the
+    states they reach are dropped), host clock synchronised at each end: for
+    each, ms a step, and the host's ms between the calls of its steps
+    (median, and the largest with its step)."""
+    from unittest import mock
+
+    from nerf_and_dietnerf_tpu_torch.train import train_step as ts
+
+    dev = trainer.device
+    real_step, starts = ts.train_step, []
+
+    def train_step(*args, **kwargs):
+        starts.append(time.perf_counter())
+        return real_step(*args, **kwargs)
+
+    out = []
+    for _ in range(DIST_WARM_EPOCHS):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+        starts.clear()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        with mock.patch.object(ts, "train_step", train_step):
+            _, metrics = trainer._epoch_fn(trainer.state, gen, *trainer._tables)
+        float(metrics["loss"])
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        step_ms = [1e3 * (b - a) for a, b in zip(starts, starts[1:] + [t1])]
+        out.append({"ms_per_step": 1e3 * (t1 - t0) / trainer.data.batches_per_epoch,
+                    "median_step_ms": sorted(step_ms)[len(step_ms) // 2],
+                    "max_step_ms": max(step_ms), "max_step_at": step_ms.index(max(step_ms))})
+    return out
+
+
+def _traced_epoch(torch, trainer, mesh) -> dict:
+    """One more warm epoch of ``trainer``'s epoch function from its state,
+    traced on this rank into ``DIST_DIR/trace_rank{r}`` (the state it
+    reaches is dropped; :func:`_card_timeline` reads the two ranks' traces
+    together): ms a step on the host clock inside the trace, and this
+    rank's device operations with the most time (a kernel's time includes
+    the other rank's, which shares the card)."""
+    from nerf_and_dietnerf_tpu_torch.utils import profiling
+
+    dev = trainer.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    _sync(torch, dev)
+    with profiling.trace(str(DIST_DIR / f"trace_rank{mesh.rank}")) as prof:
+        t0 = time.perf_counter()
+        _, metrics = trainer._epoch_fn(trainer.state, gen, *trainer._tables)
+        float(metrics["loss"])
+        _sync(torch, dev)
+        ms = 1e3 * (time.perf_counter() - t0) / trainer.data.batches_per_epoch
+    averages = sorted((a for a in prof.key_averages() if _on_device(a)), key=_device_us,
+                      reverse=True)
+    return {"ms_per_step": ms,
+            "top_device_ops": [{"op": a.key.split("(")[0], "ms": _device_us(a) / 1e3,
+                                "count": a.count} for a in averages[:3]]}
+
+
+def _busy_us(spans) -> float:
+    """The time some interval of ``spans`` (``(start, end)``, sorted by start) covers."""
+    busy, cur = 0.0, None
+    for start, end in spans:
+        if cur is None or start > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    return busy + (0.0 if cur is None else cur[1] - cur[0])
+
+
+def _card_timeline(traces, steps: int) -> dict:
+    """The two ranks' traced epochs on one clock (their Chrome traces' times,
+    microseconds on a common base): the window from the first device
+    operation to the last, each rank's device busy time, the card's (some
+    rank's operation in flight) and the time both ranks had one in flight
+    (the card time-shares the two contexts, so a kernel's span includes the
+    other rank's turns), all a step; each rank's time a step inside
+    ``gloo:all_reduce``, by the trace's category (host and device spans)."""
+    ranks, spans = [], []
+    for path in traces:
+        events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+                  if e.get("ph") == "X"]
+        dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+        if not dev:
+            raise AssertionError(f"{path}: the trace holds no device operation")
+        reduce_us: dict = {}
+        for e in events:
+            if e.get("name") == "gloo:all_reduce":
+                reduce_us.setdefault(e.get("cat"), []).append(e["dur"])
+        ranks.append({"busy_ms": _busy_us(dev) / 1e3 / steps,
+                      "all_reduce": {cat: {"ms": sum(v) / 1e3 / steps, "count": len(v)}
+                                     for cat, v in reduce_us.items()}})
+        spans.append(dev)
+    window = max(s[-1][1] for s in spans) - min(s[0][0] for s in spans)
+    card = _busy_us(sorted(spans[0] + spans[1]))
+    both = sum(_busy_us(s) for s in spans) - card
+    return {"window_ms": window / 1e3 / steps, "card_busy_ms": card / 1e3 / steps,
+            "card_idle_share": 1.0 - card / window, "both_in_flight_ms": both / 1e3 / steps,
+            "ranks": ranks}
+
+
+def _dist_rank(rank: int, mesh, out_dir: str) -> None:
+    """One of the two spawned ranks of :func:`distributed_phase`, both on
+    the same device in one gloo group: gloo's ``all_reduce`` and
+    ``broadcast`` on the device's tensors first; the f32 gradient check's
+    rank side, and its control (:func:`_local_draws`), and the all-reduce's
+    time on that gradient; one epoch of the flagship NeRF through the port's
+    worker (launches counted by compute type), a warm epoch untraced and one
+    traced; the same epoch with the ranks drawing locally (the control); one
+    epoch of DietNeRF through the worker (each diet step's counter and
+    consistency loss recorded). Writes ``rank{r}.json``; rank 0 also its
+    reduced gradients and its trained parameters and eval frames."""
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+
+    from nerf_and_dietnerf_tpu_torch.models import dietnerf
+    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda
+    from nerf_and_dietnerf_tpu_torch.parallel import mesh as mesh_lib
+    from nerf_and_dietnerf_tpu_torch.tools import multiprocess_worker as worker
+    from nerf_and_dietnerf_tpu_torch.utils.tree import tree_map
+
+    out_dir = Path(out_dir)
+    dev = mesh.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out: dict = {"rank": rank, "device": str(dev)}
+    try:
+        x = torch.full((1024,), float(rank + 1), device=dev)
+        mesh_lib.all_reduce_sum_(x, mesh)
+        y = torch.full((1024,), 7.0 if rank == 0 else -1.0, device=dev)
+        dist.broadcast(y, src=0, group=mesh.group)
+        _sync(torch, dev)
+    except Exception as e:
+        raise RuntimeError(f"gloo refused an all_reduce / broadcast of {dev} tensors: {e!r}") \
+            from e
+    if not (bool((x == 3.0).all()) and bool((y == 7.0).all())):
+        raise RuntimeError(f"gloo on {dev}: all_reduce gave {x[:2].tolist()}, broadcast "
+                           f"{y[:2].tolist()}")
+    out["gloo_check"] = {"all_reduce_sum": float(x[0]), "broadcast": float(y[0])}
+
+    grads = _dist_grads(torch, dev, mesh)
+    local_grads = _dist_grads(torch, dev, mesh, local=True)
+    if rank == 0:
+        torch.save({"sound": [g.cpu() for g in grads], "local": [g.cpu() for g in local_grads]},
+                   out_dir / "grads_rank0.pt")
+    bufs = [g.clone() for g in grads]
+    ms = []
+    for _ in range(DIST_ALLREDUCE_REPS):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        mesh_lib.all_reduce_mean_(bufs, mesh)
+        _sync(torch, dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    n = sum(g.numel() for g in grads)
+    out["all_reduce"] = {"values": n, "bytes": 4 * n, "ms": sorted(ms)[len(ms) // 2],
+                         "ms_min": min(ms), "reps": len(ms)}
+
+    by_dtype: dict = {}
+    with contextlib.ExitStack() as stack:
+        for owner, name, value in (_h5_stand_ins(torch) + [_fwd_by_dtype(
+                torch, raymarch_cuda, "mlp_fwd", "mlp_fwd", by_dtype)]):
+            stack.enter_context(mock.patch.object(owner, name, value))
+        trainer, nerf_result = worker.run(_dist_worker_args(out_dir / "nerf", dev), dev, mesh)
+    out["nerf"] = dict(nerf_result, mlp_fwd_by_dtype=by_dtype,
+                       warm_epochs=_warm_epochs(torch, trainer),
+                       trace=_traced_epoch(torch, trainer, mesh))
+    if rank == 0:
+        torch.save({"params": tree_map(torch.Tensor.cpu, trainer.state.params),
+                    "renders": trainer.render_eval_images(1)}, out_dir / "trained_rank0.pt")
+    with contextlib.ExitStack() as stack:
+        for owner, name, value in _h5_stand_ins(torch):
+            stack.enter_context(mock.patch.object(owner, name, value))
+        stack.enter_context(_drawing_locally(True))
+        _, local_result = worker.run(_dist_worker_args(out_dir / "nerf_local", dev), dev, mesh)
+    out["nerf_local_draws"] = {"losses": local_result["losses"]}
+
+    steps = []
+    real_step = dietnerf.diet_train_step
+
+    def diet_train_step(state, *args, **kwargs):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        new, metrics = real_step(state, *args, **kwargs)
+        _sync(torch, dev)
+        steps.append({"counter": state.step + 1,
+                      "cs_loss": float(metrics["cosine_similarity_loss"]),
+                      "loss": float(metrics["loss"]), "ms": 1e3 * (time.perf_counter() - t0)})
+        return new, metrics
+
+    with contextlib.ExitStack() as stack:
+        for owner, name, value in (_h5_stand_ins(torch)
+                                   + [(dietnerf, "diet_train_step", diet_train_step)]):
+            stack.enter_context(mock.patch.object(owner, name, value))
+        trainer, diet_result = worker.run(_dist_worker_args(out_dir / "diet", dev, diet=True),
+                                          dev, mesh)
+    out["diet"] = dict(diet_result, diet_steps=steps,
+                       cs_weight=trainer.diet.weight, budget=trainer.consistency_budget,
+                       cs_chunks=-(-trainer.diet.cs_image_size ** 2 // trainer.diet.cs_chunk_rays))
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _nccl_child(out_dir: str, device: str) -> None:
+    """The NCCL check, in a process of its own: ``main.main([cfg])`` and
+    ``main.main([cfg, "--distributed"])`` with ``RANK=0``, ``WORLD_SIZE=1``
+    and ``MASTER_*`` set (a one-rank NCCL group, so ``make_mesh`` gives None
+    and the run is the single-device one), one epoch of the flagship
+    ``pallas`` config's training task each through the runner phase's
+    stand-ins; their ``.h5`` files compared bitwise; then
+    ``mesh.all_reduce_mean_`` on a one-rank NCCL group against its input,
+    bitwise. Writes ``nccl.json``."""
+    import os
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+
+    from nerf_and_dietnerf_tpu_torch import main as cli
+    from nerf_and_dietnerf_tpu_torch.parallel import mesh as mesh_lib
+    from nerf_and_dietnerf_tpu_torch.train import checkpoint
+    from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
+
+    out_dir = Path(out_dir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = _runner_run(1, all_tasks=False)
+    configs = {"plain.yaml": run, "nccl.yaml": run}
+    for name in configs:
+        (out_dir / name).write_text(f"# {name}: the config is built in chip_smoke.py\n")
+    results = out_dir / "Results"
+    platform = ["--platform", "cpu"] if device == "cpu" else []
+    out: dict = {}
+    rec = {k: [] for k in ("videos", "plot_video", "epoch_plots", "rays", "interp")}
+    with contextlib.ExitStack() as stack:
+        for owner, name, value in _runner_stand_ins(torch, configs, synthetic_scene(), rec):
+            stack.enter_context(mock.patch.object(owner, name, value))
+        out["plain_rc"] = cli.main([str(out_dir / "plain.yaml"), "--save-root", str(results)]
+                                   + platform)
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(mesh_lib.free_port()))
+        out["distributed_rc"] = cli.main([str(out_dir / "nccl.yaml"), "--distributed",
+                                          "--save-root", str(results)] + platform)
+        weights = [torch.load(checkpoint.nerf_h5_path(results / f"{n}_save_dir_0", 1),
+                              map_location="cpu", weights_only=False) for n in ("plain", "nccl")]
+    a, b = tree_leaves(weights[0]), tree_leaves(weights[1])
+    out["h5_bitwise"] = len(a) == len(b) > 0 and all(torch.equal(x, y) for x, y in zip(a, b))
+
+    os.environ["MASTER_PORT"] = str(mesh_lib.free_port())
+    dev = mesh_lib.init_distributed("cuda:0" if device != "cpu" else "cpu")
+    out["backend"] = dist.get_backend()
+    try:
+        group = mesh_lib.DataGroup(0, 1, dev, dist.group.WORLD)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        xs = [torch.randn(s, generator=gen, device=dev) for s in ((256, 63), (256,), (3,))]
+        ref = [x.clone() for x in xs]
+        mesh_lib.all_reduce_mean_(xs, group)
+        out["all_reduce_bitwise"] = all(torch.equal(x, r) for x, r in zip(xs, ref))
+    finally:
+        dist.destroy_process_group()
+    (out_dir / "nccl.json").write_text(json.dumps(out))
+
+
+def _median_ms(epochs) -> float:
+    return sorted(e["ms_per_step"] for e in epochs)[len(epochs) // 2]
+
+
+def _normwise_leaves(torch, got, ref) -> float:
+    g = torch.cat([t.reshape(-1).double() for t in got])
+    r = torch.cat([t.reshape(-1).double() for t in ref])
+    return float(torch.linalg.norm(g - r) / torch.linalg.norm(r))
+
+
+def distributed_phase(torch, timings: dict) -> None:
+    """Data parallelism on the one card: two ranks spawned in one gloo group,
+    both on the card (``_dist_rank``: gloo on the card's tensors checked
+    first); the ranks' parameters after a flagship NeRF epoch and a DietNeRF
+    epoch bitwise equal, their logged losses equal, exact launch counts per
+    rank; their eval frames against this process's single-device render of
+    rank 0's parameters, bitwise; their reduced f32 gradient against this
+    process's one-process gradient, normwise ``TOL_DIST_GRAD``; their epoch
+    loss against a one-process epoch, ``TOL_DIST_LOSS``, with the controls of
+    both (the ranks drawing at their local shape) above the tolerances; then
+    NCCL at a world of one (``_nccl_child``). The ranks share one card: their
+    times say nothing of scaling across cards."""
+    import multiprocessing
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+
+    from nerf_and_dietnerf_tpu_torch.parallel import mesh as mesh_lib
+    from nerf_and_dietnerf_tpu_torch.tools import multiprocess_worker as worker
+    from nerf_and_dietnerf_tpu_torch.utils.tree import tree_map
+
+    t_start = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    ds = synthetic_scene()
+    np.savez(DIST_DIR / "scene.npz", images=ds.images, camera_poses=ds.camera_poses,
+             field_of_view=ds.field_of_view, near=ds.near, far=ds.far)
+    dev = torch.device("cuda:0" if DEVICE == "cuda" else DEVICE)
+    try:
+        mesh_lib.spawn(_dist_rank, [str(dev)] * 2, args=(str(DIST_DIR),), backend="gloo",
+                       timeout=DIST_TIMEOUT)
+    except Exception as e:
+        raise AssertionError(f"distributed: the two gloo ranks on {dev} failed: {e}") from e
+    ranks = [json.loads((DIST_DIR / f"rank{r}.json").read_text()) for r in (0, 1)]
+    log(f"distributed: gloo on {dev} tensors: all_reduce and broadcast "
+        f"{ranks[0]['gloo_check']}")
+
+    # The flagship epoch: ranks bitwise alike, exact launches, vs one process.
+    n0, n1 = ranks[0]["nerf"], ranks[1]["nerf"]
+    steps = n0["steps_per_epoch"]
+    want = {"mlp_fwd": 2 * steps + 2 * 2, "mlp_bwd": 2 * steps}
+    want_by_dtype = {"bfloat16": 2 * steps, "float32": 2 * 2}
+    for r in (n0, n1):
+        if r["launches"] != want or r["mlp_fwd_by_dtype"] != want_by_dtype:
+            raise AssertionError(f"distributed rank {r['rank']}: launches {r['launches']} by "
+                                 f"type {r['mlp_fwd_by_dtype']}, expected {want} by type "
+                                 f"{want_by_dtype}")
+    if n0["params_sha256"] != n1["params_sha256"] or n0["losses"] != n1["losses"] \
+            or n0["psnr_test"] != n1["psnr_test"] or n0["psnr_train"] != n1["psnr_train"]:
+        raise AssertionError(f"distributed: the ranks differ: {n0} / {n1}")
+    with contextlib.ExitStack() as stack:
+        for owner, name, value in _h5_stand_ins(torch):
+            stack.enter_context(mock.patch.object(owner, name, value))
+        one_trainer, one = worker.run(_dist_worker_args(DIST_DIR / "one", dev), dev, None)
+    one_warm = _warm_epochs(torch, one_trainer)
+
+    def rel(losses):
+        return abs(losses[0] - one["losses"][0]) / abs(one["losses"][0])
+
+    loss_rel = rel(n0["losses"])
+    local_rel = [rel(r["nerf_local_draws"]["losses"]) for r in ranks]
+    log(f"distributed: {steps} steps of {n0['rows_per_step']} rows a rank, epoch loss "
+        f"{n0['losses'][0]:.6f} (two ranks) vs {one['losses'][0]:.6f} (one process), "
+        f"relative {loss_rel:.3e} (tolerance {TOL_DIST_LOSS}); the control drawing locally "
+        f"{ranks[0]['nerf_local_draws']['losses'][0]:.6f}, relative {local_rel[0]:.3e}; "
+        f"params sha256 {n0['params_sha256'][:16]} on both ranks; launches a rank "
+        f"{n0['launches']}")
+    if not loss_rel <= TOL_DIST_LOSS or not all(math.isfinite(v) for v in n0["losses"]):
+        raise AssertionError(f"distributed: epoch loss {n0['losses']} vs one process "
+                             f"{one['losses']}")
+    if not min(local_rel) > TOL_DIST_LOSS:
+        raise AssertionError(f"distributed: the local-draw control's epoch loss is within "
+                             f"{TOL_DIST_LOSS} of one process's ({local_rel}): the check "
+                             f"cannot see the fault")
+    timeline = _card_timeline([DIST_DIR / f"trace_rank{r}" / "trace.json" for r in (0, 1)],
+                              steps)
+    for r in ranks:
+        log(f"distributed rank {r['rank']}: ms a step, first epoch "
+            f"{1e3 * r['nerf']['seconds'][0] / steps:.3f}, warm epochs "
+            + ", ".join(f"{e['ms_per_step']:.3f} (steps: median {e['median_step_ms']:.3f}, "
+                        f"largest {e['max_step_ms']:.3f} at {e['max_step_at']})"
+                        for e in r["nerf"]["warm_epochs"])
+            + f", traced {r['nerf']['trace']['ms_per_step']:.3f}; top device ops "
+            f"{r['nerf']['trace']['top_device_ops']}")
+    log(f"distributed: one process, ms a step, first epoch {1e3 * one['seconds'][0] / steps:.3f}, "
+        f"warm epochs " + ", ".join(f"{e['ms_per_step']:.3f} (steps: median "
+                                    f"{e['median_step_ms']:.3f}, largest {e['max_step_ms']:.3f} "
+                                    f"at {e['max_step_at']})" for e in one_warm))
+    log(f"distributed: the traced epoch on the card, a step: {timeline}")
+
+    # The tile-sharded eval frames against one process's frames of the same params.
+    trained = torch.load(DIST_DIR / "trained_rank0.pt", weights_only=False)
+    one_trainer.state.params = tree_map(lambda t: t.to(dev), trained["params"])
+    one_trainer._eval_render_cache = None
+    frames = one_trainer.render_eval_images(1)
+    frame_diff = {name: float(np.abs(trained["renders"][name][1] - rgb).max())
+                  for name, (_, rgb) in frames.items()}
+    log(f"distributed: two-rank eval frames vs one process, max |diff| {frame_diff}")
+    if any(v != 0.0 for v in frame_diff.values()):
+        raise AssertionError(f"distributed: tile-sharded eval frames differ: {frame_diff}")
+
+    # The reduced f32 gradient against the one-process gradient.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = torch.load(DIST_DIR / "grads_rank0.pt", weights_only=False)
+    ref = [g.cpu() for g in _dist_grads(torch, dev, None)]
+    grad_err = _normwise_leaves(torch, got["sound"], ref)
+    local_grad_err = _normwise_leaves(torch, got["local"], ref)
+    log(f"distributed: f32 reduced gradient ({len(ref)} leaves, as train_step hands it to "
+        f"Adam) vs one process's, normwise {grad_err:.3e} (tolerance {TOL_DIST_GRAD}); the "
+        f"control drawing locally {local_grad_err:.3e}")
+    if not grad_err <= TOL_DIST_GRAD:
+        raise AssertionError(f"distributed: f32 reduced gradient {grad_err} from one process's")
+    if not local_grad_err > TOL_DIST_GRAD:
+        raise AssertionError(f"distributed: the local-draw control's gradient is within "
+                             f"{TOL_DIST_GRAD} ({local_grad_err}): the check cannot see the fault")
+
+    # DietNeRF on the two ranks.
+    d0, d1 = ranks[0]["diet"], ranks[1]["diet"]
+    counters = [s["counter"] for s in d0["diet_steps"]]
+    cs = [s["cs_loss"] for s in d0["diet_steps"]]
+    want_counters = [c for c in range(1, d0["steps_per_epoch"] + 1)
+                     if c % 13 == 0 and c < d0["budget"]]
+    log(f"distributed diet: diet steps at {counters}, consistency losses {cs}, epoch loss "
+        f"{d0['losses']}, launches a rank {d0['launches']}")
+    if d0["params_sha256"] != d1["params_sha256"] or d0["losses"] != d1["losses"] or [
+            {k: v for k, v in s.items() if k != "ms"} for s in d0["diet_steps"]] != [
+            {k: v for k, v in s.items() if k != "ms"} for s in d1["diet_steps"]]:
+        raise AssertionError(f"distributed diet: the ranks differ: {d0} / {d1}")
+    if counters != want_counters or not all(0.0 <= v <= d0["cs_weight"] for v in cs) \
+            or not all(math.isfinite(v) for v in d0["losses"] + [s["loss"] for s in
+                                                                   d0["diet_steps"]]):
+        raise AssertionError(f"distributed diet: steps {d0['diet_steps']}, losses "
+                             f"{d0['losses']}")
+
+    # NCCL at a world of one, in a process of its own.
+    nccl_dir = DIST_DIR / "nccl"
+    nccl_dir.mkdir()
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_nccl_child, args=(str(nccl_dir), DEVICE))
+    proc.start()
+    proc.join(DIST_TIMEOUT)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        raise AssertionError("distributed: the NCCL process did not end in time")
+    if proc.exitcode != 0:
+        raise AssertionError(f"distributed: the NCCL process exited with {proc.exitcode}")
+    nccl = json.loads((nccl_dir / "nccl.json").read_text())
+    log(f"distributed: NCCL world of one: {nccl}")
+    if nccl != {"plain_rc": 0, "distributed_rc": 0, "h5_bitwise": True,
+                "backend": "nccl" if DEVICE == "cuda" else "gloo", "all_reduce_bitwise": True}:
+        raise AssertionError(f"distributed: NCCL world of one: {nccl}")
+
+    seconds = time.perf_counter() - t_start
+    timings["distributed"] = {
+        "ranks": 2, "backend": "gloo", "device": str(dev), "steps": steps,
+        "rows_per_rank": n0["rows_per_step"],
+        "ms_per_step_per_rank": [_median_ms(r["nerf"]["warm_epochs"]) for r in ranks],
+        "ms_per_step_one_process": _median_ms(one_warm),
+        "warm_epochs_per_rank": [r["nerf"]["warm_epochs"] for r in ranks],
+        "warm_epochs_one_process": one_warm,
+        "first_epoch_ms_per_step_per_rank": [1e3 * r["nerf"]["seconds"][0] / steps
+                                             for r in ranks],
+        "first_epoch_ms_per_step_one_process": 1e3 * one["seconds"][0] / steps,
+        "all_reduce": ranks[0]["all_reduce"], "all_reduce_rank1": ranks[1]["all_reduce"],
+        "launches_per_rank": n0["launches"], "mlp_fwd_by_dtype": n0["mlp_fwd_by_dtype"],
+        "loss": n0["losses"][0], "loss_one_process": one["losses"][0], "loss_rel": loss_rel,
+        "loss_rel_local_draws": local_rel, "traced_epoch": [r["nerf"]["trace"] for r in ranks],
+        "card_timeline": timeline,
+        "eval_frame_max_diff": frame_diff, "f32_grad_normwise": grad_err,
+        "f32_grad_normwise_local_draws": local_grad_err,
+        "diet": {"counters": counters, "cs_losses": cs, "loss": d0["losses"][0],
+                 "launches_per_rank": d0["launches"],
+                 "diet_step_ms_per_rank": [[s["ms"] for s in r["diet"]["diet_steps"]]
+                                           for r in ranks],
+                 "epoch_s_per_rank": [r["diet"]["seconds"][0] for r in ranks]},
+        "nccl_world_of_one": nccl, "seconds": seconds,
+    }
+    log(f"distributed phase: {seconds:.1f} s")
 
 
 # The kernels whose products must run on the tensor cores, and the SASS
@@ -3410,6 +3990,8 @@ def main() -> int:
     for backend in DIET_KERNELS:
         diet_phase(torch, timings, backend)
     log(f"diet phases done at {time.perf_counter() - t_start:.0f} s")
+    distributed_phase(torch, timings)
+    log(f"distributed phase done at {time.perf_counter() - t_start:.0f} s")
     launches.update(tools_phase(torch))
     profile_phase(torch, timings, trainer)
     log(f"tools and profile done at {time.perf_counter() - t_start:.0f} s")
@@ -3435,6 +4017,16 @@ def main() -> int:
             log(f"[{card}] diet {backend} traced {name}: device busy {t['busy_ms']:.3f} of "
                 f"{t['window_ms']:.3f} ms (idle share {t['idle_share']:.4f}), device ms "
                 + ", ".join(f"{k} {v:.3f}" for k, v in t["ms"].items()))
+    d = timings["distributed"]
+    log(f"[{card}] distributed, {d['ranks']} gloo ranks sharing one card (not scaling across "
+        f"cards): ms a step per rank (median of {DIST_WARM_EPOCHS} warm epochs) " + " / ".join(f"{v:.3f}" for v in d["ms_per_step_per_rank"])
+        + f" ({d['rows_per_rank']} rows) against {d['ms_per_step_one_process']:.3f} in one "
+        f"process (4096 rows); gradient all-reduce of {d['all_reduce']['values']} f32 values "
+        f"({d['all_reduce']['bytes']} bytes) {d['all_reduce']['ms']:.3f} ms (median of "
+        f"{d['all_reduce']['reps']}, gloo on the card's tensors); diet steps (counters "
+        f"{d['diet']['counters']}) " + " / ".join(
+            ", ".join(f"{v:.3f}" for v in r) for r in d["diet"]["diet_step_ms_per_rank"])
+        + f" ms on ranks 0 / 1; the phase {d['seconds']:.1f} s")
     r = timings["float32"]["mlp_fwd"]
     log(f"[{card}] mlp_fwd float32 ({r['design']}): {r['ms']:.3f} ms, {FMA_DESIGN} "
         f"{r['fma_design_ms']:.3f} ms, library_ms {r['library_ms']:.3f}, plain "
@@ -3485,7 +4077,8 @@ def main() -> int:
                       "b4_vs_f64_chain": timings["b4_vs_f64_chain"],
                       "b7_f32_steps": timings["b7_f32_steps"],
                       "eval_patch": timings["eval_patch"], "runner": timings["runner"],
-                      "diet": {b: timings["diet_" + b] for b in DIET_KERNELS}}),
+                      "diet": {b: timings["diet_" + b] for b in DIET_KERNELS},
+                      "distributed": timings["distributed"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

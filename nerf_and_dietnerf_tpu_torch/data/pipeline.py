@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from nerf_and_dietnerf_tpu_torch.core import cameras
+from nerf_and_dietnerf_tpu_torch.parallel import mesh as mesh_lib
 
 
 def build_ray_table(images: np.ndarray, c2w_matrices: np.ndarray, field_of_view: float
@@ -33,13 +34,28 @@ def build_ray_table(images: np.ndarray, c2w_matrices: np.ndarray, field_of_view:
 
 
 class RayDataset:
-    """The training split's ray table; the trainer keeps it on the device and
-    batches it there (``train/train_step.make_epoch_fn``)."""
+    """The training split's ray table; the trainer keeps it whole on the
+    device and batches it there (``train/train_step.make_epoch_fn``).
+
+    :param process_index / process_count: this rank's slice of each global
+        batch, as in the JAX package: every rank draws the same permutation
+        and takes rows ``[rank * per_host, (rank + 1) * per_host)`` of every
+        batch (``parallel.mesh.batch_indices``, which the epoch loop runs).
+    """
 
     def __init__(self, images: np.ndarray, c2w_matrices: np.ndarray, field_of_view: float,
-                 batch_size: int):
+                 batch_size: int, process_index: int = 0, process_count: int = 1):
+        lo, hi = mesh_lib.batch_rows(batch_size, process_index, process_count)
         self.origins, self.directions, self.rgb = build_ray_table(
             images, c2w_matrices, field_of_view)
         self.batch_size = batch_size
+        self.per_host = hi - lo
+        self.process_index = process_index
+        self.process_count = process_count
         self.n_rays = self.rgb.shape[0]
         self.batches_per_epoch = self.n_rays // batch_size
+
+    def batch_indices(self, perm, b: int):
+        """This rank's rows of batch ``b`` of the permutation ``perm``."""
+        return mesh_lib.batch_indices(perm, b, self.batch_size, self.process_index,
+                                      self.process_count)

@@ -167,16 +167,31 @@ class PoseSampler:
 
 def diet_train_step(state: ts.TrainState, key, batch, c2w, target_embedding, vit_params, *,
                     config: NeRFConfig, diet: DietConfig, optimizer: ts.Adam,
-                    field_of_view: float) -> Tuple[ts.TrainState, Dict[str, torch.Tensor]]:
+                    field_of_view: float, mesh=None
+                    ) -> Tuple[ts.TrainState, Dict[str, torch.Tensor]]:
     """The every-K-th step: ray loss + consistency loss, then Adam. ``key``
     (a ``torch.Generator``) gives the ray loss's draws, then the consistency
     render's. Metrics have the reference's names (``src/DietNeRF.py:174-190``):
     ``loss``, ``loss_for_rays``, ``cosine_similarity_loss``, ``psnr_coarse``,
-    ``psnr_fine``."""
+    ``psnr_fine``.
+
+    With ``mesh`` the ray loss is a rank's, as in ``train_step.train_step``,
+    and the consistency term (render, ViT, cosine) is computed whole and
+    alike on every rank from the same draws: added to each rank's ray loss
+    before the gradient's mean over the ranks, it gives the single-device
+    gradient (the mean of equal terms is the term)."""
     orig, dirs, rgb = batch
+    draws = None
+    if mesh is not None:
+        draws = ts.group_draws(key, config, mesh, orig.shape[0],
+                               state.params.get("fine") is not None, orig.device)
 
     def loss_fn(params):
-        ray_loss, metrics = nerf.training_losses(params, config, key, orig, dirs, rgb)
+        if mesh is None:
+            ray_loss, metrics = nerf.training_losses(params, config, key, orig, dirs, rgb)
+        else:  # the MSEs, averaged with the gradient before the PSNRs are taken
+            ray_loss, metrics = nerf.training_mses(params, config, key, orig, dirs, rgb,
+                                                   draws=draws)
         cs_loss, _ = consistency_loss(params, vit_params, config, diet, key, c2w,
                                       field_of_view, target_embedding)
         loss = ray_loss + cs_loss
@@ -184,6 +199,10 @@ def diet_train_step(state: ts.TrainState, key, batch, c2w, target_embedding, vit
                           cosine_similarity_loss=cs_loss.detach(), loss=loss.detach())
 
     _, metrics, grads = ts.loss_and_grads(state.params, loss_fn)
+    if mesh is not None:
+        grads, scalars = ts.reduce_over_group(grads, metrics, mesh)
+        extra = {k: scalars.pop(k) for k in ("loss_for_rays", "cosine_similarity_loss")}
+        metrics = dict(nerf.metrics_of(scalars.pop("loss"), scalars), **extra)
     updates, opt_state = optimizer.update(grads, state.opt_state)
     return ts.TrainState(ts.apply_updates(state.params, updates), opt_state,
                          state.step + 1), metrics
@@ -206,10 +225,12 @@ def is_diet_step(step: int, diet: DietConfig, budget: int) -> bool:
 
 
 def make_diet_epoch_fn(config: NeRFConfig, diet: DietConfig, optimizer: ts.Adam,
-                       field_of_view: float, n_batches: int, batch_size: int, budget: int):
+                       field_of_view: float, n_batches: int, batch_size: int, budget: int,
+                       mesh=None):
     """One DietNeRF epoch over a ray table on the device: the plain epoch of
     ``train_step.make_epoch_fn`` with the diet step at the positions
-    :func:`is_diet_step` picks.
+    :func:`is_diet_step` picks (with ``mesh``, both steps on this rank's rows
+    of every batch).
 
     Returned callable::
 
@@ -221,17 +242,20 @@ def make_diet_epoch_fn(config: NeRFConfig, diet: DietConfig, optimizer: ts.Adam,
     positions. Plain steps report ``loss_for_rays = loss`` and a zero
     ``cosine_similarity_loss``, as in the JAX package.
     """
+    if mesh is not None:
+        config = dataclasses.replace(config, mesh=mesh)
 
     def epoch_fn(state, key, origins, dirs, rgb, c2ws, targets, vit_params):
         def step(state, batch, i):
             if is_diet_step(state.step, diet, budget):
                 return diet_train_step(state, key, batch, c2ws[i], targets[i], vit_params,
                                        config=config, diet=diet, optimizer=optimizer,
-                                       field_of_view=field_of_view)
-            state, metrics = ts.train_step(state, key, batch, config=config, optimizer=optimizer)
+                                       field_of_view=field_of_view, mesh=mesh)
+            state, metrics = ts.train_step(state, key, batch, config=config, optimizer=optimizer,
+                                           mesh=mesh)
             return state, dict(metrics, loss_for_rays=metrics["loss"],
                                cosine_similarity_loss=torch.zeros_like(metrics["loss"]))
 
-        return ts.run_epoch(state, key, (origins, dirs, rgb), n_batches, batch_size, step)
+        return ts.run_epoch(state, key, (origins, dirs, rgb), n_batches, batch_size, step, mesh)
 
     return epoch_fn

@@ -47,8 +47,11 @@ class NeRFConfig:
     ("pallas": the MLP + compositing kernel B4; "pallas_rm": B7; ignored by
     "xla"). ``fuse_fine_loss`` runs the fine pass's whole objective, forward
     and backward, as one kernel (B5) under "pallas" / "pallas_mlp"; the other
-    backends accept it and ignore it, as in the JAX package. Neither takes
-    density noise."""
+    backends accept it and ignore it, as in the JAX package, and so does a
+    run over a data-parallel group (``mesh`` set), which takes the split fine
+    pass as the JAX package does. Neither flag takes density noise.
+    ``mesh`` is the ``parallel.mesh.DataGroup`` of a group run, None on one
+    device; the kernels run on each rank's rows either way."""
 
     mlp: MLPConfig = MLPConfig()
     n_samples_coarse: int = 64
@@ -61,6 +64,7 @@ class NeRFConfig:
     sigma_noise_std: float = 0.0
     fuse_compositing: bool = False
     fuse_fine_loss: bool = False
+    mesh: Any = None
 
     def __post_init__(self):
         if self.backend not in MLP_BACKENDS + RAYMARCH_BACKENDS + PLAIN_BACKENDS:
@@ -208,8 +212,9 @@ def _fine_mse(params_fine, config, rays_orig, rays_dirs, z_fine, target_rgb, noi
     """Fine-pass MSE over the given z. With ``fuse_fine_loss`` under "pallas" /
     "pallas_mlp" it is one kernel (B5), which returns the total dz itself and
     gives the encodings structural-zero cotangents: they are built outside
-    the graph."""
-    if config.backend in MLP_BACKENDS and config.fuse_fine_loss:
+    the graph. A group run (``config.mesh`` set) takes the split pass, as the
+    JAX package does."""
+    if config.backend in MLP_BACKENDS and config.fuse_fine_loss and config.mesh is None:
         from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda
 
         with torch.no_grad():
@@ -222,16 +227,39 @@ def _fine_mse(params_fine, config, rays_orig, rays_dirs, z_fine, target_rgb, noi
     return torch.mean(torch.square(target_rgb - rgb_fine))
 
 
-def training_losses(params: Params, config: NeRFConfig, key, rays_orig, rays_dirs, target_rgb,
-                    draws: Optional[Dict[str, torch.Tensor]] = None):
-    """Coarse MSE + fine MSE (fine over the resampled z only).
+def draw_training_uniforms(key, config: NeRFConfig, n_rays: int, has_fine: bool,
+                           device=None) -> Dict[str, torch.Tensor]:
+    """What :func:`training_losses` draws from ``key`` for ``n_rays`` rays, in
+    its order: the coarse jitter ``strat_u`` (rays, n_c), then with density
+    noise the coarse ``noise_coarse``, then (with a fine network) the sorted
+    resampling uniforms ``fine_u`` (rays, n_f) and the fine ``noise_fine``.
+    Passed back as ``draws``, they give the inline-drawn step's numbers; a
+    rank of a group draws them at the global batch's shape and keeps its
+    rows, so its generator stays in step with the single-device run's."""
+    noise_on = config.sigma_noise_std > 0.0
+    n_c, n_f = config.n_samples_coarse, config.n_samples_fine
+    draws = {"strat_u": torch.rand((n_rays, n_c), generator=key, device=device)}
+    if noise_on:
+        draws["noise_coarse"] = torch.randn((n_rays, n_c), generator=key, device=device)
+    if has_fine:
+        draws["fine_u"] = sampling.sorted_uniforms(key, (n_rays,), n_f, device=device)
+        if noise_on:
+            draws["noise_fine"] = torch.randn((n_rays, n_f), generator=key, device=device)
+    return draws
+
+
+def training_mses(params: Params, config: NeRFConfig, key, rays_orig, rays_dirs, target_rgb,
+                  draws: Optional[Dict[str, torch.Tensor]] = None):
+    """Coarse MSE + fine MSE (fine over the resampled z only), and the MSEs.
 
     :param key: ``torch.Generator`` on the rays' device. Draw order: coarse
-        jitter, resampling exponentials, then (with ``sigma_noise_std > 0``)
-        coarse and fine density noise.
+        jitter, coarse density noise (with ``sigma_noise_std > 0``),
+        resampling exponentials, fine density noise
+        (:func:`draw_training_uniforms`).
     :param draws: optional injected ``strat_u``, ``fine_u``, ``noise_coarse``,
         ``noise_fine``.
-    :return: ``(loss, metrics)`` with ``loss`` / ``psnr_coarse`` / ``psnr_fine``.
+    :return: ``(loss, mses)``, ``mses`` the detached ``coarse`` and (with a
+        fine network) ``fine`` MSE.
     """
     draws = draws or {}
     noise_on = config.sigma_noise_std > 0.0
@@ -244,7 +272,7 @@ def training_losses(params: Params, config: NeRFConfig, key, rays_orig, rays_dir
     )
     mse_coarse = torch.mean(torch.square(target_rgb - rgb_coarse))
     loss = mse_coarse
-    metrics = {"psnr_coarse": rendering.psnr_from_mse(mse_coarse.detach())}
+    mses = {"coarse": mse_coarse.detach()}
     if params.get("fine") is not None:
         z_fine = sampling.resample_z_from_weights(key, weights_coarse, z, config.n_samples_fine,
                                                   u=draws.get("fine_u"))
@@ -253,9 +281,26 @@ def training_losses(params: Params, config: NeRFConfig, key, rays_orig, rays_dir
         mse_fine = _fine_mse(params["fine"], config, rays_orig, rays_dirs, z_fine, target_rgb,
                              noise_key=key if noise_on else None, noise=draws.get("noise_fine"))
         loss = loss + mse_fine
-        metrics["psnr_fine"] = rendering.psnr_from_mse(mse_fine.detach())
+        mses["fine"] = mse_fine.detach()
+    return loss, mses
+
+
+def metrics_of(loss, mses) -> Dict[str, torch.Tensor]:
+    """The JAX package's metrics of a step: ``psnr_coarse``, ``psnr_fine``
+    (with a fine network), from the MSEs, and ``loss``."""
+    metrics = {"psnr_coarse": rendering.psnr_from_mse(mses["coarse"])}
+    if "fine" in mses:
+        metrics["psnr_fine"] = rendering.psnr_from_mse(mses["fine"])
     metrics["loss"] = loss.detach()
-    return loss, metrics
+    return metrics
+
+
+def training_losses(params: Params, config: NeRFConfig, key, rays_orig, rays_dirs, target_rgb,
+                    draws: Optional[Dict[str, torch.Tensor]] = None):
+    """:func:`training_mses` as ``(loss, metrics)``, the metrics
+    ``loss`` / ``psnr_coarse`` / ``psnr_fine``."""
+    loss, mses = training_mses(params, config, key, rays_orig, rays_dirs, target_rgb, draws)
+    return loss, metrics_of(loss, mses)
 
 
 def training_losses_fixed_z(params: Params, config: NeRFConfig, rays_orig, rays_dirs,

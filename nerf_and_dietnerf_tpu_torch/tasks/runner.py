@@ -5,10 +5,11 @@ Port of ``nerf_and_dietnerf_tpu/tasks/runner.py`` (the reference's
 construction, then ``start()`` executes the enabled tasks in the reference's
 fixed order with a cloud backup after each. The training task drives the
 port's :class:`Trainer`, or its :class:`DietTrainer` for DietNeRF configs;
-the rendering tasks render each frame with ``nerf.render_image`` on the
-runner's device. Randomness follows the JAX package's keys as generator
-seeds: video frame ``i`` uses seed ``i``, interpolation frame ``i`` seed
-``100 + i``, the ray-value render seed 0.
+the rendering tasks render each frame with ``render_tiles.render_frame`` on
+the runner's device (tile-sharded over a data-parallel group: every rank
+renders every frame, rank 0 alone writes the files). Randomness follows the
+JAX package's keys as generator seeds: video frame ``i`` uses seed ``i``,
+interpolation frame ``i`` seed ``100 + i``, the ray-value render seed 0.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 
 from nerf_and_dietnerf_tpu_torch.core import pose_math
 from nerf_and_dietnerf_tpu_torch.data import loaders
-from nerf_and_dietnerf_tpu_torch.models import nerf
+from nerf_and_dietnerf_tpu_torch.parallel import render_tiles
 from nerf_and_dietnerf_tpu_torch.train import checkpoint
 from nerf_and_dietnerf_tpu_torch.train.diet_trainer import DietTrainer, check_embedder
 from nerf_and_dietnerf_tpu_torch.train.trainer import Trainer
@@ -44,24 +45,24 @@ class Runner:
     :param save_root: overrides ``general_save_location``.
     :param device: where to train and render; the GPU unless ``device="cpu"``
         is given.
+    :param mesh: the ``parallel.mesh.DataGroup`` this process is a rank of;
+        None trains and renders on one device. ``main`` builds the group,
+        from its flags or the config's ``mesh: data_devices``.
     """
 
     def __init__(self, config_path, vit_weights: Optional[str] = None,
-                 save_root: Optional[str] = None, device=None):
+                 save_root: Optional[str] = None, device=None, mesh=None):
         self.config_path = Path(config_path)
         self.run = config_lib.load_config(self.config_path)
         if save_root is not None:
             self.run.general_save_location = save_root
         # Refuse, before any file is written, a DietNeRF run without an
-        # embedder (the DietTrainer would) and a device mesh, which the JAX
-        # runner builds and the port does not have yet.
+        # embedder (the DietTrainer would).
         if self.run.is_dietnerf:
             check_embedder(self.run, vit_weights)
-        if self.run.mesh_data_devices is not None and self.run.mesh_data_devices > 1:
-            raise NotImplementedError(
-                f"data_devices {self.run.mesh_data_devices}: multi-GPU runs (ROADMAP A10) are "
-                "not ported to PyTorch yet; this runner runs on one device")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0  # rank 0 alone writes files
         self.vit_weights = vit_weights
 
         self.dataset = loaders.load_dataset(
@@ -79,7 +80,7 @@ class Runner:
         self.render_config = dataclasses.replace(
             self.nerf_config, compute_dtype=torch.float32, fuse_compositing=False,
             fuse_fine_loss=False)
-        self.save_dir = config_lib.make_save_dir(self.run, self.config_path)
+        self.save_dir = config_lib.make_save_dir(self.run, self.config_path, mesh=self.mesh)
         self.epoch_number = max(self.run.starting_epoch_number, 0)
         self.datetime_start = time.strftime("%Y-%m-%d_%H-%M-%S")
         self._params = None
@@ -90,41 +91,43 @@ class Runner:
 
     def start(self) -> None:
         t = self.run.tasks
+        # Rank 0 alone backs up the files it wrote.
+        backup = self.backup_to_gcp if self.writes else (lambda: None)
         if t.start_training:
             self.training()
             self.epoch_number = self.run.n_epochs
-            self.backup_to_gcp()
+            backup()
         if t.render_and_save_test_left_to_right_video:
             self.render_video(
                 self.l_to_r_path_matrices(),
                 video.FILENAME_RGB_L_TO_R, video.FILENAME_DEPTH_L_TO_R,
             )
-            self.backup_to_gcp()
+            backup()
         if t.render_and_save_test_sphere_video:
             self.render_video(
                 self.sphere_path_matrices(),
                 video.FILENAME_RGB_SPHERE, video.FILENAME_DEPTH_SPHERE,
             )
-            self.backup_to_gcp()
+            backup()
         if t.render_and_save_test_path_video:
             self.render_video(
                 self.waypoint_path_matrices(),
                 video.FILENAME_RGB_PATH, video.FILENAME_DEPTH_PATH,
             )
-            self.backup_to_gcp()
+            backup()
         if t.save_dataset_video:
             self.save_dataset_video()
-            self.backup_to_gcp()
+            backup()
         if t.save_plots_video:
             self.save_plot_video()
-            self.backup_to_gcp()
+            backup()
         if t.create_plots_that_visualize_values_along_rays:
             self.create_ray_value_plots()
-            self.backup_to_gcp()
+            backup()
         if t.create_plot_that_visualize_rendering_between_2_images:
             self.create_interpolation_plot()
-            self.backup_to_gcp()
-        self.backup_to_gcp()
+            backup()
+        backup()
 
     # ------------------------------------------------------------------ #
     # Training                                                            #
@@ -134,21 +137,26 @@ class Runner:
         if self.run.is_dietnerf:
             return DietTrainer(self.run, self.dataset, self.save_dir, device=self.device,
                                epoch_callback=self._epoch_callback,
-                               vit_weights=self.vit_weights)
+                               vit_weights=self.vit_weights, mesh=self.mesh)
         return Trainer(self.run, self.dataset, self.save_dir, device=self.device,
-                       epoch_callback=self._epoch_callback)
+                       epoch_callback=self._epoch_callback, mesh=self.mesh)
 
     def training(self) -> None:
         trainer = self._make_trainer()
         # Snapshot the held-out test view at training start
         # (reference src/ExecutionRun.py:177).
-        plots.save_test_image(self.save_dir, self.dataset.images[self.run.test_img_idx])
-        trainer.fit()
+        if self.writes:
+            plots.save_test_image(self.save_dir, self.dataset.images[self.run.test_img_idx])
+        trainer.fit(log=print if self.writes else None)
         self._params = trainer.state.params
 
     def _epoch_callback(self, trainer: Trainer, stats) -> None:
-        """Per-epoch plot + cloud backup (reference src/ExecutionRun.py:193-201)."""
+        """Per-epoch plot + cloud backup (reference src/ExecutionRun.py:193-201).
+        Every rank takes the eval renders, which are collectives over a
+        group; rank 0 alone writes."""
         renders = trainer.render_eval_images(stats.epoch)
+        if not self.writes:
+            return
         train_idx, train_render = renders["train"]
         test_idx, test_render = renders["test"]
         plots.save_epoch_plot(
@@ -239,11 +247,11 @@ class Runner:
     # ------------------------------------------------------------------ #
 
     def _render_frame(self, params, key, c2w, diagnostics=False):
-        """One full-frame offline render on the runner's device (the JAX
-        package's ``render_tiles.render_frame`` without a mesh)."""
+        """One full-frame offline render on the runner's device, tile-sharded
+        over the group when there is one."""
         ds = self.dataset
-        return nerf.render_image(
-            params, self.render_config, key, np.asarray(c2w, np.float32),
+        return render_tiles.render_frame(
+            params, self.render_config, self.mesh, key, np.asarray(c2w, np.float32),
             ds.field_of_view, ds.height, ds.width,
             chunk_size=self.run.offline_chunk_size(), diagnostics=diagnostics,
             device=self.device,
@@ -263,8 +271,10 @@ class Runner:
             rgb_frames.append(result.rgb.cpu().numpy())
             depth = (result.weights * z).sum(dim=-1).cpu().numpy()
             depth_frames.append(image_ops.histogram_equalize(depth)[0])
-            if i % 30 == 0:
+            if i % 30 == 0 and self.writes:
                 print(f"rendered frame {i + 1}/{len(c2w_matrices)}")
+        if not self.writes:
+            return
         out_dir = self.save_dir / VIDEOS_DIRNAME
         fps = self.run.video.fps_render_video
         video.save_frames_as_video(out_dir / filename_rgb, rgb_frames * loops, fps)
@@ -272,6 +282,8 @@ class Runner:
 
     def save_dataset_video(self) -> None:
         """All training images as a video (reference src/ExecutionRun.py:442-449)."""
+        if not self.writes:
+            return
         train_idx = loaders.train_test_split_indices(
             len(self.dataset), self.run.test_img_idx,
             self.run.pics_indices_to_use_in_dataset,
@@ -283,6 +295,8 @@ class Runner:
         )
 
     def save_plot_video(self) -> None:
+        if not self.writes:
+            return
         plots_dir = self.save_dir / plots.PLOT_ITERATION_DIRNAME
         if not plots_dir.is_dir():
             print(f"Could not find: {plots_dir}\nSo didn't create the plot video.")
@@ -310,6 +324,8 @@ class Runner:
             coords, *(t.cpu().numpy() for t in (
                 result.alpha, result.cumprod, result.sample_rgb, result.weights, z)),
         )
+        if not self.writes:
+            return
         alpha_b, cum_b, rgb_b, w_b, _ = plots.rebin_ray_samples(
             self.run.n_render_samples_coarse, z_sel, weights, cumprod, alpha, sample_rgb
         )
@@ -332,6 +348,8 @@ class Runner:
         for i, c2w in enumerate(path):
             result, _ = self._render_frame(params, self._key(100 + i), c2w)
             rendered.append(result.rgb.cpu().numpy())
+        if not self.writes:
+            return
         plots.save_interpolation_plot(
             self.save_dir, ds.images[idx1], ds.images[idx2], rendered
         )

@@ -57,9 +57,10 @@ class DietTrainer(Trainer):
     trains_dietnerf = True
 
     def __init__(self, run: RunConfig, dataset, save_dir, device=None, epoch_callback=None,
-                 diet: DietConfig = DietConfig(), vit_weights: Optional[str] = None):
+                 diet: DietConfig = DietConfig(), vit_weights: Optional[str] = None, mesh=None):
         check_embedder(run, vit_weights)
-        super().__init__(run, dataset, save_dir, device=device, epoch_callback=epoch_callback)
+        super().__init__(run, dataset, save_dir, device=device, epoch_callback=epoch_callback,
+                         mesh=mesh)
         if vit_weights:
             # A checkpoint written by vit.save_npz may carry its own geometry
             # (a small scene-trained embedder, say); adopt it, and say so.
@@ -98,7 +99,8 @@ class DietTrainer(Trainer):
         """The epoch's novel poses ``(n, 4, 4)`` and target embeddings
         ``(n, hidden)`` on the device, drawn on the host at exactly the diet
         positions (the samplers advance only on diet steps, as in the JAX
-        package); zeros elsewhere."""
+        package); zeros elsewhere. The host streams are seeded alike on every
+        rank of a group, so every rank draws the same."""
         n = self.data.batches_per_epoch
         c2ws = np.zeros((n, 4, 4), np.float32)
         rows, picks = [], []
@@ -116,7 +118,7 @@ class DietTrainer(Trainer):
         diet_epoch = dietnerf.make_diet_epoch_fn(
             self.config, self.diet, self.optimizer, self.dataset.field_of_view,
             self.data.batches_per_epoch, self.run.n_rays_in_batch_train,
-            self.consistency_budget)
+            self.consistency_budget, mesh=self.mesh)
 
         def epoch_fn(state, key, origins, dirs, rgb):
             c2ws, targets = self._presample_diet_inputs()

@@ -10,6 +10,13 @@ exponent range, so there is no loss scaling).
 The optimizer state is ``{"count": int, "mu": tree, "nu": tree}``; one count
 serves both Adam's bias correction and the schedule, as optax's two counts
 always agree (and are both set on an ``.h5`` resume).
+
+Over a data-parallel group (``mesh``, a ``parallel.mesh.DataGroup``) a rank
+computes the single-device step's numbers for its rows of the global batch:
+every rank draws the same permutation and the step's uniforms at the global
+batch's shape and keeps its rows; the gradient is averaged over the ranks by
+one all-reduce (the logged loss and MSEs in the same buffer) before the clip
+and Adam, so every rank applies the same update to its replicated state.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch
 
 from nerf_and_dietnerf_tpu_torch.models import nerf
 from nerf_and_dietnerf_tpu_torch.models.nerf import NeRFConfig
+from nerf_and_dietnerf_tpu_torch.parallel import mesh as mesh_lib
 from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
@@ -109,47 +117,84 @@ def loss_and_grads(params: Params, loss_fn):
     return loss.detach(), aux, tree_unflatten(params, list(grads))
 
 
+def group_draws(key, config: NeRFConfig, mesh, rows: int, has_fine: bool, device):
+    """This rank's rows of the step's uniforms, drawn at the global batch's
+    shape (``rows`` a rank, ``world_size`` ranks) from ``key``."""
+    lo = mesh.rank * rows
+    draws = nerf.draw_training_uniforms(key, config, rows * mesh.world_size, has_fine, device)
+    return {k: v[lo:lo + rows] for k, v in draws.items()}
+
+
+def reduce_over_group(grads: Params, scalars: Dict[str, torch.Tensor], mesh):
+    """Average ``grads`` and the scalar ``scalars`` over the ranks with one
+    all-reduce of one flat buffer; returns them."""
+    leaves = tree_leaves(grads)
+    names = list(scalars)
+    stacked = torch.stack([scalars[k].to(leaves[0].dtype) for k in names])
+    mesh_lib.all_reduce_mean_(leaves + [stacked], mesh)
+    return tree_unflatten(grads, leaves), dict(zip(names, stacked.unbind()))
+
+
 def train_step(state: TrainState, key, batch, *, config: NeRFConfig, optimizer: Adam,
-               draws=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+               draws=None, mesh=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One step on a ray batch ``(origins, directions, rgb)``; ``key`` is a
-    ``torch.Generator`` on the batch's device."""
+    ``torch.Generator`` on the batch's device. With ``mesh``, the batch is
+    this rank's rows of the global batch (:func:`run_epoch`) and the step is
+    the single-device step's for them (the module docstring)."""
     orig, dirs, rgb = batch
-    _, metrics, grads = loss_and_grads(
-        state.params,
-        lambda p: nerf.training_losses(p, config, key, orig, dirs, rgb, draws=draws),
-    )
+    if mesh is None:
+        _, metrics, grads = loss_and_grads(
+            state.params,
+            lambda p: nerf.training_losses(p, config, key, orig, dirs, rgb, draws=draws),
+        )
+    else:
+        if draws is None:
+            draws = group_draws(key, config, mesh, orig.shape[0],
+                                state.params.get("fine") is not None, orig.device)
+        loss, mses, grads = loss_and_grads(
+            state.params,
+            lambda p: nerf.training_mses(p, config, key, orig, dirs, rgb, draws=draws))
+        grads, scalars = reduce_over_group(grads, dict(mses, loss=loss), mesh)
+        metrics = nerf.metrics_of(scalars.pop("loss"), scalars)
     updates, opt_state = optimizer.update(grads, state.opt_state)
     return TrainState(apply_updates(state.params, updates), opt_state, state.step + 1), metrics
 
 
-def run_epoch(state: TrainState, key, tables, n_batches: int, batch_size: int, step):
+def run_epoch(state: TrainState, key, tables, n_batches: int, batch_size: int, step, mesh=None):
     """A permutation of the ray table ``tables`` (origins, dirs, rgb) drawn
     from ``key`` on the device, then ``n_batches`` calls of
-    ``step(state, batch, i) -> (state, metrics)`` on gathered batches;
+    ``step(state, batch, i) -> (state, metrics)`` on gathered batches (with
+    ``mesh``: this rank's rows of each, ``parallel.mesh.batch_indices``);
     returns the state and the mean of each metric."""
     perm = torch.randperm(tables[0].shape[0], generator=key, device=tables[0].device)
+    where = () if mesh is None else (mesh.rank, mesh.world_size)
     history = []
     for i in range(n_batches):
-        idx = perm[i * batch_size:(i + 1) * batch_size]
+        idx = mesh_lib.batch_indices(perm, i, batch_size, *where)
         state, metrics = step(state, tuple(t[idx] for t in tables), i)
         history.append(metrics)
     mean = {k: torch.stack([m[k] for m in history]).mean() for k in history[0]}
     return state, mean
 
 
-def make_epoch_fn(config: NeRFConfig, optimizer: Adam, n_batches: int, batch_size: int):
+def make_epoch_fn(config: NeRFConfig, optimizer: Adam, n_batches: int, batch_size: int,
+                  mesh=None):
     """One epoch over a ray table on the device: a permutation drawn on the
-    device, then ``n_batches`` steps, each on a gathered batch.
+    device, then ``n_batches`` steps, each on a gathered batch (with
+    ``mesh``, this rank's rows of it).
 
     Returned callable: ``epoch_fn(state, key, origins, dirs, rgb) ->
     (state, mean_metrics)``, with ``key`` a ``torch.Generator`` on the tables'
     device (the permutation first, then each step's draws).
     """
 
+    if mesh is not None:
+        config = dataclasses.replace(config, mesh=mesh)
+
     def epoch_fn(state: TrainState, key, origins, dirs, rgb):
         return run_epoch(
             state, key, (origins, dirs, rgb), n_batches, batch_size,
             lambda state, batch, i: train_step(state, key, batch, config=config,
-                                               optimizer=optimizer))
+                                               optimizer=optimizer, mesh=mesh), mesh)
 
     return epoch_fn

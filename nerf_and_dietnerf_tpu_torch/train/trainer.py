@@ -1,11 +1,13 @@
-"""Epoch-loop trainer (single device, NeRF; DietNeRF in ``diet_trainer``).
+"""Epoch-loop trainer (NeRF; DietNeRF in ``diet_trainer``).
 
 Port of ``nerf_and_dietnerf_tpu/train/trainer.py``: an epoch loop over the
 ray table kept on the device, per-epoch full-frame f32 eval renders with
 PSNR tracking, reference-format ``.h5`` + PSNR-npy artifacts and full
 train-state checkpoints. Randomness follows the JAX package's keys as
 generator seeds: init from ``init_seed``, epoch ``e``'s permutation and
-steps from seed ``e``, its eval renders from seed ``10000 + e``.
+steps from seed ``e``, its eval renders from seed ``10000 + e``. Over a
+data-parallel group each rank trains on its rows of every batch and renders
+its tiles of every eval frame; rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ import torch
 from nerf_and_dietnerf_tpu_torch.core import rendering
 from nerf_and_dietnerf_tpu_torch.data import loaders, pipeline
 from nerf_and_dietnerf_tpu_torch.data.loaders import Dataset
-from nerf_and_dietnerf_tpu_torch.models import nerf
 from nerf_and_dietnerf_tpu_torch.models.nerf import NeRFConfig
+from nerf_and_dietnerf_tpu_torch.parallel import mesh as mesh_lib, render_tiles
 from nerf_and_dietnerf_tpu_torch.train import checkpoint, train_step as ts
 from nerf_and_dietnerf_tpu_torch.utils.config import RunConfig
 from nerf_and_dietnerf_tpu_torch.utils.device import resolve_device
@@ -47,44 +49,47 @@ class Trainer:
     :param epoch_callback: called with ``(trainer, EpochStats)`` after each
         epoch's artifacts are saved (the runner hooks its epoch plot and cloud
         backup here, as in ``src/ExecutionRun.py:193-201``).
+    :param mesh: the ``parallel.mesh.DataGroup`` of a multi-GPU run (its
+        device is this rank's); None trains on one device, whatever
+        ``mesh_data_devices`` says (the runner builds the group), as in the
+        JAX package.
     """
 
     trains_dietnerf = False  # DietTrainer adds the consistency loss
 
     def __init__(self, run: RunConfig, dataset: Dataset, save_dir, device=None,
-                 epoch_callback: Optional[Callable] = None):
-        # The JAX runner sends these configs elsewhere (DietTrainer, a device
-        # mesh); training them here as plain single-device NeRF would give
-        # another result without saying so.
+                 epoch_callback: Optional[Callable] = None, mesh=None):
+        # The JAX runner sends DietNeRF configs to the DietTrainer; training
+        # them here as plain NeRF would give another result without saying so.
         if run.is_dietnerf and not self.trains_dietnerf:
             raise NotImplementedError(
                 "type_of_model DietNeRF: this Trainer trains NeRF only; train DietNeRF "
                 "configs with train.diet_trainer.DietTrainer (the runner picks it)")
-        if run.mesh_data_devices is not None and run.mesh_data_devices > 1:
-            raise NotImplementedError(
-                f"data_devices {run.mesh_data_devices}: multi-GPU training (ROADMAP A10) is "
-                "not ported to PyTorch yet; this Trainer trains on one device")
         self.run = run
         self.dataset = dataset
         self.save_dir = Path(save_dir)
         self.device = resolve_device(device)
         self.epoch_callback = epoch_callback
+        self.mesh = mesh
 
         # near/far come from the loader (spherification rescales them).
         self.config: NeRFConfig = dataclasses.replace(
-            run.nerf_config(), near=dataset.near, far=dataset.far
+            run.nerf_config(), near=dataset.near, far=dataset.far, mesh=mesh
         )
         # Eval renders always run in f32, through the same backend, with the
-        # train-path fusions off (as in the JAX package).
+        # train-path fusions off (as in the JAX package); on a group they are
+        # tile-sharded by render_tiles.render_frame.
         self.eval_config = dataclasses.replace(
             self.config, compute_dtype=torch.float32, fuse_compositing=False,
-            fuse_fine_loss=False)
+            fuse_fine_loss=False, mesh=None)
         self.train_indices = loaders.train_test_split_indices(
             len(dataset), run.test_img_idx, run.pics_indices_to_use_in_dataset
         )
         self.data = pipeline.RayDataset(
             dataset.images[self.train_indices], dataset.camera_poses[self.train_indices],
             dataset.field_of_view, run.n_rays_in_batch_train,
+            process_index=0 if mesh is None else mesh.rank,
+            process_count=1 if mesh is None else mesh.world_size,
         )
         self.optimizer = ts.make_optimizer_with_schedule(
             run.optimizer_lr, lr_final=run.optimizer_lr_final,
@@ -135,7 +140,7 @@ class Trainer:
         """``epoch_fn(state, key, origins, dirs, rgb) -> (state, mean_metrics)``
         over the device's ray table."""
         return ts.make_epoch_fn(self.config, self.optimizer, self.data.batches_per_epoch,
-                                self.run.n_rays_in_batch_train)
+                                self.run.n_rays_in_batch_train, mesh=self.mesh)
 
     def train_epoch(self, epoch: int) -> EpochStats:
         """One pass over the permuted ray table, then the eval PSNRs."""
@@ -182,8 +187,8 @@ class Trainer:
         renders = {}
         for name, idx in (("train", self.run.idx_train_img_to_plot),
                           ("test", self.run.test_img_idx)):
-            result, _ = nerf.render_image(
-                self.state.params, self.eval_config, gen, ds.camera_poses[idx],
+            result, _ = render_tiles.render_frame(
+                self.state.params, self.eval_config, self.mesh, gen, ds.camera_poses[idx],
                 ds.field_of_view, ds.height, ds.width,
                 chunk_size=self.run.offline_chunk_size(), diagnostics=False,
                 device=self.device,
@@ -193,11 +198,17 @@ class Trainer:
         return renders
 
     def save_epoch_artifacts(self, epoch: int) -> None:
-        """Reference-format ``.h5`` weights + PSNR history + the full state."""
-        checkpoint.save_keras_h5(checkpoint.nerf_h5_path(self.save_dir, epoch),
-                                 self.state.params, self.config.mlp)
-        checkpoint.save_psnr_history(self.save_dir, epoch, self.psnrs_test, self.psnrs_train)
-        self.ckpt.save(epoch, self.state)
+        """Reference-format ``.h5`` weights + PSNR history + the full state,
+        written by rank 0 alone on a group (the ranks hold the same state);
+        the others wait at a barrier until the files are written."""
+        if self.mesh is None or self.mesh.rank == 0:
+            checkpoint.save_keras_h5(checkpoint.nerf_h5_path(self.save_dir, epoch),
+                                     self.state.params, self.config.mlp)
+            checkpoint.save_psnr_history(self.save_dir, epoch, self.psnrs_test,
+                                         self.psnrs_train)
+            self.ckpt.save(epoch, self.state)
+        if self.mesh is not None:
+            mesh_lib.barrier(self.mesh)
 
     def fit(self, n_epochs: Optional[int] = None, log=print) -> List[EpochStats]:
         n_epochs = n_epochs if n_epochs is not None else self.run.n_epochs

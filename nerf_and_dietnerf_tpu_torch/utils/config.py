@@ -86,7 +86,7 @@ class RunConfig:
 
     # Extensions of the JAX package (no reference analog); see its
     # utils/config.py for the measured rationale of each knob.
-    mesh_data_devices: Optional[int] = None  # multi-device runs: not ported yet
+    mesh_data_devices: Optional[int] = None  # GPUs of the data-parallel group (main.py)
     compute_dtype: str = "bfloat16"          # train-step matmul operand type
     backend: str = "xla"        # "xla" | "pallas" | "pallas_mlp" | "pallas_rm"
     on_device_epoch: bool = True             # the port always keeps the table on the device
@@ -212,14 +212,16 @@ def load_config(path) -> RunConfig:
     return cfg
 
 
-def make_save_dir(config: RunConfig, config_path=None) -> Path:
+def make_save_dir(config: RunConfig, config_path=None, mesh=None) -> Path:
     """Create (or reuse) the run's save directory.
 
     The reference's convention ``{general}/{config}_save_dir_{n}``, with the
     first free ``n`` for a fresh run and reuse through
     ``existing_save_dir_name`` (``src/UtilsFiles.py:232-281``); the config
-    file is copied in (``src/ExecutionRun.py:87``). Single process only: the
-    multi-process branch of the JAX package belongs to multi-GPU runs.
+    file is copied in (``src/ExecutionRun.py:87``). On a data-parallel group
+    (``mesh``) rank 0 picks and creates the directory and broadcasts its
+    name; no other rank scans the directory, so a directory made meanwhile
+    by someone else cannot split the ranks.
     """
     base = Path(config.general_save_location)
     base.mkdir(parents=True, exist_ok=True)
@@ -228,7 +230,15 @@ def make_save_dir(config: RunConfig, config_path=None) -> Path:
         if not save_dir.is_dir():
             raise FileNotFoundError(f"existing_save_dir_name not found: {save_dir}")
         return save_dir
+    if mesh is not None:
+        from nerf_and_dietnerf_tpu_torch.parallel import mesh as mesh_lib
 
+        name = _new_save_dir(config, base, config_path).name if mesh.rank == 0 else None
+        return base / mesh_lib.broadcast_object(name, mesh)
+    return _new_save_dir(config, base, config_path)
+
+
+def _new_save_dir(config: RunConfig, base: Path, config_path) -> Path:
     n = 0
     while (base / f"{config.config_name}_save_dir_{n}").exists():
         n += 1

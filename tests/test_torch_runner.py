@@ -2,6 +2,7 @@
 CLI, on the CPU at the tiny size of tests/test_runner.py."""
 
 import copy
+import json
 import types
 from pathlib import Path
 
@@ -19,6 +20,7 @@ from nerf_and_dietnerf_tpu.viz import plots as jplots
 from nerf_and_dietnerf_tpu.viz import video as jvideo
 from nerf_and_dietnerf_tpu_torch import main as tmain
 from nerf_and_dietnerf_tpu_torch.data.loaders import Dataset as TDataset
+from nerf_and_dietnerf_tpu_torch.parallel import mesh as mesh_lib
 from nerf_and_dietnerf_tpu_torch.tasks import runner as trunner
 from nerf_and_dietnerf_tpu_torch.train import checkpoint as tckpt
 from nerf_and_dietnerf_tpu_torch.train.trainer import Trainer
@@ -344,6 +346,28 @@ def test_epoch_callback_runs_after_each_epochs_h5(tmp_path):
     assert seen == [(True, 1, True, 1), (True, 2, True, 2)]
 
 
+@pytest.mark.parametrize("writes", [True, False], ids=["rank0", "other_rank"])
+def test_epoch_callback_renders_on_every_rank(monkeypatch, writes):
+    """The eval renders are collectives over a group, so every rank takes
+    them in the epoch callback, even if the per-epoch memo were empty; only
+    the writing rank plots and backs up."""
+    renders, written = [], []
+    trainer = types.SimpleNamespace(
+        render_eval_images=lambda epoch: renders.append(epoch) or {
+            "train": (1, np.zeros((2, 2, 3))), "test": (0, np.zeros((2, 2, 3)))},
+        psnrs_train=[1.0], psnrs_test=[1.0],
+        data=types.SimpleNamespace(batches_per_epoch=1))
+    runner = types.SimpleNamespace(
+        writes=writes, save_dir=Path("unused"),
+        dataset=types.SimpleNamespace(images=np.zeros((2, 2, 2, 3))),
+        backup_to_gcp=lambda: written.append("backup"))
+    monkeypatch.setattr(tplots, "save_epoch_plot", lambda *a: written.append("plot"))
+    stats = types.SimpleNamespace(epoch=3, seconds=1.0, psnr_test=1.0)
+    trunner.Runner._epoch_callback(runner, trainer, stats)
+    assert renders == [3]
+    assert written == (["plot", "backup"] if writes else [])
+
+
 def test_backup_to_gcp_issues_the_jax_command(monkeypatch):
     calls = []
     for mod in (jrunner, trunner):
@@ -374,22 +398,57 @@ def test_main_runs_every_task_on_the_cpu(tmp_path, datasets):
     assert (save / tplots.SPECIAL_PLOTS_DIRNAME / "interpolation_between_2_images.jpg").exists()
 
 
-@pytest.mark.parametrize("change,flags,error,what", [
-    ({"neural_net": {"type_of_model": "DietNeRF"}}, [], "ValueError", "allow_random_embedder"),
-    ({"mesh": {"data_devices": 2}}, [], "NotImplementedError", "A10"),
-    ({}, ["--data-devices", "2"], "NotImplementedError", "A10"),
-    ({}, ["--distributed"], "NotImplementedError", "A10"),
+def write_blender_scene(directory: Path) -> None:
+    """``scene()``'s images as 8-bit PNGs with a ``cam_data.json``: a dataset
+    that ranks spawned by ``main`` load from disk (the ``datasets`` fixture's
+    patch does not reach them)."""
+    import imageio.v2 as imageio
+
+    _, tds = scene()
+    directory.mkdir(parents=True)
+    frames = []
+    for i, (img, c2w) in enumerate(zip(tds.images, tds.camera_poses)):
+        imageio.imwrite(directory / f"img_{i}.png", (img * 255).round().astype(np.uint8))
+        frames.append({"filename": f"img_{i}.png", "transformation_matrix": c2w.tolist()})
+    (directory / "cam_data.json").write_text(json.dumps(
+        {"focal_length": 50.0, "field_of_view": tds.field_of_view, "frames": frames}))
+
+
+@pytest.mark.parametrize("change,flags,env,rc,what", [
+    ({"neural_net": {"type_of_model": "DietNeRF"}}, [], False, 1, "allow_random_embedder"),
+    ({"mesh": {"data_devices": 2}}, [], False, 0, "data devices: 2 spawned ranks"),
+    ({}, ["--data-devices", "2"], False, 0, "data devices: 2 spawned ranks"),
+    ({}, ["--distributed"], True, 0, "data devices: 1 (rank 0)"),
 ], ids=["dietnerf", "data_devices_config", "data_devices_flag", "distributed"])
-def test_main_refuses_what_is_not_ported(tmp_path, datasets, capsys, change, flags, error,
-                                         what):
-    """Multi-GPU runs are not ported; a DietNeRF config with neither
-    --vit-weights nor allow_random_embedder fails as in the JAX package (the
-    DietTrainer's ValueError about ViT weights). No directory is written."""
+def test_main_refuses_what_is_not_ported(tmp_path, datasets, capsys, monkeypatch, change, flags,
+                                         env, rc, what):
+    """A DietNeRF config with neither --vit-weights nor allow_random_embedder
+    fails as in the JAX package (the DietTrainer's ValueError about ViT
+    weights) and writes no directory. Multi-GPU runs are ported: a config's
+    ``data_devices: 2`` or ``--data-devices 2`` runs 2 spawned gloo CPU
+    ranks, ``--distributed`` joins the launcher's group (here a world of
+    one: the single-device run); each writes its artifacts into one save
+    directory."""
+    if env:
+        monkeypatch.setenv("RANK", "0")
+        monkeypatch.setenv("WORLD_SIZE", "1")
+        monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+        monkeypatch.setenv("MASTER_PORT", str(mesh_lib.free_port()))
+    if rc == 0 and not env:
+        write_blender_scene(tmp_path / "scene")
+        change = dict(change, dataset_type="blender", dataset_location=str(tmp_path / "scene"))
     cfg = write_config(tmp_path / "no.yaml", tmp_path / "R", **change)
-    assert tmain.main([str(cfg), "--platform", "cpu", *flags]) == 1
-    err = capsys.readouterr().err
-    assert error in err and what in err
-    assert not (tmp_path / "R").exists()
+    assert tmain.main([str(cfg), "--platform", "cpu", *flags]) == rc
+    out, err = capsys.readouterr()
+    if rc:
+        assert "ValueError" in err and what in err
+        assert not (tmp_path / "R").exists()
+        return
+    assert what in out
+    assert sorted(p.name for p in (tmp_path / "R").iterdir()) == ["no_save_dir_0"]
+    save = tmp_path / "R" / "no_save_dir_0"
+    assert (save / "saved_weights" / "NeRF_model_epoch_001.h5").exists()
+    assert len(list((save / trunner.VIDEOS_DIRNAME).glob("*.avi"))) == 8
 
 
 def test_main_needs_a_gpu_unless_told_cpu(tmp_path, datasets, capsys):

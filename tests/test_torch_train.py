@@ -127,16 +127,25 @@ def test_trainer_pallas_rm_one_epoch_on_cpu(tmp_path, n_angles):
 
 
 @pytest.mark.parametrize("kw,what", [({"type_of_model": "DietNeRF"}, "DietTrainer"),
-                                     ({"mesh_data_devices": 2}, "multi-GPU")],
+                                     ({"mesh_data_devices": 2}, None)],
                          ids=["dietnerf", "data_devices_2"])
 def test_trainer_refuses_configs_it_cannot_train(tmp_path, kw, what):
-    """A DietNeRF config, or one on two data devices, goes to DietTrainer or a
-    device mesh in the JAX runner; the port's plain Trainer refuses both
-    rather than train plain single-device NeRF (naming DietTrainer, which
-    trains the first)."""
-    with pytest.raises(NotImplementedError, match=what):
-        Trainer(tiny_run(**kw), synthetic_dataset(), tmp_path, device="cpu")
-    Trainer(tiny_run(mesh_data_devices=1), synthetic_dataset(), tmp_path, device="cpu")
+    """A DietNeRF config goes to DietTrainer in the JAX runner; the port's
+    plain Trainer refuses it rather than train plain NeRF (naming
+    DietTrainer, which trains it). A config on two data devices given no
+    group trains on one device, as the JAX package's Trainer does without a
+    mesh (the runner builds the group)."""
+    if what is not None:
+        with pytest.raises(NotImplementedError, match=what):
+            Trainer(tiny_run(**kw), synthetic_dataset(), tmp_path, device="cpu")
+        return
+    trainer = Trainer(tiny_run(**kw), synthetic_dataset(), tmp_path, device="cpu")
+    assert trainer.mesh is None and trainer.config.mesh is None
+    assert trainer.data.per_host == trainer.run.n_rays_in_batch_train
+    one = Trainer(tiny_run(mesh_data_devices=1), synthetic_dataset(), tmp_path / "one",
+                  device="cpu")
+    a, b = trainer.train_epoch(1), one.train_epoch(1)
+    assert a.loss == b.loss and a.psnr_test == b.psnr_test
 
 
 def test_eval_config_turns_train_fusions_off(tmp_path, monkeypatch):
@@ -223,7 +232,8 @@ def test_port_imports_no_jax():
         "new = ['ops.probe_kernels_cuda', 'utils.profiling', 'tools', 'tools.exp_mxu',\n"
         "       'tools.exp_vpu', 'tools.exp_interleave', 'tools.exp_expand', 'tools.exp_enccost',\n"
         "       'viz', 'viz.image_ops', 'viz.plots', 'viz.video', 'tasks', 'tasks.runner', 'main',\n"
-        "       'models.vit', 'models.dietnerf', 'train.diet_trainer']\n"
+        "       'models.vit', 'models.dietnerf', 'train.diet_trainer', 'parallel',\n"
+        "       'parallel.mesh', 'parallel.render_tiles', 'tools.multiprocess_worker']\n"
         "missing = [m for m in new if 'nerf_and_dietnerf_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "assert 'tools' not in sys.modules, 'the root tools/ directory was imported'\n"
