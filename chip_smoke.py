@@ -104,6 +104,19 @@ of one (NCCL), whose ``.h5`` must be bitwise the plain run's, and
 ``mesh.all_reduce_mean_`` on that one-rank NCCL group. The ranks share one
 card: their times (ms a step a rank, the gloo all-reduce of the gradient)
 say nothing of scaling across cards.
+Then the parity phase (``parity_phase``, ``tools/parity_gpu.py`` at the
+flagship shape): the fixed-z objective's loss and every gradient leaf of six
+kernel paths ("pallas": B1, B2; + ``fuse_fine_loss``: B1 and B2 coarse, B5
+fine; + ``fuse_compositing``: B4; + both: B4, B5; "pallas_rm": B6;
+"pallas_rm" + ``fuse_compositing``: B7), each in f32 and bf16, against the
+f64 chain of each path's plain version on the card, under the JAX tool's
+two checks; every run must pass and launch exactly ``PARITY_LAUNCHES`` of
+its path.
+Then the embedder phase (``embedder_phase``): the DietNeRF embedder
+trainer's default ViT trained ``EMBED_STEPS`` steps in each pairing mode on
+three synthetic scenes made here, finite losses falling, saved and read
+back bitwise, and the evaluator's line for each and for the random
+embedder.
 Then the seven probe kernels (P1 ``probe_mma``, P2
 ``probe_mlp_epilogue``, P3 ``probe_mlp_chains``, P4-P6 ``probe_expand_a/b/c``,
 P7 ``probe_enccost``) are held against their plain versions at the probe
@@ -3820,6 +3833,165 @@ def distributed_phase(torch, timings: dict) -> None:
     log(f"distributed phase: {seconds:.1f} s")
 
 
+# --------------------------------------------------------------------------- #
+# The parity phase: the whole fixed-z objective of every kernel path          #
+# (tools/parity_gpu.py)                                                        #
+# --------------------------------------------------------------------------- #
+
+PARITY_DIR = ROOT / "build" / "chip_smoke_parity"
+PARITY_ARGS: list = []  # the tool's defaults: the flagship shape
+PARITY_SHAPE = {"rays": 4096, "coarse": 64, "fine": 128, "hidden": 256}
+# The launches of one parity run of each path, from the code: a pass
+# (nerf.render_rays_train, then nerf._fine_mse) launches its path's forward
+# once and its backward once under autograd, the coarse pass then the fine
+# pass; with fuse_fine_loss the fine pass is one B5 launch (its backward is
+# in that launch). The plain runs launch nothing.
+PARITY_LAUNCHES = {
+    "pallas": {"mlp_fwd": 2, "mlp_bwd": 2},
+    "pallas+fuse_fine_loss": {"mlp_fwd": 1, "mlp_bwd": 1, "mlp_loss_comp": 1},
+    "pallas+fuse_compositing": {"mlp_comp_fwd": 2, "mlp_comp_bwd": 2},
+    "pallas+fuse_compositing+fuse_fine_loss": {"mlp_comp_fwd": 1, "mlp_comp_bwd": 1,
+                                               "mlp_loss_comp": 1},
+    "pallas_rm": {"raymarch_fwd": 2, "raymarch_bwd": 2},
+    "pallas_rm+fuse_compositing": {"raymarch_comp_fwd": 2, "raymarch_comp_bwd": 2},
+}
+
+
+def parity_phase(torch, timings: dict) -> None:
+    """``tools/parity_gpu.main`` at the flagship shape (4096 rays, 64 + 128
+    samples, 256/128 wide): the fixed-z objective's loss and every gradient
+    leaf of six kernel paths in f32 and bf16 against the f64-chain oracle,
+    under the JAX tool's criteria. Fails unless every check passed and each
+    run launched exactly ``PARITY_LAUNCHES`` of its path (the plain runs
+    nothing). The JSON is ``build/chip_smoke_parity/PARITY_GPU.json``."""
+    from nerf_and_dietnerf_tpu_torch.tools import parity_gpu
+
+    PARITY_DIR.mkdir(parents=True, exist_ok=True)
+    out_path = PARITY_DIR / "PARITY_GPU.json"
+    argv = PARITY_ARGS + ["--out", str(out_path)] + (
+        ["--device", "cpu"] if DEVICE == "cpu" else [])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    code = parity_gpu.main(argv)
+    seconds = time.perf_counter() - t0
+    res = json.loads(out_path.read_text())
+    if res["shape"] != PARITY_SHAPE:
+        raise AssertionError(f"parity: shape {res['shape']}, not the flagship {PARITY_SHAPE}")
+    failed = [k for k, v in res["results"].items() if not v["pass"]]
+    if code != 0 or not res["all_pass"] or failed:
+        raise AssertionError(f"parity: exit {code}, failed checks {failed}")
+    for dtype in ("float32", "bfloat16"):
+        if res["plain"][dtype]["launches"]:
+            raise AssertionError(f"parity: the plain {dtype} run launched "
+                                 f"{res['plain'][dtype]['launches']}")
+        for name, want in PARITY_LAUNCHES.items():
+            got = res["results"][f"{name}/{dtype}"]["launches"]
+            if got != want:
+                raise AssertionError(f"parity: {name}/{dtype} launched {got}, not {want}")
+    runs = {k: {"err_vs_oracle": v["max_rel_grad_err_vs_f32_oracle"],
+                "err_vs_plain": v["max_rel_grad_err_vs_xla_same_dtype"],
+                "plain_err_vs_oracle": v["xla_same_dtype_err_vs_f32_oracle"],
+                "by_net": v["max_rel_grad_err_vs_oracle_by_net"],
+                "rel_loss_err": v["rel_loss_err"], "launches": v["launches"]}
+            for k, v in res["results"].items() if not k.endswith("/exact")}
+    timings["parity"] = {
+        "device": res["device"], "shape": res["shape"], "all_pass": res["all_pass"],
+        "plain": res["plain"], "leaky_flips_f32_vs_f64": res["leaky_flips_f32_vs_f64"],
+        "runs": runs, "exact": {k: v["max_rel_grad_err"] for k, v in res["results"].items()
+                                if k.endswith("/exact")},
+        "bin_agreement": {k: v for k, v in res.items() if k.startswith("bin_agreement")},
+        "seconds": seconds, "max_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+    log(f"parity phase: all_pass {res['all_pass']}, launches as PARITY_LAUNCHES, "
+        f"{seconds:.1f} s, peak {timings['parity']['max_memory_bytes'] / 2**30:.3f} GiB")
+
+
+# --------------------------------------------------------------------------- #
+# The embedder phase: the DietNeRF embedder tools on a corpus made here        #
+# --------------------------------------------------------------------------- #
+
+EMBED_DIR = ROOT / "build" / "chip_smoke_embedder"
+# Three scenes: the synthetic sphere from three seeds (camera jitter), each
+# coloured through its own channel order, 9 views of 128 px, resized to the
+# tool's 256 px corpus.
+EMBED_CHANNELS = ((0, 1, 2), (2, 0, 1), (1, 2, 0))
+EMBED_VIEWS, EMBED_SIZE, EMBED_CORPUS = 9, 128, 256
+EMBED_STEPS, EMBED_BATCH, EMBED_WINDOW = 40, 32, 10
+
+
+def _embedder_corpus():
+    from nerf_and_dietnerf_tpu_torch.tools import train_scene_embedder as ttr
+
+    images, ids = [], []
+    for k, order in enumerate(EMBED_CHANNELS):
+        ds = synthetic_scene(n_views=EMBED_VIEWS, size=EMBED_SIZE, seed=SEED + 10 + k)
+        images += list(ds.images[..., list(order)])
+        ids += [k] * EMBED_VIEWS
+    return ttr.corpus_from_arrays(images, ids, EMBED_CORPUS)
+
+
+def embedder_phase(torch, timings: dict) -> None:
+    """The trainer's default ViT (256 wide, 6 layers, 8 heads, MLP 1024, 224 /
+    32 px) trained ``EMBED_STEPS`` steps of ``EMBED_BATCH`` pairs on the card
+    in both pairing modes (``train_scene_embedder.train``): every loss finite,
+    the last ``EMBED_WINDOW`` steps' mean loss below the first ones'; each
+    saved with ``vit.save_npz`` and read back through ``vit.infer_config`` and
+    ``vit.load_pretrained`` (leaves and features bitwise the trained ones);
+    then the evaluator on each and on the random embedder."""
+    from nerf_and_dietnerf_tpu_torch.models import vit
+    from nerf_and_dietnerf_tpu_torch.tools import eval_embedder_consistency as tev
+    from nerf_and_dietnerf_tpu_torch.tools import train_scene_embedder as ttr
+    from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
+
+    EMBED_DIR.mkdir(parents=True, exist_ok=True)
+    card = gpu_line() if DEVICE == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    corpus, ids = _embedder_corpus()
+    cfg = ttr.vit_config(256, 6, 8, 1024)
+    out: dict = {"images": int(corpus.shape[0]), "scenes": len(EMBED_CHANNELS),
+                 "steps": EMBED_STEPS, "batch": EMBED_BATCH}
+    cfg_r, params_r = tev.random_embedder(DEVICE)
+    out["random"] = tev.consistency(tev.features(params_r, cfg_r, corpus, DEVICE), ids)
+    log(tev.report("random-init", out["random"]))
+    for positives in ("augment", "view"):
+        label = f"embedder {positives}"
+        run = ttr.train(corpus, ids, cfg, steps=EMBED_STEPS, batch=EMBED_BATCH, lr=3e-4,
+                        temp=0.2, positives=positives, seed=SEED, device=DEVICE,
+                        log_every=EMBED_WINDOW, log=lambda m: log(f"{label}: {m}"))
+        losses = run["losses"]
+        first, last = (sum(losses[:EMBED_WINDOW]) / EMBED_WINDOW,
+                       sum(losses[-EMBED_WINDOW:]) / EMBED_WINDOW)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{label}: non-finite loss {losses}")
+        if not last < first:
+            raise AssertionError(f"{label}: mean loss of the last {EMBED_WINDOW} steps {last} "
+                                 f"not below the first {EMBED_WINDOW}' {first}")
+        npz = EMBED_DIR / f"scene_vit_{positives}.npz"
+        vit.save_npz(npz, run["params"]["vit"], config=cfg)
+        if vit.infer_config(npz) != cfg:
+            raise AssertionError(f"{label}: infer_config {vit.infer_config(npz)} != {cfg}")
+        loaded = vit.load_pretrained(npz, cfg, DEVICE)
+        if not all(torch.equal(a, b) for a, b in zip(tree_leaves(loaded),
+                                                     tree_leaves(run["params"]["vit"]))):
+            raise AssertionError(f"{label}: the npz does not read back bitwise")
+        feats = tev.features(loaded, cfg, corpus, DEVICE)
+        if not torch.equal(feats, tev.features(run["params"]["vit"], cfg, corpus, DEVICE)):
+            raise AssertionError(f"{label}: the npz's features differ from the trained ones")
+        numbers = tev.consistency(feats, ids)
+        log(tev.report(str(npz.relative_to(ROOT)), numbers))
+        out[positives] = {"loss_first": first, "loss_last": last, "losses": losses,
+                          "acc_last": run["accs"][-1], "seconds": run["seconds"],
+                          "ms_per_step": 1e3 * run["seconds"] / EMBED_STEPS,
+                          "consistency": numbers}
+        log(f"[{card}] {label}: {EMBED_STEPS} steps of "
+            f"{EMBED_BATCH} pairs, {out[positives]['ms_per_step']:.3f} ms a step (the first "
+            f"included), mean loss {first:.4f} -> {last:.4f}")
+    out["seconds"] = time.perf_counter() - t0
+    timings["embedder"] = out
+    log(f"embedder phase: {out['seconds']:.1f} s")
+
+
 # The kernels whose products must run on the tensor cores, and the SASS
 # instruction they must hold: bf16 B1/B2/B4-B7, the f32 backwards of B2 and
 # B4-B7 and the f32 forwards of B4 and B7 on `mma.sync` (HMMA; tf32 for the
@@ -3992,6 +4164,10 @@ def main() -> int:
     log(f"diet phases done at {time.perf_counter() - t_start:.0f} s")
     distributed_phase(torch, timings)
     log(f"distributed phase done at {time.perf_counter() - t_start:.0f} s")
+    parity_phase(torch, timings)
+    log(f"parity phase done at {time.perf_counter() - t_start:.0f} s")
+    embedder_phase(torch, timings)
+    log(f"embedder phase done at {time.perf_counter() - t_start:.0f} s")
     launches.update(tools_phase(torch))
     profile_phase(torch, timings, trainer)
     log(f"tools and profile done at {time.perf_counter() - t_start:.0f} s")
@@ -4027,6 +4203,19 @@ def main() -> int:
         f"{d['diet']['counters']}) " + " / ".join(
             ", ".join(f"{v:.3f}" for v in r) for r in d["diet"]["diet_step_ms_per_rank"])
         + f" ms on ranks 0 / 1; the phase {d['seconds']:.1f} s")
+    p = timings["parity"]
+    log(f"[{card}] parity ({p['shape']}), grad err vs the f64-chain oracle (the plain path "
+        "of the dtype's): " + "; ".join(
+            f"{k} {v['err_vs_oracle']:.3e} ({v['plain_err_vs_oracle']:.3e})"
+            for k, v in p["runs"].items())
+        + "; bin agreement " + ", ".join(f"{k[len('bin_agreement_'):]} {v}"
+                                         for k, v in p["bin_agreement"].items()))
+    for positives in ("augment", "view"):
+        e = timings["embedder"][positives]
+        log(f"[{card}] embedder {positives}: {e['ms_per_step']:.3f} ms a step, loss "
+            f"{e['loss_first']:.4f} -> {e['loss_last']:.4f}, separation "
+            f"{e['consistency']['separation']:.4f} (random "
+            f"{timings['embedder']['random']['separation']:.4f})")
     r = timings["float32"]["mlp_fwd"]
     log(f"[{card}] mlp_fwd float32 ({r['design']}): {r['ms']:.3f} ms, {FMA_DESIGN} "
         f"{r['fma_design_ms']:.3f} ms, library_ms {r['library_ms']:.3f}, plain "
@@ -4078,7 +4267,8 @@ def main() -> int:
                       "b7_f32_steps": timings["b7_f32_steps"],
                       "eval_patch": timings["eval_patch"], "runner": timings["runner"],
                       "diet": {b: timings["diet_" + b] for b in DIET_KERNELS},
-                      "distributed": timings["distributed"]}),
+                      "distributed": timings["distributed"],
+                      "parity": timings["parity"], "embedder": timings["embedder"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -84,6 +84,18 @@ class _Pick(torch.autograd.Function):
 _pick = _Pick.apply
 
 
+def resampling_cdf(weights: torch.Tensor) -> torch.Tensor:
+    """The resampling's CDF of the coarse weights (f32), differentiable."""
+    pdf = weights / (torch.sum(weights, dim=-1, keepdim=True) + CDF_EPS)
+    return torch.cumsum(pdf, dim=-1)
+
+
+def resampling_bins(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The bin of each sorted uniform: the left bisect ``#{j : cdf[j] < u}``
+    (the JAX package counts the comparisons; this bisects)."""
+    return torch.searchsorted(cdf.detach().contiguous(), u.contiguous(), side="left")
+
+
 def resample_z_from_weights(key, weights, z_values, n_new: int, *,
                             u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Draw ``n_new`` sorted z from the coarse weight PDF (inverse CDF with
@@ -93,14 +105,12 @@ def resample_z_from_weights(key, weights, z_values, n_new: int, *,
     z_values = z_values.float()
     n_coarse = weights.shape[-1]
 
-    pdf = weights / (torch.sum(weights, dim=-1, keepdim=True) + CDF_EPS)
-    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = resampling_cdf(weights)
     if u is None:
         u = sorted_uniforms(key, weights.shape[:-1], n_new, device=weights.device)
     u = u.expand(*weights.shape[:-1], n_new).contiguous()
 
-    # Left bisect: idx = #{j : cdf[j] < u}.
-    idx = torch.searchsorted(cdf.detach().contiguous(), u, side="left")
+    idx = resampling_bins(cdf, u)
     lo = torch.clamp_min(idx - 1, 0)
     hi = torch.clamp_max(idx, n_coarse - 1)
     cdf_lo = _pick(lo, cdf)

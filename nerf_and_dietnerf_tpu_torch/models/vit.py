@@ -159,7 +159,12 @@ def preprocess(images: torch.Tensor, config: ViTConfig = ViTConfig()) -> torch.T
     to a few 1e-7 when it grows an axis or shrinks 256 to 224 (the flagship's
     images); at other shrinking ratios the two antialiasing filters differ by
     up to a few 1e-5."""
-    size = config.image_size
+    return resize(images, config.image_size) * 2.0 - 1.0
+
+
+def resize(images: torch.Tensor, size: int) -> torch.Tensor:
+    """:func:`preprocess`'s bilinear resize alone: ``(h, w, c)`` or
+    ``(b, h, w, c)`` in, ``(b, size, size, c)`` f32 out."""
     if images.ndim == 3:
         images = images[None]
     h, w = images.shape[1:3]
@@ -168,7 +173,7 @@ def preprocess(images: torch.Tensor, config: ViTConfig = ViTConfig()) -> torch.T
         x = torch.einsum("bhwc,hH->bHwc", x, _resize_matrix(h, size, x.device))
     if w != size:
         x = torch.einsum("bhwc,wW->bhWc", x, _resize_matrix(w, size, x.device))
-    return x * 2.0 - 1.0
+    return x
 
 
 # --------------------------------------------------------------------------- #

@@ -1,15 +1,25 @@
-"""Probe tools of the port: the counterparts of the JAX package's
-``tools/exp_mxu.py``, ``exp_vpu.py``, ``exp_interleave.py``, ``exp_expand.py``
-and ``exp_enccost.py``, each timing a hand-written CUDA probe kernel of
-``ops/probe_kernels_cuda.py`` on the GPU:
+"""Tools of the port, the counterparts of the JAX package's ``tools/``.
+
+Probe tools: ``exp_mxu``, ``exp_vpu``, ``exp_interleave``, ``exp_expand`` and
+``exp_enccost`` (of ``tools/exp_*.py``), each timing a hand-written CUDA probe
+kernel of ``ops/probe_kernels_cuda.py`` on the GPU:
 
     python -m nerf_and_dietnerf_tpu_torch.tools.exp_mxu
     python -m nerf_and_dietnerf_tpu_torch.tools.exp_mxu --device cpu --cases 64:8:2
 
-Every tool has ``main(argv=None)``, runs on the GPU unless ``--device cpu`` is
-given (then the plain PyTorch versions run, and the times are the host's), and
-prints one line per case in the form its counterpart prints, with the H100's
-peaks where that one has the TPU's.
+Parity and DietNeRF tools: ``parity_gpu`` (of ``tools/parity_tpu.py``: the
+fixed-z objective's loss and gradients of every kernel path against an
+f64-chain oracle, ``PARITY_GPU.json``), ``train_scene_embedder`` and
+``eval_embedder_consistency`` (a small ViT embedder trained on a scene corpus
+and written for ``--vit-weights``; its within- and across-scene cosines):
+
+    python -m nerf_and_dietnerf_tpu_torch.tools.parity_gpu --out PARITY_GPU.json
+    python -m nerf_and_dietnerf_tpu_torch.tools.train_scene_embedder --out v.npz --scenes A B
+
+Every tool has ``main(argv=None)`` and runs on the GPU unless ``--device cpu``
+is given (then the kernel wrappers run their plain PyTorch versions, and times
+are the host's). The probe tools print one line per case in the form their
+counterparts print, with the H100's peaks where those have the TPU's.
 """
 
 from __future__ import annotations

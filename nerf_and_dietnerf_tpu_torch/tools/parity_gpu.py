@@ -1,0 +1,419 @@
+"""Gradient parity of every kernel path of the port on the GPU, fixed-z.
+
+The counterpart of the JAX package's ``tools/parity_tpu.py``, with its method
+and criteria:
+
+- **Fixed z.** The objective is ``nerf.training_losses_fixed_z``: the coarse
+  pass through ``render_rays_train`` and the fine pass through
+  ``nerf._fine_mse`` (the fused fine-loss kernel included), the code of the
+  training step, with both z tensors drawn once and fed to every run as
+  constants. The full objective differentiates through the resampling,
+  whose bins flip under a last-place change of the coarse weights and move
+  the fine samples: two correct backends then differ O(1) per leaf.
+  :func:`bin_agreement` counts those flips.
+- **The oracle** is the path's plain version in the f64 chain: the same
+  objective with the MLP's products and sums in f64 on the path's own f32
+  inputs (its points and encodings; the compositing in f32, as in the
+  kernels). The JAX tool's oracle, XLA f32 at HIGHEST precision (exact f32
+  products), has a counterpart here, the plain backend in f32 with TF32 off;
+  at the flagship shape it is itself about 1.2e-3 from the f64 chain, a few
+  hundred of its 1.8e9 leaky pre-activations lying on the other side of 0
+  (``leaky_flips_f32_vs_f64``), so it cannot hold a kernel to 1e-3. Two
+  families of paths compute two functions: "pallas_rm" builds its encodings
+  in the kernel with a direct ``sin(f_k x)``, as the TPU kernels B6 / B7 do
+  (its oracle: ``research_kernels_cuda.raymarch_comp_fwd_plain``); the
+  other backends use the double-angle recurrence of ``core/encoding.py``
+  (``research_kernels_cuda.mlp_comp_fwd_plain`` on those encodings).
+- **Check 1, exactness:** every f32 kernel path against its oracle, gradient
+  error (:func:`max_rel_err`) and relative loss error both below 1e-3.
+- **Check 2, production:** every path and dtype against its oracle,
+  ``err_vs_oracle <= 1.5 * err(plain path of that dtype vs oracle) + 1e-3``,
+  and the loss within 1e-2 (relative) of that plain path's. The plain path
+  is the "xla" backend under the caller's TF32 setting.
+
+Six kernel paths, each in f32 and bf16: "pallas" (B1, B2), "pallas" +
+``fuse_fine_loss`` (B1 and B2 on the coarse pass, B5 on the fine pass),
+"pallas" + ``fuse_compositing`` (B4), "pallas" + both flags (B4, B5),
+"pallas_rm" (B6) and "pallas_rm" + ``fuse_compositing`` (B7). Each run's
+kernel launches are recorded (``kernel_lib.LAUNCHES``, reset before it).
+
+    python -m nerf_and_dietnerf_tpu_torch.tools.parity_gpu [--out PARITY_GPU.json]
+    python -m nerf_and_dietnerf_tpu_torch.tools.parity_gpu --device cpu --rays 64 \\
+        --coarse 8 --fine 16 --hidden 32
+
+Runs on the GPU unless ``--device cpu`` is given (then the wrappers run their
+plain versions). Prints one line a run, writes the JSON to ``--out`` and
+exits non-zero unless every check passed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import subprocess
+import sys
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from nerf_and_dietnerf_tpu_torch.core import sampling
+from nerf_and_dietnerf_tpu_torch.models import nerf
+from nerf_and_dietnerf_tpu_torch.models.mlp import MLPConfig
+from nerf_and_dietnerf_tpu_torch.ops import kernel_lib
+from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
+from nerf_and_dietnerf_tpu_torch.train import train_step
+from nerf_and_dietnerf_tpu_torch.utils.device import resolve_device
+from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
+
+# The kernel paths: name, then the NeRFConfig fields that select them.
+PATHS = (
+    ("pallas", {"backend": "pallas"}),
+    ("pallas+fuse_fine_loss", {"backend": "pallas", "fuse_fine_loss": True}),
+    ("pallas+fuse_compositing", {"backend": "pallas", "fuse_compositing": True}),
+    ("pallas+fuse_compositing+fuse_fine_loss",
+     {"backend": "pallas", "fuse_compositing": True, "fuse_fine_loss": True}),
+    ("pallas_rm", {"backend": "pallas_rm"}),
+    ("pallas_rm+fuse_compositing", {"backend": "pallas_rm", "fuse_compositing": True}),
+)
+DTYPES = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+# The two functions the paths compute: their encodings' sines.
+FAMILIES = ("recurrence", "direct_sin")
+# The backends whose coarse bins bin_agreement holds against the plain path's.
+BIN_BACKENDS = ("pallas", "pallas_rm")
+
+EXACT_TOL = 1e-3         # check 1: gradient and relative loss error
+PLAIN_FACTOR = 1.5       # check 2: err_vs_oracle <= PLAIN_FACTOR * plain's + PLAIN_SLACK
+PLAIN_SLACK = 1e-3
+LOSS_TOL = 1e-2          # check 2: relative loss error against the plain path
+FLIP_ROWS = 65536        # rows a chunk when counting the leaky branches' flips
+
+# Seed offsets of the draws (the inputs take the seed itself).
+Z_COARSE_SEED, Z_FINE_SEED, BIN_U_SEED = 5, 6, 21
+
+METHODOLOGY = (
+    "fixed-z: both z tensors drawn once (stratified coarse z, fine z resampled "
+    "from the oracle's detached coarse weights) and fed to every run as "
+    "constants; objective = nerf.training_losses_fixed_z (the render_rays_train "
+    "/ _fine_mse code of the training step, no resampling inside the "
+    "differentiated region). Oracle: the path's plain version in the f64 chain "
+    "(the MLP's products and sums in f64 on the path's own f32 points and "
+    "encodings, compositing in f32), one for the double-angle-recurrence "
+    "encodings (xla, pallas) and one for the direct-sin encodings (pallas_rm); "
+    "the plain backend in exact f32 (TF32 off) is reported against it, with "
+    "the leaky pre-activations whose sign f32 and f64 disagree on. Check 1: "
+    "every f32 kernel path within 1e-3 of its oracle (worst leaf's max |diff| "
+    "over that leaf's max |oracle|; relative loss). Check 2: every path and "
+    "dtype within 1.5x the plain path of its dtype's error against the oracle "
+    "+ 1e-3, loss within 1e-2 of that plain path's. bin_agreement: the share "
+    "of resampling bins on which the plain path and a kernel path pick the "
+    "same bin for the same sorted uniforms (a diagnostic: each flip moves a "
+    "fine sample, an O(1) per-leaf difference in a full-pipeline comparison). "
+    "The JAX tool's keys are kept: *_vs_f32_oracle hold the error against this "
+    "tool's oracle."
+)
+
+
+# --------------------------------------------------------------------------- #
+# The pieces the tests hold against the JAX tool                               #
+# --------------------------------------------------------------------------- #
+
+def max_rel_err(ref_tree, got_tree) -> float:
+    """Worst leaf of ``max |got - ref| / max(1e-6, max |ref|)``, in f32 (the
+    JAX tool's ``max_rel_err``)."""
+    worst = 0.0
+    for a, b in zip(tree_leaves(ref_tree), tree_leaves(got_tree)):
+        a, b = a.float(), b.float()
+        scale = max(1e-6, float(torch.max(torch.abs(a))))
+        worst = max(worst, float(torch.max(torch.abs(b - a))) / scale)
+    return worst
+
+
+def coarse_bins(params, config: nerf.NeRFConfig, orig, dirs, z_coarse, u) -> torch.Tensor:
+    """The resampling bins of the sorted uniforms ``u`` in the CDF of
+    ``config``'s coarse weights."""
+    with torch.no_grad():
+        _, w = nerf.render_rays_train(params["coarse"], config, orig, dirs, z_coarse)
+    return sampling.resampling_bins(sampling.resampling_cdf(w.float()), u)
+
+
+def bin_agreement(cfg_a, cfg_b, params, orig, dirs, z_coarse, n_fine: int,
+                  u: Optional[torch.Tensor] = None) -> float:
+    """Share of resampling bins on which two configs agree: both coarse
+    forwards, the same sorted uniforms (``u``, else drawn from seed
+    ``BIN_U_SEED``) bisected into each CDF."""
+    if u is None:
+        gen = torch.Generator(device=orig.device).manual_seed(BIN_U_SEED)
+        u = sampling.sorted_uniforms(gen, (orig.shape[0],), n_fine, device=orig.device)
+    ia = coarse_bins(params, cfg_a, orig, dirs, z_coarse, u)
+    ib = coarse_bins(params, cfg_b, orig, dirs, z_coarse, u)
+    return float(torch.mean((ia == ib).float()))
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """TF32 off for CUDA matmuls, the caller's setting restored after."""
+    flags = torch.backends.cuda.matmul
+    allow_tf32 = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = allow_tf32
+
+
+def family_of(backend: str) -> str:
+    """Which function a backend computes: the ray-march kernels' direct-sin
+    encodings, or the torch encodings' recurrence."""
+    return "direct_sin" if backend in nerf.RAYMARCH_BACKENDS else "recurrence"
+
+
+def _oracle_pass(net_params, config: nerf.NeRFConfig, family: str, orig, dirs, z):
+    """``(rgb, weights)`` of one pass in the f64 chain of the family's plain
+    version, on its own f32 encodings."""
+    mlp = config.mlp
+    ws, bs = rc.flatten_params(net_params, mlp, torch.float32)
+    if family == "direct_sin":
+        rd = rk.pack_rays(mlp, orig, dirs, nerf._view_comps(config, dirs))
+        return rk.raymarch_comp_fwd_plain(ws, bs, mlp, rd, z, torch.float32, work=torch.float64)
+    enc, encd = nerf._encodings_per_ray(config, orig, dirs, z)
+    return rk.mlp_comp_fwd_plain(ws, bs, mlp, enc, encd, z, torch.float32, work=torch.float64)
+
+
+@dataclasses.dataclass
+class Problem:
+    """The fixed inputs every run shares."""
+
+    config: nerf.NeRFConfig       # the plain backend in f32
+    params: dict
+    orig: torch.Tensor            # (B, 4), last column 1
+    dirs: torch.Tensor            # (B, 4), last column 0
+    rgb: torch.Tensor             # (B, 3)
+    z_coarse: torch.Tensor        # (B, n_coarse)
+    z_fine: torch.Tensor          # (B, n_fine)
+
+
+def make_problem(seed: int, rays: int, coarse: int, fine: int, hidden: int,
+                 device) -> Problem:
+    """The rays and targets from numpy (``seed``), the parameters from
+    ``nerf.init_params`` (a CPU generator of ``seed``), the coarse z from a
+    generator of ``seed + Z_COARSE_SEED`` and the fine z resampled from the
+    recurrence oracle's coarse weights with one of ``seed + Z_FINE_SEED``."""
+    rng = np.random.default_rng(seed)
+    orig = np.zeros((rays, 4), np.float32)
+    orig[:, 3] = 1.0
+    dirs = np.concatenate([rng.standard_normal((rays, 3)), np.zeros((rays, 1))], axis=-1)
+    rgb = rng.uniform(size=(rays, 3))
+    mlp = MLPConfig(hidden_dim=hidden, last_hidden_dim=hidden // 2)
+    config = nerf.NeRFConfig(mlp=mlp, n_samples_coarse=coarse, n_samples_fine=fine,
+                             compute_dtype=torch.float32, backend="xla")
+    params = nerf.init_params(torch.Generator().manual_seed(seed), config, device)
+    orig, dirs, rgb = (torch.tensor(a, dtype=torch.float32, device=device)
+                       for a in (orig, dirs, rgb))
+    z_coarse = sampling.stratified_z_values(
+        torch.Generator(device=device).manual_seed(seed + Z_COARSE_SEED), config.near,
+        config.far, (rays,), coarse, device=device)
+    with exact_f32(), torch.no_grad():
+        _, w = _oracle_pass(params["coarse"], config, "recurrence", orig, dirs, z_coarse)
+    z_fine = sampling.resample_z_from_weights(
+        torch.Generator(device=device).manual_seed(seed + Z_FINE_SEED), w, z_coarse, fine)
+    return Problem(config, params, orig, dirs, rgb, z_coarse, z_fine.detach())
+
+
+def loss_and_grads(problem: Problem, config: nerf.NeRFConfig):
+    """``(loss, grads)`` of the fixed-z objective under ``config``."""
+    p = problem
+    loss, _, grads = train_step.loss_and_grads(
+        p.params, lambda q: (nerf.training_losses_fixed_z(
+            q, config, p.orig, p.dirs, p.rgb, p.z_coarse, p.z_fine), None))
+    return float(loss), grads
+
+
+def oracle_loss_and_grads(problem: Problem, family: str):
+    """``(loss, grads)`` of the fixed-z objective in the f64 chain of the
+    family's plain version (:func:`_oracle_pass`)."""
+    p = problem
+
+    def objective(q):
+        loss = 0.0
+        for net, z in (("coarse", p.z_coarse), ("fine", p.z_fine)):
+            rgb, _ = _oracle_pass(q[net], p.config, family, p.orig, p.dirs, z)
+            loss = loss + torch.mean(torch.square(p.rgb - rgb))
+        return loss, None
+
+    with exact_f32():
+        loss, _, grads = train_step.loss_and_grads(p.params, objective)
+    return float(loss), grads
+
+
+@torch.no_grad()
+def leaky_flips(problem: Problem) -> Dict[str, Dict[str, int]]:
+    """Per network, the leaky pre-activations whose sign the plain MLP in
+    exact f32 and in the f64 chain disagree on, on the recurrence family's
+    encodings: the rows whose gradient an f32 evaluation takes from the
+    other branch."""
+    p, mlp = problem, problem.config.mlp
+    out = {}
+    for net, z in (("coarse", p.z_coarse), ("fine", p.z_fine)):
+        ws, bs = rc.flatten_params(p.params[net], mlp, torch.float32)
+        enc, encd = nerf._encodings_per_ray(p.config, p.orig, p.dirs, z)
+        d = encd[:, None, :].expand(z.shape[0], z.shape[1], encd.shape[-1]).reshape(
+            enc.shape[0], -1) if encd is not None else None
+        flips = total = 0
+        with exact_f32():
+            for lo in range(0, enc.shape[0], FLIP_ROWS):
+                rows = slice(lo, lo + FLIP_ROWS)
+                dr = d[rows] if d is not None else None
+                _, a32 = rc._forward_plain(ws, bs, mlp, enc[rows], dr, torch.float32)
+                _, a64 = rc._forward_plain(ws, bs, mlp, enc[rows], dr, torch.float32,
+                                           torch.float64)
+                flips += sum(int(((a >= 0) != (b >= 0)).sum()) for a, b in zip(a32, a64))
+                total += sum(a.numel() for a in a32)
+        out[net] = {"flips": flips, "pre_activations": total}
+    return out
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(1e-6, abs(b))
+
+
+def _by_net(ref, got) -> Dict[str, float]:
+    """:func:`max_rel_err` per network: which pass a failure comes from."""
+    return {k: max_rel_err(ref[k], got[k]) for k in ("coarse", "fine") if ref.get(k) is not None}
+
+
+def _launches() -> Dict[str, int]:
+    return {k: v for k, v in kernel_lib.LAUNCHES.items() if v}
+
+
+def run_checks(problem: Problem, log=print) -> dict:
+    """The two oracles, the plain path of each dtype and the twelve kernel
+    runs, with the two checks: ``{"oracle", "plain", "results", "all_pass"}``."""
+    base = problem.config
+    log("computing the f64-chain oracles (recurrence and direct-sin encodings)...")
+    oracle = {fam: oracle_loss_and_grads(problem, fam) for fam in FAMILIES}
+    results, plain = {}, {}
+    ok = True
+    for dtype_name, dtype in DTYPES:
+        cfg_x = dataclasses.replace(base, compute_dtype=dtype)
+        kernel_lib.reset_launch_counts()
+        loss_ref, grads_ref = loss_and_grads(problem, cfg_x)
+        err_plain = max_rel_err(oracle["recurrence"][1], grads_ref)
+        plain[dtype_name] = {"loss": loss_ref, "max_rel_grad_err_vs_f64_oracle": err_plain,
+                             "max_rel_grad_err_vs_f64_oracle_by_net":
+                                 _by_net(oracle["recurrence"][1], grads_ref),
+                             "launches": _launches()}
+        log(f"{'xla (plain)':40s} {dtype_name:8s} err_vs_oracle={err_plain:.2e}")
+        for name, overrides in PATHS:
+            cfg = dataclasses.replace(cfg_x, **overrides)
+            family = family_of(cfg.backend)
+            loss_oracle, grads_oracle = oracle[family]
+            kernel_lib.reset_launch_counts()
+            loss_got, grads_got = loss_and_grads(problem, cfg)
+            launches = _launches()
+            rel_loss = _rel(loss_got, loss_ref)
+            err_vs_plain = max_rel_err(grads_ref, grads_got)
+            err_vs_oracle = max_rel_err(grads_oracle, grads_got)
+            bound = PLAIN_FACTOR * err_plain + PLAIN_SLACK
+            passed = err_vs_oracle <= bound and rel_loss < LOSS_TOL
+            ok &= passed
+            results[f"{name}/{dtype_name}"] = {
+                "loss_xla": loss_ref,
+                "loss_kernel": loss_got,
+                "rel_loss_err": rel_loss,
+                "max_rel_grad_err_vs_xla_same_dtype": err_vs_plain,
+                "max_rel_grad_err_vs_f32_oracle": err_vs_oracle,
+                "xla_same_dtype_err_vs_f32_oracle": err_plain,
+                "oracle": family,
+                "max_rel_grad_err_vs_oracle_by_net": _by_net(grads_oracle, grads_got),
+                "criterion": ("production precision: grad_err_vs_oracle <= "
+                              f"1.5*xla_err+1e-3 (= {bound:.3e}), loss_err < 1e-2"),
+                "launches": launches,
+                "pass": passed,
+            }
+            line = (f"{name:40s} {dtype_name:8s} loss_err={rel_loss:.2e} "
+                    f"err_vs_xla={err_vs_plain:.2e} err_vs_oracle={err_vs_oracle:.2e} "
+                    f"(xla: {err_plain:.2e})")
+            if dtype == torch.float32:
+                rel_exact = _rel(loss_got, loss_oracle)
+                exact = err_vs_oracle < EXACT_TOL and rel_exact < EXACT_TOL
+                ok &= exact
+                results[f"{name}/float32/exact"] = {
+                    "loss_oracle": loss_oracle,
+                    "loss_kernel": loss_got,
+                    "rel_loss_err": rel_exact,
+                    "max_rel_grad_err": err_vs_oracle,
+                    "oracle": family,
+                    "criterion": "exact: grad err < 1e-3 and loss err < 1e-3 vs the f64 chain",
+                    "pass": exact,
+                }
+                line += f" exact={'PASS' if exact else 'FAIL'}"
+            log(f"{line} {'PASS' if passed else 'FAIL'} launches={launches}")
+    return {"oracle": {fam: {"loss": oracle[fam][0]} for fam in FAMILIES},
+            "plain": plain, "results": results, "all_pass": ok}
+
+
+def device_line(dev: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them; "cpu"
+    for a CPU run."""
+    if dev.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def parity(seed: int, rays: int, coarse: int, fine: int, hidden: int, device,
+           log=print) -> dict:
+    """Everything the tool writes, as a dict."""
+    dev = resolve_device(device)
+    problem = make_problem(seed, rays, coarse, fine, hidden, dev)
+    out = {"methodology": METHODOLOGY,
+           "shape": {"rays": rays, "coarse": coarse, "fine": fine, "hidden": hidden},
+           "device": device_line(dev)}
+    checks = run_checks(problem, log)
+    flips = leaky_flips(problem)
+    log("leaky pre-activations on the other side of 0 in exact f32 than in the f64 chain: "
+        + ", ".join(f"{k} {v['flips']} of {v['pre_activations']}" for k, v in flips.items()))
+    agree = {}
+    for backend in BIN_BACKENDS:
+        agree[backend] = {
+            dtype_name: bin_agreement(
+                dataclasses.replace(problem.config, compute_dtype=dtype),
+                dataclasses.replace(problem.config, compute_dtype=dtype, backend=backend),
+                problem.params, problem.orig, problem.dirs, problem.z_coarse, fine)
+            for dtype_name, dtype in DTYPES}
+        log(f"resampling bin agreement xla-vs-{backend}: f32={agree[backend]['float32']:.6f} "
+            f"bf16={agree[backend]['bfloat16']:.6f}")
+    out.update(oracle=checks["oracle"], plain=checks["plain"], leaky_flips_f32_vs_f64=flips,
+               results=checks["results"])
+    out.update({f"bin_agreement_xla_vs_{b}": agree[b] for b in BIN_BACKENDS})
+    out["all_pass"] = checks["all_pass"]
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--out", default="PARITY_GPU.json")
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--rays", type=int, default=4096)
+    ap.add_argument("--coarse", type=int, default=64)
+    ap.add_argument("--fine", type=int, default=128)
+    ap.add_argument("--hidden", type=int, default=256,
+                    help="MLP width; the view branch is half of it")
+    args = ap.parse_args(argv)
+    out = parity(args.seed, args.rays, args.coarse, args.fine, args.hidden, args.device,
+                 log=lambda s: print(s, flush=True))
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=2)
+    print(json.dumps({"all_pass": out["all_pass"]}), flush=True)
+    return 0 if out["all_pass"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

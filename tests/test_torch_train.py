@@ -227,13 +227,14 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('nerf_and_dietnerf_tpu.') or m == 'nerf_and_dietnerf_tpu'\n"
         "       or m in ('optax', 'orbax', 'yaml', 'h5py', 'imageio', 'matplotlib', 'cv2',\n"
-        "                'safetensors', 'transformers')]\n"
+        "                'safetensors', 'transformers', 'PIL')]\n"
         "assert not bad, bad\n"
         "new = ['ops.probe_kernels_cuda', 'utils.profiling', 'tools', 'tools.exp_mxu',\n"
         "       'tools.exp_vpu', 'tools.exp_interleave', 'tools.exp_expand', 'tools.exp_enccost',\n"
         "       'viz', 'viz.image_ops', 'viz.plots', 'viz.video', 'tasks', 'tasks.runner', 'main',\n"
         "       'models.vit', 'models.dietnerf', 'train.diet_trainer', 'parallel',\n"
-        "       'parallel.mesh', 'parallel.render_tiles', 'tools.multiprocess_worker']\n"
+        "       'parallel.mesh', 'parallel.render_tiles', 'tools.multiprocess_worker',\n"
+        "       'tools.parity_gpu', 'tools.train_scene_embedder', 'tools.eval_embedder_consistency']\n"
         "missing = [m for m in new if 'nerf_and_dietnerf_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "assert 'tools' not in sys.modules, 'the root tools/ directory was imported'\n"
