@@ -56,6 +56,18 @@ through
 ``fuse_compositing`` and ``fuse_fine_loss`` (B4 on the coarse pass, B5 on the
 fine pass), and "pallas" and "pallas_rm" with compute_dtype float32 through
 the ``Trainer`` (f32 B1 and B2; f32 B6 in the step).
+Then the quality phase (``quality_phase``) trains five paths through the
+``Trainer`` for ``QUALITY_EPOCHS`` epochs each on ``quality_scene`` (48 views
+of a textured unit sphere at 128x128, 6 held out: 168 steps an epoch),
+"xla", "pallas" and "pallas_rm" in bf16 and "xla" and "pallas" in f32, all
+from the same initial weights, permutations and uniforms (their digests
+must agree); each path's held-out PSNR (the held-out views' pooled MSE,
+deterministic f32 renders) must rise by ``QUALITY_RISE_DB`` from the initial
+weights, each kernel path must end at most ``QUALITY_WINDOW_DB`` below its
+plain "xla" twin of the same type, and its launches must be exact; B1 and
+B2 are then held against their plain versions on the trained "pallas"
+field's rays (``_trained_field_checks``). Its record is the JSON line
+``{"quality": ...}`` printed before the card's line.
 Then the runner phase drives the normal entry point,
 ``nerf_and_dietnerf_tpu_torch.main.main([cfg])``: a config of the "pallas"
 path's widths with every task on, 2 epochs and 4 video frames a second,
@@ -134,8 +146,9 @@ before printing a result.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it holds the per-kernel JSON record, and the one before that
-the card's name and power limit.
+the line before it holds the per-kernel JSON record, the one before that
+the card's name and power limit, and the one before that the quality
+phase's record.
 """
 
 from __future__ import annotations
@@ -2151,43 +2164,98 @@ def profile_phase(torch, timings: dict, trainer) -> None:
 # Training phase                                                               #
 # --------------------------------------------------------------------------- #
 
+def _sphere_view(pos, size: int, fov: float):
+    """The camera at ``pos`` looking at the origin, and where its ``size`` x
+    ``size`` pixel rays meet the unit sphere: ``(c2w, hit, normal)``, in
+    ``core/cameras.rays_for_image``'s conventions (pixel centres at +0.5, y
+    up, the camera looking down -z, ``tan(fov / 2)``)."""
+    import numpy as np
+
+    z = pos / np.linalg.norm(pos)             # the camera looks down -z
+    x = np.cross([0.0, 1.0, 0.0], z)
+    x /= np.linalg.norm(x)
+    y = np.cross(z, x)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = x, y, z, pos
+    u = (np.arange(size) + 0.5) / size
+    xs, ys = np.meshgrid((2 * u - 1) * math.tan(fov / 2), (1 - 2 * u) * math.tan(fov / 2))
+    d = np.stack([xs, ys, -np.ones_like(xs)], -1) @ c2w[:3, :3].T
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    b = (d * pos).sum(-1)
+    disc = b * b - (pos @ pos - 1.0)
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    return c2w, disc > 0, pos + t[..., None] * d
+
+
+def _scene(images, poses, fov):
+    import numpy as np
+
+    from nerf_and_dietnerf_tpu_torch.data.loaders import Dataset
+
+    return Dataset(
+        images=np.asarray(images, np.float32), camera_poses=np.asarray(poses, np.float32),
+        field_of_view=fov, near=2.0, far=6.0,
+        average_c2w_before_recenter=np.eye(4), scale=1.0,
+    )
+
+
 def synthetic_scene(n_views=9, size=128, seed=SEED):
     """A unit sphere coloured by its normal (0.5 + 0.5 n), black background,
     seen by ``n_views`` cameras on a radius-4 ring looking at the origin.
     Rendered analytically in numpy, so the views are consistent."""
     import numpy as np
 
-    from nerf_and_dietnerf_tpu_torch.data.loaders import Dataset
-
     rng = np.random.default_rng(seed)
     fov = 0.7
     poses, images = [], []
     for i in range(n_views):
         phi = 2 * math.pi * i / n_views + rng.uniform(-0.1, 0.1)
-        pos = np.array([4 * math.sin(phi), 1.0, 4 * math.cos(phi)])
-        z = pos / np.linalg.norm(pos)             # the camera looks down -z
-        x = np.cross([0.0, 1.0, 0.0], z)
-        x /= np.linalg.norm(x)
-        y = np.cross(z, x)
-        c2w = np.eye(4)
-        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = x, y, z, pos
-        u = (np.arange(size) + 0.5) / size
-        xs, ys = np.meshgrid((2 * u - 1) * math.tan(fov / 2), (1 - 2 * u) * math.tan(fov / 2))
-        d = np.stack([xs, ys, -np.ones_like(xs)], -1) @ c2w[:3, :3].T
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        b = (d * pos).sum(-1)
-        disc = b * b - (pos @ pos - 1.0)
-        t = -b - np.sqrt(np.maximum(disc, 0.0))
-        hit = disc > 0
-        normal = pos + t[..., None] * d
-        img = np.where(hit[..., None], 0.5 + 0.5 * normal, 0.0)
+        c2w, hit, normal = _sphere_view(
+            np.array([4 * math.sin(phi), 1.0, 4 * math.cos(phi)]), size, fov)
         poses.append(c2w)
-        images.append(img)
-    return Dataset(
-        images=np.asarray(images, np.float32), camera_poses=np.asarray(poses, np.float32),
-        field_of_view=fov, near=2.0, far=6.0,
-        average_c2w_before_recenter=np.eye(4), scale=1.0,
-    )
+        images.append(np.where(hit[..., None], 0.5 + 0.5 * normal, 0.0))
+    return _scene(images, poses, fov)
+
+
+# The quality scene's held-out views: every QUALITY_HOLD_EVERY-th view from
+# QUALITY_HOLD_FIRST on, interleaved between the training views.
+QUALITY_HOLD_EVERY = 8
+QUALITY_HOLD_FIRST = 3
+
+
+def quality_held_out(n_views: int) -> list:
+    return list(range(QUALITY_HOLD_FIRST, n_views, QUALITY_HOLD_EVERY))
+
+
+def quality_scene(n_views=48, size=128, seed=SEED):
+    """The training-quality scene: a unit sphere painted with a
+    view-independent texture of latitude and longitude at a few frequencies
+    (continuous at the poles), black background, seen by ``n_views`` cameras at radius 4 on the upper
+    hemisphere (Blender's synthetic scenes' layout: azimuths a golden angle
+    apart, elevations from 0.1 to 1.1 rad, a little jitter from ``seed``),
+    looking at the origin; near 2, far 6. Rendered analytically in numpy, so
+    the views are consistent. Held out: ``quality_held_out(n_views)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    fov = 0.7
+    poses, images = [], []
+    for i in range(n_views):
+        phi = i * math.pi * (3 - math.sqrt(5)) + rng.uniform(-0.05, 0.05)
+        elev = 0.1 + 1.0 * ((i * 0.618034) % 1.0) + rng.uniform(-0.02, 0.02)
+        pos = 4 * np.array([math.cos(elev) * math.sin(phi), math.sin(elev),
+                            math.cos(elev) * math.cos(phi)])
+        c2w, hit, n = _sphere_view(pos, size, fov)
+        lat = np.arcsin(np.clip(n[..., 1], -1.0, 1.0))
+        lon = np.arctan2(n[..., 0], n[..., 2])
+        rgb = np.stack([
+            0.5 + 0.3 * np.sin(2 * lon + 1.0) * np.cos(lat) + 0.15 * np.sin(5 * lat),
+            0.5 + 0.3 * np.cos(3 * lat) + 0.15 * np.sin(4 * lon) * np.cos(lat),
+            0.5 + (0.25 * np.sin(lon - 2 * lat) + 0.2 * np.cos(6 * lon)) * np.cos(lat),
+        ], -1)
+        poses.append(c2w)
+        images.append(np.where(hit[..., None], rgb, 0.0))
+    return _scene(images, poses, fov)
 
 
 # The kernels each training path must launch.
@@ -2422,6 +2490,291 @@ def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
         f"{timings['train_' + path]['ms_per_step']:.3f} ms a step, "
         f"{timings['train_' + path]['rays_per_sec']:.0f} rays/s (epoch 2)")
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# The quality phase: held-out PSNR of the training paths                       #
+# --------------------------------------------------------------------------- #
+
+# The flagship widths and batch (_flagship_run) on quality_scene at 128x128:
+# 48 views, 6 held out, 42 x 16,384 rays = 168 steps of 4,096 rays an epoch,
+# QUALITY_EPOCHS epochs a path, the lr decaying to QUALITY_LR_FINAL. Each
+# path: (backend, compute type, its plain twin). Every path starts from the
+# same init_seed and draws the same permutations and uniforms (the epoch
+# seeds), so a kernel path and its twin train in lockstep apart from their
+# roundings.
+QUALITY_DIR = ROOT / "build" / "chip_smoke_quality"
+QUALITY_VIEWS = 48
+QUALITY_SIZE = 128
+QUALITY_EPOCHS = 3
+QUALITY_PATHS = {
+    "xla": ("xla", "bfloat16", None),
+    "pallas": ("pallas", "bfloat16", "xla"),
+    "pallas_rm": ("pallas_rm", "bfloat16", "xla"),
+    "xla_f32": ("xla", "float32", None),
+    "pallas_f32": ("pallas", "float32", "xla_f32"),
+}
+# The lr decays exponentially from the flagship's 5e-4 to this over the run,
+# the JAX package's remedy for constant-lr oscillation near convergence
+# (runs/256px_alexander_nerf_r04/RESULTS.md; runs/256px_alexander_nerf_r04_decay):
+# at a constant lr a path's last epoch can lose 2-4 dB of held-out PSNR to
+# an oscillation that another rounding of the same training escapes.
+QUALITY_LR_FINAL = 5e-5
+# The PSNR of the held-out views' pooled MSE (deterministic f32 renders) must
+# rise by QUALITY_RISE_DB from the initial weights to the last epoch's on
+# every path, and a kernel path may end at most QUALITY_WINDOW_DB below its
+# plain twin. Over init seeds 1 and 2 (``python3 chip_smoke.py quality 1 2``)
+# every path rose 18.47-19.47 dB, to 27.18-28.08, and the five paths of a
+# seed, the same training in other roundings, ended at most 0.83 dB apart,
+# no kernel path below its twin.
+QUALITY_RISE_DB = 15.0
+QUALITY_WINDOW_DB = 1.5
+
+
+def _digest(torch, tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def _first_step_recorded(torch, rec: dict):
+    """Records into ``rec`` the digests of the first ``train_step``'s ray
+    batch (the permutation's first rows) and of the uniforms that step draws:
+    drawn from a copy of its generator's state as ``nerf.training_mses``
+    draws them (``nerf.draw_training_uniforms``); the step itself is left as
+    it is."""
+    from nerf_and_dietnerf_tpu_torch.models import nerf
+    from nerf_and_dietnerf_tpu_torch.train import train_step as ts
+
+    step = ts.train_step
+
+    def first(state, key, batch, **kw):
+        if not rec:
+            gen = torch.Generator(device=key.device)
+            gen.set_state(key.get_state())
+            draws = nerf.draw_training_uniforms(gen, kw["config"], batch[0].shape[0],
+                                                state.params.get("fine") is not None, key.device)
+            rec.update(batch=_digest(torch, batch), draws=_digest(torch, draws.values()),
+                       drawn=sorted(draws))
+        return step(state, key, batch, **kw)
+
+    ts.train_step = first
+    try:
+        yield
+    finally:
+        ts.train_step = step
+
+
+def _held_out_psnr(torch, trainer, views, config=None) -> dict:
+    """Deterministic (``key=None``) renders of ``views`` from the trainer's
+    weights through ``config`` (its f32 eval config by default): each view's
+    PSNR and the PSNR of their pooled MSE."""
+    from nerf_and_dietnerf_tpu_torch.models import nerf
+
+    ds = trainer.dataset
+    mses = []
+    for i in views:
+        result, _ = nerf.render_image(
+            trainer.state.params, config or trainer.eval_config, None, ds.camera_poses[i],
+            ds.field_of_view, ds.height, ds.width, chunk_size=trainer.run.offline_chunk_size(),
+            diagnostics=False, device=DEVICE)
+        rgb = result.rgb.float().cpu()
+        if rgb.shape != (ds.height, ds.width, 3) or not bool(torch.isfinite(rgb).all()):
+            raise AssertionError(f"bad held-out render of view {i}: {tuple(rgb.shape)}")
+        mses.append(float(torch.mean(torch.square(rgb - torch.as_tensor(ds.images[i])))))
+    return {"views": [-10 * math.log10(m) for m in mses],
+            "pooled": -10 * math.log10(sum(mses) / len(mses))}
+
+
+def _quality_launches(backend: str, steps: int, n_held: int) -> dict:
+    """The exact launches of a path's QUALITY_EPOCHS epochs and final renders:
+    two forwards and two backwards a step, two forwards (coarse, fine) for
+    each of an epoch's two eval frames and each final held-out render (one
+    chunk a 128x128 frame); none under "xla"."""
+    if backend == "xla":
+        return {}
+    fwd, bwd = MAIN_PATHS[backend]
+    return {fwd: 2 * steps * QUALITY_EPOCHS + 4 * QUALITY_EPOCHS + 2 * n_held,
+            bwd: 2 * steps * QUALITY_EPOCHS}
+
+
+def _quality_path(torch, ds, path: str, held: list, train: list, seed: int):
+    """QUALITY_EPOCHS epochs of the ``Trainer`` on ``path`` from the init seed
+    ``seed`` and the epoch seeds, with the launch counts set to 0 just before
+    and read after the final held-out renders; returns ``(record,
+    trainer)``."""
+    import dataclasses
+
+    from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
+    from nerf_and_dietnerf_tpu_torch.train.trainer import Trainer
+    from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
+
+    backend, compute_dtype, _ = QUALITY_PATHS[path]
+    run = dataclasses.replace(
+        _flagship_run(backend, compute_dtype), n_epochs=QUALITY_EPOCHS, init_seed=seed,
+        optimizer_lr_final=QUALITY_LR_FINAL,
+        test_img_idx=held[0], idx_train_img_to_plot=train[0],
+        pics_indices_to_use_in_dataset=train)
+    trainer = Trainer(run, ds, QUALITY_DIR / path, device=DEVICE)
+    steps = trainer.data.batches_per_epoch
+    lockstep = {"init_params": _digest(torch, tree_leaves(trainer.state.params))}
+    before = _held_out_psnr(torch, trainer, held)
+    first: dict = {}
+    torch.cuda.synchronize()
+    kl.reset_launch_counts()
+    with _first_step_recorded(torch, first):
+        stats = [trainer.train_epoch(e) for e in range(1, QUALITY_EPOCHS + 1)]
+    after = _held_out_psnr(torch, trainer, held)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kl.LAUNCHES.items() if v}
+    lockstep.update(first)
+    # The same weights through the plain f32 eval: what the kernel path's
+    # training gave, apart from its eval renders' kernel.
+    plain_eval = _held_out_psnr(torch, trainer, held, dataclasses.replace(
+        trainer.eval_config, backend="xla")) if backend != "xla" else after
+    rec = {
+        "backend": backend, "compute_dtype": compute_dtype, "steps_per_epoch": steps,
+        "psnr_test_per_epoch": [s.psnr_test for s in stats],
+        "loss_per_epoch": [s.loss for s in stats],
+        "held_out_before": before, "held_out_after": after,
+        "held_out_after_plain_eval": plain_eval,
+        "rise_db": after["pooled"] - before["pooled"],
+        "ms_per_step": 1e3 * sum(s.seconds for s in stats[1:]) / (steps * (len(stats) - 1)),
+        "ms_per_step_epoch1": 1e3 * stats[0].seconds / steps,
+        "launches": launches, "launches_expected": _quality_launches(backend, steps, len(held)),
+        "lockstep": lockstep,
+    }
+    log(f"quality {path} ({backend}, {compute_dtype} step): held-out PSNR "
+        f"{before['pooled']:.3f} -> {after['pooled']:.3f} dB (plain f32 eval of the same "
+        f"weights {plain_eval['pooled']:.3f}; views "
+        + ", ".join(f"{v:.2f}" for v in after["views"]) + "); psnr_test per epoch "
+        + ", ".join(f"{v:.3f}" for v in rec["psnr_test_per_epoch"]) + "; loss "
+        + ", ".join(f"{v:.5f}" for v in rec["loss_per_epoch"])
+        + f"; {rec['ms_per_step']:.3f} ms a step (epochs 2-{QUALITY_EPOCHS}; epoch 1 "
+        f"{rec['ms_per_step_epoch1']:.3f}); launches {launches}; lockstep {lockstep}")
+    return rec, trainer
+
+
+def _trained_field_checks(torch, trainer) -> dict:
+    """B1 and B2 against their plain versions (:func:`_mlp_checks`, its
+    tolerances) on the coarse pass of one 4,096-ray batch of the quality
+    scene's training rays through a trained field, in bf16 and f32, with the
+    cotangents :func:`_inputs` draws; records the share of samples at a leaky
+    kink (a pre-activation of the plain forward on the other side of 0 from
+    the f64 chain's, ``_vs_f64_chain``) and of opaque rays (coarse weights
+    summing past 0.999)."""
+    import dataclasses
+
+    from nerf_and_dietnerf_tpu_torch.core import sampling
+    from nerf_and_dietnerf_tpu_torch.models import nerf
+    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+
+    config, cfg = trainer.config, trainer.config.mlp
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    tables = [torch.as_tensor(a, device=DEVICE) for a in (trainer.data.origins,
+                                                          trainer.data.directions)]
+    idx = torch.randperm(tables[0].shape[0], generator=gen, device=DEVICE)[:RAYS]
+    orig, dirs = (t[idx] for t in tables)
+    z = sampling.stratified_z_values(gen, config.near, config.far, (RAYS,), SAMPLES,
+                                     device=DEVICE)
+    params = trainer.state.params["coarse"]
+    with torch.no_grad():
+        plain = dataclasses.replace(trainer.eval_config, backend="xla")
+        weights = nerf.render_rays(params, plain, orig, dirs, z).weights
+        enc_xyz, enc_dir = nerf._encodings_per_ray(config, orig, dirs, z)
+    enc_dir = enc_dir[:, None, :].expand(RAYS, SAMPLES, cfg.dir_dim).reshape(RAYS * SAMPLES, -1)
+    out = {"rows": RAYS * SAMPLES,
+           "opaque_ray_share": float((weights.sum(-1) > 0.999).float().mean())}
+    for cd in (torch.bfloat16, torch.float32):
+        name = str(cd).split(".")[-1]
+        ws, bs = rc.flatten_params(params, cfg, cd)
+        x, d = enc_xyz.to(cd).contiguous(), enc_dir.to(cd).contiguous()
+        g = (0.5 + torch.rand((RAYS * SAMPLES, 4), generator=gen, device=DEVICE)).contiguous()
+        abs_fwd, abs_bwd, exact = _mlp_checks(torch, rc, ws, bs, cfg, x, d, g, cd, name,
+                                              f"trained field {name} rows={RAYS * SAMPLES}")
+        out[name] = {"max_abs_err_fwd": abs_fwd, "max_abs_err_bwd": abs_bwd,
+                     "leaky_kink_share": exact["rows_with_a_branch_flip"]}
+    log(f"trained field: opaque rays {out['opaque_ray_share']:.4f}, samples at a leaky kink "
+        f"bf16 {out['bfloat16']['leaky_kink_share']:.4e}, f32 "
+        f"{out['float32']['leaky_kink_share']:.4e}")
+    return out
+
+
+def quality_phase(torch, timings: dict, seed: int = SEED) -> None:
+    """Every path of QUALITY_PATHS trained on quality_scene (QUALITY_EPOCHS
+    epochs of the ``Trainer`` at the flagship widths) from the init seed
+    ``seed``, then B1 and B2 held on the trained "pallas" field
+    (:func:`_trained_field_checks`). Raises, after
+    recording everything, if a path's held-out PSNR does not rise by
+    QUALITY_RISE_DB, a kernel path ends more than QUALITY_WINDOW_DB below its
+    plain twin, a launch count is off, or two paths' initial weights, first
+    batch or first uniforms differ."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(QUALITY_DIR, ignore_errors=True)
+    ds = quality_scene(QUALITY_VIEWS, QUALITY_SIZE)
+    held = quality_held_out(QUALITY_VIEWS)
+    train = [i for i in range(QUALITY_VIEWS) if i not in held]
+    log(f"quality: {len(train)} training views of {QUALITY_SIZE}x{QUALITY_SIZE}, held out "
+        f"{held}, {QUALITY_EPOCHS} epochs a path")
+    paths, field = {}, None
+    for path in QUALITY_PATHS:
+        paths[path], trainer = _quality_path(torch, ds, path, held, train, seed)
+        if path == "pallas":
+            field = _trained_field_checks(torch, trainer)
+        del trainer
+    faults = []
+    ref = paths["xla"]["lockstep"]
+    for path, rec in paths.items():
+        if rec["lockstep"] != ref:
+            faults.append(f"{path} is not in lockstep with xla: {rec['lockstep']} vs {ref}")
+        if not rec["rise_db"] >= QUALITY_RISE_DB:
+            faults.append(f"{path}: held-out PSNR rose {rec['rise_db']:.3f} dB < {QUALITY_RISE_DB}")
+        if rec["launches"] != rec["launches_expected"]:
+            faults.append(f"{path}: launches {rec['launches']} != {rec['launches_expected']}")
+        twin = QUALITY_PATHS[path][2]
+        if twin is not None:
+            rec["below_twin_db"] = paths[twin]["held_out_after"]["pooled"] - \
+                rec["held_out_after"]["pooled"]
+            if not rec["below_twin_db"] <= QUALITY_WINDOW_DB:
+                faults.append(f"{path} ends {rec['below_twin_db']:.3f} dB below {twin} "
+                              f"(window {QUALITY_WINDOW_DB})")
+    timings["quality"] = {
+        "init_seed": seed, "views": QUALITY_VIEWS, "size": QUALITY_SIZE, "held_out": held,
+        "epochs": QUALITY_EPOCHS, "rise_db_min": QUALITY_RISE_DB,
+        "window_db": QUALITY_WINDOW_DB, "paths": paths, "trained_field": field,
+        "seconds": time.perf_counter() - t0, "faults": faults}
+    log(f"quality phase: {timings['quality']['seconds']:.1f} s; "
+        + "; ".join(f"{p} {r['held_out_after']['pooled']:.3f} dB"
+                    + (f" ({r['below_twin_db']:+.3f} dB below its twin)"
+                       if "below_twin_db" in r else "") for p, r in paths.items()))
+    if faults:
+        print(json.dumps({"quality": timings["quality"]}), flush=True)
+        raise AssertionError("quality phase: " + "; ".join(faults))
+
+
+def quality_seeds(torch, seeds) -> int:
+    """``python3 chip_smoke.py quality SEED ...``: the quality phase alone
+    (after the build), once from each init seed, one ``{"quality": ...}``
+    line each: the paths' spread over seeds, which the windows are read
+    against. Returns 1 if a seed's phase failed."""
+    failed = []
+    for seed in seeds:
+        timings: dict = {}
+        try:
+            quality_phase(torch, timings, seed)
+        except AssertionError as e:
+            failed.append(seed)
+            log(f"init seed {seed}: {e}")
+        else:
+            print(json.dumps({"quality": timings["quality"]}), flush=True)
+    return 1 if failed else 0
 
 
 # --------------------------------------------------------------------------- #
@@ -4137,6 +4490,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if sys.argv[1:2] == ["quality"]:
+        return quality_seeds(torch, [int(s) for s in sys.argv[2:]] or [SEED])
     kernel_phases(torch, timings)
     raymarch_kernel_phases(torch, timings)
     comp_kernel_phases(torch, timings)
@@ -4157,6 +4512,8 @@ def main() -> int:
     train_phase(torch, timings, "pallas_f32")
     train_phase(torch, timings, "pallas_rm_f32")
     log(f"training paths done at {time.perf_counter() - t_start:.0f} s")
+    quality_phase(torch, timings)
+    log(f"quality phase done at {time.perf_counter() - t_start:.0f} s")
     runner_phase(torch, timings)
     log(f"runner phase done at {time.perf_counter() - t_start:.0f} s")
     for backend in DIET_KERNELS:
@@ -4254,7 +4611,15 @@ def main() -> int:
         r = timings["probes"][kname]
         log(f"[{card}] {kname}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library_ms "
             f"{r['library_ms']}, bound {r['bound_ms']:.5f} ms")
+    q = timings["quality"]
+    for path, r in q["paths"].items():
+        log(f"[{card}] quality {path}: held-out PSNR {r['held_out_before']['pooled']:.3f} -> "
+            f"{r['held_out_after']['pooled']:.3f} dB (rise {r['rise_db']:.3f}, min "
+            f"{QUALITY_RISE_DB})" + (f", {r['below_twin_db']:+.3f} dB below its twin (window "
+                                      f"{QUALITY_WINDOW_DB})" if "below_twin_db" in r else "")
+            + f", {r['ms_per_step']:.3f} ms a step, launches {r['launches']}")
     train = {path: timings["train_" + path] for path in MAIN_PATHS}
+    print(json.dumps({"quality": q}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "train": train, "profile": timings["profile"],
                       "profile_pallas_rm": timings["profile_pallas_rm"],
