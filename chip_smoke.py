@@ -21,7 +21,7 @@ both types, f32 B2 right after NaN was left in every SM's shared memory, and
 at narrow widths; the ``-Xptxas -v`` lines of B1, B2 and B6 and, where ``cuobjdump``
 is installed, the tensor-core instructions of their SASS are printed, and the
 run fails if bf16 B1/B2/B6 have no HMMA or f32 B1/B6 forward no HGMMA), holds
-B1 in both types, its former FMA design (P3 at one chain) and the plain
+B1 in both types and the plain
 version against the forward chain evaluated in f64 (f32 B1 fails if it is more
 than ``F64_FACTOR`` times as far as the plain version), B6 and its plain
 version likewise (raw output, dz and dparams; JSON ``b6_vs_f64_chain``), B7
@@ -38,7 +38,7 @@ side of the compositing's kink (``KINK_SHARE``), checks that bf16 B4's and
 B7's backwards composite bitwise the raw values their forwards composited,
 prints the registers, spills and HMMA counts of the five bf16 backwards (B2,
 B6, B7, B5, B4), of B4's and B7's forwards and of the f32 backwards on the
-3xTF32 tile (B2, B7, B5, B6, B4), times f32 B1 beside that FMA design and f32
+3xTF32 tile (B2, B7, B5, B6, B4), times f32
 B2, B5 and the backwards of B6 and B4 at both passes' shapes beside their
 plain versions and library calls (f32 B6's backward is also held at 4093 rays
 of 100 samples, a part-filled last 64-row tile), then drives seven training
@@ -132,7 +132,9 @@ embedder.
 Then the seven probe kernels (P1 ``probe_mma``, P2
 ``probe_mlp_epilogue``, P3 ``probe_mlp_chains``, P4-P6 ``probe_expand_a/b/c``,
 P7 ``probe_enccost``) are held against their plain versions at the probe
-tools' own shapes, the five tools of ``nerf_and_dietnerf_tpu_torch/tools`` run
+tools' own shapes (P2's v3 and P3 at one and two chains bitwise bf16 B1, P3
+refusing four chains as its shared memory and registers predict; P2's and
+P3's times in turns with B1's), the five tools of ``nerf_and_dietnerf_tpu_torch/tools`` run
 through their ``main([])`` (launch counts set to 0 before each), and four
 "pallas_rm" steps, then four "pallas" steps run under
 ``utils.profiling.trace``: the device's idle share,
@@ -224,8 +226,6 @@ RM_DESIGN = {("raymarch_fwd", "bfloat16"): MLP_DESIGN["bfloat16"] + ", encodings
              ("raymarch_comp_fwd", "float32"): T32_FWD_DESIGN + ", encodings built into the f32 "
                                                                 "operand tiles",
              ("mlp_comp_fwd", "float32"): T32_FWD_DESIGN}
-# B1's former f32 design, timed beside it: P3 with one chain is that FMA tile.
-FMA_DESIGN = "f32 FMA tile, one 64-row chain (P3, chains=1)"
 # Scaled max error |kernel - plain| / max|plain|. Forward, f32: both sum
 # exact f32 products, only the summation order differs. Forward, bf16: the
 # plain version rounds at the same places, but a 1-ulp difference in a sum
@@ -592,15 +592,6 @@ def kernel_phases(torch, timings: dict) -> None:
                     "max_abs_err": abs_fwd if kname == "mlp_fwd" else abs_bwd,
                 }
                 rec[kname]["max_abs_err_ragged"] = ragged[0 if kname == "mlp_fwd" else 1]
-            if cd == torch.float32:
-                # B1's former f32 design (the FMA tile) on the same inputs.
-                before = dict(kl.LAUNCHES)
-                rec["mlp_fwd"].update(
-                    fma_design_ms=_time_ms(torch, lambda: pk.mlp_fwd_chains(ws, bs, cfg, x, d, 1)),
-                    fma_design=FMA_DESIGN)
-                kl.LAUNCHES.update(before)
-                log(f"time mlp_fwd float32 rows={N_ROWS}: FMA design "
-                    f"{rec['mlp_fwd']['fma_design_ms']:.3f} ms ({FMA_DESIGN})")
             # The fine pass of a train step runs both kernels on twice the
             # rows; f32 B2 (a float32 config's step) also beside its plain
             # version and its library call there.
@@ -1683,9 +1674,10 @@ PROBE_SOURCES = {
 # as for every other bf16 kernel whose roundings compound through layers.
 TOL_MMA = 2.0 ** -8
 MMA_TIGHT_DEPTH = 8
-# P2: TOL["bfloat16"], as B1. P3: against B1's kernel output, bitwise in f32
-# (the sums run in B1's order) or else to TOL["float32"]; bf16 to
-# TOL["bfloat16"]. P4, P5: exact. P6: 1e-4 scaled (two f32 products whose sums
+# P2: v1 and v5 to TOL["bfloat16"] of their plain versions, as B1; v3 (B1's
+# function on B1's products) bitwise B1's bf16 output. P3: bitwise B1's bf16
+# output at every chain count that runs (B1's products, per row in B1's k
+# order), and to TOL["bfloat16"] of B1's plain version. P4, P5: exact. P6: 1e-4 scaled (two f32 products whose sums
 # run in another order, and a sine between them).
 TOL_EXPAND_C = 1e-4
 # P7: `dma`, `repeat`, `pts` to f32 rounding (1e-6 scaled; the same f32
@@ -1714,8 +1706,8 @@ def _bound(flops, peak, nbytes):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _probe_record(torch, fn, plain, lib, err, bound, **extra):
-    ms = _time_ms(torch, fn)
+def _probe_record(torch, fn, plain, lib, err, bound, ms=None, **extra):
+    ms = _time_ms(torch, fn) if ms is None else ms
     return {"ms": ms, "plain_ms": _time_ms(torch, plain, reps=2),
             "library_ms": _time_ms(torch, lib) if lib is not None else None,
             "bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": err, **extra}
@@ -1777,6 +1769,8 @@ def probe_kernel_phases(torch, timings: dict) -> None:
                   for a, b, c in MXU_CASES})
 
     # P2, P3 --------------------------------------------------------------- #
+    # Both run bf16 B1's tensor-core tile: P2 v3 and P3 at every chain count
+    # that runs must give B1's output bitwise.
     cfg = mlp.MLPConfig()
     params = mlp.init_params(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
     ws, bs = rc.flatten_params(params, cfg, torch.bfloat16)
@@ -1785,59 +1779,45 @@ def probe_kernel_phases(torch, timings: dict) -> None:
     xb, db = x.to(torch.bfloat16), d.to(torch.bfloat16)
     flops = mlp_flops(cfg, n)
     par_bytes = sum(t.numel() * 2 for t in ws) + sum(t.numel() * 4 for t in bs)
+    ref = rc.mlp_fwd(ws, bs, cfg, xb, db, torch.bfloat16)
     variants = {}
     for variant in ("v1", "v5", "v3"):
         out_k = pk.mlp_fwd_variant(ws, bs, cfg, x, d, variant)
         torch.cuda.synchronize()
         out_p = pk.mlp_fwd_variant_plain(ws, bs, cfg, x, d, variant)
-        e = _scaled_err(out_k, out_p)
-        if not (torch.isfinite(out_k).all() and e <= TOL["bfloat16"]):
+        e, bit = _scaled_err(out_k, out_p), torch.equal(out_k, ref)
+        if not (torch.isfinite(out_k).all() and e <= TOL["bfloat16"]
+                and (bit or variant != "v3")):
             raise AssertionError(f"probe_mlp_epilogue {variant}: scaled err {e} > "
-                                 f"{TOL['bfloat16']}")
+                                 f"{TOL['bfloat16']}, or v3 not bitwise B1 bf16 ({bit})")
         variants[variant] = float((out_k - out_p).abs().max())
         log(f"kernel check probe_mlp_epilogue {variant} bfloat16 rows={n}: scaled err {e:.3e} "
-            f"(tol {TOL['bfloat16']})")
+            f"(tol {TOL['bfloat16']}), bitwise B1 bf16 {bit}"
+            + (" (required: v3 is B1's function)" if variant == "v3" else ""))
         del out_k, out_p
-    b1_ms = _time_ms(torch, lambda: rc.mlp_fwd(ws, bs, cfg, xb, db, torch.bfloat16))
-    # The epilogue probe reads f32 encodings (and rounds them itself), B1 bf16.
-    rec["probe_mlp_epilogue"] = _probe_record(
-        torch, lambda: pk.mlp_fwd_variant(ws, bs, cfg, x, d, "v1"),
-        lambda: pk.mlp_fwd_variant_plain(ws, bs, cfg, x, d, "v1"),
-        lambda: _library_mlp(torch, ws, bs, cfg, xb, db), max(variants.values()),
-        _bound(flops, PEAK_FLOPS["bfloat16"],
-               n * (cfg.xyz_dim + cfg.dir_dim) * 4 + par_bytes + n * 16),
-        rows=n, variant="v1", library="torch.addmm chain in bf16 (v3's function)",
-        max_abs_err_by_variant=variants,
-        ms_v5=_time_ms(torch, lambda: pk.mlp_fwd_variant(ws, bs, cfg, x, d, "v5")),
-        ms_v3=_time_ms(torch, lambda: pk.mlp_fwd_variant(ws, bs, cfg, x, d, "v3")),
-        ms_v0_b1=b1_ms, ms_v0_b1_design=MLP_DESIGN["bfloat16"])
 
-    ref = rc.mlp_fwd(ws, bs, cfg, xb, db, torch.bfloat16)
     plain = rc.mlp_fwd_plain(ws, bs, cfg, xb, db, torch.bfloat16)
     ws32, bs32 = rc.flatten_params(params, cfg, torch.float32)
     x32, d32 = x[:N_ROWS].contiguous(), d[:N_ROWS].contiguous()
     ref32 = rc.mlp_fwd(ws32, bs32, cfg, x32, d32, torch.float32)
-    # B1 on the tensor cores, its former FMA design (one chain) and the plain
-    # f32 version against the forward with the same roundings but f64 sums,
-    # on the first N_ROWS rows: which of the three sums least exactly.
+    # B1 on the tensor cores and the plain f32 version against the forward
+    # with the same roundings but f64 sums, on the first N_ROWS rows: which of
+    # the two sums less exactly.
     exact = rc._forward_plain(ws, bs, cfg, xb[:N_ROWS], db[:N_ROWS], torch.bfloat16,
                               torch.float64)[0]
-    fma = pk.mlp_fwd_chains(ws, bs, cfg, xb, db, 1)
-    torch.cuda.synchronize()
     fwd_vs_exact = {k: _row_errs(o[:N_ROWS], exact, TOL["bfloat16"])
-                    for k, o in (("b1_mma", ref), ("fma_design", fma), ("plain_f32", plain))}
-    del exact, fma
+                    for k, o in (("b1_mma", ref), ("plain_f32", plain))}
+    del exact
     log(f"kernel check B1 bf16 rows={N_ROWS} against the f64 forward chain (scaled max, "
         f"normwise, share of rows over {TOL['bfloat16']}): {fwd_vs_exact}")
-    # f32: B1 on the tensor cores (3xTF32), its former FMA design and the plain
-    # f32 version against the f32 chain evaluated in f64.
+    # f32: B1 on the tensor cores (3xTF32) and the plain f32 version against
+    # the f32 chain evaluated in f64.
     exact32 = rc._forward_plain(ws32, bs32, cfg, x32, d32, torch.float32, torch.float64)[0]
-    fma32 = pk.mlp_fwd_chains(ws32, bs32, cfg, x32, d32, 1)
     plain32 = rc.mlp_fwd_plain(ws32, bs32, cfg, x32, d32, torch.float32)
     torch.cuda.synchronize()
     f32_vs_exact = {k: _row_errs(o, exact32, TOL["float32"])
-                    for k, o in (("b1_tf32", ref32), ("fma_design", fma32), ("plain_f32", plain32))}
-    del exact32, fma32, plain32
+                    for k, o in (("b1_tf32", ref32), ("plain_f32", plain32))}
+    del exact32, plain32, ref32
     ratio = f32_vs_exact["b1_tf32"][1] / max(f32_vs_exact["plain_f32"][1], 1e-30)
     f32_vs_exact["normwise_ratio_b1_tf32_to_plain"] = ratio
     timings["b1_f32_vs_f64_chain"] = f32_vs_exact
@@ -1849,38 +1829,94 @@ def probe_kernel_phases(torch, timings: dict) -> None:
     chain_errs = {}
     for chains in (1, 2):
         out_k = pk.mlp_fwd_chains(ws, bs, cfg, xb, db, chains)
-        out32 = pk.mlp_fwd_chains(ws32, bs32, cfg, x32, d32, chains)
         torch.cuda.synchronize()
-        e16, e32 = _scaled_err(out_k, ref), _scaled_err(out32, ref32)
-        bit16, bit32 = torch.equal(out_k, ref), torch.equal(out32, ref32)
-        e_plain = _scaled_err(out_k, plain)
-        if not (torch.isfinite(out_k).all() and e16 <= TOL["bfloat16"]
-                and (bit32 or e32 <= TOL["float32"]) and e_plain <= TOL["bfloat16"]):
-            raise AssertionError(f"probe_mlp_chains chains={chains}: against B1 bf16 {e16}, f32 "
-                                 f"{e32}; against the plain version {e_plain}")
+        bit, e_plain = torch.equal(out_k, ref), _scaled_err(out_k, plain)
+        if not (torch.isfinite(out_k).all() and bit and e_plain <= TOL["bfloat16"]):
+            raise AssertionError(f"probe_mlp_chains chains={chains}: bitwise B1 bf16 {bit} "
+                                 f"(required), against the plain version {e_plain}")
         chain_errs[chains] = float((out_k - plain).abs().max())
-        log(f"kernel check probe_mlp_chains chains={chains}: against B1's kernel bf16 rows={n} "
-            f"scaled err {e16:.3e} (bitwise {bit16}), f32 rows={N_ROWS} {e32:.3e} (bitwise "
-            f"{bit32}); against the plain version {e_plain:.3e} (tol {TOL['bfloat16']})")
-        del out_k, out32
+        log(f"kernel check probe_mlp_chains chains={chains} bfloat16 rows={n}: bitwise B1 bf16 "
+            f"{bit}; against the plain version {e_plain:.3e} (tol {TOL['bfloat16']})")
+        del out_k
+    # Four chains: the outcome the card's own numbers predict. The shared
+    # memory the kernel reports (equal to the Python mirror) against the
+    # card's limit for a block decides; the registers that ptxas gave the
+    # chain counts that were built, at 512 threads, are recorded beside it.
+    lib = kl.load("probe_mlp_chains")
+    smem = {c: lib.nerf_probe_chains_smem(c) for c in (1, 2, 4)}
+    if smem != {c: pk.chains_smem_bytes(c) for c in smem}:
+        raise AssertionError(f"probe_mlp_chains: the kernel's shared memory {smem} is not "
+                             f"chains_smem_bytes' {[pk.chains_smem_bytes(c) for c in smem]}")
+    props = torch.cuda.get_device_properties(0)
+    for attr, mirror in (("shared_memory_per_block_optin", pk.MAX_SHARED_BYTES),
+                         ("regs_per_multiprocessor", pk.REGISTERS_PER_SM)):
+        if getattr(props, attr, mirror) != mirror:
+            raise AssertionError(f"the card's {attr} is {getattr(props, attr)}, the probe "
+                                 f"wrapper's {mirror}")
+    # How many blocks of each chain count an SM holds (C = 1: two, as many
+    # warps as one block of B1).
+    per_sm = {c: lib.nerf_probe_chains_blocks_per_sm(c) for c in (1, 2)}
+    log(f"probe_mlp_chains blocks an SM holds: {per_sm}")
+    sass = timings.get("sass", {}).get("probes") or {}
+    regs = max((sass.get(f"chains_{c}", {}).get("registers", 0) for c in (1, 2)), default=0)
+    predicted = pk.chains_limits(4, registers=regs or None)
+    refuse = smem[4] > getattr(props, "shared_memory_per_block_optin", pk.MAX_SHARED_BYTES)
     try:
-        pk.mlp_fwd_chains(ws, bs, cfg, xb, db, 4)
-    except ValueError as exc:
-        log(f"kernel check probe_mlp_chains chains=4 raises: {exc}")
+        out_k = pk.mlp_fwd_chains(ws, bs, cfg, xb, db, 4)
+    except pk.SharedMemoryExceeded as exc:
+        if not refuse:
+            raise AssertionError(f"probe_mlp_chains chains=4 refused, its {smem[4]} bytes of "
+                                 f"shared memory fit the card's block: {exc}")
+        log(f"kernel check probe_mlp_chains chains=4 raises as predicted (shared memory "
+            f"{smem}): {exc}; the limits it exceeds at {regs or 'unknown'} registers a "
+            f"thread: {predicted}")
     else:
-        raise AssertionError("probe_mlp_chains took 4 chains of f32 activations")
-    del ref, plain, ref32
+        torch.cuda.synchronize()
+        if refuse or not torch.equal(out_k, ref):
+            raise AssertionError(f"probe_mlp_chains chains=4 ran: shared memory over the "
+                                 f"block's {refuse}, bitwise B1 bf16 {torch.equal(out_k, ref)}")
+        del out_k
+    del ref, plain
+
+    # Times in turns (B1, the probes, then the same in reverse), the mean of
+    # the two passes; the epilogue's share of B1's time is (v3 - v1) / v3.
+    timed = {"v0_b1": lambda: rc.mlp_fwd(ws, bs, cfg, xb, db, torch.bfloat16),
+             **{v: (lambda v=v: pk.mlp_fwd_variant(ws, bs, cfg, x, d, v)) for v in variants},
+             **{f"chains_{c}": (lambda c=c: pk.mlp_fwd_chains(ws, bs, cfg, xb, db, c))
+                for c in chain_errs}}
+    passes = {k: [] for k in timed}
+    for order in (list(timed), list(timed)[::-1]):
+        for k in order:
+            passes[k].append(_time_ms(torch, timed[k], reps=10))
+    ms = {k: sum(v) / len(v) for k, v in passes.items()}
+    share = (ms["v3"] - ms["v1"]) / ms["v3"]
+    rec["probe_mlp_epilogue"] = _probe_record(
+        torch, timed["v1"], lambda: pk.mlp_fwd_variant_plain(ws, bs, cfg, x, d, "v1"),
+        lambda: _library_mlp(torch, ws, bs, cfg, xb, db), max(variants.values()),
+        _bound(flops, PEAK_FLOPS["bfloat16"],
+               n * (cfg.xyz_dim + cfg.dir_dim) * 4 + par_bytes + n * 16), ms=ms["v1"],
+        rows=n, variant="v1", library="torch.addmm chain in bf16 (v3's function)",
+        design=MLP_DESIGN["bfloat16"] + ", another epilogue policy",
+        max_abs_err_by_variant=variants, ms_in_turns=ms, ms_passes=passes,
+        ms_v5=ms["v5"], ms_v3=ms["v3"], ms_v0_b1=ms["v0_b1"], epilogue_share=share,
+        ms_v0_b1_design=MLP_DESIGN["bfloat16"], ptxas=sass)
     rec["probe_mlp_chains"] = _probe_record(
-        torch, lambda: pk.mlp_fwd_chains(ws, bs, cfg, xb, db, 2),
-        lambda: rc.mlp_fwd_plain(ws, bs, cfg, xb, db, torch.bfloat16),
+        torch, timed["chains_2"], lambda: rc.mlp_fwd_plain(ws, bs, cfg, xb, db, torch.bfloat16),
         lambda: _library_mlp(torch, ws, bs, cfg, xb, db), max(chain_errs.values()),
         _bound(flops, PEAK_FLOPS["bfloat16"],
-               n * (cfg.xyz_dim + cfg.dir_dim) * 2 + par_bytes + n * 16),
+               n * (cfg.xyz_dim + cfg.dir_dim) * 2 + par_bytes + n * 16), ms=ms["chains_2"],
         rows=n, chains=2, library="torch.addmm chain in bf16",
-        ms_chains_1=_time_ms(torch, lambda: pk.mlp_fwd_chains(ws, bs, cfg, xb, db, 1)),
-        ms_chains_1_design="B1's former bf16 design: f32 FMA tile, one 64-row chain",
-        ms_v0_b1=b1_ms, ms_v0_b1_design=MLP_DESIGN["bfloat16"],
-        fwd_vs_f64_chain=fwd_vs_exact)
+        design=MLP_DESIGN["bfloat16"] + ", 64-row chains sharing each weight chunk",
+        ms_in_turns=ms, ms_chains_1=ms["chains_1"], ms_chains_2=ms["chains_2"],
+        ms_v0_b1=ms["v0_b1"], ms_v0_b1_design=MLP_DESIGN["bfloat16"], smem_bytes=smem,
+        blocks_per_sm=per_sm,
+        chains_4_limits=predicted, fwd_vs_f64_chain=fwd_vs_exact, ptxas=sass)
+    p2, p3 = rec["probe_mlp_epilogue"], rec["probe_mlp_chains"]
+    log(f"P2 / P3 rows={n} (ms in turns, mean of two passes): v0 (B1) {ms['v0_b1']:.3f}, v1 "
+        f"{ms['v1']:.3f}, v5 {ms['v5']:.3f}, v3 {ms['v3']:.3f}; epilogue share (v3 - v1) / v3 "
+        f"{share:.4f}; chains 1 {ms['chains_1']:.3f}, chains 2 {ms['chains_2']:.3f}; bound "
+        f"{p2['bound_ms']:.4f} ms ({p2['bound_by']}), library {p2['library_ms']:.3f} / "
+        f"{p3['library_ms']:.3f} ms; registers, spill bytes, SASS HMMA {sass}")
     del x, d, xb, db, x32, d32
 
     # P4, P5, P6 ----------------------------------------------------------- #
@@ -4362,7 +4398,9 @@ MMA_KERNELS = {"mlp_fwd": {"mlp_fwd_mma_kernel": "HMMA", "mlp_fwd_tf32_kernel": 
                "mlp_comp_fwd": {"mlp_comp_fwd_mma_kernel": "HMMA",
                                 "mlp_comp_fwd_t32_kernel": "HMMA"},
                "mlp_comp_bwd": {"mlp_comp_bwd_mma_kernel": "HMMA",
-                                "mlp_comp_bwd_t32_kernel": "HMMA"}}
+                                "mlp_comp_bwd_t32_kernel": "HMMA"},
+               "probe_mlp_epilogue": {"mlp_fwd_variant_kernel": "HMMA"},
+               "probe_mlp_chains": {"mlp_fwd_chains_kernel": "HMMA"}}
 # The kernels on the tensor-core tiles whose registers, spills and SASS
 # counts the run prints side by side: the bf16 backwards (B2, B6, B7, B5, B4),
 # the forwards of the ray-group loop (B4, B7) and the f32 backwards (B2, B7,
@@ -4388,37 +4426,13 @@ SASS_OF = {("raymarch_comp_fwd", "bfloat16"): ("forwards", "rm_comp_fwd_mma_kern
            **{(lib, "float32"): ("f32_backwards", k) for lib, k in T32_MMA_KERNELS.items()}}
 
 
-def _ptxas_counts(build_log: str) -> dict:
-    """The registers and spill bytes ``-Xptxas -v`` gives each kernel of
-    ``REPORTED`` (its own lines, not those of a device function the compiler
-    kept out of line); prints the ptxas lines of ``MMA_KERNELS``'s libraries."""
-    import re
-
-    block, entry, props, ptxas = None, None, None, {}
-    counted = {(lib, k) for _, kernels in REPORTED for lib, k in kernels.items()}
-    for line in build_log.splitlines():
-        if line.startswith("--- "):
-            block = line[4:].strip()
-        elif block in MMA_KERNELS and "ptxas" in line:
-            log(f"  ptxas {block}: {line.strip()}")
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-            continue
-        if "Function properties for " in line:
-            # the lines after it are this function's (a device function the
-            # compiler kept out of line has lines of its own)
-            props = line.split("Function properties for ")[1].strip()
-            continue
-        for lib, k in counted:
-            if block == lib and k in (entry or "") and props == entry:
-                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                if m:
-                    ptxas.setdefault(k, {}).update(spill_stores=int(m.group(1)),
-                                                   spill_loads=int(m.group(2)))
-                m = re.search(r"Used (\d+) registers", line)
-                if m:
-                    ptxas.setdefault(k, {})["registers"] = int(m.group(1))
-    return ptxas
+# The instances of B1's tile printed side by side: bf16 B1 (v0) and the
+# probes P2 (each epilogue, by its policy's name) and P3 (each chain count,
+# by its template argument): library -> {part of the mangled name: label}.
+PROBE_INSTANCES = {"mlp_fwd": {"mlp_fwd_mma_kernel": "v0_b1"},
+                   "probe_mlp_epilogue": {"CastOnlyEpilogue": "v1", "Bf16Epilogue": "v5",
+                                          "MaxLeakyEpilogue": "v3"},
+                   "probe_mlp_chains": {"ILi1EE": "chains_1", "ILi2EE": "chains_2"}}
 
 
 def tensor_core_report(kl, build_log: str) -> dict:
@@ -4431,7 +4445,23 @@ def tensor_core_report(kl, build_log: str) -> dict:
     import re
     import shutil
 
-    ptxas = _ptxas_counts(build_log)
+    from nerf_and_dietnerf_tpu_torch.tools.sass_diff import (ptxas_blocks, ptxas_entries,
+                                                            sass_functions)
+
+    blocks = ptxas_blocks(build_log)
+    entries = {lib: ptxas_entries(blocks.get(lib, [])) for lib in
+               {lib for _, kernels in REPORTED for lib in kernels} | set(PROBE_INSTANCES)}
+    for lib in MMA_KERNELS:
+        for line in blocks.get(lib, []):
+            if "ptxas" in line:
+                log(f"  ptxas {lib}: {line}")
+    # registers and spill bytes of each kernel of REPORTED
+    ptxas = {}
+    for _, kernels in REPORTED:
+        for lib, k in kernels.items():
+            for entry, rec in entries[lib].items():
+                if k in entry:
+                    ptxas.setdefault(k, {}).update(rec)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         log("SASS: cuobjdump not available, tensor-core instructions not counted")
@@ -4440,11 +4470,9 @@ def tensor_core_report(kl, build_log: str) -> dict:
     for lib, kernels in MMA_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(kl.lib_path(lib))], check=True,
                               capture_output=True, text=True).stdout
-        counts = {}
-        for part in re.split(r"\n\s*Function : ", sass)[1:]:
-            fname = part.split("\n", 1)[0].strip()
-            counts[fname] = {op: len(re.findall(rf"\b{op}\b", part))
-                             for op in ("HMMA", "HGMMA", "FFMA")}
+        counts = {fname: {op: sum(len(re.findall(rf"\b{op}\b", i)) for i in instructions)
+                          for op in ("HMMA", "HGMMA", "FFMA")}
+                  for fname, instructions in sass_functions(sass).items()}
         report[lib] = counts
         for f, c in counts.items():
             log(f"SASS {lib} {f[:90]}: {c}")
@@ -4459,6 +4487,15 @@ def tensor_core_report(kl, build_log: str) -> dict:
             report[key][kernel] = {**ptxas.get(kernel, {}), "HMMA": sass["HMMA"]}
         log(f"{key} on the tensor-core tiles (registers, spill bytes, SASS HMMA): "
             f"{report[key]}")
+    report["probes"] = {}
+    for lib, labels in PROBE_INSTANCES.items():
+        for fname, c in report[lib].items():
+            for part, label in labels.items():
+                if part in fname:
+                    report["probes"][label] = {**entries.get(lib, {}).get(fname, {}),
+                                               "HMMA": c["HMMA"]}
+    log(f"B1 and the probes on its tile (registers, spill bytes, SASS HMMA): "
+        f"{report['probes']}")
     return report
 
 
@@ -4574,8 +4611,8 @@ def main() -> int:
             f"{e['consistency']['separation']:.4f} (random "
             f"{timings['embedder']['random']['separation']:.4f})")
     r = timings["float32"]["mlp_fwd"]
-    log(f"[{card}] mlp_fwd float32 ({r['design']}): {r['ms']:.3f} ms, {FMA_DESIGN} "
-        f"{r['fma_design_ms']:.3f} ms, library_ms {r['library_ms']:.3f}, plain "
+    log(f"[{card}] mlp_fwd float32 ({r['design']}): {r['ms']:.3f} ms, library_ms "
+        f"{r['library_ms']:.3f}, plain "
         f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
         f"({100 * r['share_of_bound']:.1f} %); against the f64 chain "
         f"{timings['b1_f32_vs_f64_chain']['normwise_ratio_b1_tf32_to_plain']:.3f}x the plain "
@@ -4611,6 +4648,11 @@ def main() -> int:
         r = timings["probes"][kname]
         log(f"[{card}] {kname}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library_ms "
             f"{r['library_ms']}, bound {r['bound_ms']:.5f} ms")
+    r = timings["probes"]["probe_mlp_epilogue"]
+    log(f"[{card}] B1's bf16 tile and its probes at {r['rows']} rows, ms in turns: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in r["ms_in_turns"].items())
+        + f"; epilogue share (v3 - v1) / v3 {r['epilogue_share']:.4f}; bound "
+        f"{r['bound_ms']:.4f} ms, library {r['library_ms']:.3f} ms")
     q = timings["quality"]
     for path, r in q["paths"].items():
         log(f"[{card}] quality {path}: held-out PSNR {r['held_out_before']['pooled']:.3f} -> "

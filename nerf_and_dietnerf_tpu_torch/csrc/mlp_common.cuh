@@ -8,11 +8,12 @@
 // through a KC x 256 shared-memory chunk, layer by layer. Products run as
 // plain f32 FMAs: a bf16 x bf16 product is exact in f32, so the bf16 path
 // has the tensor-core semantics (exact products, f32 sums), and the f32 path
-// is true f32 with no TF32 rounding. Every model kernel of a training path
-// runs the tensor-core tiles instead (mlp_mma_tile.cuh, mlp_tf32_tile.cuh,
-// mlp_tf32_mma_tile.cuh); this FMA tile is left to f32 B6's forward at widths
-// over 64 input columns (raymarch_fwd.cu) and to the probes P2 and P3
-// (probe_mlp_epilogue.cu, probe_mlp_chains.cu), which record it.
+// is true f32 with no TF32 rounding. Every other kernel, the probes P2 and P3
+// included, runs the tensor-core tiles instead (mlp_mma_tile.cuh,
+// mlp_tf32_tile.cuh, mlp_tf32_mma_tile.cuh), which include this header for
+// the flat parameter layout below; this FMA tile's forward_tile serves only
+// f32 B6's forward at widths over 64 input columns (raymarch_fwd.cu, no
+// config of the repository).
 //
 // Flat parameter layout (the Python wrapper builds the same one): the weight
 // matrices, each row-major (K, N), in the order
@@ -154,21 +155,8 @@ __device__ void gemm_acc(float (&acc)[8][8], const float* A, int lda, int K,
   __syncthreads();
 }
 
-// The epilogue of a dense layer, as a policy: the value a pre-activation sum
-// `acc` leaves in the activation tile, already rounded to the compute type.
-// This one is the network's: round_T(leaky(acc + bias)). The epilogue probe
-// (probe_mlp_epilogue.cu) supplies others.
-struct LeakyEpilogue {
-  template <typename T>
-  static __device__ __forceinline__ float apply(float acc, float bias, float alpha) {
-    float v = acc + bias;
-    v = v >= 0.f ? v : alpha * v;
-    return round_t<T>(v);
-  }
-};
-
-// out = Epi(acc, bias) for the N valid columns.
-template <typename T, typename Epi = LeakyEpilogue>
+// out = round_T(leaky(acc + bias)) for the N valid columns.
+template <typename T>
 __device__ void store_act(const float (&acc)[8][8], const float* __restrict__ bias, int N,
                           float alpha, float* out) {
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
@@ -179,34 +167,18 @@ __device__ void store_act(const float (&acc)[8][8], const float* __restrict__ bi
     for (int j = 0; j < 8; ++j) {
       const int n = acc_col(tx, j);
       if (n < N) {
-        out[r * HMAX + n] = Epi::template apply<T>(acc[i][j], bias[n], alpha);
+        float v = acc[i][j] + bias[n];
+        v = v >= 0.f ? v : alpha * v;
+        out[r * HMAX + n] = round_t<T>(v);
       }
     }
   }
 }
 
-// Rows [row0, row0 + TM) of a (n, width) global array into a float tile with
-// row stride ld; rows past n are zero. The array is of the compute type T, or
-// of another type Src and is then rounded to T here.
-template <typename T, typename Src = T>
-__device__ void load_rows(float* dst, int ld, const Src* __restrict__ src, int width, int row0,
-                          int n) {
-  for (int idx = threadIdx.x; idx < TM * width; idx += NT) {
-    const int r = idx / width, c = idx % width;
-    float v = 0.f;
-    if (row0 + r < n) {
-      v = to_f<Src>(src[(size_t)(row0 + r) * width + c]);
-      if constexpr (!std::is_same<T, Src>::value) v = round_t<T>(v);
-    }
-    dst[r * ld + c] = v;
-  }
-}
-
 // The whole network on one row tile. h8 and the heads' activations are left
 // in bufB / bufA. With `out` the (n, 4) raw output rows of the tile are
-// written. `Epi` is the epilogue of every hidden layer (the two output heads
-// add their bias only).
-template <typename T, typename Epi = LeakyEpilogue>
+// written.
+template <typename T>
 __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restrict__ W,
                              const float* __restrict__ B, const float* X, const float* D,
                              float* bufA, float* bufB, float* Ws, float* out, int row0) {
@@ -223,7 +195,7 @@ __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restric
       gemm_acc<T>(acc, h, ldh, K, W + L.w[trunk_w(l)], dm.hid, Ws);
     }
     float* o = (l & 1) ? bufB : bufA;
-    store_act<T, Epi>(acc, B + L.b[l], dm.hid, dm.alpha, o);
+    store_act<T>(acc, B + L.b[l], dm.hid, dm.alpha, o);
     h = o; ldh = HMAX; K = dm.hid;
   }
   __syncthreads();
@@ -233,7 +205,7 @@ __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restric
     zero_acc(acc);
     gemm_acc<T>(acc, h8, HMAX, dm.hid, W + L.w[9], dm.last, Ws);
     gemm_acc<T>(acc, D, DMAX, dm.dir, W + L.w[10], dm.last, Ws);
-    store_act<T, Epi>(acc, B + L.b[8], dm.last, dm.alpha, bufA);
+    store_act<T>(acc, B + L.b[8], dm.last, dm.alpha, bufA);
     __syncthreads();
     if (out && row0 + r < dm.n) {
       float v;
@@ -262,10 +234,10 @@ __device__ void forward_tile(const Dims& dm, const Layout& L, const T* __restric
     }
     zero_acc(acc);
     gemm_acc<T>(acc, h8, HMAX, dm.hid, W + L.w[9], dm.hid, Ws);
-    store_act<T, Epi>(acc, B + L.b[8], dm.hid, dm.alpha, bufA);
+    store_act<T>(acc, B + L.b[8], dm.hid, dm.alpha, bufA);
     zero_acc(acc);
     gemm_acc<T>(acc, bufA, HMAX, dm.hid, W + L.w[10], dm.last, Ws);
-    store_act<T, Epi>(acc, B + L.b[9], dm.last, dm.alpha, bufB);
+    store_act<T>(acc, B + L.b[9], dm.last, dm.alpha, bufB);
     __syncthreads();
     if (out && row0 + r < dm.n) {
       float v = sigma;

@@ -4,10 +4,13 @@
 // B7 (raymarch_comp_fwd.cu, raymarch_comp_bwd.cu), B5 (mlp_loss_comp.cu) and
 // B4 (mlp_comp_fwd.cu, mlp_comp_bwd.cu) run through the ray-group loops of
 // comp_mma_tile.cuh: the forward tile (B1, and B2's recompute), the
-// input-gradient chain G W^T and the weight-gradient products A^T G. f32 B1
-// and B6 forward run mlp_tf32_tile.cuh (`wgmma`), every f32 backward (B2, B4,
-// B5, B6, B7) the 3xTF32 `mma.sync` tiles of mlp_tf32_mma_tile.cuh; f32 B4's
-// and B7's forwards keep the FMA tile of mlp_common.cuh.
+// input-gradient chain G W^T and the weight-gradient products A^T G. The
+// probes P2 (probe_mlp_epilogue.cu: another epilogue policy) and P3
+// (probe_mlp_chains.cu: 64 or 128 rows a block) run B1's forward tile too.
+// f32 B1 and B6 forward run mlp_tf32_tile.cuh (`wgmma`); every other f32
+// kernel (the backwards of B2, B4, B5, B6 and B7, the forwards of B4 and B7)
+// runs the 3xTF32 `mma.sync` tiles of mlp_tf32_mma_tile.cuh. mlp_common.cuh
+// is included for the flat parameter layout (Dims, Layout) alone.
 //
 // Products: `mma.sync.m16n8k16` bf16 x bf16 -> f32, as the P1 probe measured
 // on the H100 (probe_mma.cu), with operands fed by `ldmatrix`. Chosen over
@@ -26,7 +29,10 @@
 // and the 16-column pairs wn, wn + 4, wn + 8, wn + 12, so its accumulators
 // are 4 m-tiles x 4 pairs x 2 n-tiles x 4 = 128 floats. Per 16-deep step a
 // warp issues 4 A and up to 4 B `ldmatrix.x4` for 32 mma: 128 bytes of shared
-// memory per mma, half of P1's register-resident form.
+// memory per mma, half of P1's register-resident form. The forward's
+// functions take the number of row halves WM as a template parameter: every
+// kernel runs WM = 2 (BM rows, NT threads), the default; the chains probe
+// also runs WM = 1 (64 rows, 4 warps).
 //
 // Operands in shared memory, bf16, rows padded by 8 elements (16 bytes) so
 // that the eight row addresses of an `ldmatrix` phase fall in eight different
@@ -67,6 +73,8 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mlp_common.cuh"
 
 namespace nerf_mma {
@@ -89,6 +97,11 @@ constexpr int LDW = KC + 8;      // row stride of a ring stage (80 bytes)
 constexpr int NSTAGE = 2;
 constexpr int NACT = 10;         // activation slots of the backward
 constexpr int SLOT = BM * HPAD;  // elements of one activation slot
+
+// Rows and threads of a tile of WM row halves.
+template <int WM> constexpr int BM_OF = 64 * WM;
+template <int WM> constexpr int NT_OF = 128 * WM;
+static_assert(BM_OF<2> == BM && NT_OF<2> == NT, "the kernels' tile is two row halves");
 
 __host__ __device__ constexpr int pad16(int v) { return (v + 15) & ~15; }
 
@@ -202,17 +215,20 @@ __device__ __forceinline__ void zero_acc(Acc& acc) {
 }
 
 // Row and column of acc[mt][q][h][2 half] (its partner e = 2 half + 1 is the
-// next column).
-struct Frag {
+// next column), in a tile of WM row halves: warp = WM wn + wm.
+template <int WM>
+struct FragOf {
+  static_assert(WM == 1 || WM == 2, "a tile has one or two row halves");
   int wm, wn, g, t;
-  __device__ Frag() {
+  __device__ FragOf() {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    wm = warp & 1; wn = warp >> 1; g = lane >> 2; t = lane & 3;
+    wm = warp & (WM - 1); wn = warp >> (WM / 2); g = lane >> 2; t = lane & 3;
   }
   __device__ int row(int mt, int half) const { return 64 * wm + 16 * mt + g + 8 * half; }
   __device__ int pair(int q) const { return wn + 4 * q; }
   __device__ int col(int q, int h) const { return 16 * pair(q) + 8 * h + 2 * t; }
 };
+using Frag = FragOf<2>;
 
 // A packed matrix as a product reads it: `rows` outputs (<= HPAD) by `cols`
 // contraction columns (a multiple of 16), row-major.
@@ -235,28 +251,30 @@ struct Ring {
   int stage;
 };
 
+template <int WM = 2>
 __device__ __forceinline__ void issue_chunk(bf16* dst, const Mat& m, int k0) {
   const int vecs = min(KC, m.cols - k0) / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < m.rows * vecs; i += NT) {
+  for (int i = threadIdx.x; i < m.rows * vecs; i += NT_OF<WM>) {
     const int r = i / vecs, v = i - r * vecs;
     cp_async16(dst + r * LDW + v * 8, m.p + (size_t)r * m.cols + k0 + v * 8);
   }
   cp_async_commit();
 }
 
+template <int WM = 2>
 __device__ __forceinline__ void ring_start(Ring& ring, const Mat& m) {
-  issue_chunk(ring.buf + ring.stage * HPAD * LDW, m, 0);
+  issue_chunk<WM>(ring.buf + ring.stage * HPAD * LDW, m, 0);
 }
 
-// acc += A (128 x m.cols, row stride lda) @ m^T, m streamed through the ring.
-// Expects m's first chunk issued into ring.stage; issues `next`'s first chunk
-// (if any) while it computes its last. Ends with a barrier, so the caller may
-// overwrite A afterwards.
-template <bool FRESH = false>
+// acc += A (BM_OF<WM> x m.cols, row stride lda) @ m^T, m streamed through
+// the ring. Expects m's first chunk issued into ring.stage; issues `next`'s
+// first chunk (if any) while it computes its last. Ends with a barrier, so
+// the caller may overwrite A afterwards.
+template <bool FRESH = false, int WM = 2>
 __device__ __forceinline__ void mma_rows(Acc& acc, const bf16* A, int lda, const Mat& m,
                                          const Mat* next, Ring& ring) {
   const int lane = threadIdx.x & 31;
-  const Frag f;
+  const FragOf<WM> f;
   const int n_pairs = m.rows / 16;
   const bf16* a_base = A + (64 * f.wm + (lane & 7) + 8 * ((lane >> 3) & 1)) * lda + 8 * (lane >> 4);
   const int b_off = ((lane & 7) + 8 * (lane >> 4)) * LDW + 8 * ((lane >> 3) & 1);
@@ -266,9 +284,9 @@ __device__ __forceinline__ void mma_rows(Acc& acc, const bf16* A, int lda, const
     const bf16* cur = ring.buf + ring.stage * HPAD * LDW;
     bf16* nxt = ring.buf + (ring.stage ^ 1) * HPAD * LDW;
     if (k0 + KC < m.cols) {
-      issue_chunk(nxt, m, k0 + KC);
+      issue_chunk<WM>(nxt, m, k0 + KC);
     } else if (next) {
-      issue_chunk(nxt, *next, 0);
+      issue_chunk<WM>(nxt, *next, 0);
     }
     const int kc = min(KC, m.cols - k0);
     for (int kk = 0; kk < kc; kk += 16) {
@@ -406,34 +424,42 @@ struct Tiles {
   float* GI;   // output cotangent (BM x 8): grgb | gsig | bf16(gsig), backward only
 };
 
+template <int WM = 2>
 constexpr size_t fwd_smem_bytes() {
-  return 2 * ((size_t)BM * LDH + BM * LDX + BM * LDD + NSTAGE * HPAD * LDW) + 4 * BM;
+  constexpr size_t rows = BM_OF<WM>;
+  return 2 * (rows * LDH + rows * LDX + rows * LDD + NSTAGE * HPAD * LDW) + 4 * rows;
 }
 constexpr size_t bwd_smem_bytes() { return fwd_smem_bytes() + 2 * BM * LDH + 4 * BM * 8; }
 static_assert(bwd_smem_bytes() <= 232448, "the backward tiles must fit a block's shared memory");
 
+template <int WM = 2>
 __device__ inline Tiles make_tiles(void* smem, bool backward) {
   Tiles t;
   t.P = static_cast<bf16*>(smem);
-  t.X = t.P + BM * LDH;
-  t.D = t.X + BM * LDX;
-  t.ring = t.D + BM * LDD;
+  t.X = t.P + BM_OF<WM> * LDH;
+  t.D = t.X + BM_OF<WM> * LDX;
+  t.ring = t.D + BM_OF<WM> * LDD;
   t.G = t.ring + NSTAGE * HPAD * LDW;
-  t.sig = reinterpret_cast<float*>(backward ? t.G + BM * LDH : t.G);
-  t.GI = t.sig + BM;
+  t.sig = reinterpret_cast<float*>(backward ? t.G + BM_OF<WM> * LDH : t.G);
+  t.GI = t.sig + BM_OF<WM>;
   if (!backward) t.G = nullptr;
   return t;
 }
 
-// Rows [row0, row0 + BM) of a (n, width) bf16 array into a tile of stride ld;
-// columns [width, pad16(width)) and rows past n are zero.
-__device__ inline void load_tile(bf16* dst, int ld, const bf16* __restrict__ src, int width,
+// Rows [row0, row0 + BM_OF<WM>) of a (n, width) bf16 or f32 array into a
+// tile of stride ld (f32 values rounded to bf16 as they are stored); columns
+// [width, pad16(width)) and rows past n are zero.
+template <int WM = 2, typename Src = bf16>
+__device__ inline void load_tile(bf16* dst, int ld, const Src* __restrict__ src, int width,
                                  int row0, int n) {
   const int wp = pad16(width);
-  for (int i = threadIdx.x; i < BM * wp; i += NT) {
+  for (int i = threadIdx.x; i < BM_OF<WM> * wp; i += NT_OF<WM>) {
     const int r = i / wp, c = i - r * wp;
-    dst[r * ld + c] = row0 + r < n && c < width ? src[(size_t)(row0 + r) * width + c]
-                                                : __float2bfloat16_rn(0.f);
+    const bool in = row0 + r < n && c < width;
+    if constexpr (std::is_same<Src, bf16>::value)
+      dst[r * ld + c] = in ? src[(size_t)(row0 + r) * width + c] : __float2bfloat16_rn(0.f);
+    else
+      dst[r * ld + c] = __float2bfloat16_rn(in ? src[(size_t)(row0 + r) * width + c] : 0.f);
   }
 }
 
@@ -449,9 +475,10 @@ __device__ inline void load_cotangent(float* GI, const float* __restrict__ g, in
 
 // The first `width` (a multiple of 16) columns of P to / from an activation
 // slot (BM x HPAD) in global memory, 16 bytes a copy.
+template <int WM = 2>
 __device__ inline void store_slot(bf16* __restrict__ slot, const bf16* P, int width) {
   const int vecs = width / 8;
-  for (int i = threadIdx.x; i < BM * vecs; i += NT) {
+  for (int i = threadIdx.x; i < BM_OF<WM> * vecs; i += NT_OF<WM>) {
     const int r = i / vecs, v = i - r * vecs;
     *reinterpret_cast<uint4*>(slot + r * HPAD + v * 8) =
         *reinterpret_cast<const uint4*>(P + r * LDH + v * 8);
@@ -469,11 +496,23 @@ __device__ inline void load_slot(bf16* P, const bf16* __restrict__ slot, int wid
   __syncthreads();
 }
 
-// P = bf16(leaky(acc + bias)) over the product's np (padded) columns; the
-// pad columns get bias 0 and hold 0.
+// The epilogue of a hidden layer, as a policy of store_leaky: the value that
+// a pre-activation sum `acc` leaves in P before its bf16 rounding. This one is
+// the network's, leaky(acc + bias); the epilogue probe (probe_mlp_epilogue.cu)
+// supplies others.
+struct LeakyEpilogue {
+  static __device__ __forceinline__ float apply(float acc, float bias, float alpha) {
+    const float v = acc + bias;
+    return v >= 0.f ? v : alpha * v;
+  }
+};
+
+// P = bf16(Epi(acc, bias)) over the product's np (padded) columns; the pad
+// columns get bias 0 (and with the network's epilogue hold 0).
+template <typename Epi = LeakyEpilogue, int WM = 2>
 __device__ __forceinline__ void store_leaky(const Acc& acc, const float* __restrict__ bias, int N,
                                             int np, float alpha, bf16* P) {
-  const Frag f;
+  const FragOf<WM> f;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     if (16 * f.pair(q) >= np) continue;
@@ -485,9 +524,8 @@ __device__ __forceinline__ void store_leaky(const Acc& acc, const float* __restr
       for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          float v0 = acc[mt][q][h][2 * half] + b0, v1 = acc[mt][q][h][2 * half + 1] + b1;
-          v0 = v0 >= 0.f ? v0 : alpha * v0;
-          v1 = v1 >= 0.f ? v1 : alpha * v1;
+          const float v0 = Epi::apply(acc[mt][q][h][2 * half], b0, alpha);
+          const float v1 = Epi::apply(acc[mt][q][h][2 * half + 1], b1, alpha);
           store_pair(P + f.row(mt, half) * LDH + n, v0, v1);
         }
     }
@@ -587,8 +625,10 @@ __device__ __forceinline__ void store_rows(const Acc& acc, float* __restrict__ d
 // passed) and whose first chunk (F pack, matrix 0) is issued into the ring.
 // With `keep`, post-activations go to its NACT slots (trunk 0..7, then the
 // rgb branch's hidden layers). With `out`, the (n, 4) raw rows are written.
-// `after`: the product whose first chunk to issue during the last one.
-template <bool FRESH = false>
+// `after`: the product whose first chunk to issue during the last one. `Epi`
+// is the epilogue of every hidden layer (the two output heads add their f32
+// bias only); the tile has WM row halves.
+template <bool FRESH = false, typename Epi = LeakyEpilogue, int WM = 2>
 __device__ inline void forward_tile(const Dims& dm, const Layout& L, const MmaLayout& M,
                                     const bf16* __restrict__ F, const float* __restrict__ B,
                                     const Tiles& t, Ring& ring, bf16* keep, float* out, int row0,
@@ -600,13 +640,13 @@ __device__ inline void forward_tile(const Dims& dm, const Layout& L, const MmaLa
     zero_acc(acc);
     if (l == SKIP) {
       const Mat nx = fmat(F, M, SKIP + 1);
-      mma_rows<FRESH>(acc, t.X, LDX, fmat(F, M, SKIP), &nx, ring);
+      mma_rows<FRESH, WM>(acc, t.X, LDX, fmat(F, M, SKIP), &nx, ring);
     }
     const Mat nx = fmat(F, M, i + 1);
-    mma_rows<FRESH>(acc, l == 0 ? t.X : t.P, l == 0 ? LDX : LDH, fmat(F, M, i), &nx, ring);
-    store_leaky(acc, B + L.b[l], dm.hid, M.np[i], alpha, t.P);
+    mma_rows<FRESH, WM>(acc, l == 0 ? t.X : t.P, l == 0 ? LDX : LDH, fmat(F, M, i), &nx, ring);
+    store_leaky<Epi, WM>(acc, B + L.b[l], dm.hid, M.np[i], alpha, t.P);
     __syncthreads();
-    if (keep) store_slot(keep + l * SLOT, t.P, M.np[i]);
+    if (keep) store_slot<WM>(keep + l * SLOT, t.P, M.np[i]);
   }
   // Narrow heads read h8 (in P) before the rgb branch overwrites it: sigma,
   // two threads per row, each over every other column.
@@ -626,22 +666,22 @@ __device__ inline void forward_tile(const Dims& dm, const Layout& L, const MmaLa
   zero_acc(acc);
   if (dm.has_dir) {
     const Mat nx = fmat(F, M, 10);
-    mma_rows<FRESH>(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
-    mma_rows<FRESH>(acc, t.D, LDD, fmat(F, M, 10), after, ring);
-    store_leaky(acc, B + L.b[8], dm.last, M.np[9], alpha, t.P);
+    mma_rows<FRESH, WM>(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
+    mma_rows<FRESH, WM>(acc, t.D, LDD, fmat(F, M, 10), after, ring);
+    store_leaky<Epi, WM>(acc, B + L.b[8], dm.last, M.np[9], alpha, t.P);
     __syncthreads();
-    if (keep) store_slot(keep + 8 * SLOT, t.P, M.np[9]);
+    if (keep) store_slot<WM>(keep + 8 * SLOT, t.P, M.np[9]);
   } else {
     const Mat nx = fmat(F, M, 10);
-    mma_rows<FRESH>(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
-    store_leaky(acc, B + L.b[8], dm.hid, M.np[9], alpha, t.P);
+    mma_rows<FRESH, WM>(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
+    store_leaky<Epi, WM>(acc, B + L.b[8], dm.hid, M.np[9], alpha, t.P);
     __syncthreads();
-    if (keep) store_slot(keep + 8 * SLOT, t.P, M.np[9]);
+    if (keep) store_slot<WM>(keep + 8 * SLOT, t.P, M.np[9]);
     zero_acc(acc);
-    mma_rows<FRESH>(acc, t.P, LDH, fmat(F, M, 10), after, ring);
-    store_leaky(acc, B + L.b[9], dm.last, M.np[10], alpha, t.P);
+    mma_rows<FRESH, WM>(acc, t.P, LDH, fmat(F, M, 10), after, ring);
+    store_leaky<Epi, WM>(acc, B + L.b[9], dm.last, M.np[10], alpha, t.P);
     __syncthreads();
-    if (keep) store_slot(keep + 9 * SLOT, t.P, M.np[10]);
+    if (keep) store_slot<WM>(keep + 9 * SLOT, t.P, M.np[10]);
   }
   if (out) {
     // rgb = rgb_h @ Wro + bro; Wro^T in the F pack, row stride kp[11].

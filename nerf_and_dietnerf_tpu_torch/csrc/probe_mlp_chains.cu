@@ -1,193 +1,120 @@
-// P3: B1's forward with several independent 64-row chains per block, walked
-// in lockstep, to see whether more rows per streamed weight chunk pay.
+// P3: B1's bf16 forward with C row chains of 64 rows a block, to see whether
+// using each streamed weight chunk for more or fewer rows pays.
 //
 // Replaces tools/exp_interleave.py `fwd_pallas` (body `make_fwd`): B1's
-// arithmetic (view-dir variant) with the tile split into independent row
-// chains whose products sit side by side in program order; the output is
-// B1's for every split. On the TPU the question was whether the matrix
-// unit's pipeline fills. Here B1 loads every 32 x 256 weight chunk from L2
-// into shared memory once per 64 rows, behind two block-wide barriers; the
-// question becomes whether using each chunk for C x 64 rows (C times fewer
-// chunk loads and barriers per row, C x 64 accumulators per thread) beats one
-// chain per block.
+// arithmetic (view-dir variant) with the tile split into C independent row
+// chains whose products sit side by side; the output is B1's for every split.
+// On the TPU the question was whether the matrix unit's pipeline fills. Here
+// a block copies every 32-column weight chunk from L2 into its `cp.async`
+// ring and waits for it behind a block-wide barrier; its C chains use the
+// chunk for C x 64 rows. C = 2 is B1's own tile (128 rows, 8 warps). C = 1
+// runs 64-row blocks of 4 warps; two fit an SM (nerf_probe_chains_blocks_per_sm),
+// which so holds B1's 8 warps but loads each chunk twice as often for the
+// same rows, behind barriers of 4 warps instead of 8.
 //
-// What bounds it on an H100: operations, as B1.
+// What bounds it on an H100: operations, as B1: about 1.024 MFLOP a row at
+// the flagship widths, 805 GFLOP at the tool's 786,432 rows, at least 0.81 ms
+// at 989 TFLOP/s (bf16, dense).
 //
-// What the design does about that: a block owns C sub-tiles of TM rows. Each
-// chain keeps one f32 activation buffer (a layer's output overwrites its
-// input once the product is in registers), its X and D tiles, and an 8 x 8
-// accumulator tile per thread. Sums run in B1's order (the same k order, one
-// fmaf chain per output), so the result is bitwise B1's. Shared memory holds
-// one or two chains of f32 activations (88 KB a chain + the 32 KB chunk);
-// four need 384 KB, and 256 accumulators a thread: the wrapper refuses them.
-#include "mlp_common.cuh"
+// What the design does about that: it is B1. The kernel runs
+// nerf_mma::forward_tile (mlp_mma_tile.cuh) on a tile of WM = C row halves:
+// every warp keeps B1's 64-row by 64-column accumulators, and per row the
+// sums run in B1's k order on B1's `mma.sync.m16n8k16` steps, so every C that
+// runs gives B1's output bitwise. Shared memory: P 33,792 + X 9,216 + D 5,120
+// + sigma 256 = 48,384 bytes a chain, plus the 40,960-byte ring
+// (fwd_smem_bytes<C>: 89,344 at C = 1, 137,728 at C = 2). C = 4 does not fit
+// a block: 234,496 bytes of shared memory against the 232,448 it may use, so
+// the wrapper refuses it (SharedMemoryExceeded). Its 512 threads could also
+// have at most 128 registers each, fewer than ptxas gives a thread at C = 1
+// and 2 (chip_smoke.py records both).
+//
+// Why B1's `mma.sync` tile and not `wgmma`: the probe only means something as
+// "B1 with one thing changed". Moving B1 itself onto `wgmma` is its own
+// redesign (ROADMAP R2); the probe follows B1 there when B1 moves.
+#include "mlp_mma_tile.cuh"
 
-using namespace nerf_mlp;
+using nerf_mlp::Dims;
+using nerf_mlp::Layout;
+using namespace nerf_mma;
 
-constexpr size_t CHAIN_FLOATS = TM * HMAX + TM * XMAX + TM * DMAX;
-
-constexpr size_t chains_smem_bytes(int c) {
-  return sizeof(float) * (KC * HMAX + c * CHAIN_FLOATS);
-}
-static_assert(chains_smem_bytes(2) <= 232448, "two chains must fit a block's shared memory");
-
-// acc[c][i][j] += sum_k A_c[(8*ty + i) * lda + k] * W[k, acc_col(tx, j)] with
-// A_c = A + c * a_stride: gemm_acc (mlp_common.cuh) for C tiles that share
-// every streamed chunk of W.
-template <typename T, int C>
-__device__ void gemm_acc_chains(float (&acc)[C][8][8], const float* A, size_t a_stride, int lda,
-                                int K, const T* __restrict__ W, int N, float* Ws) {
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  const float* a_rows = A + ty * 8 * lda;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0);
-    __syncthreads();
-#pragma unroll 4
-    for (int idx = tid; idx < kc * HMAX; idx += NT) {
-      const int kk = idx / HMAX, n = idx % HMAX;
-      Ws[idx] = n < N ? to_f<T>(W[(size_t)(k0 + kk) * N + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kc; ++kk) {
-      const float4 w0 = *reinterpret_cast<const float4*>(Ws + kk * HMAX + tx * 4);
-      const float4 w1 = *reinterpret_cast<const float4*>(Ws + kk * HMAX + 128 + tx * 4);
-      const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float a[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = a_rows[c * a_stride + i * lda + k0 + kk];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[c][i][j] = fmaf(a[i], w[j], acc[c][i][j]);
-      }
-    }
-  }
+template <int C>
+__global__ void __launch_bounds__(NT_OF<C>, 1)
+    mlp_fwd_chains_kernel(Dims dm, Layout L, MmaLayout M, const bf16* __restrict__ x,
+                          const bf16* __restrict__ d, const bf16* __restrict__ F,
+                          const float* __restrict__ B, float* __restrict__ out) {
+  extern __shared__ uint4 smem16[];
+  const Tiles t = make_tiles<C>(smem16, false);
+  Ring ring{t.ring, 0};
+  ring_start<C>(ring, fmat(F, M, 0));
+  const int row0 = blockIdx.x * BM_OF<C>;
+  load_tile<C>(t.X, LDX, x, dm.xyz, row0, dm.n);
+  load_tile<C>(t.D, LDD, d, dm.dir, row0, dm.n);
   __syncthreads();
+  forward_tile<false, LeakyEpilogue, C>(dm, L, M, F, B, t, ring, nullptr, out, row0, nullptr);
 }
 
 template <int C>
-__device__ __forceinline__ void zero_chains(float (&acc)[C][8][8]) {
-#pragma unroll
-  for (int c = 0; c < C; ++c) zero_acc(acc[c]);
-}
-
-// Every chain's layer output into its own activation buffer.
-template <typename T, int C>
-__device__ __forceinline__ void store_chains(const float (&acc)[C][8][8],
-                                             const float* __restrict__ bias, int n, float alpha,
-                                             float* H) {
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-    store_act<T>(acc[c], bias, n, alpha, H + c * CHAIN_FLOATS);
-}
-
-template <typename T, int C>
-__global__ void __launch_bounds__(NT, 1)
-    mlp_fwd_chains_kernel(Dims dm, Layout L, const T* __restrict__ x, const T* __restrict__ d,
-                          const T* __restrict__ W, const float* __restrict__ B,
-                          float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* Ws = reinterpret_cast<float*>(smem4);
-  float* H = Ws + KC * HMAX;            // chain c's buffers start at H + c * CHAIN_FLOATS
-  float* X = H + TM * HMAX;
-  float* D = X + TM * XMAX;
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * (C * TM);
-  for (int c = 0; c < C; ++c) {
-    load_rows<T>(X + c * CHAIN_FLOATS, XMAX, x, dm.xyz, row0 + c * TM, dm.n);
-    load_rows<T>(D + c * CHAIN_FLOATS, DMAX, d, dm.dir, row0 + c * TM, dm.n);
-  }
-  __syncthreads();
-
-  float acc[C][8][8];
-  for (int l = 0; l < N_TRUNK; ++l) {
-    zero_chains<C>(acc);
-    if (l == 0) {
-      gemm_acc_chains<T, C>(acc, X, CHAIN_FLOATS, XMAX, dm.xyz, W + L.w[0], dm.hid, Ws);
-    } else if (l == SKIP) {
-      gemm_acc_chains<T, C>(acc, X, CHAIN_FLOATS, XMAX, dm.xyz, W + L.w[SKIP], dm.hid, Ws);
-      gemm_acc_chains<T, C>(acc, H, CHAIN_FLOATS, HMAX, dm.hid, W + L.w[SKIP + 1], dm.hid, Ws);
-    } else {
-      gemm_acc_chains<T, C>(acc, H, CHAIN_FLOATS, HMAX, dm.hid, W + L.w[trunk_w(l)], dm.hid, Ws);
-    }
-    // In place: the products above ended with a barrier.
-    store_chains<T, C>(acc, B + L.b[l], dm.hid, dm.alpha, H);
-  }
-  __syncthreads();
-
-  // Heads (view-dir variant), one (row, channel) per thread and chain. sigma
-  // reads h8, which the rgb hidden layer overwrites: take it first.
-  const int r = tid >> 2, j = tid & 3;
-  zero_chains<C>(acc);
-  gemm_acc_chains<T, C>(acc, H, CHAIN_FLOATS, HMAX, dm.hid, W + L.w[9], dm.last, Ws);
-  gemm_acc_chains<T, C>(acc, D, CHAIN_FLOATS, DMAX, dm.dir, W + L.w[10], dm.last, Ws);
-  float sigma[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    sigma[c] = 0.f;
-    if (j == 3) {
-      const float* h8 = H + c * CHAIN_FLOATS;
-      const float* dt = D + c * CHAIN_FLOATS;
-      const T* wh = W + L.w[12];
-      const T* wd = W + L.w[13];
-      float sh = 0.f, sd = 0.f;
-      for (int k = 0; k < dm.hid; ++k) sh = fmaf(h8[r * HMAX + k], to_f<T>(wh[k]), sh);
-      for (int k = 0; k < dm.dir; ++k) sd = fmaf(dt[r * DMAX + k], to_f<T>(wd[k]), sd);
-      sigma[c] = (sh + sd) + B[L.b[10]];
-    }
-  }
-  __syncthreads();
-  store_chains<T, C>(acc, B + L.b[8], dm.last, dm.alpha, H);
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int row = row0 + c * TM + r;
-    if (row >= dm.n) continue;
-    float v = sigma[c];
-    if (j < 3) {
-      const float* rgb_h = H + c * CHAIN_FLOATS;
-      const T* w = W + L.w[11];
-      float s = 0.f;
-      for (int k = 0; k < dm.last; ++k) s = fmaf(rgb_h[r * HMAX + k], to_f<T>(w[k * 3 + j]), s);
-      v = s + B[L.b[9] + j];
-    }
-    out[(size_t)row * 4 + j] = v;
-  }
-}
-
-template <typename T, int C>
-static int launch(const Dims& dm, const void* x, const void* d, const void* w, const float* b,
+static int launch(const Dims& dm, const bf16* x, const bf16* d, const bf16* w, const float* b,
                   float* out, cudaStream_t stream) {
-  const Layout L = make_layout(dm);
-  const int blocks = (dm.n + C * TM - 1) / (C * TM);
-  if (blocks == 0) return 0;
-  const size_t smem = chains_smem_bytes(C);
-  cudaFuncSetAttribute(mlp_fwd_chains_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  mlp_fwd_chains_kernel<T, C><<<blocks, NT, smem, stream>>>(
-      dm, L, static_cast<const T*>(x), static_cast<const T*>(d), static_cast<const T*>(w), b, out);
+  const Layout L = nerf_mlp::make_layout(dm);
+  const size_t smem = fwd_smem_bytes<C>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      mlp_fwd_chains_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (dm.n + BM_OF<C> - 1) / BM_OF<C>;
+  mlp_fwd_chains_kernel<C><<<blocks, NT_OF<C>, smem, stream>>>(dm, L, make_mma_layout(L), x, d,
+                                                               w, b, out);
   return (int)cudaGetLastError();
 }
 
-// Shared memory a block of `n_chains` chains needs, in bytes.
-extern "C" long long nerf_probe_chains_smem(int n_chains) {
-  return (long long)chains_smem_bytes(n_chains);
+template <int C>
+static int blocks_per_sm() {
+  const size_t smem = fwd_smem_bytes<C>();
+  int blocks = -1;
+  if (cudaFuncSetAttribute(mlp_fwd_chains_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mlp_fwd_chains_kernel<C>, NT_OF<C>,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
-// n_chains: 1 or 2. Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int nerf_probe_mlp_chains(int is_bf16, int n_chains, const void* x, const void* d,
-                                     const void* w, const float* b, float* out, int n, int xyz,
-                                     int dir, int hid, int last, float alpha, void* stream) {
+// Blocks of `n_chains` chains that an SM holds at once, as the occupancy
+// calculator gives it for the kernel's registers, threads and shared memory
+// (-1 for other counts, or on an error).
+extern "C" int nerf_probe_chains_blocks_per_sm(int n_chains) {
+  switch (n_chains) {
+    case 1: return blocks_per_sm<1>();
+    case 2: return blocks_per_sm<2>();
+    default: return -1;
+  }
+}
+
+// Shared memory a block of `n_chains` chains needs, in bytes (also for 4,
+// which no kernel runs); -1 for other counts.
+extern "C" long long nerf_probe_chains_smem(int n_chains) {
+  switch (n_chains) {
+    case 1: return (long long)fwd_smem_bytes<1>();
+    case 2: return (long long)fwd_smem_bytes<2>();
+    case 4: return (long long)fwd_smem_bytes<4>();
+    default: return -1;
+  }
+}
+
+// n_chains: 1 or 2; x, d: bf16; w: the F pack (nerf_mlp_mma_pack_elems
+// elements), as B1's. Returns cudaGetLastError() after the launch (0 on
+// success).
+extern "C" int nerf_probe_mlp_chains(int n_chains, const void* x, const void* d, const void* w,
+                                     const float* b, float* out, int n, int xyz, int dir, int hid,
+                                     int last, float alpha, void* stream) {
   const Dims dm{n, xyz, dir, hid, last, 1, alpha};
+  if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_chains == 1)
-    return is_bf16 ? launch<__nv_bfloat16, 1>(dm, x, d, w, b, out, s)
-                   : launch<float, 1>(dm, x, d, w, b, out, s);
-  if (n_chains == 2)
-    return is_bf16 ? launch<__nv_bfloat16, 2>(dm, x, d, w, b, out, s)
-                   : launch<float, 2>(dm, x, d, w, b, out, s);
-  return (int)cudaErrorInvalidValue;
+  const bf16 *xb = static_cast<const bf16*>(x), *db = static_cast<const bf16*>(d),
+             *wb = static_cast<const bf16*>(w);
+  switch (n_chains) {
+    case 1: return launch<1>(dm, xb, db, wb, b, out, s);
+    case 2: return launch<2>(dm, xb, db, wb, b, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

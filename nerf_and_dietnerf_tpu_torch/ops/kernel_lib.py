@@ -179,10 +179,12 @@ _SIGNATURES = {
                       **_COMP_BWD, **_MMA_PACK, **_T32_PACK, **_BWD_SCRATCH},
     "probe_mma": {"nerf_probe_mma": ([_p] * 3 + [_i] * 5 + [_p], _i),
                   "nerf_probe_mma_unit_rows": ([], _i)},
-    # variant, x, d, w, b, out, n, xyz, dir, hid, last, alpha, stream
-    "probe_mlp_epilogue": {"nerf_probe_mlp_epilogue": ([_i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i)},
-    "probe_mlp_chains": {"nerf_probe_mlp_chains": ([_i, _i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i),
-                         "nerf_probe_chains_smem": ([_i], ctypes.c_longlong)},
+    # variant / n_chains, x, d, w, b, out, n, xyz, dir, hid, last, alpha, stream
+    "probe_mlp_epilogue": {"nerf_probe_mlp_epilogue": ([_i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i),
+                           **_MMA_PACK},
+    "probe_mlp_chains": {"nerf_probe_mlp_chains": ([_i] + [_p] * 5 + [_i] * 5 + [_f, _p], _i),
+                         "nerf_probe_chains_smem": ([_i], ctypes.c_longlong),
+                         "nerf_probe_chains_blocks_per_sm": ([_i], _i), **_MMA_PACK},
     "probe_expand": {"nerf_probe_expand_a": ([_p, _p, _i, _p], _i),
                      "nerf_probe_expand_b": ([_p, _p] + [_i] * 3 + [_p], _i),
                      "nerf_probe_expand_c": ([_p] * 7 + [_i] * 5 + [_p], _i)},

@@ -15,7 +15,7 @@ CPU; for a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -29,12 +29,13 @@ from nerf_and_dietnerf_tpu_torch.ops.kernel_lib import (
     stream_of,
     uses_kernel,
 )
-from nerf_and_dietnerf_tpu_torch.ops.raymarch_cuda import check_params, mlp_fwd_plain
+from nerf_and_dietnerf_tpu_torch.ops.raymarch_cuda import _weights_for, check_params, mlp_fwd_plain
 
 MXU_WIDTH = 256                      # P1: columns of h, rows and columns of W
 MLP_VARIANTS = {"v1": 1, "v5": 5, "v3": 3}
 ENC_STAGES = ("dma", "repeat", "pts", "theta", "sin", "enc")
 MAX_SHARED_BYTES = 232448            # what one block can use on an H100
+REGISTERS_PER_SM = 65536             # 32-bit registers of an H100 SM
 _BF16 = torch.bfloat16
 
 
@@ -109,6 +110,13 @@ def _check_view_mlp(config: MLPConfig, what: str) -> None:
         raise ValueError(f"{what} runs the view-dir variant of the MLP only")
 
 
+def _check_bf16_weights(ws, what: str) -> None:
+    """P2 and P3 are bf16 probes (the TPU tools' ``CD``), on every device."""
+    if any(w.dtype != _BF16 for w in ws):
+        raise ValueError(f"{what} runs in bfloat16 only; got weights of "
+                         f"{sorted({str(w.dtype) for w in ws})}")
+
+
 def mlp_fwd_variant_plain(ws, bs, config: MLPConfig, x, d, variant: str) -> torch.Tensor:
     """Plain version of P2: the view-dir MLP in bf16 (``ws`` bf16, ``bs`` f32
     from ``flatten_params``) with the hidden layers' epilogue ``variant``:
@@ -165,10 +173,12 @@ def _mlp_tail(config: MLPConfig, n: int, dev):
 
 
 def mlp_fwd_variant(ws, bs, config: MLPConfig, x, d, variant: str) -> torch.Tensor:
-    """P2: ``(n, 4)`` f32 from B1's tile code with the epilogue ``variant``
-    (see :func:`mlp_fwd_variant_plain`). ``x`` (n, xyz) and ``d`` (n, dir) are
-    f32; the kernel rounds them to bf16 as it loads a tile, as the TPU probe
-    rounds them in its body."""
+    """P2: ``(n, 4)`` f32 from bf16 B1's tensor-core tile with the epilogue
+    ``variant`` (see :func:`mlp_fwd_variant_plain`; ``v3`` is B1's function,
+    and on the card B1's output bitwise). ``ws`` bf16, ``bs`` f32; ``x`` (n,
+    xyz) and ``d`` (n, dir) are f32, and the kernel rounds them to bf16 as it
+    loads a tile, as the TPU probe rounds them in its body."""
+    _check_bf16_weights(ws, "the epilogue probe")
     if not uses_kernel(x):
         return mlp_fwd_variant_plain(ws, bs, config, x, d, variant)
     _check_view_mlp(config, "the epilogue probe")
@@ -179,8 +189,9 @@ def mlp_fwd_variant(ws, bs, config: MLPConfig, x, d, variant: str) -> torch.Tens
     out = torch.empty((n, 4), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    w, b = flat(ws), flat(bs)  # held until the launch is queued
-    rc = load("probe_mlp_epilogue").nerf_probe_mlp_epilogue(
+    lib = load("probe_mlp_epilogue")
+    (w,), b = _weights_for(lib, ws, config, _BF16, ("f",)), flat(bs)  # held until queued
+    rc = lib.nerf_probe_mlp_epilogue(
         MLP_VARIANTS[variant], x.data_ptr(), d.data_ptr(), w.data_ptr(), b.data_ptr(),
         out.data_ptr(), *_mlp_tail(config, n, x.device))
     launched("probe_mlp_epilogue", rc)
@@ -195,32 +206,73 @@ class SharedMemoryExceeded(ValueError):
     """The launch would need more shared memory than a block can have."""
 
 
+# The chains' tile (csrc/mlp_mma_tile.cuh at WM = n_chains row halves): each
+# 64-row chain holds P (LDH = 264 bf16 a row), X (LDX = 72), D (LDD = 40) and
+# a float of sigma a row; the block one ring of NSTAGE = 2 stages of HPAD =
+# 256 rows x LDW = 40 bf16. A chain is 4 warps, each thread of it doing B1's
+# work whatever the chain count.
+CHAIN_ROWS = 64
+_CHAIN_ROW_BYTES = 2 * (264 + 72 + 40) + 4
+_RING_BYTES = 2 * 2 * 256 * 40
+_CHAIN_THREADS = 128
+
+
+def chains_smem_bytes(n_chains: int) -> int:
+    """Shared memory of a block of ``n_chains`` chains, as the kernel's
+    ``nerf_probe_chains_smem`` computes it (``fwd_smem_bytes<C>``)."""
+    return n_chains * CHAIN_ROWS * _CHAIN_ROW_BYTES + _RING_BYTES
+
+
+def chains_limits(n_chains: int, registers: Optional[int] = None) -> List[str]:
+    """The block limits a tile of ``n_chains`` chains exceeds, one line each
+    (empty if it fits): its shared memory and, where ``registers`` is given
+    (what ``-Xptxas -v`` reports for a thread of a chain count that was
+    built), the registers of its threads against an SM's file (at most 255
+    a thread)."""
+    out = []
+    need = chains_smem_bytes(n_chains)
+    if need > MAX_SHARED_BYTES:
+        out.append(f"{need} bytes of shared memory; a block may use {MAX_SHARED_BYTES}")
+    threads = n_chains * _CHAIN_THREADS
+    have = min(255, REGISTERS_PER_SM // threads)
+    if registers is not None and registers > have:
+        out.append(f"{threads} threads of {registers} registers; an SM's {REGISTERS_PER_SM} "
+                   f"registers give each {have}")
+    return out
+
+
 def mlp_fwd_chains(ws, bs, config: MLPConfig, x, d, n_chains: int) -> torch.Tensor:
-    """P3: B1's ``(n, 4)`` f32 output (its plain version is B1's,
-    :func:`mlp_fwd_plain`) from blocks that walk ``n_chains`` 64-row chains in
-    lockstep. The compute type is the weights' (bf16 or f32), and on the card
-    ``x`` and ``d`` come in it. There a chain count whose activations do not
-    fit a block's shared memory raises :class:`SharedMemoryExceeded`."""
+    """P3: bf16 B1's ``(n, 4)`` f32 output (its plain version is B1's,
+    :func:`mlp_fwd_plain`) from blocks of ``n_chains`` 64-row chains that share
+    every streamed weight chunk (on the card bitwise B1's for every count that
+    runs). ``ws`` bf16, ``bs`` f32; on the card ``x`` and ``d`` come in bf16.
+    There a chain count whose tile needs more shared memory than a block
+    has (:func:`chains_limits`: 4) raises :class:`SharedMemoryExceeded`
+    before any launch."""
     if n_chains not in (1, 2, 4):
         raise ValueError(f"n_chains must be 1, 2 or 4, got {n_chains}")
-    cd = ws[0].dtype
+    _check_bf16_weights(ws, "the chains probe")
     if not uses_kernel(x):
-        return mlp_fwd_plain(ws, bs, config, x.to(cd), d.to(cd), cd)
+        return mlp_fwd_plain(ws, bs, config, x.to(_BF16), d.to(_BF16), _BF16)
     _check_view_mlp(config, "the chains probe")
-    _check_mlp_probe(config, ws, bs, x, d, cd, cd)
+    _check_mlp_probe(config, ws, bs, x, d, _BF16, _BF16)
     lib = load("probe_mlp_chains")
     need = lib.nerf_probe_chains_smem(n_chains)
-    if need > MAX_SHARED_BYTES:
-        raise SharedMemoryExceeded(f"{n_chains} chains of f32 activations need {need} bytes of "
-                                   f"shared memory; a block has {MAX_SHARED_BYTES}")
+    if need != chains_smem_bytes(n_chains):
+        raise RuntimeError(f"kernel ({need}) and wrapper ({chains_smem_bytes(n_chains)}) "
+                           f"disagree on the shared memory of {n_chains} chains")
+    over = chains_limits(n_chains)
+    if over:
+        raise SharedMemoryExceeded(f"{n_chains} chains of {CHAIN_ROWS} rows need "
+                                   + " and ".join(over))
     n = x.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    w, b = flat(ws), flat(bs)  # held until the launch is queued
+    (w,), b = _weights_for(lib, ws, config, _BF16, ("f",)), flat(bs)  # held until queued
     rc = lib.nerf_probe_mlp_chains(
-        int(cd == _BF16), n_chains, x.data_ptr(), d.data_ptr(), w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), *_mlp_tail(config, n, x.device))
+        n_chains, x.data_ptr(), d.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        *_mlp_tail(config, n, x.device))
     launched("probe_mlp_chains", rc)
     return out
 

@@ -16,9 +16,15 @@ and written for ``--vit-weights``; its within- and across-scene cosines):
     python -m nerf_and_dietnerf_tpu_torch.tools.parity_gpu --out PARITY_GPU.json
     python -m nerf_and_dietnerf_tpu_torch.tools.train_scene_embedder --out v.npz --scenes A B
 
-Every tool has ``main(argv=None)`` and runs on the GPU unless ``--device cpu``
-is given (then the kernel wrappers run their plain PyTorch versions, and times
-are the host's). The probe tools print one line per case in the form their
+Build check: ``sass_diff`` (whether a change leaves the compiled kernels'
+SASS and ptxas lines as a parent checkout's; on the machine with the CUDA
+toolkit):
+
+    python -m nerf_and_dietnerf_tpu_torch.tools.sass_diff build/parent
+
+Every tool has ``main(argv=None)``; the others run on the GPU unless
+``--device cpu`` is given (then the kernel wrappers run their plain PyTorch
+versions, and times are the host's). The probe tools print one line per case in the form their
 counterparts print, with the H100's peaks where those have the TPU's.
 """
 

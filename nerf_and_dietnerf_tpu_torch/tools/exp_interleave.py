@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """Experiment: do several independent row chains per block pay in the fused
-forward (B1)? chains=1 is one 64-row chain per block; with 2 or 4 a block
-walks that many 64-row chains in lockstep and uses every streamed weight chunk
-for all of them. A chain count whose f32 activations do not fit a block's
-shared memory prints FAILED.
+forward (B1)? chains=1 is one 64-row chain per block; with 2 (B1's own tile)
+or 4 a block runs that many 64-row chains on B1's tensor-core tile and uses
+every streamed weight chunk for all of them; the output is B1's bitwise. A
+chain count whose tile does not fit a block (4: its shared memory and
+registers) prints FAILED.
 
     python -m nerf_and_dietnerf_tpu_torch.tools.exp_interleave [--device cpu] [--rows N]
 """
@@ -13,11 +14,13 @@ from __future__ import annotations
 import torch
 
 from nerf_and_dietnerf_tpu_torch import tools
-from nerf_and_dietnerf_tpu_torch.ops.probe_kernels_cuda import SharedMemoryExceeded, mlp_fwd_chains
+from nerf_and_dietnerf_tpu_torch.ops.probe_kernels_cuda import (
+    CHAIN_ROWS,
+    SharedMemoryExceeded,
+    mlp_fwd_chains,
+)
 from nerf_and_dietnerf_tpu_torch.ops.raymarch_cuda import mlp_fwd
 from nerf_and_dietnerf_tpu_torch.utils.device import resolve_device
-
-CHAIN_ROWS = 64  # rows of one chain (csrc/mlp_common.cuh TM)
 
 
 def main(argv=None) -> int:

@@ -4,7 +4,8 @@
 v0 baseline = B1 itself. v1 = products only (no bias, no activation; the sum
 is cast to bf16 directly): if v1 is much faster, the elementwise epilogue
 matters. v5 = cast first, then bias + leaky in bf16 via max(x, a x). v3 = f32
-bias, max-form leaky, then the cast. Same tile code, another epilogue policy.
+bias, max-form leaky, then the cast: B1's function, bitwise B1's output. B1's
+tensor-core tile with another epilogue policy.
 
     python -m nerf_and_dietnerf_tpu_torch.tools.exp_vpu [--device cpu] [--rows N]
 """

@@ -175,7 +175,8 @@ def test_tile_constants_match_the_cuda_sources():
             "dd,") in COMP_SRC
     assert "K::forward_tile(tdm, L, M, F, B, t, ring, acts + j * tile_slots," in COMP_SRC
     assert "K::backward_walk(tdm, L, M, Bp, t, ring, slots, part, first, 0," in COMP_SRC
-    assert "template <bool FRESH = false>\n__device__ inline void forward_tile(" in MMA_SRC
+    assert ("template <bool FRESH = false, typename Epi = LeakyEpilogue, int WM = 2>\n"
+            "__device__ inline void forward_tile(") in MMA_SRC
     assert "  forward_tile(dm, L, M, F, B, t, ring, acts, nullptr, row0, &b10);" in MMA_SRC
     assert "  backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);" \
         in MMA_SRC
@@ -1072,7 +1073,8 @@ def test_no_model_kernel_runs_the_fma_compositing_forward():
     """Every compositing forward runs forward_groups: the FMA kernels and the
     helpers only they used are gone, and no source but B6's forward (its
     branch for encodings wider than the f32 tile's 64 input columns) calls
-    the FMA tile's f32 forward_tile; the probes keep their own instances."""
+    the FMA tile's f32 forward_tile; the probes run the bf16 tensor-core
+    tile."""
     calls = set()
     for path in sorted(CSRC.glob("*.cu*")):
         text = path.read_text()

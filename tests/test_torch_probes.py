@@ -160,6 +160,164 @@ def test_mlp_fwd_chains_matches_b1_and_jax_probe(interpreted, chains):
         pk.mlp_fwd_chains(ws, bs, tcfg, tx, td, 3)
 
 
+MMA_TILE_SRC = (ROOT / "nerf_and_dietnerf_tpu_torch" / "csrc" / "mlp_mma_tile.cuh").read_text()
+
+
+def _tile_int(expr):
+    """An ``int`` constant of ``mlp_mma_tile.cuh`` (its expression evaluated
+    over the constants before it)."""
+    import re
+
+    consts = {}
+    for name, value in re.findall(r"^constexpr int (\w+) = ([^;]+);", MMA_TILE_SRC, re.M):
+        consts[name] = eval(value, {}, dict(consts))
+    return eval(expr, {}, consts)
+
+
+def header_chains_smem(n_chains):
+    """``nerf_mma::fwd_smem_bytes<WM>()`` at WM = ``n_chains``, as the header
+    computes it (what ``nerf_probe_chains_smem`` returns)."""
+    assert "template <int WM> constexpr int BM_OF = 64 * WM;" in MMA_TILE_SRC
+    assert ("  constexpr size_t rows = BM_OF<WM>;\n  return 2 * (rows * LDH + rows * LDX + rows * "
+            "LDD + NSTAGE * HPAD * LDW) + 4 * rows;") in MMA_TILE_SRC
+    rows = 64 * n_chains
+    return 2 * (rows * _tile_int("LDH") + rows * _tile_int("LDX") + rows * _tile_int("LDD")
+                + _tile_int("NSTAGE * HPAD * LDW")) + 4 * rows
+
+
+@pytest.mark.parametrize("chains", [1, 2, 4])
+def test_chains_shared_memory_mirror_matches_the_tile(chains):
+    """The wrapper's mirror of the chains' tile: one and two chains fit a
+    block (two are B1's own tile, 137,728 bytes as the header states), four
+    exceed its shared memory and, at the 200 registers a thread that ptxas
+    gives the two-chain instance, the register file too."""
+    need = pk.chains_smem_bytes(chains)
+    assert need == header_chains_smem(chains)
+    assert need == chains * 48384 + 40960
+    if chains == 2:
+        assert "+ sigma 512 = 137,728;" in MMA_TILE_SRC and need == 137728
+    limits, with_registers = pk.chains_limits(chains), pk.chains_limits(chains, registers=200)
+    if chains < 4:
+        assert need <= pk.MAX_SHARED_BYTES == 232448 and limits == with_registers == []
+    else:
+        assert need == 234496 > pk.MAX_SHARED_BYTES
+        assert len(limits) == 1 and "234496 bytes of shared memory" in limits[0]
+        assert with_registers[0] == limits[0] and len(with_registers) == 2
+        assert "512 threads of 200 registers" in with_registers[1]
+        assert "each 128" in with_registers[1]
+        assert pk.chains_limits(chains, registers=128)[1:] == []
+
+
+class _FakeProbeLib:
+    """The P2 / P3 libraries' exports as their sources compute them, and
+    launches that record their arguments."""
+
+    def __init__(self, config):
+        self.pack = rc.mma_layout(config)[1]
+        self.calls = []
+
+    def nerf_mlp_mma_pack_elems(self, *dims):
+        return self.pack
+
+    def nerf_probe_chains_smem(self, n_chains):
+        return header_chains_smem(n_chains)
+
+    def nerf_probe_mlp_chains(self, *args):
+        self.calls.append(("chains", args))
+        return 0
+
+    def nerf_probe_mlp_epilogue(self, *args):
+        self.calls.append(("epilogue", args))
+        return 0
+
+
+@pytest.fixture
+def fake_probe_card(monkeypatch):
+    """The P2 / P3 wrappers on CPU tensors as on the card: a fake library
+    and stream; the launch counts are restored afterwards."""
+    _, tcfg, _, _, _, _, _ = _mlp_setup(8)
+    lib = _FakeProbeLib(tcfg)
+    monkeypatch.setattr(pk, "uses_kernel", lambda t: True)
+    monkeypatch.setattr(pk, "load", lambda name: lib)
+    monkeypatch.setattr(pk, "stream_of", lambda dev: 0)
+    counts = dict(kl.LAUNCHES)
+    yield lib
+    kl.LAUNCHES.update(counts)
+
+
+@pytest.mark.parametrize("chains", [1, 2, 4])
+def test_chains_wrapper_launches_what_fits_and_refuses_four(fake_probe_card, chains):
+    _, tcfg, _, x, d, ws, bs = _mlp_setup(200)
+    tx, td = torch.tensor(x).bfloat16(), torch.tensor(d).bfloat16()
+    before = kl.LAUNCHES["probe_mlp_chains"]
+    if chains == 4:
+        with pytest.raises(pk.SharedMemoryExceeded, match="234496 bytes of shared memory"):
+            pk.mlp_fwd_chains(ws, bs, tcfg, tx, td, chains)
+        assert fake_probe_card.calls == [] and kl.LAUNCHES["probe_mlp_chains"] == before
+        return
+    out = pk.mlp_fwd_chains(ws, bs, tcfg, tx, td, chains)
+    assert out.shape == (200, 4) and out.dtype == torch.float32
+    ((kind, args),) = fake_probe_card.calls
+    assert kind == "chains" and args[0] == chains
+    assert args[6:] == (200, tcfg.xyz_dim, tcfg.dir_dim, tcfg.hidden_dim,
+                        tcfg.last_hidden_dim, tcfg.leaky_relu_alpha, 0)
+    assert kl.LAUNCHES["probe_mlp_chains"] == before + 1
+    # A library that counts the tile's bytes otherwise is refused.
+    fake_probe_card.nerf_probe_chains_smem = lambda c: 1
+    with pytest.raises(RuntimeError, match="disagree"):
+        pk.mlp_fwd_chains(ws, bs, tcfg, tx, td, chains)
+
+
+@pytest.mark.parametrize("variant", sorted(pk.MLP_VARIANTS))
+def test_epilogue_wrapper_passes_b1s_weight_pack(fake_probe_card, monkeypatch, variant):
+    _, tcfg, _, x, d, ws, bs = _mlp_setup(200)
+    seen = []
+    real = pk._weights_for
+
+    def weights_for(lib, ws_, config, cd, kinds):
+        seen.append((cd, kinds))
+        return real(lib, ws_, config, cd, kinds)
+
+    monkeypatch.setattr(pk, "_weights_for", weights_for)
+    pk.mlp_fwd_variant(ws, bs, tcfg, torch.tensor(x), torch.tensor(d), variant)
+    ((kind, args),) = fake_probe_card.calls
+    assert kind == "epilogue" and args[0] == pk.MLP_VARIANTS[variant]
+    assert seen == [(torch.bfloat16, ("f",))]  # the F pack, as bf16 B1 reads it
+    fake_probe_card.pack += 16
+    with pytest.raises(RuntimeError, match="weight-pack layout"):
+        pk.mlp_fwd_variant(ws, bs, tcfg, torch.tensor(x), torch.tensor(d), variant)
+
+
+def test_epilogue_and_chains_probes_run_b1s_tensor_core_tile():
+    """P2 and P3 instantiate bf16 B1's forward_tile (mlp_mma_tile.cuh) and
+    include nothing of the FMA tile's header; f32 B6's forward at wide
+    encodings is the FMA forward_tile's only caller."""
+    csrc = ROOT / "nerf_and_dietnerf_tpu_torch" / "csrc"
+    for name, call in (("probe_mlp_epilogue.cu", "forward_tile<false, Epi>("),
+                       ("probe_mlp_chains.cu", "forward_tile<false, LeakyEpilogue, C>(")):
+        text = (csrc / name).read_text()
+        assert '#include "mlp_mma_tile.cuh"' in text and "mlp_common.cuh\"" not in text
+        assert call in text and "gemm_acc" not in text
+    fma_users = {p.name for p in csrc.glob("*.cu*") if "forward_tile<float>(" in p.read_text()}
+    assert fma_users == {"raymarch_fwd.cu"}
+
+
+@pytest.mark.parametrize("probe", ["epilogue", "chains"])
+def test_bf16_probes_reject_f32_weights_on_any_device(probe):
+    _, tcfg, params, _, _, _, _ = _mlp_setup(8)
+    ws32, bs32 = rc.flatten_params(tm.params_from_jax(params), tcfg, torch.float32)
+    before = dict(kl.LAUNCHES)
+    for dev in ("meta", "cpu"):
+        x = torch.zeros((8, tcfg.xyz_dim), device=dev)
+        d = torch.zeros((8, tcfg.dir_dim), device=dev)
+        with pytest.raises(ValueError, match="bfloat16 only"):
+            if probe == "epilogue":
+                pk.mlp_fwd_variant(ws32, bs32, tcfg, x, d, "v1")
+            else:
+                pk.mlp_fwd_chains(ws32, bs32, tcfg, x, d, 2)
+    assert kl.LAUNCHES == before
+
+
 # --------------------------------------------------------------------------- #
 # P4, P5, P6                                                                   #
 # --------------------------------------------------------------------------- #
