@@ -1713,11 +1713,87 @@ def _probe_record(torch, fn, plain, lib, err, bound, ms=None, **extra):
             "bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": err, **extra}
 
 
+def _in_turns(torch, timed: dict, reps: int):
+    """``(ms, passes)``: ms a call of each function of ``timed``, taken in
+    turns (each in order, then in reverse: for two, a b b a), ``reps``
+    back-to-back calls a pass between two events; ``ms`` the mean of the two
+    passes, ``passes`` both."""
+    passes = {k: [] for k in timed}
+    for order in (list(timed), list(timed)[::-1]):
+        for k in order:
+            passes[k].append(_time_ms(torch, timed[k], reps=reps))
+    return {k: sum(v) / len(v) for k, v in passes.items()}, passes
+
+
+# P4's calls a pass in turns with its library call, and the warm calls a step
+# of its host split is timed over (the median of each step's).
+P4_TURN_CALLS = 1000
+HOST_SPLIT_CALLS = 2000
+# Calls of each kernel under the profiler, a pass (two passes); P7's stages
+# and bf16 B6's forward in turns, calls a pass.
+PROFILED_CALLS = 200
+ENC_TURN_CALLS = 50
+B6_TURN_CALLS = 20
+
+
+def _host_split_us(torch, steps: dict, calls: int) -> dict:
+    """The host time of each step of ``steps`` (name -> function), in µs: the
+    median over ``calls`` warm calls of ``time.perf_counter_ns`` around it."""
+    import statistics
+
+    out = {}
+    for name, fn in steps.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        ns = []
+        for _ in range(calls):
+            t0 = time.perf_counter_ns()
+            fn()
+            ns.append(time.perf_counter_ns() - t0)
+        torch.cuda.synchronize()
+        out[name] = statistics.median(ns) / 1e3
+    return out
+
+
+def _profiled_device_us(torch, runs: dict, kernels: dict) -> dict:
+    """Device µs a launch of each kernel of ``kernels`` (label -> a part of
+    its name in the trace): every function of ``runs`` called
+    ``PROFILED_CALLS`` times under ``torch.profiler``, in order, then again in
+    reverse under a second profiler; a kernel's CUDA time over its count in
+    each pass. ``{label: {"us": mean of the two passes, "passes": [..],
+    "launches": count a pass}}``; a label the trace lacks, or whose time
+    reads 0, gets ``None`` (the profiler recorded no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    per = {k: [] for k in kernels}
+    counts = {}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            runs[name]()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for name in order:
+                for _ in range(PROFILED_CALLS):
+                    runs[name]()
+            torch.cuda.synchronize()
+        averages = [a for a in prof.key_averages() if _on_device(a)]
+        for label, part in kernels.items():
+            hits = [a for a in averages if part in a.key]
+            count = sum(a.count for a in hits)
+            total = sum(_device_us(a) for a in hits)
+            per[label].append(total / count if count and total > 0 else None)
+            counts[label] = count
+    return {k: None if None in v else {"us": sum(v) / 2, "passes": v, "launches": counts[k]}
+            for k, v in per.items()}
+
+
 def probe_kernel_phases(torch, timings: dict) -> None:
     from nerf_and_dietnerf_tpu_torch.models import mlp
     from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
     from nerf_and_dietnerf_tpu_torch.ops import probe_kernels_cuda as pk
     from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
+    from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
     from nerf_and_dietnerf_tpu_torch.tools import mlp_flops
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
@@ -1884,11 +1960,7 @@ def probe_kernel_phases(torch, timings: dict) -> None:
              **{v: (lambda v=v: pk.mlp_fwd_variant(ws, bs, cfg, x, d, v)) for v in variants},
              **{f"chains_{c}": (lambda c=c: pk.mlp_fwd_chains(ws, bs, cfg, xb, db, c))
                 for c in chain_errs}}
-    passes = {k: [] for k in timed}
-    for order in (list(timed), list(timed)[::-1]):
-        for k in order:
-            passes[k].append(_time_ms(torch, timed[k], reps=10))
-    ms = {k: sum(v) / len(v) for k, v in passes.items()}
+    ms, passes = _in_turns(torch, timed, reps=10)
     share = (ms["v3"] - ms["v1"]) / ms["v3"]
     rec["probe_mlp_epilogue"] = _probe_record(
         torch, timed["v1"], lambda: pk.mlp_fwd_variant_plain(ws, bs, cfg, x, d, "v1"),
@@ -1949,12 +2021,75 @@ def probe_kernel_phases(torch, timings: dict) -> None:
         rec[kname] = _probe_record(torch, fn, plain_fn, lib, float((out_k - out_p).abs().max()),
                                    _bound(fl, PEAK_FLOPS["float32"], nbytes), rows=rows,
                                    library="the plain version's torch calls")
+    # P4 is a launch's worth of work, so its time a call is the host's: the
+    # kernel and its library call in turns, each pass P4_TURN_CALLS calls; the
+    # kernel's device time from the profiler; and where the wrapper's host
+    # time goes, step by step, in the parent's form of each step (the generic
+    # checks, torch.empty, a torch.cuda.Stream) and the lean one, with the
+    # C call alone (n = 0 returns before the launch) beside the one that
+    # launches.
+    a = rec["probe_expand_a"]
+    turns, turn_passes = _in_turns(torch, {"kernel": lambda: pk.expand_a(zt),
+                                           "library": lambda: zt.reshape(-1, 1) + 1.0},
+                                   P4_TURN_CALLS)
+    out_a = pk.expand_a(zt)
+    fn_a, n_a = kl.load("probe_expand").nerf_probe_expand_a, zt.numel()
+    ptrs = (zt.data_ptr(), out_a.data_ptr(), n_a, kl.stream_of(zt.device))
+    f32 = torch.float32
+    split = _host_split_us(torch, {
+        "device test (uses_kernel)": lambda: pk.uses_kernel(zt),
+        "checks, parent (check_tensors + dim)": lambda: (
+            kl.check_tensors([(zt, zt.shape, f32)], zt.device), zt.dim()),
+        "checks, lean (inline)": lambda: (
+            zt.dtype != f32 or zt.dim() != 2 or not zt.is_contiguous()),
+        "alloc, parent (torch.empty)": lambda: torch.empty((n_a, 1), dtype=f32, device=zt.device),
+        "alloc, lean (new_empty)": lambda: zt.new_empty((n_a, 1)),
+        "load() and the lookup": lambda: kl.load("probe_expand").nerf_probe_expand_a,
+        "stream, parent (current_stream().cuda_stream)":
+            lambda: torch.cuda.current_stream(zt.device).cuda_stream,
+        "stream, lean (stream_of)": lambda: kl.stream_of(zt.device),
+        "data_ptr x2 and numel": lambda: (zt.data_ptr(), out_a.data_ptr(), zt.numel()),
+        "ctypes call with the launch": lambda: fn_a(*ptrs),
+        "ctypes call, no launch (n = 0)": lambda: fn_a(ptrs[0], ptrs[1], 0, ptrs[3]),
+        "launched": lambda: kl.launched("probe_expand_a", 0),
+        "whole wrapper (expand_a)": lambda: pk.expand_a(zt),
+        "library call (reshape + add)": lambda: zt.reshape(-1, 1) + 1.0,
+    }, HOST_SPLIT_CALLS)
+    lean = ("device test (uses_kernel)", "checks, lean (inline)", "alloc, lean (new_empty)",
+            "load() and the lookup", "stream, lean (stream_of)", "data_ptr x2 and numel",
+            "ctypes call with the launch", "launched")
+    parent = ("device test (uses_kernel)", "checks, parent (check_tensors + dim)",
+              "alloc, parent (torch.empty)", "load() and the lookup",
+              "stream, parent (current_stream().cuda_stream)", "data_ptr x2 and numel",
+              "ctypes call with the launch", "launched")
+    dev_a = _profiled_device_us(torch, {"kernel": lambda: pk.expand_a(zt),
+                                        "library": lambda: zt.reshape(-1, 1) + 1.0},
+                                {"kernel": "expand_a_kernel", "library": "elementwise_kernel"})
+    a.update(ms=turns["kernel"], library_ms=turns["library"], ms_in_turns=turns,
+             ms_passes=turn_passes, turn_calls=P4_TURN_CALLS,
+             device_us=dev_a["kernel"], library_device_us=dev_a["library"],
+             host_split_us=split, host_split_calls=HOST_SPLIT_CALLS,
+             host_sum_lean_us=sum(split[k] for k in lean),
+             host_sum_parent_us=sum(split[k] for k in parent),
+             design="one thread per four outputs, 16-byte loads and stores, a lean launch path",
+             library="zt.reshape(-1, 1) + 1.0")
+    log(f"P4 ms a call in turns ({P4_TURN_CALLS} calls a pass, kernel library library "
+        f"kernel): kernel {turns['kernel']:.5f}, library {turns['library']:.5f} (passes "
+        f"{turn_passes}); device us a launch (profiler): kernel "
+        f"{dev_a['kernel'] and round(dev_a['kernel']['us'], 3)}, library "
+        f"{dev_a['library'] and round(dev_a['library']['us'], 3)}")
+    log(f"P4 host split (us, median of {HOST_SPLIT_CALLS} warm calls a step): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; sum of the lean steps {a['host_sum_lean_us']:.3f}, of the parent's "
+        f"{a['host_sum_parent_us']:.3f}")
+    if dev_a["kernel"] is None:
+        log("P4: the profiler recorded no device time for expand_a_kernel")
 
     # P7 ------------------------------------------------------------------- #
     n_rays = 64 * r_t
     rd = randn(n_rays, 9)
     z = (2.0 + 4.0 * torch.rand((n_rays, n_s), generator=gen, device=DEVICE)).contiguous()
-    stage_ms, stage_err, max_theta = {}, {}, None
+    stage_err, max_theta = {}, None
     for stage in pk.ENC_STAGES:
         out_k = pk.enc_cost(rd, z, stage)
         torch.cuda.synchronize()
@@ -1972,11 +2107,33 @@ def probe_kernel_phases(torch, timings: dict) -> None:
         if out_k.shape != out_p.shape or not torch.isfinite(out_k).all() or e > tol:
             raise AssertionError(f"probe_enccost {stage}: err {e} > {tol}")
         stage_err[stage] = diff
-        stage_ms[stage] = _time_ms(torch, lambda: pk.enc_cost(rd, z, stage))
         log(f"kernel check probe_enccost {stage}: "
             f"{'scaled' if stage in TOL_ENC else 'max abs'} err {e:.3e} (tol {tol:.3e}"
             + (f", from max |theta| {max_theta:.1f}" if stage not in TOL_ENC else "")
-            + f"), bitwise {torch.equal(out_k, out_p)}; {stage_ms[stage]:.4f} ms")
+            + f"), bitwise {torch.equal(out_k, out_p)}")
+    del out_k, out_p
+    # The stages in turns (ms a call) and under the profiler (device us a
+    # launch), each against the stage before it; then `enc` and bf16 B6's
+    # forward on the same rays and z, in turns: the encode's share of B6.
+    stages = {st: (lambda st=st: pk.enc_cost(rd, z, st)) for st in pk.ENC_STAGES}
+    stage_ms, stage_passes = _in_turns(torch, stages, ENC_TURN_CALLS)
+    b6 = {"b6_fwd": lambda: rk.raymarch_fwd(ws, bs, cfg, rd, z, torch.bfloat16),
+          "enc": stages["enc"]}
+    b6_ms, b6_passes = _in_turns(torch, b6, B6_TURN_CALLS)
+    dev = _profiled_device_us(torch, {**stages, "b6_fwd": b6["b6_fwd"]},
+                              {**{st: f"enc_cost_kernel<{i}>"
+                                  for i, st in enumerate(pk.ENC_STAGES)},
+                               "b6_fwd": "rm_fwd_mma_kernel"})
+    dev_us = {k: v and v["us"] for k, v in dev.items()}
+    names = pk.ENC_STAGES
+    diffs_ms = {f"{b} - {a_}": stage_ms[b] - stage_ms[a_] for a_, b in zip(names, names[1:])}
+    diffs_us = {f"{b} - {a_}": (dev_us[b] - dev_us[a_] if dev_us[a_] and dev_us[b] else None)
+                for a_, b in zip(names, names[1:])}
+    spread_ms = {k: abs(v[0] - v[1]) for k, v in stage_passes.items()}
+    spread_us = {k: v and abs(v["passes"][0] - v["passes"][1]) for k, v in dev.items()}
+    share = b6_ms["enc"] / b6_ms["b6_fwd"]
+    share_dev = (dev_us["enc"] / dev_us["b6_fwd"] if dev_us["enc"] and dev_us["b6_fwd"]
+                 else None)
     rows = n_rays * n_s
     # A row of the `enc` stage: the point under each of its 33 xyz columns (a
     # product and a sum, not contracted), an angle for each of the 54 other
@@ -1984,10 +2141,30 @@ def probe_kernel_phases(torch, timings: dict) -> None:
     n_sin = cfg.xyz_dim - 3 + cfg.dir_dim
     enc_flops = 2 * cfg.xyz_dim + n_sin + n_sin // 2 + SINF_FLOPS * n_sin
     rec["probe_enccost"] = _probe_record(
-        torch, lambda: pk.enc_cost(rd, z, "enc"), lambda: pk.enc_cost_plain(rd, z, "enc"), None,
+        torch, stages["enc"], lambda: pk.enc_cost_plain(rd, z, "enc"), None,
         max(stage_err.values()),
         _bound(rows * enc_flops, PEAK_FLOPS["float32"], 4 * (rd.numel() + z.numel() + rows * 4)),
-        rays=n_rays, samples=n_s, stage="enc", ms_stages=stage_ms, max_abs_err_by_stage=stage_err)
+        ms=stage_ms["enc"], rays=n_rays, samples=n_s, stage="enc", ms_stages=stage_ms,
+        ms_stage_passes=stage_passes, ms_stage_spread=spread_ms, ms_stage_diffs=diffs_ms,
+        device_us_stages=dev_us, device_us_spread=spread_us, device_us_diffs=diffs_us,
+        device_us_passes={k: v and v["passes"] for k, v in dev.items()},
+        max_abs_err_by_stage=stage_err, b6_fwd_in_turns=b6_ms, b6_fwd_passes=b6_passes,
+        enc_share_of_b6_fwd=share, enc_share_of_b6_fwd_device=share_dev,
+        design="bf16 B6's input build (build_mma_inputs) at B6's 128-row block and forward "
+               "memory, cut by its stage; stages nest")
+    log(f"P7 ms a call in turns ({ENC_TURN_CALLS} calls a pass): "
+        + ", ".join(f"{k} {v:.5f}" for k, v in stage_ms.items())
+        + "; differences " + ", ".join(f"{k} {v:+.5f}" for k, v in diffs_ms.items())
+        + "; spread of the two passes " + ", ".join(f"{k} {v:.5f}" for k, v in spread_ms.items()))
+    log("P7 device us a launch (profiler, mean of two passes): "
+        + ", ".join(f"{k} {v:.3f}" if v else f"{k} not recorded" for k, v in dev_us.items())
+        + "; differences " + ", ".join(f"{k} {v:+.3f}" if v is not None else f"{k} n/a"
+                                       for k, v in diffs_us.items())
+        + "; spread " + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} n/a"
+                                  for k, v in spread_us.items()))
+    log(f"P7 enc and bf16 B6 forward at {n_rays} x {n_s}, ms in turns ({B6_TURN_CALLS} calls a "
+        f"pass): B6 {b6_ms['b6_fwd']:.4f}, enc {b6_ms['enc']:.4f} (passes {b6_passes}); the "
+        f"encode's share of B6's forward {share:.4f} (device {share_dev})")
 
     kl.LAUNCHES.update(before)  # check and timing launches are not the main path's
     timings["probes"] = rec
@@ -2007,10 +2184,16 @@ TOOL_KERNELS = {
 }
 
 
-# exp_interleave with no arguments: chains 1 and 2 each launch once for the
-# comparison with B1, once to warm up and 10 times under the clock; 4 chains
-# are refused before any launch.
-INTERLEAVE_LAUNCHES = 2 * (10 + 2)
+# Each probe's launches in its tool's main([]): a case's warm-up call and its
+# timed calls (the tools' default reps: 10, exp_expand 50, exp_enccost 20),
+# plus a comparison call where the tool makes one. exp_mxu: five cases;
+# exp_vpu: three variants, each compared with B1; exp_interleave: chains 1 and
+# 2 each compared with B1, 4 chains refused before any launch; exp_expand:
+# one case a kernel; exp_enccost: six stages.
+TOOL_LAUNCHES = {"probe_mma": 5 * (1 + 10), "probe_mlp_epilogue": 3 * (2 + 10),
+                 "probe_mlp_chains": 2 * (2 + 10), "probe_expand_a": 1 + 50,
+                 "probe_expand_b": 1 + 50, "probe_expand_c": 1 + 50,
+                 "probe_enccost": 6 * (1 + 20)}
 
 
 def tools_phase(torch) -> dict:
@@ -2032,9 +2215,10 @@ def tools_phase(torch) -> dict:
         missing = [k for k in kernels if got[k] <= 0]
         if rc != 0 or missing:
             raise AssertionError(f"{name}: exit code {rc}, kernels not launched: {missing}")
-        if name == "exp_interleave" and got["probe_mlp_chains"] != INTERLEAVE_LAUNCHES:
-            raise AssertionError(f"exp_interleave: {got['probe_mlp_chains']} launches of "
-                                 f"probe_mlp_chains, expected {INTERLEAVE_LAUNCHES}")
+        wrong = {k: got[k] for k in kernels if k in TOOL_LAUNCHES and got[k] != TOOL_LAUNCHES[k]}
+        if wrong:
+            raise AssertionError(f"{name}: launches {wrong}, expected "
+                                 f"{ {k: TOOL_LAUNCHES[k] for k in wrong} }")
         log(f"{name}: main-path launches { {k: got[k] for k in kernels} }")
         launches.update({k: got[k] for k in kernels if k.startswith("probe_")})
     return launches
@@ -4435,6 +4619,19 @@ PROBE_INSTANCES = {"mlp_fwd": {"mlp_fwd_mma_kernel": "v0_b1"},
                    "probe_mlp_chains": {"ILi1EE": "chains_1", "ILi2EE": "chains_2"}}
 
 
+# The probe libraries of P4-P7: every kernel's registers, spills and SASS
+# counts, by label (part of the mangled name -> label; P7 by stage index).
+PROBE_LIBS = {"probe_expand": {"expand_a_kernel": "P4", "expand_b_kernel": "P5",
+                               "expand_c_kernel": "P6"},
+              "probe_enccost": {f"enc_cost_kernelILi{i}EE": f"P7 {stage}" for i, stage in
+                                enumerate(("dma", "repeat", "pts", "theta", "sin", "enc"))}}
+# The SASS instructions counted in them: 16-byte global loads and stores, the
+# special-function unit (what the fast __sinf would run on), f32 FMAs,
+# barriers.
+PROBE_OPS = {"LDG.128": r"\bLDG\S*\.128\b", "STG.128": r"\bSTG\S*\.128\b",
+             "MUFU": r"\bMUFU\b", "FFMA": r"\bFFMA\b", "BAR": r"\bBAR\b"}
+
+
 def tensor_core_report(kl, build_log: str) -> dict:
     """What the compiler made of B1, B2 and B6: their whole ``-Xptxas -v`` output
     (registers, shared memory, spills of each kernel, and any note that
@@ -4450,7 +4647,8 @@ def tensor_core_report(kl, build_log: str) -> dict:
 
     blocks = ptxas_blocks(build_log)
     entries = {lib: ptxas_entries(blocks.get(lib, [])) for lib in
-               {lib for _, kernels in REPORTED for lib in kernels} | set(PROBE_INSTANCES)}
+               {lib for _, kernels in REPORTED for lib in kernels} | set(PROBE_INSTANCES)
+               | set(PROBE_LIBS)}
     for lib in MMA_KERNELS:
         for line in blocks.get(lib, []):
             if "ptxas" in line:
@@ -4496,6 +4694,23 @@ def tensor_core_report(kl, build_log: str) -> dict:
                                                "HMMA": c["HMMA"]}
     log(f"B1 and the probes on its tile (registers, spill bytes, SASS HMMA): "
         f"{report['probes']}")
+    report["probe_kernels"] = {}
+    for lib, labels in PROBE_LIBS.items():
+        sass = subprocess.run([tool, "-sass", str(kl.lib_path(lib))], check=True,
+                              capture_output=True, text=True).stdout
+        for fname, instructions in sass_functions(sass).items():
+            for part, label in labels.items():
+                if part in fname:
+                    report["probe_kernels"][label] = {
+                        **entries[lib].get(fname, {}), "instructions": len(instructions),
+                        **{op: sum(len(re.findall(rx, i)) for i in instructions)
+                           for op, rx in PROBE_OPS.items()}}
+    missing = [label for labels in PROBE_LIBS.values() for label in labels.values()
+               if label not in report["probe_kernels"]]
+    if missing:
+        raise AssertionError(f"no SASS found for the probe kernels {missing}")
+    log(f"P4-P7 (registers, spill bytes, SASS instructions and counts): "
+        f"{report['probe_kernels']}")
     return report
 
 
@@ -4653,6 +4868,18 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in r["ms_in_turns"].items())
         + f"; epilogue share (v3 - v1) / v3 {r['epilogue_share']:.4f}; bound "
         f"{r['bound_ms']:.4f} ms, library {r['library_ms']:.3f} ms")
+    r = timings["probes"]["probe_expand_a"]
+    log(f"[{card}] P4 ms a call in turns: kernel {r['ms']:.5f}, library {r['library_ms']:.5f}; "
+        f"device us a launch {r['device_us'] and r['device_us']['us']}; host us: lean steps "
+        f"{r['host_sum_lean_us']:.3f}, parent's {r['host_sum_parent_us']:.3f}, whole wrapper "
+        f"{r['host_split_us']['whole wrapper (expand_a)']:.3f}")
+    r = timings["probes"]["probe_enccost"]
+    log(f"[{card}] P7 stages, ms a call in turns: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in r["ms_stages"].items())
+        + "; device us a launch: " + ", ".join(f"{k} {v}" for k, v in
+                                               r["device_us_stages"].items())
+        + f"; enc / bf16 B6 forward in turns {r['enc_share_of_b6_fwd']:.4f} (device "
+        f"{r['enc_share_of_b6_fwd_device']})")
     q = timings["quality"]
     for path, r in q["paths"].items():
         log(f"[{card}] quality {path}: held-out PSNR {r['held_out_before']['pooled']:.3f} -> "

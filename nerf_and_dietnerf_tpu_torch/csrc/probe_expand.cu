@@ -12,28 +12,47 @@
 // On this card a row's data is an address computed by its thread, so A and B
 // cost their bytes and nothing else; they are kept to say so in numbers.
 //
-// What bounds them on an H100: A and B bytes (4 in and 4 out per row for A,
-// 4 out per element for B; at the tool's 4096 rows both are the size of a
-// launch). C operations: per row 6 T + T E multiply-adds and T sinf against
+// What bounds them on an H100: A and B bytes. A at the tool's 4,096 rows
+// moves 32 KB (16 in, 16 out): 0.01 us at 3.35 TB/s, far below one launch's
+// latency (microseconds), so A's device time is that latency and its time a
+// call is the host's: the wrapper and the launch. B writes 4 bytes an
+// element. C operations: per row 6 T + T E multiply-adds and T sinf against
 // 12 + 12 / S bytes in and 4 E out.
 //
-// What the design does about that: A and B are one thread per output
-// element. In C a block takes 64 consecutive rows of one tile, keeps sc and
-// gx in shared memory, builds the rows' sin(theta) into a shared tile (one
-// thread per (row, column), full-range sinf) and then one thread per
-// (row, output column) sums its T products in column order.
+// What the design does about that: A is one thread per four outputs, with
+// 16-byte loads and stores where both pointers are 16-byte aligned, and one
+// thread per output for the tail (and for pointers that are not). Its
+// wrapper (ops/probe_kernels_cuda.expand_a) is the lean launch path: one
+// inline check, `new_empty` for the output, the stream read as its raw
+// handle. B is one thread per output element. In C a block takes 64
+// consecutive rows of one tile, keeps sc and gx in shared memory, builds the
+// rows' sin(theta) into a shared tile (one thread per (row, column),
+// full-range sinf) and then one thread per (row, output column) sums its T
+// products in column order.
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int NT = 256;
 constexpr int ROWS = 64;  // rows of a block in probe C
 
-__global__ void expand_a_kernel(const float* __restrict__ zt, float* __restrict__ out, int n) {
+// (S, R_t) row-major already holds row s * R_t + r at flat index s * R_t + r.
+// Threads [0, n4) take four outputs each, the rest one each from 4 n4 on.
+__global__ void expand_a_kernel(const float* __restrict__ zt, float* __restrict__ out, int n4,
+                                int n) {
   const int i = blockIdx.x * NT + threadIdx.x;
-  // (S, R_t) row-major already holds row s * R_t + r at flat index s * R_t + r.
-  if (i < n) out[i] = zt[i] + 1.0f;
+  if (i < n4) {
+    float4 v = reinterpret_cast<const float4*>(zt)[i];
+    v.x += 1.0f;
+    v.y += 1.0f;
+    v.z += 1.0f;
+    v.w += 1.0f;
+    reinterpret_cast<float4*>(out)[i] = v;
+  } else if (3 * n4 + i < n) {
+    out[3 * n4 + i] = zt[3 * n4 + i] + 1.0f;
+  }
 }
 
 __global__ void expand_b_kernel(const float* __restrict__ rd, float* __restrict__ out, int r_t,
@@ -92,7 +111,11 @@ __global__ void __launch_bounds__(NT)
 // Each returns cudaGetLastError() after the launch (0 on success).
 extern "C" int nerf_probe_expand_a(const float* zt, float* out, int n, void* stream) {
   if (n <= 0) return 0;
-  expand_a_kernel<<<(n + NT - 1) / NT, NT, 0, static_cast<cudaStream_t>(stream)>>>(zt, out, n);
+  const bool vec = ((reinterpret_cast<uintptr_t>(zt) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const int n4 = vec ? n / 4 : 0;
+  const int threads = n - 3 * n4;  // n4 vector threads and n - 4 n4 scalar ones
+  expand_a_kernel<<<(threads + NT - 1) / NT, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      zt, out, n4, n);
   return (int)cudaGetLastError();
 }
 

@@ -44,19 +44,11 @@ __device__ __forceinline__ float point(const float* ray, float z, int c) {
   return __fadd_rn(ray[c], __fmul_rn(z, ray[3 + c]));
 }
 
-// How far build_inputs goes. The kernels run it whole (ENC_FULL); the
-// encode-cost probe (probe_enccost.cu) cuts it off after a stage and reads
-// what the tiles then hold:
-//   ENC_REPEAT  every row's copy of its ray's data (X, columns cycling through
-//               the 6 + D entries) and depths (Dt, columns cycling through S)
-//   ENC_PTS     X: the row's point coordinate in every column of that coordinate
-//   ENC_THETA   the angles before the sin (identity columns: the coordinate)
-//   ENC_SIN     the features, not yet rounded to the compute type
-enum EncStage { ENC_REPEAT = 1, ENC_PTS, ENC_THETA, ENC_SIN, ENC_FULL };
-
 // The X (TM x XMAX) and D (TM x DMAX) tiles of rows [row0, row0 + TM),
-// rounded to the compute type; rows at or past `row_end` are zero.
-template <typename T, int STAGE = ENC_FULL>
+// rounded to the compute type; rows at or past `row_end` are zero. Since the
+// tensor-core tiles build their own (raymarch_tile.cuh), only f32 B6's
+// forward at widths over its 64 input columns runs this.
+template <typename T>
 __device__ void build_inputs(const Rays& ry, int xyz, int dir, int row0, int row_end, float* X,
                              float* Dt) {
   const int width = 6 + ry.D;
@@ -66,37 +58,23 @@ __device__ void build_inputs(const Rays& ry, int xyz, int dir, int row0, int row
     float v = 0.f;
     if (row < row_end) {
       const float* ray = ry.rd + (size_t)(row / ry.S) * width;
-      if (STAGE == ENC_REPEAT) {
-        v = ray[c % width];
-      } else {
-        const int j = c % per;
-        const float p = point(ray, ry.z[row], c / per);
-        if (STAGE == ENC_PTS || j == 0) {
-          v = p;
-        } else {
-          const float th = enc_theta(p, (j - 1) >> 1, (j - 1) & 1);
-          v = STAGE == ENC_THETA ? th : sinf(th);
-        }
-      }
+      const int j = c % per;
+      const float p = point(ray, ry.z[row], c / per);
+      v = j == 0 ? p : sinf(enc_theta(p, (j - 1) >> 1, (j - 1) & 1));
     }
-    X[r * XMAX + c] = STAGE == ENC_FULL ? round_t<T>(v) : v;
+    X[r * XMAX + c] = round_t<T>(v);
   }
-  if (ry.D == 0 || STAGE == ENC_PTS) return;
+  if (ry.D == 0) return;
   const int perd = 2 * ry.Ld;
   for (int idx = threadIdx.x; idx < TM * dir; idx += NT) {
     const int r = idx / dir, c = idx % dir, row = row0 + r;
     float v = 0.f;
     if (row < row_end) {
       const int ray_i = row / ry.S;
-      if (STAGE == ENC_REPEAT) {
-        v = ry.z[(size_t)ray_i * ry.S + c % ry.S];
-      } else {
-        const int j = c % perd;
-        const float th = enc_theta(ry.rd[(size_t)ray_i * width + 6 + c / perd], j >> 1, j & 1);
-        v = STAGE == ENC_THETA ? th : sinf(th);
-      }
+      const int j = c % perd;
+      v = sinf(enc_theta(ry.rd[(size_t)ray_i * width + 6 + c / perd], j >> 1, j & 1));
     }
-    Dt[r * DMAX + c] = STAGE == ENC_FULL ? round_t<T>(v) : v;
+    Dt[r * DMAX + c] = round_t<T>(v);
   }
 }
 

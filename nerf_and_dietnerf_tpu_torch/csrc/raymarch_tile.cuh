@@ -4,12 +4,14 @@
 // forward) and mlp_tf32_mma_tile.cuh (the f32 backward) read, so the (N, xyz)
 // and (N, dir) encodings never reach device memory.
 //
-// A feature is what build_inputs (raymarch_common.cuh) computes whole
-// (ENC_FULL): the point o + z d from __fadd_rn / __fmul_rn, theta = f_k v
-// (+ pi/2 for a cos column), the full-range sinf, in the reference's
-// coordinate-major column order; the bf16 tiles round it once. Rows are
-// ray-major (row = ray * S + sample); B6 composites nothing, so a 128-row tile
-// may span rays and S need not divide it.
+// A feature is what build_inputs (raymarch_common.cuh) computes: the point
+// o + z d from __fadd_rn / __fmul_rn, theta = f_k v (+ pi/2 for a cos
+// column), the full-range sinf, in the reference's coordinate-major column
+// order; the bf16 tiles round it once. Rows are ray-major (row = ray * S +
+// sample); B6 composites nothing, so a 128-row tile may span rays and S need
+// not divide it. The bf16 tile build and its features take a stage (EncStage)
+// whose default, ENC_FULL, is what every kernel runs; the encode-cost probe
+// (probe_enccost.cu) cuts them off after an earlier stage.
 //
 // f32 input columns (RayTf32Inputs): 64 more floats at the end of every
 // activation-tile row (row stride 260 -> 324 floats: 1,296 bytes, 16 more
@@ -27,6 +29,8 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mlp_mma_tile.cuh"
 #include "mlp_tf32_mma_tile.cuh"
 #include "mlp_tf32_tile.cuh"
@@ -34,39 +38,71 @@
 
 namespace nerf_rm {
 
+// How far the bf16 tile build goes. The kernels run it whole (ENC_FULL); the
+// encode-cost probe cuts it off after a stage, each stage doing the work of
+// the one before it, and reads what the tiles then hold (f32, unrounded,
+// before ENC_FULL):
+//   ENC_REPEAT  X: its ray's data and z, column c: rd[ray, c % (6 + D)] +
+//               z[ray, c % S]; D: the view component its column encodes
+//   ENC_PTS     X: the row's point coordinate in every column of that
+//               coordinate; D as ENC_REPEAT
+//   ENC_THETA   the angles before the sin (identity columns: the coordinate)
+//   ENC_SIN     the features
+//   ENC_FULL    the features rounded to bf16 (B6's tiles)
+enum EncStage { ENC_REPEAT = 1, ENC_PTS, ENC_THETA, ENC_SIN, ENC_FULL };
+
 // Feature c (< xyz) of row `row`'s xyz encoding, in f32.
+template <int STAGE = ENC_FULL>
 __device__ __forceinline__ float xyz_feature(const Rays& ry, int row, int c) {
   const int per = 1 + 2 * ry.L, j = c % per;
   const float* ray = ry.rd + (size_t)(row / ry.S) * (6 + ry.D);
+  if constexpr (STAGE == ENC_REPEAT)
+    return ray[c % (6 + ry.D)] + ry.z[(size_t)(row / ry.S) * ry.S + c % ry.S];
   const float p = point(ray, ry.z[row], c / per);
+  if constexpr (STAGE == ENC_PTS) return p;
+  if constexpr (STAGE == ENC_THETA) return j == 0 ? p : enc_theta(p, (j - 1) >> 1, (j - 1) & 1);
   return j == 0 ? p : sinf(enc_theta(p, (j - 1) >> 1, (j - 1) & 1));
 }
 
 // Feature c (< dir) of row `row`'s view-dir encoding, in f32.
+template <int STAGE = ENC_FULL>
 __device__ __forceinline__ float dir_feature(const Rays& ry, int row, int c) {
   const int perd = 2 * ry.Ld, j = c % perd;
   const float v = ry.rd[(size_t)(row / ry.S) * (6 + ry.D) + 6 + c / perd];
+  if constexpr (STAGE == ENC_REPEAT || STAGE == ENC_PTS) return v;
+  if constexpr (STAGE == ENC_THETA) return enc_theta(v, j >> 1, j & 1);
   return sinf(enc_theta(v, j >> 1, j & 1));
 }
 
 // The bf16 tiles X (BM x LDX) and D (BM x LDD) of rows [row0, row0 + BM),
 // one thread per (row, column): columns [width, pad16(width)) and rows at or
-// past n are zero, as load_tile leaves them.
-__device__ inline void build_mma_inputs(const Rays& ry, int xyz, int dir, int row0, int n,
-                                        nerf_mma::bf16* X, nerf_mma::bf16* D) {
+// past n are zero, as load_tile leaves them. A STAGE before ENC_FULL writes
+// its f32 values into f32 tiles of the same strides.
+template <int STAGE = ENC_FULL, typename T = nerf_mma::bf16>
+__device__ inline void build_mma_inputs(const Rays& ry, int xyz, int dir, int row0, int n, T* X,
+                                        T* D) {
+  static_assert((STAGE == ENC_FULL) == std::is_same<T, nerf_mma::bf16>::value &&
+                    (STAGE == ENC_FULL || std::is_same<T, float>::value),
+                "bf16 tiles hold the whole features, f32 tiles an earlier stage's");
   using nerf_mma::BM;
   const int xp = nerf_mma::pad16(xyz);
   for (int i = threadIdx.x; i < BM * xp; i += nerf_mma::NT) {
     const int r = i / xp, c = i - r * xp, row = row0 + r;
-    X[r * nerf_mma::LDX + c] =
-        __float2bfloat16_rn(row < n && c < xyz ? xyz_feature(ry, row, c) : 0.f);
+    const float v = row < n && c < xyz ? xyz_feature<STAGE>(ry, row, c) : 0.f;
+    if constexpr (STAGE == ENC_FULL)
+      X[r * nerf_mma::LDX + c] = __float2bfloat16_rn(v);
+    else
+      X[r * nerf_mma::LDX + c] = v;
   }
   if (ry.D == 0) return;
   const int dp = nerf_mma::pad16(dir);
   for (int i = threadIdx.x; i < BM * dp; i += nerf_mma::NT) {
     const int r = i / dp, c = i - r * dp, row = row0 + r;
-    D[r * nerf_mma::LDD + c] =
-        __float2bfloat16_rn(row < n && c < dir ? dir_feature(ry, row, c) : 0.f);
+    const float v = row < n && c < dir ? dir_feature<STAGE>(ry, row, c) : 0.f;
+    if constexpr (STAGE == ENC_FULL)
+      D[r * nerf_mma::LDD + c] = __float2bfloat16_rn(v);
+    else
+      D[r * nerf_mma::LDD + c] = v;
   }
 }
 

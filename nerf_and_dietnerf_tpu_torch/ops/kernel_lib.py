@@ -258,6 +258,8 @@ def use_library(name: str, lib) -> None:
 
 def uses_kernel(x: torch.Tensor) -> bool:
     """True for CUDA tensors, False for CPU tensors; any other device raises."""
+    if x.is_cuda:
+        return True
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
@@ -281,7 +283,12 @@ def flat(ts) -> torch.Tensor:
 
 
 def stream_of(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of ``dev``'s current CUDA stream: what
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives, read without
+    building a ``torch.cuda.Stream`` object, so launches follow side streams
+    and graph capture as PyTorch's own do."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if dev.index is None else dev.index)
 
 
 def bwd_scratch(n_params: int, cd, dev, tiles: int, act_slots: int):

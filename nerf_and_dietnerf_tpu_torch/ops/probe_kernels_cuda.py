@@ -288,14 +288,19 @@ def expand_a_plain(zt: torch.Tensor) -> torch.Tensor:
 
 
 def expand_a(zt: torch.Tensor) -> torch.Tensor:
-    """P4 (see :func:`expand_a_plain`)."""
+    """P4 (see :func:`expand_a_plain`). Its work is a launch's worth, so its
+    time is the host's, and the path to the launch is kept lean: one inline
+    check of the tensor and ``new_empty`` for the output, the C function as
+    ``load`` bound it, the current stream read as its raw handle
+    (:func:`kernel_lib.stream_of`)."""
     if not uses_kernel(zt):
         return expand_a_plain(zt)
-    check_tensors([(zt, zt.shape, torch.float32)], zt.device)
-    if zt.dim() != 2:
-        raise ValueError(f"expected (S, R_t), got {tuple(zt.shape)}")
-    out = torch.empty((zt.numel(), 1), dtype=torch.float32, device=zt.device)
-    rc = load("probe_expand").nerf_probe_expand_a(zt.data_ptr(), out.data_ptr(), zt.numel(),
+    if zt.dtype != torch.float32 or zt.dim() != 2 or not zt.is_contiguous():
+        raise ValueError(f"expected a contiguous (S, R_t) float32 tensor, got "
+                         f"{tuple(zt.shape)} {zt.dtype}, contiguous {zt.is_contiguous()}")
+    n = zt.numel()
+    out = zt.new_empty((n, 1))
+    rc = load("probe_expand").nerf_probe_expand_a(zt.data_ptr(), out.data_ptr(), n,
                                                   stream_of(zt.device))
     launched("probe_expand_a", rc)
     return out
@@ -367,7 +372,7 @@ def expand_c(px, py, pz, vc, sc, gx) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# P7: B6's in-kernel encode, cut off stage by stage                            #
+# P7: bf16 B6's in-kernel encode, cut off stage by stage                       #
 # --------------------------------------------------------------------------- #
 
 def enc_layout(config: MLPConfig) -> Dict[str, object]:
@@ -406,6 +411,9 @@ def _check_enc_cost(config: MLPConfig, rd, z, stage: str, r_t: int) -> None:
     _check_view_mlp(config, "the encode-cost probe")
     if stage not in ENC_STAGES:
         raise ValueError(f"stage must be one of {ENC_STAGES}, got {stage!r}")
+    if rd.dim() != 2 or z.dim() != 2:
+        raise ValueError(f"expected rays (R, {7 + config.n_angles}) and z (R, S), got "
+                         f"{tuple(rd.shape)}, {tuple(z.shape)}")
     n_rays, n_s = z.shape
     if rd.shape != (n_rays, 6 + config.n_angles + 1) or n_rays % r_t or n_s < 4 \
             or config.n_freq_xyz < 2:
@@ -465,9 +473,11 @@ def enc_cost_plain(rd, z, stage: str, config: Optional[MLPConfig] = None, r_t: i
 
 def enc_cost(rd, z, stage: str, config: Optional[MLPConfig] = None,
              r_t: int = 64) -> torch.Tensor:
-    """P7: B6's input stage (``build_inputs``) cut off after ``stage``, with
-    the stage's ``(R S, 4)`` summary in the TPU probe's row order (see
-    :func:`enc_cost_plain`). ``rd`` (R, 6 + D) f32 rays, ``z`` (R, S) f32."""
+    """P7: bf16 B6's input stage (``build_mma_inputs`` of
+    ``csrc/raymarch_tile.cuh``, at B6's block and shared memory) cut off after
+    ``stage``, with the stage's ``(R S, 4)`` summary in the TPU probe's row
+    order (see :func:`enc_cost_plain`); each stage does the work of the one
+    before it. ``rd`` (R, 6 + D) f32 rays, ``z`` (R, S) f32."""
     config = config or MLPConfig()
     if not uses_kernel(rd):
         return enc_cost_plain(rd, z, stage, config, r_t)

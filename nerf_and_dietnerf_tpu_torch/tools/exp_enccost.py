@@ -1,10 +1,16 @@
 #!/usr/bin/env python
 """Bisect the in-kernel encode cost of the fused ray-march kernel (B6).
 
-Each stage runs B6's grid and tiles with its input stage cut off after it:
-``dma`` (the tile's ray data and depths), ``repeat`` (a copy per row), ``pts``
-(o + z d), ``theta`` (the angles), ``sin``, ``enc`` (rounded to bf16, the
-tiles B6's MLP reads). The difference between two lines is that stage's cost.
+Each stage runs bf16 B6's own input build (``build_mma_inputs`` of
+``csrc/raymarch_tile.cuh``) in B6's grid, block and forward shared memory,
+cut off after it: ``dma`` (the block's ray data and depths), ``repeat`` (each
+(row, column) reads its ray's data and z), ``pts`` (o + z d), ``theta`` (the
+angles), ``sin``, ``enc`` (rounded to bf16: the tiles B6's MLP reads). Each
+stage does the work of the one before it, so the difference between two
+lines is that stage's cost. A line is ms a call by CUDA events over
+back-to-back calls: where a stage's device time is below the host's time a
+call (``dma``), it reads the host; ``chip_smoke.py`` also reads each stage's
+device time with the profiler.
 
     python -m nerf_and_dietnerf_tpu_torch.tools.exp_enccost [--device cpu] [--tiles N]
 """

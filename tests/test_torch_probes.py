@@ -413,6 +413,150 @@ def test_enc_cost_checks_its_arguments():
         pk.enc_cost(rd, z, "pts", tm.MLPConfig(n_angles=0), r_t=8)
 
 
+class _FakeLaunchLib:
+    """P4's and P7's C functions: launches that record their arguments and
+    return ``rc``."""
+
+    def __init__(self):
+        self.calls, self.rc = [], 0
+
+    def nerf_probe_expand_a(self, *args):
+        self.calls.append(("expand_a", args))
+        return self.rc
+
+    def nerf_probe_enccost(self, *args):
+        self.calls.append(("enccost", args))
+        return self.rc
+
+
+STREAM = 7  # the fake card's current stream
+
+
+@pytest.fixture
+def fake_launch_card(monkeypatch):
+    """The P4 / P7 wrappers on CPU tensors as on the card: a fake library
+    and stream; the launch counts are restored afterwards."""
+    lib = _FakeLaunchLib()
+    monkeypatch.setattr(pk, "uses_kernel", lambda t: True)
+    monkeypatch.setattr(pk, "load", lambda name: lib)
+    monkeypatch.setattr(pk, "stream_of", lambda dev: STREAM)
+    counts = dict(kl.LAUNCHES)
+    yield lib
+    kl.LAUNCHES.update(counts)
+
+
+def test_expand_a_wrapper_launches_once_a_call(fake_launch_card):
+    zt = torch.randn(64, 64)
+    before = kl.LAUNCHES["probe_expand_a"]
+    out = pk.expand_a(zt)
+    assert out.shape == (4096, 1) and out.dtype == torch.float32 and out.is_contiguous()
+    assert fake_launch_card.calls == [("expand_a", (zt.data_ptr(), out.data_ptr(), 4096, STREAM))]
+    assert kl.LAUNCHES["probe_expand_a"] == before + 1
+    again = pk.expand_a(zt)
+    assert fake_launch_card.calls[1] == ("expand_a", (zt.data_ptr(), again.data_ptr(), 4096,
+                                                      STREAM))
+    assert kl.LAUNCHES["probe_expand_a"] == before + 2
+
+
+@pytest.mark.parametrize("bad", ["float64", "non_contiguous", "1d", "3d", "cuda_error"])
+def test_expand_a_wrapper_raises_without_launching(fake_launch_card, bad):
+    zt = {"float64": torch.zeros(64, 64, dtype=torch.float64),
+          "non_contiguous": torch.zeros(64, 128)[:, ::2],
+          "1d": torch.zeros(4096), "3d": torch.zeros(4, 64, 16),
+          "cuda_error": torch.zeros(64, 64)}[bad]
+    before = dict(kl.LAUNCHES)
+    if bad == "cuda_error":
+        fake_launch_card.rc = 700
+        with pytest.raises(RuntimeError, match="probe_expand_a launch failed: CUDA error 700"):
+            pk.expand_a(zt)
+        assert len(fake_launch_card.calls) == 1
+    else:
+        with pytest.raises(ValueError, match="contiguous \\(S, R_t\\) float32"):
+            pk.expand_a(zt)
+        assert fake_launch_card.calls == []
+    assert kl.LAUNCHES == before
+
+
+@pytest.mark.parametrize("stage", pk.ENC_STAGES)
+def test_enc_cost_wrapper_passes_its_arguments_and_stage_index(fake_launch_card, stage):
+    cfg = tm.MLPConfig()
+    rd, z = torch.randn(16, 9), 2.0 + torch.rand(16, 8)
+    before = kl.LAUNCHES["probe_enccost"]
+    out = pk.enc_cost(rd, z, stage, cfg, r_t=8)
+    assert out.shape == (128, 4) and out.dtype == torch.float32
+    index = {"dma": 0, "repeat": 1, "pts": 2, "theta": 3, "sin": 4, "enc": 5}[stage]
+    assert fake_launch_card.calls == [("enccost", (
+        index, rd.data_ptr(), z.data_ptr(), out.data_ptr(), 16, 8, cfg.n_freq_xyz,
+        cfg.n_freq_dir, cfg.n_angles + 1, 8, STREAM))]
+    assert kl.LAUNCHES["probe_enccost"] == before + 1
+
+
+@pytest.mark.parametrize("bad", ["rd_float64", "z_float64", "rd_non_contiguous",
+                                 "z_non_contiguous", "rd_1d", "z_1d", "rd_3d", "z_3d",
+                                 "cuda_error"])
+def test_enc_cost_wrapper_raises_without_launching(fake_launch_card, bad):
+    rd, z = torch.randn(16, 9), 2.0 + torch.rand(16, 8)
+    rd, z = {"rd_float64": (rd.double(), z), "z_float64": (rd, z.double()),
+             "rd_non_contiguous": (torch.randn(16, 18)[:, ::2], z),
+             "z_non_contiguous": (rd, torch.rand(16, 16)[:, ::2]),
+             "rd_1d": (rd.reshape(-1), z), "z_1d": (rd, z.reshape(-1)),
+             "rd_3d": (rd[None], z), "z_3d": (rd, z[..., None])}.get(bad, (rd, z))
+    before = dict(kl.LAUNCHES)
+    if bad == "cuda_error":
+        fake_launch_card.rc = 1
+        with pytest.raises(RuntimeError, match="probe_enccost launch failed: CUDA error 1"):
+            pk.enc_cost(rd, z, "enc", r_t=8)
+        assert len(fake_launch_card.calls) == 1
+    else:
+        with pytest.raises(ValueError):
+            pk.enc_cost(rd, z, "enc", r_t=8)
+        assert fake_launch_card.calls == []
+    assert kl.LAUNCHES == before
+
+
+def test_stream_of_reads_the_current_streams_raw_handle(monkeypatch):
+    seen = []
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: seen.append(index) or 1000 + index, raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert kl.stream_of(torch.device("cuda", 1)) == 1001
+    assert kl.stream_of(torch.device("cuda")) == 1003
+    assert seen == [1, 3]
+
+
+def test_enc_cost_probe_runs_b6s_input_build_at_b6s_geometry():
+    """P7 builds its stages with bf16 B6's input build (``build_mma_inputs``, its
+    default stage B6's own call) in B6's block and forward shared memory; the
+    stage enum lives with that cut, in the C interface's order, and the FMA
+    tile's ``build_inputs`` has no stage left."""
+    csrc = ROOT / "nerf_and_dietnerf_tpu_torch" / "csrc"
+    src = (csrc / "probe_enccost.cu").read_text()
+    tile = (csrc / "raymarch_tile.cuh").read_text()
+    common = (csrc / "raymarch_common.cuh").read_text()
+    fwd = (csrc / "raymarch_fwd.cu").read_text()
+    assert '#include "raymarch_tile.cuh"' in src
+    for line in ("    build_mma_inputs(ry, xyz, dir, row0, n, t.X, t.D);",
+                 "    build_mma_inputs<STAGE>(ry, xyz, dir, row0, n, X, D);",
+                 "  const nerf_mma::Tiles t = nerf_mma::make_tiles(smem16, false);",
+                 "__global__ void __launch_bounds__(nerf_mma::NT, 1)",
+                 "  return (int)launch_kernel(enc_cost_kernel<STAGE>, tiles, nerf_mma::NT,",
+                 "                            nerf_mma::fwd_smem_bytes(), stream, ry, xyz, dir, "
+                 "r_t, out);",
+                 "constexpr int ENC_DMA = 0;  // before the stages of build_mma_inputs (EncStage)"):
+        assert line in src, line
+    assert "  build_mma_inputs(ry, dm.xyz, dm.dir, row0, dm.n, t.X, t.D);" in fwd
+    assert ("launch_kernel(rm_fwd_mma_kernel, tiles, nerf_mma::NT, nerf_mma::fwd_smem_bytes(),"
+            in fwd)
+    assert "enum EncStage { ENC_REPEAT = 1, ENC_PTS, ENC_THETA, ENC_SIN, ENC_FULL };" in tile
+    assert "template <int STAGE = ENC_FULL, typename T = nerf_mma::bf16>" in tile
+    assert "EncStage" not in common and "STAGE" not in common
+    assert "template <typename T>\n__device__ void build_inputs(" in common
+    cases = [line.split()[1].rstrip(":") for line in src.splitlines()
+             if line.strip().startswith("case ENC_")]
+    stages = ["ENC_DMA", "ENC_REPEAT", "ENC_PTS", "ENC_THETA", "ENC_SIN", "ENC_FULL"]
+    assert cases == stages and len(pk.ENC_STAGES) == len(stages)
+
+
 # --------------------------------------------------------------------------- #
 # Wrappers and tools                                                           #
 # --------------------------------------------------------------------------- #
