@@ -134,7 +134,10 @@ Then the seven probe kernels (P1 ``probe_mma``, P2
 P7 ``probe_enccost``) are held against their plain versions at the probe
 tools' own shapes (P2's v3 and P3 at one and two chains bitwise bf16 B1, P3
 refusing four chains as its shared memory and registers predict; P2's and
-P3's times in turns with B1's), the five tools of ``nerf_and_dietnerf_tpu_torch/tools`` run
+P3's times in turns with B1's; P1, on bf16 ``wgmma``, at every case of
+``MXU_CASES`` with its TFLOP/s and share of the bound, no ``wgmma``
+serialized in its build log, HGMMA and no HMMA in its SASS; P6 in turns with
+its library and plain compositions, with its wrapper's host split), the five tools of ``nerf_and_dietnerf_tpu_torch/tools`` run
 through their ``main([])`` (launch counts set to 0 before each), and four
 "pallas_rm" steps, then four "pallas" steps run under
 ``utils.profiling.trace``: the device's idle share,
@@ -1689,6 +1692,7 @@ TOL_EXPAND_C = 1e-4
 TOL_ENC = {"dma": 1e-6, "repeat": 1e-6, "pts": 1e-6, "theta": 1e-4}
 N_PROBE_ROWS = 786432  # the epilogue and chains tools' row count
 MXU_CASES = ((2048, 32, 1), (2048, 32, 4), (8192, 32, 1), (512, 32, 4), (2048, 8, 1))
+MXU_CALLS = 20  # P1's calls a case between two events
 
 
 # A full-range f32 `sinf` in FLOPs of the f32 peak: about 20 instructions on its
@@ -1734,6 +1738,10 @@ HOST_SPLIT_CALLS = 2000
 PROFILED_CALLS = 200
 ENC_TURN_CALLS = 50
 B6_TURN_CALLS = 20
+# P6's calls a pass in turns with its library and plain compositions, and
+# the warm calls a step of its host split.
+P6_TURN_CALLS = 200
+P6_SPLIT_CALLS = 200
 
 
 def _host_split_us(torch, steps: dict, calls: int) -> dict:
@@ -1833,16 +1841,38 @@ def probe_kernel_phases(torch, timings: dict) -> None:
             h = (h @ w) * 0.01
         return h.float().sum(0)
 
+    # Every case: ms a call (MXU_CALLS back-to-back calls between two
+    # events), TFLOP/s and the share of the bound; at the first case the
+    # device µs of the W pack's gather, the chain and the reduce (profiler).
+    def p1_bound(a, b):
+        return _bound(2 * a * 256 * 256 * b * steps, PEAK_FLOPS["bfloat16"],
+                      w.numel() * 2 + steps * 8 * 256 * 4)
+
+    cases = {}
+    for a, b, c in MXU_CASES:
+        ms = _time_ms(torch, lambda: pk.mxu_chain(w, a, b, c, steps), reps=MXU_CALLS)
+        cases[f"{a}:{b}:{c}"] = {"ms": ms, "tflops": 2 * a * 256 * 256 * b * steps / ms / 1e9,
+                                 "share_of_bound": p1_bound(a, b)[0] / ms}
+    dev_p1 = _profiled_device_us(torch, {"p1": lambda: pk.mxu_chain(w, m, depth, chains, steps)},
+                                 {"pack": "gather", "chain": "mma_chain_kernel",
+                                  "reduce": "mma_chain_reduce"})
+    first = cases[f"{m}:{depth}:{chains}"]
+    sass_p1 = timings.get("sass", {}).get("probe_mma_chain")
     rec["probe_mma"] = _probe_record(
-        torch, lambda: pk.mxu_chain(w, m, depth, chains, steps),
-        lambda: pk.mxu_chain_plain(w, m, depth, chains, steps),
-        lambda: [lib_chain() for _ in range(steps)], errs[MXU_CASES[0]],
-        _bound(2 * m * 256 * 256 * depth * steps, PEAK_FLOPS["bfloat16"],
-               w.numel() * 2 + steps * 8 * 256 * 4),
-        m=m, depth=depth, chains=chains, steps=steps,
+        torch, None, lambda: pk.mxu_chain_plain(w, m, depth, chains, steps),
+        lambda: [lib_chain() for _ in range(steps)], errs[MXU_CASES[0]], p1_bound(m, depth),
+        ms=first["ms"], m=m, depth=depth, chains=chains, steps=steps,
         library="torch.matmul chain in bf16 (cuBLAS), one per step",
-        ms_cases={f"{a}:{b}:{c}": _time_ms(torch, lambda: pk.mxu_chain(w, a, b, c, steps))
-                  for a, b, c in MXU_CASES})
+        design="bf16 wgmma m64n256k16 (A in registers, W in shared memory by descriptor), "
+               "two warpgroups a block, a unit a (64-row tile, chain)",
+        ms_cases={k: v["ms"] for k, v in cases.items()}, cases=cases,
+        tflops=first["tflops"], share_of_bound=first["share_of_bound"],
+        device_us={k: v and v["us"] for k, v in dev_p1.items()}, ptxas=sass_p1)
+    log("P1 ms a call (" + f"{MXU_CALLS} calls), TFLOP/s, share of bound: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms, {v['tflops']:.1f}, {100 * v['share_of_bound']:.1f} %"
+        for k, v in cases.items()) + f"; device us a call at {m}:{depth}:{chains} (profiler): "
+        + ", ".join(f"{k} {v and round(v['us'], 3)}" for k, v in dev_p1.items())
+        + f"; registers, spill bytes, SASS HGMMA / HMMA {sass_p1}")
 
     # P2, P3 --------------------------------------------------------------- #
     # Both run bf16 B1's tensor-core tile: P2 v3 and P3 at every chain count
@@ -2009,16 +2039,17 @@ def probe_kernel_phases(torch, timings: dict) -> None:
         if out_k.shape != out_p.shape or not torch.isfinite(out_k).all() or e > tol:
             raise AssertionError(f"{kname}: scaled err {e} > {tol}")
         log(f"kernel check {kname} {tuple(out_k.shape)}: scaled err {e:.3e} (tol {tol})")
-        rows = out_k.shape[0]
+        rows, err = out_k.shape[0], float((out_k - out_p).abs().max())
         if kname == "probe_expand_c":
             fl = rows * (2 * (6 * n_theta + n_theta * n_enc) + SINF_FLOPS * n_theta)
             nbytes = 4 * (3 * px.numel() + vc.numel() + sc.numel() + gx.numel() + out_k.numel())
-            lib = plain_fn  # two torch.matmul and torch.sin: the library's form
-        else:
-            fl = out_k.numel()
-            nbytes = 4 * ((zt if kname == "probe_expand_a" else rd8).numel() + out_k.numel())
-            lib = plain_fn  # one broadcast add / repeat-and-scale in torch
-        rec[kname] = _probe_record(torch, fn, plain_fn, lib, float((out_k - out_p).abs().max()),
+            bound = _bound(fl, PEAK_FLOPS["float32"], nbytes)
+            rec[kname] = {"bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": err,
+                          "rows": rows}
+            continue  # timed in turns below
+        fl = out_k.numel()
+        nbytes = 4 * ((zt if kname == "probe_expand_a" else rd8).numel() + out_k.numel())
+        rec[kname] = _probe_record(torch, fn, plain_fn, plain_fn, err,
                                    _bound(fl, PEAK_FLOPS["float32"], nbytes), rows=rows,
                                    library="the plain version's torch calls")
     # P4 is a launch's worth of work, so its time a call is the host's: the
@@ -2084,6 +2115,86 @@ def probe_kernel_phases(torch, timings: dict) -> None:
         f"{a['host_sum_parent_us']:.3f}")
     if dev_a["kernel"] is None:
         log("P4: the profiler recorded no device time for expand_a_kernel")
+
+    # P6: the kernel, its plain version and its library composition in turns
+    # (P6_TURN_CALLS calls a pass, kernel library plain plain library
+    # kernel); device µs a launch of the kernel and a call of the two torch
+    # compositions (every device operation of the call, profiler); the
+    # wrapper's host time step by step, each of its lean steps beside the
+    # generic form the parent took (P6_SPLIT_CALLS warm calls a step: few
+    # enough that the launching steps never wait for the card).
+    def lib_c():  # the fewest torch calls: theta as two broadcast products, sin, one product
+        pts = torch.stack((px, py, pz), dim=-1).view(n_tiles, n_s, r_t, 3)
+        th = pts @ sc[:3] + vc.view(n_tiles, 1, r_t, 3) @ sc[3:]
+        return torch.sin(th).view(-1, n_theta) @ gx
+
+    c = rec["probe_expand_c"]
+    out_c, out_lib = pk.expand_c(px, py, pz, vc, sc, gx), lib_c()
+    torch.cuda.synchronize()
+    e_lib = _scaled_err(out_lib, pk.expand_c_plain(px, py, pz, vc, sc, gx))
+    if not e_lib <= TOL_EXPAND_C:
+        raise AssertionError(f"P6's library composition is {e_lib} from the plain version")
+    turns_c, passes_c = _in_turns(torch, {
+        "kernel": lambda: pk.expand_c(px, py, pz, vc, sc, gx), "library": lib_c,
+        "plain": lambda: pk.expand_c_plain(px, py, pz, vc, sc, gx)}, P6_TURN_CALLS)
+    dev_c = _profiled_device_us(torch, {"kernel": lambda: pk.expand_c(px, py, pz, vc, sc, gx)},
+                                {"kernel": "expand_c_kernel"})["kernel"]
+    # A composition's device µs a call: all its device operations ("" matches
+    # every name), their µs a launch times their launches, over the calls.
+    calls_us = {name: _profiled_device_us(torch, {name: fn}, {name: ""})[name] for name, fn in (
+        ("library", lib_c), ("plain", lambda: pk.expand_c_plain(px, py, pz, vc, sc, gx)))}
+    lib_us, plain_us = (v and v["us"] * v["launches"] / PROFILED_CALLS for v in calls_us.values())
+    fn_c = kl.load("probe_expand").nerf_probe_expand_c
+    ins = (px, py, pz, vc, sc, gx)
+    ptrs_c = (*(t.data_ptr() for t in ins), out_c.data_ptr(), n_tiles, r_t, n_s, n_theta, n_enc,
+              kl.stream_of(px.device))
+    split_c = _host_split_us(torch, {
+        "device test (uses_kernel)": lambda: pk.uses_kernel(px),
+        "shapes (_expand_c_shapes)": lambda: pk._expand_c_shapes(px, vc, sc, gx),
+        "checks, parent (check_tensors, six tensors)": lambda: kl.check_tensors(
+            [(px, (n_tiles * n_s, r_t), f32), (py, px.shape, f32), (pz, px.shape, f32),
+             (vc, (n_tiles * r_t, 3), f32), (sc, (6, n_theta), f32),
+             (gx, (n_theta, n_enc), f32)], px.device),
+        "checks, lean (inline, the wrapper's)": lambda: [
+            t.shape != shape or t.dtype != f32 or t.device != px.device or not t.is_contiguous()
+            for t, shape in ((px, (n_tiles * n_s, r_t)), (py, px.shape), (pz, px.shape),
+                             (vc, (n_tiles * r_t, 3)), (sc, (6, n_theta)),
+                             (gx, (n_theta, n_enc)))],
+        "alloc, parent (torch.empty)": lambda: torch.empty(
+            (out_c.shape[0], n_enc), dtype=f32, device=px.device),
+        "alloc, lean (new_empty, the wrapper's)": lambda: px.new_empty((out_c.shape[0], n_enc)),
+        "load() and the lookup": lambda: kl.load("probe_expand").nerf_probe_expand_c,
+        "stream (stream_of)": lambda: kl.stream_of(px.device),
+        "data_ptr x7": lambda: tuple(t.data_ptr() for t in (*ins, out_c)),
+        "ctypes call with the launch": lambda: fn_c(*ptrs_c),
+        "ctypes call, no launch (n_tiles = 0)": lambda: fn_c(*ptrs_c[:7], 0, *ptrs_c[8:]),
+        "launched": lambda: kl.launched("probe_expand_c", 0),
+        "whole wrapper (expand_c)": lambda: pk.expand_c(px, py, pz, vc, sc, gx),
+        "library composition": lib_c,
+    }, P6_SPLIT_CALLS)
+    generic = (split_c["checks, parent (check_tensors, six tensors)"]
+               + split_c["alloc, parent (torch.empty)"])
+    c.update(ms=turns_c["kernel"], library_ms=turns_c["library"], plain_ms=turns_c["plain"],
+             ms_in_turns=turns_c, ms_passes=passes_c, turn_calls=P6_TURN_CALLS,
+             device_us=dev_c and dev_c["us"], device_us_passes=dev_c and dev_c["passes"],
+             library_device_us=lib_us, plain_device_us=plain_us,
+             host_split_us=split_c, host_split_calls=P6_SPLIT_CALLS,
+             host_parent_checks_and_alloc_us=generic,
+             design="a thread a row: theta, sinf and the row's 33 sums in registers, sc and gx "
+                    "in shared memory (broadcast float4 loads), outputs staged over them and "
+                    "written coalesced; 256 rows a block, two blocks an SM; a lean wrapper",
+             library="theta as two broadcast torch.matmul, torch.sin, one torch.matmul",
+             plain="expand_c_plain: stack, expand, cat, torch.matmul, torch.sin, torch.matmul",
+             ptxas=timings.get("sass", {}).get("probe_kernels", {}).get("P6"))
+    log(f"P6 ms a call in turns ({P6_TURN_CALLS} calls a pass): kernel {turns_c['kernel']:.5f}, "
+        f"library {turns_c['library']:.5f}, plain {turns_c['plain']:.5f} (passes {passes_c}); "
+        f"device us: kernel a launch {dev_c and round(dev_c['us'], 3)}, library a call "
+        f"{lib_us and round(lib_us, 3)}, plain a call {plain_us and round(plain_us, 3)}; bound "
+        f"{c['bound_ms'] * 1e3:.2f} us ({c['bound_by']}); library's scaled err {e_lib:.2e}")
+    log(f"P6 host split (us, median of {P6_SPLIT_CALLS} warm calls a step): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in split_c.items())
+        + f"; the parent's checks and torch.empty {generic:.3f} against the kernel's device "
+        f"{dev_c and round(dev_c['us'], 3)}")
 
     # P7 ------------------------------------------------------------------- #
     n_rays = 64 * r_t
@@ -4568,7 +4679,7 @@ def embedder_phase(torch, timings: dict) -> None:
 # The kernels whose products must run on the tensor cores, and the SASS
 # instruction they must hold: bf16 B1/B2/B4-B7, the f32 backwards of B2 and
 # B4-B7 and the f32 forwards of B4 and B7 on `mma.sync` (HMMA; tf32 for the
-# f32 ones), f32 B1/B6 forward on `wgmma` (HGMMA).
+# f32 ones), f32 B1/B6 forward and the probe P1 (bf16) on `wgmma` (HGMMA).
 MMA_KERNELS = {"mlp_fwd": {"mlp_fwd_mma_kernel": "HMMA", "mlp_fwd_tf32_kernel": "HGMMA"},
                "mlp_bwd": {"mlp_bwd_mma_kernel": "HMMA", "mlp_bwd_t32_kernel": "HMMA"},
                "raymarch_fwd": {"rm_fwd_mma_kernel": "HMMA", "rm_fwd_tf32_kernel": "HGMMA"},
@@ -4584,7 +4695,11 @@ MMA_KERNELS = {"mlp_fwd": {"mlp_fwd_mma_kernel": "HMMA", "mlp_fwd_tf32_kernel": 
                "mlp_comp_bwd": {"mlp_comp_bwd_mma_kernel": "HMMA",
                                 "mlp_comp_bwd_t32_kernel": "HMMA"},
                "probe_mlp_epilogue": {"mlp_fwd_variant_kernel": "HMMA"},
-               "probe_mlp_chains": {"mlp_fwd_chains_kernel": "HMMA"}}
+               "probe_mlp_chains": {"mlp_fwd_chains_kernel": "HMMA"},
+               "probe_mma": {"mma_chain_kernel": "HGMMA"}}
+# What ptxas prints when it serializes a kernel's `wgmma` (accumulator or A
+# registers touched inside the asynchronous region, or too few registers).
+WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"
 # The kernels on the tensor-core tiles whose registers, spills and SASS
 # counts the run prints side by side: the bf16 backwards (B2, B6, B7, B5, B4),
 # the forwards of the ray-group loop (B4, B7) and the f32 backwards (B2, B7,
@@ -4648,7 +4763,10 @@ def tensor_core_report(kl, build_log: str) -> dict:
     blocks = ptxas_blocks(build_log)
     entries = {lib: ptxas_entries(blocks.get(lib, [])) for lib in
                {lib for _, kernels in REPORTED for lib in kernels} | set(PROBE_INSTANCES)
-               | set(PROBE_LIBS)}
+               | set(PROBE_LIBS) | {"probe_mma"}}
+    serialized = [line for line in blocks.get("probe_mma", []) if WGMMA_SERIALIZED in line]
+    if serialized:
+        raise AssertionError(f"probe_mma: ptxas serialized its wgmma: {serialized}")
     for lib in MMA_KERNELS:
         for line in blocks.get(lib, []):
             if "ptxas" in line:
@@ -4685,6 +4803,15 @@ def tensor_core_report(kl, build_log: str) -> dict:
             report[key][kernel] = {**ptxas.get(kernel, {}), "HMMA": sass["HMMA"]}
         log(f"{key} on the tensor-core tiles (registers, spill bytes, SASS HMMA): "
             f"{report[key]}")
+    chain = {f: c for f, c in report["probe_mma"].items() if "mma_chain_kernel" in f}
+    if any(c["HMMA"] for c in chain.values()):
+        raise AssertionError(f"probe_mma: mma.sync (HMMA) in mma_chain_kernel: {chain}")
+    report["probe_mma_chain"] = {**next(v for f, v in entries["probe_mma"].items()
+                                        if "mma_chain_kernel" in f),
+                                 **{op: sum(c[op] for c in chain.values())
+                                    for op in ("HGMMA", "HMMA")}}
+    log(f"P1 mma_chain_kernel (registers, spill bytes, SASS HGMMA / HMMA): "
+        f"{report['probe_mma_chain']}")
     report["probes"] = {}
     for lib, labels in PROBE_INSTANCES.items():
         for fname, c in report[lib].items():
@@ -4873,6 +5000,16 @@ def main() -> int:
         f"device us a launch {r['device_us'] and r['device_us']['us']}; host us: lean steps "
         f"{r['host_sum_lean_us']:.3f}, parent's {r['host_sum_parent_us']:.3f}, whole wrapper "
         f"{r['host_split_us']['whole wrapper (expand_a)']:.3f}")
+    r = timings["probes"]["probe_mma"]
+    log(f"[{card}] P1 ms a call, share of bound: " + ", ".join(
+        f"{k} {v['ms']:.4f} ({100 * v['share_of_bound']:.1f} %)" for k, v in r["cases"].items())
+        + f"; device us at the first case {r['device_us']}; {r['ptxas']}")
+    r = timings["probes"]["probe_expand_c"]
+    log(f"[{card}] P6 ms a call in turns: kernel {r['ms']:.5f}, library {r['library_ms']:.5f}, "
+        f"plain {r['plain_ms']:.5f}; device us: kernel {r['device_us']}, library "
+        f"{r['library_device_us']}, plain {r['plain_device_us']}; bound "
+        f"{r['bound_ms'] * 1e3:.2f} us; whole wrapper on the host "
+        f"{r['host_split_us']['whole wrapper (expand_c)']:.3f} us; {r['ptxas']}")
     r = timings["probes"]["probe_enccost"]
     log(f"[{card}] P7 stages, ms a call in turns: "
         + ", ".join(f"{k} {v:.5f}" for k, v in r["ms_stages"].items())

@@ -17,18 +17,36 @@
 // latency (microseconds), so A's device time is that latency and its time a
 // call is the host's: the wrapper and the launch. B writes 4 bytes an
 // element. C operations: per row 6 T + T E multiply-adds and T sinf against
-// 12 + 12 / S bytes in and 4 E out.
+// 12 + 12 / S bytes in and 4 E out; at the tool's 65,536 rows (T = 114, E =
+// 33) 0.58 GFLOP of FMAs and 7.5 M sinf at 40 FLOP each over 67 TFLOP/s,
+// 0.0132 ms (bytes would give 0.0029).
 //
 // What the design does about that: A is one thread per four outputs, with
 // 16-byte loads and stores where both pointers are 16-byte aligned, and one
 // thread per output for the tail (and for pointers that are not). Its
 // wrapper (ops/probe_kernels_cuda.expand_a) is the lean launch path: one
 // inline check, `new_empty` for the output, the stream read as its raw
-// handle. B is one thread per output element. In C a block takes 64
-// consecutive rows of one tile, keeps sc and gx in shared memory, builds the
-// rows' sin(theta) into a shared tile (one thread per (row, column),
-// full-range sinf) and then one thread per (row, output column) sums its T
-// products in column order.
+// handle. B is one thread per output element.
+//
+// C. The former design had one thread per (row, column) write sin(theta)
+// to a shared tile, then one thread per (row, output column) sum its T
+// products; every FMA of both phases read two operands from shared memory
+// (sin_s and gx_s, u_s and sc_s), about 16 M warp-wide loads, about one a
+// clock an SM: reckoned 0.08 ms of the 0.123 it took a call on an H100 SXM.
+// Here a thread owns a whole row: it
+// reads the row's six inputs from global memory once (consecutive threads
+// take consecutive rows of px, py, pz: coalesced), then walks the T angle
+// columns in order, each time computing theta (six FMAs in k order) and the
+// full-range sinf in registers and adding sin * gx[c, :] into E <= 33
+// register accumulators (one f32 chain each in ascending c): the sines
+// never touch shared memory, and every shared load of the loop (a column of
+// sc, a row of gx, as float4) is one address for the whole warp and feeds 4
+// FMAs. The block keeps sc (transposed) and gx in shared memory, then stages
+// its outputs over them and writes them out coalesced; at 34 KB (no launch
+// attribute to set) and 256 threads two blocks share an SM, so one block's
+// sines overlap another's products. Each output takes the former kernel's
+// f32 operations in the former order. Its wrapper takes P4's lean path: its
+// checks inline, `new_empty` for the output.
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -36,7 +54,7 @@
 namespace {
 
 constexpr int NT = 256;
-constexpr int ROWS = 64;  // rows of a block in probe C
+constexpr int MAX_E = 33;  // output columns probe C takes: the TPU probe's encode width
 
 // (S, R_t) row-major already holds row s * R_t + r at flat index s * R_t + r.
 // Threads [0, n4) take four outputs each, the rest one each from 4 n4 on.
@@ -63,47 +81,82 @@ __global__ void expand_b_kernel(const float* __restrict__ rd, float* __restrict_
   out[i] = rd[(row % r_t) * width + c] * 2.0f;
 }
 
-__global__ void __launch_bounds__(NT)
+// C: a thread a row, C_ROWS consecutive rows a block; rows are global
+// (tile tile_rows + s R_t + r is px's flat index).
+constexpr int C_ROWS = 256;
+
+constexpr int GS = (MAX_E + 3) & ~3;  // floats of a gx row in shared memory: float4s
+
+// sc and gx for the loop, then the block's staged outputs over them.
+constexpr size_t expand_c_smem(int T, int E) {
+  const size_t tables = (size_t)8 * T + (size_t)GS * T, staged = (size_t)C_ROWS * E;
+  return sizeof(float) * (tables > staged ? tables : staged);
+}
+
+// MAX_E accumulators a row; the columns past E are computed and dropped.
+__global__ void __launch_bounds__(C_ROWS, 2)
     expand_c_kernel(const float* __restrict__ px, const float* __restrict__ py,
                     const float* __restrict__ pz, const float* __restrict__ vc,
                     const float* __restrict__ sc, const float* __restrict__ gx,
-                    float* __restrict__ out, int r_t, int n_s, int T, int E) {
-  extern __shared__ float smem[];
-  float* sc_s = smem;               // (6, T)
-  float* gx_s = sc_s + 6 * T;       // (T, E)
-  float* u_s = gx_s + T * E;        // (ROWS, 6)
-  float* sin_s = u_s + ROWS * 6;    // (ROWS, T)
-  const int tid = threadIdx.x;
-  const int tile_rows = n_s * r_t;
-  const int blocks_per_tile = (tile_rows + ROWS - 1) / ROWS;
-  const int tile = blockIdx.x / blocks_per_tile;
-  const int row0 = (blockIdx.x % blocks_per_tile) * ROWS;  // within the tile
-  const int rows = min(ROWS, tile_rows - row0);
+                    float* __restrict__ out, int r_t, int tile_rows, int n_rows, int T, int E) {
+  extern __shared__ __align__(16) float smem[];
+  float* sct = smem;         // (T, 8): sc[k, c] at sct[8 c + k], k < 6
+  float* gxs = sct + 8 * T;  // (T, GS): gx, zero past E
+  float* outs = smem;        // (C_ROWS, E): the block's outputs, once sc and gx are done
+  const int tid = threadIdx.x, row0 = blockIdx.x * C_ROWS, row = row0 + tid;
 
-  for (int i = tid; i < 6 * T; i += NT) sc_s[i] = sc[i];
-  for (int i = tid; i < T * E; i += NT) gx_s[i] = gx[i];
-  for (int i = tid; i < rows * 6; i += NT) {
-    const int row = row0 + i / 6, c = i % 6;
-    const int s = row / r_t, r = row % r_t;
-    const float* p = c == 0 ? px : c == 1 ? py : pz;
-    u_s[i] = c < 3 ? p[(size_t)(tile * n_s + s) * r_t + r]
-                   : vc[(size_t)(tile * r_t + r) * 3 + (c - 3)];
+  // Unrolled, so that a thread's global loads are in flight together.
+#pragma unroll 4
+  for (int i = tid; i < 8 * T; i += C_ROWS) {
+    const int c = i >> 3, k = i & 7;
+    sct[i] = k < 6 ? sc[k * T + c] : 0.f;
   }
+#pragma unroll 8
+  for (int i = tid; i < GS * T; i += C_ROWS) {
+    const int c = i / GS, e = i % GS;
+    gxs[i] = e < E ? gx[c * E + e] : 0.f;
+  }
+  // u = [px | py | pz | vc] of the thread's row (a row past n: 0).
+  const bool in = row < n_rows;
+  const size_t v = in ? ((size_t)(row / tile_rows) * r_t + row % r_t) * 3 : 0;
+  const float u[6] = {in ? px[row] : 0.f, in ? py[row] : 0.f, in ? pz[row] : 0.f,
+                      in ? vc[v] : 0.f,   in ? vc[v + 1] : 0.f, in ? vc[v + 2] : 0.f};
   __syncthreads();
-  for (int i = tid; i < rows * T; i += NT) {
-    const int r = i / T, c = i % T;
-    float th = 0.f;
+
+  float acc[MAX_E];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) th = fmaf(u_s[r * 6 + k], sc_s[k * T + c], th);
-    sin_s[i] = sinf(th);
+  for (int e = 0; e < MAX_E; ++e) acc[e] = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < T; ++c) {
+    const float4 s0 = *reinterpret_cast<const float4*>(sct + 8 * c);
+    const float4 s1 = *reinterpret_cast<const float4*>(sct + 8 * c + 4);
+    float th = 0.f;
+    th = fmaf(u[0], s0.x, th);
+    th = fmaf(u[1], s0.y, th);
+    th = fmaf(u[2], s0.z, th);
+    th = fmaf(u[3], s0.w, th);
+    th = fmaf(u[4], s1.x, th);
+    th = fmaf(u[5], s1.y, th);
+    const float sn = sinf(th);
+    const float4* g4 = reinterpret_cast<const float4*>(gxs + GS * c);
+#pragma unroll
+    for (int q = 0; q < GS / 4; ++q) {
+      const float4 w4 = g4[q];
+      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * q + e < MAX_E) acc[4 * q + e] = fmaf(sn, w[e], acc[4 * q + e]);
+    }
   }
   __syncthreads();
-  for (int i = tid; i < rows * E; i += NT) {
-    const int r = i / E, c = i % E;
-    float v = 0.f;
-    for (int k = 0; k < T; ++k) v = fmaf(sin_s[r * T + k], gx_s[k * E + c], v);
-    out[((size_t)tile * tile_rows + row0 + r) * E + c] = v;
-  }
+  float* o = outs + tid * E;
+#pragma unroll
+  for (int e = 0; e < MAX_E; ++e)
+    if (e < E) o[e] = acc[e];
+  __syncthreads();
+  const int rows = min(C_ROWS, n_rows - row0);
+#pragma unroll 4
+  for (int i = tid; i < rows * E; i += C_ROWS) out[(size_t)row0 * E + i] = outs[i];
 }
 
 }  // namespace
@@ -132,11 +185,13 @@ extern "C" int nerf_probe_expand_c(const float* px, const float* py, const float
                                    const float* vc, const float* sc, const float* gx, float* out,
                                    int n_tiles, int r_t, int n_s, int T, int E, void* stream) {
   if (n_tiles <= 0 || r_t <= 0 || n_s <= 0) return 0;
-  const size_t smem = sizeof(float) * ((size_t)6 * T + (size_t)T * E + ROWS * 6 + (size_t)ROWS * T);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(expand_c_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  const int blocks = n_tiles * ((n_s * r_t + ROWS - 1) / ROWS);
-  expand_c_kernel<<<blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      px, py, pz, vc, sc, gx, out, r_t, n_s, T, E);
+  const size_t smem = expand_c_smem(T, E);
+  if (T < 0 || E <= 0 || E > MAX_E || smem > 232448) return (int)cudaErrorInvalidValue;
+  const int n_rows = n_tiles * n_s * r_t;
+  if (smem > 48 * 1024)  // above what a block gets without asking (not at the tools' shapes)
+    cudaFuncSetAttribute(expand_c_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  expand_c_kernel<<<(n_rows + C_ROWS - 1) / C_ROWS, C_ROWS, smem,
+                    static_cast<cudaStream_t>(stream)>>>(px, py, pz, vc, sc, gx, out, r_t,
+                                                         n_s * r_t, n_rows, T, E);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,7 @@ CPU; for a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional
 
@@ -79,10 +80,36 @@ def mxu_chain_plain(w: torch.Tensor, m: int, depth: int, n_chains: int,
     return row.expand(steps * 8, MXU_WIDTH).contiguous()
 
 
+def kmajor_offset(n, k, np_: int):
+    """Element offset of entry ``(n, k)`` of an ``np_``-row W^T in the bf16
+    ``wgmma`` B layout (``kmajor_offset`` of ``csrc/wgmma_bf16.cuh``; ``n``,
+    ``k`` ints or integer tensors): k-steps of 16 columns, ``np_ x 16`` each,
+    as core matrices of 8 rows x 8 columns (128 contiguous bytes), the two of
+    an 8-row group side by side, the groups 256 bytes apart."""
+    return ((k // 16) * np_ * 16 + (n // 8) * 128 + ((k % 16) // 8) * 64 + (n % 8) * 8
+            + k % 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _mxu_pack_index(device) -> torch.Tensor:
+    """Index of each entry of P1's W pack in ``w.reshape(-1)``, on ``device``."""
+    n, k = torch.meshgrid(torch.arange(MXU_WIDTH), torch.arange(MXU_WIDTH), indexing="ij")
+    idx = torch.empty(MXU_WIDTH * MXU_WIDTH, dtype=torch.long)
+    idx[kmajor_offset(n, k, MXU_WIDTH).reshape(-1)] = (k * MXU_WIDTH + n).reshape(-1)
+    return idx.to(device)
+
+
+def mxu_pack(w: torch.Tensor) -> torch.Tensor:
+    """P1's ``w`` (256, 256) as the kernel's bulk copies read it: W^T in the
+    layout of :func:`kmajor_offset`, flat, one gather through a cached index."""
+    return torch.index_select(w.reshape(-1), 0, _mxu_pack_index(w.device))
+
+
 def mxu_chain(w: torch.Tensor, m: int, depth: int, n_chains: int, steps: int = 8) -> torch.Tensor:
-    """P1: the chain of :func:`mxu_chain_plain` as ``mma.sync`` products with
-    ``w`` (256, 256) bf16 held in shared memory. ``m`` is a multiple of 16.
-    The result is bitwise reproducible."""
+    """P1: the chain of :func:`mxu_chain_plain` as bf16 ``wgmma`` products, a
+    warpgroup a unit of 64 rows of one chain, ``w`` (256, 256) bf16 held in
+    shared memory (:func:`mxu_pack`'s layout). ``m`` is a multiple of 16. The
+    result is bitwise reproducible."""
     if m <= 0 or m % 16 or depth < 0 or n_chains <= 0 or steps <= 0:
         raise ValueError(f"need m a positive multiple of 16, n_chains and steps positive; got "
                          f"m={m} depth={depth} n_chains={n_chains} steps={steps}")
@@ -91,12 +118,13 @@ def mxu_chain(w: torch.Tensor, m: int, depth: int, n_chains: int, steps: int = 8
     dev = w.device
     check_tensors([(w, (MXU_WIDTH, MXU_WIDTH), _BF16)], dev)
     lib = load("probe_mma")
-    units = steps * -(-m // lib.nerf_probe_mma_unit_rows())
+    units = steps * -(-m // lib.nerf_probe_mma_unit_rows()) * n_chains
     n_blocks = min(units, torch.cuda.get_device_properties(dev).multi_processor_count)
+    pack = mxu_pack(w)  # held until queued
     partial = torch.empty((units, MXU_WIDTH), dtype=torch.float32, device=dev)
     out = torch.empty((steps * 8, MXU_WIDTH), dtype=torch.float32, device=dev)
-    rc = lib.nerf_probe_mma(w.data_ptr(), partial.data_ptr(), out.data_ptr(), m, depth, n_chains,
-                            steps, n_blocks, stream_of(dev))
+    rc = lib.nerf_probe_mma(pack.data_ptr(), partial.data_ptr(), out.data_ptr(), m, depth,
+                            n_chains, steps, n_blocks, stream_of(dev))
     launched("probe_mma", rc)
     return out
 
@@ -328,6 +356,9 @@ def expand_b(rd: torch.Tensor, n_samples: int) -> torch.Tensor:
     return out
 
 
+EXPAND_C_MAX_E = 33  # P6's register sums a row: the TPU probe's encode width (MAX_E)
+
+
 def _expand_c_shapes(px, vc, sc, gx):
     """``(n_tiles, R_t, S, T, E)`` of P6's inputs."""
     r_t = px.shape[1]
@@ -352,16 +383,24 @@ def expand_c_plain(px, py, pz, vc, sc, gx) -> torch.Tensor:
 
 
 def expand_c(px, py, pz, vc, sc, gx) -> torch.Tensor:
-    """P6 (see :func:`expand_c_plain`); the two small products are loops in
-    the kernel."""
+    """P6 (see :func:`expand_c_plain`): a thread a row, theta, its sine and
+    the row's ``E`` sums in registers (``E`` at most
+    :data:`EXPAND_C_MAX_E`), each output one f32 chain in ascending angle
+    column. Its device time is tens of µs, so the path to the launch is P4's
+    lean one: the checks inline, ``new_empty`` for the output."""
     if not uses_kernel(px):
         return expand_c_plain(px, py, pz, vc, sc, gx)
     n_tiles, r_t, n_s, n_theta, n_enc = _expand_c_shapes(px, vc, sc, gx)
-    f32 = torch.float32
-    check_tensors([(px, (n_tiles * n_s, r_t), f32), (py, px.shape, f32), (pz, px.shape, f32),
-                   (vc, (n_tiles * r_t, 3), f32), (sc, (6, n_theta), f32),
-                   (gx, (n_theta, n_enc), f32)], px.device)
-    out = torch.empty((n_tiles * n_s * r_t, n_enc), dtype=f32, device=px.device)
+    if n_enc > EXPAND_C_MAX_E:
+        raise ValueError(f"P6's kernel holds at most {EXPAND_C_MAX_E} output columns, got {n_enc}")
+    dev = px.device
+    for t, shape in ((px, (n_tiles * n_s, r_t)), (py, px.shape), (pz, px.shape),
+                     (vc, (n_tiles * r_t, 3)), (sc, (6, n_theta)), (gx, (n_theta, n_enc))):
+        if t.shape != shape or t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"expected a contiguous {tuple(shape)} float32 tensor on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}, contiguous "
+                             f"{t.is_contiguous()}")
+    out = px.new_empty((n_tiles * n_s * r_t, n_enc))
     if out.numel() == 0:
         return out
     rc = load("probe_expand").nerf_probe_expand_c(

@@ -16,6 +16,12 @@ and written for ``--vit-weights``; its within- and across-scene cosines):
     python -m nerf_and_dietnerf_tpu_torch.tools.parity_gpu --out PARITY_GPU.json
     python -m nerf_and_dietnerf_tpu_torch.tools.train_scene_embedder --out v.npz --scenes A B
 
+Probe profile: ``probe_cuts`` (where P1's and P6's time goes: cut and
+``clock64``-stamped copies of their kernels timed in turns against the
+port's build; on the card):
+
+    python -m nerf_and_dietnerf_tpu_torch.tools.probe_cuts --out chiprun_out/cuts.jsonl
+
 Build check: ``sass_diff`` (whether a change leaves the compiled kernels'
 SASS and ptxas lines as a parent checkout's; on the machine with the CUDA
 toolkit):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Tensor-core probe: sustained rate of a chain of (M, 256) @ (256, 256) bf16
-products (``mma.sync``, f32 sums) with W held in shared memory and nothing
+products (bf16 ``wgmma``, f32 sums) with W held in shared memory and nothing
 read from device memory inside the chain (the input is made in the kernel).
 
 - chains=1: ``depth`` dependent products (h = h @ w)

@@ -12,8 +12,10 @@ The CUDA kernels themselves are held against the same plain versions on the
 GPU by ``chip_smoke.py``.
 """
 
+import ctypes
 import importlib.util
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +38,7 @@ from nerf_and_dietnerf_tpu_torch.tools import (
     exp_interleave,
     exp_mxu,
     exp_vpu,
+    probe_cuts,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -123,6 +126,104 @@ def test_mxu_chain_checks_its_arguments():
     with pytest.raises(ValueError, match="multiple of 16"):
         pk.mxu_chain(w, 24, 4, 1)
     assert float(pk.mxu_chain(w, 16, 4, 2, steps=1).abs().max()) == 0.0
+
+
+def _descriptor_read(pack: torch.Tensor) -> torch.Tensor:
+    """W (256 K, 256 N) as the kernel's ``wgmma`` reads it from the pack: k-step
+    kk's descriptor starts at byte 8192 kk; entry (n, k) of the k-step sits at
+    (n // 8) * 256 (stride byte offset) + (k // 8) * 128 (leading byte offset)
+    + (n % 8) * 16 + (k % 8) * 2 bytes."""
+    n = torch.arange(256).view(1, 256, 1)
+    kk, kl_ = torch.arange(16).view(16, 1, 1), torch.arange(16).view(1, 1, 16)
+    byte = kk * 8192 + (n // 8) * 256 + (kl_ // 8) * 128 + (n % 8) * 16 + (kl_ % 8) * 2
+    bt = pack[byte // 2]  # (kk, n, k within the step)
+    return bt.permute(0, 2, 1).reshape(256, 256)
+
+
+def test_mxu_pack_is_w_in_the_descriptors_layout():
+    w = torch.tensor(np.random.default_rng(0).normal(size=(256, 256)).astype(np.float32)).to(
+        torch.bfloat16)
+    pack = pk.mxu_pack(w)
+    assert pack.shape == (65536,) and pack.dtype == torch.bfloat16
+    assert torch.equal(_descriptor_read(pack), w)
+    header = (ROOT / "nerf_and_dietnerf_tpu_torch" / "csrc" / "wgmma_bf16.cuh").read_text()
+    assert ("  return (k / KSTEP) * np * KSTEP + (n / 8) * 128 + ((k % KSTEP) / 8) * 64 + "
+            "(n % 8) * 8 + k % 8;") in header
+    assert "constexpr uint32_t GROUP_BYTES = 256;" in header
+    n, k = torch.meshgrid(torch.arange(256), torch.arange(256), indexing="ij")
+    offs = pk.kmajor_offset(n, k, 256).reshape(-1)
+    assert torch.equal(offs.sort().values, torch.arange(65536))
+
+
+def _bf_np(a):
+    return np.asarray(torch.tensor(a, dtype=torch.float32).to(torch.bfloat16).float())
+
+
+def _emulated_chain(pack, m, depth, n_chains, steps):
+    """The kernel's arithmetic from the pack, unit by unit in its order: a
+    unit is a 64-row tile of one chain (rows past m computed, left out of the
+    sums); the layer's f32 sums rounded and scaled into bf16; a unit's column
+    sums over its warps in warp order; a step's units added in unit order."""
+    wt = _descriptor_read(pack).float().numpy()
+    s = _bf_np(0.01)
+    col = np.arange(256, dtype=np.float32)
+    tiles = -(-m // 64)
+    out = np.zeros((steps * 8, 256), np.float32)
+    for step in range(steps):
+        total = np.zeros(256, np.float32)
+        for tile in range(tiles):
+            for c in range(n_chains):
+                h = np.repeat(_bf_np(col * np.float32(0.001 * (c + 1)))[None], 64, axis=0)
+                for _ in range(depth // n_chains):
+                    h = _bf_np(_bf_np(h @ wt) * s)
+                rows = np.arange(64) + 64 * tile < m
+                warps = [h[16 * i:16 * i + 16].sum(axis=0, dtype=np.float32) * rows[16 * i]
+                         for i in range(4)]
+                total = total + ((warps[0] + warps[1]) + warps[2]) + warps[3]
+        out[8 * step:8 * step + 8] = total
+    return out
+
+
+@pytest.mark.parametrize("m,depth,chains", [(48, 4, 1), (64, 8, 4), (144, 2, 2)])
+def test_mxu_chain_kernels_units_match_jax_probe(interpreted, numpy_random, m, depth, chains):
+    steps = 2
+    with jax.disable_jit():
+        jax_tool("exp_mxu").run(m, depth, chains, steps=steps)
+    (w,), ref = interpreted[0]
+    tw = pk.tensors_from_jax({"w": w}, bf16=("w",))["w"]
+    got = _emulated_chain(pk.mxu_pack(tw), m, depth, chains, steps)
+    np.testing.assert_allclose(got, ref, atol=np.abs(ref).max() * BF16_ULP)
+    np.testing.assert_allclose(got, pk.mxu_chain_plain(tw, m, depth, chains, steps).numpy(),
+                               atol=np.abs(ref).max() * BF16_ULP)
+
+
+@pytest.mark.parametrize("probe,cut", [(p, c) for p, (_, cuts) in probe_cuts.CUTS.items()
+                                       for c in cuts])
+def test_probe_cuts_apply_to_the_kernels_sources(probe, cut):
+    """Each cut of the measurement tool edits text that occurs once in the
+    kernel's source; a stamped copy gains the C function that reads its
+    stamps."""
+    library, cuts = probe_cuts.CUTS[probe]
+    src = probe_cuts.cut_source(library, cuts[cut])
+    assert src != (kl.CSRC_DIR / kl.KERNEL_SOURCES[library]).read_text()
+    assert ('extern "C" int nerf_probe_stamps(' in src) == (cut == "stamped")
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        probe_cuts.cut_source(library, [("no such text", "")])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            probe_cuts.main([])
+
+
+def test_bf16_wgmma_header_stays_out_of_the_model_kernels():
+    csrc = ROOT / "nerf_and_dietnerf_tpu_torch" / "csrc"
+    header = csrc / "wgmma_bf16.cuh"
+    assert header in kl.source_closure(csrc / kl.KERNEL_SOURCES["probe_mma"])
+    for name, src in kl.KERNEL_SOURCES.items():
+        if not name.startswith("probe_"):
+            assert header not in kl.source_closure(csrc / src), name
+    src = (csrc / "probe_mma.cu").read_text()
+    assert "mma.sync" not in src.split("#include", 1)[1]
+    assert "wgmma_m64n256k16(d, a[kk], desc0 + (uint64_t)(kk * (KSTEP_BYTES >> 4)), kk);" in src
 
 
 # --------------------------------------------------------------------------- #
@@ -414,14 +515,27 @@ def test_enc_cost_checks_its_arguments():
 
 
 class _FakeLaunchLib:
-    """P4's and P7's C functions: launches that record their arguments and
-    return ``rc``."""
+    """P1's, P4's, P6's and P7's C functions: launches that record their
+    arguments and return ``rc``; P1's also reads the W pack it was given."""
 
     def __init__(self):
-        self.calls, self.rc = [], 0
+        self.calls, self.rc, self.packs = [], 0, []
+
+    def nerf_probe_mma_unit_rows(self):
+        return 64
+
+    def nerf_probe_mma(self, *args):
+        self.calls.append(("mma", args))
+        self.packs.append(np.ctypeslib.as_array(
+            (ctypes.c_uint16 * (256 * 256)).from_address(args[0])).copy())
+        return self.rc
 
     def nerf_probe_expand_a(self, *args):
         self.calls.append(("expand_a", args))
+        return self.rc
+
+    def nerf_probe_expand_c(self, *args):
+        self.calls.append(("expand_c", args))
         return self.rc
 
     def nerf_probe_enccost(self, *args):
@@ -432,14 +546,19 @@ class _FakeLaunchLib:
 STREAM = 7  # the fake card's current stream
 
 
+SMS = 132  # the fake card's SMs
+
+
 @pytest.fixture
 def fake_launch_card(monkeypatch):
-    """The P4 / P7 wrappers on CPU tensors as on the card: a fake library
-    and stream; the launch counts are restored afterwards."""
+    """The P1 / P4 / P6 / P7 wrappers on CPU tensors as on the card: a fake
+    library, SM count and stream; the launch counts are restored afterwards."""
     lib = _FakeLaunchLib()
     monkeypatch.setattr(pk, "uses_kernel", lambda t: True)
     monkeypatch.setattr(pk, "load", lambda name: lib)
     monkeypatch.setattr(pk, "stream_of", lambda dev: STREAM)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=SMS))
     counts = dict(kl.LAUNCHES)
     yield lib
     kl.LAUNCHES.update(counts)
@@ -473,6 +592,101 @@ def test_expand_a_wrapper_raises_without_launching(fake_launch_card, bad):
     else:
         with pytest.raises(ValueError, match="contiguous \\(S, R_t\\) float32"):
             pk.expand_a(zt)
+        assert fake_launch_card.calls == []
+    assert kl.LAUNCHES == before
+
+
+@pytest.fixture
+def allocations(monkeypatch):
+    """The shapes of the tensors ``torch.empty`` makes, in order."""
+    shapes, real = [], torch.empty
+
+    def empty(*args, **kwargs):
+        t = real(*args, **kwargs)
+        shapes.append(tuple(t.shape))
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    return shapes
+
+
+@pytest.mark.parametrize("m,depth,chains,steps", [(2048, 32, 1, 8), (512, 32, 4, 8),
+                                                  (16, 4, 2, 1), (8192, 8, 1, 3)])
+def test_mxu_chain_wrapper_passes_the_pack_and_unit_scratch(fake_launch_card, allocations, m,
+                                                            depth, chains, steps):
+    w = torch.tensor(np.random.default_rng(1).normal(size=(256, 256)).astype(np.float32)).to(
+        torch.bfloat16)
+    before = kl.LAUNCHES["probe_mma"]
+    out = pk.mxu_chain(w, m, depth, chains, steps)
+    units = steps * -(-m // 64) * chains
+    assert out.shape == (steps * 8, 256) and out.dtype == torch.float32
+    assert allocations == [(units, 256), (steps * 8, 256)]
+    ((name, args),) = fake_launch_card.calls
+    assert name == "mma" and args[2] == out.data_ptr()
+    assert args[3:] == (m, depth, chains, steps, min(units, SMS), STREAM)
+    assert np.array_equal(fake_launch_card.packs[0],
+                          pk.mxu_pack(w).view(torch.int16).numpy().view(np.uint16))
+    assert kl.LAUNCHES["probe_mma"] == before + 1
+
+
+@pytest.mark.parametrize("bad", ["m_24", "m_0", "chains_0", "float32", "shape", "non_contiguous",
+                                 "cuda_error"])
+def test_mxu_chain_wrapper_raises_without_launching(fake_launch_card, bad):
+    w = torch.zeros((256, 256), dtype=torch.bfloat16)
+    m, chains = {"m_24": (24, 1), "m_0": (0, 1), "chains_0": (64, 0)}.get(bad, (64, 1))
+    w = {"float32": w.float(), "shape": torch.zeros((128, 256), dtype=torch.bfloat16),
+         "non_contiguous": torch.zeros((256, 512), dtype=torch.bfloat16)[:, ::2]}.get(bad, w)
+    before = dict(kl.LAUNCHES)
+    if bad == "cuda_error":
+        fake_launch_card.rc = 700
+        with pytest.raises(RuntimeError, match="probe_mma launch failed: CUDA error 700"):
+            pk.mxu_chain(w, m, 4, chains)
+        assert len(fake_launch_card.calls) == 1
+    else:
+        with pytest.raises(ValueError):
+            pk.mxu_chain(w, m, 4, chains)
+        assert fake_launch_card.calls == []
+    assert kl.LAUNCHES == before
+
+
+def _expand_c_inputs(n_tiles=2, r_t=8, n_s=4, n_theta=10, n_enc=33):
+    rng = np.random.default_rng(2)
+    f = lambda *shape: torch.tensor(rng.normal(size=shape).astype(np.float32))  # noqa: E731
+    return (f(n_tiles * n_s, r_t), f(n_tiles * n_s, r_t), f(n_tiles * n_s, r_t),
+            f(n_tiles * r_t, 3), f(6, n_theta), f(n_theta, n_enc))
+
+
+def test_expand_c_wrapper_passes_its_pointers_and_shapes(fake_launch_card):
+    ins = _expand_c_inputs()
+    before = kl.LAUNCHES["probe_expand_c"]
+    out = pk.expand_c(*ins)
+    assert out.shape == (64, 33) and out.dtype == torch.float32 and out.is_contiguous()
+    assert fake_launch_card.calls == [("expand_c", (
+        *(t.data_ptr() for t in ins), out.data_ptr(), 2, 8, 4, 10, 33, STREAM))]
+    assert kl.LAUNCHES["probe_expand_c"] == before + 1
+
+
+@pytest.mark.parametrize("bad", ["float64", "non_contiguous", "vc_shape", "sc_shape",
+                                 "too_many_columns", "cuda_error"])
+def test_expand_c_wrapper_raises_without_launching(fake_launch_card, bad):
+    px, py, pz, vc, sc, gx = _expand_c_inputs(n_enc=34 if bad == "too_many_columns" else 33)
+    if bad == "float64":
+        py = py.double()
+    elif bad == "non_contiguous":
+        pz = torch.zeros((8, 16))[:, ::2]
+    elif bad == "vc_shape":
+        vc = torch.zeros((16, 4))
+    elif bad == "sc_shape":
+        sc = torch.zeros((5, 10))
+    before = dict(kl.LAUNCHES)
+    if bad == "cuda_error":
+        fake_launch_card.rc = 1
+        with pytest.raises(RuntimeError, match="probe_expand_c launch failed: CUDA error 1"):
+            pk.expand_c(px, py, pz, vc, sc, gx)
+        assert len(fake_launch_card.calls) == 1
+    else:
+        with pytest.raises(ValueError):
+            pk.expand_c(px, py, pz, vc, sc, gx)
         assert fake_launch_card.calls == []
     assert kl.LAUNCHES == before
 
