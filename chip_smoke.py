@@ -56,12 +56,15 @@ through
 ``fuse_compositing`` and ``fuse_fine_loss`` (B4 on the coarse pass, B5 on the
 fine pass), and "pallas" and "pallas_rm" with compute_dtype float32 through
 the ``Trainer`` (f32 B1 and B2; f32 B6 in the step).
-Then the quality phase (``quality_phase``) trains five paths through the
+Then the quality phase (``quality_phase``) trains eight paths through the
 ``Trainer`` for ``QUALITY_EPOCHS`` epochs each on ``quality_scene`` (48 views
 of a textured unit sphere at 128x128, 6 held out: 168 steps an epoch),
-"xla", "pallas" and "pallas_rm" in bf16 and "xla" and "pallas" in f32, all
-from the same initial weights, permutations and uniforms (their digests
-must agree); each path's held-out PSNR (the held-out views' pooled MSE,
+"xla", "pallas", "pallas_rm" and the three fused paths ("pallas_rm" +
+``fuse_compositing``: B7; "pallas" + ``fuse_compositing``: B4; "pallas" +
+both flags: B4, B5) in bf16 and "xla" and "pallas" in f32, all from the
+same initial weights, permutations and uniforms (their digests must agree,
+and each first step must draw just what ``nerf.draw_training_uniforms``
+draws); each path's held-out PSNR (the held-out views' pooled MSE,
 deterministic f32 renders) must rise by ``QUALITY_RISE_DB`` from the initial
 weights, each kernel path must end at most ``QUALITY_WINDOW_DB`` below its
 plain "xla" twin of the same type, and its launches must be exact; B1 and
@@ -136,8 +139,11 @@ tools' own shapes (P2's v3 and P3 at one and two chains bitwise bf16 B1, P3
 refusing four chains as its shared memory and registers predict; P2's and
 P3's times in turns with B1's; P1, on bf16 ``wgmma``, at every case of
 ``MXU_CASES`` with its TFLOP/s and share of the bound, no ``wgmma``
-serialized in its build log, HGMMA and no HMMA in its SASS; P6 in turns with
-its library and plain compositions, with its wrapper's host split), the five tools of ``nerf_and_dietnerf_tpu_torch/tools`` run
+serialized in its build log, HGMMA and no HMMA in its SASS; P5 bitwise its
+plain version also at a width of 3 and on an offset view (its scalar path),
+in turns with its one-call library and its plain version; P6 in turns with
+its library and plain compositions; P4, P5 and P6 with their wrappers' host
+splits), the five tools of ``nerf_and_dietnerf_tpu_torch/tools`` run
 through their ``main([])`` (launch counts set to 0 before each), and four
 "pallas_rm" steps, then four "pallas" steps run under
 ``utils.profiling.trace``: the device's idle share,
@@ -2049,9 +2055,9 @@ def probe_kernel_phases(torch, timings: dict) -> None:
             continue  # timed in turns below
         fl = out_k.numel()
         nbytes = 4 * ((zt if kname == "probe_expand_a" else rd8).numel() + out_k.numel())
-        rec[kname] = _probe_record(torch, fn, plain_fn, plain_fn, err,
-                                   _bound(fl, PEAK_FLOPS["float32"], nbytes), rows=rows,
-                                   library="the plain version's torch calls")
+        # ms and library_ms: in turns below
+        rec[kname] = _probe_record(torch, fn, plain_fn, None, err,
+                                   _bound(fl, PEAK_FLOPS["float32"], nbytes), rows=rows)
     # P4 is a launch's worth of work, so its time a call is the host's: the
     # kernel and its library call in turns, each pass P4_TURN_CALLS calls; the
     # kernel's device time from the profiler; and where the wrapper's host
@@ -2115,6 +2121,104 @@ def probe_kernel_phases(torch, timings: dict) -> None:
         f"{a['host_sum_parent_us']:.3f}")
     if dev_a["kernel"] is None:
         log("P4: the profiler recorded no device time for expand_a_kernel")
+
+    # P5 as P4: bitwise its plain version, one launch a call, also at a width
+    # that is not a multiple of 4 and on a view one float into its storage
+    # (both the kernel's scalar path); then the kernel, its one-call library
+    # (rd expanded and doubled: one element-wise kernel writing the (S, R_t,
+    # X) block contiguously), its plain version and P4 in turns,
+    # P4_TURN_CALLS calls a pass; the wrapper's host time step by step, the
+    # parent's form of each step (the generic checks, torch.empty) beside the
+    # lean one, and P4's steps that differ again beside them (P4 in both:
+    # the host's speed drifts between P4's measurements and P5's); then
+    # device µs a launch of the kernel and of the library's (profiler).
+    def lib_b(rd):
+        return (rd.expand(n_s, *rd.shape) * 2.0).view(-1, rd.shape[1])
+
+    b = rec["probe_expand_b"]
+    checks_b = {}
+    for case, rd in (("tool", rd8), ("x3", randn(r_t, 3)),
+                     ("offset_view", randn(r_t * 8 + 1)[1:].view(r_t, 8))):
+        was = kl.LAUNCHES["probe_expand_b"]
+        out_k = pk.expand_b(rd, n_s)
+        torch.cuda.synchronize()
+        got = kl.LAUNCHES["probe_expand_b"] - was
+        out_p, out_lib = pk.expand_b_plain(rd, n_s), lib_b(rd)
+        if not (torch.equal(out_k, out_p) and torch.equal(out_lib, out_p) and got == 1):
+            raise AssertionError(f"probe_expand_b {case} {tuple(rd.shape)} (data_ptr % 16 = "
+                                 f"{rd.data_ptr() % 16}): kernel bitwise "
+                                 f"{torch.equal(out_k, out_p)}, library bitwise "
+                                 f"{torch.equal(out_lib, out_p)}, launches {got} (expected 1)")
+        checks_b[case] = {"shape": list(rd.shape), "data_ptr_mod_16": rd.data_ptr() % 16,
+                          "max_abs_err": float((out_k - out_p).abs().max())}
+        log(f"kernel check probe_expand_b {case} rd {tuple(rd.shape)} (data_ptr % 16 = "
+            f"{rd.data_ptr() % 16}) -> {tuple(out_k.shape)}: bitwise its plain version and its "
+            f"library call, one launch")
+    turns_b, passes_b = _in_turns(torch, {"kernel": lambda: pk.expand_b(rd8, n_s),
+                                          "library": lambda: lib_b(rd8),
+                                          "plain": lambda: pk.expand_b_plain(rd8, n_s),
+                                          "p4 (control)": lambda: pk.expand_a(zt)},
+                                  P4_TURN_CALLS)
+    out_b = pk.expand_b(rd8, n_s)
+    fn_b, (r_b, x_b) = kl.load("probe_expand").nerf_probe_expand_b, rd8.shape
+    ptrs_b = (rd8.data_ptr(), out_b.data_ptr(), r_b, n_s, x_b, kl.stream_of(rd8.device))
+    split_b = _host_split_us(torch, {
+        "device test (uses_kernel)": lambda: pk.uses_kernel(rd8),
+        "checks, parent (check_tensors + dim and count)": lambda: (
+            kl.check_tensors([(rd8, rd8.shape, f32)], rd8.device), rd8.dim() != 2 or n_s <= 0),
+        "checks, lean (inline)": lambda: (
+            rd8.dtype != f32 or rd8.dim() != 2 or not rd8.is_contiguous() or n_s <= 0),
+        "shape": lambda: rd8.shape,
+        "alloc, parent (torch.empty)": lambda: torch.empty((n_s * r_b, x_b), dtype=f32,
+                                                           device=rd8.device),
+        "alloc, lean (new_empty)": lambda: rd8.new_empty((n_s * r_b, x_b)),
+        "empty test (R_t, X == 0)": lambda: r_b == 0 or x_b == 0,
+        "load() and the lookup": lambda: kl.load("probe_expand").nerf_probe_expand_b,
+        "stream (stream_of)": lambda: kl.stream_of(rd8.device),
+        "data_ptr x2": lambda: (rd8.data_ptr(), out_b.data_ptr()),
+        "ctypes call with the launch": lambda: fn_b(*ptrs_b),
+        "ctypes call, no launch (n_s = 0)": lambda: fn_b(*ptrs_b[:3], 0, *ptrs_b[4:]),
+        "launched": lambda: kl.launched("probe_expand_b", 0),
+        "whole wrapper (expand_b)": lambda: pk.expand_b(rd8, n_s),
+        "library call (expand and multiply)": lambda: lib_b(rd8),
+        "P4's whole wrapper (control)": lambda: pk.expand_a(zt),
+        "P4's alloc (control)": lambda: zt.new_empty((n_a, 1)),
+        "P4's ctypes call, no launch (control)": lambda: fn_a(ptrs[0], ptrs[1], 0, ptrs[3]),
+    }, HOST_SPLIT_CALLS)
+    dev_b = _profiled_device_us(torch, {"kernel": lambda: pk.expand_b(rd8, n_s),
+                                        "library": lambda: lib_b(rd8)},
+                                {"kernel": "expand_b_kernel", "library": "elementwise_kernel"})
+    common = ("device test (uses_kernel)", "shape", "load() and the lookup",
+              "stream (stream_of)", "data_ptr x2", "ctypes call with the launch", "launched")
+    lean_b = common + ("checks, lean (inline)", "alloc, lean (new_empty)",
+                       "empty test (R_t, X == 0)")
+    parent_b = common + ("checks, parent (check_tensors + dim and count)",
+                         "alloc, parent (torch.empty)")
+    b.update(ms=turns_b["kernel"], library_ms=turns_b["library"], plain_ms=turns_b["plain"],
+             ms_in_turns=turns_b, ms_passes=passes_b, turn_calls=P4_TURN_CALLS,
+             device_us=dev_b["kernel"], library_device_us=dev_b["library"],
+             host_split_us=split_b, host_split_calls=HOST_SPLIT_CALLS,
+             host_sum_lean_us=sum(split_b[k] for k in lean_b),
+             host_sum_parent_us=sum(split_b[k] for k in parent_b), checks=checks_b,
+             design="no division: a thread an element of rd (a float4 where aligned, else a "
+                    "float) stored into its samples; a lean launch path",
+             library="(rd.expand(S, R_t, X) * 2.0).view(-1, X)",
+             plain="expand_b_plain: rd.repeat(S, 1) * 2.0",
+             ptxas={k: timings.get("sass", {}).get("probe_kernels", {}).get(k)
+                    for k in ("P5", "P5 scalar")})
+    log(f"P5 ms a call in turns ({P4_TURN_CALLS} calls a pass): kernel {turns_b['kernel']:.5f}, "
+        f"library {turns_b['library']:.5f}, plain {turns_b['plain']:.5f}, P4 in the same turns "
+        f"{turns_b['p4 (control)']:.5f} (passes {passes_b}); "
+        f"kernel / library {turns_b['kernel'] / turns_b['library']:.3f}; device us a launch "
+        f"(profiler): kernel {dev_b['kernel'] and round(dev_b['kernel']['us'], 3)}, library "
+        f"{dev_b['library'] and round(dev_b['library']['us'], 3)}; bound "
+        f"{b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}); registers, spills, SASS {b['ptxas']}")
+    log(f"P5 host split (us, median of {HOST_SPLIT_CALLS} warm calls a step): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in split_b.items())
+        + f"; sum of the lean steps {b['host_sum_lean_us']:.3f}, of the parent's "
+        f"{b['host_sum_parent_us']:.3f}")
+    if dev_b["kernel"] is None:
+        log("P5: the profiler recorded no device time for expand_b_kernel")
 
     # P6: the kernel, its plain version and its library composition in turns
     # (P6_TURN_CALLS calls a pass, kernel library plain plain library
@@ -2830,8 +2934,13 @@ def fused_phase(torch, timings: dict, trainer, path: str) -> dict:
 # The flagship widths and batch (_flagship_run) on quality_scene at 128x128:
 # 48 views, 6 held out, 42 x 16,384 rays = 168 steps of 4,096 rays an epoch,
 # QUALITY_EPOCHS epochs a path, the lr decaying to QUALITY_LR_FINAL. Each
-# path: (backend, compute type, its plain twin). Every path starts from the
-# same init_seed and draws the same permutations and uniforms (the epoch
+# path: (backend, compute type, its plain twin). The three bf16 fused paths
+# train with FUSED_PATHS' model-config changes (B7; B4 on both passes; B4
+# coarse and B5 fine: _quality_fusions) and are held against "xla" in bf16,
+# the same training in other roundings; their eval renders, like every
+# path's, run f32 with the fusions off (Trainer.eval_config), so what tells
+# them from "pallas" / "pallas_rm" is their training. Every path starts from
+# the same init_seed and draws the same permutations and uniforms (the epoch
 # seeds), so a kernel path and its twin train in lockstep apart from their
 # roundings.
 QUALITY_DIR = ROOT / "build" / "chip_smoke_quality"
@@ -2842,6 +2951,8 @@ QUALITY_PATHS = {
     "xla": ("xla", "bfloat16", None),
     "pallas": ("pallas", "bfloat16", "xla"),
     "pallas_rm": ("pallas_rm", "bfloat16", "xla"),
+    **{path: (FUSED_PATHS[path]["backend"], "bfloat16", "xla")
+       for path in ("pallas_rm_fused", "pallas_fused", "pallas_fused_loss")},
     "xla_f32": ("xla", "float32", None),
     "pallas_f32": ("pallas", "float32", "xla_f32"),
 }
@@ -2878,21 +2989,25 @@ def _first_step_recorded(torch, rec: dict):
     batch (the permutation's first rows) and of the uniforms that step draws:
     drawn from a copy of its generator's state as ``nerf.training_mses``
     draws them (``nerf.draw_training_uniforms``); the step itself is left as
-    it is."""
+    it is. Also the digests of the copy's state after those draws and of the
+    generator's after the step: equal when the step drew just those."""
     from nerf_and_dietnerf_tpu_torch.models import nerf
     from nerf_and_dietnerf_tpu_torch.train import train_step as ts
 
     step = ts.train_step
 
     def first(state, key, batch, **kw):
-        if not rec:
-            gen = torch.Generator(device=key.device)
-            gen.set_state(key.get_state())
-            draws = nerf.draw_training_uniforms(gen, kw["config"], batch[0].shape[0],
-                                                state.params.get("fine") is not None, key.device)
-            rec.update(batch=_digest(torch, batch), draws=_digest(torch, draws.values()),
-                       drawn=sorted(draws))
-        return step(state, key, batch, **kw)
+        if rec:
+            return step(state, key, batch, **kw)
+        gen = torch.Generator(device=key.device)
+        gen.set_state(key.get_state())
+        draws = nerf.draw_training_uniforms(gen, kw["config"], batch[0].shape[0],
+                                            state.params.get("fine") is not None, key.device)
+        rec.update(batch=_digest(torch, batch), draws=_digest(torch, draws.values()),
+                   drawn=sorted(draws), rng_after_draws=_digest(torch, [gen.get_state()]))
+        out = step(state, key, batch, **kw)
+        rec["rng_after_step"] = _digest(torch, [key.get_state()])
+        return out
 
     ts.train_step = first
     try:
@@ -2922,16 +3037,30 @@ def _held_out_psnr(torch, trainer, views, config=None) -> dict:
             "pooled": -10 * math.log10(sum(mses) / len(mses))}
 
 
-def _quality_launches(backend: str, steps: int, n_held: int) -> dict:
-    """The exact launches of a path's QUALITY_EPOCHS epochs and final renders:
-    two forwards and two backwards a step, two forwards (coarse, fine) for
-    each of an epoch's two eval frames and each final held-out render (one
-    chunk a 128x128 frame); none under "xla"."""
+def _quality_fusions(path: str) -> dict:
+    """The fusion flags a quality path's model config takes on top of its
+    run config's (FUSED_PATHS' own; none for an unfused path)."""
+    return {k: v for k, v in FUSED_PATHS.get(path, {}).items() if k.startswith("fuse_")}
+
+
+def _quality_launches(path: str, steps: int, n_held: int) -> dict:
+    """The exact launches of a quality path's QUALITY_EPOCHS epochs and final
+    renders: under "pallas" / "pallas_rm" two forwards and two backwards a
+    step; a fused path's kernels (MAIN_PATHS) twice a step each, once with
+    ``fuse_fine_loss`` (B4 coarse, B5 fine); and the unfused backend's f32
+    forward twice (coarse, fine) for each of an epoch's two eval frames and
+    each final held-out render (one chunk a 128x128 frame); none under
+    "xla"."""
+    backend = QUALITY_PATHS[path][0]
     if backend == "xla":
         return {}
     fwd, bwd = MAIN_PATHS[backend]
-    return {fwd: 2 * steps * QUALITY_EPOCHS + 4 * QUALITY_EPOCHS + 2 * n_held,
-            bwd: 2 * steps * QUALITY_EPOCHS}
+    n, evals = steps * QUALITY_EPOCHS, 4 * QUALITY_EPOCHS + 2 * n_held
+    fusions = _quality_fusions(path)
+    if not fusions:
+        return {fwd: 2 * n + evals, bwd: 2 * n}
+    a_step = 1 if fusions.get("fuse_fine_loss") else 2
+    return {**{k: a_step * n for k in MAIN_PATHS[path]}, fwd: evals}
 
 
 def _quality_path(torch, ds, path: str, held: list, train: list, seed: int):
@@ -2952,6 +3081,9 @@ def _quality_path(torch, ds, path: str, held: list, train: list, seed: int):
         test_img_idx=held[0], idx_train_img_to_plot=train[0],
         pics_indices_to_use_in_dataset=train)
     trainer = Trainer(run, ds, QUALITY_DIR / path, device=DEVICE)
+    # The step's model config, which the Trainer reads at its first epoch;
+    # its eval config was set at construction (f32, fusions off).
+    trainer.config = dataclasses.replace(trainer.config, **_quality_fusions(path))
     steps = trainer.data.batches_per_epoch
     lockstep = {"init_params": _digest(torch, tree_leaves(trainer.state.params))}
     before = _held_out_psnr(torch, trainer, held)
@@ -2977,17 +3109,19 @@ def _quality_path(torch, ds, path: str, held: list, train: list, seed: int):
         "rise_db": after["pooled"] - before["pooled"],
         "ms_per_step": 1e3 * sum(s.seconds for s in stats[1:]) / (steps * (len(stats) - 1)),
         "ms_per_step_epoch1": 1e3 * stats[0].seconds / steps,
-        "launches": launches, "launches_expected": _quality_launches(backend, steps, len(held)),
+        "fusions": _quality_fusions(path),
+        "launches": launches, "launches_expected": _quality_launches(path, steps, len(held)),
         "lockstep": lockstep,
     }
-    log(f"quality {path} ({backend}, {compute_dtype} step): held-out PSNR "
-        f"{before['pooled']:.3f} -> {after['pooled']:.3f} dB (plain f32 eval of the same "
+    log(f"quality {path} ({backend}, {compute_dtype} step, fusions {rec['fusions']}): held-out "
+        f"PSNR {before['pooled']:.3f} -> {after['pooled']:.3f} dB (plain f32 eval of the same "
         f"weights {plain_eval['pooled']:.3f}; views "
         + ", ".join(f"{v:.2f}" for v in after["views"]) + "); psnr_test per epoch "
         + ", ".join(f"{v:.3f}" for v in rec["psnr_test_per_epoch"]) + "; loss "
         + ", ".join(f"{v:.5f}" for v in rec["loss_per_epoch"])
         + f"; {rec['ms_per_step']:.3f} ms a step (epochs 2-{QUALITY_EPOCHS}; epoch 1 "
-        f"{rec['ms_per_step_epoch1']:.3f}); launches {launches}; lockstep {lockstep}")
+        f"{rec['ms_per_step_epoch1']:.3f}); launches {launches} (expected "
+        f"{rec['launches_expected']}); lockstep {lockstep}")
     return rec, trainer
 
 
@@ -3039,12 +3173,15 @@ def _trained_field_checks(torch, trainer) -> dict:
 def quality_phase(torch, timings: dict, seed: int = SEED) -> None:
     """Every path of QUALITY_PATHS trained on quality_scene (QUALITY_EPOCHS
     epochs of the ``Trainer`` at the flagship widths) from the init seed
-    ``seed``, then B1 and B2 held on the trained "pallas" field
-    (:func:`_trained_field_checks`). Raises, after
-    recording everything, if a path's held-out PSNR does not rise by
-    QUALITY_RISE_DB, a kernel path ends more than QUALITY_WINDOW_DB below its
-    plain twin, a launch count is off, or two paths' initial weights, first
-    batch or first uniforms differ."""
+    ``seed``: "xla", "pallas", "pallas_rm" and the three fused paths
+    ("pallas_rm" + ``fuse_compositing``, "pallas" + ``fuse_compositing``,
+    "pallas" + both flags) in bf16, "xla" and "pallas" in f32; then B1 and
+    B2 held on the trained "pallas" field (:func:`_trained_field_checks`).
+    Raises, after recording everything, if a path's held-out PSNR does not
+    rise by QUALITY_RISE_DB, a kernel path ends more than QUALITY_WINDOW_DB
+    below its plain twin, a launch count is off, two paths' initial weights,
+    first batch or first uniforms differ, or a first step draws other than
+    ``nerf.draw_training_uniforms``."""
     import shutil
 
     t0 = time.perf_counter()
@@ -3065,6 +3202,8 @@ def quality_phase(torch, timings: dict, seed: int = SEED) -> None:
     for path, rec in paths.items():
         if rec["lockstep"] != ref:
             faults.append(f"{path} is not in lockstep with xla: {rec['lockstep']} vs {ref}")
+        if rec["lockstep"]["rng_after_step"] != rec["lockstep"]["rng_after_draws"]:
+            faults.append(f"{path}: its first step drew other than draw_training_uniforms")
         if not rec["rise_db"] >= QUALITY_RISE_DB:
             faults.append(f"{path}: held-out PSNR rose {rec['rise_db']:.3f} dB < {QUALITY_RISE_DB}")
         if rec["launches"] != rec["launches_expected"]:
@@ -4736,8 +4875,8 @@ PROBE_INSTANCES = {"mlp_fwd": {"mlp_fwd_mma_kernel": "v0_b1"},
 
 # The probe libraries of P4-P7: every kernel's registers, spills and SASS
 # counts, by label (part of the mangled name -> label; P7 by stage index).
-PROBE_LIBS = {"probe_expand": {"expand_a_kernel": "P4", "expand_b_kernel": "P5",
-                               "expand_c_kernel": "P6"},
+PROBE_LIBS = {"probe_expand": {"expand_a_kernel": "P4", "expand_b_kernelI6float4EE": "P5",
+                               "expand_b_kernelIfEE": "P5 scalar", "expand_c_kernel": "P6"},
               "probe_enccost": {f"enc_cost_kernelILi{i}EE": f"P7 {stage}" for i, stage in
                                 enumerate(("dma", "repeat", "pts", "theta", "sin", "enc"))}}
 # The SASS instructions counted in them: 16-byte global loads and stores, the
@@ -5000,6 +5139,13 @@ def main() -> int:
         f"device us a launch {r['device_us'] and r['device_us']['us']}; host us: lean steps "
         f"{r['host_sum_lean_us']:.3f}, parent's {r['host_sum_parent_us']:.3f}, whole wrapper "
         f"{r['host_split_us']['whole wrapper (expand_a)']:.3f}")
+    r = timings["probes"]["probe_expand_b"]
+    log(f"[{card}] P5 ms a call in turns: kernel {r['ms']:.5f}, library {r['library_ms']:.5f}, "
+        f"plain {r['plain_ms']:.5f}, P4 {r['ms_in_turns']['p4 (control)']:.5f}; device us a "
+        f"launch: kernel {r['device_us']}, library "
+        f"{r['library_device_us']}; host us: lean steps {r['host_sum_lean_us']:.3f}, parent's "
+        f"{r['host_sum_parent_us']:.3f}, whole wrapper "
+        f"{r['host_split_us']['whole wrapper (expand_b)']:.3f}; {r['ptxas']}")
     r = timings["probes"]["probe_mma"]
     log(f"[{card}] P1 ms a call, share of bound: " + ", ".join(
         f"{k} {v['ms']:.4f} ({100 * v['share_of_bound']:.1f} %)" for k, v in r["cases"].items())
@@ -5023,7 +5169,8 @@ def main() -> int:
             f"{r['held_out_after']['pooled']:.3f} dB (rise {r['rise_db']:.3f}, min "
             f"{QUALITY_RISE_DB})" + (f", {r['below_twin_db']:+.3f} dB below its twin (window "
                                       f"{QUALITY_WINDOW_DB})" if "below_twin_db" in r else "")
-            + f", {r['ms_per_step']:.3f} ms a step, launches {r['launches']}")
+            + f", {r['ms_per_step']:.3f} ms a step, launches {r['launches']} (expected "
+            f"{r['launches_expected']})")
     train = {path: timings["train_" + path] for path in MAIN_PATHS}
     print(json.dumps({"quality": q}), flush=True)
     print(card, flush=True)

@@ -15,18 +15,29 @@
 // What bounds them on an H100: A and B bytes. A at the tool's 4,096 rows
 // moves 32 KB (16 in, 16 out): 0.01 us at 3.35 TB/s, far below one launch's
 // latency (microseconds), so A's device time is that latency and its time a
-// call is the host's: the wrapper and the launch. B writes 4 bytes an
-// element. C operations: per row 6 T + T E multiply-adds and T sinf against
-// 12 + 12 / S bytes in and 4 E out; at the tool's 65,536 rows (T = 114, E =
-// 33) 0.58 GFLOP of FMAs and 7.5 M sinf at 40 FLOP each over 67 TFLOP/s,
-// 0.0132 ms (bytes would give 0.0029).
+// call is the host's: the wrapper and the launch. B at the tool's shape (rd
+// (64, 8) -> (4096, 8)) reads 2,048 bytes and writes 131,072: 133,120 bytes,
+// 0.04 us (0.00004 ms) at 3.35 TB/s, so B's device time too is a launch's
+// latency and its time a call the host's. C operations: per row 6 T + T E
+// multiply-adds and T sinf against 12 + 12 / S bytes in and 4 E out; at the
+// tool's 65,536 rows (T = 114, E = 33) 0.58 GFLOP of FMAs and 7.5 M sinf at
+// 40 FLOP each over 67 TFLOP/s, 0.0132 ms (bytes would give 0.0029).
 //
 // What the design does about that: A is one thread per four outputs, with
 // 16-byte loads and stores where both pointers are 16-byte aligned, and one
 // thread per output for the tail (and for pointers that are not). Its
 // wrapper (ops/probe_kernels_cuda.expand_a) is the lean launch path: one
 // inline check, `new_empty` for the output, the stream read as its raw
-// handle. B is one thread per output element.
+// handle.
+//
+// B. The former design gave each thread one output element and found its
+// source with three divisions by runtime values. Here the output's flat
+// index is s (R_t X) + j for rd's flat index j, so no division is needed:
+// each thread of the x grid loads one element of rd, a float4 where R_t X is
+// a multiple of 4 and both pointers are 16-byte aligned, else a float (rd
+// may be a view at any offset), doubles it (exact in f32: bitwise the plain
+// version) and stores it into samples blockIdx.y, blockIdx.y + gridDim.y,
+// and so on. Its wrapper (expand_b) takes A's lean launch path.
 //
 // C. The former design had one thread per (row, column) write sin(theta)
 // to a shared tile, then one thread per (row, output column) sum its T
@@ -73,13 +84,21 @@ __global__ void expand_a_kernel(const float* __restrict__ zt, float* __restrict_
   }
 }
 
-__global__ void expand_b_kernel(const float* __restrict__ rd, float* __restrict__ out, int r_t,
-                                int width, int n) {
-  const int i = blockIdx.x * NT + threadIdx.x;
-  if (i >= n) return;
-  const int row = i / width, c = i % width;
-  out[i] = rd[(row % r_t) * width + c] * 2.0f;
+__device__ __forceinline__ float twice(float v) { return v * 2.0f; }
+__device__ __forceinline__ float4 twice(float4 v) {
+  return make_float4(v.x * 2.0f, v.y * 2.0f, v.z * 2.0f, v.w * 2.0f);
 }
+
+// rd's m elements of T (float4 or float), doubled into each sample's copy.
+template <typename T>
+__global__ void expand_b_kernel(const T* __restrict__ rd, T* __restrict__ out, int m, int n_s) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const T v = twice(rd[i]);
+  for (int s = blockIdx.y; s < n_s; s += gridDim.y) out[(size_t)s * m + i] = v;
+}
+
+constexpr int MAX_GRID_Y = 65535;
 
 // C: a thread a row, C_ROWS consecutive rows a block; rows are global
 // (tile tile_rows + s R_t + r is px's flat index).
@@ -174,10 +193,20 @@ extern "C" int nerf_probe_expand_a(const float* zt, float* out, int n, void* str
 
 extern "C" int nerf_probe_expand_b(const float* rd, float* out, int r_t, int n_s, int width,
                                    void* stream) {
-  const int n = r_t * n_s * width;
-  if (n <= 0) return 0;
-  expand_b_kernel<<<(n + NT - 1) / NT, NT, 0, static_cast<cudaStream_t>(stream)>>>(rd, out, r_t,
-                                                                                  width, n);
+  if (r_t <= 0 || n_s <= 0 || width <= 0) return 0;
+  const long long m = (long long)r_t * width;
+  if (m > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(rd) | reinterpret_cast<uintptr_t>(out);
+  const bool vec = m % 4 == 0 && (addr & 15) == 0;
+  const int units = (int)(vec ? m / 4 : m);
+  const int threads = units < NT ? (units + 31) & ~31 : NT;
+  const dim3 grid((units + threads - 1) / threads, n_s < MAX_GRID_Y ? n_s : MAX_GRID_Y);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec)
+    expand_b_kernel<<<grid, threads, 0, st>>>(reinterpret_cast<const float4*>(rd),
+                                              reinterpret_cast<float4*>(out), units, n_s);
+  else
+    expand_b_kernel<<<grid, threads, 0, st>>>(rd, out, units, n_s);
   return (int)cudaGetLastError();
 }
 

@@ -341,15 +341,19 @@ def expand_b_plain(rd: torch.Tensor, n_samples: int) -> torch.Tensor:
 
 
 def expand_b(rd: torch.Tensor, n_samples: int) -> torch.Tensor:
-    """P5 (see :func:`expand_b_plain`)."""
+    """P5 (see :func:`expand_b_plain`). Like P4 a launch's worth of work on
+    P4's lean launch path (:func:`expand_a`); an empty ``rd`` gives an empty
+    output without a launch."""
     if not uses_kernel(rd):
         return expand_b_plain(rd, n_samples)
-    check_tensors([(rd, rd.shape, torch.float32)], rd.device)
-    if rd.dim() != 2 or n_samples <= 0:
+    if rd.dtype != torch.float32 or rd.dim() != 2 or not rd.is_contiguous() or n_samples <= 0:
         raise ValueError(f"expected (R_t, X) and a positive sample count, got {tuple(rd.shape)}, "
-                         f"{n_samples}")
+                         f"{n_samples} ({rd.dtype}, contiguous {rd.is_contiguous()}; the "
+                         f"kernel takes contiguous float32)")
     r_t, width = rd.shape
-    out = torch.empty((n_samples * r_t, width), dtype=torch.float32, device=rd.device)
+    out = rd.new_empty((n_samples * r_t, width))
+    if r_t == 0 or width == 0:
+        return out
     rc = load("probe_expand").nerf_probe_expand_b(rd.data_ptr(), out.data_ptr(), r_t, n_samples,
                                                   width, stream_of(rd.device))
     launched("probe_expand_b", rc)

@@ -515,7 +515,7 @@ def test_enc_cost_checks_its_arguments():
 
 
 class _FakeLaunchLib:
-    """P1's, P4's, P6's and P7's C functions: launches that record their
+    """P1's, P4-P6's and P7's C functions: launches that record their
     arguments and return ``rc``; P1's also reads the W pack it was given."""
 
     def __init__(self):
@@ -532,6 +532,10 @@ class _FakeLaunchLib:
 
     def nerf_probe_expand_a(self, *args):
         self.calls.append(("expand_a", args))
+        return self.rc
+
+    def nerf_probe_expand_b(self, *args):
+        self.calls.append(("expand_b", args))
         return self.rc
 
     def nerf_probe_expand_c(self, *args):
@@ -551,7 +555,7 @@ SMS = 132  # the fake card's SMs
 
 @pytest.fixture
 def fake_launch_card(monkeypatch):
-    """The P1 / P4 / P6 / P7 wrappers on CPU tensors as on the card: a fake
+    """The P1 / P4-P6 / P7 wrappers on CPU tensors as on the card: a fake
     library, SM count and stream; the launch counts are restored afterwards."""
     lib = _FakeLaunchLib()
     monkeypatch.setattr(pk, "uses_kernel", lambda t: True)
@@ -594,6 +598,66 @@ def test_expand_a_wrapper_raises_without_launching(fake_launch_card, bad):
             pk.expand_a(zt)
         assert fake_launch_card.calls == []
     assert kl.LAUNCHES == before
+
+
+def _expand_b_input(case):
+    """P5's ``rd`` of a case: the tool's (64, 8), a width that is not a
+    multiple of 4 (the kernel's scalar path), and a view one float into its
+    storage (not 16-byte aligned: the scalar path too)."""
+    return {"tool": torch.randn(64, 8), "x3": torch.randn(64, 3),
+            "offset_view": torch.randn(64 * 8 + 1)[1:].view(64, 8)}[case]
+
+
+@pytest.mark.parametrize("case", ["tool", "x3", "offset_view"])
+def test_expand_b_wrapper_launches_once_a_call(fake_launch_card, case):
+    rd, n_s = _expand_b_input(case), 64
+    r_t, width = rd.shape
+    before = kl.LAUNCHES["probe_expand_b"]
+    out = pk.expand_b(rd, n_s)
+    assert out.shape == (n_s * r_t, width) and out.dtype == torch.float32 and out.is_contiguous()
+    assert fake_launch_card.calls == [
+        ("expand_b", (rd.data_ptr(), out.data_ptr(), r_t, n_s, width, STREAM))]
+    assert kl.LAUNCHES["probe_expand_b"] == before + 1
+    again = pk.expand_b(rd, n_s)
+    assert fake_launch_card.calls[1] == (
+        "expand_b", (rd.data_ptr(), again.data_ptr(), r_t, n_s, width, STREAM))
+    assert kl.LAUNCHES["probe_expand_b"] == before + 2
+
+
+@pytest.mark.parametrize("bad", ["float64", "non_contiguous", "1d", "3d", "n_samples_0",
+                                 "n_samples_negative", "cuda_error"])
+def test_expand_b_wrapper_raises_without_launching(fake_launch_card, bad):
+    rd = {"float64": torch.zeros(64, 8, dtype=torch.float64),
+          "non_contiguous": torch.zeros(64, 16)[:, ::2],
+          "1d": torch.zeros(512), "3d": torch.zeros(4, 16, 8)}.get(bad, torch.zeros(64, 8))
+    n_s = {"n_samples_0": 0, "n_samples_negative": -1}.get(bad, 64)
+    before = dict(kl.LAUNCHES)
+    if bad == "cuda_error":
+        fake_launch_card.rc = 700
+        with pytest.raises(RuntimeError, match="probe_expand_b launch failed: CUDA error 700"):
+            pk.expand_b(rd, n_s)
+        assert len(fake_launch_card.calls) == 1
+    else:
+        with pytest.raises(ValueError, match="expected \\(R_t, X\\) and a positive sample count"):
+            pk.expand_b(rd, n_s)
+        assert fake_launch_card.calls == []
+    assert kl.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape", [(0, 8), (64, 0)])
+def test_expand_b_wrapper_empty_input_launches_nothing(fake_launch_card, shape):
+    before = dict(kl.LAUNCHES)
+    out = pk.expand_b(torch.zeros(shape), 4)
+    assert out.shape == (4 * shape[0], shape[1]) and out.dtype == torch.float32
+    assert fake_launch_card.calls == [] and kl.LAUNCHES == before
+
+
+@pytest.mark.parametrize("r_t,width,n_s", [(64, 8, 64), (64, 3, 64), (5, 1, 7), (1, 4, 3),
+                                           (17, 3, 2)])
+def test_expand_b_plain_matches_numpy(r_t, width, n_s):
+    rd = np.random.default_rng(r_t * 100 + width).normal(size=(r_t, width)).astype(np.float32)
+    got = pk.expand_b_plain(torch.tensor(rd), n_s)
+    np.testing.assert_array_equal(got.numpy(), np.tile(rd, (n_s, 1)) * np.float32(2))
 
 
 @pytest.fixture

@@ -183,6 +183,93 @@ def test_port_trains_in_lockstep_with_jax(lockstep, backend):
     assert gaps.max() <= PSNR_WINDOW_DB, gaps
 
 
+# The card's quality phase (chip_smoke.quality_phase), without a card: each
+# path's exact launches and what its first step draws.
+QUALITY_FUSED = ("pallas_rm_fused", "pallas_fused", "pallas_fused_loss")
+QUALITY_STEPS, QUALITY_HELD = 168, 6  # quality_scene(48, 128): 168 steps an epoch, 6 held out
+
+
+@pytest.mark.parametrize("path", QUALITY_FUSED)
+def test_quality_fused_paths_train_with_the_fused_phase_changes(path):
+    """Each bf16 fused path trains with FUSED_PATHS' own model-config changes
+    and is held against "xla" in bf16."""
+    change = chip_smoke.FUSED_PATHS[path]
+    assert chip_smoke.QUALITY_PATHS[path] == (change["backend"], "bfloat16", "xla")
+    assert chip_smoke._quality_fusions(path) == {k: v for k, v in change.items()
+                                                 if k != "backend"}
+    assert chip_smoke._quality_fusions(path)["fuse_compositing"] is True
+
+
+# Each quality path's kernels a step (3 epochs of 168 steps) and the f32
+# forward of its eval renders: 4 an epoch (two frames, coarse and fine) and
+# 2 a held-out view.
+QUALITY_A_STEP = {
+    "pallas": ({"mlp_fwd": 2, "mlp_bwd": 2}, "mlp_fwd"),
+    "pallas_rm": ({"raymarch_fwd": 2, "raymarch_bwd": 2}, "raymarch_fwd"),
+    "pallas_f32": ({"mlp_fwd": 2, "mlp_bwd": 2}, "mlp_fwd"),
+    "pallas_rm_fused": ({"raymarch_comp_fwd": 2, "raymarch_comp_bwd": 2}, "raymarch_fwd"),
+    "pallas_fused": ({"mlp_comp_fwd": 2, "mlp_comp_bwd": 2}, "mlp_fwd"),
+    "pallas_fused_loss": ({"mlp_comp_fwd": 1, "mlp_comp_bwd": 1, "mlp_loss_comp": 1}, "mlp_fwd"),
+}
+
+
+@pytest.mark.parametrize("path", list(chip_smoke.QUALITY_PATHS))
+def test_quality_launches_are_the_steps_and_the_f32_evals(path):
+    steps = QUALITY_STEPS * chip_smoke.QUALITY_EPOCHS
+    got = chip_smoke._quality_launches(path, QUALITY_STEPS, QUALITY_HELD)
+    if path not in QUALITY_A_STEP:
+        assert chip_smoke.QUALITY_PATHS[path][0] == "xla" and got == {}
+        return
+    a_step, eval_fwd = QUALITY_A_STEP[path]
+    want = {k: n * steps for k, n in a_step.items()}
+    want[eval_fwd] = want.get(eval_fwd, 0) + 4 * chip_smoke.QUALITY_EPOCHS + 2 * QUALITY_HELD
+    assert got == want
+    assert set(a_step) == set(chip_smoke.MAIN_PATHS[path])
+
+
+@pytest.fixture(scope="module")
+def quality_first_steps():
+    """Each quality path's model config at small widths, one epoch of one
+    step through ``train_step.make_epoch_fn`` on the CPU (the kernels' plain
+    versions) under ``chip_smoke._first_step_recorded``: its lockstep
+    record."""
+    torch.manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    n_rays, batch = 96, 48
+    tables = (torch.tensor(np.concatenate([rng.normal(size=(n_rays, 3)), np.ones((n_rays, 1))],
+                                          -1).astype(np.float32)),
+              torch.tensor(np.concatenate([rng.normal(size=(n_rays, 3)),
+                                           np.zeros((n_rays, 1))], -1).astype(np.float32)),
+              torch.tensor(rng.uniform(size=(n_rays, 3)).astype(np.float32)))
+    out = {}
+    for path, (backend, dtype, _) in chip_smoke.QUALITY_PATHS.items():
+        cfg = tn.NeRFConfig(mlp=tm.MLPConfig(**MLP), compute_dtype=getattr(torch, dtype),
+                            backend=backend, n_samples_coarse=N_C, n_samples_fine=N_F,
+                            near=2.0, far=6.0, **chip_smoke._quality_fusions(path))
+        opt = tts.make_optimizer_with_schedule(LR)
+        state = tts.init_train_state(torch.Generator().manual_seed(SEED), cfg, opt,
+                                     device="cpu")
+        rec = {"init_params": chip_smoke._digest(torch, tree_leaves(state.params))}
+        first = {}
+        with chip_smoke._first_step_recorded(torch, first):
+            tts.make_epoch_fn(cfg, opt, 1, batch)(state, torch.Generator().manual_seed(1),
+                                                  *tables)
+        out[path] = {**rec, **first}
+    return out
+
+
+@pytest.mark.parametrize("path", list(chip_smoke.QUALITY_PATHS))
+def test_quality_paths_first_step_draws_in_lockstep(quality_first_steps, path):
+    """Every quality path (the fused ones too) starts from "xla"'s weights and
+    takes its first batch and uniforms, and its first step draws from the
+    generator exactly what ``nerf.draw_training_uniforms`` draws: the phase's
+    lockstep digests, on the CPU."""
+    rec = quality_first_steps[path]
+    assert rec == quality_first_steps["xla"]
+    assert rec["drawn"] == ["fine_u", "strat_u"]
+    assert rec["rng_after_step"] == rec["rng_after_draws"]
+
+
 # The committed JAX-trained weights (flagship widths, 70 epochs of the 256px
 # Alexander scene), rendered from radius-4 poses looking at the origin.
 H5 = ROOT / "runs" / "256px_alexander_nerf_r04" / "NeRF_model_epoch_070.h5"
