@@ -23,13 +23,15 @@ is installed, the tensor-core instructions of their SASS are printed, and the
 run fails if bf16 B1/B2/B6 have no HMMA or f32 B1/B6 forward no HGMMA), holds
 B1 in both types and the plain
 version against the forward chain evaluated in f64 (f32 B1 fails if it is more
-than ``F64_FACTOR`` times as far as the plain version), B6 and its plain
-version likewise (raw output, dz and dparams; JSON ``b6_vs_f64_chain``), B7
+than ``F64_FACTOR`` times as far as the plain version, bf16 B1 if more than
+``F64_FACTOR_BF16`` times), B6 and its plain
+version likewise (raw output, dz and dparams at S = 64 and, in bf16, 128; JSON
+``b6_vs_f64_chain``; bf16 held to ``F64_FACTOR_BF16``), B7
 (pixels, dz, dparams; ``b7_vs_f64_chain``; in f32 also step by step,
 ``b7_f32_steps``, ``tools/comp_f32_steps.py``), B5 (loss, dz, dparams;
 ``b5_vs_f64_chain``) and B4 (pixels, weights, denc, dencd, dz, dparams;
 ``b4_vs_f64_chain``) at S = 64 and 128, and B2 in both types
-(dx / dd; ``b2_vs_f64_chain``), holds the
+(dx / dd; ``b2_vs_f64_chain``; bf16 held to ``F64_FACTOR_BF16``), holds the
 bf16 B7 forward and backward, B5 and B4 (forward and backward, on the
 tensor cores) also at S = 100, at 4093 rays and on opaque rays, and the f32
 backwards of B7 and B4 and f32 B5 (3xTF32 on the tensor cores) at S = 64, 100
@@ -99,7 +101,9 @@ kernels (``_check_diet_run``: 272 bf16 and 8 f32 forwards, 200 backwards),
 take its diet steps at counters 13, 26, 39 and 52 with consistency losses
 in [0, 0.1], and write each epoch's ``.h5``; its first diet step is held on
 the card (``_diet_held_step``: the consistency loss and gradient in f32
-through the kernels and their plain versions against the f64 chain, and the
+through the kernels and their plain versions against the f64 chain, each
+resampling from the held run's CDFs, with the f32 ViT pooled over
+``DIET_DRAWS`` draws, and the
 checkpointed render's gradient against the one without checkpoint), and the
 plain and diet steps, the ViT, the consistency render, the target
 embeddings and the diet step's peak memory are timed.
@@ -113,7 +117,9 @@ counters 13 and 26); the ranks' parameters must be bitwise equal, their
 launches exactly 64 bf16 B1 and 64 B2 and 4 f32 B1 a rank, their eval frames
 bitwise this process's single-device frames of rank 0's parameters, their
 reduced f32 gradient within ``TOL_DIST_GRAD`` of the one-process gradient
-and their epoch loss within ``TOL_DIST_LOSS`` of a one-process epoch's; a
+from the same state at each of the first ``DIST_HELD_STEPS`` steps, and
+their first step's loss within ``TOL_DIST_STEP_LOSS`` of a one-process
+epoch's (the epoch's mean loss printed); a
 process of its own then runs ``main.main([cfg, "--distributed"])`` at a world
 of one (NCCL), whose ``.h5`` must be bitwise the plain run's, and
 ``mesh.all_reduce_mean_`` on that one-rank NCCL group. The ranks share one
@@ -179,7 +185,8 @@ N_ROWS_RAGGED = N_ROWS - 37  # a part-filled last tile
 N_ROWS_NARROW = 4096 - 5  # f32 B1 at narrow widths
 # The product loops of B1 (and bf16 B2) by compute type
 # (csrc/mlp_mma_tile.cuh, csrc/mlp_tf32_tile.cuh).
-MLP_DESIGN = {"bfloat16": "tensor cores, mma.sync bf16, 128-row tiles",
+MLP_DESIGN = {"bfloat16": "tensor cores, mma.sync bf16, 128-row tiles, a fresh f32 partial a "
+                          "16-deep step",
               "float32": "tensor cores, 3xTF32 wgmma, 128-row tiles in persistent blocks, "
                          "a producer warp streaming hi / lo weight packs by bulk copies"}
 # f32 B2 and f32 B6's backward run the 3xTF32 mma.sync tile of
@@ -293,6 +300,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float32_mma": 495e12 / 3}
 # f32 B1 against the f64 forward chain: normwise at most this many times the
 # plain f32 version's distance.
 F64_FACTOR = 4.0
+# bf16 B1's output, B2's dx and dd and B6's raw output, dz and dparams against
+# the f64 evaluation of their chain: normwise at most this many times the
+# plain f32 version's distance. Every bf16 tensor-core product sums each
+# 16-deep step into a fresh f32 partial (mlp_mma_tile.cuh mma_step), one
+# rounding a step where the plain version's f32 sums round at every term;
+# with the tensor core's running sum these kernels read 1.45-1.6x.
+F64_FACTOR_BF16 = 1.25
 # The compositing kernels on the bf16 tensor cores (B7's backward, B5, B4's
 # forward and backward) sum in an order of their own; the plain version's f32
 # sums are one more such order. Two things then part them from it that do not
@@ -514,6 +528,12 @@ def _mlp_checks(torch, rc, ws, bs, cfg, x, d, g, cd, name, label):
     exact = _vs_f64_chain(torch, rc, ws, bs, cfg, x, d, g, cd, rows, tol_r)
     log(f"kernel check {label}: dx/dd against the f64 chain (scaled max, normwise, share "
         f"of rows over tol), kernel and plain; leaky-branch flips plain f32 vs f64: {exact}")
+    if cd == torch.bfloat16:
+        for k, _, _ in rows:
+            exact[k]["ratio_kernel_to_plain"] = exact[k]["kernel"][1] / max(
+                exact[k]["plain"][1], 1e-300)
+        _hold_bf16_chain(f"mlp_bwd {label}", {k: exact[k]["ratio_kernel_to_plain"]
+                                              for k, _, _ in rows})
     del rows
     dws2, dbs2, _, _ = rc.mlp_bwd(ws, bs, cfg, x, d, g, cd)
     torch.cuda.synchronize()
@@ -784,6 +804,17 @@ def _chain_ratios(out: dict) -> dict:
     for r in out.values():
         r["ratio_kernel_to_plain"] = r["kernel"] / max(r["plain"], 1e-300)
     return out
+
+
+def _hold_bf16_chain(label: str, ratios: dict) -> None:
+    """Fails unless each ``{output: kernel's normwise distance to the f64
+    chain over the plain version's}`` is at most ``F64_FACTOR_BF16``."""
+    log(f"{label} against the f64 chain, kernel over plain (normwise; limit "
+        f"{F64_FACTOR_BF16}): {ratios}")
+    over = {k: r for k, r in ratios.items() if not r <= F64_FACTOR_BF16}
+    if over:
+        raise AssertionError(f"{label}: {over} times the plain version's distance to the f64 "
+                             f"chain (limit {F64_FACTOR_BF16})")
 
 
 def _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd, z, g, cd) -> dict:
@@ -1075,6 +1106,9 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
             timings.setdefault("b6_vs_f64_chain", {}).setdefault(variant, {})[name] = chain
             log(f"kernel check B6 {variant} {name} R={RAYS} S={SAMPLES} against the f64 chain "
                 f"(normwise, kernel and plain): {chain}")
+            if cd == torch.bfloat16:
+                _hold_bf16_chain(f"B6 {variant} {name} R={RAYS} S={SAMPLES}",
+                                 {k: r["ratio_kernel_to_plain"] for k, r in chain.items()})
             # The other sample counts: (rd, z, errors, cotangents, B7's backward's
             # record) by count, each from the generator of its rays and that of
             # its cotangents; in bf16 S = 100 too (one part-filled tile a ray in
@@ -1089,6 +1123,14 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                 other[n_s] = (rd_s, z_s, *_rm_checks(
                     torch, rk, cfg, ws, bs, rd_s, z_s, cd, name, g_c,
                     f"{variant} {name} R={RAYS} S={n_s}"))
+            if cd == torch.bfloat16:
+                rd_s, z_s, _, cots_s, _ = other[2 * SAMPLES]
+                chain = _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd_s, z_s, cots_s[0], cd)
+                timings["b6_vs_f64_chain"][variant][f"{name} S={2 * SAMPLES}"] = chain
+                log(f"kernel check B6 {variant} {name} R={RAYS} S={2 * SAMPLES} against the f64 "
+                    f"chain (normwise, kernel and plain): {chain}")
+                _hold_bf16_chain(f"B6 {variant} {name} R={RAYS} S={2 * SAMPLES}",
+                                 {k: r["ratio_kernel_to_plain"] for k, r in chain.items()})
             if cd == torch.float32:
                 # f32 B6's backward with a part-filled last 64-row tile, and f32
                 # B7 (forward and backward) on the same rays.
@@ -1920,8 +1962,12 @@ def probe_kernel_phases(torch, timings: dict) -> None:
     fwd_vs_exact = {k: _row_errs(o[:N_ROWS], exact, TOL["bfloat16"])
                     for k, o in (("b1_mma", ref), ("plain_f32", plain))}
     del exact
+    fwd_vs_exact["normwise_ratio_b1_mma_to_plain"] = (
+        fwd_vs_exact["b1_mma"][1] / max(fwd_vs_exact["plain_f32"][1], 1e-30))
     log(f"kernel check B1 bf16 rows={N_ROWS} against the f64 forward chain (scaled max, "
         f"normwise, share of rows over {TOL['bfloat16']}): {fwd_vs_exact}")
+    _hold_bf16_chain(f"B1 bf16 rows={N_ROWS}",
+                     {"out": fwd_vs_exact["normwise_ratio_b1_mma_to_plain"]})
     # f32: B1 on the tensor cores (3xTF32) and the plain f32 version against
     # the f32 chain evaluated in f64.
     exact32 = rc._forward_plain(ws32, bs32, cfg, x32, d32, torch.float32, torch.float64)[0]
@@ -2965,7 +3011,7 @@ QUALITY_LR_FINAL = 5e-5
 # The PSNR of the held-out views' pooled MSE (deterministic f32 renders) must
 # rise by QUALITY_RISE_DB from the initial weights to the last epoch's on
 # every path, and a kernel path may end at most QUALITY_WINDOW_DB below its
-# plain twin. Over init seeds 1 and 2 (``python3 chip_smoke.py quality 1 2``)
+# plain twin. Over init seeds 1 and 2 (``python3 chip_smoke.py seeds quality 1 2``)
 # every path rose 18.47-19.47 dB, to 27.18-28.08, and the five paths of a
 # seed, the same training in other roundings, ended at most 0.83 dB apart,
 # no kernel path below its twin.
@@ -3229,21 +3275,29 @@ def quality_phase(torch, timings: dict, seed: int = SEED) -> None:
         raise AssertionError("quality phase: " + "; ".join(faults))
 
 
-def quality_seeds(torch, seeds) -> int:
-    """``python3 chip_smoke.py quality SEED ...``: the quality phase alone
-    (after the build), once from each init seed, one ``{"quality": ...}``
-    line each: the paths' spread over seeds, which the windows are read
-    against. Returns 1 if a seed's phase failed."""
+def seed_runs(torch, phase: str, seeds) -> int:
+    """``python3 chip_smoke.py seeds PHASE SEED ...``: one phase alone (after
+    the build), once from each seed, one line of its timings' JSON each: the
+    spread over seeds that a phase's limits are read against. ``quality``
+    and ``distributed`` take the seed as their runs' init seed; ``diet``
+    runs both diet phases with the held step's draws from that seed on.
+    Returns 1 if a seed's phase failed."""
     failed = []
     for seed in seeds:
         timings: dict = {}
         try:
-            quality_phase(torch, timings, seed)
+            if phase == "diet":
+                for backend in DIET_KERNELS:
+                    diet_phase(torch, timings, backend, seed)
+            else:
+                {"quality": quality_phase, "distributed": distributed_phase}[phase](
+                    torch, timings, seed)
         except AssertionError as e:
             failed.append(seed)
-            log(f"init seed {seed}: {e}")
+            log(f"{phase}, seed {seed}: {e}")
         else:
-            print(json.dumps({"quality": timings["quality"]}), flush=True)
+            print(json.dumps(timings), flush=True)
+    log(f"{phase}, seeds {list(seeds)}: failed {failed}")
     return 1 if failed else 0
 
 
@@ -3615,17 +3669,31 @@ DIET_KERNELS = {"pallas": ("mlp_fwd", "mlp_bwd"), "pallas_rm": ("raymarch_fwd", 
 # trained weights, the NeRF in f32 and in the run's own bf16, through the
 # kernels and through their plain versions, each against the plain chain with
 # f64 products and sums in the MLP (the same roundings to bf16 in the bf16
-# NeRF; the other operations as they are). With the ViT in its bf16 (the
+# NeRF; the other operations as they are) resampling from that run's own
+# CDFs. The coarse network's gradient flows only through the resampled z,
+# whose inverse CDF divides by the CDF's step over each picked bin: where
+# that bin's weight is near 0 the step is a difference of two f32 sums near
+# 1, and a rounding of one weight moves it, and the gradient, by a large
+# factor; a rounding also moves a pick across a bin edge or two z across
+# each other in the merge. Against the chain on its own CDFs a draw's
+# distance is then set by a few such rays, for the plain version as for the
+# kernels (the first draw also prints the chain on its own resampling). The
+# run's CDFs are held to the chain's own to TOL at every draw.
+# With the ViT in its bf16 (the
 # consistency loss as it trains), a difference in the last place of the
 # rendered image can flip a bf16 rounding in the ViT and move the gradient by
 # a share of a bf16 ulp (3e-3 normwise in a CPU rehearsal at small widths): the
 # loss to TOL_DIET_LOSS relative, each network's gradient to TOL_DIET_GRAD
 # normwise, which a fault of the step's wiring (O(1)) exceeds. With the ViT
 # in f32 no rounding in it flips, and the kernels' gradient must lie at most
-# F64_FACTOR times as far from the f64 chain as the plain version's (the bf16
-# kernels' own distance is 1.4-1.6x the plain version's).
+# F64_FACTOR times as far from the f64 chain as the plain version's, each
+# distance pooled over DIET_DRAWS draws (the consistency loss's generator
+# seeded with each): one draw's distances are set by a few rays, and their
+# ratio read 0.06x to 14.8x over eight draws on the card, where pools of four
+# read 0.26x to 2.09x.
 TOL_DIET_LOSS = 1e-3
 TOL_DIET_GRAD = 3e-2
+DIET_DRAWS = 4
 # The diet step's bf16 kernels (B1 and B2, or B6's forward and backward) are
 # also held one launch at a time at the consistency render's shapes, which no
 # other phase gives them: a chunk's coarse pass (2,500 rays x 55 samples,
@@ -3773,16 +3841,60 @@ def _plain_twins(torch, work):
         ("uses_kernel", lambda x: False), ("mlp_fwd_plain", fwd), ("mlp_bwd_plain", bwd))]
 
 
-def _diet_held_step(torch, trainer, c2w, target, label: str) -> dict:
+def _cdf_recorded(record: list):
+    """Patches that record each CDF the resampling draws from
+    (``sampling.resampling_cdf``), detached, in call order; the values are
+    unchanged."""
+    from nerf_and_dietnerf_tpu_torch.core import sampling
+
+    cdf_of = sampling.resampling_cdf
+
+    def recorded(weights):
+        cdf = cdf_of(weights)
+        record.append(cdf.detach())
+        return cdf
+
+    return [(sampling, "resampling_cdf", recorded)]
+
+
+def _cdf_replayed(record: list, own: list):
+    """Patches that make a run resample from the CDFs ``record`` holds, in the
+    same call order, with the gradient of its own (``own`` gets its own CDFs):
+    the chain evaluated at another run's resampling, so that run's bin picks,
+    merge orders and the conditioning of its inverse CDF."""
+    from nerf_and_dietnerf_tpu_torch.core import sampling
+
+    cdf_of, values = sampling.resampling_cdf, iter(record)
+
+    def replayed(weights):
+        cdf = cdf_of(weights)
+        own.append(cdf.detach())
+        return next(values) + (cdf - cdf.detach())
+
+    return [(sampling, "resampling_cdf", replayed)]
+
+
+def _pooled(draws) -> dict:
+    """``{w: sqrt(sum ||g - c||^2 / sum ||c||^2)}`` over ``draws``, each
+    ``{w: (||g - c||^2, ||c||^2)}``: the normwise distance of the draws'
+    gradients stacked."""
+    return {w: math.sqrt(sum(d[w][0] for d in draws) / sum(d[w][1] for d in draws))
+            for w in draws[0]}
+
+
+def _diet_held_step(torch, trainer, c2w, target, label: str, seed: int = SEED) -> dict:
     """The diet step's consistency loss and gradient from the trained
     weights at the run's first diet pose and target, the NeRF in f32 (TF32
     off) and in the run's bf16, with the same draws (a generator seeded
-    alike) three ways on the card: the kernels, their plain versions, and
-    the plain chain with f64 sums (``_plain_twins``); each once with the ViT
-    in bf16 (``consistency_loss`` as it trains), once in f32 (the same call
-    with ``vit.extract_features`` given ``compute_dtype=float32``). Then the
-    bf16 render's gradient with and without ``torch.utils.checkpoint`` (same
-    chunks, draws and kernels)."""
+    alike) on the card: the kernels and their plain versions, each against
+    the plain chain with f64 sums (``_plain_twins``) resampling from that
+    run's CDFs (``_cdf_recorded`` / ``_cdf_replayed``), which are held to the
+    chain's own to ``TOL``; each once with the ViT in bf16
+    (``consistency_loss`` as it trains) at draw ``seed``, once in f32 (the
+    same call with ``vit.extract_features`` given ``compute_dtype=float32``)
+    at the ``DIET_DRAWS`` draws from ``seed`` on, pooled (:func:`_pooled`).
+    Then the bf16 render's gradient with and without
+    ``torch.utils.checkpoint`` (same chunks, draws and kernels)."""
     import dataclasses
     import functools
     import types
@@ -3804,40 +3916,77 @@ def _diet_held_step(torch, trainer, c2w, target, label: str) -> dict:
         return float(loss), {w: torch.cat([g.reshape(-1).double() for g in tree_leaves(grads[w])])
                              for w in ("coarse", "fine")}
 
+    def at_draw(cfg, patches, draw: int, own_resampling: bool):
+        """One draw's record, and each run's squared distances to its chain."""
+
+        def consistency(p):
+            key = torch.Generator(device=DEVICE).manual_seed(draw)
+            return dietnerf.consistency_loss(p, trainer.vit_params, cfg, diet, key, c2w, fov,
+                                             target)[0]
+
+        cdfs = {"kernel": [], "plain": []}
+        runs = {"kernel": grads_of(consistency, patches + _cdf_recorded(cdfs["kernel"])),
+                "plain": grads_of(consistency, patches + _plain_twins(torch, torch.float32)
+                                  + _cdf_recorded(cdfs["plain"]))}
+        own = {name: [] for name in runs}
+        chains = {name: grads_of(consistency, patches + _plain_twins(torch, torch.float64)
+                                 + _cdf_replayed(cdfs[name], own[name]))
+                  for name in runs}
+        rec: dict = {"draw": draw, "loss_f64_chain": chains["kernel"][0]}
+        squares = {}
+        for name in ("kernel", "plain"):
+            (loss, g), (c_loss, c_g) = runs[name], chains[name]
+            squares[name] = {w: (float((g[w] - c_g[w]).square().sum()),
+                                 float(c_g[w].square().sum())) for w in g}
+            rec[name] = {"loss_rel": abs(loss - c_loss) / abs(c_loss),
+                         **_pooled([squares[name]]),
+                         "cdf": max(_normwise(r, o.double()) for r, o in
+                                    zip(cdfs[name], own[name]))}
+        rec["kernel_vs_plain"] = {w: float((runs["kernel"][1][w] - runs["plain"][1][w]).norm()
+                                           / runs["plain"][1][w].norm())
+                                 for w in ("coarse", "fine")}
+        if own_resampling:  # printed, not held: against the chain on its own resampling
+            _, own_g = grads_of(consistency, patches + _plain_twins(torch, torch.float64))
+            rec["vs_f64_own_resampling"] = {
+                name: {w: float((runs[name][1][w] - own_g[w]).norm() / own_g[w].norm())
+                       for w in own_g} for name in runs}
+        return rec, squares
+
     out: dict = {}
     for nerf_type, cfg in (("float32", dataclasses.replace(trainer.config,
                                                            compute_dtype=torch.float32)),
                            ("bfloat16", trainer.config)):
-
-        def consistency(p, cfg=cfg):
-            key = torch.Generator(device=DEVICE).manual_seed(SEED)
-            return dietnerf.consistency_loss(p, trainer.vit_params, cfg, diet, key, c2w, fov,
-                                             target)[0]
-
         for vit_type, patches in (("bfloat16", []), ("float32", vit_f32)):
-            runs = {"kernel": grads_of(consistency, patches),
-                    "plain": grads_of(consistency, patches + _plain_twins(torch, torch.float32)),
-                    "f64": grads_of(consistency, patches + _plain_twins(torch, torch.float64))}
-            e_loss, e_g = runs["f64"]
-            rec: dict = {"loss_f64_chain": e_loss}
-            for name in ("kernel", "plain"):
-                loss, g = runs[name]
-                rec[name] = {"loss_rel": abs(loss - e_loss) / abs(e_loss),
-                             **{w: float((g[w] - e_g[w]).norm() / e_g[w].norm()) for w in g}}
-            rec["kernel_vs_plain"] = {w: float((runs["kernel"][1][w] - runs["plain"][1][w]).norm()
-                                               / runs["plain"][1][w].norm()) for w in e_g}
-            out[f"nerf_{nerf_type}_vit_{vit_type}"] = rec
-            log(f"{label} held diet step ({nerf_type} NeRF, {vit_type} ViT): consistency loss "
-                f"{e_loss:.6e} (f64 chain); against the f64 chain: kernels {rec['kernel']}, "
-                f"plain {rec['plain']}; kernels vs plain {rec['kernel_vs_plain']}")
+            t0 = time.perf_counter()
+            n = 1 if vit_type == "bfloat16" else DIET_DRAWS
+            held = [at_draw(cfg, patches, seed + k, k == 0) for k in range(n)]
+            recs = [rec for rec, _ in held]
+            pooled = {name: _pooled([sq[name] for _, sq in held]) for name in ("kernel", "plain")}
+            what = f"{label} held diet step ({nerf_type} NeRF, {vit_type} ViT)"
+            for rec in recs:
+                log(f"{what} draw {rec['draw']}: consistency loss {rec['loss_f64_chain']:.6e} "
+                    f"(f64 chain); against the f64 chain on each run's resampling (cdf: the "
+                    f"run's CDFs against the chain's own, worst call): kernels {rec['kernel']}, "
+                    f"plain {rec['plain']}; kernels vs plain {rec['kernel_vs_plain']}"
+                    + (f"; against the f64 chain on its own resampling (not held) "
+                       f"{rec['vs_f64_own_resampling']}" if "vs_f64_own_resampling" in rec
+                       else ""))
+            log(f"{what}: pooled over draws {[r['draw'] for r in recs]}, kernels "
+                f"{pooled['kernel']}, plain {pooled['plain']}, ratio "
+                f"{ {w: pooled['kernel'][w] / pooled['plain'][w] for w in pooled['plain']} } "
+                f"({time.perf_counter() - t0:.1f} s)")
+            out[f"nerf_{nerf_type}_vit_{vit_type}"] = {"draws": recs, "pooled": pooled}
+            ok = all(rec[k]["cdf"] <= TOL[nerf_type] for rec in recs for k in ("kernel", "plain"))
             if vit_type == "bfloat16":
-                ok = rec["kernel"]["loss_rel"] <= TOL_DIET_LOSS and all(
-                    rec[k][w] <= TOL_DIET_GRAD for k in ("kernel", "plain") for w in e_g)
+                ok &= all(rec["kernel"]["loss_rel"] <= TOL_DIET_LOSS and all(
+                    rec[k][w] <= TOL_DIET_GRAD for k in ("kernel", "plain") for w in pooled[k])
+                    for rec in recs)
             else:
-                ok = all(rec["kernel"][w] <= F64_FACTOR * rec["plain"][w] for w in e_g)
+                ok &= all(pooled["kernel"][w] <= F64_FACTOR * pooled["plain"][w]
+                          for w in pooled["plain"])
             if not ok:
                 raise AssertionError(f"{label}: the held diet step ({nerf_type} NeRF, {vit_type} "
-                                     f"ViT) is off: {rec}")
+                                     f"ViT) is off: {out[f'nerf_{nerf_type}_vit_{vit_type}']}")
 
     cot = torch.randn((trainer.diet.cs_image_size, trainer.diet.cs_image_size, 3),
                       generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
@@ -4015,14 +4164,15 @@ def _first_checkpoint_s() -> float:
     return float(run.stdout.split()[-1])
 
 
-def diet_phase(torch, timings: dict, backend: str) -> None:
+def diet_phase(torch, timings: dict, backend: str, seed: int = SEED) -> None:
     """Two epochs of DietNeRF on the synthetic scene with the launch counts
     set to 0 just before: "pallas" through the normal entry point,
     ``main.main([cfg, "--vit-weights", npz])`` (the runner's stand-ins, the
     training task alone; ``npz`` a ViT-B/32 file of random weights with its
     geometry embedded, written by the port's ``save_npz``), "pallas_rm"
     through ``DietTrainer.fit`` with the random embedder. Then
-    ``_check_diet_run``, the held diet step, the kernels at the render's
+    ``_check_diet_run``, the held diet step (its draws from ``seed`` on),
+    the kernels at the render's
     shapes, the timings and the traces, and the first checkpoint call's
     seconds in a fresh interpreter (:func:`_first_checkpoint_s`)."""
     import shutil
@@ -4077,7 +4227,8 @@ def diet_phase(torch, timings: dict, backend: str) -> None:
     trainer = rec["trainer"]
     first = rec["steps"][0]
     out["seconds"] = seconds
-    out["held_step"] = _diet_held_step(torch, trainer, first["c2w"], first["target"], label)
+    out["held_step"] = _diet_held_step(torch, trainer, first["c2w"], first["target"], label,
+                                       seed)
     out["kernel_checks"] = _diet_kernel_checks(torch, trainer, first["c2w"], label, backend)
     out.update(_diet_timings(torch, trainer, first["c2w"], first["target"]))
     out["first_checkpoint_call_s"] = _first_checkpoint_s()
@@ -4103,17 +4254,22 @@ DIST_RUN_FIELDS = ("hidden_layer_dim", "last_hidden_layer_dim", "n_pos_enc_dim_x
                    "n_rays_in_batch_render", "n_render_samples_coarse", "n_render_samples_fine",
                    "compute_dtype", "backend", "init_seed")
 # The two ranks' reduced f32 gradient (TF32 off) against the one-process
-# gradient of the same global batch, normwise: only the grouping of the sum
+# gradient of the same global batch from the same state, normwise, at each of
+# the first DIST_HELD_STEPS steps of an epoch: only the grouping of the sum
 # over rows differs (each rank's kernels sum its 2,048 rows, then the
 # all-reduce adds the two halves). The control, ranks drawing at their local
-# shape, must land above it.
+# shape, must land above it at every step.
 TOL_DIST_GRAD = 1e-5
-# The two-rank epoch's mean loss against the one-process epoch's, relative:
-# 32 bf16 steps whose reduced gradients differ from the one-process ones in
-# their last bits, which Adam's division by sqrt(nu) enlarges where a
-# gradient is near 0. Set between the sound runs' readings and the local-draw
-# control's (PERF.md, section 6, data parallelism), which must land above it.
-TOL_DIST_LOSS = 1e-3
+# The steps held so: each from the one-process run's state at that step, so
+# that what Adam makes of last-bit gradient differences (a division by
+# sqrt(nu), which over an epoch parts sound runs as far as the control) does
+# not enter; the epoch's mean loss is printed, not held.
+DIST_HELD_STEPS = 8
+# The bf16 epoch's first step's loss, two ranks against one process,
+# relative: the same state and global batch, sums in another order (sound
+# runs read 0 to 1.0e-7 on the card); the local-draw control (9.3e-4 to
+# 4.2e-3 there) must land above it.
+TOL_DIST_STEP_LOSS = 1e-5
 DIST_ALLREDUCE_REPS = 20
 DIST_WARM_EPOCHS = 3  # untraced warm epochs timed after the first (and before the traced one)
 
@@ -4139,16 +4295,21 @@ def _drawing_locally(local: bool):
         yield
 
 
-def _dist_grads(torch, dev, mesh, local: bool = False):
-    """The gradient that ``train_step`` hands to Adam in the first step of an
-    epoch of the f32 flagship config (``pallas``, compute_dtype float32) at
-    the seed's parameters, through ``train_step.make_epoch_fn`` on the
-    synthetic scene's training rays with a fixed generator: with ``mesh``
-    this rank's reduced gradient, without it the single-device step's; with
-    ``local``, the ranks draw at their local shape (the control)."""
+def _dist_grads(torch, dev, mesh, seed: int) -> dict:
+    """The gradient that ``train_step`` hands to Adam at each of the first
+    ``DIST_HELD_STEPS`` steps of an epoch of the f32 flagship config
+    (``pallas``, compute_dtype float32) from the parameters of init seed
+    ``seed``, on the synthetic scene's training rays with a fixed generator,
+    as ``train_step.run_epoch`` draws them: the permutation, then each step's
+    uniforms. Each step starts from the one-process run's state and key, and
+    gives three gradients: ``"one"``, the single-device step's on the whole
+    batch (whose update the run takes); ``"sound"``, this rank's reduced
+    gradient on its rows; ``"local"``, the same with the ranks drawing at
+    their local shape (the control)."""
     import dataclasses
 
     from nerf_and_dietnerf_tpu_torch.data import loaders, pipeline
+    from nerf_and_dietnerf_tpu_torch.parallel import mesh as mesh_lib
     from nerf_and_dietnerf_tpu_torch.train import train_step as ts
     from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
 
@@ -4159,28 +4320,44 @@ def _dist_grads(torch, dev, mesh, local: bool = False):
             recorded.append([g.detach().clone() for g in tree_leaves(grads)])
             return super().update(grads, opt_state)
 
-    run = _flagship_run("pallas", "float32")
+    run = dataclasses.replace(_flagship_run("pallas", "float32"), init_seed=seed)
     ds = synthetic_scene()
     cfg = dataclasses.replace(run.nerf_config(), near=ds.near, far=ds.far)
     optimizer = Recording(run.optimizer_lr)
-    state = ts.init_train_state(torch.Generator().manual_seed(SEED), cfg, optimizer, device=dev)
+    state = ts.init_train_state(torch.Generator().manual_seed(seed), cfg, optimizer, device=dev)
     idx = loaders.train_test_split_indices(len(ds), run.test_img_idx, None)
     data = pipeline.RayDataset(ds.images[idx], ds.camera_poses[idx], ds.field_of_view,
                                run.n_rays_in_batch_train)
     tables = [torch.as_tensor(a, device=dev) for a in (data.origins, data.directions, data.rgb)]
-    key = torch.Generator(device=dev).manual_seed(SEED + 21)
-    with _drawing_locally(local):
-        ts.make_epoch_fn(cfg, optimizer, 1, data.batch_size, mesh=mesh)(state, key, *tables)
-    return recorded[0]
+    key = torch.Generator(device=dev).manual_seed(seed + 21)
+    perm = torch.randperm(tables[0].shape[0], generator=key, device=dev)
+    group_cfg = dataclasses.replace(cfg, mesh=mesh)
+    out: dict = {"one": [], "sound": [], "local": []}
+    for i in range(DIST_HELD_STEPS):
+        at = key.get_state()
+        rows = mesh_lib.batch_indices(perm, i, data.batch_size, mesh.rank, mesh.world_size)
+        for name, local in (("sound", False), ("local", True)):
+            key.set_state(at)
+            with _drawing_locally(local):
+                ts.train_step(state, key, tuple(t[rows] for t in tables), config=group_cfg,
+                              optimizer=optimizer, mesh=mesh)
+            out[name].append(recorded.pop())
+        key.set_state(at)
+        rows = mesh_lib.batch_indices(perm, i, data.batch_size)
+        state, _ = ts.train_step(state, key, tuple(t[rows] for t in tables), config=cfg,
+                                 optimizer=optimizer)
+        out["one"].append(recorded.pop())
+    return out
 
 
-def _dist_worker_args(out: Path, device, diet: bool = False):
+def _dist_worker_args(out: Path, device, seed: int, diet: bool = False):
     """The drill's worker arguments: one epoch of the flagship config
-    (``_flagship_run("pallas")``) on the synthetic scene's ``.npz``."""
+    (``_flagship_run("pallas")``, init seed ``seed``) on the synthetic
+    scene's ``.npz``."""
     from nerf_and_dietnerf_tpu_torch.tools import multiprocess_worker as worker
 
-    run = _flagship_run("pallas")
-    fields = {k: getattr(run, k) for k in DIST_RUN_FIELDS}
+    fields = {k: getattr(_flagship_run("pallas"), k) for k in DIST_RUN_FIELDS}
+    fields["init_seed"] = seed
     return worker.parse_args(["--out", str(out), "--epochs", "1", "--device", str(device),
                               "--scene", str(DIST_DIR / "scene.npz"), "--run",
                               json.dumps(fields)] + (["--diet", "full"] if diet else []))
@@ -4302,17 +4479,34 @@ def _card_timeline(traces, steps: int) -> dict:
             "ranks": ranks}
 
 
-def _dist_rank(rank: int, mesh, out_dir: str) -> None:
+def _step_losses(record: list):
+    """A patch that appends each training step's loss (``train_step``'s
+    metrics, the group's mean in a group run) to ``record``, as a detached
+    tensor: no host read inside the epoch."""
+    from nerf_and_dietnerf_tpu_torch.train import train_step as ts
+
+    real = ts.train_step
+
+    def train_step(*args, **kwargs):
+        state, metrics = real(*args, **kwargs)
+        record.append(metrics["loss"].detach().clone())
+        return state, metrics
+
+    return (ts, "train_step", train_step)
+
+
+def _dist_rank(rank: int, mesh, out_dir: str, seed: int) -> None:
     """One of the two spawned ranks of :func:`distributed_phase`, both on
     the same device in one gloo group: gloo's ``all_reduce`` and
     ``broadcast`` on the device's tensors first; the f32 gradient check's
-    rank side, and its control (:func:`_local_draws`), and the all-reduce's
+    rank side (:func:`_dist_grads`, with its control) and the all-reduce's
     time on that gradient; one epoch of the flagship NeRF through the port's
     worker (launches counted by compute type), a warm epoch untraced and one
     traced; the same epoch with the ranks drawing locally (the control); one
     epoch of DietNeRF through the worker (each diet step's counter and
-    consistency loss recorded). Writes ``rank{r}.json``; rank 0 also its
-    reduced gradients and its trained parameters and eval frames."""
+    consistency loss recorded), all from init seed ``seed``. Writes
+    ``rank{r}.json``; rank 0 also its gradients and its trained parameters
+    and eval frames."""
     from unittest import mock
 
     import torch
@@ -4343,12 +4537,11 @@ def _dist_rank(rank: int, mesh, out_dir: str) -> None:
                            f"{y[:2].tolist()}")
     out["gloo_check"] = {"all_reduce_sum": float(x[0]), "broadcast": float(y[0])}
 
-    grads = _dist_grads(torch, dev, mesh)
-    local_grads = _dist_grads(torch, dev, mesh, local=True)
+    grads = _dist_grads(torch, dev, mesh, seed)
     if rank == 0:
-        torch.save({"sound": [g.cpu() for g in grads], "local": [g.cpu() for g in local_grads]},
+        torch.save({k: [[g.cpu() for g in step] for step in v] for k, v in grads.items()},
                    out_dir / "grads_rank0.pt")
-    bufs = [g.clone() for g in grads]
+    bufs = [g.clone() for g in grads["sound"][0]]
     ms = []
     for _ in range(DIST_ALLREDUCE_REPS):
         _sync(torch, dev)
@@ -4356,28 +4549,35 @@ def _dist_rank(rank: int, mesh, out_dir: str) -> None:
         mesh_lib.all_reduce_mean_(bufs, mesh)
         _sync(torch, dev)
         ms.append(1e3 * (time.perf_counter() - t0))
-    n = sum(g.numel() for g in grads)
+    n = sum(g.numel() for g in bufs)
     out["all_reduce"] = {"values": n, "bytes": 4 * n, "ms": sorted(ms)[len(ms) // 2],
                          "ms_min": min(ms), "reps": len(ms)}
 
     by_dtype: dict = {}
+    step_losses: list = []
     with contextlib.ExitStack() as stack:
         for owner, name, value in (_h5_stand_ins(torch) + [_fwd_by_dtype(
-                torch, raymarch_cuda, "mlp_fwd", "mlp_fwd", by_dtype)]):
+                torch, raymarch_cuda, "mlp_fwd", "mlp_fwd", by_dtype),
+                _step_losses(step_losses)]):
             stack.enter_context(mock.patch.object(owner, name, value))
-        trainer, nerf_result = worker.run(_dist_worker_args(out_dir / "nerf", dev), dev, mesh)
+        trainer, nerf_result = worker.run(_dist_worker_args(out_dir / "nerf", dev, seed), dev,
+                                         mesh)
     out["nerf"] = dict(nerf_result, mlp_fwd_by_dtype=by_dtype,
+                       step_losses=[float(v) for v in step_losses],
                        warm_epochs=_warm_epochs(torch, trainer),
                        trace=_traced_epoch(torch, trainer, mesh))
     if rank == 0:
         torch.save({"params": tree_map(torch.Tensor.cpu, trainer.state.params),
                     "renders": trainer.render_eval_images(1)}, out_dir / "trained_rank0.pt")
+    local_steps: list = []
     with contextlib.ExitStack() as stack:
-        for owner, name, value in _h5_stand_ins(torch):
+        for owner, name, value in _h5_stand_ins(torch) + [_step_losses(local_steps)]:
             stack.enter_context(mock.patch.object(owner, name, value))
         stack.enter_context(_drawing_locally(True))
-        _, local_result = worker.run(_dist_worker_args(out_dir / "nerf_local", dev), dev, mesh)
-    out["nerf_local_draws"] = {"losses": local_result["losses"]}
+        _, local_result = worker.run(_dist_worker_args(out_dir / "nerf_local", dev, seed),
+                                     dev, mesh)
+    out["nerf_local_draws"] = {"losses": local_result["losses"],
+                               "step_losses": [float(v) for v in local_steps]}
 
     steps = []
     real_step = dietnerf.diet_train_step
@@ -4396,8 +4596,8 @@ def _dist_rank(rank: int, mesh, out_dir: str) -> None:
         for owner, name, value in (_h5_stand_ins(torch)
                                    + [(dietnerf, "diet_train_step", diet_train_step)]):
             stack.enter_context(mock.patch.object(owner, name, value))
-        trainer, diet_result = worker.run(_dist_worker_args(out_dir / "diet", dev, diet=True),
-                                          dev, mesh)
+        trainer, diet_result = worker.run(
+            _dist_worker_args(out_dir / "diet", dev, seed, diet=True), dev, mesh)
     out["diet"] = dict(diet_result, diet_steps=steps,
                        cs_weight=trainer.diet.weight, budget=trainer.consistency_budget,
                        cs_chunks=-(-trainer.diet.cs_image_size ** 2 // trainer.diet.cs_chunk_rays))
@@ -4474,18 +4674,20 @@ def _normwise_leaves(torch, got, ref) -> float:
     return float(torch.linalg.norm(g - r) / torch.linalg.norm(r))
 
 
-def distributed_phase(torch, timings: dict) -> None:
-    """Data parallelism on the one card: two ranks spawned in one gloo group,
-    both on the card (``_dist_rank``: gloo on the card's tensors checked
-    first); the ranks' parameters after a flagship NeRF epoch and a DietNeRF
-    epoch bitwise equal, their logged losses equal, exact launch counts per
-    rank; their eval frames against this process's single-device render of
-    rank 0's parameters, bitwise; their reduced f32 gradient against this
-    process's one-process gradient, normwise ``TOL_DIST_GRAD``; their epoch
-    loss against a one-process epoch, ``TOL_DIST_LOSS``, with the controls of
-    both (the ranks drawing at their local shape) above the tolerances; then
-    NCCL at a world of one (``_nccl_child``). The ranks share one card: their
-    times say nothing of scaling across cards."""
+def distributed_phase(torch, timings: dict, seed: int = SEED) -> None:
+    """Data parallelism on the one card, the runs from init seed ``seed``:
+    two ranks spawned in one gloo group, both on the card (``_dist_rank``:
+    gloo on the card's tensors checked first); the ranks' parameters after a
+    flagship NeRF epoch and a DietNeRF epoch bitwise equal, their logged
+    losses equal, exact launch counts per rank; their eval frames against
+    this process's single-device render of rank 0's parameters, bitwise;
+    their reduced f32 gradient against the one-process gradient from the
+    same state at each of the first ``DIST_HELD_STEPS`` steps, normwise
+    ``TOL_DIST_GRAD``; their epoch's first step's loss against a one-process
+    epoch's, ``TOL_DIST_STEP_LOSS``, with the controls of both (the ranks
+    drawing at their local shape) above the tolerances; then NCCL at a world
+    of one (``_nccl_child``). The ranks share one card: their times say
+    nothing of scaling across cards."""
     import multiprocessing
     import shutil
     from unittest import mock
@@ -4504,7 +4706,7 @@ def distributed_phase(torch, timings: dict) -> None:
              field_of_view=ds.field_of_view, near=ds.near, far=ds.far)
     dev = torch.device("cuda:0" if DEVICE == "cuda" else DEVICE)
     try:
-        mesh_lib.spawn(_dist_rank, [str(dev)] * 2, args=(str(DIST_DIR),), backend="gloo",
+        mesh_lib.spawn(_dist_rank, [str(dev)] * 2, args=(str(DIST_DIR), seed), backend="gloo",
                        timeout=DIST_TIMEOUT)
     except Exception as e:
         raise AssertionError(f"distributed: the two gloo ranks on {dev} failed: {e}") from e
@@ -4525,30 +4727,42 @@ def distributed_phase(torch, timings: dict) -> None:
     if n0["params_sha256"] != n1["params_sha256"] or n0["losses"] != n1["losses"] \
             or n0["psnr_test"] != n1["psnr_test"] or n0["psnr_train"] != n1["psnr_train"]:
         raise AssertionError(f"distributed: the ranks differ: {n0} / {n1}")
+    one_steps: list = []
     with contextlib.ExitStack() as stack:
-        for owner, name, value in _h5_stand_ins(torch):
+        for owner, name, value in _h5_stand_ins(torch) + [_step_losses(one_steps)]:
             stack.enter_context(mock.patch.object(owner, name, value))
-        one_trainer, one = worker.run(_dist_worker_args(DIST_DIR / "one", dev), dev, None)
+        one_trainer, one = worker.run(_dist_worker_args(DIST_DIR / "one", dev, seed), dev,
+                                       None)
+    one["step_losses"] = [float(v) for v in one_steps]
     one_warm = _warm_epochs(torch, one_trainer)
 
-    def rel(losses):
-        return abs(losses[0] - one["losses"][0]) / abs(one["losses"][0])
+    def rel(losses, ref):
+        return abs(losses[0] - ref[0]) / abs(ref[0])
 
-    loss_rel = rel(n0["losses"])
-    local_rel = [rel(r["nerf_local_draws"]["losses"]) for r in ranks]
-    log(f"distributed: {steps} steps of {n0['rows_per_step']} rows a rank, epoch loss "
-        f"{n0['losses'][0]:.6f} (two ranks) vs {one['losses'][0]:.6f} (one process), "
-        f"relative {loss_rel:.3e} (tolerance {TOL_DIST_LOSS}); the control drawing locally "
-        f"{ranks[0]['nerf_local_draws']['losses'][0]:.6f}, relative {local_rel[0]:.3e}; "
+    # Held: the first step's loss, from the same state on the same global
+    # batch; printed: the epoch's, which Adam's steps part.
+    step_rel = rel(n0["step_losses"], one["step_losses"])
+    local_step_rel = [rel(r["nerf_local_draws"]["step_losses"], one["step_losses"])
+                      for r in ranks]
+    loss_rel = rel(n0["losses"], one["losses"])
+    local_rel = [rel(r["nerf_local_draws"]["losses"], one["losses"]) for r in ranks]
+    log(f"distributed: {steps} steps of {n0['rows_per_step']} rows a rank, first step's loss "
+        f"{n0['step_losses'][0]:.7f} (two ranks) vs {one['step_losses'][0]:.7f} (one process), "
+        f"relative {step_rel:.3e} (tolerance {TOL_DIST_STEP_LOSS}); the control drawing locally "
+        f"{ranks[0]['nerf_local_draws']['step_losses'][0]:.7f}, relative "
+        f"{local_step_rel[0]:.3e}; epoch loss (not held) {n0['losses'][0]:.6f} vs "
+        f"{one['losses'][0]:.6f}, relative {loss_rel:.3e}, the control's {local_rel[0]:.3e}; "
         f"params sha256 {n0['params_sha256'][:16]} on both ranks; launches a rank "
         f"{n0['launches']}")
-    if not loss_rel <= TOL_DIST_LOSS or not all(math.isfinite(v) for v in n0["losses"]):
-        raise AssertionError(f"distributed: epoch loss {n0['losses']} vs one process "
-                             f"{one['losses']}")
-    if not min(local_rel) > TOL_DIST_LOSS:
-        raise AssertionError(f"distributed: the local-draw control's epoch loss is within "
-                             f"{TOL_DIST_LOSS} of one process's ({local_rel}): the check "
-                             f"cannot see the fault")
+    if not step_rel <= TOL_DIST_STEP_LOSS or not all(math.isfinite(v) for v in
+                                                     n0["losses"] + n0["step_losses"]):
+        raise AssertionError(f"distributed: first step's loss {n0['step_losses'][0]} vs one "
+                             f"process {one['step_losses'][0]} (epoch {n0['losses']} vs "
+                             f"{one['losses']})")
+    if not min(local_step_rel) > TOL_DIST_STEP_LOSS:
+        raise AssertionError(f"distributed: the local-draw control's first step's loss is "
+                             f"within {TOL_DIST_STEP_LOSS} of one process's ({local_step_rel}): "
+                             f"the check cannot see the fault")
     timeline = _card_timeline([DIST_DIR / f"trace_rank{r}" / "trace.json" for r in (0, 1)],
                               steps)
     for r in ranks:
@@ -4576,18 +4790,17 @@ def distributed_phase(torch, timings: dict) -> None:
     if any(v != 0.0 for v in frame_diff.values()):
         raise AssertionError(f"distributed: tile-sharded eval frames differ: {frame_diff}")
 
-    # The reduced f32 gradient against the one-process gradient.
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # The reduced f32 gradient against the one-process gradient, step by step.
     got = torch.load(DIST_DIR / "grads_rank0.pt", weights_only=False)
-    ref = [g.cpu() for g in _dist_grads(torch, dev, None)]
-    grad_err = _normwise_leaves(torch, got["sound"], ref)
-    local_grad_err = _normwise_leaves(torch, got["local"], ref)
-    log(f"distributed: f32 reduced gradient ({len(ref)} leaves, as train_step hands it to "
-        f"Adam) vs one process's, normwise {grad_err:.3e} (tolerance {TOL_DIST_GRAD}); the "
-        f"control drawing locally {local_grad_err:.3e}")
-    if not grad_err <= TOL_DIST_GRAD:
+    grad_err = [_normwise_leaves(torch, g, r) for g, r in zip(got["sound"], got["one"])]
+    local_grad_err = [_normwise_leaves(torch, g, r) for g, r in zip(got["local"], got["one"])]
+    log(f"distributed: f32 reduced gradient ({len(got['one'][0])} leaves, as train_step hands "
+        f"it to Adam) vs one process's from the same state, normwise, steps 1-"
+        f"{DIST_HELD_STEPS}: {[f'{e:.3e}' for e in grad_err]} (tolerance {TOL_DIST_GRAD}); the "
+        f"control drawing locally {[f'{e:.3e}' for e in local_grad_err]}")
+    if len(grad_err) != DIST_HELD_STEPS or not max(grad_err) <= TOL_DIST_GRAD:
         raise AssertionError(f"distributed: f32 reduced gradient {grad_err} from one process's")
-    if not local_grad_err > TOL_DIST_GRAD:
+    if not min(local_grad_err) > TOL_DIST_GRAD:
         raise AssertionError(f"distributed: the local-draw control's gradient is within "
                              f"{TOL_DIST_GRAD} ({local_grad_err}): the check cannot see the fault")
 
@@ -4642,7 +4855,9 @@ def distributed_phase(torch, timings: dict) -> None:
         "all_reduce": ranks[0]["all_reduce"], "all_reduce_rank1": ranks[1]["all_reduce"],
         "launches_per_rank": n0["launches"], "mlp_fwd_by_dtype": n0["mlp_fwd_by_dtype"],
         "loss": n0["losses"][0], "loss_one_process": one["losses"][0], "loss_rel": loss_rel,
-        "loss_rel_local_draws": local_rel, "traced_epoch": [r["nerf"]["trace"] for r in ranks],
+        "loss_rel_local_draws": local_rel, "first_step_loss_rel": step_rel,
+        "first_step_loss_rel_local_draws": local_step_rel,
+        "traced_epoch": [r["nerf"]["trace"] for r in ranks],
         "card_timeline": timeline,
         "eval_frame_max_diff": frame_diff, "f32_grad_normwise": grad_err,
         "f32_grad_normwise_local_draws": local_grad_err,
@@ -5008,8 +5223,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if sys.argv[1:2] == ["quality"]:
-        return quality_seeds(torch, [int(s) for s in sys.argv[2:]] or [SEED])
+    if sys.argv[1:2] == ["seeds"]:
+        return seed_runs(torch, sys.argv[2], [int(s) for s in sys.argv[3:]] or [SEED])
     kernel_phases(torch, timings)
     raymarch_kernel_phases(torch, timings)
     comp_kernel_phases(torch, timings)

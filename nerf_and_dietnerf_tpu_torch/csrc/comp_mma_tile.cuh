@@ -73,14 +73,13 @@
 
 namespace nerf_cmma {
 
-// Every bf16 product sums each 16-deep step into a fresh accumulator (mma_step):
-// with the tensor core's truncating running sum (B2's tile) these kernels sat
-// farther from the exact sums than the plain version. A row whose raw sigma
-// lies within rounding noise of 0 still crosses the compositing's kink
-// (max(sigma, 0); the sigma cotangent is 0 below it) in any other order of
-// summation; `raw` lets the checks take the kernel's side of it
+// Every bf16 product sums each 16-deep step into a fresh accumulator (the
+// tile's mma_step): with the tensor core's truncating running sum these
+// kernels sat farther from the exact sums than the plain version. A row whose
+// raw sigma lies within rounding noise of 0 still crosses the compositing's
+// kink (max(sigma, 0); the sigma cotangent is 0 below it) in any other order
+// of summation; `raw` lets the checks take the kernel's side of it
 // (chip_smoke.py KINK_SHARE, tools/comp_kink.py).
-constexpr bool FRESH = true;
 
 using nerf_mlp::Dims;
 using nerf_mlp::Layout;
@@ -117,14 +116,13 @@ struct Bf16Kit {
   static __device__ void forward_tile(const Dims& dm, const Layout& L, const Pack& M, const E* F,
                                       const float* B, const Tiles& t, Ring& ring, E* keep,
                                       float* out, int row0, const Mat* after) {
-    nerf_mma::forward_tile<FRESH>(dm, L, M, F, B, t, ring, keep, out, row0, after);
+    nerf_mma::forward_tile(dm, L, M, F, B, t, ring, keep, out, row0, after);
   }
   static __device__ void backward_walk(const Dims& dm, const Layout& L, const Pack& M,
                                        const E* Bp, const Tiles& t, Ring& ring, const E* acts,
                                        float* part, bool first, int row0, float* dx, float* dd,
                                        const Mat* after, const Mat& b10) {
-    nerf_mma::backward_walk<FRESH>(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after,
-                                   b10);
+    nerf_mma::backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);
   }
 };
 

@@ -20,9 +20,11 @@
 // chain's time. `wgmma` (B read once per 64 rows) is the step above that.
 // The roundings are those of the FMA tiles: every operand of a wide product
 // is a bf16 value, a bf16 x bf16 product is exact in f32 and the sums stay
-// f32. The sums differ in order and in the tensor core's own accumulation
-// within an mma, which is not a chain of IEEE f32 adds; chip_smoke.py holds
-// both designs and the plain version against an f64 evaluation of the chain.
+// f32. The sums differ in order: the tensor core sums each 16-deep step into
+// a fresh partial (its own accumulation, not a chain of IEEE f32 adds), and
+// round-to-nearest f32 adds sum the partials (mma_step). chip_smoke.py holds
+// the kernels and the plain version against an f64 evaluation of the chain
+// (F64_FACTOR_BF16).
 //
 // Tile: BM = 128 rows a block, 8 warps. A product's output (128 x Np) is cut
 // into 2 row halves x 4 column groups: warp (wm, wn) owns rows 64 wm .. +64
@@ -172,21 +174,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// c += a b, one m16n8k16 step. FRESH: the tensor core sums the step's 16
-// products into a fresh zero accumulator, which round-to-nearest f32 adds
-// then add to c (the per-chunk partials of mlp_tf32_tile.cuh, for mma.sync):
-// the tensor core's own running sum, which truncates, never carries c.
-template <bool FRESH>
+// c += a b, one m16n8k16 step: the tensor core sums the step's 16 products
+// into a fresh zero partial, which round-to-nearest f32 adds then add to c
+// (the per-chunk partials of mlp_tf32_tile.cuh, for mma.sync). The tensor
+// core's own running sum, which truncates, never carries c. Every product of
+// the tile sums this way, so a backward's recomputed forward takes the
+// forward kernel's leaky branches.
 __device__ __forceinline__ void mma_step(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
-  if constexpr (FRESH) {
-    float p[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_bf16(p, a, b0, b1);
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(p, a, b0, b1);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] += p[e];
-  } else {
-    mma_bf16(c, a, b0, b1);
-  }
+  for (int e = 0; e < 4; ++e) c[e] += p[e];
 }
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
@@ -270,7 +269,7 @@ __device__ __forceinline__ void ring_start(Ring& ring, const Mat& m) {
 // the ring. Expects m's first chunk issued into ring.stage; issues `next`'s
 // first chunk (if any) while it computes its last. Ends with a barrier, so
 // the caller may overwrite A afterwards.
-template <bool FRESH = false, int WM = 2>
+template <int WM = 2>
 __device__ __forceinline__ void mma_rows(Acc& acc, const bf16* A, int lda, const Mat& m,
                                          const Mat* next, Ring& ring) {
   const int lane = threadIdx.x & 31;
@@ -300,8 +299,8 @@ __device__ __forceinline__ void mma_rows(Acc& acc, const bf16* A, int lda, const
           ldsm_x4(b, cur + 16 * f.pair(q) * LDW + b_off + kk);
 #pragma unroll
           for (int mt = 0; mt < 4; ++mt) {
-            mma_step<FRESH>(acc[mt][q][0], a[mt], b[0], b[1]);
-            mma_step<FRESH>(acc[mt][q][1], a[mt], b[2], b[3]);
+            mma_step(acc[mt][q][0], a[mt], b[0], b[1]);
+            mma_step(acc[mt][q][1], a[mt], b[2], b[3]);
           }
         }
       }
@@ -316,7 +315,6 @@ __device__ __forceinline__ void mma_rows(Acc& acc, const bf16* A, int lda, const
 // (Kp x Np) result is cut into 64 x 32 warp tiles dealt out to the warps;
 // each entry of dst is written by one thread. The slab's old values are
 // loaded before the products, so their latency hides behind the mma.
-template <bool FRESH = false>
 __device__ inline void mma_wgrad(float* __restrict__ dst, const bf16* A, int lda, int K, const bf16* G,
                                  int ldg, int N, bool first) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -352,8 +350,8 @@ __device__ inline void mma_wgrad(float* __restrict__ dst, const bf16* A, int lda
 #pragma unroll
           for (int mt = 0; mt < 4; ++mt) {
             if (m0 + 16 * mt < Kp) {
-              mma_step<FRESH>(c[mt][2 * p], a[mt], b[0], b[1]);
-              mma_step<FRESH>(c[mt][2 * p + 1], a[mt], b[2], b[3]);
+              mma_step(c[mt][2 * p], a[mt], b[0], b[1]);
+              mma_step(c[mt][2 * p + 1], a[mt], b[2], b[3]);
             }
           }
         }
@@ -628,7 +626,7 @@ __device__ __forceinline__ void store_rows(const Acc& acc, float* __restrict__ d
 // `after`: the product whose first chunk to issue during the last one. `Epi`
 // is the epilogue of every hidden layer (the two output heads add their f32
 // bias only); the tile has WM row halves.
-template <bool FRESH = false, typename Epi = LeakyEpilogue, int WM = 2>
+template <typename Epi = LeakyEpilogue, int WM = 2>
 __device__ inline void forward_tile(const Dims& dm, const Layout& L, const MmaLayout& M,
                                     const bf16* __restrict__ F, const float* __restrict__ B,
                                     const Tiles& t, Ring& ring, bf16* keep, float* out, int row0,
@@ -640,10 +638,10 @@ __device__ inline void forward_tile(const Dims& dm, const Layout& L, const MmaLa
     zero_acc(acc);
     if (l == SKIP) {
       const Mat nx = fmat(F, M, SKIP + 1);
-      mma_rows<FRESH, WM>(acc, t.X, LDX, fmat(F, M, SKIP), &nx, ring);
+      mma_rows<WM>(acc, t.X, LDX, fmat(F, M, SKIP), &nx, ring);
     }
     const Mat nx = fmat(F, M, i + 1);
-    mma_rows<FRESH, WM>(acc, l == 0 ? t.X : t.P, l == 0 ? LDX : LDH, fmat(F, M, i), &nx, ring);
+    mma_rows<WM>(acc, l == 0 ? t.X : t.P, l == 0 ? LDX : LDH, fmat(F, M, i), &nx, ring);
     store_leaky<Epi, WM>(acc, B + L.b[l], dm.hid, M.np[i], alpha, t.P);
     __syncthreads();
     if (keep) store_slot<WM>(keep + l * SLOT, t.P, M.np[i]);
@@ -666,19 +664,19 @@ __device__ inline void forward_tile(const Dims& dm, const Layout& L, const MmaLa
   zero_acc(acc);
   if (dm.has_dir) {
     const Mat nx = fmat(F, M, 10);
-    mma_rows<FRESH, WM>(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
-    mma_rows<FRESH, WM>(acc, t.D, LDD, fmat(F, M, 10), after, ring);
+    mma_rows<WM>(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
+    mma_rows<WM>(acc, t.D, LDD, fmat(F, M, 10), after, ring);
     store_leaky<Epi, WM>(acc, B + L.b[8], dm.last, M.np[9], alpha, t.P);
     __syncthreads();
     if (keep) store_slot<WM>(keep + 8 * SLOT, t.P, M.np[9]);
   } else {
     const Mat nx = fmat(F, M, 10);
-    mma_rows<FRESH, WM>(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
+    mma_rows<WM>(acc, t.P, LDH, fmat(F, M, 9), &nx, ring);
     store_leaky<Epi, WM>(acc, B + L.b[8], dm.hid, M.np[9], alpha, t.P);
     __syncthreads();
     if (keep) store_slot<WM>(keep + 8 * SLOT, t.P, M.np[9]);
     zero_acc(acc);
-    mma_rows<FRESH, WM>(acc, t.P, LDH, fmat(F, M, 10), after, ring);
+    mma_rows<WM>(acc, t.P, LDH, fmat(F, M, 10), after, ring);
     store_leaky<Epi, WM>(acc, B + L.b[9], dm.last, M.np[10], alpha, t.P);
     __syncthreads();
     if (keep) store_slot<WM>(keep + 9 * SLOT, t.P, M.np[10]);
@@ -717,7 +715,6 @@ __device__ inline void forward_tile(const Dims& dm, const Layout& L, const MmaLa
 // block's slab `part` (weights, then biases), written on its first tile
 // (`first`) and added to after; dx and dd rows to global memory (dd where
 // given). `after`: the product whose first chunk to issue during the last.
-template <bool FRESH = false>
 __device__ inline void backward_walk(const Dims& dm, const Layout& L, const MmaLayout& M,
                                      const bf16* __restrict__ Bp, const Tiles& t, Ring& ring,
                                      const bf16* acts, float* part, bool first, int row0,
@@ -751,8 +748,8 @@ __device__ inline void backward_walk(const Dims& dm, const Layout& L, const MmaL
   Acc acc;
   if (dm.has_dir) {
     load_slot(t.P, acts + 7 * SLOT, HP);  // h8
-    mma_wgrad<FRESH>(part + L.w[9], t.P, LDH, dm.hid, t.G, LDH, dm.last, first);
-    mma_wgrad<FRESH>(part + L.w[10], t.D, LDD, dm.dir, t.G, LDH, dm.last, first);
+    mma_wgrad(part + L.w[9], t.P, LDH, dm.hid, t.G, LDH, dm.last, first);
+    mma_wgrad(part + L.w[10], t.D, LDD, dm.dir, t.G, LDH, dm.last, first);
     bgrad(pb + L.b[8], t.G, LDH, dm.last, first);
     narrow_wgrad(part + L.w[12], t.P, LDH, dm.hid, t.GI + 3, 1, first);
     narrow_wgrad(part + L.w[13], t.D, LDD, dm.dir, t.GI + 3, 1, first);
@@ -760,30 +757,30 @@ __device__ inline void backward_walk(const Dims& dm, const Layout& L, const MmaL
     // dd = g_rgb_h @ Wrh_d^T + gsig @ Wsig_d^T
     const Mat b9 = bmat(Bp, M, 9), b8 = bmat(Bp, M, 8);
     zero_acc(acc);
-    mma_rows<FRESH>(acc, t.G, LDH, b10, &b9, ring);
+    mma_rows(acc, t.G, LDH, b10, &b9, ring);
     add_rank1(acc, t.GI, Bp + M.off[13], dm.dir);
     if (dd) store_rows(acc, dd, dm.dir, row0, dm.n, false);
     // g_h8 = g_rgb_h @ Wrh_h^T + gsig @ Wsig_h^T
     zero_acc(acc);
-    mma_rows<FRESH>(acc, t.G, LDH, b9, &b8, ring);
+    mma_rows(acc, t.G, LDH, b9, &b8, ring);
     add_rank1(acc, t.GI, Bp + M.off[12], dm.hid);
   } else {
     load_slot(t.P, acts + 8 * SLOT, HP);  // r0
-    mma_wgrad<FRESH>(part + L.w[10], t.P, LDH, dm.hid, t.G, LDH, dm.last, first);
+    mma_wgrad(part + L.w[10], t.P, LDH, dm.hid, t.G, LDH, dm.last, first);
     bgrad(pb + L.b[9], t.G, LDH, dm.last, first);
     const Mat b9 = bmat(Bp, M, 9), b8 = bmat(Bp, M, 8);
     zero_acc(acc);
-    mma_rows<FRESH>(acc, t.G, LDH, b10, &b9, ring);
+    mma_rows(acc, t.G, LDH, b10, &b9, ring);
     grad_tile(acc, t.P, dm.hid, HP, alpha_t, true, t.G);  // g_r0
     __syncthreads();
     load_slot(t.P, acts + 7 * SLOT, HP);  // h8
-    mma_wgrad<FRESH>(part + L.w[9], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
+    mma_wgrad(part + L.w[9], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
     bgrad(pb + L.b[8], t.G, LDH, dm.hid, first);
     narrow_wgrad(part + L.w[12], t.P, LDH, dm.hid, t.GI + 3, 1, first);
     narrow_bgrad(pb + L.b[11], t.GI + 3, 1, first);
     // g_h8 = g_r0 @ Wrh0^T + gsig @ Wsig^T
     zero_acc(acc);
-    mma_rows<FRESH>(acc, t.G, LDH, b9, &b8, ring);
+    mma_rows(acc, t.G, LDH, b9, &b8, ring);
     add_rank1(acc, t.GI, Bp + M.off[12], dm.hid);
   }
 
@@ -796,24 +793,24 @@ __device__ inline void backward_walk(const Dims& dm, const Layout& L, const MmaL
     bgrad(pb + L.b[l], t.G, LDH, dm.hid, first);
     const int i = trunk_w(l);
     if (l == SKIP) {
-      mma_wgrad<FRESH>(part + L.w[SKIP], t.X, LDX, dm.xyz, t.G, LDH, dm.hid, first);
-      mma_wgrad<FRESH>(part + L.w[SKIP + 1], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
+      mma_wgrad(part + L.w[SKIP], t.X, LDX, dm.xyz, t.G, LDH, dm.hid, first);
+      mma_wgrad(part + L.w[SKIP + 1], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
       // The skip layer's share of dx goes to dx now; layer 0 adds its own.
       const Mat b5 = bmat(Bp, M, SKIP + 1), b3 = bmat(Bp, M, SKIP - 1);
       zero_acc(acc);
-      mma_rows<FRESH>(acc, t.G, LDH, bmat(Bp, M, SKIP), &b5, ring);
+      mma_rows(acc, t.G, LDH, bmat(Bp, M, SKIP), &b5, ring);
       store_rows(acc, dx, dm.xyz, row0, dm.n, false);
       zero_acc(acc);
-      mma_rows<FRESH>(acc, t.G, LDH, b5, &b3, ring);
+      mma_rows(acc, t.G, LDH, b5, &b3, ring);
     } else if (l > 0) {
-      mma_wgrad<FRESH>(part + L.w[i], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
+      mma_wgrad(part + L.w[i], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
       const Mat nx = bmat(Bp, M, bwd_next(i));
       zero_acc(acc);
-      mma_rows<FRESH>(acc, t.G, LDH, bmat(Bp, M, i), &nx, ring);
+      mma_rows(acc, t.G, LDH, bmat(Bp, M, i), &nx, ring);
     } else {
-      mma_wgrad<FRESH>(part + L.w[0], t.X, LDX, dm.xyz, t.G, LDH, dm.hid, first);
+      mma_wgrad(part + L.w[0], t.X, LDX, dm.xyz, t.G, LDH, dm.hid, first);
       zero_acc(acc);
-      mma_rows<FRESH>(acc, t.G, LDH, bmat(Bp, M, 0), after, ring);
+      mma_rows(acc, t.G, LDH, bmat(Bp, M, 0), after, ring);
       store_rows(acc, dx, dm.xyz, row0, dm.n, true);
     }
   }

@@ -26,7 +26,7 @@
 //   f32 bits reach the tensor core (it would drop their 13 low bits).
 // - Accumulation: each 8-deep k-step's three products go into a fresh zero
 //   accumulator, which round-to-nearest f32 adds then add to the layer's sum
-//   (the FRESH rule of mlp_mma_tile.cuh's mma_step): the tensor core's own
+//   (the rule of mlp_mma_tile.cuh's mma_step): the tensor core's own
 //   running sum, which truncates, never carries the sum. The narrow products
 //   (N <= 3 or K <= 3: the rgb / sigma heads, the output cotangent in their
 //   weight gradients, g W^T with K = 3 or 1) stay f32 FMAs, as in bf16.
@@ -286,7 +286,7 @@ __device__ __forceinline__ void ring_start(Ring& ring, const Mat& m) {
 // first, then each of the three terms (lo.hi, hi.lo, hi.hi, small terms
 // first) issued across the 2 QN fresh zero partials in turn, so no product
 // waits on the one before it; then each partial is added to its accumulator
-// with a round-to-nearest f32 add (the FRESH rule of the header comment).
+// with a round-to-nearest f32 add (the rule of the header comment).
 template <int Q0, int QN>
 __device__ __forceinline__ void mma_ntiles(Acc& acc, const uint32_t (&ahi)[2][4],
                                            const uint32_t (&alo)[2][4], uint32_t cur,

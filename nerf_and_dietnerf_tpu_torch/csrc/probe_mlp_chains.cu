@@ -50,7 +50,7 @@ __global__ void __launch_bounds__(NT_OF<C>, 1)
   load_tile<C>(t.X, LDX, x, dm.xyz, row0, dm.n);
   load_tile<C>(t.D, LDD, d, dm.dir, row0, dm.n);
   __syncthreads();
-  forward_tile<false, LeakyEpilogue, C>(dm, L, M, F, B, t, ring, nullptr, out, row0, nullptr);
+  forward_tile<LeakyEpilogue, C>(dm, L, M, F, B, t, ring, nullptr, out, row0, nullptr);
 }
 
 template <int C>

@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(NT, 1)
   load_tile(t.X, LDX, x, dm.xyz, row0, dm.n);
   load_tile(t.D, LDD, d, dm.dir, row0, dm.n);
   __syncthreads();
-  forward_tile<false, Epi>(dm, L, M, F, B, t, ring, nullptr, out, row0, nullptr);
+  forward_tile<Epi>(dm, L, M, F, B, t, ring, nullptr, out, row0, nullptr);
 }
 
 template <typename Epi>

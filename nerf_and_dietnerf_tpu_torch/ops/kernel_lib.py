@@ -202,11 +202,7 @@ def load(name: str) -> ctypes.CDLL:
         path = lib_path(name)
         if not path.exists():
             build_kernels()
-        lib = ctypes.CDLL(str(path))
-        for fn, (argtypes, restype) in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        _LIBS[name] = lib
+        _LIBS[name] = open_library(name, path)
     return _LIBS[name]
 
 
@@ -236,15 +232,22 @@ def build_variants(name: str, variants: Dict[str, List[str]], out_dir: Path,
         if proc.returncode != 0:
             failed.append(label)
             continue
-        lib = ctypes.CDLL(str(out))
-        for fn, (argtypes, restype) in {**_SIGNATURES[name], **(extra or {})}.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        libs[label] = lib
+        libs[label] = open_library(name, out, extra)
     if failed:
         raise RuntimeError(f"nvcc failed for {name} {failed}:\n" +
                            "\n".join(logs[k] for k in failed))
     return {"libs": libs, "log": logs, "seconds": time.perf_counter() - t0}
+
+
+def open_library(name: str, path: Path, extra: Dict[str, tuple] = None) -> ctypes.CDLL:
+    """A build of the library ``name`` at ``path`` (a measurement build, or
+    another checkout's), with ``name``'s signatures and ``extra``'s, for
+    :func:`use_library`."""
+    lib = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in {**_SIGNATURES[name], **(extra or {})}.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
 
 
 def use_library(name: str, lib) -> None:

@@ -28,6 +28,13 @@ toolkit):
 
     python -m nerf_and_dietnerf_tpu_torch.tools.sass_diff build/parent
 
+Parent against change: ``kernel_ab`` (bf16 B1, B2 and B6 with the f32 B1 /
+B2 controls and the bf16 ``pallas`` / ``pallas_rm`` steps, a parent
+checkout's build and this one's in alternating turns, with each side's
+distance to the f64 chain and its registers; on the card):
+
+    python -m nerf_and_dietnerf_tpu_torch.tools.kernel_ab build/parent --out build/kernel_ab.json
+
 Every tool has ``main(argv=None)``; the others run on the GPU unless
 ``--device cpu`` is given (then the kernel wrappers run their plain PyTorch
 versions, and times are the host's). The probe tools print one line per case in the form their

@@ -133,11 +133,7 @@ def build_cuts(probe: str) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {probe} {cut}:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        for fn, (argtypes, restype) in kl._SIGNATURES[library].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        libs[cut] = lib
+        libs[cut] = kl.open_library(library, out)
     return libs
 
 

@@ -34,13 +34,36 @@ from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
 
 _INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 _PTXAS = ("entry function", "registers", "spill", "stack frame")
-# Builds every library of a checkout afresh into its build/sass_diff/ (so the
-# compiler's log is whole) and prints their paths and that log.
-_BUILD = ("import json, shutil; from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl; "
-          "kl.BUILD_DIR = kl.BUILD_DIR.parent / 'sass_diff'; "
-          "shutil.rmtree(kl.BUILD_DIR, ignore_errors=True); r = kl.build_kernels(); "
-          "print(json.dumps({'log': r['log'], 'paths': "
-          "{n: str(kl.lib_path(n)) for n in kl.KERNEL_SOURCES}}))")
+
+
+def build_script(subdir: str, libs=None) -> str:
+    """Python that builds the libraries ``libs`` (default: all) of the
+    checkout it runs in afresh into its ``build/<subdir>/`` (so the
+    compiler's log is whole) and prints their paths and that log as JSON."""
+    pick = "" if libs is None else (
+        f"kl.KERNEL_SOURCES = {{n: kl.KERNEL_SOURCES[n] for n in {list(libs)!r}}}; ")
+    return ("import json, shutil; from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl; "
+            f"kl.BUILD_DIR = kl.BUILD_DIR.parent / {subdir!r}; {pick}"
+            "shutil.rmtree(kl.BUILD_DIR, ignore_errors=True); r = kl.build_kernels(); "
+            "print(json.dumps({'log': r['log'], 'paths': "
+            "{n: str(kl.lib_path(n)) for n in kl.KERNEL_SOURCES}}))")
+
+
+def build_checkouts(roots: dict, subdir: str, libs=None) -> dict:
+    """``{name: {"log": ..., "paths": {library: path}}}``: :func:`build_script`
+    run in each checkout of ``roots`` (``{name: root}``), all at the same
+    time. Raises if a build fails."""
+    procs = {name: subprocess.Popen([sys.executable, "-c", build_script(subdir, libs)],
+                                    cwd=str(Path(root).resolve()), stdout=subprocess.PIPE,
+                                    text=True)
+             for name, root in roots.items()}
+    builds = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"the {name}'s build failed")
+        builds[name] = json.loads(out.strip().splitlines()[-1])
+    return builds
 
 
 def sass_functions(sass: str) -> dict:
@@ -111,16 +134,11 @@ def main(argv=None) -> int:
         return 2
     libs = [n for n in kl.KERNEL_SOURCES if not n.startswith("probe_")]
     here = Path(kl.__file__).resolve().parents[2]
-    procs = {name: subprocess.Popen([sys.executable, "-c", _BUILD], cwd=str(root),
-                                    stdout=subprocess.PIPE, text=True)
-             for name, root in (("parent", args.parent.resolve()), ("change", here))}
-    builds = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            print(f"the {name}'s build failed", file=sys.stderr)
-            return 2
-        builds[name] = json.loads(out.strip().splitlines()[-1])
+    try:
+        builds = build_checkouts({"parent": args.parent, "change": here}, "sass_diff")
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        return 2
     lines = []
     for lib in libs:
         funcs = {name: sass_functions(subprocess.run(

@@ -165,18 +165,19 @@ def test_tile_constants_match_the_cuda_sources():
     assert "constexpr int SLOT = BM * HPAD;" in MMA_SRC
     assert T32_BM == 64 and "static constexpr int BM = nerf_tmma::BM;" in (
         CSRC / "mlp_tf32_mma_tile.cuh").read_text()
-    # The bf16 kernels sum every 16-deep step into a fresh accumulator; B1, B2
-    # and B6 keep the tensor core's running sum (the template's default). The
-    # loops run the kit's tile code.
-    assert "constexpr bool FRESH = true;" in COMP_SRC
-    assert "nerf_mma::forward_tile<FRESH>(dm, L, M, F, B, t, ring, keep, out, row0, after);" \
+    # Every bf16 kernel sums each 16-deep step into a fresh accumulator, the
+    # tile's one rule (mma_step has no parameter; tests/test_torch_fresh_order.py
+    # holds its body). The loops run the kit's tile code.
+    assert "FRESH" not in COMP_SRC and "FRESH" not in MMA_SRC
+    assert "nerf_mma::forward_tile(dm, L, M, F, B, t, ring, keep, out, row0, after);" \
         in COMP_SRC
-    assert ("nerf_mma::backward_walk<FRESH>(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, "
-            "dd,") in COMP_SRC
+    assert ("nerf_mma::backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, "
+            "dd, after, b10);") in COMP_SRC
     assert "K::forward_tile(tdm, L, M, F, B, t, ring, acts + j * tile_slots," in COMP_SRC
     assert "K::backward_walk(tdm, L, M, Bp, t, ring, slots, part, first, 0," in COMP_SRC
-    assert ("template <bool FRESH = false, typename Epi = LeakyEpilogue, int WM = 2>\n"
+    assert ("template <typename Epi = LeakyEpilogue, int WM = 2>\n"
             "__device__ inline void forward_tile(") in MMA_SRC
+    assert "__device__ inline void backward_walk(" in MMA_SRC
     assert "  forward_tile(dm, L, M, F, B, t, ring, acts, nullptr, row0, &b10);" in MMA_SRC
     assert "  backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);" \
         in MMA_SRC

@@ -394,8 +394,8 @@ def test_epilogue_and_chains_probes_run_b1s_tensor_core_tile():
     include nothing of the FMA tile's header; f32 B6's forward at wide
     encodings is the FMA forward_tile's only caller."""
     csrc = ROOT / "nerf_and_dietnerf_tpu_torch" / "csrc"
-    for name, call in (("probe_mlp_epilogue.cu", "forward_tile<false, Epi>("),
-                       ("probe_mlp_chains.cu", "forward_tile<false, LeakyEpilogue, C>(")):
+    for name, call in (("probe_mlp_epilogue.cu", "forward_tile<Epi>("),
+                       ("probe_mlp_chains.cu", "forward_tile<LeakyEpilogue, C>(")):
         text = (csrc / name).read_text()
         assert '#include "mlp_mma_tile.cuh"' in text and "mlp_common.cuh\"" not in text
         assert call in text and "gemm_acc" not in text
