@@ -36,7 +36,11 @@ bf16 B7 forward and backward, B5 and B4 (forward and backward, on the
 tensor cores) also at S = 100, at 4093 rays and on opaque rays, and the f32
 backwards of B7 and B4 and f32 B5 (3xTF32 on the tensor cores) at S = 64, 100
 and 128 and on opaque rays, each against its plain version with f64 sums on the kernel's
-side of the compositing's kink (``KINK_SHARE``), checks that bf16 B4's and
+side of the compositing's kink (``KINK_SHARE``) and, for the bf16 backwards,
+on the leaky slopes the kernel took (``f64_branches``: the recording builds
+of ``csrc/branch_sink.cuh``, built with the others into ``build/branches/``,
+whose outputs must be bitwise the kernel's and whose masks must pass
+``raymarch_cuda.branch_guard``), checks that bf16 B4's and
 B7's backwards composite bitwise the raw values their forwards composited,
 prints the registers, spills and HMMA counts of the five bf16 backwards (B2,
 B6, B7, B5, B4), of B4's and B7's forwards and of the f32 backwards on the
@@ -131,8 +135,9 @@ kernel paths ("pallas": B1, B2; + ``fuse_fine_loss``: B1 and B2 coarse, B5
 fine; + ``fuse_compositing``: B4; + both: B4, B5; "pallas_rm": B6;
 "pallas_rm" + ``fuse_compositing``: B7), each in f32 and bf16, against the
 f64 chain of each path's plain version on the card, under the JAX tool's
-two checks; every run must pass and launch exactly ``PARITY_LAUNCHES`` of
-its path.
+two checks (check 1 against the oracle pinned to the leaky slopes each f32
+run's backwards took); every run must pass and launch exactly
+``PARITY_LAUNCHES`` of its path.
 Then the embedder phase (``embedder_phase``): the DietNeRF embedder
 trainer's default ViT trained ``EMBED_STEPS`` steps in each pairing mode on
 three synthetic scenes made here, finite losses falling, saved and read
@@ -313,20 +318,26 @@ F64_FACTOR_BF16 = 1.25
 # part the kernels from the function: a sample whose raw sigma lies within the
 # forward's rounding noise of 0 falls on the other side of the compositing's
 # kink (max(sigma, 0); the sigma cotangent is 0 below it) and moves its row's
-# dz and share of every weight gradient whole; and where few rows carry the
-# gradients (opaque rays: 256 first samples) the f32 version's own sums sit
-# up to 3e-2 from the exact ones in dparams' worst leaf. Each check of these
+# dz and share of every weight gradient whole; and a hidden pre-activation
+# within rounding of 0 takes the other leaky slope (1 or alpha) in the
+# kernel than in the f64 chain, which on opaque rays (256 first samples carry
+# every gradient) moves a whole weight-gradient leaf. Each check of these
 # kernels therefore holds the kernel against its plain version with the
 # MLP's products and sums in f64 (the same roundings to bf16, nearly exact
-# sums) and each sample on the kernel's side of the kink (the raw values the
-# kernel composited, ``raw=``; ``research_kernels_cuda.kink_of``): dparams
-# to TOL_BWD (the worst leaf), dz and B4's denc and dencd normwise to
-# TOL_ROWS, B5's loss, B4's pixels and weights to TOL, the raw values to TOL
-# against the plain forward's, and at most KINK_SHARE of the samples on the
-# other side of the kink from the f64 evaluation's.
-# ``tools/comp_kink.py`` computes the records; the distances to the plain f32
-# version are printed beside.
-KINK_SHARE = 1e-3
+# sums), each sample on the kernel's side of the kink (the raw values the
+# kernel composited, ``raw=``; ``research_kernels_cuda.kink_of``) and, for
+# the backwards, each leaky slope the kernel's (``f64_branches``: its
+# recording build, ``branches=``, must give outputs bitwise the kernel's, and
+# its mask must pass ``raymarch_cuda.branch_guard`` against the f64 chain's
+# own signs: every disagreement within BRANCH_BAND, at most KINK_SHARE of the
+# elements): dparams to TOL_BWD (the worst leaf), dz and B4's denc and dencd
+# normwise to TOL_ROWS, B5's loss, B4's pixels and weights to TOL, the raw
+# values to TOL against the plain forward's, and at most KINK_SHARE of the
+# samples on the other side of the kink from the f64 evaluation's. The f32
+# backwards (3xTF32) are held against ``f64_kink`` (no recording).
+# ``tools/comp_kink.py`` computes the records; the distances to ``f64_kink``
+# and to the plain f32 version are printed beside. BRANCH_BAND and KINK_SHARE
+# are ``raymarch_cuda``'s, the guard's own.
 PEAK_BYTES = 3.35e12
 
 
@@ -415,20 +426,18 @@ def _library_mlp(torch, ws, bs, cfg, x, d):
     return torch.cat([rgb, sig], -1)
 
 
-def _vs_f64_chain(torch, rc, ws, bs, cfg, x, d, g, cd, rows, tol_r) -> dict:
-    """Where B2's per-row gradients part from the plain version's: both against
-    the plain chain with the same roundings but f64 products and sums. Each of
-    ``rows`` (name, kernel, plain) gets (scaled max, normwise, share of rows
-    over ``tol_r``) for kernel and plain against that chain. The leaky-branch
-    flips of the plain f32 forward against the f64 one: the share of rows
-    with one or more, and that share among the rows where the plain version's
-    gradient is over ``tol_r`` against the f64 chain."""
-    exact = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g, cd, work=torch.float64)[2:]
-    out = {k: {"kernel": _row_errs(a, e, tol_r), "plain": _row_errs(p, e, tol_r)}
-           for (k, a, p), e in zip(rows, exact)}
-    dx_p, dx_e = rows[0][2], exact[0]
-    over = (dx_p.double() - dx_e).abs().max(dim=1).values / dx_e.abs().max() > tol_r
-    del exact, dx_e
+def _vs_f64_chain(torch, rc, ws, bs, cfg, x, d, g, cd) -> dict:
+    """B2 and its plain version against the plain chain with the same
+    roundings but f64 products and sums (``tools/chain.distances``: dx, dd
+    and the flat dparams normwise, kernel and plain, and their ratio; in bf16
+    also the kernel's distance to that chain on the leaky slopes its
+    recording build took, ``kernel_pinned``, with the guard's record,
+    ``branches``), and the share of rows where the plain f32 forward takes
+    another leaky branch than the f64 one somewhere."""
+    from nerf_and_dietnerf_tpu_torch.tools import chain
+
+    out = chain.distances(chain.mlp_chain(ws, bs, cfg, x, d, g, cd),
+                          pinned=cd == torch.bfloat16)
     _, a32 = rc._forward_plain(ws, bs, cfg, x, d, cd)
     _, a64 = rc._forward_plain(ws, bs, cfg, x, d, cd, torch.float64)
     flip = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
@@ -436,8 +445,6 @@ def _vs_f64_chain(torch, rc, ws, bs, cfg, x, d, g, cd, rows, tol_r) -> dict:
         flip |= ((p32 >= 0) != (p64 >= 0)).any(dim=1)
     del a32, a64
     out["rows_with_a_branch_flip"] = float(flip.float().mean())
-    out["dx_rows_over_tol_with_a_branch_flip"] = (
-        float((flip & over).float().sum() / over.float().sum()) if bool(over.any()) else None)
     return out
 
 
@@ -498,7 +505,7 @@ def _mlp_checks(torch, rc, ws, bs, cfg, x, d, g, cd, name, label):
     bitwise across two runs, f32 B2 right after NaN was left in every SM's
     shared memory (:func:`_poison_shared_memory`); returns the max |kernel -
     plain| of each and both types against the f64 chain
-    (:func:`_vs_f64_chain`)."""
+    (:func:`_vs_f64_chain`; bf16 dx and dd held to ``F64_FACTOR_BF16``)."""
     tol, tol_b, tol_r = TOL[name], TOL_BWD[name], TOL_ROWS[name]
     out_k = rc.mlp_fwd(ws, bs, cfg, x, d, cd)
     torch.cuda.synchronize()
@@ -525,15 +532,11 @@ def _mlp_checks(torch, rc, ws, bs, cfg, x, d, g, cd, name, label):
         raise AssertionError(f"mlp_bwd {label}: dparams scaled err {e_par} (tol {tol_b}); "
                              f"per-row {row_stats} (tol {tol_r})")
     del pws, pbs, pdx, pdd, pairs
-    exact = _vs_f64_chain(torch, rc, ws, bs, cfg, x, d, g, cd, rows, tol_r)
-    log(f"kernel check {label}: dx/dd against the f64 chain (scaled max, normwise, share "
-        f"of rows over tol), kernel and plain; leaky-branch flips plain f32 vs f64: {exact}")
+    exact = _vs_f64_chain(torch, rc, ws, bs, cfg, x, d, g, cd)
+    log(f"kernel check {label}: against the f64 chain (normwise), kernel and plain; rows "
+        f"where plain f32 takes another leaky branch than f64: {exact}")
     if cd == torch.bfloat16:
-        for k, _, _ in rows:
-            exact[k]["ratio_kernel_to_plain"] = exact[k]["kernel"][1] / max(
-                exact[k]["plain"][1], 1e-300)
-        _hold_bf16_chain(f"mlp_bwd {label}", {k: exact[k]["ratio_kernel_to_plain"]
-                                              for k, _, _ in rows})
+        _hold_bf16_chain(f"mlp_bwd {label}", exact, [k for k, _, _ in rows])
     del rows
     dws2, dbs2, _, _ = rc.mlp_bwd(ws, bs, cfg, x, d, g, cd)
     torch.cuda.synchronize()
@@ -795,53 +798,39 @@ def _fine_pass_text(r: dict, at="fine_pass") -> str:
             f"{r[f'library_ms_{at}']:.3f} ms)" if f"share_of_bound_{at}" in r else "")
 
 
-def _normwise(a, exact) -> float:
-    """|a - exact|_2 / |exact|_2, in f64."""
-    return float((a.double() - exact).norm() / exact.norm().clamp_min(1e-300))
-
-
-def _chain_ratios(out: dict) -> dict:
-    for r in out.values():
-        r["ratio_kernel_to_plain"] = r["kernel"] / max(r["plain"], 1e-300)
-    return out
-
-
-def _hold_bf16_chain(label: str, ratios: dict) -> None:
-    """Fails unless each ``{output: kernel's normwise distance to the f64
-    chain over the plain version's}`` is at most ``F64_FACTOR_BF16``."""
+def _hold_bf16_chain(label: str, dist: dict, held) -> None:
+    """Fails unless each output of ``held`` in ``dist`` (as
+    ``tools/chain.distances`` gives it) reads at most ``F64_FACTOR_BF16``
+    times the plain version's normwise distance to the f64 chain, or if the
+    kernel's recording build, where it ran, gave other outputs than the
+    kernel. Prints beside the kernel's distance to that chain on its own
+    leaky slopes (``kernel_pinned``; not held) and the guard's record."""
+    ratios = {k: dist[k]["ratio_kernel_to_plain"] for k in held}
+    pinned = {k: (r["kernel"], r["kernel_pinned"]) for k, r in dist.items()
+              if isinstance(r, dict) and "kernel_pinned" in r}
     log(f"{label} against the f64 chain, kernel over plain (normwise; limit "
-        f"{F64_FACTOR_BF16}): {ratios}")
+        f"{F64_FACTOR_BF16}): {ratios}" + (
+            f"; kernel against the f64 chain on its own and on the kernel's leaky slopes "
+            f"(not held): {pinned}; its slopes against the chain's signs: {dist['branches']}"
+            if "branches" in dist else ""))
     over = {k: r for k, r in ratios.items() if not r <= F64_FACTOR_BF16}
     if over:
         raise AssertionError(f"{label}: {over} times the plain version's distance to the f64 "
                              f"chain (limit {F64_FACTOR_BF16})")
+    if not dist.get("branches", {}).get("recording_bitwise", True):
+        raise AssertionError(f"{label}: the recording build's outputs differ from the kernel's")
 
 
-def _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd, z, g, cd) -> dict:
+def _b6_vs_f64_chain(torch, ws, bs, cfg, rd, z, g, cd) -> dict:
     """B6 and its plain version against the plain chain with the same
-    roundings but f64 products and sums (``work=torch.float64``), on the
-    plain encode's encodings (:func:`_vs_f64_chain`'s approach): the normwise
-    distance of the raw output and, given a cotangent ``g``, of dz (the f64
-    dx through the encoding VJP, its angles and cosines as the plain version
-    computes them) and of the flat dparams."""
-    pts, x, d = rk._mlp_inputs(cfg, rd, z, cd)
-    exact = rc._forward_plain(ws, bs, cfg, x, d, cd, torch.float64)[0]
-    out = {"raw": {
-        "kernel": _normwise(rk.raymarch_fwd(ws, bs, cfg, rd, z, cd).reshape(-1, 4), exact),
-        "plain": _normwise(rk.raymarch_fwd_plain(ws, bs, cfg, rd, z, cd).reshape(-1, 4), exact)}}
-    del exact
-    if g is not None:
-        dws, dbs, dx, _ = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g.reshape(-1, 4), cd,
-                                           work=torch.float64)
-        dz_exact = rk._dz_from_dx(cfg, rd, pts, dx, z.shape[1])
-        par_exact = torch.cat([t.reshape(-1) for t in dws + dbs])
-        del dws, dbs, dx
-        for who, fn in (("kernel", rk.raymarch_bwd), ("plain", rk.raymarch_bwd_plain)):
-            kws, kbs, kdz = fn(ws, bs, cfg, rd, z, g, cd)
-            out.setdefault("dz", {})[who] = _normwise(kdz.reshape(-1), dz_exact)
-            out.setdefault("dparams", {})[who] = _normwise(
-                torch.cat([t.reshape(-1) for t in kws + kbs]), par_exact)
-    return _chain_ratios(out)
+    roundings but f64 products and sums, on the plain encode's encodings
+    (``tools/chain.ray_chain``): the normwise distance of the raw output and,
+    given a cotangent ``g``, of dz and of the flat dparams; in bf16 also on
+    the kernel's own leaky slopes (``kernel_pinned``, ``branches``)."""
+    from nerf_and_dietnerf_tpu_torch.tools import chain
+
+    return chain.distances(chain.ray_chain(ws, bs, cfg, rd, z, g, cd),
+                           pinned=cd == torch.bfloat16 and g is not None)
 
 
 COMP_BWD_NAMES = {"B7": "raymarch_comp_bwd", "B5": "mlp_loss_comp", "B4": "mlp_comp_bwd"}
@@ -849,21 +838,30 @@ COMP_BWD_NAMES = {"B7": "raymarch_comp_bwd", "B5": "mlp_loss_comp", "B4": "mlp_c
 
 def _hold_comp_bwd(torch, kernel, label, name, ws, bs, cfg, cd, args, run) -> dict:
     """B7's backward (``kernel`` "B7"), B5 ("B5") or B4's backward ("B4") on
-    ``args`` (as ``tools/comp_kink.plain_of`` takes them); ``run(raw)`` gives
-    its result as ``comp_kink.distance`` takes it (``(dws, dbs, dz, loss |
-    None[, rows])``), on the tensor cores writing the raw values it
-    composited to ``raw``. Finite, dparams (and B5's loss, B4's dencd)
-    bitwise equal across two runs, and held to the tolerances as KINK_SHARE
-    sets out (every instance runs on the tensor cores, the f32 ones on 3xTF32
-    tiles, each summing in an order of their own), in the compute type's
-    tolerances. Returns ``tools/comp_kink.compare``'s record, ``held_to``
-    naming the reference held to."""
+    ``args`` (as ``tools/comp_kink.plain_of`` takes them); ``run(raw,
+    branches=None)`` gives its result as ``comp_kink.distance`` takes it
+    (``(dws, dbs, dz, loss | None[, rows])``), on the tensor cores writing the
+    raw values it composited to ``raw`` and, given ``branches``, launching the
+    recording build that writes the leaky slopes it took there. Finite,
+    dparams (and B5's loss, B4's dencd) bitwise equal across two runs, and
+    held to the tolerances as KINK_SHARE sets out (every instance runs on the
+    tensor cores, the f32 ones on 3xTF32 tiles, each summing in an order of
+    their own), in the compute type's tolerances: bf16 against
+    ``f64_branches``, only after the recording build's outputs came out
+    bitwise the kernel's and its mask passed the guard
+    (``raymarch_cuda.branch_guard``); f32 against ``f64_kink``. Returns
+    ``tools/comp_kink.compare``'s record, ``held_to`` naming the reference
+    held to."""
+    from nerf_and_dietnerf_tpu_torch.ops.raymarch_cuda import KINK_SHARE
     from nerf_and_dietnerf_tpu_torch.tools import comp_kink
 
     kname = COMP_BWD_NAMES[kernel]
     z = args[1] if kernel == "B7" else args[2]
     raw = torch.empty((*z.shape, 4), dtype=torch.float32, device=DEVICE)
     got, again = run(raw), run(None)
+    pinned = cd == torch.bfloat16
+    mask, bitwise = comp_kink.recorded(lambda **kw: run(None, **kw), got, z, cfg) if pinned \
+        else (None, True)
     torch.cuda.synchronize()
 
     def rep(r):  # what must be bitwise reproducible
@@ -872,8 +870,15 @@ def _hold_comp_bwd(torch, kernel, label, name, ws, bs, cfg, cd, args, run) -> di
                 + ([rows["dencd"]] if "dencd" in rows else []))
 
     rows = got[4] if len(got) > 4 else {}
-    rec = comp_kink.compare(*comp_kink.plain_of(kernel, ws, bs, cfg, cd, args), got, raw)
-    rec["held_to"] = "f64_kink"
+    rec = comp_kink.compare(*comp_kink.plain_of(kernel, ws, bs, cfg, cd, args), got, raw,
+                            mask if bitwise else None)
+    rec["held_to"] = "f64_branches" if pinned else "f64_kink"
+    rec["recording_bitwise"] = bitwise
+    del mask
+    if rec["held_to"] not in rec:
+        raise AssertionError(f"{kname} {label}: no {rec['held_to']} reference: the recording "
+                             f"build's outputs {'equal' if bitwise else 'differ from'} the "
+                             f"kernel's; branch guard {rec.get('branches')}")
     ref = rec[rec["held_to"]]
     bad = [what for what, fails in (
         ("non-finite", not all(bool(torch.isfinite(t).all())
@@ -889,12 +894,19 @@ def _hold_comp_bwd(torch, kernel, label, name, ws, bs, cfg, cd, args, run) -> di
          rec.get("kink_vs_f64", {"share": 0.0})["share"] > KINK_SHARE)) if fails]
     keys = ("dparams_worst_leaf", "dparams_normwise", "dz_normwise", "dz_scaled_max",
             "loss_rel", "denc_normwise", "dencd_normwise")
+    beside = ("f64_kink", "plain") if pinned else ("plain",)
     summary = (f"against {rec['held_to']}: "
                + ", ".join(f"{k} {ref[k]:.3e}" for k in keys if k in ref)
+               + (f" (leaky slopes recorded bitwise the kernel's run; the kernel's against the "
+                  f"f64 chain's own signs: {rec['branches']['disagreements']} of "
+                  f"{rec['branches']['elements']}, largest |pre| over its row's "
+                  f"{rec['branches']['max_rel_pre']:.3e}, band {rec['branches']['band']:.3e})"
+                  if pinned else "")
                + f"; raw scaled err {rec['raw_scaled_err_vs_plain']:.3e}, samples on the other "
                  f"side of the kink: {rec['kink_vs_f64']['count']} of the f64 evaluation's, "
-                 f"{rec['kink_vs_plain']['count']} of the f32's; against the plain f32 version: "
-               + ", ".join(f"{k} {rec['plain'][k]:.3e}" for k in keys if k in rec["plain"]))
+                 f"{rec['kink_vs_plain']['count']} of the f32's"
+               + "".join(f"; against {b}: " + ", ".join(f"{k} {rec[b][k]:.3e}" for k in keys
+                                                        if k in rec[b]) for b in beside))
     if bad:
         raise AssertionError(f"{kname} {label}: {bad}; {summary}")
     log(f"kernel check {label}: {kname} {summary}; bitwise equal across two runs")
@@ -910,17 +922,22 @@ def _chain_record(rec: dict, forward=None) -> dict:
     where the kernel gave its raw values, its distance to the f64 evaluation
     on its side of the kink and the samples on the other side (their count,
     and the rows of their 128-row tiles of the first
-    ``comp_kink.MAX_LISTED``)."""
+    ``comp_kink.MAX_LISTED``); where it was held to ``f64_branches``, its
+    distance to that reference too (``kernel_branches``)."""
+    from nerf_and_dietnerf_tpu_torch.tools import chain
+
     rows = [k for k in ("dz", "dparams", "denc", "dencd") if f"{k}_normwise" in rec["f64"]]
     out = {k: {"kernel": rec["f64"][f"{k}_normwise"], "plain": rec["plain_vs_f64"][f"{k}_normwise"]}
            for k in rows}
     if "loss_rel" in rec["f64"]:
         out["loss"] = {"kernel": rec["f64"]["loss_rel"], "plain": rec["plain_vs_f64"]["loss_rel"]}
     out.update(forward or {})
-    _chain_ratios(out)
+    chain.ratios(out)
     if "f64_kink" in rec:
         for k in rows:
             out[k]["kernel_kink"] = rec["f64_kink"][f"{k}_normwise"]
+            if "f64_branches" in rec:
+                out[k]["kernel_branches"] = rec["f64_branches"][f"{k}_normwise"]
         out["kink_samples"] = rec["kink_vs_f64"]["count"]
         out["kink_tile_rows"] = [k["tile_row"] for k in rec["kink_vs_f64"]["samples"]]
     return out
@@ -929,9 +946,12 @@ def _chain_record(rec: dict, forward=None) -> dict:
 def _b7_pixels_vs_f64(torch, rk, ws, bs, cfg, rd, z, cd) -> dict:
     """B7's forward and its plain f32 version against the plain version with
     the MLP's sums in f64: normwise distance of the pixels."""
-    exact = rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd, work=torch.float64)[0].double()
-    return {"kernel": _normwise(rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd)[0], exact),
-            "plain": _normwise(rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd)[0], exact)}
+    from nerf_and_dietnerf_tpu_torch.tools import chain
+
+    exact = rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd, work=torch.float64)[0]
+    return {"kernel": chain.normwise(rk.raymarch_comp_fwd(ws, bs, cfg, rd, z, cd)[0], exact),
+            "plain": chain.normwise(rk.raymarch_comp_fwd_plain(ws, bs, cfg, rd, z, cd)[0],
+                                    exact)}
 
 
 def _hold_comp_fwd(torch, kname, label, cd, z, run, plain, raw_plain, raw_f64):
@@ -947,6 +967,7 @@ def _hold_comp_fwd(torch, kname, label, cd, z, run, plain, raw_plain, raw_f64):
     against the plain forward's, outputs and raw values bitwise equal across
     two runs. Returns (scaled err, max |kernel - reference|, raw values,
     (rgb, weights), the text the caller logs)."""
+    from nerf_and_dietnerf_tpu_torch.ops.raymarch_cuda import KINK_SHARE
     from nerf_and_dietnerf_tpu_torch.tools import comp_kink
 
     name = str(cd).split(".")[-1]
@@ -1047,10 +1068,11 @@ def _rm_checks(torch, rk, cfg, ws, bs, rd, z, cd, name, gen, label, backward=Tru
     if b7:
         raws = {}
 
-        def run7(raw):
+        def run7(raw, branches=None):
             if raw is not None:
                 raws["bwd"] = raw
-            return (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw), None)
+            return (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw,
+                                          branches=branches), None)
 
         rec = _hold_comp_bwd(torch, "B7", label, name, ws, bs, cfg, cd, (rd, z, g_rgb, g_w), run7)
         errs["raymarch_comp_bwd"] = rec[rec["held_to"]]["max_abs"]
@@ -1102,13 +1124,13 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
             # B6 and its plain version against the f64 chain: the forward and
             # the backward's dz and dparams in both types (f32: the 3xTF32
             # tile, as f32 B2's).
-            chain = _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd, z, cots[0], cd)
+            chain = _b6_vs_f64_chain(torch, ws, bs, cfg, rd, z, cots[0], cd)
             timings.setdefault("b6_vs_f64_chain", {}).setdefault(variant, {})[name] = chain
             log(f"kernel check B6 {variant} {name} R={RAYS} S={SAMPLES} against the f64 chain "
                 f"(normwise, kernel and plain): {chain}")
             if cd == torch.bfloat16:
-                _hold_bf16_chain(f"B6 {variant} {name} R={RAYS} S={SAMPLES}",
-                                 {k: r["ratio_kernel_to_plain"] for k, r in chain.items()})
+                _hold_bf16_chain(f"B6 {variant} {name} R={RAYS} S={SAMPLES}", chain,
+                                 ("raw", "dz", "dparams"))
             # The other sample counts: (rd, z, errors, cotangents, B7's backward's
             # record) by count, each from the generator of its rays and that of
             # its cotangents; in bf16 S = 100 too (one part-filled tile a ray in
@@ -1125,12 +1147,12 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                     f"{variant} {name} R={RAYS} S={n_s}"))
             if cd == torch.bfloat16:
                 rd_s, z_s, _, cots_s, _ = other[2 * SAMPLES]
-                chain = _b6_vs_f64_chain(torch, rc, rk, ws, bs, cfg, rd_s, z_s, cots_s[0], cd)
+                chain = _b6_vs_f64_chain(torch, ws, bs, cfg, rd_s, z_s, cots_s[0], cd)
                 timings["b6_vs_f64_chain"][variant][f"{name} S={2 * SAMPLES}"] = chain
                 log(f"kernel check B6 {variant} {name} R={RAYS} S={2 * SAMPLES} against the f64 "
                     f"chain (normwise, kernel and plain): {chain}")
-                _hold_bf16_chain(f"B6 {variant} {name} R={RAYS} S={2 * SAMPLES}",
-                                 {k: r["ratio_kernel_to_plain"] for k, r in chain.items()})
+                _hold_bf16_chain(f"B6 {variant} {name} R={RAYS} S={2 * SAMPLES}", chain,
+                                 ("raw", "dz", "dparams"))
             if cd == torch.float32:
                 # f32 B6's backward with a part-filled last 64-row tile, and f32
                 # B7 (forward and backward) on the same rays.
@@ -1321,10 +1343,11 @@ def raymarch_kernel_phases(torch, timings: dict) -> None:
                 lambda: comp_kink.plain_of("B7", ws, bs, cfg, cd, (rd, z))[1](torch.float64))
             log(f"kernel check {label}: B7 fwd scaled err {e_o:.3e} against plain{extra}")
 
-        def run_o(raw):
+        def run_o(raw, branches=None):
             if raw is not None:
                 raws["bwd"] = raw
-            return (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw), None)
+            return (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw,
+                                          branches=branches), None)
 
         _hold_comp_bwd(torch, "B7", label, name, ws, bs, cfg, cd, (rd, z, g_rgb, g_w), run_o)
         if "fwd" in raws:
@@ -1413,7 +1436,7 @@ def _comp_checks(torch, rk, cfg, ws, bs, batch, cd, name, gen, label, b4=True, b
     timings and the records: B5's and B4's backward's of :func:`_hold_comp_bwd`
     ("B5", "B4") and B4's forward's distances to the f64 evaluation ("B4_fwd":
     pixels and weights, kernel and plain f32 version)."""
-    from nerf_and_dietnerf_tpu_torch.tools import comp_kink
+    from nerf_and_dietnerf_tpu_torch.tools import chain, comp_kink
 
     tol = TOL[name]
     enc, encd, z, dvec, target = batch
@@ -1439,7 +1462,7 @@ def _comp_checks(torch, rk, cfg, ws, bs, batch, cd, name, gen, label, b4=True, b
             lambda: rk._raw_plain(ws, bs, cfg, enc, d, z, cd, torch.float64))
         plain = rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd)
         exact = rk.mlp_comp_fwd_plain(ws, bs, cfg, enc, encd, z, cd, work=torch.float64)
-        recs["B4_fwd"] = {k: {"kernel": _normwise(a, e_.double()), "plain": _normwise(p, e_.double())}
+        recs["B4_fwd"] = {k: {"kernel": chain.normwise(a, e_), "plain": chain.normwise(p, e_)}
                           for k, a, p, e_ in (("pixels", rgb_k, plain[0], exact[0]),
                                               ("weights", w_k, plain[1], exact[1]))}
         del plain, exact, d
@@ -1450,20 +1473,20 @@ def _comp_checks(torch, rk, cfg, ws, bs, batch, cd, name, gen, label, b4=True, b
         cots = (g_rgb, g_w)
         raws = {}
 
-        def run4(raw):
+        def run4(raw, branches=None):
             if raw is not None:
                 raws["bwd"] = raw
             return comp_kink.b4_result(*rk.mlp_comp_bwd(ws, bs, cfg, enc, encd, z, g_rgb, g_w, cd,
-                                                        raw=raw))
+                                                        raw=raw, branches=branches))
 
         recs["B4"] = _hold_comp_bwd(torch, "B4", label, name, ws, bs, cfg, cd,
                                     (enc, encd, z, g_rgb, g_w), run4)
         errs["mlp_comp_bwd"] = recs["B4"][recs["B4"]["held_to"]]["max_abs"]
         _same_raw(torch, "B4", label, raw_f, raws["bwd"])
     if b5:
-        def run(raw):
+        def run(raw, branches=None):
             mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, enc, encd, z, dvec, target, cd,
-                                                 raw=raw)
+                                                 raw=raw, branches=branches)
             return dws, dbs, dz, mse
 
         recs["B5"] = _hold_comp_bwd(torch, "B5", label, name, ws, bs, cfg, cd, batch, run)
@@ -1850,7 +1873,7 @@ def probe_kernel_phases(torch, timings: dict) -> None:
     from nerf_and_dietnerf_tpu_torch.ops import probe_kernels_cuda as pk
     from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
     from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
-    from nerf_and_dietnerf_tpu_torch.tools import mlp_flops
+    from nerf_and_dietnerf_tpu_torch.tools import chain, mlp_flops
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     rec = {}
@@ -1953,34 +1976,20 @@ def probe_kernel_phases(torch, timings: dict) -> None:
     plain = rc.mlp_fwd_plain(ws, bs, cfg, xb, db, torch.bfloat16)
     ws32, bs32 = rc.flatten_params(params, cfg, torch.float32)
     x32, d32 = x[:N_ROWS].contiguous(), d[:N_ROWS].contiguous()
-    ref32 = rc.mlp_fwd(ws32, bs32, cfg, x32, d32, torch.float32)
     # B1 on the tensor cores and the plain f32 version against the forward
-    # with the same roundings but f64 sums, on the first N_ROWS rows: which of
-    # the two sums less exactly.
-    exact = rc._forward_plain(ws, bs, cfg, xb[:N_ROWS], db[:N_ROWS], torch.bfloat16,
-                              torch.float64)[0]
-    fwd_vs_exact = {k: _row_errs(o[:N_ROWS], exact, TOL["bfloat16"])
-                    for k, o in (("b1_mma", ref), ("plain_f32", plain))}
-    del exact
-    fwd_vs_exact["normwise_ratio_b1_mma_to_plain"] = (
-        fwd_vs_exact["b1_mma"][1] / max(fwd_vs_exact["plain_f32"][1], 1e-30))
-    log(f"kernel check B1 bf16 rows={N_ROWS} against the f64 forward chain (scaled max, "
-        f"normwise, share of rows over {TOL['bfloat16']}): {fwd_vs_exact}")
-    _hold_bf16_chain(f"B1 bf16 rows={N_ROWS}",
-                     {"out": fwd_vs_exact["normwise_ratio_b1_mma_to_plain"]})
-    # f32: B1 on the tensor cores (3xTF32) and the plain f32 version against
-    # the f32 chain evaluated in f64.
-    exact32 = rc._forward_plain(ws32, bs32, cfg, x32, d32, torch.float32, torch.float64)[0]
-    plain32 = rc.mlp_fwd_plain(ws32, bs32, cfg, x32, d32, torch.float32)
-    torch.cuda.synchronize()
-    f32_vs_exact = {k: _row_errs(o, exact32, TOL["float32"])
-                    for k, o in (("b1_tf32", ref32), ("plain_f32", plain32))}
-    del exact32, plain32, ref32
-    ratio = f32_vs_exact["b1_tf32"][1] / max(f32_vs_exact["plain_f32"][1], 1e-30)
-    f32_vs_exact["normwise_ratio_b1_tf32_to_plain"] = ratio
+    # with the same roundings but f64 sums, on the first N_ROWS rows
+    # (tools/chain.distances): which of the two sums less exactly. bf16 is
+    # held to F64_FACTOR_BF16, f32 (3xTF32) to F64_FACTOR.
+    fwd_vs_exact = chain.distances(chain.forward_chain(ws, bs, cfg, xb[:N_ROWS], db[:N_ROWS],
+                                                       torch.bfloat16))
+    log(f"kernel check B1 bf16 rows={N_ROWS} against the f64 forward chain (normwise): "
+        f"{fwd_vs_exact}")
+    _hold_bf16_chain(f"B1 bf16 rows={N_ROWS}", fwd_vs_exact, ("out",))
+    f32_vs_exact = chain.distances(chain.forward_chain(ws32, bs32, cfg, x32, d32, torch.float32))
+    ratio = f32_vs_exact["out"]["ratio_kernel_to_plain"]
     timings["b1_f32_vs_f64_chain"] = f32_vs_exact
-    log(f"kernel check B1 f32 rows={N_ROWS} against the f64 forward chain (scaled max, "
-        f"normwise, share of rows over {TOL['float32']}): {f32_vs_exact}")
+    log(f"kernel check B1 f32 rows={N_ROWS} against the f64 forward chain (normwise): "
+        f"{f32_vs_exact}")
     if not ratio <= F64_FACTOR:
         raise AssertionError(f"B1 f32 is {ratio:.2f}x as far from the f64 chain as the plain f32 "
                              f"version (limit {F64_FACTOR})")
@@ -3832,8 +3841,10 @@ def _plain_twins(torch, work):
     def fwd(ws, bs, cfg, x, d, cd):
         return forward(ws, bs, cfg, x, d, cd, work)[0].float()
 
-    def bwd(ws, bs, cfg, x, d, g, cd):
-        dws, dbs, dx, dd = backward(ws, bs, cfg, x, d, g, cd, work=work)
+    def bwd(ws, bs, cfg, x, d, g, cd, given_work=None, branches=None):
+        if given_work is not None and given_work != work:
+            raise ValueError(f"the plain twin in {work} was asked for {given_work}")
+        dws, dbs, dx, dd = backward(ws, bs, cfg, x, d, g, cd, work, branches)
         return ([t.float() for t in dws], [t.float() for t in dbs], dx.float(),
                 None if dd is None else dd.float())
 
@@ -3901,6 +3912,7 @@ def _diet_held_step(torch, trainer, c2w, target, label: str, seed: int = SEED) -
     from unittest import mock
 
     from nerf_and_dietnerf_tpu_torch.models import dietnerf, vit
+    from nerf_and_dietnerf_tpu_torch.tools import chain
     from nerf_and_dietnerf_tpu_torch.train import train_step as ts
     from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves
 
@@ -3940,7 +3952,7 @@ def _diet_held_step(torch, trainer, c2w, target, label: str, seed: int = SEED) -
                                  float(c_g[w].square().sum())) for w in g}
             rec[name] = {"loss_rel": abs(loss - c_loss) / abs(c_loss),
                          **_pooled([squares[name]]),
-                         "cdf": max(_normwise(r, o.double()) for r, o in
+                         "cdf": max(chain.normwise(r, o) for r, o in
                                     zip(cdfs[name], own[name]))}
         rec["kernel_vs_plain"] = {w: float((runs["kernel"][1][w] - runs["plain"][1][w]).norm()
                                            / runs["plain"][1][w].norm())
@@ -4899,7 +4911,9 @@ def parity_phase(torch, timings: dict) -> None:
     """``tools/parity_gpu.main`` at the flagship shape (4096 rays, 64 + 128
     samples, 256/128 wide): the fixed-z objective's loss and every gradient
     leaf of six kernel paths in f32 and bf16 against the f64-chain oracle,
-    under the JAX tool's criteria. Fails unless every check passed and each
+    under the JAX tool's criteria, check 1 against the oracle pinned to each
+    f32 run's own leaky slopes (its backwards' recording builds, bitwise the
+    run). Fails unless every check passed and each
     run launched exactly ``PARITY_LAUNCHES`` of its path (the plain runs
     nothing). The JSON is ``build/chip_smoke_parity/PARITY_GPU.json``."""
     from nerf_and_dietnerf_tpu_torch.tools import parity_gpu
@@ -4936,13 +4950,18 @@ def parity_phase(torch, timings: dict) -> None:
     timings["parity"] = {
         "device": res["device"], "shape": res["shape"], "all_pass": res["all_pass"],
         "plain": res["plain"], "leaky_flips_f32_vs_f64": res["leaky_flips_f32_vs_f64"],
-        "runs": runs, "exact": {k: v["max_rel_grad_err"] for k, v in res["results"].items()
-                                if k.endswith("/exact")},
+        "runs": runs,
+        "exact": {k: {"pinned": v["max_rel_grad_err"], "unpinned": v["max_rel_grad_err_unpinned"],
+                      "guard": v["branch_guard"]}
+                  for k, v in res["results"].items() if k.endswith("/exact")},
         "bin_agreement": {k: v for k, v in res.items() if k.startswith("bin_agreement")},
         "seconds": seconds, "max_memory_bytes": torch.cuda.max_memory_allocated(),
     }
     log(f"parity phase: all_pass {res['all_pass']}, launches as PARITY_LAUNCHES, "
-        f"{seconds:.1f} s, peak {timings['parity']['max_memory_bytes'] / 2**30:.3f} GiB")
+        f"{seconds:.1f} s, peak {timings['parity']['max_memory_bytes'] / 2**30:.3f} GiB; "
+        f"check 1 (f32 against the oracle on the kernels' leaky slopes; unpinned beside): "
+        + "; ".join(f"{k[:-len('/float32/exact')]} {v['pinned']:.3e} ({v['unpinned']:.3e})"
+                    for k, v in timings["parity"]["exact"].items()))
 
 
 # --------------------------------------------------------------------------- #
@@ -5214,8 +5233,9 @@ def main() -> int:
     card = gpu_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    build = kl.build_kernels()
-    log(f"build: {build['seconds']:.1f} s")
+    build = kl.build_kernels(branches=True)
+    log(f"build: {build['seconds']:.1f} s (the {len(kl.KERNEL_SOURCES)} libraries and the "
+        f"recording builds of the {len(kl.BRANCH_KERNELS)} backward ones, together)")
     for line in build["log"].splitlines():
         if "registers" in line or "spill" in line or line.startswith("---"):
             log("  " + line.strip())
@@ -5311,7 +5331,7 @@ def main() -> int:
         f"{r['library_ms']:.3f}, plain "
         f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
         f"({100 * r['share_of_bound']:.1f} %); against the f64 chain "
-        f"{timings['b1_f32_vs_f64_chain']['normwise_ratio_b1_tf32_to_plain']:.3f}x the plain "
+        f"{timings['b1_f32_vs_f64_chain']['out']['ratio_kernel_to_plain']:.3f}x the plain "
         f"f32 version's normwise distance")
     for key in ("bfloat16", "float32", "rm_bfloat16", "rm_float32", "comp_bfloat16",
                 "comp_float32"):

@@ -118,11 +118,13 @@ struct Bf16Kit {
                                       float* out, int row0, const Mat* after) {
     nerf_mma::forward_tile(dm, L, M, F, B, t, ring, keep, out, row0, after);
   }
+  template <class Sink>
   static __device__ void backward_walk(const Dims& dm, const Layout& L, const Pack& M,
                                        const E* Bp, const Tiles& t, Ring& ring, const E* acts,
                                        float* part, bool first, int row0, float* dx, float* dd,
                                        const Mat* after, const Mat& b10) {
-    nerf_mma::backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);
+    nerf_mma::backward_walk<Sink>(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after,
+                                  b10);
   }
 };
 
@@ -205,8 +207,10 @@ __device__ inline Group group_at(int group, int R, int S, int bm = BM) {
 // INPUT_GRADS), or dd rows, dir floats each (with; null without view dirs).
 // `raw`, where not null, receives the raw values the compositing read, (R S,
 // 4) f32: the checks take each sample's side of the compositing's kink
-// (max(sigma, 0)) from it. Returns (in thread 0) the sum of composite's values.
-template <class Policy, class K = Bf16Kit>
+// (max(sigma, 0)) from it. `Sink` (branch_sink.cuh) is told of every leaky
+// slope the walk takes, rows in (ray, sample) order. Returns (in thread 0)
+// the sum of composite's values.
+template <class Policy, class K, class Sink>
 __device__ inline float backward_groups(const Policy& pol, void* smem, const Dims& dm,
                                         const Layout& L, const typename K::Pack& M,
                                         const typename K::E* __restrict__ F,
@@ -265,22 +269,24 @@ __device__ inline float backward_groups(const Policy& pol, void* smem, const Dim
         K::load_slot(t.P, slots + last_slot * (tile_slots / nerf_mlp::NACT), K::pad(dm.last));
       }
       K::load_cotangent(t.GI, GRAW, j * BM, g.rows);
+      Sink::tile(g.ray0, S, j, g.rows, BM);
       __syncthreads();
       Dims tdm = dm;  // the tile as a call of its own: its rows from row 0
       tdm.n = min(BM, g.rows - j * BM);
       const typename K::Mat* after =
           j + 1 < n_tiles ? &b10 : group + (int)gridDim.x < n_groups ? &f0 : nullptr;
       if constexpr (Policy::INPUT_GRADS) {
-        K::backward_walk(tdm, L, M, Bp, t, ring, slots, part, first, 0, pol.dx_rows(g, j * BM),
-                         dm.has_dir ? slab : nullptr, after, b10);
+        K::template backward_walk<Sink>(tdm, L, M, Bp, t, ring, slots, part, first, 0,
+                                        pol.dx_rows(g, j * BM), dm.has_dir ? slab : nullptr,
+                                        after, b10);
         first = false;
         T32_PHASE(nerf_t32ph::DZ);
         __syncthreads();
         if (dm.has_dir) pol.dd_sum(g, j * BM, tdm.n, slab, carry);
         if (tid < tdm.n) dz[(size_t)g.ray0 * S + j * BM + tid] = DZC[j * BM + tid];
       } else {
-        K::backward_walk(tdm, L, M, Bp, t, ring, slots, part, first, 0, slab, nullptr, after,
-                         b10);
+        K::template backward_walk<Sink>(tdm, L, M, Bp, t, ring, slots, part, first, 0, slab,
+                                        nullptr, after, b10);
         first = false;
         T32_PHASE(nerf_t32ph::DZ);
         __syncthreads();

@@ -64,10 +64,11 @@ __global__ void __launch_bounds__(nerf_tmma::NT, 1)
     tm::load_rows(t.X, tm::LDX, x, dm.xyz, row0, dm.n);
     if (dm.has_dir) tm::load_rows(t.D, tm::LDD, d, dm.dir, row0, dm.n);
     tm::load_cotangent(t.GI, g, row0, dm.n);
+    nerf_br::Sink::tile(0, 0, tile, dm.n, tm::BM);
     __syncthreads();
     const bool more = tile + (int)gridDim.x < n_tiles;
-    tm::backward_tile(dm, L, M, F, Bp, B, t, ring, acts, part, first, row0, dx,
-                      dm.has_dir ? dd : nullptr, more ? &f0 : nullptr);
+    tm::backward_tile<nerf_br::Sink>(dm, L, M, F, Bp, B, t, ring, acts, part, first, row0, dx,
+                                     dm.has_dir ? dd : nullptr, more ? &f0 : nullptr);
   }
   T32_END();
 }
@@ -99,10 +100,11 @@ __global__ void __launch_bounds__(nerf_mma::NT, 1)
     load_tile(t.X, LDX, x, dm.xyz, row0, dm.n);
     if (dm.has_dir) load_tile(t.D, LDD, d, dm.dir, row0, dm.n);
     nerf_mma::load_cotangent(t.GI, g, row0, dm.n);
+    nerf_br::Sink::tile(0, 0, tile, dm.n, BM);
     __syncthreads();
     const bool more = tile + (int)gridDim.x < n_tiles;
-    nerf_mma::backward_tile(dm, L, M, F, Bp, B, t, ring, acts, part, first, row0, dx,
-                            dm.has_dir ? dd : nullptr, more ? &f0 : nullptr);
+    nerf_mma::backward_tile<nerf_br::Sink>(dm, L, M, F, Bp, B, t, ring, acts, part, first, row0,
+                                           dx, dm.has_dir ? dd : nullptr, more ? &f0 : nullptr);
   }
 }
 

@@ -108,11 +108,11 @@ __global__ void __launch_bounds__(nerf_mma::NT, 1)
   extern __shared__ uint4 smem16[];
   const size_t p_total = (size_t)L.total_w + L.total_b;
   const MlpComp<nerf_mma::bf16> pol{in, dm, g_rgb, g_w, denc, dencd};
-  nerf_cmma::backward_groups(pol, smem16, dm, L, M, F, Bp, B, partial + blockIdx.x * p_total,
-                             acts_all + blockIdx.x * nerf_cmma::act_elems(in.S),
-                             dm.has_dir ? dd_all + (size_t)blockIdx.x * nerf_mma::BM * dm.dir
-                                        : nullptr,
-                             dz, raw, in.R, in.S, groups);
+  nerf_cmma::backward_groups<MlpComp<nerf_mma::bf16>, nerf_cmma::Bf16Kit, nerf_br::Sink>(
+      pol, smem16, dm, L, M, F, Bp, B, partial + blockIdx.x * p_total,
+      acts_all + blockIdx.x * nerf_cmma::act_elems(in.S),
+      dm.has_dir ? dd_all + (size_t)blockIdx.x * nerf_mma::BM * dm.dir : nullptr, dz, raw, in.R,
+      in.S, groups);
 }
 
 // f32: the same loop on the 3xTF32 tensor-core tiles.
@@ -129,7 +129,7 @@ __global__ void __launch_bounds__(nerf_tmma::NT, 1)
   T32_BEGIN();
   const size_t p_total = (size_t)L.total_w + L.total_b;
   const MlpComp<float> pol{in, dm, g_rgb, g_w, denc, dencd};
-  nerf_cmma::backward_groups<MlpComp<float>, K>(
+  nerf_cmma::backward_groups<MlpComp<float>, K, nerf_br::Sink>(
       pol, smem16, dm, L, M, F, Bp, B, partial + blockIdx.x * p_total,
       acts_all + blockIdx.x * nerf_cmma::act_elems<K>(in.S),
       dm.has_dir ? dd_all + (size_t)blockIdx.x * K::BM * dm.dir : nullptr, dz, raw, in.R, in.S,

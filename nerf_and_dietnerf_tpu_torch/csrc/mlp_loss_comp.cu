@@ -149,7 +149,8 @@ __global__ void __launch_bounds__(nerf_mma::NT, 1)
   const size_t p_total = (size_t)L.total_w + L.total_b + 1;
   float* part = partial + blockIdx.x * p_total;
   const LossComp<nerf_mma::bf16> pol{in, dm, dvec, target, inv_n};
-  const float sq_err = nerf_cmma::backward_groups(
+  const float sq_err =
+      nerf_cmma::backward_groups<LossComp<nerf_mma::bf16>, nerf_cmma::Bf16Kit, nerf_br::Sink>(
       pol, smem16, dm, L, M, F, Bp, B, part, acts_all + blockIdx.x * nerf_cmma::act_elems(in.S),
       dx_all + (size_t)blockIdx.x * nerf_mma::BM * dm.xyz, dz, raw, in.R, in.S, groups);
   if (threadIdx.x == 0) part[p_total - 1] = sq_err * inv_n;
@@ -170,7 +171,7 @@ __global__ void __launch_bounds__(nerf_tmma::NT, 1)
   const size_t p_total = (size_t)L.total_w + L.total_b + 1;
   float* part = partial + blockIdx.x * p_total;
   const LossComp<float> pol{in, dm, dvec, target, inv_n};
-  const float sq_err = nerf_cmma::backward_groups<LossComp<float>, K>(
+  const float sq_err = nerf_cmma::backward_groups<LossComp<float>, K, nerf_br::Sink>(
       pol, smem16, dm, L, M, F, Bp, B, part, acts_all + blockIdx.x * nerf_cmma::act_elems<K>(in.S),
       dx_all + (size_t)blockIdx.x * K::BM * dm.xyz, dz, raw, in.R, in.S, groups);
   if (threadIdx.x == 0) part[p_total - 1] = sq_err * inv_n;

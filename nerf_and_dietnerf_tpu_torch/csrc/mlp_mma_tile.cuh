@@ -77,6 +77,7 @@
 
 #include <type_traits>
 
+#include "branch_sink.cuh"
 #include "mlp_common.cuh"
 
 namespace nerf_mma {
@@ -532,9 +533,11 @@ __device__ __forceinline__ void store_leaky(const Acc& acc, const float* __restr
 
 // G = leaky'(post) * acc for the np columns (0 past N). Trunk: bf16(g or
 // alpha g), f32 slope. Head (head = true): t = bf16(acc), then t or
-// bf16(alpha_t t) with the slope alpha_t rounded to bf16.
+// bf16(alpha_t t) with the slope alpha_t rounded to bf16. Each slope of the
+// N columns goes to the sink as hidden layer `layer`'s (branch_sink.cuh).
+template <class Sink>
 __device__ __forceinline__ void grad_tile(const Acc& acc, const bf16* post, int N, int np,
-                                          float alpha, bool head, bf16* G) {
+                                          float alpha, bool head, bf16* G, int layer) {
   const Frag f;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -552,6 +555,7 @@ __device__ __forceinline__ void grad_tile(const Acc& acc, const bf16* post, int 
           for (int e = 0; e < 2; ++e) {
             const float a = acc[mt][q][h][2 * half + e];
             const bool pos = bf(post[r * LDH + n + e]) >= 0.f;
+            if (n + e < N) Sink::record(layer, r, n + e, pos);
             if (head) {
               const float tt = round_bf(a);
               v[e] = pos ? tt : round_bf(alpha * tt);
@@ -715,6 +719,10 @@ __device__ inline void forward_tile(const Dims& dm, const Layout& L, const MmaLa
 // block's slab `part` (weights, then biases), written on its first tile
 // (`first`) and added to after; dx and dd rows to global memory (dd where
 // given). `after`: the product whose first chunk to issue during the last.
+// Every leaky slope taken goes to `Sink` (branch_sink.cuh), as hidden layer
+// 0-7 (trunk), then 8 (rgb_h with view dirs; r0 without) and 9 (rgb_h
+// without view dirs).
+template <class Sink>
 __device__ inline void backward_walk(const Dims& dm, const Layout& L, const MmaLayout& M,
                                      const bf16* __restrict__ Bp, const Tiles& t, Ring& ring,
                                      const bf16* acts, float* part, bool first, int row0,
@@ -738,7 +746,9 @@ __device__ inline void backward_walk(const Dims& dm, const Layout& L, const MmaL
 #pragma unroll
         for (int j = 0; j < 3; ++j) s = fmaf(t.GI[r * 8 + j], bf(wo[n * 16 + j]), s);
         const float tt = round_bf(s);
-        v = bf(t.P[r * LDH + n]) >= 0.f ? tt : round_bf(alpha_t * tt);
+        const bool pos = bf(t.P[r * LDH + n]) >= 0.f;
+        Sink::record(dm.has_dir ? 8 : 9, r, n, pos);
+        v = pos ? tt : round_bf(alpha_t * tt);
       }
       t.G[r * LDH + n] = __float2bfloat16_rn(v);
     }
@@ -771,7 +781,7 @@ __device__ inline void backward_walk(const Dims& dm, const Layout& L, const MmaL
     const Mat b9 = bmat(Bp, M, 9), b8 = bmat(Bp, M, 8);
     zero_acc(acc);
     mma_rows(acc, t.G, LDH, b10, &b9, ring);
-    grad_tile(acc, t.P, dm.hid, HP, alpha_t, true, t.G);  // g_r0
+    grad_tile<Sink>(acc, t.P, dm.hid, HP, alpha_t, true, t.G, 8);  // g_r0
     __syncthreads();
     load_slot(t.P, acts + 7 * SLOT, HP);  // h8
     mma_wgrad(part + L.w[9], t.P, LDH, dm.hid, t.G, LDH, dm.hid, first);
@@ -787,7 +797,7 @@ __device__ inline void backward_walk(const Dims& dm, const Layout& L, const MmaL
   // Trunk, reversed; acc holds the gradient of layer l's output and P its
   // post-activation.
   for (int l = N_TRUNK - 1; l >= 0; --l) {
-    grad_tile(acc, t.P, dm.hid, HP, alpha, false, t.G);
+    grad_tile<Sink>(acc, t.P, dm.hid, HP, alpha, false, t.G, l);
     __syncthreads();
     if (l > 0) load_slot(t.P, acts + (l - 1) * SLOT, HP);
     bgrad(pb + L.b[l], t.G, LDH, dm.hid, first);
@@ -819,6 +829,7 @@ __device__ inline void backward_walk(const Dims& dm, const Layout& L, const MmaL
 // The backward of one tile whose X, D and GI are loaded (and a barrier
 // passed) and whose first forward chunk is issued: the forward recomputed
 // into `acts` (the block's NACT slots), then backward_walk.
+template <class Sink>
 __device__ inline void backward_tile(const Dims& dm, const Layout& L, const MmaLayout& M,
                                      const bf16* __restrict__ F, const bf16* __restrict__ Bp,
                                      const float* __restrict__ B, const Tiles& t, Ring& ring,
@@ -826,7 +837,7 @@ __device__ inline void backward_tile(const Dims& dm, const Layout& L, const MmaL
                                      float* dd, const Mat* after) {
   const Mat b10 = bmat(Bp, M, 10);
   forward_tile(dm, L, M, F, B, t, ring, acts, nullptr, row0, &b10);
-  backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);
+  backward_walk<Sink>(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);
 }
 
 }  // namespace nerf_mma

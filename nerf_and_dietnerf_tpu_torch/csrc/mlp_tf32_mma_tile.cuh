@@ -85,6 +85,7 @@
 
 #include <stdint.h>
 
+#include "branch_sink.cuh"
 #include "mlp_common.cuh"
 #include "mlp_mma_tile.cuh"
 #include "mlp_tf32_tile.cuh"
@@ -644,9 +645,13 @@ __device__ __forceinline__ void store_leaky(const Acc& acc, const float* __restr
 }
 
 // G = leaky'(post) * acc for the np columns (0 past N), in f32 (the head's
-// chain and the trunk's are the same without roundings).
+// chain and the trunk's are the same without roundings). The sink is given
+// each pair of post-activations whose signs picked the slopes, as hidden
+// layer `layer`'s (branch_sink.cuh; an argument the tile holds already, so
+// that the production build's code keeps its order).
+template <class Sink>
 __device__ __forceinline__ void grad_tile(const Acc& acc, const float* post, int N, int np,
-                                          float alpha, float* G) {
+                                          float alpha, float* G, int layer) {
   const Frag f;
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
@@ -663,6 +668,7 @@ __device__ __forceinline__ void grad_tile(const Acc& acc, const float* post, int
         v1 = p.y >= 0.f ? v1 : alpha * v1;
         if (n >= N) v0 = 0.f;
         if (n + 1 >= N) v1 = 0.f;
+        Sink::record_pair(layer, r, n, N, p);
         *reinterpret_cast<float2*>(G + r * LDH + sw(r, n)) = make_float2(v0, v1);
       }
   }
@@ -814,7 +820,8 @@ __device__ __forceinline__ void forward_tile(const Dims& dm, const Layout& L,
 // holding the rgb branch's last post-activation, a barrier passed and the B
 // pack's matrix 10 (`b10`) issued into the ring. Weight and bias gradients go
 // to the block's slab `part`; dx and dd rows to global memory (dd where
-// given).
+// given). Every leaky slope taken goes to `Sink`, numbered as there.
+template <class Sink>
 __device__ __forceinline__ void backward_walk(const Dims& dm, const Layout& L,
                                               const T32Layout& M, const float* __restrict__ Bp,
                                               const Tiles& t, Ring& ring, const float* acts,
@@ -839,7 +846,9 @@ __device__ __forceinline__ void backward_walk(const Dims& dm, const Layout& L,
         float s = 0.f;
 #pragma unroll
         for (int j = 0; j < 3; ++j) s = fmaf(t.GI[r * 8 + j], wo[n * 3 + j], s);
-        v = t.P[r * LDH + sw(r, n)] >= 0.f ? s : alpha * s;
+        const bool pos = t.P[r * LDH + sw(r, n)] >= 0.f;
+        Sink::record(dm.has_dir ? 8 : 9, r, n, pos);
+        v = pos ? s : alpha * s;
       }
       t.G[r * LDH + sw(r, n)] = v;
     }
@@ -881,7 +890,7 @@ __device__ __forceinline__ void backward_walk(const Dims& dm, const Layout& L,
     zero_acc(acc);
     mma_rows(acc, t.G, LDH, b10, &b9, ring);
     T32_PHASE(nerf_t32ph::GRAD);
-    grad_tile(acc, t.P, dm.hid, HP, alpha, t.G);  // g_r0
+    grad_tile<Sink>(acc, t.P, dm.hid, HP, alpha, t.G, 8);  // g_r0
     __syncthreads();
     T32_PHASE(nerf_t32ph::SLOT);
     load_slot(t.P, acts + 7 * SLOT, HP);  // h8
@@ -902,7 +911,7 @@ __device__ __forceinline__ void backward_walk(const Dims& dm, const Layout& L,
   // post-activation.
   for (int l = N_TRUNK - 1; l >= 0; --l) {
     T32_PHASE(nerf_t32ph::GRAD);
-    grad_tile(acc, t.P, dm.hid, HP, alpha, t.G);
+    grad_tile<Sink>(acc, t.P, dm.hid, HP, alpha, t.G, l);
     __syncthreads();
     T32_PHASE(nerf_t32ph::SLOT);
     if (l > 0) load_slot(t.P, acts + (l - 1) * SLOT, HP);
@@ -940,6 +949,7 @@ __device__ __forceinline__ void backward_walk(const Dims& dm, const Layout& L,
 // passed) and whose first forward chunk (F pack, matrix 0) is issued, as
 // nerf_mma::backward_tile: the forward into `acts` (the block's NACT slots),
 // then backward_walk. B2's f32 kernel (mlp_bwd.cu).
+template <class Sink>
 __device__ inline void backward_tile(const Dims& dm, const Layout& L, const T32Layout& M,
                                      const float* __restrict__ F, const float* __restrict__ Bp,
                                      const float* __restrict__ B, const Tiles& t, Ring& ring,
@@ -947,7 +957,7 @@ __device__ inline void backward_tile(const Dims& dm, const Layout& L, const T32L
                                      float* dd, const Mat* after) {
   const Mat b10 = bmat(Bp, M, 10);
   forward_tile(dm, L, M, F, B, t, ring, acts, nullptr, row0, &b10);
-  backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);
+  backward_walk<Sink>(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);
 }
 
 // The tile code of the ray-group loops (comp_mma_tile.cuh) on these tiles.
@@ -980,11 +990,13 @@ struct Kit {
                                       float* out, int row0, const Mat* after) {
     nerf_tmma::forward_tile(dm, L, M, F, B, t, ring, keep, out, row0, after);
   }
+  template <class Sink>
   static __device__ void backward_walk(const Dims& dm, const Layout& L, const Pack& M,
                                        const E* Bp, const Tiles& t, Ring& ring, const E* acts,
                                        float* part, bool first, int row0, float* dx, float* dd,
                                        const Mat* after, const Mat& b10) {
-    nerf_tmma::backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);
+    nerf_tmma::backward_walk<Sink>(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd,
+                                   after, b10);
   }
 };
 

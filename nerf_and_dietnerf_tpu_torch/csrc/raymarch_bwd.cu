@@ -61,12 +61,13 @@ __global__ void __launch_bounds__(nerf_tmma::NT, 1)
     T32_PHASE(nerf_t32ph::INPUTS);
     build_t32_inputs(ry, dm.xyz, dm.dir, row0, dm.n, t.X, t.D);
     tm::load_cotangent(t.GI, g, row0, dm.n);
+    nerf_br::Sink::tile(0, 0, tile, dm.n, tm::BM);
     __syncthreads();
     Dims tile_dm = dm;  // the tile as a call of its own: its dx rows go to dxs
     tile_dm.n = min(tm::BM, dm.n - row0);
     const bool more = tile + (int)gridDim.x < n_tiles;
-    tm::backward_tile(tile_dm, L, M, F, Bp, B, t, ring, acts, part, first, 0, dxs, nullptr,
-                      more ? &f0 : nullptr);
+    tm::backward_tile<nerf_br::Sink>(tile_dm, L, M, F, Bp, B, t, ring, acts, part, first, 0, dxs,
+                                     nullptr, more ? &f0 : nullptr);
     T32_PHASE(nerf_t32ph::DZ);
     __syncthreads();
     const int r = threadIdx.x;
@@ -102,12 +103,13 @@ __global__ void __launch_bounds__(nerf_mma::NT, 1)
     const int row0 = tile * BM;
     build_mma_inputs(ry, dm.xyz, dm.dir, row0, dm.n, t.X, t.D);
     nerf_mma::load_cotangent(t.GI, g, row0, dm.n);
+    nerf_br::Sink::tile(0, 0, tile, dm.n, BM);
     __syncthreads();
     Dims tile_dm = dm;  // the tile as a call of its own: its dx rows go to dxs
     tile_dm.n = min(BM, dm.n - row0);
     const bool more = tile + (int)gridDim.x < n_tiles;
-    nerf_mma::backward_tile(tile_dm, L, M, F, Bp, B, t, ring, acts, part, first, 0, dxs, nullptr,
-                            more ? &f0 : nullptr);
+    nerf_mma::backward_tile<nerf_br::Sink>(tile_dm, L, M, F, Bp, B, t, ring, acts, part, first, 0,
+                                           dxs, nullptr, more ? &f0 : nullptr);
     __syncthreads();
     const int r = threadIdx.x;
     if (r < tile_dm.n) dz[row0 + r] = dz_of_row(ry, dxs + r * dm.xyz, row0 + r);

@@ -67,10 +67,10 @@ __global__ void __launch_bounds__(nerf_mma::NT, 1)
   extern __shared__ uint4 smem16[];
   const size_t p_total = (size_t)L.total_w + L.total_b;
   const RayComp pol{{ry, dm.xyz, dm.dir}, g_rgb, g_w};
-  nerf_cmma::backward_groups(pol, smem16, dm, L, M, F, Bp, B, partial + blockIdx.x * p_total,
-                             acts_all + blockIdx.x * nerf_cmma::act_elems(ry.S),
-                             dx_all + (size_t)blockIdx.x * nerf_mma::BM * dm.xyz, dz, raw, ry.R,
-                             ry.S, n_groups);
+  nerf_cmma::backward_groups<RayComp, nerf_cmma::Bf16Kit, nerf_br::Sink>(
+      pol, smem16, dm, L, M, F, Bp, B, partial + blockIdx.x * p_total,
+      acts_all + blockIdx.x * nerf_cmma::act_elems(ry.S),
+      dx_all + (size_t)blockIdx.x * nerf_mma::BM * dm.xyz, dz, raw, ry.R, ry.S, n_groups);
 }
 
 // f32: the same loop on the 3xTF32 tensor-core tiles.
@@ -87,7 +87,7 @@ __global__ void __launch_bounds__(nerf_tmma::NT, 1)
   T32_BEGIN();
   const size_t p_total = (size_t)L.total_w + L.total_b;
   const RayComp pol{{ry, dm.xyz, dm.dir}, g_rgb, g_w};
-  nerf_cmma::backward_groups<RayComp, K>(
+  nerf_cmma::backward_groups<RayComp, K, nerf_br::Sink>(
       pol, smem16, dm, L, M, F, Bp, B, partial + blockIdx.x * p_total,
       acts_all + blockIdx.x * nerf_cmma::act_elems<K>(ry.S),
       dx_all + (size_t)blockIdx.x * K::BM * dm.xyz, dz, raw, ry.R, ry.S, n_groups);

@@ -4,10 +4,13 @@ Every kernel is CUDA C++ for ``sm_90a`` in ``csrc/``, built with ``nvcc`` at
 first use into ``build/kernels/`` (one shared library per kernel, all compiled
 in parallel) and called through ``ctypes``. A library's name carries a hash of
 the flags, its source and every header that source includes, so a stale build
-is never loaded. The wrapper modules (``ops/raymarch_cuda.py`` for B1/B2,
-``ops/research_kernels_cuda.py`` for B4-B7, ``ops/probe_kernels_cuda.py`` for
-the probes P1-P7) load their own libraries from here, and count each launch
-in :data:`LAUNCHES`.
+is never loaded. The five backward libraries also have recording builds
+(``-DNERF_BRANCHES``, ``csrc/branch_sink.cuh``) in ``build/branches/``, built
+at first use (:func:`load_branches`): the same kernels, which also write the
+leaky slope each backward took, for the checks. The wrapper modules
+(``ops/raymarch_cuda.py`` for B1/B2, ``ops/research_kernels_cuda.py`` for
+B4-B7, ``ops/probe_kernels_cuda.py`` for the probes P1-P7) load their own
+libraries from here, and count each launch in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -48,6 +51,12 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# The backward libraries, each also built with BRANCH_FLAGS into BRANCH_DIR:
+# its kernels then record every leaky slope they take (csrc/branch_sink.cuh).
+BRANCH_KERNELS = ("mlp_bwd", "raymarch_bwd", "raymarch_comp_bwd", "mlp_comp_bwd",
+                  "mlp_loss_comp")
+BRANCH_FLAGS = ["-DNERF_BRANCHES"]
+BRANCH_DIR = BUILD_DIR.parent / "branches"
 
 # Kernel launches since the last reset_launch_counts(): one per wrapper call
 # that launched its kernel, never for the plain version.
@@ -88,14 +97,15 @@ def source_closure(src: Path) -> List[Path]:
     return sorted(seen)
 
 
-def lib_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
+def lib_path(name: str, csrc_dir: Path = CSRC_DIR, branches: bool = False) -> Path:
     """The library's path, named by a hash of the flags, its source and every
-    header that source includes: an edit to any of them builds a new one."""
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    header that source includes: an edit to any of them builds a new one.
+    ``branches``: its recording build's (:data:`BRANCH_KERNELS`)."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + (BRANCH_FLAGS if branches else [])).encode())
     for f in source_closure(csrc_dir / KERNEL_SOURCES[name]):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return (BRANCH_DIR if branches else BUILD_DIR) / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _nvcc() -> str:
@@ -105,21 +115,28 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build_kernels() -> Dict[str, object]:
+def build_kernels(branches: bool = False) -> Dict[str, object]:
     """Compile every kernel library not yet built, one ``nvcc`` per source, all
-    started together. Returns ``{"seconds": wall time, "log": compiler output}``
-    (the log holds ``-Xptxas -v``'s registers, shared memory and spills)."""
+    started together; with ``branches`` the recording builds of
+    :data:`BRANCH_KERNELS` too (log headings ``<name>+branches``). Returns
+    ``{"seconds": wall time, "log": compiler output}`` (the log holds
+    ``-Xptxas -v``'s registers, shared memory and spills)."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = [(name, name, False) for name in KERNEL_SOURCES]
+    if branches:
+        BRANCH_DIR.mkdir(parents=True, exist_ok=True)
+        jobs += [(f"{name}+branches", name, True) for name in BRANCH_KERNELS]
     procs = {}
-    for name, src in KERNEL_SOURCES.items():
-        out = lib_path(name)
+    for label, name, rec in jobs:
+        out = lib_path(name, branches=rec)
         if out.exists():
             continue
         tmp = out.with_suffix(".tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out)
+        cmd = [_nvcc(), *NVCC_FLAGS, *(BRANCH_FLAGS if rec else []), "-o", str(tmp),
+               str(CSRC_DIR / KERNEL_SOURCES[name])]
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                         text=True), tmp, out)
     log = []
     failed = []
     for name, (proc, tmp, out) in procs.items():
@@ -192,6 +209,10 @@ _SIGNATURES = {
     "probe_enccost": {"nerf_probe_enccost": ([_i] + [_p] * 3 + [_i] * 6 + [_p], _i)},
 }
 
+# What a recording build exports beside its library's functions
+# (csrc/branch_sink.cuh): the mask its next launches write, rows, width, stream.
+BRANCH_EXPORT = {"nerf_branch_buffer": ([_p, ctypes.c_longlong, _i, _p], _i)}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -204,6 +225,20 @@ def load(name: str) -> ctypes.CDLL:
             build_kernels()
         _LIBS[name] = open_library(name, path)
     return _LIBS[name]
+
+
+def load_branches(name: str) -> ctypes.CDLL:
+    """The recording build of the backward library ``name`` (one of
+    :data:`BRANCH_KERNELS`), built first, with the others, if it is not
+    there. A wrapper launches it only for a call given a ``branches=`` mask;
+    its launches count under ``name``."""
+    key = f"{name}+branches"
+    if key not in _LIBS:
+        path = lib_path(name, branches=True)
+        if not path.exists():
+            build_kernels(branches=True)
+        _LIBS[key] = open_library(name, path, BRANCH_EXPORT)
+    return _LIBS[key]
 
 
 # --------------------------------------------------------------------------- #

@@ -21,6 +21,13 @@ rounded to the compute type, f32 products and sums, activations rounded after
 each leaky, and the backward's roundings of ``_backward_tile``. A wrapper
 takes the plain version only for tensors on the CPU; for a CUDA tensor it
 launches the kernel or raises.
+
+A backward wrapper given a ``branches=`` mask (:func:`branch_mask`) launches
+its library's recording build, which also writes the leaky slope it took at
+every hidden element (``csrc/branch_sink.cuh``); the plain versions take
+such a mask as ``branches=`` and then take each slope from it instead of
+from their own signs. :func:`branch_guard` says whether a recorded mask may
+stand in for the f64 chain's own signs.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from nerf_and_dietnerf_tpu_torch.ops.kernel_lib import (
     flat,
     launched,
     load,
+    load_branches,
     stream_of,
     uses_kernel,
 )
@@ -386,13 +394,15 @@ def _weights_for(lib: ctypes.CDLL, ws, config: MLPConfig, cd, kinds):
 # Plain versions                                                               #
 # --------------------------------------------------------------------------- #
 
-def _leaky(x, alpha):
-    return torch.where(x >= 0, x, alpha * x)
+def _leaky(x, alpha, pos=None):
+    """``pos``: where the positive slope is taken (default ``x >= 0``)."""
+    return torch.where(x >= 0 if pos is None else pos, x, alpha * x)
 
 
-def _leaky_bwd(post, g, alpha):
-    """The sign of the post-activation picks the branch (ties >= 0)."""
-    return torch.where(post >= 0, g, alpha * g)
+def _leaky_bwd(post, g, alpha, pos=None):
+    """The sign of the post-activation picks the branch (ties >= 0), or
+    ``pos`` where given."""
+    return torch.where(post >= 0 if pos is None else pos, g, alpha * g)
 
 
 def _round(v, cd):
@@ -400,32 +410,42 @@ def _round(v, cd):
     return v if cd == torch.float32 else v.to(cd).to(v.dtype)
 
 
-def _forward_plain(ws, bs, config: MLPConfig, x, d, cd, work=torch.float32):
+def _forward_plain(ws, bs, config: MLPConfig, x, d, cd, work=torch.float32, branches=None,
+                   pres=None):
+    """``(raw (n, 4), post-activations)``; each hidden layer's slope from
+    ``branches`` where given (a mask as :func:`branch_mask` lays it out),
+    its pre-activations appended to the list ``pres`` where given."""
     alpha = config.leaky_relu_alpha
+    pos = unpack_branches(branches, config) if branches is not None else None
     W = [w.to(work) for w in ws]
     x = x.to(work)
     d = d.to(work) if d is not None else None
     acts = []
+
+    def hidden(pre):
+        if pres is not None:
+            pres.append(pre)
+        h = _round(_leaky(pre, alpha, pos[len(acts)] if pos is not None else None), cd)
+        acts.append(h)
+        return h
+
     h = x
     for layer in range(N_TRUNK_LAYERS):
         if layer == SKIP_AFTER:
             pre = x @ W[SKIP_AFTER] + h @ W[SKIP_AFTER + 1] + bs[layer]
         else:
             pre = h @ W[_trunk_w(layer)] + bs[layer]
-        h = _round(_leaky(pre, alpha), cd)
-        acts.append(h)
+        h = hidden(pre)
     b = N_TRUNK_LAYERS
     if config.uses_view_dirs:
-        rgb_h = _round(_leaky(h @ W[9] + d @ W[10] + bs[b], alpha), cd)
+        rgb_h = hidden(h @ W[9] + d @ W[10] + bs[b])
         rgb = rgb_h @ W[11] + bs[b + 1]
         sigma = h @ W[12] + d @ W[13] + bs[b + 2]
-        acts.append(rgb_h)
     else:
-        r0 = _round(_leaky(h @ W[9] + bs[b], alpha), cd)
-        rgb_h = _round(_leaky(r0 @ W[10] + bs[b + 1], alpha), cd)
+        r0 = hidden(h @ W[9] + bs[b])
+        rgb_h = hidden(r0 @ W[10] + bs[b + 1])
         rgb = rgb_h @ W[11] + bs[b + 2]
         sigma = h @ W[12] + bs[b + 3]
-        acts += [r0, rgb_h]
     return torch.cat([rgb, sigma], dim=-1), acts
 
 
@@ -434,25 +454,29 @@ def mlp_fwd_plain(ws, bs, config: MLPConfig, x, d, compute_dtype) -> torch.Tenso
     return _forward_plain(ws, bs, config, x, d, compute_dtype)[0]
 
 
-def mlp_bwd_plain(ws, bs, config: MLPConfig, x, d, g, compute_dtype, work=torch.float32):
+def mlp_bwd_plain(ws, bs, config: MLPConfig, x, d, g, compute_dtype, work=torch.float32,
+                  branches=None):
     """Plain version of B2: ``(dws, dbs, dx, dd)`` for the cotangent ``g``
     (n, 4), with the roundings of the JAX package's ``_backward_tile``.
     ``work`` is the type of the products and sums (float64 gives the chain
-    with the same roundings but nearly exact sums)."""
+    with the same roundings but nearly exact sums). ``branches``: a mask
+    (:func:`branch_mask`) whose slopes every hidden layer takes, forward and
+    back, instead of its own signs'."""
     cd = compute_dtype
     alpha = config.leaky_relu_alpha
     W = [w.to(work) for w in ws]
     xf = x.to(work)
     df = d.to(work) if d is not None else None
-    _, acts = _forward_plain(ws, bs, config, x, d, cd, work)
+    _, acts = _forward_plain(ws, bs, config, x, d, cd, work, branches)
+    pos = unpack_branches(branches, config) if branches is not None else [None] * len(acts)
     g = g.to(work)
     grgb, gsig = g[:, 0:3], g[:, 3:4]
     gsig_cd = _round(gsig, cd)
     alpha_cd = float(_round(torch.tensor(alpha, dtype=torch.float32), cd))
 
-    def head_grad(post, gg):  # cotangent rounded to cd; slope and product in cd
+    def head_grad(post, gg, p):  # cotangent rounded to cd; slope and product in cd
         t = _round(gg, cd)
-        return torch.where(post >= 0, t, _round(alpha_cd * t, cd))
+        return torch.where(post >= 0 if p is None else p, t, _round(alpha_cd * t, cd))
 
     dW: List[Optional[torch.Tensor]] = [None] * len(ws)
     dB: List[Optional[torch.Tensor]] = [None] * len(bs)
@@ -462,7 +486,7 @@ def mlp_bwd_plain(ws, bs, config: MLPConfig, x, d, g, compute_dtype, work=torch.
     if config.uses_view_dirs:
         rgb_h = acts[-1]
         dW[11], dB[b + 1] = rgb_h.T @ grgb, grgb.sum(0)
-        g_rgb_h = head_grad(rgb_h, grgb @ W[11].T)
+        g_rgb_h = head_grad(rgb_h, grgb @ W[11].T, pos[-1])
         dW[9], dW[10], dB[b] = h8.T @ g_rgb_h, df.T @ g_rgb_h, g_rgb_h.sum(0)
         dW[12], dW[13], dB[b + 2] = h8.T @ gsig, df.T @ gsig, gsig.sum(0)
         g_h = g_rgb_h @ W[9].T + gsig_cd @ W[12].T
@@ -470,16 +494,16 @@ def mlp_bwd_plain(ws, bs, config: MLPConfig, x, d, g, compute_dtype, work=torch.
     else:
         r0, rgb_h = acts[-2], acts[-1]
         dW[11], dB[b + 2] = rgb_h.T @ grgb, grgb.sum(0)
-        g_rgb_h = head_grad(rgb_h, grgb @ W[11].T)
+        g_rgb_h = head_grad(rgb_h, grgb @ W[11].T, pos[-1])
         dW[10], dB[b + 1] = r0.T @ g_rgb_h, g_rgb_h.sum(0)
-        g_r0 = head_grad(r0, g_rgb_h @ W[10].T)
+        g_r0 = head_grad(r0, g_rgb_h @ W[10].T, pos[-2])
         dW[9], dB[b] = h8.T @ g_r0, g_r0.sum(0)
         dW[12], dB[b + 3] = h8.T @ gsig, gsig.sum(0)
         g_h = g_r0 @ W[9].T + gsig_cd @ W[12].T
 
     g_x = torch.zeros_like(xf)
     for layer in reversed(range(N_TRUNK_LAYERS)):
-        g_pre = _round(_leaky_bwd(acts[layer], g_h, alpha), cd)
+        g_pre = _round(_leaky_bwd(acts[layer], g_h, alpha, pos[layer]), cd)
         prev = acts[layer - 1] if layer > 0 else xf
         dB[layer] = g_pre.sum(0)
         if layer == SKIP_AFTER:
@@ -492,6 +516,129 @@ def mlp_bwd_plain(ws, bs, config: MLPConfig, x, d, g, compute_dtype, work=torch.
             dW[wi] = prev.T @ g_pre
             g_h = g_pre @ W[wi].T
     return dW, dB, g_x + g_h, dd
+
+
+# --------------------------------------------------------------------------- #
+# Leaky branches: the masks of the recording builds, and their guard           #
+# --------------------------------------------------------------------------- #
+
+# A mask element no launch wrote (csrc/branch_sink.cuh): branch_mask's fill.
+BRANCH_UNSET = 2
+# Unit roundoff of what parts a kernel's pre-activations from the f64
+# chain's, by compute type. bf16: both round every activation to bf16 at the
+# same places (2^-8), but a last-bit difference of an f32 sum flips some
+# rounding, which moves that activation by one bf16 ulp. f32: the kernels'
+# 3xTF32 products drop lo x lo and round each lo part to TF32, about 2^-21
+# relative a product; their f32 sums round at 2^-24.
+UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -21}
+# Hidden layers on the longest path from the input to a leaky slope: the
+# trunk's 8 and the rgb branch's 2 (r0, rgb_h; one with view dirs).
+BRANCH_DEPTH = 10
+# The band within which a kernel may take the other leaky slope than the f64
+# chain: |f64 pre-activation| over the largest |pre-activation| of its layer
+# in its row. Each layer adds its own rounding to the error it inherits, so
+# the band is BRANCH_DEPTH units; in f32 each unit is a sum of up to
+# MAX_WIDTH products, whose error bound is MAX_WIDTH u of the sum of their
+# magnitudes. bf16: 10 x 2^-8 = 3.9e-2; f32: 10 x 256 x 2^-21 = 1.2e-3. A
+# kernel that takes a wrong slope takes it at every magnitude, far outside.
+BRANCH_BAND = {torch.bfloat16: BRANCH_DEPTH * UNIT_ROUNDOFF[torch.bfloat16],
+               torch.float32: BRANCH_DEPTH * MAX_WIDTH * UNIT_ROUNDOFF[torch.float32]}
+# The largest share of elements that may sit on the other side of a kink
+# from the f64 chain's: of a mask's leaky slopes (branch_guard), and of the
+# samples on either side of the compositing's max(sigma, 0) (chip_smoke.py).
+KINK_SHARE = 1e-3
+
+
+def branch_widths(config: MLPConfig) -> List[int]:
+    """The widths of the hidden layers whose leaky slopes a backward takes,
+    in the mask's order (``csrc/branch_sink.cuh``): the trunk's 8, then
+    rgb_h with view dirs, or r0 and rgb_h without."""
+    h, last = config.hidden_dim, config.last_hidden_dim
+    return [h] * N_TRUNK_LAYERS + ([last] if config.uses_view_dirs else [h, last])
+
+
+def branch_mask(config: MLPConfig, rows: int, device) -> torch.Tensor:
+    """A ``branches=`` buffer for ``rows`` rows: ``(layers, rows, max width)``
+    uint8, layer-major, filled with :data:`BRANCH_UNSET`; a launch writes 1
+    where it took the positive slope, 0 where alpha."""
+    widths = branch_widths(config)
+    return torch.full((len(widths), rows, max(widths)), BRANCH_UNSET, dtype=torch.uint8,
+                      device=device)
+
+
+def unpack_branches(mask: torch.Tensor, config: MLPConfig) -> List[torch.Tensor]:
+    """One bool ``(rows, width)`` tensor a hidden layer (True: the positive
+    slope), in :func:`_forward_plain`'s order. Raises if an element of a
+    layer's own columns holds anything but 0 or 1 (a row or column no launch
+    recorded)."""
+    widths = branch_widths(config)
+    if mask.dtype != torch.uint8 or mask.dim() != 3 or mask.shape[0] != len(widths) \
+            or mask.shape[2] != max(widths):
+        raise ValueError(f"not a branch mask of this config: {tuple(mask.shape)} {mask.dtype}")
+    layers = [mask[i, :, :w] for i, w in enumerate(widths)]
+    if any(bool((m > 1).any()) for m in layers):
+        raise ValueError("the branch mask has elements no launch recorded")
+    return [m == 1 for m in layers]
+
+
+def pack_branches(branches, config: MLPConfig, out: Optional[torch.Tensor] = None):
+    """The mask of :func:`branch_mask`'s layout holding ``branches`` (one bool
+    ``(rows, width)`` tensor a hidden layer), written into ``out`` if given."""
+    if out is None:
+        out = branch_mask(config, branches[0].shape[0], branches[0].device)
+    for i, b in enumerate(branches):
+        out[i, :, :b.shape[1]] = b.to(torch.uint8)
+    return out
+
+
+def own_branches(ws, bs, config: MLPConfig, x, d, cd, work=torch.float32,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mask of the slopes the plain chain (products and sums in ``work``)
+    takes by its own signs."""
+    pres: list = []
+    _forward_plain(ws, bs, config, x, d, cd, work, pres=pres)
+    return pack_branches([p >= 0 for p in pres], config, out)
+
+
+def branch_guard(mask: torch.Tensor, pres, config: MLPConfig, cd) -> dict:
+    """Whether a recorded ``mask`` may stand in for the f64 chain's own signs,
+    ``pres`` its pre-activations (:func:`_forward_plain`'s ``pres``, work
+    f64): the elements whose recorded slope is not the chain's sign, their
+    share, and the largest |pre-activation| among them over the largest of
+    its layer in its row. ``ok`` only if every such element lies within
+    :data:`BRANCH_BAND` of the compute type ``cd`` and at most
+    :data:`KINK_SHARE` of the elements disagree: a kernel that takes a wrong
+    slope fails it, even where it records the slope it took."""
+    count = total = 0
+    worst = 0.0
+    for rec, pre in zip(unpack_branches(mask, config), pres):
+        flip = rec != (pre >= 0)
+        total += flip.numel()
+        n = int(flip.sum())
+        if n:
+            count += n
+            scale = pre.abs().amax(dim=1, keepdim=True).clamp_min(1e-300)
+            worst = max(worst, float((pre.abs() / scale)[flip].max()))
+    band = BRANCH_BAND[cd]
+    frac = count / max(total, 1)
+    return {"disagreements": count, "elements": total, "share": frac,
+            "max_rel_pre": worst, "band": band, "share_limit": KINK_SHARE,
+            "ok": worst <= band and frac <= KINK_SHARE}
+
+
+def set_branches(lib: ctypes.CDLL, mask: torch.Tensor, stream) -> None:
+    """Point the recording build ``lib`` (``kernel_lib.load_branches``) at
+    ``mask`` for its next launch on ``stream``."""
+    rc = lib.nerf_branch_buffer(mask.data_ptr(), mask.shape[1], mask.shape[2], stream)
+    if rc != 0:
+        raise RuntimeError(f"nerf_branch_buffer failed: CUDA error {rc}")
+
+
+def check_branches(mask, config: MLPConfig, rows: int, dev) -> None:
+    """A wrapper's ``branches=`` output: :func:`branch_mask`'s shape for
+    ``rows`` rows, uint8, contiguous, on ``dev``."""
+    widths = branch_widths(config)
+    check_tensors([(mask, (len(widths), rows, max(widths)), torch.uint8)], dev)
 
 
 # --------------------------------------------------------------------------- #
@@ -545,20 +692,28 @@ def mlp_fwd(ws, bs, config: MLPConfig, x, d, compute_dtype) -> torch.Tensor:
     return out
 
 
-def mlp_bwd(ws, bs, config: MLPConfig, x, d, g, compute_dtype, before_launch=None):
+def mlp_bwd(ws, bs, config: MLPConfig, x, d, g, compute_dtype, before_launch=None,
+            branches=None):
     """B2: ``(dws, dbs, dx, dd)`` for the (n, 4) f32 cotangent ``g``. Weight
     and bias gradients are f32 sums over all rows, bitwise reproducible.
     ``before_launch``, if given, is called just before the kernel's launch,
     after every other operation of the call (``chip_smoke.py`` launches a
-    kernel there that leaves NaN in shared memory)."""
+    kernel there that leaves NaN in shared memory). ``branches``: None, or a
+    :func:`branch_mask` of n rows that receives the slope taken at every
+    hidden element (the recording build's launch; on the CPU the plain
+    version's own signs)."""
+    if branches is not None:
+        check_branches(branches, config, x.shape[0], x.device)
     if not uses_kernel(x):
+        if branches is not None:
+            own_branches(ws, bs, config, x, d, compute_dtype, out=branches)
         return mlp_bwd_plain(ws, bs, config, x, d, g, compute_dtype)
     n = x.shape[0]
     _check(config, ws, bs, x, d, compute_dtype, n)
     if g.device != x.device or g.dtype != torch.float32 or tuple(g.shape) != (n, 4) \
             or not g.is_contiguous():
         raise ValueError(f"cotangent must be contiguous ({n}, 4) float32 on {x.device}")
-    lib = load("mlp_bwd")
+    lib = load("mlp_bwd") if branches is None else load_branches("mlp_bwd")
     dev = x.device
     has_dir = int(config.uses_view_dirs)
     dir_dim = config.dir_dim if has_dir else 0
@@ -576,6 +731,8 @@ def mlp_bwd(ws, bs, config: MLPConfig, x, d, g, compute_dtype, before_launch=Non
         kinds = ("f", "b") if is_bf16 else ("tf", "tb")
         w, wt = _weights_for(lib, ws, config, compute_dtype, kinds)
         b = flat(bs)
+        if branches is not None:
+            set_branches(lib, branches, stream_of(dev))
         if before_launch is not None:
             before_launch()
         rc = lib.nerf_mlp_bwd(

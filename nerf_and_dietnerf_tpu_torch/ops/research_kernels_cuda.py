@@ -67,7 +67,9 @@ its plain PyTorch version, which the wrappers take only for tensors on the
 CPU; for a CUDA tensor they launch the kernel or raise. The plain B4, B5 and
 B7 backwards take the compositing VJP from autograd through
 ``core.rendering.composite``, independent of the kernels' hand-written
-recurrence.
+recurrence. Every backward wrapper and plain version takes ``branches=`` as
+``raymarch_cuda.mlp_bwd`` / ``mlp_bwd_plain`` do: the wrapper records the
+leaky slopes its kernel took (rows ray-major), the plain version takes them.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ from nerf_and_dietnerf_tpu_torch.ops.kernel_lib import (
     flat,
     launched,
     load,
+    load_branches,
     stream_of,
     uses_kernel,
 )
@@ -92,12 +95,15 @@ from nerf_and_dietnerf_tpu_torch.ops.raymarch_cuda import (
     _forward_plain,
     _input_dtype,
     _weights_for,
+    check_branches,
     check_params,
     flatten_params,
     mlp_bwd_plain,
     mlp_fwd_plain,
     mlp_leaves,
+    own_branches,
     param_count,
+    set_branches,
     split_dparams,
     tree_from_leaves,
     unflatten_grads,
@@ -170,11 +176,13 @@ def raymarch_fwd_plain(ws, bs, config: MLPConfig, rd, z, compute_dtype) -> torch
     return mlp_fwd_plain(ws, bs, config, x, d, compute_dtype).reshape(*z.shape, 4)
 
 
-def raymarch_bwd_plain(ws, bs, config: MLPConfig, rd, z, g, compute_dtype):
+def raymarch_bwd_plain(ws, bs, config: MLPConfig, rd, z, g, compute_dtype, branches=None):
     """Plain version of B6's backward: ``(dws, dbs, dz (R, S))`` for the raw
-    cotangent ``g`` (R, S, 4)."""
+    cotangent ``g`` (R, S, 4); each leaky slope from ``branches`` where given
+    (``raymarch_cuda.mlp_bwd_plain``)."""
     pts, x, d = _mlp_inputs(config, rd, z, compute_dtype)
-    dws, dbs, dx, _ = mlp_bwd_plain(ws, bs, config, x, d, g.reshape(-1, 4), compute_dtype)
+    dws, dbs, dx, _ = mlp_bwd_plain(ws, bs, config, x, d, g.reshape(-1, 4), compute_dtype,
+                                    branches=branches)
     return dws, dbs, _dz_from_dx(config, rd, pts, dx, z.shape[1]).reshape(z.shape)
 
 
@@ -201,38 +209,39 @@ def kink_of(raw, raw_sigma):
     return torch.cat([raw[..., :3], s[..., None]], dim=-1)
 
 
-def _raw_plain(ws, bs, config: MLPConfig, x, d, z, cd, work, raw_sigma=None):
+def _raw_plain(ws, bs, config: MLPConfig, x, d, z, cd, work, raw_sigma=None, branches=None):
     """The raw radiance (R, S, 4) f32 the plain compositing reads, its MLP's
     products and sums in ``work`` (float64: the same roundings to the
     compute type with nearly exact sums; the compositing stays f32, as in the
     kernels), each sample on ``raw_sigma``'s side of the kink
-    (:func:`kink_of`)."""
-    raw = _forward_plain(ws, bs, config, x, d, cd, work)[0].float()
+    (:func:`kink_of`), each leaky slope from ``branches`` where given."""
+    raw = _forward_plain(ws, bs, config, x, d, cd, work, branches)[0].float()
     return kink_of(raw.reshape(*z.shape, 4), raw_sigma)
 
 
 def raymarch_comp_fwd_plain(ws, bs, config: MLPConfig, rd, z, compute_dtype,
-                            work=torch.float32, raw_sigma=None):
+                            work=torch.float32, raw_sigma=None, branches=None):
     """Plain version of B7's forward: ``(rgb (R, 3), weights (R, S))``; the
     MLP's products and sums in ``work``, the compositing's kink on
-    ``raw_sigma``'s side (:func:`_raw_plain`)."""
+    ``raw_sigma``'s side, the leaky slopes from ``branches`` where given
+    (:func:`_raw_plain`)."""
     _, x, d = _mlp_inputs(config, rd, z, compute_dtype)
     res = rendering.composite(_raw_plain(ws, bs, config, x, d, z, compute_dtype, work,
-                                         raw_sigma), z)
+                                         raw_sigma, branches), z)
     return res.rgb, res.weights
 
 
 def raymarch_comp_bwd_plain(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtype,
-                            work=torch.float32, raw_sigma=None):
+                            work=torch.float32, raw_sigma=None, branches=None):
     """Plain version of B7's backward: ``(dws, dbs, dz)``, dz the
     compositing's share plus the points'; the MLP's products and sums in
-    ``work``, the compositing's kink on ``raw_sigma``'s side
-    (:func:`_raw_plain`)."""
+    ``work``, the compositing's kink on ``raw_sigma``'s side, the leaky
+    slopes from ``branches`` where given (:func:`_raw_plain`)."""
     pts, x, d = _mlp_inputs(config, rd, z, compute_dtype)
-    raw = _raw_plain(ws, bs, config, x, d, z, compute_dtype, work, raw_sigma)
+    raw = _raw_plain(ws, bs, config, x, d, z, compute_dtype, work, raw_sigma, branches)
     g_raw, dz_comp = composite_vjp(raw, z, g_rgb, g_w)
     dws, dbs, dx, _ = mlp_bwd_plain(ws, bs, config, x, d, g_raw.reshape(-1, 4), compute_dtype,
-                                    work)
+                                    work, branches)
     return dws, dbs, dz_comp + _dz_from_dx(config, rd, pts, dx, z.shape[1]).reshape(z.shape)
 
 
@@ -248,6 +257,11 @@ def _dir_rows(config: MLPConfig, encd, n_samples: int, cd):
 def _raw_on_encodings(ws, bs, config: MLPConfig, enc, encd, z, cd):
     d = _dir_rows(config, encd, z.shape[1], cd)
     return mlp_fwd_plain(ws, bs, config, enc, d, cd).reshape(*z.shape, 4), d
+
+
+def _own_branches_on_encodings(ws, bs, config: MLPConfig, enc, encd, z, cd, out):
+    """The slopes the plain version takes by its own signs, into ``out``."""
+    own_branches(ws, bs, config, enc, _dir_rows(config, encd, z.shape[1], cd), cd, out=out)
 
 
 def _dz_from_encoding(config: MLPConfig, enc, denc, dvec, n_samples: int) -> torch.Tensor:
@@ -266,48 +280,51 @@ def _dz_from_encoding(config: MLPConfig, enc, denc, dvec, n_samples: int) -> tor
 
 
 def mlp_comp_fwd_plain(ws, bs, config: MLPConfig, enc, encd, z, compute_dtype,
-                       work=torch.float32, raw_sigma=None):
+                       work=torch.float32, raw_sigma=None, branches=None):
     """Plain version of B4's forward: ``(rgb (R, 3), weights (R, S))`` from
     ``enc`` (R S, xyz) in the compute type, ``encd`` (R, dir) f32, z (R, S);
     the MLP's products and sums in ``work``, the compositing's kink on
-    ``raw_sigma``'s side (:func:`_raw_plain`)."""
+    ``raw_sigma``'s side, the leaky slopes from ``branches`` where given
+    (:func:`_raw_plain`)."""
     d = _dir_rows(config, encd, z.shape[1], compute_dtype)
     res = rendering.composite(_raw_plain(ws, bs, config, enc, d, z, compute_dtype, work,
-                                         raw_sigma), z)
+                                         raw_sigma, branches), z)
     return res.rgb, res.weights
 
 
 def mlp_comp_bwd_plain(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dtype,
-                       work=torch.float32, raw_sigma=None):
+                       work=torch.float32, raw_sigma=None, branches=None):
     """Plain version of B4's backward: ``(dws, dbs, denc (R S, xyz), dencd
     (R, dir) | None, dz (R, S))``; dz is the compositing's share only; the
     MLP's products and sums in ``work``, the compositing's kink on
-    ``raw_sigma``'s side (:func:`_raw_plain`)."""
+    ``raw_sigma``'s side, the leaky slopes from ``branches`` where given
+    (:func:`_raw_plain`)."""
     d = _dir_rows(config, encd, z.shape[1], compute_dtype)
-    raw = _raw_plain(ws, bs, config, enc, d, z, compute_dtype, work, raw_sigma)
+    raw = _raw_plain(ws, bs, config, enc, d, z, compute_dtype, work, raw_sigma, branches)
     g_raw, dz = composite_vjp(raw, z, g_rgb, g_w)
     dws, dbs, denc, dd = mlp_bwd_plain(ws, bs, config, enc, d, g_raw.reshape(-1, 4),
-                                       compute_dtype, work)
+                                       compute_dtype, work, branches)
     dencd = dd.reshape(*z.shape, -1).sum(1) if dd is not None else None
     return dws, dbs, denc, dencd, dz
 
 
 def mlp_loss_comp_plain(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute_dtype,
-                        work=torch.float32, raw_sigma=None):
+                        work=torch.float32, raw_sigma=None, branches=None):
     """Plain version of B5: ``(mse (), dz (R, S), dws, dbs)``: the mean squared
     error of the composited pixels against ``target`` (R, 3), the total dz (the
     compositing's share plus the points', ``dvec`` (R, 3) being the rays'
     unnormalised directions) and the parameter gradients of that loss; the
     MLP's products and sums in ``work``, the compositing's kink on
-    ``raw_sigma``'s side (:func:`_raw_plain`)."""
+    ``raw_sigma``'s side, the leaky slopes from ``branches`` where given
+    (:func:`_raw_plain`)."""
     d = _dir_rows(config, encd, z.shape[1], compute_dtype)
-    raw = _raw_plain(ws, bs, config, enc, d, z, compute_dtype, work, raw_sigma)
+    raw = _raw_plain(ws, bs, config, enc, d, z, compute_dtype, work, raw_sigma, branches)
     inv_n = 1.0 / (3 * z.shape[0])
     err = rendering.composite(raw, z).rgb - target
     mse = torch.sum(err * err) * inv_n
     g_raw, dz_comp = composite_vjp(raw, z, (2.0 * inv_n) * err, torch.zeros_like(z))
     dws, dbs, denc, _ = mlp_bwd_plain(ws, bs, config, enc, d, g_raw.reshape(-1, 4),
-                                      compute_dtype, work)
+                                      compute_dtype, work, branches)
     dz_pts = _dz_from_encoding(config, enc, denc, dvec, z.shape[1]).reshape(z.shape)
     return mse, dz_comp + dz_pts, dws, dbs
 
@@ -384,15 +401,27 @@ def raymarch_fwd(ws, bs, config: MLPConfig, rd, z, compute_dtype) -> torch.Tenso
     return out
 
 
-def raymarch_bwd(ws, bs, config: MLPConfig, rd, z, g, compute_dtype):
+def _branches_out(branches, config: MLPConfig, z, dev):
+    """Check the optional ``branches=`` output of a backward (the kernel's
+    rows, R S, ray-major)."""
+    if branches is not None:
+        check_branches(branches, config, z.numel(), dev)
+
+
+def raymarch_bwd(ws, bs, config: MLPConfig, rd, z, g, compute_dtype, branches=None):
     """B6 backward: ``(dws, dbs, dz (R, S))`` for the raw cotangent ``g``
-    (R, S, 4) f32; parameter gradients are bitwise reproducible."""
+    (R, S, 4) f32; parameter gradients are bitwise reproducible.
+    ``branches``: as ``raymarch_cuda.mlp_bwd``'s, rows ray-major."""
+    _branches_out(branches, config, z, rd.device)
     if not uses_kernel(rd):
+        if branches is not None:
+            own_branches(ws, bs, config, *_mlp_inputs(config, rd, z, compute_dtype)[1:],
+                         compute_dtype, out=branches)
         return raymarch_bwd_plain(ws, bs, config, rd, z, g, compute_dtype)
     _check_rays(config, ws, bs, rd, z, compute_dtype)
     check_tensors([(g, (*z.shape, 4), torch.float32)], rd.device)
     dev = rd.device
-    lib = load("raymarch_bwd")
+    lib = load("raymarch_bwd") if branches is None else load_branches("raymarch_bwd")
     dz = torch.empty(z.shape, dtype=torch.float32, device=dev)
     dparams = torch.empty((param_count(config, lib),), dtype=torch.float32, device=dev)
     if dz.numel() == 0:
@@ -406,6 +435,8 @@ def raymarch_bwd(ws, bs, config: MLPConfig, rd, z, g, compute_dtype):
         # Each block's dx slab (csrc/raymarch_bwd.cu).
         dxs = torch.empty((n_blocks * rows * config.xyz_dim,), dtype=torch.float32, device=dev)
         (w, wt), b = _rm_weights(lib, ws, config, compute_dtype, True), flat(bs)
+        if branches is not None:
+            set_branches(lib, branches, stream_of(dev))
         rc = lib.nerf_rm_bwd(
             is_bf16, int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(), w.data_ptr(),
             wt.data_ptr(), b.data_ptr(), g.data_ptr(), dz.data_ptr(), partial.data_ptr(),
@@ -473,23 +504,29 @@ def _fwd_kinds(cd):
     return ("f",) if cd == torch.bfloat16 else ("tf",)
 
 
-def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtype, raw=None):
+def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtype, raw=None,
+                      branches=None):
     """B7 backward: ``(dws, dbs, dz (R, S))`` for the cotangents ``g_rgb``
     (R, 3) and ``g_w`` (R, S) f32; parameter gradients bitwise reproducible.
     ``raw``: None, or an (R, S, 4) f32 tensor that receives the raw values
     the kernel composited (the checks read it; on the CPU the plain
-    forward's)."""
+    forward's). ``branches``: as ``raymarch_cuda.mlp_bwd``'s, rows
+    ray-major."""
     _check_samples(z)
     _raw_out(raw, z, rd.device)
+    _branches_out(branches, config, z, rd.device)
     if not uses_kernel(rd):
         if raw is not None:
             raw.copy_(raymarch_fwd_plain(ws, bs, config, rd, z, compute_dtype))
+        if branches is not None:
+            own_branches(ws, bs, config, *_mlp_inputs(config, rd, z, compute_dtype)[1:],
+                         compute_dtype, out=branches)
         return raymarch_comp_bwd_plain(ws, bs, config, rd, z, g_rgb, g_w, compute_dtype)
     _check_rays(config, ws, bs, rd, z, compute_dtype)
     check_tensors([(g_rgb, (z.shape[0], 3), torch.float32), (g_w, z.shape, torch.float32)],
                   rd.device)
     dev = rd.device
-    lib = load("raymarch_comp_bwd")
+    lib = load("raymarch_comp_bwd") if branches is None else load_branches("raymarch_comp_bwd")
     dz = torch.empty(z.shape, dtype=torch.float32, device=dev)
     dparams = torch.empty((param_count(config, lib),), dtype=torch.float32, device=dev)
     if dz.numel() == 0:
@@ -499,6 +536,8 @@ def raymarch_comp_bwd(ws, bs, config: MLPConfig, rd, z, g_rgb, g_w, compute_dtyp
         partial, acts, dxs, n_blocks = _comp_bwd_scratch(lib, dparams.numel(), config,
                                                          compute_dtype, z, dev)
         (w, wt), b = _rm_weights(lib, ws, config, compute_dtype, True), flat(bs)
+        if branches is not None:
+            set_branches(lib, branches, stream_of(dev))
         rc = lib.nerf_rm_comp_bwd(
             is_bf16, int(config.uses_view_dirs), rd.data_ptr(), z.data_ptr(), w.data_ptr(),
             wt.data_ptr(), b.data_ptr(), g_rgb.data_ptr(), g_w.data_ptr(), dz.data_ptr(),
@@ -563,21 +602,26 @@ def mlp_comp_fwd(ws, bs, config: MLPConfig, enc, encd, z, compute_dtype, raw=Non
     return rgb, weights
 
 
-def mlp_comp_bwd(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dtype, raw=None):
+def mlp_comp_bwd(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dtype, raw=None,
+                 branches=None):
     """B4 backward: ``(dws, dbs, denc (R S, xyz), dencd (R, dir) | None, dz
     (R, S))`` f32 for the cotangents ``g_rgb`` (R, 3) and ``g_w`` (R, S) f32.
     dz is the compositing's share only. The parameter gradients and dencd are
-    bitwise reproducible. ``raw`` as :func:`raymarch_comp_bwd`'s."""
+    bitwise reproducible. ``raw`` and ``branches`` as
+    :func:`raymarch_comp_bwd`'s."""
     _check_samples(z)
     _raw_out(raw, z, enc.device)
+    _branches_out(branches, config, z, enc.device)
     if not uses_kernel(enc):
         if raw is not None:
             raw.copy_(_raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)[0])
+        if branches is not None:
+            _own_branches_on_encodings(ws, bs, config, enc, encd, z, compute_dtype, branches)
         return mlp_comp_bwd_plain(ws, bs, config, enc, encd, z, g_rgb, g_w, compute_dtype)
     _check_encodings(config, ws, bs, enc, encd, z, compute_dtype)
     dev = enc.device
     check_tensors([(g_rgb, (z.shape[0], 3), torch.float32), (g_w, z.shape, torch.float32)], dev)
-    lib = load("mlp_comp_bwd")
+    lib = load("mlp_comp_bwd") if branches is None else load_branches("mlp_comp_bwd")
     has_dir = config.uses_view_dirs
     denc = torch.empty(enc.shape, dtype=torch.float32, device=dev)
     dencd = torch.empty(encd.shape, dtype=torch.float32, device=dev) if has_dir else None
@@ -595,6 +639,8 @@ def mlp_comp_bwd(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dt
             config.dir_dim if has_dir else 0)
         kinds = ("f", "b") if compute_dtype == torch.bfloat16 else ("tf", "tb")
         (w, wt), b = _weights_for(lib, ws, config, compute_dtype, kinds), flat(bs)
+        if branches is not None:
+            set_branches(lib, branches, stream_of(dev))
         rc = lib.nerf_mlp_comp_bwd(
             _is_bf16(compute_dtype), int(has_dir), enc.data_ptr(), _ptr(encd), z.data_ptr(),
             w.data_ptr(), wt.data_ptr(), b.data_ptr(), g_rgb.data_ptr(), g_w.data_ptr(),
@@ -606,24 +652,27 @@ def mlp_comp_bwd(ws, bs, config: MLPConfig, enc, encd, z, g_rgb, g_w, compute_dt
 
 
 def mlp_loss_comp(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute_dtype,
-                  raw=None):
+                  raw=None, branches=None):
     """B5: ``(mse (), dz (R, S), dws, dbs)`` f32 in one launch: the mean
     squared error of the composited pixels against ``target`` (R, 3) f32, and
     that loss's total dz and parameter gradients; ``dvec`` (R, 3) f32 are the
     rays' unnormalised directions. All three are bitwise reproducible.
-    ``raw`` as :func:`raymarch_comp_bwd`'s."""
+    ``raw`` and ``branches`` as :func:`raymarch_comp_bwd`'s."""
     _check_samples(z)
     _raw_out(raw, z, enc.device)
+    _branches_out(branches, config, z, enc.device)
     if not uses_kernel(enc):
         if raw is not None:
             raw.copy_(_raw_on_encodings(ws, bs, config, enc, encd, z, compute_dtype)[0])
+        if branches is not None:
+            _own_branches_on_encodings(ws, bs, config, enc, encd, z, compute_dtype, branches)
         return mlp_loss_comp_plain(ws, bs, config, enc, encd, z, dvec, target, compute_dtype)
     _check_encodings(config, ws, bs, enc, encd, z, compute_dtype)
     dev = enc.device
     n_rays = z.shape[0]
     check_tensors([(dvec, (n_rays, 3), torch.float32), (target, (n_rays, 3), torch.float32)], dev)
     inv_n = 1.0 / (3 * n_rays)
-    lib = load("mlp_loss_comp")
+    lib = load("mlp_loss_comp") if branches is None else load_branches("mlp_loss_comp")
     n_params = param_count(config, lib)
     dz = torch.empty(z.shape, dtype=torch.float32, device=dev)
     out = torch.empty((n_params + 1,), dtype=torch.float32, device=dev)  # dparams, then the loss
@@ -635,6 +684,8 @@ def mlp_loss_comp(ws, bs, config: MLPConfig, enc, encd, z, dvec, target, compute
         kinds = ("f", "b") if compute_dtype == torch.bfloat16 else ("tf", "tb")
         w, wt = _weights_for(lib, ws, config, compute_dtype, kinds)
         b = flat(bs)
+        if branches is not None:
+            set_branches(lib, branches, stream_of(dev))
         rc = lib.nerf_mlp_loss_comp(
             _is_bf16(compute_dtype), int(config.uses_view_dirs), enc.data_ptr(), _ptr(encd),
             z.data_ptr(), dvec.data_ptr(), target.data_ptr(), w.data_ptr(), wt.data_ptr(),

@@ -2,7 +2,7 @@
 """Accuracy report of the compositing backwards on the bf16 tensor cores:
 B7's backward (``raymarch_comp_bwd``), B5 (``mlp_loss_comp``) and B4's
 backward (``mlp_comp_bwd``), each held against its plain version evaluated
-four ways.
+five ways.
 
 The compositing takes ``sigma = max(raw sigma, 0)``, and the sigma cotangent
 is 0 below the kink. A sample whose raw sigma lies within the forward's
@@ -17,19 +17,31 @@ take each sample's side of the kink from the kernel
 - ``plain_kink``: the same with the kernel's kink;
 - ``f64``: the same roundings to bf16 with the MLP's products and sums in
   f64 (nearly exact sums; the compositing stays f32), its own kink;
-- ``f64_kink``: f64 with the kernel's kink.
+- ``f64_kink``: f64 with the kernel's kink;
+- ``f64_branches``: f64 with the kernel's kink and the kernel's leaky
+  slopes. The MLP has the same trouble at each hidden element: a
+  pre-activation within rounding of 0 takes the slope 1 or alpha in two
+  orders of summation, and on opaque rays, where 256 rows carry every
+  gradient, one such row moves a whole weight-gradient leaf. The kernel's
+  recording build (``branches=``, ``csrc/branch_sink.cuh``) writes the slope
+  it took at every element; its outputs must be bitwise the kernel's, and
+  the mask must pass ``raymarch_cuda.branch_guard`` against the f64 chain's
+  own signs, or the reference is left out (``recording_bitwise``,
+  ``branches``).
 
 Per case it prints one JSON line: the kernel against each reference and the
 plain version against ``f64`` (dz normwise and scaled max, the worst leaf's
 scaled dparams error and which leaf, dparams normwise, B5's loss, B4's denc
-and dencd normwise), and the
+and dencd normwise), the
 samples whose raw sigma has another sign in the kernel than in ``plain`` and
 in ``f64``: their count, where they lie (ray, sample, row in its 128-row
 tile) and their largest |raw sigma| beside the largest |kernel - f64| raw
-sigma of the case.
+sigma of the case, and the guard's record of the leaky slopes. The last
+line is the summary: per kernel, the worst dparams leaf over the cases
+against each reference.
 
     python -m nerf_and_dietnerf_tpu_torch.tools.comp_kink [--seeds 0 1] [--out PATH]
-    python -m nerf_and_dietnerf_tpu_torch.tools.comp_kink --opaque-only --seeds 0 1 2 3
+    python -m nerf_and_dietnerf_tpu_torch.tools.comp_kink --opaque-only --seeds 0 1 2 3 4 5 6 7
     python -m nerf_and_dietnerf_tpu_torch.tools.comp_kink --device cpu --rays 8 --hidden 32
 """
 
@@ -137,12 +149,14 @@ def b4_result(dws, dbs, denc, dencd, dz) -> tuple:
 
 
 def plain_of(kernel: str, ws, bs, cfg, cd, args):
-    """``(plain, raw_plain)`` of kernel ``kernel`` ("B7" on ``args = (rd, z,
-    g_rgb, g_w)``, "B5" on ``args = (enc, encd, z, dvec, target)``, "B4" on
-    ``args = (enc, encd, z, g_rgb, g_w)``): ``plain(**kw)`` its plain version
-    as ``(dws, dbs, dz, loss | None[, rows])`` (keywords ``work``,
-    ``raw_sigma``), ``raw_plain(work)`` the raw values (R, S, 4) that version
-    composites."""
+    """``(plain, raw_plain, guard)`` of kernel ``kernel`` ("B7" on ``args =
+    (rd, z, g_rgb, g_w)``, "B5" on ``args = (enc, encd, z, dvec, target)``,
+    "B4" on ``args = (enc, encd, z, g_rgb, g_w)``): ``plain(**kw)`` its plain
+    version as ``(dws, dbs, dz, loss | None[, rows])`` (keywords ``work``,
+    ``raw_sigma``, ``branches``), ``raw_plain(work)`` the raw values (R, S,
+    4) that version composites, ``guard(mask)``
+    :func:`raymarch_cuda.branch_guard`'s record of a recorded mask against
+    the f64 chain's own signs."""
     if kernel == "B7":
         rd, z = args[:2]
         _, x, d = rk._mlp_inputs(cfg, rd, z, cd)
@@ -162,14 +176,22 @@ def plain_of(kernel: str, ws, bs, cfg, cd, args):
         def plain(**kw):
             mse, dz, dws, dbs = rk.mlp_loss_comp_plain(ws, bs, cfg, *args, cd, **kw)
             return dws, dbs, dz, mse
+    def guard(mask):
+        pres: list = []
+        rc._forward_plain(ws, bs, cfg, x, d, cd, F64, pres=pres)
+        return rc.branch_guard(mask, pres, cfg, cd)
+
     return plain, lambda work: rc._forward_plain(ws, bs, cfg, x, d, cd, work)[0].reshape(
-        *z.shape, 4)
+        *z.shape, 4), guard
 
 
-def compare(plain, raw_plain, got, raw=None) -> dict:
+def compare(plain, raw_plain, guard, got, raw=None, branches=None) -> dict:
     """The record of one case: the kernel's results ``got`` (as
     :func:`distance` takes them) against the references and, where the kernel gave the raw
-    values it composited (``raw``), its kink samples and raw error."""
+    values it composited (``raw``), its kink samples and raw error; where it
+    also gave the slopes it took (``branches``, a recording build's whose
+    outputs were bitwise ``got``), the guard's record and, if that passes,
+    ``f64_branches``."""
     refs = {"plain": plain(), "f64": plain(work=F64)}
     rec = {}
     if raw is not None:
@@ -180,25 +202,71 @@ def compare(plain, raw_plain, got, raw=None) -> dict:
         rec["kink_vs_f64"] = kink_samples(raw, raw_plain(F64))
         refs["plain_kink"] = plain(raw_sigma=raw[..., 3])
         refs["f64_kink"] = plain(work=F64, raw_sigma=raw[..., 3])
+        if branches is not None:
+            rec["branches"] = guard(branches)
+            if rec["branches"]["ok"]:
+                refs["f64_branches"] = plain(work=F64, raw_sigma=raw[..., 3], branches=branches)
     for key, ref in refs.items():
         rec[key] = distance(got, ref)
     rec["plain_vs_f64"] = distance(refs["plain"], refs["f64"])
     return rec
 
 
+def run(kernel: str, ws, bs, cfg, cd, args, raw=None, branches=None) -> tuple:
+    """Kernel ``kernel``'s wrapper (as :func:`plain_of`) on ``args``, its
+    result as :func:`distance` takes it; ``raw`` and ``branches`` as the
+    wrappers take them."""
+    kw = {"raw": raw, "branches": branches}
+    if kernel == "B7":
+        return (*rk.raymarch_comp_bwd(ws, bs, cfg, *args, cd, **kw), None)
+    if kernel == "B4":
+        return b4_result(*rk.mlp_comp_bwd(ws, bs, cfg, *args, cd, **kw))
+    mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, *args, cd, **kw)
+    return dws, dbs, dz, mse
+
+
+def tensors_of(result) -> list:
+    """Every tensor of a result as :func:`distance` takes it."""
+    rows = result[4] if len(result) > 4 else {}
+    return (list(result[0]) + list(result[1]) + [result[2]]
+            + ([result[3]] if result[3] is not None else []) + list(rows.values()))
+
+
+def recorded(run_kernel, got, z, cfg):
+    """``(mask, bitwise)``: the slopes the recording build took, from
+    ``run_kernel(branches=mask)`` on the inputs that gave ``got``, and
+    whether its outputs are bitwise ``got``."""
+    mask = rc.branch_mask(cfg, z.numel(), z.device)
+    again = run_kernel(branches=mask)
+    return mask, all(torch.equal(a, b) for a, b in zip(tensors_of(got), tensors_of(again)))
+
+
 def held(kernel: str, ws, bs, cfg, cd, args) -> dict:
-    """Kernel ``kernel`` (as :func:`plain_of`) in bf16, with its raw output,
-    against the references (:func:`compare`)."""
+    """Kernel ``kernel`` (as :func:`plain_of`) in bf16, with its raw output
+    and its recording build's slopes, against the references
+    (:func:`compare`)."""
     z = args[1] if kernel == "B7" else args[2]
     raw = torch.empty((*z.shape, 4), dtype=torch.float32, device=z.device)
-    if kernel == "B7":
-        got = (*rk.raymarch_comp_bwd(ws, bs, cfg, *args, cd, raw=raw), None)
-    elif kernel == "B4":
-        got = b4_result(*rk.mlp_comp_bwd(ws, bs, cfg, *args, cd, raw=raw))
-    else:
-        mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, *args, cd, raw=raw)
-        got = (dws, dbs, dz, mse)
-    return compare(*plain_of(kernel, ws, bs, cfg, cd, args), got, raw)
+    got = run(kernel, ws, bs, cfg, cd, args, raw=raw)
+    mask, bitwise = recorded(lambda **kw: run(kernel, ws, bs, cfg, cd, args, **kw), got, z, cfg)
+    rec = compare(*plain_of(kernel, ws, bs, cfg, cd, args), got, raw, mask if bitwise else None)
+    rec["recording_bitwise"] = bitwise
+    return rec
+
+
+def summary(records) -> dict:
+    """Per kernel, the worst dparams leaf over ``records`` (``{"kernel", ...
+    :func:`compare`'s keys}``) against each reference, and the cases."""
+    out = {}
+    for rec in records:
+        k = out.setdefault(rec["kernel"], {"cases": 0})
+        k["cases"] += 1
+        for ref in ("plain", "f64", "plain_kink", "f64_kink", "f64_branches"):
+            if ref in rec:
+                k[ref] = max(k.get(ref, 0.0), rec[ref]["dparams_worst_leaf"])
+        k["recording_bitwise"] = k.get("recording_bitwise", True) and rec["recording_bitwise"]
+        k["guard_ok"] = k.get("guard_ok", True) and rec.get("branches", {}).get("ok", False)
+    return out
 
 
 def cases(device, seeds, rays, hidden, opaque_only=False):
@@ -243,13 +311,16 @@ def main(argv=None) -> int:
     p.add_argument("--opaque-only", action="store_true", help="the opaque rays' cases alone")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
-    lines = []
+    lines, records = [], []
     for label, kernel, ws, bs, cfg, inputs in cases(device, args.seeds, args.rays, args.hidden,
                                                     args.opaque_only):
         rec = {"case": label, "kernel": kernel, **held(kernel, ws, bs, cfg, torch.bfloat16, inputs)}
         assert all(math.isfinite(v) for k, v in rec.items() if isinstance(v, float))
+        records.append(rec)
         lines.append(json.dumps(rec))
         print(lines[-1], flush=True)
+    lines.append(json.dumps({"summary_worst_dparams_leaf": summary(records)}))
+    print(lines[-1], flush=True)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n".join(lines) + "\n")

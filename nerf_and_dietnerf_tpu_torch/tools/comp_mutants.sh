@@ -35,7 +35,16 @@
 #   b4dpad   f32 B4's forward (the f32 D-tile loader it shares with f32 B4's
 #            backward and f32 B5) leaves the D tile's pad columns as they
 #            were: NaN after _poison_comp_fwd (the xyz-only variant, which
-#            has no D tile, is unbroken).
+#            has no D tile, is unbroken);
+#   sinkcol  the recording builds' branch sink writes the other slope than
+#            the one taken for column 5 of every layer (the production
+#            builds are unbroken; the bf16 backwards' checks, which hold them
+#            against f64_branches, must refuse the mask: raymarch_cuda.
+#            branch_guard);
+#   slope1   the bf16 grad_tile takes column 5's leaky slope from the wrong
+#            side (trunk and r0), and its sink records the slope it took.
+# The bf16 backwards (B7, B5, B4) are held against f64_branches, the f64
+# chain on their recording builds' leaky slopes, as chip_smoke.py holds them.
 # Run from the repository root on the card, after a build (build/kernels is
 # copied, so only the broken libraries are rebuilt); name cases to run only
 # those:
@@ -44,11 +53,11 @@ set -u
 root=$(pwd)
 tmp=$(mktemp -d)
 trap 'rm -rf "$tmp"' EXIT
-cases=${*:-none ray2 sigbias dd2 denc1 t32row fwdray b5sw b2pad b4carry b6row fwdtile b4dpad}
+cases=${*:-none ray2 sigbias dd2 denc1 t32row fwdray b5sw b2pad b4carry b6row fwdtile b4dpad sinkcol slope1}
 for m in $cases; do
   d=$tmp/$m
   mkdir -p "$d/build" && cp -r nerf_and_dietnerf_tpu_torch chip_smoke.py "$d/"
-  cp -r build/kernels "$d/build/" 2>/dev/null
+  cp -r build/kernels build/branches "$d/build/" 2>/dev/null
   csrc=$d/nerf_and_dietnerf_tpu_torch/csrc
   case $m in
     ray2) sed -i 's/    if (tid < g.n_rays)$/    if (tid < 1)/' "$csrc/comp_mma_tile.cuh"
@@ -78,6 +87,10 @@ for m in $cases; do
     b4dpad) # the f32 loader's pad width, not the bf16 one's
             sed -i '/load_comp_t32_inputs(/,/^}/ s|  const int dp = nerf_mma::pad16(dm.dir);|  const int dp = dm.dir;|' "$csrc/mlp_comp_common.cuh"
             awk '/load_comp_t32_inputs\(/ {k = 1} /const int dp = dm.dir;/ {n += k} END {exit n != 1}' "$csrc/mlp_comp_common.cuh" || exit 1 ;;
+    sinkcol) sed -i 's|\* mask.width + c\] = pos ? 1 : 0;|* mask.width + c] = (pos != (c == 5)) ? 1 : 0;|' "$csrc/branch_sink.cuh"
+             grep -q "(pos != (c == 5))" "$csrc/branch_sink.cuh" || exit 1 ;;
+    slope1) sed -i 's|            const bool pos = bf(post\[r \* LDH + n + e\]) >= 0.f;|            const bool pos = (bf(post[r * LDH + n + e]) >= 0.f) != (n + e == 5);|' "$csrc/mlp_mma_tile.cuh"
+            grep -q "!= (n + e == 5);" "$csrc/mlp_mma_tile.cuh" || exit 1 ;;
   esac
   (cd "$d" && python3 - "$m" <<'PY'
 import sys
@@ -91,7 +104,7 @@ from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl  # noqa: E402
 from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc  # noqa: E402
 from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk  # noqa: E402
 
-kl.build_kernels()
+kl.build_kernels(branches=True)
 torch.backends.cuda.matmul.allow_tf32 = False
 cd, R, S = torch.bfloat16, 4096, 64
 for n_angles in (0, 2):
@@ -104,24 +117,26 @@ for n_angles in (0, 2):
     g_w = 0.5 + torch.rand((R, S), generator=gen, device="cuda")
     batch = cs._enc_batch(torch, cfg, cd, R, S, gen)
 
-    def b7(raw):
-        return (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw), None)
+    def b7(raw, branches=None):
+        return (*rk.raymarch_comp_bwd(ws, bs, cfg, rd, z, g_rgb, g_w, cd, raw=raw,
+                                      branches=branches), None)
 
-    def b5(raw):
-        mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, *batch, cd, raw=raw)
+    def b5(raw, branches=None):
+        mse, dz, dws, dbs = rk.mlp_loss_comp(ws, bs, cfg, *batch, cd, raw=raw, branches=branches)
         return dws, dbs, dz, mse
 
     ws32, bs32 = rc.flatten_params(mlp.init_params(torch.Generator().manual_seed(0), cfg,
                                                    device="cuda"), cfg, torch.float32)
 
-    def b7_f32(raw):
+    def b7_f32(raw, branches=None):
         return (*rk.raymarch_comp_bwd(ws32, bs32, cfg, rd, z, g_rgb, g_w, torch.float32,
-                                      raw=raw), None)
+                                      raw=raw, branches=branches), None)
 
     batch32 = []
 
-    def b5_f32(raw):
-        mse, dz, dws, dbs = rk.mlp_loss_comp(ws32, bs32, cfg, *batch32, torch.float32, raw=raw)
+    def b5_f32(raw, branches=None):
+        mse, dz, dws, dbs = rk.mlp_loss_comp(ws32, bs32, cfg, *batch32, torch.float32, raw=raw,
+                                             branches=branches)
         return dws, dbs, dz, mse
 
     for kernel, args, run in (("B7", (rd, z, g_rgb, g_w), b7), ("B5", batch, b5), ("B4", None,

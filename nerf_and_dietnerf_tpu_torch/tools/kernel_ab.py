@@ -16,8 +16,8 @@ and the fine pass's 524,288; 4096 rays of 64 and 128 samples):
   widths, random weights from a seed, the same draws every call).
 
 Beside each kernel it gives each side's normwise distance to the f64
-evaluation of the kernel's chain (the plain version with
-``work=torch.float64``: the same roundings to the compute type, f64 products
+evaluation of the kernel's chain (``tools/chain.py``: the plain version with
+``work=torch.float64``, the same roundings to the compute type, f64 products
 and sums) and the plain f32 version's, and each side's registers and spill
 bytes (``-Xptxas -v``) and HMMA / HGMMA count (``cuobjdump -sass``).
 
@@ -45,7 +45,7 @@ from pathlib import Path
 import torch
 
 from nerf_and_dietnerf_tpu_torch.ops import kernel_lib as kl
-from nerf_and_dietnerf_tpu_torch.tools import SEED, sass_diff
+from nerf_and_dietnerf_tpu_torch.tools import SEED, chain, sass_diff
 
 SIDES = ("parent", "change")
 LIBS = ("mlp_fwd", "mlp_bwd", "raymarch_fwd", "raymarch_bwd")
@@ -97,14 +97,6 @@ def _ms(fn, calls: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
-
-
-def _normwise(a, exact) -> float:
-    return float((a.double() - exact).norm() / exact.norm().clamp_min(1e-300))
-
-
-def _flat(ts):
-    return torch.cat([t.reshape(-1) for t in ts])
 
 
 def _mlp_inputs(cfg, cd, n, gen, dev):
@@ -195,12 +187,10 @@ def _cases(dev, calls: int) -> dict:
     return {name: (lambda fn=fn: _ms(fn, calls)) for name, fn in cases.items()}
 
 
-def _distance_cases(dev) -> dict:
-    """``{name: (exact, kernel, plain)}``: callables giving ``{output:
-    tensor}`` of the f64 chain, the kernel and the plain f32 version."""
+def _chains(dev) -> dict:
+    """``{name: tools.chain.Chain}`` of every kernel whose distance to the
+    f64 chain the report gives: B1 and B2 in both types, bf16 B6."""
     from nerf_and_dietnerf_tpu_torch.models import mlp
-    from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
-    from nerf_and_dietnerf_tpu_torch.ops import research_kernels_cuda as rk
 
     cfg = mlp.MLPConfig()
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -208,57 +198,25 @@ def _distance_cases(dev) -> dict:
     for cd, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         ws, bs = _weights(cfg, cd, dev)
         x, d, g = _mlp_inputs(cfg, cd, ROWS[0], gen, dev)
-
-        def b2(fn, ws=ws, bs=bs, x=x, d=d, g=g, cd=cd, **kw):
-            dws, dbs, dx, dd = fn(ws, bs, cfg, x, d, g, cd, **kw)
-            return {"dx": dx, "dd": dd, "dparams": _flat(dws + dbs)}
-        out[f"B1 {name} N={ROWS[0]}"] = (
-            lambda ws=ws, bs=bs, x=x, d=d, cd=cd: {
-                "out": rc._forward_plain(ws, bs, cfg, x, d, cd, torch.float64)[0]},
-            lambda ws=ws, bs=bs, x=x, d=d, cd=cd: {"out": rc.mlp_fwd(ws, bs, cfg, x, d, cd)},
-            lambda ws=ws, bs=bs, x=x, d=d, cd=cd: {"out": rc.mlp_fwd_plain(ws, bs, cfg, x, d, cd)})
-        out[f"B2 {name} N={ROWS[0]}"] = (
-            lambda b2=b2: b2(rc.mlp_bwd_plain, work=torch.float64),
-            lambda b2=b2: b2(rc.mlp_bwd), lambda b2=b2: b2(rc.mlp_bwd_plain))
+        out[f"B1 {name} N={ROWS[0]}"] = chain.forward_chain(ws, bs, cfg, x, d, cd)
+        out[f"B2 {name} N={ROWS[0]}"] = chain.mlp_chain(ws, bs, cfg, x, d, g, cd)
     ws, bs = _weights(cfg, torch.bfloat16, dev)
     for s in SAMPLES:
         rd, z, g = _ray_inputs(cfg, s, gen, dev)
-
-        def b6(fwd, bwd, exact=False, rd=rd, z=z, g=g, ws=ws, bs=bs):
-            cd = torch.bfloat16
-            if exact:
-                pts, x, d = rk._mlp_inputs(cfg, rd, z, cd)
-                dws, dbs, dx, _ = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g.reshape(-1, 4), cd,
-                                                   work=torch.float64)
-                return {"raw": rc._forward_plain(ws, bs, cfg, x, d, cd, torch.float64)[0],
-                        "dz": rk._dz_from_dx(cfg, rd, pts, dx, z.shape[1]),
-                        "dparams": _flat(dws + dbs)}
-            dws, dbs, dz = bwd(ws, bs, cfg, rd, z, g, cd)
-            return {"raw": fwd(ws, bs, cfg, rd, z, cd).reshape(-1, 4), "dz": dz.reshape(-1),
-                    "dparams": _flat(dws + dbs)}
-        out[f"B6 bf16 S={s}"] = (
-            lambda b6=b6: b6(None, None, exact=True),
-            lambda b6=b6: b6(rk.raymarch_fwd, rk.raymarch_bwd),
-            lambda b6=b6: b6(rk.raymarch_fwd_plain, rk.raymarch_bwd_plain))
+        out[f"B6 bf16 S={s}"] = chain.ray_chain(ws, bs, cfg, rd, z, g, torch.bfloat16)
     return out
 
 
-def chain_distances(dev, swap) -> dict:
-    """``{kernel: {"parent": {output: d}, "change": ..., "plain": ...,
-    "<side>_over_plain": {output: ratio}}}``, d the normwise distance to the
-    f64 chain; one case at a time, so only its tensors are held."""
+def side_distances(chains: dict, swap) -> dict:
+    """``{kernel: {output: {"plain": d, "parent": d, "change": d,
+    "ratio_<side>_to_plain": r}}}`` (``tools.chain.distances``), each side's
+    libraries put in place by ``swap(side)``; one kernel at a time, so only
+    its tensors are held."""
     out = {}
-    for name, (exact_fn, kernel_fn, plain_fn) in _distance_cases(dev).items():
-        exact = exact_fn()
-        rec = {"plain": {k: _normwise(v, exact[k]) for k, v in plain_fn().items()}}
-        for side in SIDES:
-            swap(side)
-            rec[side] = {k: _normwise(v, exact[k]) for k, v in kernel_fn().items()}
-            rec[f"{side}_over_plain"] = {k: rec[side][k] / max(rec["plain"][k], 1e-300)
-                                         for k in exact}
-        del exact
+    for name, c in chains.items():
+        out[name] = chain.distances(c, {side: (lambda side=side, c=c: (swap(side), c.kernel())[1])
+                                        for side in SIDES})
         torch.cuda.empty_cache()
-        out[name] = rec
     return out
 
 
@@ -327,7 +285,7 @@ def main(argv=None) -> int:
     try:
         sass = sass_report(builds)
         print(f"registers, spills, HMMA / HGMMA: {json.dumps(sass)}", flush=True)
-        distances = chain_distances(dev, swap)
+        distances = side_distances(_chains(dev), swap)
         for name, rec in distances.items():
             print(f"{name} against the f64 chain (normwise): {json.dumps(rec)}", flush=True)
         times = run_turns(_cases(dev, CALLS), TURNS, swap, lambda fn: fn())

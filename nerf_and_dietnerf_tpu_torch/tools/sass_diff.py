@@ -15,7 +15,9 @@ this checkout's root on the machine with the card (``nvcc`` and
     python -m nerf_and_dietnerf_tpu_torch.tools.sass_diff build/parent
 
 One JSON line per library of the model kernels B1, B2, B4-B7; exits 1 if
-any differs. The parsers of both formats (:func:`sass_functions`,
+any differs. Functions only the change's build has are listed apart
+(``added``) and do not count as a difference: a build may add functions
+beside unchanged ones. The parsers of both formats (:func:`sass_functions`,
 :func:`ptxas_blocks`, :func:`ptxas_entries`) are the ones ``chip_smoke.py``
 reads its SASS and register counts with.
 """
@@ -23,6 +25,7 @@ reads its SASS and register counts with.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import re
 import shutil
@@ -105,21 +108,45 @@ def ptxas_entries(lines) -> dict:
     return out
 
 
-def _ptxas_lines(build_log: str, lib: str) -> list:
-    return [line for line in ptxas_blocks(build_log).get(lib, [])
-            if any(k in line for k in _PTXAS)]
+_NAMED = re.compile(r"Compiling entry function '([^']+)'|Function properties for (\S+)")
+
+
+def _ptxas_lines(build_log: str, lib: str, leave_out=()) -> list:
+    """The ptxas lines of one library, those of the functions ``leave_out``
+    names (a function's lines run from the line that names it to the next
+    such line) left out."""
+    lines, keep = [], True
+    for line in ptxas_blocks(build_log).get(lib, []):
+        named = _NAMED.search(line)
+        if named:
+            keep = (named.group(1) or named.group(2)) not in leave_out
+        if keep and any(k in line for k in _PTXAS):
+            lines.append(line)
+    return lines
 
 
 def compare(old: dict, new: dict, old_log: str, new_log: str, lib: str) -> dict:
     """One library: its functions' instruction streams (in any order, names
     aside: a device function kept out of line may change its mangled name
-    with a template parameter) and its ptxas lines."""
-    streams = sorted(old.values()) == sorted(new.values())
-    ptxas = _ptxas_lines(old_log, lib) == _ptxas_lines(new_log, lib)
+    with a template parameter) and its ptxas lines. A new function whose
+    stream no old one has is ``changed`` if an old function has its name,
+    else ``added``; added functions and their ptxas lines are left out of
+    the verdict."""
+    pool = collections.Counter(tuple(v) for v in old.values())
+    unmatched = []
+    for name, instructions in new.items():
+        if pool[tuple(instructions)]:
+            pool[tuple(instructions)] -= 1
+        else:
+            unmatched.append(name)
+    added = sorted(n for n in unmatched if n not in old)
+    streams = sorted(old.values()) == sorted(v for n, v in new.items() if n not in added)
+    ptxas = _ptxas_lines(old_log, lib) == _ptxas_lines(new_log, lib, added)
     return {"library": lib, "functions": [len(old), len(new)],
             "names_equal": sorted(old) == sorted(new), "instructions_equal": streams,
             "instructions": [sum(map(len, old.values())), sum(map(len, new.values()))],
-            "ptxas_equal": ptxas, "same": streams and ptxas}
+            "ptxas_equal": ptxas, "changed": sorted(n for n in unmatched if n in old),
+            "added": added, "same": streams and ptxas}
 
 
 def main(argv=None) -> int:

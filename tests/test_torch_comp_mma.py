@@ -171,16 +171,18 @@ def test_tile_constants_match_the_cuda_sources():
     assert "FRESH" not in COMP_SRC and "FRESH" not in MMA_SRC
     assert "nerf_mma::forward_tile(dm, L, M, F, B, t, ring, keep, out, row0, after);" \
         in COMP_SRC
-    assert ("nerf_mma::backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, "
-            "dd, after, b10);") in COMP_SRC
+    # (the walk with the kernel's branch sink, csrc/branch_sink.cuh)
+    assert ("nerf_mma::backward_walk<Sink>(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, "
+            "dd, after,\n                                  b10);") in COMP_SRC
     assert "K::forward_tile(tdm, L, M, F, B, t, ring, acts + j * tile_slots," in COMP_SRC
-    assert "K::backward_walk(tdm, L, M, Bp, t, ring, slots, part, first, 0," in COMP_SRC
+    assert ("K::template backward_walk<Sink>(tdm, L, M, Bp, t, ring, slots, part, first, 0,"
+            in COMP_SRC)
     assert ("template <typename Epi = LeakyEpilogue, int WM = 2>\n"
             "__device__ inline void forward_tile(") in MMA_SRC
-    assert "__device__ inline void backward_walk(" in MMA_SRC
+    assert "template <class Sink>\n__device__ inline void backward_walk(" in MMA_SRC
     assert "  forward_tile(dm, L, M, F, B, t, ring, acts, nullptr, row0, &b10);" in MMA_SRC
-    assert "  backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, b10);" \
-        in MMA_SRC
+    assert ("  backward_walk<Sink>(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after, "
+            "b10);") in MMA_SRC
     # The bytes the header states: the backward tiles, then 9 floats a row and
     # one a ray; the largest block at MAX_S_COMP, within a block's limit.
     assert bwd_smem_bytes() == 209408
@@ -832,7 +834,7 @@ def test_t32_dz_points_reads_the_swizzled_x_row_through_sw(case):
                  "      s += g[1 + 2 * k] * (f * to_f<X>(x[col(e + 2 + 2 * k)]));",
                  "      s += g[2 + 2 * k] * (-f * to_f<X>(x[col(e + 1 + 2 * k)]));"):
         assert line in B5_SRC
-    assert "nerf_cmma::backward_groups<LossComp<float>, K>(" in B5_SRC
+    assert "nerf_cmma::backward_groups<LossComp<float>, K, nerf_br::Sink>(" in B5_SRC
 
 
 @pytest.mark.parametrize("n_samples", [48, 100, 128])
@@ -957,7 +959,7 @@ def test_b4_f32_in_the_t32_kits_group_order_matches_jax(case, n_samples):
                  "      for (int r = lo; r < hi; ++r) s += dd[(r - r0) * dm.dir + c];",
                  "      carry = s;",
                  "    for (int idx = threadIdx.x; idx < g.n_rays * dm.dir; idx += blockDim.x) {",
-                 "  nerf_cmma::backward_groups<MlpComp<float>, K>(",
+                 "  nerf_cmma::backward_groups<MlpComp<float>, K, nerf_br::Sink>(",
                  "    load_comp_t32_inputs(in, dm, g, r0, X, D);"):
         assert line in B4_SRC
 
@@ -1240,8 +1242,9 @@ def test_exports_in_the_sources_match_the_fake_library(kernel):
                      "mlp_comp_bwd_t32_kernel<<<n_blocks, nerf_tmma::NT, smem, stream>>>(")}
     bf, f32 = src.index("  if (bf16) {"), src.index("  } else {")
     assert bf < src.index(launch[kernel][0]) < f32 < src.index(launch[kernel][1])
-    loop = {"B7": "backward_groups<RayComp, K>(", "B5": "backward_groups<LossComp<float>, K>(",
-            "B4": "backward_groups<MlpComp<float>, K>("}[kernel]
+    loop = {"B7": "backward_groups<RayComp, K, nerf_br::Sink>(",
+            "B5": "backward_groups<LossComp<float>, K, nerf_br::Sink>(",
+            "B4": "backward_groups<MlpComp<float>, K, nerf_br::Sink>("}[kernel]
     assert loop in src and "using K = nerf_tmma::Kit;" in src
     for fma in ("rm_comp_bwd_kernel", "mlp_loss_comp_kernel", "mlp_comp_bwd_kernel(",
                 "mlp_comp_bwd_kernel<", "backward_walk<float>", "cotangent_tile"):
@@ -1648,21 +1651,32 @@ def test_kink_report_runs_on_the_cpu(capsys):
 
     assert comp_kink.main(["--device", "cpu", "--rays", "8", "--hidden", "32", "--seeds", "0"]) == 0
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    # The three kernels at the four shapes of both variants, and on opaque rays.
-    assert len(lines) == 3 * (2 * len(comp_kink.SHAPES) + 1)
-    for rec in lines:
+    # The three kernels at the four shapes of both variants, and on opaque
+    # rays; then the summary line.
+    assert len(lines) == 3 * (2 * len(comp_kink.SHAPES) + 1) + 1
+    for rec in lines[:-1]:
         # On the CPU the wrappers run the plain version: no distance, no kink.
         assert rec["plain"]["dz_normwise"] == 0 and rec["kink_vs_plain"]["count"] == 0
-        assert set(rec) >= {"plain_kink", "f64", "f64_kink", "plain_vs_f64", "kink_vs_f64"}
+        assert set(rec) >= {"plain_kink", "f64", "f64_kink", "f64_branches", "plain_vs_f64",
+                            "kink_vs_f64"}
         assert rec["f64"]["dz_normwise"] == rec["plain_vs_f64"]["dz_normwise"]
+        # The recording run (the plain version's own signs here) is bitwise
+        # the run, and its mask passes the guard.
+        assert rec["recording_bitwise"] and rec["branches"]["ok"]
         if rec["kernel"] == "B4":
             assert "denc_normwise" in rec["f64"]
+    summary = lines[-1]["summary_worst_dparams_leaf"]
+    assert set(summary) == {"B7", "B5", "B4"}
+    for kernel, s in summary.items():
+        assert s["cases"] == 2 * len(comp_kink.SHAPES) + 1 and s["guard_ok"]
+        assert s["f64_branches"] == max(r["f64_branches"]["dparams_worst_leaf"]
+                                        for r in lines[:-1] if r["kernel"] == kernel)
     # The opaque rays alone, one case a kernel for each seed.
     assert comp_kink.main(["--device", "cpu", "--rays", "8", "--hidden", "32", "--seeds", "0",
                            "--opaque-only"]) == 0
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    assert [r["kernel"] for r in lines] == ["B7", "B5", "B4"]
-    assert all(r["case"].endswith("opaque") for r in lines)
+    assert [r["kernel"] for r in lines[:-1]] == ["B7", "B5", "B4"]
+    assert all(r["case"].endswith("opaque") for r in lines[:-1])
 
 
 def test_outputs_compare_bitwise_with_a_saved_run(tmp_path, capsys):

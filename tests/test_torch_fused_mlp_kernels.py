@@ -457,10 +457,11 @@ def test_build_hash_of_the_new_kernels_covers_their_headers():
     shared = {"mlp_common.cuh", "composite_common.cuh", "mlp_comp_common.cuh"}
     # Every bf16 kernel of the family runs a ray-group loop on the
     # tensor-core tiles (whose loops carry the phase stamps of
-    # tools/t32_phases.py, empty in these builds); the backwards share one
-    # header of scratch exports and the slabs' sum; the f32 backwards run the
-    # loop on the 3xTF32 tiles, whose input loads the shared header holds.
-    tiles = {"comp_mma_tile.cuh", "mlp_mma_tile.cuh", "t32_phases.cuh"}
+    # tools/t32_phases.py and the branch sinks of the recording builds, both
+    # empty in these builds); the backwards share one header of scratch
+    # exports and the slabs' sum; the f32 backwards run the loop on the 3xTF32
+    # tiles, whose input loads the shared header holds.
+    tiles = {"comp_mma_tile.cuh", "mlp_mma_tile.cuh", "t32_phases.cuh", "branch_sink.cuh"}
     t32 = {"mlp_tf32_mma_tile.cuh", "mlp_tf32_tile.cuh"}
     bwd = tiles | t32 | {"comp_exports.cuh", "grad_slabs.cuh"}
     assert deps["mlp_comp_fwd"] == shared | tiles | t32 | {"mlp_comp_fwd.cu"}

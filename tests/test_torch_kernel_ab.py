@@ -8,7 +8,7 @@ import json
 import pytest
 import torch
 
-from nerf_and_dietnerf_tpu_torch.tools import kernel_ab, sass_diff
+from nerf_and_dietnerf_tpu_torch.tools import chain, kernel_ab, sass_diff
 
 
 def test_turns_alternate_and_start_with_each_side_in_turn():
@@ -59,19 +59,21 @@ def test_report_takes_medians_over_the_turns():
     assert rep["vs_f64_chain"] is distances and rep["sass"] is sass
 
 
-def test_chain_distances_hold_each_side_against_one_f64_chain(monkeypatch):
+def test_chain_distances_hold_each_side_against_one_f64_chain():
     exact = torch.tensor([1.0, 2.0, 2.0])
     current = {}
     outs = {"parent": torch.tensor([1.0, 2.0, 2.3]), "change": torch.tensor([1.0, 2.1, 2.0])}
-    monkeypatch.setattr(kernel_ab, "_distance_cases", lambda dev: {
-        "B1 bf16": (lambda: {"out": exact.double()}, lambda: {"out": outs[current["side"]]},
-                    lambda: {"out": torch.tensor([1.0, 2.0, 2.2])})})
-    rec = kernel_ab.chain_distances("cpu", lambda side: current.update(side=side))["B1 bf16"]
-    assert rec["plain"]["out"] == pytest.approx(0.2 / 3)
-    assert rec["parent"]["out"] == pytest.approx(0.3 / 3)
-    assert rec["change"]["out"] == pytest.approx(0.1 / 3, rel=1e-5)
-    assert rec["parent_over_plain"]["out"] == pytest.approx(1.5)
-    assert rec["change_over_plain"]["out"] == pytest.approx(0.5, rel=1e-5)
+    case = chain.Chain(kernel=lambda branches=None: {"out": outs[current["side"]]},
+                       plain=lambda: {"out": torch.tensor([1.0, 2.0, 2.2])},
+                       exact=lambda branches=None: {"out": exact.double()}, pres=None,
+                       config=None, cd=torch.bfloat16, rows=3)
+    rec = kernel_ab.side_distances({"B1 bf16": case},
+                                   lambda side: current.update(side=side))["B1 bf16"]["out"]
+    assert rec["plain"] == pytest.approx(0.2 / 3)
+    assert rec["parent"] == pytest.approx(0.3 / 3)
+    assert rec["change"] == pytest.approx(0.1 / 3, rel=1e-5)
+    assert rec["ratio_parent_to_plain"] == pytest.approx(1.5)
+    assert rec["ratio_change_to_plain"] == pytest.approx(0.5, rel=1e-5)
 
 
 def test_builds_only_the_kernels_it_times():

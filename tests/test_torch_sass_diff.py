@@ -64,7 +64,7 @@ def test_ptxas_entries_read_each_kernels_own_lines():
     assert sass_diff.ptxas_entries(other) == {}
 
 
-@pytest.mark.parametrize("change", ["none", "renamed", "instruction", "registers"])
+@pytest.mark.parametrize("change", ["none", "renamed", "instruction", "registers", "added"])
 def test_compare_names_what_changed(change):
     old = sass_diff.sass_functions(SASS)
     new = {k: list(v) for k, v in old.items()}
@@ -76,12 +76,22 @@ def test_compare_names_what_changed(change):
         new["_Z18mlp_fwd_mma_kernel4Dims"][1] = "S2R R0, SR_TID.Y"
     elif change == "registers":
         new_log = LOG.replace("Used 200 registers", "Used 202 registers")
+    elif change == "added":  # a function beside unchanged ones, with ptxas lines of its own
+        new["_Z19mlp_fwd_rec_kernel4Dims"] = ["NOP"]
+        new_log = LOG.replace("--- mlp_bwd", (
+            "ptxas info    : Compiling entry function '_Z19mlp_fwd_rec_kernel4Dims' for "
+            "'sm_90a'\nptxas info    : Function properties for _Z19mlp_fwd_rec_kernel4Dims\n"
+            "    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+            "ptxas info    : Used 64 registers, 400 bytes cmem[0]\n--- mlp_bwd"))
     line = sass_diff.compare(old, new, LOG, new_log, "mlp_fwd")
-    assert line["names_equal"] == (change != "renamed")
+    assert line["names_equal"] == (change not in ("renamed", "added"))
     assert line["instructions_equal"] == (change != "instruction")
     assert line["ptxas_equal"] == (change != "registers")
-    assert line["same"] == (change in ("none", "renamed"))
-    assert line["instructions"] == [5, 5]
+    assert line["same"] == (change in ("none", "renamed", "added"))
+    assert line["instructions"] == [5, 5 + (change == "added")]
+    assert line["added"] == (["_Z19mlp_fwd_rec_kernel4Dims"] if change == "added" else [])
+    assert line["changed"] == (["_Z18mlp_fwd_mma_kernel4Dims"] if change == "instruction"
+                               else [])
 
 
 def test_tool_needs_cuobjdump(tmp_path, monkeypatch, capsys):

@@ -23,7 +23,9 @@ import chip_smoke
 import torch_parallel_ranks
 from nerf_and_dietnerf_tpu_torch.models import mlp
 from nerf_and_dietnerf_tpu_torch.models import nerf
+from nerf_and_dietnerf_tpu_torch.ops import raymarch_cuda as rc
 from nerf_and_dietnerf_tpu_torch.parallel import mesh as mesh_lib
+from nerf_and_dietnerf_tpu_torch.tools.chain import normwise
 from nerf_and_dietnerf_tpu_torch.train import train_step as ts
 from nerf_and_dietnerf_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -96,10 +98,34 @@ def test_the_f64_chain_on_the_runs_cdfs_removes_the_resamplings_amplification(se
     f64 = chip_smoke._plain_twins(torch, torch.float64)
     chain = _render(params, config, o, d, f64 + chip_smoke._cdf_replayed(record, own))
     free = _render(params, config, o, d, f64)
-    on_runs = chip_smoke._normwise(run["coarse"], chain["coarse"].double())
-    on_own = chip_smoke._normwise(run["coarse"], free["coarse"].double())
-    assert chip_smoke._normwise(record[0], own[0].double()) <= chip_smoke.TOL["float32"]
+    on_runs = normwise(run["coarse"], chain["coarse"].double())
+    on_own = normwise(run["coarse"], free["coarse"].double())
+    assert normwise(record[0], own[0].double()) <= chip_smoke.TOL["float32"]
     assert on_runs < on_own, (on_runs, on_own)
+
+
+def test_plain_twin_backward_refuses_a_work_other_than_its_own():
+    """``_plain_twins``' backward runs in the twin's ``work``: given that work,
+    none, or a ``branches=`` mask by keyword it gives the plain version's
+    result in that work; asked for another work it raises."""
+    cfg = mlp.MLPConfig(hidden_dim=32, last_hidden_dim=16)
+    ws, bs = rc.flatten_params(mlp.init_params(torch.Generator().manual_seed(0), cfg), cfg,
+                               torch.float32)
+    gen = torch.Generator().manual_seed(1)
+    x, d = torch.randn((40, cfg.xyz_dim), generator=gen), torch.randn((40, cfg.dir_dim),
+                                                                       generator=gen)
+    g = torch.randn((40, 4), generator=gen)
+    twin = dict((name, value) for owner, name, value in
+                chip_smoke._plain_twins(torch, torch.float64) if owner is rc)["mlp_bwd_plain"]
+    want = rc.mlp_bwd_plain(ws, bs, cfg, x, d, g, torch.float32, torch.float64)
+    mask = rc.own_branches(ws, bs, cfg, x, d, torch.float32, torch.float64)
+    for got in (twin(ws, bs, cfg, x, d, g, torch.float32),
+                twin(ws, bs, cfg, x, d, g, torch.float32, torch.float64),
+                twin(ws, bs, cfg, x, d, g, torch.float32, branches=mask)):
+        for a, b in zip(tree_leaves(list(got)), tree_leaves(list(want))):
+            assert a.dtype == torch.float32 and torch.equal(a, b.float())
+    with pytest.raises(ValueError, match="asked for"):
+        twin(ws, bs, cfg, x, d, g, torch.float32, torch.float32)
 
 
 def test_step_losses_record_every_steps_loss_and_change_nothing():
@@ -130,10 +156,10 @@ def test_pooled_distance_is_the_stacked_gradients_normwise_distance():
     for w in ("coarse", "fine"):
         g = torch.cat([d[w][0] for d in draws])
         c = torch.cat([d[w][1] for d in draws])
-        assert pooled[w] == pytest.approx(chip_smoke._normwise(g, c), rel=1e-12)
+        assert pooled[w] == pytest.approx(normwise(g, c), rel=1e-12)
     # One draw alone: its own normwise distance.
     one = chip_smoke._pooled(squares[:1])
-    assert one["fine"] == pytest.approx(chip_smoke._normwise(*draws[0]["fine"]), rel=1e-12)
+    assert one["fine"] == pytest.approx(normwise(*draws[0]["fine"]), rel=1e-12)
 
 
 def test_held_diet_step_pools_the_f32_vits_draws(monkeypatch, tmp_path):

@@ -728,15 +728,16 @@ def test_b2_f32_kernel_runs_the_t32_tile_on_swizzled_zero_padded_inputs():
     for line in ("    tm::load_rows(t.X, tm::LDX, x, dm.xyz, row0, dm.n);",
                  "    if (dm.has_dir) tm::load_rows(t.D, tm::LDD, d, dm.dir, row0, dm.n);",
                  "    tm::load_cotangent(t.GI, g, row0, dm.n);",
-                 "    tm::backward_tile(dm, L, M, F, Bp, B, t, ring, acts, part, first, row0, dx,"):
+                 "    tm::backward_tile<nerf_br::Sink>(dm, L, M, F, Bp, B, t, ring, acts, part, "
+                 "first, row0, dx,"):
         assert line in b2
     for line in ("  const int wp = nerf_mma::pad16(width);",
                  "    T[r * ld + sw(r, c)] = row < n && c < width ? src[(size_t)row * width + c]"
                  " : 0.f;",
                  "  const Mat b10 = bmat(Bp, M, 10);\n"
                  "  forward_tile(dm, L, M, F, B, t, ring, acts, nullptr, row0, &b10);\n"
-                 "  backward_walk(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, after,"
-                 " b10);"):
+                 "  backward_walk<Sink>(dm, L, M, Bp, t, ring, acts, part, first, row0, dx, dd, "
+                 "after, b10);"):
         assert line in T32_SRC
     # The same tile rows and slots as the exports give.
     assert "return is_bf16 ? nerf_mma::BM : TM; }" in b2
@@ -796,8 +797,8 @@ def test_t32_b6_backward_model_matches_jax_f32(case):
     tile = (CSRC / "raymarch_tile.cuh").read_text()
     for line in ("    build_t32_inputs(ry, dm.xyz, dm.dir, row0, dm.n, t.X, t.D);",
                  "    tm::load_cotangent(t.GI, g, row0, dm.n);",
-                 "    tm::backward_tile(tile_dm, L, M, F, Bp, B, t, ring, acts, part, first, 0, "
-                 "dxs, nullptr,",
+                 "    tm::backward_tile<nerf_br::Sink>(tile_dm, L, M, F, Bp, B, t, ring, acts, part, "
+                 "first, 0, dxs,\n                                     nullptr, more ? &f0 : nullptr);",
                  "    if (r < tile_dm.n) dz[row0 + r] = dz_of_row(ry, dxs + r * dm.xyz, "
                  "row0 + r);"):
         assert line in b6
